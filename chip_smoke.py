@@ -7,28 +7,51 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. device: requires ``torch.cuda.is_available()``; prints the card's name
    and ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: builds every kernel from the sources in this checkout and prints
-   the build seconds.
-3. K1 against its plain version (``dense_step_plain``) on the card, over
-   dtypes, ``nsteps``, neighborhoods and shapes, the main path's included.
-   Tolerances: f32 ``atol = rtol = 1e-6 * nsteps`` and bf16 one bf16 ulp of
-   the value scale: the two differ only in summation order and nvcc's FMA
-   contraction (and, in bf16, in which side of a rounding boundary that
-   leaves a value).
-4. main path at full width: ``Model(Diffusion(0.1)).execute`` of a 16384²
-   grid through ``SerialExecutor(step_impl="pallas")``, 64 steps, f32 with
-   ``substeps=8`` and bf16 with ``substeps=16``; conservation checked, the
-   kernel's launch counter reset just before and read just after each run.
-   The conservation check cannot fail at bf16 (its default tolerance there
-   is ~0.9 of the grid total), so the same 64-step run on a 512² grid is
-   held, at each dtype, against the plain version chained call by call.
-   Then the timing (CUDA events, warm, median) and the CLI entry point.
-5. yardstick: one ``torch.nn.functional.conv2d`` 3x3 call over the grid
-   (TF32 off); the port never calls it.
-6. reference run: the 100×100 ``Exponencial`` run at f64 on the card
-   against the port's own ``oracle.reference_run_np``.
-7. the kernels line, the card line, and the last line
-   ``{"ok": true, "device": {...}}``.
+2. build: builds every kernel from the sources in this checkout, one nvcc
+   per source started together, and prints the build seconds and ptxas.
+3. each kernel against its plain version on the card, over dtypes, depths,
+   neighborhoods and small and odd shapes, the main paths' own shapes
+   included:
+   - K1 (``dense_step_plain``) and K3 (``composed_dense_step_plain``): f32
+     ``atol = rtol = 1e-6 * k``, bf16 one bf16 ulp of the value scale. They
+     differ only in summation order and nvcc's FMA contraction (and, in
+     bf16, in which side of a rounding boundary that leaves a value).
+   - K6 (``fused_compute_plain``) and K7 (``fused_scatter_plain``): bit for
+     bit at k=1 and for K7 (K6 computes in the storage dtype with every
+     operation rounded, in the plain version's order); at k>1 within f32
+     ``1e-6 * k``, f64 ``1e-12``, bf16 one ulp of the scale per step.
+4. the K1 main path at full width: ``Model(Diffusion(0.1)).execute`` of a
+   16384² grid through ``SerialExecutor("pallas")``, 64 steps, f32
+   substeps=8 and bf16 substeps=16; conservation checked, the launch
+   counters set to 0 just before and read just after each run; the 512²
+   chained checks against the plain version; K1's timing against
+   ``conv2d`` 3x3 (TF32 off; the port never calls it).
+5. the active paths at full width, f32: the sparse state of
+   ``bench.py::_active_workload`` (a zero 16384² grid with a centred square
+   of side ``round(16384 * sqrt(frac))`` holding ``U(0.5, 2.0)`` values from
+   a numpy seed) at activity 0.01, 0.05 and 0.15, through
+   ``SerialExecutor("active")``, ``("active_fused", substeps=1)`` and
+   ``("active_fused", substeps=8)`` (k=8), 20 steps after a warm-up, each
+   run with the counters set to 0 just before and read just after:
+   conservation, K6 and K7 launches == ``flags_fused``, K1 launches ==
+   ``fallback_steps``; per row the cell-updates/s (host clock, median of
+   three runs), mean active fraction, fallback steps, the time of one pass
+   against K6 + K7 kernel time, and the peak device memory. Then the gates: one step at 0.01, ``active`` ==
+   ``active_fused`` k=1 == the plain dense step, bitwise; a dense nonzero
+   16384² state falls back every step and equals
+   ``SerialExecutor("pallas", substeps=1)`` bitwise (K1 serves the
+   fallback); a 1024² f64 state at 0.02, 12 steps, ``active`` ==
+   ``active_fused`` == ``xla`` bitwise.
+6. the composed path at full width: ``SerialExecutor("composed")`` at
+   16384², f32 substeps=8 (k=8) and bf16 substeps=16 (k=16), 64 steps,
+   conservation checked; on 512², against the K1 path under the derived
+   tolerance below; K3's time per call against its bound and against one
+   ``conv2d`` with the same table (TF32 off; the port never calls it).
+7. the CLI (K1 and active_fused rows) and the 100×100 ``Exponencial``
+   reference run at f64 against the port's own ``oracle.reference_run_np``.
+8. the kernels line, the card line, and the last line
+   ``{"ok": true, "device": {...}}``. ``chip_smoke.json`` in the output
+   directory keeps every row, every kernel case and the build record.
 """
 
 from __future__ import annotations
@@ -43,6 +66,8 @@ from pathlib import Path
 
 N = 16384          # main-path grid side (bench.py's headline grid)
 STEPS = 64
+ACTIVE_STEPS = 20
+FRACS = (0.01, 0.05, 0.15)
 SEED = 1234
 #: H100 SXM data-sheet peaks (NVIDIA): HBM bytes/s and f32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -88,7 +113,27 @@ def bound_ms(shape, itemsize: int, nsteps: int, k: int) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def larger(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def bf16_ulp(scale: float) -> float:
+    return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def workload(np, h: int, w: int, frac: float, seed: int):
+    """``bench.py::_active_workload``: zeros with a centred square of side
+    ``round(h * sqrt(frac))`` of ``U(0.5, 2.0)`` f32 values."""
+    side = max(1, int(round(h * math.sqrt(frac))))
+    v = np.zeros((h, w), np.float32)
+    r0, c0 = (h - side) // 2, (w - side) // 2
+    v[r0:r0 + side, c0:c0 + side] = np.random.default_rng(seed).uniform(
+        0.5, 2.0, (side, side)).astype(np.float32)
+    return v
+
+
 def main() -> int:
+    import numpy as np
     import torch
 
     # -- 1. device -----------------------------------------------------------
@@ -100,10 +145,15 @@ def main() -> int:
         from mpi_model_tpu_torch import oracle
         from mpi_model_tpu_torch.core.cell import (MOORE_OFFSETS,
                                                    VON_NEUMANN_OFFSETS)
+        from mpi_model_tpu_torch.models.model import kernel_launches
         from mpi_model_tpu_torch.ops import _build
+        from mpi_model_tpu_torch.ops import active as act
+        from mpi_model_tpu_torch.ops import composed_stencil as cs
+        from mpi_model_tpu_torch.ops import fused_active as fa
         from mpi_model_tpu_torch.ops import fused_stencil as fs
     except ImportError as e:
         fail(f"the port's package is not importable here: {e}")
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -116,23 +166,38 @@ def main() -> int:
           f"{torch.version.cuda}); nvidia-smi: {card_line}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    neighborhoods = {"moore": MOORE_OFFSETS, "von_neumann": VON_NEUMANN_OFFSETS,
+                     "custom": CUSTOM_OFFSETS}
+
+    def reset_counts():
+        fs.reset_launches()
+        cs.reset_launches()
+        fa.reset_launches()
+
+    cases = []  # every kernel-vs-plain case, kept in chip_smoke.json
+
+    def record(line: str, ok: bool) -> None:
+        """Keep a case's line; print it only when it fails."""
+        cases.append({"case": line, "ok": ok})
+        if not ok:
+            print(line, flush=True)
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s (one nvcc per source, "
+          "in parallel)", flush=True)
     for name, info in _build.build_info.items():
         print(f"  {name}: {info['seconds']:.2f} s cached={info['cached']}")
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
                 print(f"    {line.strip()}")
 
     # -- 3. K1 against its plain version --------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [(13, 17), (13, 160), (24, 256), (400, 1664), (2048, 2048),
               (N, N)]
-    neighborhoods = {"moore": MOORE_OFFSETS, "von_neumann": VON_NEUMANN_OFFSETS,
-                     "custom": CUSTOM_OFFSETS}
     worst = 0.0
     main_err = {}
     ncases = 0
@@ -160,15 +225,13 @@ def main() -> int:
                                    <= tol + tol * w32.abs()).all())
                         tol_s = f"atol=rtol={tol:.0e}"
                     else:
-                        scale = float(w32.abs().max())
-                        tol = 2.0 ** (math.floor(math.log2(scale)) - 7)
+                        tol = bf16_ulp(float(w32.abs().max()))
                         ok = err <= tol
                         tol_s = f"atol={tol:g} (1 bf16 ulp)"
                     ncases += 1
                     dname = str(dtype).removeprefix("torch.")
-                    print(f"K1 {dname} {shape} ns={ns} {hood}: max_abs_err="
-                          f"{err:.3e} {tol_s} {'ok' if ok else 'FAIL'}",
-                          flush=True)
+                    record(f"K1 {dname} {shape} ns={ns} {hood}: max_abs_err="
+                           f"{err:.3e} {tol_s} {'ok' if ok else 'FAIL'}", ok)
                     check(ok and math.isfinite(err),
                           f"K1 disagrees with its plain version: {dname} "
                           f"{shape} ns={ns} {hood} err={err}")
@@ -180,7 +243,151 @@ def main() -> int:
     print(f"K1: {ncases} cases agree with the plain version "
           f"(largest error {worst:.3e})", flush=True)
 
-    # -- 4. main path at full width --------------------------------------------
+    # -- 3b. K3 against its plain version -------------------------------------
+    k3_err = {}
+    ncases = 0
+    k3_shapes = [(13, 17), (77, 131), (400, 1664), (2048, 2048), (N, N)]
+    for dtype, ks in ((torch.float32, (1, 4, 8)),
+                      (torch.bfloat16, (1, 4, 8, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        for shape in k3_shapes:
+            x = (0.5 + 1.5 * torch.rand(shape, generator=gen, device=dev)).to(
+                dtype)
+            for k in ks:
+                if k > cs.max_k(shape, dtype):
+                    continue
+                for hood, offs in neighborhoods.items():
+                    if shape == (N, N) and not (hood == "moore"
+                                                and k == max(ks)):
+                        continue  # the main path's own case only
+                    got = cs.composed_dense_step(x, 0.13, k, offs)
+                    want = cs.composed_dense_step_plain(x, 0.13, k, offs)
+                    torch.cuda.synchronize()
+                    g32, w32 = got.float(), want.float()
+                    err = float((g32 - w32).abs().max())
+                    if dtype == torch.float32:
+                        tol = 1e-6 * k
+                        ok = bool(((g32 - w32).abs()
+                                   <= tol + tol * w32.abs()).all())
+                        tol_s = f"atol=rtol={tol:.0e}"
+                    else:
+                        tol = bf16_ulp(float(w32.abs().max()))
+                        ok = err <= tol
+                        tol_s = f"atol={tol:g} (1 bf16 ulp)"
+                    ncases += 1
+                    record(f"K3 {dname} {shape} k={k} {hood}: max_abs_err="
+                           f"{err:.3e} {tol_s} {'ok' if ok else 'FAIL'}", ok)
+                    check(ok and math.isfinite(err),
+                          f"K3 disagrees with its plain version: {dname} "
+                          f"{shape} k={k} {hood} err={err}")
+                    if shape == (N, N):
+                        k3_err[dname] = err
+                    del got, want, g32, w32
+            del x
+            torch.cuda.empty_cache()
+    print(f"K3: {ncases} cases agree with the plain version (at the main "
+          f"path's shape: f32 k=8 {k3_err['float32']:.3e}, bf16 k=16 "
+          f"{k3_err['bfloat16']:.3e})", flush=True)
+
+    # -- 3c. K6 and K7 against their plain versions ---------------------------
+    def active_case(v, dtype, tile, k, plan_kw=None):
+        """A state (numpy or on the card) padded to ring k, its plan and
+        its compacted active set."""
+        x = (v if isinstance(v, torch.Tensor)
+             else torch.from_numpy(v)).to(dev, dtype)
+        plan = act.plan_for(tuple(x.shape), tile=tile, **(plan_kw or {}))
+        tmap = act.tile_nonzero_map(x, plan)
+        flags = act.dilate_tile_map(tmap)
+        ids, count = act.compact_tile_ids(flags, plan)
+        selfnz = tmap.reshape(-1)[ids.long()].to(torch.int32)
+        padded = torch.nn.functional.pad(x, (k, k, k, k)).contiguous()
+        del x
+        return padded, plan, ids, count, selfnz
+
+    def k67_compare(padded, plan, ids, count, selfnz, dtype, k, offs, shape):
+        """K6 and K7 against their plain versions on one state; returns
+        (K6 max_abs_err, bitwise, within tolerance, K7 bitwise)."""
+        taps = fa._fused_taps(0.13, offs, k)
+        cnt1 = count.reshape(1).to(torch.int32)
+        upd, anyf = fa.fused_compute(
+            padded, ids, cnt1, selfnz, rate=0.13, plan=plan, origin=(0, 0),
+            global_shape=shape, offsets=offs, dtype=dtype, k=k, ring=k,
+            taps=taps)
+        want_u, want_f = fa.fused_compute_plain(
+            padded, ids, count, selfnz, 0.13, plan, (0, 0), shape, offs,
+            dtype, k, k, taps)
+        n = min(max(int(count), 1), plan.capacity)
+        g, w = upd[:n].double(), want_u[:n].double()
+        err = float((g - w).abs().max()) if n else 0.0
+        bitwise = bool(torch.equal(upd[:n], want_u[:n])
+                       and torch.equal(anyf, want_f))
+        if dtype == torch.float32:
+            tol = 1e-6 * k
+            within = bool(((g - w).abs() <= tol + tol * w.abs()).all())
+        elif dtype == torch.float64:
+            within = bool(((g - w).abs() <= 1e-12 + 1e-12 * w.abs()).all())
+        else:
+            within = err <= k * bf16_ulp(max(float(w.abs().max()), 2 ** -100))
+        within = within and bool(torch.equal(anyf, want_f))
+        p_k = fa.fused_scatter(padded.clone(), upd, ids, cnt1, plan=plan,
+                               ring=k)
+        p_p = fa.fused_scatter_plain(padded.clone(), upd, ids, count, plan, k)
+        k7_bitwise = bool(torch.equal(p_k, p_p))
+        del upd, anyf, want_u, want_f, g, w, p_k, p_p
+        return err, bitwise, within, k7_bitwise
+
+    k6_err = {}
+    ncases = 0
+    small = [((200, 264), (40, 24)), ((256, 320), (64, 64)),
+             ((96, 96), (16, 16))]
+    for dtype, ks in ((torch.float32, (1, 4, 8)), (torch.float64, (1, 4, 8)),
+                      (torch.bfloat16, (1, 4, 8, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        for shape, tile in small:
+            v_np = workload(np, shape[0], shape[1], 0.04, SEED)
+            v_np[0:5, 0:7] = np.random.default_rng(SEED).uniform(
+                0.5, 2.0, (5, 7))  # mass on the corner: near-edge tiles
+            for k in ks:
+                if k > min(tile):
+                    continue
+                for hood, offs in neighborhoods.items():
+                    case = active_case(v_np, dtype, tile, k,
+                                       {"max_active_frac": 1.0})
+                    err, bitwise, within, k7_bit = k67_compare(
+                        *case, dtype, k, offs, shape)
+                    ok = k7_bit and (bitwise if k == 1 else within)
+                    ncases += 1
+                    record(f"K6/K7 {dname} {shape} tile={tile} k={k} {hood}: "
+                           f"max_abs_err={err:.3e} bitwise={bitwise} "
+                           f"K7 bitwise={k7_bit} {'ok' if ok else 'FAIL'}",
+                           ok)
+                    check(ok, f"K6/K7 disagree with their plain versions: "
+                              f"{dname} {shape} k={k} {hood} err={err}")
+                    del case
+    # the main paths' own states: 16384² f32 at activity 0.05, 128² tiles
+    v_main = workload(np, N, N, 0.05, SEED)
+    for k in (1, 8):
+        case = active_case(v_main, torch.float32, None, k)
+        err, bitwise, within, k7_bit = k67_compare(
+            *case, torch.float32, k, MOORE_OFFSETS, (N, N))
+        ok = k7_bit and (bitwise if k == 1 else within)
+        k6_err[k] = err
+        line = (f"K6/K7 float32 {(N, N)} tile=(128, 128) k={k} moore: "
+                f"max_abs_err={err:.3e} bitwise={bitwise} K7 bitwise="
+                f"{k7_bit} {'ok' if ok else 'FAIL'}")
+        record(line, ok)
+        if ok:
+            print(line, flush=True)
+        check(ok, f"K6/K7 disagree at the main path's shape, k={k}")
+        del case
+        torch.cuda.empty_cache()
+    del v_main
+    n_bit = sum(c["case"].startswith("K6/K7") and " bitwise=True" in c["case"]
+                for c in cases)
+    print(f"K6/K7: {ncases + 2} cases agree with the plain versions, "
+          f"{n_bit} of them bit for bit", flush=True)
+
+    # -- 4. K1 main path at full width ----------------------------------------
     results = {}
     for dname, sub in (("float32", 8), ("bfloat16", 16)):
         tdt = getattr(torch, dname)
@@ -190,7 +397,7 @@ def main() -> int:
         del noise
         model = mt.Model(mt.Diffusion(0.1))
         ex = mt.SerialExecutor(step_impl="pallas", substeps=sub)
-        fs.reset_launches()
+        reset_counts()
         out, rep = model.execute(space, ex, steps=STEPS)  # raises on drift
         launched = fs.launches()
         v = out.values["value"]
@@ -221,13 +428,13 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # the main path's answer against the plain-op path on a small grid
-    small = mt.CellularSpace.create(512, 512, 1.0, dtype="float32")
-    small = small.with_values({"value": 1.0 + 0.1 * torch.rand(
+    small_space = mt.CellularSpace.create(512, 512, 1.0, dtype="float32")
+    small_space = small_space.with_values({"value": 1.0 + 0.1 * torch.rand(
         (512, 512), generator=gen, device=dev)})
     model = mt.Model(mt.Diffusion(0.1))
-    a, _ = model.execute(small, mt.SerialExecutor("pallas", substeps=8),
+    a, _ = model.execute(small_space, mt.SerialExecutor("pallas", substeps=8),
                          steps=STEPS)
-    b, _ = model.execute(small, mt.SerialExecutor("xla"), steps=STEPS)
+    b, _ = model.execute(small_space, mt.SerialExecutor("xla"), steps=STEPS)
     d = float((a.values["value"] - b.values["value"]).abs().max())
     print(f"main path 512x512 f32 pallas vs xla, {STEPS} steps: "
           f"max_abs_err={d:.3e} (atol 1e-4)", flush=True)
@@ -240,13 +447,17 @@ def main() -> int:
     # the call is a nonnegative linear map, so G is the largest entry of
     # the map applied to ones (above 1 next to the corners). So after
     # `calls` calls the two differ by at most t * (1 + G + ... + G^(calls-1)).
+    def gain(fn, sub):
+        return float(fn(torch.ones((512, 512), device=dev), sub).max())
+
     for dname, sub in (("float32", 8), ("bfloat16", 16)):
         tdt = getattr(torch, dname)
         x = (1.0 + 0.1 * torch.rand((512, 512), generator=gen,
                                     device=dev)).to(tdt)
-        small = mt.CellularSpace.create(512, 512, 1.0, dtype=dname)
-        small = small.with_values({"value": x})
-        a, _ = model.execute(small, mt.SerialExecutor("pallas", substeps=sub),
+        small_space = mt.CellularSpace.create(512, 512, 1.0, dtype=dname)
+        small_space = small_space.with_values({"value": x})
+        a, _ = model.execute(small_space,
+                             mt.SerialExecutor("pallas", substeps=sub),
                              steps=STEPS)
         want = x
         for _ in range(STEPS // sub):
@@ -255,12 +466,12 @@ def main() -> int:
         d = float((got32 - want32).abs().max())
         calls = STEPS // sub
         scale = float(want32.abs().max())
-        gain = float(fs.dense_step_plain(
-            torch.ones((512, 512), device=dev), 0.1, MOORE_OFFSETS, sub).max())
+        g = gain(lambda o, s: fs.dense_step_plain(o, 0.1, MOORE_OFFSETS, s),
+                 sub)
         t = 1e-6 * sub * (1.0 + scale)
         if tdt == torch.bfloat16:
-            t += 2.0 ** (math.floor(math.log2(scale)) - 7)
-        tol = t * sum(gain ** i for i in range(calls))
+            t += bf16_ulp(scale)
+        tol = t * sum(g ** i for i in range(calls))
         print(f"main path 512x512 {dname} substeps={sub} vs chained plain "
               f"K1, {STEPS} steps: max_abs_err={d:.3e} (atol {tol:g})",
               flush=True)
@@ -283,7 +494,7 @@ def main() -> int:
         p_ms = statistics.median(timed_ms(
             torch, lambda: fs.dense_step_plain(x, 0.1, MOORE_OFFSETS, ns),
             reps=3))
-        # -- 5. yardstick: the 3x3 neighbor sum one step is dominated by
+        # yardstick: the 3x3 neighbor sum one step is dominated by
         w = torch.ones((1, 1, 3, 3), device=dev, dtype=tdt)
         x4 = x.view(1, 1, N, N)
         l_ms = statistics.median(timed_ms(
@@ -300,17 +511,294 @@ def main() -> int:
         del x, y, bufs, x4
         torch.cuda.empty_cache()
 
+    # -- 5. the active paths at full width ------------------------------------
+    # the runners read the dilated count on the host once per pass: the
+    # round trip of one such read on an idle card
+    probe = torch.ones(4, dtype=torch.int32, device=dev)
+    sync_us = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        int(probe.sum())
+        sync_us.append((time.perf_counter() - t0) * 1e6)
+    sync_us = statistics.median(sync_us)
+    print(f"host read of a device count: {sync_us:.1f} us (median of 200)",
+          flush=True)
+    model = mt.Model(mt.Diffusion(0.1))
+    configs = (("active", 1), ("active_fused", 1), ("active_fused", 8))
+    active_rows = []
+    k67_time = {}   # (frac, k) -> K6/K7 ms on the run's starting state
+    for frac in FRACS:
+        v_np = workload(np, N, N, frac, SEED)
+        space = mt.CellularSpace.create(N, N, 0.0, dtype="float32")
+        space = space.with_values({"value": torch.from_numpy(v_np).to(dev)})
+        del v_np
+        for impl, sub in configs:
+            ex = mt.SerialExecutor(impl, substeps=sub)
+            model.execute(space, ex, steps=2)  # warm-up (and first build)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out, rep = model.execute(space, ex, steps=ACTIVE_STEPS)
+            ran = kernel_launches()
+            peak = torch.cuda.max_memory_allocated()
+            br = rep.backend_report
+            check(rep.impl == impl, f"active row ran impl {rep.impl!r}")
+            check(bool(torch.isfinite(out.values["value"]).all()),
+                  "active path output not finite")
+            passes = br.get("passes", ACTIVE_STEPS)
+            check(ran["fused_stencil"] == br["fallback_steps"],
+                  f"{impl}: K1 fallback launches {ran['fused_stencil']} != "
+                  f"fallback_steps {br['fallback_steps']}")
+            if impl == "active_fused":
+                check(ran["fused_compute"] == br["flags_fused"]
+                      and ran["fused_scatter"] == br["flags_fused"],
+                      f"K6/K7 launches {ran} != flags_fused "
+                      f"{br['flags_fused']}")
+                check(br["flags_fused"] + br["fallback_steps"] == passes,
+                      "flags_fused + fallback_steps != passes")
+                check(br["flags_fused"] > 0, "no fused pass ran")
+            # host clock around the run and a synchronize; the median of
+            # this run and two more (their launches are not counted)
+            walls = [rep.wall_time_s * 1e3] + [
+                model.execute(space, ex, steps=ACTIVE_STEPS)[1].wall_time_s
+                * 1e3 for _ in range(2)]
+            run_ms = statistics.median(walls)
+            row = {"frac": frac, "impl": impl, "substeps": sub,
+                   "steps": ACTIVE_STEPS, "passes": passes,
+                   "run_ms": run_ms, "run_ms_all": walls,
+                   "cell_updates_per_s": N * N * ACTIVE_STEPS
+                   / (run_ms / 1e3),
+                   "mean_active_fraction": br["mean_active_fraction"],
+                   "fallback_steps": br["fallback_steps"],
+                   "flags_fused": br.get("flags_fused"),
+                   "launches": ran,
+                   "conservation_error": rep.conservation_error(),
+                   "peak_mem_bytes": peak,
+                   "pass_ms": run_ms / passes}
+            if impl == "active_fused":
+                k = br["composed_k"]
+                # K6 + K7 on the run's starting state, one pass at depth k
+                case_p, plan, ids, count, selfnz = active_case(
+                    space.values["value"], torch.float32, None, k)
+                taps = fa._fused_taps(0.1, MOORE_OFFSETS, k)
+                cnt1 = count.reshape(1).to(torch.int32)
+                upd = torch.empty((plan.capacity,) + plan.tile,
+                                  dtype=torch.float32, device=dev)
+                anyf = torch.empty(plan.capacity, dtype=torch.int32,
+                                   device=dev)
+                kw = dict(rate=0.1, plan=plan, origin=(0, 0),
+                          global_shape=(N, N), offsets=MOORE_OFFSETS,
+                          dtype=torch.float32, k=k, ring=k, taps=taps,
+                          upd=upd, anyf=anyf)
+                k6 = statistics.median(timed_ms(torch, lambda: fa.fused_compute(
+                    case_p, ids, cnt1, selfnz, **kw), reps=10))
+                k7 = statistics.median(timed_ms(torch, lambda: fa.fused_scatter(
+                    case_p, upd, ids, cnt1, plan=plan, ring=k), reps=10))
+                n = int(count)
+                t = ids[:n].long()
+                th, tw = plan.tile
+                tr0, tc0 = t // plan.grid[1] * th, t % plan.grid[1] * tw
+                near = ((tr0 <= k) | (tr0 + th >= N - k) | (tc0 <= k)
+                        | (tc0 + tw >= N - k))
+                n_taps = (int(((selfnz[:n] != 0) & ~near).sum())
+                          if taps is not None else 0)
+                plain6 = plain7 = None
+                if frac == 0.05:
+                    plain6 = statistics.median(timed_ms(
+                        torch, lambda: fa.fused_compute_plain(
+                            case_p, ids, count, selfnz, 0.1, plan, (0, 0),
+                            (N, N), MOORE_OFFSETS, torch.float32, k, k,
+                            taps), reps=1))
+                    plain7 = statistics.median(timed_ms(
+                        torch, lambda: fa.fused_scatter_plain(
+                            case_p, upd, ids, count, plan, k), reps=3))
+                k67_time[(frac, k)] = {"k6_ms": k6, "k7_ms": k7, "count": n,
+                                       "tap_lanes": n_taps,
+                                       "k6_plain_ms": plain6,
+                                       "k7_plain_ms": plain7}
+                # the run's kernel time: each pass charged with K6 + K7 at
+                # its own depth (n // k passes at depth k, then n % k at
+                # depth 1), both timed on the run's starting state
+                one = k67_time[(frac, 1)]
+                q, r = divmod(ACTIVE_STEPS, k)
+                kernel_ms = q * (k6 + k7) + r * (one["k6_ms"] + one["k7_ms"])
+                row.update(k6_ms=k6, k7_ms=k7, kernel_ms_run=kernel_ms,
+                           kernel_ms_per_pass=kernel_ms / passes,
+                           host_share=1.0 - kernel_ms / run_ms)
+                del case_p, upd, anyf
+            active_rows.append(row)
+            extra = (f", pass {row['pass_ms']:.3f} ms vs K6+K7 "
+                     f"{row['kernel_ms_per_pass']:.3f} ms (host share "
+                     f"{row['host_share']:.3f})"
+                     if "k6_ms" in row else "")
+            print(f"active {impl} substeps={sub} frac={frac}: "
+                  f"{row['cell_updates_per_s']:.4e} cell-updates/s, "
+                  f"mean active {row['mean_active_fraction']:.4f}, "
+                  f"fallback {row['fallback_steps']}, passes {passes}, "
+                  f"launches {ran}{extra}, peak "
+                  f"{peak / 2 ** 30:.2f} GiB, conserved "
+                  f"(|d|={row['conservation_error']:.3e})", flush=True)
+            del out
+            torch.cuda.empty_cache()
+        if frac == FRACS[0]:
+            # gate: one step, active == active_fused k=1 == plain dense
+            one = {impl: model.execute(space, mt.SerialExecutor(impl),
+                                       steps=1)[0].values["value"]
+                   for impl in ("active", "active_fused", "xla")}
+            ok = (torch.equal(one["active"], one["xla"])
+                  and torch.equal(one["active_fused"], one["xla"]))
+            print(f"one-step gate {N}x{N} f32 frac={frac}: active == "
+                  f"active_fused == xla bitwise: {ok}", flush=True)
+            check(ok, "one-step bitwise gate failed")
+            del one
+        del space
+        torch.cuda.empty_cache()
+
+    # gate: a dense nonzero state falls back every step, K1 serving it
+    x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
+    space = mt.CellularSpace.create(N, N, 0.0, dtype="float32").with_values(
+        {"value": x})
+    reset_counts()
+    fb_out, fb_rep = model.execute(space, mt.SerialExecutor("active"),
+                                   steps=3)
+    fb_k1 = fs.launches()
+    pl_out, _ = model.execute(space, mt.SerialExecutor("pallas"), steps=3)
+    ok = (fb_rep.backend_report["fallback_steps"] == 3 and fb_k1 == 3
+          and torch.equal(fb_out.values["value"], pl_out.values["value"]))
+    print(f"fallback gate {N}x{N} f32 dense: fallback_steps="
+          f"{fb_rep.backend_report['fallback_steps']}/3, K1 launches "
+          f"{fb_k1}, equal to pallas substeps=1 bitwise: {ok}", flush=True)
+    check(ok, "fallback gate failed")
+    del x, space, fb_out, pl_out
+    torch.cuda.empty_cache()
+
+    # gate: f64, 1024², activity 0.02, 12 steps, three ways bitwise
+    v64 = workload(np, 1024, 1024, 0.02, SEED).astype(np.float64)
+    space = mt.CellularSpace.create(1024, 1024, 0.0, dtype="float64")
+    space = space.with_values({"value": torch.from_numpy(v64).to(dev)})
+    three = {impl: model.execute(space, mt.SerialExecutor(impl),
+                                 steps=12)[0].values["value"]
+             for impl in ("active", "active_fused", "xla")}
+    ok = (torch.equal(three["active"], three["xla"])
+          and torch.equal(three["active_fused"], three["xla"]))
+    print(f"f64 gate 1024x1024 frac=0.02, 12 steps: active == active_fused "
+          f"== xla bitwise: {ok}", flush=True)
+    check(ok, "f64 three-way bitwise gate failed")
+    del three, space
+
+    # -- 6. the composed path at full width -----------------------------------
+    composed = {}
+    for dname, sub in (("float32", 8), ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        noise = torch.rand((N, N), generator=gen, device=dev)
+        space = mt.CellularSpace.create(N, N, 1.0, dtype=dname)
+        space = space.with_values({"value": (1.0 + 0.1 * noise).to(tdt)})
+        del noise
+        ex = mt.SerialExecutor("composed", substeps=sub)
+        reset_counts()
+        out, rep = model.execute(space, ex, steps=STEPS)
+        launched = cs.launches()
+        br = rep.backend_report
+        check(rep.impl == "composed" and br["composed_k"] == sub,
+              f"composed path ran {rep.impl!r} k={br.get('composed_k')}")
+        check(launched == STEPS // sub == br["launches"],
+              f"{dname}: K3 launched {launched} times, expected "
+              f"{STEPS // sub}")
+        check(bool(torch.isfinite(out.values["value"]).all()),
+              "composed output not finite")
+        run_ms = timed_ms(torch, lambda: ex.run_model(model, space, STEPS),
+                          reps=3)
+        med = statistics.median(run_ms)
+        composed[dname] = {"substeps": sub, "k": sub, "steps": STEPS,
+                           "launches": launched, "variant": br["variant"],
+                           "conservation_error": rep.conservation_error(),
+                           "run_ms_median": med, "run_ms_all": run_ms,
+                           "cell_updates_per_s": N * N * STEPS / (med / 1e3)}
+        print(f"composed path {dname} {N}x{N} substeps={sub}: conserved "
+              f"(|d|={rep.conservation_error():.3e}), launches={launched}, "
+              f"{med / STEPS:.4f} ms/step, "
+              f"{composed[dname]['cell_updates_per_s']:.4e} cell-updates/s",
+              flush=True)
+        del out, space
+        torch.cuda.empty_cache()
+
+    # the composed path against the K1 path on 512², 64 steps. One call of
+    # each approximates the same k exact steps: K1's iterated steps round
+    # about 10 times per cell-step, K3's tap pass (2k+1)² times, each at
+    # most one f32 ulp of the scale, so one call differs by at most
+    # t = ((2k+1)² + 10k) · 2^-23 · scale (plus one bf16 ulp of the scale
+    # at bf16); carried through the calls with the per-call gain G as in
+    # phase 4.
+    for dname, sub in (("float32", 8), ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        x = (1.0 + 0.1 * torch.rand((512, 512), generator=gen,
+                                    device=dev)).to(tdt)
+        sp = mt.CellularSpace.create(512, 512, 1.0, dtype=dname)
+        sp = sp.with_values({"value": x})
+        a, _ = model.execute(sp, mt.SerialExecutor("composed", substeps=sub),
+                             steps=STEPS)
+        b, _ = model.execute(sp, mt.SerialExecutor("pallas", substeps=sub),
+                             steps=STEPS)
+        got32, want32 = a.values["value"].float(), b.values["value"].float()
+        d = float((got32 - want32).abs().max())
+        scale = float(want32.abs().max())
+        g = gain(lambda o, s: fs.dense_step_plain(o, 0.1, MOORE_OFFSETS, s),
+                 sub)
+        t = ((2 * sub + 1) ** 2 + 10 * sub) * 2.0 ** -23 * scale
+        if tdt == torch.bfloat16:
+            t += bf16_ulp(scale)
+        tol = t * sum(g ** i for i in range(STEPS // sub))
+        composed[dname].update(vs_k1_512_err=d, vs_k1_512_tol=tol)
+        print(f"composed path 512x512 {dname} substeps={sub} vs K1 path, "
+              f"{STEPS} steps: max_abs_err={d:.3e} (atol {tol:g})",
+              flush=True)
+        check(d <= tol, f"{dname}: the composed path disagrees with K1's")
+
+    # K3 per call: kernel, plain, bound and conv2d with the same table
+    for dname, k in (("float32", 8), ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        x = (1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)).to(tdt)
+        y = torch.empty_like(x)
+        k_ms = statistics.median(timed_ms(
+            torch, lambda: cs.composed_dense_step(x, 0.1, k, out=y),
+            reps=10))
+        p_ms = statistics.median(timed_ms(
+            torch, lambda: cs.composed_dense_step_plain(x, 0.1, k), reps=1,
+            warmup=0))
+        taps = torch.from_numpy(np.array(cs.composed_taps(
+            0.1, MOORE_OFFSETS, k))).to(dev, tdt).view(1, 1, 2 * k + 1,
+                                                    2 * k + 1)
+        x4 = x.view(1, 1, N, N)
+        l_ms = statistics.median(timed_ms(
+            torch, lambda: torch.nn.functional.conv2d(x4, taps, padding=k),
+            reps=5))
+        b_ms, b_by = larger(2 * N * N * x.element_size() / HBM_BYTES_PER_S
+                            * 1e3,
+                            cs.interior_flops((N, N), k) / F32_FLOPS * 1e3)
+        composed[dname].update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                               bound_ms=b_ms, bound_by=b_by)
+        print(f"K3 {dname} {N}x{N} k={k}: kernel {k_ms:.4f} ms/call, plain "
+              f"{p_ms:.3f} ms, conv2d {2 * k + 1}x{2 * k + 1} {l_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), {k_ms / k:.4f} ms per "
+              f"step", flush=True)
+        del x, y, x4
+        torch.cuda.empty_cache()
+
+    # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
                    "--impl=pallas", "--substeps=8", "--steps=8", "--json"])
     check(rc == 0, "the CLI run failed")
+    rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
+                   "--impl=active_fused", "--substeps=8", "--steps=8",
+                   "--blob=0.05", "--json"])
+    check(rc == 0, "the active_fused CLI run failed")
 
-    # -- 6. reference run at f64 on the card --------------------------------
     for steps in (1, 50):
         space = mt.CellularSpace.create(100, 100, 1.0, dtype="float64")
-        model = mt.Model(mt.Exponencial(mt.Cell(19, 3, mt.Attribute(99, 2.2)),
-                                        0.1), 10.0, 0.2)
-        out, rep = model.execute(space, steps=steps)
+        ref_model = mt.Model(mt.Exponencial(
+            mt.Cell(19, 3, mt.Attribute(99, 2.2)), 0.1), 10.0, 0.2)
+        out, rep = ref_model.execute(space, steps=steps)
         got = out.values["value"].cpu().numpy()
         want = oracle.reference_run_np(steps=steps)
         diff = float(abs(got - want).max())
@@ -323,10 +811,12 @@ def main() -> int:
         if steps == 1:
             check(abs(got[19, 3] - 0.78) <= 1e-12, "source cell is not 0.78")
 
-    # -- 7. result lines ------------------------------------------------------
-    # one entry per main-path run: K1 at float32 (substeps=8) and at
-    # bfloat16 (substeps=16), each with the launches of its own run
-    kernels = {"kernels": [{
+    # -- 8. result lines ------------------------------------------------------
+    def row_of(impl, sub, frac):
+        return next(r for r in active_rows if r["impl"] == impl
+                    and r["substeps"] == sub and r["frac"] == frac)
+
+    entries = [{
         "name": f"K1 fused_stencil {dname}",
         "route": "cuda",
         "source": "mpi_model_tpu_torch/csrc/fused_stencil.cu",
@@ -340,11 +830,68 @@ def main() -> int:
         "library_ms": timings[dname]["library_ms"],
         "shape": [N, N], "dtype": dname, "nsteps": timings[dname]["nsteps"],
         "main_path": results[dname],
-    } for dname in ("float32", "bfloat16")]}
+    } for dname in ("float32", "bfloat16")]
+    for dname in ("float32", "bfloat16"):
+        c = composed[dname]
+        entries.append({
+            "name": f"K3 composed_stencil {dname}",
+            "route": "cuda",
+            "source": "mpi_model_tpu_torch/csrc/composed_stencil.cu",
+            "replaces": "mpi_model_tpu/ops/pallas_stencil.py:526",
+            "launches": c["launches"], "max_abs_err": k3_err[dname],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+            "shape": [N, N], "dtype": dname, "k": c["k"],
+            "main_path": {key: c[key] for key in (
+                "steps", "substeps", "variant", "conservation_error",
+                "run_ms_median", "cell_updates_per_s", "vs_k1_512_err")},
+        })
+    for k, sub in ((1, 1), (8, 8)):
+        kt = k67_time[(0.05, k)]
+        row = row_of("active_fused", sub, 0.05)
+        b_bytes = 2 * kt["count"] * 128 * 128 * 4 / HBM_BYTES_PER_S * 1e3
+        b_ops = (kt["tap_lanes"] * 128 * 128 * 2 * (2 * k + 1) ** 2
+                 / F32_FLOPS * 1e3)
+        b_ms, b_by = larger(b_bytes, b_ops)
+        entries.append({
+            "name": f"K6 fused_compute float32 k={k}",
+            "route": "cuda",
+            "source": "mpi_model_tpu_torch/csrc/fused_active.cu",
+            "replaces": "mpi_model_tpu/ops/pallas_active.py:293",
+            "launches": row["launches"]["fused_compute"],
+            "max_abs_err": k6_err[k],
+            "ms": kt["k6_ms"], "plain_ms": kt["k6_plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": [N, N], "dtype": "float32", "k": k, "frac": 0.05,
+            "active_tiles": kt["count"], "tap_lanes": kt["tap_lanes"],
+        })
+    kt = k67_time[(0.05, 1)]
+    row = row_of("active_fused", 1, 0.05)
+    entries.append({
+        "name": "K7 fused_scatter float32",
+        "route": "cuda",
+        "source": "mpi_model_tpu_torch/csrc/fused_active.cu",
+        "replaces": "mpi_model_tpu/ops/pallas_active.py:343",
+        "launches": row["launches"]["fused_scatter"],
+        "max_abs_err": 0.0,
+        "ms": kt["k7_ms"], "plain_ms": kt["k7_plain_ms"],
+        "bound_ms": 2 * kt["count"] * 128 * 128 * 4 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": [N, N], "dtype": "float32", "frac": 0.05,
+        "active_tiles": kt["count"],
+    })
+    kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card_line, "kind": kind, **kernels}, indent=1))
+        {"card": card_line, "kind": kind, **kernels,
+         "active_rows": active_rows, "k67_times": {
+             f"{f}/k={k}": v for (f, k), v in k67_time.items()},
+         "composed": composed, "count_read_us": sync_us,
+         "build": _build.build_info, "cases": cases,
+         "seconds": time.perf_counter() - t_start}, indent=1))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,17 @@
 """mpi_model_tpu_torch — the PyTorch/CUDA port of ``mpi_model_tpu``.
 
 The same cellular-space framework (CellularSpace / Cell / Attribute / Flow /
-Model) in PyTorch for one NVIDIA H100, with the fused stencil kernel written
-by hand in CUDA C++ (``csrc/fused_stencil.cu``). It imports torch and numpy,
+Model) in PyTorch for one NVIDIA H100, with the kernels written by hand in
+CUDA C++ (``csrc/``): the fused stencil K1, the composed k-step filter K3 and
+the fused active-tile pass K6/K7. It imports torch and numpy,
 never jax and nothing of ``mpi_model_tpu``. Entry points run on the card
 unless the caller asks for the CPU (``device="cpu"``).
 
 Layer map (as in the JAX package):
   L0 ``abstraction``  — dtype seam (DataType → torch dtypes)
   L2 ``core``         — Attribute/Cell/CellularSpace
-  L3 ``ops``          — flows, plain-torch stencil, fused kernel K1
+  L3 ``ops``          — flows, plain-torch stencil, active-tile engine,
+                         kernels K1, K3, K6/K7
   L4 ``models``       — Model/SerialExecutor/Report
   —  ``oracle``, ``interop``, ``cli``
 """

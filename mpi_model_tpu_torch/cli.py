@@ -2,19 +2,31 @@
 
     python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \\
         --dimy=16384 --impl=pallas --substeps=8 --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \\
+        --dimy=16384 --impl=active_fused --substeps=8 --blob=0.05 --json
 
 Runs on the card unless ``--device=cpu`` is given. Prints one row: the impl
 that actually ran, the kernel launch count, the totals, whether mass was
-conserved and the wall time. Exit status 1 when conservation fails.
+conserved, the wall time and the executor's ``backend_report`` (the
+composed k, the active engine's fallback steps, mean active fraction and
+per-kernel launches). ``--blob=FRAC`` starts from zeros with a centred
+square of ``U(0.5, 2.0)`` values (numpy seed 0) covering FRAC of the grid
+(the active engine's sparse workload) instead of ``--init`` everywhere.
+Exit status 1
+when conservation fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 from typing import Optional
+
+import numpy as np
+import torch
 
 from . import (Attribute, Cell, CellularSpace, Diffusion, Exponencial, Model,
                SerialExecutor)
@@ -28,6 +40,10 @@ def cmd_run(args) -> int:
         flow = Diffusion(0.1)
     space = CellularSpace.create(args.dimx, args.dimy, args.init,
                                  dtype=args.dtype, device=args.device)
+    if args.blob is not None:
+        v = blob_grid(args.dimx, args.dimy, args.blob)
+        space = space.with_values({"value": torch.from_numpy(v).to(
+            device=space.device, dtype=space.dtype)})
     model = Model(flow)
     executor = SerialExecutor(step_impl=args.impl, substeps=args.substeps)
     t0 = time.perf_counter()
@@ -43,6 +59,7 @@ def cmd_run(args) -> int:
         "impl": report.impl,
         "substeps": args.substeps,
         "kernel_launches": (report.backend_report or {}).get("launches", 0),
+        "backend_report": report.backend_report,
         "steps": report.steps,
         "initial": report.initial_total,
         "final": report.final_total,
@@ -61,6 +78,18 @@ def cmd_run(args) -> int:
     return 0 if row["conserved"] else 1
 
 
+def blob_grid(h: int, w: int, frac: float, seed: int = 0) -> np.ndarray:
+    """Zeros with a centred square of side ``round(h * sqrt(frac))`` holding
+    ``U(0.5, 2.0)`` values from ``seed`` (f32): the state a point source's
+    front reaches after sweeping ``frac`` of the grid."""
+    side = max(1, min(h, w, int(round(h * math.sqrt(frac)))))
+    v = np.zeros((h, w), np.float32)
+    r0, c0 = (h - side) // 2, (w - side) // 2
+    v[r0:r0 + side, c0:c0 + side] = np.random.default_rng(seed).uniform(
+        0.5, 2.0, (side, side)).astype(np.float32)
+    return v
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m mpi_model_tpu_torch.cli",
                                  description=__doc__.split("\n\n")[0])
@@ -76,9 +105,17 @@ def main(argv: Optional[list[str]] = None) -> int:
     run.add_argument("--dtype", default="float32",
                      choices=("float32", "float64", "bfloat16"))
     run.add_argument("--impl", default="auto",
-                     choices=("xla", "pallas", "auto"),
+                     choices=("xla", "pallas", "auto", "composed", "active",
+                              "active_fused"),
                      help="xla: plain torch ops; pallas: the fused CUDA "
-                     "kernel; auto: pallas where eligible")
+                     "kernel K1; composed: the composed k-step filter K3; "
+                     "active: the plain active-tile engine; active_fused: "
+                     "the fused active kernels K6 + K7; auto: pallas where "
+                     "eligible")
+    run.add_argument("--blob", type=float, default=None,
+                     help="start from a centred square of random values "
+                     "(seed 0) covering this fraction of the grid, zeros "
+                     "elsewhere")
     run.add_argument("--substeps", type=int, default=1)
     run.add_argument("--device", default="cuda",
                      help="torch device (default: the card)")

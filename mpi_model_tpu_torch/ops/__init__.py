@@ -1,7 +1,14 @@
-"""L3 ops: flows, plain-torch stencil transport and the fused kernel K1."""
+"""L3 ops: flows, plain-torch stencil transport, the active-tile engine and
+the kernels K1 (fused stencil), K3 (composed filter), K6/K7 (fused active
+pass)."""
 
 from .flow import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
     build_outflow
+from .active import ActiveDiffusionStep, build_active_runner, plan_for
+from .composed_stencil import ComposedDiffusionStep, composed_dense_step, \
+    composed_taps
+from .fused_active import FusedActiveStep, build_fused_runner, \
+    fused_active_pass
 from .fused_stencil import PallasDiffusionStep, check_offsets, \
     dense_step_plain, pallas_dense_step
 from .stencil import flow_step, gather_neighbors, neighbor_counts, \
@@ -12,5 +19,7 @@ __all__ = [
     "build_outflow", "PallasDiffusionStep", "check_offsets",
     "dense_step_plain", "pallas_dense_step", "flow_step",
     "gather_neighbors", "neighbor_counts", "point_flow_step", "shift2d",
-    "transport",
+    "transport", "ActiveDiffusionStep", "build_active_runner", "plan_for",
+    "ComposedDiffusionStep", "composed_dense_step", "composed_taps",
+    "FusedActiveStep", "build_fused_runner", "fused_active_pass",
 ]

@@ -1,18 +1,33 @@
-"""K1 on the card against its plain version. Needs a CUDA device and skips
-without one. It imports neither jax nor the JAX package, so it also runs
-where only torch is installed:
+"""The port's kernels on the card against their plain versions: K1, K3, K6
+and K7. Needs a CUDA device and skips without one. It imports neither jax
+nor the JAX package, so it also runs where only torch is installed:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
-Tolerances: f32 ``1e-6 * nsteps``, bf16 one ulp at values below 4; the two
-differ only in summation order and nvcc's FMA contraction."""
+Tolerances: K1 and K3 f32 ``1e-6 * nsteps`` (they differ from their plain
+versions only in summation order and nvcc's FMA contraction), bf16 one ulp
+at values below 4. K6 and K7 are held bit for bit: K6 computes in the
+storage dtype with every operation rounded, in the plain version's order,
+and K7 moves bits."""
 
 import numpy as np
 import pytest
 import torch
 
+import mpi_model_tpu_torch as mt
 from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS, VON_NEUMANN_OFFSETS
+from mpi_model_tpu_torch.ops import active as act
+from mpi_model_tpu_torch.ops import composed_stencil as cs
+from mpi_model_tpu_torch.ops import fused_active as fa
 from mpi_model_tpu_torch.ops import fused_stencil as fs
+
+CUSTOM = ((-1, 0), (1, 1), (0, -1))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
 
 
 @pytest.mark.cuda
@@ -20,9 +35,7 @@ from mpi_model_tpu_torch.ops import fused_stencil as fs
                                       (torch.bfloat16, 16)])
 @pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS])
 def test_kernel_matches_plain_on_the_card(dtype, ns, offs):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    dev = torch.device("cuda")
+    dev = _card()
     v = np.random.default_rng(42).uniform(0.5, 2.0, (256, 512))
     x = torch.from_numpy(v).to(dev, dtype)
     before = fs.launches()
@@ -34,3 +47,102 @@ def test_kernel_matches_plain_on_the_card(dtype, ns, offs):
     # out of place: the input is untouched
     torch.testing.assert_close(x, torch.from_numpy(v).to(dev, dtype),
                                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 4),
+                                     (torch.float32, 8), (torch.bfloat16, 8),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("shape", [(256, 512), (77, 131)])
+def test_composed_kernel_matches_plain_on_the_card(dtype, k, offs, shape):
+    dev = _card()
+    v = np.random.default_rng(7).uniform(0.5, 2.0, shape)
+    x = torch.from_numpy(v).to(dev, dtype)
+    before = cs.launches()
+    got = cs.composed_dense_step(x, 0.13, k, offs)
+    assert cs.launches() == before + 1
+    want = cs.composed_dense_step_plain(x, 0.13, k, offs)
+    tol = 1e-6 * k if dtype == torch.float32 else 2.0 ** -6
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _active_case(dev, dtype, shape, tile, k, seed):
+    """A sparse state padded to ring k, its plan and compacted active set:
+    two blobs, one touching the top-left corner, one inside."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    v = np.zeros(shape)
+    v[0:5, 0:7] = rng.uniform(0.5, 2.0, (5, 7))
+    r0, c0 = h // 2 - 9, w // 2 - 13
+    v[r0:r0 + 30, c0:c0 + 40] = rng.uniform(0.5, 2.0, (30, 40))
+    x = torch.from_numpy(v).to(dev, dtype)
+    plan = act.plan_for(shape, tile=tile, max_active_frac=1.0)
+    tmap = act.tile_nonzero_map(x, plan)
+    flags = act.dilate_tile_map(tmap)
+    ids, count = act.compact_tile_ids(flags, plan)
+    selfnz = tmap.reshape(-1)[ids.long()].to(torch.int32)
+    padded = torch.nn.functional.pad(x, (k, k, k, k)).contiguous()
+    return padded, plan, ids, count, selfnz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [
+    (torch.float64, 1), (torch.float32, 1), (torch.bfloat16, 1),
+    (torch.float64, 4), (torch.float32, 8), (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("shape,tile", [((256, 320), (64, 64)),
+                                        ((200, 264), (40, 24))])
+def test_fused_active_kernels_bitwise_on_the_card(dtype, k, offs, shape,
+                                                  tile):
+    dev = _card()
+    if k > min(tile):
+        pytest.skip("k beyond the tile")
+    padded, plan, ids, count, selfnz = _active_case(dev, dtype, shape, tile,
+                                                    k, 3)
+    taps = fa._fused_taps(0.13, offs, k)
+    kw = dict(rate=0.13, plan=plan, origin=(0, 0), global_shape=shape,
+              offsets=offs, dtype=dtype, k=k, ring=k, taps=taps)
+    cnt1 = count.reshape(1).to(torch.int32)
+    before = fa.launches()
+    upd, anyf = fa.fused_compute(padded, ids, cnt1, selfnz, **kw)
+    want_u, want_f = fa.fused_compute_plain(
+        padded, ids, count, selfnz, 0.13, plan, (0, 0), shape, offs, dtype,
+        k, k, taps)
+    n = min(max(int(count), 1), plan.capacity)
+    assert torch.equal(upd[:n], want_u[:n])
+    assert torch.equal(anyf, want_f)
+    got_p = fa.fused_scatter(padded.clone(), upd, ids, cnt1, plan=plan,
+                             ring=k)
+    want_p = fa.fused_scatter_plain(padded.clone(), upd, ids, count, plan, k)
+    assert torch.equal(got_p, want_p)
+    assert fa.launches() == {"fused_compute": before["fused_compute"] + 1,
+                             "fused_scatter": before["fused_scatter"] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_active_paths_bitwise_against_dense_on_the_card(dtype):
+    dev = _card()
+    g = 384
+    v = np.zeros((g, g), np.float32)
+    v[150:200, 170:230] = np.random.default_rng(5).uniform(0.5, 2.0,
+                                                           (50, 60))
+    space = mt.CellularSpace.create(g, g, 0.0, dtype=dtype, device=dev)
+    space = space.with_values({"value": torch.from_numpy(v).to(
+        dev, space.dtype)})
+    model = mt.Model(mt.Diffusion(0.1))
+    opts = {"tile": (32, 32)}
+    want, _ = model.execute(space, mt.SerialExecutor("xla"), steps=12)
+    got_a, rep_a = model.execute(
+        space, mt.SerialExecutor("active", active_opts=opts), steps=12)
+    got_f, rep_f = model.execute(
+        space, mt.SerialExecutor("active_fused", active_opts=opts),
+        steps=12)
+    assert torch.equal(got_a.values["value"], want.values["value"])
+    assert torch.equal(got_f.values["value"], want.values["value"])
+    br = rep_f.backend_report
+    assert br["fallback_steps"] == 0 and br["flags_fused"] == 12
+    assert br["kernel_launches"]["fused_compute"] == 12
+    assert br["kernel_launches"]["fused_scatter"] == 12
+    assert rep_a.backend_report["fallback_steps"] == 0

@@ -164,11 +164,22 @@ def test_auto_picks_by_static_eligibility_only():
 
 @pytest.mark.parametrize("impl", ["composed", "active", "active_fused"])
 def test_unported_impls_name_the_roadmap(impl):
+    """The three impls are ported; what they still lack (bf16 interior
+    math) names the ROADMAP, through make_step and the executor alike."""
     s = mt.CellularSpace.create(8, 8, 1.0, device="cpu")
+    m = mt.Model(mt.Diffusion(0.1))
+    assert m.make_step(s, impl=impl).impl == impl
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mt.Model(mt.Diffusion(0.1)).make_step(s, impl=impl)
+        m.make_step(s, impl=impl, compute_dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mt.SerialExecutor(step_impl=impl)
+        m.execute(s, mt.SerialExecutor(step_impl=impl,
+                                       compute_dtype=torch.bfloat16))
+    out, rep = m.execute(s, mt.SerialExecutor(step_impl=impl), steps=2)
+    ref, _ = m.execute(s, mt.SerialExecutor(step_impl="xla"), steps=2)
+    assert rep.impl == impl
+    np.testing.assert_allclose(out.values["value"].numpy(),
+                               ref.values["value"].numpy(), rtol=0,
+                               atol=1e-6)
 
 
 def test_unported_options_name_the_roadmap():
@@ -308,6 +319,12 @@ def test_oracle_and_offset_copies_equal_the_originals():
     (["--flow=diffusion", "--dimx=16", "--dimy=16", "--dtype=float64",
       "--steps=3"], "xla"),
     (["--steps=50", "--dtype=float64"], "point"),
+    (["--flow=diffusion", "--dimx=64", "--dimy=256", "--impl=composed",
+      "--substeps=8", "--steps=16"], "composed"),
+    (["--flow=diffusion", "--dimx=64", "--dimy=64", "--impl=active",
+      "--blob=0.05", "--dtype=float64", "--steps=5"], "active"),
+    (["--flow=diffusion", "--dimx=64", "--dimy=64", "--impl=active_fused",
+      "--blob=0.05", "--substeps=4", "--steps=8"], "active_fused"),
 ])
 def test_cli_row(argv, impl, capsys):
     import json
@@ -316,7 +333,14 @@ def test_cli_row(argv, impl, capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["impl"] == impl and row["conserved"] is True
     assert row["kernel_launches"] == 0 and row["device"] == "cpu"
-    assert set(row) >= {"initial", "final", "wall_s", "steps"}
+    assert set(row) >= {"initial", "final", "wall_s", "steps",
+                        "backend_report"}
+    if impl in ("active", "active_fused"):
+        br = row["backend_report"]
+        assert br["impl"] == impl and br["fallback_steps"] == 0
+        assert 0.0 < br["mean_active_fraction"] <= 1.0
+    if impl == "composed":
+        assert row["backend_report"]["composed_k"] == 8
 
 
 def _imports(path: Path) -> set[str]:
@@ -335,12 +359,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mpi_model_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.name for f in files}
+    assert {"active.py", "fused_active.py", "composed_stencil.py"} <= names
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
 
 
 def test_kernel_source_is_in_the_package():
-    assert (REPO / "mpi_model_tpu_torch/csrc/fused_stencil.cu").is_file()
+    for name in ("fused_stencil.cu", "composed_stencil.cu", "fused_active.cu",
+                 "stencil_common.cuh"):
+        assert (REPO / "mpi_model_tpu_torch/csrc" / name).is_file(), name
     # nothing is built at import time
     assert fs.launches() >= 0
