@@ -20,6 +20,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      bit at k=1 and for K7 (K6 computes in the storage dtype with every
      operation rounded, in the plain version's order); at k>1 within f32
      ``1e-6 * k``, f64 ``1e-12``, bf16 one ulp of the scale per step.
+   - K4 (``field_step_plain``): bit for bit, f32 and bf16, nsteps 1, 4, 8
+     (and 16 at bf16), over config 4's flows, ``Coupled`` alone (the
+     modulator must come back as the same tensor), an affine user flow, a
+     row-reading flow (``cell_coords``), a 3-channel chain and one flow
+     with every whitelisted operation. That last one uses ``exp``, where
+     CUDA's ``expf`` and torch's may differ by an ulp: it is held to
+     ``8·eps·nsteps·max|v|`` (plus one bf16 ulp of the scale at bf16).
 4. the K1 main path at full width: ``Model(Diffusion(0.1)).execute`` of a
    16384² grid through ``SerialExecutor("pallas")``, 64 steps, f32
    substeps=8 and bf16 substeps=16; conservation checked, the launch
@@ -47,7 +54,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    conservation checked; on 512², against the K1 path under the derived
    tolerance below; K3's time per call against its bound and against one
    ``conv2d`` with the same table (TF32 off; the port never calls it).
-7. the CLI (K1 and active_fused rows) and the 100×100 ``Exponencial``
+6b. the field path at full width (BASELINE config 4): ``Model([Diffusion(0.1,
+   "a"), Coupled(0.05, "a", "b"), Diffusion(0.2, "b")]).execute`` of an 8192²
+   two-channel space of ``U(0.5, 2.0)`` from a numpy seed through
+   ``SerialExecutor("pallas")``: f32 at substeps 1 and 8, bf16 at 1 and 16,
+   64 steps each, the counters set to 0 just before and read just after
+   each run (K4 launches == steps / substeps); conservation checked;
+   ``SerialExecutor("auto")`` reports ``pallas``; on 512², 64 steps against
+   the plain version chained call by call, bit for bit; cell-updates/s
+   (CUDA events, median), K4 ms per call against its bound (computed from
+   the lowered program), the plain version's and the ``impl="xla"`` step's
+   times, and the peak device memory.
+7. the CLI (K1, active_fused and K4 rows) and the 100×100 ``Exponencial``
    reference run at f64 against the port's own ``oracle.reference_run_np``.
 8. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``. ``chip_smoke.json`` in the output
@@ -65,6 +83,7 @@ import time
 from pathlib import Path
 
 N = 16384          # main-path grid side (bench.py's headline grid)
+N4 = 8192          # the field path's grid side (BASELINE config 4)
 STEPS = 64
 ACTIVE_STEPS = 20
 FRACS = (0.01, 0.05, 0.15)
@@ -132,6 +151,77 @@ def workload(np, h: int, w: int, frac: float, seed: int):
     return v
 
 
+def field_flow_sets(mt, torch) -> dict:
+    """K4's flow sets: config 4's, ``Coupled`` alone, an affine user flow
+    (outflow(0) != 0), a row-reading flow, a 3-channel chain and one flow
+    with every whitelisted operation (beside a Diffusion on its
+    modulator)."""
+    from mpi_model_tpu_torch.ops.flow import Flow, cell_coords
+
+    class Affine(Flow):
+        footprint = "pointwise"
+        attr = "a"
+
+        def outflow(self, values, origin=(0, 0)):
+            return 0.05 * (3.0 - values["a"])
+
+    class RowRate(Flow):
+        footprint = "pointwise"
+        attr = "a"
+
+        def outflow(self, values, origin=(0, 0)):
+            v = values["a"]
+            rows, _ = cell_coords(v, origin)
+            return 0.002 * rows.to(v.dtype) * v
+
+    class EveryOp(Flow):
+        footprint = "pointwise"
+        attr = "a"
+
+        def outflow(self, values, origin=(0, 0)):
+            a, b = values["a"], values["b"]
+            r, c = cell_coords(a, origin)
+            x = (torch.minimum(a, b) * 0.3
+                 + torch.maximum(a, 2.0 - b) / (b + 1.5))
+            y = (-a).abs() * torch.exp(-b) + a ** 2 * 0.01 - b ** 3 * 0.001
+            z = ((c + 1).to(a.dtype) * 1e-4 * a
+                 - (r - 2).to(a.dtype) * 1e-5 * torch.clamp(b, 0.7, 1.8))
+            return (x + y + z).clamp(min=0.0) * 0.05
+
+    return {
+        "config4": config4_flows(mt),
+        "coupled_alone": [mt.Coupled(0.05, "a", "b")],
+        "affine": [Affine()],
+        "row_rate": [RowRate()],
+        "chain3": [mt.Diffusion(0.1, "a"), mt.Diffusion(0.1, "b"),
+                   mt.Diffusion(0.1, "c"), mt.Coupled(0.05, "a", "b"),
+                   mt.Coupled(0.05, "b", "c")],
+        "every_op": [EveryOp(), mt.Diffusion(0.1, "b")],
+    }
+
+
+def config4_flows(mt) -> list:
+    """BASELINE config 4's flow set (``benchmarks/ladder.py``)."""
+    return [mt.Diffusion(0.1, "a"), mt.Coupled(0.05, "a", "b"),
+            mt.Diffusion(0.2, "b")]
+
+
+def field_bound_ms(prog, shape, itemsize: int, nsteps: int,
+                   k: int) -> tuple[float, str]:
+    """Least time for one K4 call, from the lowered program: every loaded
+    channel read once and every written channel written once over HBM
+    bandwidth, or the flops per cell-step (the program's, which include the
+    adds that sum flows of one channel, and per written channel a divide, k
+    inflow adds and two more) over the f32 peak, whichever is larger."""
+    cells = shape[0] * shape[1]
+    n_out = len(prog.outputs)
+    bytes_ms = ((len(prog.channels) + n_out) * cells * itemsize
+                / HBM_BYTES_PER_S * 1e3)
+    flops = prog.flops() + n_out * (k + 3)
+    ops_ms = cells * nsteps * flops / F32_FLOPS * 1e3
+    return larger(bytes_ms, ops_ms)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -149,6 +239,7 @@ def main() -> int:
         from mpi_model_tpu_torch.ops import _build
         from mpi_model_tpu_torch.ops import active as act
         from mpi_model_tpu_torch.ops import composed_stencil as cs
+        from mpi_model_tpu_torch.ops import field_stencil as k4
         from mpi_model_tpu_torch.ops import fused_active as fa
         from mpi_model_tpu_torch.ops import fused_stencil as fs
     except ImportError as e:
@@ -172,6 +263,7 @@ def main() -> int:
     def reset_counts():
         fs.reset_launches()
         cs.reset_launches()
+        k4.reset_launches()
         fa.reset_launches()
 
     cases = []  # every kernel-vs-plain case, kept in chip_smoke.json
@@ -386,6 +478,72 @@ def main() -> int:
                 for c in cases)
     print(f"K6/K7: {ncases + 2} cases agree with the plain versions, "
           f"{n_bit} of them bit for bit", flush=True)
+
+    # -- 3d. K4 against its plain version -------------------------------------
+    flow_sets = field_flow_sets(mt, torch)
+    k4_err = {}
+    ncases = n_bit = 0
+    k4_shapes = [(5, 7), (37, 300), (77, 131), (N4, N4)]
+    for dtype, nsteps_set in ((torch.float32, (1, 4, 8)),
+                              (torch.bfloat16, (1, 4, 8, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        for shape in k4_shapes:
+            vals = {n: (0.5 + 1.5 * torch.rand(shape, generator=gen,
+                                               device=dev)).to(dtype)
+                    for n in ("a", "b", "c")}
+            depth = fs.ghost_depth(shape, dtype)
+            for ns in nsteps_set:
+                if ns > depth:
+                    continue
+                for hood, offs in neighborhoods.items():
+                    for fname, flows in flow_sets.items():
+                        if shape == (N4, N4) and not (
+                                hood == "moore" and fname == "config4"
+                                and ns == max(nsteps_set)):
+                            continue  # the main path's own case only
+                        step = k4.PallasFieldStep(shape, flows, offsets=offs,
+                                                  nsteps=ns)
+                        got = step(vals)
+                        want = k4.field_step_plain(vals, flows, offs, ns)
+                        torch.cuda.synchronize()
+                        written = {f.attr for f in flows}
+                        ok = step.launches == 1 and all(
+                            got[n] is vals[n] for n in vals
+                            if n not in written)
+                        err, exact = 0.0, True
+                        for n in sorted(written):
+                            g32, w32 = got[n].float(), want[n].float()
+                            e = float((g32 - w32).abs().max())
+                            err = max(err, e)
+                            exact = exact and bool(torch.equal(got[n],
+                                                               want[n]))
+                            if fname == "every_op" and n == "a":
+                                scale = float(w32.abs().max())
+                                tol = 8 * 2.0 ** -23 * ns * scale
+                                if dtype == torch.bfloat16:
+                                    tol += bf16_ulp(scale)
+                                ok = ok and e <= tol
+                            else:
+                                ok = ok and bool(torch.equal(got[n],
+                                                             want[n]))
+                        ncases += 1
+                        n_bit += exact
+                        record(f"K4 {dname} {shape} ns={ns} {hood} {fname}: "
+                               f"max_abs_err={err:.3e} bitwise={exact} "
+                               f"{'ok' if ok else 'FAIL'}", ok)
+                        check(ok and math.isfinite(err),
+                              f"K4 disagrees with its plain version: {dname} "
+                              f"{shape} ns={ns} {hood} {fname} err={err}")
+                        if shape == (N4, N4):
+                            k4_err[dname] = err
+                        del got, want
+            del vals
+            torch.cuda.empty_cache()
+    print(f"K4: {ncases} cases agree with the plain version, {n_bit} of them "
+          f"bit for bit (every_op, with exp, is held to a tolerance); at the "
+          f"main path's shape f32 "
+          f"ns=8 {k4_err['float32']:.3e}, bf16 ns=16 "
+          f"{k4_err['bfloat16']:.3e}", flush=True)
 
     # -- 4. K1 main path at full width ----------------------------------------
     results = {}
@@ -784,6 +942,131 @@ def main() -> int:
         del x, y, x4
         torch.cuda.empty_cache()
 
+    # -- 6b. the field path at full width (BASELINE config 4) ----------------
+    model4 = mt.Model(config4_flows(mt))
+    rng = np.random.default_rng(SEED)
+    base4 = {n: torch.from_numpy(rng.uniform(0.5, 2.0, (N4, N4)).astype(
+        np.float32)).to(dev) for n in ("a", "b")}
+    field_rows = []
+    k4_run = {}  # dtype -> the launches of its deepest-substeps run
+    for dname, sub in (("float32", 1), ("float32", 8), ("bfloat16", 1),
+                       ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0},
+                                        dtype=dname)
+        space = space.with_values({n: t.to(tdt) for n, t in base4.items()})
+        ex = mt.SerialExecutor(step_impl="pallas", substeps=sub)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        out, rep = model4.execute(space, ex, steps=STEPS)  # raises on drift
+        ran = kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        check(rep.impl == "pallas" and rep.backend_report["kernel"]
+              == "K4 field_stencil", f"field path ran {rep.impl!r} "
+              f"{rep.backend_report}")
+        check(ran["field_stencil"] == STEPS // sub
+              == rep.backend_report["launches"],
+              f"{dname} substeps={sub}: K4 launched {ran['field_stencil']} "
+              f"times, expected {STEPS // sub}")
+        check(sum(ran.values()) == ran["field_stencil"],
+              f"another kernel ran on the field path: {ran}")
+        for n in ("a", "b"):
+            v = out.values[n]
+            check(tuple(v.shape) == (N4, N4) and v.dtype == tdt
+                  and bool(torch.isfinite(v).all()),
+                  "field-path output has the wrong shape or dtype, or is "
+                  "not finite")
+        run_ms = timed_ms(torch, lambda: ex.run_model(model4, space, STEPS),
+                          reps=3)
+        med = statistics.median(run_ms)
+        row = {"dtype": dname, "substeps": sub, "steps": STEPS,
+               "launches": ran["field_stencil"],
+               "conservation_error": rep.conservation_error(),
+               "run_ms_median": med, "run_ms_all": run_ms,
+               "step_ms": med / STEPS,
+               "cell_updates_per_s": N4 * N4 * STEPS / (med / 1e3),
+               "peak_mem_bytes": peak, "held_before_run_bytes": held,
+               "run_peak_above_held_bytes": peak - held}
+        field_rows.append(row)
+        k4_run[dname] = row
+        print(f"field path {dname} {N4}x{N4} substeps={sub}: conserved "
+              f"(|d|={row['conservation_error']:.3e}), impl=pallas (K4), "
+              f"launches={row['launches']}, {row['step_ms']:.4f} ms/step, "
+              f"{row['cell_updates_per_s']:.4e} cell-updates/s, peak "
+              f"{peak / 2 ** 30:.2f} GiB ({(peak - held) / 2 ** 30:.2f} GiB "
+              f"above the {held / 2 ** 30:.2f} GiB held before the run)",
+              flush=True)
+        del out, space
+        torch.cuda.empty_cache()
+    space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0})
+    space = space.with_values(base4)
+    _, rep = model4.execute(space, mt.SerialExecutor("auto", substeps=8),
+                            steps=8)
+    check(rep.impl == "pallas" and rep.backend_report["kernel"]
+          == "K4 field_stencil", f"SerialExecutor('auto') ran {rep.impl!r}")
+    del space
+
+    # 512², 64 steps, against the plain version chained call by call
+    small = {n: torch.from_numpy(rng.uniform(0.5, 2.0, (512, 512)).astype(
+        np.float32)).to(dev) for n in ("a", "b")}
+    for dname, sub in (("float32", 1), ("float32", 8), ("bfloat16", 1),
+                       ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        x = {n: t.to(tdt) for n, t in small.items()}
+        sp = mt.CellularSpace.create(512, 512, {"a": 1.0, "b": 1.0},
+                                     dtype=dname).with_values(x)
+        a, _ = model4.execute(sp, mt.SerialExecutor("pallas", substeps=sub),
+                              steps=STEPS)
+        want = x
+        for _ in range(STEPS // sub):
+            want = k4.field_step_plain(want, model4.flows, nsteps=sub)
+        ok = all(torch.equal(a.values[n], want[n]) for n in ("a", "b"))
+        d = max(float((a.values[n].float() - want[n].float()).abs().max())
+                for n in ("a", "b"))
+        print(f"field path 512x512 {dname} substeps={sub} vs chained plain "
+              f"K4, {STEPS} steps: bitwise={ok} (max_abs_err={d:.3e})",
+              flush=True)
+        check(ok, f"{dname} substeps={sub}: the field path is not bitwise "
+                  "the plain version")
+
+    # K4 per call: kernel, plain version, bound; the xla step as context
+    field_timing = {}
+    for dname, ns in (("float32", 8), ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        x = {n: t.to(tdt) for n, t in base4.items()}
+        step = k4.PallasFieldStep((N4, N4), model4.flows, dtype=tdt,
+                                  nsteps=ns, names=("a", "b"))
+        bufs = [x, {n: torch.empty_like(t) for n, t in x.items()}]
+
+        def kernel_call():
+            step(bufs[0], out=bufs[1])
+            bufs.reverse()
+
+        k_ms = statistics.median(timed_ms(torch, kernel_call, reps=10))
+        p_ms = statistics.median(timed_ms(
+            torch, lambda: k4.field_step_plain(x, model4.flows, nsteps=ns),
+            reps=3))
+        sp = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0},
+                                     dtype=dname).with_values(x)
+        sx = model4.make_step(sp, impl="xla")
+        x_ms = statistics.median(timed_ms(torch, lambda: sx(x), reps=3))
+        b_ms, b_by = field_bound_ms(step.program, (N4, N4),
+                                    x["a"].element_size(), ns, 8)
+        field_timing[dname] = {
+            "nsteps": ns, "ms": k_ms, "plain_ms": p_ms, "xla_step_ms": x_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "tile_h": step.tile_h,
+            "program": step.program.describe(),
+            "program_flops": step.program.flops()}
+        print(f"K4 {dname} {N4}x{N4} ns={ns}: kernel {k_ms:.4f} ms/call, "
+              f"plain {p_ms:.3f} ms, xla step {x_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), tile height {step.tile_h}, "
+              f"{k_ms / ns:.4f} ms per step", flush=True)
+        del x, bufs, sp, sx
+        torch.cuda.empty_cache()
+    del base4, small
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -793,6 +1076,10 @@ def main() -> int:
                    "--impl=active_fused", "--substeps=8", "--steps=8",
                    "--blob=0.05", "--json"])
     check(rc == 0, "the active_fused CLI run failed")
+    rc = cli_main(["run", "--flow=coupled", "--channels=2", "--impl=pallas",
+                   f"--dimx={N4}", f"--dimy={N4}", "--substeps=8",
+                   "--steps=8", "--json"])
+    check(rc == 0, "the coupled (K4) CLI run failed")
 
     for steps in (1, 50):
         space = mt.CellularSpace.create(100, 100, 1.0, dtype="float64")
@@ -881,6 +1168,21 @@ def main() -> int:
         "shape": [N, N], "dtype": "float32", "frac": 0.05,
         "active_tiles": kt["count"],
     })
+    for dname in ("float32", "bfloat16"):
+        t = field_timing[dname]
+        entries.append({
+            "name": f"K4 field_stencil {dname}",
+            "route": "cuda",
+            "source": "mpi_model_tpu_torch/csrc/field_stencil.cu",
+            "replaces": "mpi_model_tpu/ops/pallas_stencil.py:1380",
+            "launches": k4_run[dname]["launches"],
+            "max_abs_err": k4_err[dname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "shape": [N4, N4], "dtype": dname, "nsteps": t["nsteps"],
+            "xla_step_ms": t["xla_step_ms"], "main_path": k4_run[dname],
+        })
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -888,7 +1190,8 @@ def main() -> int:
         {"card": card_line, "kind": kind, **kernels,
          "active_rows": active_rows, "k67_times": {
              f"{f}/k={k}": v for (f, k), v in k67_time.items()},
-         "composed": composed, "count_read_us": sync_us,
+         "composed": composed, "field_rows": field_rows,
+         "field_timing": field_timing, "count_read_us": sync_us,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -2,7 +2,8 @@
 
 The same cellular-space framework (CellularSpace / Cell / Attribute / Flow /
 Model) in PyTorch for one NVIDIA H100, with the kernels written by hand in
-CUDA C++ (``csrc/``): the fused stencil K1, the composed k-step filter K3 and
+CUDA C++ (``csrc/``): the fused stencil K1, the composed k-step filter K3, the
+fused multi-channel field step K4 (pointwise flows lowered to programs) and
 the fused active-tile pass K6/K7. It imports torch and numpy,
 never jax and nothing of ``mpi_model_tpu``. Entry points run on the card
 unless the caller asks for the CPU (``device="cpu"``).
@@ -11,7 +12,7 @@ Layer map (as in the JAX package):
   L0 ``abstraction``  — dtype seam (DataType → torch dtypes)
   L2 ``core``         — Attribute/Cell/CellularSpace
   L3 ``ops``          — flows, plain-torch stencil, active-tile engine,
-                         kernels K1, K3, K6/K7
+                         flow lowering, kernels K1, K3, K4, K6/K7
   L4 ``models``       — Model/SerialExecutor/Report
   —  ``oracle``, ``interop``, ``cli``
 """
@@ -19,7 +20,8 @@ Layer map (as in the JAX package):
 from .abstraction import DataType, UnsupportedDataTypeError, \
     get_abstraction_data_type
 from .core import Attribute, Cell, CellularSpace, Partition
-from .ops import Coupled, Diffusion, Exponencial, Flow, PointFlow
+from .ops import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
+    cell_coords
 from .models import ConservationError, Model, Report, SerialExecutor
 
 __version__ = "0.1.0"
@@ -37,6 +39,7 @@ __all__ = [
     "Exponencial",
     "Diffusion",
     "Coupled",
+    "cell_coords",
     "ConservationError",
     "Model",
     "Report",

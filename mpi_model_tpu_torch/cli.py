@@ -4,6 +4,8 @@
         --dimy=16384 --impl=pallas --substeps=8 --json
     python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \\
         --dimy=16384 --impl=active_fused --substeps=8 --blob=0.05 --json
+    python -m mpi_model_tpu_torch.cli run --flow=coupled --channels=2 \\
+        --dimx=8192 --dimy=8192 --impl=pallas --substeps=8 --json
 
 Runs on the card unless ``--device=cpu`` is given. Prints one row: the impl
 that actually ran, the kernel launch count, the totals, whether mass was
@@ -12,7 +14,10 @@ composed k, the active engine's fallback steps, mean active fraction and
 per-kernel launches). ``--blob=FRAC`` starts from zeros with a centred
 square of ``U(0.5, 2.0)`` values (numpy seed 0) covering FRAC of the grid
 (the active engine's sparse workload) instead of ``--init`` everywhere.
-Exit status 1
+``--flow=coupled --channels=N`` is the JAX package's chain: N channels
+``c0..c{N-1}``, a ``Diffusion(0.1)`` on each, and ``Coupled(0.05)`` from
+each channel but the last, modulated by the next; at N=2 the BASELINE
+config-4 flow set's shape, which runs on the field kernel K4. Exit status 1
 when conservation fails.
 """
 
@@ -28,17 +33,41 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import (Attribute, Cell, CellularSpace, Diffusion, Exponencial, Model,
-               SerialExecutor)
+from . import (Attribute, Cell, CellularSpace, Coupled, Diffusion, Exponencial,
+               Model, SerialExecutor)
+
+RATE = 0.1  # the JAX package's --rate default
+
+
+def build_flows(args):
+    """The run's flows and the space's initial values (``--init`` per
+    channel), as the JAX package's CLI builds them."""
+    if args.flow == "exponencial":
+        # the reference's live scenario: 0.1 * 2.2 out of (19, 3) per step
+        return Exponencial(Cell(19, 3, Attribute(99, 2.2)), RATE), args.init
+    if args.flow == "diffusion":
+        return Diffusion(RATE), args.init
+    # N diffusing channels chained by coupled flows: channel i sheds mass
+    # modulated by channel i+1
+    names = [f"c{i}" for i in range(args.channels)]
+    flows = [Diffusion(RATE, attr=nm) for nm in names]
+    flows += [Coupled(flow_rate=RATE / 2, attr=names[i],
+                      modulator=names[i + 1])
+              for i in range(len(names) - 1)]
+    return flows, {nm: args.init for nm in names}
 
 
 def cmd_run(args) -> int:
-    if args.flow == "exponencial":
-        # the reference's live scenario: 0.1 * 2.2 out of (19, 3) per step
-        flow = Exponencial(Cell(19, 3, Attribute(99, 2.2)), 0.1)
-    else:
-        flow = Diffusion(0.1)
-    space = CellularSpace.create(args.dimx, args.dimy, args.init,
+    if args.flow == "coupled" and args.channels < 2:
+        raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
+                         "has nothing to modulate — use --flow=diffusion)")
+    if args.channels != 2 and args.flow != "coupled":
+        raise SystemExit("--channels applies to --flow=coupled")
+    if args.blob is not None and args.flow == "coupled":
+        raise SystemExit("--blob fills the single channel of "
+                         "--flow=diffusion|exponencial")
+    flow, init = build_flows(args)
+    space = CellularSpace.create(args.dimx, args.dimy, init,
                                  dtype=args.dtype, device=args.device)
     if args.blob is not None:
         v = blob_grid(args.dimx, args.dimy, args.blob)
@@ -97,7 +126,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     run = sub.add_parser("run", help="run a simulation (reference scenario "
                          "by default)")
     run.add_argument("--flow", default="exponencial",
-                     choices=("exponencial", "diffusion"))
+                     choices=("exponencial", "diffusion", "coupled"))
+    run.add_argument("--channels", type=int, default=2,
+                     help="channel count for --flow=coupled (a chain of N "
+                     "diffusing channels, each but the last shedding "
+                     "modulated by the next)")
     run.add_argument("--dimx", type=int, default=100)
     run.add_argument("--dimy", type=int, default=100)
     run.add_argument("--init", type=float, default=1.0)
@@ -108,7 +141,9 @@ def main(argv: Optional[list[str]] = None) -> int:
                      choices=("xla", "pallas", "auto", "composed", "active",
                               "active_fused"),
                      help="xla: plain torch ops; pallas: the fused CUDA "
-                     "kernel K1; composed: the composed k-step filter K3; "
+                     "kernel K1 (Diffusion) or the fused field kernel K4 "
+                     "(other pointwise flows); composed: the composed "
+                     "k-step filter K3; "
                      "active: the plain active-tile engine; active_fused: "
                      "the fused active kernels K6 + K7; auto: pallas where "
                      "eligible")

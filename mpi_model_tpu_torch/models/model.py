@@ -3,15 +3,18 @@
 
 - ``Model.make_step`` builds the per-step function for a space's geometry:
   ``impl="xla"`` is the plain-op torch path (every flow), ``"pallas"`` the
-  hand-written fused kernel K1 (all field flows plain ``Diffusion``),
+  hand-written fused kernel K1 (all field flows plain ``Diffusion``) or the
+  fused field kernel K4 (any other pointwise field flows, lowered to
+  programs when the step is built),
   ``"composed"`` the composed k-step filter K3, ``"active"`` the plain
   active-tile engine, ``"active_fused"`` the fused active kernels K6 + K7,
   and ``"auto"`` picks ``"pallas"`` where it is statically eligible, else
   ``"xla"``. Unlike the JAX package, nothing probes a kernel or catches its
   failure: a build or launch error propagates.
-- ``SerialExecutor`` runs the step loop on one device; on the K1 path it
-  ping-pongs two preallocated device buffers per channel instead of
-  allocating per call, and never writes the input space's tensors. For
+- ``SerialExecutor`` runs the step loop on one device; on the K1 and K4
+  paths it ping-pongs two preallocated device buffers per written channel
+  instead of allocating per call, and never writes the input space's
+  tensors. For
   ``"active"`` and ``"active_fused"`` on all-``Diffusion`` models it runs
   the amortized whole-run runners (pad once, carry the tile map).
 - The active impls' dense fallback is chosen statically: K1 (one step per
@@ -34,10 +37,12 @@ import torch
 from ..core.cell import MOORE_OFFSETS
 from ..core.cellular_space import CellularSpace
 from ..ops import composed_stencil as _k3
+from ..ops import field_stencil as _k4
 from ..ops import fused_active as _k67
 from ..ops import fused_stencil as _k1
 from ..ops.active import ActiveDiffusionStep, build_active_runner, plan_for
 from ..ops.composed_stencil import ComposedDiffusionStep, choose_k, max_k
+from ..ops.field_stencil import FieldPlanError, PallasFieldStep
 from ..ops.flow import Diffusion, Flow, PointFlow, build_outflow
 from ..ops.fused_active import FusedActiveStep, build_fused_runner, \
     choose_fused_k, pass_count
@@ -54,6 +59,7 @@ def kernel_launches() -> dict[str, int]:
     """Launch counts of every kernel of the port, by kernel source name."""
     return {"fused_stencil": _k1.launches(),
             "composed_stencil": _k3.launches(),
+            "field_stencil": _k4.launches(),
             **_k67.launches()}
 
 
@@ -169,13 +175,13 @@ class SerialExecutor:
         self.last_impl = step_any.impl if step_any is not None else None
         before = kernel_launches()
         on_card = space.device.type == "cuda"
-        # K1 path: two preallocated buffers per kernel channel, used in
-        # turn: a call reads one and writes the other, never the input
-        # space's tensor
-        k1_attrs = {a for s in steps if s.impl == "pallas"
-                    for a in s.steppers}
+        # K1 and K4 paths: two preallocated buffers per channel the kernel
+        # writes, used in turn: a call reads one and writes the other, never
+        # the input space's tensor
+        kernel_attrs = {a for s in steps if s.impl == "pallas"
+                        for a in s.steppers}
         bufs = ({a: (torch.empty_like(values[a]), torch.empty_like(values[a]))
-                 for a in k1_attrs} if on_card else {})
+                 for a in kernel_attrs} if on_card else {})
         for step, count in ((stepk, q), (step1, r)):
             for _ in range(count if step is not None else 0):
                 out = {a: (b[0] if values[a] is not b[0] else b[1])
@@ -184,7 +190,15 @@ class SerialExecutor:
         ran = _launches_since(before)
         if step_any is None:
             return values
-        if step_any.impl == "pallas":
+        if step_any.impl == "pallas" and step_any.field_stepper is not None:
+            self.last_backend_report = {
+                "kernel": "K4 field_stencil",
+                "substeps": self.substeps,
+                "launches": ran["field_stencil"],
+                "channels_written": list(
+                    step_any.field_stepper.program.outputs),
+            }
+        elif step_any.impl == "pallas":
             self.last_backend_report = {
                 "kernel": "K1 fused_stencil",
                 "substeps": self.substeps,
@@ -407,27 +421,51 @@ class Model:
         stay on the plain path."""
         return space.dtype in KERNEL_DTYPES
 
+    def _field_stepper(self, space: CellularSpace, field_flows: list,
+                       substeps: int) -> PallasFieldStep:
+        """K4's stepper for this space, planned now from static facts:
+        the flows lowered, the program within the kernel's limits, every
+        channel it loads in the space dtype, ``substeps`` within the ghost
+        depth and the block within shared memory. Raises
+        ``FieldPlanError`` otherwise; nothing is built or launched here."""
+        stepper = PallasFieldStep(space.shape, field_flows, dtype=space.dtype,
+                                  offsets=self.offsets, nsteps=substeps,
+                                  names=tuple(space.values))
+        off = [n for n in stepper.program.channels
+               if space.values[n].dtype != space.dtype]
+        if off:
+            raise FieldPlanError(
+                f"the field kernel loads every channel its flows read in the "
+                f"space dtype ({str(space.dtype).removeprefix('torch.')}); "
+                f"{off} are not. Use impl='xla'.")
+        return stepper
+
     def make_step(self, space: CellularSpace, impl: str = "xla",
                   substeps: int = 1,
                   compute_dtype=None) -> Callable[..., Values]:
         """Build ``step(values, out=None) -> values`` for this space.
 
-        ``impl``: ``"xla"`` (plain torch ops, every flow), ``"pallas"`` (the
-        fused kernel; requires every field flow to be a plain ``Diffusion``
-        on a full, non-partition f32/bf16 grid, with no point flows when
-        ``substeps > 1``; raises ``ValueError`` otherwise), ``"composed"``
+        ``impl``: ``"xla"`` (plain torch ops, every flow), ``"pallas"`` (a
+        fused kernel on a full, non-partition f32/bf16 grid, with no point
+        flows when ``substeps > 1``: K1 when every field flow is a plain
+        ``Diffusion``, else K4 when every field flow is pointwise and
+        lowers to a program (``ops.field_lower``); raises ``ValueError``
+        otherwise), ``"composed"``
         (K3, same eligibility; k is the largest window-composable divisor
         of ``substeps`` and a call runs ``substeps/k`` composed passes),
         ``"active"`` (the plain active-tile engine; all-Diffusion field
         flows, composes with point flows and partitions), ``"active_fused"``
         (K6 + K7; k is the largest divisor of ``substeps`` the tile admits,
         no point flows when ``substeps > 1``) or ``"auto"`` (``"pallas"``
-        when eligible and the kernel's ghost depth admits ``substeps``,
-        else ``"xla"``; no probe and no fallback on failure). ``substeps >
-        1`` advances that many steps per call. ``out`` optionally maps K1
-        channels to preallocated output tensors. The step carries
-        ``.impl``, ``.substeps``, ``.steppers`` (channel → kernel stepper),
-        ``.composed_k``, ``.composed_passes`` and ``.variant``."""
+        when eligible and the kernel's static rules admit the call: the
+        ghost depth, and for K4 the lowering, the program limits and the
+        shared memory; else ``"xla"``; no probe and no fallback on
+        failure). ``substeps > 1`` advances that many steps per call.
+        ``out`` optionally maps the channels a kernel writes to
+        preallocated output tensors. The step carries ``.impl``,
+        ``.substeps``, ``.steppers`` (channel → kernel stepper; K4's one
+        stepper under each channel it writes), ``.field_stepper`` (K4's, or
+        None), ``.composed_k``, ``.composed_passes`` and ``.variant``."""
         for f in self.flows:
             ch = space.values.get(f.attr)
             if ch is None:
@@ -548,31 +586,35 @@ class Model:
                     dense_fn=self.dense_fallback(space, r))
                 for a, r in live.items()}
             steppers = fused_steppers
+        field_stepper: Optional[PallasFieldStep] = None
         if impl in ("pallas", "auto"):
             rates = self.pallas_rates()
             live = {a: r for a, r in (rates or {}).items() if r != 0.0}
-            eligible = (bool(live) and not space.is_partition
-                        and self.pallas_dtype_ok(space)
+            base_ok = (not space.is_partition
+                       and self.pallas_dtype_ok(space)
+                       and (substeps == 1 or not pt_by_attr))
+            eligible = (bool(live) and base_ok
                         and all(space.values[a].dtype == space.dtype
-                                for a in live)
-                        and (substeps == 1 or not pt_by_attr))
-            if impl == "pallas" and not eligible:
-                if (rates is None and field_flows and all(
-                        f.footprint == "pointwise" for f in field_flows)):
-                    raise _not_ported(
-                        "impl='pallas' for non-Diffusion pointwise flows "
-                        "(the fused field kernel K4)")
+                                for a in live))
+            # K4 is for models that need it: some pointwise field flow that
+            # is not a plain Diffusion (rates is None)
+            field_eligible = (rates is None and bool(field_flows)
+                              and all(f.footprint == "pointwise"
+                                      for f in field_flows)
+                              and base_ok)
+            if impl == "pallas" and not (eligible or field_eligible):
                 raise ValueError(
-                    "impl='pallas' requires all field flows to be plain "
-                    "Diffusion with a nonzero rate on a full "
-                    "(non-partition) f32/bf16 grid, every flow channel in "
-                    "the space dtype — the kernel computes in f32, so f64 "
-                    "stays on the plain path — (and no point flows when "
-                    "substeps > 1); got "
+                    "impl='pallas' requires all field flows to be "
+                    "POINTWISE (Diffusion/Coupled/...) on a full "
+                    "(non-partition) f32/bf16 grid — the kernel computes "
+                    "in f32, so f64 stays on the XLA path — (and no "
+                    "point flows when substeps > 1); got "
                     f"flows={[type(f).__name__ for f in self.flows]}, "
                     f"is_partition={space.is_partition}, "
-                    f"dtype={space.dtype}, substeps={substeps}. "
-                    "Use impl='xla' or 'auto'.")
+                    f"dtype={space.dtype}, "
+                    f"substeps={substeps}. Use impl='xla' "
+                    "or 'auto' (sharded runs are not ported yet; see "
+                    "ROADMAP.md).")
             if (impl == "auto" and eligible
                     and substeps > ghost_depth(shape, space.dtype)):
                 eligible = False  # a static shape rule, not a probe
@@ -584,6 +626,19 @@ class Model:
                     a: PallasDiffusionStep(shape, r, dtype=space.dtype,
                                            offsets=offsets, nsteps=substeps)
                     for a, r in live.items()}
+            elif field_eligible:
+                # static rules only (lowering, program limits, channel
+                # dtypes, ghost depth, shared memory): "auto" takes the
+                # plain path where one fails, "pallas" raises it
+                try:
+                    field_stepper = self._field_stepper(space, field_flows,
+                                                        substeps)
+                except FieldPlanError:
+                    if impl == "pallas":
+                        raise
+                else:
+                    steppers = {a: field_stepper
+                                for a in field_stepper.program.outputs}
 
         counts_cache: list = []
 
@@ -595,7 +650,10 @@ class Model:
 
         def single(values: Values, out: Optional[Values] = None) -> Values:
             new = dict(values)
-            if composed_steppers:
+            if field_stepper is not None:
+                # every flow channel, substeps steps, one K4 launch
+                new.update(field_stepper(values, out=out))
+            elif composed_steppers:
                 # substeps/k composed passes per call
                 for attr, stepper in composed_steppers.items():
                     cur = values[attr]
@@ -633,6 +691,7 @@ class Model:
                     values = single(values)
                 return values
 
+        step.field_stepper = field_stepper
         step.impl = ("active_fused" if fused_steppers
                      else "active" if active_steppers
                      else "composed" if composed_steppers

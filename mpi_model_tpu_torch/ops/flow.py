@@ -5,7 +5,9 @@ A Flow produces an **outflow field**: a ``[dim_x, dim_y]`` tensor of how much
 each cell sheds this step. Flows on one channel sum their outflows and one
 ``transport`` redistributes them. ``PointFlow``/``Exponencial`` anchored at a
 ``Cell`` snapshot that cell's value (``frozen_source_value``), as the
-reference holds its flow's source cell by value.
+reference holds its flow's source cell by value. ``cell_coords`` gives a
+pointwise flow its cells' global coordinates, also when the field kernel K4
+lowers the flow (``ops.field_lower``).
 """
 
 from __future__ import annotations
@@ -184,6 +186,22 @@ class Coupled(Flow):
         v = values[self.attr]
         r = torch.tensor(self.flow_rate, dtype=v.dtype, device=v.device)
         return r * v * values[self.modulator]
+
+
+def cell_coords(v, origin: tuple[int, int] = (0, 0)):
+    """Global ``(rows, cols)`` index tensors (int64, ``v``'s shape) of the
+    cells of ``v``, a partition starting at ``origin``: the way for a
+    pointwise flow to read its cells' coordinates. When the field kernel
+    lowers a flow, ``v`` is symbolic and this returns the cell's row and
+    column leaves instead (``ops.field_lower``); ``torch.arange`` cannot be
+    traced that way. Cast them with ``.to(v.dtype)`` before arithmetic."""
+    symbolic = getattr(v, "symbolic_cell_coords", None)
+    if symbolic is not None:
+        return symbolic()
+    h, w = v.shape[-2], v.shape[-1]
+    rows = origin[0] + torch.arange(h, device=v.device)
+    cols = origin[1] + torch.arange(w, device=v.device)
+    return rows[:, None].expand(h, w), cols[None, :].expand(h, w)
 
 
 def build_outflow(flows: Sequence[Flow], values: dict[str, torch.Tensor],

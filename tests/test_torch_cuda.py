@@ -1,5 +1,5 @@
-"""The port's kernels on the card against their plain versions: K1, K3, K6
-and K7. Needs a CUDA device and skips without one. It imports neither jax
+"""The port's kernels on the card against their plain versions: K1, K3, K4,
+K6 and K7. Needs a CUDA device and skips without one. It imports neither jax
 nor the JAX package, so it also runs where only torch is installed:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
@@ -8,7 +8,11 @@ Tolerances: K1 and K3 f32 ``1e-6 * nsteps`` (they differ from their plain
 versions only in summation order and nvcc's FMA contraction), bf16 one ulp
 at values below 4. K6 and K7 are held bit for bit: K6 computes in the
 storage dtype with every operation rounded, in the plain version's order,
-and K7 moves bits."""
+and K7 moves bits. K4 is held bit for bit (f32 and bf16 both compute in f32
+and round once per call), except flows using exp: CUDA's expf and torch's
+exp may differ by an ulp, so those are held to ``8·eps·nsteps·max|v|``."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -18,8 +22,10 @@ import mpi_model_tpu_torch as mt
 from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS, VON_NEUMANN_OFFSETS
 from mpi_model_tpu_torch.ops import active as act
 from mpi_model_tpu_torch.ops import composed_stencil as cs
+from mpi_model_tpu_torch.ops import field_stencil as k4
 from mpi_model_tpu_torch.ops import fused_active as fa
 from mpi_model_tpu_torch.ops import fused_stencil as fs
+from mpi_model_tpu_torch.ops.flow import Flow, cell_coords
 
 CUSTOM = ((-1, 0), (1, 1), (0, -1))
 
@@ -146,3 +152,133 @@ def test_active_paths_bitwise_against_dense_on_the_card(dtype):
     assert br["kernel_launches"]["fused_compute"] == 12
     assert br["kernel_launches"]["fused_scatter"] == 12
     assert rep_a.backend_report["fallback_steps"] == 0
+
+
+@dataclasses.dataclass
+class _Affine(Flow):
+    """outflow(0) != 0: the off-grid mask must keep ghosts from shedding."""
+    flow_rate: float = 0.05
+    capacity: float = 3.0
+    attr: str = "a"
+    footprint = "pointwise"
+
+    def outflow(self, values, origin=(0, 0)):
+        return self.flow_rate * (self.capacity - values[self.attr])
+
+
+class _RowRate(Flow):
+    footprint = "pointwise"
+    attr = "a"
+
+    def outflow(self, values, origin=(0, 0)):
+        v = values[self.attr]
+        rows, _ = cell_coords(v, origin)
+        return 0.002 * rows.to(v.dtype) * v
+
+
+class _EveryOp(Flow):
+    """Every whitelisted operation once; exp makes it a tolerance case."""
+    footprint = "pointwise"
+    attr = "a"
+
+    def outflow(self, values, origin=(0, 0)):
+        a, b = values["a"], values["b"]
+        r, c = cell_coords(a, origin)
+        x = torch.minimum(a, b) * 0.3 + torch.maximum(a, 2.0 - b) / (b + 1.5)
+        y = (-a).abs() * torch.exp(-b) + a ** 2 * 0.01 - b ** 3 * 0.001
+        z = ((c + 1).to(a.dtype) * 1e-4 * a
+             - (r - 2).to(a.dtype) * 1e-5 * torch.clamp(b, 0.7, 1.8))
+        return (x + y + z).clamp(min=0.0) * 0.05
+
+
+_FLOW_SETS = {
+    "config4": [mt.Diffusion(0.1, "a"), mt.Coupled(0.05, "a", "b"),
+                mt.Diffusion(0.2, "b")],
+    "coupled_alone": [mt.Coupled(0.05, "a", "b")],
+    "affine": [_Affine()],
+    "row_rate": [_RowRate()],
+    "chain3": [mt.Diffusion(0.1, "a"), mt.Diffusion(0.1, "b"),
+               mt.Diffusion(0.1, "c"), mt.Coupled(0.05, "a", "b"),
+               mt.Coupled(0.05, "b", "c")],
+    "every_op": [_EveryOp(), mt.Diffusion(0.1, "b")],
+}
+
+
+def _field_values(dev, dtype, shape, seed):
+    rng = np.random.default_rng(seed)
+    return {n: torch.from_numpy(rng.uniform(0.5, 2.0, shape)).to(dev, dtype)
+            for n in ("a", "b", "c")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("flows", sorted(_FLOW_SETS))
+@pytest.mark.parametrize("shape", [(5, 7), (37, 300), (256, 512)])
+def test_field_kernel_matches_plain_on_the_card(dtype, ns, flows, shape):
+    dev = _card()
+    fl = _FLOW_SETS[flows]
+    ns = min(ns, fs.ghost_depth(shape, dtype))
+    vals = _field_values(dev, dtype, shape, 13)
+    step = k4.PallasFieldStep(shape, fl, nsteps=ns)
+    before = k4.launches()
+    got = step(vals)
+    assert k4.launches() == before + 1 and step.launches == 1
+    want = k4.field_step_plain(vals, fl, nsteps=ns)
+    assert set(got) == set(vals)
+    for n in vals:
+        if n not in {f.attr for f in fl}:
+            assert got[n] is vals[n]  # modulators pass through
+        elif flows == "every_op" and n == "a":
+            g, w = got[n].float(), want[n].float()
+            tol = 8 * 2.0 ** -23 * ns * float(w.abs().max())
+            if dtype == torch.bfloat16:
+                tol += 2.0 ** -6  # one bf16 ulp below 4 on top
+            assert float((g - w).abs().max()) <= tol
+        else:
+            assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs", [VON_NEUMANN_OFFSETS, CUSTOM])
+def test_field_kernel_neighborhoods_on_the_card(offs):
+    dev = _card()
+    vals = _field_values(dev, torch.float32, (77, 131), 14)
+    fl = _FLOW_SETS["config4"]
+    got = k4.PallasFieldStep((77, 131), fl, offsets=offs, nsteps=4)(vals)
+    want = k4.field_step_plain(vals, fl, offs, 4)
+    assert torch.equal(got["a"], want["a"]) and torch.equal(got["b"],
+                                                            want["b"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,sub", [("float32", 4), ("bfloat16", 16)])
+def test_field_path_on_the_card(dtype, sub):
+    """Config 4's flows through SerialExecutor("pallas"): one K4 launch per
+    call, equal to the plain version chained call by call, and at f32 to
+    the plain-op path (the same function)."""
+    dev = _card()
+    g = 192
+    vals = _field_values(dev, getattr(torch, dtype), (g, g), 15)
+    vals.pop("c")
+    space = mt.CellularSpace.create(g, g, {"a": 1.0, "b": 1.0}, dtype=dtype,
+                                    device=dev).with_values(vals)
+    model = mt.Model(_FLOW_SETS["config4"])
+    assert model.make_step(space, impl="auto", substeps=sub).impl == "pallas"
+    k4.reset_launches()
+    out, rep = model.execute(space, mt.SerialExecutor("pallas",
+                                                      substeps=sub),
+                             steps=4 * sub)
+    assert k4.launches() == 4 and rep.backend_report == {
+        "kernel": "K4 field_stencil", "substeps": sub, "launches": 4,
+        "channels_written": ["a", "b"]}
+    want = dict(vals)
+    for _ in range(4):
+        want = k4.field_step_plain(want, model.flows, nsteps=sub)
+    for n in ("a", "b"):
+        assert torch.equal(out.values[n], want[n])
+    if dtype == "float32":
+        ref, _ = model.execute(space, mt.SerialExecutor("xla"),
+                               steps=4 * sub)
+        for n in ("a", "b"):
+            assert torch.equal(out.values[n], ref.values[n])

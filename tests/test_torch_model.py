@@ -149,9 +149,10 @@ def test_auto_picks_by_static_eligibility_only():
     two = mt.CellularSpace.create(32, 256, {"a": 1.0, "b": 1.0},
                                   dtype="float32", device="cpu")
     coupled = mt.Model([mt.Coupled(0.1, attr="a", modulator="b")])
-    assert coupled.make_step(two, impl="auto").impl == "xla"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        coupled.make_step(two, impl="pallas")
+    # a Coupled flow takes the field kernel K4 (statically eligible)
+    assert coupled.make_step(two, impl="auto").impl == "pallas"
+    assert coupled.make_step(two, impl="pallas").field_stepper is not None
+    assert coupled.make_step(two, impl="auto", substeps=9).impl == "xla"
     with pytest.raises(ValueError, match="f32/bf16"):
         m.make_step(f64, impl="pallas")
     with pytest.raises(ValueError, match="ghost depth"):
@@ -360,7 +361,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     names = {f.name for f in files}
-    assert {"active.py", "fused_active.py", "composed_stencil.py"} <= names
+    assert {"active.py", "fused_active.py", "composed_stencil.py",
+            "field_lower.py", "field_stencil.py"} <= names
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
@@ -368,7 +370,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_kernel_source_is_in_the_package():
     for name in ("fused_stencil.cu", "composed_stencil.cu", "fused_active.cu",
-                 "stencil_common.cuh"):
+                 "field_stencil.cu", "stencil_common.cuh"):
         assert (REPO / "mpi_model_tpu_torch/csrc" / name).is_file(), name
     # nothing is built at import time
     assert fs.launches() >= 0
