@@ -13,9 +13,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    neighborhoods and small and odd shapes, the main paths' own shapes
    included:
    - K1 (``dense_step_plain``) and K3 (``composed_dense_step_plain``): f32
-     ``atol = rtol = 1e-6 * k``, bf16 one bf16 ulp of the value scale. They
-     differ only in summation order and nvcc's FMA contraction (and, in
-     bf16, in which side of a rounding boundary that leaves a value).
+     ``atol = rtol = 1e-6 * k``, bf16 one bf16 ulp of the value scale. Both
+     sum a neighborhood in ``offsets`` order with every operation rounded,
+     as the plain versions do; K3's tap loop is left to nvcc's FMA
+     contraction (and, in bf16, that decides which side of a rounding
+     boundary a value lands on).
    - K6 (``fused_compute_plain``) and K7 (``fused_scatter_plain``): bit for
      bit at k=1 and for K7 (K6 computes in the storage dtype with every
      operation rounded, in the plain version's order); at k>1 within f32
@@ -27,6 +29,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      with every whitelisted operation. That last one uses ``exp``, where
      CUDA's ``expf`` and torch's may differ by an ulp: it is held to
      ``8·eps·nsteps·max|v|`` (plus one bf16 ulp of the scale at bf16).
+   - K5 (``pipeline_step_plain``): bit for bit, f32 and bf16, nsteps 1, 4,
+     8, Moore, von Neumann and a custom neighborhood, B 1, 3 and 8, on
+     16×128 (auto block) and 48×384 with block (16, 128) (closed-form
+     tiles inside), and the ensemble path's 8 × 4096² (Moore, nsteps 1
+     and 8).
 4. the K1 main path at full width: ``Model(Diffusion(0.1)).execute`` of a
    16384² grid through ``SerialExecutor("pallas")``, 64 steps, f32
    substeps=8 and bf16 substeps=16; conservation checked, the launch
@@ -65,8 +72,36 @@ Phases (any failure exits non-zero, and no result line is printed):
    (CUDA events, median), K4 ms per call against its bound (computed from
    the lowered program), the plain version's and the ``impl="xla"`` step's
    times, and the peak device memory.
-7. the CLI (K1, active_fused and K4 rows) and the 100×100 ``Exponencial``
-   reference run at f64 against the port's own ``oracle.reference_run_np``.
+6c. ensemble serving at full width (``bench.py``'s serving row uncut): B = 8
+   lanes of 4096², 8 steps, lane i = ``np.roll(base, 7·i, axis=0)`` of a
+   ``U(0.5, 2.0)`` base from a numpy seed. Gates first, on lanes 0 and 7
+   against per-scenario serial runs: ``impl="xla"`` with per-lane rates
+   ``0.1·(1 + 0.05·i/7)`` bit for bit against ``SerialExecutor("xla")`` at
+   f32; ``impl="pipeline"`` (rate 0.1) bit for bit against
+   ``SerialExecutor("pallas", substeps)`` (K1) at f32 and bf16, since at
+   4096² no K5 tile takes the closed form and both run one exact path (one
+   bf16 ulp of the scale for the run where a tile would), and within
+   ``1e-6·steps`` of ``SerialExecutor("xla")`` at f32. Then the rows, each
+   through ``EnsembleService(buckets=buckets_for(8), retry="solo")``:
+   pipeline f32 and bf16 at substeps 1 and 8, xla f32 and bf16; each row's
+   first dispatch builds the runner, the next is the counted one (counters
+   set to 0 just before, read just after: K5 launches == steps/substeps;
+   the peak device memory above what the spaces held), then 5 warm
+   dispatches timed with CUDA events (median): scenarios/s, cell-updates/s,
+   occupancy, runner builds and cache hits. The sequential baselines: 8
+   runs of ``SerialExecutor("xla")`` and 8 of ``SerialExecutor("pallas",
+   substeps=8)`` (K1). One more pipeline substeps=8 dispatch and one f32
+   K1 baseline run under ``torch.profiler``, device activity only: busy
+   time against the call's CUDA-event time (the idle share) and device time
+   by kind of work. A third baseline runs the 8 K1 scenarios through
+   ``Model.execute``, which takes the totals, conservation check and report
+   that a served scenario carries. K5 per call against its bound, its plain version and
+   one ``conv2d`` 3×3 box over ``[B, 1, H, W]`` times nsteps (TF32 off; the
+   port never calls it). A B = 3 dispatch into the 4-bucket (occupancy
+   0.75), and a padded batch whose pad lane stays zero.
+7. the CLI (K1, active_fused, K4 and ensemble pipeline rows) and the
+   100×100 ``Exponencial`` reference run at f64 against the port's own
+   ``oracle.reference_run_np``.
 8. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``. ``chip_smoke.json`` in the output
    directory keeps every row, every kernel case and the build record.
@@ -84,6 +119,9 @@ from pathlib import Path
 
 N = 16384          # main-path grid side (bench.py's headline grid)
 N4 = 8192          # the field path's grid side (BASELINE config 4)
+N5 = 4096          # the ensemble path's grid side (bench.py's serving row)
+B5 = 8             # the ensemble path's lanes
+STEPS5 = 8
 STEPS = 64
 ACTIVE_STEPS = 20
 FRACS = (0.01, 0.05, 0.15)
@@ -119,6 +157,63 @@ def timed_ms(torch, fn, reps: int, warmup: int = 1) -> list[float]:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
     return out
+
+
+def profile_dispatch(torch, fn, wall_ms: float) -> dict:
+    """Where one call of ``fn`` spends its device time, from a
+    ``torch.profiler`` trace of the device alone: the busy time (the union
+    of kernel, copy and memset intervals), the device time and operation
+    count by kind of work, and the idle share against ``wall_ms``, the
+    call's unprofiled CUDA-event time (the profiler's own host cost
+    stretches the traced call, so only device durations are taken from
+    it). A profiler that sees no device activity gives ``{"error": ...}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type.name == "CUDA"
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"error": "the profiler recorded no device activity"}
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e, _ in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + cur_e - cur_s) / 1e3
+    kinds: dict[str, list] = {}
+    for s, e, name in spans:
+        low = name.lower()
+        kind = ("K5" if "pipeline_stencil" in low else
+                "K1" if "fused_stencil" in low else
+                "reduction" if "reduce" in low else
+                "copy" if "memcpy" in low or "copy" in low else
+                "memset" if "memset" in low else "elementwise/other")
+        k = kinds.setdefault(kind, [0, 0.0])
+        k[0] += 1
+        k[1] += (e - s) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms,
+            "device_by_kind": {k: {"ops": n, "ms": ms}
+                               for k, (n, ms) in kinds.items()}}
+
+
+def print_profile(what: str, prof: dict) -> None:
+    if "error" in prof:
+        print(f"{what} profile: not measured ({prof['error']})", flush=True)
+        return
+    kinds = ", ".join(f"{k} {v['ms']:.3f} ({v['ops']} ops)" for k, v in
+                      sorted(prof["device_by_kind"].items()))
+    print(f"{what} profile: device busy {prof['device_busy_ms']:.3f} of "
+          f"{prof['wall_ms']:.3f} ms (idle share {prof['idle_share']:.3f}); "
+          f"{kinds}", flush=True)
 
 
 def bound_ms(shape, itemsize: int, nsteps: int, k: int) -> tuple[float, str]:
@@ -222,6 +317,20 @@ def field_bound_ms(prog, shape, itemsize: int, nsteps: int,
     return larger(bytes_ms, ops_ms)
 
 
+def k5_bound_ms(batch: int, shape, itemsize: int, nsteps: int, k: int,
+                interior_cells: int) -> tuple[float, str]:
+    """Least time for one K5 call: the batch read once and written once over
+    HBM bandwidth, or its flops over the f32 peak: 7 a cell-step on
+    closed-form (interior) tiles, k + 3 on the exact path (share: multiply
+    and divide; k - 1 gather adds; keep-multiply and add), whichever is
+    larger. Which tiles are interior is fixed by the grid and the block."""
+    cells = batch * shape[0] * shape[1]
+    inner = batch * interior_cells
+    bytes_ms = 2 * cells * itemsize / HBM_BYTES_PER_S * 1e3
+    flops = nsteps * (7 * inner + (k + 3) * (cells - inner))
+    return larger(bytes_ms, flops / F32_FLOPS * 1e3)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -242,6 +351,7 @@ def main() -> int:
         from mpi_model_tpu_torch.ops import field_stencil as k4
         from mpi_model_tpu_torch.ops import fused_active as fa
         from mpi_model_tpu_torch.ops import fused_stencil as fs
+        from mpi_model_tpu_torch.ops import pipeline_stencil as k5
     except ImportError as e:
         fail(f"the port's package is not importable here: {e}")
     t_start = time.perf_counter()
@@ -264,6 +374,7 @@ def main() -> int:
         fs.reset_launches()
         cs.reset_launches()
         k4.reset_launches()
+        k5.reset_launches()
         fa.reset_launches()
 
     cases = []  # every kernel-vs-plain case, kept in chip_smoke.json
@@ -544,6 +655,56 @@ def main() -> int:
           f"main path's shape f32 "
           f"ns=8 {k4_err['float32']:.3e}, bf16 ns=16 "
           f"{k4_err['bfloat16']:.3e}", flush=True)
+
+    # -- 3e. K5 against its plain version -------------------------------------
+    k5_err = {}
+    ncases = 0
+    k5_shapes = [((16, 128), None), ((48, 384), (16, 128))]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for B in (1, 3, 8):
+            for shape, block in k5_shapes:
+                x = (0.5 + 1.5 * torch.rand((B,) + shape, generator=gen,
+                                            device=dev)).to(dtype)
+                for ns in (1, 4, 8):
+                    for hood, offs in neighborhoods.items():
+                        got = k5.pipeline_dense_step(x, 0.13, offs,
+                                                     block=block, nsteps=ns)
+                        want = k5.pipeline_step_plain(x, 0.13, offs, ns,
+                                                      block)
+                        torch.cuda.synchronize()
+                        ok = bool(torch.equal(got, want))
+                        err = float((got.float() - want.float()).abs().max())
+                        ncases += 1
+                        record(f"K5 {dname} B={B} {shape} block={block} "
+                               f"ns={ns} {hood}: max_abs_err={err:.3e} "
+                               f"bitwise={ok} {'ok' if ok else 'FAIL'}", ok)
+                        check(ok, f"K5 disagrees with its plain version: "
+                                  f"{dname} B={B} {shape} ns={ns} {hood} "
+                                  f"err={err}")
+        # the ensemble path's own batch: 8 lanes of 4096², Moore
+        x = (0.5 + 1.5 * torch.rand((B5, N5, N5), generator=gen,
+                                    device=dev)).to(dtype)
+        for ns in (1, 8):
+            got = k5.pipeline_dense_step(x, 0.13, MOORE_OFFSETS, nsteps=ns)
+            want = k5.pipeline_step_plain(x, 0.13, MOORE_OFFSETS, ns)
+            torch.cuda.synchronize()
+            ok = bool(torch.equal(got, want))
+            err = float((got.float() - want.float()).abs().max())
+            ncases += 1
+            line = (f"K5 {dname} B={B5} {(N5, N5)} ns={ns} moore: "
+                    f"max_abs_err={err:.3e} bitwise={ok} "
+                    f"{'ok' if ok else 'FAIL'}")
+            record(line, ok)
+            check(ok, f"K5 disagrees with its plain version at the ensemble "
+                      f"path's shape: {dname} ns={ns} err={err}")
+            if ns == 8:
+                k5_err[dname] = err
+            del got, want
+        del x
+        torch.cuda.empty_cache()
+    print(f"K5: {ncases} cases equal the plain version bit for bit",
+          flush=True)
 
     # -- 4. K1 main path at full width ----------------------------------------
     results = {}
@@ -1067,6 +1228,279 @@ def main() -> int:
         torch.cuda.empty_cache()
     del base4, small
 
+    # -- 6c. ensemble serving at full width (bench.py's serving row) ----------
+    from mpi_model_tpu_torch.ensemble.batch import (complete_ensemble,
+                                                    launch_ensemble,
+                                                    padding_scenarios)
+
+    base5 = np.random.default_rng(SEED).uniform(0.5, 2.0, (N5, N5)).astype(
+        np.float32)
+    lanes5 = [torch.from_numpy(np.roll(base5, 7 * i, axis=0)).to(dev)
+              for i in range(B5)]
+    del base5
+    lane_rates = [0.1 * (1 + 0.05 * i / (B5 - 1)) for i in range(B5)]
+    model01 = mt.Model(mt.Diffusion(0.1))
+
+    def lane_spaces(dname):
+        tdt = getattr(torch, dname)
+        return [mt.CellularSpace(
+            {"value": lane.to(tdt)}, N5, N5) for lane in lanes5]
+
+    # gates on lanes 0 and 7, before any timing
+    gates = []
+    sp32 = lane_spaces("float32")
+    models5 = [mt.Model(mt.Diffusion(r)) for r in lane_rates]
+    out = models5[0].execute_many(sp32, models=models5, steps=STEPS5)
+    for i in (0, B5 - 1):
+        want, wrep = models5[i].execute(sp32[i], mt.SerialExecutor("xla"),
+                                        steps=STEPS5)
+        ok = (torch.equal(out[i][0].values["value"], want.values["value"])
+              and out[i][1].final_total == wrep.final_total)
+        gates.append({"gate": f"xla float32 lane {i} == serial xla",
+                      "bitwise": ok})
+        check(ok, f"ensemble xla lane {i} is not bitwise its serial run")
+    del out
+    # Against serial K1 at the same substeps: where no TPU tile of K5 takes
+    # the closed form (every tile at 4096²), both run the one exact path of
+    # stencil_common.cuh in the same order, so the lanes are held bit for
+    # bit; otherwise within one bf16 ulp of the scale for the whole run.
+    for dname in ("float32", "bfloat16"):
+        sps = sp32 if dname == "float32" else lane_spaces(dname)
+        for sub in (1, 8):
+            closed = bool(k5.interior_mask(
+                (N5, N5), k5.pipeline_block((N5, N5), sub), sub).any())
+            out = model01.execute_many(
+                sps, steps=STEPS5,
+                executor=mt.EnsembleExecutor("pipeline", substeps=sub))
+            for i in (0, B5 - 1):
+                got = out[i][0].values["value"].float()
+                refs = [(f"serial pallas substeps={sub}",
+                         mt.SerialExecutor("pallas", substeps=sub),
+                         None if not closed else "ulp")]
+                if dname == "float32":
+                    refs.append(("serial xla", mt.SerialExecutor("xla"),
+                                 "rel"))
+                for what, ex, rule in refs:
+                    want = model01.execute(sps[i], ex, steps=STEPS5)[0]
+                    w = want.values["value"].float()
+                    err = float((got - w).abs().max())
+                    if rule is None:
+                        tol = 0.0
+                        ok = torch.equal(out[i][0].values["value"],
+                                         want.values["value"])
+                    elif rule == "ulp":
+                        tol = bf16_ulp(float(w.abs().max()))
+                        ok = err <= tol
+                    else:
+                        tol = 1e-6 * STEPS5
+                        ok = bool(((got - w).abs()
+                                   <= tol + tol * w.abs()).all())
+                    gates.append({"gate": f"pipeline {dname} substeps={sub} "
+                                          f"lane {i} vs {what}",
+                                  "max_abs_err": err, "tol": tol,
+                                  "bitwise": rule is None, "ok": ok})
+                    print(f"ensemble gate: pipeline {dname} substeps={sub} "
+                          f"lane {i} vs {what}: max_abs_err={err:.3e} "
+                          f"({'bit for bit' if rule is None else f'tol {tol:g}'})",
+                          flush=True)
+                    check(ok, f"pipeline lane {i} ({dname}, substeps={sub}) "
+                              f"disagrees with {what}")
+                    del want, w
+                del got
+            del out
+        del sps
+    del sp32
+    torch.cuda.empty_cache()
+
+    # the serving rows: EnsembleService, one counted dispatch, 5 timed
+    ens_rows = []
+    for impl, dname, sub in (("pipeline", "float32", 1),
+                             ("pipeline", "float32", 8),
+                             ("pipeline", "bfloat16", 1),
+                             ("pipeline", "bfloat16", 8),
+                             ("xla", "float32", 1), ("xla", "bfloat16", 1)):
+        spaces = lane_spaces(dname)
+        models = ([model01] * B5 if impl == "pipeline"
+                  else [mt.Model(mt.Diffusion(r)) for r in lane_rates])
+        svc = mt.EnsembleService(models[0], steps=STEPS5, impl=impl,
+                                 substeps=sub, buckets=mt.buckets_for(B5),
+                                 retry="solo")
+
+        def dispatch():
+            tickets = [svc.submit(s, model=m)
+                       for s, m in zip(spaces, models)]
+            return [svc.result(t) for t in tickets]
+
+        dispatch()  # the runner's build
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        res = dispatch()
+        ran = kernel_launches()
+        peak = torch.cuda.max_memory_allocated()
+        want_k5 = (STEPS5 // sub + STEPS5 % sub) if impl == "pipeline" else 0
+        check(ran["pipeline_stencil"] == want_k5
+              and sum(ran.values()) == want_k5,
+              f"ensemble {impl} {dname} substeps={sub}: launches {ran}, "
+              f"expected {want_k5} of K5 and nothing else")
+        for sp, rep in res:
+            v = sp.values["value"]
+            check(tuple(v.shape) == (N5, N5) and v.dtype == getattr(
+                torch, dname) and bool(torch.isfinite(v).all()),
+                "ensemble output has the wrong shape or dtype, or is not "
+                "finite")
+            check(rep.impl == impl, f"ensemble row ran {rep.impl!r}")
+        cons = max(rep.conservation_error() for _, rep in res)
+        del res
+        times = timed_ms(torch, dispatch, reps=5)
+        med = statistics.median(times)
+        st = svc.stats()
+        check(st["runner_builds"] == 1
+              and st["runner_cache_hits"] == st["dispatches"] - 1
+              and st["batch_occupancy"] == 1.0,
+              f"ensemble {impl} {dname}: runner cache or occupancy off: "
+              f"{st}")
+        row = {"impl": impl, "dtype": dname, "substeps": sub, "B": B5,
+               "grid": [N5, N5], "steps": STEPS5,
+               "k5_launches_per_dispatch": ran["pipeline_stencil"],
+               "launches": ran, "conservation_error": cons,
+               "dispatch_ms_median": med, "dispatch_ms_all": times,
+               "scenarios_per_s": B5 / (med / 1e3),
+               "cell_updates_per_s": B5 * N5 * N5 * STEPS5 / (med / 1e3),
+               "batch_occupancy": st["batch_occupancy"],
+               "runner_builds": st["runner_builds"],
+               "runner_cache_hits": st["runner_cache_hits"],
+               "compile_cache_hit_rate": st["compile_cache_hit_rate"],
+               "peak_mem_bytes": peak, "held_before_bytes": held,
+               "peak_above_held_bytes": peak - held}
+        ens_rows.append(row)
+        print(f"ensemble {impl} {dname} B={B5} {N5}x{N5} substeps={sub}: "
+              f"{row['scenarios_per_s']:.2f} scenarios/s, "
+              f"{row['cell_updates_per_s']:.4e} cell-updates/s (dispatch "
+              f"{med:.3f} ms), K5 launches/dispatch "
+              f"{row['k5_launches_per_dispatch']}, occupancy "
+              f"{row['batch_occupancy']}, builds {row['runner_builds']}, "
+              f"hits {row['runner_cache_hits']} (rate "
+              f"{row['compile_cache_hit_rate']:.3f}), peak "
+              f"{(peak - held) / 2 ** 30:.2f} GiB above the "
+              f"{held / 2 ** 30:.2f} GiB held", flush=True)
+        if impl == "pipeline" and sub == 8:
+            row["profile"] = profile_dispatch(torch, dispatch, med)
+            print_profile(f"ensemble pipeline {dname} substeps=8 dispatch",
+                          row["profile"])
+        del spaces, svc
+        torch.cuda.empty_cache()
+
+    # the sequential baselines: B serial runs of the same lanes, through
+    # the executor alone and (K1) through Model.execute, which also takes
+    # the totals, conservation check and report a served scenario carries
+    for dname in ("float32", "bfloat16"):
+        spaces = lane_spaces(dname)
+        for impl, sub, via in (("xla", 1, "run_model"),
+                               ("pallas", 8, "run_model"),
+                               ("pallas", 8, "execute")):
+            ex = mt.SerialExecutor(impl, substeps=sub)
+
+            def sequential():
+                for s in spaces:
+                    if via == "execute":
+                        model01.execute(s, ex, steps=STEPS5)
+                    else:
+                        ex.run_model(model01, s, STEPS5)
+
+            med = statistics.median(timed_ms(torch, sequential, reps=3))
+            name = (f"{B5} x SerialExecutor({impl!r}, substeps={sub})"
+                    + (" via Model.execute" if via == "execute" else ""))
+            row = {"baseline": name, "via": via,
+                   "impl": impl, "dtype": dname, "substeps": sub,
+                   "B": B5, "steps": STEPS5, "ms": med,
+                   "scenarios_per_s": B5 / (med / 1e3),
+                   "cell_updates_per_s": B5 * N5 * N5 * STEPS5 / (med / 1e3)}
+            if impl == "pallas" and dname == "float32":
+                row["profile"] = profile_dispatch(torch, sequential, med)
+                print_profile(f"sequential {name} {dname}", row["profile"])
+            ens_rows.append(row)
+            print(f"sequential {row['baseline']} {dname}: "
+                  f"{row['scenarios_per_s']:.2f} scenarios/s, "
+                  f"{row['cell_updates_per_s']:.4e} cell-updates/s "
+                  f"({med:.3f} ms)", flush=True)
+        del spaces
+        torch.cuda.empty_cache()
+
+    # a partial batch: 3 scenarios pad to the 4-bucket; the pad lane stays 0
+    sp3 = lane_spaces("float32")[:3]
+    svc = mt.EnsembleService(model01, steps=STEPS5, impl="pipeline",
+                             substeps=8, buckets=mt.buckets_for(B5))
+    ts = [svc.submit(s) for s in sp3]
+    svc.flush()
+    res3 = [svc.result(t) for t in ts]
+    st = svc.stats()
+    check(st["batch_occupancy"] == 0.75
+          and svc.scheduler.dispatch_log[-1]["bucket"] == 4
+          and len(res3) == 3, f"B=3 did not pad to the 4-bucket: {st}")
+    psp, pmod = padding_scenarios(model01, sp3[0], 1)
+    fl = launch_ensemble(model01, sp3 + psp, models=[model01] * 3 + pmod,
+                         executor=mt.EnsembleExecutor("pipeline", substeps=8),
+                         steps=STEPS5, count=3)
+    complete_ensemble(fl)
+    pad_zero = float(fl.out[0]["value"][3].abs().max()) == 0.0
+    check(pad_zero, "the pad lane of a padded pipeline batch is not zero")
+    print(f"ensemble B=3 into the 4-bucket: occupancy "
+          f"{st['batch_occupancy']}, pad lane identically zero: {pad_zero}",
+          flush=True)
+    del sp3, svc, res3, fl, psp
+    torch.cuda.empty_cache()
+
+    # K5 per call on the path's batch: kernel, plain, bound, conv2d x ns
+    k5_time = {}
+    for dname in ("float32", "bfloat16"):
+        tdt = getattr(torch, dname)
+        x = torch.stack(lanes5).to(tdt)
+        y = torch.empty_like(x)
+        w = torch.ones((1, 1, 3, 3), device=dev, dtype=tdt)
+        x4 = x.view(B5, 1, N5, N5)
+        l1 = statistics.median(timed_ms(
+            torch, lambda: torch.nn.functional.conv2d(x4, w, padding=1),
+            reps=10))
+        for ns in (8, 1):
+            bufs = [x, y]
+
+            def kernel_call():
+                k5.pipeline_dense_step(bufs[0], 0.1, nsteps=ns, out=bufs[1])
+                bufs.reverse()
+
+            k_ms = statistics.median(timed_ms(torch, kernel_call, reps=20))
+            p_ms = statistics.median(timed_ms(
+                torch, lambda: k5.pipeline_step_plain(x, 0.1, MOORE_OFFSETS,
+                                                      ns), reps=3))
+            blk = k5.pipeline_block((N5, N5), ns)
+            inner = int(k5.interior_mask((N5, N5), blk, ns).sum())
+            b_ms, b_by = k5_bound_ms(B5, (N5, N5), x.element_size(), ns, 8,
+                                     inner)
+            k5_time[(dname, ns)] = {
+                "nsteps": ns, "ms": k_ms, "plain_ms": p_ms,
+                "library_ms": l1 * ns, "conv2d_one_ms": l1,
+                "bound_ms": b_ms, "bound_by": b_by, "block": list(blk),
+                "interior_cells_per_lane": inner}
+            print(f"K5 {dname} B={B5} {N5}x{N5} ns={ns}: kernel {k_ms:.4f} "
+                  f"ms/call, plain {p_ms:.3f} ms, conv2d 3x3 x {ns} "
+                  f"{l1 * ns:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"block {blk}, {inner} interior cells a lane)", flush=True)
+        del x, y, x4, bufs
+        torch.cuda.empty_cache()
+    for row in ens_rows:
+        if row.get("impl") == "pipeline" and "dispatch_ms_median" in row:
+            kt = k5_time[(row["dtype"], row["substeps"])]
+            kernel_ms = row["k5_launches_per_dispatch"] * kt["ms"]
+            row.update(k5_ms_per_call=kt["ms"], k5_ms_per_dispatch=kernel_ms,
+                       host_share=1.0 - kernel_ms / row["dispatch_ms_median"])
+            print(f"ensemble pipeline {row['dtype']} substeps="
+                  f"{row['substeps']}: dispatch {row['dispatch_ms_median']:.3f}"
+                  f" ms against {kernel_ms:.3f} ms of K5 (host share "
+                  f"{row['host_share']:.3f})", flush=True)
+    del lanes5
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -1080,6 +1514,10 @@ def main() -> int:
                    f"--dimx={N4}", f"--dimy={N4}", "--substeps=8",
                    "--steps=8", "--json"])
     check(rc == 0, "the coupled (K4) CLI run failed")
+    rc = cli_main(["run", "--flow=diffusion", f"--dimx={N5}", f"--dimy={N5}",
+                   f"--ensemble={B5}", "--ensemble-impl=pipeline",
+                   "--substeps=8", f"--steps={STEPS5}", "--json"])
+    check(rc == 0, "the ensemble (K5) CLI run failed")
 
     for steps in (1, 50):
         space = mt.CellularSpace.create(100, 100, 1.0, dtype="float64")
@@ -1183,6 +1621,24 @@ def main() -> int:
             "shape": [N4, N4], "dtype": dname, "nsteps": t["nsteps"],
             "xla_step_ms": t["xla_step_ms"], "main_path": k4_run[dname],
         })
+    for dname in ("float32", "bfloat16"):
+        t = k5_time[(dname, 8)]
+        row = next(r for r in ens_rows if r.get("impl") == "pipeline"
+                   and r["dtype"] == dname and r.get("substeps") == 8
+                   and "dispatch_ms_median" in r)
+        entries.append({
+            "name": f"K5 pipeline_stencil {dname}",
+            "route": "cuda",
+            "source": "mpi_model_tpu_torch/csrc/pipeline_stencil.cu",
+            "replaces": "mpi_model_tpu/ops/pallas_stencil.py:728",
+            "launches": row["k5_launches_per_dispatch"],
+            "max_abs_err": k5_err[dname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": [B5, N5, N5], "dtype": dname, "nsteps": 8,
+            "nsteps1": k5_time[(dname, 1)], "main_path": row,
+        })
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1191,7 +1647,10 @@ def main() -> int:
          "active_rows": active_rows, "k67_times": {
              f"{f}/k={k}": v for (f, k), v in k67_time.items()},
          "composed": composed, "field_rows": field_rows,
-         "field_timing": field_timing, "count_read_us": sync_us,
+         "field_timing": field_timing, "ensemble_gates": gates,
+         "ensemble_rows": ens_rows,
+         "k5_times": {f"{d}/ns={n}": v for (d, n), v in k5_time.items()},
+         "count_read_us": sync_us,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -6,6 +6,9 @@
         --dimy=16384 --impl=active_fused --substeps=8 --blob=0.05 --json
     python -m mpi_model_tpu_torch.cli run --flow=coupled --channels=2 \\
         --dimx=8192 --dimy=8192 --impl=pallas --substeps=8 --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=4096 \\
+        --dimy=4096 --ensemble=8 --ensemble-impl=pipeline --substeps=8 \\
+        --steps=8 --json
 
 Runs on the card unless ``--device=cpu`` is given. Prints one row: the impl
 that actually ran, the kernel launch count, the totals, whether mass was
@@ -17,8 +20,12 @@ square of ``U(0.5, 2.0)`` values (numpy seed 0) covering FRAC of the grid
 ``--flow=coupled --channels=N`` is the JAX package's chain: N channels
 ``c0..c{N-1}``, a ``Diffusion(0.1)`` on each, and ``Coupled(0.05)`` from
 each channel but the last, modulated by the next; at N=2 the BASELINE
-config-4 flow set's shape, which runs on the field kernel K4. Exit status 1
-when conservation fails.
+config-4 flow set's shape, which runs on the field kernel K4.
+``--ensemble=B`` runs B copies of the scenario through the serving stack
+(``EnsembleService`` → bucketed scheduler → batched engine) and prints the
+ensemble row (scenarios/s, batch occupancy, runner-cache hits, dispatches);
+``--ensemble-impl`` picks its engine (``pipeline`` is the kernel K5). Exit
+status 1 when conservation fails.
 """
 
 from __future__ import annotations
@@ -57,7 +64,93 @@ def build_flows(args):
     return flows, {nm: args.init for nm in names}
 
 
+def check_ensemble_flags(args) -> None:
+    """The JAX package's checks of the ensemble flags, for the flags the
+    port has."""
+    if args.ensemble is not None:
+        if args.ensemble < 1:
+            raise SystemExit(f"--ensemble={args.ensemble} needs B >= 1")
+        if args.impl != "auto":
+            raise SystemExit(
+                "--impl selects the single-run kernel; ensemble runs "
+                "use --ensemble-impl=xla|pipeline|active|active_fused")
+    elif args.ensemble_impl != "xla":
+        raise SystemExit("--ensemble-impl applies to ensemble runs; add "
+                         "--ensemble=B")
+
+
+def run_ensemble_cli(args, space, model) -> int:
+    """``--ensemble B``: B copies of the configured scenario through the
+    serving stack, conservation judged here (status and exit code), not
+    raised mid-flight."""
+    from .ensemble import EnsembleService, buckets_for
+    from .models.model import kernel_launches
+
+    B = args.ensemble
+    steps = args.steps
+    svc = EnsembleService(
+        model, steps=steps, impl=args.ensemble_impl,
+        substeps=args.substeps, buckets=buckets_for(B),
+        check_conservation=False)
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        tickets = [svc.submit(space) for _ in range(B)]
+        svc.flush()
+        outs = [svc.result(t) for t in tickets]
+    except (TypeError, ValueError) as e:
+        # an ineligible engine (e.g. pipeline on a point flow or a grid that
+        # does not cut into strips) is misuse of the flags, not a crash
+        raise SystemExit(f"ensemble run failed: {e}")
+    wall = time.perf_counter() - t0
+    launched = sum(v - before[k] for k, v in kernel_launches().items())
+    st = svc.stats()
+    thresh = model.conservation_threshold(space)
+    err = max(rep.conservation_error() for _, rep in outs)
+    conserved = bool(err <= thresh)
+    initial = {k: sum(rep.initial_total[k] for _, rep in outs)
+               for k in outs[0][1].initial_total}
+    final = {k: sum(rep.final_total[k] for _, rep in outs)
+             for k in outs[0][1].final_total}
+    row = {
+        "backend": "ensemble",
+        "device": str(space.device),
+        "ranks": 1,
+        "ensemble": B,
+        "steps": steps,
+        "initial": initial,
+        "final": final,
+        "conservation_error": err,
+        "conserved": conserved,
+        "wall_s": wall,
+        "impl": args.ensemble_impl,
+        "substeps": args.substeps,
+        "kernel_launches": launched,
+        "mesh": st["mesh"],
+        "scenarios_per_s": st["scenarios_per_s"],
+        "batch_occupancy": st["batch_occupancy"],
+        "compile_cache_hits": st["compile_cache_hits"],
+        "dispatches": st["dispatches"],
+        "recovered_failures": st["recovered_failures"],
+        "quarantined": st["quarantined"],
+        "solo_retries": st["solo_retries"],
+    }
+    if args.json:
+        print(json.dumps(row, allow_nan=False))
+    else:
+        status = "CONSERVED" if conserved else "VIOLATED"
+        sps = st["scenarios_per_s"]
+        rate = f"{sps:.1f} scenarios/s, " if sps else ""
+        print(f"backend=ensemble impl={args.ensemble_impl} B={B} "
+              f"steps={steps} max|delta|={err:.3e} {status} "
+              f"({wall:.2f}s on {row['device']}, {rate}"
+              f"occupancy={st['batch_occupancy']:.2f}, "
+              f"{st['dispatches']} dispatches, {launched} kernel launches)")
+    return 0 if conserved else 1
+
+
 def cmd_run(args) -> int:
+    check_ensemble_flags(args)
     if args.flow == "coupled" and args.channels < 2:
         raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
                          "has nothing to modulate — use --flow=diffusion)")
@@ -74,6 +167,8 @@ def cmd_run(args) -> int:
         space = space.with_values({"value": torch.from_numpy(v).to(
             device=space.device, dtype=space.dtype)})
     model = Model(flow)
+    if args.ensemble is not None:
+        return run_ensemble_cli(args, space, model)
     executor = SerialExecutor(step_impl=args.impl, substeps=args.substeps)
     t0 = time.perf_counter()
     out, report = model.execute(space, executor, steps=args.steps,
@@ -152,6 +247,15 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "(seed 0) covering this fraction of the grid, zeros "
                      "elsewhere")
     run.add_argument("--substeps", type=int, default=1)
+    run.add_argument("--ensemble", type=int, default=None, metavar="B",
+                     help="run B copies of the scenario together through "
+                     "the ensemble serving stack (EnsembleService)")
+    run.add_argument("--ensemble-impl", default="xla",
+                     choices=("xla", "pipeline", "active", "active_fused"),
+                     help="ensemble engine: 'xla' (the batched plain-op "
+                     "step, per-lane rates), 'pipeline' (the pipelined-"
+                     "window kernel K5, one launch for all lanes), 'active'/"
+                     "'active_fused' (the active-tile engine per lane)")
     run.add_argument("--device", default="cuda",
                      help="torch device (default: the card)")
     run.add_argument("--json", action="store_true")

@@ -51,7 +51,8 @@ __constant__ float c_taps[MAX_TAPS];
 template <typename T>
 __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
     composed_kernel(const T* __restrict__ in, T* __restrict__ out, int H,
-                    int W, float rate, float keep, int k, int mask9) {
+                    int W, float rate, float keep, int k, int mask9,
+                    int noff, int offcodes) {
   extern __shared__ float smem[];
   const int WH = TILE_H + 2 * k;
   const int WW = TILE_W + 2 * k;
@@ -97,7 +98,7 @@ __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
   if (!near) return;
   __syncthreads();  // the tap pass has finished reading the window
   mm::iterate_exact_f32(val, share, r0, c0, WH, WW, H, W, rate, keep, k,
-                        mask9);
+                        mask9, noff, offcodes);
   for (int i = threadIdx.y; i < TILE_H; i += mm::kThreadsY) {
     const int r = tr0 + i;
     if (r >= H) break;
@@ -115,9 +116,10 @@ __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
 
 template <typename T>
 int launch(const void* in, void* out, const void* taps_dev, int H, int W,
-           float rate, float keep, int k, int mask9, void* stream) {
-  if (k < 1 || k > MAX_K || (mask9 & ~0x1EF) != 0 || mask9 == 0 || H < 0 ||
-      W < 0) {
+           float rate, float keep, int k, int mask9, int noff, int offcodes,
+           void* stream) {
+  if (k < 1 || k > MAX_K || (mask9 & ~0x1EF) != 0 || mask9 == 0 ||
+      noff != __builtin_popcount(mask9) || H < 0 || W < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (H == 0 || W == 0) return 0;
@@ -143,7 +145,7 @@ int launch(const void* in, void* out, const void* taps_dev, int H, int W,
   const dim3 block(mm::kThreadsX, mm::kThreadsY);
   composed_kernel<T><<<grid, block, smem, st>>>(
       static_cast<const T*>(in), static_cast<T*>(out), H, W, rate, keep, k,
-      mask9);
+      mask9, noff, offcodes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -152,16 +154,17 @@ int launch(const void* in, void* out, const void* taps_dev, int H, int W,
 extern "C" {
 
 int mm_composed_f32(const void* in, void* out, const void* taps, int H,
-                    int W, float rate, float keep, int k, int mask9,
-                    void* stream) {
-  return launch<float>(in, out, taps, H, W, rate, keep, k, mask9, stream);
+                    int W, float rate, float keep, int k, int mask9, int noff,
+                    int offcodes, void* stream) {
+  return launch<float>(in, out, taps, H, W, rate, keep, k, mask9, noff,
+                       offcodes, stream);
 }
 
 int mm_composed_bf16(const void* in, void* out, const void* taps, int H,
                      int W, float rate, float keep, int k, int mask9,
-                     void* stream) {
+                     int noff, int offcodes, void* stream) {
   return launch<__nv_bfloat16>(in, out, taps, H, W, rate, keep, k, mask9,
-                               stream);
+                               noff, offcodes, stream);
 }
 
 const char* mm_cuda_error_string(int err) {

@@ -23,9 +23,12 @@
 // The kernel is out of place: every read sees the values from before the
 // call. Storage is float or __nv_bfloat16; the math is f32, converted with
 // the intrinsics only, and bf16 is rounded once per call (as the TPU kernel
-// does). The neighborhood is a 3x3 bitmask (bit (dx+1)*3 + (dy+1)); shares
-// are summed in row-major offset order. The window load and the iterated
-// step live in stencil_common.cuh, shared with K3.
+// does). The neighborhood is a 3x3 bitmask (bit (dx+1)*3 + (dy+1)) and its
+// `noff` offsets in order, 4 bits each (`offcodes`); shares are summed in
+// that order, every operation explicitly rounded (no multiply-add
+// contracted). The window load and the iterated step live
+// in stencil_common.cuh, shared with K3 and K5; blocks whose window is off
+// the grid's outer ring skip the per-cell neighbour count there.
 //
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch, 0 on success.
@@ -43,7 +46,7 @@ template <typename T>
 __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
     fused_stencil_kernel(const T* __restrict__ in, T* __restrict__ out, int H,
                          int W, float rate, float keep, int nsteps,
-                         int mask9) {
+                         int mask9, int noff, int offcodes) {
   extern __shared__ float smem[];
   const int WH = TILE_H + 2 * nsteps;  // window rows
   const int WW = TILE_W + 2 * nsteps;  // window cols (row pitch)
@@ -55,7 +58,7 @@ __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
   mm::load_window_f32(in, val, r0, c0, WH, WW, H, W);
   __syncthreads();
   mm::iterate_exact_f32(val, share, r0, c0, WH, WW, H, W, rate, keep, nsteps,
-                        mask9);
+                        mask9, noff, offcodes);
 
   // Write the interior once, in the storage dtype.
   for (int i = threadIdx.y; i < TILE_H; i += mm::kThreadsY) {
@@ -73,9 +76,9 @@ __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
 
 template <typename T>
 int launch(const void* in, void* out, int H, int W, float rate, float keep,
-           int nsteps, int mask9, void* stream) {
+           int nsteps, int mask9, int noff, int offcodes, void* stream) {
   if (nsteps < 1 || nsteps > MAX_STEPS || (mask9 & ~0x1EF) != 0 ||
-      mask9 == 0 || H < 0 || W < 0) {
+      mask9 == 0 || noff != __builtin_popcount(mask9) || H < 0 || W < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (H == 0 || W == 0) return 0;
@@ -94,7 +97,7 @@ int launch(const void* in, void* out, int H, int W, float rate, float keep,
   fused_stencil_kernel<T><<<grid, block, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(in), static_cast<T*>(out), H, W, rate, keep,
-      nsteps, mask9);
+      nsteps, mask9, noff, offcodes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -103,14 +106,17 @@ int launch(const void* in, void* out, int H, int W, float rate, float keep,
 extern "C" {
 
 int mm_fused_stencil_f32(const void* in, void* out, int H, int W, float rate,
-                         float keep, int nsteps, int mask9, void* stream) {
-  return launch<float>(in, out, H, W, rate, keep, nsteps, mask9, stream);
+                         float keep, int nsteps, int mask9, int noff,
+                         int offcodes, void* stream) {
+  return launch<float>(in, out, H, W, rate, keep, nsteps, mask9, noff,
+                       offcodes, stream);
 }
 
 int mm_fused_stencil_bf16(const void* in, void* out, int H, int W, float rate,
-                          float keep, int nsteps, int mask9, void* stream) {
+                          float keep, int nsteps, int mask9, int noff,
+                          int offcodes, void* stream) {
   return launch<__nv_bfloat16>(in, out, H, W, rate, keep, nsteps, mask9,
-                               stream);
+                               noff, offcodes, stream);
 }
 
 const char* mm_cuda_error_string(int err) {

@@ -10,11 +10,13 @@ State crosses as numpy arrays and plain dicts:
   ``{"type": "Diffusion", "flow_rate": 0.1, "attr": "value"}`` or an
   ``Exponencial`` with ``source`` (an ``(x, y)`` pair or a Cell dict as
   ``dataclasses.asdict`` gives it) and ``frozen_source_value``.
+- ``ensemble_from_numpy``: a batch of scenarios (numpy channels and flow
+  specs per lane) as an ``EnsembleSpace`` and one ``Model`` per lane.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +25,10 @@ from .core.attribute import Attribute
 from .core.cell import Cell
 from .core.cellular_space import CellularSpace, resolve_device
 from .ops.flow import Coupled, Diffusion, Exponencial, Flow, PointFlow
+
+if TYPE_CHECKING:
+    from .ensemble.batch import EnsembleSpace
+    from .models.model import Model
 
 _FLOW_TYPES = {"Diffusion": Diffusion, "Coupled": Coupled,
                "PointFlow": PointFlow, "Exponencial": Exponencial}
@@ -80,3 +86,23 @@ def flows_from_specs(specs: Sequence[dict]) -> list[Flow]:
             spec["source"] = _source(spec["source"])
         flows.append(cls(**spec))
     return flows
+
+
+def ensemble_from_numpy(values_per_lane: Sequence[dict[str, np.ndarray]],
+                        flow_specs_per_lane: Sequence[Sequence[dict]], *,
+                        device=None) -> tuple["EnsembleSpace", list["Model"]]:
+    """A batch of scenarios: lane i's channels (``space_from_numpy``) and
+    its flows (``flows_from_specs``) become an ``EnsembleSpace`` on
+    ``device`` (None means the card) and lane i's ``Model``. The lanes must
+    share geometry, channels and flow structure (``EnsembleSpace.stack``
+    and ``run_ensemble`` refuse them otherwise)."""
+    from .ensemble.batch import EnsembleSpace
+    from .models.model import Model
+
+    if len(values_per_lane) != len(flow_specs_per_lane):
+        raise ValueError(
+            f"{len(values_per_lane)} lanes of values for "
+            f"{len(flow_specs_per_lane)} lanes of flow specs")
+    spaces = [space_from_numpy(v, device=device) for v in values_per_lane]
+    models = [Model(flows_from_specs(specs)) for specs in flow_specs_per_lane]
+    return EnsembleSpace.stack(spaces), models

@@ -21,7 +21,9 @@
   call) when the space is on the card, f32/bf16 and not a partition, else
   the plain transport. (The JAX package probes its kernel and catches a
   failure.)
-- ``Model.execute`` checks mass conservation and returns a ``Report``.
+- ``Model.execute`` checks mass conservation and returns a ``Report``;
+  ``Model.execute_many`` runs a batch of scenarios through the ensemble
+  engine (``ensemble.batch``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..ops import composed_stencil as _k3
 from ..ops import field_stencil as _k4
 from ..ops import fused_active as _k67
 from ..ops import fused_stencil as _k1
+from ..ops import pipeline_stencil as _k5
 from ..ops.active import ActiveDiffusionStep, build_active_runner, plan_for
 from ..ops.composed_stencil import ComposedDiffusionStep, choose_k, max_k
 from ..ops.field_stencil import FieldPlanError, PallasFieldStep
@@ -60,6 +63,7 @@ def kernel_launches() -> dict[str, int]:
     return {"fused_stencil": _k1.launches(),
             "composed_stencil": _k3.launches(),
             "field_stencil": _k4.launches(),
+            "pipeline_stencil": _k5.launches(),
             **_k67.launches()}
 
 
@@ -345,6 +349,7 @@ class Model:
             self.offsets = tuple(offsets)
         self._step_cache: dict = {}
         self._default_executor: Optional[SerialExecutor] = None
+        self._default_ensemble = None
 
     @property
     def flow(self) -> Flow:
@@ -765,6 +770,37 @@ class Model:
                     f"(initial={initial}, final={final})")
         return out_space, report
 
-    def execute_many(self, *args, **kwargs):
-        """The ensemble engine is not ported yet."""
-        raise _not_ported("Model.execute_many (the ensemble engine)")
+    def execute_many(
+        self,
+        spaces,
+        *,
+        models=None,
+        executor=None,
+        steps: Optional[int] = None,
+        check_conservation: bool = True,
+        tolerance: float = 1e-3,
+        rtol: Optional[float] = None,
+    ) -> list:
+        """Run B independent scenarios together (the ensemble engine,
+        ``ensemble.batch``); returns ``(space, Report)`` per scenario,
+        matching B independent ``SerialExecutor`` runs of them.
+
+        ``models`` (default: this model for every lane) may vary numeric
+        flow parameters per scenario (rates, frozen snapshots) but must
+        share this model's structure and the spaces' geometry, channel
+        dtypes and device; anything else raises ``ValueError``.
+        ``executor`` is an ``ensemble.EnsembleExecutor`` (default: one
+        ``impl="xla"`` executor kept by this model, so its runner cache
+        serves repeated calls). Conservation is checked per scenario; a
+        violation raises ``ensemble.EnsembleConservationError`` naming the
+        lane."""
+        from ..ensemble.batch import EnsembleExecutor, run_ensemble
+
+        if executor is None:
+            if self._default_ensemble is None:
+                self._default_ensemble = EnsembleExecutor()
+            executor = self._default_ensemble
+        return run_ensemble(
+            self, spaces, models=models, executor=executor, steps=steps,
+            check_conservation=check_conservation, tolerance=tolerance,
+            rtol=rtol)

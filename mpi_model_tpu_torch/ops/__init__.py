@@ -1,6 +1,7 @@
 """L3 ops: flows, plain-torch stencil transport, the active-tile engine, the
 flow lowering and the kernels K1 (fused stencil), K3 (composed filter), K4
-(fused field step), K6/K7 (fused active pass)."""
+(fused field step), K5 (pipelined window over a batch), K6/K7 (fused active
+pass)."""
 
 from .flow import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
     build_outflow, cell_coords
@@ -14,6 +15,7 @@ from .fused_active import FusedActiveStep, build_fused_runner, \
     fused_active_pass
 from .fused_stencil import PallasDiffusionStep, check_offsets, \
     dense_step_plain, pallas_dense_step
+from .pipeline_stencil import pipeline_dense_step, pipeline_step_plain
 from .stencil import flow_step, gather_neighbors, neighbor_counts, \
     point_flow_step, shift2d, transport
 
@@ -26,5 +28,6 @@ __all__ = [
     "ComposedDiffusionStep", "composed_dense_step", "composed_taps",
     "FusedActiveStep", "build_fused_runner", "fused_active_pass",
     "FieldProgram", "eval_program", "lower_flows", "PallasFieldStep",
-    "field_step_plain", "pallas_field_step",
+    "field_step_plain", "pallas_field_step", "pipeline_dense_step",
+    "pipeline_step_plain",
 ]

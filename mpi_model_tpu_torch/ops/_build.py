@@ -8,10 +8,10 @@ checkout. Libraries go to ``mpi_model_tpu_torch/_build/`` (listed in
 it includes (directly or through another header) and its flags, so an edited
 source or shared header rebuilds and an unchanged one is reused.
 
-``SOURCE_FLAGS`` adds flags per source: ``fused_active.cu`` (K6/K7) and
-``field_stencil.cu`` (K4) build with FMA contraction off (each must equal
-its plain version bit for bit), while K1's and K3's flags stay the common
-ones. ``build_all`` starts one ``nvcc``
+``SOURCE_FLAGS`` adds flags per source: ``fused_active.cu`` (K6/K7),
+``field_stencil.cu`` (K4) and ``pipeline_stencil.cu`` (K5) build with FMA
+contraction off (each must equal its plain version bit for bit), while K1's
+and K3's flags stay the common ones. ``build_all`` starts one ``nvcc``
 per source, all at once.
 """
 
@@ -37,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
     "fused_active": ("--fmad=false",),
     "field_stencil": ("--fmad=false",),
+    "pipeline_stencil": ("--fmad=false",),
 }
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)

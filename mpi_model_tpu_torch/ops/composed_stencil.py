@@ -35,6 +35,7 @@ from ..core.cell import MOORE_OFFSETS
 from .fused_stencil import (
     KERNEL_DTYPES,
     LANE,
+    _offset_codes,
     _offset_mask,
     _pick_block,
     _sublane,
@@ -213,7 +214,7 @@ def _kernel_lib():
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_int, ctypes.c_int, ctypes.c_float,
                            ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
@@ -238,7 +239,8 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), taps.data_ptr(), h, w,
                  float(rate), float(1.0 - rate), int(k),
-                 _offset_mask(offsets), stream)
+                 _offset_mask(offsets), len(offsets), _offset_codes(offsets),
+                 stream)
     if err != 0:
         raise RuntimeError(
             f"composed_stencil kernel launch failed: "

@@ -23,6 +23,15 @@ from ..core.cell import Cell
 from ..core.cellular_space import DEFAULT_ATTR, CellularSpace
 
 
+def _rate_tensor(rate, like: torch.Tensor) -> torch.Tensor:
+    """A flow's rate as a tensor in ``like``'s dtype: a Python float is
+    rounded once; a tensor (the ensemble engine's ``[B, 1, 1]`` lane, already
+    in the channel's dtype) is taken as it is."""
+    if isinstance(rate, torch.Tensor):
+        return rate
+    return torch.tensor(rate, dtype=like.dtype, device=like.device)
+
+
 def _source_xy(source) -> tuple[int, int]:
     if isinstance(source, Cell):
         return source.x, source.y
@@ -169,7 +178,7 @@ class Diffusion(Flow):
     def outflow(self, values: dict[str, torch.Tensor],
                 origin: tuple[int, int] = (0, 0)) -> torch.Tensor:
         v = values[self.attr]
-        return torch.tensor(self.flow_rate, dtype=v.dtype, device=v.device) * v
+        return _rate_tensor(self.flow_rate, v) * v
 
 
 @dataclasses.dataclass
@@ -184,8 +193,7 @@ class Coupled(Flow):
     def outflow(self, values: dict[str, torch.Tensor],
                 origin: tuple[int, int] = (0, 0)) -> torch.Tensor:
         v = values[self.attr]
-        r = torch.tensor(self.flow_rate, dtype=v.dtype, device=v.device)
-        return r * v * values[self.modulator]
+        return _rate_tensor(self.flow_rate, v) * v * values[self.modulator]
 
 
 def cell_coords(v, origin: tuple[int, int] = (0, 0)):

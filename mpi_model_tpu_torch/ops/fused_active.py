@@ -50,7 +50,7 @@ from .active import (
     dense_transport_step,
 )
 from .composed_stencil import composed_taps
-from .fused_stencil import _offset_mask
+from .fused_stencil import _offset_codes, _offset_mask
 from .stencil import neighbor_counts, transport
 
 #: hard cap on the composed pass depth (the window is (th+2k, tw+2k); also
@@ -115,13 +115,6 @@ def smem_bytes(dtype, tile: tuple[int, int], k: int) -> int:
     item = 8 if dtype == torch.float64 else 4
     sh, sw = min(SUB, tile[0]), min(SUB, tile[1])
     return 2 * (sh + 2 * k) * (sw + 2 * k) * item
-
-
-def _offset_codes(offsets: tuple) -> int:
-    codes = 0
-    for i, (dx, dy) in enumerate(offsets):
-        codes |= ((dx + 1) * 3 + (dy + 1)) << (4 * i)
-    return codes
 
 
 def _origin(origin) -> tuple[int, int]:
@@ -410,9 +403,13 @@ def build_fused_runner(shape: tuple[int, int], rates: dict,
                        plan: Optional[ActivePlan] = None,
                        k: int = 1,
                        dense_fns: Optional[dict] = None,
-                       track_dirty: bool = False) -> Callable:
+                       track_dirty: bool = False,
+                       use_taps: bool = True) -> Callable:
     """Whole-run fused active stepper: ``run(values, n) -> (values,
     (fallback_events, active_tiles_total, flags_fused[, dirty_map]))``.
+    ``use_taps=False`` runs every pass on the exact iterated path (the
+    ensemble engine's lanes, as the JAX package's traced per-lane rates
+    leave it no tap table).
 
     The state is padded once to ring ``k`` and carried; ``n // k``
     full-depth passes, then ``n % k`` depth-1 passes on the same buffer
@@ -434,8 +431,8 @@ def build_fused_runner(shape: tuple[int, int], rates: dict,
             f"[1, min(min(tile), {MAX_FUSED_K})] for tile {plan.tile}")
     th, tw = plan.tile
     dense_fns = dense_fns or {}
-    taps_by_attr = {a: _fused_taps(float(r), offsets, k)
-                    for a, r in rates.items()}
+    taps_by_attr = {a: _fused_taps(float(r), offsets, k) if use_taps
+                    else None for a, r in rates.items()}
 
     def run(values: dict, n: int):
         n = int(n)

@@ -123,8 +123,9 @@ def dense_step_plain(values: torch.Tensor, rate: float,
     """The plain torch version of K1: cast to f32 once, run ``nsteps``
     exact steps (``share = rate*v/cnt``, ``v*(1-rate) + Σ_d share[c+d]`` in
     offset order, counts clamped to >= 1), cast back once. bf16 is thus
-    rounded once per call, as the kernel (and the TPU kernel) does."""
-    h, w = values.shape
+    rounded once per call, as the kernel (and the TPU kernel) does. Leading
+    batch dimensions (``[..., H, W]``) step every grid independently."""
+    h, w = values.shape[-2:]
     v = values.to(torch.float32)
     cnt = None
     rows = torch.arange(h, device=values.device)[:, None]
@@ -134,13 +135,13 @@ def dense_step_plain(values: torch.Tensor, rate: float,
               & (cols + dy >= 0) & (cols + dy < w)).to(torch.float32)
         cnt = ok if cnt is None else cnt + ok
     cnt = torch.clamp(cnt, min=1.0)
-    padded = torch.zeros((h + 2, w + 2), dtype=torch.float32,
-                         device=values.device)
+    padded = torch.zeros(values.shape[:-2] + (h + 2, w + 2),
+                         dtype=torch.float32, device=values.device)
     for _ in range(nsteps):
-        padded[1:-1, 1:-1] = (rate * v) / cnt
+        padded[..., 1:-1, 1:-1] = (rate * v) / cnt
         g = None
         for dx, dy in offsets:
-            t = padded[1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
+            t = padded[..., 1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
             g = t if g is None else g + t
         v = v * (1.0 - rate) + g
     return v.to(values.dtype)
@@ -153,6 +154,15 @@ def _offset_mask(offsets: tuple) -> int:
     return m
 
 
+def _offset_codes(offsets: tuple) -> int:
+    """The offsets in their order, 4 bits each (bit index (dx+1)*3 +
+    (dy+1)): the kernels sum a cell's shares in this order."""
+    codes = 0
+    for i, (dx, dy) in enumerate(offsets):
+        codes |= ((dx + 1) * 3 + (dy + 1)) << (4 * i)
+    return codes
+
+
 def _kernel_lib():
     from ._build import load
 
@@ -161,7 +171,8 @@ def _kernel_lib():
         for fn in (lib.mm_fused_stencil_f32, lib.mm_fused_stencil_bf16):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
@@ -186,7 +197,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), h, w, float(rate),
                  float(1.0 - rate), int(nsteps), _offset_mask(offsets),
-                 stream)
+                 len(offsets), _offset_codes(offsets), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_stencil kernel launch failed: "
@@ -204,16 +215,35 @@ def pallas_dense_step(
     nsteps: int = 1,
     compute_dtype=None,
     out: Optional[torch.Tensor] = None,
+    pipeline: Optional[bool] = None,
 ) -> torch.Tensor:
     """``nsteps`` fused dense flow steps in one device-memory round trip:
     every cell sheds ``rate * value`` split equally among its in-bounds
     neighbors, ``nsteps`` times. The name is the JAX package's, so a parity
     test can be one parametrization across both packages.
 
-    ``out`` (CUDA only) is a preallocated ``[H, W]`` tensor of the input's
+    ``pipeline=True`` takes the pipelined-window kernel K5
+    (``ops.pipeline_stencil``, the ensemble engine's), with the JAX
+    package's checks: a grid (and any explicit block) that cuts into
+    16-row/128-column strips, ``nsteps <= 8``; it also takes a
+    ``[B, H, W]`` batch.
+
+    ``out`` (CUDA only) is a preallocated tensor of the input's shape and
     dtype that receives the result; it must not alias ``values``."""
+    if pipeline:
+        from .pipeline_stencil import pipeline_dense_step
+
+        _check_compute_dtype(compute_dtype)
+        return pipeline_dense_step(values, rate, offsets, block, nsteps, out)
     return _dense_step(values, rate, offsets, block, nsteps, compute_dtype,
                        out)
+
+
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            "compute_dtype other than float32 (bf16 interior math) is not "
+            "ported yet; see ROADMAP.md")
 
 
 def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
@@ -221,10 +251,7 @@ def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
     offsets = check_offsets(offsets)
     if nsteps < 1:
         raise ValueError(f"nsteps must be >= 1, got {nsteps}")
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "compute_dtype other than float32 (bf16 interior math) is not "
-            "ported yet; see ROADMAP.md")
+    _check_compute_dtype(compute_dtype)
     if values.dim() != 2:
         raise ValueError(f"values must be [H, W], got shape "
                          f"{tuple(values.shape)}")

@@ -1,16 +1,19 @@
 """The port's kernels on the card against their plain versions: K1, K3, K4,
-K6 and K7. Needs a CUDA device and skips without one. It imports neither jax
+K5, K6 and K7. Needs a CUDA device and skips without one. It imports neither jax
 nor the JAX package, so it also runs where only torch is installed:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
-Tolerances: K1 and K3 f32 ``1e-6 * nsteps`` (they differ from their plain
-versions only in summation order and nvcc's FMA contraction), bf16 one ulp
-at values below 4. K6 and K7 are held bit for bit: K6 computes in the
+Tolerances: K1 and K3 f32 ``1e-6 * nsteps``, bf16 one ulp at values below
+4 (both sum a neighborhood in ``offsets`` order with every operation
+rounded, as their plain versions do; K3's tap loop is left to nvcc's FMA
+contraction). K6 and K7 are held bit for bit: K6 computes in the
 storage dtype with every operation rounded, in the plain version's order,
 and K7 moves bits. K4 is held bit for bit (f32 and bf16 both compute in f32
 and round once per call), except flows using exp: CUDA's expf and torch's
-exp may differ by an ulp, so those are held to ``8·eps·nsteps·max|v|``."""
+exp may differ by an ulp, so those are held to ``8·eps·nsteps·max|v|``.
+K5 is held bit for bit (f32 math in the plain version's order, no FMA
+contraction, rounded once per call)."""
 
 import dataclasses
 
@@ -25,6 +28,7 @@ from mpi_model_tpu_torch.ops import composed_stencil as cs
 from mpi_model_tpu_torch.ops import field_stencil as k4
 from mpi_model_tpu_torch.ops import fused_active as fa
 from mpi_model_tpu_torch.ops import fused_stencil as fs
+from mpi_model_tpu_torch.ops import pipeline_stencil as ps
 from mpi_model_tpu_torch.ops.flow import Flow, cell_coords
 
 CUSTOM = ((-1, 0), (1, 1), (0, -1))
@@ -282,3 +286,107 @@ def test_field_path_on_the_card(dtype, sub):
                                steps=4 * sub)
         for n in ("a", "b"):
             assert torch.equal(out.values[n], ref.values[n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1, 4, 8])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("B,shape,block", [(1, (16, 128), None),
+                                           (3, (48, 384), (16, 128)),
+                                           (3, (64, 512), (32, 256))])
+def test_pipeline_kernel_bitwise_on_the_card(dtype, ns, offs, B, shape,
+                                             block):
+    dev = _card()
+    v = np.random.default_rng(17).uniform(0.5, 2.0, (B,) + shape)
+    x = torch.from_numpy(v).to(dev, dtype)
+    before = ps.launches()
+    got = ps.pipeline_dense_step(x, 0.13, offs, block=block, nsteps=ns)
+    assert ps.launches() == before + 1  # one launch for every lane
+    want = ps.pipeline_step_plain(x, 0.13, offs, ns, block)
+    assert torch.equal(got, want)
+    # out of place: the input is untouched
+    assert torch.equal(x, torch.from_numpy(v).to(dev, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pipeline_ensemble_on_the_card(dtype):
+    """EnsembleExecutor("pipeline") on the card: steps/substeps K5 launches
+    per dispatch, lanes equal to the plain version chained call by call,
+    and a result never aliases a buffer of a later dispatch."""
+    dev = _card()
+    rng = np.random.default_rng(19)
+    spaces = [mt.CellularSpace.create(48, 384, 1.0, dtype=dtype, device=dev)
+              .with_values({"value": torch.from_numpy(rng.uniform(
+                  0.5, 2.0, (48, 384))).to(dev, getattr(torch, dtype))})
+              for _ in range(3)]
+    model = mt.Model(mt.Diffusion(0.1))
+    svc = mt.EnsembleService(model, steps=9, impl="pipeline", substeps=4)
+    before = ps.launches()
+    first = [svc.result(t) for t in [svc.submit(s) for s in spaces]]
+    assert ps.launches() == before + 3  # 2 calls of 4 steps, 1 of 1
+    kept = [sp.values["value"].clone() for sp, _ in first]
+    for (sp, rep), s in zip(first, spaces):
+        want = s.values["value"]
+        for n in (4, 4, 1):
+            want = ps.pipeline_step_plain(want, 0.1, MOORE_OFFSETS, n)
+        assert torch.equal(sp.values["value"], want)
+        assert rep.backend_report["launches"] == 3
+    second = [svc.result(t) for t in [svc.submit(s) for s in spaces]]
+    assert svc.stats()["runner_cache_hits"] == 1
+    ptrs = {sp.values["value"].untyped_storage().data_ptr()
+            for sp, _ in second}
+    for (sp, _), k in zip(first, kept):
+        assert torch.equal(sp.values["value"], k)
+        assert sp.values["value"].untyped_storage().data_ptr() not in ptrs
+
+
+@pytest.mark.cuda
+def test_xla_ensemble_lanes_bitwise_serial_on_the_card():
+    dev = _card()
+    rng = np.random.default_rng(23)
+    spaces = [mt.CellularSpace.create(64, 64, 1.0, device=dev).with_values(
+        {"value": torch.from_numpy(rng.uniform(0.5, 2.0, (64, 64))).to(
+            dev, torch.float32)}) for _ in range(3)]
+    models = [mt.Model(mt.Diffusion(0.1 * (1 + 0.05 * i))) for i in range(3)]
+    out = models[0].execute_many(spaces, models=models, steps=6)
+    for i, (sp, rep) in enumerate(out):
+        want, wrep = models[i].execute(spaces[i], mt.SerialExecutor("xla"),
+                                       steps=6)
+        assert torch.equal(sp.values["value"], want.values["value"])
+        assert rep.final_total == wrep.final_total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pipeline", "xla"])
+def test_launch_queues_without_a_synchronization(impl):
+    """``launch_ensemble`` queues a dispatch on the stream and waits for
+    nothing (torch's sync debug mode raises on any synchronizing call);
+    ``complete_ensemble`` then synchronizes once."""
+    from mpi_model_tpu_torch.ensemble.batch import (complete_ensemble,
+                                                    launch_ensemble)
+
+    dev = _card()
+    rng = np.random.default_rng(29)
+    spaces = [mt.CellularSpace.create(48, 384, 1.0, device=dev).with_values(
+        {"value": torch.from_numpy(rng.uniform(0.5, 2.0, (48, 384))).to(
+            dev, torch.float32)}) for _ in range(3)]
+    if impl == "pipeline":
+        models = [mt.Model(mt.Diffusion(0.1))] * 3
+    else:
+        models = [mt.Model([mt.Diffusion(0.1 * (1 + 0.05 * i)),
+                            mt.PointFlow(source=(5, 7), flow_rate=0.1)])
+                  for i in range(3)]
+    ex = mt.EnsembleExecutor(impl, substeps=4)
+    kw = dict(models=models, executor=ex, steps=9)
+    warm = complete_ensemble(launch_ensemble(models[0], spaces, **kw))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flight = launch_ensemble(models[0], spaces, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = complete_ensemble(flight)
+    for (a, _), (b, _) in zip(got, warm):
+        assert torch.equal(a.values["value"], b.values["value"])

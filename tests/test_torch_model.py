@@ -188,8 +188,9 @@ def test_unported_options_name_the_roadmap():
     m = mt.Model(mt.Diffusion(0.1))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         m.make_step(s, impl="pallas", compute_dtype=torch.bfloat16)
+    # the ensemble engine is ported; its mesh-sharded form is not
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.execute_many([s])
+        m.execute_many([s], executor=mt.EnsembleExecutor(mesh=2))
     with pytest.raises(ValueError, match="unknown step impl"):
         m.make_step(s, impl="nope")
     ints = mt.CellularSpace.create(8, 8, {"value": (1, "int32")},
@@ -362,7 +363,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     names = {f.name for f in files}
     assert {"active.py", "fused_active.py", "composed_stencil.py",
-            "field_lower.py", "field_stencil.py"} <= names
+            "field_lower.py", "field_stencil.py", "pipeline_stencil.py",
+            "batch.py", "scheduler.py", "service.py", "metrics.py",
+            "events.py"} <= names
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
@@ -370,7 +373,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_kernel_source_is_in_the_package():
     for name in ("fused_stencil.cu", "composed_stencil.cu", "fused_active.cu",
-                 "field_stencil.cu", "stencil_common.cuh"):
+                 "field_stencil.cu", "pipeline_stencil.cu",
+                 "stencil_common.cuh"):
         assert (REPO / "mpi_model_tpu_torch/csrc" / name).is_file(), name
     # nothing is built at import time
     assert fs.launches() >= 0
