@@ -99,9 +99,39 @@ Phases (any failure exits non-zero, and no result line is printed):
    one ``conv2d`` 3×3 box over ``[B, 1, H, W]`` times nsteps (TF32 off; the
    port never calls it). A B = 3 dispatch into the 4-bucket (occupancy
    0.75), and a padded batch whose pad lane stays zero.
-7. the CLI (K1, active_fused, K4 and ensemble pipeline rows) and the
-   100×100 ``Exponencial`` reference run at f64 against the port's own
-   ``oracle.reference_run_np``.
+6d. the halo kernels K2, K3-halo and K4-halo against their plain versions
+   (``halo_step_plain``, ``composed_halo_step_plain``,
+   ``field_halo_step_plain``) on every shard of a 3×3 block mesh (corner,
+   edge and interior origins) and of 4 row stripes, the rings exchanged
+   from the neighbouring shards: f32 nsteps 1, 4, 8 and bf16 1, 4, 8, 16,
+   three neighbourhoods (K4: its flow sets). K2 and K4-halo are held bit
+   for bit (K4-halo's ``every_op``, with exp, to K4's tolerance); K3-halo
+   to K3's tolerance (its tap loop is left to nvcc's FMA contraction).
+   The shards put together must equal the dense kernel on the whole grid
+   bit for bit.
+   Then the main paths' own shards: 8192² of the 16384² grid (K2 f32
+   nsteps 8, K3-halo k 8) and 4096² of config 4's 8192² (K4-halo nsteps 8).
+6e. the sharded main path at full width, every mesh position on the one
+   card: ``Model(Diffusion(0.1)).execute`` of bench.py's 16384² grid through
+   ``ShardMapExecutor(make_mesh_2d(2, 2), "pallas", halo_depth=8)`` and
+   through 4 row stripes (``make_mesh(4)``, the reference's), 64 steps;
+   ``"composed"`` at depth 8 on 2×2; config 4 at 8192² through the
+   ``field`` plan on 2×2, depth 8; an f32 ``xla`` 2×2 run at 4096², 16
+   steps; ``ModelRectangular.reference_scenario`` at f64. Each run with the
+   counts set to 0 just before and read just after (one halo launch per
+   shard per chunk); conservation checked on every f32 run. Gates, bit for
+   bit: K2 against ``SerialExecutor("pallas", substeps=8)``, K3-halo
+   against ``SerialExecutor("composed", substeps=8)``, K4-halo against
+   serial K4, xla against serial xla, the reference scenario against the
+   oracle. Rows: run ms (CUDA events, median of 3) and cell-updates/s, the
+   kernel ms per call against its bound, the plain version's ms and (K2,
+   K3-halo) one ``conv2d`` on the padded shard, launches per chunk, the
+   exchange ms per chunk (the same run under ``halo_mode="zero"``, the JAX
+   package's diagnostic), the assembly ms of the global tensors, serial K1
+   beside it, and a ``torch.profiler`` view of one 2×2 run.
+7. the CLI (K1, active_fused, K4, ensemble pipeline and ``--mesh=2x2``
+   rows) and the 100×100 ``Exponencial`` reference run at f64 against the
+   port's own ``oracle.reference_run_np``.
 8. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``. ``chip_smoke.json`` in the output
    directory keeps every row, every kernel case and the build record.
@@ -192,6 +222,9 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
     for s, e, name in spans:
         low = name.lower()
         kind = ("K5" if "pipeline_stencil" in low else
+                "K2" if "fused_stencil_halo" in low else
+                "K3-halo" if "composed_halo" in low else
+                "K4-halo" if "field_stencil_halo" in low else
                 "K1" if "fused_stencil" in low else
                 "reduction" if "reduce" in low else
                 "copy" if "memcpy" in low or "copy" in low else
@@ -329,6 +362,467 @@ def k5_bound_ms(batch: int, shape, itemsize: int, nsteps: int, k: int,
     bytes_ms = 2 * cells * itemsize / HBM_BYTES_PER_S * 1e3
     flops = nsteps * (7 * inner + (k + 3) * (cells - inner))
     return larger(bytes_ms, flops / F32_FLOPS * 1e3)
+
+
+def halo_kernel_cases(np, torch, mt, dev, gen, record,
+                      neighborhoods) -> dict:
+    """Phase 6d: each halo kernel against its plain version on every shard
+    of small meshes and on the main paths' own shards; the shards put
+    together against the dense kernel. Returns the main shapes' errors."""
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.parallel import (assemble, exchange_ring,
+                                              make_mesh, make_mesh_2d)
+    from mpi_model_tpu_torch.parallel.mesh import shard_tensor
+
+    meshes = {"3x3": ((96, 1152), make_mesh_2d(3, 3, devices=[dev] * 9)),
+              "stripes4": ((128, 640), make_mesh(4, devices=[dev] * 4))}
+    n = {"K2": 0, "K3-halo": 0, "K4-halo": 0}
+    worst = {"K3-halo": 0.0, "K4-halo every_op": 0.0}
+
+    def shards_of(x, mesh):
+        lines, columns = mesh.grid_shape
+        h, w = x.shape[0] // lines, x.shape[1] // columns
+        return shard_tensor(x, mesh, h, w), h, w
+
+    def positions(mesh):
+        lines, columns = mesh.grid_shape
+        return [(i, j) for i in range(lines) for j in range(columns)]
+
+    for dtype, nsteps_set in ((torch.float32, (1, 4, 8)),
+                              (torch.bfloat16, (1, 4, 8, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        for mname, (shape, mesh) in meshes.items():
+            x = (0.5 + 1.5 * torch.rand(shape, generator=gen,
+                                        device=dev)).to(dtype)
+            g, h, w = shards_of(x, mesh)
+            for ns in nsteps_set:
+                for hood, offs in neighborhoods.items():
+                    k2 = [[None] * mesh.grid_shape[1]
+                          for _ in range(mesh.grid_shape[0])]
+                    k3 = [[None] * mesh.grid_shape[1]
+                          for _ in range(mesh.grid_shape[0])]
+                    ok2 = ok3 = True
+                    err3 = 0.0
+                    for i, j in positions(mesh):
+                        ring = exchange_ring(g, i, j, ns)
+                        org = (i * h, j * w)
+                        got = fs.pallas_halo_step(g[i][j], ring, org, shape,
+                                                  0.13, offs, nsteps=ns)
+                        want = fs.halo_step_plain(g[i][j], ring, org, shape,
+                                                  0.13, offs, ns)
+                        ok2 = ok2 and bool(torch.equal(got, want))
+                        k2[i][j] = got
+                        got = cs.composed_halo_step(g[i][j], ring, org,
+                                                    shape, 0.13, ns, offs)
+                        want = cs.composed_halo_step_plain(
+                            g[i][j], ring, org, shape, 0.13, ns, offs)
+                        g32, w32 = got.float(), want.float()
+                        err3 = max(err3, float((g32 - w32).abs().max()))
+                        if dtype == torch.float32:
+                            tol = 1e-6 * ns
+                            ok3 = ok3 and bool(((g32 - w32).abs()
+                                                <= tol + tol * w32.abs())
+                                               .all())
+                        else:
+                            ok3 = ok3 and float((g32 - w32).abs().max()) \
+                                <= bf16_ulp(float(w32.abs().max()))
+                        k3[i][j] = got
+                    torch.cuda.synchronize()
+                    mos2 = bool(torch.equal(assemble(k2, dev),
+                                            fs.pallas_dense_step(
+                                                x, 0.13, offs, nsteps=ns)))
+                    mos3 = bool(torch.equal(assemble(k3, dev),
+                                            cs.composed_dense_step(
+                                                x, 0.13, ns, offs)))
+                    ok = ok2 and mos2
+                    n["K2"] += 1
+                    record(f"K2 {dname} {mname} {shape} ns={ns} {hood}: "
+                           f"bitwise={ok2} mosaic==K1 {mos2} "
+                           f"{'ok' if ok else 'FAIL'}", ok)
+                    check(ok, f"K2 disagrees: {dname} {mname} ns={ns} "
+                              f"{hood} bitwise={ok2} mosaic={mos2}")
+                    ok = ok3 and mos3
+                    n["K3-halo"] += 1
+                    worst["K3-halo"] = max(worst["K3-halo"], err3)
+                    record(f"K3-halo {dname} {mname} {shape} k={ns} {hood}: "
+                           f"max_abs_err={err3:.3e} mosaic==K3 {mos3} "
+                           f"{'ok' if ok else 'FAIL'}", ok)
+                    check(ok, f"K3-halo disagrees: {dname} {mname} k={ns} "
+                              f"{hood} err={err3} mosaic={mos3}")
+            del x, g
+            # K4-halo over its flow sets (Moore; config 4 also VN, custom)
+            names = ("a", "b", "c")
+            xs = {nm: (0.5 + 1.5 * torch.rand(shape, generator=gen,
+                                              device=dev)).to(dtype)
+                  for nm in names}
+            gs = {nm: shards_of(t, mesh)[0] for nm, t in xs.items()}
+            for ns in nsteps_set:
+                for fname, flows in field_flow_sets(mt, torch).items():
+                    for hood, offs in neighborhoods.items():
+                        if hood != "moore" and fname != "config4":
+                            continue
+                        step = k4.PallasFieldStep((h, w), flows, offsets=offs,
+                                                  nsteps=ns)
+                        written = sorted({f.attr for f in flows})
+                        res = {nm: [[None] * mesh.grid_shape[1]
+                                    for _ in range(mesh.grid_shape[0])]
+                               for nm in written}
+                        ok, err = True, 0.0
+                        for i, j in positions(mesh):
+                            vals = {nm: gs[nm][i][j] for nm in names}
+                            rings = {nm: exchange_ring(gs[nm], i, j, ns)
+                                     for nm in names}
+                            got = step.halo(vals, rings, (i * h, j * w),
+                                            shape)
+                            want = k4.field_halo_step_plain(
+                                vals, rings, (i * h, j * w), shape, flows,
+                                offs, ns)
+                            ok = ok and all(got[nm] is vals[nm]
+                                            for nm in names
+                                            if nm not in written)
+                            for nm in written:
+                                e = float((got[nm].float()
+                                           - want[nm].float()).abs().max())
+                                err = max(err, e)
+                                if fname == "every_op" and nm == "a":
+                                    scale = float(want[nm].float().abs()
+                                                  .max())
+                                    tol = 8 * 2.0 ** -23 * ns * scale
+                                    if dtype == torch.bfloat16:
+                                        tol += bf16_ulp(scale)
+                                    ok = ok and e <= tol
+                                    worst["K4-halo every_op"] = max(
+                                        worst["K4-halo every_op"], e)
+                                else:
+                                    ok = ok and bool(torch.equal(got[nm],
+                                                                 want[nm]))
+                                res[nm][i][j] = got[nm]
+                        dense = k4.PallasFieldStep(shape, flows, offsets=offs,
+                                                   nsteps=ns)(xs)
+                        mos = all(torch.equal(assemble(res[nm], dev),
+                                              dense[nm]) for nm in written)
+                        ok = ok and mos
+                        n["K4-halo"] += 1
+                        record(f"K4-halo {dname} {mname} {shape} ns={ns} "
+                               f"{hood} {fname}: max_abs_err={err:.3e} "
+                               f"mosaic==K4 {mos} {'ok' if ok else 'FAIL'}",
+                               ok)
+                        check(ok, f"K4-halo disagrees: {dname} {mname} "
+                                  f"ns={ns} {hood} {fname} err={err}")
+            del xs, gs
+            torch.cuda.empty_cache()
+
+    # the main paths' own shards: shard (1, 1) of 16384² on 2x2 (K2, K3-halo)
+    # and of config 4's 8192² (K4-halo), rings from the neighbours
+    main = {}
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
+    g = shard_tensor(x, mesh, N // 2, N // 2)
+    del x
+    ring = exchange_ring(g, 1, 1, 8)
+    got = fs.pallas_halo_step(g[1][1], ring, (N // 2, N // 2), (N, N), 0.1,
+                              nsteps=8)
+    want = fs.halo_step_plain(g[1][1], ring, (N // 2, N // 2), (N, N), 0.1,
+                              MOORE_OFFSETS, 8)
+    main["K2"] = float((got - want).abs().max())
+    check(bool(torch.equal(got, want)),
+          f"K2 disagrees at the main path's shard: err={main['K2']}")
+    del got, want
+    got = cs.composed_halo_step(g[1][1], ring, (N // 2, N // 2), (N, N), 0.1,
+                                8)
+    want = cs.composed_halo_step_plain(g[1][1], ring, (N // 2, N // 2),
+                                       (N, N), 0.1, 8)
+    main["K3-halo"] = float((got - want).abs().max())
+    check(bool(((got - want).abs() <= 8e-6 + 8e-6 * want.abs()).all()),
+          f"K3-halo disagrees at the main path's shard: {main['K3-halo']}")
+    del got, want, g, ring
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    xs = {nm: torch.from_numpy(rng.uniform(0.5, 2.0, (N4, N4)).astype(
+        np.float32)).to(dev) for nm in ("a", "b")}
+    gs = {nm: shard_tensor(t, mesh, N4 // 2, N4 // 2) for nm, t in xs.items()}
+    del xs
+    vals = {nm: gs[nm][1][1] for nm in gs}
+    rings = {nm: exchange_ring(gs[nm], 1, 1, 8) for nm in gs}
+    flows = config4_flows(mt)
+    got = k4.pallas_field_halo_step(vals, rings, (N4 // 2, N4 // 2),
+                                    (N4, N4), flows, nsteps=8)
+    want = k4.field_halo_step_plain(vals, rings, (N4 // 2, N4 // 2),
+                                    (N4, N4), flows, nsteps=8)
+    main["K4-halo"] = max(float((got[nm] - want[nm]).abs().max())
+                          for nm in vals)
+    check(all(torch.equal(got[nm], want[nm]) for nm in vals),
+          f"K4-halo disagrees at the main path's shard: {main['K4-halo']}")
+    del got, want, gs, vals, rings
+    torch.cuda.empty_cache()
+    for name, count in n.items():
+        print(f"{name}: {count} mesh cases agree with the plain version "
+              f"(every shard; the shards together equal the dense kernel "
+              f"bit for bit), at the main path's shard max_abs_err="
+              f"{main[name]:.3e}", flush=True)
+    print(f"K3-halo largest error against its plain version "
+          f"{worst['K3-halo']:.3e} (K3's tolerance; K2 and K4-halo are bit "
+          f"for bit but every_op, {worst['K4-halo every_op']:.3e})",
+          flush=True)
+    return main
+
+
+def per_call_ms(torch, fn, calls: int = 4, reps: int = 5) -> float:
+    """Median device ms of one call of ``fn``, from CUDA events around
+    ``calls`` back-to-back calls (so the host's work on a call overlaps the
+    device's on the one before)."""
+    def batch():
+        for _ in range(calls):
+            fn()
+    return statistics.median(timed_ms(torch, batch, reps=reps)) / calls
+
+
+def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
+                      kernel_launches, oracle) -> dict:
+    """Phase 6e: the sharded main path at full width on the one card (see
+    the module docstring). Returns its rows and the halo kernels' per-call
+    times."""
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor,
+                                              exchange_ring, make_mesh,
+                                              make_mesh_2d)
+    from mpi_model_tpu_torch.parallel.mesh import shard_tensor
+
+    out = {"runs": [], "calls": {}, "serial_run_ms": {}}
+    depth = 8
+
+    def mesh_of(name):
+        return (make_mesh_2d(2, 2, devices=[dev] * 4) if name == "2x2"
+                else make_mesh(4, devices=[dev] * 4))
+
+    def serial_of(what, model, space, serial, steps):
+        """The serial run a sharded run is held to: its values and its run
+        ms (CUDA events, median of 3)."""
+        want = dict(model.execute(space, serial, steps=steps)[0].values)
+        ms = statistics.median(timed_ms(
+            torch, lambda: serial.run_model(model, space, steps), reps=3))
+        out["serial_run_ms"][what] = ms
+        print(f"serial {what}: run {ms:.3f} ms", flush=True)
+        return want, ms
+
+    def sharded_run(what, model, space, mesh_name, impl, steps, counter,
+                    want, cells, serial_ms):
+        """One counted run, the bitwise gate against ``want``, then the
+        timed runs, the same run without exchange, and the row."""
+        mesh = mesh_of(mesh_name)
+        ex = ShardMapExecutor(mesh, impl, halo_depth=depth if impl != "xla"
+                              else 1)
+        reset_counts()
+        res, rep = model.execute(space, ex, steps=steps)  # raises on drift
+        ran = kernel_launches()
+        chunks = -(-steps // ex.halo_depth)
+        want_launch = chunks * mesh.size if counter else 0
+        check((ran[counter] if counter else 0) == want_launch
+              and sum(ran.values()) == want_launch,
+              f"{what}: launches {ran}, expected {want_launch} of {counter}")
+        same = all(torch.equal(res.values[k], want[k]) for k in want)
+        check(same, f"{what} is not bitwise its serial run")
+        for v in res.values.values():
+            check(bool(torch.isfinite(v).all()), f"{what}: not finite")
+        assembly_ms = ex.last_assembly_s * 1e3
+        del res
+        run_ms = timed_ms(torch, lambda: ex.run_model(model, space, steps),
+                          reps=3)
+        med = statistics.median(run_ms)
+        zero = ShardMapExecutor(mesh, impl, halo_mode="zero",
+                                halo_depth=ex.halo_depth)
+        zero_ms = statistics.median(timed_ms(
+            torch, lambda: zero.run_model(model, space, steps), reps=3))
+        prof = profile_dispatch(torch, lambda: ex.run_model(model, space,
+                                                           steps), med)
+        row = {"what": what, "mesh": mesh_name, "impl": rep.impl,
+               "steps": steps, "halo_depth": ex.halo_depth,
+               "chunks": chunks, "shards": mesh.size,
+               "launches": ran[counter] if counter else 0,
+               "launches_per_chunk": (ran[counter] // chunks if counter
+                                      else 0),
+               "bitwise_serial": same,
+               "conservation_error": rep.conservation_error(),
+               "run_ms_median": med, "run_ms_all": run_ms,
+               "cell_updates_per_s": cells * steps / (med / 1e3),
+               "zero_halo_run_ms": zero_ms,
+               "exchange_ms_per_chunk": (med - zero_ms) / chunks,
+               "assembly_ms": assembly_ms, "serial_run_ms": serial_ms,
+               "vs_serial": med / serial_ms, "profile": prof}
+        kname = {"fused_stencil_halo": "K2",
+                 "composed_stencil_halo": "K3-halo",
+                 "field_stencil_halo": "K4-halo"}.get(counter)
+        if kname and "device_by_kind" in prof:
+            k = prof["device_by_kind"].get(kname, {"ms": 0.0})["ms"]
+            row.update(kernel_ms_run=k, kernel_ms_per_chunk=k / chunks,
+                       kernel_ms_per_launch=k / max(row["launches"], 1))
+        out["runs"].append(row)
+        print(f"sharded {what} {mesh_name}: impl={rep.impl}, launches "
+              f"{row['launches']} ({row['launches_per_chunk']} a chunk), "
+              f"bitwise serial, conserved (|d|="
+              f"{row['conservation_error']:.3e}), run {med:.3f} ms "
+              f"({row['vs_serial']:.3f}x the serial run), "
+              f"{row['cell_updates_per_s']:.4e} cell-updates/s, exchange "
+              f"{row['exchange_ms_per_chunk']:.4f} ms a chunk (zero-halo "
+              f"run {zero_ms:.3f} ms), assembly {assembly_ms:.3f} ms",
+              flush=True)
+        print_profile(f"sharded {what} {mesh_name} run", prof)
+        return ex, row
+
+    # -- K2 on 2x2 and on 4 row stripes, 16384², against serial K1 --------
+    x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
+    space = mt.CellularSpace.create(N, N, 1.0).with_values({"value": x})
+    model = mt.Model(mt.Diffusion(0.1))
+    want, serial_ms = serial_of(f"K1 {N}x{N} substeps={depth}", model,
+                                space, mt.SerialExecutor("pallas",
+                                                         substeps=depth),
+                                STEPS)
+    for mesh_name in ("2x2", "stripes4"):
+        sharded_run(f"K2 {N}x{N}", model, space, mesh_name, "pallas", STEPS,
+                    "fused_stencil_halo", want, N * N, serial_ms)
+    del want
+    # K2 per call on shard (1, 1) of 2x2, its plain version, conv2d 3x3 on
+    # the padded shard
+    h = N // 2
+    g = shard_tensor(x, mesh_of("2x2"), h, h)
+    ring = exchange_ring(g, 1, 1, depth)
+    y = torch.empty_like(g[1][1])
+    k_ms = per_call_ms(torch, lambda: fs.pallas_halo_step(
+        g[1][1], ring, (h, h), (N, N), 0.1, nsteps=depth, out=y))
+    # K1 on a whole grid of the shard's size, beside it
+    xs = g[1][1].clone()
+    k1_ms = per_call_ms(torch, lambda: fs.pallas_dense_step(
+        xs, 0.1, nsteps=depth, out=y))
+    del xs
+    p_ms = statistics.median(timed_ms(torch, lambda: fs.halo_step_plain(
+        g[1][1], ring, (h, h), (N, N), 0.1, MOORE_OFFSETS, depth), reps=3))
+    padded = fs.pad_from_ring(g[1][1], ring).view(1, 1, h + 2 * depth,
+                                                   h + 2 * depth)
+    w3 = torch.ones((1, 1, 3, 3), device=dev)
+    l_ms = statistics.median(timed_ms(
+        torch, lambda: torch.nn.functional.conv2d(padded, w3), reps=10))
+    b_ms, b_by = bound_ms((h, h), 4, depth, 8)
+    out["calls"]["K2"] = {"shape": [h, h], "nsteps": depth, "ms": k_ms,
+                          "plain_ms": p_ms, "library_ms": l_ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "bound_ms_four_shards": 4 * b_ms,
+                          "k1_same_shape_ms": k1_ms}
+    print(f"K2 float32 shard {h}x{h} ns={depth}: kernel {k_ms:.4f} ms/call "
+          f"(4 calls a chunk: {4 * k_ms:.4f} ms; K1 on a {h}x{h} grid "
+          f"{k1_ms:.4f} ms), plain {p_ms:.3f} ms, "
+          f"conv2d 3x3 on the padded shard {l_ms:.4f} ms, bound {b_ms:.4f} "
+          f"ms ({b_by}; 4 shards {4 * b_ms:.4f} ms)", flush=True)
+    # -- K3-halo on 2x2 against serial composed ----------------------------
+    want, serial_ms = serial_of(f"K3 {N}x{N} substeps={depth}", model,
+                                space, mt.SerialExecutor("composed",
+                                                         substeps=depth),
+                                STEPS)
+    sharded_run(f"K3-halo {N}x{N}", model, space, "2x2", "composed", STEPS,
+                "composed_stencil_halo", want, N * N, serial_ms)
+    del want
+    k_ms = per_call_ms(torch, lambda: cs.composed_halo_step(
+        g[1][1], ring, (h, h), (N, N), 0.1, depth, out=y))
+    xs = g[1][1].clone()
+    k3_ms = per_call_ms(torch, lambda: cs.composed_dense_step(
+        xs, 0.1, depth, out=y))
+    del xs
+    p_ms = statistics.median(timed_ms(
+        torch, lambda: cs.composed_halo_step_plain(
+            g[1][1], ring, (h, h), (N, N), 0.1, depth), reps=1, warmup=0))
+    taps = torch.from_numpy(np.array(cs.composed_taps(
+        0.1, MOORE_OFFSETS, depth))).to(dev, torch.float32).view(
+        1, 1, 2 * depth + 1, 2 * depth + 1)
+    l_ms = statistics.median(timed_ms(
+        torch, lambda: torch.nn.functional.conv2d(padded, taps), reps=5))
+    m = depth + 1  # cells of shard (1, 1) at distance > k from the edge
+    inner = (min(N - m, 2 * h) - max(m, h)) ** 2
+    b_ms, b_by = larger(2 * h * h * 4 / HBM_BYTES_PER_S * 1e3,
+                        2 * (2 * depth + 1) ** 2 * inner / F32_FLOPS * 1e3)
+    out["calls"]["K3-halo"] = {"shape": [h, h], "k": depth, "ms": k_ms,
+                               "plain_ms": p_ms, "library_ms": l_ms,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "k3_same_shape_ms": k3_ms}
+    print(f"K3-halo float32 shard {h}x{h} k={depth}: kernel {k_ms:.4f} "
+          f"ms/call (K3 on a {h}x{h} grid {k3_ms:.4f} ms), plain "
+          f"{p_ms:.3f} ms, conv2d {2 * depth + 1}x"
+          f"{2 * depth + 1} on the padded shard {l_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    del g, ring, y, padded, x, space
+    torch.cuda.empty_cache()
+    # -- K4-halo: config 4 at 8192² through the field plan on 2x2 ---------
+    rng = np.random.default_rng(SEED)
+    base = {nm: torch.from_numpy(rng.uniform(0.5, 2.0, (N4, N4)).astype(
+        np.float32)).to(dev) for nm in ("a", "b")}
+    space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0}).with_values(
+        base)
+    model4 = mt.Model(config4_flows(mt))
+    want, serial_ms = serial_of(f"K4 config 4 {N4}x{N4} substeps={depth}",
+                                model4, space, mt.SerialExecutor(
+                                    "pallas", substeps=depth), STEPS)
+    sharded_run(f"K4-halo config 4 {N4}x{N4}", model4, space, "2x2",
+                "pallas", STEPS, "field_stencil_halo", want, N4 * N4,
+                serial_ms)
+    del want
+    h4 = N4 // 2
+    gs = {nm: shard_tensor(t, mesh_of("2x2"), h4, h4) for nm, t in
+          base.items()}
+    vals = {nm: gs[nm][1][1] for nm in gs}
+    rings = {nm: exchange_ring(gs[nm], 1, 1, depth) for nm in gs}
+    step = k4.PallasFieldStep((h4, h4), model4.flows, nsteps=depth,
+                              names=("a", "b"))
+    ys = {nm: torch.empty_like(t) for nm, t in vals.items()}
+    k_ms = per_call_ms(torch, lambda: step.halo(
+        vals, rings, (h4, h4), (N4, N4), out=ys))
+    xs = {nm: t.clone() for nm, t in vals.items()}
+    k4_ms = per_call_ms(torch, lambda: step(xs, out=ys))
+    del xs
+    p_ms = statistics.median(timed_ms(torch, lambda: k4.field_halo_step_plain(
+        vals, rings, (h4, h4), (N4, N4), model4.flows, nsteps=depth),
+        reps=3))
+    b_ms, b_by = field_bound_ms(step.program, (h4, h4), 4, depth, 8)
+    out["calls"]["K4-halo"] = {"shape": [h4, h4], "nsteps": depth,
+                               "ms": k_ms, "plain_ms": p_ms,
+                               "library_ms": None, "bound_ms": b_ms,
+                               "bound_by": b_by, "tile_h": step.tile_h,
+                               "k4_same_shape_ms": k4_ms}
+    print(f"K4-halo float32 shard {h4}x{h4} ns={depth}: kernel {k_ms:.4f} "
+          f"ms/call (K4 on a {h4}x{h4} grid {k4_ms:.4f} ms), plain "
+          f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+          f"tile height {step.tile_h}", flush=True)
+    del gs, vals, rings, ys, base, space
+    torch.cuda.empty_cache()
+    # -- xla 2x2 at 4096², f32, against serial xla --------------------------
+    x = 1.0 + 0.1 * torch.rand((N5, N5), generator=gen, device=dev)
+    space = mt.CellularSpace.create(N5, N5, 1.0).with_values({"value": x})
+    xsteps = 16
+    want, serial_ms = serial_of(f"xla {N5}x{N5}", model, space,
+                                mt.SerialExecutor("xla"), xsteps)
+    sharded_run(f"xla {N5}x{N5}", model, space, "2x2", "xla", xsteps, None,
+                want, N5 * N5, serial_ms)
+    del want, x, space
+    # -- the reference scenario at f64, against the oracle -----------------
+    rspace, rmodel = mt.ModelRectangular.reference_scenario(device=dev)
+    res, rep = rmodel.execute(rspace)
+    got = res.values["value"].cpu().numpy()
+    ref = oracle.reference_run_np(20, 60, src=(18, 19), steps=50)
+    ok = bool((got == ref).all()) and rep.comm_size == 6
+    out["reference_scenario"] = {"comm_size": rep.comm_size,
+                                 "bitwise_oracle": ok,
+                                 "conservation_error":
+                                     rep.conservation_error(),
+                                 "devices": len(rmodel._default_executor
+                                                .mesh.distinct_devices())}
+    print(f"ModelRectangular reference scenario 20x60 on 2x3, f64, 50 "
+          f"steps: comm_size={rep.comm_size}, bitwise the oracle: {ok}, "
+          f"|d|={rep.conservation_error():.3e}", flush=True)
+    check(ok, "the rectangular reference scenario disagrees with the oracle")
+    return out
 
 
 def main() -> int:
@@ -1501,6 +1995,15 @@ def main() -> int:
                   f"{row['host_share']:.3f})", flush=True)
     del lanes5
 
+    # -- 6d. the halo kernels against their plain versions --------------------
+    halo_err = halo_kernel_cases(np, torch, mt, dev, gen, record,
+                                 neighborhoods)
+
+    # -- 6e. the sharded main path at full width -------------------------------
+    sharded = sharded_main_path(np, torch, mt, dev, gen, reset_counts,
+                                kernel_launches, oracle)
+    torch.cuda.empty_cache()
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -1518,6 +2021,10 @@ def main() -> int:
                    f"--ensemble={B5}", "--ensemble-impl=pipeline",
                    "--substeps=8", f"--steps={STEPS5}", "--json"])
     check(rc == 0, "the ensemble (K5) CLI run failed")
+    rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
+                   "--mesh=2x2", "--impl=pallas", "--halo-depth=8",
+                   "--steps=8", "--json"])
+    check(rc == 0, "the sharded (K2) CLI run failed")
 
     for steps in (1, 50):
         space = mt.CellularSpace.create(100, 100, 1.0, dtype="float64")
@@ -1639,6 +2146,32 @@ def main() -> int:
             "shape": [B5, N5, N5], "dtype": dname, "nsteps": 8,
             "nsteps1": k5_time[(dname, 1)], "main_path": row,
         })
+    halo_rows = {"K2": ("fused_stencil_halo", "fused_stencil.cu",
+                        "mpi_model_tpu/ops/pallas_stencil.py:757",
+                        f"K2 {N}x{N}"),
+                 "K3-halo": ("composed_stencil_halo", "composed_stencil.cu",
+                             "mpi_model_tpu/ops/composed_stencil.py:323",
+                             f"K3-halo {N}x{N}"),
+                 "K4-halo": ("field_stencil_halo", "field_stencil.cu",
+                             "mpi_model_tpu/ops/pallas_stencil.py:1396",
+                             f"K4-halo config 4 {N4}x{N4}")}
+    for kname, (fn, src, replaces, run_name) in halo_rows.items():
+        c = sharded["calls"][kname]
+        run = next(r for r in sharded["runs"] if r["what"] == run_name
+                   and r["mesh"] == "2x2")
+        entries.append({
+            "name": f"{kname} {fn} float32",
+            "route": "cuda",
+            "source": f"mpi_model_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "launches": run["launches"],
+            "max_abs_err": halo_err[kname],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+            "shape": c["shape"], "dtype": "float32",
+            "main_path": {k: v for k, v in run.items() if k != "profile"},
+        })
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1651,6 +2184,7 @@ def main() -> int:
          "ensemble_rows": ens_rows,
          "k5_times": {f"{d}/ns={n}": v for (d, n), v in k5_time.items()},
          "count_read_us": sync_us,
+         "sharded": sharded, "halo_main_shard_err": halo_err,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,4 +1,4 @@
-"""Command line of the PyTorch/CUDA port (serial path).
+"""Command line of the PyTorch/CUDA port.
 
     python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \\
         --dimy=16384 --impl=pallas --substeps=8 --json
@@ -9,6 +9,10 @@
     python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=4096 \\
         --dimy=4096 --ensemble=8 --ensemble-impl=pipeline --substeps=8 \\
         --steps=8 --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \
+        --dimy=16384 --mesh=2x2 --impl=pallas --halo-depth=8 --json
+    python -m mpi_model_tpu_torch.cli run --rectangular=2x3 --dimx=20 \
+        --dimy=60 --owner-of=18,19 --json
 
 Runs on the card unless ``--device=cpu`` is given. Prints one row: the impl
 that actually ran, the kernel launch count, the totals, whether mass was
@@ -24,8 +28,17 @@ config-4 flow set's shape, which runs on the field kernel K4.
 ``--ensemble=B`` runs B copies of the scenario through the serving stack
 (``EnsembleService`` → bucketed scheduler → batched engine) and prints the
 ensemble row (scenarios/s, batch occupancy, runner-cache hits, dispatches);
-``--ensemble-impl`` picks its engine (``pipeline`` is the kernel K5). Exit
-status 1 when conservation fails.
+``--ensemble-impl`` picks its engine (``pipeline`` is the kernel K5).
+``--mesh=LxC`` (or ``N``: N row stripes) runs the sharded executor
+(``ShardMapExecutor``) over an L×C mesh, ``--rectangular=LxC`` runs
+``ModelRectangular`` over one, and ``--halo-depth=d`` exchanges a depth-d
+ghost ring once per d steps (the halo kernels fuse d steps per launch). On
+the card every mesh position is a card, round-robin over the visible cards
+(all on one card when there is one); with ``--device=cpu`` all on the CPU.
+The sharded row carries ``comm_size``, ``mesh`` (lines, columns and the
+number of distinct devices), ``impl``, ``backend_report`` and
+``kernel_launches``; ``--owner-of=X,Y`` adds the block owner of a cell.
+Exit status 1 when conservation fails.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ import numpy as np
 import torch
 
 from . import (Attribute, Cell, CellularSpace, Coupled, Diffusion, Exponencial,
-               Model, SerialExecutor)
+               Model, ModelRectangular, SerialExecutor)
 
 RATE = 0.1  # the JAX package's --rate default
 
@@ -77,6 +90,85 @@ def check_ensemble_flags(args) -> None:
     elif args.ensemble_impl != "xla":
         raise SystemExit("--ensemble-impl applies to ensemble runs; add "
                          "--ensemble=B")
+
+
+def parse_grid2(text: str, flag: str) -> tuple[int, int]:
+    """'N' or 'LxC' → (lines, columns), positive."""
+    try:
+        parts = [int(v) for v in text.lower().split("x")]
+        if len(parts) == 1:  # "N" = 1-D row stripes (Model.hpp:62-76)
+            parts.append(1)
+        lines, columns = parts
+        if lines < 1 or columns < 1:
+            raise ValueError
+    except ValueError:
+        raise SystemExit(
+            f"{flag}={text!r} is not N or LxC with positive extents "
+            f"(e.g. {flag}=4, {flag}=2x4)")
+    return lines, columns
+
+
+def check_sharded_flags(args) -> bool:
+    """The JAX package's checks of the sharded flags; True for a sharded
+    run."""
+    sharded = args.mesh is not None or args.rectangular is not None
+    if args.executor == "gspmd":
+        raise SystemExit(
+            "--executor=gspmd (the AutoShardedExecutor) is not ported to "
+            "the PyTorch/CUDA package yet; see ROADMAP.md. Use "
+            "--executor=shardmap with --mesh=LxC")
+    if not sharded and args.halo_depth != 1:
+        raise SystemExit(
+            "--halo-depth applies to sharded execution; add --mesh=LxC "
+            "or --rectangular=LxC")
+    if sharded and args.substeps != 1:
+        raise SystemExit(
+            "--substeps applies to the serial executor; for sharded runs "
+            "use --halo-depth for the analogous fusion")
+    if args.rectangular is not None and args.mesh is not None:
+        raise SystemExit(
+            "--rectangular IS the mesh (a lines x columns block "
+            "decomposition); drop --mesh")
+    if args.executor == "shardmap" and not sharded:
+        raise SystemExit("--executor=shardmap needs --mesh=LxC")
+    if args.executor == "serial" and sharded:
+        raise SystemExit("--executor=serial contradicts "
+                         "--mesh/--rectangular")
+    if sharded and args.ensemble is not None:
+        raise SystemExit(
+            "--ensemble batches whole scenarios through the ensemble "
+            "engine (the batch axis replaces the mesh axes); drop "
+            "--mesh/--rectangular")
+    if args.owner_of is not None and args.rectangular is None:
+        raise SystemExit(
+            "--owner-of reports the 2-D block owner map; add "
+            "--rectangular=LxC")
+    return sharded
+
+
+def mesh_devices(args, n: int):
+    """The mesh's devices: on the card, None (the visible cards placed
+    round-robin over the positions); otherwise ``--device`` at every
+    position."""
+    dev = torch.device(args.device)
+    return None if dev.type == "cuda" else [dev] * n
+
+
+def build_sharded_executor(args, model):
+    from .parallel import ShardMapExecutor, make_mesh, make_mesh_2d
+
+    if args.rectangular is not None:
+        lines, columns = parse_grid2(args.rectangular, "--rectangular")
+        return model.default_executor(
+            devices=mesh_devices(args, lines * columns))
+    lines, columns = parse_grid2(args.mesh, "--mesh")
+    n = lines * columns
+    if lines == 1 or columns == 1:
+        mesh = make_mesh(n, devices=mesh_devices(args, n))
+    else:
+        mesh = make_mesh_2d(lines, columns, devices=mesh_devices(args, n))
+    return ShardMapExecutor(mesh, step_impl=args.impl,
+                            halo_depth=args.halo_depth)
 
 
 def run_ensemble_cli(args, space, model) -> int:
@@ -151,6 +243,7 @@ def run_ensemble_cli(args, space, model) -> int:
 
 def cmd_run(args) -> int:
     check_ensemble_flags(args)
+    sharded = check_sharded_flags(args)
     if args.flow == "coupled" and args.channels < 2:
         raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
                          "has nothing to modulate — use --flow=diffusion)")
@@ -166,23 +259,39 @@ def cmd_run(args) -> int:
         v = blob_grid(args.dimx, args.dimy, args.blob)
         space = space.with_values({"value": torch.from_numpy(v).to(
             device=space.device, dtype=space.dtype)})
-    model = Model(flow)
+    if args.rectangular is not None:
+        lines, columns = parse_grid2(args.rectangular, "--rectangular")
+        model = ModelRectangular(flow, lines=lines, columns=columns,
+                                 step_impl=args.impl,
+                                 halo_depth=args.halo_depth)
+    else:
+        model = Model(flow)
     if args.ensemble is not None:
         return run_ensemble_cli(args, space, model)
-    executor = SerialExecutor(step_impl=args.impl, substeps=args.substeps)
+    if sharded:
+        executor = build_sharded_executor(args, model)
+    else:
+        executor = SerialExecutor(step_impl=args.impl,
+                                  substeps=args.substeps)
+    from .models.model import _launches_since, kernel_launches
+
+    before = kernel_launches()
     t0 = time.perf_counter()
     out, report = model.execute(space, executor, steps=args.steps,
                                 check_conservation=False)
     wall = time.perf_counter() - t0
+    launched = sum(_launches_since(before).values())
     err = report.conservation_error()
     thresh = model.conservation_threshold(
         space, initial_totals=report.initial_total)
     row = {
-        "backend": "serial",
+        "backend": "sharded" if sharded else "serial",
         "device": str(space.device),
         "impl": report.impl,
-        "substeps": args.substeps,
-        "kernel_launches": (report.backend_report or {}).get("launches", 0),
+        "comm_size": report.comm_size,
+        "substeps": args.substeps if not sharded else None,
+        "halo_depth": args.halo_depth if sharded else None,
+        "kernel_launches": launched,
         "backend_report": report.backend_report,
         "steps": report.steps,
         "initial": report.initial_total,
@@ -191,11 +300,25 @@ def cmd_run(args) -> int:
         "conserved": bool(err <= thresh),
         "wall_s": wall,
     }
+    if sharded:
+        lines, columns = executor.mesh.grid_shape
+        row["mesh"] = {"lines": lines, "columns": columns,
+                       "devices": len(executor.mesh.distinct_devices())}
+        row["rectangular"] = args.rectangular
+    if args.owner_of is not None:
+        try:
+            x, y = (int(v) for v in args.owner_of.split(","))
+        except ValueError:
+            raise SystemExit(f"--owner-of={args.owner_of!r} is not X,Y")
+        row["owner_of"] = {
+            "cell": [x, y], "owner": model.owner_of(x, y, out),
+            "partitions": [p.describe() for p in model.partitions(out)]}
     if args.json:
         print(json.dumps(row, allow_nan=False))
     else:
         status = "CONSERVED" if row["conserved"] else "VIOLATED"
-        print(f"impl={row['impl']} launches={row['kernel_launches']} "
+        print(f"backend={row['backend']} ranks={row['comm_size']} "
+              f"impl={row['impl']} launches={row['kernel_launches']} "
               f"steps={row['steps']} initial={row['initial']} "
               f"final={row['final']} |delta|={err:.3e} {status} "
               f"({wall:.3f}s on {row['device']})")
@@ -256,6 +379,22 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "step, per-lane rates), 'pipeline' (the pipelined-"
                      "window kernel K5, one launch for all lanes), 'active'/"
                      "'active_fused' (the active-tile engine per lane)")
+    run.add_argument("--mesh", default=None, metavar="LxC",
+                     help="run sharded (ShardMapExecutor) over an LxC mesh "
+                     "(N or Nx1: N row stripes)")
+    run.add_argument("--executor", default="auto",
+                     choices=("auto", "serial", "shardmap", "gspmd"),
+                     help="'auto' = serial without --mesh, shardmap with "
+                     "it; 'gspmd' is not ported")
+    run.add_argument("--rectangular", default=None, metavar="LxC",
+                     help="run ModelRectangular over an LxC block mesh (the "
+                     "reference's rectangular decomposition)")
+    run.add_argument("--owner-of", default=None, metavar="X,Y",
+                     help="with --rectangular: report the block owner of "
+                     "cell (X, Y)")
+    run.add_argument("--halo-depth", type=int, default=1,
+                     help="sharded runs: ghost-ring depth d, one exchange "
+                     "per d steps")
     run.add_argument("--device", default="cuda",
                      help="torch device (default: the card)")
     run.add_argument("--json", action="store_true")

@@ -206,6 +206,16 @@ class CellularSpace:
     def with_values(self, values: Mapping[str, torch.Tensor]) -> "CellularSpace":
         return dataclasses.replace(self, values=dict(values))
 
+    def slice_partition(self, p: Partition) -> "CellularSpace":
+        """One partition of this space as a space of its own (views of the
+        channels), with its global origin and this space's global dims."""
+        lx, ly = p.x_init - self.x_init, p.y_init - self.y_init
+        vals = {k: v[lx:lx + p.height, ly:ly + p.width]
+                for k, v in self.values.items()}
+        gdx, gdy = self.global_shape
+        return CellularSpace(vals, p.height, p.width, p.x_init, p.y_init,
+                             gdx, gdy)
+
     def to_numpy(self) -> dict[str, np.ndarray]:
         """Host copies of every channel (bf16 channels come back as float32,
         which holds every bf16 value exactly)."""

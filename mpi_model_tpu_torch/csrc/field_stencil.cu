@@ -48,6 +48,18 @@
 // a block may use. Specializing the kernel per flow set, the closed-form
 // interior and cp.async/TMA loads are later work.
 //
+// K4-halo is the same body on one shard of a sharded grid: it replaces
+// _field_call in halo mode (pallas_field_halo_step, used by
+// parallel/executors.py::ShardMapExecutor's "field" plan). Every loaded
+// channel's window reads its shard and, past the shard's edge, that
+// channel's exchanged ghost ring of depth d >= nsteps (mm::HaloSource):
+// outflows are evaluated on ghost cells too, so modulators ship rings like
+// the written channels. The cells' rows and columns (the grid tests, the
+// neighbour counts and the coordinates a program reads) are global: the
+// shard's origin plus the local index. The second launch argument
+// (FieldHalo) carries the 8 x 8 ring pointers, 536 bytes, so both together
+// stay well inside the 4 KB a kernel's parameters may take.
+//
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch, 0 on success.
 
@@ -94,6 +106,15 @@ struct FieldArgs {
   int a_kind[MAX_CODE], a_arg[MAX_CODE];
   int b_kind[MAX_CODE], b_arg[MAX_CODE];
   float a_imm[MAX_CODE], b_imm[MAX_CODE];
+};
+
+// K4-halo's second launch argument; ops/field_stencil.py's _FieldHalo
+// mirrors it (mm_field_halo_size). Per loaded channel its ghost ring's
+// eight pieces in mm::RingPiece order; the ring depth, the shard's global
+// origin and the global grid.
+struct FieldHalo {
+  const void* ring[MAX_CHANNELS][8];
+  int d, R0, C0, H, W, pad_;
 };
 
 __device__ __forceinline__ float min_nan(float x, float y) {
@@ -168,13 +189,58 @@ __device__ __forceinline__ void run_op(const FieldArgs& a, int pc,
   }
 }
 
+// Where a call's cells are. Both give each loaded channel's window source
+// (mm::DenseSource / mm::HaloSource), the written arrays' global origin and
+// the global grid.
+// K4: a whole grid; local is global.
 template <typename T>
-__global__ void __launch_bounds__(THREADS_X* THREADS_Y)
-    field_stencil_kernel(const __grid_constant__ FieldArgs a) {
+struct WholeGrid {
+  int H, W;
+  __device__ __forceinline__ int row0() const { return 0; }
+  __device__ __forceinline__ int col0() const { return 0; }
+  __device__ __forceinline__ int gH() const { return H; }
+  __device__ __forceinline__ int gW() const { return W; }
+  __device__ __forceinline__ mm::DenseSource<T> channel(const FieldArgs& a,
+                                                        int ch) const {
+    return {static_cast<const T*>(a.in[ch]), H, W};
+  }
+};
+
+// K4-halo: one [h, w] shard per channel (FieldArgs.in) and the channel's
+// ghost ring (FieldHalo.ring[ch]).
+template <typename T>
+struct ShardGrid {
+  const FieldHalo& x;
+  int h, w;
+  __device__ __forceinline__ int row0() const { return x.R0; }
+  __device__ __forceinline__ int col0() const { return x.C0; }
+  __device__ __forceinline__ int gH() const { return x.H; }
+  __device__ __forceinline__ int gW() const { return x.W; }
+  __device__ __forceinline__ mm::HaloSource<T> channel(const FieldArgs& a,
+                                                       int ch) const {
+    mm::HaloArgs ha;
+    ha.shard = a.in[ch];
+    for (int p = 0; p < 8; ++p) ha.ring[p] = x.ring[ch][p];
+    ha.h = h;
+    ha.w = w;
+    ha.d = x.d;
+    ha.R0 = x.R0;
+    ha.C0 = x.C0;
+    ha.H = x.H;
+    ha.W = x.W;
+    return mm::HaloSource<T>(ha);
+  }
+};
+
+// One block's work. `a.H` x `a.W` is the extent of the arrays the call
+// writes (the whole grid, or one shard); window coordinates are local to
+// them, and the steps see them at `g`'s global origin.
+template <typename T, typename G>
+__device__ __forceinline__ void field_body(const FieldArgs& a, const G& g) {
   extern __shared__ float smem[];
   const int n = a.nsteps;
-  const int H = a.H;
-  const int W = a.W;
+  const int H = g.gH();  // the global grid
+  const int W = g.gW();
   const int WH = a.tile_h + 2 * n;  // window rows
   const int WW = TILE_W + 2 * n;    // window cols (row pitch)
   const int WS = WH * WW;
@@ -182,8 +248,10 @@ __global__ void __launch_bounds__(THREADS_X* THREADS_Y)
   float* of = val + a.n_chan * WS;    // [n_out][WH][WW] summed outflows
   float* slots = of + a.n_out * WS;   // [max(n_slots, 1)][WH][WW]
   float* share = slots;               // slot 0 is free during transport
-  const int r0 = static_cast<int>(blockIdx.y) * a.tile_h - n;
-  const int c0 = static_cast<int>(blockIdx.x) * TILE_W - n;
+  const int lr0 = static_cast<int>(blockIdx.y) * a.tile_h - n;  // local
+  const int lc0 = static_cast<int>(blockIdx.x) * TILE_W - n;
+  const int r0 = g.row0() + lr0;  // the window's global origin
+  const int c0 = g.col0() + lc0;
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   // a block whose window and the window's neighbours all lie on the grid:
@@ -193,20 +261,11 @@ __global__ void __launch_bounds__(THREADS_X* THREADS_Y)
       r0 >= 1 && c0 >= 1 && r0 + WH + 1 <= H && c0 + WW + 1 <= W;
 
   for (int ch = 0; ch < a.n_chan; ++ch) {
-    const T* in = static_cast<const T*>(a.in[ch]);
-    float* win = val + ch * WS;
-    for (int i = ty; i < WH; i += THREADS_Y) {
-      const int r = r0 + i;
-      for (int j = tx; j < WW; j += THREADS_X) {
-        const int c = c0 + j;
-        win[i * WW + j] = mm::on_grid(r, c, H, W)
-                              ? mm::to_f32(in[static_cast<size_t>(r) * W + c])
-                              : 0.f;
-      }
-    }
+    mm::load_window_f32<THREADS_X, THREADS_Y>(g.channel(a, ch),
+                                              val + ch * WS, lr0, lc0, WH,
+                                              WW);
   }
   __syncthreads();
-
   for (int s = 0; s < n; ++s) {
     // 1-2. every flow's outflow, summed per written channel, on [s, WH - s)
     for (int pc = 0; pc < a.n_code; ++pc) {
@@ -279,17 +338,32 @@ __global__ void __launch_bounds__(THREADS_X* THREADS_Y)
     const float* v = val + a.out_chan[o] * WS;
     T* dst = static_cast<T*>(a.out[o]);
     for (int i = ty; i < a.tile_h; i += THREADS_Y) {
-      const int r = r0 + n + i;
-      if (r >= H) break;
+      const int r = lr0 + n + i;
+      if (r >= a.H) break;
       for (int j = tx; j < TILE_W; j += THREADS_X) {
-        const int c = c0 + n + j;
-        if (c < W) {
-          mm::from_f32(dst + static_cast<size_t>(r) * W + c,
+        const int c = lc0 + n + j;
+        if (c < a.W) {
+          mm::from_f32(dst + static_cast<size_t>(r) * a.W + c,
                        v[(i + n) * WW + (j + n)]);
         }
       }
     }
   }
+}
+
+// K4: the whole grid.
+template <typename T>
+__global__ void __launch_bounds__(THREADS_X* THREADS_Y)
+    field_stencil_kernel(const __grid_constant__ FieldArgs a) {
+  field_body<T>(a, WholeGrid<T>{a.H, a.W});
+}
+
+// K4-halo: one shard per channel and the channels' ghost rings.
+template <typename T>
+__global__ void __launch_bounds__(THREADS_X* THREADS_Y)
+    field_stencil_halo_kernel(const __grid_constant__ FieldArgs a,
+                              const __grid_constant__ FieldHalo x) {
+  field_body<T>(a, ShardGrid<T>{x, a.H, a.W});
 }
 
 bool valid_operand(int kind, int arg, const FieldArgs& a,
@@ -357,6 +431,17 @@ int smem_bytes(const FieldArgs& a) {
          static_cast<int>(sizeof(float));
 }
 
+// Raise the kernel's dynamic shared memory limit once it needs more than
+// the default 48 KB; `limit` is the instance's own record of what it has.
+template <typename K>
+cudaError_t fit_smem(K kernel, int smem, int* limit) {
+  if (smem <= *limit) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) *limit = smem;
+  return e;
+}
+
 template <typename T>
 int launch(const FieldArgs* args, void* stream) {
   if (args == nullptr || !valid(*args)) {
@@ -367,18 +452,40 @@ int launch(const FieldArgs* args, void* stream) {
   const int smem = smem_bytes(a);
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   static int smem_limit = DEFAULT_SMEM_LIMIT;  // per template instance
-  if (smem > smem_limit) {
-    cudaError_t e = cudaFuncSetAttribute(
-        field_stencil_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_limit = smem;
-  }
+  cudaError_t e = fit_smem(field_stencil_kernel<T>, smem, &smem_limit);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((a.W + TILE_W - 1) / TILE_W,
                   (a.H + a.tile_h - 1) / a.tile_h);
   const dim3 block(THREADS_X, THREADS_Y);
   field_stencil_kernel<T><<<grid, block, smem,
                             static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4-halo: the program's checks, then a ring at least nsteps deep and the
+// shard (FieldArgs' H x W) inside the global grid.
+template <typename T>
+int launch_halo(const FieldArgs* args, const FieldHalo* halo, void* stream) {
+  if (args == nullptr || halo == nullptr || !valid(*args)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const FieldArgs& a = *args;
+  const FieldHalo& x = *halo;
+  if (x.d < a.nsteps || x.d > MAX_STEPS || x.R0 < 0 || x.C0 < 0 ||
+      x.R0 + a.H > x.H || x.C0 + a.W > x.W) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.H == 0 || a.W == 0) return 0;
+  const int smem = smem_bytes(a);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_limit = DEFAULT_SMEM_LIMIT;  // per template instance
+  cudaError_t e = fit_smem(field_stencil_halo_kernel<T>, smem, &smem_limit);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((a.W + TILE_W - 1) / TILE_W,
+                  (a.H + a.tile_h - 1) / a.tile_h);
+  const dim3 block(THREADS_X, THREADS_Y);
+  field_stencil_halo_kernel<T><<<grid, block, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(a, x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -394,7 +501,20 @@ int mm_field_stencil_bf16(const void* args, void* stream) {
   return launch<__nv_bfloat16>(static_cast<const FieldArgs*>(args), stream);
 }
 
+int mm_field_halo_f32(const void* args, const void* halo, void* stream) {
+  return launch_halo<float>(static_cast<const FieldArgs*>(args),
+                            static_cast<const FieldHalo*>(halo), stream);
+}
+
+int mm_field_halo_bf16(const void* args, const void* halo, void* stream) {
+  return launch_halo<__nv_bfloat16>(static_cast<const FieldArgs*>(args),
+                                    static_cast<const FieldHalo*>(halo),
+                                    stream);
+}
+
 int mm_field_args_size() { return static_cast<int>(sizeof(FieldArgs)); }
+
+int mm_field_halo_size() { return static_cast<int>(sizeof(FieldHalo)); }
 
 const char* mm_field_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,9 +1,10 @@
-// Device helpers shared by the port's stencil kernels (K1 in
-// fused_stencil.cu, K3 in composed_stencil.cu, K5 in pipeline_stencil.cu,
-// K6/K7 in fused_active.cu).
+// Device helpers shared by the port's stencil kernels (K1 and K2 in
+// fused_stencil.cu, K3 and K3-halo in composed_stencil.cu, K4 and K4-halo
+// in field_stencil.cu, K5 in pipeline_stencil.cu, K6/K7 in fused_active.cu).
 //
 // One copy of: the f32 storage conversions, the grid test, the in-bounds
-// neighbor count of a global cell, the halo-window load, and the exact
+// neighbor count of a global cell, the window sources (a whole grid, or one
+// shard and its exchanged ghost ring), the halo-window load, and the exact
 // iterated step of K1, K3 and K5 (the form the TPU kernels use near the
 // global edge). The neighborhood is a 3x3 bitmask: bit (dx+1)*3 + (dy+1)
 // set for each offset. Loops stride over a (kThreadsX, kThreadsY) block.
@@ -16,6 +17,22 @@
 #include <cstddef>
 
 namespace mm {
+
+// One shard of a sharded grid and its depth-d ghost ring, as the Python
+// wrappers pass it (ctypes mirrors it field for field): the ring pieces in
+// the order n [d, w], s [d, w], w [h, d], e [h, d], nw, ne, sw, se [d, d],
+// each a contiguous array; the shard's global origin (R0, C0) and the
+// global grid's (H, W).
+struct HaloArgs {
+  const void* shard;
+  const void* ring[8];
+  int h, w, d;
+  int R0, C0;
+  int H, W;
+  int pad_;
+};
+
+enum RingPiece : int { kN = 0, kS, kWest, kEast, kNW, kNE, kSW, kSE };
 
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
@@ -52,23 +69,139 @@ __device__ __forceinline__ float neighbor_count(int r, int c, int H, int W,
   return static_cast<float>(neighbor_count_int(r, c, H, W, mask9));
 }
 
-// Load the [WH, WW] window whose [0, 0] is global cell (r0, c0) into `val`
-// as f32; neighbouring threads read neighbouring columns. Off-grid cells
-// are zero: that zero is the non-periodic boundary.
+// Window sources. A source gives the f32 value of the cell at local (r, c)
+// of the array a kernel writes (0 off the grid: the non-periodic boundary),
+// that array's global origin (row0, col0) and the global grid's (gH, gW),
+// against which the grid test, the neighbour count and the near-edge tests
+// are made. A kernel body takes its source as a template parameter, so the
+// dense kernels compile as they did before sources existed.
+
+// A whole grid: local is global.
+template <typename T>
+struct DenseSource {
+  const T* in;
+  int H, W;
+  __device__ __forceinline__ int row0() const { return 0; }
+  __device__ __forceinline__ int col0() const { return 0; }
+  __device__ __forceinline__ int gH() const { return H; }
+  __device__ __forceinline__ int gW() const { return W; }
+  __device__ __forceinline__ float at(int r, int c) const {
+    return on_grid(r, c, H, W) ? to_f32(in[static_cast<size_t>(r) * W + c])
+                               : 0.f;
+  }
+};
+
+// One [h, w] shard at global (R0, C0) and its depth-d ghost ring (HaloArgs).
+// A cell inside the shard reads the shard; a cell within d of it reads the
+// ring piece its position falls in; any other cell, and every cell off the
+// global grid (whatever its ring piece holds), reads 0. With nsteps <= d no
+// output of the kernel depends on a cell beyond the ring.
+template <typename T>
+struct HaloSource {
+  const T* shard;
+  const T* ring[8];
+  int h, w, d, R0, C0, H, W;
+
+  __host__ __device__ explicit HaloSource(const HaloArgs& a)
+      : shard(static_cast<const T*>(a.shard)), h(a.h), w(a.w), d(a.d),
+        R0(a.R0), C0(a.C0), H(a.H), W(a.W) {
+    for (int p = 0; p < 8; ++p) ring[p] = static_cast<const T*>(a.ring[p]);
+  }
+  __device__ __forceinline__ int row0() const { return R0; }
+  __device__ __forceinline__ int col0() const { return C0; }
+  __device__ __forceinline__ int gH() const { return H; }
+  __device__ __forceinline__ int gW() const { return W; }
+  __device__ __forceinline__ float at(int r, int c) const {
+    if (!on_grid(R0 + r, C0 + c, H, W) || r < -d || r >= h + d || c < -d ||
+        c >= w + d) {
+      return 0.f;
+    }
+    size_t k;
+    int p;
+    if (r < 0 || r >= h) {
+      const int rr = r < 0 ? r + d : r - h;  // row within the piece
+      const bool north = r < 0;
+      if (c < 0) {
+        p = north ? kNW : kSW;
+        k = static_cast<size_t>(rr) * d + (c + d);
+      } else if (c < w) {
+        p = north ? kN : kS;
+        k = static_cast<size_t>(rr) * w + c;
+      } else {
+        p = north ? kNE : kSE;
+        k = static_cast<size_t>(rr) * d + (c - w);
+      }
+    } else if (c < 0) {
+      p = kWest;
+      k = static_cast<size_t>(r) * d + (c + d);
+    } else if (c < w) {
+      return to_f32(shard[static_cast<size_t>(r) * w + c]);
+    } else {
+      p = kEast;
+      k = static_cast<size_t>(r) * d + (c - w);
+    }
+    // a switch on the piece keeps the pointer table in parameter space
+    const T* src;
+    switch (p) {
+      case kN: src = ring[kN]; break;
+      case kS: src = ring[kS]; break;
+      case kWest: src = ring[kWest]; break;
+      case kEast: src = ring[kEast]; break;
+      case kNW: src = ring[kNW]; break;
+      case kNE: src = ring[kNE]; break;
+      case kSW: src = ring[kSW]; break;
+      default: src = ring[kSE]; break;
+    }
+    return to_f32(src[k]);
+  }
+};
+
+// Load the [WH, WW] window whose [0, 0] is local cell (r0, c0) of `src`
+// into `val` as f32; neighbouring threads read neighbouring columns of a
+// (TX, TY) block.
+template <int TX = kThreadsX, int TY = kThreadsY, typename Src>
+__device__ __forceinline__ void load_window_f32(const Src& src, float* val,
+                                                int r0, int c0, int WH,
+                                                int WW) {
+  for (int i = threadIdx.y; i < WH; i += TY) {
+    const int r = r0 + i;
+    for (int j = threadIdx.x; j < WW; j += TX) {
+      val[i * WW + j] = src.at(r, c0 + j);
+    }
+  }
+}
+
+// A halo window that lies inside its shard (every block but those at the
+// shard's edge) reads the shard directly, without the per-cell lookup:
+// the same values, since the shard lies on the grid.
+template <int TX = kThreadsX, int TY = kThreadsY, typename T>
+__device__ __forceinline__ void load_window_f32(const HaloSource<T>& src,
+                                                float* val, int r0, int c0,
+                                                int WH, int WW) {
+  if (r0 >= 0 && c0 >= 0 && r0 + WH <= src.h && c0 + WW <= src.w) {
+    for (int i = threadIdx.y; i < WH; i += TY) {
+      const T* row = src.shard + static_cast<size_t>(r0 + i) * src.w + c0;
+      for (int j = threadIdx.x; j < WW; j += TX) {
+        val[i * WW + j] = to_f32(row[j]);
+      }
+    }
+    return;
+  }
+  for (int i = threadIdx.y; i < WH; i += TY) {
+    const int r = r0 + i;
+    for (int j = threadIdx.x; j < WW; j += TX) {
+      val[i * WW + j] = src.at(r, c0 + j);
+    }
+  }
+}
+
+// The same for a whole [H, W] grid whose window starts at global (r0, c0).
 template <typename T>
 __device__ __forceinline__ void load_window_f32(const T* __restrict__ in,
                                                 float* val, int r0, int c0,
                                                 int WH, int WW, int H,
                                                 int W) {
-  for (int i = threadIdx.y; i < WH; i += kThreadsY) {
-    const int r = r0 + i;
-    for (int j = threadIdx.x; j < WW; j += kThreadsX) {
-      const int c = c0 + j;
-      val[i * WW + j] =
-          on_grid(r, c, H, W) ? to_f32(in[static_cast<size_t>(r) * W + c])
-                              : 0.f;
-    }
-  }
+  load_window_f32(DenseSource<T>{in, H, W}, val, r0, c0, WH, WW);
 }
 
 // Decode the ordered offset codes (4 bits each, bit index (dx+1)*3 +

@@ -12,6 +12,10 @@ State crosses as numpy arrays and plain dicts:
   ``dataclasses.asdict`` gives it) and ``frozen_source_value``.
 - ``ensemble_from_numpy``: a batch of scenarios (numpy channels and flow
   specs per lane) as an ``EnsembleSpace`` and one ``Model`` per lane.
+- ``ring_from_numpy``: a shard's ghost ring (the JAX package's
+  ``exchange_ring`` output or ``oracle.ring_from_global_np``'s, as numpy
+  arrays) as the dict of tensors the halo kernels take, so both packages
+  step the same ring.
 """
 
 from __future__ import annotations
@@ -56,6 +60,20 @@ def space_from_numpy(values: dict[str, np.ndarray], *, x_init: int = 0,
     dim_x, dim_y = next(iter(shapes))
     gx, gy = global_shape if global_shape is not None else (None, None)
     return CellularSpace(tensors, dim_x, dim_y, x_init, y_init, gx, gy)
+
+
+def ring_from_numpy(ring: dict, device=None) -> dict[str, torch.Tensor]:
+    """A ghost ring's eight pieces (``n``/``s`` ``[d, w]``, ``w``/``e``
+    ``[h, d]``, four ``[d, d]`` corners, numpy arrays or anything
+    ``np.asarray`` takes) as contiguous tensors on ``device`` (None means
+    the card); bf16 pieces as in ``space_from_numpy``."""
+    from .ops.fused_stencil import RING_PIECES
+
+    dev = resolve_device(device)
+    missing = [p for p in RING_PIECES if p not in ring]
+    if missing:
+        raise ValueError(f"the ring lacks the pieces {missing}")
+    return {p: _to_tensor(np.asarray(ring[p]), dev) for p in RING_PIECES}
 
 
 def space_to_numpy(space: CellularSpace) -> dict[str, np.ndarray]:

@@ -1,4 +1,4 @@
-"""L4 orchestration: Model, SerialExecutor, Report."""
+"""L4 orchestration: Model, SerialExecutor, Report, ModelRectangular."""
 
 from .model import (
     ConservationError,
@@ -7,6 +7,7 @@ from .model import (
     SerialExecutor,
     default_conservation_rtol,
 )
+from .model_rectangular import ModelRectangular
 
-__all__ = ["ConservationError", "Model", "Report", "SerialExecutor",
-           "default_conservation_rtol"]
+__all__ = ["ConservationError", "Model", "ModelRectangular", "Report",
+           "SerialExecutor", "default_conservation_rtol"]

@@ -64,7 +64,10 @@ def kernel_launches() -> dict[str, int]:
             "composed_stencil": _k3.launches(),
             "field_stencil": _k4.launches(),
             "pipeline_stencil": _k5.launches(),
-            **_k67.launches()}
+            **_k67.launches(),
+            "fused_stencil_halo": _k1.halo_launches(),
+            "composed_stencil_halo": _k3.halo_launches(),
+            "field_stencil_halo": _k4.halo_launches()}
 
 
 def _launches_since(before: dict[str, int]) -> dict[str, int]:
@@ -427,13 +430,17 @@ class Model:
         return space.dtype in KERNEL_DTYPES
 
     def _field_stepper(self, space: CellularSpace, field_flows: list,
-                       substeps: int) -> PallasFieldStep:
-        """K4's stepper for this space, planned now from static facts:
-        the flows lowered, the program within the kernel's limits, every
-        channel it loads in the space dtype, ``substeps`` within the ghost
-        depth and the block within shared memory. Raises
-        ``FieldPlanError`` otherwise; nothing is built or launched here."""
-        stepper = PallasFieldStep(space.shape, field_flows, dtype=space.dtype,
+                       substeps: int,
+                       shape: Optional[tuple[int, int]] = None
+                       ) -> PallasFieldStep:
+        """K4's stepper for this space (or for its shards of ``shape``),
+        planned now from static facts: the flows lowered, the program
+        within the kernel's limits, every channel it loads in the space
+        dtype, ``substeps`` within the ghost depth and the block within
+        shared memory. Raises ``FieldPlanError`` otherwise; nothing is built
+        or launched here."""
+        stepper = PallasFieldStep(shape or space.shape, field_flows,
+                                  dtype=space.dtype,
                                   offsets=self.offsets, nsteps=substeps,
                                   names=tuple(space.values))
         off = [n for n in stepper.program.channels
@@ -742,8 +749,9 @@ class Model:
         initial = {k: float(space.total(k)) for k in space.values}
         t0 = _time.perf_counter()
         out_values = executor.run_model(self, space, num_steps)
-        if space.device.type == "cuda":
-            torch.cuda.synchronize(space.device)
+        for dev in {t.device for t in out_values.values()}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         wall = _time.perf_counter() - t0
         out_space = space.with_values(out_values)
         final = {k: float(out_space.total(k)) for k in out_space.values}

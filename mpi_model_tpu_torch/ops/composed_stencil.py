@@ -1,5 +1,6 @@
-"""K3, the composed k-step dense filter: tap tables, checks, wrapper and
-plain version (counterpart of ``mpi_model_tpu/ops/composed_stencil.py``).
+"""K3, the composed k-step dense filter, and K3-halo, its sharded form: tap
+tables, checks, wrappers and plain versions (counterpart of
+``mpi_model_tpu/ops/composed_stencil.py``).
 
 For uniform-rate ``Diffusion`` the flow step on interior cells is a linear
 operator ``S = (1 - rate) δ + (rate / k') N`` (``k' = |offsets|``, ``N`` the
@@ -19,14 +20,19 @@ vary in space.
   package's checks (``mxu`` needs a 128-aligned block width) and names the
   variant asked for; one CUDA-core tap loop computes every variant here
   (the tensor-core ``mxu`` form is ROADMAP work).
+- ``composed_halo_step`` (K3-halo) is the same pass on one shard of a
+  sharded grid, reading its depth->=k ghost ring; the interior/edge-band
+  choice is made per cell from its global row and column, so shards put
+  together take the whole-grid run's path for every cell.
 - Launches are counted per stepper (``ComposedDiffusionStep.launches``) and
-  module-wide (``launches()``), only where the kernel is launched.
+  module-wide (``launches()`` for K3, ``halo_launches()`` for K3-halo), only
+  where the kernel is launched.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,7 +48,14 @@ from .fused_stencil import (
     _validate_block,
     check_nsteps,
     check_offsets,
+    check_out,
+    check_ring,
+    check_ring_depth,
     dense_step_plain,
+    exact_steps_plain,
+    halo_args,
+    pad_from_ring,
+    padded_region,
     resolve_block,
 )
 
@@ -51,6 +64,7 @@ from .fused_stencil import (
 MXU_MIN_TAPS = 9
 
 _launch_count = 0
+_halo_launch_count = 0
 
 
 def launches() -> int:
@@ -58,9 +72,15 @@ def launches() -> int:
     return _launch_count
 
 
+def halo_launches() -> int:
+    """K3-halo launches made by this module since the last reset."""
+    return _halo_launch_count
+
+
 def reset_launches() -> None:
-    global _launch_count
+    global _launch_count, _halo_launch_count
     _launch_count = 0
+    _halo_launch_count = 0
 
 
 # -- tap-table composition (cached by fingerprint) ---------------------------
@@ -203,6 +223,43 @@ def composed_dense_step_plain(values: torch.Tensor, rate: float, k: int,
     return out.to(values.dtype)
 
 
+def composed_halo_step_plain(values: torch.Tensor,
+                             ring: Mapping[str, torch.Tensor],
+                             origin: tuple[int, int],
+                             global_shape: tuple[int, int], rate: float,
+                             k: int,
+                             offsets: Sequence[tuple[int, int]]
+                             = MOORE_OFFSETS) -> torch.Tensor:
+    """The plain torch version of K3-halo, in f32: the padded shard from the
+    ring, masked to the grid; cells within k of the GLOBAL edge take
+    ``halo_step_plain``'s iterated steps, every other cell the tap
+    correlation accumulated from zero in row-major tap order, as
+    ``composed_dense_step_plain`` does. Cast back once. Shards stepped so
+    and put together equal ``composed_dense_step_plain`` bit for bit."""
+    offsets = check_offsets(offsets)
+    k = int(k)
+    h, w = values.shape
+    d = int(ring["n"].shape[0])
+    org, mask, cnt = padded_region(values, ring, origin, global_shape,
+                                   offsets)
+    v = torch.where(mask, pad_from_ring(values, ring).to(torch.float32), 0.0)
+    out = exact_steps_plain(v, cnt, rate, offsets, k, mask)[d:d + h,
+                                                            d:d + w]
+    taps = device_taps(rate, offsets, k, torch.float32, values.device)
+    n = 2 * k + 1
+    acc = torch.zeros((h, w), dtype=torch.float32, device=values.device)
+    for dr in range(n):
+        for dc in range(n):
+            acc = acc + taps[dr, dc] * v[d - k + dr:d - k + dr + h,
+                                         d - k + dc:d - k + dc + w]
+    m = k + 1  # the first global row/column the composed operator holds on
+    gh, gw = global_shape
+    rows = org[0] + d + torch.arange(h, device=values.device)[:, None]
+    cols = org[1] + d + torch.arange(w, device=values.device)[None, :]
+    inner = (rows >= m) & (rows < gh - m) & (cols >= m) & (cols < gw - m)
+    return torch.where(inner, acc, out).to(values.dtype)
+
+
 # -- the kernel --------------------------------------------------------------
 
 def _kernel_lib():
@@ -215,6 +272,12 @@ def _kernel_lib():
                            ctypes.c_int, ctypes.c_int, ctypes.c_float,
                            ctypes.c_float, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.mm_composed_halo_f32, lib.mm_composed_halo_bf16):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
@@ -301,16 +364,82 @@ def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
         raise ValueError(f"unsupported device {values.device}")
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
-    if out is None:
-        out = torch.empty_like(values)
-    elif (out.shape != values.shape or out.dtype != values.dtype
-          or out.device != values.device or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous tensor of the input's "
-                         "shape, dtype and device")
-    elif out.data_ptr() == values.data_ptr():
-        raise ValueError("the kernel is out of place: out must not alias "
-                         "values")
+    out = check_out(values, out)
     _launch(values, out, float(rate), offsets, k, stepper)
+    return out
+
+
+def composed_halo_step(
+    values: torch.Tensor,
+    ring: Mapping[str, torch.Tensor],
+    origin: tuple[int, int],
+    global_shape: tuple[int, int],
+    rate: float,
+    k: int,
+    offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+    block: Optional[tuple[int, int]] = None,
+    variant: str = "auto",
+    compute_dtype=None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3-halo: ``k`` flow steps as one composed pass on one shard, reading
+    its depth->=k ghost ring (``parallel.halo.exchange_ring``'s dict);
+    semantics ``pallas_halo_step(..., nsteps=k)``, cells within k of the
+    global edge by the exact iterated path. The JAX package's checks: ring
+    depth within the slab capacity, ``k <= d``, the variant's. A CPU shard
+    takes ``composed_halo_step_plain``; a CUDA shard launches the kernel or
+    raises."""
+    global _halo_launch_count
+    offsets = check_offsets(offsets)
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            "compute_dtype other than float32 (bf16 interior math) is not "
+            "ported yet; see ROADMAP.md")
+    if values.dim() != 2:
+        raise ValueError(f"values must be [h, w], got shape "
+                         f"{tuple(values.shape)}")
+    if values.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"the composed filter takes float32 or bfloat16 grids, got "
+            f"{values.dtype}; float64 stays on the plain path "
+            "(impl='xla')")
+    d = check_ring(values, ring)
+    blk = check_ring_depth(d, tuple(values.shape), values.dtype, block)
+    if k > d:
+        raise ValueError(
+            f"k={k} needs a ghost ring at least that deep; got depth {d} "
+            f"(exchange_ring(..., depth={k}))")
+    _check_mxu_width(_resolve_variant(variant, k, blk[1]), blk[1])
+    if values.device.type == "cpu":
+        res = composed_halo_step_plain(values, ring, origin, global_shape,
+                                       rate, k, offsets)
+        if out is not None:
+            out.copy_(res)
+            return out
+        return res
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    out = check_out(values, out, tuple(ring.values()))
+    if values.numel() == 0:
+        return out
+    lib = _kernel_lib()
+    fn = (lib.mm_composed_halo_f32 if values.dtype == torch.float32
+          else lib.mm_composed_halo_bf16)
+    args = halo_args(values, ring, origin, global_shape)
+    taps = device_taps(rate, offsets, k, torch.float32, values.device)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(ctypes.addressof(args), out.data_ptr(), taps.data_ptr(),
+                 float(rate), float(1.0 - rate), k, _offset_mask(offsets),
+                 len(offsets), _offset_codes(offsets), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"composed_stencil halo kernel launch failed: "
+            f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
+    _halo_launch_count += 1
     return out
 
 

@@ -1,12 +1,13 @@
-"""K4, the fused multi-channel field step: wrapper, checks and plain version.
+"""K4, the fused multi-channel field step, and K4-halo, its sharded form:
+wrappers, checks and plain versions.
 
 Counterpart of ``mpi_model_tpu/ops/pallas_stencil.py``'s field kernel
-(``_field_call`` in dense mode, ``PallasFieldStep``). The kernel is
-``csrc/field_stencil.cu`` (CUDA C++ for sm_90a, loaded with ctypes): one
-call runs ``nsteps`` steps of any set of pointwise field flows (``Coupled``,
-user flows) over every channel they read or write, in one read and one
-write of device memory. The flows reach it as programs in register form,
-lowered once by ``ops.field_lower``.
+(``_field_call``, ``PallasFieldStep``, ``pallas_field_halo_step``). The
+kernel is ``csrc/field_stencil.cu`` (CUDA C++ for sm_90a, loaded with
+ctypes): one call runs ``nsteps`` steps of any set of pointwise field flows
+(``Coupled``, user flows) over every channel they read or write, in one
+read and one write of device memory. The flows reach it as programs in
+register form, lowered once by ``ops.field_lower``.
 
 - A CPU tensor takes ``field_step_plain``, the plain torch version.
 - A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -21,8 +22,13 @@ lowered once by ``ops.field_lower``.
   static reason to take the plain path.
 - Only channels some flow writes are outputs; modulator-only channels pass
   through as the same tensor.
+- ``pallas_field_halo_step`` (K4-halo, ``PallasFieldStep.halo``) steps one
+  shard of every channel, reading each channel's ghost ring (every channel
+  needs one: outflows are evaluated on ghost cells); the cells' coordinates
+  are global, the shard's origin plus the local index.
 - Launches are counted, per stepper (``PallasFieldStep.launches``) and
-  module-wide (``launches()``), only where the kernel is launched.
+  module-wide (``launches()`` for K4, ``halo_launches()`` for K4-halo), only
+  where the kernel is launched.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from ..core.cell import MOORE_OFFSETS
 from .field_lower import (MAX_CHANNELS, MAX_CODE, FieldProgram,
                           check_program, lower_flows)
 from .flow import build_outflow
-from .fused_stencil import (KERNEL_DTYPES, check_nsteps, check_offsets,
-                            resolve_block)
+from .fused_stencil import (KERNEL_DTYPES, RING_PIECES, check_nsteps,
+                            check_offsets, check_ring, check_ring_depth,
+                            pad_from_ring, padded_region, resolve_block)
 from .stencil import neighbor_counts, transport
 
 TILE_W = 128
@@ -46,16 +53,23 @@ TILE_HEIGHTS = (32, 16, 8)
 SMEM_LIMIT = 232_448
 MAX_OFFSETS = 8
 _launch_count = 0
+_halo_launch_count = 0
 
 
 def launches() -> int:
-    """Kernel launches made by this module since the last reset."""
+    """K4 launches made by this module since the last reset."""
     return _launch_count
 
 
+def halo_launches() -> int:
+    """K4-halo launches made by this module since the last reset."""
+    return _halo_launch_count
+
+
 def reset_launches() -> None:
-    global _launch_count
+    global _launch_count, _halo_launch_count
     _launch_count = 0
+    _halo_launch_count = 0
 
 
 def smem_bytes(n_chan: int, n_out: int, n_slots: int, nsteps: int,
@@ -147,6 +161,44 @@ def field_step_plain(values: Mapping[str, torch.Tensor], flows,
     return {**values, **{a: cur[a].to(values[a].dtype) for a in written}}
 
 
+def field_halo_step_plain(values: Mapping[str, torch.Tensor],
+                          rings: Mapping[str, Mapping[str, torch.Tensor]],
+                          origin: tuple[int, int],
+                          global_shape: tuple[int, int], flows,
+                          offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                          nsteps: int = 1) -> dict[str, torch.Tensor]:
+    """The plain torch version of K4-halo: every channel's padded shard from
+    its ring, floating channels cast to f32 once, masked to the grid;
+    ``nsteps`` steps of ``build_outflow`` (at the padded shard's global
+    origin, outflows zero off the grid) + ``transport`` (counts from global
+    coordinates, off-grid cells re-zeroed); the shard cropped out and each
+    written channel cast back once. Modulator-only channels come back as the
+    same tensors. Shards stepped so and put together equal
+    ``field_step_plain`` on the whole grid bit for bit."""
+    offsets = check_offsets(offsets)
+    first = next(iter(values.values()))
+    h, w = first.shape
+    d = int(next(iter(rings.values()))["n"].shape[0])
+    org, mask, counts = padded_region(first, rings[next(iter(values))],
+                                      origin, global_shape, offsets)
+    cur = {}
+    for k, t in values.items():
+        p = pad_from_ring(t, rings[k])
+        if p.is_floating_point():
+            p = p.to(torch.float32)
+        cur[k] = torch.where(mask, p, torch.zeros((), dtype=p.dtype))
+    written: set = set()
+    for _ in range(int(nsteps)):
+        of = {a: torch.where(mask, o, 0.0)
+              for a, o in build_outflow(flows, cur, org).items()}
+        cur = {**cur, **{a: torch.where(mask, transport(cur[a], o, counts,
+                                                        offsets), 0.0)
+                         for a, o in of.items()}}
+        written |= set(of)
+    return {**values, **{a: cur[a][d:d + h, d:d + w].to(values[a].dtype)
+                         for a in written}}
+
+
 class _FieldArgs(ctypes.Structure):
     """``FieldArgs`` of ``csrc/field_stencil.cu``, field for field."""
 
@@ -170,6 +222,16 @@ class _FieldArgs(ctypes.Structure):
         ("b_arg", ctypes.c_int * MAX_CODE),
         ("a_imm", ctypes.c_float * MAX_CODE),
         ("b_imm", ctypes.c_float * MAX_CODE),
+    ]
+
+
+class _FieldHalo(ctypes.Structure):
+    """``FieldHalo`` of ``csrc/field_stencil.cu``, field for field."""
+
+    _fields_ = [
+        ("ring", (ctypes.c_void_p * 8) * MAX_CHANNELS),
+        ("d", ctypes.c_int), ("R0", ctypes.c_int), ("C0", ctypes.c_int),
+        ("H", ctypes.c_int), ("W", ctypes.c_int), ("pad_", ctypes.c_int),
     ]
 
 
@@ -203,36 +265,54 @@ def _kernel_lib():
         for fn in (lib.mm_field_stencil_f32, lib.mm_field_stencil_bf16):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for fn in (lib.mm_field_halo_f32, lib.mm_field_halo_bf16):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.mm_field_args_size.restype = ctypes.c_int
+        lib.mm_field_halo_size.restype = ctypes.c_int
         lib.mm_field_error_string.argtypes = [ctypes.c_int]
         lib.mm_field_error_string.restype = ctypes.c_char_p
         if lib.mm_field_args_size() != ctypes.sizeof(_FieldArgs):
             raise RuntimeError(
                 f"field_stencil's FieldArgs is {lib.mm_field_args_size()} "
                 f"bytes, the wrapper's {ctypes.sizeof(_FieldArgs)}")
+        if lib.mm_field_halo_size() != ctypes.sizeof(_FieldHalo):
+            raise RuntimeError(
+                f"field_stencil's FieldHalo is {lib.mm_field_halo_size()} "
+                f"bytes, the wrapper's {ctypes.sizeof(_FieldHalo)}")
         lib._mm_typed = True
     return lib
 
 
 def _launch(args: _FieldArgs, dtype, device,
-            stepper: Optional["PallasFieldStep"] = None) -> None:
-    """Launch K4 on the current stream; raises on any launch error. Counts
-    the launch, module-wide and on ``stepper``, once the kernel is queued.
-    An empty grid has nothing to compute: no launch, nothing counted."""
-    global _launch_count
+            stepper: Optional["PallasFieldStep"] = None,
+            halo: Optional[_FieldHalo] = None) -> None:
+    """Launch K4 (or K4-halo, given ``halo``) on the current stream; raises
+    on any launch error. Counts the launch, module-wide and on ``stepper``,
+    once the kernel is queued. An empty grid has nothing to compute: no
+    launch, nothing counted."""
+    global _launch_count, _halo_launch_count
     if args.H == 0 or args.W == 0:
         return
     lib = _kernel_lib()
-    fn = (lib.mm_field_stencil_f32 if dtype == torch.float32
-          else lib.mm_field_stencil_bf16)
+    f32 = dtype == torch.float32
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ctypes.addressof(args), stream)
+        if halo is None:
+            fn = lib.mm_field_stencil_f32 if f32 else lib.mm_field_stencil_bf16
+            err = fn(ctypes.addressof(args), stream)
+        else:
+            fn = lib.mm_field_halo_f32 if f32 else lib.mm_field_halo_bf16
+            err = fn(ctypes.addressof(args), ctypes.addressof(halo), stream)
     if err != 0:
         raise RuntimeError(
-            f"field_stencil kernel launch failed: "
-            f"{lib.mm_field_error_string(err).decode()} (cudaError {err})")
-    _launch_count += 1
+            f"field_stencil {'halo ' if halo is not None else ''}kernel "
+            f"launch failed: {lib.mm_field_error_string(err).decode()} "
+            f"(cudaError {err})")
+    if halo is None:
+        _launch_count += 1
+    else:
+        _halo_launch_count += 1
     if stepper is not None:
         stepper.launches += 1
 
@@ -254,6 +334,32 @@ def pallas_field_step(
     return PallasFieldStep(tuple(next(iter(values.values())).shape), flows,
                            offsets=offsets, block=block, nsteps=nsteps,
                            compute_dtype=compute_dtype)(values, out=out)
+
+
+def pallas_field_halo_step(
+    values: Mapping[str, torch.Tensor],
+    rings: Mapping[str, Mapping[str, torch.Tensor]],
+    origin: tuple[int, int],
+    global_shape: tuple[int, int],
+    flows,
+    offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+    block: Optional[tuple[int, int]] = None,
+    nsteps: int = 1,
+    compute_dtype=None,
+    out: Optional[Mapping[str, torch.Tensor]] = None,
+) -> dict[str, torch.Tensor]:
+    """K4-halo: ``nsteps`` fused steps of the pointwise ``flows`` on one
+    shard of every channel of a sharded grid. ``rings`` maps EVERY channel
+    name to its ghost ring (``parallel.halo.exchange_ring``'s dict);
+    ``origin`` is the shard's global (row, col) offset and ``global_shape``
+    the whole grid's dims. Flow channels are updated; modulator-only
+    channels pass through unchanged. Semantics: ``nsteps`` applications of
+    the summed-outflow model step on the global grid, computed
+    shard-locally."""
+    return PallasFieldStep(tuple(next(iter(values.values())).shape), flows,
+                           offsets=offsets, block=block, nsteps=nsteps,
+                           compute_dtype=compute_dtype).halo(
+        values, rings, origin, global_shape, out=out)
 
 
 class PallasFieldStep:
@@ -300,9 +406,11 @@ class PallasFieldStep:
                                           dtype, self.nsteps, self.block)
         return self._plans[key]
 
-    def __call__(self, values: Mapping[str, torch.Tensor],
-                 out: Optional[Mapping[str, torch.Tensor]] = None
-                 ) -> dict[str, torch.Tensor]:
+    def _checked(self, values: Mapping[str, torch.Tensor]):
+        """The call's plan from its channels: (program, tile height, dtype,
+        the loaded channels' tensors, their device). Raises on channels the
+        flows need but the values lack, on flow channels not of one kernel
+        dtype, and on loaded channels of another dtype or shape."""
         names = tuple(values)
         missing = sorted({f.attr for f in self.flows} - set(names))
         if missing:
@@ -323,22 +431,13 @@ class PallasFieldStep:
                     f"channel {n!r} is {t.dtype} {tuple(t.shape)}; the field "
                     f"kernel needs every channel it reads as {dtype} "
                     f"{self.shape}")
-        dev = chans[0].device
-        if dev.type == "cpu":
-            res = field_step_plain(values, self.flows, self.offsets,
-                                   self.nsteps)
-            if out:
-                for n, t in out.items():
-                    t.copy_(res[n])
-                    res[n] = t
-            return res
-        if dev.type != "cuda":
-            raise ValueError(f"unsupported device {dev}")
-        if any(t.device != dev or not t.is_contiguous() for t in chans):
-            raise ValueError("every channel must be a contiguous tensor on "
-                             "one device")
+        return prog, tile_h, dtype, chans, chans[0].device
+
+    def _outputs(self, prog, values, dtype, dev, out, reads) -> dict:
+        """The written channels' output tensors: ``out``'s where given
+        (checked), else new ones; none may alias a tensor the call reads."""
         outs = {}
-        in_ptrs = {t.data_ptr() for t in chans}
+        in_ptrs = {t.data_ptr() for t in reads}
         for n in prog.outputs:
             t = (out or {}).get(n)
             if t is None:
@@ -351,6 +450,28 @@ class PallasFieldStep:
                 raise ValueError(f"the kernel is out of place: out[{n!r}] "
                                  "must not alias a channel it reads")
             outs[n] = t
+        return outs
+
+    @staticmethod
+    def _copy_out(res: dict, out) -> dict:
+        for n, t in (out or {}).items():
+            t.copy_(res[n])
+            res[n] = t
+        return res
+
+    def __call__(self, values: Mapping[str, torch.Tensor],
+                 out: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> dict[str, torch.Tensor]:
+        prog, tile_h, dtype, chans, dev = self._checked(values)
+        if dev.type == "cpu":
+            return self._copy_out(field_step_plain(
+                values, self.flows, self.offsets, self.nsteps), out)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if any(t.device != dev or not t.is_contiguous() for t in chans):
+            raise ValueError("every channel must be a contiguous tensor on "
+                             "one device")
+        outs = self._outputs(prog, values, dtype, dev, out, chans)
         args = pack_program(prog, self.offsets, self.nsteps, tile_h,
                             self.shape)
         for c, t in enumerate(chans):
@@ -358,4 +479,65 @@ class PallasFieldStep:
         for o, n in enumerate(prog.outputs):
             args.out[o] = outs[n].data_ptr()
         _launch(args, dtype, dev, self)
+        return {**values, **outs}
+
+    def halo(self, values: Mapping[str, torch.Tensor],
+             rings: Mapping[str, Mapping[str, torch.Tensor]],
+             origin: tuple[int, int], global_shape: tuple[int, int],
+             out: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> dict[str, torch.Tensor]:
+        """K4-halo: this stepper's ``nsteps`` steps on one shard of every
+        channel (``values``, each ``self.shape``), with every channel's
+        ghost ring in ``rings``, at global ``origin`` in a grid of
+        ``global_shape`` (see ``pallas_field_halo_step``). The JAX
+        package's checks: a ring for every channel, ring depth within the
+        slab capacity, ``nsteps <= d``."""
+        missing = sorted(n for n in values if n not in rings)
+        if missing:
+            raise ValueError(
+                f"pallas_field_halo_step needs a ghost ring for EVERY channel "
+                f"(outflows are evaluated on ghost cells); missing {missing}")
+        prog, tile_h, dtype, chans, dev = self._checked(values)
+        depths = {n: check_ring(values[n], rings[n], f"rings[{n!r}]")
+                  for n in values}
+        d = depths[next(iter(values))]
+        if set(depths.values()) != {d}:
+            raise ValueError(f"every channel's ring must have one depth; got "
+                             f"{depths}")
+        check_ring_depth(d, self.shape, dtype, self.block)
+        if self.nsteps > d:
+            raise ValueError(
+                f"nsteps={self.nsteps} needs a ghost ring at least that "
+                f"deep; got depth {d} (exchange_ring(..., "
+                f"depth={self.nsteps}))")
+        if dev.type == "cpu":
+            return self._copy_out(field_halo_step_plain(
+                values, rings, origin, global_shape, self.flows,
+                self.offsets, self.nsteps), out)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        reads = list(chans) + [rings[n][p] for n in prog.channels
+                               for p in RING_PIECES]
+        if any(t.device != dev or not t.is_contiguous() for t in reads):
+            raise ValueError("every channel and ring piece must be a "
+                             "contiguous tensor on one device")
+        h, w = self.shape
+        R0, C0 = int(origin[0]), int(origin[1])
+        H, W = int(global_shape[0]), int(global_shape[1])
+        if R0 < 0 or C0 < 0 or R0 + h > H or C0 + w > W:
+            raise ValueError(f"a {h}x{w} shard at {(R0, C0)} does not lie "
+                             f"inside the {H}x{W} grid")
+        outs = self._outputs(prog, values, dtype, dev, out, reads)
+        args = pack_program(prog, self.offsets, self.nsteps, tile_h,
+                            self.shape)
+        for c, t in enumerate(chans):
+            args.inp[c] = t.data_ptr()
+        for o, n in enumerate(prog.outputs):
+            args.out[o] = outs[n].data_ptr()
+        hx = _FieldHalo()
+        for c, n in enumerate(prog.channels):
+            for i, p in enumerate(RING_PIECES):
+                hx.ring[c][i] = rings[n][p].data_ptr()
+        hx.d, hx.R0, hx.C0, hx.H, hx.W = d, R0, C0, H, W
+        _launch(args, dtype, dev, self, halo=hx)
         return {**values, **outs}

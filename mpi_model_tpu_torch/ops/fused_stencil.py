@@ -1,11 +1,17 @@
-"""K1, the fused dense stencil: wrapper, checks and plain version.
+"""K1, the fused dense stencil, and K2, its halo mode: wrappers, checks and
+plain versions.
 
-Counterpart of ``mpi_model_tpu/ops/pallas_stencil.py`` in dense mode. The
-kernel is ``csrc/fused_stencil.cu`` (CUDA C++ for sm_90a, loaded with
-ctypes); it replaces the TPU kernel ``pallas_stencil.py::_stencil_call``
-(dense mode), runs ``nsteps`` uniform-rate transport steps per call in one
-read and one write of device memory, and is bound by bytes for small
-``nsteps`` (see the source's header for what its design does about that).
+Counterpart of ``mpi_model_tpu/ops/pallas_stencil.py``'s stencil kernel.
+The kernels are ``csrc/fused_stencil.cu`` (CUDA C++ for sm_90a, loaded with
+ctypes); they replace the TPU kernel ``pallas_stencil.py::_stencil_call``,
+run ``nsteps`` uniform-rate transport steps per call in one read and one
+write of device memory, and are bound by bytes for small ``nsteps`` (see the
+source's header for what the design does about that).
+
+- ``pallas_dense_step`` (K1) steps a whole grid; ``pallas_halo_step`` (K2)
+  steps one shard of a sharded grid, reading its exchanged ghost ring
+  (``parallel.halo.exchange_ring``'s dict) where the dense kernel reads a
+  zero border, with neighbour counts and grid tests in global coordinates.
 
 - A CPU tensor takes ``dense_step_plain``, the plain torch version.
 - A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -14,13 +20,14 @@ read and one write of device memory, and is bound by bytes for small
   tiling of its own: ``nsteps <= min(sublane, bh, 128, bw)`` with sublane 8
   for f32 and 16 for bf16.
 - Launches are counted, per stepper (``PallasDiffusionStep.launches``) and
-  module-wide (``launches()``), only where the kernel is launched.
+  module-wide (``launches()`` for K1, ``halo_launches()`` for K2), only
+  where the kernel is launched.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -30,17 +37,26 @@ LANE = 128  # the JAX kernel's lane tile; kept for the same block checks
 
 #: storage dtypes the kernel takes (it computes in f32)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: the ring pieces in the order the kernels' HaloArgs holds them
+RING_PIECES = ("n", "s", "w", "e", "nw", "ne", "sw", "se")
 _launch_count = 0
+_halo_launch_count = 0
 
 
 def launches() -> int:
-    """Kernel launches made by this module since the last reset."""
+    """K1 launches made by this module since the last reset."""
     return _launch_count
 
 
+def halo_launches() -> int:
+    """K2 launches made by this module since the last reset."""
+    return _halo_launch_count
+
+
 def reset_launches() -> None:
-    global _launch_count
+    global _launch_count, _halo_launch_count
     _launch_count = 0
+    _halo_launch_count = 0
 
 
 def _sublane(dtype) -> int:
@@ -117,6 +133,28 @@ def check_nsteps(nsteps: int, block: tuple[int, int], dtype) -> None:
             f"{min(hr, hc)} or a larger block")
 
 
+def exact_steps_plain(v: torch.Tensor, cnt: torch.Tensor, rate: float,
+                      offsets: Sequence[tuple[int, int]], nsteps: int,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``nsteps`` exact steps on the f32 ``[..., h, w]`` region ``v`` with
+    zeros beyond it: ``share = rate*v/cnt``, ``v*(1-rate) + Σ_d share[c+d]``
+    in offset order; cells where ``mask`` is False are re-zeroed each step.
+    After n steps the cells at least n from the region's edge are exact."""
+    h, w = v.shape[-2:]
+    padded = torch.zeros(v.shape[:-2] + (h + 2, w + 2),
+                         dtype=torch.float32, device=v.device)
+    for _ in range(nsteps):
+        padded[..., 1:-1, 1:-1] = (rate * v) / cnt
+        g = None
+        for dx, dy in offsets:
+            t = padded[..., 1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
+            g = t if g is None else g + t
+        v = v * (1.0 - rate) + g
+        if mask is not None:
+            v = torch.where(mask, v, 0.0)
+    return v
+
+
 def dense_step_plain(values: torch.Tensor, rate: float,
                      offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                      nsteps: int = 1) -> torch.Tensor:
@@ -135,16 +173,148 @@ def dense_step_plain(values: torch.Tensor, rate: float,
               & (cols + dy >= 0) & (cols + dy < w)).to(torch.float32)
         cnt = ok if cnt is None else cnt + ok
     cnt = torch.clamp(cnt, min=1.0)
-    padded = torch.zeros(values.shape[:-2] + (h + 2, w + 2),
-                         dtype=torch.float32, device=values.device)
-    for _ in range(nsteps):
-        padded[..., 1:-1, 1:-1] = (rate * v) / cnt
-        g = None
-        for dx, dy in offsets:
-            t = padded[..., 1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
-            g = t if g is None else g + t
-        v = v * (1.0 - rate) + g
-    return v.to(values.dtype)
+    return exact_steps_plain(v, cnt, rate, offsets, nsteps).to(values.dtype)
+
+
+# -- halo mode: one shard and its ghost ring ---------------------------------
+
+def ring_depth(ring: Mapping[str, torch.Tensor]) -> int:
+    return int(ring["n"].shape[0])
+
+
+def check_ring(values: torch.Tensor, ring: Mapping[str, torch.Tensor],
+               name: str = "ring") -> int:
+    """Check that ``ring`` is a depth-d ghost ring of the ``[h, w]`` shard
+    ``values`` (``exchange_ring``'s layout: n/s ``[d, w]``, w/e ``[h, d]``,
+    corners ``[d, d]``, in the shard's dtype, on its device); returns d."""
+    missing = [p for p in RING_PIECES if p not in ring]
+    if missing:
+        raise ValueError(f"{name} lacks the pieces {missing}")
+    h, w = values.shape
+    d = ring_depth(ring)
+    want = {"n": (d, w), "s": (d, w), "w": (h, d), "e": (h, d),
+            "nw": (d, d), "ne": (d, d), "sw": (d, d), "se": (d, d)}
+    for p, shape in want.items():
+        t = ring[p]
+        if (tuple(t.shape) != shape or t.dtype != values.dtype
+                or t.device != values.device):
+            raise ValueError(
+                f"{name}[{p!r}] is {t.dtype} {tuple(t.shape)} on {t.device}; "
+                f"a depth-{d} ring of a {tuple(values.shape)} "
+                f"{values.dtype} shard on {values.device} needs {shape}")
+    return d
+
+
+def check_ring_depth(d: int, shape: tuple[int, int], dtype,
+                     block: Optional[tuple[int, int]]) -> tuple[int, int]:
+    """The JAX package's slab-capacity rule: the ring is at most
+    ``min(hr, hc)`` deep for the shard's block. Returns the block."""
+    blk = resolve_block(shape, dtype, block)
+    hr, hc = min(_sublane(dtype), blk[0]), min(LANE, blk[1])
+    if d > min(hr, hc):
+        raise ValueError(
+            f"ring depth {d} exceeds the slab capacity min(hr={hr}, "
+            f"hc={hc}) for block {tuple(blk)}")
+    return blk
+
+
+def pad_from_ring(values: torch.Tensor,
+                  ring: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The ``[h + 2d, w + 2d]`` padded shard: the shard with its ring."""
+    top = torch.cat([ring["nw"], ring["n"], ring["ne"]], dim=1)
+    mid = torch.cat([ring["w"], values, ring["e"]], dim=1)
+    bot = torch.cat([ring["sw"], ring["s"], ring["se"]], dim=1)
+    return torch.cat([top, mid, bot], dim=0)
+
+
+def padded_region(values: torch.Tensor, ring: Mapping[str, torch.Tensor],
+                  origin: tuple[int, int], global_shape: tuple[int, int],
+                  offsets: Sequence[tuple[int, int]]):
+    """The padded shard's geometry in global coordinates: its origin
+    ``(R0 - d, C0 - d)``, the on-grid mask (bool) and the in-bounds
+    neighbour counts clamped to >= 1 (f32)."""
+    from .stencil import neighbor_counts
+
+    d = ring_depth(ring)
+    h, w = values.shape
+    org = (int(origin[0]) - d, int(origin[1]) - d)
+    shape = (h + 2 * d, w + 2 * d)
+    gh, gw = global_shape
+    rows = org[0] + torch.arange(shape[0], device=values.device)[:, None]
+    cols = org[1] + torch.arange(shape[1], device=values.device)[None, :]
+    mask = (rows >= 0) & (rows < gh) & (cols >= 0) & (cols < gw)
+    cnt = torch.clamp(neighbor_counts(shape, offsets, org, global_shape,
+                                      torch.float32, values.device), min=1.0)
+    return org, mask, cnt
+
+
+def halo_step_plain(values: torch.Tensor, ring: Mapping[str, torch.Tensor],
+                    origin: tuple[int, int], global_shape: tuple[int, int],
+                    rate: float,
+                    offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                    nsteps: int = 1) -> torch.Tensor:
+    """The plain torch version of K2: the padded shard assembled from the
+    ring, cast to f32 and masked to the grid, ``dense_step_plain``'s exact
+    steps with counts from global coordinates (off-grid cells re-zeroed
+    each step), the shard cropped out and cast back once. Shards stepped so
+    and put together equal ``dense_step_plain`` on the whole grid bit for
+    bit."""
+    d = ring_depth(ring)
+    h, w = values.shape
+    _, mask, cnt = padded_region(values, ring, origin, global_shape, offsets)
+    v = torch.where(mask, pad_from_ring(values, ring).to(torch.float32), 0.0)
+    v = exact_steps_plain(v, cnt, rate, offsets, nsteps, mask)
+    return v[d:d + h, d:d + w].to(values.dtype)
+
+
+class _HaloArgs(ctypes.Structure):
+    """``mm::HaloArgs`` of ``csrc/stencil_common.cuh``, field for field."""
+
+    _fields_ = [("shard", ctypes.c_void_p), ("ring", ctypes.c_void_p * 8),
+                ("h", ctypes.c_int), ("w", ctypes.c_int), ("d", ctypes.c_int),
+                ("R0", ctypes.c_int), ("C0", ctypes.c_int),
+                ("H", ctypes.c_int), ("W", ctypes.c_int),
+                ("pad_", ctypes.c_int)]
+
+
+def halo_args(values: torch.Tensor, ring: Mapping[str, torch.Tensor],
+              origin: tuple[int, int],
+              global_shape: tuple[int, int]) -> _HaloArgs:
+    """The launch argument for one shard: its pointer, its ring's (every
+    piece contiguous), its extent, the ring depth, its global origin and
+    the global grid. Raises when the shard does not lie inside the grid."""
+    h, w = values.shape
+    R0, C0 = int(origin[0]), int(origin[1])
+    H, W = int(global_shape[0]), int(global_shape[1])
+    if R0 < 0 or C0 < 0 or R0 + h > H or C0 + w > W:
+        raise ValueError(f"a {h}x{w} shard at {(R0, C0)} does not lie inside "
+                         f"the {H}x{W} grid")
+    if not values.is_contiguous() or not all(
+            ring[p].is_contiguous() for p in RING_PIECES):
+        raise ValueError("the shard and every ring piece must be contiguous")
+    a = _HaloArgs()
+    a.shard = values.data_ptr()
+    for i, p in enumerate(RING_PIECES):
+        a.ring[i] = ring[p].data_ptr()
+    a.h, a.w, a.d = h, w, ring_depth(ring)
+    a.R0, a.C0, a.H, a.W = R0, C0, H, W
+    return a
+
+
+def check_out(values: torch.Tensor, out: Optional[torch.Tensor],
+              reads=()) -> torch.Tensor:
+    """``out``, or a new tensor like ``values``: contiguous, of the input's
+    shape, dtype and device, aliasing neither ``values`` nor ``reads``."""
+    if out is None:
+        return torch.empty_like(values)
+    if (out.shape != values.shape or out.dtype != values.dtype
+            or out.device != values.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor of the input's "
+                         "shape, dtype and device")
+    if out.data_ptr() in {t.data_ptr() for t in (values, *reads)}:
+        raise ValueError("the kernel is out of place: out must not alias "
+                         "values")
+    return out
 
 
 def _offset_mask(offsets: tuple) -> int:
@@ -174,8 +344,19 @@ def _kernel_lib():
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        for fn in (lib.mm_fused_stencil_halo_f32,
+                   lib.mm_fused_stencil_halo_bf16):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+                           ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
+        lib.mm_halo_args_size.restype = ctypes.c_int
+        if lib.mm_halo_args_size() != ctypes.sizeof(_HaloArgs):
+            raise RuntimeError(
+                f"fused_stencil's HaloArgs is {lib.mm_halo_args_size()} "
+                f"bytes, the wrapper's {ctypes.sizeof(_HaloArgs)}")
         lib._mm_typed = True
     return lib
 
@@ -273,16 +454,89 @@ def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
         raise ValueError(f"unsupported device {values.device}")
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
-    if out is None:
-        out = torch.empty_like(values)
-    elif (out.shape != values.shape or out.dtype != values.dtype
-          or out.device != values.device or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous tensor of the input's "
-                         "shape, dtype and device")
-    elif out.data_ptr() == values.data_ptr():
-        raise ValueError("the kernel is out of place: out must not alias "
-                         "values")
+    out = check_out(values, out)
     _launch(values, out, rate, offsets, int(nsteps), stepper)
+    return out
+
+
+def _launch_halo(values: torch.Tensor, ring, origin, global_shape,
+                 out: torch.Tensor, rate: float, offsets: tuple,
+                 nsteps: int) -> None:
+    """Launch K2 on the current stream of the shard's device; raises on any
+    launch error. Counts the launch once the kernel is queued."""
+    global _halo_launch_count
+    if values.numel() == 0:
+        return
+    lib = _kernel_lib()
+    fn = (lib.mm_fused_stencil_halo_f32 if values.dtype == torch.float32
+          else lib.mm_fused_stencil_halo_bf16)
+    args = halo_args(values, ring, origin, global_shape)
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        err = fn(ctypes.addressof(args), out.data_ptr(), float(rate),
+                 float(1.0 - rate), int(nsteps), _offset_mask(offsets),
+                 len(offsets), _offset_codes(offsets), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_stencil halo kernel launch failed: "
+            f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
+    _halo_launch_count += 1
+
+
+def pallas_halo_step(
+    values: torch.Tensor,
+    ring: Mapping[str, torch.Tensor],
+    origin: tuple[int, int],
+    global_shape: tuple[int, int],
+    rate: float,
+    offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+    block: Optional[tuple[int, int]] = None,
+    nsteps: int = 1,
+    compute_dtype=None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K2: ``nsteps`` fused flow steps on one ``[h, w]`` shard of a sharded
+    grid, reading its depth-d ghost ring (``parallel.halo.exchange_ring``'s
+    dict: ``n``/``s`` ``[d, w]``, ``w``/``e`` ``[h, d]``, four ``[d, d]``
+    corners; zeros at true grid edges) where the dense kernel reads a zero
+    border. ``origin`` is the shard's global (row, col) offset and
+    ``global_shape`` the whole grid's dims. Semantics: ``pallas_dense_step``
+    on the global grid, computed shard-locally. The JAX package's checks:
+    the ring at most ``min(hr, hc)`` deep for the shard's block, and
+    ``nsteps <= d``. A CPU shard takes ``halo_step_plain``; a CUDA shard
+    launches the kernel or raises. ``out`` (CUDA only) receives the result
+    and must alias neither the shard nor its ring."""
+    offsets = check_offsets(offsets)
+    nsteps = int(nsteps)
+    if nsteps < 1:
+        raise ValueError(f"nsteps must be >= 1, got {nsteps}")
+    _check_compute_dtype(compute_dtype)
+    if values.dim() != 2:
+        raise ValueError(f"values must be [h, w], got shape "
+                         f"{tuple(values.shape)}")
+    if values.dtype not in KERNEL_DTYPES:
+        raise TypeError(
+            f"the fused stencil takes float32 or bfloat16 grids, got "
+            f"{values.dtype}; float64 stays on the plain path "
+            "(impl='xla')")
+    d = check_ring(values, ring)
+    check_ring_depth(d, tuple(values.shape), values.dtype, block)
+    if nsteps > d:
+        raise ValueError(
+            f"nsteps={nsteps} needs a ghost ring at least that deep; got "
+            f"depth {d} (exchange_ring(..., depth={nsteps}))")
+    if values.device.type == "cpu":
+        res = halo_step_plain(values, ring, origin, global_shape, rate,
+                              offsets, nsteps)
+        if out is not None:
+            out.copy_(res)
+            return out
+        return res
+    if values.device.type != "cuda":
+        raise ValueError(f"unsupported device {values.device}")
+    out = check_out(values, out, tuple(ring.values()))
+    _launch_halo(values, ring, origin, global_shape, out, rate, offsets,
+                 nsteps)
     return out
 
 

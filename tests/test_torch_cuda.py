@@ -390,3 +390,185 @@ def test_launch_queues_without_a_synchronization(impl):
     got = complete_ensemble(flight)
     for (a, _), (b, _) in zip(got, warm):
         assert torch.equal(a.values["value"], b.values["value"])
+
+
+# -- the halo kernels K2, K3-halo and K4-halo, and the sharded path ---------
+
+def _shards(dev, dtype, shape, mesh_shape, seed, names=("value",)):
+    """A global grid per channel from a numpy seed, cut into the shards of
+    an L x C mesh over one card."""
+    from mpi_model_tpu_torch.parallel import make_mesh_2d
+    from mpi_model_tpu_torch.parallel.mesh import shard_tensor
+
+    rng = np.random.default_rng(seed)
+    lines, columns = mesh_shape
+    mesh = make_mesh_2d(lines, columns, devices=[dev] * (lines * columns))
+    h, w = shape[0] // lines, shape[1] // columns
+    full = {n: torch.from_numpy(rng.uniform(0.5, 2.0, shape)).to(dev, dtype)
+            for n in names}
+    return mesh, full, {n: shard_tensor(t, mesh, h, w)
+                        for n, t in full.items()}, (h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 4),
+                                      (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (3, 2)])
+def test_halo_kernel_bitwise_plain_on_the_card(dtype, ns, offs, mesh_shape):
+    """K2 on every shard (edge, corner and interior origins) equals
+    ``halo_step_plain`` bit for bit, and the shards put together equal K1
+    on the whole grid bit for bit."""
+    from mpi_model_tpu_torch.parallel import assemble, exchange_ring
+
+    dev = _card()
+    mesh, full, g, (h, w) = _shards(dev, dtype, (96, 768), mesh_shape, 31)
+    g = g["value"]
+    lines, columns = mesh_shape
+    before = fs.halo_launches()
+    out = [[None] * columns for _ in range(lines)]
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, ns)
+            got = fs.pallas_halo_step(g[i][j], ring, (i * h, j * w),
+                                      (96, 768), 0.13, offs, nsteps=ns)
+            want = fs.halo_step_plain(g[i][j], ring, (i * h, j * w),
+                                      (96, 768), 0.13, offs, ns)
+            assert torch.equal(got, want), (i, j)
+            out[i][j] = got
+    assert fs.halo_launches() == before + lines * columns
+    assert torch.equal(assemble(out, dev),
+                       fs.pallas_dense_step(full["value"], 0.13, offs,
+                                            nsteps=ns))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 8),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
+def test_composed_halo_kernel_on_the_card(dtype, k, offs, mesh_shape):
+    """K3-halo on every shard against ``composed_halo_step_plain`` at K3's
+    tolerance (the tap loop is left to nvcc's FMA contraction); the shards
+    put together equal K3 on the whole grid bit for bit (the interior/band
+    choice is per cell)."""
+    from mpi_model_tpu_torch.parallel import assemble, exchange_ring
+
+    dev = _card()
+    mesh, full, g, (h, w) = _shards(dev, dtype, (192, 1024), mesh_shape, 37)
+    g = g["value"]
+    lines, columns = mesh_shape
+    out = [[None] * columns for _ in range(lines)]
+    tol = 1e-6 * k if dtype == torch.float32 else 2.0 ** -6
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, k)
+            got = cs.composed_halo_step(g[i][j], ring, (i * h, j * w),
+                                        (192, 1024), 0.13, k, offs)
+            want = cs.composed_halo_step_plain(g[i][j], ring, (i * h, j * w),
+                                               (192, 1024), 0.13, k, offs)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            out[i][j] = got
+    assert torch.equal(assemble(out, dev),
+                       cs.composed_dense_step(full["value"], 0.13, k, offs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("flows", ["config4", "row_rate", "chain3",
+                                   "affine"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
+def test_field_halo_kernel_bitwise_plain_on_the_card(dtype, ns, flows,
+                                                     mesh_shape):
+    """K4-halo on every shard equals ``field_halo_step_plain`` bit for bit
+    (coordinates global), modulators pass through, and the shards put
+    together equal K4 on the whole grid bit for bit."""
+    from mpi_model_tpu_torch.parallel import assemble, exchange_ring
+
+    dev = _card()
+    fl = _FLOW_SETS[flows]
+    names = ("a", "b", "c")
+    mesh, full, g, (h, w) = _shards(dev, dtype, (128, 512), mesh_shape, 41,
+                                    names)
+    lines, columns = mesh_shape
+    step = k4.PallasFieldStep((h, w), fl, nsteps=ns)
+    written = {f.attr for f in fl}
+    out = {n: [[None] * columns for _ in range(lines)] for n in written}
+    before = k4.halo_launches()
+    for i in range(lines):
+        for j in range(columns):
+            vals = {n: g[n][i][j] for n in names}
+            rings = {n: exchange_ring(g[n], i, j, ns) for n in names}
+            got = step.halo(vals, rings, (i * h, j * w), (128, 512))
+            want = k4.field_halo_step_plain(vals, rings, (i * h, j * w),
+                                            (128, 512), fl, nsteps=ns)
+            for n in names:
+                if n in written:
+                    assert torch.equal(got[n], want[n]), (i, j, n)
+                    out[n][i][j] = got[n]
+                else:
+                    assert got[n] is vals[n]
+    assert k4.halo_launches() == before + lines * columns
+    dense = k4.PallasFieldStep((128, 512), fl, nsteps=ns)(full)
+    for n in written:
+        assert torch.equal(assemble(out[n], dev), dense[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl,depth", [("pallas", 8), ("pallas", 3),
+                                        ("composed", 8), ("xla", 1)])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
+def test_sharded_path_bitwise_serial_on_the_card(impl, depth, mesh_shape):
+    """``ShardMapExecutor`` over one card equals the serial run at the same
+    substeps bit for bit: K2 against K1, K3-halo against K3, xla against
+    xla. K2 runs 20 steps, so depth 8 and 3 end on a remainder chunk; K3
+    runs a multiple of its depth (a remainder chunk composes at its own
+    depth, where the serial path's remainder takes single steps)."""
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    dev = _card()
+    rng = np.random.default_rng(43)
+    x = torch.from_numpy(rng.uniform(0.5, 2.0, (256, 1024))).to(
+        dev, torch.float32)
+    space = mt.CellularSpace.create(256, 1024, 1.0, device=dev).with_values(
+        {"value": x})
+    model = mt.Model(mt.Diffusion(0.1))
+    lines, columns = mesh_shape
+    mesh = make_mesh_2d(lines, columns, devices=[dev] * (lines * columns))
+    steps = 16 if impl == "composed" else 20
+    ex = ShardMapExecutor(mesh, impl, halo_depth=depth)
+    out, rep = model.execute(space, ex, steps=steps)
+    want, _ = model.execute(space, mt.SerialExecutor(
+        impl, substeps=depth if impl != "xla" else 1), steps=steps)
+    assert rep.impl == impl and rep.comm_size == lines * columns
+    assert torch.equal(out.values["value"], want.values["value"])
+    if impl != "xla":
+        q, r = divmod(steps, depth)
+        assert rep.backend_report["launches"] == (q + (r > 0)) * lines \
+            * columns
+
+
+@pytest.mark.cuda
+def test_sharded_field_path_bitwise_serial_on_the_card():
+    """Config 4's flows through the ``field`` plan (K4-halo) on a 2x2 mesh
+    equal serial K4 bit for bit."""
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    dev = _card()
+    rng = np.random.default_rng(47)
+    vals = {n: torch.from_numpy(rng.uniform(0.5, 2.0, (256, 512))).to(
+        dev, torch.float32) for n in ("a", "b")}
+    space = mt.CellularSpace.create(256, 512, {"a": 1.0, "b": 1.0},
+                                    device=dev).with_values(vals)
+    model = mt.Model(_FLOW_SETS["config4"])
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    out, rep = model.execute(space, ShardMapExecutor(mesh, "pallas",
+                                                     halo_depth=8), steps=20)
+    want, _ = model.execute(space, mt.SerialExecutor("pallas", substeps=8),
+                            steps=20)
+    assert rep.backend_report["kernel"] == "K4-halo field_stencil"
+    for n in ("a", "b"):
+        assert torch.equal(out.values[n], want.values[n]), n
