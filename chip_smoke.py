@@ -34,6 +34,17 @@ Phases (any failure exits non-zero, and no result line is printed):
      16×128 (auto block) and 48×384 with block (16, 128) (closed-form
      tiles inside), and the ensemble path's 8 × 4096² (Moore, nsteps 1
      and 8).
+3c-halo. K6 and K7 at k=1 on ghost-padded shards, against their plain
+   versions on every shard of a 3×3 block mesh (corner, edge and interior
+   origins) and of 4 row stripes, each shard in a ring-1 padded buffer
+   whose ring ``parallel.halo.refresh_rings`` fills from its neighbours, as
+   the sharded runner does (held bit for bit against
+   ``pad_with_halo_1d/2d``; random bands across the seams, so the rings
+   are nonzero and ``ghost_flags`` wakes edge tiles), at the shard's global
+   origin: f32, f64 and bf16, Moore, von Neumann and a custom
+   neighbourhood, bit for bit. The shards' one step put together must
+   equal one serial fused step on the whole grid bit for bit (and, at
+   f32/f64, the plain dense step).
 4. the K1 main path at full width: ``Model(Diffusion(0.1)).execute`` of a
    16384² grid through ``SerialExecutor("pallas")``, 64 steps, f32
    substeps=8 and bf16 substeps=16; conservation checked, the launch
@@ -123,15 +134,50 @@ Phases (any failure exits non-zero, and no result line is printed):
    bit: K2 against ``SerialExecutor("pallas", substeps=8)``, K3-halo
    against ``SerialExecutor("composed", substeps=8)``, K4-halo against
    serial K4, xla against serial xla, the reference scenario against the
-   oracle. Rows: run ms (CUDA events, median of 3) and cell-updates/s, the
+   oracle, which must run the point subsystem (``impl == "point"``).
+   Then point-flow models the point subsystem refuses (65 frozen flows,
+   past ``MAX_FLOWS``, and Diffusion + Exponencial), 60×90 f64, 20 steps,
+   serially (the full-grid ``point_flow_step``) and on 2×3 (the xla step's
+   point scatter on the owning shard): ``impl == "xla"`` and bit for bit a
+   NumPy oracle with the same rounding points.
+   Rows: run ms (CUDA events, median of 3) and cell-updates/s, the
    kernel ms per call against its bound, the plain version's ms and (K2,
    K3-halo) one ``conv2d`` on the padded shard, launches per chunk, the
    exchange ms per chunk (the same run under ``halo_mode="zero"``, the JAX
    package's diagnostic), the assembly ms of the global tensors, serial K1
    beside it, and a ``torch.profiler`` view of one 2×2 run.
-7. the CLI (K1, active_fused, K4, ensemble pipeline and ``--mesh=2x2``
-   rows) and the 100×100 ``Exponencial`` reference run at f64 against the
-   port's own ``oracle.reference_run_np``.
+6f. the shard-local active path at full width, every shard on the one
+   card: ``Model(Diffusion(0.1)).execute`` of ``bench.py::_active_workload``
+   (16384², f32, activity 0.01, 0.05, 0.15, 20 steps) through
+   ``ShardMapExecutor(mesh, "active" | "active_fused")`` on 2×2 blocks and
+   on 4 row stripes, each run after a warm-up with the counts set to 0 just
+   before and read just after (K6 launches == K7 launches ==
+   ``flags_fused``, ``flags_fused + fallback_steps == steps · shards``; the
+   plain ``"active"`` launches no kernel). Gates, bit for bit: each run
+   against ``SerialExecutor`` with the same impl and against sharded
+   ``xla``; an everywhere-nonzero 16384² state on 2×2 falls back on every
+   (shard, step) and equals sharded ``xla``; a 1024² f64 state at 0.02, 12
+   steps: sharded ``"active"`` == ``"active_fused"`` == serial ``xla`` on
+   both meshes. Rows: run ms (CUDA events, median of 3), effective
+   cell-updates/s, the serial runs of the same grid, mean active fraction,
+   fallback steps, host reads a step, and K6 + K7 ms of one pass on shard
+   (1, 1) of 2×2 (stripe 1) at the run's starting state against their
+   plain versions (bit for bit) and their bound (each live tile's ring-1
+   window read and its tile written, K7 each tile read and written), the
+   runner's host split (``backend_report["host_s"]``: ring refresh, flags,
+   the count read, the passes); a ``torch.profiler`` idle share of the 2×2
+   ``"active_fused"`` run at 0.01. Then the spread: the 2×2 rows at 0.01
+   and 0.05 (both impls) and serial ``"active_fused"`` in turn,
+   ``SPREAD_ROUNDS`` rounds, each with its host split and a probe of the
+   host's time to enqueue one small op.
+7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
+   K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
+   K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
+   the CLI's scenario flags with ``--output`` (its merged file and dump
+   byte for byte the oracle's values written out), and the 100×100
+   ``Exponencial`` reference run at f64 against the port's own
+   ``oracle.reference_run_np``, through the point subsystem
+   (``impl == "point"``).
 8. the kernels line, the card line, and the last line
    ``{"ok": true, "device": {...}}``. ``chip_smoke.json`` in the output
    directory keeps every row, every kernel case and the build record.
@@ -139,8 +185,11 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -155,6 +204,7 @@ STEPS5 = 8
 STEPS = 64
 ACTIVE_STEPS = 20
 FRACS = (0.01, 0.05, 0.15)
+SPREAD_ROUNDS = 3  # phase 6f's repeated 2x2 rows at 0.01 and 0.05
 SEED = 1234
 #: H100 SXM data-sheet peaks (NVIDIA): HBM bytes/s and f32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -222,6 +272,8 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
     for s, e, name in spans:
         low = name.lower()
         kind = ("K5" if "pipeline_stencil" in low else
+                "K6" if "fused_compute" in low else
+                "K7" if "fused_scatter" in low else
                 "K2" if "fused_stencil_halo" in low else
                 "K3-halo" if "composed_halo" in low else
                 "K4-halo" if "field_stencil_halo" in low else
@@ -570,6 +622,136 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
     return main
 
 
+def sharded_active_kernel_cases(np, torch, mt, dev, record,
+                                neighborhoods) -> None:
+    """Phase 3c-halo: K6 and K7 at k=1 against their plain versions on every
+    shard of a 3x3 block mesh and of 4 row stripes, each shard in a ring-1
+    padded buffer whose ring ``refresh_rings`` filled from its neighbours
+    (mass on the seams), as the sharded runner does, at the shard's global
+    origin; the rings against ``pad_with_halo_1d/2d``; the shards' one
+    step put together against one serial fused step on the whole grid
+    (and, f32/f64, the plain dense step)."""
+    from mpi_model_tpu_torch.ops import active as act
+    from mpi_model_tpu_torch.ops import fused_active as fa
+    from mpi_model_tpu_torch.parallel import (assemble, make_mesh,
+                                              make_mesh_2d)
+    from mpi_model_tpu_torch.parallel.halo import (pad_with_halo_1d,
+                                                   pad_with_halo_2d,
+                                                   refresh_rings)
+    from mpi_model_tpu_torch.parallel.mesh import shard_tensor
+
+    meshes = {"3x3": ((96, 1152), make_mesh_2d(3, 3, devices=[dev] * 9)),
+              "stripes4": ((128, 640), make_mesh(4, devices=[dev] * 4))}
+    tile = (16, 32)
+    rate = 0.13
+    ncases = 0
+
+    def seam_state(shape, lines, columns):
+        """Zeros with random bands across the shard seams (the horizontal
+        ones on the left half, the vertical ones on the bottom half) and
+        one blob inside a shard: nonzero rings, and tiles left idle."""
+        H, W = shape
+        h, w = H // lines, W // columns
+        rng = np.random.default_rng(SEED)
+        v = np.zeros(shape)
+        band = rng.uniform(0.5, 2.0, shape) * (rng.random(shape) < 0.4)
+        for i in range(1, lines):
+            v[i * h - 3:i * h + 3, :W // 2] = band[i * h - 3:i * h + 3,
+                                                   :W // 2]
+        for j in range(1, columns):
+            v[H // 2:, j * w - 3:j * w + 3] = band[H // 2:, j * w - 3:
+                                                    j * w + 3]
+        v[5:9, 40:50] = band[5:9, 40:50] + 0.5
+        v[0, 0] = v[H - 1, W - 1] = 1.25  # the grid's corners
+        return v
+
+    def flagged(padded, values, plan):
+        tmap = act.tile_nonzero_map(values, plan)
+        flags = act.ghost_flags(padded, plan, tmap)
+        ids, count = act.compact_tile_ids(flags, plan)
+        selfnz = tmap.reshape(-1)[ids.long()].to(torch.int32)
+        return ids, count, selfnz
+
+    for mname, (shape, mesh) in meshes.items():
+        lines, columns = mesh.grid_shape
+        h, w = shape[0] // lines, shape[1] // columns
+        v_np = seam_state(shape, lines, columns)
+        plan = act.plan_for((h, w), tile=tile, max_active_frac=1.0)
+        wplan = act.plan_for(shape, tile=tile, max_active_frac=1.0)
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            dname = str(dtype).removeprefix("torch.")
+            x = torch.from_numpy(v_np).to(dev, dtype)
+            g = shard_tensor(x, mesh, h, w)
+            bufs = [[torch.nn.functional.pad(t, (1, 1, 1, 1)) for t in row]
+                    for row in g]
+            refresh_rings(bufs)
+            rings_ok = all(torch.equal(
+                bufs[i][j], pad_with_halo_1d(g, i) if columns == 1
+                else pad_with_halo_2d(g, i, j))
+                for i in range(lines) for j in range(columns))
+            check(rings_ok, f"refresh_rings disagrees with pad_with_halo on "
+                            f"{mname} {dtype}")
+            for hood, offs in neighborhoods.items():
+                ok6 = ok7 = True
+                err = 0.0
+                live = 0
+                res = [[None] * columns for _ in range(lines)]
+                for i in range(lines):
+                    for j in range(columns):
+                        p = bufs[i][j]
+                        ids, count, selfnz = flagged(p, g[i][j], plan)
+                        cnt1 = count.reshape(1).to(torch.int32)
+                        org = (i * h, j * w)
+                        upd, anyf = fa.fused_compute(
+                            p, ids, cnt1, selfnz, rate=rate, plan=plan,
+                            origin=org, global_shape=shape, offsets=offs,
+                            dtype=dtype, k=1, ring=1)
+                        want_u, want_f = fa.fused_compute_plain(
+                            p, ids, count, selfnz, rate, plan, org, shape,
+                            offs, dtype, 1, 1)
+                        n = min(max(int(count), 1), plan.capacity)
+                        live += int(count)
+                        err = max(err, float((upd[:n].double()
+                                              - want_u[:n].double())
+                                             .abs().max()))
+                        ok6 = ok6 and bool(torch.equal(upd[:n], want_u[:n])
+                                           and torch.equal(anyf, want_f))
+                        pk = fa.fused_scatter(p.clone(), upd, ids, cnt1,
+                                              plan=plan, ring=1)
+                        pp = fa.fused_scatter_plain(p.clone(), upd, ids,
+                                                    count, plan, 1)
+                        ok7 = ok7 and bool(torch.equal(pk, pp))
+                        res[i][j] = pk[1:-1, 1:-1]
+                # one serial fused step on the whole zero-padded grid
+                P = torch.nn.functional.pad(x, (1, 1, 1, 1)).contiguous()
+                ids, count, selfnz = flagged(P, x, wplan)
+                fa.fused_active_pass(P, ids, count, selfnz, rate, wplan,
+                                     (0, 0), shape, offs, dtype, k=1, ring=1)
+                torch.cuda.synchronize()
+                mosaic = bool(torch.equal(assemble(res, dev), P[1:-1, 1:-1]))
+                dense = None
+                if dtype != torch.bfloat16:
+                    dense = bool(torch.equal(
+                        P[1:-1, 1:-1], act.dense_transport_step(
+                            shape, rate, offs, (0, 0), shape, dtype)(x)))
+                ok = ok6 and ok7 and mosaic and dense is not False
+                ncases += 1
+                record(f"K6/K7 sharded {dname} {mname} {shape} k=1 {hood}: "
+                       f"live tiles {live}, max_abs_err={err:.3e} K6 "
+                       f"bitwise={ok6} K7 bitwise={ok7} mosaic==serial "
+                       f"{mosaic} ==dense {dense} {'ok' if ok else 'FAIL'}",
+                       ok)
+                check(ok, f"K6/K7 on shards disagree: {dname} {mname} "
+                          f"{hood} K6={ok6} K7={ok7} mosaic={mosaic} "
+                          f"dense={dense} err={err}")
+            del x, g, bufs
+    print(f"K6/K7 sharded: {ncases} mesh cases (3x3 blocks and 4 stripes, "
+          f"k=1, f32/f64/bf16, three neighbourhoods) bit for bit their "
+          f"plain versions on every shard, rings from refresh_rings bit for "
+          f"bit pad_with_halo's; the shards together equal one serial fused "
+          f"step bit for bit", flush=True)
+
+
 def per_call_ms(torch, fn, calls: int = 4, reps: int = 5) -> float:
     """Median device ms of one call of ``fn``, from CUDA events around
     ``calls`` back-to-back calls (so the host's work on a call overlaps the
@@ -811,17 +993,395 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
     res, rep = rmodel.execute(rspace)
     got = res.values["value"].cpu().numpy()
     ref = oracle.reference_run_np(20, 60, src=(18, 19), steps=50)
-    ok = bool((got == ref).all()) and rep.comm_size == 6
+    ok = (bool((got == ref).all()) and rep.comm_size == 6
+          and rep.impl == "point")
     out["reference_scenario"] = {"comm_size": rep.comm_size,
+                                 "impl": rep.impl,
                                  "bitwise_oracle": ok,
                                  "conservation_error":
                                      rep.conservation_error(),
                                  "devices": len(rmodel._default_executor
                                                 .mesh.distinct_devices())}
     print(f"ModelRectangular reference scenario 20x60 on 2x3, f64, 50 "
-          f"steps: comm_size={rep.comm_size}, bitwise the oracle: {ok}, "
-          f"|d|={rep.conservation_error():.3e}", flush=True)
-    check(ok, "the rectangular reference scenario disagrees with the oracle")
+          f"steps: impl={rep.impl} comm_size={rep.comm_size}, bitwise the "
+          f"oracle: {ok}, |d|={rep.conservation_error():.3e}", flush=True)
+    check(ok, "the rectangular reference scenario disagrees with the oracle "
+              f"or did not run the point subsystem (impl={rep.impl!r})")
+    return out
+
+
+def point_flows_off_the_subsystem(np, torch, mt, dev, oracle) -> dict:
+    """Phase 6e-point: point-flow models that the point subsystem refuses
+    still run the full-grid steps on the card: 65 frozen flows (past
+    ``MAX_FLOWS``) and Diffusion + Exponencial, f64, serially (the
+    full-grid ``point_flow_step``) and on a 2x3 mesh (the xla pad-gather
+    step, the point scattered on the owning shard), each reporting
+    ``"xla"`` and bit for bit a NumPy oracle of the same rounding points:
+    one ``point_flow_step_np`` after another (the serial step), or the
+    amount added into the outflow before one ``transport_np`` (the sharded
+    step). The 65 sources sit 3 apart (no cell neighbours two), some on the
+    seams and one in a grid corner."""
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    H, W, steps, rate = 60, 90, 20, 0.1
+    rng = np.random.default_rng(SEED)
+    lattice = [(x, y) for x in range(0, H, 3) for y in range(0, W, 3)]
+    must = [(0, 0), (30, 30), (30, 60), (27, 87)]
+    rest = [q for q in lattice if q not in must]
+    picks = [rest[k] for k in rng.choice(len(rest), 65 - len(must),
+                                         replace=False)]
+    sources = [(x, y, float(a)) for (x, y), a in zip(
+        must + picks, rng.uniform(0.5, 2.0, 65))]
+    base = rng.uniform(0.5, 2.0, (H, W))
+
+    def flow(x, y, a):
+        return mt.Exponencial(mt.Cell(x, y, mt.Attribute(99, a)), rate)
+
+    def serial_oracle(v, diffusion):
+        for _ in range(steps):
+            if diffusion:
+                v = oracle.dense_flow_step_np(v, rate)
+            for x, y, a in sources_of[diffusion]:
+                v = oracle.point_flow_step_np(v, x, y, rate * a)
+        return v
+
+    def sharded_oracle(v, diffusion):
+        for _ in range(steps):
+            o = rate * v if diffusion else np.zeros_like(v)
+            for x, y, a in sources_of[diffusion]:
+                o[x, y] += rate * a
+            v = oracle.transport_np(v, o)
+        return v
+
+    sources_of = {False: sources, True: [(19, 33, 2.2)]}
+    models = {
+        "65 frozen flows": (mt.Model([flow(*q) for q in sources]), False),
+        "Diffusion + Exponencial": (mt.Model(
+            [mt.Diffusion(rate)] + [flow(*q) for q in sources_of[True]]),
+            True),
+    }
+    out = {}
+    space = mt.CellularSpace.create(H, W, 0.0, dtype="float64", device=dev)
+    space = space.with_values({"value": torch.from_numpy(base).to(dev)})
+    for name, (model, diffusion) in models.items():
+        res = {}
+        for where, ex in (("serial", mt.SerialExecutor("xla")),
+                          ("2x3", ShardMapExecutor(
+                              make_mesh_2d(2, 3, devices=[dev] * 6),
+                              "xla"))):
+            r, rep = model.execute(space, ex, steps=steps)
+            got = r.values["value"].cpu().numpy()
+            want = (serial_oracle if where == "serial"
+                    else sharded_oracle)(base, diffusion)
+            ok = rep.impl == "xla" and bool((got == want).all())
+            res[where] = {"impl": rep.impl, "bitwise_oracle": ok,
+                          "max_abs_err": float(abs(got - want).max())}
+            print(f"point flows off the subsystem: {name} {where} {H}x{W} "
+                  f"f64 {steps} steps: impl={rep.impl}, bitwise the oracle: "
+                  f"{ok}", flush=True)
+            check(ok, f"{name} on {where}: impl={rep.impl!r}, max_abs_err="
+                      f"{res[where]['max_abs_err']}")
+        out[name] = res
+    return out
+
+
+def sharded_active_path(np, torch, mt, dev, reset_counts,
+                        kernel_launches) -> dict:
+    """Phase 6f: the shard-local active path at full width on the one card
+    (see the module docstring). Returns its rows, the K6/K7 per-pass times
+    on one shard and the gates."""
+    from mpi_model_tpu_torch.ops import active as act
+    from mpi_model_tpu_torch.ops import fused_active as fa
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor, make_mesh,
+                                              make_mesh_2d)
+    from mpi_model_tpu_torch.parallel.halo import (pad_with_halo_1d,
+                                                   pad_with_halo_2d,
+                                                   refresh_rings)
+    from mpi_model_tpu_torch.parallel.mesh import shard_tensor
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+
+    out = {"runs": [], "k67": {}, "serial": {}, "gates": {}, "spread": []}
+    model = mt.Model(mt.Diffusion(0.1))
+    steps = ACTIVE_STEPS
+
+    def mesh_of(name):
+        return (make_mesh_2d(2, 2, devices=[dev] * 4) if name == "2x2"
+                else make_mesh(4, devices=[dev] * 4))
+
+    def run_ms(ex, space, n):
+        """(median, all) of three runs' CUDA-event ms."""
+        ms = timed_ms(torch, lambda: ex.run_model(model, space, n), reps=3)
+        return statistics.median(ms), ms
+
+    def k67_on_shard(space, mesh_name, frac):
+        """K6 + K7 of one pass on shard (1, 1) of 2x2 (stripe 1 of 4) at the
+        run's starting state, in its ring-1 padded buffer with the ring
+        refreshed from its neighbours as the runner does (held against
+        ``pad_with_halo``): against the plain versions, then timed."""
+        mesh = mesh_of(mesh_name)
+        lines, columns = mesh.grid_shape
+        h, w = N // lines, N // columns
+        i, j = 1, (1 if columns > 1 else 0)
+        g = shard_tensor(space.values["value"], mesh, h, w)
+        bufs = [[torch.nn.functional.pad(t, (1, 1, 1, 1)) for t in row]
+                for row in g]
+        refresh_rings(bufs)
+        p = bufs[i][j]
+        check(torch.equal(p, pad_with_halo_2d(g, i, j) if columns > 1
+                          else pad_with_halo_1d(g, i)),
+              f"refresh_rings disagrees with pad_with_halo on {mesh_name}")
+        plan = act.plan_for((h, w))
+        tmap = act.tile_nonzero_map(g[i][j], plan)
+        flags = act.ghost_flags(p, plan, tmap)
+        ids, count = act.compact_tile_ids(flags, plan)
+        cnt1 = count.reshape(1).to(torch.int32)
+        # as the runner: K6 reads selfnz only with taps (k=1 has none)
+        selfnz = torch.zeros(plan.capacity, dtype=torch.int32, device=dev)
+        del g, bufs
+        org = (i * h, j * w)
+        kw = dict(rate=0.1, plan=plan, origin=org, global_shape=(N, N),
+                  offsets=MOORE_OFFSETS, dtype=torch.float32, k=1, ring=1)
+        upd = torch.empty((plan.capacity,) + plan.tile, dtype=torch.float32,
+                          device=dev)
+        anyf = torch.empty(plan.capacity, dtype=torch.int32, device=dev)
+        upd, anyf = fa.fused_compute(p, ids, cnt1, selfnz, upd=upd,
+                                     anyf=anyf, **kw)
+        want_u, want_f = fa.fused_compute_plain(
+            p, ids, count, selfnz, 0.1, plan, org, (N, N), MOORE_OFFSETS,
+            torch.float32, 1, 1)
+        n = min(max(int(count), 1), plan.capacity)
+        err6 = float((upd[:n] - want_u[:n]).abs().max())
+        bit6 = bool(torch.equal(upd[:n], want_u[:n])
+                    and torch.equal(anyf, want_f))
+        pk = fa.fused_scatter(p.clone(), upd, ids, cnt1, plan=plan, ring=1)
+        pp = fa.fused_scatter_plain(p.clone(), upd, ids, count, plan, 1)
+        bit7 = bool(torch.equal(pk, pp))
+        del pk, pp, want_u, want_f
+        check(bit6 and bit7, f"K6/K7 disagree on the {mesh_name} shard at "
+                             f"frac={frac}: K6 {bit6} K7 {bit7} err={err6}")
+        # four launches back to back a timing, so the host's enqueue of
+        # one overlaps the device's run of the one before
+        k6 = per_call_ms(torch, lambda: fa.fused_compute(
+            p, ids, cnt1, selfnz, upd=upd, anyf=anyf, **kw))
+        k7 = per_call_ms(torch, lambda: fa.fused_scatter(
+            p, upd, ids, cnt1, plan=plan, ring=1))
+        p6 = statistics.median(timed_ms(torch, lambda: fa.fused_compute_plain(
+            p, ids, count, selfnz, 0.1, plan, org, (N, N), MOORE_OFFSETS,
+            torch.float32, 1, 1), reps=3))
+        p7 = statistics.median(timed_ms(torch, lambda: fa.fused_scatter_plain(
+            p, upd, ids, count, plan, 1), reps=3))
+        # the least time: each live tile's ring-1 window read once and its
+        # tile written once (K6), each tile read and written once (K7)
+        th, tw = plan.tile
+        b6 = (int(count) * ((th + 2) * (tw + 2) + th * tw) * 4
+              / HBM_BYTES_PER_S * 1e3)
+        b7 = 2 * int(count) * th * tw * 4 / HBM_BYTES_PER_S * 1e3
+        return {"shard": [h, w], "origin": list(org), "tile": [th, tw],
+                "active_tiles": int(count), "k6_ms": k6, "k7_ms": k7,
+                "k6_plain_ms": p6, "k7_plain_ms": p7, "k6_bound_ms": b6,
+                "k7_bound_ms": b7, "k6_max_abs_err": err6,
+                "k6_bitwise": bit6, "k7_bitwise": bit7}
+
+    for frac in FRACS:
+        v_np = workload(np, N, N, frac, SEED)
+        space = mt.CellularSpace.create(N, N, 0.0, dtype="float32", device=dev)
+        space = space.with_values({"value": torch.from_numpy(v_np).to(dev)})
+        del v_np
+        serial = {}
+        for impl in ("active", "active_fused"):
+            sx = mt.SerialExecutor(impl)
+            res, _ = model.execute(space, sx, steps=steps)
+            ms, _ = run_ms(sx, space, steps)
+            serial[impl] = res.values["value"]
+            out["serial"][f"{impl} {frac}"] = ms
+            print(f"serial {impl} {N}x{N} frac={frac}: run {ms:.3f} ms "
+                  f"({N * N * steps / (ms / 1e3):.4e} effective "
+                  f"cell-updates/s)", flush=True)
+        for mesh_name in ("2x2", "stripes4"):
+            mesh = mesh_of(mesh_name)
+            want_x = ShardMapExecutor(mesh, "xla").run_model(
+                model, space, steps)["value"]
+            for impl in ("active", "active_fused"):
+                ex = ShardMapExecutor(mesh, impl)
+                ex.run_model(model, space, 2)  # warm-up (and first build)
+                torch.cuda.synchronize()
+                reset_counts()
+                res, rep = model.execute(space, ex, steps=steps)
+                ran = kernel_launches()
+                br = rep.backend_report
+                got = res.values["value"]
+                check(rep.impl == impl and br["impl"] == impl,
+                      f"sharded {impl} ran {rep.impl!r}")
+                check(bool(torch.isfinite(got).all()),
+                      f"sharded {impl}: not finite")
+                same_s = bool(torch.equal(got, serial[impl]))
+                same_x = bool(torch.equal(got, want_x))
+                check(same_s and same_x,
+                      f"sharded {impl} {mesh_name} frac={frac}: bitwise "
+                      f"serial {same_s}, bitwise sharded xla {same_x}")
+                shards = br["shards"]
+                if impl == "active_fused":
+                    ff = br["flags_fused"]
+                    check(ran["fused_compute"] == ff
+                          and ran["fused_scatter"] == ff
+                          and sum(ran.values()) == 2 * ff,
+                          f"K6/K7 launches {ran} != flags_fused {ff}")
+                    check(ff + br["fallback_steps"] == steps * shards,
+                          "flags_fused + fallback_steps != steps x shards")
+                    check(ff > 0, "no fused pass ran")
+                else:
+                    check(sum(ran.values()) == 0,
+                          f"sharded active launched kernels: {ran}")
+                del res, got
+                med, all_ms = run_ms(ex, space, steps)
+                row = {"frac": frac, "mesh": mesh_name, "impl": impl,
+                       "steps": steps, "shards": shards,
+                       "run_ms_median": med, "run_ms_all": all_ms,
+                       "cell_updates_per_s": N * N * steps / (med / 1e3),
+                       "serial_active_fused_run_ms":
+                           out["serial"][f"active_fused {frac}"],
+                       "serial_same_impl_run_ms":
+                           out["serial"][f"{impl} {frac}"],
+                       "mean_active_fraction": br["mean_active_fraction"],
+                       "fallback_steps": br["fallback_steps"],
+                       "flags_fused": br.get("flags_fused"),
+                       "host_syncs_per_step": br["host_syncs"] / steps,
+                       "host_split_ms": {k: t * 1e3 for k, t in
+                                         br["host_s"].items()},
+                       "launches": ran,
+                       "conservation_error": rep.conservation_error(),
+                       "bitwise_serial": same_s, "bitwise_sharded_xla":
+                           same_x, "backend_report": br}
+                if impl == "active_fused":
+                    kt = k67_on_shard(space, mesh_name, frac)
+                    out["k67"][f"{mesh_name} {frac}"] = kt
+                    row.update(k6_ms=kt["k6_ms"], k7_ms=kt["k7_ms"],
+                               k67_bound_ms=kt["k6_bound_ms"]
+                               + kt["k7_bound_ms"],
+                               pass_ms=med / steps / shards)
+                    if mesh_name == "2x2" and frac == FRACS[0]:
+                        row["profile"] = profile_dispatch(
+                            torch, lambda: ex.run_model(model, space, steps),
+                            med)
+                out["runs"].append(row)
+                extra = (f", K6+K7 a pass on one shard {row['k6_ms']:.4f}+"
+                         f"{row['k7_ms']:.4f} ms (bound "
+                         f"{row['k67_bound_ms']:.4f}; run ms a shard-pass "
+                         f"{row['pass_ms']:.4f})" if "k6_ms" in row else "")
+                print(f"sharded {impl} {mesh_name} {N}x{N} frac={frac}: "
+                      f"run {med:.3f} ms ({med / row['serial_active_fused_run_ms']:.3f}x "
+                      f"serial active_fused), "
+                      f"{row['cell_updates_per_s']:.4e} effective "
+                      f"cell-updates/s, mean active "
+                      f"{row['mean_active_fraction']:.4f}, fallback "
+                      f"{row['fallback_steps']}, flags_fused "
+                      f"{row['flags_fused']}, host syncs a step "
+                      f"{row['host_syncs_per_step']:.1f}, bitwise serial "
+                      f"and sharded xla{extra}", flush=True)
+                if "profile" in row:
+                    print_profile(f"sharded {impl} {mesh_name} frac={frac} "
+                                  "run", row["profile"])
+            del want_x
+            torch.cuda.empty_cache()
+        del serial, space
+        torch.cuda.empty_cache()
+
+    # the spread: the 2x2 rows at 0.01 and 0.05 and their serial column in
+    # turn, SPREAD_ROUNDS rounds in this one call; each timed run's host
+    # split (backend_report["host_s"]) beside its CUDA-event time, and a
+    # probe of the host's cost to enqueue one small op, each round
+    spaces = {}
+    for frac in FRACS[:2]:
+        v_np = workload(np, N, N, frac, SEED)
+        spaces[frac] = mt.CellularSpace.create(
+            N, N, 0.0, dtype="float32", device=dev).with_values(
+            {"value": torch.from_numpy(v_np).to(dev)})
+        del v_np
+    mesh = mesh_of("2x2")
+    exs = {impl: ShardMapExecutor(mesh, impl)
+           for impl in ("active", "active_fused")}
+    sx = mt.SerialExecutor("active_fused")
+    probe = torch.zeros(1, device=dev)
+    for rnd in range(SPREAD_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            probe.add_(1.0)
+        enqueue_us = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+        for frac, space in spaces.items():
+            serial_ms = statistics.median(timed_ms(
+                torch, lambda: sx.run_model(model, space, steps), reps=3))
+            for impl, ex in exs.items():
+                runs = []
+
+                def one():
+                    ex.run_model(model, space, steps)
+                    runs.append(dict(ex.last_backend_report["host_s"]))
+
+                ms = timed_ms(torch, one, reps=3)
+                runs = runs[1:]  # the warm-up's split goes
+                med = statistics.median(ms)
+                split = {k: statistics.median(r[k] * 1e3 for r in runs)
+                         for k in runs[0]}
+                row = {"round": rnd, "frac": frac, "mesh": "2x2",
+                       "impl": impl, "run_ms_all": ms, "run_ms_median": med,
+                       "serial_active_fused_run_ms": serial_ms,
+                       "x_serial": med / serial_ms,
+                       "host_split_ms_median": split,
+                       "host_enqueue_us_per_op": enqueue_us}
+                out["spread"].append(row)
+                print(f"spread round {rnd} sharded {impl} 2x2 frac={frac}: "
+                      f"run {med:.3f} ms ({med / serial_ms:.3f}x serial "
+                      f"active_fused {serial_ms:.3f} ms); host ms refresh "
+                      f"{split['refresh']:.3f}, flags {split['flags']:.3f}, "
+                      f"count read {split['count_read']:.3f}, passes "
+                      f"{split['passes']:.3f}; host enqueue "
+                      f"{enqueue_us:.2f} us/op", flush=True)
+    del spaces, exs, sx, probe
+    torch.cuda.empty_cache()
+
+    # gate: an everywhere-nonzero state falls back on every (shard, step)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
+    space = mt.CellularSpace.create(N, N, 0.0, dtype="float32", device=dev).with_values(
+        {"value": x})
+    mesh = mesh_of("2x2")
+    want_x = ShardMapExecutor(mesh, "xla").run_model(model, space, 3)["value"]
+    for impl in ("active", "active_fused"):
+        reset_counts()
+        ex = ShardMapExecutor(mesh, impl)
+        got = ex.run_model(model, space, 3)["value"]
+        br = ex.last_backend_report
+        ran = kernel_launches()
+        ok = (br["fallback_steps"] == 3 * br["shards"]
+              and sum(ran.values()) == 0 and bool(torch.equal(got, want_x)))
+        out["gates"][f"dense fallback {impl}"] = ok
+        print(f"sharded fallback gate {N}x{N} 2x2 {impl}: fallback_steps="
+              f"{br['fallback_steps']}/{3 * br['shards']}, launches "
+              f"{sum(ran.values())}, bitwise sharded xla: {ok}", flush=True)
+        check(ok, f"sharded {impl} fallback gate failed")
+        del got
+    del x, space, want_x
+    torch.cuda.empty_cache()
+    # gate: f64, 1024², activity 0.02, 12 steps
+    v64 = workload(np, 1024, 1024, 0.02, SEED).astype(np.float64)
+    space = mt.CellularSpace.create(1024, 1024, 0.0, dtype="float64",
+                                    device=dev)
+    space = space.with_values({"value": torch.from_numpy(v64).to(dev)})
+    want = model.execute(space, mt.SerialExecutor("xla"),
+                         steps=12)[0].values["value"]
+    for mesh_name in ("2x2", "stripes4"):
+        mesh = mesh_of(mesh_name)
+        got = {impl: ShardMapExecutor(mesh, impl).run_model(
+            model, space, 12)["value"] for impl in ("active", "active_fused")}
+        ok = (torch.equal(got["active"], want)
+              and torch.equal(got["active_fused"], want))
+        out["gates"][f"f64 {mesh_name}"] = ok
+        print(f"sharded f64 gate 1024x1024 {mesh_name} frac=0.02, 12 steps: "
+              f"active == active_fused == serial xla bitwise: {ok}",
+              flush=True)
+        check(ok, f"sharded f64 gate failed on {mesh_name}")
     return out
 
 
@@ -1083,6 +1643,9 @@ def main() -> int:
                 for c in cases)
     print(f"K6/K7: {ncases + 2} cases agree with the plain versions, "
           f"{n_bit} of them bit for bit", flush=True)
+
+    # -- 3c-halo. K6 and K7 on ghost-padded shards -----------------------------
+    sharded_active_kernel_cases(np, torch, mt, dev, record, neighborhoods)
 
     # -- 3d. K4 against its plain version -------------------------------------
     flow_sets = field_flow_sets(mt, torch)
@@ -2002,6 +2565,13 @@ def main() -> int:
     # -- 6e. the sharded main path at full width -------------------------------
     sharded = sharded_main_path(np, torch, mt, dev, gen, reset_counts,
                                 kernel_launches, oracle)
+    sharded["point_off_the_subsystem"] = point_flows_off_the_subsystem(
+        np, torch, mt, dev, oracle)
+    torch.cuda.empty_cache()
+
+    # -- 6f. the shard-local active path at full width ------------------------
+    sharded_active = sharded_active_path(np, torch, mt, dev, reset_counts,
+                                         kernel_launches)
     torch.cuda.empty_cache()
 
     # -- 7. CLI and the reference run ------------------------------------------
@@ -2025,6 +2595,33 @@ def main() -> int:
                    "--mesh=2x2", "--impl=pallas", "--halo-depth=8",
                    "--steps=8", "--json"])
     check(rc == 0, "the sharded (K2) CLI run failed")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}",
+                       f"--dimy={N}", "--mesh=2x2", "--impl=active_fused",
+                       "--blob=0.05", "--steps=8", "--json"])
+    print(buf.getvalue(), end="", flush=True)
+    cli_row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    br = cli_row["backend_report"]
+    check(rc == 0 and cli_row["impl"] == "active_fused"
+          and br["flags_fused"] > 0
+          and cli_row["kernel_launches"] == 2 * br["flags_fused"],
+          f"the sharded active_fused CLI run failed: {cli_row}")
+    ref_dir = Path(__file__).resolve().parent / "chiprun_out" / "cli_output"
+    shutil.rmtree(ref_dir, ignore_errors=True)
+    rc = cli_main(["run", "--flow=exponencial", "--source=19,3",
+                   "--value=2.2", "--rate=0.1", "--steps=-1",
+                   "--dtype=float64", f"--output={ref_dir}", "--json"])
+    check(rc == 0, "the reference scenario's CLI run failed")
+    want = oracle.reference_run_np(steps=50)
+    want_bytes = "".join(f"{x}\t{y}\t{float(want[x, y]):.6g}\n"
+                         for x in range(100) for y in range(100)).encode()
+    merged = [f for f in ref_dir.iterdir() if f.name.startswith("output ")]
+    ok = (len(merged) == 1 and merged[0].read_bytes() == want_bytes
+          and (ref_dir / "comm_rank0.txt").read_bytes() == want_bytes)
+    print(f"CLI reference scenario --output: merged file and dump equal the "
+          f"oracle's values written out: {ok}", flush=True)
+    check(ok, "the CLI's --output files disagree with the oracle")
 
     for steps in (1, 50):
         space = mt.CellularSpace.create(100, 100, 1.0, dtype="float64")
@@ -2040,6 +2637,8 @@ def main() -> int:
               f"bitwise={bool((got == want).all())}", flush=True)
         check(diff <= 1e-12 and abs(total - 10000.0) <= 1e-9,
               "reference run disagrees with the oracle")
+        check(rep.impl == "point", f"the reference run ran {rep.impl!r}, "
+                                   "not the point subsystem")
         if steps == 1:
             check(abs(got[19, 3] - 0.78) <= 1e-12, "source cell is not 0.78")
 
@@ -2172,6 +2771,29 @@ def main() -> int:
             "shape": c["shape"], "dtype": "float32",
             "main_path": {k: v for k, v in run.items() if k != "profile"},
         })
+    k67_row = next(r for r in sharded_active["runs"] if r["frac"] == 0.05
+                   and r["mesh"] == "2x2" and r["impl"] == "active_fused")
+    kt = sharded_active["k67"]["2x2 0.05"]
+    main_row = {k: v for k, v in k67_row.items() if k != "profile"}
+    for kname, fn, rep_line, key in (
+            ("K6", "fused_compute", "mpi_model_tpu/ops/pallas_active.py:293",
+             "k6"),
+            ("K7", "fused_scatter", "mpi_model_tpu/ops/pallas_active.py:343",
+             "k7")):
+        entries.append({
+            "name": f"{kname} fused_active sharded float32",
+            "route": "cuda",
+            "source": "mpi_model_tpu_torch/csrc/fused_active.cu",
+            "replaces": rep_line,
+            "launches": k67_row["launches"][fn],
+            "max_abs_err": kt["k6_max_abs_err"] if key == "k6" else 0.0,
+            "ms": kt[f"{key}_ms"], "plain_ms": kt[f"{key}_plain_ms"],
+            "bound_ms": kt[f"{key}_bound_ms"], "bound_by": "bytes",
+            "library_ms": None,
+            "shape": kt["shard"], "dtype": "float32", "k": 1, "frac": 0.05,
+            "origin": kt["origin"], "active_tiles": kt["active_tiles"],
+            "main_path": main_row,
+        })
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2185,6 +2807,7 @@ def main() -> int:
          "k5_times": {f"{d}/ns={n}": v for (d, n), v in k5_time.items()},
          "count_read_us": sync_us,
          "sharded": sharded, "halo_main_shard_err": halo_err,
+         "sharded_active": sharded_active,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

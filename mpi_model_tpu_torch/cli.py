@@ -13,8 +13,19 @@
         --dimy=16384 --mesh=2x2 --impl=pallas --halo-depth=8 --json
     python -m mpi_model_tpu_torch.cli run --rectangular=2x3 --dimx=20 \
         --dimy=60 --owner-of=18,19 --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \
+        --dimy=16384 --mesh=2x2 --impl=active_fused --blob=0.05 --json
+    python -m mpi_model_tpu_torch.cli run --flow=exponencial --source=19,3 \
+        --value=2.2 --rate=0.1 --steps=-1 --dtype=float64 --output=DIR
 
-Runs on the card unless ``--device=cpu`` is given. Prints one row: the impl
+Runs on the card unless ``--device=cpu`` is given. The scenario flags are
+the JAX package's: ``--source=X,Y``, ``--value`` (the point source's frozen
+value) and ``--rate`` for ``--flow=exponencial`` (``--rate`` also sets every
+diffusion rate), ``--time`` and ``--time-step`` for the model's horizon
+(``--steps=-1`` runs ``time/time_step`` steps), and ``--output=DIR``, which
+writes the per-rank dumps ``comm_rank{r}.txt`` and the merged ``output
+<timestamp>.txt`` (row stripes over the run's ranks; ``--rectangular``: the
+block map). Prints one row: the impl
 that actually ran, the kernel launch count, the totals, whether mass was
 conserved, the wall time and the executor's ``backend_report`` (the
 composed k, the active engine's fallback steps, mean active fraction and
@@ -38,6 +49,9 @@ the card every mesh position is a card, round-robin over the visible cards
 The sharded row carries ``comm_size``, ``mesh`` (lines, columns and the
 number of distinct devices), ``impl``, ``backend_report`` and
 ``kernel_launches``; ``--owner-of=X,Y`` adds the block owner of a cell.
+``--mesh=LxC --impl=active|active_fused`` runs the shard-local active
+engines; their ``backend_report`` carries the fallback steps, the mean
+active fraction, ``flags_fused`` and the host reads.
 Exit status 1 when conservation fails.
 """
 
@@ -56,22 +70,26 @@ import torch
 from . import (Attribute, Cell, CellularSpace, Coupled, Diffusion, Exponencial,
                Model, ModelRectangular, SerialExecutor)
 
-RATE = 0.1  # the JAX package's --rate default
-
 
 def build_flows(args):
     """The run's flows and the space's initial values (``--init`` per
     channel), as the JAX package's CLI builds them."""
     if args.flow == "exponencial":
-        # the reference's live scenario: 0.1 * 2.2 out of (19, 3) per step
-        return Exponencial(Cell(19, 3, Attribute(99, 2.2)), RATE), args.init
+        # the reference's live scenario by default: 0.1 * 2.2 out of
+        # (19, 3) per step
+        try:
+            sx, sy = (int(v) for v in args.source.split(","))
+        except ValueError:
+            raise SystemExit(f"--source={args.source!r} is not X,Y")
+        return (Exponencial(Cell(sx, sy, Attribute(99, args.value)),
+                            args.rate), args.init)
     if args.flow == "diffusion":
-        return Diffusion(RATE), args.init
+        return Diffusion(args.rate), args.init
     # N diffusing channels chained by coupled flows: channel i sheds mass
     # modulated by channel i+1
     names = [f"c{i}" for i in range(args.channels)]
-    flows = [Diffusion(RATE, attr=nm) for nm in names]
-    flows += [Coupled(flow_rate=RATE / 2, attr=names[i],
+    flows = [Diffusion(args.rate, attr=nm) for nm in names]
+    flows += [Coupled(flow_rate=args.rate / 2, attr=names[i],
                       modulator=names[i + 1])
               for i in range(len(names) - 1)]
     return flows, {nm: args.init for nm in names}
@@ -83,6 +101,10 @@ def check_ensemble_flags(args) -> None:
     if args.ensemble is not None:
         if args.ensemble < 1:
             raise SystemExit(f"--ensemble={args.ensemble} needs B >= 1")
+        if args.output is not None:
+            raise SystemExit(
+                "--output writes one scenario's dump; it does not "
+                "compose with --ensemble")
         if args.impl != "auto":
             raise SystemExit(
                 "--impl selects the single-run kernel; ensemble runs "
@@ -179,7 +201,7 @@ def run_ensemble_cli(args, space, model) -> int:
     from .models.model import kernel_launches
 
     B = args.ensemble
-    steps = args.steps
+    steps = args.steps if args.steps is not None else model.num_steps
     svc = EnsembleService(
         model, steps=steps, impl=args.ensemble_impl,
         substeps=args.substeps, buckets=buckets_for(B),
@@ -261,11 +283,12 @@ def cmd_run(args) -> int:
             device=space.device, dtype=space.dtype)})
     if args.rectangular is not None:
         lines, columns = parse_grid2(args.rectangular, "--rectangular")
-        model = ModelRectangular(flow, lines=lines, columns=columns,
+        model = ModelRectangular(flow, args.time, args.time_step,
+                                 lines=lines, columns=columns,
                                  step_impl=args.impl,
                                  halo_depth=args.halo_depth)
     else:
-        model = Model(flow)
+        model = Model(flow, args.time, args.time_step)
     if args.ensemble is not None:
         return run_ensemble_cli(args, space, model)
     if sharded:
@@ -284,6 +307,16 @@ def cmd_run(args) -> int:
     err = report.conservation_error()
     thresh = model.conservation_threshold(
         space, initial_totals=report.initial_total)
+    if args.output:
+        if args.rectangular is not None:
+            # per-block dumps and the merge, following the executed mesh
+            merged = model.write_output(args.output, out)
+        else:
+            from .io import write_output
+
+            merged = write_output(args.output, out,
+                                  comm_size=max(report.comm_size, 1))
+        print(f"output written to {merged}", file=sys.stderr)
     row = {
         "backend": "sharded" if sharded else "serial",
         "device": str(space.device),
@@ -352,7 +385,16 @@ def main(argv: Optional[list[str]] = None) -> int:
     run.add_argument("--dimx", type=int, default=100)
     run.add_argument("--dimy", type=int, default=100)
     run.add_argument("--init", type=float, default=1.0)
-    run.add_argument("--steps", type=int, default=1)
+    run.add_argument("--source", default="19,3",
+                     help="point-flow source cell x,y")
+    run.add_argument("--rate", type=float, default=0.1)
+    run.add_argument("--value", type=float, default=2.2,
+                     help="frozen snapshot value of the point source")
+    run.add_argument("--time", type=float, default=10.0)
+    run.add_argument("--time-step", type=float, default=0.2)
+    run.add_argument("--steps", type=int, default=1,
+                     help="step count (default 1 = the reference's live "
+                     "behavior; pass --steps=-1 for time/time_step)")
     run.add_argument("--dtype", default="float32",
                      choices=("float32", "float64", "bfloat16"))
     run.add_argument("--impl", default="auto",
@@ -397,8 +439,17 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "per d steps")
     run.add_argument("--device", default="cuda",
                      help="torch device (default: the card)")
+    run.add_argument("--output", default=None,
+                     help="write the reference-parity per-rank dump + "
+                     "merged output file to this directory")
     run.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
+    if args.steps == -1:
+        args.steps = None  # -1 = the time/time_step schedule
+    elif args.steps < -1:
+        raise SystemExit(
+            f"--steps={args.steps} is invalid: pass a non-negative step "
+            "count or -1 for the time/time_step schedule")
     return cmd_run(args)
 
 

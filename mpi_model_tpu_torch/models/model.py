@@ -51,6 +51,7 @@ from ..ops.fused_active import FusedActiveStep, build_fused_runner, \
     choose_fused_k, pass_count
 from ..ops.fused_stencil import KERNEL_DTYPES, PallasDiffusionStep, \
     check_nsteps, ghost_depth, resolve_block
+from ..ops.point_kernel import build_point_plans, serial_point_runner
 from ..ops.stencil import neighbor_counts, point_flow_step, transport
 
 Values = dict[str, torch.Tensor]
@@ -153,16 +154,27 @@ class SerialExecutor:
         self.last_backend_report = None
         self.last_dirty_tiles = None
         values = dict(space.values)
-        # all-point-flow models: the point scatter per step, plain ops
+        # all-point-flow models step only the involved cells (one gather
+        # and one scatter a run, bitwise the full-grid path) when
+        # build_point_plans admits them; otherwise the step the impl asks
         if (self.step_impl in ("xla", "auto", "active", "active_fused")
                 and num_steps > 0
                 and model.flows
                 and all(isinstance(f, PointFlow) for f in model.flows)):
-            step = model.make_step(space, impl="xla")
-            self.last_impl = "point"
-            for _ in range(num_steps):
-                values = step(values)
-            return values
+            key = ("pointmini", space.shape, space.global_shape,
+                   (space.x_init, space.y_init), str(space.dtype),
+                   model.offsets,
+                   tuple(f.fingerprint() for f in model.flows))
+            runner = self._cache.get(key)
+            if runner is None:
+                plans = build_point_plans(model.flows, space, model.offsets)
+                # False caches the "ineligible" verdict
+                runner = (serial_point_runner(plans, space.dtype)
+                          if plans is not None else False)
+                self._cache[key] = runner
+            if runner:
+                self.last_impl = "point"
+                return runner(values, num_steps)
 
         if self.step_impl in ("active", "active_fused") and num_steps > 0:
             live = self._amortized_live(model, space)
@@ -545,8 +557,9 @@ class Model:
                     f"flows={[type(f).__name__ for f in self.flows]}, "
                     f"is_partition={space.is_partition}, "
                     f"dtype={space.dtype}, substeps={substeps}. Use "
-                    "impl='xla'/'auto' (sharded composed runs are not "
-                    "ported yet; see ROADMAP.md).")
+                    "impl='xla'/'auto', or ShardMapExecutor("
+                    "step_impl='composed', halo_depth=k) for sharded "
+                    "runs.")
             composed_k = choose_k(substeps, shape, space.dtype)
             composed_passes = substeps // composed_k
             if composed_k == 1 and substeps > 1:
@@ -625,8 +638,10 @@ class Model:
                     f"is_partition={space.is_partition}, "
                     f"dtype={space.dtype}, "
                     f"substeps={substeps}. Use impl='xla' "
-                    "or 'auto' (sharded runs are not ported yet; see "
-                    "ROADMAP.md).")
+                    "or 'auto'; for sharded DIFFUSION models use "
+                    "ShardMapExecutor(mesh, step_impl='pallas') — the "
+                    "per-shard halo kernel — or halo_depth>1; other "
+                    "sharded flows run the XLA shard step.")
             if (impl == "auto" and eligible
                     and substeps > ghost_depth(shape, space.dtype)):
                 eligible = False  # a static shape rule, not a probe

@@ -25,8 +25,12 @@ skipped tile keeps it, while the dense step gives ``+0.0``: equal under
   capacity or the activity threshold the engine takes the dense step that
   same step, never a truncated set.
 
-``ghost_flags``, ``dense_from_ghost_padded`` and traced per-lane rates serve
-the sharded and ensemble paths, which are not ported yet.
+``ghost_flags`` and ``dense_from_ghost_padded`` serve the sharded path
+(``parallel.executors.ShardMapExecutor`` with ``step_impl="active"`` or
+``"active_fused"``): a shard's padded state carries its neighbours' values
+in a one-cell ring, the ring wakes the edge tiles one step before flux
+arrives, and a shard above the threshold takes the dense step on the same
+ring.
 """
 
 from __future__ import annotations
@@ -118,6 +122,37 @@ def dilate_tile_map(tmap: torch.Tensor) -> torch.Tensor:
         for dy in (-1, 0, 1):
             out = out | p[1 + dx:1 + dx + gi, 1 + dy:1 + dy + gj]
     return out.bool()
+
+
+def ghost_flags(padded: torch.Tensor, plan: ActivePlan,
+                tmap: torch.Tensor) -> torch.Tensor:
+    """A shard's whole active set, bool ``[gi, gj]``: the ring-1 dilation
+    of its tile map ``tmap`` (``dilate_tile_map``) OR the edge tiles its
+    one-cell ghost ring (``[h+2, w+2]`` padded shard) activates. A nonzero
+    ghost cell activates every edge tile whose window holds it: a ghost
+    cell one column past a tile seam sits in two tiles' windows, so the
+    per-tile strip map is dilated along the strip; a corner ghost
+    neighbours only the corner tile's corner cell. Flux arriving from a
+    neighbour shard is so seen one step early, as the interior dilation
+    sees it. With an all-False ``tmap`` this is the JAX package's
+    ``ghost_flags(padded, plan)``.
+
+    Computed as one 3x3 dilation of the tile map framed by the ring's
+    per-tile strips (the frame's corners are the corner ghosts): a strip
+    entry reaches its tile and the two beside it along the edge, a corner
+    entry only the corner tile."""
+    (th, tw), (gi, gj) = plan.tile, plan.grid
+    h, w = plan.shape
+    frame = torch.zeros((gi + 2, gj + 2), dtype=torch.float32,
+                        device=padded.device)
+    frame[1:-1, 1:-1] = tmap
+    # slices only (no index lists, which would be copied to the device)
+    frame[0, 1:-1] = (padded[0, 1:w + 1] != 0).view(gj, tw).any(dim=1)
+    frame[-1, 1:-1] = (padded[h + 1, 1:w + 1] != 0).view(gj, tw).any(dim=1)
+    frame[1:-1, 0] = (padded[1:h + 1, 0] != 0).view(gi, th).any(dim=1)
+    frame[1:-1, -1] = (padded[1:h + 1, w + 1] != 0).view(gi, th).any(dim=1)
+    frame[::gi + 1, ::gj + 1] = padded[::h + 1, ::w + 1] != 0  # corners
+    return F.max_pool2d(frame[None, None], 3, stride=1)[0, 0] > 0
 
 
 def changed_tile_map(prev, new, plan: ActivePlan) -> np.ndarray:
@@ -249,6 +284,27 @@ def dense_from_padded(padded: torch.Tensor, rate, counts: torch.Tensor,
     v = padded[1:-1, 1:-1]
     rate_c = torch.tensor(rate, dtype=dtype, device=padded.device)
     return F.pad(transport(v, rate_c * v, counts, offsets), (1, 1, 1, 1))
+
+
+def dense_from_ghost_padded(padded: torch.Tensor, rate,
+                            counts_pad: torch.Tensor,
+                            offsets: Sequence[tuple[int, int]],
+                            dtype) -> torch.Tensor:
+    """Per-shard dense step on a padded shard whose ring holds its
+    neighbours' values: shares computed on the whole padded array (a ghost
+    cell's share is the value its owner computes, from the same operands
+    by the same expression), inflow summed from zero in ``offsets`` order,
+    then ``(v - outflow) + inflow``. Bitwise the share-exchanging xla shard
+    step. ``counts_pad`` are the padded shard's neighbour counts from
+    global coordinates, clamped to >= 1. Returns the bare ``[h, w]``
+    interior."""
+    h, w = padded.shape[0] - 2, padded.shape[1] - 2
+    outflow_p = torch.tensor(rate, dtype=dtype, device=padded.device) * padded
+    share_p = outflow_p / counts_pad
+    inflow = torch.zeros((h, w), dtype=dtype, device=padded.device)
+    for dx, dy in offsets:
+        inflow = inflow + share_p[1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
+    return (padded[1:-1, 1:-1] - outflow_p[1:-1, 1:-1]) + inflow
 
 
 def dense_transport_step(shape, rate, offsets, origin, global_shape, dtype):

@@ -35,13 +35,28 @@ of depth ``n % d`` with a ring only that deep. The kernels are out of
 place: each shard writes its own ping-pong buffer, so no exchange reads a
 value written in the same chunk.
 
+- ``"active"`` / ``"active_fused"``: shard-local active sets
+  (``_build_active_runner``), all-``Diffusion`` models at
+  ``halo_depth == 1``. Each shard lives in a ring-1 padded buffer for the
+  run; each step its ring is refreshed from the neighbours' pre-step
+  values (a one-cell value exchange), its tile map is the dilation of its
+  carried map OR the ghost ring's activations
+  (``ops.active.ghost_flags``), and it takes the compacted active pass
+  (``"active"``: ``ops.active.active_pass``, plain torch; ``"active_fused"``:
+  K6 + K7 at the shard's global origin) or, above the threshold, the dense
+  step on the same ring (``ops.active.dense_from_ghost_padded``). Every
+  shard's count is read in one host transfer a step.
+
+All-frozen-point models at ``halo_depth == 1`` under ``xla``, ``auto``,
+``active`` or ``active_fused`` take the point subsystem
+(``ops.point_kernel.shard_point_runner``): no exchange, ``last_impl`` is
+``"point"``.
+
 ``run_model`` takes the global space and returns global tensors, assembled
 once per call on the mesh's first device (one grid copy per run).
 
-Not ported yet (ROADMAP.md): the sharded active engines, Flow IR models,
-bf16 interior math, the point-subsystem runner (an all-frozen-point model
-runs the pad-gather step and reports ``"xla"`` where the JAX package says
-``"point"``; both give the same values), the chaos seam.
+Not ported yet (ROADMAP.md): Flow IR models, bf16 interior math, the chaos
+seam.
 """
 
 from __future__ import annotations
@@ -56,11 +71,14 @@ from ..core.cellular_space import CellularSpace
 from ..models.model import _launches_since, _not_ported, kernel_launches
 from ..ops.composed_stencil import composed_halo_step
 from ..ops.field_stencil import FieldPlanError, PallasFieldStep
+from ..ops import active as act
 from ..ops.flow import PointFlow
+from ..ops.fused_active import fused_compute, fused_scatter
 from ..ops.fused_stencil import check_ring_depth, pallas_halo_step
+from ..ops.point_kernel import build_point_plans, shard_point_runner
 from ..ops.stencil import neighbor_counts
 from .halo import (exchange_ring, gather_from_padded, pad_with_halo_1d,
-                   pad_with_halo_2d, zero_ring)
+                   pad_with_halo_2d, refresh_rings, zero_ring)
 from .mesh import Mesh, ShardGrid, assemble, shard_bounds, shard_space
 
 Values = dict[str, torch.Tensor]
@@ -93,10 +111,11 @@ class ShardMapExecutor:
             raise ValueError(f"unknown halo mode {halo_mode!r}")
         if int(halo_depth) < 1:
             raise ValueError(f"halo_depth must be >= 1, got {halo_depth}")
-        if step_impl in ("active", "active_fused"):
-            raise _not_ported(
-                f"the sharded step_impl={step_impl!r} (shard-local active "
-                "sets: ghost_flags and dense_from_ghost_padded)")
+        if step_impl in ("active", "active_fused") and int(halo_depth) != 1:
+            raise ValueError(
+                f"step_impl={step_impl!r} exchanges a one-cell ghost ring "
+                f"per step; halo_depth={halo_depth} is not supported (the "
+                "active set would need depth-d frontier dilation)")
         if compute_dtype not in (None, torch.float32, "float32"):
             raise _not_ported("compute_dtype other than float32 (bf16 "
                               "interior math)")
@@ -105,8 +124,8 @@ class ShardMapExecutor:
         self.halo_mode = halo_mode
         self.halo_depth = int(halo_depth)
         self.compute_dtype = compute_dtype
-        #: the step path the last ``run_model`` used ("pallas", "composed"
-        #: or "xla")
+        #: the step path the last ``run_model`` used ("pallas",
+        #: "composed", "active", "active_fused", "point" or "xla")
         self.last_impl: Optional[str] = None
         #: per-run detail (Report.backend_report) of the kernel paths
         self.last_backend_report: Optional[dict] = None
@@ -213,8 +232,12 @@ class ShardMapExecutor:
         out = runner(shards, int(num_steps))
         ran = _launches_since(before)
         self.last_impl = ("xla" if plan_kind is None else
-                          "composed" if plan_kind == "composed" else "pallas")
-        self._record_backend_report(plan_kind, int(num_steps), ran)
+                          "pallas" if plan_kind in ("diffusion", "field")
+                          else plan_kind)
+        if plan_kind in ("active", "active_fused"):
+            self.last_backend_report = runner.report(int(num_steps))
+        else:
+            self._record_backend_report(plan_kind, int(num_steps), ran)
         first = self.mesh.device(0, 0)
         self._synchronize()
         t0 = time.perf_counter()
@@ -231,6 +254,18 @@ class ShardMapExecutor:
     def _build(self, model, space: CellularSpace):
         """(the plan's kind or None, runner) for this model and geometry,
         from static facts."""
+        if (self.halo_depth == 1
+                and self.step_impl in ("xla", "auto", "active",
+                                       "active_fused")
+                and model.flows
+                and all(isinstance(f, PointFlow) for f in model.flows)):
+            plans = build_point_plans(model.flows, space, model.offsets)
+            if plans is not None and all(p.frozen_only
+                                         for p in plans.values()):
+                return "point", self._build_point_runner(space, plans)
+        if self.step_impl in ("active", "active_fused"):
+            return self.step_impl, self._build_active_runner(
+                model, space, fused=self.step_impl == "active_fused")
         plan = self._pallas_plan(model, space)
         if plan is not None and self.step_impl == "auto":
             plan = self._auto_admits(model, space, plan)
@@ -264,8 +299,8 @@ class ShardMapExecutor:
                                num_steps: int, ran: dict) -> None:
         """The kernel paths' record: the kernel, the depth, the chunks and
         the launches of this run; ``"composed"`` also carries the JAX
-        package's composed keys. The xla step records nothing."""
-        if plan_kind is None:
+        package's composed keys. The xla and point steps record nothing."""
+        if plan_kind in (None, "point"):
             return
         d = self.halo_depth
         name, counter = {
@@ -384,6 +419,195 @@ class ShardMapExecutor:
                 chunk(cur, spare, ns)
             return cur
 
+        return run
+
+    # -- the point subsystem and the active runners --------------------------
+
+    def _build_point_runner(self, space: CellularSpace, plans: dict):
+        """The frozen point subsystem on every shard: each shard steps the
+        whole entry table and writes back the cells it owns; no exchange."""
+        lines, columns, lh, lw, _ = self._geometry(space)
+        run = shard_point_runner(plans, space.dtype, lh, lw)
+
+        def runner(shards: Shards, n: int) -> Shards:
+            out = {k: [[None] * columns for _ in range(lines)]
+                   for k in shards}
+            for i in range(lines):
+                for j in range(columns):
+                    vals = run({k: g[i][j] for k, g in shards.items()},
+                               i * lh, j * lw, n)
+                    for k, t in vals.items():
+                        out[k][i][j] = t
+            return out
+
+        return runner
+
+    def _build_active_runner(self, model, space: CellularSpace,
+                             fused: bool = False):
+        """Shard-local active-tile stepping (counterpart of the JAX
+        package's ``_build_active_runner``). Each shard's channel lives in a
+        ring-1 padded buffer for the whole run (padded once), and the
+        passes update its interior in place. Per step: every shard's ring
+        is refreshed from its neighbours' interiors before any shard's pass
+        writes (``halo.refresh_rings``); a shard's flags are the ring-1
+        dilation of its carried tile map OR its ring's activations
+        (``ghost_flags``); every (channel, shard) count comes to the host in
+        one transfer; then each shard takes the compacted pass (windows
+        read the padded shard, counts from global coordinates: a shard seam
+        is not a grid edge) or, above ``plan.fallback_tiles``, the dense
+        step on the same ring, written back into the interior. Exchanging
+        values, not shares, keeps the run bitwise the share-exchanging xla
+        shard step.
+
+        The runner carries each shard's tile map (one scan per run, again
+        only after a dense step) and allocates the pass buffers once per
+        shard per run; ``runner.report(n)`` gives the run's
+        ``backend_report``, its counters summed over shards."""
+        impl_name = "active_fused" if fused else "active"
+        rates = model.pallas_rates()
+        live = {a: r for a, r in (rates or {}).items() if r != 0.0}
+        has_point = any(isinstance(f, PointFlow) for f in model.flows)
+        if rates is None or not live or has_point:
+            raise ValueError(
+                f"step_impl={impl_name!r} requires all field flows to be "
+                "plain Diffusion with a nonzero rate and no point flows "
+                "(the tile-skip rule is only bitwise-exact for "
+                "uniform-rate linear flows); got "
+                f"flows={[type(f).__name__ for f in model.flows]}. "
+                "Use step_impl='xla' or 'auto'.")
+        for a in live:
+            adt = space.values[a].dtype
+            if not adt.is_floating_point:
+                raise TypeError(
+                    f"flow transport requires a floating dtype, got "
+                    f"{_dtype_name(adt)} for channel {a!r}")
+            if adt != space.dtype:
+                raise ValueError(
+                    f"step_impl={impl_name!r} computes every flow channel "
+                    f"in the space dtype ({_dtype_name(space.dtype)}); "
+                    f"channel {a!r} is {_dtype_name(adt)}. Use "
+                    "step_impl='xla'.")
+        lines, columns, lh, lw, _ = self._geometry(space)
+        plan = act.plan_for((lh, lw))
+        th, tw = plan.tile
+        K = plan.capacity
+        offsets = model.offsets
+        gshape = space.global_shape
+        dtype = space.dtype
+        origins = self._origins(space, lh, lw)
+        cells = [(i, j) for i in range(lines) for j in range(columns)]
+        nshards = len(cells)
+        counts_pad = {}
+        for i, j in cells:
+            row0, col0 = origins[i][j]
+            counts_pad[i, j] = torch.clamp(neighbor_counts(
+                (lh + 2, lw + 2), offsets, (row0 - 1, col0 - 1), gshape,
+                dtype, self.mesh.device(i, j)), min=1)
+        host = self.mesh.device(0, 0)
+        stats = {"fb": 0, "at": 0, "ff": 0, "syncs": 0}
+        #: host seconds of the run's sections (the device work they enqueue
+        #: runs behind them; the count read waits for it)
+        host_s = dict.fromkeys(("refresh", "flags", "count_read", "passes"),
+                               0.0)
+
+        def run(shards: Shards, n: int) -> Shards:
+            for key in stats:
+                stats[key] = 0
+            for key in host_s:
+                host_s[key] = 0.0
+            padded = {(a, c): F.pad(shards[a][c[0]][c[1]], (1, 1, 1, 1))
+                      for a in live for c in cells}
+            tmaps = {(a, c): act.tile_nonzero_map(shards[a][c[0]][c[1]],
+                                                  plan)
+                     for a in live for c in cells}
+            bufs = {}
+            for c in cells:
+                dev = self.mesh.device(*c)
+                if fused:
+                    # K6 reads selfnz only with taps, which k=1 never takes
+                    bufs[c] = (torch.empty((K, th, tw), dtype=dtype,
+                                           device=dev),
+                               torch.empty(K, dtype=torch.int32, device=dev),
+                               torch.zeros(K, dtype=torch.int32, device=dev))
+                else:
+                    bufs[c] = torch.empty((K, th, tw), dtype=dtype,
+                                          device=dev)
+            order = [(a, c) for a in live for c in cells]
+            for _ in range(n):
+                t0 = time.perf_counter()
+                if self.halo_mode == "exchange":
+                    for a in live:
+                        refresh_rings(
+                            [[padded[a, (i, j)] for j in range(columns)]
+                             for i in range(lines)])
+                t1 = time.perf_counter()
+                flags = {ac: act.ghost_flags(padded[ac], plan, tmaps[ac])
+                         for ac in order}
+                t2 = time.perf_counter()
+                # the one host read a step: every (channel, shard) count
+                counts = torch.cat([
+                    flags[ac].sum(dtype=torch.int32).reshape(1).to(host)
+                    for ac in order]).tolist()
+                t3 = time.perf_counter()
+                stats["syncs"] += 1
+                for (a, c), cnt in zip(order, counts):
+                    rate, p, f = live[a], padded[a, c], flags[a, c]
+                    stats["at"] += cnt
+                    if cnt > plan.fallback_tiles:
+                        new = act.dense_from_ghost_padded(
+                            p, rate, counts_pad[c], offsets, dtype)
+                        p[1:-1, 1:-1] = new
+                        tmaps[a, c] = act.tile_nonzero_map(new, plan)
+                        stats["fb"] += 1
+                        continue
+                    ids, cnt_t = act.compact_tile_ids(f, plan)
+                    origin = origins[c[0]][c[1]]
+                    if fused:
+                        upd, anyf, selfnz = bufs[c]
+                        cnt1 = cnt_t.reshape(1)
+                        u, af = fused_compute(
+                            p, ids, cnt1, selfnz, rate=rate, plan=plan,
+                            origin=origin, global_shape=gshape,
+                            offsets=offsets, dtype=dtype, k=1, ring=1,
+                            upd=upd, anyf=anyf)
+                        fused_scatter(p, u, ids, cnt1, plan=plan, ring=1)
+                        anyf_b = af != 0
+                        stats["ff"] += 1
+                    else:
+                        _, _, anyf_b = act.active_pass(
+                            p, bufs[c], ids, cnt, rate, plan, origin,
+                            gshape, offsets, dtype)
+                    tmaps[a, c] = act.next_tile_map(anyf_b, ids, cnt_t,
+                                                    plan)
+                host_s["refresh"] += t1 - t0
+                host_s["flags"] += t2 - t1
+                host_s["count_read"] += t3 - t2
+                host_s["passes"] += time.perf_counter() - t3
+            out = dict(shards)
+            for a in live:
+                out[a] = [[padded[a, (i, j)][1:-1, 1:-1]
+                           for j in range(columns)] for i in range(lines)]
+            return out
+
+        def report(num_steps: int) -> dict:
+            ntiles = plan.ntiles * nshards
+            nattr = len(live)
+            rep = {"impl": impl_name, "steps": num_steps, "shards": nshards,
+                   "fallback_steps": stats["fb"], "tile": list(plan.tile),
+                   "tiles": ntiles, "tiles_per_shard": plan.ntiles,
+                   "capacity": plan.capacity,
+                   "fallback_tiles": plan.fallback_tiles,
+                   "mean_active_fraction": (
+                       float(stats["at"]) / (num_steps * nattr * ntiles)
+                       if num_steps and nattr else None)}
+            if fused:
+                rep["flags_fused"] = stats["ff"]
+            #: host reads of the device counts (one a step)
+            rep["host_syncs"] = stats["syncs"]
+            rep["host_s"] = dict(host_s)
+            return rep
+
+        run.report = report
         return run
 
     # -- the xla runners -----------------------------------------------------
@@ -569,7 +793,7 @@ class ShardMapExecutor:
                                           self.mesh.device(i, j))
                   for i, j in cells}
 
-        def step(c: Shards) -> Shards:
+        def step(c: Shards, sbuf: dict) -> Shards:
             padded = ({k: {(i, j): self._pad(g, i, j, 1, one_d)
                            for i, j in cells} for k, g in c.items()}
                       if any_ring1 else None)
@@ -601,18 +825,33 @@ class ShardMapExecutor:
                             amt.reshape(1), accumulate=True)
             new = dict(c)
             for attr, per in outflows.items():
-                shares = [[per[i, j] / counts[i, j] for j in range(columns)]
-                          for i in range(lines)]
+                # every shard's shares into the interior of its padded
+                # buffer, then the rings, then the gathers
+                grid = sbuf.get(attr)
+                if grid is None:
+                    grid = [[torch.zeros(
+                        (lh + 2, lw + 2), device=per[i, j].device,
+                        dtype=torch.promote_types(per[i, j].dtype,
+                                                  counts[i, j].dtype))
+                        for j in range(columns)] for i in range(lines)]
+                    sbuf[attr] = grid
+                for i, j in cells:
+                    torch.div(per[i, j], counts[i, j],
+                              out=grid[i][j][1:-1, 1:-1])
+                if self.halo_mode == "exchange":
+                    refresh_rings(grid)
                 new[attr] = [[c[attr][i][j] - per[i, j]
-                              + gather_from_padded(
-                                  self._pad(shares, i, j, 1, one_d), offsets)
+                              + gather_from_padded(grid[i][j], offsets)
                               for j in range(columns)] for i in range(lines)]
             return new
 
         def run(shards: Shards, n: int) -> Shards:
+            # the shares' ring-1 padded buffers, one per (channel, shard)
+            # for the run: their rings are refreshed in place each step
+            sbuf: dict = {}
             out = shards
             for _ in range(n):
-                out = step(out)
+                out = step(out, sbuf)
             return out
 
         return run

@@ -20,6 +20,10 @@ read. Between distinct CUDA devices a piece is a ``non_blocking`` copy,
 which PyTorch orders after the sending device's current stream and before
 the receiving one's.
 
+A runner that keeps each shard in a ring-1 padded buffer for a whole run
+refreshes the rings in place with ``refresh_rings``: the same values as
+``pad_with_halo_1d/2d``, with no new copy a step.
+
 Shards are addressed as ``grid[i][j]`` (``parallel.mesh.ShardGrid``); a
 1-D mesh has one column.
 """
@@ -142,6 +146,35 @@ def pad_with_halo_2d(grid: ShardGrid, i: int, j: int, depth: int = 1
     """Shard (i, j) → ``[h + 2d, w + 2d]`` with the full 8-neighbour (edge +
     corner) halo of the mesh."""
     return pad_from_ring(grid[i][j], exchange_ring(grid, i, j, depth))
+
+
+def refresh_rings(grid: ShardGrid) -> None:
+    """The depth-1 exchange for a grid of ring-1 padded shard buffers
+    (``[h + 2, w + 2]`` each, the shard in the interior), in place: every
+    ring takes the values ``pad_with_halo_1d/2d`` would give it, without a
+    new padded copy. Two stages, as the JAX package's two ppermutes:
+    columns first (interior rows), then whole rows, which carry the corners
+    along from the columns just refreshed. Every write lands in a ring,
+    every read in an interior or (stage 2) a ring stage 1 wrote, so no
+    shard's interior is read after a write. Rings on a true grid edge, and
+    the columns of a 1-D mesh, are never written: they keep the zeros of
+    the buffer's first padding. Between devices a piece is a
+    ``non_blocking`` copy, ordered as in ``exchange_ring``."""
+    lines, columns = len(grid), len(grid[0])
+    for i in range(lines):
+        for j in range(columns):
+            p = grid[i][j]
+            if j > 0:
+                p[1:-1, 0].copy_(grid[i][j - 1][1:-1, -2], non_blocking=True)
+            if j < columns - 1:
+                p[1:-1, -1].copy_(grid[i][j + 1][1:-1, 1], non_blocking=True)
+    for i in range(lines):
+        for j in range(columns):
+            p = grid[i][j]
+            if i > 0:
+                p[0].copy_(grid[i - 1][j][-2], non_blocking=True)
+            if i < lines - 1:
+                p[-1].copy_(grid[i + 1][j][1], non_blocking=True)
 
 
 def gather_from_padded(padded: torch.Tensor,

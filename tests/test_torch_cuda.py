@@ -1,6 +1,7 @@
 """The port's kernels on the card against their plain versions: K1, K3, K4,
-K5, K6 and K7. Needs a CUDA device and skips without one. It imports neither jax
-nor the JAX package, so it also runs where only torch is installed:
+K5, K6 and K7 (also on ghost-padded shards). Needs a CUDA device and skips
+without one. It imports neither jax nor the JAX package, so it also runs
+where only torch is installed:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
@@ -572,3 +573,95 @@ def test_sharded_field_path_bitwise_serial_on_the_card():
     assert rep.backend_report["kernel"] == "K4-halo field_stencil"
     for n in ("a", "b"):
         assert torch.equal(out.values[n], want.values[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["active", "active_fused"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sharded_active_bitwise_serial_on_the_card(impl, mesh_shape, dtype):
+    """The shard-local active sets on one card, sources on the seams: bit
+    for bit the serial run with the same impl and sharded xla; K6 and K7
+    launch once per flagged (shard, step), ``fa.launches()`` reading
+    ``flags_fused``."""
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor, make_mesh,
+                                              make_mesh_2d)
+
+    dev = _card()
+    # on 2x2 no shard holds more than a quarter of its 128² tiles active
+    # (K6/K7 serve every step); on the stripes one shard falls back
+    v = np.zeros((1024, 2048))
+    for x, y, a in ((511, 100, 1.7), (600, 1023, 2.0), (0, 2047, 1.1)):
+        v[x, y] = a
+    space = mt.CellularSpace.create(1024, 2048, 0.0, dtype=dtype,
+                                    device=dev).with_values(
+        {"value": torch.from_numpy(v).to(dev, getattr(torch, dtype))})
+    model = mt.Model(mt.Diffusion(0.1))
+    lines, columns = mesh_shape
+    mesh = (make_mesh(lines, devices=[dev] * lines) if columns == 1
+            else make_mesh_2d(lines, columns, devices=[dev] * 4))
+    fa.reset_launches()
+    out, rep = model.execute(space, ShardMapExecutor(mesh, impl), steps=24)
+    ran = fa.launches()
+    br = rep.backend_report
+    # the serial plan never falls back: its fallback on the card is K1,
+    # whose step is v*(1-r) + inflow, not the plain (v - r*v) + inflow
+    want, _ = model.execute(space, mt.SerialExecutor(
+        impl, active_opts={"max_active_frac": 1.0}), steps=24)
+    assert torch.equal(out.values["value"], want.values["value"])
+    xla, _ = model.execute(space, ShardMapExecutor(mesh, "xla"), steps=24)
+    assert torch.equal(out.values["value"], xla.values["value"])
+    assert br["fallback_steps"] == (0 if columns > 1 else 23)
+    if impl == "active_fused":
+        assert ran["fused_compute"] == ran["fused_scatter"] \
+            == br["flags_fused"] == 24 * 4 - br["fallback_steps"]
+    else:
+        assert ran == {"fused_compute": 0, "fused_scatter": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["build", "launch"])
+def test_sharded_active_fused_kernel_error_propagates(fault, monkeypatch):
+    """A K6 build or launch error on a card shard ends the sharded
+    ``"active_fused"`` run with that error: no shard falls back to the
+    plain version or to another impl."""
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    dev = _card()
+
+    class FailingLaunch:
+        """The kernel library with every launch failing as a card that
+        cannot run it fails."""
+
+        @staticmethod
+        def mm_fused_compute(*args):
+            return 209
+
+        @staticmethod
+        def mm_fused_scatter(*args):
+            return 209
+
+        @staticmethod
+        def mm_cuda_error_string(err):
+            return b"no kernel image is available for execution"
+
+    def failing_build():
+        raise RuntimeError("nvcc failed building fused_active")
+
+    monkeypatch.setattr(fa, "_kernel_lib", failing_build if fault == "build"
+                        else lambda: FailingLaunch)
+    # one live tile in shard (0, 0): its dilation (4 of 16 tiles) stays
+    # within the shard's capacity, so the first step launches K6
+    v = np.zeros((1024, 1024))
+    v[64, 64] = 1.5
+    space = mt.CellularSpace.create(1024, 1024, 0.0, dtype="float32",
+                                    device=dev).with_values(
+        {"value": torch.from_numpy(v).to(dev, torch.float32)})
+    ex = ShardMapExecutor(make_mesh_2d(2, 2, devices=[dev] * 4),
+                          "active_fused")
+    fa.reset_launches()
+    want = ("nvcc failed" if fault == "build"
+            else r"fused_compute \(K6\) kernel launch failed")
+    with pytest.raises(RuntimeError, match=want):
+        ex.run_model(mt.Model(mt.Diffusion(0.1)), space, 3)
+    assert fa.launches() == {"fused_compute": 0, "fused_scatter": 0}

@@ -7,7 +7,9 @@
   package's two-stage ``exchange_ring`` under ``shard_map`` (on the
   conftest's forced host devices) bit for bit, at f64, for every shard of
   1-D and 2-D meshes and depths 1, 2, 4 and 8; so do ``zero_ring`` and
-  ``pad_with_halo_1d/2d``.
+  ``pad_with_halo_1d/2d``. ``refresh_rings`` (the in-place depth-1
+  exchange on padded buffers) gives the rings ``exchange_ring`` gives, bit
+  for bit, step after step.
 - Kernels: on a CPU shard each wrapper runs its plain version; the same
   shard and ring (carried across with ``interop.ring_from_numpy``) go
   through the JAX kernel in interpret mode, at edge, corner and interior
@@ -45,7 +47,7 @@ from mpi_model_tpu_torch.ops.flow import Flow, cell_coords
 from mpi_model_tpu_torch.parallel import (assemble, exchange_ring,
                                           make_mesh, make_mesh_2d,
                                           pad_with_halo_1d, pad_with_halo_2d,
-                                          zero_ring)
+                                          refresh_rings, zero_ring)
 from mpi_model_tpu_torch.parallel.mesh import shard_tensor
 
 CPU = torch.device("cpu")
@@ -136,6 +138,60 @@ def test_rings_equal_oracle_and_jax_exchange(mesh_shape, one_d, d):
             padded = (pad_with_halo_1d(grid, i, d) if one_d
                       else pad_with_halo_2d(grid, i, j, d))
             np.testing.assert_array_equal(padded.numpy(), jpadded[i, j])
+
+
+@pytest.mark.parametrize("mesh_shape,one_d", [((2, 2), False), ((3, 3), False),
+                                              ((2, 4), False), ((4, 1), True),
+                                              ((3, 1), True)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_refresh_rings_bitwise_exchange_ring(mesh_shape, one_d, dtype):
+    """Padded buffers refreshed in place, twice with new interiors between:
+    each time every ring is ``exchange_ring``'s (``pad_with_halo_*``'s),
+    bit for bit; the first time also ``oracle.ring_from_global_np``'s and
+    (up to the eight host devices) the JAX package's padded shard; the
+    interiors are untouched."""
+    L, C = mesh_shape
+    G = _grid((L * 8, C * 12), 17)
+    grid, (h, w) = _port_grid(G, mesh_shape, one_d)
+    grid = [[t.to(dtype) for t in row] for row in grid]
+    bufs = [[torch.nn.functional.pad(t, (1, 1, 1, 1)) for t in row]
+            for row in grid]
+    for rnd in range(2):
+        refresh_rings(bufs)
+        shards = [[b[1:-1, 1:-1].clone() for b in row] for row in bufs]
+        jpadded = (_jax_exchange(G, mesh_shape, 1, one_d)[1]
+                   if rnd == 0 and L * C <= 8 else None)
+        for i in range(L):
+            for j in range(C):
+                want = (pad_with_halo_1d(shards, i) if one_d
+                        else pad_with_halo_2d(shards, i, j))
+                assert torch.equal(bufs[i][j], want), (rnd, i, j)
+                if one_d:
+                    ring = exchange_ring(shards, i, j, 1)
+                    assert torch.equal(bufs[i][j][0, 1:-1], ring["n"][0])
+                    assert torch.equal(bufs[i][j][-1, 1:-1], ring["s"][0])
+                if rnd == 0:
+                    b = bufs[i][j].numpy()
+                    assert torch.equal(bufs[i][j][1:-1, 1:-1], grid[i][j])
+                    ring = joracle.ring_from_global_np(
+                        G.astype(b.dtype), i * h, j * w, h, w, 1)
+                    if one_d:
+                        ring = {p: ring[p] * 0 if p in ("w", "e") else
+                                ring[p] for p in ring}
+                    np.testing.assert_array_equal(b[0, 1:-1], ring["n"][0])
+                    np.testing.assert_array_equal(b[-1, 1:-1], ring["s"][0])
+                    np.testing.assert_array_equal(b[1:-1, 0], ring["w"][:, 0])
+                    np.testing.assert_array_equal(b[1:-1, -1],
+                                                  ring["e"][:, 0])
+                    if jpadded is not None:
+                        np.testing.assert_array_equal(
+                            b, jpadded[i, j].astype(b.dtype))
+        # a step's new values in every interior, as the runner writes them
+        rng = np.random.default_rng(rnd)
+        for row in bufs:
+            for b in row:
+                b[1:-1, 1:-1] = torch.from_numpy(
+                    rng.uniform(-1.0, 1.0, (h, w))).to(dtype)
 
 
 def test_zero_ring_matches_jax():

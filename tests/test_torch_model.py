@@ -365,7 +365,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"active.py", "fused_active.py", "composed_stencil.py",
             "field_lower.py", "field_stencil.py", "pipeline_stencil.py",
             "batch.py", "scheduler.py", "service.py", "metrics.py",
-            "events.py", "model_rectangular.py", "output.py"} <= names
+            "events.py", "model_rectangular.py", "output.py",
+            "point_kernel.py"} <= names
     rel = {f.relative_to(REPO).as_posix() for f in files}
     assert {f"mpi_model_tpu_torch/parallel/{m}.py" for m in (
         "__init__", "mesh", "collectives", "halo", "executors")} <= rel

@@ -274,7 +274,8 @@ def test_frozen_reference_run_on_row_stripes_is_the_oracle(steps):
                              steps=steps)
     np.testing.assert_array_equal(out.values["value"].numpy(),
                                   oracle.reference_run_np(steps=steps))
-    assert rep.comm_size == 4 and rep.impl == "xla"
+    # a frozen point flow takes the point subsystem, as JAX's executor does
+    assert rep.comm_size == 4 and rep.impl == "point"
     assert rep.final_total["value"] == pytest.approx(10000.0)
 
 
@@ -330,8 +331,8 @@ def test_corner_crossing_point_flow_is_the_oracle():
 
 
 def test_all_point_model_reports_xla_where_jax_says_point():
-    """The point-subsystem runner is not ported: the pad-gather step runs
-    and reports "xla"; JAX's says "point"; the values agree."""
+    """An all-frozen-point model takes the point subsystem and reports
+    "point", as JAX's does; the values agree bit for bit."""
     space = mt.CellularSpace.create(40, 24, 1.0, dtype="float64",
                                     device="cpu")
     ex = ShardMapExecutor(MESHES["1d4"][0](), step_impl="auto")
@@ -342,7 +343,7 @@ def test_all_point_model_reports_xla_where_jax_says_point():
                                       0.1)).execute(
         mm.CellularSpace.create(40, 24, 1.0, dtype=jnp.float64), jex,
         steps=2)
-    assert ex.last_impl == "xla" and jex.last_impl == "point"
+    assert ex.last_impl == rep.impl == jex.last_impl == "point"
     np.testing.assert_array_equal(out.values["value"].numpy(),
                                   np.asarray(jout.values["value"]))
 
@@ -529,8 +530,17 @@ def test_undeclared_footprint_is_refused():
 def test_unported_parts_raise_naming_the_roadmap():
     M = MESHES["2x2"][0]
     for impl in ("active", "active_fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ShardMapExecutor(M(), impl)
+        # ported: both impls construct and run
+        ex = ShardMapExecutor(M(), impl)
+        vals = {"value": np.zeros((16, 32))}
+        vals["value"][7, 15] = 1.0
+        out, rep = mt.Model(mt.Diffusion(0.1)).execute(tspace(vals), ex,
+                                                       steps=2)
+        assert rep.impl == impl and rep.backend_report["impl"] == impl
+        np.testing.assert_array_equal(
+            out.values["value"].numpy(),
+            oracle.dense_flow_step_np(oracle.dense_flow_step_np(
+                vals["value"], 0.1), 0.1))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ShardMapExecutor(M(), "pallas", compute_dtype=torch.bfloat16)
 
