@@ -51,7 +51,7 @@ from .fused_stencil import (
     check_out,
     check_ring,
     check_ring_depth,
-    dense_step_plain,
+    exact_dense_step_plain,
     exact_steps_plain,
     halo_args,
     pad_from_ring,
@@ -198,16 +198,15 @@ def composed_dense_step_plain(values: torch.Tensor, rate: float, k: int,
                               offsets: Sequence[tuple[int, int]]
                               = MOORE_OFFSETS) -> torch.Tensor:
     """The plain torch version of K3, in f32: cells within k of the global
-    edge (distance <= k) take ``dense_step_plain(..., k)`` (the iterated
-    exact path); every other cell gets the ``(2k+1)²`` tap correlation with
-    the f32 table,
-    accumulated from zero in row-major tap order. Cast back to the storage
-    dtype once."""
+    edge (distance <= k) take ``exact_dense_step_plain(..., k)`` (K1's
+    iterated exact path); every other cell gets the ``(2k+1)²`` tap
+    correlation with the f32 table, accumulated from zero in row-major tap
+    order. Cast back to the storage dtype once."""
     offsets = check_offsets(offsets)
     k = int(k)
     h, w = values.shape
     v = values.to(torch.float32)
-    out = dense_step_plain(v, rate, offsets, k)
+    out = exact_dense_step_plain(v, rate, offsets, k)
     m = k + 1  # the first row/column the composed operator is exact on
     ih, iw = h - 2 * m, w - 2 * m
     if ih > 0 and iw > 0:

@@ -13,6 +13,10 @@ source's header for what the design does about that).
   (``parallel.halo.exchange_ring``'s dict) where the dense kernel reads a
   zero border, with neighbour counts and grid tests in global coordinates.
 
+- After ``n`` fused steps each cell takes one of two forms, chosen from
+  its global coordinates (``closed_mask``): more than ``n`` from the grid's
+  edge the closed form (``closed_steps_plain``, the TPU kernel's interior
+  fast path), elsewhere the exact masked path (``exact_dense_step_plain``).
 - A CPU tensor takes ``dense_step_plain``, the plain torch version.
 - A CUDA tensor launches the kernel or raises; nothing falls back.
 - Block and ``nsteps`` checks are the JAX package's, so both packages
@@ -30,6 +34,7 @@ import ctypes
 from typing import Mapping, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
 
@@ -155,13 +160,70 @@ def exact_steps_plain(v: torch.Tensor, cnt: torch.Tensor, rate: float,
     return v
 
 
-def dense_step_plain(values: torch.Tensor, rate: float,
-                     offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
-                     nsteps: int = 1) -> torch.Tensor:
-    """The plain torch version of K1: cast to f32 once, run ``nsteps``
-    exact steps (``share = rate*v/cnt``, ``v*(1-rate) + Σ_d share[c+d]`` in
-    offset order, counts clamped to >= 1), cast back once. bf16 is thus
-    rounded once per call, as the kernel (and the TPU kernel) does. Leading
+def closed_constants(rate: float, offsets: tuple) -> tuple[bool, float,
+                                                             float]:
+    """(is_moore, a, b) of the closed form ``v*a + Σ*b``, formed in f64 as
+    the TPU kernel's Python floats are; the kernels and the plain versions
+    round each to f32 once. Moore (the eight offsets, in any order) sums
+    the 3×3 box, centre included: ``a = 1 - r - r/8``; other neighbourhoods
+    sum the neighbours: ``a = 1 - r``; ``b = r/k`` for both."""
+    k = float(len(offsets))
+    moore = set(offsets) == set(MOORE_OFFSETS)
+    a = 1.0 - rate - rate / k if moore else 1.0 - rate
+    return moore, a, rate / k
+
+
+def closed_steps_plain(v: torch.Tensor, rate: float, offsets: tuple,
+                       nsteps: int) -> torch.Tensor:
+    """``nsteps`` closed-form steps over the whole f32 ``[..., h, w]`` region
+    ``v`` (zeros outside), in the TPU kernel's order: Moore ``band = (v[r-1]
+    + v[r]) + v[r+1]`` per column, ``nine = (band[c-1] + band[c]) +
+    band[c+1]``; other neighbourhoods the neighbours summed in ``offsets``
+    order; then ``v*a + Σ*b``. Exact only where every cell of a cell's
+    n-cone has its full neighbourhood (``closed_mask``)."""
+    moore, a, b = closed_constants(rate, offsets)
+    h, w = v.shape[-2:]
+    cur = v
+    for _ in range(nsteps):
+        p = F.pad(cur, (1, 1, 1, 1))
+        if moore:
+            band = p[..., 0:h, :] + p[..., 1:h + 1, :] + p[..., 2:h + 2, :]
+            g = band[..., 0:w] + band[..., 1:w + 1] + band[..., 2:w + 2]
+        else:
+            g = None
+            for dx, dy in offsets:
+                t = p[..., 1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
+                g = t if g is None else g + t
+        cur = cur * a + g * b
+    return cur
+
+
+def closed_mask(shape: tuple[int, int], nsteps: int,
+                origin: tuple[int, int] = (0, 0),
+                global_shape: Optional[tuple[int, int]] = None,
+                device=None) -> torch.Tensor:
+    """``[h, w]`` bool: True on the cells of the ``[h, w]`` region at global
+    ``origin`` that K1/K2 compute in closed form after ``nsteps`` fused
+    steps: those whose distance ``min(R, H-1-R, C, W-1-C)`` to the global
+    grid's edge exceeds ``nsteps``. Every cell of such a cell's n-cone lies
+    off the grid's outer ring, so every count it meets is full and the
+    closed form is the exact step there."""
+    h, w = shape
+    gh, gw = global_shape if global_shape is not None else (h, w)
+    rows = int(origin[0]) + torch.arange(h, device=device)[:, None]
+    cols = int(origin[1]) + torch.arange(w, device=device)[None, :]
+    rd = torch.minimum(rows, gh - 1 - rows)
+    cd = torch.minimum(cols, gw - 1 - cols)
+    return torch.minimum(rd, cd) > int(nsteps)
+
+
+def exact_dense_step_plain(values: torch.Tensor, rate: float,
+                           offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                           nsteps: int = 1) -> torch.Tensor:
+    """K1's exact path alone, on every cell: cast to f32 once, run
+    ``nsteps`` exact steps (``share = rate*v/cnt``, ``v*(1-rate) + Σ_d
+    share[c+d]`` in offset order, counts clamped to >= 1), cast back once.
+    The plain versions of K3 and K5 take it for their edge cells. Leading
     batch dimensions (``[..., H, W]``) step every grid independently."""
     h, w = values.shape[-2:]
     v = values.to(torch.float32)
@@ -174,6 +236,32 @@ def dense_step_plain(values: torch.Tensor, rate: float,
         cnt = ok if cnt is None else cnt + ok
     cnt = torch.clamp(cnt, min=1.0)
     return exact_steps_plain(v, cnt, rate, offsets, nsteps).to(values.dtype)
+
+
+def dense_step_plain(values: torch.Tensor, rate: float,
+                     offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                     nsteps: int = 1) -> torch.Tensor:
+    """The plain torch version of K1: cast to f32 once; cells whose
+    distance to the grid's edge exceeds ``nsteps`` (``closed_mask``) take
+    ``closed_steps_plain``, every other cell the exact path
+    (``exact_dense_step_plain``); cast back once. bf16 is thus rounded once
+    per call, as the kernel (and the TPU kernel) does. Leading batch
+    dimensions (``[..., H, W]``) step every grid independently.
+
+    The choice is per cell, from global coordinates, so a sharded run
+    (``halo_step_plain``) takes the same form for every cell wherever its
+    seams fall. The JAX kernel chooses per TPU tile and, at nsteps=1,
+    applies the closed form everywhere with a divisor correction on ring
+    tiles; the two round differently near the ring (ROADMAP.md)."""
+    offsets = tuple(offsets)
+    nsteps = int(nsteps)
+    v = values.to(torch.float32)
+    out = exact_dense_step_plain(v, rate, offsets, nsteps)
+    inside = closed_mask(tuple(v.shape[-2:]), nsteps, device=v.device)
+    if bool(inside.any()):
+        out = torch.where(inside, closed_steps_plain(v, rate, offsets,
+                                                     nsteps), out)
+    return out.to(values.dtype)
 
 
 # -- halo mode: one shard and its ghost ring ---------------------------------
@@ -254,17 +342,24 @@ def halo_step_plain(values: torch.Tensor, ring: Mapping[str, torch.Tensor],
                     offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                     nsteps: int = 1) -> torch.Tensor:
     """The plain torch version of K2: the padded shard assembled from the
-    ring, cast to f32 and masked to the grid, ``dense_step_plain``'s exact
+    ring, cast to f32 and masked to the grid; both forms over it, the exact
     steps with counts from global coordinates (off-grid cells re-zeroed
-    each step), the shard cropped out and cast back once. Shards stepped so
-    and put together equal ``dense_step_plain`` on the whole grid bit for
-    bit."""
+    each step) and the closed form; the shard cropped out, each cell
+    taking the form ``closed_mask`` gives it at the shard's global origin;
+    cast back once. Shards stepped so and put together equal
+    ``dense_step_plain`` on the whole grid bit for bit."""
+    offsets = tuple(offsets)
     d = ring_depth(ring)
     h, w = values.shape
     _, mask, cnt = padded_region(values, ring, origin, global_shape, offsets)
     v = torch.where(mask, pad_from_ring(values, ring).to(torch.float32), 0.0)
-    v = exact_steps_plain(v, cnt, rate, offsets, nsteps, mask)
-    return v[d:d + h, d:d + w].to(values.dtype)
+    out = exact_steps_plain(v, cnt, rate, offsets, nsteps, mask)
+    out = out[d:d + h, d:d + w]
+    inside = closed_mask((h, w), nsteps, origin, global_shape, values.device)
+    if bool(inside.any()):
+        closed = closed_steps_plain(v, rate, offsets, nsteps)
+        out = torch.where(inside, closed[d:d + h, d:d + w], out)
+    return out.to(values.dtype)
 
 
 class _HaloArgs(ctypes.Structure):
@@ -333,22 +428,31 @@ def _offset_codes(offsets: tuple) -> int:
     return codes
 
 
+def _step_args(rate: float, offsets: tuple, nsteps: int) -> tuple:
+    """The kernels' step arguments: the exact path's rate and ``1 - rate``,
+    the closed form's ``a`` and ``b`` (``closed_constants``), ``nsteps``,
+    the neighbourhood's bitmask, size and ordered codes, and whether it is
+    Moore (each float rounded to f32 once by ctypes)."""
+    moore, a, b = closed_constants(rate, offsets)
+    return (float(rate), float(1.0 - rate), float(a), float(b), int(nsteps),
+            _offset_mask(offsets), len(offsets), _offset_codes(offsets),
+            int(moore))
+
+
 def _kernel_lib():
     from ._build import load
 
     lib = load("fused_stencil")
     if not getattr(lib, "_mm_typed", False):
+        step_args = [ctypes.c_float] * 4 + [ctypes.c_int] * 5
         for fn in (lib.mm_fused_stencil_f32, lib.mm_fused_stencil_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                            ctypes.c_int] + step_args + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         for fn in (lib.mm_fused_stencil_halo_f32,
                    lib.mm_fused_stencil_halo_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-                           ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + step_args
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
@@ -376,9 +480,8 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     h, w = values.shape
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), out.data_ptr(), h, w, float(rate),
-                 float(1.0 - rate), int(nsteps), _offset_mask(offsets),
-                 len(offsets), _offset_codes(offsets), stream)
+        err = fn(values.data_ptr(), out.data_ptr(), h, w,
+                 *_step_args(rate, offsets, nsteps), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_stencil kernel launch failed: "
@@ -473,9 +576,8 @@ def _launch_halo(values: torch.Tensor, ring, origin, global_shape,
     args = halo_args(values, ring, origin, global_shape)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(ctypes.addressof(args), out.data_ptr(), float(rate),
-                 float(1.0 - rate), int(nsteps), _offset_mask(offsets),
-                 len(offsets), _offset_codes(offsets), stream)
+        err = fn(ctypes.addressof(args), out.data_ptr(),
+                 *_step_args(rate, offsets, nsteps), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_stencil halo kernel launch failed: "

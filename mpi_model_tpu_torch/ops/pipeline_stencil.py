@@ -23,11 +23,11 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
 from .fused_stencil import KERNEL_DTYPES, _offset_codes, _offset_mask, \
-    _validate_block, check_offsets, dense_step_plain
+    _validate_block, check_offsets, closed_constants, closed_steps_plain, \
+    exact_dense_step_plain
 
 #: row/col strip granularities of the pipelined window (the TPU's 16-row
 #: bf16 sublane tile and 128-lane tile); the CUDA tile divides both
@@ -86,16 +86,6 @@ def pipeline_block(shape: tuple[int, int], nsteps: int,
     return pipe_block
 
 
-def _constants(rate: float, offsets: tuple) -> tuple[bool, float, float]:
-    """(is_moore, a, b) of the closed form ``v*a + Σ*b``, formed in f64 as
-    the TPU kernel's Python floats are; the kernel and the plain version
-    round each to f32 once."""
-    k = float(len(offsets))
-    moore = set(offsets) == set(MOORE_OFFSETS)
-    a = 1.0 - rate - rate / k if moore else 1.0 - rate
-    return moore, a, rate / k
-
-
 def interior_mask(shape: tuple[int, int], block: tuple[int, int],
                   nsteps: int, device=None) -> torch.Tensor:
     """``[H, W]`` bool: True on cells of TPU tiles that take the closed form
@@ -108,27 +98,6 @@ def interior_mask(shape: tuple[int, int], block: tuple[int, int],
     return row_ok[:, None] & col_ok[None, :]
 
 
-def _closed_steps(v: torch.Tensor, rate: float, offsets: tuple,
-                  nsteps: int) -> torch.Tensor:
-    """``nsteps`` closed-form steps over the whole f32 grid (zeros outside),
-    in the TPU kernel's order. Right only on interior tiles."""
-    moore, a, b = _constants(rate, offsets)
-    h, w = v.shape[-2:]
-    cur = v
-    for _ in range(nsteps):
-        p = F.pad(cur, (1, 1, 1, 1))
-        if moore:
-            band = p[..., 0:h, :] + p[..., 1:h + 1, :] + p[..., 2:h + 2, :]
-            g = band[..., 0:w] + band[..., 1:w + 1] + band[..., 2:w + 2]
-        else:
-            g = None
-            for dx, dy in offsets:
-                t = p[..., 1 + dx:1 + dx + h, 1 + dy:1 + dy + w]
-                g = t if g is None else g + t
-        cur = cur * a + g * b
-    return cur
-
-
 def pipeline_step_plain(values: torch.Tensor, rate: float,
                         offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                         nsteps: int = 1,
@@ -136,9 +105,9 @@ def pipeline_step_plain(values: torch.Tensor, rate: float,
                         ) -> torch.Tensor:
     """The plain torch version of K5 on ``[H, W]`` or ``[B, H, W]``: cast to
     f32 once; run ``nsteps`` steps of both forms over the whole grid, the
-    exact masked path (``dense_step_plain``) and the closed form; keep the
-    closed form on interior TPU tiles and the exact path elsewhere; cast
-    back once.
+    exact masked path (``exact_dense_step_plain``) and the closed form
+    (``closed_steps_plain``); keep the closed form on interior TPU tiles
+    and the exact path elsewhere; cast back once.
 
     Why the whole-grid closed form is the tile's: after ``n`` steps a cell
     depends only on the cells within ``n`` of it (its dependency cone). An
@@ -154,11 +123,11 @@ def pipeline_step_plain(values: torch.Tensor, rate: float,
     h, w = values.shape[-2:]
     blk = pipeline_block((h, w), int(nsteps), block)
     v = values.to(torch.float32)
-    out = dense_step_plain(v, rate, offsets, int(nsteps))
+    out = exact_dense_step_plain(v, rate, offsets, int(nsteps))
     inside = interior_mask((h, w), blk, int(nsteps), values.device)
     if bool(inside.any()):
-        out = torch.where(inside, _closed_steps(v, rate, offsets,
-                                                int(nsteps)), out)
+        out = torch.where(inside, closed_steps_plain(v, rate, offsets,
+                                                     int(nsteps)), out)
     return out.to(values.dtype)
 
 
@@ -192,7 +161,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     h, w = values.shape[-2:]
     b = values.numel() // (h * w)
     br, bc = block
-    moore, a, cb = _constants(rate, offsets)
+    moore, a, cb = closed_constants(rate, offsets)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), b, h, w, br, bc,

@@ -121,16 +121,16 @@ def test_f64_refused_like_jax():
 @pytest.mark.parametrize("ns", [1, 4, 8])
 @pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM],
                          ids=["moore", "von_neumann", "custom"])
-def test_plain_k5_equals_dense_step_plain(ns, offs):
+def test_plain_k5_equals_exact_dense_step_plain(ns, offs):
     """Where every tile is near (the auto block of 32×256), K5's plain
     version is K1's exact path bit for bit; with closed-form tiles it stays
     within the f32 tolerance of it."""
     x = torch.from_numpy(_grid((32, 256), seed=3))
     assert torch.equal(ps.pipeline_step_plain(x, 0.13, offs, ns),
-                       fs.dense_step_plain(x, 0.13, offs, ns))
+                       fs.exact_dense_step_plain(x, 0.13, offs, ns))
     y = torch.from_numpy(_grid((64, 512), seed=4))
     got = ps.pipeline_step_plain(y, 0.13, offs, ns, (16, 128))
-    want = fs.dense_step_plain(y, 0.13, offs, ns)
+    want = fs.exact_dense_step_plain(y, 0.13, offs, ns)
     gap = float((got - want).abs().max())
     assert 0.0 < gap <= 2 * EPS32 * ns * float(want.abs().max())
 
@@ -148,11 +148,11 @@ def test_batch_equals_lane_by_lane(dtype):
 def test_closed_form_constants_are_jax_weak_floats():
     """The closed form's constants are formed in f64 (the TPU kernel's
     Python floats) and rounded to f32 once."""
-    moore, a, b = ps._constants(0.1, MOORE_OFFSETS)
+    moore, a, b = fs.closed_constants(0.1, MOORE_OFFSETS)
     assert moore and a == 1.0 - 0.1 - 0.1 / 8.0 and b == 0.1 / 8.0
-    moore, a, b = ps._constants(0.1, tuple(reversed(MOORE_OFFSETS)))
+    moore, a, b = fs.closed_constants(0.1, tuple(reversed(MOORE_OFFSETS)))
     assert moore  # Moore in any order
-    moore, a, b = ps._constants(0.1, VON_NEUMANN_OFFSETS)
+    moore, a, b = fs.closed_constants(0.1, VON_NEUMANN_OFFSETS)
     assert not moore and a == 1.0 - 0.1 and b == 0.1 / 4.0
 
 
