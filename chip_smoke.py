@@ -17,11 +17,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      closed-form cell, grids whose edge tiles straddle d = nsteps beside
      interior tiles (ragged and not), a grid of unaligned rows, and the
      main path's 16384² (Moore, nsteps 1 and the deepest).
-   - K3 (``composed_dense_step_plain``): f32 ``atol = rtol = 1e-6 * k``,
-     bf16 one bf16 ulp of the value scale. It sums a neighborhood in
-     ``offsets`` order with every operation rounded, as the plain version
-     does; its tap loop is left to nvcc's FMA contraction (and, in bf16,
-     that decides which side of a rounding boundary a value lands on).
+   - K3 (``composed_dense_step_plain``), each form asked for by name
+     where the JAX package admits it (mxu: a 128-aligned block width): the
+     vpu form (the binomial order in ``_rn`` intrinsics) bit for bit; the
+     mxu form (tensor cores, 3×TF32 or two bf16 tap terms, another
+     summation order) within ``1e-6·k·max|v|`` at f32 and one bf16 ulp of
+     the value scale at bf16.
    - K6 (``fused_compute_plain``) and K7 (``fused_scatter_plain``): bit for
      bit at k=1 and for K7 (K6 computes in the storage dtype with every
      operation rounded, in the plain version's order); at k>1 within f32
@@ -77,9 +78,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``active_fused`` == ``xla`` bitwise.
 6. the composed path at full width: ``SerialExecutor("composed")`` at
    16384², f32 substeps=8 (k=8) and bf16 substeps=16 (k=16), 64 steps,
-   conservation checked; on 512², against the K1 path under the derived
-   tolerance below; K3's time per call against its bound and against one
-   ``conv2d`` with the same table (TF32 off; the port never calls it).
+   once with ``"auto"`` (JAX's rule: the mxu form) and once with
+   ``composed_variant="vpu"``, each run counted (the form's launches ==
+   steps / k, and no other form's), conservation checked; on 512², each
+   form against the K1 path under the derived tolerance below; K3's time
+   per call and form against the function's bound (bytes, or the vpu
+   form's operations), the form's own bound (vpu: its f32 operations; mxu:
+   its tensor-core flops over the TF32 or bf16 peak), the plain version
+   and one ``conv2d`` with the same table (TF32 off; the port never calls
+   it).
 6b. the field path at full width (BASELINE config 4): ``Model([Diffusion(0.1,
    "a"), Coupled(0.05, "a", "b"), Diffusion(0.2, "b")]).execute`` of an 8192²
    two-channel space of ``U(0.5, 2.0)`` from a numpy seed through
@@ -126,26 +133,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    from the neighbouring shards: f32 nsteps 1, 4, 8 and bf16 1, 4, 8, 16,
    three neighbourhoods (K4: its flow sets). K2 and K4-halo are held bit
    for bit (K4-halo's ``every_op``, with exp, to K4's tolerance); K3-halo
-   to K3's tolerance (its tap loop is left to nvcc's FMA contraction).
-   The shards put together must equal the dense kernel on the whole grid
-   bit for bit.
+   per form as K3 (vpu bit for bit, mxu to its tolerance), also on a 2×3
+   mesh of 300 × 768 (shard rows at 150: origins that are not multiples
+   of the mxu tiles) and of 300 × 390 (vpu alone: the JAX package refuses
+   mxu at a width of 130). The shards put together must equal the dense
+   kernel (K3: of the same form) on the whole grid bit for bit.
    K2 also on every 1024 × 1280 shard of a 2×2 mesh of 2048 × 2560, whose
    windows inside the shard take the cp.async path (f32 nsteps 1, 4, 8 and
    bf16 2, 8, 16, three neighbourhoods: every window height), bit for bit
    and put together against K1.
    Then the main paths' own shards: 8192² of the 16384² grid (K2 f32
-   nsteps 8, K3-halo k 8) and 4096² of config 4's 8192² (K4-halo nsteps 8).
+   nsteps 8, K3-halo k 8 in each form) and 4096² of config 4's 8192²
+   (K4-halo nsteps 8).
 6e. the sharded main path at full width, every mesh position on the one
    card: ``Model(Diffusion(0.1)).execute`` of bench.py's 16384² grid through
    ``ShardMapExecutor(make_mesh_2d(2, 2), "pallas", halo_depth=8)`` and
    through 4 row stripes (``make_mesh(4)``, the reference's), 64 steps;
-   ``"composed"`` at depth 8 on 2×2; config 4 at 8192² through the
+   ``"composed"`` at depth 8 on 2×2 in each form (``composed_variant``
+   ``"vpu"`` and ``"mxu"``); config 4 at 8192² through the
    ``field`` plan on 2×2, depth 8; an f32 ``xla`` 2×2 run at 4096², 16
    steps; ``ModelRectangular.reference_scenario`` at f64. Each run with the
    counts set to 0 just before and read just after (one halo launch per
    shard per chunk); conservation checked on every f32 run. Gates, bit for
    bit: K2 against ``SerialExecutor("pallas", substeps=8)``, K3-halo
-   against ``SerialExecutor("composed", substeps=8)``, K4-halo against
+   against ``SerialExecutor("composed", substeps=8)`` of the same form
+   (and only that form's kernel launched), K4-halo against
    serial K4, xla against serial xla, the reference scenario against the
    oracle, which must run the point subsystem (``impl == "point"``).
    Then point-flow models the point subsystem refuses (65 frozen flows,
@@ -222,6 +234,9 @@ SEED = 1234
 #: H100 SXM data-sheet peaks (NVIDIA): HBM bytes/s and f32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+#: and the dense tensor-core peaks (TF32, bf16)
+TF32_FLOPS = 495e12
+BF16_FLOPS = 989e12
 CUSTOM_OFFSETS = ((-1, 0), (1, 1), (0, -1))
 
 
@@ -288,7 +303,8 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
                 "K6" if "fused_compute" in low else
                 "K7" if "fused_scatter" in low else
                 "K2" if "fused_stencil_halo" in low else
-                "K3-halo" if "composed_halo" in low else
+                "K3-halo" if "composed" in low and "halo" in low else
+                "K3" if "composed" in low else
                 "K4-halo" if "field_stencil_halo" in low else
                 "K1" if "fused_stencil" in low else
                 "reduction" if "reduce" in low else
@@ -345,6 +361,43 @@ def larger(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
 
 def bf16_ulp(scale: float) -> float:
     return 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def k3_agrees(got, want, form: str, k: int) -> tuple[bool, float, str]:
+    """K3's gate against its plain version: the vpu form bit for bit; the
+    mxu form (tensor cores, another summation order) within
+    ``1e-6·k·max|v|`` at f32 and one bf16 ulp of the value scale at bf16.
+    Returns (ok, max abs error, the tolerance as text)."""
+    g32, w32 = got.float(), want.float()
+    err = float((g32 - w32).abs().max())
+    if form == "vpu":
+        return bool(got.equal(want)), err, "bit for bit"
+    scale = float(w32.abs().max())
+    tol = (1e-6 * k * scale if got.dtype == w32.dtype
+           else bf16_ulp(scale))
+    return err <= tol, err, f"atol={tol:.3g}"
+
+
+def k3_bounds(cs, torch, shape, k: int, dtype, origin=(0, 0),
+              global_shape=None) -> tuple[float, str, dict]:
+    """Least time for one K3 (K3-halo) call: the function's bound, the
+    larger of the bytes (the grid or shard read once and written once over
+    HBM bandwidth) and the operations of its cheapest exact form (the vpu
+    form's f32 operations over the f32 peak); and each form's own bound,
+    the bytes against that form's operations: vpu's over the f32 peak,
+    mxu's tensor-core flops (``cs.mxu_tensor_flops``) over the TF32 or bf16
+    peak. Returns (ms, by, {form: (ms, by)})."""
+    cells = shape[0] * shape[1]
+    itemsize = 4 if dtype == torch.float32 else 2
+    bytes_ms = 2 * cells * itemsize / HBM_BYTES_PER_S * 1e3
+    vpu_ms = cs.vpu_ops(shape, k, origin=origin,
+                        global_shape=global_shape) / F32_FLOPS * 1e3
+    peak = TF32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+    mxu_ms = cs.mxu_tensor_flops(shape, k, dtype, origin,
+                                 global_shape) / peak * 1e3
+    b_ms, b_by = larger(bytes_ms, vpu_ms)
+    return b_ms, b_by, {"vpu": larger(bytes_ms, vpu_ms),
+                        "mxu": larger(bytes_ms, mxu_ms)}
 
 
 def workload(np, h: int, w: int, frac: float, seed: int):
@@ -459,7 +512,7 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
     meshes = {"3x3": ((96, 1152), make_mesh_2d(3, 3, devices=[dev] * 9)),
               "stripes4": ((128, 640), make_mesh(4, devices=[dev] * 4))}
     n = {"K2": 0, "K3-halo": 0, "K4-halo": 0}
-    worst = {"K3-halo": 0.0, "K4-halo every_op": 0.0}
+    worst = {"K3-halo mxu": 0.0, "K4-halo every_op": 0.0}
 
     def shards_of(x, mesh):
         lines, columns = mesh.grid_shape
@@ -469,6 +522,39 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
     def positions(mesh):
         lines, columns = mesh.grid_shape
         return [(i, j) for i in range(lines) for j in range(columns)]
+
+    def k3_halo_case(x, g, mesh, shape, h, w, k, offs, form, what):
+        """K3-halo's ``form`` on every shard against its plain version
+        (``k3_agrees``) and the shards put together against K3 of that form
+        on the whole grid, bit for bit. Skipped where the JAX package
+        refuses the form (mxu at a width that is not 128-aligned)."""
+        bw = fs.resolve_block((h, w), x.dtype)[1]
+        if form == "mxu" and bw % fs.LANE:
+            return
+        parts = [[None] * mesh.grid_shape[1]
+                 for _ in range(mesh.grid_shape[0])]
+        ok, err = True, 0.0
+        for i, j in positions(mesh):
+            ring = exchange_ring(g, i, j, k)
+            org = (i * h, j * w)
+            got = cs.composed_halo_step(g[i][j], ring, org, shape, 0.13, k,
+                                        offs, variant=form)
+            want = cs.composed_halo_step_plain(g[i][j], ring, org, shape,
+                                               0.13, k, offs, form)
+            agree, e, _ = k3_agrees(got, want, form, k)
+            ok, err = ok and agree, max(err, e)
+            parts[i][j] = got
+        torch.cuda.synchronize()
+        mos = bool(torch.equal(assemble(parts, dev), cs.composed_dense_step(
+            x, 0.13, k, offs, variant=form)))
+        ok = ok and mos
+        n["K3-halo"] += 1
+        if form == "mxu":
+            worst["K3-halo mxu"] = max(worst["K3-halo mxu"], err)
+        record(f"K3-halo {form} {what}: max_abs_err={err:.3e} "
+               f"mosaic==K3 {mos} {'ok' if ok else 'FAIL'}", ok)
+        check(ok, f"K3-halo {form} disagrees: {what} err={err} "
+                  f"mosaic={mos}")
 
     for dtype, nsteps_set in ((torch.float32, (1, 4, 8)),
                               (torch.bfloat16, (1, 4, 8, 16))):
@@ -481,10 +567,7 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
                 for hood, offs in neighborhoods.items():
                     k2 = [[None] * mesh.grid_shape[1]
                           for _ in range(mesh.grid_shape[0])]
-                    k3 = [[None] * mesh.grid_shape[1]
-                          for _ in range(mesh.grid_shape[0])]
-                    ok2 = ok3 = True
-                    err3 = 0.0
+                    ok2 = True
                     for i, j in positions(mesh):
                         ring = exchange_ring(g, i, j, ns)
                         org = (i * h, j * w)
@@ -494,28 +577,10 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
                                                   0.13, offs, ns)
                         ok2 = ok2 and bool(torch.equal(got, want))
                         k2[i][j] = got
-                        got = cs.composed_halo_step(g[i][j], ring, org,
-                                                    shape, 0.13, ns, offs)
-                        want = cs.composed_halo_step_plain(
-                            g[i][j], ring, org, shape, 0.13, ns, offs)
-                        g32, w32 = got.float(), want.float()
-                        err3 = max(err3, float((g32 - w32).abs().max()))
-                        if dtype == torch.float32:
-                            tol = 1e-6 * ns
-                            ok3 = ok3 and bool(((g32 - w32).abs()
-                                                <= tol + tol * w32.abs())
-                                               .all())
-                        else:
-                            ok3 = ok3 and float((g32 - w32).abs().max()) \
-                                <= bf16_ulp(float(w32.abs().max()))
-                        k3[i][j] = got
                     torch.cuda.synchronize()
                     mos2 = bool(torch.equal(assemble(k2, dev),
                                             fs.pallas_dense_step(
                                                 x, 0.13, offs, nsteps=ns)))
-                    mos3 = bool(torch.equal(assemble(k3, dev),
-                                            cs.composed_dense_step(
-                                                x, 0.13, ns, offs)))
                     ok = ok2 and mos2
                     n["K2"] += 1
                     record(f"K2 {dname} {mname} {shape} ns={ns} {hood}: "
@@ -523,14 +588,10 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
                            f"{'ok' if ok else 'FAIL'}", ok)
                     check(ok, f"K2 disagrees: {dname} {mname} ns={ns} "
                               f"{hood} bitwise={ok2} mosaic={mos2}")
-                    ok = ok3 and mos3
-                    n["K3-halo"] += 1
-                    worst["K3-halo"] = max(worst["K3-halo"], err3)
-                    record(f"K3-halo {dname} {mname} {shape} k={ns} {hood}: "
-                           f"max_abs_err={err3:.3e} mosaic==K3 {mos3} "
-                           f"{'ok' if ok else 'FAIL'}", ok)
-                    check(ok, f"K3-halo disagrees: {dname} {mname} k={ns} "
-                              f"{hood} err={err3} mosaic={mos3}")
+                    for form in cs.FORMS:
+                        k3_halo_case(x, g, mesh, shape, h, w, ns, offs,
+                                     form, f"{dname} {mname} {shape} k={ns} "
+                                           f"{hood}")
             del x, g
             # K4-halo over its flow sets (Moore; config 4 also VN, custom)
             names = ("a", "b", "c")
@@ -632,8 +693,30 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
         del x, g, k2, want
     torch.cuda.empty_cache()
 
-    # the main paths' own shards: shard (1, 1) of 16384² on 2x2 (K2, K3-halo)
-    # and of config 4's 8192² (K4-halo), rings from the neighbours
+    # K3-halo on shards whose origins are not multiples of the kernels'
+    # tiles: rows at 150 and columns at 256 of a 2x3 mesh of 300 x 768 (both
+    # forms), and rows at 150, columns at 130 of 300 x 390 (vpu; the JAX
+    # package refuses mxu at a width of 130)
+    mesh23 = make_mesh_2d(2, 3, devices=[dev] * 6)
+    for shape in ((300, 768), (300, 390)):
+        for dtype, ks in ((torch.float32, (4, 8)),
+                          (torch.bfloat16, (8, 16))):
+            dname = str(dtype).removeprefix("torch.")
+            x = (0.5 + 1.5 * torch.rand(shape, generator=gen,
+                                        device=dev)).to(dtype)
+            g, h, w = shards_of(x, mesh23)
+            for k in ks:
+                for hood, offs in neighborhoods.items():
+                    for form in cs.FORMS:
+                        k3_halo_case(x, g, mesh23, shape, h, w, k, offs,
+                                     form,
+                                     f"{dname} 2x3 unaligned {shape} k={k} "
+                                     f"{hood}")
+            del x, g
+
+    # the main paths' own shards: shard (1, 1) of 16384² on 2x2 (K2, K3-halo
+    # in each form) and of config 4's 8192² (K4-halo), rings from the
+    # neighbours
     main = {}
     x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
     g = shard_tensor(x, mesh, N // 2, N // 2)
@@ -647,14 +730,16 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
     check(bool(torch.equal(got, want)),
           f"K2 disagrees at the main path's shard: err={main['K2']}")
     del got, want
-    got = cs.composed_halo_step(g[1][1], ring, (N // 2, N // 2), (N, N), 0.1,
-                                8)
-    want = cs.composed_halo_step_plain(g[1][1], ring, (N // 2, N // 2),
-                                       (N, N), 0.1, 8)
-    main["K3-halo"] = float((got - want).abs().max())
-    check(bool(((got - want).abs() <= 8e-6 + 8e-6 * want.abs()).all()),
-          f"K3-halo disagrees at the main path's shard: {main['K3-halo']}")
-    del got, want, g, ring
+    for form in cs.FORMS:
+        got = cs.composed_halo_step(g[1][1], ring, (N // 2, N // 2), (N, N),
+                                    0.1, 8, variant=form)
+        want = cs.composed_halo_step_plain(g[1][1], ring, (N // 2, N // 2),
+                                           (N, N), 0.1, 8, variant=form)
+        ok, main[f"K3-halo {form}"], _ = k3_agrees(got, want, form, 8)
+        check(ok, f"K3-halo {form} disagrees at the main path's shard: "
+                  f"{main[f'K3-halo {form}']}")
+        del got, want
+    del g, ring
     torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED)
     xs = {nm: torch.from_numpy(rng.uniform(0.5, 2.0, (N4, N4)).astype(
@@ -675,14 +760,16 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
     del got, want, gs, vals, rings
     torch.cuda.empty_cache()
     for name, count in n.items():
+        at = ", ".join(f"{key} {e:.3e}" for key, e in main.items()
+                       if key.startswith(name))
         print(f"{name}: {count} mesh cases agree with the plain version "
               f"(every shard; the shards together equal the dense kernel "
-              f"bit for bit), at the main path's shard max_abs_err="
-              f"{main[name]:.3e}", flush=True)
-    print(f"K3-halo largest error against its plain version "
-          f"{worst['K3-halo']:.3e} (K3's tolerance; K2 and K4-halo are bit "
-          f"for bit but every_op, {worst['K4-halo every_op']:.3e})",
-          flush=True)
+              f"bit for bit), at the main path's shard max_abs_err: {at}",
+              flush=True)
+    print(f"K3-halo mxu largest error against its plain version "
+          f"{worst['K3-halo mxu']:.3e} (K3's tolerance; K2, K3-halo vpu and "
+          f"K4-halo are bit for bit but every_op, "
+          f"{worst['K4-halo every_op']:.3e})", flush=True)
     return main
 
 
@@ -858,15 +945,17 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
         return want, ms
 
     def sharded_run(what, model, space, mesh_name, impl, steps, counter,
-                    want, cells, serial_ms):
+                    want, cells, serial_ms, **ex_kw):
         """One counted run, the bitwise gate against ``want``, then the
-        timed runs, the same run without exchange, and the row."""
+        timed runs, the same run without exchange, and the row. ``ex_kw``
+        goes to both executors (K3-halo's ``composed_variant``)."""
         mesh = mesh_of(mesh_name)
         ex = ShardMapExecutor(mesh, impl, halo_depth=depth if impl != "xla"
-                              else 1)
+                              else 1, **ex_kw)
         reset_counts()
         res, rep = model.execute(space, ex, steps=steps)  # raises on drift
         ran = kernel_launches()
+        k3_forms = {f: cs.halo_launches(f) for f in cs.FORMS}
         chunks = -(-steps // ex.halo_depth)
         want_launch = chunks * mesh.size if counter else 0
         check((ran[counter] if counter else 0) == want_launch
@@ -882,7 +971,7 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
                           reps=3)
         med = statistics.median(run_ms)
         zero = ShardMapExecutor(mesh, impl, halo_mode="zero",
-                                halo_depth=ex.halo_depth)
+                                halo_depth=ex.halo_depth, **ex_kw)
         zero_ms = statistics.median(timed_ms(
             torch, lambda: zero.run_model(model, space, steps), reps=3))
         prof = profile_dispatch(torch, lambda: ex.run_model(model, space,
@@ -900,7 +989,8 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
                "zero_halo_run_ms": zero_ms,
                "exchange_ms_per_chunk": (med - zero_ms) / chunks,
                "assembly_ms": assembly_ms, "serial_run_ms": serial_ms,
-               "vs_serial": med / serial_ms, "profile": prof}
+               "vs_serial": med / serial_ms, "profile": prof,
+               "k3_halo_launches_by_form": k3_forms}
         kname = {"fused_stencil_halo": "K2",
                  "composed_stencil_halo": "K3-halo",
                  "field_stencil_halo": "K4-halo"}.get(counter)
@@ -978,41 +1068,48 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
           f"conv2d 3x3 x {depth} on the padded shard {l_ms:.4f} ms (one "
           f"step {l1_ms:.4f}), bound {b_ms:.4f} ms ({b_by}; 4 shards "
           f"{4 * b_ms:.4f} ms)", flush=True)
-    # -- K3-halo on 2x2 against serial composed ----------------------------
-    want, serial_ms = serial_of(f"K3 {N}x{N} substeps={depth}", model,
-                                space, mt.SerialExecutor("composed",
-                                                         substeps=depth),
-                                STEPS)
-    sharded_run(f"K3-halo {N}x{N}", model, space, "2x2", "composed", STEPS,
-                "composed_stencil_halo", want, N * N, serial_ms)
-    del want
-    k_ms = per_call_ms(torch, lambda: cs.composed_halo_step(
-        g[1][1], ring, (h, h), (N, N), 0.1, depth, out=y))
-    xs = g[1][1].clone()
-    k3_ms = per_call_ms(torch, lambda: cs.composed_dense_step(
-        xs, 0.1, depth, out=y))
-    del xs
-    p_ms = statistics.median(timed_ms(
-        torch, lambda: cs.composed_halo_step_plain(
-            g[1][1], ring, (h, h), (N, N), 0.1, depth), reps=1, warmup=0))
+    # -- K3-halo on 2x2 against serial composed, per form -----------------
+    out["calls"]["K3-halo"] = {}
     taps = torch.from_numpy(np.array(cs.composed_taps(
         0.1, MOORE_OFFSETS, depth))).to(dev, torch.float32).view(
         1, 1, 2 * depth + 1, 2 * depth + 1)
     l_ms = statistics.median(timed_ms(
         torch, lambda: torch.nn.functional.conv2d(padded, taps), reps=5))
-    m = depth + 1  # cells of shard (1, 1) at distance > k from the edge
-    inner = (min(N - m, 2 * h) - max(m, h)) ** 2
-    b_ms, b_by = larger(2 * h * h * 4 / HBM_BYTES_PER_S * 1e3,
-                        2 * (2 * depth + 1) ** 2 * inner / F32_FLOPS * 1e3)
-    out["calls"]["K3-halo"] = {"shape": [h, h], "k": depth, "ms": k_ms,
-                               "plain_ms": p_ms, "library_ms": l_ms,
-                               "bound_ms": b_ms, "bound_by": b_by,
-                               "k3_same_shape_ms": k3_ms}
-    print(f"K3-halo float32 shard {h}x{h} k={depth}: kernel {k_ms:.4f} "
-          f"ms/call (K3 on a {h}x{h} grid {k3_ms:.4f} ms), plain "
-          f"{p_ms:.3f} ms, conv2d {2 * depth + 1}x"
-          f"{2 * depth + 1} on the padded shard {l_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    b_ms, b_by, forms = k3_bounds(cs, torch, (h, h), depth, torch.float32,
+                                  (h, h), (N, N))
+    xs = g[1][1].clone()
+    for form in cs.FORMS:
+        want, serial_ms = serial_of(
+            f"K3 {form} {N}x{N} substeps={depth}", model, space,
+            mt.SerialExecutor("composed", substeps=depth,
+                              composed_variant=form), STEPS)
+        _, row = sharded_run(f"K3-halo {form} {N}x{N}", model, space, "2x2",
+                             "composed", STEPS, "composed_stencil_halo",
+                             want, N * N, serial_ms, composed_variant=form)
+        check(row["k3_halo_launches_by_form"][form] == row["launches"] > 0,
+              f"K3-halo {form}: the sharded run launched "
+              f"{row['k3_halo_launches_by_form']}")
+        del want
+        k_ms = per_call_ms(torch, lambda: cs.composed_halo_step(
+            g[1][1], ring, (h, h), (N, N), 0.1, depth, out=y, variant=form))
+        k3_ms = per_call_ms(torch, lambda: cs.composed_dense_step(
+            xs, 0.1, depth, out=y, variant=form))
+        p_ms = statistics.median(timed_ms(
+            torch, lambda: cs.composed_halo_step_plain(
+                g[1][1], ring, (h, h), (N, N), 0.1, depth, variant=form),
+            reps=1, warmup=0))
+        out["calls"]["K3-halo"][form] = {
+            "shape": [h, h], "k": depth, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "form_bound_ms": forms[form][0], "form_bound_by": forms[form][1],
+            "k3_same_shape_ms": k3_ms}
+        print(f"K3-halo {form} float32 shard {h}x{h} k={depth}: kernel "
+              f"{k_ms:.4f} ms/call (K3 on a {h}x{h} grid {k3_ms:.4f} ms), "
+              f"plain {p_ms:.3f} ms, conv2d {2 * depth + 1}x"
+              f"{2 * depth + 1} on the padded shard {l_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), the form's bound "
+              f"{forms[form][0]:.4f} ms ({forms[form][1]})", flush=True)
+    del xs
     del g, ring, y, padded, x, space
     torch.cuda.empty_cache()
     # -- K4-halo: config 4 at 8192² through the field plan on 2x2 ---------
@@ -1582,7 +1679,10 @@ def main() -> int:
     print(f"K1: {ncases} cases bit for bit the plain version ({nclosed} with "
           f"closed-form cells; largest error {worst:.3e})", flush=True)
 
-    # -- 3b. K3 against its plain version -------------------------------------
+    # -- 3b. K3 against its plain version, per form --------------------------
+    # Each form asked for by name where the JAX package admits it (mxu: a
+    # 128-aligned block width): vpu bit for bit, mxu (tensor cores) within
+    # 1e-6·k·max|v| at f32 and one bf16 ulp of the value scale at bf16.
     k3_err = {}
     ncases = 0
     k3_shapes = [(13, 17), (77, 131), (400, 1664), (2048, 2048), (N, N)]
@@ -1592,6 +1692,7 @@ def main() -> int:
         for shape in k3_shapes:
             x = (0.5 + 1.5 * torch.rand(shape, generator=gen, device=dev)).to(
                 dtype)
+            bw = fs.resolve_block(shape, dtype)[1]
             for k in ks:
                 if k > cs.max_k(shape, dtype):
                     continue
@@ -1599,34 +1700,33 @@ def main() -> int:
                     if shape == (N, N) and not (hood == "moore"
                                                 and k == max(ks)):
                         continue  # the main path's own case only
-                    got = cs.composed_dense_step(x, 0.13, k, offs)
-                    want = cs.composed_dense_step_plain(x, 0.13, k, offs)
-                    torch.cuda.synchronize()
-                    g32, w32 = got.float(), want.float()
-                    err = float((g32 - w32).abs().max())
-                    if dtype == torch.float32:
-                        tol = 1e-6 * k
-                        ok = bool(((g32 - w32).abs()
-                                   <= tol + tol * w32.abs()).all())
-                        tol_s = f"atol=rtol={tol:.0e}"
-                    else:
-                        tol = bf16_ulp(float(w32.abs().max()))
-                        ok = err <= tol
-                        tol_s = f"atol={tol:g} (1 bf16 ulp)"
-                    ncases += 1
-                    record(f"K3 {dname} {shape} k={k} {hood}: max_abs_err="
-                           f"{err:.3e} {tol_s} {'ok' if ok else 'FAIL'}", ok)
-                    check(ok and math.isfinite(err),
-                          f"K3 disagrees with its plain version: {dname} "
-                          f"{shape} k={k} {hood} err={err}")
-                    if shape == (N, N):
-                        k3_err[dname] = err
-                    del got, want, g32, w32
+                    for form in cs.FORMS:
+                        if form == "mxu" and bw % fs.LANE:
+                            continue  # refused, as the JAX package does
+                        before = cs.launches(form)
+                        got = cs.composed_dense_step(x, 0.13, k, offs,
+                                                     variant=form)
+                        want = cs.composed_dense_step_plain(x, 0.13, k, offs,
+                                                            form)
+                        torch.cuda.synchronize()
+                        ok, err, tol_s = k3_agrees(got, want, form, k)
+                        ok = ok and cs.launches(form) == before + 1
+                        ncases += 1
+                        record(f"K3 {form} {dname} {shape} k={k} {hood}: "
+                               f"max_abs_err={err:.3e} {tol_s} "
+                               f"{'ok' if ok else 'FAIL'}", ok)
+                        check(ok and math.isfinite(err),
+                              f"K3 {form} disagrees with its plain version: "
+                              f"{dname} {shape} k={k} {hood} err={err}")
+                        if shape == (N, N):
+                            k3_err[(form, dname)] = err
+                        del got, want
             del x
             torch.cuda.empty_cache()
     print(f"K3: {ncases} cases agree with the plain version (at the main "
-          f"path's shape: f32 k=8 {k3_err['float32']:.3e}, bf16 k=16 "
-          f"{k3_err['bfloat16']:.3e})", flush=True)
+          f"path's shape: " + ", ".join(
+              f"{f} {d} {e:.3e}" for (f, d), e in sorted(k3_err.items()))
+          + ")", flush=True)
 
     # -- 3c. K6 and K7 against their plain versions ---------------------------
     def active_case(v, dtype, tile, k, plan_kw=None):
@@ -2150,7 +2250,10 @@ def main() -> int:
     check(ok, "f64 three-way bitwise gate failed")
     del three, space
 
-    # -- 6. the composed path at full width -----------------------------------
+    # -- 6. the composed path at full width, per form -------------------------
+    # "auto" resolves to mxu at f32 k=8 and bf16 k=16 (JAX's rule); the vpu
+    # form runs through the same entry point with composed_variant="vpu".
+    # Each run with the counts set to 0 just before and read just after.
     composed = {}
     for dname, sub in (("float32", 8), ("bfloat16", 16)):
         tdt = getattr(torch, dname)
@@ -2158,77 +2261,89 @@ def main() -> int:
         space = mt.CellularSpace.create(N, N, 1.0, dtype=dname)
         space = space.with_values({"value": (1.0 + 0.1 * noise).to(tdt)})
         del noise
-        ex = mt.SerialExecutor("composed", substeps=sub)
-        reset_counts()
-        out, rep = model.execute(space, ex, steps=STEPS)
-        launched = cs.launches()
-        br = rep.backend_report
-        check(rep.impl == "composed" and br["composed_k"] == sub,
-              f"composed path ran {rep.impl!r} k={br.get('composed_k')}")
-        check(launched == STEPS // sub == br["launches"],
-              f"{dname}: K3 launched {launched} times, expected "
-              f"{STEPS // sub}")
-        check(bool(torch.isfinite(out.values["value"]).all()),
-              "composed output not finite")
-        run_ms = timed_ms(torch, lambda: ex.run_model(model, space, STEPS),
-                          reps=3)
-        med = statistics.median(run_ms)
-        composed[dname] = {"substeps": sub, "k": sub, "steps": STEPS,
-                           "launches": launched, "variant": br["variant"],
-                           "conservation_error": rep.conservation_error(),
-                           "run_ms_median": med, "run_ms_all": run_ms,
-                           "cell_updates_per_s": N * N * STEPS / (med / 1e3)}
-        print(f"composed path {dname} {N}x{N} substeps={sub}: conserved "
-              f"(|d|={rep.conservation_error():.3e}), launches={launched}, "
-              f"{med / STEPS:.4f} ms/step, "
-              f"{composed[dname]['cell_updates_per_s']:.4e} cell-updates/s",
-              flush=True)
-        del out, space
+        for variant in ("auto", "vpu"):
+            ex = mt.SerialExecutor("composed", substeps=sub,
+                                   composed_variant=variant)
+            reset_counts()
+            out, rep = model.execute(space, ex, steps=STEPS)
+            br = rep.backend_report
+            form = br["form"]
+            launched = cs.launches(form)
+            check(rep.impl == "composed" and br["composed_k"] == sub,
+                  f"composed path ran {rep.impl!r} k={br.get('composed_k')}")
+            check(form == ("mxu" if variant == "auto" else "vpu"),
+                  f"{dname} {variant}: the composed path ran form {form!r}")
+            check(launched == STEPS // sub == br["launches"]
+                  and cs.launches() == launched,
+                  f"{dname} {variant}: K3 {form} launched {launched} times "
+                  f"({cs.launches()} in all), expected {STEPS // sub}")
+            check(bool(torch.isfinite(out.values["value"]).all()),
+                  "composed output not finite")
+            run_ms = timed_ms(torch, lambda: ex.run_model(model, space,
+                                                          STEPS), reps=3)
+            med = statistics.median(run_ms)
+            row = composed[f"{form} {dname}"] = {
+                "substeps": sub, "k": sub, "steps": STEPS,
+                "launches": launched, "variant": br["variant"],
+                "form": form,
+                "conservation_error": rep.conservation_error(),
+                "run_ms_median": med, "run_ms_all": run_ms,
+                "cell_updates_per_s": N * N * STEPS / (med / 1e3)}
+            print(f"composed path {form} ({variant}) {dname} {N}x{N} "
+                  f"substeps={sub}: conserved "
+                  f"(|d|={rep.conservation_error():.3e}), "
+                  f"launches={launched}, run {med:.3f} ms, "
+                  f"{med / STEPS:.4f} ms/step, "
+                  f"{row['cell_updates_per_s']:.4e} "
+                  "cell-updates/s", flush=True)
+            del out
+        del space
         torch.cuda.empty_cache()
 
     # the composed path against the K1 path on 512², 64 steps. One call of
     # each approximates the same k exact steps: K1's iterated steps round
-    # about 10 times per cell-step, K3's tap pass (2k+1)² times, each at
-    # most one f32 ulp of the scale, so one call differs by at most
-    # t = ((2k+1)² + 10k) · 2^-23 · scale (plus one bf16 ulp of the scale
-    # at bf16); carried through the calls with the per-call gain G as in
-    # phase 4.
+    # about 10 times per cell-step, the plain tap pass (2k+1)² times (the
+    # binomial form fewer), each at most one f32 ulp of the scale, so one
+    # call differs by at most t = ((2k+1)² + 10k) · 2^-23 · scale, plus, for
+    # the mxu kernel, phase 3b's 1e-6·k·scale from its plain version (and
+    # one bf16 ulp of the scale at bf16); carried through the calls with the
+    # per-call gain G as in phase 4.
     for dname, sub in (("float32", 8), ("bfloat16", 16)):
         tdt = getattr(torch, dname)
         x = (1.0 + 0.1 * torch.rand((512, 512), generator=gen,
                                     device=dev)).to(tdt)
         sp = mt.CellularSpace.create(512, 512, 1.0, dtype=dname)
         sp = sp.with_values({"value": x})
-        a, _ = model.execute(sp, mt.SerialExecutor("composed", substeps=sub),
-                             steps=STEPS)
         b, _ = model.execute(sp, mt.SerialExecutor("pallas", substeps=sub),
                              steps=STEPS)
-        got32, want32 = a.values["value"].float(), b.values["value"].float()
-        d = float((got32 - want32).abs().max())
+        want32 = b.values["value"].float()
         scale = float(want32.abs().max())
         g = gain(lambda o, s: fs.dense_step_plain(o, 0.1, MOORE_OFFSETS, s),
                  sub)
-        t = ((2 * sub + 1) ** 2 + 10 * sub) * 2.0 ** -23 * scale
-        if tdt == torch.bfloat16:
-            t += bf16_ulp(scale)
-        tol = t * sum(g ** i for i in range(STEPS // sub))
-        composed[dname].update(vs_k1_512_err=d, vs_k1_512_tol=tol)
-        print(f"composed path 512x512 {dname} substeps={sub} vs K1 path, "
-              f"{STEPS} steps: max_abs_err={d:.3e} (atol {tol:g})",
-              flush=True)
-        check(d <= tol, f"{dname}: the composed path disagrees with K1's")
+        for form in cs.FORMS:
+            a, _ = model.execute(sp, mt.SerialExecutor(
+                "composed", substeps=sub, composed_variant=form), steps=STEPS)
+            d = float((a.values["value"].float() - want32).abs().max())
+            t = ((2 * sub + 1) ** 2 + 10 * sub) * 2.0 ** -23 * scale
+            if form == "mxu":
+                t += 1e-6 * sub * scale
+            if tdt == torch.bfloat16:
+                t += bf16_ulp(scale)
+            tol = t * sum(g ** i for i in range(STEPS // sub))
+            composed[f"{form} {dname}"].update(vs_k1_512_err=d,
+                                           vs_k1_512_tol=tol)
+            print(f"composed path {form} 512x512 {dname} substeps={sub} vs "
+                  f"K1 path, {STEPS} steps: max_abs_err={d:.3e} "
+                  f"(atol {tol:g})", flush=True)
+            check(d <= tol, f"{dname} {form}: the composed path disagrees "
+                            "with K1's")
 
-    # K3 per call: kernel, plain, bound and conv2d with the same table
+    # K3 per call and form: kernel, plain, the bounds (the function's and
+    # the form's) and conv2d with the same table (TF32 off)
     for dname, k in (("float32", 8), ("bfloat16", 16)):
         tdt = getattr(torch, dname)
         x = (1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)).to(tdt)
         y = torch.empty_like(x)
-        k_ms = statistics.median(timed_ms(
-            torch, lambda: cs.composed_dense_step(x, 0.1, k, out=y),
-            reps=10))
-        p_ms = statistics.median(timed_ms(
-            torch, lambda: cs.composed_dense_step_plain(x, 0.1, k), reps=1,
-            warmup=0))
         taps = torch.from_numpy(np.array(cs.composed_taps(
             0.1, MOORE_OFFSETS, k))).to(dev, tdt).view(1, 1, 2 * k + 1,
                                                     2 * k + 1)
@@ -2236,15 +2351,24 @@ def main() -> int:
         l_ms = statistics.median(timed_ms(
             torch, lambda: torch.nn.functional.conv2d(x4, taps, padding=k),
             reps=5))
-        b_ms, b_by = larger(2 * N * N * x.element_size() / HBM_BYTES_PER_S
-                            * 1e3,
-                            cs.interior_flops((N, N), k) / F32_FLOPS * 1e3)
-        composed[dname].update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                               bound_ms=b_ms, bound_by=b_by)
-        print(f"K3 {dname} {N}x{N} k={k}: kernel {k_ms:.4f} ms/call, plain "
-              f"{p_ms:.3f} ms, conv2d {2 * k + 1}x{2 * k + 1} {l_ms:.4f} "
-              f"ms, bound {b_ms:.4f} ms ({b_by}), {k_ms / k:.4f} ms per "
-              f"step", flush=True)
+        b_ms, b_by, forms = k3_bounds(cs, torch, (N, N), k, tdt)
+        for form in cs.FORMS:
+            k_ms = statistics.median(timed_ms(
+                torch, lambda: cs.composed_dense_step(
+                    x, 0.1, k, out=y, variant=form), reps=10))
+            p_ms = statistics.median(timed_ms(
+                torch, lambda: cs.composed_dense_step_plain(
+                    x, 0.1, k, variant=form), reps=1, warmup=0))
+            composed[f"{form} {dname}"].update(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                bound_by=b_by, form_bound_ms=forms[form][0],
+                form_bound_by=forms[form][1])
+            print(f"K3 {form} {dname} {N}x{N} k={k}: kernel {k_ms:.4f} "
+                  f"ms/call, plain {p_ms:.3f} ms, conv2d {2 * k + 1}x"
+                  f"{2 * k + 1} {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"the form's bound {forms[form][0]:.4f} ms "
+                  f"({forms[form][1]}), {k_ms / k:.4f} ms per step",
+                  flush=True)
         del x, y, x4
         torch.cuda.empty_cache()
 
@@ -2764,22 +2888,29 @@ def main() -> int:
         "shape": [N, N], "dtype": dname, "nsteps": ns,
         "main_path": results[(dname, ns)],
     } for dname, ns in k1_runs]
-    for dname in ("float32", "bfloat16"):
-        c = composed[dname]
-        entries.append({
-            "name": f"K3 composed_stencil {dname}",
-            "route": "cuda",
-            "source": "mpi_model_tpu_torch/csrc/composed_stencil.cu",
-            "replaces": "mpi_model_tpu/ops/pallas_stencil.py:526",
-            "launches": c["launches"], "max_abs_err": k3_err[dname],
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": c["library_ms"],
-            "shape": [N, N], "dtype": dname, "k": c["k"],
-            "main_path": {key: c[key] for key in (
-                "steps", "substeps", "variant", "conservation_error",
-                "run_ms_median", "cell_updates_per_s", "vs_k1_512_err")},
-        })
+    for form in cs.FORMS:
+        for dname in ("float32", "bfloat16"):
+            c = composed[f"{form} {dname}"]
+            entries.append({
+                "name": f"K3 composed_stencil {form} {dname}",
+                "route": "cuda",
+                "source": "mpi_model_tpu_torch/csrc/composed_stencil.cu",
+                "replaces": "mpi_model_tpu/ops/pallas_stencil.py:526",
+                "hook": ("mpi_model_tpu/ops/composed_stencil.py:"
+                         + ("157" if form == "vpu" else "197")),
+                "launches": c["launches"],
+                "max_abs_err": k3_err[(form, dname)],
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "form_bound_ms": c["form_bound_ms"],
+                "form_bound_by": c["form_bound_by"],
+                "library_ms": c["library_ms"],
+                "shape": [N, N], "dtype": dname, "k": c["k"], "form": form,
+                "main_path": {key: c[key] for key in (
+                    "steps", "substeps", "variant", "form",
+                    "conservation_error", "run_ms_median",
+                    "cell_updates_per_s", "vs_k1_512_err")},
+            })
     for k, sub in ((1, 1), (8, 8)):
         kt = k67_time[(0.05, k)]
         row = row_of("active_fused", sub, 0.05)
@@ -2849,19 +2980,24 @@ def main() -> int:
         })
     halo_rows = {"K2": ("fused_stencil_halo", "fused_stencil.cu",
                         "mpi_model_tpu/ops/pallas_stencil.py:757",
-                        f"K2 {N}x{N}"),
-                 "K3-halo": ("composed_stencil_halo", "composed_stencil.cu",
-                             "mpi_model_tpu/ops/composed_stencil.py:323",
-                             f"K3-halo {N}x{N}"),
+                        f"K2 {N}x{N}", None),
+                 "K3-halo vpu": ("composed_stencil_halo", "composed_stencil.cu",
+                                 "mpi_model_tpu/ops/composed_stencil.py:323",
+                                 f"K3-halo vpu {N}x{N}", "vpu"),
+                 "K3-halo mxu": ("composed_stencil_halo", "composed_stencil.cu",
+                                 "mpi_model_tpu/ops/composed_stencil.py:323",
+                                 f"K3-halo mxu {N}x{N}", "mxu"),
                  "K4-halo": ("field_stencil_halo", "field_stencil.cu",
                              "mpi_model_tpu/ops/pallas_stencil.py:1396",
-                             f"K4-halo config 4 {N4}x{N4}")}
-    for kname, (fn, src, replaces, run_name) in halo_rows.items():
-        c = sharded["calls"][kname]
+                             f"K4-halo config 4 {N4}x{N4}", None)}
+    for kname, (fn, src, replaces, run_name, form) in halo_rows.items():
+        c = (sharded["calls"]["K3-halo"][form] if form
+             else sharded["calls"][kname])
         run = next(r for r in sharded["runs"] if r["what"] == run_name
                    and r["mesh"] == "2x2")
-        entries.append({
-            "name": f"{kname} {fn} float32",
+        entry = {
+            "name": (f"K3-halo {fn} {form} float32" if form
+                     else f"{kname} {fn} float32"),
             "route": "cuda",
             "source": f"mpi_model_tpu_torch/csrc/{src}",
             "replaces": replaces,
@@ -2872,7 +3008,11 @@ def main() -> int:
             "library_ms": c["library_ms"],
             "shape": c["shape"], "dtype": "float32",
             "main_path": {k: v for k, v in run.items() if k != "profile"},
-        })
+        }
+        if form:
+            entry.update(form=form, form_bound_ms=c["form_bound_ms"],
+                         form_bound_by=c["form_bound_by"])
+        entries.append(entry)
     k67_row = next(r for r in sharded_active["runs"] if r["frac"] == 0.05
                    and r["mesh"] == "2x2" and r["impl"] == "active_fused")
     kt = sharded_active["k67"]["2x2 0.05"]

@@ -1,0 +1,319 @@
+#!/usr/bin/env python3
+"""K3/K3-halo design measurements on one NVIDIA GPU (they need a card).
+
+    python3 k3_variants.py                    # the kernel's variants
+    python3 k3_variants.py --parent DIR       # and an older checkout's K3
+
+Variants: ``csrc/composed_stencil.cu`` as it is, and copies of it with one
+choice changed. The vpu form: the window rows of Moore k <= 8 (64 rows
+instead of 48, at two blocks an SM and at one), the accumulator in shared
+memory instead of registers, 48 rows instead of 64 above k = 8, one block
+an SM. The mxu form: the warp tile's width (16 columns instead of 32), the
+m16 tiles a warp stacks under one set of B fragments (1; bf16 2 instead of
+4), the block's warps across, no prefetch of the next row offset's B
+fragments, and f32's TF32 split by cvt.rna in place of integer
+operations. Every patch is checked
+against the source before anything is built: a variant whose text is no
+longer in the source stops the tool and is named.
+
+Each variant is built with the port's nvcc flags, one nvcc per variant in
+parallel, and timed in turns, two rounds: K3 on a 16384² grid (f32 k=8,
+bf16 k=16, each form) and K3-halo on each 8192² shard of a 2×2 mesh of it.
+Before each launch the output is filled with NaN, and after it the output
+is held to the plain version (``composed_dense_step_plain``; the halo
+shards to the whole grid's): the vpu form bit for bit, the mxu form within
+``1e-6·k·max|v|`` (f32) or one bf16 ulp of the scale; so each variant's
+correctness is its own. The ptxas register and spill lines of each
+variant are kept.
+
+``--parent DIR`` times ``composed_dense_step`` and ``composed_halo_step``
+(``variant="auto"``) at the same shapes in another checkout of the
+repository (for example the parent commit unpacked with ``git archive``)
+and in this one, each in a process of its own, in the order parent, this,
+this, parent.
+
+Times are CUDA events, warm, medians of 10 calls. Everything goes to
+``chiprun_out/k3_variants.json``; the last line is the card's
+``nvidia-smi --query-gpu=name,power.limit`` output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import statistics
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+N = 16384
+CASES = (("float32", 8), ("bfloat16", 16))
+K8_ROWS = ("return vpu_launch<48, 8, true, T>(in, halo, out, H, W, p, cf, "
+           "stream);")
+K16_ROWS = ("return vpu_launch<64, 16, true, T>(in, halo, out, H, W, p, cf, "
+            "stream);")
+F32_TILE = "KB = 8, KMAX = 8, REL_MIN = 0, MT = 2, WC = 4;"
+BF16_TILE = "KB = 16, KMAX = 16, REL_MIN = -8, MT = 4, WC = 4;"
+# each variant: (text, replacement) pairs, every occurrence replaced
+VARIANTS = {
+    "as_is": [],
+    "vpu_k8_64_rows": [(K8_ROWS, K8_ROWS.replace("<48, 8,", "<64, 8,"))],
+    "vpu_k8_64_rows_1_block": [
+        (K8_ROWS, K8_ROWS.replace("<48, 8,", "<64, 8,")),
+        ("constexpr int kVpuMinBlocks = 2;",
+         "constexpr int kVpuMinBlocks = 1;")],
+    "vpu_acc_shared": [("constexpr bool kAccShared = false;",
+                        "constexpr bool kAccShared = true;")],
+    "vpu_k16_48_rows": [(K16_ROWS,
+                         K16_ROWS.replace("<64, 16,", "<48, 16,"))],
+    "vpu_1_block": [("constexpr int kVpuMinBlocks = 2;",
+                     "constexpr int kVpuMinBlocks = 1;")],
+    "mxu_n16": [("constexpr int MX_N = 32;", "constexpr int MX_N = 16;")],
+    "mxu_mt1": [(F32_TILE, F32_TILE.replace("MT = 2", "MT = 1")),
+                (BF16_TILE, BF16_TILE.replace("MT = 4", "MT = 1"))],
+    "mxu_bf16_mt2_wc2": [(BF16_TILE, BF16_TILE.replace(
+        "MT = 4, WC = 4", "MT = 2, WC = 2"))],
+    "mxu_f32_wc2": [(F32_TILE, F32_TILE.replace("WC = 4", "WC = 2"))],
+    "mxu_split_by_cvt": [("constexpr bool kSplitByCvt = false;",
+                          "constexpr bool kSplitByCvt = true;")],
+    "mxu_no_prefetch": [("constexpr bool kMxuPrefetch = true;",
+                         "constexpr bool kMxuPrefetch = false;")],
+}
+
+# one process's K3/K3-halo times through the package's own wrappers
+TIMER = r"""
+import json, statistics, sys
+sys.path.insert(0, ".")
+import torch
+from mpi_model_tpu_torch.ops import composed_stencil as cs
+from mpi_model_tpu_torch.parallel.halo import exchange_ring
+N, CASES = %d, %r
+def tm(fn):
+    fn(); torch.cuda.synchronize(); out = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(); fn(); b.record(); torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+gen = torch.Generator(device="cuda").manual_seed(7)
+res = {}
+for dname, k in CASES:
+    x = (1.0 + 0.1 * torch.rand((N, N), generator=gen, device="cuda")).to(
+        getattr(torch, dname))
+    y = torch.empty_like(x)
+    res[f"K3 {dname} k={k}"] = tm(
+        lambda: cs.composed_dense_step(x, 0.1, k, out=y))
+    h = N // 2
+    g = [[x[i * h:(i + 1) * h, j * h:(j + 1) * h].contiguous()
+          for j in range(2)] for i in range(2)]
+    o = torch.empty_like(g[0][0])
+    res[f"K3-halo {dname} k={k} 4 shards"] = sum(
+        tm(lambda: cs.composed_halo_step(g[i][j], r, (i * h, j * h), (N, N),
+                                         0.1, k, out=o))
+        for i in range(2) for j in range(2)
+        for r in [exchange_ring(g, i, j, k)])
+    del x, y, g, o
+    torch.cuda.empty_cache()
+print(json.dumps(res))
+"""
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def patched(name: str) -> str:
+    """The kernel's source with variant ``name``'s patches applied."""
+    src = (HERE / "mpi_model_tpu_torch/csrc/composed_stencil.cu").read_text()
+    for old, new in VARIANTS[name]:
+        if old not in src:
+            raise RuntimeError(f"variant {name}: {old!r} is not in the source")
+        src = src.replace(old, new)
+    return src
+
+
+def build(name: str, src: str, out_dir: Path, build_mod) -> dict:
+    path = out_dir / f"{name}.cu"
+    path.write_text(src)
+    lib = out_dir / f"lib{name}.so"
+    proc = subprocess.run([build_mod.find_nvcc(),
+                           *build_mod.flags_for("composed_stencil"),
+                           "-I", str(build_mod.CSRC), "-o", str(lib),
+                           str(path)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on variant {name}:\n{proc.stderr}")
+    ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
+             if "registers" in line or "spill" in line
+             or "Compiling entry" in line]
+    return {"library": str(lib), "ptxas": ptxas}
+
+
+def agrees(torch, got, want, form: str, k: int) -> bool:
+    """The vpu form bit for bit; the mxu form within 1e-6·k·max|v| (f32)
+    or one bf16 ulp of the scale. NaN (an unwritten cell) fails both."""
+    if form == "vpu":
+        return bool(torch.equal(got, want))
+    g32, w32 = got.float(), want.float()
+    scale = float(w32.abs().max())
+    tol = (1e-6 * k * scale if got.dtype == torch.float32
+           else 2.0 ** (math.floor(math.log2(scale)) - 7))
+    return bool(((g32 - w32).abs() <= tol).all())
+
+
+def time_variants(torch, built: dict) -> list[dict]:
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.parallel.halo import exchange_ring
+
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    fp = ctypes.POINTER(ctypes.c_float)
+    libs = {}
+    for name, info in built.items():
+        lib = ctypes.CDLL(info["library"])
+        for dt in ("f32", "bf16"):
+            fn = getattr(lib, f"mm_composed_vpu_{dt}")
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, i, fp, p]
+            fn = getattr(lib, f"mm_composed_mxu_{dt}")
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, p, p]
+            fn = getattr(lib, f"mm_composed_halo_vpu_{dt}")
+            fn.argtypes = [p, p, f, f, i, i, i, i, i, fp, p]
+            fn = getattr(lib, f"mm_composed_halo_mxu_{dt}")
+            fn.argtypes = [p, p, f, f, i, i, i, i, p, p]
+        libs[name] = lib
+
+    def tm(fn):
+        if fn() != 0:
+            raise RuntimeError("a variant's launch failed")
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(10):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            out.append(a.elapsed_time(b))
+        return statistics.median(out)
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stream = torch.cuda.current_stream().cuda_stream
+    h = N // 2
+    for dname, k in CASES:
+        dtype = getattr(torch, dname)
+        x = (1.0 + 0.1 * torch.rand((N, N), generator=gen,
+                                    device="cuda")).to(dtype)
+        y = torch.empty_like(x)
+        ys = torch.empty((h, h), dtype=dtype, device="cuda")
+        g = [[x[i * h:(i + 1) * h, j * h:(j + 1) * h].contiguous()
+              for j in range(2)] for i in range(2)]
+        # the launch arguments hold raw pointers: the rings stay referenced
+        rings = {(i, j): exchange_ring(g, i, j, k)
+                 for i in range(2) for j in range(2)}
+        args = {(i, j): fs.halo_args(g[i][j], ring, (i * h, j * h), (N, N))
+                for (i, j), ring in rings.items()}
+        suffix = "f32" if dtype == torch.float32 else "bf16"
+        for form in cs.FORMS:
+            fargs = cs._form_args(form, 0.1, MOORE_OFFSETS, k, dtype, x.device)
+            want = cs.composed_dense_step_plain(x, 0.1, k, MOORE_OFFSETS, form)
+
+            def own(fn, out, ref):
+                """fn's time, and whether what it wrote into out (filled
+                with NaN first) agrees with ref."""
+                out.fill_(float("nan"))
+                ms = tm(fn)
+                return ms, agrees(torch, out, ref, form, k)
+
+            for rnd in range(2):
+                for name, lib in libs.items():
+                    dense = getattr(lib, f"mm_composed_{form}_{suffix}")
+                    halo = getattr(lib, f"mm_composed_halo_{form}_{suffix}")
+                    row = {"variant": name, "round": rnd, "dtype": dname,
+                           "k": k, "form": form}
+                    row["k3_ms"], ok3 = own(lambda: dense(
+                        x.data_ptr(), y.data_ptr(), N, N, *fargs, stream), y,
+                        want)
+                    row["k3_halo_ms"], okh = {}, True
+                    for (i, j), a in args.items():
+                        row["k3_halo_ms"][f"{i},{j}"], ok = own(
+                            lambda: halo(ctypes.addressof(a), ys.data_ptr(),
+                                         *fargs, stream), ys,
+                            want[i * h:(i + 1) * h, j * h:(j + 1) * h])
+                        okh = okh and ok
+                    row["agrees"] = {"k3": ok3, "k3_halo": okh}
+                    rows.append(row)
+                    print(f"round {rnd} {name:24s} {form} {dname:9s} k={k:2d}: "
+                          f"K3 {row['k3_ms']:.4f} ms, K3-halo 4 shards "
+                          f"{sum(row['k3_halo_ms'].values()):.4f} (agrees: "
+                          f"K3 {ok3}, K3-halo {okh})", flush=True)
+            del want
+        del x, y, ys, g, rings, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def time_tree(path: Path) -> dict:
+    proc = subprocess.run([sys.executable, "-c", TIMER % (N, CASES)],
+                          cwd=path, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"timing {path} failed:\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout whose K3/K3-halo to time in turns")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("k3_variants: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(HERE))
+    from mpi_model_tpu_torch.ops import _build
+
+    out_dir = HERE / "chiprun_out"
+    var_dir = out_dir / "k3_variants"
+    var_dir.mkdir(parents=True, exist_ok=True)
+    sources = {n: patched(n) for n in VARIANTS}
+    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+        futs = {n: pool.submit(build, n, src, var_dir, _build)
+                for n, src in sources.items()}
+        built = {n: f.result() for n, f in futs.items()}
+    for name, info in built.items():
+        print(f"{name}: " + "; ".join(
+            line for line in info["ptxas"] if "Compiling" not in line
+            and ("spill stores" in line and "0 bytes spill" not in line
+                 or "registers" in line)), flush=True)
+    result = {"card": card_line(), "variants": time_variants(torch, built),
+              "ptxas": {n: i["ptxas"] for n, i in built.items()}}
+    if args.parent is not None:
+        turns = []
+        for who in ("parent", "this", "this", "parent"):
+            path = args.parent.resolve() if who == "parent" else HERE
+            times = time_tree(path)
+            turns.append({"tree": who, **times})
+            print(f"{who}: " + ", ".join(f"{k} {v:.4f} ms"
+                                         for k, v in times.items()),
+                  flush=True)
+        result["parent_turns"] = turns
+    for p in var_dir.glob("*.so"):
+        p.unlink()
+    (out_dir / "k3_variants.json").write_text(json.dumps(result, indent=1))
+    print(result["card"], flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,265 +2,826 @@
 //
 // Replaces the TPU kernel mpi_model_tpu/ops/pallas_stencil.py::_stencil_call
 // run with the composed-filter interior hooks of
-// mpi_model_tpu/ops/composed_stencil.py (_make_vpu_hook, _make_mxu_hook),
-// reached through composed_dense_step and ComposedDiffusionStep. One call
-// advances k uniform-rate transport steps:
+// mpi_model_tpu/ops/composed_stencil.py, reached through composed_dense_step
+// and ComposedDiffusionStep. One call advances k uniform-rate transport
+// steps. The form is chosen per cell, from global coordinates: a cell at
+// distance d = min(R, H-1-R, C, W-1-C) > k from every global edge takes the
+// composed operator S^k in the form of the resolved variant; every other
+// cell takes the exact iterated path, K1's k masked steps
+// (stencil_common.cuh), because near the edge the per-cell divisor makes
+// the operator vary in space and it does not compose. Since the choice is
+// per cell, a sharded run (K3-halo) takes the same form for every cell as
+// the whole-grid run, wherever the shard edges fall.
 //
-//   - an output cell at distance > k from every global edge gets ONE pass
-//     of the k-fold filter S^k: out[r, c] = sum over (dr, dc) in [0, 2k]^2 of
-//     taps[dr][dc] * v[r + dr - k][c + dc - k], the table composed in f64 on
-//     the host (composed_taps) and passed here in f32 (k steps reach k cells
-//     out, and S is the one-step operator only at cells whose neighbors are
-//     all on the grid, so the composed table holds from distance k + 1);
-//   - every other cell takes the exact iterated path, K1's k masked steps
-//     (stencil_common.cuh), because near the edge the per-cell divisor makes
-//     the operator vary in space and it does not compose.
+// Two forms, one a JAX variant, each with its plain version in
+// ops/composed_stencil.py:
 //
-// What bounds it: operations. (2k+1)^2 multiply-adds per interior cell per
-// call against 8 (f32) or 4 (bf16) bytes of device traffic: at k = 8 that is
-// 289 FMAs a cell, ~72 flops per byte, above the card's f32 non-tensor
-// balance point (67 TFLOP/s over 3.35 TB/s = 20). This first design is
-// simple: a block loads its (TILE_H + 2k) x (TILE_W + 2k) window to shared
-// memory once and every thread runs the tap loop over its cells reading the
-// window there, with the table in constant memory (every lane of a warp
-// reads the same tap: a broadcast). Register blocking of the tap loop
-// (fewer shared loads per FMA) and the tensor-core banded form of the
-// "mxu" variant are later work. Every variant runs this one loop.
+//   - "vpu" (_make_vpu_hook): the binomial expansion
+//       S^k = sum_j coef_j * B^j,  coef_j = C(k, j) a^(k-j) b^j,
+//     B the 3 x 3 box for Moore (a = 1 - r - r/8, b = r/8) or the
+//     neighbours summed in `offsets` order (a = 1 - r, b = r/|offsets|),
+//     the coefficients formed in f64 on the host and rounded to f32 once.
+//     acc = coef_0 * v, then for j = 1..k: cur = B(cur), acc = acc +
+//     coef_j * cur. Every operation is an _rn intrinsic in that order and
+//     the source builds with --fmad=false, so the kernel equals its plain
+//     version bit for bit. Design: K1's register column walk
+//     (stencil_common.cuh): a window column a thread, bands by __shfl_sync,
+//     the warp edges through one shared row a step, cp.async windows, a
+//     block a tile at two blocks an SM; the accumulator over the tile's
+//     output rows sits in registers beside the window. Its rows are a
+//     compile-time range, so the window's rows above the tile are a
+//     compile-time offset OFF >= k (48 rows with OFF 8 for Moore k <= 8,
+//     64 with OFF 16 above; 48 with OFF 16 for the other neighbourhoods):
+//     tiles of (ROWS - 2 OFF) x (256 - 2k) cells.
+//   - "mxu" (_make_mxu_hook): the (2k+1)^2 tap correlation with the f64
+//     table rounded to f32 (composed_taps), on tensor cores (mma.sync). For
+//     each row offset dr the output rows are a product A_dr B_dr: A the
+//     window rows shifted by dr (16 rows a warp, read with ldmatrix from
+//     per-row addresses, so the shift is only an address), B_dr the banded
+//     tap matrix B_dr[m, c] = taps[dr][m - c] on 0 <= m - c <= 2k. B_dr's
+//     blocks depend on m - c only, so the host builds them once per table,
+//     in fragment order (ops/composed_stencil.py::mxu_fragments), and the
+//     warps read them through the read-only cache. A warp's tile is MT m16
+//     tiles (16 MT rows, under one set of B fragments) x MX_N columns; an A
+//     block of KB columns feeds every n8 tile whose band it meets. Precision:
+//     plain TF32 (an 11-bit significand) would miss the plain version's
+//     1e-6 k; so f32 is split, x = hi + lo with hi and lo TF32, the window
+//     here (split_tf32) and the taps on the host, and the product is
+//     hi*hi + hi*lo + lo*hi (3xTF32, about 22 bits). The tensor cores add
+//     into an f32 accumulator with truncation, a bias of about half an ulp
+//     of the running sum per MMA: one accumulator over all 2k + 1 row
+//     offsets lost about 1.3e-6 of the mass a call (f32 k = 8 on an H100),
+//     past the model's conservation check. So each row offset's products
+//     go into fresh partial sums (each A block's small terms before its
+//     hi*hi), and the partial sums are added to the result with one
+//     rounded add each: the bias falls to the scale of one row offset's
+//     chain. bf16 values are exact in bf16,
+//     so A needs no split; the taps are split into two bf16 terms (about 16
+//     bits), both into one accumulator (the result is rounded to bf16).
+//     Tiles are aligned to the global grid (origins at multiples of the
+//     block tile's rows and columns), so every cell's products land in the
+//     same MMA slots in a shard as in the whole grid and K3-halo's mosaic
+//     equals K3 bit for bit; a shard whose origin is not aligned starts
+//     with a partial tile.
 //
-// The window covers the tile plus a ring of k; only blocks that touch the
-// edge band run the iterated path, after the tap pass has written the
-// interior cells of the tile (the iterated steps overwrite the window in
-// place). Storage is float or __nv_bfloat16; the math is f32; bf16 is
-// rounded once per call, as in K1.
+// Edge tiles of both forms run their form on every cell, then the exact
+// strips (mm::exact_cells) on their cells with d <= k.
 //
-// K3-halo is the same body on one shard of a sharded grid: it replaces the
-// composed hooks run through _stencil_call in halo mode (composed_halo_step,
-// used by parallel/executors.py::ShardMapExecutor with step_impl
-// "composed"). The window reads the shard and, past its edge, the exchanged
-// ghost ring of depth d >= k (mm::HaloSource); the interior/band choice and
-// the iterated steps use the cell's global row and column against the
-// global grid. Since the choice is made per cell, a sharded run takes the
-// same path for every cell as the whole-grid run, wherever the shard edges
-// fall.
+// K3-halo is the same two bodies on one shard of a sharded grid: it replaces
+// the composed hooks run through _stencil_call in halo mode
+// (composed_halo_step, used by parallel/executors.py::ShardMapExecutor with
+// step_impl "composed"). Windows inside the shard are read from it (the
+// vpu form by cp.async); windows at its edge read the exchanged ghost ring
+// of depth d >= k through mm::HaloSource; forms and counts use the cell's
+// global row and column against the global grid.
 //
-// C interface (loaded with ctypes): each entry point returns the
-// cudaError_t of its launch (or of the table copy), 0 on success.
+// Storage is float or __nv_bfloat16; the math is f32; bf16 is rounded once
+// per call, as in K1.
+//
+// C interface (loaded with ctypes): one entry point a form, dtype and mode,
+// each returning the cudaError_t of its launch, 0 on success.
 
 #include "stencil_common.cuh"
 
 namespace {
 
-constexpr int TILE_H = 32;
-constexpr int TILE_W = 128;
 constexpr int MAX_K = 16;
-constexpr int MAX_TAPS = (2 * MAX_K + 1) * (2 * MAX_K + 1);
+constexpr int NWARPS = mm::kThreadsY;
 constexpr int DEFAULT_SMEM_LIMIT = 48 * 1024;
 
-__constant__ float c_taps[MAX_TAPS];
+using mm::StepParams;
+using mm::Tiling;
+using mm::piece_floats;
 
-int smem_of(int k) {
-  return 2 * (TILE_H + 2 * k) * (TILE_W + 2 * k) *
-         static_cast<int>(sizeof(float));
-}
+// The vpu form's f32 coefficients coef_0 .. coef_k (a __grid_constant__
+// kernel parameter: a step indexes it in place).
+struct Coefs {
+  float c[MAX_K + 1];
+};
 
-// One block's work on the [h, w] output whose cells `src` reads at its
-// global origin: the tap pass on the tile's interior cells, then, in blocks
-// that reach the edge band, the iterated path on the band cells. The
-// interior/band choice is per cell, from its global row and column.
-template <typename T, typename Src>
-__device__ __forceinline__ void composed_body(const Src& src,
-                                              T* __restrict__ out, int h,
-                                              int w, float rate, float keep,
-                                              int k, int mask9, int noff,
-                                              int offcodes) {
-  extern __shared__ float smem[];
-  const int WH = TILE_H + 2 * k;
-  const int WW = TILE_W + 2 * k;
-  const int ntap = 2 * k + 1;
-  const int m = k + 1;  // first row/column the table is exact on
-  const int H = src.gH();
-  const int W = src.gW();
-  float* val = smem;
-  float* share = smem + WH * WW;
-  const int tr0 = static_cast<int>(blockIdx.y) * TILE_H;  // tile origin
-  const int tc0 = static_cast<int>(blockIdx.x) * TILE_W;
-  const int gr0 = src.row0() + tr0;  // the tile's global origin
-  const int gc0 = src.col0() + tc0;
-
-  mm::load_window_f32(src, val, tr0 - k, tc0 - k, WH, WW);
-  __syncthreads();
-
-  // Interior cells: one pass of the composed table, taps in row-major order.
-  for (int i = threadIdx.y; i < TILE_H; i += mm::kThreadsY) {
-    if (tr0 + i >= h) break;
-    const int r = gr0 + i;
-    if (r < m || r >= H - m) continue;
-    for (int j = threadIdx.x; j < TILE_W; j += mm::kThreadsX) {
-      if (tc0 + j >= w) break;
-      const int c = gc0 + j;
-      if (c < m || c >= W - m) continue;
-      const float* base = val + i * WW + j;
-      float acc = 0.f;
-      for (int dr = 0; dr < ntap; ++dr) {
-        const float* row = base + dr * WW;
-        const float* tp = c_taps + dr * ntap;
-#pragma unroll 4
-        for (int dc = 0; dc < ntap; ++dc) {
-          acc += tp[dc] * row[dc];
-        }
-      }
-      mm::from_f32(out + static_cast<size_t>(tr0 + i) * w + tc0 + j, acc);
-    }
-  }
-
-  // Blocks that reach the edge band: the exact iterated path for the cells
-  // within k of an edge. `near` is uniform over the block.
-  const bool near = gr0 < m || gr0 + TILE_H > H - m || gc0 < m ||
-                    gc0 + TILE_W > W - m;
-  if (!near) return;
-  __syncthreads();  // the tap pass has finished reading the window
-  mm::iterate_exact_f32(val, share, gr0 - k, gc0 - k, WH, WW, H, W, rate,
-                        keep, k, mask9, noff, offcodes);
-  for (int i = threadIdx.y; i < TILE_H; i += mm::kThreadsY) {
-    if (tr0 + i >= h) break;
-    const int r = gr0 + i;
-    const bool row_band = r < m || r >= H - m;
-    for (int j = threadIdx.x; j < TILE_W; j += mm::kThreadsX) {
-      if (tc0 + j >= w) break;
-      const int c = gc0 + j;
-      if (row_band || c < m || c >= W - m) {
-        mm::from_f32(out + static_cast<size_t>(tr0 + i) * w + tc0 + j,
-                     val[(i + k) * WW + (j + k)]);
-      }
-    }
-  }
-}
-
-// K3: a whole [H, W] grid.
-template <typename T>
-__global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
-    composed_kernel(const T* __restrict__ in, T* __restrict__ out, int H,
-                    int W, float rate, float keep, int k, int mask9,
-                    int noff, int offcodes) {
-  composed_body(mm::DenseSource<T>{in, H, W}, out, H, W, rate, keep, k,
-                mask9, noff, offcodes);
-}
-
-// K3-halo: one shard and its ghost ring (depth >= k); `out` is [h, w].
-template <typename T>
-__global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
-    composed_halo_kernel(const mm::HaloSource<T> src, T* __restrict__ out,
-                         float rate, float keep, int k, int mask9, int noff,
-                         int offcodes) {
-  composed_body(src, out, src.h, src.w, rate, keep, k, mask9, noff,
-                offcodes);
-}
-
-bool valid_k(int k, int mask9, int noff) {
-  return k >= 1 && k <= MAX_K && (mask9 & ~0x1EF) == 0 && mask9 != 0 &&
+bool valid_k(int k, int kmax, int mask9, int noff) {
+  return k >= 1 && k <= kmax && (mask9 & ~0x1EF) == 0 && mask9 != 0 &&
          noff == __builtin_popcount(mask9);
 }
 
-// The table rides the stream: a later call's table cannot overtake this
-// call's launch. Then the kernel's shared-memory limit, raised once it
-// needs more than the default 48 KB (`limit` is the instance's record).
-template <typename K>
-cudaError_t prepare(K kernel, const void* taps_dev, int k, int* limit,
-                    cudaStream_t st) {
-  const int ntap = 2 * k + 1;
-  cudaError_t e = cudaMemcpyToSymbolAsync(
-      c_taps, taps_dev, sizeof(float) * ntap * ntap, 0,
-      cudaMemcpyDeviceToDevice, st);
-  if (e != cudaSuccess) return e;
-  const int smem = smem_of(k);
-  if (smem > *limit) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return e;
-    *limit = smem;
+// -- the vpu form -------------------------------------------------------------
+
+// Blocks an SM the vpu kernels are built for (128 registers a thread at 2),
+// and where the accumulator lives (registers; shared memory, one f32 a
+// cell, when true). Measured on the H100: k3_variants.py, PERF.md.
+constexpr int kVpuMinBlocks = 2;
+constexpr bool kAccShared = false;
+
+// kThreadsY warps' exchange, (kAccShared) the accumulator, then the staging
+// buffer or the exact buffers.
+template <typename T, int ROWS, int OFF>
+int vpu_smem(int k) {
+  const int exact = 2 * piece_floats(k) * static_cast<int>(sizeof(float));
+  const int stage = mm::stage_bytes<T, ROWS>();
+  const int work = ((stage > exact ? stage : exact) + 15) / 16 * 16;
+  const int acc = kAccShared ? (ROWS - 2 * OFF) * mm::kWinW * 4 : 0;
+  return mm::kExchFloats<ROWS> * static_cast<int>(sizeof(float)) + work +
+         acc;
+}
+
+// Block t of `tl`: the binomial sum of tile t in registers, written where a
+// cell has d > k, then the exact strips of an edge tile.
+template <int ROWS, int OFF, bool MOORE, typename T, typename Src>
+__device__ __forceinline__ void vpu_body(const Src& src, T* __restrict__ out,
+                                         const StepParams& p,
+                                         const Coefs& cf, const Tiling& tl) {
+  constexpr int TH = ROWS - 2 * OFF;  // the tile's rows
+  extern __shared__ __align__(16) float smem[];
+  float* ex = smem;                            // warp-edge exchange
+  float* accs = smem + mm::kExchFloats<ROWS>;  // (kAccShared) accumulator
+  float* work = accs + (kAccShared ? TH * mm::kWinW : 0);  // staging, exact
+  T* stage = reinterpret_cast<T*>(work);
+  const int t = blockIdx.x;
+  const int k = p.nsteps;
+  const bool whole = tl.interior(t);
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int skew = mm::stage_window<ROWS>(src, p, tl, t, whole, stage);
+  for (int q = j; q < mm::kExchFloats<ROWS>; q += mm::kWinW) ex[q] = 0.f;
+  mm::cp_async_wait_all();
+  __syncthreads();
+  float v[ROWS];
+  {
+    const T* col = stage + skew + j;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      v[i] = mm::to_f32(col[i * mm::kStagePitch<T>]);
+    }
   }
-  return cudaSuccess;
+  // acc = coef_0 * v over the tile's rows
+  float acc[kAccShared ? 1 : TH];
+  accs += j;
+  if constexpr (kAccShared) {
+#pragma unroll
+    for (int q = 0; q < TH; ++q) {
+      accs[q * mm::kWinW] = __fmul_rn(cf.c[0], v[OFF + q]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < TH; ++q) acc[q] = __fmul_rn(cf.c[0], v[OFF + q]);
+  }
+  int drow[8], dcol[8];
+  mm::offset_rows_cols(p.offcodes, drow, dcol);
+  for (int s = 0; s < k; ++s) {
+    const float cj = cf.c[s + 1];
+    mm::walk_step<ROWS, MOORE>(
+        v, ex + (s & 1) * mm::kEdgeSlots * ROWS, drow, dcol, p.noff,
+        [&](int i, float, float g) {
+          if (i >= OFF && i < ROWS - OFF) {
+            if constexpr (kAccShared) {
+              float* a = accs + (i - OFF) * mm::kWinW;
+              *a = __fadd_rn(*a, __fmul_rn(cj, g));
+            } else {
+              acc[i - OFF] = __fadd_rn(acc[i - OFF], __fmul_rn(cj, g));
+            }
+          }
+          return g;
+        });
+  }
+
+  // columns [k, kWinW - k) of the tile's rows
+  const int r = tl.row_of(t);
+  const int c = tl.col_of(t) + j - k;
+  if (j >= k && j < mm::kWinW - k && c < tl.w) {
+#pragma unroll
+    for (int q = 0; q < TH; ++q) {
+      if (whole || (r + q < tl.h &&
+                    mm::edge_distance(tl.R0 + r + q, tl.C0 + c, tl.H,
+                                      tl.W) > k)) {
+        float a;
+        if constexpr (kAccShared) {
+          a = accs[q * mm::kWinW];
+        } else {
+          a = acc[q];
+        }
+        mm::from_f32(out + static_cast<size_t>(r + q) * tl.w + c, a);
+      }
+    }
+  }
+  if (!whole) {
+    // the cells with d <= k, in the staging buffer's space
+    __syncthreads();
+    mm::exact_cells(src, out, p, tl, tl.row_of(t),
+                    min(tl.row_of(t) + tl.th, tl.h), tl.col_of(t),
+                    min(tl.col_of(t) + tl.tw, tl.w), work,
+                    work + piece_floats(k));
+  }
+}
+
+// K3 vpu: a whole [H, W] grid.
+template <int ROWS, int OFF, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
+    composed_vpu_kernel(const T* __restrict__ in, T* __restrict__ out,
+                        StepParams p, const __grid_constant__ Coefs cf,
+                        Tiling tl) {
+  vpu_body<ROWS, OFF, MOORE>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p, cf,
+                             tl);
+}
+
+// K3-halo vpu: one shard and its ghost ring; `out` is the shard's [h, w].
+template <int ROWS, int OFF, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
+    composed_vpu_halo_kernel(const mm::HaloSource<T> src,
+                             T* __restrict__ out, StepParams p,
+                             const __grid_constant__ Coefs cf, Tiling tl) {
+  vpu_body<ROWS, OFF, MOORE>(src, out, p, cf, tl);
+}
+
+// The largest k each dtype composes (ops/composed_stencil.py::max_k: the
+// window's ghost depth, 8 rows f32, 16 bf16).
+template <typename T>
+constexpr int kMaxK = sizeof(T) == 4 ? 8 : 16;
+
+template <int ROWS, int OFF, bool MOORE, typename T>
+int vpu_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
+               int W, StepParams p, const Coefs& cf, void* stream) {
+  static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
+  static int limit_halo = DEFAULT_SMEM_LIMIT;
+  const int smem = vpu_smem<T, ROWS, OFF>(p.nsteps);
+  if (halo == nullptr) {
+    p.vec = mm::rows_aligned<T>(in, W);
+    const Tiling tl =
+        mm::make_tiling(ROWS, OFF, p.nsteps, H, W, 0, 0, H, W);
+    return static_cast<int>(mm::launch_blocks(
+        composed_vpu_kernel<ROWS, OFF, MOORE, T>, smem, tl.tiles, &limit,
+        stream, in, static_cast<T*>(out), p, cf, tl));
+  }
+  const mm::HaloSource<T> src(*halo);
+  p.vec = mm::rows_aligned<T>(halo->shard, halo->w);
+  const Tiling tl = mm::make_tiling(ROWS, OFF, p.nsteps, src.h, src.w,
+                                    src.R0, src.C0, src.H, src.W);
+  return static_cast<int>(mm::launch_blocks(
+      composed_vpu_halo_kernel<ROWS, OFF, MOORE, T>, smem, tl.tiles,
+      &limit_halo, stream, src, static_cast<T*>(out), p, cf, tl));
+}
+
+// The window of a call: Moore 48 rows (OFF 8) up to k = 8 and 64 (OFF 16)
+// above; other neighbourhoods 48 rows (OFF 16), their walk holds more.
+template <typename T>
+int vpu(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
+        const StepParams& p, const float* coefs, void* stream) {
+  if (!valid_k(p.nsteps, kMaxK<T>, p.mask9, p.noff) || coefs == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Coefs cf = {};
+  for (int j = 0; j <= p.nsteps; ++j) cf.c[j] = coefs[j];
+  if (!p.moore) {
+    return vpu_launch<48, 16, false, T>(in, halo, out, H, W, p, cf, stream);
+  }
+  if (p.nsteps <= 8) {
+    return vpu_launch<48, 8, true, T>(in, halo, out, H, W, p, cf, stream);
+  }
+  if constexpr (kMaxK<T> > 8) {
+    return vpu_launch<64, 16, true, T>(in, halo, out, H, W, p, cf, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// -- the mxu form -------------------------------------------------------------
+
+// The MMA shapes and tiles, by storage type. f32: m16n8k8 TF32 (A blocks of
+// KB = 8 columns); bf16: m16n8k16 (KB = 16). A warp's output tile is MT m16
+// tiles down (16 MT rows) by MX_N columns (MX_N / 8 n8 tiles): the B
+// fragments of a row offset, held in registers, serve its MT m-tiles. The
+// block's warps stand NWARPS / WC down and WC across, so its tile is
+// BH x BW. REL_MIN is the least offset rel = (an A block's first column) -
+// (an n8 tile's first column) whose B block meets the band; an A block of
+// n8 tile nt at offset rel takes B block (rel - REL_MIN) / 8 of the row
+// offset's NB. Chosen by measurement on the H100 (k3_variants.py, PERF.md).
+constexpr int MX_N = 32;
+constexpr int MX_NT = MX_N / 8;
+// whether a row offset's B fragments are loaded during the one before
+constexpr bool kMxuPrefetch = true;
+
+template <typename T>
+struct Mxu;
+template <>
+struct Mxu<float> {
+  static constexpr int KB = 8, KMAX = 8, REL_MIN = 0, MT = 2, WC = 4;
+};
+template <>
+struct Mxu<__nv_bfloat16> {
+  static constexpr int KB = 16, KMAX = 16, REL_MIN = -8, MT = 4, WC = 4;
+};
+
+template <typename T>
+__host__ __device__ constexpr int mx_bh() {
+  return 16 * Mxu<T>::MT * (NWARPS / Mxu<T>::WC);
+}
+template <typename T>
+__host__ __device__ constexpr int mx_bw() {
+  return MX_N * Mxu<T>::WC;
+}
+template <typename T>
+__host__ __device__ constexpr int mx_nb() {
+  return (2 * Mxu<T>::KMAX + 7 - Mxu<T>::REL_MIN) / 8 + 1;
+}
+// A blocks a warp reads (at KMAX), and the window's allocated columns
+template <typename T>
+__host__ __device__ constexpr int mx_na() {
+  return (MX_N + 2 * Mxu<T>::KMAX + Mxu<T>::KB - 1) / Mxu<T>::KB;
+}
+template <typename T>
+__host__ __device__ constexpr int mx_cols() {
+  return (Mxu<T>::WC - 1) * MX_N + mx_na<T>() * Mxu<T>::KB;
+}
+// row pitch in elements: an odd number of 16-byte units, so the eight rows
+// of an ldmatrix read fall in distinct banks
+template <typename T>
+__host__ __device__ constexpr int mx_pitch() {
+  constexpr int unit = 16 / static_cast<int>(sizeof(T));
+  constexpr int units = (mx_cols<T>() + unit - 1) / unit;
+  return (units % 2 ? units : units + 1) * unit;
+}
+template <typename T>
+__host__ __device__ constexpr int mx_rows() {
+  return mx_bh<T>() + 2 * Mxu<T>::KMAX;
+}
+template <typename T>
+int mxu_smem(int k) {
+  const int exact = 2 * piece_floats(k) * static_cast<int>(sizeof(float));
+  const int window =
+      mx_rows<T>() * mx_pitch<T>() * static_cast<int>(sizeof(T));
+  return exact > window ? exact : window;
+}
+
+// The block tiles of one call, aligned to the global grid: tile (i, j) has
+// global origin ((tr0 + i) BH, (tc0 + j) BW).
+struct MxuTiles {
+  int k, tr0, tc0, tiles_c;
+  Tiling g;  // the array's geometry (h, w, R0, C0, H, W) and k
+};
+
+// How an f32 A value x is split into TF32 terms, x ~ hi + lo: by integer
+// operations (hi = x with its 13 low significand bits cleared, exact;
+// lo = x - hi, exact in f32, rounded to TF32 half away from zero by adding
+// half a TF32 ulp to its bits and clearing them), or by cvt.rna for both.
+// The two differ only in hi's rounding; either leaves |x - hi - lo| within
+// a TF32 half-ulp of lo. Measured on the H100: k3_variants.py, PERF.md.
+constexpr bool kSplitByCvt = false;
+
+__device__ __forceinline__ unsigned tf32_of(float x) {
+  unsigned u;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(x));
+  return u;
+}
+
+__device__ __forceinline__ void split_tf32(unsigned x, unsigned& hi,
+                                           unsigned& lo) {
+  if constexpr (kSplitByCvt) {
+    hi = tf32_of(__uint_as_float(x));
+    lo = tf32_of(__uint_as_float(x) - __uint_as_float(hi));
+  } else {
+    hi = x & 0xFFFFE000u;
+    const unsigned r =
+        __float_as_uint(__fsub_rn(__uint_as_float(x), __uint_as_float(hi)));
+    lo = (r + 0x1000u) & 0xFFFFE000u;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    uint2 b, float) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
+                                    uint2 b, __nv_bfloat16) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// the array's extent, for the inside test
+template <typename T>
+__device__ __forceinline__ int src_h(const mm::DenseSource<T>& s) {
+  return s.H;
+}
+template <typename T>
+__device__ __forceinline__ int src_w(const mm::DenseSource<T>& s) {
+  return s.W;
+}
+template <typename T>
+__device__ __forceinline__ int src_h(const mm::HaloSource<T>& s) {
+  return s.h;
+}
+template <typename T>
+__device__ __forceinline__ int src_w(const mm::HaloSource<T>& s) {
+  return s.w;
+}
+
+// Stage the window of the tile at local (lr0, lc0) as stored: rows
+// [lr0 - k, lr0 + BH + k), columns [lc0 - k, lc0 + BW + k) of the array,
+// zero off the grid and in the columns past them.
+template <typename T, typename Src>
+__device__ __forceinline__ void mx_stage(const Src& src, int lr0, int lc0,
+                                         int k, T* win) {
+  constexpr int P = mx_pitch<T>();
+  const int rows = mx_bh<T>() + 2 * k;
+  const int cols = mx_bw<T>() + 2 * k;
+  const int r0 = lr0 - k;
+  const int c0 = lc0 - k;
+  const bool inside = r0 >= 0 && c0 >= 0 && r0 + rows <= src_h(src) &&
+                      c0 + cols <= src_w(src);
+  for (int i = threadIdx.y; i < rows; i += NWARPS) {
+    const T* row = inside ? mm::array_of(src) +
+                                static_cast<size_t>(r0 + i) * src_w(src) + c0
+                          : nullptr;
+#pragma unroll 2
+    for (int j = threadIdx.x; j < mx_cols<T>(); j += 32) {
+      float x = 0.f;
+      if (j < cols) x = inside ? mm::to_f32(row[j]) : src.at(r0 + i, c0 + j);
+      mm::from_f32(win + i * P + j, x);
+    }
+  }
+}
+
+// Block t: the tile's tap correlation on tensor cores, written where a cell
+// has d > k, then the exact strips of an edge tile. `frags` is the B table:
+// [2k+1][NB][2 terms][32 lanes] uint2, in mma.sync's B fragment order. f32:
+// each A fragment is split here (split_tf32), and each
+// row offset's products go into fresh partial sums that are added to `acc`
+// with one rounded add (see the header). bf16: both tap terms to `acc`.
+template <typename T, typename Src>
+__device__ __forceinline__ void mxu_body(const Src& src, T* __restrict__ out,
+                                         const StepParams& p,
+                                         const uint2* __restrict__ frags,
+                                         const MxuTiles& mt) {
+  using M = Mxu<T>;
+  constexpr int KB = M::KB;
+  constexpr int MT = M::MT;
+  constexpr int NB = mx_nb<T>();
+  constexpr int NA = mx_na<T>();
+  constexpr int P = mx_pitch<T>();
+  constexpr int BH = mx_bh<T>();
+  constexpr int BW = mx_bw<T>();
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int ES = static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) float smem[];
+  T* win = reinterpret_cast<T*>(smem);
+  const Tiling& g = mt.g;
+  const int k = mt.k;
+  const int bt = blockIdx.x;
+  const int lr0 = (mt.tr0 + bt / mt.tiles_c) * BH - g.R0;  // local origin
+  const int lc0 = (mt.tc0 + bt % mt.tiles_c) * BW - g.C0;
+  // the tile's part of the array, [ar0, ar1) x [ac0, ac1), and whether a
+  // cell of it has d <= k (uniform over the block)
+  const int ar0 = max(lr0, 0), ar1 = min(lr0 + BH, g.h);
+  const int ac0 = max(lc0, 0), ac1 = min(lc0 + BW, g.w);
+  const bool near = g.R0 + ar0 < k + 1 || g.R0 + ar1 > g.H - 1 - k ||
+                    g.C0 + ac0 < k + 1 || g.C0 + ac1 > g.W - 1 - k;
+  const bool whole = !near && ar0 == lr0 && ac0 == lc0 &&
+                     ar1 == lr0 + BH && ac1 == lc0 + BW;
+
+  mx_stage<T>(src, lr0, lc0, k, win);
+  __syncthreads();
+
+  const int lane = threadIdx.x;
+  const int wr = threadIdx.y / M::WC;
+  const int wc = threadIdx.y % M::WC;
+  // this lane's ldmatrix row address: row (lane & 7) + 8 ((lane >> 3) & 1),
+  // 16-byte unit (lane >> 4), of the warp's first A block at dr = 0
+  const unsigned char* a_base =
+      reinterpret_cast<const unsigned char*>(win) +
+      ((wr * 16 * MT + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
+       wc * MX_N) * ES + (lane >> 4) * 16;
+  // f32: acc sums the row offsets' partial sums, one rounded add each;
+  // bf16: the MMAs accumulate into acc directly
+  float acc[MT][MX_NT][4], part[F32 ? MT : 1][MX_NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int nt = 0; nt < MX_NT; ++nt) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[m][nt][q] = 0.f;
+    }
+  }
+  const T tag{};
+  // the row offset's B fragments: NB blocks, 2 terms
+  uint2 b[NB][2], bn[NB][2];
+  const auto load_b = [&](uint2 (&dst)[NB][2], int dr) {
+    const uint2* fr = frags + static_cast<size_t>(dr) * NB * 2 * 32 + lane;
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      dst[q][0] = __ldg(fr + (2 * q) * 32);
+      dst[q][1] = __ldg(fr + (2 * q + 1) * 32);
+    }
+  };
+  // the B block of A block a for n8 tile nt, or -1 where it misses the band
+  const auto block_of = [&](int a, int nt) {
+    const int rel = a * KB - 8 * nt;
+    const int q = (rel - M::REL_MIN) / 8;
+    return rel < M::REL_MIN || rel > 2 * k + 7 || q >= NB ? -1 : q;
+  };
+  load_b(b, 0);
+  for (int dr = 0; dr <= 2 * k; ++dr) {
+    if constexpr (F32) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < MX_NT; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) part[m][nt][q] = 0.f;
+        }
+      }
+    }
+    if constexpr (kMxuPrefetch) {
+      if (dr < 2 * k) load_b(bn, dr + 1);  // in flight under this offset
+    } else if (dr > 0) {
+      load_b(b, dr);
+    }
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      if (a * KB >= MX_N + 2 * k) break;  // past every n8 tile's band
+      // A block a of each m-tile (f32: split); consecutive MMAs below go
+      // to different accumulators
+      unsigned ah[MT][4], al[F32 ? MT : 1][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        ldsm_x4(ah[m], a_base + ((m * 16 + dr) * P + a * KB) * ES);
+        if constexpr (F32) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) split_tf32(ah[m][q], ah[m][q], al[m][q]);
+        }
+      }
+      // f32: the two small products, then hi*hi, into the row offset's
+      // partial sums; bf16: the taps' two terms into acc
+#pragma unroll
+      for (int t = 0; t < (F32 ? 3 : 2); ++t) {
+#pragma unroll
+        for (int nt = 0; nt < MX_NT; ++nt) {
+          const int q = block_of(a, nt);
+          if (q < 0) continue;
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if constexpr (F32) {
+              mma(part[m][nt], t == 1 ? al[m] : ah[m],
+                  b[q][t == 0 ? 1 : 0], tag);
+            } else {
+              mma(acc[m][nt], ah[m], b[q][1 - t], tag);
+            }
+          }
+        }
+      }
+    }
+    if constexpr (F32) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+#pragma unroll
+        for (int nt = 0; nt < MX_NT; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[m][nt][q] = __fadd_rn(acc[m][nt][q], part[m][nt][q]);
+          }
+        }
+      }
+    }
+    if constexpr (kMxuPrefetch) {
+#pragma unroll
+      for (int q = 0; q < NB; ++q) {
+        b[q][0] = bn[q][0];
+        b[q][1] = bn[q][1];
+      }
+    }
+  }
+
+  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
+  const int gr = lane >> 2;
+  const int tc = 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int nt = 0; nt < MX_NT; ++nt) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = lr0 + (wr * MT + m) * 16 + gr + (q >= 2 ? 8 : 0);
+        const int c = lc0 + wc * MX_N + nt * 8 + tc + (q & 1);
+        if (whole ||
+            (r >= 0 && r < g.h && c >= 0 && c < g.w &&
+             mm::edge_distance(g.R0 + r, g.C0 + c, g.H, g.W) > k)) {
+          mm::from_f32(out + static_cast<size_t>(r) * g.w + c,
+                       acc[m][nt][q]);
+        }
+      }
+    }
+  }
+  if (near) {
+    __syncthreads();  // the window is dead: the exact buffers take its place
+    mm::exact_cells(src, out, p, g, ar0, ar1, ac0, ac1, smem,
+                    smem + piece_floats(k));
+  }
+}
+
+// K3 mxu: a whole [H, W] grid.
+template <typename T>
+__global__ void __launch_bounds__(32 * NWARPS, 2)
+    composed_mxu_kernel(const T* __restrict__ in, T* __restrict__ out,
+                        StepParams p, const uint2* __restrict__ frags,
+                        MxuTiles mt) {
+  mxu_body(mm::DenseSource<T>{in, mt.g.H, mt.g.W}, out, p, frags, mt);
+}
+
+// K3-halo mxu: one shard and its ghost ring; `out` is the shard's [h, w].
+template <typename T>
+__global__ void __launch_bounds__(32 * NWARPS, 2)
+    composed_mxu_halo_kernel(const mm::HaloSource<T> src,
+                             T* __restrict__ out, StepParams p,
+                             const uint2* __restrict__ frags, MxuTiles mt) {
+  mxu_body(src, out, p, frags, mt);
 }
 
 template <typename T>
-int launch(const void* in, void* out, const void* taps_dev, int H, int W,
-           float rate, float keep, int k, int mask9, int noff, int offcodes,
-           void* stream) {
-  if (!valid_k(k, mask9, noff) || H < 0 || W < 0) {
+int mxu(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
+        const StepParams& p, const void* frags, void* stream) {
+  if (!valid_k(p.nsteps, Mxu<T>::KMAX, p.mask9, p.noff) ||
+      frags == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
+  static int limit_halo = DEFAULT_SMEM_LIMIT;
+  constexpr int BH = mx_bh<T>();
+  constexpr int BW = mx_bw<T>();
+  MxuTiles mt;
+  mt.k = p.nsteps;
+  int h = H, w = W, R0 = 0, C0 = 0;
+  if (halo != nullptr) {
+    h = halo->h;
+    w = halo->w;
+    R0 = halo->R0;
+    C0 = halo->C0;
+    H = halo->H;
+    W = halo->W;
+  }
+  mt.g = Tiling{};  // the geometry exact_cells reads
+  mt.g.n = p.nsteps;
+  mt.g.h = h;
+  mt.g.w = w;
+  mt.g.R0 = R0;
+  mt.g.C0 = C0;
+  mt.g.H = H;
+  mt.g.W = W;
+  mt.tr0 = R0 / BH;
+  mt.tc0 = C0 / BW;
+  const int tiles_r = (R0 + h + BH - 1) / BH - mt.tr0;
+  mt.tiles_c = (C0 + w + BW - 1) / BW - mt.tc0;
+  const int smem = mxu_smem<T>(p.nsteps);
+  const auto* fr = static_cast<const uint2*>(frags);
+  if (halo == nullptr) {
+    return static_cast<int>(mm::launch_blocks(
+        composed_mxu_kernel<T>, smem, tiles_r * mt.tiles_c, &limit, stream,
+        in, static_cast<T*>(out), p, fr, mt));
+  }
+  return static_cast<int>(mm::launch_blocks(
+      composed_mxu_halo_kernel<T>, smem, tiles_r * mt.tiles_c, &limit_halo,
+      stream, mm::HaloSource<T>(*halo), static_cast<T*>(out), p, fr, mt));
+}
+
+StepParams make_params(float rate, float keep, int k, int mask9, int noff,
+                       int offcodes, int moore) {
+  StepParams p = {};
+  p.nsteps = k;
+  p.mask9 = mask9;
+  p.noff = noff;
+  p.offcodes = offcodes;
+  p.moore = moore;
+  p.rate = rate;
+  p.keep = keep;
+  return p;
+}
+
+template <typename T>
+int dense(int form, const void* in, void* out, int H, int W,
+          const StepParams& p, const void* table, void* stream) {
+  if (H < 0 || W < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (H == 0 || W == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static int smem_limit = DEFAULT_SMEM_LIMIT;  // per template instance
-  cudaError_t e = prepare(composed_kernel<T>, taps_dev, k, &smem_limit, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H);
-  const dim3 block(mm::kThreadsX, mm::kThreadsY);
-  composed_kernel<T><<<grid, block, smem_of(k), st>>>(
-      static_cast<const T*>(in), static_cast<T*>(out), H, W, rate, keep, k,
-      mask9, noff, offcodes);
-  return static_cast<int>(cudaGetLastError());
+  const T* src = static_cast<const T*>(in);
+  return form == 0 ? vpu<T>(src, nullptr, out, H, W, p,
+                            static_cast<const float*>(table), stream)
+                   : mxu<T>(src, nullptr, out, H, W, p, table, stream);
 }
 
 template <typename T>
-int launch_halo(const mm::HaloArgs* args, void* out, const void* taps_dev,
-                float rate, float keep, int k, int mask9, int noff,
-                int offcodes, void* stream) {
-  if (args == nullptr || !valid_k(k, mask9, noff)) {
+int halo(int form, const void* args, void* out, const StepParams& p,
+         const void* table, void* stream) {
+  const auto* a = static_cast<const mm::HaloArgs*>(args);
+  if (a == nullptr || !mm::valid_halo(*a, p.nsteps, MAX_K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const mm::HaloArgs& a = *args;
-  if (a.h < 0 || a.w < 0 || a.d < k || a.d > MAX_K || a.R0 < 0 || a.C0 < 0 ||
-      a.R0 + a.h > a.H || a.C0 + a.w > a.W) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (a.h == 0 || a.w == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static int smem_limit = DEFAULT_SMEM_LIMIT;  // per template instance
-  cudaError_t e =
-      prepare(composed_halo_kernel<T>, taps_dev, k, &smem_limit, st);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((a.w + TILE_W - 1) / TILE_W, (a.h + TILE_H - 1) / TILE_H);
-  const dim3 block(mm::kThreadsX, mm::kThreadsY);
-  composed_halo_kernel<T><<<grid, block, smem_of(k), st>>>(
-      mm::HaloSource<T>(a), static_cast<T*>(out), rate, keep, k, mask9, noff,
-      offcodes);
-  return static_cast<int>(cudaGetLastError());
+  if (a->h == 0 || a->w == 0) return 0;
+  return form == 0 ? vpu<T>(nullptr, a, out, 0, 0, p,
+                            static_cast<const float*>(table), stream)
+                   : mxu<T>(nullptr, a, out, 0, 0, p, table, stream);
+}
+
+template <typename T>
+void layout_of(int* out7) {
+  out7[0] = Mxu<T>::KB;
+  out7[1] = Mxu<T>::KMAX;
+  out7[2] = Mxu<T>::REL_MIN;
+  out7[3] = mx_nb<T>();
+  out7[4] = MX_N;
+  out7[5] = mx_bh<T>();
+  out7[6] = mx_bw<T>();
 }
 
 }  // namespace
 
 extern "C" {
 
-int mm_composed_f32(const void* in, void* out, const void* taps, int H,
-                    int W, float rate, float keep, int k, int mask9, int noff,
-                    int offcodes, void* stream) {
-  return launch<float>(in, out, taps, H, W, rate, keep, k, mask9, noff,
-                       offcodes, stream);
+// vpu: `coefs` is a host array of k + 1 floats. mxu: `frags` is the device
+// B table (ops/composed_stencil.py::mxu_fragments).
+int mm_composed_vpu_f32(const void* in, void* out, int H, int W, float rate,
+                        float keep, int k, int mask9, int noff, int offcodes,
+                        int moore, const float* coefs, void* stream) {
+  return dense<float>(0, in, out, H, W,
+                      make_params(rate, keep, k, mask9, noff, offcodes, moore),
+                      coefs, stream);
 }
 
-int mm_composed_bf16(const void* in, void* out, const void* taps, int H,
-                     int W, float rate, float keep, int k, int mask9,
-                     int noff, int offcodes, void* stream) {
-  return launch<__nv_bfloat16>(in, out, taps, H, W, rate, keep, k, mask9,
-                               noff, offcodes, stream);
+int mm_composed_vpu_bf16(const void* in, void* out, int H, int W, float rate,
+                         float keep, int k, int mask9, int noff, int offcodes,
+                         int moore, const float* coefs, void* stream) {
+  return dense<__nv_bfloat16>(
+      0, in, out, H, W,
+      make_params(rate, keep, k, mask9, noff, offcodes, moore), coefs,
+      stream);
 }
 
-int mm_composed_halo_f32(const void* args, void* out, const void* taps,
-                         float rate, float keep, int k, int mask9, int noff,
-                         int offcodes, void* stream) {
-  return launch_halo<float>(static_cast<const mm::HaloArgs*>(args), out,
-                            taps, rate, keep, k, mask9, noff, offcodes,
-                            stream);
+int mm_composed_mxu_f32(const void* in, void* out, int H, int W, float rate,
+                        float keep, int k, int mask9, int noff, int offcodes,
+                        const void* frags, void* stream) {
+  return dense<float>(1, in, out, H, W,
+                      make_params(rate, keep, k, mask9, noff, offcodes, 0),
+                      frags, stream);
 }
 
-int mm_composed_halo_bf16(const void* args, void* out, const void* taps,
-                          float rate, float keep, int k, int mask9, int noff,
-                          int offcodes, void* stream) {
-  return launch_halo<__nv_bfloat16>(static_cast<const mm::HaloArgs*>(args),
-                                    out, taps, rate, keep, k, mask9, noff,
-                                    offcodes, stream);
+int mm_composed_mxu_bf16(const void* in, void* out, int H, int W, float rate,
+                         float keep, int k, int mask9, int noff, int offcodes,
+                         const void* frags, void* stream) {
+  return dense<__nv_bfloat16>(
+      1, in, out, H, W, make_params(rate, keep, k, mask9, noff, offcodes, 0),
+      frags, stream);
+}
+
+int mm_composed_halo_vpu_f32(const void* args, void* out, float rate,
+                             float keep, int k, int mask9, int noff,
+                             int offcodes, int moore, const float* coefs,
+                             void* stream) {
+  return halo<float>(0, args, out,
+                     make_params(rate, keep, k, mask9, noff, offcodes, moore),
+                     coefs, stream);
+}
+
+int mm_composed_halo_vpu_bf16(const void* args, void* out, float rate,
+                              float keep, int k, int mask9, int noff,
+                              int offcodes, int moore, const float* coefs,
+                              void* stream) {
+  return halo<__nv_bfloat16>(
+      0, args, out, make_params(rate, keep, k, mask9, noff, offcodes, moore),
+      coefs, stream);
+}
+
+int mm_composed_halo_mxu_f32(const void* args, void* out, float rate,
+                             float keep, int k, int mask9, int noff,
+                             int offcodes, const void* frags, void* stream) {
+  return halo<float>(1, args, out,
+                     make_params(rate, keep, k, mask9, noff, offcodes, 0),
+                     frags, stream);
+}
+
+int mm_composed_halo_mxu_bf16(const void* args, void* out, float rate,
+                              float keep, int k, int mask9, int noff,
+                              int offcodes, const void* frags, void* stream) {
+  return halo<__nv_bfloat16>(
+      1, args, out, make_params(rate, keep, k, mask9, noff, offcodes, 0),
+      frags, stream);
+}
+
+// The mxu form's layout for a dtype (0 f32, 1 bf16): {KB, KMAX, REL_MIN,
+// NB, MX_N, BH, BW}; the Python side checks it against its own (the B
+// table's layout, and the tiles its operation count assumes) before the
+// first launch.
+void mm_composed_mxu_layout(int bf16, int* out7) {
+  if (bf16) {
+    layout_of<__nv_bfloat16>(out7);
+  } else {
+    layout_of<float>(out7);
+  }
 }
 
 const char* mm_cuda_error_string(int err) {

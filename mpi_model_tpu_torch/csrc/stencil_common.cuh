@@ -8,6 +8,10 @@
 // iterated step of K1, K3 and K5 (the form the TPU kernels use near the
 // global edge). The neighborhood is a 3x3 bitmask: bit (dx+1)*3 + (dy+1)
 // set for each offset. Loops stride over a (kThreadsX, kThreadsY) block.
+//
+// Then the register column walk that K1/K2 and K3's vpu form share (the
+// last section): cp.async window staging, the tiling, one walk step, and
+// the exact strips of an edge tile.
 
 #pragma once
 
@@ -15,6 +19,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace mm {
 
@@ -278,6 +283,411 @@ __device__ __forceinline__ void iterate_exact_f32(float* val, float* share,
     }
     __syncthreads();
   }
+}
+
+
+// -- the register column walk (K1/K2, K3/K3-halo vpu) ------------------------
+//
+// A block of kThreadsY warps holds a ROWS x kWinW window of the grid in
+// registers, one window column a thread (warp = threadIdx.y, column = warp
+// * 32 + lane). A step gives every row its neighbourhood sum: Moore the
+// 3 x 3 box, band = (v[r-1] + v[r]) + v[r+1] down the column and
+// (band[c-1] + band[c]) + band[c+1] across, the neighbouring columns' bands
+// from the neighbouring lanes (__shfl_sync) and the warp's two edge
+// columns' through one shared row a step; other neighbourhoods the
+// neighbours summed in `offsets` order from 0. Rows and columns past the
+// window read 0, so its outer ring is garbage that moves in a cell a step.
+
+constexpr int kWinW = 32 * kThreadsY;  // window columns, one a thread
+constexpr int kStripLen = 128;         // an exact piece's length
+constexpr int kEdgeSlots = 2 * (kThreadsY + 2);  // warps -1 .. kThreadsY
+// warp-edge exchange floats: [2 step parities][kEdgeSlots][ROWS]
+template <int ROWS>
+constexpr int kExchFloats = 2 * kEdgeSlots * ROWS;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Elements of T in one 16-byte copy.
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+// Staging row pitch (elements of T): the window and its alignment slack.
+template <typename T>
+constexpr int kStagePitch = kWinW + kVec<T>;
+
+template <typename T, int ROWS>
+constexpr int stage_bytes() {
+  return ROWS * kStagePitch<T> * static_cast<int>(sizeof(T));
+}
+
+// One exact piece's window, (kStripLen + 2n) x (n + 1 + 2n) f32: the
+// exact path's two buffers take twice that.
+__host__ __device__ constexpr int piece_floats(int n) {
+  return (kStripLen + 2 * n) * (3 * n + 1);
+}
+
+// The parameters of one call's steps.
+struct StepParams {
+  int nsteps;
+  int mask9, noff, offcodes;  // neighbourhood: bitmask, ordered codes
+  int moore;                  // the closed form's separable Moore sum
+  int vec;                    // rows 16-byte aligned: cp.async windows
+  float rate, keep;           // the exact path's rate and f32(1 - rate)
+  float ca, cb;               // K1's closed-form f32 constants
+};
+
+__device__ __forceinline__ void cp_async16(void* smem_dst,
+                                           const void* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a + b rounded to nearest, as an instruction the compiler keeps: pass 1's
+// bands must not be reused in pass 2 across the barrier, which would hold
+// ROWS more values live and spill the window.
+__device__ __forceinline__ float add_kept(float a, float b) {
+  float r;
+  asm volatile("add.rn.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// A cell's distance to the global grid's edge.
+__device__ __forceinline__ int edge_distance(int R, int C, int H, int W) {
+  return min(min(R, H - 1 - R), min(C, W - 1 - C));
+}
+
+// Component q of a float4.
+__device__ __forceinline__ float part(const float4& e, int q) {
+  return q == 0 ? e.x : (q == 1 ? e.y : (q == 2 ? e.z : e.w));
+}
+
+// The tiling of one call: tiles of th x tw output cells over the [h, w]
+// array the kernel writes, whose global origin is (R0, C0) in an [H, W]
+// grid. A tile's window starts rh rows above it and n columns left of it
+// (K1: rh = n, the steps; K3: rh is its instance's row offset >= k).
+struct Tiling {
+  int rows, rh, n, th, tw, tiles_c, tiles;  // window rows, halos, tile
+  int h, w, R0, C0, H, W;
+
+  __device__ __forceinline__ int row_of(int t) const {
+    return (t / tiles_c) * th;
+  }
+  __device__ __forceinline__ int col_of(int t) const {
+    return (t % tiles_c) * tw;
+  }
+  // tile t lies whole in the array and every output cell of it has d > n
+  // (uniform over the block)
+  __device__ __forceinline__ bool interior(int t) const {
+    const int r = R0 + row_of(t);
+    const int c = C0 + col_of(t);
+    return row_of(t) + th <= h && col_of(t) + tw <= w && r >= n + 1 &&
+           r + th <= H - 1 - n && c >= n + 1 && c + tw <= W - 1 - n;
+  }
+  // tile t's window lies inside the array: its rows may be copied
+  __device__ __forceinline__ bool inside(int t) const {
+    const int r0 = row_of(t) - rh;
+    const int c0 = col_of(t) - n;
+    return r0 >= 0 && c0 >= 0 && r0 + rows <= h && c0 + kWinW <= w;
+  }
+};
+
+inline Tiling make_tiling(int rows, int rh, int n, int h, int w, int R0,
+                          int C0, int H, int W) {
+  Tiling tl;
+  tl.rows = rows;
+  tl.rh = rh;
+  tl.n = n;
+  tl.th = rows - 2 * rh;
+  tl.tw = kWinW - 2 * n;
+  tl.tiles_c = (w + tl.tw - 1) / tl.tw;
+  tl.tiles = ((h + tl.th - 1) / tl.th) * tl.tiles_c;
+  tl.h = h;
+  tl.w = w;
+  tl.R0 = R0;
+  tl.C0 = C0;
+  tl.H = H;
+  tl.W = W;
+  return tl;
+}
+
+// Start the cp.async copies of tile t's window (an aligned superset of its
+// columns) into `stage`; `base` is the array's [0, 0], `pitch` its row
+// pitch in elements, a multiple of kVec<T>, and the array 16-byte aligned.
+template <int ROWS, typename T>
+__device__ __forceinline__ void fetch_window(const T* __restrict__ base,
+                                             int pitch, const Tiling& tl,
+                                             int t, T* stage) {
+  constexpr int V = kVec<T>;
+  const int r0 = tl.row_of(t) - tl.rh;
+  const int c0 = tl.col_of(t) - tl.n;
+  const int a0 = c0 & ~(V - 1);
+  const int chunks = (c0 + kWinW - a0 + V - 1) / V;  // per row
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  for (int k = tid; k < ROWS * chunks; k += kWinW) {
+    const int i = k / chunks;
+    const int q = k - i * chunks;
+    cp_async16(stage + i * kStagePitch<T> + q * V,
+               base + static_cast<size_t>(r0 + i) * pitch + a0 + q * V);
+  }
+  cp_async_commit();
+}
+
+// The array a source's interior windows are copied from (K1: the grid;
+// K2: the shard).
+template <typename T>
+__device__ __forceinline__ const T* array_of(const DenseSource<T>& s) {
+  return s.in;
+}
+template <typename T>
+__device__ __forceinline__ const T* array_of(const HaloSource<T>& s) {
+  return s.shard;
+}
+
+// Stage tile t's ROWS x kWinW window in `stage` and return the skew of its
+// first column there. An interior tile whose window lies inside the array
+// (rows 16-byte aligned) starts cp.async copies, which the caller waits
+// for; any other window is staged element by element through the source
+// (zero off the grid): this thread's column, eight rows' loads in flight
+// at a time.
+template <int ROWS, typename T, typename Src>
+__device__ __forceinline__ int stage_window(const Src& src,
+                                            const StepParams& p,
+                                            const Tiling& tl, int t,
+                                            bool whole, T* stage) {
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int c0 = tl.col_of(t) - tl.n;
+  if (p.vec && whole && tl.inside(t)) {
+    fetch_window<ROWS>(array_of(src), tl.w, tl, t, stage);
+    return c0 - (c0 & ~(kVec<T> - 1));
+  }
+  const int r0 = tl.row_of(t) - tl.rh;
+  static_assert(ROWS % 8 == 0, "rows are staged eight at a time");
+  for (int i0 = 0; i0 < ROWS; i0 += 8) {
+    float x[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x[q] = src.at(r0 + i0 + q, c0 + j);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      from_f32(stage + (i0 + q) * kStagePitch<T> + j, x[q]);
+    }
+  }
+  return 0;
+}
+
+// One step of the walk (the section's header): v[i] = window row i of this
+// thread's column; `eb` is this step's half of the warp-edge exchange,
+// [slot][ROWS], slot 2 * (warp + 1) + side (side 0: the warp's lane 0,
+// side 1: its lane 31), read and written four rows at a time; slots of
+// warps -1 and kThreadsY stay zero. drow/dcol are each offset's row and
+// column in the 3 x 3. Row i's new value is finish(i, its old value, its
+// sum g). Ends past one __syncthreads().
+template <int ROWS, bool MOORE, typename Finish>
+__device__ __forceinline__ void walk_step(float (&v)[ROWS], float* eb,
+                                          const int (&drow)[8],
+                                          const int (&dcol)[8], int noff,
+                                          Finish finish) {
+  static_assert(ROWS % 4 == 0, "edge rows move four at a time");
+  const int lane = threadIdx.x;
+  const int wp = threadIdx.y;
+  // where this warp's edge lanes publish, and where they read their
+  // outer neighbour's column
+  const int own = 2 * (wp + 1) + (lane == 31 ? 1 : 0);
+  const int nbr = lane == 0 ? 2 * wp + 1 : 2 * (wp + 2);
+  const bool edge_lane = lane == 0 || lane == 31;
+  // pass 1: the edge lanes publish their column's band (Moore) or values
+  float4 x4;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    float x;
+    if (MOORE) {
+      const float up = i > 0 ? v[i - 1] : 0.f;
+      const float dn = i + 1 < ROWS ? v[i + 1] : 0.f;
+      x = add_kept(add_kept(up, v[i]), dn);
+    } else {
+      x = v[i];
+    }
+    if (i % 4 == 0) x4.x = x;
+    if (i % 4 == 1) x4.y = x;
+    if (i % 4 == 2) x4.z = x;
+    if (i % 4 == 3) {
+      x4.w = x;
+      if (edge_lane) {
+        *reinterpret_cast<float4*>(eb + own * ROWS + i - 3) = x4;
+      }
+    }
+  }
+  __syncthreads();
+  // the window as pass 2 sees it: nothing of it is computed before the
+  // barrier (pass 1's bands stay pass 1's)
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) asm volatile("" : "+f"(v[i]));
+  const float* nb = eb + nbr * ROWS;
+  float4 e4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (MOORE) {
+    float prev = 0.f;  // the old value of row i - 1
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (i % 4 == 0 && edge_lane) {
+        e4 = *reinterpret_cast<const float4*>(nb + i);
+      }
+      const float dn = i + 1 < ROWS ? v[i + 1] : 0.f;
+      const float b = __fadd_rn(__fadd_rn(prev, v[i]), dn);
+      float bl = __shfl_up_sync(kFull, b, 1);
+      float br = __shfl_down_sync(kFull, b, 1);
+      if (lane == 0) bl = part(e4, i % 4);
+      if (lane == 31) br = part(e4, i % 4);
+      const float nine = __fadd_rn(__fadd_rn(bl, b), br);
+      prev = v[i];
+      v[i] = finish(i, prev, nine);
+    }
+  } else {
+    // rolling 3 x 3 neighbourhood: rows i-1, i, i+1 of the columns to
+    // the left (l), own (c) and right (r), old values
+    if (edge_lane) e4 = *reinterpret_cast<const float4*>(nb);
+    float lm = 0.f, cm = 0.f, rm = 0.f;
+    float l0 = __shfl_up_sync(kFull, v[0], 1);
+    float r0 = __shfl_down_sync(kFull, v[0], 1);
+    if (lane == 0) l0 = e4.x;
+    if (lane == 31) r0 = e4.x;
+    float c0 = v[0];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      float lp = 0.f, cp = 0.f, rp = 0.f;
+      if (i + 1 < ROWS) {
+        const int k = i + 1;
+        if (k % 4 == 0 && edge_lane) {
+          e4 = *reinterpret_cast<const float4*>(nb + k);
+        }
+        cp = v[k];
+        lp = __shfl_up_sync(kFull, cp, 1);
+        rp = __shfl_down_sync(kFull, cp, 1);
+        if (lane == 0) lp = part(e4, k % 4);
+        if (lane == 31) rp = part(e4, k % 4);
+      }
+      float g = 0.f;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        if (o < noff) {
+          const int dc = dcol[o];
+          const float up = dc == 0 ? lm : (dc == 1 ? cm : rm);
+          const float mid = dc == 0 ? l0 : (dc == 1 ? c0 : r0);
+          const float dn = dc == 0 ? lp : (dc == 1 ? cp : rp);
+          const int dr = drow[o];
+          g = __fadd_rn(g, dr == 0 ? up : (dr == 1 ? mid : dn));
+        }
+      }
+      v[i] = finish(i, c0, g);
+      lm = l0; cm = c0; rm = r0;
+      l0 = lp; c0 = cp; r0 = rp;
+    }
+  }
+}
+
+// Each offset's row and column in the 3 x 3, from the ordered codes.
+__device__ __forceinline__ void offset_rows_cols(int offcodes, int (&drow)[8],
+                                                 int (&dcol)[8]) {
+#pragma unroll
+  for (int o = 0; o < 8; ++o) {
+    const int b = (offcodes >> (4 * o)) & 0xF;  // (dx + 1) * 3 + (dy + 1)
+    drow[o] = b / 3;
+    dcol[o] = b % 3;
+  }
+}
+
+// The exact path for an edge tile's cells with d <= n: the tile's part
+// [lr0, lr1) x [lc0, lc1) (local rows and columns of the array `tl`
+// describes) of each of the grid's four border strips (n + 1 rows or
+// columns deep), in pieces of at most kStripLen along the strip, each on
+// the shared-memory form (iterate_exact_f32) from its own window load. A
+// corner cell lies in two strips and is computed twice, to the same bits.
+// `a` and `b` are two piece_floats(n) buffers. Ends with a
+// __syncthreads() when it computes anything.
+template <typename T, typename Src>
+__device__ __forceinline__ void exact_cells(const Src& src,
+                                            T* __restrict__ out,
+                                            const StepParams& p,
+                                            const Tiling& tl, int lr0,
+                                            int lr1, int lc0, int lc1,
+                                            float* a, float* b) {
+  const int n = p.nsteps;
+  // the tile in global coordinates, [r0, r1) x [c0, c1)
+  const int r0 = tl.R0 + lr0;
+  const int c0 = tl.C0 + lc0;
+  const int r1 = tl.R0 + lr1;
+  const int c1 = tl.C0 + lc1;
+  for (int strip = 0; strip < 4; ++strip) {
+    int sr0 = r0, sr1 = r1, sc0 = c0, sc1 = c1;
+    if (strip == 0) sr1 = min(sr1, n + 1);          // top
+    if (strip == 1) sr0 = max(sr0, tl.H - 1 - n);   // bottom
+    if (strip == 2) sc1 = min(sc1, n + 1);          // left
+    if (strip == 3) sc0 = max(sc0, tl.W - 1 - n);   // right
+    if (sr0 >= sr1 || sc0 >= sc1) continue;
+    const bool across_rows = strip < 2;  // the strip runs along the rows
+    const int len = across_rows ? sc1 - sc0 : sr1 - sr0;
+    for (int k = 0; k < len; k += kStripLen) {
+      const int pr0 = across_rows ? sr0 : sr0 + k;
+      const int pc0 = across_rows ? sc0 + k : sc0;
+      const int eh = across_rows ? sr1 - sr0 : min(kStripLen, len - k);
+      const int ew = across_rows ? min(kStripLen, len - k) : sc1 - sc0;
+      const int WH = eh + 2 * n;
+      const int WW = ew + 2 * n;
+      load_window_f32(src, a, pr0 - tl.R0 - n, pc0 - tl.C0 - n, WH, WW);
+      __syncthreads();
+      iterate_exact_f32(a, b, pr0 - n, pc0 - n, WH, WW, tl.H, tl.W, p.rate,
+                        p.keep, n, p.mask9, p.noff, p.offcodes);
+      for (int i = threadIdx.y; i < eh; i += kThreadsY) {
+        for (int j = threadIdx.x; j < ew; j += kThreadsX) {
+          from_f32(out + static_cast<size_t>(pr0 - tl.R0 + i) * tl.w +
+                       (pc0 - tl.C0 + j),
+                   a[(i + n) * WW + (j + n)]);
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Host side: launch one kernel instance on `blocks` blocks of (32,
+// kThreadsY) threads; `limit` is the instance's own record of its
+// shared-memory limit, raised once a launch needs more than it.
+template <typename K, typename... Args>
+cudaError_t launch_blocks(K kernel, int smem, int blocks, int* limit,
+                          void* stream, Args... args) {
+  if (smem > *limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    *limit = smem;
+  }
+  kernel<<<blocks, dim3(32, kThreadsY), smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
+// Host check of a halo launch: a ring at least n and at most max_depth
+// deep, the shard inside the global grid.
+inline bool valid_halo(const HaloArgs& a, int n, int max_depth) {
+  return a.h >= 0 && a.w >= 0 && a.d >= n && a.d <= max_depth &&
+         a.R0 >= 0 && a.C0 >= 0 && a.R0 + a.h <= a.H && a.C0 + a.w <= a.W;
+}
+
+// Host side: rows of `pitch` elements from `ptr` can be copied 16 bytes at
+// a time.
+template <typename T>
+inline int rows_aligned(const void* ptr, int pitch) {
+  return (reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+          (static_cast<long long>(pitch) * sizeof(T)) % 16 == 0)
+             ? 1
+             : 0;
 }
 
 }  // namespace mm

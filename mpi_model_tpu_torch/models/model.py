@@ -125,16 +125,21 @@ class SerialExecutor:
     the pallas and composed paths, as composed-k passes on active_fused);
     any remainder of ``num_steps`` runs as single steps, so results do not
     depend on it. ``active_opts`` tunes the active engine (keys ``tile``,
-    ``capacity``, ``max_active_frac``; see ``ops.active.plan_for``).
+    ``capacity``, ``max_active_frac``; see ``ops.active.plan_for``);
+    ``composed_variant`` picks K3's form under ``"composed"`` (``"auto"``,
+    JAX's rule, by default).
     """
 
     comm_size = 1
 
     def __init__(self, step_impl: str = "xla", substeps: int = 1,
-                 compute_dtype=None, active_opts: Optional[dict] = None):
+                 compute_dtype=None, active_opts: Optional[dict] = None,
+                 composed_variant: str = "auto"):
         self.step_impl = step_impl
         self.substeps = max(1, int(substeps))
         self.compute_dtype = compute_dtype
+        #: K3's variant under "composed" (Model.make_step)
+        self.composed_variant = composed_variant
         #: active-tile engine knobs (ops.active.plan_for); ignored by the
         #: other impls
         self.active_opts = active_opts
@@ -184,10 +189,12 @@ class SerialExecutor:
         q, r = divmod(num_steps, self.substeps)
         stepk = (model.make_step(space, impl=self.step_impl,
                                  substeps=self.substeps,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype,
+                                 composed_variant=self.composed_variant)
                  if q else None)
         step1 = (model.make_step(space, impl=self.step_impl,
-                                 compute_dtype=self.compute_dtype)
+                                 compute_dtype=self.compute_dtype,
+                                 composed_variant=self.composed_variant)
                  if r else None)
         steps = [s for s in (stepk, step1) if s is not None]
         step_any = steps[0] if steps else None
@@ -235,8 +242,10 @@ class SerialExecutor:
                 "remainder_steps": r,
                 "remainder_k": (step1.composed_k if step1 is not None
                                 else None),
-                #: the variant asked for; one tap loop computes them all
+                #: the variant asked for, and the form it resolved to
+                #: (the vpu or the mxu kernel)
                 "variant": step_any.variant,
+                "form": step_any.form,
                 "launches": ran["composed_stencil"],
             }
         elif step_any.impl == "active_fused":
@@ -465,8 +474,8 @@ class Model:
         return stepper
 
     def make_step(self, space: CellularSpace, impl: str = "xla",
-                  substeps: int = 1,
-                  compute_dtype=None) -> Callable[..., Values]:
+                  substeps: int = 1, compute_dtype=None,
+                  composed_variant: str = "auto") -> Callable[..., Values]:
         """Build ``step(values, out=None) -> values`` for this space.
 
         ``impl``: ``"xla"`` (plain torch ops, every flow), ``"pallas"`` (a
@@ -485,11 +494,14 @@ class Model:
         ghost depth, and for K4 the lowering, the program limits and the
         shared memory; else ``"xla"``; no probe and no fallback on
         failure). ``substeps > 1`` advances that many steps per call.
+        ``composed_variant`` (``"composed"`` only: ``"auto"``, ``"vpu"``
+        or ``"mxu"``, resolved by the JAX package's rule) picks K3's form.
         ``out`` optionally maps the channels a kernel writes to
         preallocated output tensors. The step carries ``.impl``,
         ``.substeps``, ``.steppers`` (channel → kernel stepper; K4's one
         stepper under each channel it writes), ``.field_stepper`` (K4's, or
-        None), ``.composed_k``, ``.composed_passes`` and ``.variant``."""
+        None), ``.composed_k``, ``.composed_passes``, ``.variant`` (asked)
+        and ``.form`` (resolved)."""
         for f in self.flows:
             ch = space.values.get(f.attr)
             if ch is None:
@@ -513,7 +525,8 @@ class Model:
             raise ValueError(f"substeps must be >= 1, got {substeps}")
         key = (space.shape, space.global_shape, (space.x_init, space.y_init),
                str(space.dtype), str(space.device), self.offsets, impl,
-               substeps, tuple(f.fingerprint() for f in self.flows))
+               substeps, composed_variant,
+               tuple(f.fingerprint() for f in self.flows))
         cached = self._step_cache.get(key)
         if cached is not None:
             return cached
@@ -535,7 +548,7 @@ class Model:
         steppers: dict = {}
         composed_steppers: dict[str, ComposedDiffusionStep] = {}
         composed_k = composed_passes = None
-        variant = None
+        variant = form = None
         if impl == "composed":
             rates = self.pallas_rates()
             if rates is not None and not any(r != 0.0
@@ -572,10 +585,12 @@ class Model:
                     "to actually compose.", RuntimeWarning)
             composed_steppers = {
                 a: ComposedDiffusionStep(shape, r, composed_k,
-                                         dtype=space.dtype, offsets=offsets)
+                                         dtype=space.dtype, offsets=offsets,
+                                         variant=composed_variant)
                 for a, r in rates.items() if r != 0.0}
             steppers = composed_steppers
-            variant = next(iter(composed_steppers.values())).variant
+            first = next(iter(composed_steppers.values()))
+            variant, form = first.variant, first.form
         active_steppers: dict[str, ActiveDiffusionStep] = {}
         if impl == "active":
             live = self._active_live_rates(space, "active")
@@ -728,6 +743,7 @@ class Model:
         step.composed_k = composed_k
         step.composed_passes = composed_passes
         step.variant = variant
+        step.form = form
         self._step_cache[key] = step
         return step
 

@@ -8,12 +8,11 @@ checkout. Libraries go to ``mpi_model_tpu_torch/_build/`` (listed in
 it includes (directly or through another header) and its flags, so an edited
 source or shared header rebuilds and an unchanged one is reused.
 
-``SOURCE_FLAGS`` adds flags per source: ``fused_stencil.cu`` (K1/K2),
-``fused_active.cu`` (K6/K7), ``field_stencil.cu`` (K4) and
-``pipeline_stencil.cu`` (K5) build with FMA contraction off (each must
-equal its plain version bit for bit), while K3's flags stay the common
-ones. ``build_all`` starts one ``nvcc``
-per source, all at once.
+``SOURCE_FLAGS`` adds flags per source: every source builds with FMA
+contraction off (``fused_stencil.cu``, K1/K2; ``composed_stencil.cu``,
+K3's vpu form; ``fused_active.cu``, K6/K7; ``field_stencil.cu``, K4;
+``pipeline_stencil.cu``, K5: each must equal its plain version bit for
+bit). ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -37,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: extra nvcc flags per source (by file stem)
 SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
     "fused_stencil": ("--fmad=false",),
+    "composed_stencil": ("--fmad=false",),
     "fused_active": ("--fmad=false",),
     "field_stencil": ("--fmad=false",),
     "pipeline_stencil": ("--fmad=false",),

@@ -1,37 +1,49 @@
 """K3, the composed k-step dense filter, and K3-halo, its sharded form: tap
-tables, checks, wrappers and plain versions (counterpart of
+tables, coefficients, checks, wrappers and plain versions (counterpart of
 ``mpi_model_tpu/ops/composed_stencil.py``).
 
 For uniform-rate ``Diffusion`` the flow step on interior cells is a linear
 operator ``S = (1 - rate) δ + (rate / k') N`` (``k' = |offsets|``, ``N`` the
-neighbor sum), so k steps compose into ONE pass of the ``(2k+1)²`` tap table
-of ``S^k`` on cells at distance > k from the global edge (k steps reach k
-cells out, and each of those must have all its neighbors on the grid for
-the one-step operator to be ``S`` there). Cells nearer the edge keep the
-exact iterated path (K1's), where the per-cell divisor makes the operator
-vary in space.
+neighbor sum), so k steps compose into ONE pass of ``S^k`` on cells at
+distance > k from the global edge (k steps reach k cells out, and each of
+those must have all its neighbors on the grid for the one-step operator to
+be ``S`` there). Cells nearer the edge keep the exact iterated path (K1's),
+where the per-cell divisor makes the operator vary in space.
 
-- ``composed_taps``: the f64 table, composed with numpy, cached by
-  fingerprint and read-only; bitwise the JAX package's.
-- ``composed_dense_step``: a CPU tensor takes ``composed_dense_step_plain``;
-  a CUDA tensor launches ``csrc/composed_stencil.cu`` or raises. The table
-  is cast to f32 and handed to the kernel at launch.
-- ``variant`` accepts ``"auto"``, ``"vpu"`` and ``"mxu"`` with the JAX
-  package's checks (``mxu`` needs a 128-aligned block width) and names the
-  variant asked for; one CUDA-core tap loop computes every variant here
-  (the tensor-core ``mxu`` form is ROADMAP work).
+``variant`` is resolved with the JAX package's rule (``"auto"``: ``"mxu"``
+from ``MXU_MIN_TAPS`` taps on a 128-aligned block width, else ``"vpu"``;
+``"mxu"`` needs that width) and picks the interior form, each the JAX
+hook's arithmetic:
+
+- ``"vpu"``: the binomial expansion ``S^k = Σ_j coef_j B^j``, ``B`` the 3×3
+  box (Moore, ``S = α δ + β B``) or the neighbor sum, ``coef_j = C(k,j)
+  α^(k-j) β^j`` formed in f64 and rounded to f32 once (``vpu_coefs``);
+  ``acc = coef_0·v``, then ``cur = B(cur)``, ``acc = acc + coef_j·cur``.
+  The kernel runs K1's register column walk and equals the plain version
+  bit for bit.
+- ``"mxu"``: the ``(2k+1)²`` tap correlation with the f64 table rounded to
+  f32 (``composed_taps``); the plain version accumulates it from zero in
+  row-major tap order, the kernel runs it as banded tap matrices on tensor
+  cores (``mxu_fragments``; 3×TF32 for f32, two bf16 tap terms for bf16),
+  within ``1e-6·k·max|v|`` (f32) and one bf16 ulp of its plain version.
+
+- ``composed_dense_step``: a CPU tensor takes ``composed_dense_step_plain``
+  with the resolved form; a CUDA tensor launches that form's kernel
+  (``csrc/composed_stencil.cu``) or raises.
 - ``composed_halo_step`` (K3-halo) is the same pass on one shard of a
   sharded grid, reading its depth->=k ghost ring; the interior/edge-band
   choice is made per cell from its global row and column, so shards put
-  together take the whole-grid run's path for every cell.
+  together take the whole-grid run's path for every cell, and both forms'
+  mosaics equal the whole grid bit for bit.
 - Launches are counted per stepper (``ComposedDiffusionStep.launches``) and
-  module-wide (``launches()`` for K3, ``halo_launches()`` for K3-halo), only
-  where the kernel is launched.
+  module-wide, per form (``launches(form)`` for K3, ``halo_launches(form)``
+  for K3-halo; no form: both), only where a kernel is launched.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -62,25 +74,39 @@ from .fused_stencil import (
 #: tap count from which ``variant="auto"`` names the MXU form (the JAX
 #: package's break-even rule, kept so both packages resolve alike)
 MXU_MIN_TAPS = 9
+FORMS = ("vpu", "mxu")
 
-_launch_count = 0
-_halo_launch_count = 0
+#: the mxu kernel's layout per storage dtype (``Mxu<T>``, ``MX_N`` and the
+#: block tile in ``csrc/composed_stencil.cu``, checked against the library
+#: before its first launch): A-block width KB (the MMA depth: m16n8k8 TF32,
+#: m16n8k16 bf16), the largest k, the least band offset REL_MIN, and the
+#: block tile's rows and columns; the warp tile is MXU_WARP_COLS wide
+MXU_LAYOUT = {torch.float32: (8, 8, 0, 64, 128),
+              torch.bfloat16: (16, 16, -8, 128, 128)}
+MXU_WARP_COLS = 32
+
+_launch_count = {f: 0 for f in FORMS}
+_halo_launch_count = {f: 0 for f in FORMS}
 
 
-def launches() -> int:
-    """K3 launches made by this module since the last reset."""
-    return _launch_count
+def launches(form: Optional[str] = None) -> int:
+    """K3 launches made by this module since the last reset (of ``form``,
+    or of both)."""
+    return (sum(_launch_count.values()) if form is None
+            else _launch_count[form])
 
 
-def halo_launches() -> int:
-    """K3-halo launches made by this module since the last reset."""
-    return _halo_launch_count
+def halo_launches(form: Optional[str] = None) -> int:
+    """K3-halo launches made by this module since the last reset (of
+    ``form``, or of both)."""
+    return (sum(_halo_launch_count.values()) if form is None
+            else _halo_launch_count[form])
 
 
 def reset_launches() -> None:
-    global _launch_count, _halo_launch_count
-    _launch_count = 0
-    _halo_launch_count = 0
+    for f in FORMS:
+        _launch_count[f] = 0
+        _halo_launch_count[f] = 0
 
 
 # -- tap-table composition (cached by fingerprint) ---------------------------
@@ -146,6 +172,172 @@ def device_taps(rate: float, offsets, k: int, dtype,
     return t
 
 
+# -- the vpu form's coefficients ----------------------------------------------
+
+_COEFS_CACHE: dict[tuple, tuple] = {}
+
+
+def vpu_coefs(rate: float, offsets: Sequence[tuple[int, int]],
+              k: int) -> tuple[bool, tuple[float, ...]]:
+    """(is_moore, coef_0 .. coef_k) of the binomial form: Moore (the eight
+    offsets, any order) ``α = 1 - r - r/8`` with ``B`` the full 3×3 box,
+    other neighbourhoods ``α = 1 - r`` with ``B`` the neighbor sum; ``β =
+    r/|offsets|``; ``coef_j = C(k,j)·α^(k-j)·β^j`` formed in f64 (the JAX
+    hook's Python floats) and rounded to f32 once, as JAX's weakly typed
+    scalars are. A coefficient that underflows f32 is 0. Each returned
+    float is exactly an f32 value."""
+    offsets = check_offsets(offsets)
+    k = int(k)
+    key = taps_fingerprint(rate, offsets, k)
+    cached = _COEFS_CACHE.get(key)
+    if cached is None:
+        kk = len(offsets)
+        moore = set(offsets) == set(MOORE_OFFSETS)
+        alpha = 1.0 - rate - rate / kk if moore else 1.0 - rate
+        beta = rate / kk
+        c64 = [math.comb(k, j) * (alpha ** (k - j)) * (beta ** j)
+               for j in range(k + 1)]
+        cached = (moore, tuple(float(np.float32(c)) for c in c64))
+        _COEFS_CACHE[key] = cached
+    return cached
+
+
+def _vpu_interior(region: torch.Tensor, rate: float, offsets: tuple,
+                  k: int) -> torch.Tensor:
+    """The binomial sum over the f32 ``[hh, ww]`` region, for its
+    ``[hh - 2k, ww - 2k]`` centre: ``acc = coef_0·v``, then for j = 1..k
+    ``cur = B(cur)`` (Moore ``band = (c[r-1] + c[r]) + c[r+1]``, ``(band[c-1]
+    + band[c]) + band[c+1]``; else the neighbours in ``offsets`` order) and
+    ``acc = acc + coef_j·cur``, each operation rounded once."""
+    moore, coefs = vpu_coefs(rate, offsets, k)
+    hh, ww = region.shape
+    acc = coefs[0] * region[k:hh - k, k:ww - k]
+    cur = region
+    for j in range(1, k + 1):
+        hs, ws = cur.shape
+        if moore:
+            band = cur[0:hs - 2, :] + cur[1:hs - 1, :] + cur[2:hs, :]
+            cur = band[:, 0:ws - 2] + band[:, 1:ws - 1] + band[:, 2:ws]
+        else:
+            nxt = None
+            for dx, dy in offsets:
+                t = cur[1 + dx:hs - 1 + dx, 1 + dy:ws - 1 + dy]
+                nxt = t if nxt is None else nxt + t
+            cur = nxt
+        m = k - j
+        hs, ws = cur.shape
+        acc = acc + coefs[j] * cur[m:hs - m, m:ws - m]
+    return acc
+
+
+def _tap_interior(region: torch.Tensor, rate: float, offsets: tuple,
+                  k: int) -> torch.Tensor:
+    """The ``(2k+1)²`` tap correlation over the f32 region, for its centre:
+    the f32 table, accumulated from zero in row-major tap order."""
+    taps = device_taps(rate, offsets, k, torch.float32, region.device)
+    hh, ww = region.shape
+    ih, iw = hh - 2 * k, ww - 2 * k
+    n = 2 * k + 1
+    acc = torch.zeros((ih, iw), dtype=torch.float32, device=region.device)
+    for dr in range(n):
+        for dc in range(n):
+            acc = acc + taps[dr, dc] * region[dr:dr + ih, dc:dc + iw]
+    return acc
+
+
+def _interior(form: str):
+    if form not in FORMS:
+        raise ValueError(f"the plain versions take a resolved form "
+                         f"{FORMS}, got {form!r}")
+    return _vpu_interior if form == "vpu" else _tap_interior
+
+
+# -- the mxu form's B table ----------------------------------------------------
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """f32 → the nearest TF32 value, ties away from zero (``cvt.rna``)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 → bf16 bits (uint32, low half), rounded to nearest even."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(
+        np.uint64)
+    return ((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint32)
+
+
+def _bf16_value(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def mxu_blocks(rate: float, offsets: Sequence[tuple[int, int]], k: int,
+               dtype) -> np.ndarray:
+    """The banded tap blocks of the mxu form, f32 ``[2k+1, NB, KB, 8]``:
+    block q of row offset dr is ``B[m, c] = taps[dr][rel + m - c]`` on
+    ``0 <= rel + m - c <= 2k`` (else 0), ``rel = REL_MIN + 8q``, the offset
+    of an A block's first column from an n8 tile's; NB covers every offset
+    that meets the band at the dtype's largest k."""
+    kb, kmax, rel_min = MXU_LAYOUT[dtype][:3]
+    nb = (2 * kmax + 7 - rel_min) // 8 + 1
+    taps = np.asarray(composed_taps(rate, offsets, k), np.float32)
+    out = np.zeros((2 * k + 1, nb, kb, 8), np.float32)
+    m = np.arange(kb)[:, None]
+    c = np.arange(8)[None, :]
+    for q in range(nb):
+        d = rel_min + 8 * q + m - c
+        ok = (d >= 0) & (d <= 2 * k)
+        out[:, q] = np.where(ok[None], taps[:, np.clip(d, 0, 2 * k)], 0.0)
+    return out
+
+
+_FRAGS: dict[tuple, torch.Tensor] = {}
+
+
+def mxu_fragments(rate: float, offsets: Sequence[tuple[int, int]], k: int,
+                  dtype) -> np.ndarray:
+    """The mxu kernel's B table, uint32 ``[2k+1, NB, 2, 32, 2]``: each
+    block of ``mxu_blocks`` split in two terms and laid out as mma.sync's B
+    fragment, per lane (``g = lane // 4``, ``t = lane % 4``) two registers.
+    f32 storage (m16n8k8 TF32): the terms ``hi = tf32(b)`` and ``lo =
+    tf32(b - hi)``, registers ``B[t, g]``, ``B[t + 4, g]``. bf16 (m16n8k16):
+    ``t0 = bf16(b)``, ``t1 = bf16(b - t0)``, registers holding the pairs
+    ``B[2t, g] | B[2t + 1, g] << 16`` and ``B[2t + 8, g] | B[2t + 9, g] <<
+    16``."""
+    blocks = mxu_blocks(rate, offsets, k, dtype)
+    lane = np.arange(32)
+    g, t = lane // 4, lane % 4
+    if dtype == torch.float32:
+        hi = _tf32(blocks)
+        lo = _tf32(blocks - hi)
+        terms = [x.view(np.uint32) for x in (hi, lo)]
+        regs = [[x[..., t, g], x[..., t + 4, g]] for x in terms]
+    else:
+        b0 = _bf16_bits(blocks)
+        b1 = _bf16_bits(blocks - _bf16_value(b0))
+
+        def pair(x, r):
+            return x[..., r, g] | (x[..., r + 1, g] << np.uint32(16))
+
+        regs = [[pair(x, 2 * t), pair(x, 2 * t + 8)] for x in (b0, b1)]
+    # [2k+1, NB, term, lane, reg]
+    return np.ascontiguousarray(np.stack(
+        [np.stack(r, axis=-1) for r in regs], axis=2).astype(np.uint32))
+
+
+def device_fragments(rate: float, offsets, k: int, dtype,
+                     device) -> torch.Tensor:
+    """``mxu_fragments`` on ``device`` (as int32), cached."""
+    key = (taps_fingerprint(rate, offsets, k), str(dtype), str(device))
+    t = _FRAGS.get(key)
+    if t is None:
+        t = torch.from_numpy(mxu_fragments(rate, offsets, k, dtype).view(
+            np.int32)).to(device).contiguous()
+        _FRAGS[key] = t
+    return t
+
+
 # -- variant and k selection -------------------------------------------------
 
 def _resolve_variant(variant: str, k: int, bw: int) -> str:
@@ -157,13 +349,17 @@ def _resolve_variant(variant: str, k: int, bw: int) -> str:
     return variant
 
 
-def _check_mxu_width(variant: str, bw: int) -> None:
-    if variant == "mxu" and bw % LANE != 0:
+def resolve_form(variant: str, k: int, bw: int) -> str:
+    """The form ``variant`` runs at block width ``bw``: JAX's rule, and its
+    refusal of ``"mxu"`` at a width that is not 128-aligned."""
+    form = _resolve_variant(variant, k, bw)
+    if form == "mxu" and bw % LANE != 0:
         raise ValueError(
             f"the MXU composed variant contracts per {LANE}-lane "
             f"output block; block width {bw} is not a multiple "
             f"of {LANE} (use variant='vpu' or a {LANE}-aligned "
             "block)")
+    return form
 
 
 def max_k(shape: tuple[int, int], dtype,
@@ -192,33 +388,28 @@ def choose_k(substeps: int, shape: tuple[int, int], dtype,
     return 1
 
 
-# -- the plain version -------------------------------------------------------
+# -- the plain versions --------------------------------------------------------
 
 def composed_dense_step_plain(values: torch.Tensor, rate: float, k: int,
                               offsets: Sequence[tuple[int, int]]
-                              = MOORE_OFFSETS) -> torch.Tensor:
+                              = MOORE_OFFSETS,
+                              variant: str = "mxu") -> torch.Tensor:
     """The plain torch version of K3, in f32: cells within k of the global
     edge (distance <= k) take ``exact_dense_step_plain(..., k)`` (K1's
-    iterated exact path); every other cell gets the ``(2k+1)²`` tap
-    correlation with the f32 table, accumulated from zero in row-major tap
-    order. Cast back to the storage dtype once."""
+    iterated exact path); every other cell the resolved form ``variant``
+    (``"vpu"``: the binomial sum; ``"mxu"``: the tap correlation with the
+    f32 table, accumulated from zero in row-major tap order). Cast back to
+    the storage dtype once."""
     offsets = check_offsets(offsets)
     k = int(k)
+    interior = _interior(variant)
     h, w = values.shape
     v = values.to(torch.float32)
     out = exact_dense_step_plain(v, rate, offsets, k)
     m = k + 1  # the first row/column the composed operator is exact on
-    ih, iw = h - 2 * m, w - 2 * m
-    if ih > 0 and iw > 0:
-        taps = device_taps(rate, offsets, k, torch.float32, values.device)
-        n = 2 * k + 1
-        acc = torch.zeros((ih, iw), dtype=torch.float32,
-                          device=values.device)
-        for dr in range(n):
-            for dc in range(n):
-                acc = acc + taps[dr, dc] * v[1 + dr:1 + dr + ih,
-                                             1 + dc:1 + dc + iw]
-        out[m:h - m, m:w - m] = acc
+    if h - 2 * m > 0 and w - 2 * m > 0:
+        out[m:h - m, m:w - m] = interior(v[1:h - 1, 1:w - 1], rate, offsets,
+                                         k)
     return out.to(values.dtype)
 
 
@@ -228,15 +419,17 @@ def composed_halo_step_plain(values: torch.Tensor,
                              global_shape: tuple[int, int], rate: float,
                              k: int,
                              offsets: Sequence[tuple[int, int]]
-                             = MOORE_OFFSETS) -> torch.Tensor:
+                             = MOORE_OFFSETS,
+                             variant: str = "mxu") -> torch.Tensor:
     """The plain torch version of K3-halo, in f32: the padded shard from the
     ring, masked to the grid; cells within k of the GLOBAL edge take
-    ``halo_step_plain``'s iterated steps, every other cell the tap
-    correlation accumulated from zero in row-major tap order, as
-    ``composed_dense_step_plain`` does. Cast back once. Shards stepped so
-    and put together equal ``composed_dense_step_plain`` bit for bit."""
+    ``halo_step_plain``'s iterated steps, every other cell the resolved
+    form ``variant``, as ``composed_dense_step_plain`` computes it. Cast
+    back once. Shards stepped so and put together equal
+    ``composed_dense_step_plain`` bit for bit."""
     offsets = check_offsets(offsets)
     k = int(k)
+    interior = _interior(variant)
     h, w = values.shape
     d = int(ring["n"].shape[0])
     org, mask, cnt = padded_region(values, ring, origin, global_shape,
@@ -244,13 +437,7 @@ def composed_halo_step_plain(values: torch.Tensor,
     v = torch.where(mask, pad_from_ring(values, ring).to(torch.float32), 0.0)
     out = exact_steps_plain(v, cnt, rate, offsets, k, mask)[d:d + h,
                                                             d:d + w]
-    taps = device_taps(rate, offsets, k, torch.float32, values.device)
-    n = 2 * k + 1
-    acc = torch.zeros((h, w), dtype=torch.float32, device=values.device)
-    for dr in range(n):
-        for dc in range(n):
-            acc = acc + taps[dr, dc] * v[d - k + dr:d - k + dr + h,
-                                         d - k + dc:d - k + dc + w]
+    acc = interior(v[d - k:d + h + k, d - k:d + w + k], rate, offsets, k)
     m = k + 1  # the first global row/column the composed operator holds on
     gh, gw = global_shape
     rows = org[0] + d + torch.arange(h, device=values.device)[:, None]
@@ -259,55 +446,90 @@ def composed_halo_step_plain(values: torch.Tensor,
     return torch.where(inner, acc, out).to(values.dtype)
 
 
-# -- the kernel --------------------------------------------------------------
+# -- the kernels ---------------------------------------------------------------
 
 def _kernel_lib():
     from ._build import load
 
     lib = load("composed_stencil")
     if not getattr(lib, "_mm_typed", False):
-        for fn in (lib.mm_composed_f32, lib.mm_composed_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                           ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.mm_composed_halo_f32, lib.mm_composed_halo_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
+        i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        fp = ctypes.POINTER(ctypes.c_float)
+        for dt in ("f32", "bf16"):
+            fn = getattr(lib, f"mm_composed_vpu_{dt}")
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, i, fp, p]
+            fn = getattr(lib, f"mm_composed_mxu_{dt}")
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, p, p]
+            fn = getattr(lib, f"mm_composed_halo_vpu_{dt}")
+            fn.argtypes = [p, p, f, f, i, i, i, i, i, fp, p]
+            fn = getattr(lib, f"mm_composed_halo_mxu_{dt}")
+            fn.argtypes = [p, p, f, f, i, i, i, i, p, p]
+            for form in FORMS:
+                for mode in ("", "halo_"):
+                    getattr(lib, f"mm_composed_{mode}{form}_{dt}").restype = i
+        lib.mm_cuda_error_string.argtypes = [i]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
+        lib.mm_composed_mxu_layout.argtypes = [i, ctypes.POINTER(i)]
+        lib.mm_composed_mxu_layout.restype = None
+        for dtype, (kb, kmax, rel_min, bh, bw) in MXU_LAYOUT.items():
+            got = (i * 7)()
+            lib.mm_composed_mxu_layout(int(dtype == torch.bfloat16), got)
+            want = (kb, kmax, rel_min, (2 * kmax + 7 - rel_min) // 8 + 1,
+                    MXU_WARP_COLS, bh, bw)
+            if tuple(got) != want:
+                raise RuntimeError(f"composed_stencil's mxu layout for "
+                                   f"{dtype} is {tuple(got)}, the wrapper's "
+                                   f"{want}")
         lib._mm_typed = True
     return lib
 
 
+_COEF_ARRAYS: dict[tuple, ctypes.Array] = {}
+
+
+def _form_args(form: str, rate: float, offsets: tuple, k: int, dtype,
+               device) -> tuple:
+    """The launch arguments after the geometry: ``rate``, ``1 - rate``, k,
+    the neighbourhood (bitmask, size, ordered codes), then ``moore`` and
+    the host coefficients (vpu) or the device B table (mxu)."""
+    common = (float(rate), float(1.0 - rate), int(k), _offset_mask(offsets),
+              len(offsets), _offset_codes(offsets))
+    if form == "vpu":
+        moore, coefs = vpu_coefs(rate, offsets, k)
+        key = taps_fingerprint(rate, offsets, k)
+        arr = _COEF_ARRAYS.get(key)
+        if arr is None:
+            arr = _COEF_ARRAYS[key] = (ctypes.c_float * len(coefs))(*coefs)
+        return common + (int(moore), arr)
+    return common + (device_fragments(rate, offsets, k, dtype,
+                                      device).data_ptr(),)
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} launch failed: "
+            f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
+
+
 def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
-            offsets: tuple, k: int,
+            offsets: tuple, k: int, form: str,
             stepper: Optional["ComposedDiffusionStep"] = None) -> None:
-    """Launch K3 on the current stream; raises on any launch error. Counts
-    the launch, module-wide and on ``stepper``, once the kernel is queued."""
-    global _launch_count
+    """Launch K3's ``form`` on the current stream; raises on any launch
+    error. Counts the launch, module-wide and on ``stepper``, once the
+    kernel is queued."""
     if values.numel() == 0:
         return
     lib = _kernel_lib()
-    fn = (lib.mm_composed_f32 if values.dtype == torch.float32
-          else lib.mm_composed_bf16)
-    taps = device_taps(rate, offsets, k, torch.float32, values.device)
+    dt = "f32" if values.dtype == torch.float32 else "bf16"
+    fn = getattr(lib, f"mm_composed_{form}_{dt}")
+    args = _form_args(form, rate, offsets, k, values.dtype, values.device)
     h, w = values.shape
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(values.data_ptr(), out.data_ptr(), taps.data_ptr(), h, w,
-                 float(rate), float(1.0 - rate), int(k),
-                 _offset_mask(offsets), len(offsets), _offset_codes(offsets),
-                 stream)
-    if err != 0:
-        raise RuntimeError(
-            f"composed_stencil kernel launch failed: "
-            f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
-    _launch_count += 1
+        err = fn(values.data_ptr(), out.data_ptr(), h, w, *args, stream)
+    _raise_on(lib, err, f"composed_stencil {form} kernel")
+    _launch_count[form] += 1
     if stepper is not None:
         stepper.launches += 1
 
@@ -324,16 +546,14 @@ def composed_dense_step(
 ) -> torch.Tensor:
     """``k`` uniform-rate flow steps as ONE composed-filter pass: the
     semantics of ``pallas_dense_step(values, rate, nsteps=k)``, interior
-    cells by the tap table (algebraically equal, ~k ulp apart), the edge
-    band by the exact iterated path. ``out`` (CUDA only) receives the
-    result and must not alias ``values``."""
+    cells by the resolved variant's form (algebraically equal, ~k ulp
+    apart), the edge band by the exact iterated path. ``out`` (CUDA only)
+    receives the result and must not alias ``values``."""
     return _composed_step(values, rate, k, offsets, block, variant,
                           compute_dtype, out)
 
 
-def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
-                   out, stepper: Optional["ComposedDiffusionStep"] = None):
-    offsets = check_offsets(offsets)
+def _check_call(values, k, compute_dtype) -> int:
     k = int(k)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
@@ -349,12 +569,19 @@ def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
             f"the composed filter takes float32 or bfloat16 grids, got "
             f"{values.dtype}; float64 stays on the plain path "
             "(impl='xla')")
+    return k
+
+
+def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
+                   out, stepper: Optional["ComposedDiffusionStep"] = None):
+    offsets = check_offsets(offsets)
+    k = _check_call(values, k, compute_dtype)
     h, w = values.shape
     blk = resolve_block((h, w), values.dtype, block)
-    _check_mxu_width(_resolve_variant(variant, k, blk[1]), blk[1])
+    form = resolve_form(variant, k, blk[1])
     check_nsteps(k, blk, values.dtype)
     if values.device.type == "cpu":
-        res = composed_dense_step_plain(values, rate, k, offsets)
+        res = composed_dense_step_plain(values, rate, k, offsets, form)
         if out is not None:
             out.copy_(res)
             return out
@@ -364,7 +591,7 @@ def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
     out = check_out(values, out)
-    _launch(values, out, float(rate), offsets, k, stepper)
+    _launch(values, out, float(rate), offsets, k, form, stepper)
     return out
 
 
@@ -386,35 +613,20 @@ def composed_halo_step(
     semantics ``pallas_halo_step(..., nsteps=k)``, cells within k of the
     global edge by the exact iterated path. The JAX package's checks: ring
     depth within the slab capacity, ``k <= d``, the variant's. A CPU shard
-    takes ``composed_halo_step_plain``; a CUDA shard launches the kernel or
-    raises."""
-    global _halo_launch_count
+    takes ``composed_halo_step_plain`` with the resolved form; a CUDA shard
+    launches that form's kernel or raises."""
     offsets = check_offsets(offsets)
-    k = int(k)
-    if k < 1:
-        raise ValueError(f"k must be >= 1, got {k}")
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "compute_dtype other than float32 (bf16 interior math) is not "
-            "ported yet; see ROADMAP.md")
-    if values.dim() != 2:
-        raise ValueError(f"values must be [h, w], got shape "
-                         f"{tuple(values.shape)}")
-    if values.dtype not in KERNEL_DTYPES:
-        raise TypeError(
-            f"the composed filter takes float32 or bfloat16 grids, got "
-            f"{values.dtype}; float64 stays on the plain path "
-            "(impl='xla')")
+    k = _check_call(values, k, compute_dtype)
     d = check_ring(values, ring)
     blk = check_ring_depth(d, tuple(values.shape), values.dtype, block)
     if k > d:
         raise ValueError(
             f"k={k} needs a ghost ring at least that deep; got depth {d} "
             f"(exchange_ring(..., depth={k}))")
-    _check_mxu_width(_resolve_variant(variant, k, blk[1]), blk[1])
+    form = resolve_form(variant, k, blk[1])
     if values.device.type == "cpu":
         res = composed_halo_step_plain(values, ring, origin, global_shape,
-                                       rate, k, offsets)
+                                       rate, k, offsets, form)
         if out is not None:
             out.copy_(res)
             return out
@@ -425,20 +637,16 @@ def composed_halo_step(
     if values.numel() == 0:
         return out
     lib = _kernel_lib()
-    fn = (lib.mm_composed_halo_f32 if values.dtype == torch.float32
-          else lib.mm_composed_halo_bf16)
+    dt = "f32" if values.dtype == torch.float32 else "bf16"
+    fn = getattr(lib, f"mm_composed_halo_{form}_{dt}")
     args = halo_args(values, ring, origin, global_shape)
-    taps = device_taps(rate, offsets, k, torch.float32, values.device)
+    fargs = _form_args(form, float(rate), offsets, k, values.dtype,
+                       values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = fn(ctypes.addressof(args), out.data_ptr(), taps.data_ptr(),
-                 float(rate), float(1.0 - rate), k, _offset_mask(offsets),
-                 len(offsets), _offset_codes(offsets), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"composed_stencil halo kernel launch failed: "
-            f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
-    _halo_launch_count += 1
+        err = fn(ctypes.addressof(args), out.data_ptr(), *fargs, stream)
+    _raise_on(lib, err, f"composed_stencil {form} halo kernel")
+    _halo_launch_count[form] += 1
     return out
 
 
@@ -446,7 +654,8 @@ class ComposedDiffusionStep:
     """Reusable composed stepper bound to one geometry and rate: each call
     advances ``k`` flow steps in one pass. ``launches`` counts its K3
     launches; ``variant`` is the variant asked for (checked as the JAX
-    package checks it; one CUDA-core tap loop computes every variant)."""
+    package checks it) and ``form`` the one it resolves to, which the
+    kernel runs."""
 
     def __init__(self, shape: tuple[int, int], rate: float, k: int,
                  dtype=torch.float32,
@@ -467,7 +676,7 @@ class ComposedDiffusionStep:
                 f"{self.shape} dtype "
                 f"{str(dtype).removeprefix('torch.')} block {block}")
         bw = resolve_block(self.shape, dtype, block)[1]
-        _check_mxu_width(_resolve_variant(variant, self.k, bw), bw)
+        self.form = resolve_form(variant, self.k, bw)
         self.variant = variant
 
     def __call__(self, values: torch.Tensor,
@@ -477,10 +686,54 @@ class ComposedDiffusionStep:
                               out, self)
 
 
-def interior_flops(shape: tuple[int, int], k: int) -> float:
-    """Flops of one call's tap pass: 2 per tap per interior cell (distance
-    > k from every edge)."""
-    h, w = shape
-    cells = max(h - 2 * k - 2, 0) * max(w - 2 * k - 2, 0)
-    return 2.0 * (2 * k + 1) ** 2 * cells
+# -- operation counts (the bounds chip_smoke.py reports) -----------------------
 
+def composed_cells(shape: tuple[int, int], k: int, origin=(0, 0),
+                   global_shape=None) -> int:
+    """Cells of the ``[h, w]`` region at global ``origin`` that take the
+    composed form: distance to the global grid's edge above k."""
+    (h, w), (r0, c0) = shape, origin
+    gh, gw = global_shape if global_shape is not None else shape
+    rows = max(0, min(r0 + h, gh - 1 - k) - max(r0, k + 1))
+    cols = max(0, min(c0 + w, gw - 1 - k) - max(c0, k + 1))
+    return rows * cols
+
+
+def vpu_ops(shape: tuple[int, int], k: int,
+            offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+            origin=(0, 0), global_shape=None) -> float:
+    """f32 operations of one call in the vpu form, the cheapest exact form
+    of S^k: per composed cell k sums (Moore: 2 band and 2 box adds; else
+    |offsets| - 1 adds), k + 1 multiplies and k adds; per edge cell k exact
+    steps of |offsets| + 3 (share: multiply and divide; |offsets| - 1
+    gather adds; keep-multiply and add)."""
+    offsets = check_offsets(offsets)
+    inner = composed_cells(shape, k, origin, global_shape)
+    moore = set(offsets) == set(MOORE_OFFSETS)
+    box = 4 if moore else len(offsets) - 1
+    edge = shape[0] * shape[1] - inner
+    return float(inner * (k * box + 2 * k + 1)
+                 + edge * k * (len(offsets) + 3))
+
+
+def mxu_tensor_flops(shape: tuple[int, int], k: int, dtype, origin=(0, 0),
+                     global_shape=None) -> float:
+    """Tensor-core flops of one call in the mxu form: every block tile
+    (``MXU_LAYOUT``'s rows and columns, aligned to the global grid) runs,
+    per 16 x MXU_WARP_COLS cells and row offset, one MMA group for each A
+    block and n8 tile whose band it meets: 3 MMAs of 2·16·8·8 flops for
+    f32 (3×TF32), 2 of 2·16·8·16 for bf16."""
+    kb, kmax, rel_min, bh, bw = MXU_LAYOUT[dtype]
+    nb = (2 * kmax + 7 - rel_min) // 8 + 1
+    na = -(-(MXU_WARP_COLS + 2 * kmax) // kb)
+    pairs = sum(1 for a in range(na) if a * kb < MXU_WARP_COLS + 2 * k
+                for nt in range(MXU_WARP_COLS // 8)
+                if rel_min <= a * kb - 8 * nt <= 2 * k + 7
+                and (a * kb - 8 * nt - rel_min) // 8 < nb)
+    mmas, flops = (3, 2 * 16 * 8 * 8) if dtype == torch.float32 else \
+        (2, 2 * 16 * 8 * 16)
+    (h, w), (r0, c0) = shape, origin
+    tiles = ((-(-(r0 + h) // bh) - r0 // bh)
+             * (-(-(c0 + w) // bw) - c0 // bw))
+    per_tile = (bh // 16) * (bw // MXU_WARP_COLS)
+    return float(tiles * per_tile * (2 * k + 1) * pairs * mmas * flops)

@@ -24,8 +24,9 @@ Per shard, ``step_impl`` picks the step:
   all-``Diffusion`` models, K4-halo (``pallas_field_halo_step``) for other
   pointwise flows (every channel exchanges its ring: outflows read
   modulators on ghost cells).
-- ``"composed"``: K3-halo (``composed_halo_step``), one composed
-  ``(2d+1)²`` pass per depth-d exchange (all-``Diffusion`` models).
+- ``"composed"``: K3-halo (``composed_halo_step``), one composed pass of
+  ``S^d`` per depth-d exchange (all-``Diffusion`` models), in the form
+  ``composed_variant`` resolves to (``"auto"``: the JAX package's rule).
 - ``"auto"``: ``"pallas"`` where it is statically eligible (the flows, the
   dtype, the depth within the shard and the slab capacity, K4's plan),
   else ``"xla"``. Nothing is probed: a build or launch error propagates.
@@ -69,7 +70,7 @@ import torch.nn.functional as F
 
 from ..core.cellular_space import CellularSpace
 from ..models.model import _launches_since, _not_ported, kernel_launches
-from ..ops.composed_stencil import composed_halo_step
+from ..ops.composed_stencil import composed_halo_step, resolve_form
 from ..ops.field_stencil import FieldPlanError, PallasFieldStep
 from ..ops import active as act
 from ..ops.flow import PointFlow
@@ -102,7 +103,7 @@ class ShardMapExecutor:
 
     def __init__(self, mesh: Mesh, step_impl: str = "xla",
                  halo_mode: str = "exchange", halo_depth: int = 1,
-                 compute_dtype=None):
+                 compute_dtype=None, composed_variant: str = "auto"):
         if len(mesh.axis_names) not in (1, 2):
             raise ValueError("ShardMapExecutor needs a 1-D or 2-D mesh")
         if step_impl not in STEP_IMPLS:
@@ -124,6 +125,8 @@ class ShardMapExecutor:
         self.halo_mode = halo_mode
         self.halo_depth = int(halo_depth)
         self.compute_dtype = compute_dtype
+        #: K3-halo's variant under "composed" (composed_halo_step)
+        self.composed_variant = composed_variant
         #: the step path the last ``run_model`` used ("pallas",
         #: "composed", "active", "active_fused", "point" or "xla")
         self.last_impl: Optional[str] = None
@@ -237,7 +240,8 @@ class ShardMapExecutor:
         if plan_kind in ("active", "active_fused"):
             self.last_backend_report = runner.report(int(num_steps))
         else:
-            self._record_backend_report(plan_kind, int(num_steps), ran)
+            self._record_backend_report(plan_kind, int(num_steps), ran,
+                                        getattr(runner, "form", None))
         first = self.mesh.device(0, 0)
         self._synchronize()
         t0 = time.perf_counter()
@@ -296,7 +300,8 @@ class ShardMapExecutor:
         return plan
 
     def _record_backend_report(self, plan_kind: Optional[str],
-                               num_steps: int, ran: dict) -> None:
+                               num_steps: int, ran: dict,
+                               form: Optional[str] = None) -> None:
         """The kernel paths' record: the kernel, the depth, the chunks and
         the launches of this run; ``"composed"`` also carries the JAX
         package's composed keys. The xla and point steps record nothing."""
@@ -314,6 +319,8 @@ class ShardMapExecutor:
                "launches": ran[counter]}
         if plan_kind == "composed":
             rep["composed_k"] = d
+            rep["variant"] = self.composed_variant
+            rep["form"] = form
         self.last_backend_report = rep
 
     # -- rings ---------------------------------------------------------------
@@ -371,7 +378,11 @@ class ShardMapExecutor:
         if depth > (lh if one_d else min(lh, lw)):
             raise ValueError(
                 f"halo_depth={depth} exceeds the shard extent ({lh}x{lw})")
-        check_ring_depth(depth, (lh, lw), space.dtype, None)
+        blk = check_ring_depth(depth, (lh, lw), space.dtype, None)
+        # the form the full-depth chunks run (raises as the JAX package
+        # does for "mxu" at a width that is not 128-aligned)
+        form = (resolve_form(self.composed_variant, depth, blk[1])
+                if kind == "composed" else None)
         gshape = (space.dim_x, space.dim_y)
         origins = self._origins(space, lh, lw)
         offsets = model.offsets
@@ -402,7 +413,8 @@ class ShardMapExecutor:
                         if kind == "composed":
                             composed_halo_step(
                                 g[i][j], ring, origins[i][j], gshape, rate,
-                                ns, offsets, out=spare[attr][i][j])
+                                ns, offsets, variant=self.composed_variant,
+                                out=spare[attr][i][j])
                         else:
                             pallas_halo_step(
                                 g[i][j], ring, origins[i][j], gshape, rate,
@@ -419,6 +431,7 @@ class ShardMapExecutor:
                 chunk(cur, spare, ns)
             return cur
 
+        run.form = form
         return run
 
     # -- the point subsystem and the active runners --------------------------

@@ -12,13 +12,12 @@ from mpi_model_tpu_torch.ops import _build
 
 def test_per_source_flags():
     assert "--fmad=false" in _build.flags_for("fused_active")
-    # K1/K2, K4 and K5 equal their plain versions bit for bit: no FMA
-    # contraction either
-    for name in ("fused_stencil", "field_stencil", "pipeline_stencil"):
+    # K1/K2, K3's vpu form, K4 and K5 equal their plain versions bit for
+    # bit: no FMA contraction either
+    for name in ("fused_stencil", "composed_stencil", "field_stencil",
+                 "pipeline_stencil"):
         assert _build.flags_for(name) == _build.NVCC_FLAGS + (
             "--fmad=false",)
-    # K3's flags stay the common ones
-    assert _build.flags_for("composed_stencil") == _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == [
         "composed_stencil", "field_stencil", "fused_active", "fused_stencil",

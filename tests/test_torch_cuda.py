@@ -7,10 +7,10 @@ where only torch is installed:
 
 Tolerances: K1 is held bit for bit (each cell's form, closed or exact,
 chosen as its plain version chooses it, every operation rounded in the
-plain version's order). K3 f32 ``1e-6 * nsteps``, bf16 one ulp at values
-below 4 (it sums a neighborhood in ``offsets`` order with every operation
-rounded, as its plain version does; its tap loop is left to nvcc's FMA
-contraction). K6 and K7 are held bit for bit: K6 computes in the
+plain version's order). K3's vpu form bit for bit (the binomial order in
+``_rn`` intrinsics, no contraction); its mxu form, on tensor cores, f32
+``1e-6 * k * max|v|``, bf16 one ulp at values below 4. K6 and K7 are held
+bit for bit: K6 computes in the
 storage dtype with every operation rounded, in the plain version's order,
 and K7 moves bits. K4 is held bit for bit (f32 and bf16 both compute in f32
 and round once per call), except flows using exp: CUDA's expf and torch's
@@ -72,15 +72,52 @@ def test_kernel_matches_plain_on_the_card(dtype, ns, offs, shape):
 @pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
 @pytest.mark.parametrize("shape", [(256, 512), (77, 131)])
 def test_composed_kernel_matches_plain_on_the_card(dtype, k, offs, shape):
+    """``"auto"``: the form JAX's rule picks (vpu on 131 columns and below
+    9 taps, mxu on 512 columns from 9)."""
     dev = _card()
     v = np.random.default_rng(7).uniform(0.5, 2.0, shape)
     x = torch.from_numpy(v).to(dev, dtype)
-    before = cs.launches()
+    form = cs.resolve_form("auto", k, fs.resolve_block(shape, dtype)[1])
+    before = cs.launches(form)
     got = cs.composed_dense_step(x, 0.13, k, offs)
-    assert cs.launches() == before + 1
-    want = cs.composed_dense_step_plain(x, 0.13, k, offs)
-    tol = 1e-6 * k if dtype == torch.float32 else 2.0 ** -6
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert cs.launches(form) == before + 1
+    want = cs.composed_dense_step_plain(x, 0.13, k, offs, form)
+    _held_to_plain(got, want, form, k)
+
+
+def _held_to_plain(got, want, form, k):
+    """vpu bit for bit; mxu f32 within 1e-6·k·max|v|, bf16 one ulp."""
+    if form == "vpu":
+        assert torch.equal(got, want)
+        return
+    tol = (1e-6 * k * float(want.float().abs().max())
+           if got.dtype == torch.float32 else 2.0 ** -6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["vpu", "mxu"])
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 4),
+                                     (torch.float32, 8), (torch.bfloat16, 3),
+                                     (torch.bfloat16, 8),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("shape", [(256, 512), (300, 1280), (40, 128)])
+def test_composed_forms_on_the_card(form, dtype, k, offs, shape):
+    """Each form asked for by name: interior and edge tiles, ragged tiles,
+    and a grid with few composed cells."""
+    dev = _card()
+    if k > cs.max_k(shape, dtype):
+        pytest.skip("k beyond the window's ghost depth")
+    v = np.random.default_rng(k).uniform(0.5, 2.0, shape)
+    x = torch.from_numpy(v).to(dev, dtype)
+    before = cs.launches(form)
+    got = cs.composed_dense_step(x, 0.13, k, offs, variant=form)
+    assert cs.launches(form) == before + 1
+    _held_to_plain(got, cs.composed_dense_step_plain(x, 0.13, k, offs, form),
+                   form, k)
+    torch.testing.assert_close(x, torch.from_numpy(v).to(dev, dtype),
+                               rtol=0, atol=0)
 
 
 def _active_case(dev, dtype, shape, tile, k, seed):
@@ -455,10 +492,11 @@ def test_halo_kernel_bitwise_plain_on_the_card(dtype, ns, offs, mesh_shape):
 @pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
 def test_composed_halo_kernel_on_the_card(dtype, k, offs, mesh_shape):
-    """K3-halo on every shard against ``composed_halo_step_plain`` at K3's
-    tolerance (the tap loop is left to nvcc's FMA contraction); the shards
-    put together equal K3 on the whole grid bit for bit (the interior/band
-    choice is per cell)."""
+    """K3-halo (``"auto"``) on every shard against
+    ``composed_halo_step_plain`` in the resolved form, at K3's tolerance;
+    the shards put together equal K3 on the whole grid bit for bit (the
+    interior/band choice is per cell, the mxu tiles are aligned to the
+    global grid)."""
     from mpi_model_tpu_torch.parallel import assemble, exchange_ring
 
     dev = _card()
@@ -466,19 +504,51 @@ def test_composed_halo_kernel_on_the_card(dtype, k, offs, mesh_shape):
     g = g["value"]
     lines, columns = mesh_shape
     out = [[None] * columns for _ in range(lines)]
-    tol = 1e-6 * k if dtype == torch.float32 else 2.0 ** -6
+    form = cs.resolve_form("auto", k, fs.resolve_block((h, w), dtype)[1])
     for i in range(lines):
         for j in range(columns):
             ring = exchange_ring(g, i, j, k)
             got = cs.composed_halo_step(g[i][j], ring, (i * h, j * w),
                                         (192, 1024), 0.13, k, offs)
             want = cs.composed_halo_step_plain(g[i][j], ring, (i * h, j * w),
-                                               (192, 1024), 0.13, k, offs)
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                       atol=tol)
+                                               (192, 1024), 0.13, k, offs,
+                                               form)
+            _held_to_plain(got, want, form, k)
             out[i][j] = got
     assert torch.equal(assemble(out, dev),
                        cs.composed_dense_step(full["value"], 0.13, k, offs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["vpu", "mxu"])
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 4), (torch.float32, 8),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("mesh_shape,shape", [((2, 2), (300, 1024)),
+                                              ((2, 3), (150, 768))])
+def test_composed_halo_forms_unaligned_on_the_card(form, dtype, k,
+                                                   mesh_shape, shape):
+    """Each form on shards whose row origins are not multiples of the
+    kernels' tiles (150, 75): every shard against its plain version, the
+    mosaic bit for bit the whole grid."""
+    from mpi_model_tpu_torch.parallel import assemble, exchange_ring
+
+    dev = _card()
+    mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 41)
+    g = g["value"]
+    lines, columns = mesh_shape
+    out = [[None] * columns for _ in range(lines)]
+    before = cs.halo_launches(form)
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, k)
+            out[i][j] = cs.composed_halo_step(
+                g[i][j], ring, (i * h, j * w), shape, 0.13, k, variant=form)
+            _held_to_plain(out[i][j], cs.composed_halo_step_plain(
+                g[i][j], ring, (i * h, j * w), shape, 0.13, k,
+                variant=form), form, k)
+    assert cs.halo_launches(form) == before + lines * columns
+    assert torch.equal(assemble(out, dev), cs.composed_dense_step(
+        full["value"], 0.13, k, variant=form))
 
 
 @pytest.mark.cuda
