@@ -8,7 +8,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. device: requires ``torch.cuda.is_available()``; prints the card's name
    and ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: builds every kernel from the sources in this checkout, one nvcc
-   per source started together, and prints the build seconds and ptxas.
+   per ``csrc`` source and per generated K4 unit (one for each flow set and
+   neighbourhood this check runs: ``k4_steppers``), all started together,
+   and prints each library's build seconds, whether it was cached, and
+   ptxas's registers and spills.
 3. each kernel against its plain version on the card, over dtypes, depths,
    neighborhoods and small and odd shapes, the main paths' own shapes
    included:
@@ -27,12 +30,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      bit at k=1 and for K7 (K6 computes in the storage dtype with every
      operation rounded, in the plain version's order); at k>1 within f32
      ``1e-6 * k``, f64 ``1e-12``, bf16 one ulp of the scale per step.
-   - K4 (``field_step_plain``): bit for bit, f32 and bf16, nsteps 1, 4, 8
-     (and 16 at bf16), over config 4's flows, ``Coupled`` alone (the
-     modulator must come back as the same tensor), an affine user flow, a
-     row-reading flow (``cell_coords``), a 3-channel chain and one flow
-     with every whitelisted operation. That last one uses ``exp``, where
-     CUDA's ``expf`` and torch's may differ by an ulp: it is held to
+   - K4 (``field_step_plain``; one generated unit per flow set and
+     neighbourhood): bit for bit, f32 and bf16, nsteps 1, 4, 8 (and 16 at
+     bf16), over config 4's flows, ``Coupled`` alone (the modulator must
+     come back as the same tensor), an affine user flow, a row-reading flow
+     (``cell_coords``), a 3-channel chain and one flow with every
+     whitelisted operation, on grids holding -0.0 cells (corners, an edge,
+     inside), and config 4 at the main path's 8192² (nsteps 1 and the
+     deepest). The every-operation flow uses ``exp``, where CUDA's ``expf``
+     and torch's may differ by an ulp: it is held to
      ``8·eps·nsteps·max|v|`` (plus one bf16 ulp of the scale at bf16).
    - K5 (``pipeline_step_plain``): bit for bit, f32 and bf16, nsteps 1, 4,
      8, Moore, von Neumann and a custom neighborhood, B 1, 3 and 8, on
@@ -95,9 +101,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    each run (K4 launches == steps / substeps); conservation checked;
    ``SerialExecutor("auto")`` reports ``pallas``; on 512², 64 steps against
    the plain version chained call by call, bit for bit; cell-updates/s
-   (CUDA events, median), K4 ms per call against its bound (computed from
-   the lowered program), the plain version's and the ``impl="xla"`` step's
-   times, and the peak device memory.
+   (CUDA events, median), K4 ms per call (f32 nsteps 1 and 8, bf16 1 and
+   16) against its bound (computed from the lowered program), the plain
+   version's and the ``impl="xla"`` step's times, and the peak device
+   memory.
 6c. ensemble serving at full width (``bench.py``'s serving row uncut): B = 8
    lanes of 4096², 8 steps, lane i = ``np.roll(base, 7·i, axis=0)`` of a
    ``U(0.5, 2.0)`` base from a numpy seed. Gates first, on lanes 0 and 7
@@ -131,7 +138,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``field_halo_step_plain``) on every shard of a 3×3 block mesh (corner,
    edge and interior origins) and of 4 row stripes, the rings exchanged
    from the neighbouring shards: f32 nsteps 1, 4, 8 and bf16 1, 4, 8, 16,
-   three neighbourhoods (K4: its flow sets). K2 and K4-halo are held bit
+   three neighbourhoods (K4: its flow sets, on grids holding -0.0 cells).
+   K2 and K4-halo are held bit
    for bit (K4-halo's ``every_op``, with exp, to K4's tolerance); K3-halo
    per form as K3 (vpu bit for bit, mxu to its tolerance), also on a 2×3
    mesh of 300 × 768 (shard rows at 150: origins that are not multiples
@@ -305,7 +313,8 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
                 "K2" if "fused_stencil_halo" in low else
                 "K3-halo" if "composed" in low and "halo" in low else
                 "K3" if "composed" in low else
-                "K4-halo" if "field_stencil_halo" in low else
+                # one generated kernel per flow set serves K4 and K4-halo
+                "K4" if "mm_field" in low else
                 "K1" if "fused_stencil" in low else
                 "reduction" if "reduce" in low else
                 "copy" if "memcpy" in low or "copy" in low else
@@ -466,6 +475,24 @@ def config4_flows(mt) -> list:
             mt.Diffusion(0.2, "b")]
 
 
+def k4_steppers(mt, torch, k4, neighborhoods) -> list:
+    """A stepper planned for every flow set and neighbourhood this check
+    runs on K4 (phases 3d, 6b, 6d, 6e and the CLI's coupled chain), so that
+    phase 2 builds their units together."""
+    import argparse
+
+    from mpi_model_tpu_torch.cli import build_flows
+
+    out = [k4.PallasFieldStep((8, 8), flows, offsets=offs,
+                              names=("a", "b", "c"))
+           for flows in field_flow_sets(mt, torch).values()
+           for offs in neighborhoods.values()]
+    chain, _ = build_flows(argparse.Namespace(flow="coupled", channels=2,
+                                              rate=0.1, init=1.0))
+    out.append(k4.PallasFieldStep((8, 8), chain, names=("c0", "c1")))
+    return out
+
+
 def field_bound_ms(prog, shape, itemsize: int, nsteps: int,
                    k: int) -> tuple[float, str]:
     """Least time for one K4 call, from the lowered program: every loaded
@@ -598,6 +625,9 @@ def halo_kernel_cases(np, torch, mt, dev, gen, record,
             xs = {nm: (0.5 + 1.5 * torch.rand(shape, generator=gen,
                                               device=dev)).to(dtype)
                   for nm in names}
+            for t in xs.values():  # -0.0 on a corner, a seam and inside
+                t[0, 0] = t[shape[0] // 2, shape[1] // 2] = -0.0
+                t[shape[0] // 3, shape[1] - 1] = -0.0
             gs = {nm: shards_of(t, mesh)[0] for nm, t in xs.items()}
             for ns in nsteps_set:
                 for fname, flows in field_flow_sets(mt, torch).items():
@@ -993,7 +1023,7 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
                "k3_halo_launches_by_form": k3_forms}
         kname = {"fused_stencil_halo": "K2",
                  "composed_stencil_halo": "K3-halo",
-                 "field_stencil_halo": "K4-halo"}.get(counter)
+                 "field_stencil_halo": "K4"}.get(counter)
         if kname and "device_by_kind" in prof:
             k = prof["device_by_kind"].get(kname, {"ms": 0.0})["ms"]
             row.update(kernel_ms_run=k, kernel_ms_per_chunk=k / chunks,
@@ -1146,12 +1176,12 @@ def sharded_main_path(np, torch, mt, dev, gen, reset_counts,
     out["calls"]["K4-halo"] = {"shape": [h4, h4], "nsteps": depth,
                                "ms": k_ms, "plain_ms": p_ms,
                                "library_ms": None, "bound_ms": b_ms,
-                               "bound_by": b_by, "tile_h": step.tile_h,
+                               "bound_by": b_by, "rows": step.rows,
                                "k4_same_shape_ms": k4_ms}
     print(f"K4-halo float32 shard {h4}x{h4} ns={depth}: kernel {k_ms:.4f} "
           f"ms/call (K4 on a {h4}x{h4} grid {k4_ms:.4f} ms), plain "
           f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-          f"tile height {step.tile_h}", flush=True)
+          f"window rows {step.rows}", flush=True)
     del gs, vals, rings, ys, base, space
     torch.cuda.empty_cache()
     # -- xla 2x2 at 4096², f32, against serial xla --------------------------
@@ -1616,14 +1646,20 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s (one nvcc per source, "
-          "in parallel)", flush=True)
+    units = {}  # K4's generated units, one per flow set and neighbourhood
+    for step in k4_steppers(mt, torch, k4, neighborhoods):
+        units.setdefault(step.planned.unit.text, step.planned.label)
+    _build.build_all(units=tuple(units.items()))
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.2f} s (one nvcc per source and per K4 unit, "
+          f"{len(units)} units, in parallel)", flush=True)
     for name, info in _build.build_info.items():
         print(f"  {name}: {info['seconds']:.2f} s cached={info['cached']}")
         for line in info["ptxas"].splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
-                    or "Compiling entry" in line):
+                    or "Compiling entry" in line) and not (
+                    name.startswith(_build.UNIT_STEM)
+                    and "Compiling entry" in line):
                 print(f"    {line.strip()}")
 
     # -- 3. K1 against its plain version --------------------------------------
@@ -1841,6 +1877,11 @@ def main() -> int:
             vals = {n: (0.5 + 1.5 * torch.rand(shape, generator=gen,
                                                device=dev)).to(dtype)
                     for n in ("a", "b", "c")}
+            sh, sw = shape
+            for n in vals:  # cells holding -0.0: corners, edges, inside
+                for r, c in ((0, 0), (sh - 1, sw - 1), (sh // 2, 0),
+                             (sh // 2, sw // 2), (sh // 3, (2 * sw) // 3)):
+                    vals[n][r, c] = -0.0
             depth = fs.ghost_depth(shape, dtype)
             for ns in nsteps_set:
                 if ns > depth:
@@ -1849,8 +1890,8 @@ def main() -> int:
                     for fname, flows in flow_sets.items():
                         if shape == (N4, N4) and not (
                                 hood == "moore" and fname == "config4"
-                                and ns == max(nsteps_set)):
-                            continue  # the main path's own case only
+                                and ns in (1, max(nsteps_set))):
+                            continue  # the main path's own cases only
                         step = k4.PallasFieldStep(shape, flows, offsets=offs,
                                                   nsteps=ns)
                         got = step(vals)
@@ -1885,15 +1926,15 @@ def main() -> int:
                               f"K4 disagrees with its plain version: {dname} "
                               f"{shape} ns={ns} {hood} {fname} err={err}")
                         if shape == (N4, N4):
-                            k4_err[dname] = err
+                            k4_err[(dname, ns)] = err
                         del got, want
             del vals
             torch.cuda.empty_cache()
     print(f"K4: {ncases} cases agree with the plain version, {n_bit} of them "
-          f"bit for bit (every_op, with exp, is held to a tolerance); at the "
-          f"main path's shape f32 "
-          f"ns=8 {k4_err['float32']:.3e}, bf16 ns=16 "
-          f"{k4_err['bfloat16']:.3e}", flush=True)
+          f"bit for bit (every_op, with exp, is held to a tolerance; -0.0 "
+          f"cells in every grid); at the main path's shape "
+          + ", ".join(f"{d} ns={ns} {e:.3e}" for (d, ns), e in
+                      sorted(k4_err.items())), flush=True)
 
     # -- 3e. K5 against its plain version -------------------------------------
     k5_err = {}
@@ -2378,7 +2419,7 @@ def main() -> int:
     base4 = {n: torch.from_numpy(rng.uniform(0.5, 2.0, (N4, N4)).astype(
         np.float32)).to(dev) for n in ("a", "b")}
     field_rows = []
-    k4_run = {}  # dtype -> the launches of its deepest-substeps run
+    k4_run = {}  # (dtype, substeps) -> its run's row
     for dname, sub in (("float32", 1), ("float32", 8), ("bfloat16", 1),
                        ("bfloat16", 16)):
         tdt = getattr(torch, dname)
@@ -2420,7 +2461,7 @@ def main() -> int:
                "peak_mem_bytes": peak, "held_before_run_bytes": held,
                "run_peak_above_held_bytes": peak - held}
         field_rows.append(row)
-        k4_run[dname] = row
+        k4_run[(dname, sub)] = row
         print(f"field path {dname} {N4}x{N4} substeps={sub}: conserved "
               f"(|d|={row['conservation_error']:.3e}), impl=pallas (K4), "
               f"launches={row['launches']}, {row['step_ms']:.4f} ms/step, "
@@ -2463,7 +2504,8 @@ def main() -> int:
 
     # K4 per call: kernel, plain version, bound; the xla step as context
     field_timing = {}
-    for dname, ns in (("float32", 8), ("bfloat16", 16)):
+    for dname, ns in (("float32", 8), ("bfloat16", 16), ("float32", 1),
+                      ("bfloat16", 1)):
         tdt = getattr(torch, dname)
         x = {n: t.to(tdt) for n, t in base4.items()}
         step = k4.PallasFieldStep((N4, N4), model4.flows, dtype=tdt,
@@ -2484,14 +2526,14 @@ def main() -> int:
         x_ms = statistics.median(timed_ms(torch, lambda: sx(x), reps=3))
         b_ms, b_by = field_bound_ms(step.program, (N4, N4),
                                     x["a"].element_size(), ns, 8)
-        field_timing[dname] = {
+        field_timing[(dname, ns)] = {
             "nsteps": ns, "ms": k_ms, "plain_ms": p_ms, "xla_step_ms": x_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "tile_h": step.tile_h,
+            "bound_ms": b_ms, "bound_by": b_by, "rows": step.rows,
             "program": step.program.describe(),
             "program_flops": step.program.flops()}
         print(f"K4 {dname} {N4}x{N4} ns={ns}: kernel {k_ms:.4f} ms/call, "
               f"plain {p_ms:.3f} ms, xla step {x_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), tile height {step.tile_h}, "
+              f"{b_ms:.4f} ms ({b_by}), window rows {step.rows}, "
               f"{k_ms / ns:.4f} ms per step", flush=True)
         del x, bufs, sp, sx
         torch.cuda.empty_cache()
@@ -2945,20 +2987,23 @@ def main() -> int:
         "shape": [N, N], "dtype": "float32", "frac": 0.05,
         "active_tiles": kt["count"],
     })
-    for dname in ("float32", "bfloat16"):
-        t = field_timing[dname]
+    for dname, ns in (("float32", 8), ("bfloat16", 16), ("float32", 1),
+                      ("bfloat16", 1)):
+        t = field_timing[(dname, ns)]
         entries.append({
-            "name": f"K4 field_stencil {dname}",
+            "name": f"K4 field_stencil {dname} ns={ns}",
             "route": "cuda",
-            "source": "mpi_model_tpu_torch/csrc/field_stencil.cu",
+            "source": "mpi_model_tpu_torch/csrc/field_stencil.cuh",
+            "generated_by": "mpi_model_tpu_torch/ops/field_codegen.py",
             "replaces": "mpi_model_tpu/ops/pallas_stencil.py:1380",
-            "launches": k4_run[dname]["launches"],
-            "max_abs_err": k4_err[dname],
+            "launches": k4_run[(dname, ns)]["launches"],
+            "max_abs_err": k4_err[(dname, ns)],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
-            "shape": [N4, N4], "dtype": dname, "nsteps": t["nsteps"],
-            "xla_step_ms": t["xla_step_ms"], "main_path": k4_run[dname],
+            "shape": [N4, N4], "dtype": dname, "nsteps": ns,
+            "rows": t["rows"], "xla_step_ms": t["xla_step_ms"],
+            "main_path": k4_run[(dname, ns)],
         })
     for dname in ("float32", "bfloat16"):
         t = k5_time[(dname, 8)]
@@ -2987,7 +3032,7 @@ def main() -> int:
                  "K3-halo mxu": ("composed_stencil_halo", "composed_stencil.cu",
                                  "mpi_model_tpu/ops/composed_stencil.py:323",
                                  f"K3-halo mxu {N}x{N}", "mxu"),
-                 "K4-halo": ("field_stencil_halo", "field_stencil.cu",
+                 "K4-halo": ("field_stencil_halo", "field_stencil.cuh",
                              "mpi_model_tpu/ops/pallas_stencil.py:1396",
                              f"K4-halo config 4 {N4}x{N4}", None)}
     for kname, (fn, src, replaces, run_name, form) in halo_rows.items():
@@ -3044,7 +3089,9 @@ def main() -> int:
          "active_rows": active_rows, "k67_times": {
              f"{f}/k={k}": v for (f, k), v in k67_time.items()},
          "composed": composed, "field_rows": field_rows,
-         "field_timing": field_timing, "ensemble_gates": gates,
+         "field_timing": {f"{d}/ns={n}": v
+                          for (d, n), v in field_timing.items()},
+         "ensemble_gates": gates,
          "ensemble_rows": ens_rows,
          "k5_times": {f"{d}/ns={n}": v for (d, n), v in k5_time.items()},
          "count_read_us": sync_us,

@@ -1,6 +1,6 @@
 // Device helpers shared by the port's stencil kernels (K1 and K2 in
 // fused_stencil.cu, K3 and K3-halo in composed_stencil.cu, K4 and K4-halo
-// in field_stencil.cu, K5 in pipeline_stencil.cu, K6/K7 in fused_active.cu).
+// in field_stencil.cuh, K5 in pipeline_stencil.cu, K6/K7 in fused_active.cu).
 //
 // One copy of: the f32 storage conversions, the grid test, the in-bounds
 // neighbor count of a global cell, the window sources (a whole grid, or one
@@ -11,7 +11,8 @@
 //
 // Then the register column walk that K1/K2 and K3's vpu form share (the
 // last section): cp.async window staging, the tiling, one walk step, and
-// the exact strips of an edge tile.
+// the exact strips of an edge tile. K4's walk (field_stencil.cuh) takes the
+// staging and the tiling.
 
 #pragma once
 
@@ -286,7 +287,7 @@ __device__ __forceinline__ void iterate_exact_f32(float* val, float* share,
 }
 
 
-// -- the register column walk (K1/K2, K3/K3-halo vpu) ------------------------
+// -- the register column walk (K1/K2, K3/K3-halo vpu; K4 its staging) -------
 //
 // A block of kThreadsY warps holds a ROWS x kWinW window of the grid in
 // registers, one window column a thread (warp = threadIdx.y, column = warp

@@ -10,9 +10,17 @@ source or shared header rebuilds and an unchanged one is reused.
 
 ``SOURCE_FLAGS`` adds flags per source: every source builds with FMA
 contraction off (``fused_stencil.cu``, K1/K2; ``composed_stencil.cu``,
-K3's vpu form; ``fused_active.cu``, K6/K7; ``field_stencil.cu``, K4;
-``pipeline_stencil.cu``, K5: each must equal its plain version bit for
-bit). ``build_all`` starts one ``nvcc`` per source, all at once.
+K3's vpu form; ``fused_active.cu``, K6/K7; ``pipeline_stencil.cu``, K5:
+each must equal its plain version bit for bit). ``build_all`` starts one
+``nvcc`` per source, all at once.
+
+Generated units (K4: one per lowered flow set, ``ops/field_codegen.py``)
+build the same way from their text: ``build_unit`` writes the text into the
+build directory and compiles it there against the ``csrc`` headers it
+includes, with ``UNIT_FLAGS`` (FMA contraction off: K4 equals its plain
+version bit for bit). The library's name hashes the text, those headers and
+the flags, so identical programs share one library across processes and
+runs. ``build_all`` takes units too, and builds them beside the sources.
 """
 
 from __future__ import annotations
@@ -38,9 +46,13 @@ SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
     "fused_stencil": ("--fmad=false",),
     "composed_stencil": ("--fmad=false",),
     "fused_active": ("--fmad=false",),
-    "field_stencil": ("--fmad=false",),
     "pipeline_stencil": ("--fmad=false",),
 }
+
+#: extra nvcc flags of every generated unit
+UNIT_FLAGS: tuple[str, ...] = ("--fmad=false",)
+#: the file stem of generated units and their libraries
+UNIT_STEM = "k4_field"
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -77,43 +89,64 @@ def local_headers(src: Path) -> list[Path]:
     """Every ``csrc`` header ``src`` includes with quotes, transitively, in
     first-seen order. A quoted include that is not in ``csrc`` raises: the
     build reads nothing outside the checkout's sources."""
+    return _headers_of(src.read_text(), src.name)
+
+
+def _headers_of(text: str, what: str) -> list[Path]:
     seen: list[Path] = []
-    todo = [src]
+    todo = [text]
     while todo:
-        for inc in _INCLUDE.findall(todo.pop().read_text()):
+        for inc in _INCLUDE.findall(todo.pop()):
             path = CSRC / inc
             if not path.is_file():
-                raise RuntimeError(f"{src.name} includes {inc!r}, which is "
+                raise RuntimeError(f"{what} includes {inc!r}, which is "
                                    f"not a file under {CSRC}")
             if path not in seen:
                 seen.append(path)
-                todo.append(path)
+                todo.append(path.read_text())
     return seen
 
 
 def digest_of(name: str) -> str:
     """Hash of the source, its local headers and its flags."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    for hdr in local_headers(src):
+    return _digest(src.read_bytes(), local_headers(src), flags_for(name))
+
+
+def _digest(text: bytes, headers: list[Path], flags: tuple[str, ...]) -> str:
+    h = hashlib.sha256(text)
+    for hdr in headers:
         h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
-    h.update(" ".join(flags_for(name)).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
+
+
+def unit_flags() -> tuple[str, ...]:
+    """The nvcc flags of a generated unit (its include path aside)."""
+    return NVCC_FLAGS + UNIT_FLAGS
+
+
+def unit_name(text: str) -> str:
+    """A generated unit's name: ``UNIT_STEM`` and the hash of its text,
+    the ``csrc`` headers it includes and its flags."""
+    digest = _digest(text.encode(), _headers_of(text, "a generated unit"),
+                     unit_flags())
+    return f"{UNIT_STEM}-{digest}"
 
 
 def _library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest_of(name)}.so"
 
 
-def _compile(name: str, out: Path) -> str:
-    src = CSRC / f"{name}.cu"
+def _compile(src: Path, flags: tuple[str, ...], out: Path,
+             what: str) -> str:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *flags_for(name), "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
+            f"nvcc failed on {what} (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
     return proc.stdout + proc.stderr
@@ -121,28 +154,64 @@ def _compile(name: str, out: Path) -> str:
 
 def _build(name: str) -> None:
     """Compile ``name`` unless its library is cached; record the build."""
-    out = _library_path(name)
+    src = CSRC / f"{name}.cu"
+    _record(name, _library_path(name), lambda out: _compile(
+        src, flags_for(name), out, src.name))
+
+
+def _record(name: str, out: Path, compile_to) -> None:
     t0 = time.perf_counter()
     cached = out.is_file()
     ptxas = ""
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        ptxas = _compile(name, out)
+        ptxas = compile_to(out)
     build_info[name] = {"seconds": time.perf_counter() - t0,
                         "cached": cached, "ptxas": ptxas.strip(),
                         "library": str(out)}
 
 
-def build_all() -> dict[str, ctypes.CDLL]:
-    """Build (or take from the cache) every source under ``csrc/``, one
-    ``nvcc`` per source started together, then load them all."""
+def build_unit(text: str, label: str = "") -> str:
+    """Compile a generated unit unless its library is cached; record the
+    build under the unit's name and return the name. The text goes into
+    the build directory and compiles there against ``csrc``; a failed
+    build raises naming ``label`` (the flow set)."""
+    name = unit_name(text)
+    if name in build_info and Path(build_info[name]["library"]).is_file():
+        return name
+
+    def compile_to(out: Path) -> str:
+        src = BUILD_DIR / f"{name}.cu"
+        if not src.is_file():
+            tmp = src.with_suffix(f".{os.getpid()}.tmp")
+            tmp.write_text(text)
+            os.replace(tmp, src)
+        return _compile(src, unit_flags() + ("-I", str(CSRC)), out,
+                        f"the field kernel of {label or name}")
+
+    _record(name, BUILD_DIR / f"lib{name}.so", compile_to)
+    return name
+
+
+def build_all(units: tuple[tuple[str, str], ...] = ()
+              ) -> dict[str, ctypes.CDLL]:
+    """Build (or take from the cache) every source under ``csrc/`` and
+    every generated unit of ``units`` (``(text, label)`` pairs), one
+    ``nvcc`` each, all started together, then load them all (keyed by
+    source stem or unit name)."""
     names = [p.stem for p in sorted(CSRC.glob("*.cu"))]
     todo = [n for n in names if n not in _libs]
-    if todo:
-        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
-            for fut in [pool.submit(_build, n) for n in todo]:
-                fut.result()
-    return {n: load(n) for n in names}
+    distinct = {unit_name(text): (text, label) for text, label in units}
+    with ThreadPoolExecutor(max_workers=max(1, len(todo) + len(distinct))
+                            ) as pool:
+        futs = [pool.submit(_build, n) for n in todo]
+        futs += [pool.submit(build_unit, text, label)
+                 for text, label in distinct.values()]
+        for fut in futs:
+            fut.result()
+    libs = {n: load(n) for n in names}
+    libs.update({n: load_unit(n) for n in distinct})
+    return libs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -156,4 +225,14 @@ def load(name: str) -> ctypes.CDLL:
         _build(name)
     lib = ctypes.CDLL(build_info[name]["library"])
     _libs[name] = lib
+    return lib
+
+
+def load_unit(name: str) -> ctypes.CDLL:
+    """The loaded library of a generated unit that ``build_unit`` built
+    (by the name it returned)."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(build_info[name]["library"])
+        _libs[name] = lib
     return lib

@@ -34,14 +34,13 @@ so the port lowers every flow once, when the step is built:
 A program is in **register form**: three-address instructions whose
 operands are a slot (an intermediate result), a channel, a constant, or
 the cell's row or column, and whose result goes to the lowest free slot or,
-for the ``acc`` that ends each flow, is added to its channel's outflow. In
-K4 every slot is a shared-memory plane over the block's window, and each
-instruction is dispatched once and applied to all of a thread's cells; the
-program travels in the launch argument (``field_stencil.pack_program``).
-``eval_program`` runs a program in plain torch; the tests hold it bit for
-bit to ``build_outflow`` at f32 and f64. Limits, checked by
-``check_program``: ``MAX_FLOWS`` flows, ``MAX_CHANNELS`` channels,
-``MAX_CODE`` instructions and ``MAX_SLOTS`` slots.
+for the ``acc`` that ends each flow, is added to its channel's outflow.
+``ops.field_codegen`` turns a program into K4's outflow function, one named
+register an instruction, compiled per flow set. ``eval_program`` runs a
+program in plain torch; the tests hold it bit for bit to ``build_outflow``
+at f32 and f64. Limits, checked by ``check_program``: ``MAX_FLOWS`` flows,
+``MAX_CHANNELS`` channels, ``MAX_CODE`` instructions and ``MAX_SLOTS``
+slots.
 """
 
 from __future__ import annotations
@@ -52,7 +51,7 @@ from typing import Mapping, Optional, Sequence
 
 import torch
 
-# opcodes and operand kinds: csrc/field_stencil.cu's enums
+# opcodes and operand kinds (ops/field_codegen.py emits each as CUDA)
 OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIN, OP_MAX = 0, 1, 2, 3, 4, 5
 OP_NEG, OP_EXP, OP_ABS = 6, 7, 8
 #: adds operand ``a`` to the outflow of written channel ``dst``
@@ -65,7 +64,7 @@ _UNARY = {"neg": OP_NEG, "exp": OP_EXP, "abs": OP_ABS}
 K_SLOT, K_CHAN, K_CONST, K_ROW, K_COL = 0, 1, 2, 3, 4
 _UNUSED = (K_CONST, 0, 0.0)  # the ``b`` of unary operations and accs
 
-#: K4's program limits (csrc/field_stencil.cu holds the same numbers)
+#: K4's program limits (csrc/field_stencil.cuh's kMaxChannels is the same)
 MAX_FLOWS = 8
 MAX_CHANNELS = 8
 MAX_CODE = 64

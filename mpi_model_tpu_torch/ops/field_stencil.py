@@ -2,24 +2,31 @@
 wrappers, checks and plain versions.
 
 Counterpart of ``mpi_model_tpu/ops/pallas_stencil.py``'s field kernel
-(``_field_call``, ``PallasFieldStep``, ``pallas_field_halo_step``). The
-kernel is ``csrc/field_stencil.cu`` (CUDA C++ for sm_90a, loaded with
-ctypes): one call runs ``nsteps`` steps of any set of pointwise field flows
-(``Coupled``, user flows) over every channel they read or write, in one
-read and one write of device memory. The flows reach it as programs in
-register form, lowered once by ``ops.field_lower``.
+(``_field_call``, ``PallasFieldStep``, ``pallas_field_halo_step``). One call
+runs ``nsteps`` steps of any set of pointwise field flows (``Coupled``, user
+flows) over every channel they read or write, in one read and one write of
+device memory. The kernel is generated per lowered flow set: the flows are
+lowered once by ``ops.field_lower``, ``ops.field_codegen`` turns the program
+into a CUDA unit (its outflow function) over the body in
+``csrc/field_stencil.cuh`` (CUDA C++ for sm_90a, loaded with ctypes), and
+``ops._build.build_unit`` compiles the unit at the stepper's first call on
+the card (``_build.build_all(units=...)`` builds several at once), cached
+in ``_build/`` by a hash of its text.
 
-- A CPU tensor takes ``field_step_plain``, the plain torch version.
-- A CUDA tensor launches the kernel or raises; nothing falls back.
+- A CPU tensor takes ``field_step_plain``, the plain torch version; nothing
+  is generated into a library or built.
+- A CUDA tensor launches the kernel or raises; nothing falls back. A failed
+  build raises naming the flow set.
 - The ghost-depth rule is K1's (``fused_stencil.check_nsteps``): ``nsteps``
   up to 8 for f32 and 16 for bf16 with the JAX package's default blocks.
-- Shared memory: a block holds a (TILE_H + 2n) × (128 + 2n) f32 window per
-  loaded channel, per written channel's outflow and per intermediate slot
-  of the register-form program (at least one: it doubles as the share
-  buffer). The wrapper picks TILE_H from 32, 16, 8 so that this fits the
-  232,448 bytes a block may use (``pick_tile_h``), and raises, naming the
-  budget, when none does. ``Model.make_step(impl="auto")`` treats that as a
-  static reason to take the plain path.
+- Window rows: a block steps a ROWS x 256 window, every written channel's
+  column of it in registers, the modulators' windows in shared memory.
+  ``window_rows`` picks ROWS per (written channels, nsteps) as measured
+  (``k4_variants.py``), at least ``min_rows`` (eight output rows), lowered
+  in steps of 8 while the block's shared memory (``smem_bytes``) is over
+  the 232,448 bytes a block may use; every program within ``check_program``'s
+  limits fits at every depth the ghost-depth rule admits. A unit carries
+  an instance for each ROWS its program can ask for (``unit_rows``).
 - Only channels some flow writes are outputs; modulator-only channels pass
   through as the same tensor.
 - ``pallas_field_halo_step`` (K4-halo, ``PallasFieldStep.halo``) steps one
@@ -34,24 +41,32 @@ register form, lowered once by ``ops.field_lower``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import torch
 
 from ..core.cell import MOORE_OFFSETS
-from .field_lower import (MAX_CHANNELS, MAX_CODE, FieldProgram,
-                          check_program, lower_flows)
+from .field_codegen import FieldUnit, modulators, unit_source
+from .field_lower import (MAX_CHANNELS, FieldProgram, check_program,
+                          lower_flows)
 from .flow import build_outflow
 from .fused_stencil import (KERNEL_DTYPES, RING_PIECES, check_nsteps,
                             check_offsets, check_ring, check_ring_depth,
                             pad_from_ring, padded_region, resolve_block)
 from .stencil import neighbor_counts, transport
 
-TILE_W = 128
-TILE_HEIGHTS = (32, 16, 8)
+#: a window's columns (one a thread of a block of 8 warps) and the block's
+#: warps (csrc/stencil_common.cuh's kWinW, kThreadsY)
+WIN_W = 256
+WARPS = 8
+#: warp-edge exchange slots (warps -1 .. 8, two edges each)
+EDGE_SLOTS = 2 * (WARPS + 2)
 #: shared memory one block may use on the H100 (sm_90)
 SMEM_LIMIT = 232_448
-MAX_OFFSETS = 8
+#: the deepest call per storage dtype (the ghost-depth rule's most)
+MAX_NSTEPS = {"f32": 8, "bf16": 16}
+_ITEMSIZE = {"f32": 4, "bf16": 2}
 _launch_count = 0
 _halo_launch_count = 0
 
@@ -72,22 +87,72 @@ def reset_launches() -> None:
     _halo_launch_count = 0
 
 
-def smem_bytes(n_chan: int, n_out: int, n_slots: int, nsteps: int,
-               tile_h: int) -> int:
-    """Shared memory of one block: ``n_chan`` value windows, ``n_out``
-    outflow windows and ``max(n_slots, 1)`` slot windows (the first is
-    also the share buffer), f32."""
-    return ((n_chan + n_out + max(n_slots, 1)) * (tile_h + 2 * nsteps)
-            * (TILE_W + 2 * nsteps) * 4)
+def dtype_key(dtype) -> str:
+    """``"f32"`` or ``"bf16"``: a kernel dtype's name in a unit."""
+    return "f32" if dtype == torch.float32 else "bf16"
 
 
-def pick_tile_h(n_chan: int, n_out: int, n_slots: int,
-                nsteps: int) -> Optional[int]:
-    """The tallest tile whose block fits ``SMEM_LIMIT``; None if none."""
-    for th in TILE_HEIGHTS:
-        if smem_bytes(n_chan, n_out, n_slots, nsteps, th) <= SMEM_LIMIT:
-            return th
+def stage_bytes(rows: int, itemsize: int) -> int:
+    """One channel's staged window: ``rows`` rows of 256 columns and 16
+    bytes of alignment slack, in the storage dtype."""
+    return rows * (WIN_W + 16 // itemsize) * itemsize
+
+
+def smem_bytes(n_out: int, n_mod: int, rows: int, itemsize: int) -> int:
+    """Shared memory of one block (``csrc/field_stencil.cuh``'s
+    ``smem_bytes``): each modulator's staged window, then the larger of the
+    written channels' staged windows and what the walk reuses them for
+    (the warp-edge exchange, two parities, and each warp's two outer
+    columns' shares)."""
+    sb = stage_bytes(rows, itemsize)
+    walk = (2 * EDGE_SLOTS * n_out * rows + WARPS * 2 * (n_out * rows + 1)) * 4
+    return n_mod * sb + max(n_out * sb, walk)
+
+
+def preferred_rows(n_out: int, nsteps: int) -> int:
+    """The window rows measured fastest per written channels and depth
+    (``k4_variants.py`` on the H100, PERF.md): a thread holds ``n_out`` x
+    ROWS values at two blocks an SM, so more written channels take fewer
+    rows, and a shallow call takes fewer rows (its blocks load more than
+    they step)."""
+    if n_out == 1:
+        return 32 if nsteps <= 2 else 48 if nsteps <= 8 else 64
+    if n_out == 2:
+        return 32 if nsteps <= 2 else 48
+    if n_out == 3:
+        return 32
+    return 24
+
+
+def min_rows(nsteps: int) -> int:
+    """The fewest window rows of a call: eight output rows, a multiple of
+    8 (the window is staged eight rows at a time)."""
+    return 8 * ((2 * nsteps + 15) // 8)
+
+
+def window_rows(n_out: int, n_mod: int, nsteps: int,
+                itemsize: int) -> Optional[int]:
+    """The window rows of a call: the preferred rows (at least
+    ``min_rows``), lowered by 8 while the block is over ``SMEM_LIMIT``;
+    None if even ``min_rows`` is (no program within the limits is)."""
+    rows = max(preferred_rows(n_out, nsteps), min_rows(nsteps))
+    while rows >= min_rows(nsteps):
+        if smem_bytes(n_out, n_mod, rows, itemsize) <= SMEM_LIMIT:
+            return rows
+        rows -= 8
     return None
+
+
+def unit_rows(n_out: int, n_mod: int) -> dict[str, tuple[int, ...]]:
+    """Every window height a program of ``n_out`` written channels and
+    ``n_mod`` modulators can ask for, per storage dtype: its unit's
+    instances."""
+    out = {}
+    for key, deepest in MAX_NSTEPS.items():
+        rows = {window_rows(n_out, n_mod, n, _ITEMSIZE[key])
+                for n in range(1, deepest + 1)}
+        out[key] = tuple(sorted(r for r in rows if r is not None))
+    return out
 
 
 def check_pointwise(flows) -> None:
@@ -106,14 +171,28 @@ class FieldPlanError(ValueError):
     before anything is built or launched."""
 
 
+@dataclasses.dataclass(frozen=True)
+class FieldPlan:
+    """Everything K4 decides before a call: the lowered program, the
+    call's window rows, the generated unit and the flow set's label (a
+    failed build names it)."""
+
+    program: FieldProgram
+    rows: int
+    unit: FieldUnit
+    label: str
+
+
 def plan_field(flows, names: Sequence[str], shape: tuple[int, int], dtype,
-               nsteps: int, block: Optional[tuple[int, int]] = None
-               ) -> tuple[FieldProgram, int]:
+               nsteps: int, block: Optional[tuple[int, int]] = None,
+               offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS
+               ) -> FieldPlan:
     """Everything K4 decides before a call, from static facts only: the
-    lowered program and the tile height. Raises
-    ``FieldPlanError`` when the flows cannot be lowered, exceed the program
-    limits, need more steps than the ghost depth or more shared memory
-    than a block has."""
+    lowered program, the window rows and the unit's text (nothing is
+    built). Raises ``FieldPlanError`` when the flows cannot be lowered,
+    exceed the program limits, need more steps than the ghost depth or
+    more shared memory than a block has."""
+    offsets = check_offsets(offsets)
     try:
         check_pointwise(flows)
         prog = lower_flows(flows, names)
@@ -122,17 +201,21 @@ def plan_field(flows, names: Sequence[str], shape: tuple[int, int], dtype,
                      dtype)
     except ValueError as e:
         raise FieldPlanError(str(e)) from e
-    sizes = (len(prog.channels), len(prog.outputs), prog.n_slots,
-             int(nsteps))
-    th = pick_tile_h(*sizes)
-    if th is None:
+    n_out, n_mod = len(prog.outputs), len(modulators(prog))
+    itemsize = _ITEMSIZE[dtype_key(dtype)]
+    rows = window_rows(n_out, n_mod, int(nsteps), itemsize)
+    if rows is None:
         raise FieldPlanError(
-            f"the field kernel's block needs {smem_bytes(*sizes, 8)} bytes "
-            f"of shared memory even at tile height 8 ({sizes[0]} loaded and "
-            f"{sizes[1]} written channels, {prog.n_slots} slots, "
+            f"the field kernel's block needs "
+            f"{smem_bytes(n_out, n_mod, min_rows(int(nsteps)), itemsize)} "
+            f"bytes of shared memory even at {min_rows(int(nsteps))} window "
+            f"rows ({n_out} written channels, {n_mod} modulators, "
             f"nsteps={nsteps}), over the {SMEM_LIMIT} bytes a block may "
             "use; use fewer substeps or impl='xla'")
-    return prog, th
+    label = (", ".join(prog.labels) + " over offsets "
+             + " ".join(f"({dx},{dy})" for dx, dy in offsets))
+    return FieldPlan(prog, rows, unit_source(prog, offsets,
+                                             unit_rows(n_out, n_mod)), label)
 
 
 def field_step_plain(values: Mapping[str, torch.Tensor], flows,
@@ -199,120 +282,121 @@ def field_halo_step_plain(values: Mapping[str, torch.Tensor],
                          for a in written}}
 
 
-class _FieldArgs(ctypes.Structure):
-    """``FieldArgs`` of ``csrc/field_stencil.cu``, field for field."""
+class _FieldCall(ctypes.Structure):
+    """``FieldCall`` of ``csrc/field_stencil.cuh``, field for field."""
 
     _fields_ = [
         ("inp", ctypes.c_void_p * MAX_CHANNELS),
-        ("out", ctypes.c_void_p * MAX_CHANNELS),
-        ("out_chan", ctypes.c_int * MAX_CHANNELS),
-        ("H", ctypes.c_int), ("W", ctypes.c_int),
-        ("nsteps", ctypes.c_int), ("tile_h", ctypes.c_int),
-        ("n_chan", ctypes.c_int), ("n_out", ctypes.c_int),
-        ("n_slots", ctypes.c_int), ("n_off", ctypes.c_int),
-        ("n_code", ctypes.c_int), ("pad_", ctypes.c_int),
-        ("off_dx", ctypes.c_int * MAX_OFFSETS),
-        ("off_dy", ctypes.c_int * MAX_OFFSETS),
-        ("op", ctypes.c_int * MAX_CODE),
-        ("dst", ctypes.c_int * MAX_CODE),
-        ("first", ctypes.c_int * MAX_CODE),
-        ("a_kind", ctypes.c_int * MAX_CODE),
-        ("a_arg", ctypes.c_int * MAX_CODE),
-        ("b_kind", ctypes.c_int * MAX_CODE),
-        ("b_arg", ctypes.c_int * MAX_CODE),
-        ("a_imm", ctypes.c_float * MAX_CODE),
-        ("b_imm", ctypes.c_float * MAX_CODE),
-    ]
-
-
-class _FieldHalo(ctypes.Structure):
-    """``FieldHalo`` of ``csrc/field_stencil.cu``, field for field."""
-
-    _fields_ = [
         ("ring", (ctypes.c_void_p * 8) * MAX_CHANNELS),
-        ("d", ctypes.c_int), ("R0", ctypes.c_int), ("C0", ctypes.c_int),
-        ("H", ctypes.c_int), ("W", ctypes.c_int), ("pad_", ctypes.c_int),
+        ("out", ctypes.c_void_p * MAX_CHANNELS),
+        ("h", ctypes.c_int), ("w", ctypes.c_int), ("d", ctypes.c_int),
+        ("R0", ctypes.c_int), ("C0", ctypes.c_int),
+        ("H", ctypes.c_int), ("W", ctypes.c_int),
+        ("nsteps", ctypes.c_int), ("rows", ctypes.c_int),
+        ("vec", ctypes.c_int),
     ]
 
 
-def pack_program(prog: FieldProgram, offsets: tuple, nsteps: int,
-                 tile_h: int, shape: tuple[int, int]) -> _FieldArgs:
-    """The launch argument for ``prog``, without its pointers (the
-    constants rounded to f32 here, as the kernel computes)."""
-    a = _FieldArgs()
-    a.H, a.W = int(shape[0]), int(shape[1])
-    a.nsteps, a.tile_h = int(nsteps), int(tile_h)
-    a.n_chan, a.n_out = len(prog.channels), len(prog.outputs)
-    a.n_slots, a.n_off = prog.n_slots, len(offsets)
-    a.n_code = len(prog.code)
-    for o, name in enumerate(prog.outputs):
-        a.out_chan[o] = prog.channels.index(name)
-    for d, (dx, dy) in enumerate(offsets):
-        a.off_dx[d], a.off_dy[d] = dx, dy
-    for pc, (op, dst, first, (ak, aa, ai), (bk, ba, bi)) in enumerate(
-            prog.code):
-        a.op[pc], a.dst[pc], a.first[pc] = op, dst, first
-        a.a_kind[pc], a.a_arg[pc], a.a_imm[pc] = ak, aa, ai
-        a.b_kind[pc], a.b_arg[pc], a.b_imm[pc] = bk, ba, bi
+def kernel_channels(prog: FieldProgram) -> tuple[str, ...]:
+    """The channels in the order the kernel loads them: the written ones
+    (``outputs``), then the modulators."""
+    return prog.outputs + modulators(prog)
+
+
+def pack_call(plan: FieldPlan, nsteps: int, chans: Sequence[torch.Tensor],
+              outs: Sequence[torch.Tensor],
+              rings: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
+              origin: tuple[int, int] = (0, 0),
+              global_shape: Optional[tuple[int, int]] = None,
+              depth: int = 0) -> _FieldCall:
+    """The launch argument: ``chans`` in ``kernel_channels`` order (K4-halo:
+    their ``rings`` too, ``depth`` deep, the shard at ``origin`` of
+    ``global_shape``), ``outs`` in ``outputs`` order. ``vec`` says whether
+    every loaded channel's rows are 16-byte aligned (cp.async windows)."""
+    a = _FieldCall()
+    h, w = (int(x) for x in chans[0].shape)
+    a.h, a.w = h, w
+    a.H, a.W = (h, w) if global_shape is None else (int(global_shape[0]),
+                                                     int(global_shape[1]))
+    a.R0, a.C0 = int(origin[0]), int(origin[1])
+    a.d, a.nsteps, a.rows = int(depth), int(nsteps), plan.rows
+    a.vec = int(all(t.data_ptr() % 16 == 0 for t in chans)
+                and (w * chans[0].element_size()) % 16 == 0)
+    for c, t in enumerate(chans):
+        a.inp[c] = t.data_ptr()
+        for i, p in enumerate(RING_PIECES if rings is not None else ()):
+            a.ring[c][i] = rings[c][p].data_ptr()
+    for o, t in enumerate(outs):
+        a.out[o] = t.data_ptr()
     return a
 
 
-def _kernel_lib():
-    from ._build import load
+#: the loaded library of each unit, by its text
+_unit_libs: dict[str, ctypes.CDLL] = {}
 
-    lib = load("field_stencil")
-    if not getattr(lib, "_mm_typed", False):
-        for fn in (lib.mm_field_stencil_f32, lib.mm_field_stencil_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.mm_field_halo_f32, lib.mm_field_halo_bf16):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.mm_field_args_size.restype = ctypes.c_int
-        lib.mm_field_halo_size.restype = ctypes.c_int
-        lib.mm_field_error_string.argtypes = [ctypes.c_int]
-        lib.mm_field_error_string.restype = ctypes.c_char_p
-        if lib.mm_field_args_size() != ctypes.sizeof(_FieldArgs):
-            raise RuntimeError(
-                f"field_stencil's FieldArgs is {lib.mm_field_args_size()} "
-                f"bytes, the wrapper's {ctypes.sizeof(_FieldArgs)}")
-        if lib.mm_field_halo_size() != ctypes.sizeof(_FieldHalo):
-            raise RuntimeError(
-                f"field_stencil's FieldHalo is {lib.mm_field_halo_size()} "
-                f"bytes, the wrapper's {ctypes.sizeof(_FieldHalo)}")
-        lib._mm_typed = True
+
+def unit_library(plan: FieldPlan) -> ctypes.CDLL:
+    """The plan's unit, built (or taken from the cache) and loaded; raises
+    naming the flow set if nvcc fails, and checks the launch argument's
+    layout and each instance's shared memory against this module's."""
+    lib = _unit_libs.get(plan.unit.text)
+    if lib is not None:
+        return lib
+    from . import _build
+
+    lib = _build.load_unit(_build.build_unit(plan.unit.text, plan.label))
+    for key in ("f32", "bf16"):
+        getattr(lib, f"mm_field_{key}").argtypes = [ctypes.c_void_p,
+                                                    ctypes.c_void_p]
+        getattr(lib, f"mm_field_{key}").restype = ctypes.c_int
+        getattr(lib, f"mm_field_smem_{key}").argtypes = [ctypes.c_int]
+        getattr(lib, f"mm_field_smem_{key}").restype = ctypes.c_int
+    lib.mm_field_call_size.restype = ctypes.c_int
+    lib.mm_field_error_string.argtypes = [ctypes.c_int]
+    lib.mm_field_error_string.restype = ctypes.c_char_p
+    if lib.mm_field_call_size() != ctypes.sizeof(_FieldCall):
+        raise RuntimeError(
+            f"the field kernel's FieldCall is {lib.mm_field_call_size()} "
+            f"bytes, the wrapper's {ctypes.sizeof(_FieldCall)}")
+    prog = plan.program
+    n_out, n_mod = len(prog.outputs), len(modulators(prog))
+    for key in ("f32", "bf16"):
+        for rows in plan.unit.rows_of(key):
+            got = getattr(lib, f"mm_field_smem_{key}")(rows)
+            want = smem_bytes(n_out, n_mod, rows, _ITEMSIZE[key])
+            if got != want:
+                raise RuntimeError(
+                    f"the field kernel's {key} instance of {rows} rows "
+                    f"takes {got} bytes of shared memory, the wrapper "
+                    f"reckons {want}")
+    _unit_libs[plan.unit.text] = lib
     return lib
 
 
-def _launch(args: _FieldArgs, dtype, device,
+def _launch(plan: FieldPlan, call: _FieldCall, dtype, device,
             stepper: Optional["PallasFieldStep"] = None,
-            halo: Optional[_FieldHalo] = None) -> None:
-    """Launch K4 (or K4-halo, given ``halo``) on the current stream; raises
-    on any launch error. Counts the launch, module-wide and on ``stepper``,
-    once the kernel is queued. An empty grid has nothing to compute: no
-    launch, nothing counted."""
+            halo: bool = False) -> None:
+    """Launch K4 (or K4-halo) on the current stream; raises on any launch
+    error. Counts the launch, module-wide and on ``stepper``, once the
+    kernel is queued. An empty grid has nothing to compute: no launch,
+    nothing counted."""
     global _launch_count, _halo_launch_count
-    if args.H == 0 or args.W == 0:
+    if call.h == 0 or call.w == 0:
         return
-    lib = _kernel_lib()
-    f32 = dtype == torch.float32
+    lib = unit_library(plan)
+    fn = getattr(lib, f"mm_field_{dtype_key(dtype)}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if halo is None:
-            fn = lib.mm_field_stencil_f32 if f32 else lib.mm_field_stencil_bf16
-            err = fn(ctypes.addressof(args), stream)
-        else:
-            fn = lib.mm_field_halo_f32 if f32 else lib.mm_field_halo_bf16
-            err = fn(ctypes.addressof(args), ctypes.addressof(halo), stream)
+        err = fn(ctypes.addressof(call), stream)
     if err != 0:
         raise RuntimeError(
-            f"field_stencil {'halo ' if halo is not None else ''}kernel "
-            f"launch failed: {lib.mm_field_error_string(err).decode()} "
+            f"field_stencil {'halo ' if halo else ''}kernel launch failed "
+            f"for {plan.label}: {lib.mm_field_error_string(err).decode()} "
             f"(cudaError {err})")
-    if halo is None:
-        _launch_count += 1
-    else:
+    if halo:
         _halo_launch_count += 1
+    else:
+        _launch_count += 1
     if stepper is not None:
         stepper.launches += 1
 
@@ -369,6 +453,7 @@ class PallasFieldStep:
     updated dict. ``names`` (the space's channels) plans the call at
     construction, so that a flow that cannot be lowered raises there;
     otherwise each new set of channel names is planned at its first call.
+    The plan's unit is built at the first call on the card.
     ``launches`` counts the kernel launches this stepper made."""
 
     def __init__(self, shape: tuple[int, int], flows, dtype=torch.float32,
@@ -392,25 +477,36 @@ class PallasFieldStep:
         self.compute_dtype = compute_dtype
         self.launches = 0
         self._plans: dict = {}
-        #: the program and tile height planned at construction (``names``)
-        self.program: Optional[FieldProgram] = None
-        self.tile_h: Optional[int] = None
+        #: the plan made at construction (``names``)
+        self.planned: Optional[FieldPlan] = None
         if names is not None:
-            self.program, self.tile_h = self.plan(tuple(names), dtype)
+            self.planned = self.plan(tuple(names), dtype)
 
-    def plan(self, names: tuple, dtype) -> tuple[FieldProgram, int]:
-        """The lowered program and tile height for these channels."""
+    @property
+    def program(self) -> Optional[FieldProgram]:
+        """The program planned at construction."""
+        return self.planned.program if self.planned is not None else None
+
+    @property
+    def rows(self) -> Optional[int]:
+        """The window rows planned at construction."""
+        return self.planned.rows if self.planned is not None else None
+
+    def plan(self, names: tuple, dtype) -> FieldPlan:
+        """The plan for these channels."""
         key = (names, dtype)
         if key not in self._plans:
             self._plans[key] = plan_field(self.flows, names, self.shape,
-                                          dtype, self.nsteps, self.block)
+                                          dtype, self.nsteps, self.block,
+                                          self.offsets)
         return self._plans[key]
 
     def _checked(self, values: Mapping[str, torch.Tensor]):
-        """The call's plan from its channels: (program, tile height, dtype,
-        the loaded channels' tensors, their device). Raises on channels the
-        flows need but the values lack, on flow channels not of one kernel
-        dtype, and on loaded channels of another dtype or shape."""
+        """The call's plan from its channels: (plan, dtype, the loaded
+        channels' tensors in kernel order, their device). Raises on
+        channels the flows need but the values lack, on flow channels not
+        of one kernel dtype, and on loaded channels of another dtype or
+        shape."""
         names = tuple(values)
         missing = sorted({f.attr for f in self.flows} - set(names))
         if missing:
@@ -423,15 +519,16 @@ class PallasFieldStep:
                 f"of one dtype, got {sorted(map(str, flow_dtypes))}; "
                 "float64 stays on the plain path (impl='xla')")
         dtype = next(iter(flow_dtypes))
-        prog, tile_h = self.plan(names, dtype)
-        chans = [values[n] for n in prog.channels]
-        for n, t in zip(prog.channels, chans):
+        plan = self.plan(names, dtype)
+        order = kernel_channels(plan.program)
+        chans = [values[n] for n in order]
+        for n, t in zip(order, chans):
             if t.dtype != dtype or tuple(t.shape) != self.shape:
                 raise ValueError(
                     f"channel {n!r} is {t.dtype} {tuple(t.shape)}; the field "
                     f"kernel needs every channel it reads as {dtype} "
                     f"{self.shape}")
-        return prog, tile_h, dtype, chans, chans[0].device
+        return plan, dtype, chans, chans[0].device
 
     def _outputs(self, prog, values, dtype, dev, out, reads) -> dict:
         """The written channels' output tensors: ``out``'s where given
@@ -462,7 +559,7 @@ class PallasFieldStep:
     def __call__(self, values: Mapping[str, torch.Tensor],
                  out: Optional[Mapping[str, torch.Tensor]] = None
                  ) -> dict[str, torch.Tensor]:
-        prog, tile_h, dtype, chans, dev = self._checked(values)
+        plan, dtype, chans, dev = self._checked(values)
         if dev.type == "cpu":
             return self._copy_out(field_step_plain(
                 values, self.flows, self.offsets, self.nsteps), out)
@@ -471,14 +568,10 @@ class PallasFieldStep:
         if any(t.device != dev or not t.is_contiguous() for t in chans):
             raise ValueError("every channel must be a contiguous tensor on "
                              "one device")
-        outs = self._outputs(prog, values, dtype, dev, out, chans)
-        args = pack_program(prog, self.offsets, self.nsteps, tile_h,
-                            self.shape)
-        for c, t in enumerate(chans):
-            args.inp[c] = t.data_ptr()
-        for o, n in enumerate(prog.outputs):
-            args.out[o] = outs[n].data_ptr()
-        _launch(args, dtype, dev, self)
+        outs = self._outputs(plan.program, values, dtype, dev, out, chans)
+        call = pack_call(plan, self.nsteps, chans,
+                         [outs[n] for n in plan.program.outputs])
+        _launch(plan, call, dtype, dev, self)
         return {**values, **outs}
 
     def halo(self, values: Mapping[str, torch.Tensor],
@@ -497,7 +590,7 @@ class PallasFieldStep:
             raise ValueError(
                 f"pallas_field_halo_step needs a ghost ring for EVERY channel "
                 f"(outflows are evaluated on ghost cells); missing {missing}")
-        prog, tile_h, dtype, chans, dev = self._checked(values)
+        plan, dtype, chans, dev = self._checked(values)
         depths = {n: check_ring(values[n], rings[n], f"rings[{n!r}]")
                   for n in values}
         d = depths[next(iter(values))]
@@ -516,7 +609,8 @@ class PallasFieldStep:
                 self.offsets, self.nsteps), out)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
-        reads = list(chans) + [rings[n][p] for n in prog.channels
+        order = kernel_channels(plan.program)
+        reads = list(chans) + [rings[n][p] for n in order
                                for p in RING_PIECES]
         if any(t.device != dev or not t.is_contiguous() for t in reads):
             raise ValueError("every channel and ring piece must be a "
@@ -527,17 +621,9 @@ class PallasFieldStep:
         if R0 < 0 or C0 < 0 or R0 + h > H or C0 + w > W:
             raise ValueError(f"a {h}x{w} shard at {(R0, C0)} does not lie "
                              f"inside the {H}x{W} grid")
-        outs = self._outputs(prog, values, dtype, dev, out, reads)
-        args = pack_program(prog, self.offsets, self.nsteps, tile_h,
-                            self.shape)
-        for c, t in enumerate(chans):
-            args.inp[c] = t.data_ptr()
-        for o, n in enumerate(prog.outputs):
-            args.out[o] = outs[n].data_ptr()
-        hx = _FieldHalo()
-        for c, n in enumerate(prog.channels):
-            for i, p in enumerate(RING_PIECES):
-                hx.ring[c][i] = rings[n][p].data_ptr()
-        hx.d, hx.R0, hx.C0, hx.H, hx.W = d, R0, C0, H, W
-        _launch(args, dtype, dev, self, halo=hx)
+        outs = self._outputs(plan.program, values, dtype, dev, out, reads)
+        call = pack_call(plan, self.nsteps, chans,
+                         [outs[n] for n in plan.program.outputs],
+                         [rings[n] for n in order], (R0, C0), (H, W), d)
+        _launch(plan, call, dtype, dev, self, halo=True)
         return {**values, **outs}

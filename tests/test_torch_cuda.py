@@ -10,11 +10,13 @@ chosen as its plain version chooses it, every operation rounded in the
 plain version's order). K3's vpu form bit for bit (the binomial order in
 ``_rn`` intrinsics, no contraction); its mxu form, on tensor cores, f32
 ``1e-6 * k * max|v|``, bf16 one ulp at values below 4. K6 and K7 are held
-bit for bit: K6 computes in the
-storage dtype with every operation rounded, in the plain version's order,
-and K7 moves bits. K4 is held bit for bit (f32 and bf16 both compute in f32
-and round once per call), except flows using exp: CUDA's expf and torch's
-exp may differ by an ulp, so those are held to ``8·eps·nsteps·max|v|``.
+bit for bit: K6 computes in the storage dtype with every operation
+rounded, in the plain version's order, and K7 moves bits. K4 is generated
+per flow set (the card tests use a fixed handful of flow sets, one library
+each) and held bit for bit (f32 and bf16 both compute in f32 and round
+once per call; -0.0 cells included), except flows using exp: CUDA's expf
+and torch's exp may differ by an ulp, so those are held to
+``8·eps·nsteps·max|v|``.
 K5 is held bit for bit (f32 math in the plain version's order, no FMA
 contraction, rounded once per call)."""
 
@@ -284,6 +286,33 @@ def test_field_kernel_matches_plain_on_the_card(dtype, ns, flows, shape):
             assert float((g - w).abs().max()) <= tol
         else:
             assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+def test_field_kernel_negative_zero_on_the_card(dtype, ns):
+    """Cells holding -0.0, at the grid's corner and edges and inside
+    interior windows: a -0 share enters its neighbours' inflow as +0 (the
+    sum starts from 0), bit for bit as the plain version."""
+    dev = _card()
+    shape = (256, 512)
+    vals = _field_values(dev, dtype, shape, 16)
+    for n in ("a", "b"):
+        for r, c in ((0, 0), (0, 300), (255, 511), (100, 260), (101, 261),
+                     (128, 0)):
+            vals[n][r, c] = -0.0
+    vals["b"][60:64, 300:310] = -0.0  # a -0 modulator under a -0 value
+    vals["a"][60:62, 300:305] = -0.0
+    for fl in (_FLOW_SETS["config4"], _FLOW_SETS["coupled_alone"]):
+        got = k4.PallasFieldStep(shape, fl, nsteps=ns)(vals)
+        want = k4.field_step_plain(vals, fl, nsteps=ns)
+        for n in {f.attr for f in fl}:
+            assert torch.equal(got[n].view(torch.int16 if dtype ==
+                                           torch.bfloat16 else torch.int32),
+                               want[n].view(torch.int16 if dtype ==
+                                            torch.bfloat16 else torch.int32)
+                               ), n
 
 
 @pytest.mark.cuda

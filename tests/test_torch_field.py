@@ -502,7 +502,6 @@ def test_static_refusals_pick_xla_under_auto():
     mixed = g3.with_values({**g3.values, "b": g3.values["b"].double()})
     cases = [
         (bad, g3, 1, "'sum'"),                   # cannot be lowered
-        (six, wide, 16, "232448"),                # no tile fits
         (nine, g3, 1, "at most 8 flows"),        # program limits
         (mt.Model(config4()), g3, 9, "ghost depth"),
         (mt.Model(config4()), mixed, 1, "space dtype"),
@@ -512,6 +511,11 @@ def test_static_refusals_pick_xla_under_auto():
             model.make_step(space, impl="pallas", substeps=sub)
         assert model.make_step(space, impl="auto", substeps=sub).impl == \
             "xla"
+    # six written channels at bf16 and 16 steps: past the interpreter's
+    # shared memory, within the register walk's (40 window rows)
+    for impl in ("pallas", "auto"):
+        step = six.make_step(wide, impl=impl, substeps=16)
+        assert step.impl == "pallas" and step.field_stepper.rows == 40
     # the plain path still runs the flow the kernel could not take
     out, rep = bad.execute(g3, mt.SerialExecutor("auto"), steps=2,
                            check_conservation=False)
@@ -521,39 +525,104 @@ def test_static_refusals_pick_xla_under_auto():
                                       compute_dtype=torch.bfloat16)
 
 
+def _interpreter_tile_h(n_chan, n_out, n_slots, nsteps):
+    """The shared-memory rule of the interpreter K4 replaced: a block held
+    (n_chan + n_out + max(n_slots, 1)) f32 planes of (TILE_H + 2n) x
+    (128 + 2n), TILE_H the tallest of 32, 16, 8 within 232,448 bytes."""
+    for th in (32, 16, 8):
+        if ((n_chan + n_out + max(n_slots, 1)) * (th + 2 * nsteps)
+                * (128 + 2 * nsteps) * 4) <= 232_448:
+            return th
+    return None
+
+
 def test_shared_memory_rule():
-    # the block sizes the design names: config 4 at f32 n=8 and bf16 n=16,
-    # and a 3-channel chain at bf16 n=16, which needs the shorter tile
-    assert k4.smem_bytes(2, 2, 1, 8, 32) == 138_240
-    assert k4.smem_bytes(2, 2, 1, 16, 32) == 204_800
-    assert k4.smem_bytes(3, 3, 1, 16, 32) == 286_720 > k4.SMEM_LIMIT
-    assert k4.pick_tile_h(2, 2, 1, 8) == 32
-    assert k4.pick_tile_h(2, 2, 1, 16) == 32
-    assert k4.pick_tile_h(3, 3, 1, 16) == 16
-    assert k4.pick_tile_h(2, 2, 4, 16) == 8  # slots count too
-    assert k4.pick_tile_h(6, 6, 1, 16) is None
+    # the block sizes the design names: config 4 (2 written channels, no
+    # modulator) at f32 and bf16, and the walk's exchange region
+    assert k4.stage_bytes(48, 4) == 48 * 260 * 4 == 49_920
+    assert k4.stage_bytes(48, 2) == 48 * 264 * 2 == 25_344
+    assert k4.smem_bytes(2, 0, 48, 4) == 2 * 49_920
+    assert k4.smem_bytes(2, 0, 48, 2) == 2 * 25_344
+    assert k4.smem_bytes(1, 1, 64, 4) == 2 * 64 * 260 * 4
+    # the walk's exchange and outer columns fit in the written windows
+    assert k4.smem_bytes(1, 0, 24, 2) == k4.stage_bytes(24, 2) > (
+        2 * 20 * 24 + 8 * 2 * 25) * 4
+    # the rows measured per written channels and depth, at least min_rows
+    assert [k4.min_rows(n) for n in (1, 4, 8, 16)] == [16, 16, 24, 40]
+    assert k4.window_rows(2, 0, 8, 4) == 48
+    assert k4.window_rows(2, 0, 16, 2) == 48
+    assert k4.window_rows(2, 0, 1, 4) == 32
+    assert k4.window_rows(1, 1, 8, 4) == 48
+    assert k4.window_rows(1, 1, 2, 4) == 32
+    assert k4.window_rows(1, 1, 16, 2) == 64
+    assert k4.window_rows(3, 0, 16, 2) == 40
+    assert k4.window_rows(8, 0, 16, 2) == 40
+    # seven modulators at f32: the rows come down until the block fits
+    assert k4.window_rows(1, 7, 8, 4) == 24
+    assert k4.smem_bytes(1, 7, 24, 4) <= k4.SMEM_LIMIT < k4.smem_bytes(
+        1, 7, 32, 4)
+    # every program within the limits fits at every admitted depth, so
+    # nothing the interpreter's rule accepted is refused
+    accepted = 0
+    for n_chan in range(1, 9):
+        for n_out in range(1, n_chan + 1):
+            for key, deepest in k4.MAX_NSTEPS.items():
+                itemsize = 4 if key == "f32" else 2
+                for ns in range(1, deepest + 1):
+                    rows = k4.window_rows(n_out, n_chan - n_out, ns,
+                                          itemsize)
+                    assert rows is not None and rows >= k4.min_rows(ns)
+                    assert k4.smem_bytes(n_out, n_chan - n_out, rows,
+                                         itemsize) <= k4.SMEM_LIMIT
+                    assert rows in k4.unit_rows(n_out,
+                                                n_chan - n_out)[key]
+                    accepted += any(
+                        _interpreter_tile_h(n_chan, n_out, slots, ns)
+                        for slots in range(0, 9))
+    assert accepted > 0
     step = k4.PallasFieldStep((32, 256), chain3(), dtype=torch.bfloat16,
                               nsteps=16, names=("a", "b", "c"))
-    assert step.tile_h == 16
+    assert step.rows == 40 and step.planned.unit.rows_of("bf16") == (32, 40)
+    assert step.planned.unit.rows_of("f32") == (32,)
 
 
 def test_pack_program_layout():
-    prog = fl.lower_flows(config4(), ("a", "b"))
-    args = k4.pack_program(prog, MOORE_OFFSETS, 8, 32, (40, 256))
-    assert (args.n_chan, args.n_out, args.n_slots, args.n_off,
-            args.n_code) == (2, 2, 1, 8, 7)
-    assert list(args.op)[:7] == [fl.OP_MUL, fl.OP_ACC, fl.OP_MUL, fl.OP_MUL,
-                                 fl.OP_ACC, fl.OP_MUL, fl.OP_ACC]
-    assert list(args.dst)[:7] == [0, 0, 0, 0, 0, 0, 1]
-    assert list(args.first)[:7] == [0, 1, 0, 0, 0, 0, 1]
-    assert (args.a_kind[0], args.b_kind[0], args.b_arg[0]) == (
-        fl.K_CONST, fl.K_CHAN, 0)
-    assert args.a_imm[0] == np.float32(0.1)
-    assert [(args.off_dx[d], args.off_dy[d]) for d in range(8)] == \
-        list(MOORE_OFFSETS)
-    # the C struct: 16 pointers, then ints and floats, 8-byte aligned
-    assert k4._FieldArgs.inp.offset == 0 and k4._FieldArgs.H.offset == 160
-    assert ctypes.sizeof(k4._FieldArgs) == 2568 < 4096  # a kernel argument
+    """The launch argument: the written channels first, then the
+    modulators; K4's ring depth 0 with the grid as the shard; K4-halo's
+    rings in ``RING_PIECES`` order at the shard's origin."""
+    flows = [mt.Coupled(0.05, "b", "a"), mt.Diffusion(0.1, "b")]
+    plan = k4.plan_field(flows, ("a", "b", "c"), (40, 256), torch.float32,
+                         8)
+    assert plan.program.outputs == ("b",)
+    assert k4.kernel_channels(plan.program) == ("b", "a")
+    assert plan.rows == 48 and plan.unit.rows_of("f32") == (32, 48)
+    vals = tvals(grids((40, 256), names=("a", "b")))
+    out = torch.empty(40, 256)
+    call = k4.pack_call(plan, 8, [vals["b"], vals["a"]], [out])
+    assert (call.h, call.w, call.d, call.R0, call.C0, call.H, call.W) == (
+        40, 256, 0, 0, 0, 40, 256)
+    assert (call.nsteps, call.rows, call.vec) == (8, 48, 1)
+    assert (call.inp[0], call.inp[1], call.inp[2]) == (
+        vals["b"].data_ptr(), vals["a"].data_ptr(), None)
+    assert call.out[0] == out.data_ptr() and call.out[1] is None
+    assert all(call.ring[c][p] is None for c in range(8) for p in range(8))
+    # a row pitch that is not a multiple of 16 bytes: no cp.async windows
+    odd = tvals(grids((40, 255), names=("a", "b")))
+    assert k4.pack_call(plan, 8, [odd["b"], odd["a"]],
+                        [torch.empty(40, 255)]).vec == 0
+    # K4-halo: each loaded channel's ring pieces, the shard in the grid
+    rings = [{p: torch.zeros(1) + i for i, p in enumerate(k4.RING_PIECES)}
+             for _ in range(2)]
+    hcall = k4.pack_call(plan, 8, [vals["b"], vals["a"]], [out], rings,
+                         (40, 512), (120, 1024), 8)
+    assert (hcall.R0, hcall.C0, hcall.H, hcall.W, hcall.d) == (
+        40, 512, 120, 1024, 8)
+    assert [hcall.ring[1][i] for i in range(8)] == [
+        rings[1][p].data_ptr() for p in k4.RING_PIECES]
+    # the C struct: pointers, then ints, 8-byte aligned, a kernel argument
+    assert k4._FieldCall.inp.offset == 0 and k4._FieldCall.ring.offset == 64
+    assert k4._FieldCall.out.offset == 576 and k4._FieldCall.h.offset == 640
+    assert ctypes.sizeof(k4._FieldCall) == 680 < 4096
 
 
 def test_wrapper_contract_on_cpu():

@@ -360,11 +360,12 @@ def _imports(path: Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mpi_model_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "k1_variants.py",
-              REPO / "k3_variants.py"]
+              REPO / "k3_variants.py", REPO / "k4_variants.py"]
     assert len(files) > 10
     names = {f.name for f in files}
     assert {"active.py", "fused_active.py", "composed_stencil.py",
-            "field_lower.py", "field_stencil.py", "pipeline_stencil.py",
+            "field_lower.py", "field_stencil.py", "field_codegen.py",
+            "pipeline_stencil.py",
             "batch.py", "scheduler.py", "service.py", "metrics.py",
             "events.py", "model_rectangular.py", "output.py",
             "point_kernel.py"} <= names
@@ -380,7 +381,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_kernel_source_is_in_the_package():
     for name in ("fused_stencil.cu", "composed_stencil.cu", "fused_active.cu",
-                 "field_stencil.cu", "pipeline_stencil.cu",
+                 "field_stencil.cuh", "pipeline_stencil.cu",
                  "stencil_common.cuh"):
         assert (REPO / "mpi_model_tpu_torch/csrc" / name).is_file(), name
     # nothing is built at import time
