@@ -27,9 +27,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      summation order) within ``1e-6·k·max|v|`` at f32 and one bf16 ulp of
      the value scale at bf16.
    - K6 (``fused_compute_plain``) and K7 (``fused_scatter_plain``): bit for
-     bit at k=1 and for K7 (K6 computes in the storage dtype with every
-     operation rounded, in the plain version's order); at k>1 within f32
-     ``1e-6 * k``, f64 ``1e-12``, bf16 one ulp of the scale per step.
+     bit at every k (K6 computes in the storage dtype with every operation
+     rounded, in the plain version's order: the exact path's steps, and the
+     tap table's products summed in row-major order from 0).
    - K4 (``field_step_plain``; one generated unit per flow set and
      neighbourhood): bit for bit, f32 and bf16, nsteps 1, 4, 8 (and 16 at
      bf16), over config 4's flows, ``Coupled`` alone (the modulator must
@@ -222,6 +222,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -362,6 +363,38 @@ def bound_ms(shape, itemsize: int, nsteps: int, k: int, origin=(0, 0),
     bytes_ms = 2 * cells * itemsize / HBM_BYTES_PER_S * 1e3
     flops = nsteps * (7 * inner + (k + 3) * (cells - inner))
     return larger(bytes_ms, flops / F32_FLOPS * 1e3)
+
+
+def ptxas_summary(text: str) -> list[tuple[str, str, str]]:
+    """ptxas's report of one library, one ``(function, registers, spill)``
+    row per kernel and per non-inlined function, names demangled enough to
+    read (the template arguments kept)."""
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = (re.search(r"Compiling entry function '(\w+)'", line)
+             or re.search(r"Function properties for (\w+)", line))
+        if m:
+            if fn is not None and fn != m.group(1) and spill:
+                rows.append((fn, "the caller's", spill))  # not inlined
+                spill = ""
+            fn = m.group(1)
+        elif "spill stores" in line:
+            spill = line.split("bytes stack frame,")[-1].strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            rows.append((fn, m.group(1), spill))
+            fn, spill = None, ""
+    if fn is not None and spill:
+        rows.append((fn, "the caller's", spill))
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r[0] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            rows = [(re.sub(r"^void |\(.*\)$", "", n.replace(
+                "(anonymous namespace)::", "")), r, sp)
+                for n, (_, r, sp) in zip(names, rows)]
+    return rows
 
 
 def larger(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
@@ -1655,6 +1688,11 @@ def main() -> int:
           f"{len(units)} units, in parallel)", flush=True)
     for name, info in _build.build_info.items():
         print(f"  {name}: {info['seconds']:.2f} s cached={info['cached']}")
+        if name in ("fused_active", "pipeline_stencil"):
+            # K6's and K5's instances, one line each (registers, spills)
+            for entry, regs, spill in ptxas_summary(info["ptxas"]):
+                print(f"    {entry}: {regs} registers, {spill}")
+            continue
         for line in info["ptxas"].splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling entry" in line) and not (
@@ -1781,7 +1819,7 @@ def main() -> int:
 
     def k67_compare(padded, plan, ids, count, selfnz, dtype, k, offs, shape):
         """K6 and K7 against their plain versions on one state; returns
-        (K6 max_abs_err, bitwise, within tolerance, K7 bitwise)."""
+        (K6 max_abs_err, K6 bitwise, K7 bitwise)."""
         taps = fa._fused_taps(0.13, offs, k)
         cnt1 = count.reshape(1).to(torch.int32)
         upd, anyf = fa.fused_compute(
@@ -1796,20 +1834,12 @@ def main() -> int:
         err = float((g - w).abs().max()) if n else 0.0
         bitwise = bool(torch.equal(upd[:n], want_u[:n])
                        and torch.equal(anyf, want_f))
-        if dtype == torch.float32:
-            tol = 1e-6 * k
-            within = bool(((g - w).abs() <= tol + tol * w.abs()).all())
-        elif dtype == torch.float64:
-            within = bool(((g - w).abs() <= 1e-12 + 1e-12 * w.abs()).all())
-        else:
-            within = err <= k * bf16_ulp(max(float(w.abs().max()), 2 ** -100))
-        within = within and bool(torch.equal(anyf, want_f))
         p_k = fa.fused_scatter(padded.clone(), upd, ids, cnt1, plan=plan,
                                ring=k)
         p_p = fa.fused_scatter_plain(padded.clone(), upd, ids, count, plan, k)
         k7_bitwise = bool(torch.equal(p_k, p_p))
         del upd, anyf, want_u, want_f, g, w, p_k, p_p
-        return err, bitwise, within, k7_bitwise
+        return err, bitwise, k7_bitwise
 
     k6_err = {}
     ncases = 0
@@ -1828,9 +1858,9 @@ def main() -> int:
                 for hood, offs in neighborhoods.items():
                     case = active_case(v_np, dtype, tile, k,
                                        {"max_active_frac": 1.0})
-                    err, bitwise, within, k7_bit = k67_compare(
+                    err, bitwise, k7_bit = k67_compare(
                         *case, dtype, k, offs, shape)
-                    ok = k7_bit and (bitwise if k == 1 else within)
+                    ok = k7_bit and bitwise
                     ncases += 1
                     record(f"K6/K7 {dname} {shape} tile={tile} k={k} {hood}: "
                            f"max_abs_err={err:.3e} bitwise={bitwise} "
@@ -1843,9 +1873,9 @@ def main() -> int:
     v_main = workload(np, N, N, 0.05, SEED)
     for k in (1, 8):
         case = active_case(v_main, torch.float32, None, k)
-        err, bitwise, within, k7_bit = k67_compare(
+        err, bitwise, k7_bit = k67_compare(
             *case, torch.float32, k, MOORE_OFFSETS, (N, N))
-        ok = k7_bit and (bitwise if k == 1 else within)
+        ok = k7_bit and bitwise
         k6_err[k] = err
         line = (f"K6/K7 float32 {(N, N)} tile=(128, 128) k={k} moore: "
                 f"max_abs_err={err:.3e} bitwise={bitwise} K7 bitwise="
@@ -1857,10 +1887,11 @@ def main() -> int:
         del case
         torch.cuda.empty_cache()
     del v_main
-    n_bit = sum(c["case"].startswith("K6/K7") and " bitwise=True" in c["case"]
+    n_big = sum(c["case"].startswith("K6/K7") and " k=1 " not in c["case"]
                 for c in cases)
-    print(f"K6/K7: {ncases + 2} cases agree with the plain versions, "
-          f"{n_bit} of them bit for bit", flush=True)
+    print(f"K6/K7: {ncases + 2} cases bit for bit the plain versions "
+          f"({n_big} of them at k > 1, the tap table's and the exact "
+          f"path's)", flush=True)
 
     # -- 3c-halo. K6 and K7 on ghost-padded shards -----------------------------
     sharded_active_kernel_cases(np, torch, mt, dev, record, neighborhoods)
@@ -2199,6 +2230,13 @@ def main() -> int:
                     case_p, ids, cnt1, selfnz, **kw), reps=10))
                 k7 = statistics.median(timed_ms(torch, lambda: fa.fused_scatter(
                     case_p, upd, ids, cnt1, plan=plan, ring=k), reps=10))
+                # the device's time alone: four calls back to back, the
+                # wrapper's host time overlapped (the single-call times
+                # above hold it, as run F's did)
+                k6_b2b = per_call_ms(torch, lambda: fa.fused_compute(
+                    case_p, ids, cnt1, selfnz, **kw))
+                k7_b2b = per_call_ms(torch, lambda: fa.fused_scatter(
+                    case_p, upd, ids, cnt1, plan=plan, ring=k))
                 n = int(count)
                 t = ids[:n].long()
                 th, tw = plan.tile
@@ -2218,6 +2256,8 @@ def main() -> int:
                         torch, lambda: fa.fused_scatter_plain(
                             case_p, upd, ids, count, plan, k), reps=3))
                 k67_time[(frac, k)] = {"k6_ms": k6, "k7_ms": k7, "count": n,
+                                       "k6_ms_back_to_back": k6_b2b,
+                                       "k7_ms_back_to_back": k7_b2b,
                                        "tap_lanes": n_taps,
                                        "k6_plain_ms": plain6,
                                        "k7_plain_ms": plain7}
@@ -2227,14 +2267,16 @@ def main() -> int:
                 one = k67_time[(frac, 1)]
                 q, r = divmod(ACTIVE_STEPS, k)
                 kernel_ms = q * (k6 + k7) + r * (one["k6_ms"] + one["k7_ms"])
-                row.update(k6_ms=k6, k7_ms=k7, kernel_ms_run=kernel_ms,
+                row.update(k6_ms=k6, k7_ms=k7, k6_ms_back_to_back=k6_b2b,
+                           kernel_ms_run=kernel_ms,
                            kernel_ms_per_pass=kernel_ms / passes,
                            host_share=1.0 - kernel_ms / run_ms)
                 del case_p, upd, anyf
             active_rows.append(row)
             extra = (f", pass {row['pass_ms']:.3f} ms vs K6+K7 "
                      f"{row['kernel_ms_per_pass']:.3f} ms (host share "
-                     f"{row['host_share']:.3f})"
+                     f"{row['host_share']:.3f}; K6 {row['k6_ms']:.4f} ms, "
+                     f"back to back {row['k6_ms_back_to_back']:.4f})"
                      if "k6_ms" in row else "")
             print(f"active {impl} substeps={sub} frac={frac}: "
                   f"{row['cell_updates_per_s']:.4e} cell-updates/s, "
@@ -2802,15 +2844,27 @@ def main() -> int:
             inner = int(k5.interior_mask((N5, N5), blk, ns).sum())
             b_ms, b_by = k5_bound_ms(B5, (N5, N5), x.element_size(), ns, 8,
                                      inner)
+            # the kernel's forms: output cells of one lane on the closed
+            # walk, the exact walk with the full count, the exact walk
+            # with per-cell counts (windows reaching the edge band)
+            split = {"closed": 0, "exact_full_count": 0, "exact_edge": 0}
+            for r0, r1, c0, c1, near, full in k5.launch_windows(
+                    (N5, N5), blk, ns, MOORE_OFFSETS):
+                key = ("closed" if not near else
+                       "exact_full_count" if full else "exact_edge")
+                split[key] += (r1 - r0) * (c1 - c0)
             k5_time[(dname, ns)] = {
                 "nsteps": ns, "ms": k_ms, "plain_ms": p_ms,
                 "library_ms": l1 * ns, "conv2d_one_ms": l1,
                 "bound_ms": b_ms, "bound_by": b_by, "block": list(blk),
-                "interior_cells_per_lane": inner}
+                "interior_cells_per_lane": inner,
+                "window_rows": k5.window_rows(MOORE_OFFSETS, ns),
+                "cells_per_lane_by_form": split}
             print(f"K5 {dname} B={B5} {N5}x{N5} ns={ns}: kernel {k_ms:.4f} "
                   f"ms/call, plain {p_ms:.3f} ms, conv2d 3x3 x {ns} "
                   f"{l1 * ns:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                  f"block {blk}, {inner} interior cells a lane)", flush=True)
+                  f"block {blk}, {inner} interior cells a lane; cells a "
+                  f"lane by form {split})", flush=True)
         del x, y, x4, bufs
         torch.cuda.empty_cache()
     for row in ens_rows:
@@ -2960,6 +3014,9 @@ def main() -> int:
         b_ops = (kt["tap_lanes"] * 128 * 128 * 2 * (2 * k + 1) ** 2
                  / F32_FLOPS * 1e3)
         b_ms, b_by = larger(b_bytes, b_ops)
+        # the kernel's form: under --fmad=false each multiply and each add
+        # of the tap sum is an instruction, at half the FMA peak's rate
+        f_ms, f_by = larger(b_bytes, 2 * b_ops)
         entries.append({
             "name": f"K6 fused_compute float32 k={k}",
             "route": "cuda",
@@ -2968,7 +3025,9 @@ def main() -> int:
             "launches": row["launches"]["fused_compute"],
             "max_abs_err": k6_err[k],
             "ms": kt["k6_ms"], "plain_ms": kt["k6_plain_ms"],
+            "ms_back_to_back": kt["k6_ms_back_to_back"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "form_bound_ms": f_ms, "form_bound_by": f_by,
             "shape": [N, N], "dtype": "float32", "k": k, "frac": 0.05,
             "active_tiles": kt["count"], "tap_lanes": kt["tap_lanes"],
         })

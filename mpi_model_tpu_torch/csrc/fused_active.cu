@@ -8,9 +8,9 @@
 // buffer on the device, and a device scalar holds how many lanes are live.
 //
 // K6, per live lane l < clip(count, 1, K), tile t = ids[l]:
-//   loads the tile's ring-k window from the padded state and advances it
-//   k transport steps, then writes upd[l] (the [th, tw] tile) and ORs the
-//   tile's any-nonzero into anyf[l] (zeroed by the caller). Two forms:
+//   advances the tile's ring-k window of the padded state k transport steps,
+//   then writes upd[l] (the [th, tw] tile) and sets anyf[l] (zeroed by the
+//   caller) when any of it is nonzero. Two forms:
 //   - the exact iterated path, term for term the plain step
 //     (ops/active.py::active_pass, itself bitwise ops/stencil.py::transport):
 //     outflow = rate*v; share = outflow/cnt; inflow = 0 + share[d0] + ...
@@ -23,100 +23,86 @@
 //     tap table (acc = 0 + tap*v + ... in row-major tap order).
 //   The math runs in the storage dtype (f64 grids in f64). Every operation
 //   is an explicitly rounded intrinsic (__fmul_rn, __fadd_rn, ...) and the
-//   source is built with --fmad=false, so no multiply-add is contracted: at
-//   k = 1 the pass equals the plain step bit for bit. bf16 is computed as
-//   f32 rounded to bf16 after every operation, which is the correctly
+//   source is built with --fmad=false, so no multiply-add is contracted: the
+//   pass equals its plain version bit for bit, both forms. bf16 is computed
+//   as f32 rounded to bf16 after every operation, which is the correctly
 //   rounded bf16 result (f32 carries more than 2*8+2 bits).
 // K7, per live lane: copies upd[l] into the padded state at the tile's
 //   place (offset by the ring). It is its own launch so that every K6
 //   window reads the values from before the pass.
 //
-// Shared memory is the trap: the default 128 x 128 tile with a ring-k
-// window and a second buffer for the shares needs 2 * 130^2 * 8 B = 270 KB
-// in f64 at k = 1, above the 227 KB a block may use. So each lane's tile is
-// cut into SUB x SUB sub-tiles, one block each with its own ring-k halo
-// (at most 2 * (32 + 32)^2 * 8 B = 64 KB, f64 at k = 16); the lane's flag is
-// the OR of its blocks'.
+// What bounds them: bytes for K7 and for K6 at k = 1 (each live tile's
+// window read once, its tile written once); at k > 1 the tap flops on
+// interior tiles (2 (2k+1)^2 a cell, each multiply and add an instruction
+// of its own under --fmad=false). The design (k56_variants.py measures its
+// choices on the H100; PERF.md):
 //
-// What bounds them: bytes for K7 and for K6 at k = 1 (each live tile read
-// once, written once); at k > 1 the tap flops on interior tiles. This first
-// design reads windows straight from device memory into shared memory and
-// loops over the taps there; the sub-tile halo re-reads (1.13x at k = 1,
-// 2.25x at k = 8) and the per-step neighbour-count recompute are the costs
-// a later speed PR would attack.
+//   - A block a lane, the whole tile: the grid is K blocks and those past
+//     the device count exit at once. Persistent blocks striding over the
+//     live lanes (the kernel's lane loop; a grid of a few blocks an SM)
+//     measured no faster. The host never reads the count. A block is nw = ceil((tw + 2k) / 32) warps, up to 8 (5 for
+//     128-wide tiles).
+//   - The exact path is a register column walk (exact_walk.cuh): each
+//     thread holds one window column of a band of kRows rows, loaded
+//     straight from device memory (coalesced along the row; the padded
+//     state's rows are rarely 16-byte aligned), and walks the k steps down
+//     it, the c+-1 shares from the neighbouring lanes, one barrier a step.
+//     A tile takes ceil(th / (kRows - 2k)) row bands of kRows - 2k outputs
+//     (and, past 256 - 2k columns, column bands). Lanes away from the global
+//     edge (the lane-uniform near test below: every window cell on the grid
+//     with its full count) take the full count, when it is a power of two
+//     as a multiply by its exact inverse, with no grid test or mask; edge
+//     lanes (and neighbourhoods of other sizes) compute each cell's count
+//     from its row's and column's on-grid bits and multiply by the grid
+//     mask between steps.
+//   - The tap sum stages the lane's window in shared memory, a chunk of
+//     ch x cw outputs with its ring at a time (40 KB of f32 at most:
+//     faster than 56 or 112 KB, the rest of the SM's 256 KB going to L1),
+//     in the compute type, with an odd row pitch. Each thread owns kTapRows
+//     x kTapSeg outputs (neighbouring threads neighbouring row groups); for
+//     each staged row it loads the kTapSeg + 2k window values once into
+//     registers and adds tap * value into every output row it serves, in
+//     tap order, so each output's sum keeps the row-major order from 0.
 //
 // C interface (loaded with ctypes): each entry point returns the
 // cudaError_t of its launch (or of the table copy), 0 on success.
 
 #include <cstdint>
 
-#include "stencil_common.cuh"
+#include "exact_walk.cuh"
 
 namespace {
 
-constexpr int SUB = 32;
+using mm_exact::Arith;
+using mm_exact::Cell;
+
 constexpr int MAX_K = 16;
 constexpr int MAX_TAPS = (2 * MAX_K + 1) * (2 * MAX_K + 1);
+constexpr int SMEM_LIMIT = 232448;
 constexpr int DEFAULT_SMEM_LIMIT = 48 * 1024;
+// The walk's window rows: a band has kRows - 2k output rows.
+constexpr int kRows = 48;
+// A tap-sum thread's outputs: kTapRows rows of a run of kTapSeg.
+constexpr int kTapSeg = 8;
+constexpr int kTapRows = 2;
 
 __constant__ double c_taps_f64[MAX_TAPS];
 __constant__ float c_taps_f32[MAX_TAPS];
 
-// Storage type T, compute type C, and the explicitly rounded operations.
+template <typename C>
+__device__ __forceinline__ C tap_at(int i);
+template <>
+__device__ __forceinline__ float tap_at<float>(int i) {
+  return c_taps_f32[i];
+}
+template <>
+__device__ __forceinline__ double tap_at<double>(int i) {
+  return c_taps_f64[i];
+}
+
+// Blocks an SM the instance asks registers for: f64 holds twice the values.
 template <typename T>
-struct Arith;
-
-template <>
-struct Arith<float> {
-  using C = float;
-  static __device__ __forceinline__ C ld(float v) { return v; }
-  static __device__ __forceinline__ float st(C v) { return v; }
-  static __device__ __forceinline__ C mul(C a, C b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ C add(C a, C b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ C sub(C a, C b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ C div(C a, C b) { return __fdiv_rn(a, b); }
-  static __device__ __forceinline__ C tap(int i) { return c_taps_f32[i]; }
-};
-
-template <>
-struct Arith<double> {
-  using C = double;
-  static __device__ __forceinline__ C ld(double v) { return v; }
-  static __device__ __forceinline__ double st(C v) { return v; }
-  static __device__ __forceinline__ C mul(C a, C b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ C add(C a, C b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ C sub(C a, C b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ C div(C a, C b) { return __ddiv_rn(a, b); }
-  static __device__ __forceinline__ C tap(int i) { return c_taps_f64[i]; }
-};
-
-template <>
-struct Arith<__nv_bfloat16> {
-  using C = float;  // always holds a bf16 value
-  static __device__ __forceinline__ C rnd(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ C ld(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 st(C v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ C mul(C a, C b) {
-    return rnd(__fmul_rn(a, b));
-  }
-  static __device__ __forceinline__ C add(C a, C b) {
-    return rnd(__fadd_rn(a, b));
-  }
-  static __device__ __forceinline__ C sub(C a, C b) {
-    return rnd(__fsub_rn(a, b));
-  }
-  static __device__ __forceinline__ C div(C a, C b) {
-    return rnd(__fdiv_rn(a, b));
-  }
-  // the table is handed over already rounded to bf16, as f32
-  static __device__ __forceinline__ C tap(int i) { return c_taps_f32[i]; }
-};
+constexpr int kMinBlocks = sizeof(T) == 8 ? 1 : 2;
 
 struct Geometry {
   int Wp;          // padded state's row pitch
@@ -127,11 +113,186 @@ struct Geometry {
   int k;           // steps per pass (window ring)
   int orow, ocol;  // global origin of the state's interior
   int H, W;        // global grid
-  int nsx;         // sub-tiles per tile row
+  int nw;          // warps a block: the walk's window is 32 nw columns
+  int bands_c;     // the walk's column bands a tile
+  int ch, cw;      // the tap sum's chunk of the tile (rows, columns)
+  int pitch;       // the chunk's staging row pitch (elements of C)
 };
 
-template <typename T>
-__global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
+// Dynamic shared memory of a launch: the walk's exchange, and with a tap
+// table the tap sum's staging, which reuses it (a lane takes one form); a
+// launch without one passes ch = pitch = 0.
+__host__ __device__ inline int smem_elems(int nw, int k, int ch, int pitch) {
+  const int ex = mm_exact::exchange_elems(kRows, nw);
+  const int st = ch > 0 ? (ch + 2 * k) * pitch : 0;
+  return ex > st ? ex : st;
+}
+
+// The exact path on one lane: the tile's row and column bands in turn.
+// `win` is the lane's window [0, 0] in the padded state (global cell
+// (gr0, gc0)); `ex` the walk's exchange. Returns whether an output is
+// nonzero.
+template <typename T, bool INNER, unsigned CODES, int NOFF>
+__device__ __forceinline__ int walk_lane(
+    const T* __restrict__ win, T* __restrict__ dst, const Geometry& g,
+    const Cell<typename Arith<T>::C>& cell, int gr0, int gc0,
+    typename Arith<T>::C* ex) {
+  using A = Arith<T>;
+  using C = typename A::C;
+  const int k = g.k;
+  const int wh = g.th + 2 * k;
+  const int ww = g.tw + 2 * k;
+  const int orows = kRows - 2 * k;      // output rows a band
+  const int ocols = 32 * g.nw - 2 * k;  // output columns a band
+  const int bands = (g.th + orows - 1) / orows * g.bands_c;
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int half = mm_exact::exchange_elems(kRows, g.nw) / 2;
+  int nz = 0;
+  int step = 0;  // steps walked, for the exchange's parity
+  for (int b = 0; b < bands; ++b) {
+    const int wr0 = b / g.bands_c * orows;  // the band's window in the lane's
+    const int col = b % g.bands_c * ocols + j;
+    const bool col_in = col < ww;
+    C v[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      v[i] = col_in && wr0 + i < wh
+                 ? A::ld(win[static_cast<size_t>(wr0 + i) * g.Wp + col])
+                 : C(0);
+    }
+    const int c = gc0 + col;
+    const int cb = INNER ? 7 : mm_exact::line_bits(c, g.W);
+    const int cbo =
+        INNER ? 7 : mm_exact::line_bits(threadIdx.x == 0 ? c - 1 : c + 1, g.W);
+    for (int s = 0; s < k; ++s, ++step) {
+      const bool mask = !INNER && s < k - 1;
+      mm_exact::exact_step<kRows, INNER, A, CODES, NOFF>(
+          v, ex + (step & 1) * half, cell, gr0 + wr0, cb, cbo,
+          [&](int, C x, C of, C gin, int rb) {
+            C out = A::add(A::sub(x, of), gin);
+            if (mask) out = A::mul(out, (rb & 2) && (cb & 2) ? C(1) : C(0));
+            return out;
+          });
+    }
+    // rows [k, kRows - k) of columns [k, 32 nw - k) are the band's outputs
+    if (j >= k && j < k + ocols && col - k < g.tw) {
+      T* out = dst + (col - k);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int r = wr0 + i - k;
+        if (i >= k && i < kRows - k && r < g.th) {
+          out[static_cast<size_t>(r) * g.tw] = A::st(v[i]);
+          nz |= v[i] != C(0);
+        }
+      }
+    }
+  }
+  return nz;
+}
+
+// The tap sum on one lane, k = KT: chunk by chunk of ch x cw outputs, each
+// chunk's window staged in `st`. A thread computes kTapRows x kTapSeg
+// outputs (rows i0 .., columns p0 ..): for each staged row i0 + q it loads
+// kTapSeg + 2k values into registers once and adds tap * value into every
+// output row r it serves (tap row q - r), in tap order, so each output's
+// sum keeps the row-major order from 0.
+template <typename T, int KT>
+__device__ __noinline__ int tap_lane(const T* __restrict__ win,
+                                     T* __restrict__ dst, const Geometry& g,
+                                     typename Arith<T>::C* st) {
+  using A = Arith<T>;
+  using C = typename A::C;
+  constexpr int NT = 2 * KT + 1;
+  constexpr int M = kTapSeg;
+  constexpr int R = kTapRows;
+  constexpr int WR = M + 2 * KT;
+  const int nthr = 32 * blockDim.y;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  int nz = 0;
+  for (int r0 = 0; r0 < g.th; r0 += g.ch) {
+    for (int c0 = 0; c0 < g.tw; c0 += g.cw) {
+      const int hh = min(g.ch, g.th - r0);
+      const int cw = min(g.cw, g.tw - c0);
+      const int sr = hh + 2 * KT;
+      const int sc = cw + 2 * KT;
+      __syncthreads();  // the previous chunk's (or form's) reads are done
+      for (int e = tid; e < sr * g.pitch; e += nthr) {
+        const int i = e / g.pitch;
+        const int q = e - i * g.pitch;
+        st[e] = q < sc
+                    ? A::ld(win[static_cast<size_t>(r0 + i) * g.Wp + c0 + q])
+                    : C(0);
+      }
+      __syncthreads();
+      const int nseg = (cw + M - 1) / M;
+      const int ngrp = (hh + R - 1) / R;  // row groups
+      for (int e = tid; e < ngrp * nseg; e += nthr) {
+        const int i0 = e % ngrp * R;
+        const int p0 = e / ngrp * M;
+        C acc[R][M];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+#pragma unroll
+          for (int p = 0; p < M; ++p) acc[r][p] = C(0);
+        }
+#pragma unroll 1
+        for (int q = 0; q < NT + R - 1; ++q) {
+          // a row past the chunk serves only output rows past it (their
+          // sums are dropped): read the last staged row instead
+          const C* row = st + min(i0 + q, sr - 1) * g.pitch + p0;
+          C w[WR];
+#pragma unroll
+          for (int x = 0; x < WR; ++x) w[x] = row[x];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const int dr = q - r;
+            if (dr >= 0 && dr < NT) {
+#pragma unroll
+              for (int dc = 0; dc < NT; ++dc) {
+                const C t = tap_at<C>(dr * NT + dc);
+#pragma unroll
+                for (int p = 0; p < M; ++p) {
+                  acc[r][p] = A::add(acc[r][p], A::mul(t, w[p + dc]));
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (i0 + r < hh) {
+            T* out = dst + static_cast<size_t>(r0 + i0 + r) * g.tw + c0 + p0;
+#pragma unroll
+            for (int p = 0; p < M; ++p) {
+              if (p0 + p < cw) {
+                out[p] = A::st(acc[r][p]);
+                nz |= acc[r][p] != C(0);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+  return nz;
+}
+
+// The tap sum's instance of k.
+template <typename T, int KT = 2>
+__device__ __forceinline__ int tap_dispatch(int k, const T* __restrict__ win,
+                                            T* __restrict__ dst,
+                                            const Geometry& g,
+                                            typename Arith<T>::C* st) {
+  if constexpr (KT > MAX_K) {
+    return 0;  // the host admits k <= MAX_K only
+  } else {
+    if (k == KT) return tap_lane<T, KT>(win, dst, g, st);
+    return tap_dispatch<T, KT + 1>(k, win, dst, g, st);
+  }
+}
+
+template <typename T, unsigned CODES, int NOFF>
+__global__ void __launch_bounds__(256, kMinBlocks<T>)
     fused_compute_kernel(const T* __restrict__ padded, T* __restrict__ upd,
                          int* __restrict__ anyf,
                          const int* __restrict__ ids,
@@ -139,111 +300,42 @@ __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
                          const int* __restrict__ selfnz, Geometry g,
                          typename Arith<T>::C rate, int noff, int offcodes,
                          int mask9, int use_taps) {
-  using A = Arith<T>;
-  using C = typename A::C;
+  using C = typename Arith<T>::C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int l = static_cast<int>(blockIdx.x);
+  C* sm = reinterpret_cast<C*>(smem_raw);
   const int cmax = min(max(count[0], 1), g.K);
-  if (l >= cmax) return;  // uniform over the block
-  const int t = ids[l];
-  const int tr = t / g.gj;
-  const int tc = t % g.gj;
-  const int sy = static_cast<int>(blockIdx.y) / g.nsx;
-  const int sx = static_cast<int>(blockIdx.y) % g.nsx;
-  const int i0 = sy * SUB;
-  const int j0 = sx * SUB;
-  if (i0 >= g.th || j0 >= g.tw) return;
-  const int sh = min(SUB, g.th - i0);
-  const int sw = min(SUB, g.tw - j0);
+  const Cell<C> cell =
+      mm_exact::make_cell<C>(rate, mask9, noff, offcodes, g.H, g.W);
   const int k = g.k;
-  const int WH = sh + 2 * k;
-  const int WW = sw + 2 * k;
-  C* cur = reinterpret_cast<C*>(smem_raw);
-  C* share = cur + WH * WW;
-  // the window's [0, 0]: in the padded state, and as a global cell
-  const int off = g.ring - k;
-  const size_t pr = static_cast<size_t>(tr) * g.th + off + i0;
-  const size_t pc = static_cast<size_t>(tc) * g.tw + off + j0;
-  const int gr0 = g.orow + tr * g.th + i0 - k;
-  const int gc0 = g.ocol + tc * g.tw + j0 - k;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-
-  for (int i = ty; i < WH; i += mm::kThreadsY) {
-    const T* src = padded + (pr + i) * g.Wp + pc;
-    for (int j = tx; j < WW; j += mm::kThreadsX) {
-      cur[i * WW + j] = A::ld(src[j]);
+  for (int l = blockIdx.x; l < cmax; l += gridDim.x) {
+    const int t = ids[l];
+    const int tr = t / g.gj;
+    const int tc = t % g.gj;
+    // lane-uniform choice of form (pallas_active.py's near/self predicates)
+    const int tile_r0 = g.orow + tr * g.th;
+    const int tile_c0 = g.ocol + tc * g.tw;
+    const bool near = tile_r0 <= k || tile_r0 + g.th >= g.H - k ||
+                      tile_c0 <= k || tile_c0 + g.tw >= g.W - k;
+    const bool taps = use_taps && !near && selfnz[l] != 0;
+    const T* win = padded +
+                   (static_cast<size_t>(tr) * g.th + g.ring - k) * g.Wp +
+                   static_cast<size_t>(tc) * g.tw + g.ring - k;
+    T* dst = upd + static_cast<size_t>(l) * g.th * g.tw;
+    int nz;
+    if (taps) {
+      nz = tap_dispatch<T>(k, win, dst, g, sm);
+    } else if (near || cell.inv == C(0)) {
+      nz = walk_lane<T, false, CODES, NOFF>(win, dst, g, cell, tile_r0 - k,
+                                            tile_c0 - k, sm);
+    } else {
+      nz = walk_lane<T, true, CODES, NOFF>(win, dst, g, cell, tile_r0 - k,
+                                           tile_c0 - k, sm);
+    }
+    // also the barrier before the next lane reuses shared memory
+    if (__syncthreads_or(nz) && threadIdx.x == 0 && threadIdx.y == 0) {
+      anyf[l] = 1;
     }
   }
-  __syncthreads();
-
-  // lane-uniform choice of form (pallas_active.py's near/self predicates)
-  const int tile_r0 = g.orow + tr * g.th;
-  const int tile_c0 = g.ocol + tc * g.tw;
-  const bool near = tile_r0 <= k || tile_r0 + g.th >= g.H - k ||
-                    tile_c0 <= k || tile_c0 + g.tw >= g.W - k;
-  const bool taps = use_taps && !near && selfnz[l] != 0;
-
-  T* dst = upd + static_cast<size_t>(l) * g.th * g.tw;
-  int nz = 0;
-  if (taps) {
-    const int ntap = 2 * k + 1;
-    for (int i = ty; i < sh; i += mm::kThreadsY) {
-      for (int j = tx; j < sw; j += mm::kThreadsX) {
-        C acc = C(0);
-        for (int dr = 0; dr < ntap; ++dr) {
-          const C* row = cur + (i + dr) * WW + j;
-          for (int dc = 0; dc < ntap; ++dc) {
-            acc = A::add(acc, A::mul(A::tap(dr * ntap + dc), row[dc]));
-          }
-        }
-        dst[(i0 + i) * g.tw + j0 + j] = A::st(acc);
-        nz |= acc != C(0);
-      }
-    }
-  } else {
-    for (int s = 0; s < k; ++s) {
-      // shares on the region [s, WH - s) x [s, WW - s)
-      for (int i = s + ty; i < WH - s; i += mm::kThreadsY) {
-        for (int j = s + tx; j < WW - s; j += mm::kThreadsX) {
-          const C cnt = static_cast<C>(
-              mm::neighbor_count_int(gr0 + i, gc0 + j, g.H, g.W, mask9));
-          share[i * WW + j] = A::div(A::mul(rate, cur[i * WW + j]), cnt);
-        }
-      }
-      __syncthreads();
-      // update [s + 1, WH - s - 1): each thread reads and writes only its
-      // own cells of `cur`, so the update is in place
-      const bool last = s == k - 1;
-      for (int i = s + 1 + ty; i < WH - s - 1; i += mm::kThreadsY) {
-        for (int j = s + 1 + tx; j < WW - s - 1; j += mm::kThreadsX) {
-          C inflow = C(0);
-          for (int o = 0; o < noff; ++o) {
-            const int b = (offcodes >> (4 * o)) & 0xF;
-            inflow =
-                A::add(inflow, share[(i + b / 3 - 1) * WW + (j + b % 3 - 1)]);
-          }
-          const C v = cur[i * WW + j];
-          C out = A::add(A::sub(v, A::mul(rate, v)), inflow);
-          if (!last) {
-            out = A::mul(out, mm::on_grid(gr0 + i, gc0 + j, g.H, g.W)
-                                  ? C(1)
-                                  : C(0));
-          }
-          cur[i * WW + j] = out;
-        }
-      }
-      __syncthreads();
-    }
-    for (int i = ty; i < sh; i += mm::kThreadsY) {
-      for (int j = tx; j < sw; j += mm::kThreadsX) {
-        const C v = cur[(i + k) * WW + (j + k)];
-        dst[(i0 + i) * g.tw + j0 + j] = A::st(v);
-        nz |= v != C(0);
-      }
-    }
-  }
-  if (__syncthreads_or(nz) && tx == 0 && ty == 0) atomicOr(anyf + l, 1);
 }
 
 // K7: land each live lane's tile in the padded state. E is an unsigned
@@ -268,53 +360,77 @@ __global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
   }
 }
 
+bool valid(const Geometry& g, int noff, int itemsize, bool taps) {
+  const int orows = kRows - 2 * g.k;
+  const int ocols = 32 * g.nw - 2 * g.k;
+  if (g.k < 1 || g.k > MAX_K || g.ring < g.k || g.K < 1 || g.th < 1 ||
+      g.tw < 1 || g.gj < 1 || noff < 1 || noff > 8 || g.nw < 1 ||
+      g.nw > 8 || orows < 1 || ocols < 1 || g.bands_c < 1 ||
+      g.bands_c * ocols < g.tw) {
+    return false;
+  }
+  if (taps && (g.k < 2 || g.ch < 1 || g.cw < 1 ||
+               g.pitch < (g.cw + kTapSeg - 1) / kTapSeg * kTapSeg + 2 * g.k)) {
+    return false;
+  }
+  return smem_elems(g.nw, g.k, g.ch, g.pitch) * itemsize <= SMEM_LIMIT;
+}
+
+template <typename T, unsigned CODES, int NOFF>
+int launch_kernel(const void* padded, void* upd, void* anyf, const void* ids,
+                  const void* count, const void* selfnz, const Geometry& g,
+                  double rate, int noff, int offcodes, int mask9,
+                  int use_taps, cudaStream_t st) {
+  using C = typename Arith<T>::C;
+  const auto kernel = fused_compute_kernel<T, CODES, NOFF>;
+  const int smem = smem_elems(g.nw, g.k, g.ch, g.pitch) *
+                   static_cast<int>(sizeof(C));
+  static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
+  if (smem > limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    limit = smem;
+  }
+  const int blocks = g.K;  // a block a lane
+  kernel<<<blocks, dim3(32, g.nw), smem, st>>>(
+      static_cast<const T*>(padded), static_cast<T*>(upd),
+      static_cast<int*>(anyf), static_cast<const int*>(ids),
+      static_cast<const int*>(count), static_cast<const int*>(selfnz), g,
+      static_cast<C>(rate), noff, offcodes, mask9, use_taps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_compute(const void* padded, void* upd, void* anyf,
                    const void* ids, const void* count, const void* selfnz,
-                   const void* taps, Geometry g, double rate, int noff,
-                   int offcodes, int mask9, void* stream) {
+                   const void* taps, const Geometry& g, double rate,
+                   int noff, int offcodes, int mask9, void* stream) {
   using C = typename Arith<T>::C;
-  if (g.k < 1 || g.k > MAX_K || g.ring < g.k || g.K < 1 || g.th < 1 ||
-      g.tw < 1 || noff < 1 || noff > 8) {
+  if (!valid(g, noff, static_cast<int>(sizeof(C)), taps != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ntap = 2 * g.k + 1;
-  cudaError_t e = cudaSuccess;
   if (taps != nullptr) {
-    if (sizeof(C) == sizeof(double)) {
-      e = cudaMemcpyToSymbolAsync(c_taps_f64, taps,
-                                  sizeof(double) * ntap * ntap, 0,
-                                  cudaMemcpyDeviceToDevice, st);
-    } else {
-      e = cudaMemcpyToSymbolAsync(c_taps_f32, taps,
-                                  sizeof(float) * ntap * ntap, 0,
-                                  cudaMemcpyDeviceToDevice, st);
-    }
+    const cudaError_t e =
+        sizeof(C) == sizeof(double)
+            ? cudaMemcpyToSymbolAsync(c_taps_f64, taps,
+                                      sizeof(double) * ntap * ntap, 0,
+                                      cudaMemcpyDeviceToDevice, st)
+            : cudaMemcpyToSymbolAsync(c_taps_f32, taps,
+                                      sizeof(float) * ntap * ntap, 0,
+                                      cudaMemcpyDeviceToDevice, st);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int sub_h = min(SUB, g.th);
-  const int sub_w = min(SUB, g.tw);
-  const int smem = 2 * (sub_h + 2 * g.k) * (sub_w + 2 * g.k) *
-                   static_cast<int>(sizeof(C));
-  static int smem_limit = DEFAULT_SMEM_LIMIT;  // per template instance
-  if (smem > smem_limit) {
-    e = cudaFuncSetAttribute(fused_compute_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_limit = smem;
+  const int use_taps = taps != nullptr ? 1 : 0;
+  if (noff == 8 && static_cast<unsigned>(offcodes) == mm_exact::kMooreCodes) {
+    return launch_kernel<T, mm_exact::kMooreCodes, 8>(
+        padded, upd, anyf, ids, count, selfnz, g, rate, noff, offcodes, mask9,
+        use_taps, st);
   }
-  g.nsx = (g.tw + SUB - 1) / SUB;
-  const int nsy = (g.th + SUB - 1) / SUB;
-  const dim3 grid(g.K, nsy * g.nsx);
-  const dim3 block(mm::kThreadsX, mm::kThreadsY);
-  fused_compute_kernel<T><<<grid, block, smem, st>>>(
-      static_cast<const T*>(padded), static_cast<T*>(upd),
-      static_cast<int*>(anyf), static_cast<const int*>(ids),
-      static_cast<const int*>(count), static_cast<const int*>(selfnz), g,
-      static_cast<C>(rate), noff, offcodes, mask9, taps != nullptr ? 1 : 0);
-  return static_cast<int>(cudaGetLastError());
+  return launch_kernel<T, 0u, 0>(padded, upd, anyf, ids, count, selfnz, g,
+                                 rate, noff, offcodes, mask9, use_taps, st);
 }
 
 template <typename E>
@@ -338,14 +454,17 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = float64, 2 = bfloat16. `taps` is null for the
 // iterated path only, else a device table of (2k+1)^2 values in the compute
-// type (f64 for float64 grids, f32 holding bf16 values for bfloat16).
+// type (f64 for float64 grids, f32 holding bf16 values for bfloat16). nw,
+// bands_c, ch, cw and pitch are the launch geometry
+// (ops/fused_active.py::launch_geometry).
 int mm_fused_compute(int dtype, const void* padded, void* upd, void* anyf,
                      const void* ids, const void* count, const void* selfnz,
                      const void* taps, int Wp, int K, int th, int tw, int gj,
                      int ring, int k, int orow, int ocol, int H, int W,
-                     double rate, int noff, int offcodes, int mask9,
-                     void* stream) {
-  Geometry g{Wp, K, th, tw, gj, ring, k, orow, ocol, H, W, 0};
+                     double rate, int noff, int offcodes, int mask9, int nw,
+                     int bands_c, int ch, int cw, int pitch, void* stream) {
+  const Geometry g{Wp, K,    th,   tw,      gj, ring, k,  orow,
+                   ocol, H, W, nw, bands_c, ch, cw,   pitch};
   switch (dtype) {
     case 0:
       return launch_compute<float>(padded, upd, anyf, ids, count, selfnz,
@@ -383,11 +502,16 @@ int mm_fused_scatter(int itemsize, void* padded, const void* upd,
   }
 }
 
-int mm_fused_smem_bytes(int itemsize_compute, int th, int tw, int k) {
-  const int sub_h = th < SUB ? th : SUB;
-  const int sub_w = tw < SUB ? tw : SUB;
-  return 2 * (sub_h + 2 * k) * (sub_w + 2 * k) * itemsize_compute;
+// K6's dynamic shared memory for a launch of this geometry.
+int mm_fused_smem_bytes(int itemsize_compute, int nw, int k, int ch,
+                        int pitch) {
+  return smem_elems(nw, k, ch, pitch) * itemsize_compute;
 }
+
+// The source's choices the wrapper mirrors: walk rows, tap run and rows.
+int mm_fused_walk_rows() { return kRows; }
+int mm_fused_tap_seg() { return kTapSeg; }
+int mm_fused_tap_rows() { return kTapRows; }
 
 const char* mm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

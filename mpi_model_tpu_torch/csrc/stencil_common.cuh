@@ -1,12 +1,13 @@
 // Device helpers shared by the port's stencil kernels (K1 and K2 in
 // fused_stencil.cu, K3 and K3-halo in composed_stencil.cu, K4 and K4-halo
-// in field_stencil.cuh, K5 in pipeline_stencil.cu, K6/K7 in fused_active.cu).
+// in field_stencil.cuh, K5 in pipeline_stencil.cu, K6/K7 in fused_active.cu;
+// K5's and K6's exact register walk is exact_walk.cuh).
 //
 // One copy of: the f32 storage conversions, the grid test, the in-bounds
 // neighbor count of a global cell, the window sources (a whole grid, or one
 // shard and its exchanged ghost ring), the halo-window load, and the exact
-// iterated step of K1, K3 and K5 (the form the TPU kernels use near the
-// global edge). The neighborhood is a 3x3 bitmask: bit (dx+1)*3 + (dy+1)
+// iterated step of K1, K3 and K5's border strips (the form the TPU kernels
+// use near the global edge). The neighborhood is a 3x3 bitmask: bit (dx+1)*3 + (dy+1)
 // set for each offset. Loops stride over a (kThreadsX, kThreadsY) block.
 //
 // Then the register column walk that K1/K2 and K3's vpu form share (the
@@ -199,15 +200,6 @@ __device__ __forceinline__ void load_window_f32(const HaloSource<T>& src,
       val[i * WW + j] = src.at(r, c0 + j);
     }
   }
-}
-
-// The same for a whole [H, W] grid whose window starts at global (r0, c0).
-template <typename T>
-__device__ __forceinline__ void load_window_f32(const T* __restrict__ in,
-                                                float* val, int r0, int c0,
-                                                int WH, int WW, int H,
-                                                int W) {
-  load_window_f32(DenseSource<T>{in, H, W}, val, r0, c0, WH, WW);
 }
 
 // Decode the ordered offset codes (4 bits each, bit index (dx+1)*3 +

@@ -4,13 +4,15 @@ whole-run runner (counterpart of ``mpi_model_tpu/ops/pallas_active.py``).
 The active-tile engine (``ops/active.py``) with its per-tile update moved
 into two hand-written kernels (``csrc/fused_active.cu``):
 
-- **K6** (``fused_compute``) runs over the ``capacity`` lanes; a lane reads
-  the live count from device memory and does nothing at or past
-  ``clip(count, 1, K)``, so the host never sizes the launch. Each live lane
-  advances its tile's ring-``k`` window ``k`` steps and emits ``upd[l]`` and
-  the any-nonzero flag ``anyf[l]``. At ``k > 1`` interior tiles whose own
-  cells were nonzero take the composed tap table; near-edge and frontier
-  tiles take the exact iterated path.
+- **K6** (``fused_compute``) runs a block a lane over the ``capacity``
+  lanes; a block reads the live count from device memory and does nothing
+  at or past ``clip(count, 1, K)``, so the host never sizes the launch.
+  Each live lane advances its tile's ring-``k`` window ``k`` steps and emits
+  ``upd[l]`` and the any-nonzero flag ``anyf[l]``. At ``k > 1`` interior
+  tiles whose own cells were nonzero take the composed tap table; near-edge
+  and frontier tiles take the exact iterated path. ``launch_geometry`` is
+  the block's shape: the exact path's register walk over row (and column)
+  bands of the tile, and the tap sum's staged chunks.
 - **K7** (``fused_scatter``) lands ``upd[l]`` in the padded state for the
   live lanes. It is a separate launch, so every K6 window reads the values
   from before the pass.
@@ -30,6 +32,7 @@ The port updates the padded state in place.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -58,8 +61,17 @@ from .stencil import neighbor_counts, transport
 MAX_FUSED_K = 16
 #: storage dtypes the kernels take; the math runs in the storage dtype
 KERNEL_DTYPES = (torch.float32, torch.float64, torch.bfloat16)
-#: K6 cuts each lane's tile into SUB x SUB sub-tiles, one block each
-SUB = 32
+#: K6's exact path: the register walk's window rows (a band has
+#: ``WALK_ROWS - 2k`` output rows; ``csrc/fused_active.cu`` ``kRows``)
+WALK_ROWS = 48
+#: K6's tap sum: a thread computes ``TAP_ROWS`` rows (``kTapRows``) of a
+#: run of ``TAP_SEG`` outputs (``kTapSeg``)
+TAP_SEG = 8
+TAP_ROWS = 2
+#: bytes a tap chunk's staged window may take in f32 (f64 chunks hold as
+#: many values; at least one output row's worth): 40 KB measured faster
+#: than 56 KB or the whole 128² window
+TAP_SMEM = 40 * 1024
 #: shared memory one block may use on the H100 (232,448 bytes)
 SMEM_LIMIT = 232448
 
@@ -109,12 +121,54 @@ def _fused_taps(rate: float, offsets: tuple, k: int) -> Optional[np.ndarray]:
     return composed_taps(rate, offsets, k)
 
 
-def smem_bytes(dtype, tile: tuple[int, int], k: int) -> int:
-    """K6's dynamic shared memory for one block: two ring-k sub-tile
-    windows in the compute type (f64 for float64, else f32)."""
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """K6's launch geometry for one (compute type, tile, k).
+
+    ``nw`` warps a block: the exact path's window is ``32 nw`` columns
+    (``32 nw - 2k`` outputs), ``bands_c`` of them across a tile, and
+    ``WALK_ROWS`` rows (``WALK_ROWS - 2k`` outputs). The tap sum (k > 1,
+    with a tap table) stages chunks of ``ch x cw`` outputs with their
+    ring-k window, rows of ``pitch`` elements (odd: the loads of
+    neighbouring threads, a row group apart, spread over the banks); 0
+    without taps."""
+    nw: int
+    bands_c: int
+    ch: int
+    cw: int
+    pitch: int
+
+
+def launch_geometry(dtype, tile: tuple[int, int], k: int,
+                    taps: bool = True) -> Geometry:
+    """K6's block shape for tiles ``tile`` at depth ``k`` (the compute type
+    is f64 for float64, else f32), with the tap sum's chunks when the call
+    has a tap table (never at k = 1)."""
+    th, tw = int(tile[0]), int(tile[1])
+    k = int(k)
+    nw = min(8, -(-(tw + 2 * k) // 32))
+    bands_c = -(-tw // (32 * nw - 2 * k))
+    if k == 1 or not taps:
+        return Geometry(nw, bands_c, 0, 0, 0)
     item = 8 if dtype == torch.float64 else 4
-    sh, sw = min(SUB, tile[0]), min(SUB, tile[1])
-    return 2 * (sh + 2 * k) * (sw + 2 * k) * item
+    cw = min(tw, 128)
+    pitch = -(-cw // TAP_SEG) * TAP_SEG + 2 * k
+    pitch += 1 - pitch % 2
+    ch = min(th, max(1, TAP_SMEM // (pitch * 4) - 2 * k))
+    return Geometry(nw, bands_c, ch, cw, pitch)
+
+
+def smem_bytes(dtype, tile: tuple[int, int], k: int,
+               taps: bool = True) -> int:
+    """K6's dynamic shared memory for one block: the walk's warp-edge
+    exchange (``[2 parities][nw][2 sides][WALK_ROWS]``), and with a tap
+    table the tap sum's staged chunk (``(ch + 2k) x pitch``), which reuses
+    it; in the compute type (f64 for float64, else f32)."""
+    item = 8 if dtype == torch.float64 else 4
+    g = launch_geometry(dtype, tile, k, taps)
+    exchange = 2 * g.nw * 2 * WALK_ROWS
+    staged = (g.ch + 2 * k) * g.pitch if g.ch else 0
+    return max(exchange, staged) * item
 
 
 def _origin(origin) -> tuple[int, int]:
@@ -206,8 +260,10 @@ def _kernel_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mm_fused_compute.argtypes = [
             i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
-            ctypes.c_double, i, i, i, p]
+            ctypes.c_double, i, i, i, i, i, i, i, i, p]
         lib.mm_fused_compute.restype = i
+        lib.mm_fused_smem_bytes.argtypes = [i, i, i, i, i]
+        lib.mm_fused_smem_bytes.restype = i
         lib.mm_fused_scatter.argtypes = [i, p, p, p, p, i, i, i, i, i, i, p]
         lib.mm_fused_scatter.restype = i
         lib.mm_cuda_error_string.argtypes = [i]
@@ -278,7 +334,7 @@ def fused_compute(padded: torch.Tensor, ids: torch.Tensor,
     if not 1 <= k <= min(MAX_FUSED_K, ring):
         raise ValueError(f"k={k} must be in [1, min({MAX_FUSED_K}, "
                          f"ring={ring})]")
-    need = smem_bytes(dtype, plan.tile, k)
+    need = smem_bytes(dtype, plan.tile, k, taps is not None)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"K6 needs {need} bytes of shared memory per block for "
@@ -302,6 +358,7 @@ def fused_compute(padded: torch.Tensor, ids: torch.Tensor,
     tap_t = None if taps is None else _kernel_taps(taps, dtype, dev)
     orow, ocol = _origin(origin)
     H, W = global_shape
+    geo = launch_geometry(dtype, plan.tile, k, taps is not None)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -311,7 +368,8 @@ def fused_compute(padded: torch.Tensor, ids: torch.Tensor,
             selfnz.data_ptr(), None if tap_t is None else tap_t.data_ptr(),
             padded.shape[1], K, th, tw, gj, int(ring), int(k), orow, ocol,
             int(H), int(W), _rate_value(rate, dtype), len(offsets),
-            _offset_codes(offsets), _offset_mask(offsets), stream)
+            _offset_codes(offsets), _offset_mask(offsets), geo.nw,
+            geo.bands_c, geo.ch, geo.cw, geo.pitch, stream)
     _raise_on(lib, err, "fused_compute (K6)")
     _launches["fused_compute"] += 1
     return upd, anyf

@@ -12,6 +12,9 @@ ensemble engine (``EnsembleExecutor(impl="pipeline")``).
   ``(BR, BC)`` cells between the exact masked path (tiles near the grid's
   edge) and the closed form (the others). The grid must cut into 16-row /
   128-column strips (``_pipeline_blocks``), as on the TPU.
+- The kernel steps windows of ``window_rows`` x 256 cells, each writing at
+  most ``(rows - 2n) x (256 - 2n)`` outputs of one TPU tile
+  (``launch_windows`` lists them, with the form each takes).
 - A CPU tensor takes ``pipeline_step_plain``; a CUDA tensor launches the
   kernel or raises. Nothing falls back.
 - ``launches()`` counts kernel launches, one per call whatever ``B`` is.
@@ -35,6 +38,8 @@ _STRIP_R = 16
 _STRIP_C = 128
 #: most fused steps one call admits (the TPU kernel's 8-deep strips)
 MAX_STEPS = 8
+#: columns of the kernel's window (8 warps, one column a thread)
+WINDOW_COLS = 256
 _launch_count = 0
 
 
@@ -98,6 +103,43 @@ def interior_mask(shape: tuple[int, int], block: tuple[int, int],
     return row_ok[:, None] & col_ok[None, :]
 
 
+def window_rows(offsets: Sequence[tuple[int, int]], nsteps: int) -> int:
+    """The kernel's window rows for a call (``csrc/pipeline_stencil.cu``
+    ``rows_for``): 64 for Moore in its row-major order above 2 steps, else
+    48."""
+    return 64 if tuple(offsets) == MOORE_OFFSETS and nsteps > 2 else 48
+
+
+def launch_windows(shape: tuple[int, int], block: tuple[int, int],
+                   nsteps: int, offsets: Sequence[tuple[int, int]]
+                   = MOORE_OFFSETS) -> list[tuple]:
+    """The windows one lane of a launch steps, in the kernel's order:
+    ``(r0, r1, c0, c1, near, inner)``, the output rows ``[r0, r1)`` and
+    columns ``[c0, c1)`` the window writes, whether its TPU tile takes the
+    exact path (``near``), and whether every output lies more than
+    ``nsteps`` from the global edge (``inner``: the exact path's full
+    count). The windows restart at each TPU tile, so a window's outputs lie
+    in one TPU tile."""
+    (h, w), (br, bc), n = shape, block, int(nsteps)
+    oh = window_rows(offsets, n) - 2 * n
+    ow = WINDOW_COLS - 2 * n
+    out = []
+    for g_r0 in range(0, h, br):
+        for q_r in range(-(-br // oh)):
+            r0 = g_r0 + q_r * oh
+            r1 = min(r0 + oh, g_r0 + br)
+            for g_c0 in range(0, w, bc):
+                near = (g_r0 <= n or g_r0 + br >= h - n or g_c0 <= n
+                        or g_c0 + bc >= w - n)
+                for q_c in range(-(-bc // ow)):
+                    c0 = g_c0 + q_c * ow
+                    c1 = min(c0 + ow, g_c0 + bc)
+                    inner = (r0 >= n + 1 and r1 <= h - 1 - n
+                             and c0 >= n + 1 and c1 <= w - 1 - n)
+                    out.append((r0, r1, c0, c1, near, inner))
+    return out
+
+
 def pipeline_step_plain(values: torch.Tensor, rate: float,
                         offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                         nsteps: int = 1,
@@ -138,9 +180,11 @@ def _kernel_lib():
     if not getattr(lib, "_mm_typed", False):
         for fn in (lib.mm_pipeline_stencil_f32, lib.mm_pipeline_stencil_bf16):
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
-                           + [ctypes.c_int] * 6 + [ctypes.c_float] * 4
+                           + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
                            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.mm_pipeline_rows.argtypes = [ctypes.c_int] * 3
+        lib.mm_pipeline_rows.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
         lib._mm_typed = True
@@ -165,7 +209,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), b, h, w, br, bc,
-                 32 if br % 32 == 0 else 16, float(rate), float(1.0 - rate),
+                 float(rate), float(1.0 - rate),
                  float(a), float(cb), int(nsteps), _offset_mask(offsets),
                  len(offsets), _offset_codes(offsets), int(moore), stream)
     if err != 0:

@@ -39,16 +39,25 @@ def test_per_source_flags():
     assert (_build.CSRC / "field_stencil.cuh").is_file()
 
 
+#: the csrc headers each source includes, directly or through another
+#: (K6 and K5 take the exact register walk, which takes the shared header)
+HEADERS = {"fused_stencil": ["stencil_common.cuh"],
+           "composed_stencil": ["stencil_common.cuh"],
+           "fused_active": ["exact_walk.cuh", "stencil_common.cuh"],
+           "pipeline_stencil": ["exact_walk.cuh", "stencil_common.cuh"]}
+
+
 def test_every_source_includes_the_shared_header():
     for name in SOURCES:
         hdrs = _build.local_headers(_build.CSRC / f"{name}.cu")
-        assert [h.name for h in hdrs] == ["stencil_common.cuh"], name
+        assert [h.name for h in hdrs] == HEADERS[name], name
     text = config4_unit().unit.text
     assert [h.name for h in _build._headers_of(text, "unit")] == [
         "field_stencil.cuh", "stencil_common.cuh"]
 
 
-@pytest.mark.parametrize("edit", ["source", "header", "nothing"])
+@pytest.mark.parametrize("edit", ["source", "header", "walk_header",
+                                  "nothing"])
 def test_digest_follows_source_and_header(tmp_path, monkeypatch, edit):
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
@@ -66,10 +75,15 @@ def test_digest_follows_source_and_header(tmp_path, monkeypatch, edit):
     elif edit == "header":
         with open(csrc / "stencil_common.cuh", "a") as f:
             f.write("\n// edited\n")
+    elif edit == "walk_header":
+        with open(csrc / "exact_walk.cuh", "a") as f:
+            f.write("\n// edited\n")
     after = names()
     changed = {n for n in before if before[n] != after[n]}
     assert changed == {"source": {"composed_stencil"},
-                       "header": set(before), "nothing": set()}[edit]
+                       "header": set(before),
+                       "walk_header": {"fused_active", "pipeline_stencil"},
+                       "nothing": set()}[edit]
     # distinct flags give distinct libraries even for one source text
     assert len(set(before.values())) == 5
 

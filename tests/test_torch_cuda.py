@@ -18,7 +18,8 @@ once per call; -0.0 cells included), except flows using exp: CUDA's expf
 and torch's exp may differ by an ulp, so those are held to
 ``8·eps·nsteps·max|v|``.
 K5 is held bit for bit (f32 math in the plain version's order, no FMA
-contraction, rounded once per call)."""
+contraction, rounded once per call). K6's and K5's launch geometry
+(``launch_geometry``, ``window_rows``) is held to the library's."""
 
 import dataclasses
 
@@ -173,6 +174,72 @@ def test_fused_active_kernels_bitwise_on_the_card(dtype, k, offs, shape,
     assert torch.equal(got_p, want_p)
     assert fa.launches() == {"fused_compute": before["fused_compute"] + 1,
                              "fused_scatter": before["fused_scatter"] + 1}
+
+
+@pytest.mark.cuda
+def test_fused_active_geometry_matches_the_library():
+    """The wrapper's launch geometry asks the kernel for the shared memory
+    ``smem_bytes`` states, and its walk rows and tap run are the source's."""
+    _card()
+    lib = fa._kernel_lib()
+    assert lib.mm_fused_walk_rows() == fa.WALK_ROWS
+    assert lib.mm_fused_tap_seg() == fa.TAP_SEG
+    assert lib.mm_fused_tap_rows() == fa.TAP_ROWS
+    for dtype in fa.KERNEL_DTYPES:
+        item = 8 if dtype == torch.float64 else 4
+        for tile in ((128, 128), (40, 24), (16, 16), (64, 64), (16, 32),
+                     (256, 512)):
+            for k in range(1, min(min(tile), fa.MAX_FUSED_K) + 1):
+                for taps in (True, False):
+                    g = fa.launch_geometry(dtype, tile, k, taps)
+                    assert lib.mm_fused_smem_bytes(
+                        item, g.nw, k, g.ch, g.pitch) == fa.smem_bytes(
+                            dtype, tile, k, taps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 2),
+                                     (torch.float64, 8), (torch.bfloat16, 3)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("shape,tile,origin,gshape", [
+    ((512, 1024), (256, 512), (0, 0), (512, 1024)),
+    ((256, 256), (128, 128), (128, 256), (640, 768))])
+@pytest.mark.parametrize("use_taps", [True, False])
+def test_fused_active_bands_and_origins_on_the_card(dtype, k, offs, shape,
+                                                    tile, origin, gshape,
+                                                    use_taps):
+    """Tiles wider than one walk window (column bands) and taller than a
+    tap chunk, and a shard's state at a global origin whose ring holds its
+    neighbours' values: every lane live, self-lit or not, bit for bit; with
+    the tap table and without it (every lane exact, as the ensemble's
+    lanes run)."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    h, w = shape
+    ring = k
+    v = rng.uniform(0.5, 2.0, (h + 2 * ring, w + 2 * ring))
+    v *= rng.random(v.shape) < 0.7
+    rows = np.arange(h + 2 * ring) + origin[0] - ring
+    cols = np.arange(w + 2 * ring) + origin[1] - ring
+    v[(rows < 0) | (rows >= gshape[0]), :] = 0.0  # the global zero border
+    v[:, (cols < 0) | (cols >= gshape[1])] = 0.0
+    padded = torch.from_numpy(v).to(dev, dtype)
+    plan = act.plan_for(shape, tile=tile, max_active_frac=1.0)
+    nt = plan.grid[0] * plan.grid[1]
+    ids = torch.randperm(nt, generator=torch.Generator().manual_seed(2)).to(
+        dev, torch.int32)
+    count = torch.tensor(nt - 1, device=dev)
+    selfnz = (torch.arange(nt, device=dev) % 3 != 0).to(torch.int32)
+    taps = fa._fused_taps(0.13, offs, k) if use_taps else None
+    upd, anyf = fa.fused_compute(
+        padded, ids, count.reshape(1).to(torch.int32), selfnz, rate=0.13,
+        plan=plan, origin=origin, global_shape=gshape, offsets=offs,
+        dtype=dtype, k=k, ring=ring, taps=taps)
+    want_u, want_f = fa.fused_compute_plain(
+        padded, ids, count, selfnz, 0.13, plan, origin, gshape, offs, dtype,
+        k, ring, taps)
+    assert torch.equal(upd[:nt - 1], want_u[:nt - 1])
+    assert torch.equal(anyf, want_f)
 
 
 @pytest.mark.cuda
@@ -379,6 +446,39 @@ def test_pipeline_kernel_bitwise_on_the_card(dtype, ns, offs, B, shape,
     assert torch.equal(got, want)
     # out of place: the input is untouched
     assert torch.equal(x, torch.from_numpy(v).to(dev, dtype))
+
+
+@pytest.mark.cuda
+def test_pipeline_rows_match_the_library():
+    _card()
+    lib = ps._kernel_lib()
+    for offs in (MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM,
+                 tuple(reversed(MOORE_OFFSETS))):
+        moore, _, _ = fs.closed_constants(0.1, offs)
+        for ns in range(1, ps.MAX_STEPS + 1):
+            assert lib.mm_pipeline_rows(ns, fs._offset_codes(offs),
+                                        int(moore)) == ps.window_rows(offs,
+                                                                      ns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1, 3, 8])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS,
+                                  tuple(reversed(MOORE_OFFSETS)), CUSTOM])
+@pytest.mark.parametrize("B,shape,block", [(2, (96, 640), (32, 128)),
+                                           (2, (160, 2304), None)])
+def test_pipeline_windows_clip_to_tpu_tiles_on_the_card(dtype, ns, offs, B,
+                                                        shape, block):
+    """Closed-form tiles beside near ones (96×640 in (32, 128) tiles), and
+    TPU tiles whose width the windows do not divide (2304 columns in
+    1152-wide tiles): bit for bit, every output written."""
+    dev = _card()
+    v = np.random.default_rng(29).uniform(0.5, 2.0, (B,) + shape)
+    x = torch.from_numpy(v).to(dev, dtype)
+    out = torch.full_like(x, float("nan"))
+    ps.pipeline_dense_step(x, 0.13, offs, block=block, nsteps=ns, out=out)
+    assert torch.equal(out, ps.pipeline_step_plain(x, 0.13, offs, ns, block))
 
 
 @pytest.mark.cuda

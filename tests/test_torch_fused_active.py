@@ -361,7 +361,12 @@ def test_wrappers_on_cpu_launch_nothing_and_check_shared_memory():
     for dtype in fa.KERNEL_DTYPES:
         for k in range(1, fa.MAX_FUSED_K + 1):
             assert fa.smem_bytes(dtype, (128, 128), k) <= fa.SMEM_LIMIT
-    assert fa.smem_bytes(torch.float64, (128, 128), 16) == 2 * 64 * 64 * 8
+    # f64 at k = 16: the tap sum stages 31 of the tile's rows at a time
+    # (with their ring, rows of 128 + 2k columns, odd); at k = 1 only the
+    # walk's exchange, [2 parities][5 warps][2 sides][48 rows]
+    assert fa.smem_bytes(torch.float64, (128, 128), 16) == (
+        (31 + 2 * 16) * 161 * 8)
+    assert fa.smem_bytes(torch.float32, (128, 128), 1) == 2 * 5 * 2 * 48 * 4
     upd, anyf = fa.fused_compute(
         torch.nn.functional.pad(x, (1, 1, 1, 1)), ids,
         count.reshape(1), selfnz, rate=0.1, plan=plan, origin=(0, 0),
