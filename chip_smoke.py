@@ -9,7 +9,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    and ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: builds every kernel from the sources in this checkout, one nvcc
    per ``csrc`` source and per generated K4 unit (one for each flow set and
-   neighbourhood this check runs: ``k4_steppers``), all started together,
+   neighbourhood this check runs, and config 4's and the chain's bf16
+   programs: ``k4_steppers``), all started together,
    and prints each library's build seconds, whether it was cached, and
    ptxas's registers and spills.
 3. each kernel against its plain version on the card, over dtypes, depths,
@@ -203,6 +204,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    and 0.05 (both impls) and serial ``"active_fused"`` in turn,
    ``SPREAD_ROUNDS`` rounds, each with its host split and a probe of the
    host's time to enqueue one small op.
+6g. bf16 interior math (``compute_dtype=bfloat16``; the TPU kernels' knob):
+   each variant against its plain version (``compute_dtype=bfloat16``):
+   K1 (f32 nsteps 1, 2, 8 and bf16 1, 4, 16, three neighbourhoods, on
+   512 × 1024 at block (64, 128) and 336 × 1000 at (48, 200), where the
+   bf16 rectangle's edges cut the kernel's tiles, and 16384² at JAX's
+   blocks), K2 (the 2×2 shards of 2048 × 2560 and the 4 stripes of
+   96 × 768, whose every tile is near, f32 nsteps 1 and 8, bf16 16), K3
+   and K3-halo in each form (f32 k 1, 8 and bf16 4, 16), K4 and K4-halo
+   (config 4 and the 3-channel chain, f32 nsteps 1 and 8, bf16 1 and 16)
+   and K5 (2 × 1024² at block (128, 256), closed tiles inside; 8 × 4096²,
+   none: the f32 result): bit for bit, K3 mxu to its tolerance. At one
+   step K1/K2 are their f32 results. Then the main paths at full width,
+   each run with the counts set to 0 just before and read just after:
+   K1 16384² f32 substeps 8 and bf16 16, the composed path at k 8 and 16
+   in both forms, config 4 at 8192² (f32 substeps 8, bf16 16), the 2×2
+   sharded K2, K3-halo (each form) and K4-halo (config 4 at 8192²) at
+   depth 8, the ensemble 8 × 4096² (bit for bit the
+   f32-compute dispatch) and 4 × 8192² (blocks (512, 2048): closed tiles
+   in every lane; bit for bit its plain version); each run's mass change
+   held below ``MASS_BF16`` of the total. Each variant's kernel held
+   against its plain version on the same inputs at the main path's shape
+   (bit for bit, K3 mxu to its tolerance), its ms beside the f32-compute
+   kernel's of this run, its plain version's, and the function's bound
+   (bytes, or the operations of its cheapest form: bf16 cells at the
+   paired bf16 rate ``BF16X2_OPS``, the rest at the f32 rate; K3 mxu's
+   banded MMAs are its form's bound, ``form_bound_ms``).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -246,7 +273,16 @@ F32_FLOPS = 67e12
 #: and the dense tensor-core peaks (TF32, bf16)
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+#: paired bf16 arithmetic outside the tensor cores (add.rn.bf16x2,
+#: mul.rn.bf16x2: two operations an instruction) at the issue rate of f32's
+#: data-sheet 67 TFLOP/s: twice the f32 operation rate
+BF16X2_OPS = 2 * F32_FLOPS
 CUSTOM_OFFSETS = ((-1, 0), (1, 1), (0, -1))
+#: the share of the total mass a main-path run with bf16 interior math may
+#: move (JAX's semantics: constants rounded to bf16, every operation
+#: rounded). H100 80GB HBM3 at 700.00 W, this script: at most 4.69e-3
+#: (K3 vpu bf16 k=16, 64 steps of 16384²); a third of this limit
+MASS_BF16 = 2.0 ** -6
 
 
 def fail(msg: str) -> None:
@@ -516,10 +552,15 @@ def k4_steppers(mt, torch, k4, neighborhoods) -> list:
 
     from mpi_model_tpu_torch.cli import build_flows
 
+    sets = field_flow_sets(mt, torch)
     out = [k4.PallasFieldStep((8, 8), flows, offsets=offs,
                               names=("a", "b", "c"))
-           for flows in field_flow_sets(mt, torch).values()
+           for flows in sets.values()
            for offs in neighborhoods.values()]
+    # phase 6g's bf16 interior math: the same flows lowered at bf16 too
+    out += [k4.PallasFieldStep((8, 8), sets[name], names=("a", "b", "c"),
+                               compute_dtype=torch.bfloat16)
+            for name in ("config4", "chain3")]
     chain, _ = build_flows(argparse.Namespace(flow="coupled", channels=2,
                                               rate=0.1, init=1.0))
     out.append(k4.PallasFieldStep((8, 8), chain, names=("c0", "c1")))
@@ -1620,6 +1661,584 @@ def sharded_active_path(np, torch, mt, dev, reset_counts,
               f"active == active_fused == serial xla bitwise: {ok}",
               flush=True)
         check(ok, f"sharded f64 gate failed on {mesh_name}")
+    return out
+
+
+def rect_cells(fs, shape, block, n, origin=(0, 0), global_shape=None) -> int:
+    """Cells the bf16 interior math takes (``fs.bf16_rect``'s rectangle)."""
+    r0, r1, c0, c1 = fs.bf16_rect(shape, block, n, origin, global_shape)
+    return (r1 - r0) * (c1 - c0)
+
+
+def bf16_form_bound_ms(cells: int, inner16: int, ops16: float,
+                       ops32: float, in_bytes: int,
+                       out_bytes: int) -> tuple[float, str]:
+    """Least time for one call of a bf16-interior variant: the bytes it must
+    move (each input read once, each output written once) over HBM
+    bandwidth, or its operations: ``ops16`` a cell on its ``inner16`` bf16
+    cells at the paired bf16 rate (``BF16X2_OPS``), ``ops32`` a cell on the
+    rest at the f32 rate, whichever is larger."""
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (inner16 * ops16 / BF16X2_OPS
+              + (cells - inner16) * ops32 / F32_FLOPS) * 1e3
+    return larger(bytes_ms, ops_ms)
+
+
+def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
+                        neighborhoods, f32_ms) -> dict:
+    """Phase 6g: the bf16 interior math (``compute_dtype=bfloat16``) of K1,
+    K2, K3 (both forms), K3-halo, K4, K4-halo and K5: each variant against
+    its plain version (see the module docstring), then the main paths at
+    full width through their entry points, each run counted, and each
+    variant's kernel ms beside the f32-compute kernel's of this run
+    (``f32_ms``) and the bound of its form. Returns the cases' worst
+    errors, the rows and the per-call times."""
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor, assemble,
+                                              exchange_ring, make_mesh_2d)
+    from mpi_model_tpu_torch.parallel.mesh import shard_tensor
+
+    BF = torch.bfloat16
+    out = {"err": {}, "rows": {}, "calls": {}}
+    t_phase = time.perf_counter()
+
+    def rand(shape, dtype):
+        return (0.5 + 1.5 * torch.rand(shape, generator=gen,
+                                       device=dev)).to(dtype)
+
+    def case(name, got, want, form="vpu", k=1):
+        if form == "mxu":
+            ok, err, how = k3_agrees(got, want, form, k)
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            ok, how = bool(torch.equal(got, want)), "bit for bit"
+        record(f"{name}: max_abs_err={err:.3e} {how} "
+               f"{'ok' if ok else 'FAIL'}", ok)
+        check(ok, f"{name} is not its plain version ({how}): err={err}")
+        key = name.split(" ")[0] + (f" {form}" if name.startswith("K3")
+                                    else "")
+        out["err"][key] = max(out["err"].get(key, 0.0), err)
+        return err
+
+    def shards(full, mesh_shape):
+        lines, columns = mesh_shape
+        mesh = make_mesh_2d(lines, columns, devices=[dev] * (lines * columns))
+        h, w = full.shape[0] // lines, full.shape[1] // columns
+        return shard_tensor(full, mesh, h, w), (h, w)
+
+    # -- the variants against their plain versions ----------------------------
+    n_cases = len(out["err"])
+    for dtype, depths in ((torch.float32, (1, 2, 8)), (BF, (1, 4, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        for shape, block in (((512, 1024), (64, 128)),
+                             ((336, 1000), (48, 200)), ((N, N), None)):
+            x = rand(shape, dtype)
+            for ns in depths:
+                if ns > fs.ghost_depth(shape, dtype, block):
+                    continue
+                for hood, offs in neighborhoods.items():
+                    if shape == (N, N) and not (
+                            hood == "moore" and ns in (1, max(depths))):
+                        continue
+                    got = fs.pallas_dense_step(x, 0.13, offs, block, ns,
+                                               compute_dtype=BF)
+                    want = fs.dense_step_plain(x, 0.13, offs, ns, BF, block)
+                    case(f"K1 bf16-interior {dname} {shape} ns={ns} "
+                               f"{hood} ({rect_cells(fs, shape, fs.resolve_block(shape, dtype, block), ns)} bf16 "
+                               "cells)", got, want)
+                    if ns == 1:
+                        check(torch.equal(got, fs.pallas_dense_step(
+                            x, 0.13, offs, block, 1)),
+                            "K1 at one step is not the f32 result")
+                    del got, want
+            del x
+    # K2: the 2x2 shards of 2048 x 2560 (tiles off the edge in every shard)
+    # and the 4 row stripes of 96 x 768 (every tile near)
+    for dtype, ns in ((torch.float32, 8), (BF, 16), (torch.float32, 1)):
+        dname = str(dtype).removeprefix("torch.")
+        for gshape, mshape in (((2048, 2560), (2, 2)), ((96, 768), (4, 1))):
+            g, (h, w) = shards(rand(gshape, dtype), mshape)
+            for i in range(mshape[0]):
+                for j in range(mshape[1]):
+                    ring = exchange_ring(g, i, j, ns)
+                    org = (i * h, j * w)
+                    nb = rect_cells(fs, (h, w), fs.resolve_block(
+                        (h, w), dtype), ns, org, gshape)
+                    case(f"K2 bf16-interior {dname} {gshape} shard {org} "
+                         f"ns={ns} ({nb} bf16 cells)",
+                         fs.pallas_halo_step(g[i][j], ring, org, gshape,
+                                             0.13, nsteps=ns,
+                                             compute_dtype=BF),
+                         fs.halo_step_plain(g[i][j], ring, org, gshape,
+                                            0.13, MOORE_OFFSETS, ns, BF))
+            del g
+    # K3 and K3-halo, each form
+    for dtype, ks in ((torch.float32, (1, 8)), (BF, (4, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        x = rand((512, 1024), dtype)
+        for k in ks:
+            for form in cs.FORMS:
+                for hood in ("moore", "custom"):
+                    offs = neighborhoods[hood]
+                    case(f"K3 bf16-interior {dname} (512, 1024) k={k} "
+                         f"{form} {hood}",
+                         cs.composed_dense_step(x, 0.13, k, offs, (64, 256),
+                                                form, BF),
+                         cs.composed_dense_step_plain(x, 0.13, k, offs, form,
+                                                      BF, (64, 256)),
+                         form, k)
+        k = ks[-1]
+        g, (h, w) = shards(rand((1024, 2048), dtype), (2, 2))
+        for form in cs.FORMS:
+            for i in range(2):
+                for j in range(2):
+                    ring = exchange_ring(g, i, j, k)
+                    case(f"K3-halo bf16-interior {dname} shard "
+                         f"{(i * h, j * w)} k={k} {form}",
+                         cs.composed_halo_step(g[i][j], ring, (i * h, j * w),
+                                               (1024, 2048), 0.13, k,
+                                               variant=form,
+                                               compute_dtype=BF),
+                         cs.composed_halo_step_plain(
+                             g[i][j], ring, (i * h, j * w), (1024, 2048),
+                             0.13, k, variant=form, compute_dtype=BF),
+                         form, k)
+        del x, g
+    # K4 and K4-halo: config 4's flows and the 3-channel chain
+    flow_sets = field_flow_sets(mt, torch)
+    for dtype, depths in ((torch.float32, (1, 8)), (BF, (1, 16))):
+        dname = str(dtype).removeprefix("torch.")
+        vals = {n: rand((512, 1024), dtype) for n in ("a", "b", "c")}
+        for fname in ("config4", "chain3"):
+            fl = flow_sets[fname]
+            for ns in depths:
+                step = k4.PallasFieldStep((512, 1024), fl, block=(64, 128),
+                                          nsteps=ns, compute_dtype=BF)
+                got = step(vals)
+                want = k4.field_step_plain(vals, fl, nsteps=ns,
+                                           compute_dtype=BF, block=(64, 128))
+                for n in sorted({f.attr for f in fl}):
+                    case(f"K4 bf16-interior {dname} (512, 1024) ns={ns} "
+                         f"{fname} channel {n}", got[n], want[n])
+        ns = depths[-1]
+        g = {}
+        for n in ("a", "b"):
+            g[n], (h, w) = shards(rand((1024, 2048), dtype), (2, 2))
+        st = k4.PallasFieldStep((h, w), flow_sets["config4"], nsteps=ns,
+                                compute_dtype=BF)
+        for i in range(2):
+            for j in range(2):
+                v = {n: g[n][i][j] for n in g}
+                rings = {n: exchange_ring(g[n], i, j, ns) for n in g}
+                got = st.halo(v, rings, (i * h, j * w), (1024, 2048))
+                want = k4.field_halo_step_plain(
+                    v, rings, (i * h, j * w), (1024, 2048),
+                    flow_sets["config4"], nsteps=ns, compute_dtype=BF)
+                for n in g:
+                    case(f"K4-halo bf16-interior {dname} shard "
+                         f"{(i * h, j * w)} ns={ns} channel {n}", got[n],
+                         want[n])
+        del vals, g
+    # K5: a grid with closed tiles, and the ensemble's 4096² (none)
+    for dtype in (torch.float32, BF):
+        dname = str(dtype).removeprefix("torch.")
+        x = rand((2, 1024, 1024), dtype)
+        for ns in (1, 4, 8):
+            for hood, offs in neighborhoods.items():
+                case(f"K5 bf16-interior {dname} 2x(1024, 1024) block "
+                     f"(128, 256) ns={ns} {hood}",
+                     k5.pipeline_dense_step(x, 0.13, offs, (128, 256), ns,
+                                            compute_dtype=BF),
+                     k5.pipeline_step_plain(x, 0.13, offs, ns, (128, 256),
+                                            BF))
+        x = rand((B5, N5, N5), dtype)
+        for ns in (1, 8):
+            got = k5.pipeline_dense_step(x, 0.1, nsteps=ns, compute_dtype=BF)
+            case(f"K5 bf16-interior {dname} {B5}x{N5}^2 ns={ns} (no closed "
+                 "tile: the f32 result)", got,
+                 k5.pipeline_dense_step(x, 0.1, nsteps=ns))
+        del x
+    print(f"bf16 interior math: every case its plain version (worst errors "
+          f"{ {k: f'{v:.3e}' for k, v in out['err'].items()} }), "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # -- the main paths at full width ---------------------------------------------
+    def run_row(what, model, space, ex, steps, counter, want_launches):
+        """One counted run (counts to 0 just before, read just after), its
+        checks and its run ms (CUDA events, median of 3). bf16 interior
+        math does not conserve mass as f32 does, by JAX's semantics (its
+        constants rounded to bf16, every operation rounded): the run may
+        move ``MASS_BF16`` of the total. The kernels' results themselves
+        are held against their plain versions by ``timed``."""
+        reset_counts()
+        res, rep = model.execute(space, ex, steps=steps,
+                                 check_conservation=False)
+        launched = counter()
+        check(launched == want_launches,
+              f"{what}: {launched} launches, expected {want_launches}")
+        for v in res.values.values():
+            check(bool(torch.isfinite(v).all()), f"{what}: not finite")
+        err = rep.conservation_error()
+        total = sum(abs(t) for t in rep.initial_total.values())
+        allowed = MASS_BF16 * total
+        check(err <= allowed, f"{what}: mass moved by {err} (allowed "
+                              f"{allowed})")
+        run_ms = statistics.median(timed_ms(
+            torch, lambda: ex.run_model(model, space, steps), reps=3))
+        cells = sum(t.numel() for t in space.values.values()
+                    if t.is_floating_point())
+        row = {"what": what, "impl": rep.impl, "steps": steps,
+               "launches": launched, "conservation_error": err,
+               "mass_allowed": allowed,
+               "run_ms_median": run_ms,
+               "cell_updates_per_s": cells * steps / (run_ms / 1e3)}
+        out["rows"][what] = row
+        print(f"bf16-interior {what}: impl={rep.impl}, launches {launched}, "
+              f"|d|={err:.3e}, run {run_ms:.3f} ms, "
+              f"{row['cell_updates_per_s']:.4e} cell-updates/s", flush=True)
+        return res, row
+
+    def timed(what, kernel, got, plain, bound, f32_key, f32_kernel=None,
+              library=None, form="vpu", k=1, form_bound=None):
+        """The variant's kernel ms (CUDA events, median of 10), its plain
+        version's (one call), the function's bound, beside the f32-compute
+        kernel's ms of this run (phases 4-6e, or timed here with
+        ``f32_kernel``); and the kernel's result on the plain version's
+        inputs (``got()``, a tensor or a dict of channels) held against the
+        plain result, as the cases above hold it (``form``, ``k``): every
+        variant at the main path's shapes. ``form_bound``: the bound of the
+        kernel's own form where it does more operations than the
+        function needs (K3 mxu's banded MMAs)."""
+        k_ms = statistics.median(timed_ms(torch, kernel, reps=10))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = plain()
+        b.record()
+        torch.cuda.synchronize()
+        p_ms = a.elapsed_time(b)
+        res = got()
+        pairs = (((f" channel {n}", res[n], want[n]) for n in res)
+                 if isinstance(res, dict) else (("", res, want),))
+        err = max(case(f"{what} at the main path's shape{c}", g, w, form, k)
+                  for c, g, w in pairs)
+        del want, res
+        b_ms, b_by = bound
+        ref = f32_ms.get(f32_key)
+        if ref is None:
+            ref = {"ms": statistics.median(timed_ms(torch, f32_kernel,
+                                                    reps=10)),
+                   "library_ms": statistics.median(timed_ms(
+                       torch, library, reps=3))}
+        out["calls"][what] = {"ms": k_ms, "plain_ms": p_ms,
+                              "bound_ms": b_ms, "bound_by": b_by,
+                              "f32_compute_ms": ref.get("ms"),
+                              "library_ms": ref.get("library_ms"),
+                              "max_abs_err": err}
+        if form_bound is not None:
+            out["calls"][what].update(form_bound_ms=form_bound[0],
+                                      form_bound_by=form_bound[1])
+        print(f"bf16-interior {what}: kernel {k_ms:.4f} ms/call (f32 "
+              f"compute {ref.get('ms', float('nan')):.4f} ms), plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})"
+              + (f", its form's {form_bound[0]:.4f} ms ({form_bound[1]})"
+                 if form_bound else "") + f", max_abs_err {err:.3e}",
+              flush=True)
+
+    model = mt.Model(mt.Diffusion(0.1))
+    for dname, sub in (("float32", 8), ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        x = (1.0 + 0.1 * torch.rand((N, N), generator=gen,
+                                    device=dev)).to(tdt)
+        space = mt.CellularSpace.create(N, N, 1.0, dtype=dname).with_values(
+            {"value": x})
+        run_row(f"K1 {dname} ns={sub}", model, space,
+                mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
+                STEPS, fs.launches, STEPS // sub)
+        y = torch.empty_like(x)
+        bufs = [x.clone(), y]
+
+        def k1_call():
+            fs.pallas_dense_step(bufs[0], 0.1, nsteps=sub, out=bufs[1],
+                                 compute_dtype=BF)
+            bufs.reverse()
+
+        blk = fs.resolve_block((N, N), tdt)
+        inner16 = rect_cells(fs, (N, N), blk, sub)
+        closed = closed_cells((N, N), sub)
+        cells = N * N
+        # 7 a cell-step in closed form (bf16 on the rectangle), k + 3 exact
+        ops32 = sub * (7 * (closed - inner16) + 11 * (cells - closed)) / max(
+            cells - inner16, 1)
+        timed(f"K1 {dname} ns={sub}", k1_call,
+              lambda: fs.pallas_dense_step(x, 0.1, nsteps=sub,
+                                           compute_dtype=BF),
+              lambda: fs.dense_step_plain(x, 0.1, MOORE_OFFSETS, sub, BF),
+              bf16_form_bound_ms(cells, inner16, 7 * sub, ops32,
+                                 cells * x.element_size(),
+                                 cells * x.element_size()),
+              f"K1 {dname} ns={sub}")
+        out["calls"][f"K1 {dname} ns={sub}"]["bf16_cells"] = inner16
+        for variant in ("auto", "vpu"):
+            ex = mt.SerialExecutor("composed", substeps=sub,
+                                   composed_variant=variant,
+                                   compute_dtype=BF)
+            form = "mxu" if variant == "auto" else "vpu"
+            run_row(f"K3 {form} {dname} k={sub}", model, space, ex, STEPS,
+                    lambda: cs.launches(form), STEPS // sub)
+            inner16 = rect_cells(fs, (N, N), blk, sub)
+            nvpu = sub * 4 + 2 * sub + 1
+            # the function's bound: its cheapest form's operations (vpu,
+            # bf16 cells at the paired rate), as k3_bounds takes it
+            bound = bf16_form_bound_ms(
+                cells, inner16, nvpu, cs.vpu_ops((N, N), sub) / cells,
+                cells * x.element_size(), cells * x.element_size())
+            form_bound = None
+            if form == "mxu":
+                frac = inner16 / cells
+                peak = TF32_FLOPS if tdt == torch.float32 else BF16_FLOPS
+                tensor_ms = (frac * cs.mxu_tensor_flops((N, N), sub, BF) / 2
+                             / BF16_FLOPS + (1 - frac) * cs.mxu_tensor_flops(
+                                 (N, N), sub, tdt) / peak) * 1e3
+                form_bound = larger(2 * cells * x.element_size()
+                                    / HBM_BYTES_PER_S * 1e3, tensor_ms)
+            timed(f"K3 {form} {dname} k={sub}",
+                  lambda: cs.composed_dense_step(x, 0.1, sub, out=y,
+                                                 variant=form,
+                                                 compute_dtype=BF),
+                  lambda: cs.composed_dense_step(x, 0.1, sub, variant=form,
+                                                 compute_dtype=BF),
+                  lambda: cs.composed_dense_step_plain(
+                      x, 0.1, sub, variant=form, compute_dtype=BF),
+                  bound, f"K3 {form} {dname} k={sub}", form=form, k=sub,
+                  form_bound=form_bound)
+        del x, y, bufs, space
+        torch.cuda.empty_cache()
+
+    # config 4 at 8192² through the field plan
+    model4 = mt.Model(config4_flows(mt))
+    for dname, sub in (("float32", 8), ("bfloat16", 16)):
+        tdt = getattr(torch, dname)
+        vals = {n: (0.5 + 1.5 * torch.rand((N4, N4), generator=gen,
+                                           device=dev)).to(tdt)
+                for n in ("a", "b")}
+        space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0},
+                                        dtype=dname).with_values(vals)
+        run_row(f"K4 config4 {dname} ns={sub}", model4, space,
+                mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
+                STEPS, k4.launches, STEPS // sub)
+        step = k4.PallasFieldStep((N4, N4), model4.flows, dtype=tdt,
+                                  nsteps=sub, names=("a", "b"),
+                                  compute_dtype=BF)
+        bufs = [{n: t.clone() for n, t in vals.items()},
+                {n: torch.empty_like(t) for n, t in vals.items()}]
+
+        def k4_call():
+            step(bufs[0], out=bufs[1])
+            bufs.reverse()
+
+        prog = step.program
+        cells = N4 * N4
+        per = prog.flops() + len(prog.outputs) * 11
+        inner16 = rect_cells(fs, (N4, N4), fs.resolve_block((N4, N4), tdt),
+                             sub)
+        nbytes = ((len(prog.channels) + len(prog.outputs)) * cells
+                  * vals["a"].element_size())
+        timed(f"K4 config4 {dname} ns={sub}", k4_call,
+              lambda: step(vals),
+              lambda: k4.field_step_plain(vals, model4.flows, nsteps=sub,
+                                          compute_dtype=BF),
+              bf16_form_bound_ms(cells, inner16, per * sub, per * sub,
+                                 nbytes, 0),
+              f"K4 {dname} ns={sub}")
+        del vals, bufs, space, step
+        torch.cuda.empty_cache()
+
+    # the 2x2 sharded K2, 16384², depth 8, f32
+    x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
+    space = mt.CellularSpace.create(N, N, 1.0).with_values({"value": x})
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    res, row = run_row("K2 2x2 float32 depth=8", model, space,
+                       ShardMapExecutor(mesh, "pallas", halo_depth=8,
+                                        compute_dtype=BF),
+                       STEPS, fs.halo_launches, STEPS // 8 * 4)
+    g, (h, w) = shards(x, (2, 2))
+    ring = exchange_ring(g, 1, 1, 8)
+    y = torch.empty_like(g[1][1])
+    inner16 = rect_cells(fs, (h, w), fs.resolve_block((h, w), torch.float32),
+                         8, (h, w), (N, N))
+    closed = closed_cells((h, w), 8, (h, w), (N, N))
+    ops32 = 8 * (7 * (closed - inner16) + 11 * (h * w - closed)) / max(
+        h * w - inner16, 1)
+    timed("K2 float32 ns=8 shard (8192, 8192)",
+          lambda: fs.pallas_halo_step(g[1][1], ring, (h, w), (N, N), 0.1,
+                                      nsteps=8, out=y, compute_dtype=BF),
+          lambda: fs.pallas_halo_step(g[1][1], ring, (h, w), (N, N), 0.1,
+                                      nsteps=8, compute_dtype=BF),
+          lambda: fs.halo_step_plain(g[1][1], ring, (h, w), (N, N), 0.1,
+                                     MOORE_OFFSETS, 8, BF),
+          bf16_form_bound_ms(h * w, inner16, 56, ops32, h * w * 4,
+                             h * w * 4),
+          "K2 float32 ns=8")
+    out["calls"]["K2 float32 ns=8 shard (8192, 8192)"]["bf16_cells"] = \
+        inner16
+    # K3-halo on 2x2 in each form, depth 8, and its shard (1, 1) a call
+    # the function's bound: its cheapest form's operations (vpu)
+    bound = bf16_form_bound_ms(
+        h * w, inner16, 8 * 4 + 17, cs.vpu_ops(
+            (h, w), 8, origin=(h, w), global_shape=(N, N)) / (h * w),
+        h * w * 4, h * w * 4)
+    for form in cs.FORMS:
+        run_row(f"K3-halo {form} 2x2 float32 depth=8", model, space,
+                ShardMapExecutor(mesh, "composed", halo_depth=8,
+                                 composed_variant=form, compute_dtype=BF),
+                STEPS, lambda: cs.halo_launches(form), STEPS // 8 * 4)
+        form_bound = None
+        if form == "mxu":
+            frac = inner16 / (h * w)
+            form_bound = larger(2 * h * w * 4 / HBM_BYTES_PER_S * 1e3, (
+                frac * cs.mxu_tensor_flops((h, w), 8, BF, (h, w), (N, N))
+                / 2 / BF16_FLOPS + (1 - frac) * cs.mxu_tensor_flops(
+                    (h, w), 8, torch.float32, (h, w), (N, N))
+                / TF32_FLOPS) * 1e3)
+        timed(f"K3-halo {form} float32 k=8 shard (8192, 8192)",
+              lambda: cs.composed_halo_step(g[1][1], ring, (h, w), (N, N),
+                                            0.1, 8, out=y, variant=form,
+                                            compute_dtype=BF),
+              lambda: cs.composed_halo_step(g[1][1], ring, (h, w), (N, N),
+                                            0.1, 8, variant=form,
+                                            compute_dtype=BF),
+              lambda: cs.composed_halo_step_plain(
+                  g[1][1], ring, (h, w), (N, N), 0.1, 8, variant=form,
+                  compute_dtype=BF),
+              bound, f"K3-halo {form} float32", form=form, k=8,
+              form_bound=form_bound)
+    del x, space, g, ring, y, res
+    torch.cuda.empty_cache()
+
+    # K4-halo: config 4 at 8192² on 2x2, depth 8, and its shard (1, 1)
+    vals = {n: 0.5 + 1.5 * torch.rand((N4, N4), generator=gen, device=dev)
+            for n in ("a", "b")}
+    space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0}
+                                    ).with_values(vals)
+    run_row("K4-halo config4 2x2 float32 depth=8", model4, space,
+            ShardMapExecutor(mesh, "pallas", halo_depth=8, compute_dtype=BF),
+            STEPS, k4.halo_launches, STEPS // 8 * 4)
+    gs, (h4, _) = {}, (N4 // 2, N4 // 2)
+    for n in vals:
+        gs[n], _ = shards(vals[n], (2, 2))
+    st = k4.PallasFieldStep((h4, h4), model4.flows, nsteps=8,
+                            names=("a", "b"), compute_dtype=BF)
+    sv = {n: gs[n][1][1] for n in gs}
+    rings = {n: exchange_ring(gs[n], 1, 1, 8) for n in gs}
+    so = {n: torch.empty_like(t) for n, t in sv.items()}
+    prog = st.program
+    per = prog.flops() + len(prog.outputs) * 11
+    inner16 = rect_cells(fs, (h4, h4), fs.resolve_block((h4, h4),
+                                                        torch.float32), 8,
+                         (h4, h4), (N4, N4))
+    timed("K4-halo config4 float32 ns=8 shard (4096, 4096)",
+          lambda: st.halo(sv, rings, (h4, h4), (N4, N4), out=so),
+          lambda: st.halo(sv, rings, (h4, h4), (N4, N4)),
+          lambda: k4.field_halo_step_plain(sv, rings, (h4, h4), (N4, N4),
+                                           model4.flows, nsteps=8,
+                                           compute_dtype=BF),
+          bf16_form_bound_ms(h4 * h4, inner16, per * 8, per * 8,
+                             (len(prog.channels) + len(prog.outputs))
+                             * h4 * h4 * 4, 0),
+          "K4-halo")
+    out["calls"]["K4-halo config4 float32 ns=8 shard (4096, 4096)"][
+        "bf16_cells"] = inner16
+    del vals, space, gs, sv, rings, so, st
+    torch.cuda.empty_cache()
+
+    # the ensemble: 8 x 4096² (no closed tile: bit for bit the f32 dispatch)
+    # and 4 x 8192² (blocks (512, 2048): closed tiles in every lane)
+    for B, side in ((B5, N5), (4, N4)):
+        base = 0.5 + 1.5 * torch.rand((side, side), generator=gen,
+                                      device=dev)
+        spaces = [mt.CellularSpace.create(side, side, 1.0).with_values(
+            {"value": torch.roll(base, 7 * i, 0)}) for i in range(B)]
+        what = f"K5 ensemble {B}x{side}^2 float32 substeps=8"
+        svc = mt.EnsembleService(model, steps=STEPS5, impl="pipeline",
+                                 substeps=8, buckets=mt.buckets_for(B),
+                                 compute_dtype=BF, check_conservation=False)
+        t0 = [svc.submit(s) for s in spaces]
+        svc.flush()
+        reset_counts()
+        tickets = [svc.submit(s) for s in spaces]
+        svc.flush()
+        outs = [svc.result(t)[0].values["value"] for t in tickets]
+        launched = k5.launches()
+        check(launched == STEPS5 // 8, f"{what}: {launched} K5 launches")
+        for t in t0:
+            svc.result(t)
+        blk = k5.pipeline_block((side, side), 8)
+        inner = int(k5.interior_mask((side, side), blk, 8).sum())
+        if inner == 0:
+            ref = mt.EnsembleService(model, steps=STEPS5, impl="pipeline",
+                                     substeps=8, buckets=mt.buckets_for(B),
+                                     check_conservation=False)
+            tk = [ref.submit(s) for s in spaces]
+            ref.flush()
+            same = all(torch.equal(o, ref.result(t)[0].values["value"])
+                       for o, t in zip(outs, tk))
+            check(same, f"{what} is not the f32 dispatch bit for bit")
+        else:
+            same = all(torch.equal(o, k5.pipeline_step_plain(
+                s.values["value"], 0.1, nsteps=8, compute_dtype=BF))
+                for o, s in zip(outs, spaces))
+            check(same, f"{what} is not its plain version bit for bit")
+        def dispatch():
+            ts = [svc.submit(s) for s in spaces]
+            svc.flush()
+            for t in ts:
+                svc.result(t)
+
+        disp = statistics.median(timed_ms(torch, dispatch, reps=5))
+        out["rows"][what] = {"launches": launched, "bit_for_bit": same,
+                             "closed_cells_per_lane": inner,
+                             "dispatch_ms_median": disp,
+                             "scenarios_per_s": B / (disp / 1e3)}
+        print(f"bf16-interior {what}: K5 launches {launched}, "
+              f"{'the f32 dispatch' if inner == 0 else 'its plain version'}"
+              f" bit for bit, {inner} closed cells a lane, dispatch "
+              f"{disp:.3f} ms ({B / (disp / 1e3):.2f} scenarios/s)",
+              flush=True)
+        xb = torch.stack([s.values["value"] for s in spaces])
+        yb = torch.empty_like(xb)
+        cells = xb.numel()
+        w3 = torch.ones((1, 1, 3, 3), device=dev)
+        x4 = xb.view(B, 1, side, side)
+
+        def conv_steps():
+            t = x4
+            for _ in range(8):
+                t = torch.nn.functional.conv2d(t, w3, padding=1)
+            return t
+
+        timed(f"K5 float32 ns=8 {B}x{side}^2",
+              lambda: k5.pipeline_dense_step(xb, 0.1, nsteps=8, out=yb,
+                                             compute_dtype=BF),
+              lambda: k5.pipeline_dense_step(xb, 0.1, nsteps=8,
+                                             compute_dtype=BF),
+              lambda: k5.pipeline_step_plain(xb, 0.1, nsteps=8,
+                                             compute_dtype=BF),
+              bf16_form_bound_ms(cells, B * inner, 56, 88, cells * 4,
+                                 cells * 4),
+              f"K5 float32 {B}x{side}",
+              lambda: k5.pipeline_dense_step(xb, 0.1, nsteps=8, out=yb),
+              conv_steps)
+        out["calls"][f"K5 float32 ns=8 {B}x{side}^2"]["bf16_cells"] = \
+            B * inner
+        del base, spaces, svc, outs, xb, yb, x4
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2895,6 +3514,22 @@ def main() -> int:
                                          kernel_launches)
     torch.cuda.empty_cache()
 
+    # -- 6g. bf16 interior math, against the plain versions and full width ----
+    f32_ms = {f"K1 {d} ns={ns}": timings[(d, ns)] for d, ns in k1_runs}
+    f32_ms.update({f"K3 {form} {d} k={k}": composed[f"{form} {d}"]
+                   for form in cs.FORMS
+                   for d, k in (("float32", 8), ("bfloat16", 16))})
+    f32_ms.update({f"K4 {d} ns={ns}": t for (d, ns), t in
+                   field_timing.items()})
+    f32_ms["K2 float32 ns=8"] = sharded["calls"]["K2"]
+    f32_ms.update({f"K3-halo {form} float32": sharded["calls"]["K3-halo"][form]
+                   for form in cs.FORMS})
+    f32_ms["K4-halo"] = sharded["calls"]["K4-halo"]
+    f32_ms[f"K5 float32 {B5}x{N5}"] = k5_time[("float32", 8)]
+    bf16 = bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
+                               neighborhoods, f32_ms)
+    torch.cuda.empty_cache()
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -3140,6 +3775,73 @@ def main() -> int:
             "origin": kt["origin"], "active_tiles": kt["active_tiles"],
             "main_path": main_row,
         })
+    # the bf16-interior variants: the main path's counted run, this run's
+    # kernel ms beside the f32-compute kernel's, the bound of their form
+    for name, src, replaces, call, run in (
+            ("K1 fused_stencil float32 ns=8", "fused_stencil.cu",
+             "mpi_model_tpu/ops/pallas_stencil.py:526", "K1 float32 ns=8",
+             "K1 float32 ns=8"),
+            ("K1 fused_stencil bfloat16 ns=16", "fused_stencil.cu",
+             "mpi_model_tpu/ops/pallas_stencil.py:526", "K1 bfloat16 ns=16",
+             "K1 bfloat16 ns=16"),
+            ("K3 composed_stencil vpu float32 k=8", "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:157",
+             "K3 vpu float32 k=8", "K3 vpu float32 k=8"),
+            ("K3 composed_stencil mxu float32 k=8", "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:197",
+             "K3 mxu float32 k=8", "K3 mxu float32 k=8"),
+            ("K3 composed_stencil vpu bfloat16 k=16", "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:157",
+             "K3 vpu bfloat16 k=16", "K3 vpu bfloat16 k=16"),
+            ("K3 composed_stencil mxu bfloat16 k=16", "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:197",
+             "K3 mxu bfloat16 k=16", "K3 mxu bfloat16 k=16"),
+            ("K4 field_stencil float32 ns=8", "field_stencil.cuh",
+             "mpi_model_tpu/ops/pallas_stencil.py:1380",
+             "K4 config4 float32 ns=8", "K4 config4 float32 ns=8"),
+            ("K4 field_stencil bfloat16 ns=16", "field_stencil.cuh",
+             "mpi_model_tpu/ops/pallas_stencil.py:1380",
+             "K4 config4 bfloat16 ns=16", "K4 config4 bfloat16 ns=16"),
+            ("K2 fused_stencil_halo float32 ns=8", "fused_stencil.cu",
+             "mpi_model_tpu/ops/pallas_stencil.py:757",
+             "K2 float32 ns=8 shard (8192, 8192)", "K2 2x2 float32 depth=8"),
+            ("K3-halo composed_stencil vpu float32 k=8",
+             "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:323",
+             "K3-halo vpu float32 k=8 shard (8192, 8192)",
+             "K3-halo vpu 2x2 float32 depth=8"),
+            ("K3-halo composed_stencil mxu float32 k=8",
+             "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:323",
+             "K3-halo mxu float32 k=8 shard (8192, 8192)",
+             "K3-halo mxu 2x2 float32 depth=8"),
+            ("K4-halo field_stencil float32 ns=8", "field_stencil.cuh",
+             "mpi_model_tpu/ops/pallas_stencil.py:1396",
+             "K4-halo config4 float32 ns=8 shard (4096, 4096)",
+             "K4-halo config4 2x2 float32 depth=8"),
+            (f"K5 pipeline_stencil float32 {B5}x{N5}^2", "pipeline_stencil.cu",
+             "mpi_model_tpu/ops/pallas_stencil.py:728",
+             f"K5 float32 ns=8 {B5}x{N5}^2",
+             f"K5 ensemble {B5}x{N5}^2 float32 substeps=8"),
+            (f"K5 pipeline_stencil float32 4x{N4}^2", "pipeline_stencil.cu",
+             "mpi_model_tpu/ops/pallas_stencil.py:728",
+             f"K5 float32 ns=8 4x{N4}^2",
+             f"K5 ensemble 4x{N4}^2 float32 substeps=8")):
+        c = bf16["calls"][call]
+        entries.append({
+            "name": f"{name} bf16-interior", "route": "cuda",
+            "source": f"mpi_model_tpu_torch/csrc/{src}",
+            "replaces": replaces, "compute_dtype": "bfloat16",
+            "launches": bf16["rows"][run]["launches"],
+            "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+            "f32_compute_ms": c["f32_compute_ms"],
+            "bf16_cells": c.get("bf16_cells"),
+            **{key: c[key] for key in ("form_bound_ms", "form_bound_by")
+               if key in c},
+            "main_path": bf16["rows"][run]})
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3155,7 +3857,7 @@ def main() -> int:
          "k5_times": {f"{d}/ns={n}": v for (d, n), v in k5_time.items()},
          "count_read_us": sync_us,
          "sharded": sharded, "halo_main_shard_err": halo_err,
-         "sharded_active": sharded_active,
+         "sharded_active": sharded_active, "bf16_interior": bf16,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -58,10 +58,10 @@ VARIANTS = {
         ("__launch_bounds__(32 * NWARPS, 2)",
          "__launch_bounds__(32 * NWARPS, ROWS <= 64 ? 2 : 1)"),
         ("    case 64: return launch<64,",
-         "    case 96: return launch<96, true, T>(in, out, H, W, p, "
+         "    case 96: return launch<96, true, BF, T>(in, out, H, W, p, q, "
          "stream);\n    case 64: return launch<64,"),
         ("    case 64: return launch_halo<64,",
-         "    case 96: return launch_halo<96, true, T>(a, out, p, "
+         "    case 96: return launch_halo<96, true, BF, T>(a, out, p, q, "
          "stream);\n    case 64: return launch_halo<64,")],
     "no_exact_strips": [("    exact_cells(src, out, p, tl, t, work, "
                          "work + piece_floats(p.nsteps));\n", "")],
@@ -143,7 +143,9 @@ def time_variants(torch, built: dict) -> list[dict]:
     from mpi_model_tpu_torch.ops import fused_stencil as fs
     from mpi_model_tpu_torch.parallel.halo import exchange_ring
 
-    step = [ctypes.c_float] * 4 + [ctypes.c_int] * 5
+    # fs._step_args: four floats, the steps and neighbourhood, the bf16
+    # interior math's flag and rectangle, its two constants
+    step = [ctypes.c_float] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
     libs = {}
     for name, info in built.items():
         lib = ctypes.CDLL(info["library"])

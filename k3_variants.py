@@ -52,10 +52,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 N = 16384
 CASES = (("float32", 8), ("bfloat16", 16))
-K8_ROWS = ("return vpu_launch<48, 8, true, T>(in, halo, out, H, W, p, cf, "
-           "stream);")
-K16_ROWS = ("return vpu_launch<64, 16, true, T>(in, halo, out, H, W, p, cf, "
-            "stream);")
+K8_ROWS = "return vpu_launch<48, 8, true, BF, T>("
+K16_ROWS = "return vpu_launch<64, 16, true, BF, T>("
 F32_TILE = "KB = 8, KMAX = 8, REL_MIN = 0, MT = 2, WC = 4;"
 BF16_TILE = "KB = 16, KMAX = 16, REL_MIN = -8, MT = 4, WC = 4;"
 # each variant: (text, replacement) pairs, every occurrence replaced
@@ -180,14 +178,15 @@ def time_variants(torch, built: dict) -> list[dict]:
     for name, info in built.items():
         lib = ctypes.CDLL(info["library"])
         for dt in ("f32", "bf16"):
+            bf = [i] * 5  # cs._form_args: the bf16 interior math's flag
             fn = getattr(lib, f"mm_composed_vpu_{dt}")
-            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, i, fp, p]
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, i, fp] + bf + [fp, p]
             fn = getattr(lib, f"mm_composed_mxu_{dt}")
-            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, p, p]
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, p] + bf + [p, p]
             fn = getattr(lib, f"mm_composed_halo_vpu_{dt}")
-            fn.argtypes = [p, p, f, f, i, i, i, i, i, fp, p]
+            fn.argtypes = [p, p, f, f, i, i, i, i, i, fp] + bf + [fp, p]
             fn = getattr(lib, f"mm_composed_halo_mxu_{dt}")
-            fn.argtypes = [p, p, f, f, i, i, i, i, p, p]
+            fn.argtypes = [p, p, f, f, i, i, i, i, p] + bf + [p, p]
         libs[name] = lib
 
     def tm(fn):

@@ -52,6 +52,10 @@ number of distinct devices), ``impl``, ``backend_report`` and
 ``--mesh=LxC --impl=active|active_fused`` runs the shard-local active
 engines; their ``backend_report`` carries the fallback steps, the mean
 active fraction, ``flags_fused`` and the host reads.
+``--compute-dtype=bfloat16`` is the kernels' bf16 interior math (the TPU
+kernels' ``compute_dtype``: K1/K2 above one step, K3, K4 and K5 on the
+tiles off the edge; refused with ``--impl=xla`` and ``--executor=gspmd``,
+as the JAX CLI refuses it).
 Exit status 1 when conservation fails.
 """
 
@@ -134,6 +138,11 @@ def check_sharded_flags(args) -> bool:
     """The JAX package's checks of the sharded flags; True for a sharded
     run."""
     sharded = args.mesh is not None or args.rectangular is not None
+    if args.executor == "gspmd" and (args.halo_depth != 1
+                                     or args.compute_dtype is not None):
+        raise SystemExit(
+            "--halo-depth/--compute-dtype tune the explicit "
+            "ShardMapExecutor; --executor=gspmd delegates both to XLA")
     if args.executor == "gspmd":
         raise SystemExit(
             "--executor=gspmd (the AutoShardedExecutor) is not ported to "
@@ -190,7 +199,8 @@ def build_sharded_executor(args, model):
     else:
         mesh = make_mesh_2d(lines, columns, devices=mesh_devices(args, n))
     return ShardMapExecutor(mesh, step_impl=args.impl,
-                            halo_depth=args.halo_depth)
+                            halo_depth=args.halo_depth,
+                            compute_dtype=args.compute_dtype)
 
 
 def run_ensemble_cli(args, space, model) -> int:
@@ -205,7 +215,7 @@ def run_ensemble_cli(args, space, model) -> int:
     svc = EnsembleService(
         model, steps=steps, impl=args.ensemble_impl,
         substeps=args.substeps, buckets=buckets_for(B),
-        check_conservation=False)
+        compute_dtype=args.compute_dtype, check_conservation=False)
     before = kernel_launches()
     t0 = time.perf_counter()
     try:
@@ -274,6 +284,10 @@ def cmd_run(args) -> int:
     if args.blob is not None and args.flow == "coupled":
         raise SystemExit("--blob fills the single channel of "
                          "--flow=diffusion|exponencial")
+    if args.compute_dtype is not None and args.impl == "xla":
+        raise SystemExit(
+            "--compute-dtype tunes the Pallas kernels' interior math; "
+            "--impl=xla never runs them (use --impl=pallas or auto)")
     flow, init = build_flows(args)
     space = CellularSpace.create(args.dimx, args.dimy, init,
                                  dtype=args.dtype, device=args.device)
@@ -286,7 +300,8 @@ def cmd_run(args) -> int:
         model = ModelRectangular(flow, args.time, args.time_step,
                                  lines=lines, columns=columns,
                                  step_impl=args.impl,
-                                 halo_depth=args.halo_depth)
+                                 halo_depth=args.halo_depth,
+                                 compute_dtype=args.compute_dtype)
     else:
         model = Model(flow, args.time, args.time_step)
     if args.ensemble is not None:
@@ -295,7 +310,8 @@ def cmd_run(args) -> int:
         executor = build_sharded_executor(args, model)
     else:
         executor = SerialExecutor(step_impl=args.impl,
-                                  substeps=args.substeps)
+                                  substeps=args.substeps,
+                                  compute_dtype=args.compute_dtype)
     from .models.model import _launches_since, kernel_launches
 
     before = kernel_launches()
@@ -412,6 +428,10 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "(seed 0) covering this fraction of the grid, zeros "
                      "elsewhere")
     run.add_argument("--substeps", type=int, default=1)
+    run.add_argument("--compute-dtype", default=None,
+                     choices=("float32", "bfloat16"),
+                     help="the kernels' interior-tile math (bfloat16: the "
+                          "TPU kernels' bf16 interior; default float32)")
     run.add_argument("--ensemble", type=int, default=None, metavar="B",
                      help="run B copies of the scenario together through "
                      "the ensemble serving stack (EnsembleService)")

@@ -80,6 +80,21 @@
 // version's exp may differ from it by an ulp, so flows using exp are held
 // to a tolerance instead.
 //
+// bf16 interior math (compute_dtype=bfloat16; mm_field_cbf16_* entry
+// points, launch16): the TPU kernel runs its tiles that are not near the
+// edge in bf16 and its near tiles in plain f32 (pallas_stencil.py:1290,
+// :1334). The host passes the former's cells as one rectangle of global
+// rows and columns (FieldCall::br0..bc1). A block runs the f32 walk above
+// for its cells outside it, and for its cells in it a second walk: the
+// bf16 program (ProgramBf16, P::kBf16: every bf16 result of the lowered
+// flows rounded, ops/field_lower.py) over the channels rounded to bf16,
+// with share = rb(of * (1/k)) (or rb(of / k)), the inflow from 0 in
+// `offsets` order with each add rounded and rb(rb(v - of) + inflow). Those
+// cells have their whole n-cone on the grid with full counts, so that walk
+// takes the interior form. A block across the rectangle's edge runs both
+// walks, staging its windows again for the second. Bit for bit the plain
+// version (ops/field_stencil.py::field_step_plain(..., compute_dtype)).
+//
 // What bounds it: bytes for f32 at one step ((loaded + written channels) x
 // H x W x itemsize), operations at many steps (the program's flops and, per
 // written channel, a share, k inflow adds and two more, a cell-step). The
@@ -92,6 +107,8 @@
 // cudaError_t of the launch, 0 on success.
 
 #pragma once
+
+#include <type_traits>
 
 #include "stencil_common.cuh"
 
@@ -125,7 +142,28 @@ struct FieldCall {
   void* out[kMaxChannels];  // one per written channel
   int h, w, d, R0, C0, H, W;
   int nsteps, rows, vec;  // rows: the instance; vec: rows 16-byte aligned
+  int br0, br1, bc0, bc1;  // the bf16 interior math's cells (launch16)
 };
+
+// x rounded to bf16 (a bf16 operation's result; mm::rb)
+__device__ __forceinline__ float rb(float x) { return mm::rb(x); }
+
+// whether program P is the bf16 interior math's (P::kBf16; absent: f32)
+template <class P, class = void>
+struct IsBf16 : std::false_type {};
+template <class P>
+struct IsBf16<P, std::void_t<decltype(P::kBf16)>>
+    : std::integral_constant<bool, P::kBf16> {};
+
+// x, rounded to bf16 when P is a bf16 program
+template <class P>
+__device__ __forceinline__ float prnd(float x) {
+  if constexpr (IsBf16<P>::value) {
+    return rb(x);
+  } else {
+    return x;
+  }
+}
 
 __device__ __forceinline__ float min_nan(float x, float y) {
   // torch.minimum: NaN if either is NaN, else std::min (x when equal)
@@ -219,9 +257,9 @@ __device__ __forceinline__ bool cell_flow(const float (&w)[P::kOut],
 #pragma unroll
     for (int o = 0; o < P::kOut; ++o) {
       if constexpr ((k & (k - 1)) == 0) {
-        sh[o] = __fmul_rn(of[o], 1.f / k);
+        sh[o] = prnd<P>(__fmul_rn(of[o], 1.f / k));
       } else {
-        sh[o] = __fdiv_rn(of[o], static_cast<float>(k));
+        sh[o] = prnd<P>(__fdiv_rn(of[o], static_cast<float>(k)));
       }
     }
     return true;
@@ -301,7 +339,8 @@ __device__ __forceinline__ void field_step(float (&v)[P::kOut][ROWS],
         m[0] = 0.f;
 #pragma unroll
         for (int u = 0; u < P::kMod; ++u) {
-          const float x = mm::to_f32(mods[u * kStage + k * kPitch + jm]);
+          const float x =
+              prnd<P>(mm::to_f32(mods[u * kStage + k * kPitch + jm]));
           m[u] = in_win ? x : 0.f;
         }
         cell_flow<P, INNER>(w, m, r0 + k, c0 + jc, H, W, of, sh);
@@ -354,12 +393,12 @@ __device__ __forceinline__ void field_step(float (&v)[P::kOut][ROWS],
       m[0] = 0.f;
 #pragma unroll
       for (int u = 0; u < P::kMod; ++u) {
-        m[u] = mm::to_f32(mcol[u * kStage + k * kPitch]);
+        m[u] = prnd<P>(mm::to_f32(mcol[u * kStage + k * kPitch]));
       }
       ong = cell_flow<P, INNER>(w, m, rg + k % F, c, H, W, of, sh);
 #pragma unroll
       for (int o = 0; o < kOut; ++o) {
-        v[o][k] = __fsub_rn(w[o], of[o]);
+        v[o][k] = prnd<P>(__fsub_rn(w[o], of[o]));
         float L = __shfl_up_sync(mm::kFull, sh[o], 1);
         float R = __shfl_down_sync(mm::kFull, sh[o], 1);
         const float e = edge[o * ROWS + k];
@@ -380,24 +419,25 @@ __device__ __forceinline__ void field_step(float (&v)[P::kOut][ROWS],
 #pragma unroll
         for (int d = 0; d < P::kOffsets; ++d) {
           if (off_dx<P>(d) == 1) {
-            gp[o] = __fadd_rn(gp[o], X[o][off_dy<P>(d) + 1]);
+            gp[o] = prnd<P>(__fadd_rn(gp[o], X[o][off_dy<P>(d) + 1]));
           }
         }
         if (k >= 1) {
-          v[o][k - 1] = (INNER || ong_prev) ? __fadd_rn(v[o][k - 1], gp[o])
-                                            : 0.f;
+          v[o][k - 1] = (INNER || ong_prev)
+                            ? prnd<P>(__fadd_rn(v[o][k - 1], gp[o]))
+                            : 0.f;
         }
 #pragma unroll
         for (int d = 0; d < P::kOffsets; ++d) {
           if (off_dx<P>(d) == 0) {
-            gc[o] = __fadd_rn(gc[o], X[o][off_dy<P>(d) + 1]);
+            gc[o] = prnd<P>(__fadd_rn(gc[o], X[o][off_dy<P>(d) + 1]));
           }
         }
         float gn = 0.f;
 #pragma unroll
         for (int d = 0; d < P::kOffsets; ++d) {
           if (off_dx<P>(d) == -1) {
-            gn = __fadd_rn(gn, X[o][off_dy<P>(d) + 1]);
+            gn = prnd<P>(__fadd_rn(gn, X[o][off_dy<P>(d) + 1]));
           }
         }
         gp[o] = gc[o];
@@ -413,10 +453,12 @@ __device__ __forceinline__ void field_step(float (&v)[P::kOut][ROWS],
           float g = 0.f;
 #pragma unroll
           for (int d = 0; d < P::kOffsets; ++d) {
-            g = __fadd_rn(g, S[o][off_dx<P>(d) + 1][off_dy<P>(d) + 1]);
+            g = prnd<P>(
+                __fadd_rn(g, S[o][off_dx<P>(d) + 1][off_dy<P>(d) + 1]));
           }
-          v[o][k - 1] =
-              (INNER || ong_prev) ? __fadd_rn(v[o][k - 1], g) : 0.f;
+          v[o][k - 1] = (INNER || ong_prev)
+                            ? prnd<P>(__fadd_rn(v[o][k - 1], g))
+                            : 0.f;
         }
       }
     }
@@ -434,9 +476,12 @@ __device__ __forceinline__ void field_step(float (&v)[P::kOut][ROWS],
   }
 }
 
-// The body of K4 and K4-halo: block t steps tile t of `tl`.
-template <class P, typename T, int ROWS>
-__device__ __forceinline__ void field_body(const FieldCall& a,
+// One walk of block t over tile t of `tl`, writing (PASS 0) every output
+// cell, (1) those outside the bf16 rectangle, (2) those in it; PASS 2 runs
+// the bf16 program P over the channels rounded to bf16, in the interior
+// form.
+template <class P, typename T, int ROWS, int PASS>
+__device__ __forceinline__ void field_pass(const FieldCall& a,
                                            const mm::Tiling& tl) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kOut = P::kOut;
@@ -468,7 +513,8 @@ __device__ __forceinline__ void field_body(const FieldCall& a,
   for (int o = 0; o < kOut; ++o) {
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      v[o][i] = mm::to_f32(out_stage[o * kStage + i * kPitch + skew + j]);
+      v[o][i] = prnd<P>(
+          mm::to_f32(out_stage[o * kStage + i * kPitch + skew + j]));
     }
   }
   __syncthreads();  // the written channels' windows become the exchange
@@ -486,12 +532,12 @@ __device__ __forceinline__ void field_body(const FieldCall& a,
   const int c0 = tl.C0 + tl.col_of(t) - n;
   float* scr = scratch + threadIdx.y * 2 * (kOut * ROWS + 1);
   const T* mods = mod_stage + skew;
-  if (tl.interior(t)) {
+  if (PASS == 2 || tl.interior(t)) {
     for (int s = 0; s < n; ++s) {
       field_step<P, T, ROWS, true>(v, exch + (s & 1) * kExch, scr, mods, r0,
                                    c0, tl.H, tl.W);
     }
-  } else {
+  } else if constexpr (PASS != 2) {
     for (int s = 0; s < n; ++s) {
       field_step<P, T, ROWS, false>(v, exch + (s & 1) * kExch, scr, mods, r0,
                                     c0, tl.H, tl.W);
@@ -502,12 +548,15 @@ __device__ __forceinline__ void field_body(const FieldCall& a,
   const int lr = tl.row_of(t) - n;  // the window's first row and column
   const int lc = tl.col_of(t) - n + j;
   if (j < n || j >= kWinW - n || lc >= tl.w) return;
+  const mm::Rect q{a.br0, a.br1, a.bc0, a.bc1};
 #pragma unroll
   for (int o = 0; o < kOut; ++o) {
     T* dst = static_cast<T*>(a.out[o]);
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      if (i >= n && i < ROWS - n && lr + i < tl.h) {
+      const bool inq = mm::in_rect(q, tl.R0 + lr + i, tl.C0 + lc);
+      if (i >= n && i < ROWS - n && lr + i < tl.h &&
+          (PASS == 0 || (PASS == 2) == inq)) {
         mm::from_f32(dst + static_cast<size_t>(lr + i) * tl.w + lc, v[o][i]);
       }
     }
@@ -517,7 +566,26 @@ __device__ __forceinline__ void field_body(const FieldCall& a,
 template <class P, typename T, int ROWS>
 __global__ void __launch_bounds__(32 * kWarps, min_blocks<P, ROWS>())
     field_kernel(const __grid_constant__ FieldCall a, const mm::Tiling tl) {
-  field_body<P, T, ROWS>(a, tl);
+  field_pass<P, T, ROWS, 0>(a, tl);
+}
+
+// The bf16 interior math: the f32 program P for the block's cells outside
+// the rectangle, the bf16 program P16 for those in it (the header).
+template <class P, class P16, typename T, int ROWS>
+__global__ void __launch_bounds__(32 * kWarps, min_blocks<P, ROWS>())
+    field_kernel16(const __grid_constant__ FieldCall a, const mm::Tiling tl) {
+  const int t = blockIdx.x;
+  const int gr = tl.R0 + tl.row_of(t);
+  const int gc = tl.C0 + tl.col_of(t);
+  const int cover = mm::rect_cover(
+      mm::Rect{a.br0, a.br1, a.bc0, a.bc1}, gr,
+      min(gr + tl.th, tl.R0 + tl.h), gc, min(gc + tl.tw, tl.C0 + tl.w));
+  if (cover != mm::kNone) {
+    field_pass<P16, T, ROWS, 2>(a, tl);
+    if (cover == mm::kAll) return;
+    __syncthreads();  // the windows are restaged for the f32 walk
+  }
+  field_pass<P, T, ROWS, 1>(a, tl);
 }
 
 // Host check of a call: steps within the ghost depth and the window's rows,
@@ -558,6 +626,16 @@ int launch_rows(const FieldCall& a, void* stream) {
                                             tl.tiles, &limit, stream, a, tl));
 }
 
+template <class P, class P16, typename T, int ROWS>
+int launch_rows16(const FieldCall& a, void* stream) {
+  const mm::Tiling tl = mm::make_tiling(ROWS, a.nsteps, a.nsteps, a.h, a.w,
+                                        a.R0, a.C0, a.H, a.W);
+  static int limit = kDefaultSmemLimit;  // per template instance
+  return static_cast<int>(mm::launch_blocks(field_kernel16<P, P16, T, ROWS>,
+                                            smem_bytes<P, T, ROWS>(),
+                                            tl.tiles, &limit, stream, a, tl));
+}
+
 // Launch the instance of `call`'s rows among the unit's RS.
 template <class P, typename T, int... RS>
 int launch(const void* call, void* stream) {
@@ -568,6 +646,23 @@ int launch(const void* call, void* stream) {
   if (a.h == 0 || a.w == 0) return 0;
   int err = invalid;
   ((a.rows == RS ? (err = launch_rows<P, T, RS>(a, stream), 0) : 0), ...);
+  return err;
+}
+
+// The same with the bf16 interior math (P16: the bf16 program).
+template <class P, class P16, typename T, int... RS>
+int launch16(const void* call, void* stream) {
+  static_assert(P16::kOut == P::kOut && P16::kMod == P::kMod &&
+                    P16::kOffCodes == P::kOffCodes && IsBf16<P16>::value,
+                "the bf16 program is the same flows' lowering at bf16");
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (call == nullptr) return invalid;
+  const FieldCall& a = *static_cast<const FieldCall*>(call);
+  if (!((a.rows == RS) || ...) || !valid<P>(a)) return invalid;
+  if (a.h == 0 || a.w == 0) return 0;
+  int err = invalid;
+  ((a.rows == RS ? (err = launch_rows16<P, P16, T, RS>(a, stream), 0) : 0),
+   ...);
   return err;
 }
 

@@ -72,6 +72,22 @@
 // call. Storage is float or __nv_bfloat16; the math is f32, converted with
 // the intrinsics only, and bf16 is rounded once per call.
 //
+// bf16 interior math (compute_dtype=bfloat16 at n > 1; the _bf16c entry
+// points): the TPU kernel computes its tiles that are not near the edge
+// (JAX's tiles, pallas_stencil.py:391-392) in bf16 and its near tiles in
+// f32 over the window rounded to bf16 (:441). The host passes the cells of
+// the former as one rectangle of global rows and columns (mm::Rect). A
+// block whose outputs lie in it runs the closed form in bf16 and writes
+// them: Moore on paired bf16 (mm::walk_step_bf2: two rows a register,
+// add.rn.bf16x2 and mul.rn.bf16x2 with the constants rounded to bf16 on
+// the host), other neighbourhoods on the f32 walk with every operation
+// rounded to bf16. A block whose outputs lie outside it runs the f32 forms
+// above on its window rounded to bf16 (the exact strips through
+// mm::RoundedSource). A block across its edge runs both, each writing its
+// own cells. Every bf16 operation rounds once and none is contracted, so
+// the result is the plain version's (ops/fused_stencil.py::
+// dense_step_plain(..., compute_dtype)) bit for bit.
+//
 // K2, the halo mode, is the same body on one shard of a sharded grid: it
 // replaces _stencil_call in halo mode (reached through _pallas_halo_step and
 // pallas_halo_step, used by parallel/executors.py::ShardMapExecutor). Its
@@ -115,12 +131,14 @@ int smem_of(int n) {
 // The closed form's n steps on the window held in registers (v[i] = window
 // row i of this thread's column), then the tile's output written: every
 // cell of it when `whole`, else only its cells inside the array with
-// d > n. `ex` is the warp-edge exchange of the walk.
-template <int ROWS, bool MOORE, typename T>
+// d > n; with SKIP, none of the cells in `q` (the bf16 pass writes them).
+// `ex` is the warp-edge exchange of the walk.
+template <int ROWS, bool MOORE, bool SKIP = false, typename T>
 __device__ __forceinline__ void closed_tile(float (&v)[ROWS], float* ex,
                                             const Params& p,
                                             const Tiling& tl, int t,
-                                            bool whole, T* __restrict__ out) {
+                                            bool whole, T* __restrict__ out,
+                                            const mm::Rect& q = {}) {
   const int n = p.nsteps;
   int drow[8], dcol[8];
   mm::offset_rows_cols(p.offcodes, drow, dcol);
@@ -141,9 +159,10 @@ __device__ __forceinline__ void closed_tile(float (&v)[ROWS], float* ex,
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     if (i >= n && i < ROWS - n) {
-      if (whole ||
-          (r + i < tl.h && mm::edge_distance(tl.R0 + r + i, tl.C0 + c, tl.H,
-                                             tl.W) > n)) {
+      if ((whole ||
+           (r + i < tl.h && mm::edge_distance(tl.R0 + r + i, tl.C0 + c, tl.H,
+                                              tl.W) > n)) &&
+          !(SKIP && mm::in_rect(q, tl.R0 + r + i, tl.C0 + c))) {
         mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
       }
     }
@@ -162,12 +181,43 @@ __device__ __forceinline__ void exact_cells(const Src& src,
                   min(tl.col_of(t) + tl.tw, tl.w), a, b);
 }
 
-// The body of K1 and K2: block t steps tile t of `tl`.
-template <int ROWS, bool MOORE, typename T, typename Src>
+// The bf16 closed form's n steps on tile t's staged window (`col`: this
+// thread's column of it; mm::closed_walk_bf16), then its outputs in `q`
+// written.
+template <int ROWS, bool MOORE, typename T>
+__device__ __forceinline__ void bf16_tile(const T* col, float* ex,
+                                          const Params& p, const Tiling& tl,
+                                          int t, const mm::Rect& q,
+                                          T* __restrict__ out) {
+  const int n = p.nsteps;
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int r = tl.row_of(t) - n;  // the window's first row and column
+  const int c = tl.col_of(t) + j - n;
+  const bool col_out = j >= n && j < WIN_W - n && c < tl.w &&
+                       tl.C0 + c >= q.c0 && tl.C0 + c < q.c1;
+  float v[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) v[i] = mm::to_f32(col[i * mm::kStagePitch<T>]);
+  mm::closed_walk_bf16<ROWS, MOORE>(v, ex, n, p.ca16, p.cb16, p.offcodes,
+                                    p.noff);
+  if (!col_out) return;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    if (i >= n && i < ROWS - n && r + i < tl.h && tl.R0 + r + i >= q.r0 &&
+        tl.R0 + r + i < q.r1) {
+      mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
+    }
+  }
+}
+
+// The body of K1 and K2: block t steps tile t of `tl`. BF: the bf16
+// interior math, its cells `q` (the header).
+template <int ROWS, bool MOORE, bool BF, typename T, typename Src>
 __device__ __forceinline__ void fused_body(const Src& src,
                                            T* __restrict__ out,
                                            const Params& p,
-                                           const Tiling& tl) {
+                                           const Tiling& tl,
+                                           const mm::Rect& q) {
   extern __shared__ __align__(16) float smem[];
   float* ex = smem;                             // warp-edge exchange
   float* work = smem + mm::kExchFloats<ROWS>;   // staging, or exact buffers
@@ -179,8 +229,40 @@ __device__ __forceinline__ void fused_body(const Src& src,
   for (int k = j; k < mm::kExchFloats<ROWS>; k += 32 * NWARPS) ex[k] = 0.f;
   mm::cp_async_wait_all();
   __syncthreads();
-  float v[ROWS];
   const T* col = stage + skew + j;
+  if constexpr (BF) {
+    // the tile's outputs in global coordinates, against the rectangle
+    const int gr = tl.R0 + tl.row_of(t);
+    const int gc = tl.C0 + tl.col_of(t);
+    const int cover =
+        mm::rect_cover(q, gr, min(gr + tl.th, tl.R0 + tl.h), gc,
+                       min(gc + tl.tw, tl.C0 + tl.w));
+    if (cover != mm::kNone) {
+      bf16_tile<ROWS, MOORE>(col, ex, p, tl, t, q, out);
+      if (cover == mm::kAll) return;
+      // the f32 walk reads the exchange slots of warps -1 and 8 as zero
+      __syncthreads();
+      for (int k = j; k < mm::kExchFloats<ROWS>; k += 32 * NWARPS) {
+        ex[k] = 0.f;
+      }
+      __syncthreads();
+    }
+    float v[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      v[i] = mm::rb(mm::to_f32(col[i * mm::kStagePitch<T>]));
+    }
+    closed_tile<ROWS, MOORE, true>(v, ex, p, tl, t, whole, out, q);
+    if (!whole) {
+      __syncthreads();
+      mm::exact_cells_of<true>(src, out, p, tl, tl.row_of(t),
+                               min(tl.row_of(t) + tl.th, tl.h), tl.col_of(t),
+                               min(tl.col_of(t) + tl.tw, tl.w), work,
+                               work + piece_floats(p.nsteps));
+    }
+    return;
+  }
+  float v[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     v[i] = mm::to_f32(col[i * mm::kStagePitch<T>]);
@@ -194,19 +276,21 @@ __device__ __forceinline__ void fused_body(const Src& src,
 }
 
 // K1: a whole [H, W] grid.
-template <int ROWS, bool MOORE, typename T>
+template <int ROWS, bool MOORE, bool BF, typename T>
 __global__ void __launch_bounds__(32 * NWARPS, 2)
     fused_stencil_kernel(const T* __restrict__ in, T* __restrict__ out,
-                         Params p, Tiling tl) {
-  fused_body<ROWS, MOORE>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p, tl);
+                         Params p, Tiling tl, mm::Rect q) {
+  fused_body<ROWS, MOORE, BF>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p,
+                              tl, q);
 }
 
 // K2: one shard and its ghost ring; `out` is the shard's [h, w].
-template <int ROWS, bool MOORE, typename T>
+template <int ROWS, bool MOORE, bool BF, typename T>
 __global__ void __launch_bounds__(32 * NWARPS, 2)
     fused_stencil_halo_kernel(const mm::HaloSource<T> src,
-                              T* __restrict__ out, Params p, Tiling tl) {
-  fused_body<ROWS, MOORE>(src, out, p, tl);
+                              T* __restrict__ out, Params p, Tiling tl,
+                              mm::Rect q) {
+  fused_body<ROWS, MOORE, BF>(src, out, p, tl, q);
 }
 
 bool valid_steps(const Params& p) {
@@ -215,33 +299,36 @@ bool valid_steps(const Params& p) {
          p.noff == __builtin_popcount(p.mask9);
 }
 
-template <int ROWS, bool MOORE, typename T>
-int launch(const void* in, void* out, int H, int W, Params p, void* stream) {
+template <int ROWS, bool MOORE, bool BF, typename T>
+int launch(const void* in, void* out, int H, int W, Params p,
+           const mm::Rect& q, void* stream) {
   p.vec = mm::rows_aligned<T>(in, W);
   const Tiling tl =
       mm::make_tiling(ROWS, p.nsteps, p.nsteps, H, W, 0, 0, H, W);
   static int limit = DEFAULT_SMEM_LIMIT;  // per template instance
   return static_cast<int>(mm::launch_blocks(
-      fused_stencil_kernel<ROWS, MOORE, T>, smem_of<T, ROWS>(p.nsteps),
+      fused_stencil_kernel<ROWS, MOORE, BF, T>, smem_of<T, ROWS>(p.nsteps),
       tl.tiles, &limit, stream, static_cast<const T*>(in),
-      static_cast<T*>(out), p, tl));
+      static_cast<T*>(out), p, tl, q));
 }
 
-template <int ROWS, bool MOORE, typename T>
+template <int ROWS, bool MOORE, bool BF, typename T>
 int launch_halo(const mm::HaloArgs* args, void* out, Params p,
-                void* stream) {
+                const mm::Rect& q, void* stream) {
   const mm::HaloSource<T> src(*args);
   p.vec = mm::rows_aligned<T>(args->shard, args->w);
   const Tiling tl = mm::make_tiling(ROWS, p.nsteps, p.nsteps, src.h, src.w,
                                     src.R0, src.C0, src.H, src.W);
   static int limit = DEFAULT_SMEM_LIMIT;  // per template instance
   return static_cast<int>(mm::launch_blocks(
-      fused_stencil_halo_kernel<ROWS, MOORE, T>, smem_of<T, ROWS>(p.nsteps),
-      tl.tiles, &limit, stream, src, static_cast<T*>(out), p, tl));
+      fused_stencil_halo_kernel<ROWS, MOORE, BF, T>,
+      smem_of<T, ROWS>(p.nsteps), tl.tiles, &limit, stream, src,
+      static_cast<T*>(out), p, tl, q));
 }
 
 Params make_params(float rate, float keep, float ca, float cb, int nsteps,
-                   int mask9, int noff, int offcodes, int moore) {
+                   int mask9, int noff, int offcodes, int moore,
+                   float ca16 = 0.f, float cb16 = 0.f) {
   Params p;
   p.nsteps = nsteps;
   p.mask9 = mask9;
@@ -253,6 +340,8 @@ Params make_params(float rate, float keep, float ca, float cb, int nsteps,
   p.keep = keep;
   p.ca = ca;
   p.cb = cb;
+  p.ca16 = mm::bf16_bits(ca16);
+  p.cb16 = mm::bf16_bits(cb16);
   return p;
 }
 
@@ -265,79 +354,93 @@ int rows_for(const Params& p) {
   return !p.moore || p.nsteps <= 2 ? 48 : 64;
 }
 
-template <typename T>
+template <bool BF, typename T>
 int dense(const void* in, void* out, int H, int W, const Params& p,
-          void* stream) {
-  if (!valid_steps(p) || H < 0 || W < 0) {
+          const mm::Rect& q, void* stream) {
+  if (!valid_steps(p) || H < 0 || W < 0 || (BF && p.nsteps < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (H == 0 || W == 0) return 0;
   switch (rows_for(p)) {
-    case 64: return launch<64, true, T>(in, out, H, W, p, stream);
+    case 64: return launch<64, true, BF, T>(in, out, H, W, p, q, stream);
     default:
-      return p.moore ? launch<48, true, T>(in, out, H, W, p, stream)
-                     : launch<48, false, T>(in, out, H, W, p, stream);
+      return p.moore
+                 ? launch<48, true, BF, T>(in, out, H, W, p, q, stream)
+                 : launch<48, false, BF, T>(in, out, H, W, p, q, stream);
   }
 }
 
-template <typename T>
-int halo(const void* args, void* out, const Params& p, void* stream) {
+template <bool BF, typename T>
+int halo(const void* args, void* out, const Params& p, const mm::Rect& q,
+         void* stream) {
   const auto* a = static_cast<const mm::HaloArgs*>(args);
   if (a == nullptr || !valid_steps(p) ||
-      !mm::valid_halo(*a, p.nsteps, MAX_STEPS)) {
+      !mm::valid_halo(*a, p.nsteps, MAX_STEPS) || (BF && p.nsteps < 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a->h == 0 || a->w == 0) return 0;
   switch (rows_for(p)) {
-    case 64: return launch_halo<64, true, T>(a, out, p, stream);
+    case 64: return launch_halo<64, true, BF, T>(a, out, p, q, stream);
     default:
-      return p.moore ? launch_halo<48, true, T>(a, out, p, stream)
-                     : launch_halo<48, false, T>(a, out, p, stream);
+      return p.moore ? launch_halo<48, true, BF, T>(a, out, p, q, stream)
+                     : launch_halo<48, false, BF, T>(a, out, p, q, stream);
   }
+}
+
+// The entry points' dispatch: f32 interior math, or bf16 (`bf16`, with
+// its rectangle and its constants).
+template <typename T>
+int dense_entry(const void* in, void* out, int H, int W, const Params& p,
+                int bf16, const mm::Rect& q, void* stream) {
+  return bf16 ? dense<true, T>(in, out, H, W, p, q, stream)
+              : dense<false, T>(in, out, H, W, p, q, stream);
+}
+
+template <typename T>
+int halo_entry(const void* args, void* out, const Params& p, int bf16,
+               const mm::Rect& q, void* stream) {
+  return bf16 ? halo<true, T>(args, out, p, q, stream)
+              : halo<false, T>(args, out, p, q, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-int mm_fused_stencil_f32(const void* in, void* out, int H, int W, float rate,
-                         float keep, float ca, float cb, int nsteps,
-                         int mask9, int noff, int offcodes, int moore,
-                         void* stream) {
-  return dense<float>(in, out, H, W,
-                      make_params(rate, keep, ca, cb, nsteps, mask9, noff,
-                                  offcodes, moore),
-                      stream);
+// The step arguments (ops/fused_stencil.py::_step_args): the exact path's
+// rate and 1 - rate, the closed form's f32 constants, the steps and the
+// neighbourhood; then the bf16 interior math: on or off, its rectangle
+// (global rows [r0, r1), columns [c0, c1)) and its bf16 constants.
+#define MM_STEP_ARGS                                                        \
+  float rate, float keep, float ca, float cb, int nsteps, int mask9,       \
+      int noff, int offcodes, int moore, int bf16, int r0, int r1, int c0, \
+      int c1, float ca16, float cb16
+#define MM_PARAMS                                                         \
+  make_params(rate, keep, ca, cb, nsteps, mask9, noff, offcodes, moore,  \
+              ca16, cb16)
+
+int mm_fused_stencil_f32(const void* in, void* out, int H, int W,
+                         MM_STEP_ARGS, void* stream) {
+  return dense_entry<float>(in, out, H, W, MM_PARAMS, bf16,
+                            mm::Rect{r0, r1, c0, c1}, stream);
 }
 
-int mm_fused_stencil_bf16(const void* in, void* out, int H, int W, float rate,
-                          float keep, float ca, float cb, int nsteps,
-                          int mask9, int noff, int offcodes, int moore,
-                          void* stream) {
-  return dense<__nv_bfloat16>(in, out, H, W,
-                              make_params(rate, keep, ca, cb, nsteps, mask9,
-                                          noff, offcodes, moore),
-                              stream);
+int mm_fused_stencil_bf16(const void* in, void* out, int H, int W,
+                          MM_STEP_ARGS, void* stream) {
+  return dense_entry<__nv_bfloat16>(in, out, H, W, MM_PARAMS, bf16,
+                                    mm::Rect{r0, r1, c0, c1}, stream);
 }
 
-int mm_fused_stencil_halo_f32(const void* args, void* out, float rate,
-                              float keep, float ca, float cb, int nsteps,
-                              int mask9, int noff, int offcodes, int moore,
+int mm_fused_stencil_halo_f32(const void* args, void* out, MM_STEP_ARGS,
                               void* stream) {
-  return halo<float>(args, out,
-                     make_params(rate, keep, ca, cb, nsteps, mask9, noff,
-                                 offcodes, moore),
-                     stream);
+  return halo_entry<float>(args, out, MM_PARAMS, bf16,
+                           mm::Rect{r0, r1, c0, c1}, stream);
 }
 
-int mm_fused_stencil_halo_bf16(const void* args, void* out, float rate,
-                               float keep, float ca, float cb, int nsteps,
-                               int mask9, int noff, int offcodes, int moore,
+int mm_fused_stencil_halo_bf16(const void* args, void* out, MM_STEP_ARGS,
                                void* stream) {
-  return halo<__nv_bfloat16>(args, out,
-                             make_params(rate, keep, ca, cb, nsteps, mask9,
-                                         noff, offcodes, moore),
-                             stream);
+  return halo_entry<__nv_bfloat16>(args, out, MM_PARAMS, bf16,
+                                   mm::Rect{r0, r1, c0, c1}, stream);
 }
 
 int mm_halo_args_size() { return static_cast<int>(sizeof(mm::HaloArgs)); }

@@ -22,6 +22,14 @@
 //     b = r/k. The constants come rounded to f32 from the host (the TPU
 //     kernel's weak-typed Python floats).
 //
+// bf16 interior math (compute_dtype=bfloat16, `bf16`): the closed tiles
+// compute in bf16, as the TPU kernel's do (pallas_stencil.py:656):
+// mm::closed_walk_bf16 (Moore on paired bf16, add.rn.bf16x2 / mul.rn.bf16x2;
+// other neighbourhoods the f32 walk with every operation rounded), the
+// window rounded to bf16 on the way in, the constants rounded to bf16 on
+// the host. Near tiles stay f32, as the TPU kernel's do. A runtime flag,
+// not a template: the near branch, the long one to compile, is shared.
+//
 // Storage is float or __nv_bfloat16, cast to f32 once on the way in and
 // once on the way out. Every operation is an explicitly rounded intrinsic
 // and the source builds with --fmad=false, so the kernel equals its plain
@@ -81,6 +89,8 @@ struct Params {
   int moore;       // the closed form's separable Moore sum
   float rate, keep;  // the exact path's rate and f32(1 - rate)
   float ca, cb;      // the closed form's f32 constants
+  int bf16;          // closed tiles in bf16
+  unsigned ca16, cb16;  // the closed form's bf16 constants (bits)
 };
 
 // The windows of one lane: oh x ow outputs each (before clipping to the
@@ -206,15 +216,20 @@ __global__ void __launch_bounds__(32 * kWarps, 2)
       smem[e] = 0.f;
     }
     __syncthreads();
-    int drow[8], dcol[8];
-    mm::offset_rows_cols(p.offcodes, drow, dcol);
-    const float ca = p.ca, cb = p.cb;
-    for (int s = 0; s < n; ++s) {
-      mm::walk_step<ROWS, MOORE>(
-          v, smem + (s & 1) * mm::kEdgeSlots * ROWS, drow, dcol, p.noff,
-          [&](int, float old, float g) {
-            return __fadd_rn(__fmul_rn(old, ca), __fmul_rn(g, cb));
-          });
+    if (p.bf16) {
+      mm::closed_walk_bf16<ROWS, MOORE>(v, smem, n, p.ca16, p.cb16,
+                                        p.offcodes, p.noff);
+    } else {
+      int drow[8], dcol[8];
+      mm::offset_rows_cols(p.offcodes, drow, dcol);
+      const float ca = p.ca, cb = p.cb;
+      for (int s = 0; s < n; ++s) {
+        mm::walk_step<ROWS, MOORE>(
+            v, smem + (s & 1) * mm::kEdgeSlots * ROWS, drow, dcol, p.noff,
+            [&](int, float old, float g) {
+              return __fadd_rn(__fmul_rn(old, ca), __fmul_rn(g, cb));
+            });
+      }
     }
   } else {
     const mm_exact::Cell<float> cell = mm_exact::make_cell<float>(
@@ -294,7 +309,8 @@ int launch(const void* in, void* out, int B, const Params& p, void* stream) {
 
 Params make_params(int H, int W, int BR, int BC, float rate, float keep,
                    float ca, float cb, int nsteps, int mask9, int noff,
-                   int offcodes, int moore) {
+                   int offcodes, int moore, int bf16, float ca16,
+                   float cb16) {
   Params p;
   p.H = H;
   p.W = W;
@@ -309,6 +325,9 @@ Params make_params(int H, int W, int BR, int BC, float rate, float keep,
   p.keep = keep;
   p.ca = ca;
   p.cb = cb;
+  p.bf16 = bf16;
+  p.ca16 = mm::bf16_bits(ca16);
+  p.cb16 = mm::bf16_bits(cb16);
   return p;
 }
 
@@ -316,24 +335,29 @@ Params make_params(int H, int W, int BR, int BC, float rate, float keep,
 
 extern "C" {
 
+// bf16, ca16, cb16: the bf16 interior math on the closed tiles and its
+// constants (exactly bf16 values).
 int mm_pipeline_stencil_f32(const void* in, void* out, int B, int H, int W,
                             int BR, int BC, float rate, float keep, float ca,
                             float cb, int nsteps, int mask9, int noff,
-                            int offcodes, int moore, void* stream) {
+                            int offcodes, int moore, int bf16, float ca16,
+                            float cb16, void* stream) {
   return launch<float>(in, out, B,
                        make_params(H, W, BR, BC, rate, keep, ca, cb, nsteps,
-                                   mask9, noff, offcodes, moore),
+                                   mask9, noff, offcodes, moore, bf16, ca16,
+                                   cb16),
                        stream);
 }
 
 int mm_pipeline_stencil_bf16(const void* in, void* out, int B, int H, int W,
                              int BR, int BC, float rate, float keep, float ca,
                              float cb, int nsteps, int mask9, int noff,
-                             int offcodes, int moore, void* stream) {
+                             int offcodes, int moore, int bf16, float ca16,
+                             float cb16, void* stream) {
   return launch<__nv_bfloat16>(
       in, out, B,
       make_params(H, W, BR, BC, rate, keep, ca, cb, nsteps, mask9, noff,
-                  offcodes, moore),
+                  offcodes, moore, bf16, ca16, cb16),
       stream);
 }
 

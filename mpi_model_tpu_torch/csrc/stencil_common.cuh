@@ -14,6 +14,14 @@
 // last section): cp.async window staging, the tiling, one walk step, and
 // the exact strips of an edge tile. K4's walk (field_stencil.cuh) takes the
 // staging and the tiling.
+//
+// And the bf16 interior math (compute_dtype=bfloat16, the TPU kernels'
+// knob): the rectangle of cells it covers, rb() (an f32 value rounded to
+// bf16: an f32 operation on bf16 values rounded once is the bf16
+// operation, f32 carrying more than 2 * 8 + 2 bits), a rounded window
+// source, the walk step with every add rounded (walk_step<..., true>), and
+// the Moore walk step on paired bf16 (walk_step_bf2: two rows a register,
+// add.rn.bf16x2 / mul.rn.bf16x2, each rounded once and never contracted).
 
 #pragma once
 
@@ -22,6 +30,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 namespace mm {
 
@@ -51,6 +60,34 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+// An f32 value rounded to the nearest bf16 value (ties to even), in f32.
+__device__ __forceinline__ float rb(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The global rows [r0, r1) and columns [c0, c1) of the cells the bf16
+// interior math takes (the TPU kernel's tiles that are not near the edge,
+// ops/fused_stencil.py::bf16_rect); empty when r0 >= r1.
+struct Rect {
+  int r0, r1, c0, c1;
+};
+
+__host__ __device__ __forceinline__ bool in_rect(const Rect& q, int R,
+                                                 int C) {
+  return R >= q.r0 && R < q.r1 && C >= q.c0 && C < q.c1;
+}
+
+// How the global cells [r0, r1) x [c0, c1) meet the rectangle: kNone (no
+// cell in it), kAll (every cell), kSome.
+enum RectCover : int { kNone = 0, kAll = 1, kSome = 2 };
+__host__ __device__ __forceinline__ int rect_cover(const Rect& q, int r0,
+                                                   int r1, int c0, int c1) {
+  const int ir0 = max(r0, q.r0), ir1 = min(r1, q.r1);
+  const int ic0 = max(c0, q.c0), ic1 = min(c1, q.c1);
+  if (ir0 >= ir1 || ic0 >= ic1) return kNone;
+  return ir0 == r0 && ir1 == r1 && ic0 == c0 && ic1 == c1 ? kAll : kSome;
 }
 
 __device__ __forceinline__ bool on_grid(int r, int c, int H, int W) {
@@ -160,6 +197,20 @@ struct HaloSource {
       default: src = ring[kSE]; break;
     }
     return to_f32(src[k]);
+  }
+};
+
+// A source whose values are rounded to bf16 (the window the TPU kernel's
+// near tiles read under bf16 interior math, pallas_stencil.py:441).
+template <class Src>
+struct RoundedSource {
+  Src s;
+  __device__ __forceinline__ int row0() const { return s.row0(); }
+  __device__ __forceinline__ int col0() const { return s.col0(); }
+  __device__ __forceinline__ int gH() const { return s.gH(); }
+  __device__ __forceinline__ int gW() const { return s.gW(); }
+  __device__ __forceinline__ float at(int r, int c) const {
+    return rb(s.at(r, c));
   }
 };
 
@@ -326,6 +377,8 @@ struct StepParams {
   int vec;                    // rows 16-byte aligned: cp.async windows
   float rate, keep;           // the exact path's rate and f32(1 - rate)
   float ca, cb;               // K1's closed-form f32 constants
+  unsigned ca16, cb16;        // the same rounded to bf16 (bits), for the
+                              // bf16 interior math
 };
 
 __device__ __forceinline__ void cp_async16(void* smem_dst,
@@ -476,14 +529,25 @@ __device__ __forceinline__ int stage_window(const Src& src,
   return 0;
 }
 
+// x, rounded to bf16 when RB (a walk step of the bf16 interior math)
+template <bool RB>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (RB) {
+    return rb(x);
+  } else {
+    return x;
+  }
+}
+
 // One step of the walk (the section's header): v[i] = window row i of this
 // thread's column; `eb` is this step's half of the warp-edge exchange,
 // [slot][ROWS], slot 2 * (warp + 1) + side (side 0: the warp's lane 0,
 // side 1: its lane 31), read and written four rows at a time; slots of
 // warps -1 and kThreadsY stay zero. drow/dcol are each offset's row and
 // column in the 3 x 3. Row i's new value is finish(i, its old value, its
-// sum g). Ends past one __syncthreads().
-template <int ROWS, bool MOORE, typename Finish>
+// sum g). RB: every add of the sums rounded to bf16 (the window holds bf16
+// values). Ends past one __syncthreads().
+template <int ROWS, bool MOORE, bool RB = false, typename Finish>
 __device__ __forceinline__ void walk_step(float (&v)[ROWS], float* eb,
                                           const int (&drow)[8],
                                           const int (&dcol)[8], int noff,
@@ -504,7 +568,7 @@ __device__ __forceinline__ void walk_step(float (&v)[ROWS], float* eb,
     if (MOORE) {
       const float up = i > 0 ? v[i - 1] : 0.f;
       const float dn = i + 1 < ROWS ? v[i + 1] : 0.f;
-      x = add_kept(add_kept(up, v[i]), dn);
+      x = rnd<RB>(add_kept(rnd<RB>(add_kept(up, v[i])), dn));
     } else {
       x = v[i];
     }
@@ -533,12 +597,12 @@ __device__ __forceinline__ void walk_step(float (&v)[ROWS], float* eb,
         e4 = *reinterpret_cast<const float4*>(nb + i);
       }
       const float dn = i + 1 < ROWS ? v[i + 1] : 0.f;
-      const float b = __fadd_rn(__fadd_rn(prev, v[i]), dn);
+      const float b = rnd<RB>(__fadd_rn(rnd<RB>(__fadd_rn(prev, v[i])), dn));
       float bl = __shfl_up_sync(kFull, b, 1);
       float br = __shfl_down_sync(kFull, b, 1);
       if (lane == 0) bl = part(e4, i % 4);
       if (lane == 31) br = part(e4, i % 4);
-      const float nine = __fadd_rn(__fadd_rn(bl, b), br);
+      const float nine = rnd<RB>(__fadd_rn(rnd<RB>(__fadd_rn(bl, b)), br));
       prev = v[i];
       v[i] = finish(i, prev, nine);
     }
@@ -575,7 +639,7 @@ __device__ __forceinline__ void walk_step(float (&v)[ROWS], float* eb,
           const float mid = dc == 0 ? l0 : (dc == 1 ? c0 : r0);
           const float dn = dc == 0 ? lp : (dc == 1 ? cp : rp);
           const int dr = drow[o];
-          g = __fadd_rn(g, dr == 0 ? up : (dr == 1 ? mid : dn));
+          g = rnd<RB>(__fadd_rn(g, dr == 0 ? up : (dr == 1 ? mid : dn)));
         }
       }
       v[i] = finish(i, c0, g);
@@ -585,7 +649,159 @@ __device__ __forceinline__ void walk_step(float (&v)[ROWS], float* eb,
   }
 }
 
+// -- the Moore walk on paired bf16 -------------------------------------------
+//
+// Two window rows a register: v[m] holds rows 2m (low half) and 2m + 1
+// (high half) of this thread's column as bf16. A step is walk_step's Moore
+// step on pairs: band = (row above + row) + row below, then (band[c-1] +
+// band[c]) + band[c+1], each an add.rn.bf16x2 (rounded once, never fused),
+// so it is walk_step<ROWS, true, true> on the same values bit for bit, at
+// half the adds and shuffles. The edge exchange holds pairs: [slot][ROWS/2]
+// 32-bit words a parity.
+
+__device__ __forceinline__ unsigned add_bf2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned add_bf2_kept(unsigned a, unsigned b) {
+  unsigned d;
+  asm volatile("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ unsigned mul_bf2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// (the high half of a, the low half of b): rows 2m - 1 and 2m from pairs
+// m - 1 and m
+__device__ __forceinline__ unsigned straddle(unsigned a, unsigned b) {
+  return __byte_perm(a, b, 0x5432);
+}
+
+// Two f32 values (each exactly a bf16 value, or rounded here) as a pair.
+__device__ __forceinline__ unsigned pack_bf2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&p);
+}
+
+__device__ __forceinline__ float lo_f32(unsigned p) {
+  return __uint_as_float(p << 16);
+}
+
+__device__ __forceinline__ float hi_f32(unsigned p) {
+  return __uint_as_float(p & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ unsigned part_u(const uint4& e, int q) {
+  return q == 0 ? e.x : (q == 1 ? e.y : (q == 2 ? e.z : e.w));
+}
+
+// One Moore step of the paired walk: pair m's new value is finish(m, its
+// old value, its pair of box sums). Ends past one __syncthreads().
+template <int ROWS, typename Finish>
+__device__ __forceinline__ void walk_step_bf2(unsigned (&v)[ROWS / 2],
+                                              unsigned* eb, Finish finish) {
+  constexpr int P = ROWS / 2;
+  static_assert(P % 4 == 0, "edge pairs move four at a time");
+  const int lane = threadIdx.x;
+  const int wp = threadIdx.y;
+  const int own = 2 * (wp + 1) + (lane == 31 ? 1 : 0);
+  const int nbr = lane == 0 ? 2 * wp + 1 : 2 * (wp + 2);
+  const bool edge_lane = lane == 0 || lane == 31;
+  // pass 1: the edge lanes publish their column's bands
+  uint4 x4;
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    const unsigned up = m > 0 ? straddle(v[m - 1], v[m]) : v[m] << 16;
+    const unsigned dn = m + 1 < P ? straddle(v[m], v[m + 1]) : v[m] >> 16;
+    const unsigned x = add_bf2_kept(add_bf2_kept(up, v[m]), dn);
+    if (m % 4 == 0) x4.x = x;
+    if (m % 4 == 1) x4.y = x;
+    if (m % 4 == 2) x4.z = x;
+    if (m % 4 == 3) {
+      x4.w = x;
+      if (edge_lane) *reinterpret_cast<uint4*>(eb + own * P + m - 3) = x4;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < P; ++m) asm volatile("" : "+r"(v[m]));
+  const unsigned* nb = eb + nbr * P;
+  uint4 e4 = make_uint4(0u, 0u, 0u, 0u);
+  unsigned prev = 0u;  // the old pair m - 1
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    if (m % 4 == 0 && edge_lane) {
+      e4 = *reinterpret_cast<const uint4*>(nb + m);
+    }
+    const unsigned up = m > 0 ? straddle(prev, v[m]) : v[m] << 16;
+    const unsigned dn = m + 1 < P ? straddle(v[m], v[m + 1]) : v[m] >> 16;
+    const unsigned b = add_bf2(add_bf2(up, v[m]), dn);
+    unsigned bl = __shfl_up_sync(kFull, b, 1);
+    unsigned br = __shfl_down_sync(kFull, b, 1);
+    if (lane == 0) bl = part_u(e4, m % 4);
+    if (lane == 31) br = part_u(e4, m % 4);
+    const unsigned nine = add_bf2(add_bf2(bl, b), br);
+    prev = v[m];
+    v[m] = finish(m, prev, nine);
+  }
+}
+
 // Each offset's row and column in the 3 x 3, from the ordered codes.
+__device__ __forceinline__ void offset_rows_cols(int offcodes, int (&drow)[8],
+                                                 int (&dcol)[8]);
+
+// n closed-form steps in bf16 on the window in registers (v[i] = window
+// row i of this thread's column, as f32; rounded to bf16 on the way in):
+// v' = v * a + g * b with a and b the bf16 constants (bits ca16, cb16),
+// g the Moore box sum (paired walk) or the neighbours in `offcodes` order
+// from 0 (the f32 walk, every operation rounded). `ex` is the walk's
+// exchange, both parities, its slots of warps -1 and kThreadsY zero.
+template <int ROWS, bool MOORE>
+__device__ __forceinline__ void closed_walk_bf16(float (&v)[ROWS], float* ex,
+                                                 int n, unsigned ca16,
+                                                 unsigned cb16, int offcodes,
+                                                 int noff) {
+  if constexpr (MOORE) {
+    unsigned w[ROWS / 2];
+#pragma unroll
+    for (int m = 0; m < ROWS / 2; ++m) w[m] = pack_bf2(v[2 * m], v[2 * m + 1]);
+    const unsigned ca = ca16 | (ca16 << 16);
+    const unsigned cb = cb16 | (cb16 << 16);
+    unsigned* eu = reinterpret_cast<unsigned*>(ex);
+    for (int s = 0; s < n; ++s) {
+      walk_step_bf2<ROWS>(w, eu + (s & 1) * kEdgeSlots * (ROWS / 2),
+                          [&](int, unsigned old, unsigned g) {
+                            return add_bf2(mul_bf2(old, ca), mul_bf2(g, cb));
+                          });
+    }
+#pragma unroll
+    for (int m = 0; m < ROWS / 2; ++m) {
+      v[2 * m] = lo_f32(w[m]);
+      v[2 * m + 1] = hi_f32(w[m]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) v[i] = rb(v[i]);
+    int drow[8], dcol[8];
+    offset_rows_cols(offcodes, drow, dcol);
+    const float ca = __uint_as_float(ca16 << 16);
+    const float cb = __uint_as_float(cb16 << 16);
+    for (int s = 0; s < n; ++s) {
+      walk_step<ROWS, false, true>(
+          v, ex + (s & 1) * kEdgeSlots * ROWS, drow, dcol, noff,
+          [&](int, float old, float g) {
+            return rb(__fadd_rn(rb(__fmul_rn(old, ca)), rb(__fmul_rn(g, cb))));
+          });
+    }
+  }
+}
+
 __device__ __forceinline__ void offset_rows_cols(int offcodes, int (&drow)[8],
                                                  int (&dcol)[8]) {
 #pragma unroll
@@ -647,6 +863,32 @@ __device__ __forceinline__ void exact_cells(const Src& src,
       __syncthreads();
     }
   }
+}
+
+// The exact strips of exact_cells, on the source rounded to bf16 when RND
+// (the near tiles of the bf16 interior math; a bf16 grid is its own
+// rounding).
+template <bool RND, typename T, typename Src>
+__device__ __forceinline__ void exact_cells_of(const Src& src,
+                                               T* __restrict__ out,
+                                               const StepParams& p,
+                                               const Tiling& tl, int lr0,
+                                               int lr1, int lc0, int lc1,
+                                               float* a, float* b) {
+  if constexpr (RND && sizeof(T) == 4) {
+    exact_cells(RoundedSource<Src>{src}, out, p, tl, lr0, lr1, lc0, lc1, a,
+                b);
+  } else {
+    exact_cells(src, out, p, tl, lr0, lr1, lc0, lc1, a, b);
+  }
+}
+
+// Host side: the bf16 bits of an f32 value that is exactly a bf16 value
+// (the bf16 interior math's constants, rounded on the host).
+inline unsigned bf16_bits(float x) {
+  unsigned u;
+  memcpy(&u, &x, sizeof(u));
+  return u >> 16;
 }
 
 // Host side: launch one kernel instance on `blocks` blocks of (32,

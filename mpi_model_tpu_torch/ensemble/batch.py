@@ -28,8 +28,14 @@ of ``mpi_model_tpu/ensemble/batch.py``).
   without synchronizing; ``complete_ensemble`` synchronizes and builds the
   results; ``run_ensemble`` is the two back to back.
 
+- ``compute_dtype=torch.bfloat16`` reaches K5 (``impl="pipeline"``): its
+  closed TPU tiles compute in bf16; where ``_pipeline_blocks`` leaves none
+  (8 × 4096²) the result is the f32 dispatch's bit for bit. The other
+  impls take the knob as the JAX package does (the active engines' dense
+  fallback is K1 at one step, where it changes nothing).
+
 Not ported (``NotImplementedError`` naming ROADMAP.md): ``windows > 1``,
-``donate=True``, ``mesh=``, ``compute_dtype`` other than float32, IR models.
+``donate=True``, ``mesh=``, IR models.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..models.model import (ConservationError, Model, Report,
                             _not_ported, default_conservation_rtol,
                             kernel_launches)
 from ..ops.flow import Diffusion, PointFlow, build_outflow
+from ..ops.fused_stencil import resolve_compute_dtype
 from ..ops.stencil import neighbor_counts, transport
 
 Values = dict[str, torch.Tensor]
@@ -502,10 +509,10 @@ class EnsembleExecutor:
     ``substeps`` fuses that many model steps per step call (inside K5 on the
     pipeline path; the depth of the fused active passes); any remainder
     runs as single steps, so results do not depend on it. Runners are cached
-    by ``(batch, shape, impl, substeps, structure)`` plus the pipeline's rate
-    set (the JAX package's key; its compute dtype, donation and mesh fields
-    are fixed in the port); ``builds``/``cache_hits`` count misses and hits
-    for the serving counters.
+    by ``(batch, shape, impl, substeps, compute dtype, structure)`` plus the
+    pipeline's rate set (the JAX package's key; its donation and mesh
+    fields are fixed in the port); ``builds``/``cache_hits`` count misses
+    and hits for the serving counters.
     """
 
     comm_size = 1
@@ -519,9 +526,7 @@ class EnsembleExecutor:
         if mesh is not None:
             raise _not_ported("EnsembleExecutor(mesh=...) (the mesh-sharded "
                               "ensemble)")
-        if compute_dtype not in (None, torch.float32, "float32"):
-            raise _not_ported("compute_dtype other than float32 (bf16 "
-                              "interior math)")
+        resolve_compute_dtype(compute_dtype)
         self.impl = impl
         self.substeps = max(1, int(substeps))
         self.compute_dtype = compute_dtype
@@ -540,7 +545,9 @@ class EnsembleExecutor:
         """The cached runner ``run(values, rates, frozens, q, r) -> (values,
         stats)`` for this batch (``q`` substeps-deep calls, then ``r``
         single steps)."""
+        cdt = resolve_compute_dtype(self.compute_dtype)
         key = (espace.batch, espace.shape, self.impl, self.substeps,
+               str(cdt) if cdt is not None else None,
                structure_key(model, espace))
         if uniform_rates is not None:
             key = key + (tuple(sorted(uniform_rates.items())),)
@@ -714,6 +721,7 @@ class EnsembleExecutor:
                 f"substeps={self.substeps}. Use impl='xla'.")
         offsets = model.offsets
         substeps = self.substeps
+        cdt = self.compute_dtype
 
         def run(vb, rates_b, frozens_b, q, r):
             new = dict(vb)
@@ -732,7 +740,8 @@ class EnsembleExecutor:
                         if bufs is not None:
                             out = bufs[0] if cur is not bufs[0] else bufs[1]
                         cur = pipeline_dense_step(cur, rate, offsets,
-                                                  nsteps=ns, out=out)
+                                                  nsteps=ns, out=out,
+                                                  compute_dtype=cdt)
                 new[attr] = cur
             return new, None
 

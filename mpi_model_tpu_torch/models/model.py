@@ -50,7 +50,7 @@ from ..ops.flow import Diffusion, Flow, PointFlow, build_outflow
 from ..ops.fused_active import FusedActiveStep, build_fused_runner, \
     choose_fused_k, pass_count
 from ..ops.fused_stencil import KERNEL_DTYPES, PallasDiffusionStep, \
-    check_nsteps, ghost_depth, resolve_block
+    check_nsteps, ghost_depth, resolve_block, resolve_compute_dtype
 from ..ops.point_kernel import build_point_plans, serial_point_runner
 from ..ops.stencil import neighbor_counts, point_flow_step, transport
 
@@ -284,9 +284,7 @@ class SerialExecutor:
         ``ops.fused_active``): pad once, carry the tile map across the run,
         and record the engine's counters."""
         impl = self.step_impl
-        if self.compute_dtype not in (None, torch.float32, "float32"):
-            raise _not_ported("compute_dtype other than float32 (bf16 "
-                              "interior math)")
+        resolve_compute_dtype(self.compute_dtype)
         opts = dict(self.active_opts or {})
         key = (impl, space.shape, space.global_shape,
                (space.x_init, space.y_init), str(space.dtype),
@@ -452,8 +450,8 @@ class Model:
 
     def _field_stepper(self, space: CellularSpace, field_flows: list,
                        substeps: int,
-                       shape: Optional[tuple[int, int]] = None
-                       ) -> PallasFieldStep:
+                       shape: Optional[tuple[int, int]] = None,
+                       compute_dtype=None) -> PallasFieldStep:
         """K4's stepper for this space (or for its shards of ``shape``),
         planned now from static facts: the flows lowered, the program
         within the kernel's limits, every channel it loads in the space
@@ -463,6 +461,7 @@ class Model:
         stepper = PallasFieldStep(shape or space.shape, field_flows,
                                   dtype=space.dtype,
                                   offsets=self.offsets, nsteps=substeps,
+                                  compute_dtype=compute_dtype,
                                   names=tuple(space.values))
         off = [n for n in stepper.program.channels
                if space.values[n].dtype != space.dtype]
@@ -517,15 +516,14 @@ class Model:
                     "not flows)")
         if impl not in IMPLS:
             raise ValueError(f"unknown step impl {impl!r}")
-        if compute_dtype not in (None, torch.float32, "float32"):
-            raise _not_ported("compute_dtype other than float32 (bf16 "
-                              "interior math)")
+        cdt = resolve_compute_dtype(compute_dtype)
         substeps = int(substeps)
         if substeps < 1:
             raise ValueError(f"substeps must be >= 1, got {substeps}")
         key = (space.shape, space.global_shape, (space.x_init, space.y_init),
                str(space.dtype), str(space.device), self.offsets, impl,
                substeps, composed_variant,
+               str(cdt) if cdt is not None else None,
                tuple(f.fingerprint() for f in self.flows))
         cached = self._step_cache.get(key)
         if cached is not None:
@@ -586,7 +584,8 @@ class Model:
             composed_steppers = {
                 a: ComposedDiffusionStep(shape, r, composed_k,
                                          dtype=space.dtype, offsets=offsets,
-                                         variant=composed_variant)
+                                         variant=composed_variant,
+                                         compute_dtype=cdt)
                 for a, r in rates.items() if r != 0.0}
             steppers = composed_steppers
             first = next(iter(composed_steppers.values()))
@@ -666,7 +665,8 @@ class Model:
                              space.dtype)
                 steppers = {
                     a: PallasDiffusionStep(shape, r, dtype=space.dtype,
-                                           offsets=offsets, nsteps=substeps)
+                                           offsets=offsets, nsteps=substeps,
+                                           compute_dtype=cdt)
                     for a, r in live.items()}
             elif field_eligible:
                 # static rules only (lowering, program limits, channel
@@ -674,7 +674,8 @@ class Model:
                 # plain path where one fails, "pallas" raises it
                 try:
                     field_stepper = self._field_stepper(space, field_flows,
-                                                        substeps)
+                                                        substeps,
+                                                        compute_dtype=cdt)
                 except FieldPlanError:
                     if impl == "pallas":
                         raise

@@ -27,6 +27,13 @@ hook's arithmetic:
   cores (``mxu_fragments``; 3×TF32 for f32, two bf16 tap terms for bf16),
   within ``1e-6·k·max|v|`` (f32) and one bf16 ulp of its plain version.
 
+- ``compute_dtype=torch.bfloat16`` is the JAX hooks' bf16 interior math:
+  the cells of the TPU tiles that are not near the edge
+  (``fused_stencil.bf16_rect``, JAX's tile rule on JAX's blocks) take the
+  form in bf16 (vpu: every operation rounded to bf16, the coefficients
+  rounded to bf16 from f64, ``vpu_coefs_bf16``; mxu: the window and the
+  taps rounded to bf16, their products summed in f32), every other cell
+  the f32 forms over the grid rounded to bf16 once.
 - ``composed_dense_step``: a CPU tensor takes ``composed_dense_step_plain``
   with the resolved form; a CUDA tensor launches that form's kernel
   (``csrc/composed_stencil.cu``) or raises.
@@ -48,6 +55,7 @@ from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
 from .fused_stencil import (
@@ -66,9 +74,14 @@ from .fused_stencil import (
     exact_dense_step_plain,
     exact_steps_plain,
     halo_args,
+    kernel_rect,
     pad_from_ring,
     padded_region,
+    rb,
     resolve_block,
+    resolve_compute_dtype,
+    round_bf16,
+    with_bf16_rect,
 )
 
 #: tap count from which ``variant="auto"`` names the MXU form (the JAX
@@ -202,6 +215,64 @@ def vpu_coefs(rate: float, offsets: Sequence[tuple[int, int]],
     return cached
 
 
+def vpu_coefs_bf16(rate: float, offsets: Sequence[tuple[int, int]],
+                   k: int) -> tuple[float, ...]:
+    """The vpu form's coefficients under bf16 interior math: each f64
+    ``coef_j`` rounded straight to bf16 (``round_bf16``), as the JAX
+    hook's weakly typed Python floats are in a bf16 product."""
+    offsets = check_offsets(offsets)
+    kk = len(offsets)
+    moore = set(offsets) == set(MOORE_OFFSETS)
+    alpha = 1.0 - rate - rate / kk if moore else 1.0 - rate
+    beta = rate / kk
+    return tuple(round_bf16(math.comb(int(k), j) * (alpha ** (int(k) - j))
+                            * (beta ** j)) for j in range(int(k) + 1))
+
+
+def _vpu_interior_bf16(region: torch.Tensor, rate: float, offsets: tuple,
+                       k: int) -> torch.Tensor:
+    """``_vpu_interior`` in bf16 over a region of bf16 values (in f32):
+    the same order, every operation rounded to bf16 (``rb``), the
+    coefficients of ``vpu_coefs_bf16``; other neighbourhoods sum from 0,
+    as the kernel's walk does. Returns bf16 values in f32."""
+    moore = set(offsets) == set(MOORE_OFFSETS)
+    coefs = vpu_coefs_bf16(rate, offsets, k)
+    hh, ww = region.shape
+    acc = rb(coefs[0] * region[k:hh - k, k:ww - k])
+    cur = region
+    for j in range(1, k + 1):
+        hs, ws = cur.shape
+        if moore:
+            band = rb(rb(cur[0:hs - 2, :] + cur[1:hs - 1, :]) + cur[2:hs, :])
+            cur = rb(rb(band[:, 0:ws - 2] + band[:, 1:ws - 1])
+                     + band[:, 2:ws])
+        else:
+            nxt = torch.zeros_like(cur[1:hs - 1, 1:ws - 1])
+            for dx, dy in offsets:
+                nxt = rb(nxt + cur[1 + dx:hs - 1 + dx, 1 + dy:ws - 1 + dy])
+            cur = nxt
+        m = k - j
+        hs, ws = cur.shape
+        acc = rb(acc + rb(coefs[j] * cur[m:hs - m, m:ws - m]))
+    return acc
+
+
+def _tap_interior_bf16(region: torch.Tensor, rate: float, offsets: tuple,
+                       k: int) -> torch.Tensor:
+    """The tap correlation as the JAX mxu hook runs it in bf16: the window
+    (bf16 values in f32) against the f32 table rounded to bf16, the
+    products (exact in f32) accumulated in f32 from zero in row-major tap
+    order."""
+    taps = rb(device_taps(rate, offsets, k, torch.float32, region.device))
+    hh, ww = region.shape
+    ih, iw = hh - 2 * k, ww - 2 * k
+    acc = torch.zeros((ih, iw), dtype=torch.float32, device=region.device)
+    for dr in range(2 * k + 1):
+        for dc in range(2 * k + 1):
+            acc = acc + taps[dr, dc] * region[dr:dr + ih, dc:dc + iw]
+    return acc
+
+
 def _vpu_interior(region: torch.Tensor, rate: float, offsets: tuple,
                   k: int) -> torch.Tensor:
     """The binomial sum over the f32 ``[hh, ww]`` region, for its
@@ -245,10 +316,12 @@ def _tap_interior(region: torch.Tensor, rate: float, offsets: tuple,
     return acc
 
 
-def _interior(form: str):
+def _interior(form: str, bf16: bool = False):
     if form not in FORMS:
         raise ValueError(f"the plain versions take a resolved form "
                          f"{FORMS}, got {form!r}")
+    if bf16:
+        return _vpu_interior_bf16 if form == "vpu" else _tap_interior_bf16
     return _vpu_interior if form == "vpu" else _tap_interior
 
 
@@ -393,17 +466,32 @@ def choose_k(substeps: int, shape: tuple[int, int], dtype,
 def composed_dense_step_plain(values: torch.Tensor, rate: float, k: int,
                               offsets: Sequence[tuple[int, int]]
                               = MOORE_OFFSETS,
-                              variant: str = "mxu") -> torch.Tensor:
+                              variant: str = "mxu", compute_dtype=None,
+                              block: Optional[tuple[int, int]] = None
+                              ) -> torch.Tensor:
     """The plain torch version of K3, in f32: cells within k of the global
     edge (distance <= k) take ``exact_dense_step_plain(..., k)`` (K1's
     iterated exact path); every other cell the resolved form ``variant``
     (``"vpu"``: the binomial sum; ``"mxu"``: the tap correlation with the
     f32 table, accumulated from zero in row-major tap order). Cast back to
-    the storage dtype once."""
+    the storage dtype once.
+
+    ``compute_dtype=torch.bfloat16``: the cells of ``bf16_rect`` (JAX's
+    interior tiles of ``block``, or of the block JAX picks) take the form
+    in bf16; every other cell the f32 version over the grid rounded to
+    bf16 once."""
     offsets = check_offsets(offsets)
     k = int(k)
     interior = _interior(variant)
     h, w = values.shape
+    if resolve_compute_dtype(compute_dtype) is not None:
+        v = rb(values.to(torch.float32))
+        out = with_bf16_rect(
+            composed_dense_step_plain(v, rate, k, offsets, variant),
+            lambda: _interior(variant, True)(F.pad(v, (k, k, k, k)), rate,
+                                             offsets, k),
+            (h, w), values.dtype, block, k)
+        return out.to(values.dtype)
     v = values.to(torch.float32)
     out = exact_dense_step_plain(v, rate, offsets, k)
     m = k + 1  # the first row/column the composed operator is exact on
@@ -420,18 +508,39 @@ def composed_halo_step_plain(values: torch.Tensor,
                              k: int,
                              offsets: Sequence[tuple[int, int]]
                              = MOORE_OFFSETS,
-                             variant: str = "mxu") -> torch.Tensor:
+                             variant: str = "mxu", compute_dtype=None,
+                             block: Optional[tuple[int, int]] = None
+                             ) -> torch.Tensor:
     """The plain torch version of K3-halo, in f32: the padded shard from the
     ring, masked to the grid; cells within k of the GLOBAL edge take
     ``halo_step_plain``'s iterated steps, every other cell the resolved
     form ``variant``, as ``composed_dense_step_plain`` computes it. Cast
     back once. Shards stepped so and put together equal
-    ``composed_dense_step_plain`` bit for bit."""
+    ``composed_dense_step_plain`` bit for bit.
+
+    ``compute_dtype=torch.bfloat16``: as ``composed_dense_step_plain``,
+    with the shard's TPU tiles (``block``, or the block JAX picks for the
+    shard) at its global origin."""
     offsets = check_offsets(offsets)
     k = int(k)
     interior = _interior(variant)
     h, w = values.shape
     d = int(ring["n"].shape[0])
+    if resolve_compute_dtype(compute_dtype) is not None:
+        vr = rb(values.to(torch.float32))
+        ringr = {p: rb(t.to(torch.float32)) for p, t in ring.items()}
+        def acc():
+            _, mask, _ = padded_region(vr, ringr, origin, global_shape,
+                                       offsets)
+            v = torch.where(mask, pad_from_ring(vr, ringr), 0.0)
+            return _interior(variant, True)(
+                v[d - k:d + h + k, d - k:d + w + k], rate, offsets, k)
+
+        out = with_bf16_rect(
+            composed_halo_step_plain(vr, ringr, origin, global_shape, rate,
+                                     k, offsets, variant),
+            acc, (h, w), values.dtype, block, k, origin, global_shape)
+        return out.to(values.dtype)
     org, mask, cnt = padded_region(values, ring, origin, global_shape,
                                    offsets)
     v = torch.where(mask, pad_from_ring(values, ring).to(torch.float32), 0.0)
@@ -456,14 +565,15 @@ def _kernel_lib():
         i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         fp = ctypes.POINTER(ctypes.c_float)
         for dt in ("f32", "bf16"):
+            bf = [i] * 5  # the bf16 interior math: on, its rectangle
             fn = getattr(lib, f"mm_composed_vpu_{dt}")
-            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, i, fp, p]
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, i, fp] + bf + [fp, p]
             fn = getattr(lib, f"mm_composed_mxu_{dt}")
-            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, p, p]
+            fn.argtypes = [p, p, i, i, f, f, i, i, i, i, p] + bf + [p, p]
             fn = getattr(lib, f"mm_composed_halo_vpu_{dt}")
-            fn.argtypes = [p, p, f, f, i, i, i, i, i, fp, p]
+            fn.argtypes = [p, p, f, f, i, i, i, i, i, fp] + bf + [fp, p]
             fn = getattr(lib, f"mm_composed_halo_mxu_{dt}")
-            fn.argtypes = [p, p, f, f, i, i, i, i, p, p]
+            fn.argtypes = [p, p, f, f, i, i, i, i, p] + bf + [p, p]
             for form in FORMS:
                 for mode in ("", "halo_"):
                     getattr(lib, f"mm_composed_{mode}{form}_{dt}").restype = i
@@ -487,22 +597,36 @@ def _kernel_lib():
 _COEF_ARRAYS: dict[tuple, ctypes.Array] = {}
 
 
+def _coef_array(coefs: tuple, key: tuple) -> ctypes.Array:
+    arr = _COEF_ARRAYS.get(key)
+    if arr is None:
+        arr = _COEF_ARRAYS[key] = (ctypes.c_float * len(coefs))(*coefs)
+    return arr
+
+
 def _form_args(form: str, rate: float, offsets: tuple, k: int, dtype,
-               device) -> tuple:
+               device, rect: Optional[tuple] = None) -> tuple:
     """The launch arguments after the geometry: ``rate``, ``1 - rate``, k,
     the neighbourhood (bitmask, size, ordered codes), then ``moore`` and
-    the host coefficients (vpu) or the device B table (mxu)."""
+    the host coefficients (vpu) or the device B table (mxu); then the bf16
+    interior math: whether it is on, the global rows and columns of its
+    cells (``rect``), and the bf16 coefficients (vpu) or the bf16 B table
+    (mxu; its first term is the taps rounded to bf16)."""
     common = (float(rate), float(1.0 - rate), int(k), _offset_mask(offsets),
               len(offsets), _offset_codes(offsets))
+    bf = (int(rect is not None),) + (rect if rect is not None
+                                     else (0, 0, 0, 0))
+    key = taps_fingerprint(rate, offsets, k)
     if form == "vpu":
         moore, coefs = vpu_coefs(rate, offsets, k)
-        key = taps_fingerprint(rate, offsets, k)
-        arr = _COEF_ARRAYS.get(key)
-        if arr is None:
-            arr = _COEF_ARRAYS[key] = (ctypes.c_float * len(coefs))(*coefs)
-        return common + (int(moore), arr)
+        arr16 = (_coef_array(vpu_coefs_bf16(rate, offsets, k), key + ("bf16",))
+                 if rect is not None else None)
+        return common + (int(moore), _coef_array(coefs, key)) + bf + (arr16,)
+    table16 = (device_fragments(rate, offsets, k, torch.bfloat16,
+                                device).data_ptr() if rect is not None
+               else None)
     return common + (device_fragments(rate, offsets, k, dtype,
-                                      device).data_ptr(),)
+                                      device).data_ptr(),) + bf + (table16,)
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -514,7 +638,8 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
             offsets: tuple, k: int, form: str,
-            stepper: Optional["ComposedDiffusionStep"] = None) -> None:
+            stepper: Optional["ComposedDiffusionStep"] = None,
+            rect: Optional[tuple] = None) -> None:
     """Launch K3's ``form`` on the current stream; raises on any launch
     error. Counts the launch, module-wide and on ``stepper``, once the
     kernel is queued."""
@@ -523,7 +648,8 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     lib = _kernel_lib()
     dt = "f32" if values.dtype == torch.float32 else "bf16"
     fn = getattr(lib, f"mm_composed_{form}_{dt}")
-    args = _form_args(form, rate, offsets, k, values.dtype, values.device)
+    args = _form_args(form, rate, offsets, k, values.dtype, values.device,
+                      rect)
     h, w = values.shape
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
@@ -557,10 +683,7 @@ def _check_call(values, k, compute_dtype) -> int:
     k = int(k)
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "compute_dtype other than float32 (bf16 interior math) is not "
-            "ported yet; see ROADMAP.md")
+    resolve_compute_dtype(compute_dtype)
     if values.dim() != 2:
         raise ValueError(f"values must be [H, W], got shape "
                          f"{tuple(values.shape)}")
@@ -581,7 +704,8 @@ def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
     form = resolve_form(variant, k, blk[1])
     check_nsteps(k, blk, values.dtype)
     if values.device.type == "cpu":
-        res = composed_dense_step_plain(values, rate, k, offsets, form)
+        res = composed_dense_step_plain(values, rate, k, offsets, form,
+                                        compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out
@@ -591,7 +715,8 @@ def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
     out = check_out(values, out)
-    _launch(values, out, float(rate), offsets, k, form, stepper)
+    _launch(values, out, float(rate), offsets, k, form, stepper,
+            kernel_rect((h, w), values.dtype, blk, k, compute_dtype))
     return out
 
 
@@ -626,7 +751,8 @@ def composed_halo_step(
     form = resolve_form(variant, k, blk[1])
     if values.device.type == "cpu":
         res = composed_halo_step_plain(values, ring, origin, global_shape,
-                                       rate, k, offsets, form)
+                                       rate, k, offsets, form, compute_dtype,
+                                       blk)
         if out is not None:
             out.copy_(res)
             return out
@@ -641,7 +767,9 @@ def composed_halo_step(
     fn = getattr(lib, f"mm_composed_halo_{form}_{dt}")
     args = halo_args(values, ring, origin, global_shape)
     fargs = _form_args(form, float(rate), offsets, k, values.dtype,
-                       values.device)
+                       values.device,
+                       kernel_rect(tuple(values.shape), values.dtype, blk, k,
+                                   compute_dtype, origin, global_shape))
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(ctypes.addressof(args), out.data_ptr(), *fargs, stream)

@@ -25,6 +25,16 @@ so the port lowers every flow once, when the step is built:
   compute dtype whatever the storage dtype, as the TPU kernel evaluates
   ``outflow`` on windows already cast to f32: a bf16 grid's
   ``Diffusion(0.1)`` sheds ``f32(0.1)·v``.
+- ``dtype=torch.bfloat16`` lowers the program K4 runs on the TPU
+  kernel's interior tiles under bf16 interior math, typed by JAX's
+  promotion rule: channel reads are bf16; a Python number is weak and
+  takes the type of the value it meets (a bf16 constant, rounded from
+  f64 by ``fused_stencil.round_bf16``); a tensor or numpy scalar keeps
+  its type, and an f32 operand makes the operation f32; ``.to`` casts
+  (``OP_RND`` rounds to bf16). Every bf16 operation's result is rounded
+  to bf16 (``FieldProgram.rounds``), and ``c / v`` is a division. A flow
+  whose outflow ends in f32 would turn its channel to f32 after a step
+  (JAX's types change between steps); it is refused.
 - Division is IEEE division in K4 and in ``eval_program``. A Python number
   divided by a cell value lowers as torch computes it, ``(1 / v) * c``.
   (Torch on the card divides by a Python-number divisor as a multiply by
@@ -56,11 +66,13 @@ OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIN, OP_MAX = 0, 1, 2, 3, 4, 5
 OP_NEG, OP_EXP, OP_ABS = 6, 7, 8
 #: adds operand ``a`` to the outflow of written channel ``dst``
 OP_ACC = 9
+#: rounds an f32 operand to bf16 (a ``.to(torch.bfloat16)`` cast)
+OP_RND = 10
 OP_NAMES = ("add", "sub", "mul", "div", "min", "max", "neg", "exp", "abs",
-            "acc")
+            "acc", "rnd")
 _BINARY = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV,
            "min": OP_MIN, "max": OP_MAX}
-_UNARY = {"neg": OP_NEG, "exp": OP_EXP, "abs": OP_ABS}
+_UNARY = {"neg": OP_NEG, "exp": OP_EXP, "abs": OP_ABS, "rnd": OP_RND}
 K_SLOT, K_CHAN, K_CONST, K_ROW, K_COL = 0, 1, 2, 3, 4
 _UNUSED = (K_CONST, 0, 0.0)  # the ``b`` of unary operations and accs
 
@@ -81,12 +93,15 @@ class LoweringError(ValueError):
 class _Node:
     """``op`` is "const" (``value``), "chan" (``name``), "row"/"col"
     (``value`` = integer offset), "pow" (``args[0]`` to the ``value``-th
-    power), or a whitelisted unary/binary op over ``args``."""
+    power), or a whitelisted unary/binary op over ``args``. ``dtype`` is
+    the value's type in a bf16 lowering: ``"b"`` bf16, ``"f"`` f32, ``"w"``
+    a weak Python number; every node of an f32 lowering is ``"f"``."""
 
     op: str
     args: tuple = ()
     value: float = 0.0
     name: str = ""
+    dtype: str = "f"
 
 
 class _Trace:
@@ -96,6 +111,8 @@ class _Trace:
     def __init__(self, dtype: torch.dtype, label: str):
         self.dtype = dtype
         self.label = label
+        #: JAX's promotion rule applies (a bf16 lowering)
+        self.typed = dtype == torch.bfloat16
 
     def refuse(self, what: str) -> LoweringError:
         return LoweringError(
@@ -126,7 +143,12 @@ class Sym:
     # -- what a flow may read ---------------------------------------------
     @property
     def dtype(self) -> torch.dtype:
-        return torch.int64 if self._is_int else self._trace.dtype
+        if self._is_int:
+            return torch.int64
+        if self._trace.typed:
+            return (torch.bfloat16 if self._node.dtype == "b"
+                    else torch.float32)
+        return self._trace.dtype
 
     @property
     def device(self) -> torch.device:
@@ -153,7 +175,12 @@ class Sym:
         if isinstance(x, bool):
             raise self._trace.refuse(f"{op} with a bool operand")
         if isinstance(x, numbers.Real):
-            return _Node("const", value=float(x))
+            # a numpy scalar is strongly typed (f32 in a bf16 lowering), a
+            # Python number weak
+            strong = type(x).__module__.startswith("numpy")
+            return _Node("const", value=float(x),
+                         dtype="f" if strong or not self._trace.typed
+                         else "w")
         if isinstance(x, torch.Tensor):
             if x.dim() != 0:
                 raise self._trace.refuse(
@@ -161,15 +188,24 @@ class Sym:
                     f"{tuple(x.shape)} (data from outside the cell)")
             if x.dtype == torch.bool or x.is_complex():
                 raise self._trace.refuse(f"{op} with a {x.dtype} tensor")
-            return _Node("const", value=float(x.item()))
+            return _Node("const", value=float(x.item()),
+                         dtype="b" if x.dtype == torch.bfloat16
+                         and self._trace.typed else "f")
         raise self._trace.refuse(f"{op} with a {type(x).__name__} operand")
 
     def _bin(self, op: str, a, b) -> "Sym":
         tr = self._trace
-        return Sym(tr, _Node(op, (self._operand(a, op), self._operand(b, op))))
+        na, nb = self._operand(a, op), self._operand(b, op)
+        if not tr.typed:
+            return Sym(tr, _Node(op, (na, nb)))
+        # JAX's promotion: f32 wins; a weak number takes the other's type
+        t = "f" if "f" in (na.dtype, nb.dtype) else "b"
+        na, nb = (_weak_as(n, t) for n in (na, nb))
+        return Sym(tr, _Node(op, (na, nb), dtype=t))
 
     def _un(self, op: str) -> "Sym":
-        return Sym(self._trace, _Node(op, (self._operand(self, op),)))
+        n = self._operand(self, op)
+        return Sym(self._trace, _Node(op, (n,), dtype=n.dtype))
 
     def _int_shift(self, k, sign: int) -> "Sym":
         if isinstance(k, bool) or not isinstance(k, numbers.Integral):
@@ -209,6 +245,8 @@ class Sym:
         return self._bin("div", self, o)
 
     def __rtruediv__(self, o):
+        if self._trace.typed:  # JAX divides
+            return self._bin("div", o, self)
         # torch computes number / tensor as reciprocal(tensor) * number
         return self._bin("mul", self._bin("div", 1.0, self), o)
 
@@ -229,8 +267,9 @@ class Sym:
             raise self._trace.refuse(
                 f"pow with exponent {n!r} (integer powers 1-3 only; write a "
                 "larger power as a product)")
-        return Sym(self._trace,
-                   _Node("pow", (self._operand(self, "pow"),), value=int(n)))
+        x = self._operand(self, "pow")
+        return Sym(self._trace, _Node("pow", (x,), value=int(n),
+                                      dtype=x.dtype))
 
     def __rpow__(self, o):
         raise self._trace.refuse("pow with a cell value as the exponent")
@@ -277,11 +316,22 @@ class Sym:
     def _cast(self, dtype: Optional[torch.dtype]) -> "Sym":
         if dtype is None:
             return self
+        tr = self._trace
         if self._is_int:
+            if tr.typed and dtype in (torch.float32, torch.bfloat16):
+                t = "b" if dtype == torch.bfloat16 else "f"
+                return Sym(tr, dataclasses.replace(self._node, dtype=t))
             if dtype not in (torch.float32, torch.float64):
                 raise self._trace.refuse(
                     f"a cast of a cell coordinate to {dtype} (f32 or f64)")
             return Sym(self._trace, self._node)
+        if tr.typed and dtype in (torch.float32, torch.bfloat16):
+            t = "b" if dtype == torch.bfloat16 else "f"
+            if t == self._node.dtype:
+                return self
+            if t == "f":  # bf16 values are f32 values
+                return Sym(tr, dataclasses.replace(self._node, dtype="f"))
+            return Sym(tr, _Node("rnd", (self._node,), dtype="b"))
         if dtype != self._trace.dtype:
             raise self._trace.refuse(
                 f"a cast from the traced {self._trace.dtype} to {dtype}")
@@ -392,6 +442,19 @@ _CLAMPS = {"clamp": ("min", "max"), "clip": ("min", "max"),
            "clamp_min": ("min",), "clamp_max": ("max",)}
 
 
+def _weak_as(node: _Node, t: str) -> _Node:
+    """A weak number met by a value of type ``t``: a bf16 constant is the
+    number rounded to bf16 straight from f64, an f32 constant keeps it
+    (it is rounded to f32 where it is used)."""
+    if node.dtype != "w":
+        return node
+    from .fused_stencil import round_bf16
+
+    return dataclasses.replace(
+        node, dtype=t, value=round_bf16(node.value) if t == "b"
+        else node.value)
+
+
 def _find_sym(obj) -> Optional[Sym]:
     """The first ``Sym`` among (nested) torch-function arguments."""
     if isinstance(obj, Sym):
@@ -421,6 +484,10 @@ class FieldProgram:
       operation writes slot ``dst``; an ``acc`` adds ``a`` to the outflow
       of ``outputs[dst]``, starting the sum when ``first`` is 1.
     - ``n_slots``: the slots the code uses.
+    - ``rounds``: a bf16 lowering's flags, one an instruction: True where
+      the result is rounded to bf16 (an ``acc`` then rounds its sum, and a
+      row or column operand whose value is 1.0 is rounded to bf16); empty
+      for an f32 lowering.
     """
 
     channels: tuple[str, ...]
@@ -429,6 +496,7 @@ class FieldProgram:
     n_slots: int
     labels: tuple[str, ...]
     dtype: torch.dtype
+    rounds: tuple = ()
 
     @property
     def n_flows(self) -> int:
@@ -477,10 +545,12 @@ class _Compiler:
     def __init__(self, chan_index: dict[str, int]):
         self.chan_index = chan_index
         self.code: list = []
+        self.rounds: list = []
         self.free: set = set()
         self.n_slots = 0
 
-    def emit(self, op: int, a, b=_UNUSED, keep=None) -> tuple:
+    def emit(self, op: int, a, b=_UNUSED, keep=None,
+             rnd: bool = False) -> tuple:
         for x in (a, b):
             if x[0] == K_SLOT and x != keep:
                 self.free.add(x[1])
@@ -491,6 +561,7 @@ class _Compiler:
             dst = self.n_slots
             self.n_slots += 1
         self.code.append((op, dst, 0, a, b))
+        self.rounds.append(rnd)
         return (K_SLOT, dst, 0.0)
 
     def operand(self, node: _Node) -> tuple:
@@ -499,26 +570,31 @@ class _Compiler:
             return (K_CONST, 0, node.value)
         if op == "chan":
             return (K_CHAN, self.chan_index[node.name], 0.0)
+        rnd = node.dtype == "b"
         if op in ("row", "col"):
-            return (K_ROW if op == "row" else K_COL, int(node.value), 0.0)
+            return (K_ROW if op == "row" else K_COL, int(node.value),
+                    1.0 if rnd else 0.0)
         if op == "pow":
             # x**n as (x*x)*x..., torch's order; x stays live to the last
             x = self.operand(node.args[0])
             y = x
             for i in range(int(node.value) - 1):
                 y = self.emit(OP_MUL, y, x,
-                              keep=x if i < int(node.value) - 2 else None)
+                              keep=x if i < int(node.value) - 2 else None,
+                              rnd=rnd)
             return y
         if op in _UNARY:
-            return self.emit(_UNARY[op], self.operand(node.args[0]))
+            return self.emit(_UNARY[op], self.operand(node.args[0]), rnd=rnd)
         a = self.operand(node.args[0])
-        return self.emit(_BINARY[op], a, self.operand(node.args[1]))
+        return self.emit(_BINARY[op], a, self.operand(node.args[1]),
+                         rnd=rnd)
 
     def acc(self, node: _Node, target: int, first: bool) -> None:
         a = self.operand(node)
         if a[0] == K_SLOT:
             self.free.add(a[1])
         self.code.append((OP_ACC, target, int(first), a, _UNUSED))
+        self.rounds.append(node.dtype == "b")
 
 
 def _reads(node: _Node, out: set) -> None:
@@ -549,7 +625,9 @@ def lower_flows(flows: Sequence, names: Sequence[str],
             raise LoweringError(f"flow {label} targets channel {f.attr!r}, "
                                 f"which is not among {names}")
         tr = _Trace(dtype, label)
-        sym = {n: Sym(tr, _Node("chan", name=n)) for n in names}
+        sym = {n: Sym(tr, _Node("chan", name=n,
+                                dtype="b" if tr.typed else "f"))
+               for n in names}
         try:
             out = f.outflow(sym, origin)
         except LoweringError:
@@ -564,9 +642,15 @@ def lower_flows(flows: Sequence, names: Sequence[str],
             node = out._node
         elif isinstance(out, (numbers.Real, torch.Tensor)) and not \
                 isinstance(out, bool):
-            node = Sym(tr, _Node("const"))._operand(out, "return")
+            node = _weak_as(Sym(tr, _Node("const"))._operand(out, "return"),
+                            "b" if tr.typed else "f")
         else:
             raise tr.refuse(f"it returns a {type(out).__name__}")
+        if tr.typed and node.dtype != "b":
+            raise tr.refuse(
+                "its outflow is float32 under bf16 interior math (an f32 "
+                "operand promoted it), which would turn its channel to "
+                "float32 after one step")
         trees.append(node)
         labels.append(label)
     read: set = set()
@@ -582,7 +666,9 @@ def lower_flows(flows: Sequence, names: Sequence[str],
         started.add(f.attr)
     return FieldProgram(channels=channels, outputs=outputs,
                         code=tuple(comp.code), n_slots=comp.n_slots,
-                        labels=tuple(labels), dtype=dtype)
+                        labels=tuple(labels), dtype=dtype,
+                        rounds=tuple(comp.rounds) if dtype == torch.bfloat16
+                        else ())
 
 
 def check_program(prog: FieldProgram) -> None:
@@ -607,9 +693,13 @@ def eval_program(prog: FieldProgram, tensors: Mapping[str, torch.Tensor],
     mask): the summed outflow per written channel, flows added in order
     (``build_outflow``'s sums). ``tensors`` maps the program's channels to
     tensors of one dtype; ``rows``/``cols`` are the cells' global indices
-    (integer tensors)."""
+    (integer tensors). A bf16 lowering takes f32 tensors holding bf16
+    values and rounds each flagged result to bf16 (``rounds``)."""
+    from .fused_stencil import rb
+
     dt = tensors[prog.channels[0]].dtype
     dev = tensors[prog.channels[0]].device
+    rounds = prog.rounds or (False,) * len(prog.code)
     slots: dict = {}
     out: dict[str, torch.Tensor] = {}
 
@@ -621,18 +711,21 @@ def eval_program(prog: FieldProgram, tensors: Mapping[str, torch.Tensor],
             return tensors[prog.channels[arg]]
         if kind == K_CONST:
             return torch.tensor(val, dtype=dt, device=dev)
-        return ((rows if kind == K_ROW else cols) + arg).to(dt)
+        coord = ((rows if kind == K_ROW else cols) + arg).to(dt)
+        return rb(coord) if val else coord
 
-    unary = {OP_NEG: torch.neg, OP_EXP: torch.exp, OP_ABS: torch.abs}
+    unary = {OP_NEG: torch.neg, OP_EXP: torch.exp, OP_ABS: torch.abs,
+             OP_RND: lambda x: x}
     binary = {OP_ADD: torch.add, OP_SUB: torch.sub, OP_MUL: torch.mul,
               OP_DIV: torch.div, OP_MIN: torch.minimum,
               OP_MAX: torch.maximum}
-    for op, dst, first, a, b in prog.code:
+    for (op, dst, first, a, b), rnd in zip(prog.code, rounds):
         if op == OP_ACC:
             x, name = fetch(a), prog.outputs[dst]
-            out[name] = x if first else out[name] + x
-        elif op in unary:
-            slots[dst] = unary[op](fetch(a))
-        else:
-            slots[dst] = binary[op](fetch(a), fetch(b))
+            out[name] = x if first else (rb(out[name] + x) if rnd
+                                         else out[name] + x)
+            continue
+        y = unary[op](fetch(a)) if op in unary else binary[op](fetch(a),
+                                                             fetch(b))
+        slots[dst] = rb(y) if rnd else y
     return out

@@ -33,6 +33,15 @@ in ``_build/`` by a hash of its text.
   shard of every channel, reading each channel's ghost ring (every channel
   needs one: outflows are evaluated on ghost cells); the cells' coordinates
   are global, the shard's origin plus the local index.
+- ``compute_dtype=torch.bfloat16`` is the TPU kernel's bf16 interior math,
+  at every ``nsteps``: the cells of the TPU tiles that are not near the
+  edge (``fused_stencil.bf16_rect``, JAX's tile rule on JAX's blocks) take
+  the flows lowered at bf16 (``lower_flows(..., torch.bfloat16)``: JAX's
+  promotion rule, every bf16 result rounded) over the channels rounded
+  to bf16, and a bf16 transport (``share = of·(1/k)`` or ``of / k``, the
+  inflow from 0 in ``offsets`` order, ``(v - of) + inflow``, each rounded);
+  every other cell the f32 step, unchanged (the TPU kernel's near tiles
+  are plain f32).
 - Launches are counted, per stepper (``PallasFieldStep.launches``) and
   module-wide (``launches()`` for K4, ``halo_launches()`` for K4-halo), only
   where the kernel is launched.
@@ -49,11 +58,13 @@ import torch
 from ..core.cell import MOORE_OFFSETS
 from .field_codegen import FieldUnit, modulators, unit_source
 from .field_lower import (MAX_CHANNELS, FieldProgram, check_program,
-                          lower_flows)
+                          eval_program, lower_flows)
 from .flow import build_outflow
 from .fused_stencil import (KERNEL_DTYPES, RING_PIECES, check_nsteps,
                             check_offsets, check_ring, check_ring_depth,
-                            pad_from_ring, padded_region, resolve_block)
+                            kernel_rect, pad_from_ring, padded_region, rb,
+                            resolve_block, resolve_compute_dtype,
+                            with_bf16_rect)
 from .stencil import neighbor_counts, transport
 
 #: a window's columns (one a thread of a block of 8 warps) and the block's
@@ -181,22 +192,28 @@ class FieldPlan:
     rows: int
     unit: FieldUnit
     label: str
+    #: the program of the bf16 interior math, None for f32 compute
+    program16: Optional[FieldProgram] = None
 
 
 def plan_field(flows, names: Sequence[str], shape: tuple[int, int], dtype,
                nsteps: int, block: Optional[tuple[int, int]] = None,
-               offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS
-               ) -> FieldPlan:
+               offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+               compute_dtype=None) -> FieldPlan:
     """Everything K4 decides before a call, from static facts only: the
-    lowered program, the window rows and the unit's text (nothing is
-    built). Raises ``FieldPlanError`` when the flows cannot be lowered,
-    exceed the program limits, need more steps than the ghost depth or
-    more shared memory than a block has."""
+    lowered program (and, for ``compute_dtype=torch.bfloat16``, the bf16
+    one), the window rows and the unit's text (nothing is built). Raises
+    ``FieldPlanError`` when the flows cannot be lowered, exceed the
+    program limits, need more steps than the ghost depth or more shared
+    memory than a block has."""
     offsets = check_offsets(offsets)
+    prog16 = None
     try:
         check_pointwise(flows)
         prog = lower_flows(flows, names)
         check_program(prog)
+        if resolve_compute_dtype(compute_dtype) is not None:
+            prog16 = lower_flows(flows, names, torch.bfloat16)
         check_nsteps(int(nsteps), resolve_block(tuple(shape), dtype, block),
                      dtype)
     except ValueError as e:
@@ -215,22 +232,73 @@ def plan_field(flows, names: Sequence[str], shape: tuple[int, int], dtype,
     label = (", ".join(prog.labels) + " over offsets "
              + " ".join(f"({dx},{dy})" for dx, dy in offsets))
     return FieldPlan(prog, rows, unit_source(prog, offsets,
-                                             unit_rows(n_out, n_mod)), label)
+                                             unit_rows(n_out, n_mod),
+                                             prog16), label, prog16)
+
+
+def interior_steps_bf16(chans: Mapping[str, torch.Tensor],
+                        prog16: FieldProgram,
+                        offsets: Sequence[tuple[int, int]], nsteps: int,
+                        origin: tuple[int, int]) -> dict[str, torch.Tensor]:
+    """``nsteps`` steps of the bf16 interior math over the whole ``[h, w]``
+    array at global ``origin``, zeros beyond it: ``chans`` holds the
+    program's channels as bf16 values in f32; per step the outflows of
+    ``prog16`` (``eval_program``), then per written channel ``share =
+    rb(of·(1/k))`` (``rb(of / k)`` where k is not a power of two), the
+    inflow ``rb(... rb(0 + share[c + d0]) ...)`` in ``offsets`` order and
+    ``rb(rb(v - of) + inflow)``. Exact on the cells whose n-cone lies on
+    the grid off its outer ring (every count full); returns the written
+    channels (``prog16.outputs``), stepped."""
+    h, w = next(iter(chans.values())).shape
+    dev = next(iter(chans.values())).device
+    rows = int(origin[0]) + torch.arange(h, device=dev)[:, None].expand(h, w)
+    cols = int(origin[1]) + torch.arange(w, device=dev)[None, :].expand(h, w)
+    k = len(offsets)
+    cur = dict(chans)
+    for _ in range(int(nsteps)):
+        of = eval_program(prog16, cur, rows, cols)
+        new = {}
+        for a, o in of.items():
+            share = rb(o * (1.0 / k)) if k & (k - 1) == 0 else rb(o / float(k))
+            p = torch.nn.functional.pad(share, (1, 1, 1, 1))
+            inflow = torch.zeros_like(share)
+            for dx, dy in offsets:
+                inflow = rb(inflow + p[1 + dx:1 + dx + h, 1 + dy:1 + dy + w])
+            new[a] = rb(rb(cur[a] - o) + inflow)
+        cur.update(new)
+    return {a: cur[a] for a in prog16.outputs}
 
 
 def field_step_plain(values: Mapping[str, torch.Tensor], flows,
                      offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                      nsteps: int = 1, origin: tuple[int, int] = (0, 0),
-                     global_shape: Optional[tuple[int, int]] = None
+                     global_shape: Optional[tuple[int, int]] = None,
+                     compute_dtype=None,
+                     block: Optional[tuple[int, int]] = None
                      ) -> dict[str, torch.Tensor]:
     """The plain torch version of K4: every floating channel cast to f32
     once, ``nsteps`` steps of ``build_outflow`` + ``transport`` (the plain
     model step), each written channel cast back once. bf16 is thus rounded
     once per call, as the kernel (and the TPU kernel) does; modulator-only
-    channels come back as the same tensors."""
+    channels come back as the same tensors.
+
+    ``compute_dtype=torch.bfloat16``: the cells of ``bf16_rect`` (JAX's
+    interior tiles of ``block``, or of the block JAX picks) take
+    ``interior_steps_bf16`` over the channels rounded to bf16; every other
+    cell the f32 steps above."""
     offsets = check_offsets(offsets)
     first = next(iter(values.values()))
     shape = tuple(first.shape[-2:])
+    if resolve_compute_dtype(compute_dtype) is not None:
+        prog16 = lower_flows(flows, tuple(values), torch.bfloat16)
+        return with_bf16_rect(
+            field_step_plain(values, flows, offsets, nsteps, origin,
+                             global_shape),
+            lambda: interior_steps_bf16(
+                {n: rb(values[n].to(torch.float32)) for n in prog16.channels},
+                prog16, offsets, nsteps, origin),
+            shape, values[prog16.outputs[0]].dtype, block, nsteps, origin,
+            global_shape)
     cur = {k: (t.to(torch.float32) if t.is_floating_point() else t)
            for k, t in values.items()}
     counts = neighbor_counts(shape, offsets, origin, global_shape,
@@ -249,7 +317,9 @@ def field_halo_step_plain(values: Mapping[str, torch.Tensor],
                           origin: tuple[int, int],
                           global_shape: tuple[int, int], flows,
                           offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
-                          nsteps: int = 1) -> dict[str, torch.Tensor]:
+                          nsteps: int = 1, compute_dtype=None,
+                          block: Optional[tuple[int, int]] = None
+                          ) -> dict[str, torch.Tensor]:
     """The plain torch version of K4-halo: every channel's padded shard from
     its ring, floating channels cast to f32 once, masked to the grid;
     ``nsteps`` steps of ``build_outflow`` (at the padded shard's global
@@ -257,13 +327,28 @@ def field_halo_step_plain(values: Mapping[str, torch.Tensor],
     coordinates, off-grid cells re-zeroed); the shard cropped out and each
     written channel cast back once. Modulator-only channels come back as the
     same tensors. Shards stepped so and put together equal
-    ``field_step_plain`` on the whole grid bit for bit."""
+    ``field_step_plain`` on the whole grid bit for bit.
+
+    ``compute_dtype=torch.bfloat16``: as ``field_step_plain``, with the
+    shard's TPU tiles (``block``, or the block JAX picks for the shard) at
+    its global origin."""
     offsets = check_offsets(offsets)
     first = next(iter(values.values()))
     h, w = first.shape
     d = int(next(iter(rings.values()))["n"].shape[0])
     org, mask, counts = padded_region(first, rings[next(iter(values))],
                                       origin, global_shape, offsets)
+    if resolve_compute_dtype(compute_dtype) is not None:
+        prog16 = lower_flows(flows, tuple(values), torch.bfloat16)
+        return with_bf16_rect(
+            field_halo_step_plain(values, rings, origin, global_shape, flows,
+                                  offsets, nsteps),
+            lambda: interior_steps_bf16(
+                {n: rb(torch.where(mask, pad_from_ring(
+                    values[n], rings[n]).to(torch.float32), 0.0))
+                 for n in prog16.channels}, prog16, offsets, nsteps, org),
+            (h, w), values[prog16.outputs[0]].dtype, block, nsteps, origin,
+            global_shape, at=d)
     cur = {}
     for k, t in values.items():
         p = pad_from_ring(t, rings[k])
@@ -294,6 +379,8 @@ class _FieldCall(ctypes.Structure):
         ("H", ctypes.c_int), ("W", ctypes.c_int),
         ("nsteps", ctypes.c_int), ("rows", ctypes.c_int),
         ("vec", ctypes.c_int),
+        ("br0", ctypes.c_int), ("br1", ctypes.c_int),
+        ("bc0", ctypes.c_int), ("bc1", ctypes.c_int),
     ]
 
 
@@ -308,11 +395,14 @@ def pack_call(plan: FieldPlan, nsteps: int, chans: Sequence[torch.Tensor],
               rings: Optional[Sequence[Mapping[str, torch.Tensor]]] = None,
               origin: tuple[int, int] = (0, 0),
               global_shape: Optional[tuple[int, int]] = None,
-              depth: int = 0) -> _FieldCall:
+              depth: int = 0,
+              rect: tuple[int, int, int, int] = (0, 0, 0, 0)) -> _FieldCall:
     """The launch argument: ``chans`` in ``kernel_channels`` order (K4-halo:
     their ``rings`` too, ``depth`` deep, the shard at ``origin`` of
     ``global_shape``), ``outs`` in ``outputs`` order. ``vec`` says whether
-    every loaded channel's rows are 16-byte aligned (cp.async windows)."""
+    every loaded channel's rows are 16-byte aligned (cp.async windows).
+    ``rect``: the global rows and columns of the cells the bf16 interior
+    math takes (read by a bf16-compute launch only)."""
     a = _FieldCall()
     h, w = (int(x) for x in chans[0].shape)
     a.h, a.w = h, w
@@ -328,6 +418,7 @@ def pack_call(plan: FieldPlan, nsteps: int, chans: Sequence[torch.Tensor],
             a.ring[c][i] = rings[c][p].data_ptr()
     for o, t in enumerate(outs):
         a.out[o] = t.data_ptr()
+    a.br0, a.br1, a.bc0, a.bc1 = (int(x) for x in rect)
     return a
 
 
@@ -346,9 +437,11 @@ def unit_library(plan: FieldPlan) -> ctypes.CDLL:
 
     lib = _build.load_unit(_build.build_unit(plan.unit.text, plan.label))
     for key in ("f32", "bf16"):
-        getattr(lib, f"mm_field_{key}").argtypes = [ctypes.c_void_p,
-                                                    ctypes.c_void_p]
-        getattr(lib, f"mm_field_{key}").restype = ctypes.c_int
+        for entry in ("mm_field", "mm_field_cbf16")[
+                :2 if plan.program16 is not None else 1]:
+            getattr(lib, f"{entry}_{key}").argtypes = [ctypes.c_void_p,
+                                                       ctypes.c_void_p]
+            getattr(lib, f"{entry}_{key}").restype = ctypes.c_int
         getattr(lib, f"mm_field_smem_{key}").argtypes = [ctypes.c_int]
         getattr(lib, f"mm_field_smem_{key}").restype = ctypes.c_int
     lib.mm_field_call_size.restype = ctypes.c_int
@@ -384,7 +477,8 @@ def _launch(plan: FieldPlan, call: _FieldCall, dtype, device,
     if call.h == 0 or call.w == 0:
         return
     lib = unit_library(plan)
-    fn = getattr(lib, f"mm_field_{dtype_key(dtype)}")
+    entry = "mm_field_cbf16" if plan.program16 is not None else "mm_field"
+    fn = getattr(lib, f"{entry}_{dtype_key(dtype)}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(call), stream)
@@ -462,10 +556,7 @@ class PallasFieldStep:
                  nsteps: int = 1, compute_dtype=None,
                  names: Optional[Sequence[str]] = None):
         check_pointwise(flows)  # JAX's error, before any planning
-        if compute_dtype not in (None, torch.float32, "float32"):
-            raise NotImplementedError(
-                "compute_dtype other than float32 (bf16 interior math) is "
-                "not ported yet; see ROADMAP.md")
+        resolve_compute_dtype(compute_dtype)
         if int(nsteps) < 1:
             raise ValueError(f"nsteps must be >= 1, got {nsteps}")
         self.shape = tuple(shape)
@@ -498,7 +589,7 @@ class PallasFieldStep:
         if key not in self._plans:
             self._plans[key] = plan_field(self.flows, names, self.shape,
                                           dtype, self.nsteps, self.block,
-                                          self.offsets)
+                                          self.offsets, self.compute_dtype)
         return self._plans[key]
 
     def _checked(self, values: Mapping[str, torch.Tensor]):
@@ -562,7 +653,8 @@ class PallasFieldStep:
         plan, dtype, chans, dev = self._checked(values)
         if dev.type == "cpu":
             return self._copy_out(field_step_plain(
-                values, self.flows, self.offsets, self.nsteps), out)
+                values, self.flows, self.offsets, self.nsteps,
+                compute_dtype=self.compute_dtype, block=self.block), out)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         if any(t.device != dev or not t.is_contiguous() for t in chans):
@@ -570,7 +662,10 @@ class PallasFieldStep:
                              "one device")
         outs = self._outputs(plan.program, values, dtype, dev, out, chans)
         call = pack_call(plan, self.nsteps, chans,
-                         [outs[n] for n in plan.program.outputs])
+                         [outs[n] for n in plan.program.outputs],
+                         rect=kernel_rect(self.shape, dtype, self.block,
+                                          self.nsteps, self.compute_dtype)
+                         or (0, 0, 0, 0))
         _launch(plan, call, dtype, dev, self)
         return {**values, **outs}
 
@@ -606,7 +701,8 @@ class PallasFieldStep:
         if dev.type == "cpu":
             return self._copy_out(field_halo_step_plain(
                 values, rings, origin, global_shape, self.flows,
-                self.offsets, self.nsteps), out)
+                self.offsets, self.nsteps, self.compute_dtype, self.block),
+                out)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         order = kernel_channels(plan.program)
@@ -624,6 +720,9 @@ class PallasFieldStep:
         outs = self._outputs(plan.program, values, dtype, dev, out, reads)
         call = pack_call(plan, self.nsteps, chans,
                          [outs[n] for n in plan.program.outputs],
-                         [rings[n] for n in order], (R0, C0), (H, W), d)
+                         [rings[n] for n in order], (R0, C0), (H, W), d,
+                         kernel_rect(self.shape, dtype, self.block,
+                                     self.nsteps, self.compute_dtype,
+                                     (R0, C0), (H, W)) or (0, 0, 0, 0))
         _launch(plan, call, dtype, dev, self, halo=True)
         return {**values, **outs}

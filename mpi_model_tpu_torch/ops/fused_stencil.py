@@ -17,6 +17,13 @@ source's header for what the design does about that).
   its global coordinates (``closed_mask``): more than ``n`` from the grid's
   edge the closed form (``closed_steps_plain``, the TPU kernel's interior
   fast path), elsewhere the exact masked path (``exact_dense_step_plain``).
+- ``compute_dtype=torch.bfloat16`` (or ``"bfloat16"``) is the TPU kernel's
+  bf16 interior math: at ``nsteps > 1`` the cells of the TPU tiles that
+  are not near the edge (``bf16_rect``: JAX's tile rule on JAX's blocks)
+  take the closed form in bf16, every operation rounded to bf16 and the
+  constants rounded to bf16 from f64 (``closed_steps_bf16``); every other
+  cell takes the f32 forms above over the grid rounded to bf16 once. At
+  ``nsteps == 1`` the knob changes nothing, as in the TPU kernel.
 - A CPU tensor takes ``dense_step_plain``, the plain torch version.
 - A CUDA tensor launches the kernel or raises; nothing falls back.
 - Block and ``nsteps`` checks are the JAX package's, so both packages
@@ -31,6 +38,7 @@ source's header for what the design does about that).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Mapping, Optional, Sequence
 
 import torch
@@ -40,7 +48,8 @@ from ..core.cell import MOORE_OFFSETS
 
 LANE = 128  # the JAX kernel's lane tile; kept for the same block checks
 
-#: storage dtypes the kernel takes (it computes in f32)
+#: storage dtypes the kernel takes (it computes in f32, or in bf16 on the
+#: interior tiles under ``compute_dtype=torch.bfloat16``)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: the ring pieces in the order the kernels' HaloArgs holds them
 RING_PIECES = ("n", "s", "w", "e", "nw", "ne", "sw", "se")
@@ -136,6 +145,115 @@ def check_nsteps(nsteps: int, block: tuple[int, int], dtype) -> None:
             f"min(hr={hr}, hc={hc}) for block {(bh, bw)} and dtype "
             f"{str(dtype).removeprefix('torch.')}; use nsteps <= "
             f"{min(hr, hc)} or a larger block")
+
+
+def resolve_compute_dtype(compute_dtype) -> Optional[torch.dtype]:
+    """The interior math a ``compute_dtype`` asks for: None for f32 (None,
+    ``torch.float32``, ``"float32"``), ``torch.bfloat16`` for bf16
+    (``torch.bfloat16``, ``"bfloat16"``). Anything else raises
+    ``ValueError``."""
+    if compute_dtype is None:
+        return None
+    name = str(compute_dtype).removeprefix("torch.")
+    if name == "float32":
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype must be float32 or bfloat16, got "
+                     f"{compute_dtype!r}")
+
+
+def round_bf16(x: float) -> float:
+    """``x`` rounded to the nearest bf16 value (ties to even), straight from
+    its f64 value: what a weakly typed Python float becomes in a bf16
+    operation of the TPU kernel. The result is exactly an f32 value."""
+    x = float(x)
+    if x == 0.0 or math.isinf(x) or math.isnan(x) or abs(x) < 2.0 ** -126:
+        return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+    m, e = math.frexp(x)  # x = m 2^e, 0.5 <= |m| < 1: 8 bits of m kept
+    return math.ldexp(round(m * 256.0), e - 8)
+
+
+def rb(t: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor rounded to bf16 values, kept in f32: one bf16
+    operation's result (f32 carries more than 2·8 + 2 bits, so an f32
+    operation on bf16 values rounded once to bf16 is the bf16 operation)."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def bf16_rect(shape: tuple[int, int], block: tuple[int, int], nsteps: int,
+              origin: tuple[int, int] = (0, 0),
+              global_shape: Optional[tuple[int, int]] = None
+              ) -> tuple[int, int, int, int]:
+    """``(r0, r1, c0, c1)``: the local rows ``[r0, r1)`` and columns
+    ``[c0, c1)`` of the ``[h, w]`` array at global ``origin`` that lie in
+    TPU tiles the bf16 interior math takes: JAX's tiles of ``block`` over
+    the array (a shard's tiles at its global origin), a tile being near
+    when ``g_r0 <= n``, ``g_r0 + bh >= H - n``, ``g_c0 <= n`` or
+    ``g_c0 + bw >= W - n`` (``pallas_stencil.py:391-392``). The tiles
+    that are not near form one rectangle; an empty one has r0 == r1 or
+    c0 == c1."""
+    (h, w), (bh, bw), n = shape, block, int(nsteps)
+    gh, gw = global_shape if global_shape is not None else (h, w)
+
+    def span(extent, b, o, g):
+        ok = [t for t in range(extent // b)
+              if o + t * b > n and o + t * b + b < g - n]
+        return (ok[0] * b, (ok[-1] + 1) * b) if ok else (0, 0)
+
+    r0, r1 = span(h, bh, int(origin[0]), gh)
+    c0, c1 = span(w, bw, int(origin[1]), gw)
+    return (r0, r1, c0, c1) if r0 < r1 and c0 < c1 else (0, 0, 0, 0)
+
+
+def with_bf16_rect(out, interior, shape: tuple[int, int], dtype, block,
+                   nsteps: int, origin: tuple[int, int] = (0, 0),
+                   global_shape: Optional[tuple[int, int]] = None,
+                   at: int = 0):
+    """A plain version's bf16 interior math: ``out`` (the near tiles' f32
+    result, a tensor or a mapping of tensors) with the cells of
+    ``bf16_rect`` (JAX's tiles of ``block``, or of the block JAX picks for
+    ``dtype``, at the array's global ``origin``) overwritten in place by
+    ``interior()``'s, whose cell (r, c) sits at (r + at, c + at). Calls
+    ``interior`` only when the rectangle holds a cell. Returns ``out``."""
+    r0, r1, c0, c1 = bf16_rect(shape, resolve_block(shape, dtype, block),
+                               nsteps, origin, global_shape)
+    if r0 < r1:
+        inner = interior()
+        pairs = (inner.items() if isinstance(inner, Mapping)
+                 else [(None, inner)])
+        for key, t in pairs:
+            dst = out if key is None else out[key]
+            dst[r0:r1, c0:c1] = t[at + r0:at + r1, at + c0:at + c1].to(
+                dst.dtype)
+    return out
+
+
+def closed_steps_bf16(v: torch.Tensor, rate: float, offsets: tuple,
+                      nsteps: int) -> torch.Tensor:
+    """``closed_steps_plain`` in bf16, as the TPU kernel runs its interior
+    tiles under ``compute_dtype=bfloat16``: ``v`` holds bf16 values (in
+    f32), every operation is rounded to bf16 (``rb``) in the same order,
+    and the constants are rounded to bf16 from f64 (``round_bf16``, JAX's
+    weak typing). Other neighbourhoods sum from 0, as the f32 form does.
+    Returns bf16 values in f32."""
+    moore, a, b = closed_constants(rate, offsets)
+    a, b = round_bf16(a), round_bf16(b)
+    h, w = v.shape[-2:]
+    cur = v
+    for _ in range(nsteps):
+        p = F.pad(cur, (1, 1, 1, 1))
+        if moore:
+            band = rb(rb(p[..., 0:h, :] + p[..., 1:h + 1, :])
+                      + p[..., 2:h + 2, :])
+            g = rb(rb(band[..., 0:w] + band[..., 1:w + 1])
+                   + band[..., 2:w + 2])
+        else:
+            g = torch.zeros_like(cur)
+            for dx, dy in offsets:
+                g = rb(g + p[..., 1 + dx:1 + dx + h, 1 + dy:1 + dy + w])
+        cur = rb(rb(cur * a) + rb(g * b))
+    return cur
 
 
 def exact_steps_plain(v: torch.Tensor, cnt: torch.Tensor, rate: float,
@@ -240,7 +358,9 @@ def exact_dense_step_plain(values: torch.Tensor, rate: float,
 
 def dense_step_plain(values: torch.Tensor, rate: float,
                      offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
-                     nsteps: int = 1) -> torch.Tensor:
+                     nsteps: int = 1, compute_dtype=None,
+                     block: Optional[tuple[int, int]] = None
+                     ) -> torch.Tensor:
     """The plain torch version of K1: cast to f32 once; cells whose
     distance to the grid's edge exceeds ``nsteps`` (``closed_mask``) take
     ``closed_steps_plain``, every other cell the exact path
@@ -252,9 +372,22 @@ def dense_step_plain(values: torch.Tensor, rate: float,
     (``halo_step_plain``) takes the same form for every cell wherever its
     seams fall. The JAX kernel chooses per TPU tile and, at nsteps=1,
     applies the closed form everywhere with a divisor correction on ring
-    tiles; the two round differently near the ring (ROADMAP.md)."""
+    tiles; the two round differently near the ring (ROADMAP.md).
+
+    ``compute_dtype=torch.bfloat16`` at ``nsteps > 1``: the cells of
+    ``bf16_rect`` (JAX's interior tiles of ``block``, or of the block JAX
+    picks) take ``closed_steps_bf16``; every other cell the f32 forms above
+    over the grid rounded to bf16 once (the TPU kernel's near tiles read
+    the window cast to bf16, ``pallas_stencil.py:441``)."""
     offsets = tuple(offsets)
     nsteps = int(nsteps)
+    if resolve_compute_dtype(compute_dtype) is not None and nsteps > 1:
+        v = rb(values.to(torch.float32))
+        out = with_bf16_rect(
+            dense_step_plain(v, rate, offsets, nsteps),
+            lambda: closed_steps_bf16(v, rate, offsets, nsteps),
+            tuple(v.shape), values.dtype, block, nsteps)
+        return out.to(values.dtype)
     v = values.to(torch.float32)
     out = exact_dense_step_plain(v, rate, offsets, nsteps)
     inside = closed_mask(tuple(v.shape[-2:]), nsteps, device=v.device)
@@ -340,17 +473,38 @@ def halo_step_plain(values: torch.Tensor, ring: Mapping[str, torch.Tensor],
                     origin: tuple[int, int], global_shape: tuple[int, int],
                     rate: float,
                     offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
-                    nsteps: int = 1) -> torch.Tensor:
+                    nsteps: int = 1, compute_dtype=None,
+                    block: Optional[tuple[int, int]] = None
+                    ) -> torch.Tensor:
     """The plain torch version of K2: the padded shard assembled from the
     ring, cast to f32 and masked to the grid; both forms over it, the exact
     steps with counts from global coordinates (off-grid cells re-zeroed
     each step) and the closed form; the shard cropped out, each cell
     taking the form ``closed_mask`` gives it at the shard's global origin;
     cast back once. Shards stepped so and put together equal
-    ``dense_step_plain`` on the whole grid bit for bit."""
+    ``dense_step_plain`` on the whole grid bit for bit.
+
+    ``compute_dtype=torch.bfloat16`` at ``nsteps > 1``: as
+    ``dense_step_plain``, with the shard's TPU tiles (``block``, or the
+    block JAX picks for the shard) at its global origin."""
     offsets = tuple(offsets)
     d = ring_depth(ring)
     h, w = values.shape
+    if resolve_compute_dtype(compute_dtype) is not None and nsteps > 1:
+        vr = rb(values.to(torch.float32))
+        ringr = {p: rb(t.to(torch.float32)) for p, t in ring.items()}
+        def closed():
+            _, mask, _ = padded_region(vr, ringr, origin, global_shape,
+                                       offsets)
+            v = torch.where(mask, pad_from_ring(vr, ringr), 0.0)
+            return closed_steps_bf16(v, rate, offsets, nsteps)
+
+        out = with_bf16_rect(
+            halo_step_plain(vr, ringr, origin, global_shape, rate, offsets,
+                            nsteps),
+            closed, (h, w), values.dtype, block, nsteps, origin,
+            global_shape, at=d)
+        return out.to(values.dtype)
     _, mask, cnt = padded_region(values, ring, origin, global_shape, offsets)
     v = torch.where(mask, pad_from_ring(values, ring).to(torch.float32), 0.0)
     out = exact_steps_plain(v, cnt, rate, offsets, nsteps, mask)
@@ -428,15 +582,38 @@ def _offset_codes(offsets: tuple) -> int:
     return codes
 
 
-def _step_args(rate: float, offsets: tuple, nsteps: int) -> tuple:
+def _step_args(rate: float, offsets: tuple, nsteps: int,
+               rect: Optional[tuple] = None) -> tuple:
     """The kernels' step arguments: the exact path's rate and ``1 - rate``,
     the closed form's ``a`` and ``b`` (``closed_constants``), ``nsteps``,
     the neighbourhood's bitmask, size and ordered codes, and whether it is
-    Moore (each float rounded to f32 once by ctypes)."""
+    Moore (each float rounded to f32 once by ctypes); then the bf16
+    interior math: whether it is on, the global rows and columns of its
+    cells (``rect``, ``[r0, r1) x [c0, c1)``) and ``a`` and ``b`` rounded to
+    bf16 (``round_bf16``)."""
     moore, a, b = closed_constants(rate, offsets)
+    bf = rect is not None
+    r0, r1, c0, c1 = rect if bf else (0, 0, 0, 0)
     return (float(rate), float(1.0 - rate), float(a), float(b), int(nsteps),
             _offset_mask(offsets), len(offsets), _offset_codes(offsets),
-            int(moore))
+            int(moore), int(bf), r0, r1, c0, c1, round_bf16(a),
+            round_bf16(b))
+
+
+def kernel_rect(shape: tuple[int, int], dtype, block, nsteps: int,
+                compute_dtype, origin: tuple[int, int] = (0, 0),
+                global_shape: Optional[tuple[int, int]] = None
+                ) -> Optional[tuple]:
+    """The bf16 cells of a call of K1/K2, K3 or K4 in global coordinates
+    (``bf16_rect`` moved to the array's origin), or None when the call
+    computes in f32. A kernel takes the bf16 form even when the rectangle
+    is empty: every other cell then takes the near tiles' form."""
+    if resolve_compute_dtype(compute_dtype) is None:
+        return None
+    r0, r1, c0, c1 = bf16_rect(shape, resolve_block(shape, dtype, block),
+                               nsteps, origin, global_shape)
+    o_r, o_c = int(origin[0]), int(origin[1])
+    return (o_r + r0, o_r + r1, o_c + c0, o_c + c1)
 
 
 def _kernel_lib():
@@ -444,7 +621,8 @@ def _kernel_lib():
 
     lib = load("fused_stencil")
     if not getattr(lib, "_mm_typed", False):
-        step_args = [ctypes.c_float] * 4 + [ctypes.c_int] * 5
+        step_args = ([ctypes.c_float] * 4 + [ctypes.c_int] * 10
+                     + [ctypes.c_float] * 2)
         for fn in (lib.mm_fused_stencil_f32, lib.mm_fused_stencil_bf16):
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                             ctypes.c_int] + step_args + [ctypes.c_void_p])
@@ -467,7 +645,8 @@ def _kernel_lib():
 
 def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
             offsets: tuple, nsteps: int,
-            stepper: Optional["PallasDiffusionStep"] = None) -> None:
+            stepper: Optional["PallasDiffusionStep"] = None,
+            rect: Optional[tuple] = None) -> None:
     """Launch K1 on the current stream; raises on any launch error. Counts
     the launch, module-wide and on ``stepper``, once the kernel is queued.
     An empty grid has nothing to compute: no launch, nothing counted."""
@@ -481,7 +660,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), h, w,
-                 *_step_args(rate, offsets, nsteps), stream)
+                 *_step_args(rate, offsets, nsteps, rect), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_stencil kernel launch failed: "
@@ -517,17 +696,10 @@ def pallas_dense_step(
     if pipeline:
         from .pipeline_stencil import pipeline_dense_step
 
-        _check_compute_dtype(compute_dtype)
-        return pipeline_dense_step(values, rate, offsets, block, nsteps, out)
+        return pipeline_dense_step(values, rate, offsets, block, nsteps, out,
+                                   compute_dtype)
     return _dense_step(values, rate, offsets, block, nsteps, compute_dtype,
                        out)
-
-
-def _check_compute_dtype(compute_dtype) -> None:
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            "compute_dtype other than float32 (bf16 interior math) is not "
-            "ported yet; see ROADMAP.md")
 
 
 def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
@@ -535,7 +707,7 @@ def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
     offsets = check_offsets(offsets)
     if nsteps < 1:
         raise ValueError(f"nsteps must be >= 1, got {nsteps}")
-    _check_compute_dtype(compute_dtype)
+    resolve_compute_dtype(compute_dtype)
     if values.dim() != 2:
         raise ValueError(f"values must be [H, W], got shape "
                          f"{tuple(values.shape)}")
@@ -548,7 +720,8 @@ def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
     blk = resolve_block((h, w), values.dtype, block)
     check_nsteps(int(nsteps), blk, values.dtype)
     if values.device.type == "cpu":
-        res = dense_step_plain(values, rate, offsets, int(nsteps))
+        res = dense_step_plain(values, rate, offsets, int(nsteps),
+                               compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out
@@ -558,13 +731,16 @@ def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
     if not values.is_contiguous():
         raise ValueError("values must be contiguous")
     out = check_out(values, out)
-    _launch(values, out, rate, offsets, int(nsteps), stepper)
+    # K1/K2 ignore the knob at one step, as the TPU kernel does
+    _launch(values, out, rate, offsets, int(nsteps), stepper,
+            kernel_rect((h, w), values.dtype, blk, nsteps, compute_dtype)
+            if nsteps > 1 else None)
     return out
 
 
 def _launch_halo(values: torch.Tensor, ring, origin, global_shape,
                  out: torch.Tensor, rate: float, offsets: tuple,
-                 nsteps: int) -> None:
+                 nsteps: int, rect: Optional[tuple] = None) -> None:
     """Launch K2 on the current stream of the shard's device; raises on any
     launch error. Counts the launch once the kernel is queued."""
     global _halo_launch_count
@@ -577,7 +753,7 @@ def _launch_halo(values: torch.Tensor, ring, origin, global_shape,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(ctypes.addressof(args), out.data_ptr(),
-                 *_step_args(rate, offsets, nsteps), stream)
+                 *_step_args(rate, offsets, nsteps, rect), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_stencil halo kernel launch failed: "
@@ -612,7 +788,7 @@ def pallas_halo_step(
     nsteps = int(nsteps)
     if nsteps < 1:
         raise ValueError(f"nsteps must be >= 1, got {nsteps}")
-    _check_compute_dtype(compute_dtype)
+    resolve_compute_dtype(compute_dtype)
     if values.dim() != 2:
         raise ValueError(f"values must be [h, w], got shape "
                          f"{tuple(values.shape)}")
@@ -622,14 +798,14 @@ def pallas_halo_step(
             f"{values.dtype}; float64 stays on the plain path "
             "(impl='xla')")
     d = check_ring(values, ring)
-    check_ring_depth(d, tuple(values.shape), values.dtype, block)
+    blk = check_ring_depth(d, tuple(values.shape), values.dtype, block)
     if nsteps > d:
         raise ValueError(
             f"nsteps={nsteps} needs a ghost ring at least that deep; got "
             f"depth {d} (exchange_ring(..., depth={nsteps}))")
     if values.device.type == "cpu":
         res = halo_step_plain(values, ring, origin, global_shape, rate,
-                              offsets, nsteps)
+                              offsets, nsteps, compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out
@@ -638,7 +814,9 @@ def pallas_halo_step(
         raise ValueError(f"unsupported device {values.device}")
     out = check_out(values, out, tuple(ring.values()))
     _launch_halo(values, ring, origin, global_shape, out, rate, offsets,
-                 nsteps)
+                 nsteps, kernel_rect(tuple(values.shape), values.dtype, blk,
+                                     nsteps, compute_dtype, origin,
+                                     global_shape) if nsteps > 1 else None)
     return out
 
 

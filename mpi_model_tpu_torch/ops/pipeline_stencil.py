@@ -15,6 +15,11 @@ ensemble engine (``EnsembleExecutor(impl="pipeline")``).
 - The kernel steps windows of ``window_rows`` x 256 cells, each writing at
   most ``(rows - 2n) x (256 - 2n)`` outputs of one TPU tile
   (``launch_windows`` lists them, with the form each takes).
+- ``compute_dtype=torch.bfloat16``: the closed-form tiles compute in bf16
+  (``fused_stencil.closed_steps_bf16``), at every ``nsteps``; the near
+  tiles keep the plain f32 exact path, as the TPU kernel's do. Where
+  ``_pipeline_blocks`` leaves no closed tile (8 × 4096²) the knob changes
+  nothing.
 - A CPU tensor takes ``pipeline_step_plain``; a CUDA tensor launches the
   kernel or raises. Nothing falls back.
 - ``launches()`` counts kernel launches, one per call whatever ``B`` is.
@@ -29,8 +34,9 @@ import torch
 
 from ..core.cell import MOORE_OFFSETS
 from .fused_stencil import KERNEL_DTYPES, _offset_codes, _offset_mask, \
-    _validate_block, check_offsets, closed_constants, closed_steps_plain, \
-    exact_dense_step_plain
+    _validate_block, check_offsets, closed_constants, closed_steps_bf16, \
+    closed_steps_plain, exact_dense_step_plain, rb, resolve_compute_dtype, \
+    round_bf16
 
 #: row/col strip granularities of the pipelined window (the TPU's 16-row
 #: bf16 sublane tile and 128-lane tile); the CUDA tile divides both
@@ -143,8 +149,8 @@ def launch_windows(shape: tuple[int, int], block: tuple[int, int],
 def pipeline_step_plain(values: torch.Tensor, rate: float,
                         offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                         nsteps: int = 1,
-                        block: Optional[tuple[int, int]] = None
-                        ) -> torch.Tensor:
+                        block: Optional[tuple[int, int]] = None,
+                        compute_dtype=None) -> torch.Tensor:
     """The plain torch version of K5 on ``[H, W]`` or ``[B, H, W]``: cast to
     f32 once; run ``nsteps`` steps of both forms over the whole grid, the
     exact masked path (``exact_dense_step_plain``) and the closed form
@@ -160,16 +166,22 @@ def pipeline_step_plain(values: torch.Tensor, rate: float,
     arithmetic the tile does on its window. (Off the ring every cell has its
     full neighbourhood, which is why the closed form is the exact step
     there.) The two forms round differently, so which one a cell takes is
-    decided by its TPU tile, as the kernel decides it."""
+    decided by its TPU tile, as the kernel decides it.
+
+    ``compute_dtype=torch.bfloat16``: the closed tiles take
+    ``closed_steps_bf16`` over the grid rounded to bf16; the near tiles
+    are unchanged (plain f32)."""
     offsets = check_offsets(offsets)
     h, w = values.shape[-2:]
     blk = pipeline_block((h, w), int(nsteps), block)
+    bf16 = resolve_compute_dtype(compute_dtype) is not None
     v = values.to(torch.float32)
     out = exact_dense_step_plain(v, rate, offsets, int(nsteps))
     inside = interior_mask((h, w), blk, int(nsteps), values.device)
     if bool(inside.any()):
-        out = torch.where(inside, closed_steps_plain(v, rate, offsets,
-                                                     int(nsteps)), out)
+        closed = (closed_steps_bf16(rb(v), rate, offsets, int(nsteps)) if bf16
+                  else closed_steps_plain(v, rate, offsets, int(nsteps)))
+        out = torch.where(inside, closed, out)
     return out.to(values.dtype)
 
 
@@ -181,7 +193,8 @@ def _kernel_lib():
         for fn in (lib.mm_pipeline_stencil_f32, lib.mm_pipeline_stencil_bf16):
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p]
                            + [ctypes.c_int] * 5 + [ctypes.c_float] * 4
-                           + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                           + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                           + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.mm_pipeline_rows.argtypes = [ctypes.c_int] * 3
         lib.mm_pipeline_rows.restype = ctypes.c_int
@@ -192,7 +205,8 @@ def _kernel_lib():
 
 
 def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
-            offsets: tuple, nsteps: int, block: tuple[int, int]) -> None:
+            offsets: tuple, nsteps: int, block: tuple[int, int],
+            bf16: bool = False) -> None:
     """Launch K5 on the current stream over every lane; raises on any launch
     error; counts the launch once the kernel is queued. An empty batch has
     nothing to compute: no launch, nothing counted."""
@@ -211,7 +225,8 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
         err = fn(values.data_ptr(), out.data_ptr(), b, h, w, br, bc,
                  float(rate), float(1.0 - rate),
                  float(a), float(cb), int(nsteps), _offset_mask(offsets),
-                 len(offsets), _offset_codes(offsets), int(moore), stream)
+                 len(offsets), _offset_codes(offsets), int(moore), int(bf16),
+                 round_bf16(a), round_bf16(cb), stream)
     if err != 0:
         raise RuntimeError(
             f"pipeline_stencil kernel launch failed: "
@@ -223,13 +238,16 @@ def pipeline_dense_step(values: torch.Tensor, rate: float,
                         offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                         block: Optional[tuple[int, int]] = None,
                         nsteps: int = 1,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        out: Optional[torch.Tensor] = None,
+                        compute_dtype=None) -> torch.Tensor:
     """``nsteps`` fused steps of every lane of ``values`` (``[H, W]`` or
     ``[B, H, W]``) in one call: the semantics of ``pallas_dense_step``, the
-    TPU tiles of ``pipeline_block``. ``out`` (CUDA only) is a preallocated
+    TPU tiles of ``pipeline_block``, bf16 closed tiles under
+    ``compute_dtype=torch.bfloat16``. ``out`` (CUDA only) is a preallocated
     tensor of the input's shape and dtype that receives the result; it must
     not alias ``values`` (the kernel is out of place)."""
     offsets = check_offsets(offsets)
+    bf16 = resolve_compute_dtype(compute_dtype) is not None
     if nsteps < 1:
         raise ValueError(f"nsteps must be >= 1, got {nsteps}")
     if values.dim() not in (2, 3):
@@ -242,7 +260,8 @@ def pipeline_dense_step(values: torch.Tensor, rate: float,
             f"the pipelined stencil takes float32 or bfloat16 grids, got "
             f"{values.dtype}; float64 stays on the plain path (impl='xla')")
     if values.device.type == "cpu":
-        res = pipeline_step_plain(values, rate, offsets, int(nsteps), blk)
+        res = pipeline_step_plain(values, rate, offsets, int(nsteps), blk,
+                                  compute_dtype)
         if out is not None:
             out.copy_(res)
             return out
@@ -260,5 +279,5 @@ def pipeline_dense_step(values: torch.Tensor, rate: float,
     elif out.data_ptr() == values.data_ptr():
         raise ValueError("the kernel is out of place: out must not alias "
                          "values")
-    _launch(values, out, rate, offsets, int(nsteps), blk)
+    _launch(values, out, rate, offsets, int(nsteps), blk, bf16)
     return out

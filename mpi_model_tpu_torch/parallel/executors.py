@@ -75,7 +75,8 @@ from ..ops.field_stencil import FieldPlanError, PallasFieldStep
 from ..ops import active as act
 from ..ops.flow import PointFlow
 from ..ops.fused_active import fused_compute, fused_scatter
-from ..ops.fused_stencil import check_ring_depth, pallas_halo_step
+from ..ops.fused_stencil import check_ring_depth, pallas_halo_step, \
+    resolve_compute_dtype
 from ..ops.point_kernel import build_point_plans, shard_point_runner
 from ..ops.stencil import neighbor_counts
 from .halo import (exchange_ring, gather_from_padded, pad_with_halo_1d,
@@ -117,9 +118,7 @@ class ShardMapExecutor:
                 f"step_impl={step_impl!r} exchanges a one-cell ghost ring "
                 f"per step; halo_depth={halo_depth} is not supported (the "
                 "active set would need depth-d frontier dilation)")
-        if compute_dtype not in (None, torch.float32, "float32"):
-            raise _not_ported("compute_dtype other than float32 (bf16 "
-                              "interior math)")
+        resolve_compute_dtype(compute_dtype)
         self.mesh = mesh
         self.step_impl = step_impl
         self.halo_mode = halo_mode
@@ -361,7 +360,8 @@ class ShardMapExecutor:
         def stepper(ns: int) -> PallasFieldStep:
             st = steppers.get(ns)
             if st is None:
-                st = model._field_stepper(space, field_flows, ns, shape)
+                st = model._field_stepper(space, field_flows, ns, shape,
+                                          self.compute_dtype)
                 steppers[ns] = st
             return st
 
@@ -414,11 +414,14 @@ class ShardMapExecutor:
                             composed_halo_step(
                                 g[i][j], ring, origins[i][j], gshape, rate,
                                 ns, offsets, variant=self.composed_variant,
+                                compute_dtype=self.compute_dtype,
                                 out=spare[attr][i][j])
                         else:
                             pallas_halo_step(
                                 g[i][j], ring, origins[i][j], gshape, rate,
-                                offsets, nsteps=ns, out=spare[attr][i][j])
+                                offsets, nsteps=ns,
+                                compute_dtype=self.compute_dtype,
+                                out=spare[attr][i][j])
             for a in written:
                 cur[a], spare[a] = spare[a], cur[a]
 

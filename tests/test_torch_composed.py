@@ -174,8 +174,12 @@ def test_stepper_refuses_k_past_the_ghost_depth_like_jax():
     assert step.variant == "auto"   # the variant asked for
     with pytest.raises(TypeError, match="float64"):
         cs.composed_dense_step(x.double(), 0.1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cs.composed_dense_step(x, 0.1, 2, compute_dtype=torch.bfloat16)
+    # bf16 interior math is accepted and computed (its plain version)
+    got = cs.composed_dense_step(x, 0.1, 2, compute_dtype=torch.bfloat16)
+    assert torch.equal(got, cs.composed_dense_step_plain(
+        x, 0.1, 2, variant="vpu", compute_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        cs.composed_dense_step(x, 0.1, 2, compute_dtype=torch.float16)
 
 
 def _spaces(v):

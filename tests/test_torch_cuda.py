@@ -874,3 +874,187 @@ def test_sharded_active_fused_kernel_error_propagates(fault, monkeypatch):
     with pytest.raises(RuntimeError, match=want):
         ex.run_model(mt.Model(mt.Diffusion(0.1)), space, 3)
     assert fa.launches() == {"fused_compute": 0, "fused_scatter": 0}
+
+
+# -- bf16 interior math (compute_dtype=bfloat16) --------------------------------
+#
+# Each bf16-interior variant against its plain version: K1, K2, K3 vpu,
+# K3-halo vpu, K4, K4-halo and K5 bit for bit (every bf16 operation rounds
+# once, in the plain version's order, none contracted); K3 mxu at its f32
+# tolerance (the bf16 products are exact in f32, the tensor cores sum them
+# in another order: 1e-6·k·max|v| at f32 storage, one bf16 ulp at bf16).
+# The blocks put the rectangle of bf16 cells across the kernels' tiles, so
+# blocks that straddle its edge run both passes.
+
+_BF = torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 2),
+                                      (torch.float32, 8), (torch.bfloat16, 4),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("shape,block", [((512, 1024), (64, 128)),
+                                         ((336, 1000), (48, 200)),
+                                         ((1024, 1024), None)])
+def test_bf16_interior_k1_on_the_card(dtype, ns, offs, shape, block):
+    """K1 bf16-interior against ``dense_step_plain(..., compute_dtype)``;
+    at one step the f32 result; (1024, 1024) at JAX's blocks: no tile off
+    the edge, every cell from the grid rounded to bf16."""
+    dev = _card()
+    ns = min(ns, fs.ghost_depth(shape, dtype, block))
+    v = np.random.default_rng(7).uniform(0.5, 2.0, shape)
+    x = torch.from_numpy(v).to(dev, dtype)
+    before = fs.launches()
+    got = fs.pallas_dense_step(x, 0.13, offs, block=block, nsteps=ns,
+                               compute_dtype=_BF)
+    assert fs.launches() == before + 1
+    assert torch.equal(got, fs.dense_step_plain(x, 0.13, offs, ns, _BF,
+                                                block))
+    if ns == 1:
+        assert torch.equal(got, fs.pallas_dense_step(x, 0.13, offs,
+                                                     block=block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 4), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("mesh_shape,shape", [((2, 2), (1024, 2048)),
+                                              ((1, 4), (96, 768))])
+def test_bf16_interior_k2_on_the_card(dtype, ns, offs, mesh_shape, shape):
+    """K2 bf16-interior on every shard (each shard's TPU tiles at its
+    origin; on 96 x 768 every tile is near) against ``halo_step_plain``."""
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 43)
+    g = g["value"]
+    lines, columns = mesh_shape
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, ns)
+            got = fs.pallas_halo_step(g[i][j], ring, (i * h, j * w), shape,
+                                      0.13, offs, nsteps=ns,
+                                      compute_dtype=_BF)
+            want = fs.halo_step_plain(g[i][j], ring, (i * h, j * w), shape,
+                                      0.13, offs, ns, _BF)
+            assert torch.equal(got, want), (i, j)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["vpu", "mxu"])
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 8),
+                                     (torch.bfloat16, 4),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("shape,block", [((512, 1024), (64, 256)),
+                                         ((320, 1280), (80, 640))])
+def test_bf16_interior_k3_on_the_card(form, dtype, k, offs, shape, block):
+    """K3 bf16-interior in each form against its plain version."""
+    dev = _card()
+    if k > cs.max_k(shape, dtype, block):
+        pytest.skip("k past the window's ghost depth")
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        0.5, 2.0, shape)).to(dev, dtype)
+    got = cs.composed_dense_step(x, 0.13, k, offs, block=block, variant=form,
+                                 compute_dtype=_BF)
+    want = cs.composed_dense_step_plain(x, 0.13, k, offs, form, _BF, block)
+    _held_to_plain(got, want, form, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["vpu", "mxu"])
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 8), (torch.bfloat16, 16)])
+@pytest.mark.parametrize("mesh_shape,shape", [((2, 2), (1024, 2048)),
+                                              ((2, 3), (150, 768))])
+def test_bf16_interior_k3_halo_on_the_card(form, dtype, k, mesh_shape,
+                                           shape):
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 47)
+    g = g["value"]
+    lines, columns = mesh_shape
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, k)
+            got = cs.composed_halo_step(g[i][j], ring, (i * h, j * w), shape,
+                                        0.13, k, variant=form,
+                                        compute_dtype=_BF)
+            want = cs.composed_halo_step_plain(
+                g[i][j], ring, (i * h, j * w), shape, 0.13, k, variant=form,
+                compute_dtype=_BF)
+            _held_to_plain(got, want, form, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("flows", ["config4", "chain3", "row_rate"])
+@pytest.mark.parametrize("shape,block", [((512, 1024), (64, 128)),
+                                         ((256, 512), None)])
+def test_bf16_interior_k4_on_the_card(dtype, ns, flows, shape, block):
+    """K4 bf16-interior against ``field_step_plain(..., compute_dtype)``
+    bit for bit (the bf16 program, the rounded transport, f32 near
+    tiles)."""
+    dev = _card()
+    fl = _FLOW_SETS[flows]
+    ns = min(ns, fs.ghost_depth(shape, dtype, block))
+    vals = _field_values(dev, dtype, shape, 17)
+    step = k4.PallasFieldStep(shape, fl, block=block, nsteps=ns,
+                              compute_dtype=_BF)
+    got = step(vals)
+    assert step.launches == 1
+    want = k4.field_step_plain(vals, fl, nsteps=ns, compute_dtype=_BF,
+                               block=block)
+    for n in {f.attr for f in fl}:
+        assert torch.equal(got[n], want[n]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 8), (torch.bfloat16, 16)])
+@pytest.mark.parametrize("mesh_shape,shape", [((2, 2), (1024, 2048)),
+                                              ((1, 4), (128, 512))])
+def test_bf16_interior_k4_halo_on_the_card(dtype, ns, mesh_shape, shape):
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    fl = _FLOW_SETS["config4"]
+    names = ("a", "b")
+    mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 53,
+                                    names)
+    step = k4.PallasFieldStep((h, w), fl, nsteps=ns, compute_dtype=_BF)
+    lines, columns = mesh_shape
+    for i in range(lines):
+        for j in range(columns):
+            vals = {n: g[n][i][j] for n in names}
+            rings = {n: exchange_ring(g[n], i, j, ns) for n in names}
+            got = step.halo(vals, rings, (i * h, j * w), shape)
+            want = k4.field_halo_step_plain(vals, rings, (i * h, j * w),
+                                            shape, fl, nsteps=ns,
+                                            compute_dtype=_BF)
+            for n in names:
+                assert torch.equal(got[n], want[n]), (i, j, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1, 4, 8])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("B,shape,block", [(2, (1024, 1024), (128, 256)),
+                                           (3, (256, 4096), None)])
+def test_bf16_interior_k5_on_the_card(dtype, ns, offs, B, shape, block):
+    """K5 bf16-interior against ``pipeline_step_plain(..., compute_dtype)``;
+    on 256 x 4096 (JAX's blocks: no closed tile) the f32 result."""
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.5, 2.0, (B,) + shape)).to(dev, dtype)
+    got = ps.pipeline_dense_step(x, 0.13, offs, block, ns,
+                                 compute_dtype=_BF)
+    assert torch.equal(got, ps.pipeline_step_plain(x, 0.13, offs, ns, block,
+                                                   _BF))
+    if not bool(ps.interior_mask(shape, ps.pipeline_block(shape, ns, block),
+                                 ns).any()):
+        assert torch.equal(got, ps.pipeline_dense_step(x, 0.13, offs, block,
+                                                       ns))

@@ -590,7 +590,6 @@ def test_scheduler_stats_keys_are_jax_keys():
 def test_unported_options_name_the_roadmap():
     spaces, models, _ = make_scenarios(B=1)
     for make in (lambda: mt.EnsembleExecutor(mesh=2),
-                 lambda: mt.EnsembleExecutor(compute_dtype=torch.bfloat16),
                  lambda: mt.EnsembleService(models[0], donate=True),
                  lambda: mt.EnsembleService(models[0], windows=2),
                  lambda: mt.EnsembleScheduler(mesh=(2, 1)),
@@ -605,6 +604,11 @@ def test_unported_options_name_the_roadmap():
         .compile_cache is None
     with pytest.raises(ValueError, match="unknown ensemble impl"):
         mt.EnsembleExecutor(impl="nope")
+    # bf16 interior math is ported: accepted, and a bad dtype refused
+    ex = mt.EnsembleExecutor("pipeline", compute_dtype=torch.bfloat16)
+    assert ex.compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        mt.EnsembleExecutor(compute_dtype="float16")
 
 
 # -- the service -------------------------------------------------------------

@@ -520,9 +520,10 @@ def test_static_refusals_pick_xla_under_auto():
     out, rep = bad.execute(g3, mt.SerialExecutor("auto"), steps=2,
                            check_conservation=False)
     assert rep.impl == "xla" and torch.isfinite(out.values["a"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mt.Model(config4()).make_step(g3, impl="pallas",
-                                      compute_dtype=torch.bfloat16)
+    # bf16 interior math is accepted
+    step = mt.Model(config4()).make_step(g3, impl="pallas",
+                                         compute_dtype=torch.bfloat16)
+    assert step.impl == "pallas"
 
 
 def _interpreter_tile_h(n_chan, n_out, n_slots, nsteps):
@@ -619,10 +620,16 @@ def test_pack_program_layout():
         40, 512, 120, 1024, 8)
     assert [hcall.ring[1][i] for i in range(8)] == [
         rings[1][p].data_ptr() for p in k4.RING_PIECES]
+    # the bf16 interior math's rectangle: empty unless a bf16 launch asks
+    assert (call.br0, call.br1, call.bc0, call.bc1) == (0, 0, 0, 0)
+    rcall = k4.pack_call(plan, 8, [vals["b"], vals["a"]], [out],
+                         rect=(16, 24, 128, 256))
+    assert (rcall.br0, rcall.br1, rcall.bc0, rcall.bc1) == (16, 24, 128, 256)
     # the C struct: pointers, then ints, 8-byte aligned, a kernel argument
     assert k4._FieldCall.inp.offset == 0 and k4._FieldCall.ring.offset == 64
     assert k4._FieldCall.out.offset == 576 and k4._FieldCall.h.offset == 640
-    assert ctypes.sizeof(k4._FieldCall) == 680 < 4096
+    assert k4._FieldCall.br0.offset == 680
+    assert ctypes.sizeof(k4._FieldCall) == 696 < 4096
 
 
 def test_wrapper_contract_on_cpu():
@@ -642,8 +649,13 @@ def test_wrapper_contract_on_cpu():
         step({k: v.double() for k, v in g.items()})
     with pytest.raises(ValueError, match="do not carry"):
         step({"a": g["a"]})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        k4.PallasFieldStep((40, 256), config4(), compute_dtype=torch.bfloat16)
+    # bf16 interior math is accepted and planned with its bf16 program
+    step16 = k4.PallasFieldStep((40, 256), config4(), names=("a", "b"),
+                                compute_dtype=torch.bfloat16)
+    assert step16.planned.program16 is not None
+    assert all(step16.planned.program16.rounds)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        k4.PallasFieldStep((40, 256), config4(), compute_dtype="float16")
 
 
 # -- the executor, the report and the CLI ---------------------------------------

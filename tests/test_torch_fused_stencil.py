@@ -127,8 +127,16 @@ def test_wrapper_contract_on_cpu():
     x = torch.from_numpy(_grid(16, 32))
     with pytest.raises(TypeError, match="float64"):
         fs.pallas_dense_step(x.double(), 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fs.pallas_dense_step(x, 0.1, compute_dtype=torch.bfloat16)
+    # bf16 interior math is accepted and computed; at one step it is f32
+    assert torch.equal(fs.pallas_dense_step(x, 0.1,
+                                            compute_dtype=torch.bfloat16),
+                       fs.pallas_dense_step(x, 0.1))
+    assert torch.equal(fs.pallas_dense_step(x, 0.1, nsteps=2,
+                                            compute_dtype="bfloat16"),
+                       fs.dense_step_plain(x, 0.1, nsteps=2,
+                                           compute_dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fs.pallas_dense_step(x, 0.1, compute_dtype=torch.float16)
     before = fs.launches()
     step = fs.PallasDiffusionStep((16, 32), 0.1, nsteps=4)
     out = torch.empty_like(x)

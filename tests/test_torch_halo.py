@@ -403,11 +403,19 @@ def test_halo_refusals_match_jax(kw, what):
 
 
 def test_bf16_compute_is_not_ported():
+    """bf16 interior math is now ported: K2 accepts the knob and computes
+    its plain version (f32 at one step)."""
     shard, ring, origin = _case("interior", 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fs.pallas_halo_step(torch.from_numpy(shard),
-                            ring_from_numpy(ring, "cpu"), origin, GLOBAL,
-                            0.1, compute_dtype=torch.bfloat16)
+    x, rg = torch.from_numpy(shard), ring_from_numpy(ring, "cpu")
+    got = fs.pallas_halo_step(x, rg, origin, GLOBAL, 0.1, nsteps=2,
+                              compute_dtype=torch.bfloat16)
+    assert torch.equal(got, fs.halo_step_plain(x, rg, origin, GLOBAL, 0.1,
+                                               nsteps=2,
+                                               compute_dtype="bfloat16"))
+    assert torch.equal(
+        fs.pallas_halo_step(x, rg, origin, GLOBAL, 0.1,
+                            compute_dtype=torch.bfloat16),
+        fs.pallas_halo_step(x, rg, origin, GLOBAL, 0.1))
 
 
 # -- the mosaic property -----------------------------------------------------

@@ -554,8 +554,11 @@ def test_unported_parts_raise_naming_the_roadmap():
             out.values["value"].numpy(),
             oracle.dense_flow_step_np(oracle.dense_flow_step_np(
                 vals["value"], 0.1), 0.1))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ShardMapExecutor(M(), "pallas", compute_dtype=torch.bfloat16)
+    # bf16 interior math is ported (accepted); a bad dtype is refused
+    assert ShardMapExecutor(M(), "pallas", compute_dtype=torch.bfloat16) \
+        .compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="compute_dtype"):
+        ShardMapExecutor(M(), "pallas", compute_dtype="float16")
 
     class IRModel(mt.Model):
         ir_terms = ()

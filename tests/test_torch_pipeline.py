@@ -158,9 +158,11 @@ def test_closed_form_constants_are_jax_weak_floats():
 
 def test_wrapper_contract_on_cpu():
     x = torch.from_numpy(_grid((16, 128)))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fs.pallas_dense_step(x, 0.1, pipeline=True,
-                             compute_dtype=torch.bfloat16)
+    # bf16 interior math is accepted; at 16 x 128 no TPU tile is closed,
+    # so it is the f32 result bit for bit
+    assert torch.equal(fs.pallas_dense_step(x, 0.1, pipeline=True,
+                                            compute_dtype=torch.bfloat16),
+                       ps.pipeline_step_plain(x, 0.1))
     with pytest.raises(ValueError, match=r"\[B, H, W\]"):
         ps.pipeline_dense_step(x[0], 0.1)
     before = ps.launches()
