@@ -9,10 +9,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    and ``nvidia-smi --query-gpu=name,power.limit``.
 2. build: builds every kernel from the sources in this checkout, one nvcc
    per ``csrc`` source and per generated K4 unit (one for each flow set and
-   neighbourhood this check runs, and config 4's and the chain's bf16
-   programs: ``k4_steppers``), all started together,
+   neighbourhood this check runs, and the bf16 programs of phase 6g's flow
+   sets: ``k4_steppers``), all started together,
    and prints each library's build seconds, whether it was cached, and
-   ptxas's registers and spills.
+   ptxas's registers and spills (one line per instance of K4's paired
+   bf16 walk, ``field_kernel16``).
 3. each kernel against its plain version on the card, over dtypes, depths,
    neighborhoods and small and odd shapes, the main paths' own shapes
    included:
@@ -212,15 +213,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    blocks), K2 (the 2×2 shards of 2048 × 2560 and the 4 stripes of
    96 × 768, whose every tile is near, f32 nsteps 1 and 8, bf16 16), K3
    and K3-halo in each form (f32 k 1, 8 and bf16 4, 16), K4 and K4-halo
-   (config 4 and the 3-channel chain, f32 nsteps 1 and 8, bf16 1 and 16)
+   on the paired walk (config 4, the 3-channel chain, ``Coupled`` alone,
+   the affine flow and the every-operation flow, Moore, config 4 and the
+   affine flow also over six offsets; f32 nsteps 1 and 8, bf16 1 and 16;
+   on 512 × 1024 at block (64, 128) and on 225 × 640 at (45, 128), whose
+   bf16 rectangle has an odd number of rows from an odd row; uniform
+   values and values holding ±0, bf16 subnormals and ±inf, every flow
+   set bit for bit, NaN compared by position; a call is two kernels, the
+   f32 walk off the bf16 rectangle and the paired walk in it, counted as
+   one launch)
    and K5 (2 × 1024² at block (128, 256), closed tiles inside; 8 × 4096²,
    none: the f32 result): bit for bit, K3 mxu to its tolerance. At one
    step K1/K2 are their f32 results. Then the main paths at full width,
    each run with the counts set to 0 just before and read just after:
    K1 16384² f32 substeps 8 and bf16 16, the composed path at k 8 and 16
-   in both forms, config 4 at 8192² (f32 substeps 8, bf16 16), the 2×2
+   in both forms, config 4 at 8192² (f32 substeps 1 and 8, bf16 1 and
+   16), the 2×2
    sharded K2, K3-halo (each form) and K4-halo (config 4 at 8192²) at
-   depth 8, the ensemble 8 × 4096² (bit for bit the
+   depth 8 (K4's and K4-halo's counted runs traced: every launch must have
+   run the f32 walk and the paired walk once each, ``k4_walk``; the
+   kernels line's ``walk`` and ``kernels_per_launch`` come from that
+   trace), the ensemble 8 × 4096² (bit for bit the
    f32-compute dispatch) and 4 × 8192² (blocks (512, 2048): closed tiles
    in every lane; bit for bit its plain version); each run's mass change
    held below ``MASS_BF16`` of the total. Each variant's kernel held
@@ -229,7 +242,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel's of this run, its plain version's, and the function's bound
    (bytes, or the operations of its cheapest form: bf16 cells at the
    paired bf16 rate ``BF16X2_OPS``, the rest at the f32 rate; K3 mxu's
-   banded MMAs are its form's bound, ``form_bound_ms``).
+   banded MMAs are its form's bound, ``form_bound_ms``; K4's paired form
+   counts its instructions on the f32 halves at the f32 rate).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -249,6 +263,7 @@ import contextlib
 import io
 import json
 import math
+import random
 import re
 import shutil
 import statistics
@@ -363,6 +378,53 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
             "idle_share": 1.0 - busy / wall_ms,
             "device_by_kind": {k: {"ops": n, "ms": ms}
                                for k, (n, ms) in kinds.items()}}
+
+
+def traced_kernels(torch, fn) -> tuple:
+    """What ``fn()`` returns, and the device kernels it launched, by name
+    with their counts, from a ``torch.profiler`` trace. The work is queued
+    behind a spin of the device (``torch.cuda._sleep``), and the trace is
+    held open past its end: the profiler keeps only the kernels whose
+    device times fall in its host window, and its device and host clocks
+    do not line up, so a short window's first kernels can go missing
+    otherwise. Only counts and names are taken from it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        torch.cuda._sleep(100_000_000)  # ~50 ms of the device
+        got = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            names[e.name] = names.get(e.name, 0) + 1
+    return got, names
+
+
+def k4_walk(names: dict, launched: int, what: str) -> dict:
+    """Which K4 walks a counted main-path run of the bf16 interior math
+    ran, from its trace (``traced_kernels``): every launch the f32 walk off
+    the rectangle (``field_kernel_near``) and the paired walk in it
+    (``field_kernel16`` with the bf16 program), and no other K4 kernel.
+    Fails otherwise, and when the trace holds no K4 kernel. Returns the
+    walk, the kernels a launch (the K4 kernels over the launches counted)
+    and the counts."""
+    k4 = {n: c for n, c in names.items() if "mm_field::" in n}
+    paired = sum(c for n, c in k4.items()
+                 if "field_kernel16" in n and "ProgramBf16" in n)
+    near = sum(c for n, c in k4.items() if "field_kernel_near" in n)
+    check(bool(k4), f"{what}: the trace shows no K4 kernel "
+                    f"({len(names)} kernel names traced)")
+    check(launched > 0 and paired == launched and near == launched
+          and sum(k4.values()) == paired + near,
+          f"{what}: {launched} launches ran the K4 kernels {k4}, not the "
+          "f32 walk and the paired walk once each")
+    return {"walk": "paired", "kernels_per_launch": sum(k4.values())
+            / launched, "k4_kernels": k4}
 
 
 def print_profile(what: str, prof: dict) -> None:
@@ -489,6 +551,14 @@ def workload(np, h: int, w: int, frac: float, seed: int):
     return v
 
 
+#: a six-offset neighbourhood (hexagonal; its count is no power of two)
+SIX_OFFSETS = ((-1, -1), (-1, 0), (0, -1), (0, 1), (1, 0), (1, 1))
+#: phase 6g's K4 bf16-interior flow sets, each with its neighbourhoods
+K4_BF16_SETS = {"config4": ("moore", "six"), "chain3": ("moore",),
+                "coupled_alone": ("moore",), "affine": ("moore", "six"),
+                "every_op": ("moore",)}
+
+
 def field_flow_sets(mt, torch) -> dict:
     """K4's flow sets: config 4's, ``Coupled`` alone, an affine user flow
     (outflow(0) != 0), a row-reading flow, a 3-channel chain and one flow
@@ -558,9 +628,11 @@ def k4_steppers(mt, torch, k4, neighborhoods) -> list:
            for flows in sets.values()
            for offs in neighborhoods.values()]
     # phase 6g's bf16 interior math: the same flows lowered at bf16 too
-    out += [k4.PallasFieldStep((8, 8), sets[name], names=("a", "b", "c"),
+    hoods = {**neighborhoods, "six": SIX_OFFSETS}
+    out += [k4.PallasFieldStep((8, 8), sets[name], offsets=hoods[hood],
+                               names=("a", "b", "c"),
                                compute_dtype=torch.bfloat16)
-            for name in ("config4", "chain3")]
+            for name, names in K4_BF16_SETS.items() for hood in names]
     chain, _ = build_flows(argparse.Namespace(flow="coupled", channels=2,
                                               rate=0.1, init=1.0))
     out.append(k4.PallasFieldStep((8, 8), chain, names=("c0", "c1")))
@@ -1664,6 +1736,37 @@ def sharded_active_path(np, torch, mt, dev, reset_counts,
     return out
 
 
+def with_specials(vals: dict, seed: int) -> dict:
+    """Cells of each channel set to +0, -0, bf16 subnormals and +-inf, in
+    place; returns ``vals``."""
+    rng = random.Random(seed)
+    specials = (0.0, -0.0, 2.0 ** -130, -(2.0 ** -128), 2.0 ** -133,
+                float("inf"), float("-inf"))
+    for t in vals.values():
+        flat = t.view(-1)
+        for i, x in enumerate(rng.sample(range(flat.numel()),
+                                         4 * len(specials))):
+            flat[x] = specials[i % len(specials)]
+    return vals
+
+
+def k4_bits_agree(got, want) -> tuple[bool, float, str]:
+    """K4's paired walk against its plain version: NaN where the plain
+    version has NaN, every other cell bit for bit (exp too: the kernel's
+    ``expf`` and torch's on the card agree). Returns (agrees, the largest
+    difference on cells finite in both, how)."""
+    import torch
+
+    bits = torch.int16 if want.dtype == torch.bfloat16 else torch.int32
+    nan = want.isnan()
+    g, w = got[~nan], want[~nan]
+    fin = w.isfinite() & g.isfinite()
+    err = float((g[fin].float() - w[fin].float()).abs().max()) if bool(
+        fin.any()) else 0.0
+    ok = got.isnan().equal(nan) and g.view(bits).equal(w.view(bits))
+    return ok, err, "bit for bit, NaN by position"
+
+
 def rect_cells(fs, shape, block, n, origin=(0, 0), global_shape=None) -> int:
     """Cells the bf16 interior math takes (``fs.bf16_rect``'s rectangle)."""
     r0, r1, c0, c1 = fs.bf16_rect(shape, block, n, origin, global_shape)
@@ -1682,6 +1785,36 @@ def bf16_form_bound_ms(cells: int, inner16: int, ops16: float,
     ops_ms = (inner16 * ops16 / BF16X2_OPS
               + (cells - inner16) * ops32 / F32_FLOPS) * 1e3
     return larger(bytes_ms, ops_ms)
+
+
+def k4_paired_bound_ms(plan, k: int, cells: int, inner16: int, nsteps: int,
+                       nbytes: int) -> tuple[float, str]:
+    """Least time for one K4 call over ``k`` offsets in the paired walk's
+    own form: its bf16
+    cells' instructions on pairs at the paired rate (``BF16X2_OPS``: the
+    program's paired instructions, per written channel the inflow adds,
+    the subtract and add, and the share's multiply where the count is a
+    power of two), its instructions on f32 halves at the f32 rate (the
+    rest of the program, a share's division otherwise), the other cells'
+    operations at the f32 rate, against the bytes; whichever is larger."""
+    from mpi_model_tpu_torch.ops import field_codegen as cg
+    from mpi_model_tpu_torch.ops.field_lower import OP_ACC
+
+    prog16 = plan.program16
+    pair = halves = 0
+    for (op, _, first, _, _), on_pair in zip(prog16.code,
+                                             cg.pair_plan(prog16)):
+        if op == OP_ACC and first:
+            continue
+        pair, halves = (pair + 1, halves) if on_pair else (pair, halves + 1)
+    n_out = len(prog16.outputs)
+    pow2 = k & (k - 1) == 0
+    pair += n_out * (k + 2 + pow2)
+    halves += n_out * (not pow2)
+    per32 = plan.program.flops() + n_out * (k + 3)
+    ops_ms = nsteps * (inner16 * (pair / BF16X2_OPS + halves / F32_FLOPS)
+                       + (cells - inner16) * per32 / F32_FLOPS) * 1e3
+    return larger(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
 
 
 def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
@@ -1713,6 +1846,9 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     def case(name, got, want, form="vpu", k=1):
         if form == "mxu":
             ok, err, how = k3_agrees(got, want, form, k)
+        elif form == "bits":
+            # K4's paired walk: bit for bit, NaN compared by position
+            ok, err, how = k4_bits_agree(got, want)
         else:
             err = float((got.float() - want.float()).abs().max())
             ok, how = bool(torch.equal(got, want)), "bit for bit"
@@ -1808,41 +1944,63 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                              0.13, k, variant=form, compute_dtype=BF),
                          form, k)
         del x, g
-    # K4 and K4-halo: config 4's flows and the 3-channel chain
+    # K4 and K4-halo on the paired walk: each flow set of K4_BF16_SETS and
+    # its neighbourhoods, uniform values and values holding +-0, bf16
+    # subnormals and +-inf, on a grid whose bf16 rectangle cuts the tiles
+    # and one whose rectangle has an odd number of rows from an odd row
     flow_sets = field_flow_sets(mt, torch)
+    hoods = {**neighborhoods, "six": SIX_OFFSETS}
     for dtype, depths in ((torch.float32, (1, 8)), (BF, (1, 16))):
         dname = str(dtype).removeprefix("torch.")
-        vals = {n: rand((512, 1024), dtype) for n in ("a", "b", "c")}
-        for fname in ("config4", "chain3"):
-            fl = flow_sets[fname]
-            for ns in depths:
-                step = k4.PallasFieldStep((512, 1024), fl, block=(64, 128),
-                                          nsteps=ns, compute_dtype=BF)
-                got = step(vals)
-                want = k4.field_step_plain(vals, fl, nsteps=ns,
-                                           compute_dtype=BF, block=(64, 128))
-                for n in sorted({f.attr for f in fl}):
-                    case(f"K4 bf16-interior {dname} (512, 1024) ns={ns} "
-                         f"{fname} channel {n}", got[n], want[n])
+        for shape, block in (((512, 1024), (64, 128)),
+                             ((225, 640), (45, 128))):
+            uniform = {n: rand(shape, dtype) for n in ("a", "b", "c")}
+            special = with_specials({n: t.clone() for n, t in
+                                     uniform.items()}, 5)
+            for fname, names in K4_BF16_SETS.items():
+                fl = flow_sets[fname]
+                for hood in names:
+                    for ns in depths:
+                        ns = min(ns, fs.ghost_depth(shape, dtype, block))
+                        step = k4.PallasFieldStep(
+                            shape, fl, offsets=hoods[hood], block=block,
+                            nsteps=ns, compute_dtype=BF)
+                        for vname, vals in (("uniform", uniform),
+                                            ("special", special)):
+                            got = step(vals)
+                            want = k4.field_step_plain(
+                                vals, fl, hoods[hood], nsteps=ns,
+                                compute_dtype=BF, block=block)
+                            for n in sorted({f.attr for f in fl}):
+                                case(f"K4 bf16-interior {dname} {shape} "
+                                     f"ns={ns} {fname} {hood} {vname} "
+                                     f"channel {n}", got[n], want[n],
+                                     "bits")
         ns = depths[-1]
         g = {}
-        for n in ("a", "b"):
-            g[n], (h, w) = shards(rand((1024, 2048), dtype), (2, 2))
-        st = k4.PallasFieldStep((h, w), flow_sets["config4"], nsteps=ns,
-                                compute_dtype=BF)
-        for i in range(2):
-            for j in range(2):
-                v = {n: g[n][i][j] for n in g}
-                rings = {n: exchange_ring(g[n], i, j, ns) for n in g}
-                got = st.halo(v, rings, (i * h, j * w), (1024, 2048))
-                want = k4.field_halo_step_plain(
-                    v, rings, (i * h, j * w), (1024, 2048),
-                    flow_sets["config4"], nsteps=ns, compute_dtype=BF)
-                for n in g:
-                    case(f"K4-halo bf16-interior {dname} shard "
-                         f"{(i * h, j * w)} ns={ns} channel {n}", got[n],
-                         want[n])
-        del vals, g
+        for n in ("a", "b", "c"):
+            full = rand((1024, 2048), dtype)
+            if n != "c":
+                with_specials({n: full}, 9)
+            g[n], (h, w) = shards(full, (2, 2))
+        for fname, hood in (("config4", "moore"), ("config4", "six"),
+                            ("affine", "moore"), ("every_op", "moore")):
+            fl = flow_sets[fname]
+            st = k4.PallasFieldStep((h, w), fl, offsets=hoods[hood],
+                                    nsteps=ns, compute_dtype=BF)
+            for i in range(2):
+                for j in range(2):
+                    v = {n: g[n][i][j] for n in g}
+                    rings = {n: exchange_ring(g[n], i, j, ns) for n in g}
+                    got = st.halo(v, rings, (i * h, j * w), (1024, 2048))
+                    want = k4.field_halo_step_plain(
+                        v, rings, (i * h, j * w), (1024, 2048), fl,
+                        hoods[hood], nsteps=ns, compute_dtype=BF)
+                    for n in sorted({f.attr for f in fl}):
+                        case(f"K4-halo bf16-interior {dname} shard "
+                             f"{(i * h, j * w)} ns={ns} {fname} {hood} "
+                             f"channel {n}", got[n], want[n], "bits")
+        del uniform, special, g
     # K5: a grid with closed tiles, and the ensemble's 4096² (none)
     for dtype in (torch.float32, BF):
         dname = str(dtype).removeprefix("torch.")
@@ -1868,16 +2026,25 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     torch.cuda.empty_cache()
 
     # -- the main paths at full width ---------------------------------------------
-    def run_row(what, model, space, ex, steps, counter, want_launches):
+    def run_row(what, model, space, ex, steps, counter, want_launches,
+                k4=False):
         """One counted run (counts to 0 just before, read just after), its
         checks and its run ms (CUDA events, median of 3). bf16 interior
         math does not conserve mass as f32 does, by JAX's semantics (its
         constants rounded to bf16, every operation rounded): the run may
         move ``MASS_BF16`` of the total. The kernels' results themselves
-        are held against their plain versions by ``timed``."""
-        reset_counts()
-        res, rep = model.execute(space, ex, steps=steps,
+        are held against their plain versions by ``timed``. ``k4``: the
+        counted run is traced, and the K4 walks it ran (``k4_walk``) go
+        into its row."""
+        def run():
+            return model.execute(space, ex, steps=steps,
                                  check_conservation=False)
+
+        reset_counts()
+        if k4:
+            (res, rep), names = traced_kernels(torch, run)
+        else:
+            res, rep = run()
         launched = counter()
         check(launched == want_launches,
               f"{what}: {launched} launches, expected {want_launches}")
@@ -1897,6 +2064,11 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                "mass_allowed": allowed,
                "run_ms_median": run_ms,
                "cell_updates_per_s": cells * steps / (run_ms / 1e3)}
+        if k4:
+            row["k4_walk"] = k4_walk(names, launched, what)
+            print(f"bf16-interior {what}: the {row['k4_walk']['walk']} "
+                  f"walk, {row['k4_walk']['kernels_per_launch']} kernels a "
+                  f"launch: {row['k4_walk']['k4_kernels']}", flush=True)
         out["rows"][what] = row
         print(f"bf16-interior {what}: impl={rep.impl}, launches {launched}, "
               f"|d|={err:.3e}, run {run_ms:.3f} ms, "
@@ -2022,7 +2194,8 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
 
     # config 4 at 8192² through the field plan
     model4 = mt.Model(config4_flows(mt))
-    for dname, sub in (("float32", 8), ("bfloat16", 16)):
+    for dname, sub in (("float32", 1), ("float32", 8), ("bfloat16", 1),
+                       ("bfloat16", 16)):
         tdt = getattr(torch, dname)
         vals = {n: (0.5 + 1.5 * torch.rand((N4, N4), generator=gen,
                                            device=dev)).to(tdt)
@@ -2031,7 +2204,7 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                         dtype=dname).with_values(vals)
         run_row(f"K4 config4 {dname} ns={sub}", model4, space,
                 mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
-                STEPS, k4.launches, STEPS // sub)
+                STEPS, k4.launches, STEPS // sub, k4=True)
         step = k4.PallasFieldStep((N4, N4), model4.flows, dtype=tdt,
                                   nsteps=sub, names=("a", "b"),
                                   compute_dtype=BF)
@@ -2055,7 +2228,11 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                           compute_dtype=BF),
               bf16_form_bound_ms(cells, inner16, per * sub, per * sub,
                                  nbytes, 0),
-              f"K4 {dname} ns={sub}")
+              f"K4 {dname} ns={sub}",
+              form_bound=k4_paired_bound_ms(step.planned, 8, cells, inner16,
+                                            sub, nbytes))
+        out["calls"][f"K4 config4 {dname} ns={sub}"].update(
+            rows=step.rows, rows16=step.planned.rows16, bf16_cells=inner16)
         del vals, bufs, space, step
         torch.cuda.empty_cache()
 
@@ -2128,7 +2305,7 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                     ).with_values(vals)
     run_row("K4-halo config4 2x2 float32 depth=8", model4, space,
             ShardMapExecutor(mesh, "pallas", halo_depth=8, compute_dtype=BF),
-            STEPS, k4.halo_launches, STEPS // 8 * 4)
+            STEPS, k4.halo_launches, STEPS // 8 * 4, k4=True)
     gs, (h4, _) = {}, (N4 // 2, N4 // 2)
     for n in vals:
         gs[n], _ = shards(vals[n], (2, 2))
@@ -2142,18 +2319,19 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     inner16 = rect_cells(fs, (h4, h4), fs.resolve_block((h4, h4),
                                                         torch.float32), 8,
                          (h4, h4), (N4, N4))
+    nbytes = (len(prog.channels) + len(prog.outputs)) * h4 * h4 * 4
     timed("K4-halo config4 float32 ns=8 shard (4096, 4096)",
           lambda: st.halo(sv, rings, (h4, h4), (N4, N4), out=so),
           lambda: st.halo(sv, rings, (h4, h4), (N4, N4)),
           lambda: k4.field_halo_step_plain(sv, rings, (h4, h4), (N4, N4),
                                            model4.flows, nsteps=8,
                                            compute_dtype=BF),
-          bf16_form_bound_ms(h4 * h4, inner16, per * 8, per * 8,
-                             (len(prog.channels) + len(prog.outputs))
-                             * h4 * h4 * 4, 0),
-          "K4-halo")
-    out["calls"]["K4-halo config4 float32 ns=8 shard (4096, 4096)"][
-        "bf16_cells"] = inner16
+          bf16_form_bound_ms(h4 * h4, inner16, per * 8, per * 8, nbytes, 0),
+          "K4-halo",
+          form_bound=k4_paired_bound_ms(st.planned, 8, h4 * h4, inner16, 8,
+                                        nbytes))
+    out["calls"]["K4-halo config4 float32 ns=8 shard (4096, 4096)"].update(
+        bf16_cells=inner16, rows=st.rows, rows16=st.planned.rows16)
     del vals, space, gs, sv, rings, so, st
     torch.cuda.empty_cache()
 
@@ -2299,8 +2477,12 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     units = {}  # K4's generated units, one per flow set and neighbourhood
+    paired = {}  # the units with the paired bf16 walk, by library name
     for step in k4_steppers(mt, torch, k4, neighborhoods):
         units.setdefault(step.planned.unit.text, step.planned.label)
+        if step.planned.program16 is not None:
+            paired[_build.unit_name(step.planned.unit.text)] = \
+                step.planned.label
     _build.build_all(units=tuple(units.items()))
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s (one nvcc per source and per K4 unit, "
@@ -2311,6 +2493,13 @@ def main() -> int:
             # K6's and K5's instances, one line each (registers, spills)
             for entry, regs, spill in ptxas_summary(info["ptxas"]):
                 print(f"    {entry}: {regs} registers, {spill}")
+            continue
+        if name in paired:
+            # K4's paired bf16 walk, one line an instance (registers, spills)
+            print(f"    paired bf16 walk of {paired[name]}:")
+            for entry, regs, spill in ptxas_summary(info["ptxas"]):
+                if "field_kernel16" in entry:
+                    print(f"      {entry}: {regs} registers, {spill}")
             continue
         for line in info["ptxas"].splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
@@ -3796,12 +3985,11 @@ def main() -> int:
             ("K3 composed_stencil mxu bfloat16 k=16", "composed_stencil.cu",
              "mpi_model_tpu/ops/composed_stencil.py:197",
              "K3 mxu bfloat16 k=16", "K3 mxu bfloat16 k=16"),
-            ("K4 field_stencil float32 ns=8", "field_stencil.cuh",
-             "mpi_model_tpu/ops/pallas_stencil.py:1380",
-             "K4 config4 float32 ns=8", "K4 config4 float32 ns=8"),
-            ("K4 field_stencil bfloat16 ns=16", "field_stencil.cuh",
-             "mpi_model_tpu/ops/pallas_stencil.py:1380",
-             "K4 config4 bfloat16 ns=16", "K4 config4 bfloat16 ns=16"),
+            *((f"K4 field_stencil {d} ns={ns}", "field_stencil.cuh",
+               "mpi_model_tpu/ops/pallas_stencil.py:1380",
+               f"K4 config4 {d} ns={ns}", f"K4 config4 {d} ns={ns}")
+              for d, ns in (("float32", 1), ("float32", 8), ("bfloat16", 1),
+                            ("bfloat16", 16))),
             ("K2 fused_stencil_halo float32 ns=8", "fused_stencil.cu",
              "mpi_model_tpu/ops/pallas_stencil.py:757",
              "K2 float32 ns=8 shard (8192, 8192)", "K2 2x2 float32 depth=8"),
@@ -3839,8 +4027,15 @@ def main() -> int:
             "library_ms": c["library_ms"],
             "f32_compute_ms": c["f32_compute_ms"],
             "bf16_cells": c.get("bf16_cells"),
-            **{key: c[key] for key in ("form_bound_ms", "form_bound_by")
-               if key in c},
+            **{key: c[key] for key in ("form_bound_ms", "form_bound_by",
+                                       "rows", "rows16") if key in c},
+            # K4's bf16 interior math: the walks and kernels a launch the
+            # main path's traced run showed (the f32 walk off the rectangle,
+            # the paired walk in it: two kernels, counted as one launch)
+            **({key: bf16["rows"][run]["k4_walk"][key]
+                for key in ("walk", "kernels_per_launch")}
+               | {"generated_by": "mpi_model_tpu_torch/ops/field_codegen.py"}
+               if name.startswith("K4") else {}),
             "main_path": bf16["rows"][run]})
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -3,18 +3,25 @@
 
     python3 k4_variants.py                    # the window-row variants
     python3 k4_variants.py --parent DIR       # and an older checkout's K4
+    python3 k4_variants.py --only as_is,c4bf_as_is     # some of them
 
 Variants: config 4's generated unit (``ops/field_codegen.py``, the body in
 ``csrc/field_stencil.cuh``) built with one window height (ROWS) and with
 the instance's launch bounds asking for two blocks an SM (128 registers a
-thread) or one (255), and with the walk's rows fenced one, two or four at
-a time, or not at all, in place of eight (``kFenceRows``); and a
-one-written-channel program (``Coupled`` alone, its modulator in shared
-memory) likewise. ``as_is`` is the unit the port builds, at the rows
-``window_rows`` picks. Each variant is built with the port's nvcc flags, one
-nvcc per variant in parallel, against a copy of the ``csrc`` headers with
-its choices patched (``SETTINGS``; a text no longer in the header stops the
-tool, naming it).
+thread) or one (255), and with the walk's rows fenced one, two or four at a
+time, or not at all, in place of eight (``kFenceRows``); and a
+one-written-channel program (``Coupled`` alone, its modulator in shared memory)
+likewise. ``as_is`` is the unit the port builds, at the rows
+``window_rows`` picks. The ``c4bf_`` variants are config 4 with bf16
+interior math (``compute_dtype=bfloat16``, the ``mm_field_cbf16_*`` entry
+points, two launches: the f32 walk off the bf16 rectangle, the paired walk
+in it): the paired walk the port builds (at the rows ``window_rows16``
+picks), the same at window heights from 32 to 112 rows and with its launch
+bounds asking for one block an SM or three, and each launch alone (wrong on
+purpose: the other launch's cells stay NaN). Each variant is built with the
+port's nvcc flags, one nvcc per variant in parallel, against a copy of the
+``csrc`` headers with its choices patched (``SETTINGS``; a text no longer
+in the header stops the tool, naming it).
 
 Timed in turns, two rounds: K4 on an 8192² grid (f32 nsteps 1 and 8, bf16
 1 and 16; a variant whose rows are fewer than ``min_rows`` skips that
@@ -24,10 +31,12 @@ held to the plain version (``field_step_plain``, ``field_halo_step_plain``)
 bit for bit; so each variant's correctness is its own. The ptxas register
 and spill lines of each variant are kept.
 
-``--parent DIR`` times ``PallasFieldStep`` on config 4 at the same shapes in
-another checkout of the repository (for example the parent commit unpacked
-with ``git archive``) and in this one, each in a process of its own, in the
-order parent, this, this, parent.
+``--parent DIR`` times ``PallasFieldStep`` on config 4 at the same shapes
+(f32 and bf16 interior math) in another checkout of the repository (for
+example the parent commit unpacked with ``git archive``: its bf16 interior
+math is the earlier walk, the f32 walk with every result rounded, in one
+kernel) and in this one, each in a process of its own, in the order
+parent, this, this, parent.
 
 Times are CUDA events, warm, medians of 10 calls. Everything goes to
 ``chiprun_out/k4_variants.json``; the last line is the card's
@@ -52,14 +61,22 @@ N = 8192
 CASES = (("float32", 1), ("float32", 8), ("bfloat16", 1), ("bfloat16", 16))
 #: the header's choices a variant may change (each text must be in it)
 SETTINGS = {"blocks": "constexpr int kTwoBlockValues = 112;",
-            "fence": "constexpr int kFenceRows = 8;"}
+            "fence": "constexpr int kFenceRows = 8;",
+            "blocks16": "  return P::kOut * ROWS / 2 <= P::kTwoBlockWords ? "
+                        "2 : 1;",
+            "near_launch": "  if (cover != mm::kAll) {",
+            "bf16_launch": "  if (err == 0 && cover != mm::kNone) {"}
 #: what a variant sets them to
 PATCHES = {("blocks", 2): "constexpr int kTwoBlockValues = 100000;",
            ("blocks", 1): "constexpr int kTwoBlockValues = 0;",
            **{("fence", f): f"constexpr int kFenceRows = {f};"
-              for f in (0, 1, 2, 4)}}
+              for f in (0, 1, 2, 4)},
+           **{("blocks16", b): f"  return {b};" for b in (1, 2, 3)},
+           ("near_launch", "off"): "  if (false) {",
+           ("bf16_launch", "off"): "  if (false) {"}
 #: variant -> (program, window rows or None for the port's own, the
-#: header's choices it changes)
+#: header's choices it changes, the interior math: "f32" or "bf16"). A
+#: bf16 variant's rows are the paired walk's (its second launch).
 VARIANTS = {
     "as_is": ("config4", None, {}),
     "config4_fence1": ("config4", None, {"fence": 1}),
@@ -75,7 +92,20 @@ VARIANTS = {
     "coupled_rows48_2": ("coupled", 48, {"blocks": 2}),
     "coupled_rows64_2": ("coupled", 64, {"blocks": 2}),
     "coupled_rows64_1": ("coupled", 64, {"blocks": 1}),
+    "c4bf_as_is": ("config4", None, {}, "bf16"),
+    # every row count at two blocks an SM (112 rows hold 112 pair words,
+    # past the unit's kTwoBlockWords)
+    **{f"c4bf_rows{r}": ("config4", r, {"blocks16": 2}, "bf16")
+       for r in (32, 48, 64, 80, 96, 112)},
+    **{f"c4bf_b{b}": ("config4", None, {"blocks16": b}, "bf16")
+       for b in (1, 3)},
+    # wrong on purpose (the other launch's cells stay NaN): each launch's
+    # time alone
+    "c4bf_paired_only": ("config4", None, {"near_launch": "off"}, "bf16"),
+    "c4bf_near_only": ("config4", None, {"bf16_launch": "off"}, "bf16"),
 }
+VARIANTS = {k: v if len(v) == 4 else (*v, "f32") for k, v in
+            VARIANTS.items()}
 
 # one process's K4/K4-halo times on config 4 through the package's wrappers
 TIMER = r"""
@@ -103,18 +133,22 @@ for dname, ns in CASES:
     x = {n: (0.5 + 1.5 * torch.rand((N, N), generator=gen,
                                     device="cuda")).to(dt) for n in "ab"}
     y = {n: torch.empty_like(t) for n, t in x.items()}
-    step = k4.PallasFieldStep((N, N), flows, dtype=dt, nsteps=ns)
-    res[f"K4 {dname} ns={ns}"] = tm(lambda: step(x, out=y))
-    if (dname, ns) == ("float32", 8):
-        h = N // 2
-        g = {n: [[t[i * h:(i + 1) * h, j * h:(j + 1) * h].contiguous()
-                  for j in range(2)] for i in range(2)] for n, t in x.items()}
-        v = {n: g[n][1][1] for n in g}
-        r = {n: exchange_ring(g[n], 1, 1, ns) for n in g}
-        o = {n: torch.empty_like(t) for n, t in v.items()}
-        hs = k4.PallasFieldStep((h, h), flows, nsteps=ns)
-        res[f"K4-halo {dname} ns={ns} shard"] = tm(
-            lambda: hs.halo(v, r, (h, h), (N, N), out=o))
+    for cd, what in ((None, ""), (torch.bfloat16, " bf16-interior")):
+        step = k4.PallasFieldStep((N, N), flows, dtype=dt, nsteps=ns,
+                                  compute_dtype=cd)
+        res[f"K4{what} {dname} ns={ns}"] = tm(lambda: step(x, out=y))
+        if (dname, ns) == ("float32", 8):
+            h = N // 2
+            g = {n: [[t[i * h:(i + 1) * h, j * h:(j + 1) * h].contiguous()
+                      for j in range(2)] for i in range(2)]
+                 for n, t in x.items()}
+            v = {n: g[n][1][1] for n in g}
+            r = {n: exchange_ring(g[n], 1, 1, ns) for n in g}
+            o = {n: torch.empty_like(t) for n, t in v.items()}
+            hs = k4.PallasFieldStep((h, h), flows, nsteps=ns,
+                                    compute_dtype=cd)
+            res[f"K4-halo{what} {dname} ns={ns} shard"] = tm(
+                lambda: hs.halo(v, r, (h, h), (N, N), out=o))
     del x, y
     torch.cuda.empty_cache()
 print(json.dumps(res))
@@ -139,19 +173,27 @@ def variant_plan(torch, k4, codegen, mt, name: str):
     depth and dtype (the port's own unit for ``None``)."""
     from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
 
-    prog_name, rows, _ = VARIANTS[name]
+    prog_name, rows, _, compute = VARIANTS[name]
     plan = k4.plan_field(programs(mt)[prog_name], ("a", "b"), (N, N),
-                         torch.float32, 1)
+                         torch.float32, 1, compute_dtype=(
+                             torch.bfloat16 if compute == "bf16" else None))
     if rows is None:
         return plan
+    n_out, n_mod = len(plan.program.outputs), len(k4.modulators(
+        plan.program))
+    if compute == "f32":
+        unit = codegen.unit_source(plan.program, MOORE_OFFSETS,
+                                   {"f32": (rows,), "bf16": (rows,)})
+        return dataclasses.replace(plan, rows=rows, unit=unit)
     unit = codegen.unit_source(plan.program, MOORE_OFFSETS,
+                               k4.unit_rows(n_out, n_mod), plan.program16,
                                {"f32": (rows,), "bf16": (rows,)})
-    return dataclasses.replace(plan, rows=rows, unit=unit)
+    return dataclasses.replace(plan, unit=unit)
 
 
 def build(name: str, plan, out_dir: Path, build_mod) -> dict:
     """nvcc the variant's unit against a patched copy of the headers."""
-    _, _, changes = VARIANTS[name]
+    _, _, changes, _ = VARIANTS[name]
     inc = out_dir / f"{name}_inc"
     shutil.rmtree(inc, ignore_errors=True)
     shutil.copytree(build_mod.CSRC, inc)
@@ -178,16 +220,19 @@ def build(name: str, plan, out_dir: Path, build_mod) -> dict:
 
 
 def time_variants(torch, mt, k4, plans: dict, built: dict) -> list[dict]:
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
     from mpi_model_tpu_torch.parallel.halo import exchange_ring
 
     libs = {}
     for name, info in built.items():
         lib = ctypes.CDLL(info["library"])
+        entry = "mm_field_cbf16" if VARIANTS[name][3] == "bf16" else \
+            "mm_field"
         for key in ("f32", "bf16"):
-            fn = getattr(lib, f"mm_field_{key}")
+            fn = getattr(lib, f"{entry}_{key}")
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        libs[name] = lib
+        libs[name] = (lib, entry)
 
     def tm(fn):
         if fn() != 0:
@@ -223,50 +268,70 @@ def time_variants(torch, mt, k4, plans: dict, built: dict) -> list[dict]:
         ys = {n: torch.empty_like(t) for n, t in sv.items()}
         want, want_halo = {}, {}
         for pname, flows in programs(mt).items():
-            want[pname] = k4.field_step_plain(x, flows, nsteps=ns)
-            if (dname, ns) == ("float32", 8):
-                want_halo[pname] = k4.field_halo_step_plain(
-                    sv, rings, (h, h), (N, N), flows, nsteps=ns)
+            for compute, cd in (("f32", None), ("bf16", torch.bfloat16)):
+                if pname != "config4" and compute == "bf16":
+                    continue
+                want[pname, compute] = k4.field_step_plain(
+                    x, flows, nsteps=ns, compute_dtype=cd)
+                if (dname, ns) == ("float32", 8):
+                    want_halo[pname, compute] = k4.field_halo_step_plain(
+                        sv, rings, (h, h), (N, N), flows, nsteps=ns,
+                        compute_dtype=cd)
+        rect = fs.kernel_rect((N, N), dtype, None, ns, torch.bfloat16)
+        hrect = fs.kernel_rect((h, h), dtype, None, ns, torch.bfloat16,
+                               (h, h), (N, N))
 
         for rnd in range(2):
-            for name, lib in libs.items():
-                pname, fixed, _ = VARIANTS[name]
+            for name, (lib, entry) in libs.items():
+                pname, fixed, _, compute = VARIANTS[name]
                 plan = plans[name]
                 if fixed is not None and fixed < k4.min_rows(ns):
                     continue
-                rows = fixed or k4.window_rows(
-                    len(plan.program.outputs),
-                    len(k4.modulators(plan.program)), ns,
-                    x["a"].element_size())
-                p = dataclasses.replace(plan, rows=rows)
+                shape_of = (len(plan.program.outputs),
+                            len(k4.modulators(plan.program)), ns,
+                            x["a"].element_size())
+                rows = k4.window_rows(*shape_of)
+                rows16 = None
+                if compute == "f32":
+                    rows = fixed or rows
+                else:
+                    rows16 = fixed or k4.window_rows16(*shape_of)
+                    if k4.smem_bytes16(*shape_of[:2], rows16, shape_of[3]) \
+                            > k4.SMEM_LIMIT:
+                        continue
+                p = dataclasses.replace(plan, rows=rows, rows16=rows16)
                 order = k4.kernel_channels(p.program)
                 outs = [y[n] for n in p.program.outputs]
-                call = k4.pack_call(p, ns, [x[n] for n in order], outs)
-                fn = getattr(lib, f"mm_field_{key}")
+                call = k4.pack_call(p, ns, [x[n] for n in order], outs,
+                                    rect=rect)
+                fn = getattr(lib, f"{entry}_{key}")
                 for t in outs:
                     t.fill_(float("nan"))
                 row = {"variant": name, "round": rnd, "dtype": dname,
-                       "nsteps": ns, "rows": rows,
+                       "nsteps": ns, "rows": rows, "rows16": rows16,
+                       "compute": compute,
                        "k4_ms": tm(lambda: fn(ctypes.addressof(call),
                                               stream))}
-                ok = all(torch.equal(y[n], want[pname][n])
+                ok = all(torch.equal(y[n], want[pname, compute][n])
                          for n in p.program.outputs)
                 row["agrees"] = {"k4": ok}
                 if want_halo:
                     houts = [ys[n] for n in p.program.outputs]
                     hcall = k4.pack_call(p, ns, [sv[n] for n in order], houts,
                                          [rings[n] for n in order], (h, h),
-                                         (N, N), ns)
+                                         (N, N), ns, hrect)
                     for t in houts:
                         t.fill_(float("nan"))
                     row["k4_halo_ms"] = tm(lambda: fn(
                         ctypes.addressof(hcall), stream))
                     row["agrees"]["k4_halo"] = all(
-                        torch.equal(ys[n], want_halo[pname][n])
+                        torch.equal(ys[n], want_halo[pname, compute][n])
                         for n in p.program.outputs)
                 rows_out.append(row)
                 print(f"round {rnd} {name:18s} {dname:9s} ns={ns:2d} "
-                      f"rows={rows}: K4 {row['k4_ms']:.4f} ms"
+                      f"rows={rows}"
+                      + (f"/{rows16}" if rows16 else "")
+                      + f": K4 {row['k4_ms']:.4f} ms"
                       + (f", K4-halo shard {row['k4_halo_ms']:.4f} ms"
                          if "k4_halo_ms" in row else "")
                       + f" (agrees: {row['agrees']})", flush=True)
@@ -287,7 +352,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose K4/K4-halo to time in turns")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants to build and time")
     args = ap.parse_args()
+    names = list(VARIANTS) if args.only is None else args.only.split(",")
+    unknown = sorted(set(names) - set(VARIANTS))
+    if unknown:
+        print(f"k4_variants: unknown variants {unknown}", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -302,10 +374,10 @@ def main() -> int:
     out_dir = HERE / "chiprun_out"
     var_dir = out_dir / "k4_variants"
     var_dir.mkdir(parents=True, exist_ok=True)
-    plans = {n: variant_plan(torch, k4, codegen, mt, n) for n in VARIANTS}
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+    plans = {n: variant_plan(torch, k4, codegen, mt, n) for n in names}
+    with ThreadPoolExecutor(len(names)) as pool:
         futs = {n: pool.submit(build, n, plans[n], var_dir, _build)
-                for n in VARIANTS}
+                for n in names}
         built = {n: f.result() for n, f in futs.items()}
     for name, info in built.items():
         print(f"{name}: " + "; ".join(info["ptxas"]), flush=True)

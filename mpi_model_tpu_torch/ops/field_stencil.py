@@ -41,7 +41,10 @@ in ``_build/`` by a hash of its text.
   to bf16, and a bf16 transport (``share = of·(1/k)`` or ``of / k``, the
   inflow from 0 in ``offsets`` order, ``(v - of) + inflow``, each rounded);
   every other cell the f32 step, unchanged (the TPU kernel's near tiles
-  are plain f32).
+  are plain f32). The kernel runs the bf16 cells on a paired walk, two
+  window rows a bf16x2 register (``field_codegen.pair_plan``,
+  ``csrc/field_stencil.cuh``), in a launch of its own at its own window
+  rows (``window_rows16``); a call is two kernel launches, counted as one.
 - Launches are counted, per stepper (``PallasFieldStep.launches``) and
   module-wide (``launches()`` for K4, ``halo_launches()`` for K4-halo), only
   where the kernel is launched.
@@ -56,7 +59,8 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from ..core.cell import MOORE_OFFSETS
-from .field_codegen import FieldUnit, modulators, unit_source
+from .field_codegen import (TWO_BLOCK_WORDS, FieldUnit, modulators,
+                            unit_source)
 from .field_lower import (MAX_CHANNELS, FieldProgram, check_program,
                           eval_program, lower_flows)
 from .flow import build_outflow
@@ -75,6 +79,12 @@ WARPS = 8
 EDGE_SLOTS = 2 * (WARPS + 2)
 #: shared memory one block may use on the H100 (sm_90)
 SMEM_LIMIT = 232_448
+#: shared memory a block may use for two blocks to fit an SM (228 KB, less
+#: 1 KB reserved a block)
+TWO_BLOCK_SMEM = 115_712
+#: the paired walk's most window rows (the fastest measured, config 4 at
+#: bf16 nsteps 16, k4_variants.py)
+MAX_ROWS16 = 96
 #: the deepest call per storage dtype (the ghost-depth rule's most)
 MAX_NSTEPS = {"f32": 8, "bf16": 16}
 _ITEMSIZE = {"f32": 4, "bf16": 2}
@@ -154,6 +164,46 @@ def window_rows(n_out: int, n_mod: int, nsteps: int,
     return None
 
 
+def smem_bytes16(n_out: int, n_mod: int, rows: int, itemsize: int) -> int:
+    """Shared memory of one block of the paired walk (``csrc/
+    field_stencil.cuh``'s ``smem_bytes16``): the staged windows, or the
+    walk's pair words if more (the exchange, two parities, and each warp's
+    two outer columns)."""
+    sb = stage_bytes(rows, itemsize)
+    words = n_out * rows // 2
+    walk = (2 * EDGE_SLOTS * words + WARPS * 2 * (words + 1)) * 4
+    return n_mod * sb + max(n_out * sb, walk)
+
+
+def window_rows16(n_out: int, n_mod: int, nsteps: int,
+                  itemsize: int) -> Optional[int]:
+    """The paired walk's window rows (the bf16 interior math's second
+    launch): 32 at one or two steps, else the most rows, a multiple of 8
+    up to ``MAX_ROWS16``, at which two blocks fit an SM in registers
+    (``n_out`` x rows / 2 words a thread, at most ``TWO_BLOCK_WORDS``: the
+    threshold the unit's launch bounds take too) and in shared memory; at
+    least ``min_rows``, lowered while over ``SMEM_LIMIT``; None if even
+    ``min_rows`` is (no program within the limits is). Only config 4 was
+    measured (``k4_variants.py``): 32 at nsteps 1, 48 at f32 storage nsteps
+    8 (two blocks' staged f32 windows), 96 at bf16 storage nsteps 16. The
+    rule looks at no program's size: larger programs may spill at these
+    rows (PERF.md)."""
+    lo = min_rows(nsteps)
+    if nsteps <= 2:
+        rows = max(32, lo)
+    else:
+        rows = max(lo, min(MAX_ROWS16, 8 * (2 * TWO_BLOCK_WORDS // n_out
+                                            // 8)))
+        while rows > lo and smem_bytes16(n_out, n_mod, rows,
+                                          itemsize) > TWO_BLOCK_SMEM:
+            rows -= 8
+    while rows >= lo:
+        if smem_bytes16(n_out, n_mod, rows, itemsize) <= SMEM_LIMIT:
+            return rows
+        rows -= 8
+    return None
+
+
 def unit_rows(n_out: int, n_mod: int) -> dict[str, tuple[int, ...]]:
     """Every window height a program of ``n_out`` written channels and
     ``n_mod`` modulators can ask for, per storage dtype: its unit's
@@ -161,6 +211,16 @@ def unit_rows(n_out: int, n_mod: int) -> dict[str, tuple[int, ...]]:
     out = {}
     for key, deepest in MAX_NSTEPS.items():
         rows = {window_rows(n_out, n_mod, n, _ITEMSIZE[key])
+                for n in range(1, deepest + 1)}
+        out[key] = tuple(sorted(r for r in rows if r is not None))
+    return out
+
+
+def unit_rows16(n_out: int, n_mod: int) -> dict[str, tuple[int, ...]]:
+    """``unit_rows`` for the paired walk (``window_rows16``)."""
+    out = {}
+    for key, deepest in MAX_NSTEPS.items():
+        rows = {window_rows16(n_out, n_mod, n, _ITEMSIZE[key])
                 for n in range(1, deepest + 1)}
         out[key] = tuple(sorted(r for r in rows if r is not None))
     return out
@@ -194,6 +254,9 @@ class FieldPlan:
     label: str
     #: the program of the bf16 interior math, None for f32 compute
     program16: Optional[FieldProgram] = None
+    #: the paired walk's window rows (``window_rows16``), None for f32
+    #: compute
+    rows16: Optional[int] = None
 
 
 def plan_field(flows, names: Sequence[str], shape: tuple[int, int], dtype,
@@ -229,11 +292,15 @@ def plan_field(flows, names: Sequence[str], shape: tuple[int, int], dtype,
             f"rows ({n_out} written channels, {n_mod} modulators, "
             f"nsteps={nsteps}), over the {SMEM_LIMIT} bytes a block may "
             "use; use fewer substeps or impl='xla'")
+    # the paired walk's block needs no more shared memory than the f32
+    # walk's at the same rows, so it fits wherever ``rows`` did
+    rows16 = (window_rows16(n_out, n_mod, int(nsteps), itemsize)
+              if prog16 is not None else None)
     label = (", ".join(prog.labels) + " over offsets "
              + " ".join(f"({dx},{dy})" for dx, dy in offsets))
-    return FieldPlan(prog, rows, unit_source(prog, offsets,
-                                             unit_rows(n_out, n_mod),
-                                             prog16), label, prog16)
+    return FieldPlan(prog, rows, unit_source(
+        prog, offsets, unit_rows(n_out, n_mod), prog16,
+        unit_rows16(n_out, n_mod)), label, prog16, rows16)
 
 
 def interior_steps_bf16(chans: Mapping[str, torch.Tensor],
@@ -381,6 +448,7 @@ class _FieldCall(ctypes.Structure):
         ("vec", ctypes.c_int),
         ("br0", ctypes.c_int), ("br1", ctypes.c_int),
         ("bc0", ctypes.c_int), ("bc1", ctypes.c_int),
+        ("rows16", ctypes.c_int),
     ]
 
 
@@ -402,7 +470,8 @@ def pack_call(plan: FieldPlan, nsteps: int, chans: Sequence[torch.Tensor],
     ``global_shape``), ``outs`` in ``outputs`` order. ``vec`` says whether
     every loaded channel's rows are 16-byte aligned (cp.async windows).
     ``rect``: the global rows and columns of the cells the bf16 interior
-    math takes (read by a bf16-compute launch only)."""
+    math takes, and ``rows16`` the paired walk's window rows (read by a
+    bf16-compute launch only)."""
     a = _FieldCall()
     h, w = (int(x) for x in chans[0].shape)
     a.h, a.w = h, w
@@ -419,6 +488,7 @@ def pack_call(plan: FieldPlan, nsteps: int, chans: Sequence[torch.Tensor],
     for o, t in enumerate(outs):
         a.out[o] = t.data_ptr()
     a.br0, a.br1, a.bc0, a.bc1 = (int(x) for x in rect)
+    a.rows16 = plan.rows16 or 0
     return a
 
 
@@ -442,8 +512,6 @@ def unit_library(plan: FieldPlan) -> ctypes.CDLL:
             getattr(lib, f"{entry}_{key}").argtypes = [ctypes.c_void_p,
                                                        ctypes.c_void_p]
             getattr(lib, f"{entry}_{key}").restype = ctypes.c_int
-        getattr(lib, f"mm_field_smem_{key}").argtypes = [ctypes.c_int]
-        getattr(lib, f"mm_field_smem_{key}").restype = ctypes.c_int
     lib.mm_field_call_size.restype = ctypes.c_int
     lib.mm_field_error_string.argtypes = [ctypes.c_int]
     lib.mm_field_error_string.restype = ctypes.c_char_p
@@ -454,13 +522,19 @@ def unit_library(plan: FieldPlan) -> ctypes.CDLL:
     prog = plan.program
     n_out, n_mod = len(prog.outputs), len(modulators(prog))
     for key in ("f32", "bf16"):
-        for rows in plan.unit.rows_of(key):
-            got = getattr(lib, f"mm_field_smem_{key}")(rows)
-            want = smem_bytes(n_out, n_mod, rows, _ITEMSIZE[key])
+        checks = [("", rows, smem_bytes) for rows in plan.unit.rows_of(key)]
+        checks += [("16", rows, smem_bytes16)
+                   for rows in plan.unit.rows16_of(key)]
+        for which, rows, reckon in checks:
+            fn = getattr(lib, f"mm_field_smem{which}_{key}")
+            fn.argtypes = [ctypes.c_int]
+            fn.restype = ctypes.c_int
+            got = fn(rows)
+            want = reckon(n_out, n_mod, rows, _ITEMSIZE[key])
             if got != want:
                 raise RuntimeError(
-                    f"the field kernel's {key} instance of {rows} rows "
-                    f"takes {got} bytes of shared memory, the wrapper "
+                    f"the field kernel's {key} instance{which} of {rows} "
+                    f"rows takes {got} bytes of shared memory, the wrapper "
                     f"reckons {want}")
     _unit_libs[plan.unit.text] = lib
     return lib

@@ -315,6 +315,35 @@ def test_k4_bf16_interior_matches_jax(ns):
         _held(got[n].numpy(), np.asarray(want[n]), mask, ns)
 
 
+@pytest.mark.parametrize("ns", [1, 4])
+def test_k4_paired_walk_matches_jax(ns):
+    """The paired walk K4 runs on its bf16 cells (two rows a bf16x2
+    register, emulated in torch over the kernel's windows:
+    ``tests/test_torch_field_codegen.py::paired_k4``), its near tiles the
+    f32 plain version, against JAX's ``PallasFieldStep`` (interpret mode):
+    near tiles within NEAR, bf16 tiles within one bf16 ulp."""
+    from test_torch_field_codegen import paired_k4
+
+    tflows, vals = _coupled(mt, seed=7)
+    jflows, _ = _coupled(mm)
+    block, shape = (8, 128), (40, 640)
+    tv = {k: torch.from_numpy(v) for k, v in vals.items()}
+    plan = k4.plan_field(tflows, ("a", "b"), shape, torch.float32, ns,
+                         block, compute_dtype=BF)
+    got = fs.with_bf16_rect(
+        k4.field_step_plain(tv, tflows, nsteps=ns),
+        lambda: paired_k4(plan.program16,
+                          {n: fs.rb(tv[n]) for n in plan.program16.channels},
+                          mt.core.cell.MOORE_OFFSETS, ns, plan.rows16),
+        shape, torch.float32, block, ns)
+    want = jps.PallasFieldStep(shape, jflows, block=block, interpret=True,
+                               nsteps=ns, compute_dtype=jnp.bfloat16)(
+        {k: jnp.asarray(v) for k, v in vals.items()})
+    mask = _split(shape, block, ns)
+    for n in ("a", "b"):
+        _held(got[n].numpy(), np.asarray(want[n]), mask, ns)
+
+
 def test_k4_near_tiles_are_plain_f32():
     tflows, vals = _coupled(mt, seed=6)
     tv = {k: torch.from_numpy(v) for k, v in vals.items()}

@@ -988,43 +988,126 @@ def test_bf16_interior_k3_halo_on_the_card(form, dtype, k, mesh_shape,
             _held_to_plain(got, want, form, k)
 
 
+#: a six-offset neighbourhood (hexagonal; its count is no power of two)
+_SIX = ((-1, -1), (-1, 0), (0, -1), (0, 1), (1, 0), (1, 1))
+_K4_HOODS = {"moore": MOORE_OFFSETS, "six": _SIX}
+
+
+@pytest.fixture(scope="module")
+def _k4_bf16_units():
+    """Build the bf16-compute units of every flow set and neighbourhood the
+    K4 bf16-interior tests run, one nvcc each, all at once."""
+    from mpi_model_tpu_torch.ops import _build
+
+    _card()
+    units = {k4.plan_field(fl, ("a", "b", "c"), (64, 128), torch.float32, 1,
+                           offsets=offs, compute_dtype=_BF).unit.text: name
+             for name, fl in _FLOW_SETS.items()
+             for offs in _K4_HOODS.values()}
+    _build.build_all(units=tuple((t, n) for t, n in units.items()))
+
+
+def _with_specials(vals, seed):
+    """Cells of each channel set to +0, -0, bf16 subnormals and +-inf."""
+    rng = np.random.default_rng(seed)
+    specials = (0.0, -0.0, 2.0 ** -130, -(2.0 ** -128), 2.0 ** -133,
+                float("inf"), float("-inf"))
+    for t in vals.values():
+        flat = t.view(-1)
+        for i, x in enumerate(rng.choice(flat.numel(), 4 * len(specials),
+                                         replace=False)):
+            flat[int(x)] = specials[i % len(specials)]
+    return vals
+
+
+def _held_bf16_interior(got, want):
+    """Bit for bit, NaN compared by position (exp too: the kernel's
+    ``expf`` and torch's on the card agree)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[~nan].view(bits), want[~nan].view(bits))
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("values", ["uniform", "special"])
+@pytest.mark.parametrize("hood", sorted(_K4_HOODS))
 @pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 8),
+                                      (torch.bfloat16, 1),
                                       (torch.bfloat16, 16)])
-@pytest.mark.parametrize("flows", ["config4", "chain3", "row_rate"])
+@pytest.mark.parametrize("flows", sorted(_FLOW_SETS))
 @pytest.mark.parametrize("shape,block", [((512, 1024), (64, 128)),
-                                         ((256, 512), None)])
-def test_bf16_interior_k4_on_the_card(dtype, ns, flows, shape, block):
-    """K4 bf16-interior against ``field_step_plain(..., compute_dtype)``
-    bit for bit (the bf16 program, the rounded transport, f32 near
-    tiles)."""
+                                         ((256, 512), None),
+                                         ((225, 640), (45, 128))])
+def test_bf16_interior_k4_on_the_card(dtype, ns, flows, shape, block, hood,
+                                      values, _k4_bf16_units):
+    """K4 bf16-interior (the paired walk) against ``field_step_plain(...,
+    compute_dtype)`` bit for bit (the bf16 program, the bf16 transport, f32
+    near tiles), on uniform values and on values holding +-0, bf16
+    subnormals and +-inf; (225, 640) at block (45, 128) has an odd number
+    of rows in the bf16 rectangle, starting at an odd row."""
     dev = _card()
     fl = _FLOW_SETS[flows]
+    offs = _K4_HOODS[hood]
     ns = min(ns, fs.ghost_depth(shape, dtype, block))
     vals = _field_values(dev, dtype, shape, 17)
-    step = k4.PallasFieldStep(shape, fl, block=block, nsteps=ns,
-                              compute_dtype=_BF)
+    if values == "special":
+        vals = _with_specials(vals, 5)
+    step = k4.PallasFieldStep(shape, fl, offsets=offs, block=block,
+                              nsteps=ns, compute_dtype=_BF)
     got = step(vals)
     assert step.launches == 1
-    want = k4.field_step_plain(vals, fl, nsteps=ns, compute_dtype=_BF,
+    want = k4.field_step_plain(vals, fl, offs, nsteps=ns, compute_dtype=_BF,
                                block=block)
     for n in {f.attr for f in fl}:
-        assert torch.equal(got[n], want[n]), n
+        _held_bf16_interior(got[n], want[n])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,ns", [(torch.float32, 8), (torch.bfloat16, 16)])
+def test_bf16_interior_k4_broken_paired_unit_raises(_k4_bf16_units):
+    """No fallback: a paired unit that does not build raises naming the
+    flow set, and nothing is launched in its place."""
+    dev = _card()
+    fl = _FLOW_SETS["config4"]
+    step = k4.PallasFieldStep((512, 1024), fl, block=(64, 128), nsteps=8,
+                              compute_dtype=_BF)
+    vals = _field_values(dev, torch.float32, (512, 1024), 3)
+    key = (tuple(vals), torch.float32)
+    plan = step.plan(*key)
+    text = plan.unit.text.replace("mm::mul_bf2(", "mm::mul_bf2_missing(")
+    assert text != plan.unit.text
+    step._plans[key] = dataclasses.replace(
+        plan, unit=dataclasses.replace(plan.unit, text=text))
+    before = k4.launches()
+    with pytest.raises(RuntimeError, match="Diffusion"):
+        step(vals)
+    assert k4.launches() == before and step.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hood", sorted(_K4_HOODS))
+@pytest.mark.parametrize("flows", sorted(_FLOW_SETS))
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 1), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
 @pytest.mark.parametrize("mesh_shape,shape", [((2, 2), (1024, 2048)),
                                               ((1, 4), (128, 512))])
-def test_bf16_interior_k4_halo_on_the_card(dtype, ns, mesh_shape, shape):
+def test_bf16_interior_k4_halo_on_the_card(dtype, ns, mesh_shape, shape,
+                                           flows, hood, _k4_bf16_units):
     from mpi_model_tpu_torch.parallel import exchange_ring
 
     dev = _card()
-    fl = _FLOW_SETS["config4"]
-    names = ("a", "b")
+    fl = _FLOW_SETS[flows]
+    offs = _K4_HOODS[hood]
+    names = ("a", "b", "c")
     mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 53,
                                     names)
-    step = k4.PallasFieldStep((h, w), fl, nsteps=ns, compute_dtype=_BF)
+    if flows in ("affine", "every_op"):
+        _with_specials(full, 9)
+        g = {n: [[full[n][i * h:(i + 1) * h, j * w:(j + 1) * w].contiguous()
+                  for j in range(mesh_shape[1])]
+                 for i in range(mesh_shape[0])] for n in names}
+    step = k4.PallasFieldStep((h, w), fl, offsets=offs, nsteps=ns,
+                              compute_dtype=_BF)
     lines, columns = mesh_shape
     for i in range(lines):
         for j in range(columns):
@@ -1032,10 +1115,10 @@ def test_bf16_interior_k4_halo_on_the_card(dtype, ns, mesh_shape, shape):
             rings = {n: exchange_ring(g[n], i, j, ns) for n in names}
             got = step.halo(vals, rings, (i * h, j * w), shape)
             want = k4.field_halo_step_plain(vals, rings, (i * h, j * w),
-                                            shape, fl, nsteps=ns,
+                                            shape, fl, offs, nsteps=ns,
                                             compute_dtype=_BF)
-            for n in names:
-                assert torch.equal(got[n], want[n]), (i, j, n)
+            for n in {f.attr for f in fl}:
+                _held_bf16_interior(got[n], want[n])
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ import argparse
 import ctypes
 import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -587,6 +588,55 @@ def test_shared_memory_rule():
     assert step.planned.unit.rows_of("f32") == (32,)
 
 
+def test_paired_walk_rows_rule():
+    """The bf16 interior math's paired walk (its own launch) takes its own
+    window rows: 32 at one or two steps, else the most rows up to
+    ``MAX_ROWS16`` at which two blocks fit an SM in registers (pair words)
+    and shared memory; every program within the limits gets rows at every
+    admitted depth, within the block's shared memory."""
+    # config 4 as measured: f32 storage is held to 48 by two blocks'
+    # staged windows, bf16 storage takes 96
+    assert k4.window_rows16(2, 0, 1, 4) == 32
+    assert k4.window_rows16(2, 0, 8, 4) == 48
+    assert k4.window_rows16(2, 0, 1, 2) == 32
+    assert k4.window_rows16(2, 0, 16, 2) == 96
+    assert k4.window_rows16(3, 0, 16, 2) == 64  # 96 pair words
+    assert k4.smem_bytes16(2, 0, 96, 2) == 2 * k4.stage_bytes(96, 2) \
+        <= k4.TWO_BLOCK_SMEM
+    # the walk's pair words fit in the staged windows they reuse
+    assert k4.smem_bytes16(1, 0, 24, 2) == k4.stage_bytes(24, 2) > (
+        2 * 20 * 12 + 8 * 2 * 13) * 4
+    for n_chan in range(1, 9):
+        for n_out in range(1, n_chan + 1):
+            n_mod = n_chan - n_out
+            for key, deepest in k4.MAX_NSTEPS.items():
+                itemsize = 4 if key == "f32" else 2
+                for ns in range(1, deepest + 1):
+                    rows = k4.window_rows16(n_out, n_mod, ns, itemsize)
+                    assert rows is not None and rows >= k4.min_rows(ns)
+                    assert rows % 8 == 0 and rows - 2 * ns >= 1
+                    assert k4.smem_bytes16(n_out, n_mod, rows,
+                                           itemsize) <= k4.SMEM_LIMIT
+                    assert rows in k4.unit_rows16(n_out, n_mod)[key]
+                    if ns > 2 and rows > k4.min_rows(ns):
+                        assert n_out * rows // 2 <= k4.TWO_BLOCK_WORDS
+                        assert k4.smem_bytes16(
+                            n_out, n_mod, rows, itemsize) <= \
+                            k4.TWO_BLOCK_SMEM
+    plan = k4.plan_field(config4(), ("a", "b"), (64, 256), torch.bfloat16,
+                         16, compute_dtype=torch.bfloat16)
+    assert (plan.rows, plan.rows16) == (48, 96)
+    assert "mm_field::Rows<32, 48>{}, mm_field::Rows<32, 96>{}" in \
+        plan.unit.text
+    # one threshold: the bf16 program's struct carries the rule's for the
+    # header's launch bounds (min_blocks16)
+    assert plan.unit.text.count(
+        f"static constexpr int kTwoBlockWords = {k4.TWO_BLOCK_WORDS};") == 1
+    assert "P::kTwoBlockWords" in (
+        Path(k4.__file__).parent.parent / "csrc" / "field_stencil.cuh"
+    ).read_text()
+
+
 def test_pack_program_layout():
     """The launch argument: the written channels first, then the
     modulators; K4's ring depth 0 with the grid as the shard; K4-halo's
@@ -625,11 +675,21 @@ def test_pack_program_layout():
     rcall = k4.pack_call(plan, 8, [vals["b"], vals["a"]], [out],
                          rect=(16, 24, 128, 256))
     assert (rcall.br0, rcall.br1, rcall.bc0, rcall.bc1) == (16, 24, 128, 256)
+    # the paired walk's window rows: 0 for f32 compute, the plan's else
+    assert call.rows16 == 0 and plan.rows16 is None
+    plan16 = k4.plan_field(flows, ("a", "b", "c"), (40, 256), torch.float32,
+                           8, compute_dtype=torch.bfloat16)
+    assert plan16.rows == 48 and plan16.rows16 == 48
+    assert plan16.unit.rows16_of("f32") == (32, 48)
+    assert plan16.unit.rows16_of("bf16") == (32, 96)
+    assert k4.pack_call(plan16, 8, [vals["b"], vals["a"]],
+                        [out]).rows16 == 48
     # the C struct: pointers, then ints, 8-byte aligned, a kernel argument
     assert k4._FieldCall.inp.offset == 0 and k4._FieldCall.ring.offset == 64
     assert k4._FieldCall.out.offset == 576 and k4._FieldCall.h.offset == 640
     assert k4._FieldCall.br0.offset == 680
-    assert ctypes.sizeof(k4._FieldCall) == 696 < 4096
+    assert k4._FieldCall.rows16.offset == 696
+    assert ctypes.sizeof(k4._FieldCall) == 704 < 4096
 
 
 def test_wrapper_contract_on_cpu():
