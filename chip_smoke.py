@@ -223,14 +223,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    f32 walk off the bf16 rectangle and the paired walk in it, counted as
    one launch)
    and K5 (2 × 1024² at block (128, 256), closed tiles inside; 8 × 4096²,
-   none: the f32 result): bit for bit, K3 mxu to its tolerance. At one
+   none: the f32 result): bit for bit, K3 mxu to its tolerance; K3 mxu
+   also over windows of ±0 and bf16 subnormals (and, outside the bf16
+   rectangle, bit for bit the f32-compute kernel over the grid rounded to
+   bf16) and of ±inf (held by position; the non-finite cells of each
+   version recorded, ``inf_positions``). At one
    step K1/K2 are their f32 results. Then the main paths at full width,
    each run with the counts set to 0 just before and read just after:
    K1 16384² f32 substeps 8 and bf16 16, the composed path at k 8 and 16
    in both forms, config 4 at 8192² (f32 substeps 1 and 8, bf16 1 and
    16), the 2×2
-   sharded K2, K3-halo (each form) and K4-halo (config 4 at 8192²) at
-   depth 8 (K4's and K4-halo's counted runs traced: every launch must have
+   sharded K2, K3-halo (each form, bit for bit its serial composed run)
+   and K4-halo (config 4 at 8192²) at depth 8 (K3 mxu's and K3-halo mxu's
+   counted runs traced: every launch must have run the persistent walk
+   once and no other K3 kernel, ``k3_mxu16``, a run whose trace dropped a
+   walk run and traced again at most twice; K4's and K4-halo's: every launch must have
    run the f32 walk and the paired walk once each, ``k4_walk``; the
    kernels line's ``walk`` and ``kernels_per_launch`` come from that
    trace), the ensemble 8 × 4096² (bit for bit the
@@ -242,7 +249,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel's of this run, its plain version's, and the function's bound
    (bytes, or the operations of its cheapest form: bf16 cells at the
    paired bf16 rate ``BF16X2_OPS``, the rest at the f32 rate; K3 mxu's
-   banded MMAs are its form's bound, ``form_bound_ms``; K4's paired form
+   banded MMAs on the layout that runs are its form's bound,
+   ``form_bound_ms``, ``mxu16_tensor_ms``; K4's paired form
    counts its instructions on the f32 halves at the f32 rate).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
@@ -298,6 +306,13 @@ CUSTOM_OFFSETS = ((-1, 0), (1, 1), (0, -1))
 #: rounded). H100 80GB HBM3 at 700.00 W, this script: at most 4.69e-3
 #: (K3 vpu bf16 k=16, 64 steps of 16384²); a third of this limit
 MASS_BF16 = 2.0 ** -6
+#: the mxu bf16-interior kernel before its persistent walk (a block a tile,
+#: windows staged element by element), ms a call on an H100 80GB HBM3 at
+#: 700.00 W, as PERF.md §6 records them (PR 11's run L): printed beside this
+#: run's figures, and in no JSON, since no run of this script measures them
+MXU16_BEFORE_MS = {"K3 mxu float32 k=8": 3.427,
+                   "K3 mxu bfloat16 k=16": 4.507,
+                   "K3-halo mxu float32 k=8 shard (8192, 8192)": 1.072}
 
 
 def fail(msg: str) -> None:
@@ -384,10 +399,11 @@ def traced_kernels(torch, fn) -> tuple:
     """What ``fn()`` returns, and the device kernels it launched, by name
     with their counts, from a ``torch.profiler`` trace. The work is queued
     behind a spin of the device (``torch.cuda._sleep``), and the trace is
-    held open past its end: the profiler keeps only the kernels whose
-    device times fall in its host window, and its device and host clocks
-    do not line up, so a short window's first kernels can go missing
-    otherwise. Only counts and names are taken from it."""
+    held open past its end, behind a second spin: the profiler keeps only
+    the kernels whose device times fall in its host window, and its device
+    and host clocks do not line up, so a short window's first or last
+    kernels can go missing otherwise. Only counts and names are taken from
+    it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -396,6 +412,7 @@ def traced_kernels(torch, fn) -> tuple:
         time.sleep(0.05)
         torch.cuda._sleep(100_000_000)  # ~50 ms of the device
         got = fn()
+        torch.cuda._sleep(100_000_000)
         torch.cuda.synchronize()
         time.sleep(0.05)
     names: dict[str, int] = {}
@@ -425,6 +442,31 @@ def k4_walk(names: dict, launched: int, what: str) -> dict:
           "f32 walk and the paired walk once each")
     return {"walk": "paired", "kernels_per_launch": sum(k4.values())
             / launched, "k4_kernels": k4}
+
+
+def k3_short(names: dict, launched: int) -> int:
+    """The walks a K3 mxu bf16-interior trace shows when they are fewer
+    than the launches counted and the trace holds no other K3 kernel (a
+    kernel the profiler dropped); else 0."""
+    k3 = {n: c for n, c in names.items() if "composed_" in n}
+    walk = sum(c for n, c in k3.items() if "composed_mxu16" in n)
+    return walk if walk < launched and sum(k3.values()) == walk else 0
+
+
+def k3_mxu16(names: dict, launched: int, what: str) -> dict:
+    """Which K3 kernels a counted main-path run of the mxu form's bf16
+    interior math ran, from its trace (``traced_kernels``): the persistent
+    walk (``composed_mxu16_kernel`` / ``composed_mxu16_halo_kernel``) once
+    a launch, and no other K3 kernel. Fails otherwise. Returns the instance
+    and the counts."""
+    k3 = {n: c for n, c in names.items() if "composed_" in n}
+    walk = sum(c for n, c in k3.items() if "composed_mxu16" in n)
+    check(launched > 0 and walk == launched and sum(k3.values()) == walk,
+          f"{what}: {launched} launches ran the K3 kernels {k3} ({walk} of "
+          "the persistent bf16-interior walk), not the walk once each")
+    halo = any("composed_mxu16_halo_kernel" in n for n in k3)
+    return {"instance": ("composed_mxu16_halo_kernel" if halo
+                         else "composed_mxu16_kernel"), "k3_kernels": k3}
 
 
 def print_profile(what: str, prof: dict) -> None:
@@ -1787,6 +1829,21 @@ def bf16_form_bound_ms(cells: int, inner16: int, ops16: float,
     return larger(bytes_ms, ops_ms)
 
 
+def mxu16_tensor_ms(cs, fs, shape, k: int, dtype, block, origin=(0, 0),
+                    global_shape=None) -> float:
+    """Least tensor-core time of one K3 (K3-halo) mxu call with bf16
+    interior math, on the layout that runs (``cs.mxu_mma_flops`` with the
+    call's rectangle): its bf16 MMAs over the bf16 peak, its TF32 MMAs over
+    the TF32 peak."""
+    import torch
+
+    rect = fs.kernel_rect(shape, dtype, block, k, torch.bfloat16, origin,
+                          global_shape)
+    by = cs.mxu_mma_flops(shape, k, dtype, origin, global_shape, rect)
+    return (by.get("bf16", 0.0) / BF16_FLOPS
+            + by.get("tf32", 0.0) / TF32_FLOPS) * 1e3
+
+
 def k4_paired_bound_ms(plan, k: int, cells: int, inner16: int, nsteps: int,
                        nbytes: int) -> tuple[float, str]:
     """Least time for one K4 call over ``k`` offsets in the paired walk's
@@ -1944,6 +2001,60 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                              0.13, k, variant=form, compute_dtype=BF),
                          form, k)
         del x, g
+    # K3 mxu bf16-interior over +-0 and bf16 subnormals (and +-inf): the
+    # kernel against its plain version, and its cells outside the bf16
+    # rectangle bit for bit the f32-compute kernel over the grid rounded to
+    # bf16 (the f32 pass without the window's zero low term); with +-inf,
+    # where the plain version is not finite the kernel is not either, its
+    # finite cells are held to the tolerance, and the non-finite cells each
+    # version gives are recorded by position
+    out["inf_positions"] = {}
+    for dtype, k in ((torch.float32, 8), (BF, 16)):
+        dname = str(dtype).removeprefix("torch.")
+        shape, block = (336, 1024), (48, 256)
+        x = rand(shape, dtype)
+        xs = with_specials({"v": x.clone()}, 11)["v"]
+        r0, r1, c0, c1 = fs.kernel_rect(shape, dtype, block, k, BF)
+        rows = torch.arange(shape[0], device=dev)[:, None]
+        cols = torch.arange(shape[1], device=dev)[None, :]
+        outside = ~((rows >= r0) & (rows < r1) & (cols >= c0) & (cols < c1))
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        for vname, v in (("+-0 and subnormals",
+                          torch.where(torch.isinf(xs), x, xs)),
+                         ("+-inf", xs)):
+            got = cs.composed_dense_step(v, 0.13, k, block=block,
+                                         variant="mxu", compute_dtype=BF)
+            want = cs.composed_dense_step_plain(v, 0.13, k, variant="mxu",
+                                                compute_dtype=BF,
+                                                block=block)
+            f32k = cs.composed_dense_step(v.to(BF).to(dtype), 0.13, k,
+                                          block=block, variant="mxu")
+            what = f"K3 bf16-interior {dname} {shape} k={k} mxu {vname}"
+            if vname == "+-inf":
+                fin = torch.isfinite(want)
+                both = fin & torch.isfinite(got)
+                case(what + " (finite cells)", got[both], want[both], "mxu",
+                     k)
+                check(not bool(torch.isfinite(got[~fin]).any()),
+                      f"{what}: a cell the plain version leaves non-finite "
+                      "is finite")
+                nf = {n: int((~torch.isfinite(t)).sum()) for n, t in (
+                    ("plain", want), ("kernel", got),
+                    ("f32_compute_kernel_over_bf16", f32k))}
+                nf["outside_rect_differ_from_f32_compute"] = int(
+                    (torch.isfinite(got) != torch.isfinite(f32k))[
+                        outside].sum())
+                out["inf_positions"][f"{dname} k={k}"] = nf
+                record(f"{what}: non-finite cells {nf}", True)
+            else:
+                case(what, got, want, "mxu", k)
+                same = torch.equal(got[outside].view(bits),
+                                   f32k[outside].view(bits))
+                record(f"{what}: outside the rectangle bit for bit the "
+                       f"f32-compute kernel over bf16 values: {same}", same)
+                check(same, f"{what}: the f32 pass is not the f32-compute "
+                            "kernel over the grid rounded to bf16")
+        del x, xs, got, want, f32k
     # K4 and K4-halo on the paired walk: each flow set of K4_BF16_SETS and
     # its neighbourhoods, uniform values and values holding +-0, bf16
     # subnormals and +-inf, on a grid whose bf16 rectangle cuts the tiles
@@ -2027,25 +2138,39 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
 
     # -- the main paths at full width ---------------------------------------------
     def run_row(what, model, space, ex, steps, counter, want_launches,
-                k4=False):
+                k4=False, k3=False):
         """One counted run (counts to 0 just before, read just after), its
         checks and its run ms (CUDA events, median of 3). bf16 interior
         math does not conserve mass as f32 does, by JAX's semantics (its
         constants rounded to bf16, every operation rounded): the run may
         move ``MASS_BF16`` of the total. The kernels' results themselves
-        are held against their plain versions by ``timed``. ``k4``: the
-        counted run is traced, and the K4 walks it ran (``k4_walk``) go
-        into its row."""
+        are held against their plain versions by ``timed``. ``k4`` (``k3``):
+        the counted run is traced, and the K4 walks (the K3 mxu
+        bf16-interior instance, ``k3_mxu16``) it ran go into its row."""
         def run():
             return model.execute(space, ex, steps=steps,
                                  check_conservation=False)
 
         reset_counts()
-        if k4:
+        if k4 or k3:
             (res, rep), names = traced_kernels(torch, run)
         else:
             res, rep = run()
         launched = counter()
+        # the profiler dropped one walk of a traced K3 run now and then (7
+        # of 8 launches in a run on the H100, none in 48 runs traced alone):
+        # a run whose trace shows fewer walks than launches and no other K3
+        # kernel is run and traced again, at most twice; k3_mxu16 then
+        # holds the last trace to one walk a launch
+        attempts = 1
+        while k3 and attempts < 3 and k3_short(names, launched):
+            print(f"bf16-interior {what}: the trace showed "
+                  f"{k3_short(names, launched)} of {launched} launches; "
+                  "run and traced again", flush=True)
+            reset_counts()
+            (res, rep), names = traced_kernels(torch, run)
+            launched = counter()
+            attempts += 1
         check(launched == want_launches,
               f"{what}: {launched} launches, expected {want_launches}")
         for v in res.values.values():
@@ -2064,6 +2189,11 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                "mass_allowed": allowed,
                "run_ms_median": run_ms,
                "cell_updates_per_s": cells * steps / (run_ms / 1e3)}
+        if k3:
+            row["k3_walk"] = k3_mxu16(names, launched, what)
+            row["k3_walk"]["trace_attempts"] = attempts
+            print(f"bf16-interior {what}: {row['k3_walk']['instance']} "
+                  f"once a launch ({launched} in the trace)", flush=True)
         if k4:
             row["k4_walk"] = k4_walk(names, launched, what)
             print(f"bf16-interior {what}: the {row['k4_walk']['walk']} "
@@ -2119,8 +2249,10 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
               f"compute {ref.get('ms', float('nan')):.4f} ms), plain "
               f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})"
               + (f", its form's {form_bound[0]:.4f} ms ({form_bound[1]})"
-                 if form_bound else "") + f", max_abs_err {err:.3e}",
-              flush=True)
+                 if form_bound else "") + f", max_abs_err {err:.3e}"
+              + (f" [before the persistent walk: {MXU16_BEFORE_MS[what]} "
+                 "ms, PERF.md]"
+                 if what in MXU16_BEFORE_MS else ""), flush=True)
 
     model = mt.Model(mt.Diffusion(0.1))
     for dname, sub in (("float32", 8), ("bfloat16", 16)):
@@ -2162,7 +2294,8 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                    compute_dtype=BF)
             form = "mxu" if variant == "auto" else "vpu"
             run_row(f"K3 {form} {dname} k={sub}", model, space, ex, STEPS,
-                    lambda: cs.launches(form), STEPS // sub)
+                    lambda: cs.launches(form), STEPS // sub,
+                    k3=form == "mxu")
             inner16 = rect_cells(fs, (N, N), blk, sub)
             nvpu = sub * 4 + 2 * sub + 1
             # the function's bound: its cheapest form's operations (vpu,
@@ -2172,13 +2305,11 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                 cells * x.element_size(), cells * x.element_size())
             form_bound = None
             if form == "mxu":
-                frac = inner16 / cells
-                peak = TF32_FLOPS if tdt == torch.float32 else BF16_FLOPS
-                tensor_ms = (frac * cs.mxu_tensor_flops((N, N), sub, BF) / 2
-                             / BF16_FLOPS + (1 - frac) * cs.mxu_tensor_flops(
-                                 (N, N), sub, tdt) / peak) * 1e3
+                # the banded MMAs of the layout that runs
                 form_bound = larger(2 * cells * x.element_size()
-                                    / HBM_BYTES_PER_S * 1e3, tensor_ms)
+                                    / HBM_BYTES_PER_S * 1e3,
+                                    mxu16_tensor_ms(cs, fs, (N, N), sub, tdt,
+                                                    blk))
             timed(f"K3 {form} {dname} k={sub}",
                   lambda: cs.composed_dense_step(x, 0.1, sub, out=y,
                                                  variant=form,
@@ -2271,18 +2402,31 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
             (h, w), 8, origin=(h, w), global_shape=(N, N)) / (h * w),
         h * w * 4, h * w * 4)
     for form in cs.FORMS:
-        run_row(f"K3-halo {form} 2x2 float32 depth=8", model, space,
-                ShardMapExecutor(mesh, "composed", halo_depth=8,
-                                 composed_variant=form, compute_dtype=BF),
-                STEPS, lambda: cs.halo_launches(form), STEPS // 8 * 4)
+        what = f"K3-halo {form} 2x2 float32 depth=8"
+        res, row = run_row(what, model, space,
+                           ShardMapExecutor(mesh, "composed", halo_depth=8,
+                                            composed_variant=form,
+                                            compute_dtype=BF),
+                           STEPS, lambda: cs.halo_launches(form),
+                           STEPS // 8 * 4, k3=form == "mxu")
+        # chunk for chunk (64 steps at depth 8) the serial composed run
+        serial, _ = model.execute(
+            space, mt.SerialExecutor("composed", substeps=8,
+                                     composed_variant=form,
+                                     compute_dtype=BF),
+            steps=STEPS, check_conservation=False)
+        same = torch.equal(res.values["value"], serial.values["value"])
+        row["bitwise_serial"] = same
+        record(f"{what}: bit for bit the serial composed run: {same}", same)
+        check(same, f"{what} is not its serial run bit for bit")
+        del serial
         form_bound = None
         if form == "mxu":
-            frac = inner16 / (h * w)
-            form_bound = larger(2 * h * w * 4 / HBM_BYTES_PER_S * 1e3, (
-                frac * cs.mxu_tensor_flops((h, w), 8, BF, (h, w), (N, N))
-                / 2 / BF16_FLOPS + (1 - frac) * cs.mxu_tensor_flops(
-                    (h, w), 8, torch.float32, (h, w), (N, N))
-                / TF32_FLOPS) * 1e3)
+            form_bound = larger(2 * h * w * 4 / HBM_BYTES_PER_S * 1e3,
+                                mxu16_tensor_ms(
+                                    cs, fs, (h, w), 8, torch.float32,
+                                    fs.resolve_block((h, w), torch.float32),
+                                    (h, w), (N, N)))
         timed(f"K3-halo {form} float32 k=8 shard (8192, 8192)",
               lambda: cs.composed_halo_step(g[1][1], ring, (h, w), (N, N),
                                             0.1, 8, out=y, variant=form,
@@ -4036,6 +4180,10 @@ def main() -> int:
                 for key in ("walk", "kernels_per_launch")}
                | {"generated_by": "mpi_model_tpu_torch/ops/field_codegen.py"}
                if name.startswith("K4") else {}),
+            # K3 mxu's bf16 interior math: the persistent walk's instance
+            # from the traced main-path run
+            **({"instance": bf16["rows"][run]["k3_walk"]["instance"]}
+               if "k3_walk" in bf16["rows"][run] else {}),
             "main_path": bf16["rows"][run]})
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -3,6 +3,7 @@
 
     python3 k3_variants.py                    # the kernel's variants
     python3 k3_variants.py --parent DIR       # and an older checkout's K3
+    python3 k3_variants.py --only as_is,mx16_ring2 --forms mxu_bf16
 
 Variants: ``csrc/composed_stencil.cu`` as it is, and copies of it with one
 choice changed. The vpu form: the window rows of Moore k <= 8 (64 rows
@@ -12,25 +13,31 @@ an SM. The mxu form: the warp tile's width (16 columns instead of 32), the
 m16 tiles a warp stacks under one set of B fragments (1; bf16 2 instead of
 4), the block's warps across, no prefetch of the next row offset's B
 fragments, and f32's TF32 split by cvt.rna in place of integer
-operations. Every patch is checked
+operations. The mxu form's bf16 interior math (its persistent tile walk):
+two staging slots instead of one (windows two tiles ahead), one block an SM
+at f32 storage instead of two, the B table read through L1 instead of
+resident in shared memory (and so two blocks an SM at bf16 storage).
+Every patch is checked
 against the source before anything is built: a variant whose text is no
 longer in the source stops the tool and is named.
 
 Each variant is built with the port's nvcc flags, one nvcc per variant in
 parallel, and timed in turns, two rounds: K3 on a 16384² grid (f32 k=8,
-bf16 k=16, each form) and K3-halo on each 8192² shard of a 2×2 mesh of it.
-Before each launch the output is filled with NaN, and after it the output
-is held to the plain version (``composed_dense_step_plain``; the halo
-shards to the whole grid's): the vpu form bit for bit, the mxu form within
-``1e-6·k·max|v|`` (f32) or one bf16 ulp of the scale; so each variant's
-correctness is its own. The ptxas register and spill lines of each
-variant are kept.
+bf16 k=16) and K3-halo on each 8192² shard of a 2×2 mesh of it, in each
+form (``--forms``: ``vpu``, ``mxu``, and ``mxu_bf16``, the mxu form with
+``compute_dtype=bfloat16``, JAX's blocks, each shard's rectangle at its
+origin). Before each launch the output is filled with NaN, and after it the
+output is held to the plain version (``composed_dense_step_plain``; the
+halo shards to the whole grid's): the vpu form bit for bit, the mxu form
+within ``1e-6·k·max|v|`` (f32) or one bf16 ulp of the scale; so each
+variant's correctness is its own. The ptxas register and spill lines of
+each variant are kept. ``--only`` builds and times some variants.
 
 ``--parent DIR`` times ``composed_dense_step`` and ``composed_halo_step``
-(``variant="auto"``) at the same shapes in another checkout of the
-repository (for example the parent commit unpacked with ``git archive``)
-and in this one, each in a process of its own, in the order parent, this,
-this, parent.
+(``variant="auto"``, in f32 compute and with ``compute_dtype=bfloat16``)
+at the same shapes in another checkout of the repository (for example the
+parent commit unpacked with ``git archive``) and in this one, each in a
+process of its own, in the order parent, this, this, parent.
 
 Times are CUDA events, warm, medians of 10 calls. Everything goes to
 ``chiprun_out/k3_variants.json``; the last line is the card's
@@ -56,6 +63,44 @@ K8_ROWS = "return vpu_launch<48, 8, true, BF, T>("
 K16_ROWS = "return vpu_launch<64, 16, true, BF, T>("
 F32_TILE = "KB = 8, KMAX = 8, REL_MIN = 0, MT = 2, WC = 4;"
 BF16_TILE = "KB = 16, KMAX = 16, REL_MIN = -8, MT = 4, WC = 4;"
+MX16_BLOCKS = "constexpr int kMx16Blocks = sizeof(T) == 4 ? 2 : 1;"
+MX16_SMEM = ("return G::table_words(k) * 8 + G::win_bytes(k) + "
+             "G::slot_bytes(k);")
+# the walk's windows two tiles ahead: two staging slots, filled and read in
+# turn, one copy group left in flight
+MX16_RING2 = [
+    (MX16_SMEM, MX16_SMEM.replace("+ G::slot", "+ 2 * G::slot")),
+    ("  T* slot = reinterpret_cast<T*>(at + G::win_bytes(k));\n",
+     "  T* const slots = reinterpret_cast<T*>(at + G::win_bytes(k));\n"
+     "  const int slot_elems = G::slot_bytes(k) / static_cast<int>(sizeof(T));\n"
+     "  int put = 0, get = 0;\n"
+     "  T* slot = slots;\n"),
+    ("Mx16Window<T>(lr0, lc0, k, g.h, g.w, p.vec), slot);",
+     "Mx16Window<T>(lr0, lc0, k, g.h, g.w, p.vec),\n"
+     "                    slots + put * slot_elems);"),
+    ("    mm::cp_async_commit();  // one group a tile, empty past the last\n",
+     "    mm::cp_async_commit();  // one group a tile, empty past the last\n"
+     "    put ^= 1;\n"),
+    ("  issue(blockIdx.x);\n",
+     "  issue(blockIdx.x);\n  issue(ahead);\n  ahead += stride;\n"),
+    ("    cp_async_wait<0>();\n    __syncthreads();  // the slot has landed",
+     "    slot = slots + get * slot_elems;\n    get ^= 1;\n"
+     "    cp_async_wait<1>();\n    __syncthreads();  // the slot has landed"),
+]
+# the bf16 pass's one-term table read through L1 instead of copied into
+# shared memory
+MX16_TABLE_LDG = [
+    (MX16_SMEM, "return G::win_bytes(k) + G::slot_bytes(k);"),
+    ("  const int tid = threadIdx.y * 32 + threadIdx.x;\n"
+     "  unsigned char* at = reinterpret_cast<unsigned char*>(smem);\n"
+     "  uint2* tab = reinterpret_cast<uint2*>(at);\n"
+     "  at += G::table_words(k) * 8;\n",
+     "  unsigned char* at = reinterpret_cast<unsigned char*>(smem);\n"),
+    ("  for (int e = tid; e < G::table_words(k) / 2; e += 32 * NWARPS) {\n"
+     "    mm::cp_async16(tab + 2 * e, frags16 + 2 * e);\n  }\n", ""),
+    ("      b[e] = fr[e * 32];", "      b[e] = __ldg(fr + e * 32);"),
+    ("mx16_bf16_pass<T>(win, tab, out,", "mx16_bf16_pass<T>(win, frags16, out,"),
+]
 # each variant: (text, replacement) pairs, every occurrence replaced
 VARIANTS = {
     "as_is": [],
@@ -80,7 +125,14 @@ VARIANTS = {
                           "constexpr bool kSplitByCvt = true;")],
     "mxu_no_prefetch": [("constexpr bool kMxuPrefetch = true;",
                          "constexpr bool kMxuPrefetch = false;")],
+    "mx16_ring2": MX16_RING2,
+    "mx16_f32_1_block": [(MX16_BLOCKS, MX16_BLOCKS.replace("? 2 : 1",
+                                                           "? 1 : 1"))],
+    "mx16_table_ldg": MX16_TABLE_LDG,
+    "mx16_table_ldg_bf16_2_blocks": MX16_TABLE_LDG + [
+        (MX16_BLOCKS, MX16_BLOCKS.replace("? 2 : 1", "? 2 : 2"))],
 }
+FORMS = ("vpu", "mxu", "mxu_bf16")
 
 # one process's K3/K3-halo times through the package's own wrappers
 TIMER = r"""
@@ -104,17 +156,20 @@ for dname, k in CASES:
     x = (1.0 + 0.1 * torch.rand((N, N), generator=gen, device="cuda")).to(
         getattr(torch, dname))
     y = torch.empty_like(x)
-    res[f"K3 {dname} k={k}"] = tm(
-        lambda: cs.composed_dense_step(x, 0.1, k, out=y))
     h = N // 2
     g = [[x[i * h:(i + 1) * h, j * h:(j + 1) * h].contiguous()
           for j in range(2)] for i in range(2)]
     o = torch.empty_like(g[0][0])
-    res[f"K3-halo {dname} k={k} 4 shards"] = sum(
-        tm(lambda: cs.composed_halo_step(g[i][j], r, (i * h, j * h), (N, N),
-                                         0.1, k, out=o))
-        for i in range(2) for j in range(2)
-        for r in [exchange_ring(g, i, j, k)])
+    for cd, tag in ((None, ""), (torch.bfloat16, " bf16-interior")):
+        res[f"K3 {dname} k={k}{tag}"] = tm(
+            lambda: cs.composed_dense_step(x, 0.1, k, out=y,
+                                           compute_dtype=cd))
+        res[f"K3-halo {dname} k={k}{tag} 4 shards"] = sum(
+            tm(lambda: cs.composed_halo_step(g[i][j], r, (i * h, j * h),
+                                             (N, N), 0.1, k, out=o,
+                                             compute_dtype=cd))
+            for i in range(2) for j in range(2)
+            for r in [exchange_ring(g, i, j, k)])
     del x, y, g, o
     torch.cuda.empty_cache()
 print(json.dumps(res))
@@ -166,7 +221,7 @@ def agrees(torch, got, want, form: str, k: int) -> bool:
     return bool(((g32 - w32).abs() <= tol).all())
 
 
-def time_variants(torch, built: dict) -> list[dict]:
+def time_variants(torch, built: dict, forms) -> list[dict]:
     from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
     from mpi_model_tpu_torch.ops import composed_stencil as cs
     from mpi_model_tpu_torch.ops import fused_stencil as fs
@@ -222,9 +277,23 @@ def time_variants(torch, built: dict) -> list[dict]:
         args = {(i, j): fs.halo_args(g[i][j], ring, (i * h, j * h), (N, N))
                 for (i, j), ring in rings.items()}
         suffix = "f32" if dtype == torch.float32 else "bf16"
-        for form in cs.FORMS:
-            fargs = cs._form_args(form, 0.1, MOORE_OFFSETS, k, dtype, x.device)
-            want = cs.composed_dense_step_plain(x, 0.1, k, MOORE_OFFSETS, form)
+        for name in forms:
+            form = name.removesuffix("_bf16")
+            cd = torch.bfloat16 if name.endswith("_bf16") else None
+
+            def rect(shape, origin=(0, 0)):
+                return fs.kernel_rect(shape, dtype,
+                                      fs.resolve_block(shape, dtype), k, cd,
+                                      origin, (N, N))
+
+            fargs = cs._form_args(form, 0.1, MOORE_OFFSETS, k, dtype,
+                                  x.device, rect((N, N)))
+            hargs = {(i, j): cs._form_args(form, 0.1, MOORE_OFFSETS, k,
+                                           dtype, x.device,
+                                           rect((h, h), (i * h, j * h)))
+                     for i in range(2) for j in range(2)}
+            want = cs.composed_dense_step_plain(x, 0.1, k, MOORE_OFFSETS,
+                                                form, cd)
 
             def own(fn, out, ref):
                 """fn's time, and whether what it wrote into out (filled
@@ -234,11 +303,11 @@ def time_variants(torch, built: dict) -> list[dict]:
                 return ms, agrees(torch, out, ref, form, k)
 
             for rnd in range(2):
-                for name, lib in libs.items():
+                for vname, lib in libs.items():
                     dense = getattr(lib, f"mm_composed_{form}_{suffix}")
                     halo = getattr(lib, f"mm_composed_halo_{form}_{suffix}")
-                    row = {"variant": name, "round": rnd, "dtype": dname,
-                           "k": k, "form": form}
+                    row = {"variant": vname, "round": rnd, "dtype": dname,
+                           "k": k, "form": name}
                     row["k3_ms"], ok3 = own(lambda: dense(
                         x.data_ptr(), y.data_ptr(), N, N, *fargs, stream), y,
                         want)
@@ -246,12 +315,13 @@ def time_variants(torch, built: dict) -> list[dict]:
                     for (i, j), a in args.items():
                         row["k3_halo_ms"][f"{i},{j}"], ok = own(
                             lambda: halo(ctypes.addressof(a), ys.data_ptr(),
-                                         *fargs, stream), ys,
+                                         *hargs[i, j], stream), ys,
                             want[i * h:(i + 1) * h, j * h:(j + 1) * h])
                         okh = okh and ok
                     row["agrees"] = {"k3": ok3, "k3_halo": okh}
                     rows.append(row)
-                    print(f"round {rnd} {name:24s} {form} {dname:9s} k={k:2d}: "
+                    print(f"round {rnd} {vname:28s} {name:8s} {dname:9s} "
+                          f"k={k:2d}: "
                           f"K3 {row['k3_ms']:.4f} ms, K3-halo 4 shards "
                           f"{sum(row['k3_halo_ms'].values()):.4f} (agrees: "
                           f"K3 {ok3}, K3-halo {okh})", flush=True)
@@ -273,7 +343,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose K3/K3-halo to time in turns")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants to build and time")
+    ap.add_argument("--forms", default=",".join(FORMS),
+                    help=f"comma-separated forms of {FORMS} to time")
     args = ap.parse_args()
+    chosen = list(VARIANTS) if args.only is None else args.only.split(",")
+    forms = args.forms.split(",")
+    for name in chosen:
+        if name not in VARIANTS:
+            raise SystemExit(f"k3_variants: no variant {name!r}")
+    for name in forms:
+        if name not in FORMS:
+            raise SystemExit(f"k3_variants: no form {name!r}")
     import torch
 
     if not torch.cuda.is_available():
@@ -285,8 +367,8 @@ def main() -> int:
     out_dir = HERE / "chiprun_out"
     var_dir = out_dir / "k3_variants"
     var_dir.mkdir(parents=True, exist_ok=True)
-    sources = {n: patched(n) for n in VARIANTS}
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+    sources = {n: patched(n) for n in chosen}
+    with ThreadPoolExecutor(len(chosen)) as pool:
         futs = {n: pool.submit(build, n, src, var_dir, _build)
                 for n, src in sources.items()}
         built = {n: f.result() for n, f in futs.items()}
@@ -295,7 +377,8 @@ def main() -> int:
             line for line in info["ptxas"] if "Compiling" not in line
             and ("spill stores" in line and "0 bytes spill" not in line
                  or "registers" in line)), flush=True)
-    result = {"card": card_line(), "variants": time_variants(torch, built),
+    result = {"card": card_line(),
+              "variants": time_variants(torch, built, forms),
               "ptxas": {n: i["ptxas"] for n, i in built.items()}}
     if args.parent is not None:
         turns = []

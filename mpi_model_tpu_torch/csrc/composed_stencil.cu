@@ -85,19 +85,20 @@
 // rounded to bf16 on the host (ops/composed_stencil.py::vpu_coefs_bf16),
 // Moore on the paired bf16 walk (mm::walk_step_bf2, the accumulator in
 // pairs too), other neighbourhoods on the f32 walk with every result
-// rounded (mm::walk_step<..., true>): bit for bit its plain version. mxu: A the window rounded to bf16 and B the taps rounded to bf16
-// (the first term of the bf16 table), m16n8k16 with f32 accumulation;
-// bf16 products are exact in f32, so it differs from its plain version
-// (the products summed from zero in row-major tap order) by the order of
-// the f32 sums only. For f32 storage the bf16 pass runs on a 64-row layout
-// (MxuBf16Half) that tiles the grid as the f32 form does. Cells outside the
-// rectangle take the f32 form over the window rounded to bf16, exact strips
-// included. A block whose cells straddle the rectangle's edge runs both
-// passes, each staging its own window and writing its own cells.
+// rounded (mm::walk_step<..., true>): bit for bit its plain version. mxu:
+// A the window rounded to bf16 and B the taps rounded to bf16 (the first
+// term of the bf16 table), m16n8k16 with f32 accumulation; bf16 products
+// are exact in f32, so it differs from its plain version (the products
+// summed from zero in row-major tap order) by the order of the f32 sums
+// only. Cells outside the rectangle take the f32 form over the window
+// rounded to bf16, exact strips included. Its kernels walk the f32 form's
+// block tiles persistently (the section "the mxu form's bf16 interior
+// math" below): one bf16 window a tile serves both passes.
 //
 // C interface (loaded with ctypes): one entry point a form, dtype and mode,
 // each returning the cudaError_t of its launch, 0 on success.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "stencil_common.cuh"
@@ -443,8 +444,8 @@ struct Mxu<__nv_bfloat16> {
   using E = __nv_bfloat16;
 };
 // The bf16 interior math of an f32 grid: bf16 MMAs on the f32 form's
-// 64 x 128 block tile (two m16 tiles a warp), so one launch tiles the grid
-// for both passes. Its B table is the bf16 form's (the same KMAX, REL_MIN).
+// 64 x 128 block tile (two m16 tiles a warp), so both passes tile the grid
+// alike. Its B table is the bf16 form's (the same KMAX, REL_MIN).
 struct MxuBf16Half {
   static constexpr int KB = 16, KMAX = 16, REL_MIN = -8, MT = 2, WC = 4;
   using E = __nv_bfloat16;
@@ -489,15 +490,20 @@ constexpr int mx_window_bytes() {
   return mx_rows<L>() * mx_pitch<L>() *
          static_cast<int>(sizeof(typename L::E));
 }
-// Shared memory of a launch of storage T (bf16 interior math: both passes'
-// windows, one at a time).
-template <typename T, bool BF>
+// The B block of layout L that A block a meets for n8 tile nt at k, or -1
+// where it misses the band.
+template <typename L>
+__device__ __forceinline__ int mx_block_of(int a, int nt, int k) {
+  const int rel = a * L::KB - 8 * nt;
+  const int e = (rel - L::REL_MIN) / 8;
+  return rel < L::REL_MIN || rel > 2 * k + 7 || e >= mx_nb<L>() ? -1 : e;
+}
+
+// Shared memory of an f32-compute launch of storage T.
+template <typename T>
 int mxu_smem(int k) {
   const int exact = 2 * piece_floats(k) * static_cast<int>(sizeof(float));
-  int window = mx_window_bytes<Mxu<T>>();
-  if (BF && sizeof(T) == 4 && mx_window_bytes<MxuBf16Half>() > window) {
-    window = mx_window_bytes<MxuBf16Half>();
-  }
+  const int window = mx_window_bytes<Mxu<T>>();
   return exact > window ? exact : window;
 }
 
@@ -579,9 +585,8 @@ __device__ __forceinline__ int src_w(const mm::HaloSource<T>& s) {
 
 // Stage the window of the tile at local (lr0, lc0) in layout L's element
 // type: rows [lr0 - k, lr0 + BH + k), columns [lc0 - k, lc0 + BW + k) of
-// the array, zero off the grid and in the columns past them; with RND
-// every value rounded to bf16 first (a bf16 window rounds in any case).
-template <typename L, bool RND, typename Src>
+// the array, zero off the grid and in the columns past them.
+template <typename L, typename Src>
 __device__ __forceinline__ void mx_stage(const Src& src, int lr0, int lc0,
                                          int k, typename L::E* win) {
   constexpr int P = mx_pitch<L>();
@@ -600,68 +605,36 @@ __device__ __forceinline__ void mx_stage(const Src& src, int lr0, int lc0,
     for (int j = threadIdx.x; j < mx_cols<L>(); j += 32) {
       float x = 0.f;
       if (j < cols) x = inside ? mm::to_f32(row[j]) : src.at(r0 + i, c0 + j);
-      mm::from_f32(win + i * P + j, RND ? mm::rb(x) : x);
+      mm::from_f32(win + i * P + j, x);
     }
   }
 }
 
-// One pass of block t: the tile's tap correlation on tensor cores in layout
-// L, written where PASS allows: 0, every cell with d > k; 1 (the f32 form
-// over the window rounded to bf16), those outside `q`; 2 (the bf16
-// interior math: the bf16 window against the taps' first bf16 term), those
-// in `q`. `frags` is the B table: [2k+1][NB][2 terms][32 lanes] uint2, in
-// mma.sync's B fragment order. f32 (TF32 MMAs): each A fragment is split
-// here (split_tf32), and each row offset's products go into fresh partial
-// sums that are added to `acc` with one rounded add (see the header).
-// bf16: the taps' terms into acc. Returns whether a cell of the tile has
-// d <= k (uniform over the block); the caller runs its exact strips.
-template <typename L, int PASS, typename T, typename Src>
-__device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
-                                         const uint2* __restrict__ frags,
-                                         const MxuTiles& mt,
-                                         const mm::Rect& q) {
+// The tap correlation's MMA loop on layout L, into acc (zeroed here). `frags`
+// is the B table: [2k+1][NB][2 terms][32 lanes] uint2, in mma.sync's B
+// fragment order; a row offset's fragments load under the one before
+// (kMxuPrefetch). load_a(ah, al, dr, a) loads A block a of each m-tile at
+// row offset dr into ah (TERMS == 3: split, its low TF32 terms into al).
+// f32 (TF32 MMAs): A x B_lo, [A_lo x B_hi,] then A x B_hi go into fresh
+// partial sums that are added to acc with one rounded add a row offset (see
+// the header); bf16: the taps' small term, then the first, into acc. Shared
+// by mxu_pass (TERMS 3 at f32) and the walk's f32 pass (TERMS 2, its A a
+// bf16 value with no low term), so both keep one order of the products.
+template <typename L, int TERMS, typename LoadA>
+__device__ __forceinline__ void mx_taps(const uint2* __restrict__ frags,
+                                        int k, float (&acc)[L::MT][MX_NT][4],
+                                        const LoadA& load_a) {
   using E = typename L::E;
   constexpr int KB = L::KB;
   constexpr int MT = L::MT;
   constexpr int NB = mx_nb<L>();
   constexpr int NA = mx_na<L>();
-  constexpr int P = mx_pitch<L>();
-  constexpr int BH = mx_bh<L>();
-  constexpr int BW = mx_bw<L>();
   constexpr bool F32 = sizeof(E) == 4;
-  constexpr int ES = static_cast<int>(sizeof(E));
-  constexpr int TERMS = F32 ? 3 : (PASS == 2 ? 1 : 2);
-  extern __shared__ __align__(16) float smem[];
-  E* win = reinterpret_cast<E*>(smem);
-  const Tiling& g = mt.g;
-  const int k = mt.k;
-  const int bt = blockIdx.x;
-  const int lr0 = (mt.tr0 + bt / mt.tiles_c) * BH - g.R0;  // local origin
-  const int lc0 = (mt.tc0 + bt % mt.tiles_c) * BW - g.C0;
-  // the tile's part of the array, [ar0, ar1) x [ac0, ac1), and whether a
-  // cell of it has d <= k (uniform over the block)
-  const int ar0 = max(lr0, 0), ar1 = min(lr0 + BH, g.h);
-  const int ac0 = max(lc0, 0), ac1 = min(lc0 + BW, g.w);
-  const bool near = g.R0 + ar0 < k + 1 || g.R0 + ar1 > g.H - 1 - k ||
-                    g.C0 + ac0 < k + 1 || g.C0 + ac1 > g.W - 1 - k;
-  const bool whole = !near && ar0 == lr0 && ac0 == lc0 &&
-                     ar1 == lr0 + BH && ac1 == lc0 + BW;
-
-  mx_stage<L, PASS != 0>(src, lr0, lc0, k, win);
-  __syncthreads();
-
+  static_assert(TERMS == 2 || (F32 && TERMS == 3), "the products a pair");
   const int lane = threadIdx.x;
-  const int wr = threadIdx.y / L::WC;
-  const int wc = threadIdx.y % L::WC;
-  // this lane's ldmatrix row address: row (lane & 7) + 8 ((lane >> 3) & 1),
-  // 16-byte unit (lane >> 4), of the warp's first A block at dr = 0
-  const unsigned char* a_base =
-      reinterpret_cast<const unsigned char*>(win) +
-      ((wr * 16 * MT + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
-       wc * MX_N) * ES + (lane >> 4) * 16;
   // f32: acc sums the row offsets' partial sums, one rounded add each;
   // bf16: the MMAs accumulate into acc directly
-  float acc[MT][MX_NT][4], part[F32 ? MT : 1][MX_NT][4];
+  float part[F32 ? MT : 1][MX_NT][4];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -680,12 +653,6 @@ __device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
       dst[e][0] = __ldg(fr + (2 * e) * 32);
       dst[e][1] = __ldg(fr + (2 * e + 1) * 32);
     }
-  };
-  // the B block of A block a for n8 tile nt, or -1 where it misses the band
-  const auto block_of = [&](int a, int nt) {
-    const int rel = a * KB - 8 * nt;
-    const int e = (rel - L::REL_MIN) / 8;
-    return rel < L::REL_MIN || rel > 2 * k + 7 || e >= NB ? -1 : e;
   };
   load_b(b, 0);
   for (int dr = 0; dr <= 2 * k; ++dr) {
@@ -707,33 +674,24 @@ __device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
 #pragma unroll
     for (int a = 0; a < NA; ++a) {
       if (a * KB >= MX_N + 2 * k) break;  // past every n8 tile's band
-      // A block a of each m-tile (f32: split); consecutive MMAs below go
-      // to different accumulators
-      unsigned ah[MT][4], al[F32 ? MT : 1][4];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        ldsm_x4(ah[m], a_base + ((m * 16 + dr) * P + a * KB) * ES);
-        if constexpr (F32) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(ah[m][e], ah[m][e], al[m][e]);
-        }
-      }
-      // f32: the two small products, then hi*hi, into the row offset's
-      // partial sums; bf16: the taps' small term, then the first, into
-      // acc (the bf16 interior math: the first alone)
+      // A block a of each m-tile; consecutive MMAs below go to different
+      // accumulators
+      unsigned ah[MT][4], al[TERMS == 3 ? MT : 1][4];
+      load_a(ah, al, dr, a);
 #pragma unroll
       for (int t = 0; t < TERMS; ++t) {
 #pragma unroll
         for (int nt = 0; nt < MX_NT; ++nt) {
-          const int e = block_of(a, nt);
+          const int e = mx_block_of<L>(a, nt, k);
           if (e < 0) continue;
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
+            const unsigned (&am)[4] =
+                TERMS == 3 && t == 1 ? al[TERMS == 3 ? m : 0] : ah[m];
             if constexpr (F32) {
-              mma(part[m][nt], t == 1 ? al[m] : ah[m],
-                  b[e][t == 0 ? 1 : 0], tag);
+              mma(part[m][nt], am, b[e][t == 0 ? 1 : 0], tag);
             } else {
-              mma(acc[m][nt], ah[m], b[e][TERMS - 1 - t], tag);
+              mma(acc[m][nt], am, b[e][t == 0 ? 1 : 0], tag);
             }
           }
         }
@@ -759,6 +717,67 @@ __device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
       }
     }
   }
+}
+
+// Block t's tap correlation on tensor cores in layout Mxu<T> (mx_taps; f32:
+// each A fragment split here by split_tf32), written where a cell has
+// d > k. Returns whether a cell of the tile has d <= k (uniform over the
+// block); the caller runs its exact strips.
+template <typename T, typename Src>
+__device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
+                                         const uint2* __restrict__ frags,
+                                         const MxuTiles& mt) {
+  using L = Mxu<T>;
+  using E = typename L::E;
+  constexpr int KB = L::KB;
+  constexpr int MT = L::MT;
+  constexpr int P = mx_pitch<L>();
+  constexpr int BH = mx_bh<L>();
+  constexpr int BW = mx_bw<L>();
+  constexpr bool F32 = sizeof(E) == 4;
+  constexpr int ES = static_cast<int>(sizeof(E));
+  extern __shared__ __align__(16) float smem[];
+  E* win = reinterpret_cast<E*>(smem);
+  const Tiling& g = mt.g;
+  const int k = mt.k;
+  const int bt = blockIdx.x;
+  const int lr0 = (mt.tr0 + bt / mt.tiles_c) * BH - g.R0;  // local origin
+  const int lc0 = (mt.tc0 + bt % mt.tiles_c) * BW - g.C0;
+  // the tile's part of the array, [ar0, ar1) x [ac0, ac1), and whether a
+  // cell of it has d <= k (uniform over the block)
+  const int ar0 = max(lr0, 0), ar1 = min(lr0 + BH, g.h);
+  const int ac0 = max(lc0, 0), ac1 = min(lc0 + BW, g.w);
+  const bool near = g.R0 + ar0 < k + 1 || g.R0 + ar1 > g.H - 1 - k ||
+                    g.C0 + ac0 < k + 1 || g.C0 + ac1 > g.W - 1 - k;
+  const bool whole = !near && ar0 == lr0 && ac0 == lc0 &&
+                     ar1 == lr0 + BH && ac1 == lc0 + BW;
+
+  mx_stage<L>(src, lr0, lc0, k, win);
+  __syncthreads();
+
+  const int lane = threadIdx.x;
+  const int wr = threadIdx.y / L::WC;
+  const int wc = threadIdx.y % L::WC;
+  // this lane's ldmatrix row address: row (lane & 7) + 8 ((lane >> 3) & 1),
+  // 16-byte unit (lane >> 4), of the warp's first A block at dr = 0
+  const unsigned char* a_base =
+      reinterpret_cast<const unsigned char*>(win) +
+      ((wr * 16 * MT + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
+       wc * MX_N) * ES + (lane >> 4) * 16;
+  float acc[MT][MX_NT][4];
+  mx_taps<L, F32 ? 3 : 2>(
+      frags, k, acc, [&](auto& ah, auto& al, int dr, int a) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          ldsm_x4(ah[m], a_base + ((m * 16 + dr) * P + a * KB) * ES);
+          if constexpr (F32) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              split_tf32(ah[m][e], ah[m][e], al[m][e]);
+            }
+          }
+        }
+      });
 
   // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8
   const int gr = lane >> 2;
@@ -772,15 +791,8 @@ __device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
         const int r = lr0 + (wr * MT + m) * 16 + gr + (e >= 2 ? 8 : 0);
         const int c = lc0 + wc * MX_N + nt * 8 + tc + (e & 1);
         const bool in_array = r >= 0 && r < g.h && c >= 0 && c < g.w;
-        const bool inq = mm::in_rect(q, g.R0 + r, g.C0 + c);
-        const bool ok =
-            PASS == 2
-                ? in_array && inq
-                : (whole || (in_array &&
-                             mm::edge_distance(g.R0 + r, g.C0 + c, g.H,
-                                               g.W) > k)) &&
-                      !(PASS == 1 && inq);
-        if (ok) {
+        if (whole || (in_array &&
+                      mm::edge_distance(g.R0 + r, g.C0 + c, g.H, g.W) > k)) {
           mm::from_f32(out + static_cast<size_t>(r) * g.w + c,
                        acc[m][nt][e]);
         }
@@ -790,82 +802,53 @@ __device__ __forceinline__ bool mxu_pass(const Src& src, T* __restrict__ out,
   return near;
 }
 
-// Block t: the mxu form's passes (BF: the bf16 interior math on the cells
-// in `q`, with the bf16 table `frags16`; the rest over the window rounded
-// to bf16), then the exact strips of an edge tile.
-template <typename T, bool BF, typename Src>
+// Block t: the mxu form's pass, then the exact strips of an edge tile.
+template <typename T, typename Src>
 __device__ __forceinline__ void mxu_body(const Src& src, T* __restrict__ out,
                                          const StepParams& p,
                                          const uint2* __restrict__ frags,
-                                         const uint2* __restrict__ frags16,
-                                         const MxuTiles& mt,
-                                         const mm::Rect& q) {
-  using L = Mxu<T>;
-  // the bf16 pass's layout: the bf16 form's, or for an f32 grid the one
-  // that tiles it as the f32 form does
-  using L16 = std::conditional_t<sizeof(T) == 4, MxuBf16Half, L>;
+                                         const MxuTiles& mt) {
+  constexpr int BH = mx_bh<Mxu<T>>();
+  constexpr int BW = mx_bw<Mxu<T>>();
   extern __shared__ __align__(16) float smem[];
   const Tiling& g = mt.g;
-  const int k = mt.k;
-  constexpr int BH = mx_bh<L>();
-  constexpr int BW = mx_bw<L>();
   const int bt = blockIdx.x;
   const int lr0 = (mt.tr0 + bt / mt.tiles_c) * BH - g.R0;
   const int lc0 = (mt.tc0 + bt % mt.tiles_c) * BW - g.C0;
-  const int ar0 = max(lr0, 0), ar1 = min(lr0 + BH, g.h);
-  const int ac0 = max(lc0, 0), ac1 = min(lc0 + BW, g.w);
-  bool near;
-  if constexpr (BF) {
-    const int cover = mm::rect_cover(q, g.R0 + ar0, g.R0 + ar1, g.C0 + ac0,
-                                     g.C0 + ac1);
-    if (cover != mm::kNone) {
-      near = mxu_pass<L16, 2>(src, out, frags16, mt, q);
-      if (cover == mm::kAll) return;  // every cell in q: none near
-      __syncthreads();  // the window is dead: the next pass restages it
-    }
-    near = mxu_pass<L, 1>(src, out, frags, mt, q);
-  } else {
-    near = mxu_pass<L, 0>(src, out, frags, mt, q);
-  }
-  if (near) {
+  if (mxu_pass<T>(src, out, frags, mt)) {
     __syncthreads();  // the window is dead: the exact buffers take its place
-    mm::exact_cells_of<BF>(src, out, p, g, ar0, ar1, ac0, ac1, smem,
-                       smem + piece_floats(k));
+    mm::exact_cells(src, out, p, g, max(lr0, 0), min(lr0 + BH, g.h),
+                    max(lc0, 0), min(lc0 + BW, g.w), smem,
+                    smem + piece_floats(mt.k));
   }
 }
 
 // K3 mxu: a whole [H, W] grid.
-template <typename T, bool BF>
+template <typename T>
 __global__ void __launch_bounds__(32 * NWARPS, 2)
     composed_mxu_kernel(const T* __restrict__ in, T* __restrict__ out,
                         StepParams p, const uint2* __restrict__ frags,
-                        const uint2* __restrict__ frags16, MxuTiles mt,
-                        mm::Rect q) {
-  mxu_body<T, BF>(mm::DenseSource<T>{in, mt.g.H, mt.g.W}, out, p, frags,
-                  frags16, mt, q);
+                        MxuTiles mt) {
+  mxu_body<T>(mm::DenseSource<T>{in, mt.g.H, mt.g.W}, out, p, frags, mt);
 }
 
 // K3-halo mxu: one shard and its ghost ring; `out` is the shard's [h, w].
-template <typename T, bool BF>
+template <typename T>
 __global__ void __launch_bounds__(32 * NWARPS, 2)
     composed_mxu_halo_kernel(const mm::HaloSource<T> src,
                              T* __restrict__ out, StepParams p,
-                             const uint2* __restrict__ frags,
-                             const uint2* __restrict__ frags16, MxuTiles mt,
-                             mm::Rect q) {
-  mxu_body<T, BF>(src, out, p, frags, frags16, mt, q);
+                             const uint2* __restrict__ frags, MxuTiles mt) {
+  mxu_body<T>(src, out, p, frags, mt);
 }
 
-template <typename T, bool BF>
-int mxu_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
-               int W, const StepParams& p, const void* frags,
-               const void* frags16, const mm::Rect& q, void* stream) {
-  static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
-  static int limit_halo = DEFAULT_SMEM_LIMIT;
+// The block tiles of a call of storage T (the array's geometry from `halo`
+// when it is given): aligned to the global grid, so that a shard's tiles are
+// the whole grid's. Returns the number of tiles.
+template <typename T>
+int mxu_tiles(const mm::HaloArgs* halo, int H, int W, int k, MxuTiles& mt) {
   constexpr int BH = mx_bh<Mxu<T>>();
   constexpr int BW = mx_bw<Mxu<T>>();
-  MxuTiles mt;
-  mt.k = p.nsteps;
+  mt.k = k;
   int h = H, w = W, R0 = 0, C0 = 0;
   if (halo != nullptr) {
     h = halo->h;
@@ -876,7 +859,7 @@ int mxu_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
     W = halo->W;
   }
   mt.g = Tiling{};  // the geometry exact_cells reads
-  mt.g.n = p.nsteps;
+  mt.g.n = k;
   mt.g.h = h;
   mt.g.w = w;
   mt.g.R0 = R0;
@@ -885,23 +868,694 @@ int mxu_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
   mt.g.W = W;
   mt.tr0 = R0 / BH;
   mt.tc0 = C0 / BW;
-  const int tiles_r = (R0 + h + BH - 1) / BH - mt.tr0;
   mt.tiles_c = (C0 + w + BW - 1) / BW - mt.tc0;
-  const int smem = mxu_smem<T, BF>(p.nsteps);
-  const auto* fr = static_cast<const uint2*>(frags);
-  const auto* fr16 = static_cast<const uint2*>(frags16);
-  if (halo == nullptr) {
-    return static_cast<int>(mm::launch_blocks(
-        composed_mxu_kernel<T, BF>, smem, tiles_r * mt.tiles_c, &limit,
-        stream, in, static_cast<T*>(out), p, fr, fr16, mt, q));
-  }
-  return static_cast<int>(mm::launch_blocks(
-      composed_mxu_halo_kernel<T, BF>, smem, tiles_r * mt.tiles_c,
-      &limit_halo, stream, mm::HaloSource<T>(*halo), static_cast<T*>(out),
-      p, fr, fr16, mt, q));
+  return ((R0 + h + BH - 1) / BH - mt.tr0) * mt.tiles_c;
 }
 
-// `frags16` (the bf16 table) when `bf16`.
+template <typename T>
+int mxu_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
+               int W, const StepParams& p, const void* frags, void* stream) {
+  static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
+  static int limit_halo = DEFAULT_SMEM_LIMIT;
+  MxuTiles mt;
+  const int tiles = mxu_tiles<T>(halo, H, W, p.nsteps, mt);
+  const int smem = mxu_smem<T>(p.nsteps);
+  const auto* fr = static_cast<const uint2*>(frags);
+  if (halo == nullptr) {
+    return static_cast<int>(
+        mm::launch_blocks(composed_mxu_kernel<T>, smem, tiles, &limit,
+                          stream, in, static_cast<T*>(out), p, fr, mt));
+  }
+  return static_cast<int>(mm::launch_blocks(
+      composed_mxu_halo_kernel<T>, smem, tiles, &limit_halo, stream,
+      mm::HaloSource<T>(*halo), static_cast<T*>(out), p, fr, mt));
+}
+
+// -- the mxu form's bf16 interior math: a persistent tile walk ---------------
+//
+// compute_dtype=bfloat16 (the cells of mm::Rect q in bf16, the rest in the
+// f32 form over the window rounded to bf16) on the f32-compute form's
+// block tiles (Mxu<T>'s BH x BW, aligned to the global grid, so K3-halo's
+// mosaic is K3 bit for bit). Bounded by the bytes at f32 storage (each
+// cell read and written once: 0.641 ms at 16384^2 on an H100) and by the
+// banded bf16 MMAs at bf16 k = 16. A block a tile that stages its window
+// element by element and synchronously runs near 0.75 TB/s, reads its B
+// table through L1 for every tile, stages a straddling tile twice (once a
+// pass) and runs 3xTF32 over bf16 values. Here:
+//   - G persistent blocks (as many as the card holds) each walk the
+//     positions b, b + G, b + 2G, ... of one order of the tiles: first
+//     those at the grid's edge (exact strips), then those the f32 pass
+//     takes, then those in q (Mx16Order), so each kind spreads evenly over
+//     the blocks (in row-major order the grid's edge columns fell to a few
+//     blocks, whose strips the call waited on);
+//   - a block copies the bf16 pass's B table (the taps' first bf16 term,
+//     ops/composed_stencil.py::mxu_fragments16) into shared memory once
+//     and reads each row offset's fragments from there;
+//   - a tile's window is copied raw (storage type) by 16-byte cp.async into
+//     a staging slot a tile ahead, so the next tile's window loads while
+//     this tile's MMAs run. Windows that are not inside the array (the
+//     grid's edge tiles; a shard's tiles whose window reads its ghost ring)
+//     or whose rows are not 16-byte aligned are staged element by element
+//     through the source (zero off the grid);
+//   - one convert pass rounds the staged window to bf16 (round to nearest
+//     even, as mm::rb) into the bf16 window, its first column at a 16-byte
+//     boundary and zero past the window's columns. Both passes read it: a
+//     value rounded to bf16 is exact in bf16, and so in TF32;
+//   - the bf16 pass (cells in q): m16n8k16 on Mx16<T>'s warp tiles, A by
+//     ldmatrix, the first tap term straight into the accumulator;
+//   - the f32 pass (cells outside q): f32 storage, mxu_pass's 3xTF32
+//     without the window's low term, which is 0 for a bf16 value: A[g][t]
+//     is its bf16 bits << 16, and the two MMAs that remain (A x B_lo, then
+//     A x B_hi) are mxu_pass's in its order, so a finite window gives the
+//     f32-compute kernel's bits over the window rounded to bf16; bf16
+//     storage, the bf16 form's two tap terms as mxu_pass runs them. Its B
+//     table (two terms) is read through L1, as mxu_pass reads it;
+//   - tiles whose cells all take one pass store pairs (an 8-byte f32 or a
+//     4-byte bf16x2 store); the others test each cell;
+//   - an edge tile's exact strips (cells with d <= k, over the source
+//     rounded to bf16) run in the walk, the window and the tile's slot as
+//     their buffers, and the next window is staged after them. They cost
+//     0.35 ms of a 1.82 ms call at f32 k = 8 and 1.45 of 3.95 at bf16
+//     k = 16; a launch of their own after the walk was faster on whole
+//     grids and slower on shards (k3_variants.py, PERF.md).
+// Measured slower on the H100 (k3_variants.py, PERF.md): two staging slots,
+// one block an SM at f32 storage, the table read through L1 (k3_variants.py
+// patches these in); one launch against two (the bf16 pass on the tiles
+// that meet q, then the rest), and the fragments loaded ahead or in turn.
+
+// blocks an SM the instances are built for (their launch bound)
+template <typename T>
+constexpr int kMx16Blocks = sizeof(T) == 4 ? 2 : 1;
+
+// The bf16 pass's layout for storage T.
+template <typename T>
+using Mx16 =
+    std::conditional_t<sizeof(T) == 4, MxuBf16Half, Mxu<__nv_bfloat16>>;
+
+// The walk's shared memory, for storage T: the bf16 window (its rows at
+// k = KMAX; pitch in bf16 elements, an odd number of 16-byte units) and a
+// staging slot (raw T, its first column 16-byte aligned, so a window that
+// starts off that alignment sits `skew` elements in).
+template <typename T>
+struct Mx16Geo {
+  static constexpr int BH = mx_bh<Mxu<T>>();
+  static constexpr int BW = mx_bw<Mxu<T>>();
+  static constexpr int KMAX = kMaxK<T>;
+  static constexpr int COLS = BW + 2 * KMAX;  // the columns the MMAs read
+  static constexpr int P16 = ((COLS + 7) / 8 % 2 ? (COLS + 7) / 8
+                                                 : (COLS + 7) / 8 + 1) * 8;
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));
+  static constexpr int SP = (V - 1 + COLS + V - 1) / V * V;  // slot pitch
+  static __host__ __device__ int win_bytes(int k) {
+    return (BH + 2 * k) * P16 * 2;
+  }
+  static __host__ __device__ int slot_bytes(int k) {
+    return ((BH + 2 * k) * SP * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+  }
+  // uint2 entries of the resident table: [2k+1][NB][32 lanes]
+  static __host__ __device__ int table_words(int k) {
+    return (2 * k + 1) * mx_nb<Mx16<T>>() * 32;
+  }
+};
+// The last column + 1 layout L's A blocks read at k.
+template <typename L>
+constexpr int mx_reads(int k) {
+  return (L::WC - 1) * MX_N + (MX_N + 2 * k + L::KB - 1) / L::KB * L::KB;
+}
+// both passes tile alike, and their A reads stay in the window's columns
+template <typename T>
+constexpr bool mx16_fits() {
+  using G = Mx16Geo<T>;
+  return mx_bh<Mx16<T>>() == G::BH && mx_bw<Mx16<T>>() == G::BW &&
+         mx_reads<Mx16<T>>(G::KMAX) <= G::COLS &&
+         mx_reads<Mxu<T>>(G::KMAX) <= G::COLS;
+}
+static_assert(mx16_fits<float>() && mx16_fits<__nv_bfloat16>(),
+              "the passes' tiles and windows");
+
+template <typename T>
+int mx16_smem(int k) {
+  using G = Mx16Geo<T>;
+  return G::table_words(k) * 8 + G::win_bytes(k) + G::slot_bytes(k);
+}
+
+// ldsm_x4 as an instruction the compiler may move past other loads (its
+// order against the barriers and the other volatile statements stays)
+__device__ __forceinline__ void ldsm_x4_free(unsigned (&r)[4],
+                                             const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The first staged element of a tile's window (its skew in the slot), and
+// whether the window is copied by cp.async (inside the array, rows 16-byte
+// aligned) rather than element by element.
+template <typename T>
+struct Mx16Window {
+  int r0, c0, rows, cols;  // local origin and extent
+  bool copied;
+  int skew;
+  __device__ __forceinline__ Mx16Window(int lr0, int lc0, int k, int h,
+                                        int w, int vec) {
+    using G = Mx16Geo<T>;
+    r0 = lr0 - k;
+    c0 = lc0 - k;
+    rows = G::BH + 2 * k;
+    cols = G::BW + 2 * k;
+    copied = vec && r0 >= 0 && c0 >= 0 && r0 + rows <= h && c0 + cols <= w;
+    skew = copied ? c0 & (G::V - 1) : 0;
+  }
+};
+
+// Stage a tile's window into `slot`: 16-byte cp.async copies (committed by
+// the caller) or, off the array, the source's values element by element.
+template <typename T, typename Src>
+__device__ __forceinline__ void mx16_issue(const Src& src,
+                                           const Mx16Window<T>& wn,
+                                           T* slot) {
+  using G = Mx16Geo<T>;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  if (wn.copied) {
+    const int a0 = wn.c0 - wn.skew;
+    const int chunks = (wn.skew + wn.cols + G::V - 1) / G::V;
+    const T* base = mm::array_of(src);
+    const int w = src_w(src);
+    for (int e = tid; e < wn.rows * chunks; e += 32 * NWARPS) {
+      const int i = e / chunks;
+      const int c = e - i * chunks;
+      mm::cp_async16(slot + i * G::SP + c * G::V,
+                     base + static_cast<size_t>(wn.r0 + i) * w + a0 +
+                         c * G::V);
+    }
+    return;
+  }
+  for (int e = tid; e < wn.rows * wn.cols; e += 32 * NWARPS) {
+    const int i = e / wn.cols;
+    const int j = e - i * wn.cols;
+    mm::from_f32(slot + i * G::SP + j, src.at(wn.r0 + i, wn.c0 + j));
+  }
+}
+
+// The convert pass: the staged window rounded to bf16 (cvt.rn.bf16x2.f32;
+// a bf16 grid is copied), eight columns a thread at a time, zero past the
+// window's columns.
+template <typename T>
+__device__ __forceinline__ void mx16_convert(const T* slot,
+                                             const Mx16Window<T>& wn,
+                                             __nv_bfloat16* win) {
+  using G = Mx16Geo<T>;
+  constexpr int GROUPS = G::COLS / 8;  // per row
+  static_assert(G::COLS % 8 == 0, "rows convert eight columns at a time");
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  for (int e = tid; e < wn.rows * GROUPS; e += 32 * NWARPS) {
+    const int i = e / GROUPS;
+    const int j = (e - i * GROUPS) * 8;
+    const T* s = slot + i * G::SP + wn.skew + j;
+    uint4 o;
+    unsigned* ow = reinterpret_cast<unsigned*>(&o);
+    if constexpr (sizeof(T) == 4) {
+      float x[8];
+      if (wn.skew == 0) {
+        const float4 lo = *reinterpret_cast<const float4*>(s);
+        const float4 hi = *reinterpret_cast<const float4*>(s + 4);
+        x[0] = lo.x, x[1] = lo.y, x[2] = lo.z, x[3] = lo.w;
+        x[4] = hi.x, x[5] = hi.y, x[6] = hi.z, x[7] = hi.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) x[q] = s[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (j + q >= wn.cols) x[q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ow[q] = mm::pack_bf2(x[2 * q], x[2 * q + 1]);
+    } else {
+      unsigned short x[8];
+      if (wn.skew == 0) {
+        o = *reinterpret_cast<const uint4*>(s);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x[2 * q] = static_cast<unsigned short>(ow[q] & 0xFFFFu);
+          x[2 * q + 1] = static_cast<unsigned short>(ow[q] >> 16);
+        }
+      } else {
+        const auto* u = reinterpret_cast<const unsigned short*>(s);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) x[q] = u[q];
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (j + q >= wn.cols) x[q] = 0;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        ow[q] = x[2 * q] | (static_cast<unsigned>(x[2 * q + 1]) << 16);
+      }
+    }
+    *reinterpret_cast<uint4*>(win + i * G::P16 + j) = o;
+  }
+}
+
+// Store a warp's accumulators: `all` (uniform over the block) every cell of
+// the tile, two columns at a time; otherwise each cell that `keep` takes.
+template <int MT, typename T, typename Keep>
+__device__ __forceinline__ void mx16_store(const float (&acc)[MT][MX_NT][4],
+                                           T* __restrict__ out, int w,
+                                           int r_base, int c_base, bool all,
+                                           const Keep& keep) {
+  const int lane = threadIdx.x;
+  const int gr = lane >> 2;
+  const int tc = 2 * (lane & 3);
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int nt = 0; nt < MX_NT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows g and g + 8
+        const int r = r_base + m * 16 + gr + 8 * h;
+        const int c = c_base + nt * 8 + tc;
+        const float x0 = acc[m][nt][2 * h], x1 = acc[m][nt][2 * h + 1];
+        T* o = out + static_cast<size_t>(r) * w + c;
+        if (all) {
+          if constexpr (sizeof(T) == 4) {
+            *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+          } else {
+            *reinterpret_cast<unsigned*>(o) = mm::pack_bf2(x0, x1);
+          }
+        } else {
+          if (keep(r, c)) mm::from_f32(o, x0);
+          if (keep(r, c + 1)) mm::from_f32(o + 1, x1);
+        }
+      }
+    }
+  }
+}
+
+// The bf16 pass of the tile at local (lr0, lc0) over the bf16 window: the
+// taps' first bf16 term (`tab`, [2k+1][NB][32] uint2, in shared memory)
+// against the window on Mx16<T>'s warp tiles, every product into one f32
+// accumulator; written where a cell lies in q.
+template <typename T>
+__device__ __forceinline__ void mx16_bf16_pass(
+    const __nv_bfloat16* win, const uint2* __restrict__ tab,
+    T* __restrict__ out, const MxuTiles& mt, const mm::Rect& q, int lr0,
+    int lc0, bool all) {
+  using L = Mx16<T>;
+  constexpr int KB = L::KB, MT = L::MT, NB = mx_nb<L>(), NA = mx_na<L>();
+  constexpr int P = Mx16Geo<T>::P16;
+  const Tiling& g = mt.g;
+  const int k = mt.k;
+  const int lane = threadIdx.x;
+  const int wr = threadIdx.y / L::WC;
+  const int wc = threadIdx.y % L::WC;
+  const unsigned char* a_base =
+      reinterpret_cast<const unsigned char*>(win) +
+      ((wr * 16 * MT + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
+       wc * MX_N) * 2 + (lane >> 4) * 16;
+  float acc[MT][MX_NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+#pragma unroll
+    for (int nt = 0; nt < MX_NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][nt][e] = 0.f;
+    }
+  }
+  const __nv_bfloat16 tag{};
+  // A blocks at the storage type's largest k
+  constexpr int NA_T = (MX_N + 2 * Mx16Geo<T>::KMAX + KB - 1) / KB;
+  static_assert(NA_T <= NA, "the layout's A blocks");
+  for (int dr = 0; dr <= 2 * k; ++dr) {
+    uint2 b[NB];
+    const uint2* fr = tab + dr * NB * 32 + lane;
+#pragma unroll
+    for (int e = 0; e < NB; ++e) {
+      b[e] = fr[e * 32];
+    }
+    // every A block's fragments, then the MMAs
+    unsigned ah[NA_T][MT][4];
+#pragma unroll
+    for (int a = 0; a < NA_T; ++a) {
+      if (a * KB >= MX_N + 2 * k) break;  // past every n8 tile's band
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        ldsm_x4_free(ah[a][m], a_base + ((m * 16 + dr) * P + a * KB) * 2);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < NA_T; ++a) {
+      if (a * KB >= MX_N + 2 * k) break;
+#pragma unroll
+      for (int nt = 0; nt < MX_NT; ++nt) {
+        const int e = mx_block_of<L>(a, nt, k);
+        if (e < 0) continue;
+#pragma unroll
+        for (int m = 0; m < MT; ++m) mma(acc[m][nt], ah[a][m], b[e], tag);
+      }
+    }
+  }
+  mx16_store<MT>(acc, out, g.w, lr0 + wr * MT * 16, lc0 + wc * MX_N, all,
+                 [&](int r, int c) {
+                   return r >= 0 && r < g.h && c >= 0 && c < g.w &&
+                          mm::in_rect(q, g.R0 + r, g.C0 + c);
+                 });
+}
+
+// The f32 pass of the tile over the bf16 window, on Mxu<T>'s warp tiles
+// with its two-term B table `frags` (mxu_pass's, read through L1): written
+// where a cell has d > k and lies outside q. mx_taps with two products a
+// pair: f32 storage, A x B_lo then A x B_hi, A[g][t] read as the value's
+// bf16 bits, its TF32 bits those << 16 (a bf16 value's low TF32 term, and
+// mxu_pass's A_lo x B_hi, are 0); bf16 storage, mxu_pass's bf16 form.
+template <typename T>
+__device__ __forceinline__ void mx16_f32_pass(
+    const __nv_bfloat16* win, const uint2* __restrict__ frags,
+    T* __restrict__ out, const MxuTiles& mt, const mm::Rect& q, int lr0,
+    int lc0, bool whole, bool all) {
+  using L = Mxu<T>;
+  constexpr int KB = L::KB, MT = L::MT;
+  constexpr int P = Mx16Geo<T>::P16;
+  constexpr bool F32 = sizeof(T) == 4;
+  const Tiling& g = mt.g;
+  const int k = mt.k;
+  const int lane = threadIdx.x;
+  const int wr = threadIdx.y / L::WC;
+  const int wc = threadIdx.y % L::WC;
+  // f32: this lane's A element (row g, column t) of the warp's first A
+  // block at dr = 0; bf16: its ldmatrix row address, as mxu_pass's
+  const auto* e_base = reinterpret_cast<const unsigned short*>(win) +
+                       (wr * 16 * MT + (lane >> 2)) * P + wc * MX_N +
+                       (lane & 3);
+  const unsigned char* a_base =
+      reinterpret_cast<const unsigned char*>(win) +
+      ((wr * 16 * MT + (lane & 7) + 8 * ((lane >> 3) & 1)) * P +
+       wc * MX_N) * 2 + (lane >> 4) * 16;
+  float acc[MT][MX_NT][4];
+  mx_taps<L, 2>(frags, k, acc, [&](auto& ah, auto&, int dr, int a) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if constexpr (F32) {
+        // rows g, g + 8, columns t, t + 4 of the A block
+        const unsigned short* s = e_base + (m * 16 + dr) * P + a * KB;
+        ah[m][0] = static_cast<unsigned>(s[0]) << 16;
+        ah[m][1] = static_cast<unsigned>(s[8 * P]) << 16;
+        ah[m][2] = static_cast<unsigned>(s[4]) << 16;
+        ah[m][3] = static_cast<unsigned>(s[8 * P + 4]) << 16;
+      } else {
+        ldsm_x4(ah[m], a_base + ((m * 16 + dr) * P + a * KB) * 2);
+      }
+    }
+  });
+  mx16_store<MT>(acc, out, g.w, lr0 + wr * MT * 16, lc0 + wc * MX_N, all,
+                 [&](int r, int c) {
+                   return (whole ||
+                           (r >= 0 && r < g.h && c >= 0 && c < g.w &&
+                            mm::edge_distance(g.R0 + r, g.C0 + c, g.H,
+                                              g.W) > k)) &&
+                          !mm::in_rect(q, g.R0 + r, g.C0 + c);
+                 });
+}
+
+// The order of the walk, in tiles (row i, column j of the call's tiles):
+// first the tiles with a cell within k of the global edge (outside the
+// core rectangle [ci0, ci1) x [cj0, cj1): their exact strips are the
+// costliest work), then those with a cell outside q (outside the inner
+// rectangle [ii0, ii1) x [ij0, ij1), which lies in the core: the f32
+// pass), then the inner tiles (the bf16 pass alone). Block b takes
+// positions b, b + G, ...: each kind spreads evenly over the blocks.
+struct Mx16Order {
+  int ci0, ci1, cj0, cj1, ii0, ii1, ij0, ij1;
+  int near, ring;  // tiles outside the core, and in it outside the inner
+};
+
+// Position idx of the [0, R) x [0, C) tiles outside [a0, a1) x [b0, b1)
+// (empty: every tile), in row-major order.
+__device__ __forceinline__ void frame_tile(int idx, int C, int a0, int a1,
+                                           int b0, int b1, int& i, int& j) {
+  if (a0 >= a1 || b0 >= b1) a0 = a1 = 0;
+  const int top = a0 * C;
+  const int side = C - (b1 - b0);  // tiles a row beside the hole
+  if (idx >= top && idx < top + (a1 - a0) * side) {
+    idx -= top;
+    i = a0 + idx / side;
+    j = idx % side;
+    if (j >= b0) j += b1 - b0;
+    return;
+  }
+  if (idx >= top) idx += (a1 - a0) * (b1 - b0);  // past the hole
+  i = idx / C;
+  j = idx % C;
+}
+
+// The tile at position idx of the walk.
+__device__ __forceinline__ int mx16_tile(int idx, const Mx16Order& o,
+                                         int tiles_c) {
+  int i, j;
+  if (idx < o.near) {
+    frame_tile(idx, tiles_c, o.ci0, o.ci1, o.cj0, o.cj1, i, j);
+  } else if (idx < o.near + o.ring) {
+    frame_tile(idx - o.near, o.cj1 - o.cj0, o.ii0 - o.ci0, o.ii1 - o.ci0,
+               o.ij0 - o.cj0, o.ij1 - o.cj0, i, j);
+    i += o.ci0;
+    j += o.cj0;
+  } else {
+    idx -= o.near + o.ring;
+    i = o.ii0 + idx / (o.ij1 - o.ij0);
+    j = o.ij0 + idx % (o.ij1 - o.ij0);
+  }
+  return i * tiles_c + j;
+}
+
+template <typename T, typename Src>
+__device__ __forceinline__ void mx16_body(const Src& src, T* __restrict__ out,
+                                          const StepParams& p,
+                                          const uint2* __restrict__ frags,
+                                          const uint2* __restrict__ frags16,
+                                          const MxuTiles& mt, int tiles,
+                                          const Mx16Order& order, int pairs,
+                                          const mm::Rect& q) {
+  using G = Mx16Geo<T>;
+  extern __shared__ __align__(16) float smem[];
+  const int k = mt.k;
+  const Tiling& g = mt.g;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  unsigned char* at = reinterpret_cast<unsigned char*>(smem);
+  uint2* tab = reinterpret_cast<uint2*>(at);
+  at += G::table_words(k) * 8;
+  auto* win = reinterpret_cast<__nv_bfloat16*>(at);
+  T* slot = reinterpret_cast<T*>(at + G::win_bytes(k));
+  // tile t's local origin and its part of the array
+  const auto place = [&](int t, int& lr0, int& lc0, int& ar0, int& ar1,
+                         int& ac0, int& ac1) {
+    lr0 = (mt.tr0 + t / mt.tiles_c) * G::BH - g.R0;
+    lc0 = (mt.tc0 + t % mt.tiles_c) * G::BW - g.C0;
+    ar0 = max(lr0, 0);
+    ar1 = min(lr0 + G::BH, g.h);
+    ac0 = max(lc0, 0);
+    ac1 = min(lc0 + G::BW, g.w);
+  };
+
+  for (int e = tid; e < G::table_words(k) / 2; e += 32 * NWARPS) {
+    mm::cp_async16(tab + 2 * e, frags16 + 2 * e);
+  }
+  // stage the tile at walk position n (none past the end) into the slot
+  const auto issue = [&](int n) {
+    if (n < tiles) {
+      int lr0, lc0, ar0, ar1, ac0, ac1;
+      place(mx16_tile(n, order, mt.tiles_c), lr0, lc0, ar0, ar1, ac0, ac1);
+      mx16_issue<T>(src, Mx16Window<T>(lr0, lc0, k, g.h, g.w, p.vec), slot);
+    }
+    mm::cp_async_commit();  // one group a tile, empty past the last
+  };
+  const int stride = gridDim.x;
+  int ahead = blockIdx.x + stride;  // the walk position the next issue stages
+  issue(blockIdx.x);
+  for (int n = blockIdx.x; n < tiles; n += stride) {
+    int lr0, lc0, ar0, ar1, ac0, ac1;
+    place(mx16_tile(n, order, mt.tiles_c), lr0, lc0, ar0, ar1, ac0, ac1);
+    const int cover = mm::rect_cover(q, g.R0 + ar0, g.R0 + ar1, g.C0 + ac0,
+                                     g.C0 + ac1);
+    const Mx16Window<T> wn(lr0, lc0, k, g.h, g.w, p.vec);
+    cp_async_wait<0>();
+    __syncthreads();  // the slot has landed; the last tile's MMAs are done
+    mx16_convert<T>(slot, wn, win);
+    __syncthreads();
+    // whether a cell of the tile has d <= k, and whether it lies whole in
+    // the array with every cell at d > k
+    const bool near = g.R0 + ar0 < k + 1 || g.R0 + ar1 > g.H - 1 - k ||
+                      g.C0 + ac0 < k + 1 || g.C0 + ac1 > g.W - 1 - k;
+    const bool whole = !near && ar0 == lr0 && ac0 == lc0 &&
+                       ar1 == lr0 + G::BH && ac1 == lc0 + G::BW;
+    const bool strips = near && cover != mm::kAll;
+    // the slot is free: the next tile's window loads under this one's MMAs
+    // (after an edge tile's strips, which take the slot)
+    if (!strips) {
+      issue(ahead);
+      ahead += stride;
+    }
+    if (cover != mm::kNone) {
+      mx16_bf16_pass<T>(win, tab, out, mt, q, lr0, lc0,
+                        pairs && whole && cover == mm::kAll);
+    }
+    if (cover != mm::kAll) {
+      mx16_f32_pass<T>(win, frags, out, mt, q, lr0, lc0, whole,
+                       pairs && whole && cover == mm::kNone);
+    }
+    if (strips) {
+      __syncthreads();  // the window is dead: it and the slot take the strips
+      mm::exact_cells_of<true>(src, out, p, g, ar0, ar1, ac0, ac1,
+                               reinterpret_cast<float*>(win),
+                               reinterpret_cast<float*>(slot));
+      __syncthreads();
+      issue(ahead);
+      ahead += stride;
+    }
+  }
+  cp_async_wait<0>();  // the empty groups past the last tile
+}
+
+// K3 mxu, bf16 interior math: a whole [H, W] grid.
+template <typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kMx16Blocks<T>)
+    composed_mxu16_kernel(const T* __restrict__ in, T* __restrict__ out,
+                          StepParams p, const uint2* __restrict__ frags,
+                          const uint2* __restrict__ frags16, MxuTiles mt,
+                          int tiles, Mx16Order order, int pairs,
+                          mm::Rect q) {
+  mx16_body<T>(mm::DenseSource<T>{in, mt.g.H, mt.g.W}, out, p, frags,
+               frags16, mt, tiles, order, pairs, q);
+}
+
+// K3-halo mxu, bf16 interior math: one shard and its ghost ring.
+template <typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kMx16Blocks<T>)
+    composed_mxu16_halo_kernel(const mm::HaloSource<T> src,
+                               T* __restrict__ out, StepParams p,
+                               const uint2* __restrict__ frags,
+                               const uint2* __restrict__ frags16,
+                               MxuTiles mt, int tiles, Mx16Order order,
+                               int pairs, mm::Rect q) {
+  mx16_body<T>(src, out, p, frags, frags16, mt, tiles, order, pairs, q);
+}
+
+// Launch a persistent kernel: as many blocks as the card holds at once
+// (its occupancy at `smem`), at most one a tile. A request past the card's
+// shared memory is refused (the error of cudaFuncSetAttribute).
+template <typename K, typename... Args>
+cudaError_t launch_walk(K kernel, int smem, int tiles, int* limit,
+                        void* stream, Args... args) {
+  if (smem > *limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    *limit = smem;
+  }
+  int dev = 0, sms = 0, per = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel,
+                                                      32 * NWARPS, smem);
+  }
+  if (e != cudaSuccess) return e;
+  if (per < 1) return cudaErrorInvalidConfiguration;
+  kernel<<<tiles < per * sms ? tiles : per * sms, dim3(32, NWARPS), smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return cudaGetLastError();
+}
+
+// The tiles [first, last) of `n` (the first at index t0, BH rows each, a
+// local origin R0 within an array of h rows) whose part of the array lies
+// in the global rows [lo, hi); none when lo >= hi.
+inline void tile_span(int n, int t0, int B, int R0, int h, int lo, int hi,
+                      int& first, int& last) {
+  first = last = 0;
+  bool seen = false;
+  for (int i = 0; i < n; ++i) {
+    const int a0 = R0 + std::max((t0 + i) * B - R0, 0);
+    const int a1 = R0 + std::min((t0 + i + 1) * B - R0, h);
+    if (a0 >= lo && a1 <= hi) {
+      if (!seen) first = i;
+      seen = true;
+      last = i + 1;
+    }
+  }
+}
+
+// The walk's order (Mx16Order) for the call's tiles and rectangle.
+template <typename T>
+Mx16Order mx16_order(const MxuTiles& mt, int tiles, const mm::Rect& q) {
+  using G = Mx16Geo<T>;
+  const Tiling& g = mt.g;
+  const int k = mt.k;
+  const int tiles_r = tiles / mt.tiles_c;
+  Mx16Order o;
+  tile_span(tiles_r, mt.tr0, G::BH, g.R0, g.h, k + 1, g.H - 1 - k, o.ci0,
+            o.ci1);
+  tile_span(mt.tiles_c, mt.tc0, G::BW, g.C0, g.w, k + 1, g.W - 1 - k, o.cj0,
+            o.cj1);
+  tile_span(tiles_r, mt.tr0, G::BH, g.R0, g.h, q.r0, q.r1, o.ii0, o.ii1);
+  tile_span(mt.tiles_c, mt.tc0, G::BW, g.C0, g.w, q.c0, q.c1, o.ij0, o.ij1);
+  // the inner tiles within the core (empty either way: none)
+  o.ii0 = std::max(o.ii0, o.ci0);
+  o.ii1 = std::min(o.ii1, o.ci1);
+  o.ij0 = std::max(o.ij0, o.cj0);
+  o.ij1 = std::min(o.ij1, o.cj1);
+  const int core = (o.ci1 - o.ci0) * (o.cj1 - o.cj0);
+  const int inner = o.ii0 < o.ii1 && o.ij0 < o.ij1
+                        ? (o.ii1 - o.ii0) * (o.ij1 - o.ij0)
+                        : 0;
+  if (inner == 0) o.ii0 = o.ii1 = o.ij0 = o.ij1 = 0;
+  o.near = tiles - core;
+  o.ring = core - inner;
+  return o;
+}
+
+template <typename T>
+int mx16_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
+                int W, StepParams p, const void* frags, const void* frags16,
+                const mm::Rect& q, void* stream) {
+  using G = Mx16Geo<T>;
+  static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
+  static int limit_halo = DEFAULT_SMEM_LIMIT;
+  // the exact strips take the window and a slot as their two buffers
+  const int strip = piece_floats(p.nsteps) * static_cast<int>(sizeof(float));
+  if (strip > G::win_bytes(p.nsteps) || strip > G::slot_bytes(p.nsteps)) {
+    return static_cast<int>(cudaErrorInvalidValue);  // never at k <= KMAX
+  }
+  MxuTiles mt;
+  const int tiles = mxu_tiles<T>(halo, H, W, p.nsteps, mt);
+  const Mx16Order order = mx16_order<T>(mt, tiles, q);
+  p.vec = halo == nullptr ? mm::rows_aligned<T>(in, W)
+                          : mm::rows_aligned<T>(halo->shard, halo->w);
+  // pair stores: every row's even columns start 2-element aligned
+  const int pairs = reinterpret_cast<uintptr_t>(out) % (2 * sizeof(T)) == 0 &&
+                    mt.g.w % 2 == 0 && mt.g.C0 % 2 == 0;
+  const auto* fr = static_cast<const uint2*>(frags);
+  const auto* fr16 = static_cast<const uint2*>(frags16);
+  T* o = static_cast<T*>(out);
+  const int smem = mx16_smem<T>(p.nsteps);
+  if (halo == nullptr) {
+    return static_cast<int>(launch_walk(composed_mxu16_kernel<T>, smem,
+                                        tiles, &limit, stream, in, o, p, fr,
+                                        fr16, mt, tiles, order, pairs, q));
+  }
+  return static_cast<int>(launch_walk(
+      composed_mxu16_halo_kernel<T>, smem, tiles, &limit_halo, stream,
+      mm::HaloSource<T>(*halo), o, p, fr, fr16, mt, tiles, order, pairs, q));
+}
+
+// `frags16` (the bf16 pass's one-term table) when `bf16`.
 template <typename T>
 int mxu(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
         const StepParams& p, const void* frags, int bf16, const mm::Rect& q,
@@ -910,10 +1564,9 @@ int mxu(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
       frags == nullptr || (bf16 && frags16 == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return bf16 ? mxu_launch<T, true>(in, halo, out, H, W, p, frags, frags16,
-                                    q, stream)
-              : mxu_launch<T, false>(in, halo, out, H, W, p, frags, frags16,
-                                     q, stream);
+  return bf16 ? mx16_launch<T>(in, halo, out, H, W, p, frags, frags16, q,
+                               stream)
+              : mxu_launch<T>(in, halo, out, H, W, p, frags, stream);
 }
 
 StepParams make_params(float rate, float keep, int k, int mask9, int noff,
@@ -961,9 +1614,8 @@ int halo(int form, const void* args, void* out, const StepParams& p,
                       stream);
 }
 
-template <typename T>
+template <typename L>
 void layout_of(int* out7) {
-  using L = Mxu<T>;
   out7[0] = L::KB;
   out7[1] = L::KMAX;
   out7[2] = L::REL_MIN;
@@ -980,8 +1632,9 @@ extern "C" {
 // vpu: `coefs` is a host array of k + 1 floats. mxu: `frags` is the device
 // B table (ops/composed_stencil.py::mxu_fragments). Then the bf16 interior
 // math: `bf16`, its rectangle (global rows [r0, r1), columns [c0, c1)) and
-// its table: the bf16 coefficients (vpu, host) or the bf16 B table (mxu,
-// device), used when `bf16`.
+// its table: the bf16 coefficients (vpu, host) or the bf16 pass's one-term
+// B table (mxu, device: ops/composed_stencil.py::mxu_fragments16), used
+// when `bf16`.
 #define MM_BF16_ARGS int bf16, int r0, int r1, int c0, int c1
 #define MM_RECT mm::Rect{r0, r1, c0, c1}
 
@@ -1060,15 +1713,17 @@ int mm_composed_halo_mxu_bf16(const void* args, void* out, float rate,
       frags, bf16, MM_RECT, frags16, stream);
 }
 
-// The mxu form's layout for a dtype (0 f32, 1 bf16): {KB, KMAX, REL_MIN,
-// NB, MX_N, BH, BW}; the Python side checks it against its own (the B
-// table's layout, and the tiles its operation count assumes) before the
+// The mxu form's layout, {KB, KMAX, REL_MIN, NB, MX_N, BH, BW}: `which` 0
+// f32 storage, 1 bf16; 2 and 3 the bf16 interior math's bf16 pass at f32
+// and bf16 storage. The Python side checks each against its own (the B
+// tables' layouts, and the tiles its operation count assumes) before the
 // first launch.
-void mm_composed_mxu_layout(int bf16, int* out7) {
-  if (bf16) {
-    layout_of<__nv_bfloat16>(out7);
-  } else {
-    layout_of<float>(out7);
+void mm_composed_mxu_layout(int which, int* out7) {
+  switch (which) {
+    case 0: layout_of<Mxu<float>>(out7); break;
+    case 1: layout_of<Mxu<__nv_bfloat16>>(out7); break;
+    case 2: layout_of<Mx16<float>>(out7); break;
+    default: layout_of<Mx16<__nv_bfloat16>>(out7); break;
   }
 }
 

@@ -96,6 +96,11 @@ FORMS = ("vpu", "mxu")
 #: block tile's rows and columns; the warp tile is MXU_WARP_COLS wide
 MXU_LAYOUT = {torch.float32: (8, 8, 0, 64, 128),
               torch.bfloat16: (16, 16, -8, 128, 128)}
+#: the bf16 pass of the bf16 interior math, per storage dtype (``Mx16<T>``,
+#: the same fields): m16n8k16 on the f32-compute form's block tile, so both
+#: passes, and a shard's tiles, start where the whole grid's do
+MXU_LAYOUT_BF16 = {torch.float32: (16, 16, -8, 64, 128),
+                   torch.bfloat16: (16, 16, -8, 128, 128)}
 MXU_WARP_COLS = 32
 
 _launch_count = {f: 0 for f in FORMS}
@@ -399,14 +404,27 @@ def mxu_fragments(rate: float, offsets: Sequence[tuple[int, int]], k: int,
         [np.stack(r, axis=-1) for r in regs], axis=2).astype(np.uint32))
 
 
-def device_fragments(rate: float, offsets, k: int, dtype,
-                     device) -> torch.Tensor:
-    """``mxu_fragments`` on ``device`` (as int32), cached."""
-    key = (taps_fingerprint(rate, offsets, k), str(dtype), str(device))
+def mxu_fragments16(rate: float, offsets: Sequence[tuple[int, int]],
+                    k: int) -> np.ndarray:
+    """The bf16 pass's B table, uint32 ``[2k+1, NB, 32, 2]``: the first
+    term of ``mxu_fragments(..., torch.bfloat16)`` (the taps rounded to
+    bf16), the only one the pass reads. The kernel copies it into shared
+    memory once a block."""
+    return np.ascontiguousarray(
+        mxu_fragments(rate, offsets, k, torch.bfloat16)[:, :, 0])
+
+
+def device_fragments(rate: float, offsets, k: int, dtype, device,
+                     one_term: bool = False) -> torch.Tensor:
+    """``mxu_fragments`` (``one_term``: ``mxu_fragments16``) on ``device``
+    (as int32), cached."""
+    key = (taps_fingerprint(rate, offsets, k), str(dtype), str(device),
+           one_term)
     t = _FRAGS.get(key)
     if t is None:
-        t = torch.from_numpy(mxu_fragments(rate, offsets, k, dtype).view(
-            np.int32)).to(device).contiguous()
+        table = (mxu_fragments16(rate, offsets, k) if one_term
+                 else mxu_fragments(rate, offsets, k, dtype))
+        t = torch.from_numpy(table.view(np.int32)).to(device).contiguous()
         _FRAGS[key] = t
     return t
 
@@ -581,14 +599,18 @@ def _kernel_lib():
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
         lib.mm_composed_mxu_layout.argtypes = [i, ctypes.POINTER(i)]
         lib.mm_composed_mxu_layout.restype = None
-        for dtype, (kb, kmax, rel_min, bh, bw) in MXU_LAYOUT.items():
+        for which, (what, layout) in enumerate(
+                (f"{d}", MXU_LAYOUT[d]) if n == 0 else
+                (f"{d} bf16 interior", MXU_LAYOUT_BF16[d])
+                for n in (0, 1) for d in (torch.float32, torch.bfloat16)):
+            kb, kmax, rel_min, bh, bw = layout
             got = (i * 7)()
-            lib.mm_composed_mxu_layout(int(dtype == torch.bfloat16), got)
+            lib.mm_composed_mxu_layout(which, got)
             want = (kb, kmax, rel_min, (2 * kmax + 7 - rel_min) // 8 + 1,
                     MXU_WARP_COLS, bh, bw)
             if tuple(got) != want:
                 raise RuntimeError(f"composed_stencil's mxu layout for "
-                                   f"{dtype} is {tuple(got)}, the wrapper's "
+                                   f"{what} is {tuple(got)}, the wrapper's "
                                    f"{want}")
         lib._mm_typed = True
     return lib
@@ -610,8 +632,9 @@ def _form_args(form: str, rate: float, offsets: tuple, k: int, dtype,
     the neighbourhood (bitmask, size, ordered codes), then ``moore`` and
     the host coefficients (vpu) or the device B table (mxu); then the bf16
     interior math: whether it is on, the global rows and columns of its
-    cells (``rect``), and the bf16 coefficients (vpu) or the bf16 B table
-    (mxu; its first term is the taps rounded to bf16)."""
+    cells (``rect``), and the bf16 coefficients (vpu) or the bf16 pass's
+    one-term B table (mxu, ``mxu_fragments16``: the taps rounded to
+    bf16)."""
     common = (float(rate), float(1.0 - rate), int(k), _offset_mask(offsets),
               len(offsets), _offset_codes(offsets))
     bf = (int(rect is not None),) + (rect if rect is not None
@@ -622,11 +645,19 @@ def _form_args(form: str, rate: float, offsets: tuple, k: int, dtype,
         arr16 = (_coef_array(vpu_coefs_bf16(rate, offsets, k), key + ("bf16",))
                  if rect is not None else None)
         return common + (int(moore), _coef_array(coefs, key)) + bf + (arr16,)
-    table16 = (device_fragments(rate, offsets, k, torch.bfloat16,
-                                device).data_ptr() if rect is not None
-               else None)
+    table16 = (device_fragments(rate, offsets, k, torch.bfloat16, device,
+                                one_term=True).data_ptr()
+               if rect is not None else None)
     return common + (device_fragments(rate, offsets, k, dtype,
                                       device).data_ptr(),) + bf + (table16,)
+
+
+def _what(form: str, dt: str, k: int, rect: Optional[tuple],
+          mode: str = "") -> str:
+    """A launch's name in its errors: form, storage dtype, k and, with
+    bf16 interior math, that."""
+    return (f"composed_stencil {form} {mode}kernel ({dt}, k={k}"
+            + (", bf16 interior math)" if rect is not None else ")"))
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -654,7 +685,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), h, w, *args, stream)
-    _raise_on(lib, err, f"composed_stencil {form} kernel")
+    _raise_on(lib, err, _what(form, dt, k, rect))
     _launch_count[form] += 1
     if stepper is not None:
         stepper.launches += 1
@@ -766,14 +797,14 @@ def composed_halo_step(
     dt = "f32" if values.dtype == torch.float32 else "bf16"
     fn = getattr(lib, f"mm_composed_halo_{form}_{dt}")
     args = halo_args(values, ring, origin, global_shape)
+    rect = kernel_rect(tuple(values.shape), values.dtype, blk, k,
+                       compute_dtype, origin, global_shape)
     fargs = _form_args(form, float(rate), offsets, k, values.dtype,
-                       values.device,
-                       kernel_rect(tuple(values.shape), values.dtype, blk, k,
-                                   compute_dtype, origin, global_shape))
+                       values.device, rect)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(ctypes.addressof(args), out.data_ptr(), *fargs, stream)
-    _raise_on(lib, err, f"composed_stencil {form} halo kernel")
+    _raise_on(lib, err, _what(form, dt, k, rect, "halo "))
     _halo_launch_count[form] += 1
     return out
 
@@ -844,24 +875,68 @@ def vpu_ops(shape: tuple[int, int], k: int,
                  + edge * k * (len(offsets) + 3))
 
 
-def mxu_tensor_flops(shape: tuple[int, int], k: int, dtype, origin=(0, 0),
-                     global_shape=None) -> float:
-    """Tensor-core flops of one call in the mxu form: every block tile
-    (``MXU_LAYOUT``'s rows and columns, aligned to the global grid) runs,
-    per 16 x MXU_WARP_COLS cells and row offset, one MMA group for each A
-    block and n8 tile whose band it meets: 3 MMAs of 2·16·8·8 flops for
-    f32 (3×TF32), 2 of 2·16·8·16 for bf16."""
-    kb, kmax, rel_min, bh, bw = MXU_LAYOUT[dtype]
+def _mxu_pairs(layout: tuple, k: int) -> int:
+    """(A block, n8 tile) pairs of one warp tile and row offset in
+    ``layout`` at k: the MMA groups whose band the A block meets."""
+    kb, kmax, rel_min = layout[:3]
     nb = (2 * kmax + 7 - rel_min) // 8 + 1
     na = -(-(MXU_WARP_COLS + 2 * kmax) // kb)
-    pairs = sum(1 for a in range(na) if a * kb < MXU_WARP_COLS + 2 * k
-                for nt in range(MXU_WARP_COLS // 8)
-                if rel_min <= a * kb - 8 * nt <= 2 * k + 7
-                and (a * kb - 8 * nt - rel_min) // 8 < nb)
-    mmas, flops = (3, 2 * 16 * 8 * 8) if dtype == torch.float32 else \
-        (2, 2 * 16 * 8 * 16)
+    return sum(1 for a in range(na) if a * kb < MXU_WARP_COLS + 2 * k
+               for nt in range(MXU_WARP_COLS // 8)
+               if rel_min <= a * kb - 8 * nt <= 2 * k + 7
+               and (a * kb - 8 * nt - rel_min) // 8 < nb)
+
+
+def mxu_mma_flops(shape: tuple[int, int], k: int, dtype, origin=(0, 0),
+                  global_shape=None, rect: Optional[tuple] = None
+                  ) -> dict[str, float]:
+    """Tensor-core flops of one mxu call by the MMAs' input type (``"tf32"``,
+    ``"bf16"``), on the layout that runs: every block tile (``MXU_LAYOUT``'s
+    rows and columns, aligned to the global grid) runs, per 16 x
+    MXU_WARP_COLS cells and row offset, one MMA group for each A block and
+    n8 tile whose band it meets. f32 compute (``rect`` None): 3 m16n8k8
+    TF32 MMAs of 2·16·8·8 flops a group (f32 storage), 2 m16n8k16 of
+    2·16·8·16 (bf16). bf16 interior math (``rect``, the global rows and
+    columns of its cells, ``fused_stencil.kernel_rect``'s): a tile whose
+    part of the array meets the rectangle runs the bf16 pass
+    (``MXU_LAYOUT_BF16``, one m16n8k16 a group: the taps' first term), and
+    one that does not lie in it the f32 pass: 2 TF32 MMAs a group at f32
+    storage (the window's low term is 0), 2 bf16 at bf16 storage."""
+    kb, kmax, rel_min, bh, bw = MXU_LAYOUT[dtype]
+    f32 = dtype == torch.float32
+    kind = "tf32" if f32 else "bf16"
+    per_mma = 2 * 16 * 8 * kb
     (h, w), (r0, c0) = shape, origin
-    tiles = ((-(-(r0 + h) // bh) - r0 // bh)
-             * (-(-(c0 + w) // bw) - c0 // bw))
-    per_tile = (bh // 16) * (bw // MXU_WARP_COLS)
-    return float(tiles * per_tile * (2 * k + 1) * pairs * mmas * flops)
+    tr0, tc0 = r0 // bh, c0 // bw
+    tiles_r = -(-(r0 + h) // bh) - tr0
+    tiles_c = -(-(c0 + w) // bw) - tc0
+    per_tile = (bh // 16) * (bw // MXU_WARP_COLS) * (2 * k + 1)
+    if rect is None:
+        return {kind: float(tiles_r * tiles_c * per_tile
+                            * _mxu_pairs(MXU_LAYOUT[dtype], k)
+                            * (3 if f32 else 2) * per_mma)}
+    q0, q1, p0, p1 = rect
+    meets = inside = 0
+    for i in range(tr0, tr0 + tiles_r):
+        ar0, ar1 = max(i * bh, r0), min((i + 1) * bh, r0 + h)
+        rows = max(0, min(ar1, q1) - max(ar0, q0))
+        for j in range(tc0, tc0 + tiles_c):
+            ac0, ac1 = max(j * bw, c0), min((j + 1) * bw, c0 + w)
+            cols = max(0, min(ac1, p1) - max(ac0, p0))
+            meets += rows * cols > 0
+            inside += rows * cols == (ar1 - ar0) * (ac1 - ac0)
+    tiles = tiles_r * tiles_c
+    bf16 = float(meets * per_tile * _mxu_pairs(MXU_LAYOUT_BF16[dtype], k)
+                 * 2 * 16 * 8 * 16)
+    rest = float((tiles - inside) * per_tile
+                 * _mxu_pairs(MXU_LAYOUT[dtype], k) * 2 * per_mma)
+    return {"tf32": rest, "bf16": bf16} if f32 else {"bf16": bf16 + rest}
+
+
+def mxu_tensor_flops(shape: tuple[int, int], k: int, dtype, origin=(0, 0),
+                     global_shape=None, rect: Optional[tuple] = None
+                     ) -> float:
+    """Tensor-core flops of one mxu call, every type together
+    (``mxu_mma_flops``)."""
+    return sum(mxu_mma_flops(shape, k, dtype, origin, global_shape,
+                             rect).values())

@@ -988,6 +988,172 @@ def test_bf16_interior_k3_halo_on_the_card(form, dtype, k, mesh_shape,
             _held_to_plain(got, want, form, k)
 
 
+# K3/K3-halo mxu bf16-interior: the persistent tile walk. Cases: k 1, 3,
+# 8 (and 16 at bf16 storage); Moore and a non-Moore neighbourhood; a grid
+# of many tiles (19 x 17 f32 tiles, 10 x 17 bf16: no multiple of a
+# persistent grid of one or two blocks an SM on 132 SMs); a rectangle whose
+# row edges cut the kernel's tiles (JAX blocks of 48 and 50 rows); shards
+# at an origin off the tiles (row 150: a partial first tile); windows of
+# uniform values, of +-0 and bf16 subnormals, and of +-inf.
+
+_K3_GEOMETRIES = {"many_tiles": ((1216, 2176), (64, 128)),
+                  "straddling": ((336, 1024), (48, 256))}
+
+
+def _k3_values(dev, dtype, shape, seed, values):
+    """Uniform values; ``special``: cells of +0, -0 and bf16 subnormals
+    among them; ``inf``: those and cells of +-inf."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.uniform(0.5, 2.0, shape)).to(dev, dtype)
+    if values != "uniform":
+        specials = (0.0, -0.0, 2.0 ** -130, -(2.0 ** -128), 2.0 ** -133)
+        if values == "inf":
+            specials += (float("inf"), float("-inf"))
+        flat = x.view(-1)
+        for i, c in enumerate(rng.choice(flat.numel(), 6 * len(specials),
+                                         replace=False)):
+            flat[int(c)] = specials[i % len(specials)]
+    return x
+
+
+def _held_with_inf(got, want, k):
+    """Where the plain version is not finite the kernel is not either (a
+    product with an infinite cell, or 0 x inf, reaches it); elsewhere the
+    kernel's finite cells are held as ``_held_to_plain`` holds them. The
+    tensor cores also multiply an infinite cell by the zeros off the tap
+    band, so the kernel's non-finite cells may spread past the plain
+    version's, within 16 columns."""
+    fin = torch.isfinite(want)
+    assert not torch.isfinite(got[~fin]).any()
+    both = fin & torch.isfinite(got)
+    g32, w32 = got.float()[both], want.float()[both]
+    tol = (1e-6 * k * float(w32.abs().max())
+           if got.dtype == torch.float32 else 2.0 ** -6)
+    assert float((g32 - w32).abs().max()) <= tol
+
+
+def _outside_rect(shape, dtype, block, k):
+    r0, r1, c0, c1 = fs.kernel_rect(shape, dtype,
+                                    fs.resolve_block(shape, dtype, block), k,
+                                    _BF)
+    rows = torch.arange(shape[0])[:, None]
+    cols = torch.arange(shape[1])[None, :]
+    return ~((rows >= r0) & (rows < r1) & (cols >= c0) & (cols < c1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["uniform", "special", "inf"])
+@pytest.mark.parametrize("geometry", sorted(_K3_GEOMETRIES))
+@pytest.mark.parametrize("hood", ["moore", "custom"])
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 3),
+                                     (torch.float32, 8), (torch.bfloat16, 1),
+                                     (torch.bfloat16, 3), (torch.bfloat16, 8),
+                                     (torch.bfloat16, 16)])
+def test_bf16_interior_k3_mxu_walk_on_the_card(dtype, k, hood, geometry,
+                                               values):
+    """The mxu bf16-interior kernel against its plain version (uniform and
+    special values within the form's tolerance; +-inf by position,
+    ``_held_with_inf``), one launch counted; and its cells outside the
+    bf16 rectangle bit for bit the f32-compute kernel run over the grid
+    rounded to bf16 (the f32 pass without the window's zero low term) on
+    finite values."""
+    dev = _card()
+    shape, block = _K3_GEOMETRIES[geometry]
+    offs = MOORE_OFFSETS if hood == "moore" else CUSTOM
+    x = _k3_values(dev, dtype, shape, 5 + k, values)
+    before = cs.launches("mxu")
+    got = cs.composed_dense_step(x, 0.13, k, offs, block=block,
+                                 variant="mxu", compute_dtype=_BF)
+    assert cs.launches("mxu") == before + 1
+    want = cs.composed_dense_step_plain(x, 0.13, k, offs, "mxu", _BF, block)
+    if values == "inf":
+        _held_with_inf(got, want, k)
+        return
+    _held_to_plain(got, want, "mxu", k)
+    f32 = cs.composed_dense_step(x.to(_BF).to(dtype), 0.13, k, offs,
+                                 block=block, variant="mxu")
+    out = _outside_rect(shape, dtype, block, k).to(dev)
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got[out].view(bits), f32[out].view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["uniform", "special"])
+@pytest.mark.parametrize("hood", ["moore", "custom"])
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 3), (torch.float32, 8),
+                                     (torch.bfloat16, 3),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("mesh_shape,shape,block", [
+    ((2, 2), (1024, 2048), (64, 256)), ((2, 3), (300, 768), (50, 256))])
+def test_bf16_interior_k3_mxu_halo_mosaic_on_the_card(dtype, k, hood,
+                                                      mesh_shape, shape,
+                                                      block, values):
+    """K3-halo mxu bf16-interior on every shard (on 300 x 768 the second
+    row of shards starts at row 150, off the kernel's tiles) against its
+    plain version, and the shards put together bit for bit the whole-grid
+    K3 at the same JAX blocks."""
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    offs = MOORE_OFFSETS if hood == "moore" else CUSTOM
+    full = _k3_values(dev, dtype, shape, 31 + k, values)
+    lines, columns = mesh_shape
+    h, w = shape[0] // lines, shape[1] // columns
+    g = [[full[i * h:(i + 1) * h, j * w:(j + 1) * w].contiguous()
+          for j in range(columns)] for i in range(lines)]
+    whole = cs.composed_dense_step(full, 0.13, k, offs, block=block,
+                                   variant="mxu", compute_dtype=_BF)
+    mosaic = torch.empty_like(full)
+    before = cs.halo_launches("mxu")
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, k)
+            got = cs.composed_halo_step(g[i][j], ring, (i * h, j * w), shape,
+                                        0.13, k, offs, block, "mxu", _BF)
+            want = cs.composed_halo_step_plain(
+                g[i][j], ring, (i * h, j * w), shape, 0.13, k, offs, "mxu",
+                _BF, block)
+            _held_to_plain(got, want, "mxu", k)
+            mosaic[i * h:(i + 1) * h, j * w:(j + 1) * w] = got
+    assert cs.halo_launches("mxu") == before + lines * columns
+    assert torch.equal(mosaic, whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [False, True])
+def test_bf16_interior_k3_mxu_launch_error_raises(monkeypatch, halo):
+    """No fallback: with no table in the bf16 slot the launch is refused and
+    raises naming the form, dtype and k; nothing is counted and nothing is
+    written in its place."""
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    form_args = cs._form_args
+
+    def no_table16(*args, **kwargs):
+        return form_args(*args, **kwargs)[:-1] + (None,)
+
+    monkeypatch.setattr(cs, "_form_args", no_table16)
+    x = _k3_values(dev, torch.float32, (512, 1024), 3, "uniform")
+    out = torch.full((256, 512) if halo else (512, 1024), float("nan"),
+                     device=dev)
+    before = (cs.launches(), cs.halo_launches())
+    with pytest.raises(RuntimeError, match=r"mxu .*f32, k=8, bf16 interior"):
+        if halo:
+            g = [[x[i * 256:(i + 1) * 256, j * 512:(j + 1) * 512].contiguous()
+                  for j in range(2)] for i in range(2)]
+            cs.composed_halo_step(g[1][0], exchange_ring(g, 1, 0, 8),
+                                  (256, 0), (512, 1024), 0.13, 8,
+                                  block=(64, 256), variant="mxu",
+                                  compute_dtype=_BF, out=out)
+        else:
+            cs.composed_dense_step(x, 0.13, 8, block=(64, 256),
+                                   variant="mxu", compute_dtype=_BF, out=out)
+    torch.cuda.synchronize()
+    assert (cs.launches(), cs.halo_launches()) == before
+    assert bool(torch.isnan(out).all())
+
+
 #: a six-offset neighbourhood (hexagonal; its count is no power of two)
 _SIX = ((-1, -1), (-1, 0), (0, -1), (0, 1), (1, 0), (1, 1))
 _K4_HOODS = {"moore": MOORE_OFFSETS, "six": _SIX}
