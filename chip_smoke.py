@@ -211,7 +211,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    512 × 1024 at block (64, 128) and 336 × 1000 at (48, 200), where the
    bf16 rectangle's edges cut the kernel's tiles, and 16384² at JAX's
    blocks), K2 (the 2×2 shards of 2048 × 2560 and the 4 stripes of
-   96 × 768, whose every tile is near, f32 nsteps 1 and 8, bf16 16), K3
+   96 × 768, whose every tile is near, f32 nsteps 1 and 8, bf16 16), K1
+   and K2 over windows of ±0, bf16 subnormals and ±inf (K1 on 225 × 999 at
+   block (45, 333), whose bf16 rectangle starts at an odd row and column;
+   K2 on the 2×2 shards of 1024 × 2048; f32 nsteps 8 and bf16 16; bit for
+   bit, NaN compared by position), K3
    and K3-halo in each form (f32 k 1, 8 and bf16 4, 16), K4 and K4-halo
    on the paired walk (config 4, the 3-channel chain, ``Coupled`` alone,
    the affine flow and the every-operation flow, Moore, config 4 and the
@@ -234,13 +238,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    in both forms, config 4 at 8192² (f32 substeps 1 and 8, bf16 1 and
    16), the 2×2
    sharded K2, K3-halo (each form, bit for bit its serial composed run)
-   and K4-halo (config 4 at 8192²) at depth 8 (K3 mxu's and K3-halo mxu's
-   counted runs traced: every launch must have run the persistent walk
-   once and no other K3 kernel, ``k3_mxu16``, a run whose trace dropped a
-   walk run and traced again at most twice; K4's and K4-halo's: every launch must have
-   run the f32 walk and the paired walk once each, ``k4_walk``; the
-   kernels line's ``walk`` and ``kernels_per_launch`` come from that
-   trace), the ensemble 8 × 4096² (bit for bit the
+   and K4-halo (config 4 at 8192²) at depth 8 (K1's, K2's, K3 mxu's,
+   K3-halo mxu's, K4's and K4-halo's rows made whole in a process of
+   their own, ``fresh_row`` / ``traced_row``: their counted run is traced,
+   and every K1/K2 launch must have run the near launch's f32 walk and the
+   paired launch's walk once each, ``k1_walk``; every K3 mxu launch the
+   persistent walk once and no other K3 kernel, ``k3_mxu16``; every K4
+   launch the f32 walk and the paired walk once each, ``k4_walk``; a
+   counted run whose trace dropped one of its kernels is made again, at
+   most ``TRACE_RETRIES`` times; the kernels line's ``launches``, ``walk``
+   and ``kernels_per_launch`` come from that one counted run), the
+   ensemble 8 × 4096² (bit for bit the
    f32-compute dispatch) and 4 × 8192² (blocks (512, 2048): closed tiles
    in every lane; bit for bit its plain version); each run's mass change
    held below ``MASS_BF16`` of the total. Each variant's kernel held
@@ -251,7 +259,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    paired bf16 rate ``BF16X2_OPS``, the rest at the f32 rate; K3 mxu's
    banded MMAs on the layout that runs are its form's bound,
    ``form_bound_ms``, ``mxu16_tensor_ms``; K4's paired form
-   counts its instructions on the f32 halves at the f32 rate).
+   counts its instructions on the f32 halves at the f32 rate; K1/K2's
+   paired form its walk's instructions over the windows of the tiling that
+   runs, ``k1_paired_bound_ms``).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -301,6 +311,9 @@ BF16_FLOPS = 989e12
 #: data-sheet 67 TFLOP/s: twice the f32 operation rate
 BF16X2_OPS = 2 * F32_FLOPS
 CUSTOM_OFFSETS = ((-1, 0), (1, 1), (0, -1))
+#: how many times phase 6g makes again a counted main-path run whose trace
+#: dropped one of its kernels (``k1_short``, ``k3_short``, ``k4_short``)
+TRACE_RETRIES = 3
 #: the share of the total mass a main-path run with bf16 interior math may
 #: move (JAX's semantics: constants rounded to bf16, every operation
 #: rounded). H100 80GB HBM3 at 700.00 W, this script: at most 4.69e-3
@@ -444,6 +457,17 @@ def k4_walk(names: dict, launched: int, what: str) -> dict:
             / launched, "k4_kernels": k4}
 
 
+def k4_short(names: dict, launched: int) -> bool:
+    """A K4 bf16-interior trace that shows fewer near or paired walks than
+    the launches counted, and no other K4 kernel (kernels the profiler
+    dropped)."""
+    k4 = {n: c for n, c in names.items() if "mm_field::" in n}
+    paired = sum(c for n, c in k4.items()
+                 if "field_kernel16" in n and "ProgramBf16" in n)
+    near = sum(c for n, c in k4.items() if "field_kernel_near" in n)
+    return min(paired, near) < launched and sum(k4.values()) == paired + near
+
+
 def k3_short(names: dict, launched: int) -> int:
     """The walks a K3 mxu bf16-interior trace shows when they are fewer
     than the launches counted and the trace holds no other K3 kernel (a
@@ -467,6 +491,193 @@ def k3_mxu16(names: dict, launched: int, what: str) -> dict:
     halo = any("composed_mxu16_halo_kernel" in n for n in k3)
     return {"instance": ("composed_mxu16_halo_kernel" if halo
                          else "composed_mxu16_kernel"), "k3_kernels": k3}
+
+
+def k1_walk(names: dict, launched: int, what: str) -> dict:
+    """Which K1/K2 kernels a counted main-path run of the bf16 interior
+    math ran, from its trace (``traced_kernels``): every launch the near
+    launch's f32 walk over the bands (``fused_stencil_near_kernel`` /
+    ``_halo_near_kernel``) and the paired launch's walk over the rectangle
+    (``fused_stencil_bf16_kernel`` / ``_halo_bf16_kernel``) once each, and
+    no other K1/K2 kernel. Fails otherwise. Returns the walk, the kernels a
+    launch and the counts."""
+    k1 = {n: c for n, c in names.items() if "fused_stencil" in n}
+    paired = sum(c for n, c in k1.items() if "_bf16_kernel" in n)
+    near = sum(c for n, c in k1.items() if "_near_kernel" in n)
+    check(launched > 0 and paired == launched and near == launched
+          and sum(k1.values()) == paired + near,
+          f"{what}: {launched} launches ran the K1/K2 kernels {k1}, not the "
+          "near walk and the paired walk once each")
+    return {"walk": "row pairs", "kernels_per_launch": sum(k1.values())
+            / launched, "k1_kernels": k1}
+
+
+def k1_short(names: dict, launched: int) -> bool:
+    """A K1/K2 bf16-interior trace that shows fewer paired or near kernels
+    than the launches counted, and no other K1/K2 kernel (a kernel the
+    profiler dropped)."""
+    k1 = {n: c for n, c in names.items() if "fused_stencil" in n}
+    paired = sum(c for n, c in k1.items() if "_bf16_kernel" in n)
+    near = sum(c for n, c in k1.items() if "_near_kernel" in n)
+    return (min(paired, near) < launched
+            and sum(k1.values()) == paired + near)
+
+
+def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
+    """One bf16-interior main-path row of phase 6g, whole, in a process of
+    its own (``fresh_row`` starts it): the entry point of ``kind`` (K1, K2
+    on the 2x2 mesh, K3 mxu, K3-halo mxu on 2x2, K4 and K4-halo on 2x2 with
+    config 4) on a grid made from ``SEED``; one uncounted run; then the
+    counted run, traced (every count to 0 just before, read just after; a
+    trace that dropped one of its kernels, ``k1_short`` / ``k3_short`` /
+    ``k4_short``, and its counted run are made again, at most
+    ``TRACE_RETRIES`` times); that run's result checked (finite, its mass
+    change; K3-halo: bit for bit the serial composed run); then the run's
+    ms (CUDA events, median of 3). Prints the row and the attempts' counts
+    and kernel names as one JSON line."""
+    import torch
+
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    sub, steps = int(sub), int(steps)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    BF = torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if kind.startswith("K4"):
+        vals = {c: (0.5 + 1.5 * torch.rand((N4, N4), generator=gen,
+                                           device=dev)).to(
+                                               getattr(torch, dname))
+                for c in ("a", "b")}
+        space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0},
+                                        dtype=dname).with_values(vals)
+        model = mt.Model(config4_flows(mt))
+    else:
+        x = (1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)).to(
+            getattr(torch, dname))
+        space = mt.CellularSpace.create(N, N, 1.0, dtype=dname).with_values(
+            {"value": x})
+        model = mt.Model(mt.Diffusion(0.1))
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    ex, counter, short = {
+        "K1": (mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
+               fs.launches, k1_short),
+        "K2": (ShardMapExecutor(mesh, "pallas", halo_depth=sub,
+                                compute_dtype=BF),
+               fs.halo_launches, k1_short),
+        "K3": (mt.SerialExecutor("composed", substeps=sub,
+                                 composed_variant="auto", compute_dtype=BF),
+               lambda: cs.launches("mxu"), k3_short),
+        "K3-halo": (ShardMapExecutor(mesh, "composed", halo_depth=sub,
+                                     composed_variant="mxu",
+                                     compute_dtype=BF),
+                    lambda: cs.halo_launches("mxu"), k3_short),
+        "K4": (mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
+               k4.launches, k4_short),
+        "K4-halo": (ShardMapExecutor(mesh, "pallas", halo_depth=sub,
+                                     compute_dtype=BF),
+                    k4.halo_launches, k4_short),
+    }[kind]
+
+    def run():
+        return model.execute(space, ex, steps=steps, check_conservation=False)
+
+    run()
+    attempts = []
+    for _ in range(1 + TRACE_RETRIES):
+        fs.reset_launches()
+        cs.reset_launches()
+        k4.reset_launches()
+        (res, rep), names = traced_kernels(torch, run)
+        attempts.append({"launches": counter(), "kernels": names})
+        if not short(names, attempts[-1]["launches"]):
+            break
+    total = sum(abs(float(t)) for t in rep.initial_total.values())
+    row = {"impl": rep.impl, "steps": steps,
+           "launches": attempts[-1]["launches"],
+           "conservation_error": float(rep.conservation_error()),
+           "mass_allowed": MASS_BF16 * total,
+           "finite": all(bool(torch.isfinite(v).all())
+                         for v in res.values.values())}
+    if kind == "K3-halo":
+        # chunk for chunk (depth ``sub``) the serial composed run
+        serial, _ = model.execute(
+            space, mt.SerialExecutor("composed", substeps=sub,
+                                     composed_variant="mxu",
+                                     compute_dtype=BF),
+            steps=steps, check_conservation=False)
+        row["bitwise_serial"] = torch.equal(res.values["value"],
+                                            serial.values["value"])
+        del serial
+    del res
+    run_ms = statistics.median(timed_ms(
+        torch, lambda: ex.run_model(model, space, steps), reps=3))
+    cells = sum(t.numel() for t in space.values.values()
+                if t.is_floating_point())
+    row.update(run_ms_median=run_ms,
+               cell_updates_per_s=cells * steps / (run_ms / 1e3))
+    print(json.dumps({"row": row, "attempts": attempts}), flush=True)
+
+
+#: the paired walk's instructions a pair and step, as the kernel runs them
+#: (fused_stencil.cu::paired_step): pass 1 two prmt and two adds (the band),
+#: a quarter of a 16-byte store; pass 2 two selects, two adds, two
+#: multiplies and an add, a quarter of a 16-byte load; and its two shuffles
+PAIRED_ALU = 2 + 2 + 0.25 + 2 + 2 + 2 + 1 + 0.25
+PAIRED_SHFL = 2
+#: lane-instructions a second: 132 SMs x 128 lanes at the clock of the data
+#: sheet's f32 rate (67 TFLOP/s counts an FMA as two); shuffles 32 lanes a
+#: clock an SM
+ISSUE_PER_S = F32_FLOPS / 2
+SHFL_PER_S = ISSUE_PER_S / 4
+
+
+def k1_paired_bound_ms(fs, shape, dtype, nsteps: int, origin=(0, 0),
+                       global_shape=None) -> tuple[float, str]:
+    """Least time of one K1 (K2) bf16-interior call in the form that runs:
+    the paired launch's windows (``fs.region_tiles`` over the rectangle at
+    ``fs.paired_rows``' rows, every window pair a step) at the paired
+    walk's instructions (``PAIRED_ALU`` at the issue rate, ``PAIRED_SHFL``
+    at the shuffle rate, whichever is larger), plus the near launch's f32
+    operations at the f32 rate; against the bytes (each cell read and
+    written once); whichever is larger. The split and the tilings counted
+    are held to the source's own (``fs.kernel_plan``): the bound counts the
+    layout that runs."""
+    import torch
+
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+
+    h, w = shape
+    rect = fs.kernel_rect(shape, dtype, None, nsteps, torch.bfloat16, origin,
+                          global_shape)
+    local = (rect[0] - origin[0], rect[1] - origin[0], rect[2] - origin[1],
+             rect[3] - origin[1])
+    inner, bands = fs.bf16_regions(shape, local)
+    rows = fs.window_rows(nsteps, MOORE_OFFSETS)
+    rows16 = fs.paired_rows(nsteps, MOORE_OFFSETS)
+    mine = (rows, [(*inner, len(fs.region_tiles(inner, rows16, nsteps))),
+                   *((*b, len(fs.region_tiles(b, rows, nsteps)))
+                     for b in bands)])
+    source = fs.kernel_plan(shape, rect, nsteps, MOORE_OFFSETS, origin,
+                            global_shape)
+    check(source == mine, f"K1/K2 bf16 interior {shape} at {origin}, "
+                          f"nsteps={nsteps}: the source launches {source}, "
+                          f"fused_stencil.py's mirrors say {mine}")
+    pairs = source[1][0][4] * rows16 // 2 * 256
+    paired_s = pairs * nsteps * max(PAIRED_ALU / ISSUE_PER_S,
+                                    PAIRED_SHFL / SHFL_PER_S)
+    cells = h * w
+    inner16 = (inner[1] - inner[0]) * (inner[3] - inner[2])
+    closed = closed_cells(shape, nsteps, origin, global_shape)
+    near_flops = nsteps * (7 * (closed - inner16) + 11 * (cells - closed))
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return larger(2 * cells * itemsize / HBM_BYTES_PER_S * 1e3,
+                  (paired_s + near_flops / F32_FLOPS) * 1e3)
 
 
 def print_profile(what: str, prof: dict) -> None:
@@ -1969,6 +2180,39 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                          fs.halo_step_plain(g[i][j], ring, org, gshape,
                                             0.13, MOORE_OFFSETS, ns, BF))
             del g
+    # K1 and K2 over windows of +-0 and bf16 subnormals, and of +-inf (NaN
+    # compared by position): K1 on the odd rectangle (rows [45, 180),
+    # columns [333, 666) at block (45, 333)), K2 on the 2x2 shards of
+    # 1024 x 2048
+    for dtype, ns in ((torch.float32, 8), (BF, 16)):
+        dname = str(dtype).removeprefix("torch.")
+        shape, block = (225, 999), (45, 333)
+        x = rand(shape, dtype)
+        xs = with_specials({"v": x.clone()}, 17)["v"]
+        for vname, v in (("+-0 and subnormals",
+                          torch.where(torch.isinf(xs), x, xs)),
+                         ("+-inf", xs)):
+            for hood in ("moore", "custom"):
+                offs = neighborhoods[hood]
+                case(f"K1 bf16-interior {dname} {shape} ns={ns} {hood} "
+                     f"{vname}",
+                     fs.pallas_dense_step(v, 0.13, offs, block, ns,
+                                          compute_dtype=BF),
+                     fs.dense_step_plain(v, 0.13, offs, ns, BF, block),
+                     "bits")
+        full = with_specials({"v": rand((1024, 2048), dtype)}, 19)["v"]
+        g, (h, w) = shards(full, (2, 2))
+        for i in range(2):
+            for j in range(2):
+                ring = exchange_ring(g, i, j, ns)
+                org = (i * h, j * w)
+                case(f"K2 bf16-interior {dname} (1024, 2048) shard {org} "
+                     f"ns={ns} +-0, subnormals and +-inf",
+                     fs.pallas_halo_step(g[i][j], ring, org, (1024, 2048),
+                                         0.13, nsteps=ns, compute_dtype=BF),
+                     fs.halo_step_plain(g[i][j], ring, org, (1024, 2048),
+                                        0.13, MOORE_OFFSETS, ns, BF), "bits")
+        del x, xs, full, g
     # K3 and K3-halo, each form
     for dtype, ks in ((torch.float32, (1, 8)), (BF, (4, 16))):
         dname = str(dtype).removeprefix("torch.")
@@ -2137,40 +2381,20 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     torch.cuda.empty_cache()
 
     # -- the main paths at full width ---------------------------------------------
-    def run_row(what, model, space, ex, steps, counter, want_launches,
-                k4=False, k3=False):
+    def run_row(what, model, space, ex, steps, counter, want_launches):
         """One counted run (counts to 0 just before, read just after), its
         checks and its run ms (CUDA events, median of 3). bf16 interior
         math does not conserve mass as f32 does, by JAX's semantics (its
         constants rounded to bf16, every operation rounded): the run may
         move ``MASS_BF16`` of the total. The kernels' results themselves
-        are held against their plain versions by ``timed``. ``k4`` (``k3``):
-        the counted run is traced, and the K4 walks (the K3 mxu
-        bf16-interior instance, ``k3_mxu16``) it ran go into its row."""
+        are held against their plain versions by ``timed``."""
         def run():
             return model.execute(space, ex, steps=steps,
                                  check_conservation=False)
 
         reset_counts()
-        if k4 or k3:
-            (res, rep), names = traced_kernels(torch, run)
-        else:
-            res, rep = run()
+        res, rep = run()
         launched = counter()
-        # the profiler dropped one walk of a traced K3 run now and then (7
-        # of 8 launches in a run on the H100, none in 48 runs traced alone):
-        # a run whose trace shows fewer walks than launches and no other K3
-        # kernel is run and traced again, at most twice; k3_mxu16 then
-        # holds the last trace to one walk a launch
-        attempts = 1
-        while k3 and attempts < 3 and k3_short(names, launched):
-            print(f"bf16-interior {what}: the trace showed "
-                  f"{k3_short(names, launched)} of {launched} launches; "
-                  "run and traced again", flush=True)
-            reset_counts()
-            (res, rep), names = traced_kernels(torch, run)
-            launched = counter()
-            attempts += 1
         check(launched == want_launches,
               f"{what}: {launched} launches, expected {want_launches}")
         for v in res.values.values():
@@ -2189,21 +2413,58 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                "mass_allowed": allowed,
                "run_ms_median": run_ms,
                "cell_updates_per_s": cells * steps / (run_ms / 1e3)}
-        if k3:
-            row["k3_walk"] = k3_mxu16(names, launched, what)
-            row["k3_walk"]["trace_attempts"] = attempts
-            print(f"bf16-interior {what}: {row['k3_walk']['instance']} "
-                  f"once a launch ({launched} in the trace)", flush=True)
-        if k4:
-            row["k4_walk"] = k4_walk(names, launched, what)
-            print(f"bf16-interior {what}: the {row['k4_walk']['walk']} "
-                  f"walk, {row['k4_walk']['kernels_per_launch']} kernels a "
-                  f"launch: {row['k4_walk']['k4_kernels']}", flush=True)
         out["rows"][what] = row
         print(f"bf16-interior {what}: impl={rep.impl}, launches {launched}, "
               f"|d|={err:.3e}, run {run_ms:.3f} ms, "
               f"{row['cell_updates_per_s']:.4e} cell-updates/s", flush=True)
         return res, row
+
+    def fresh_row(what, kind, dname, sub, steps, want_launches):
+        """One main-path row whose counted run is traced: the whole row
+        (the counted run, traced, its checks and its run ms) in a process
+        of its own (``traced_row``), since in this process, after its
+        earlier profiles, the profiler dropped kernels of these runs (one
+        near kernel of 8 K1 launches in four traces in a row; two or three
+        K3 mxu walks of 8; three K4 launches of 64) while a fresh process
+        traced them whole. The launches, the checks and the kernels the
+        trace shows (K1/K2's two launches, ``k1_walk``; the K3 mxu
+        bf16-interior walk, ``k3_mxu16``; K4's two walks, ``k4_walk``) all
+        come from that one counted run."""
+        here = Path(__file__).resolve().parent
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke; "
+             "chip_smoke.traced_row(*sys.argv[2:])", str(here), kind, dname,
+             str(sub), str(steps)], cwd=here, capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0, f"{what}: its traced run failed:\n"
+                                    f"{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        row, attempts = got["row"], got["attempts"]
+        for i, a in enumerate(attempts[:-1]):
+            print(f"bf16-interior {what}: trace {i + 1} dropped kernels "
+                  f"({a['launches']} launches, {a['kernels']}); its run "
+                  "made and traced again", flush=True)
+        launched = row["launches"]
+        check(launched == want_launches,
+              f"{what}: {launched} launches, expected {want_launches}")
+        check(row.pop("finite"), f"{what}: not finite")
+        check(row["conservation_error"] <= row["mass_allowed"],
+              f"{what}: mass moved by {row['conservation_error']} (allowed "
+              f"{row['mass_allowed']})")
+        key, walk = {"K1": ("k1_walk", k1_walk), "K2": ("k1_walk", k1_walk),
+                     "K3": ("k3_walk", k3_mxu16),
+                     "K4": ("k4_walk", k4_walk)}[kind[:2]]
+        row[key] = walk(attempts[-1]["kernels"], launched, what)
+        row[key]["trace_attempts"] = len(attempts)
+        row = {"what": what, **row, "run_in": "a process of its own"}
+        out["rows"][what] = row
+        print(f"bf16-interior {what}: impl={row['impl']}, launches "
+              f"{launched}, |d|={row['conservation_error']:.3e}, run "
+              f"{row['run_ms_median']:.3f} ms, "
+              f"{row['cell_updates_per_s']:.4e} cell-updates/s; traced, "
+              f"{len(attempts)} attempt(s): {row[key]}", flush=True)
+        return row
 
     def timed(what, kernel, got, plain, bound, f32_key, f32_kernel=None,
               library=None, form="vpu", k=1, form_bound=None):
@@ -2261,9 +2522,8 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                     device=dev)).to(tdt)
         space = mt.CellularSpace.create(N, N, 1.0, dtype=dname).with_values(
             {"value": x})
-        run_row(f"K1 {dname} ns={sub}", model, space,
-                mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
-                STEPS, fs.launches, STEPS // sub)
+        fresh_row(f"K1 {dname} ns={sub}", "K1", dname, sub, STEPS,
+                  STEPS // sub)
         y = torch.empty_like(x)
         bufs = [x.clone(), y]
 
@@ -2286,16 +2546,22 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
               bf16_form_bound_ms(cells, inner16, 7 * sub, ops32,
                                  cells * x.element_size(),
                                  cells * x.element_size()),
-              f"K1 {dname} ns={sub}")
-        out["calls"][f"K1 {dname} ns={sub}"]["bf16_cells"] = inner16
+              f"K1 {dname} ns={sub}",
+              form_bound=k1_paired_bound_ms(fs, (N, N), tdt, sub))
+        out["calls"][f"K1 {dname} ns={sub}"].update(
+            bf16_cells=inner16, rows=fs.window_rows(sub, MOORE_OFFSETS),
+            rows16=fs.paired_rows(sub, MOORE_OFFSETS))
         for variant in ("auto", "vpu"):
             ex = mt.SerialExecutor("composed", substeps=sub,
                                    composed_variant=variant,
                                    compute_dtype=BF)
             form = "mxu" if variant == "auto" else "vpu"
-            run_row(f"K3 {form} {dname} k={sub}", model, space, ex, STEPS,
-                    lambda: cs.launches(form), STEPS // sub,
-                    k3=form == "mxu")
+            if form == "mxu":
+                fresh_row(f"K3 {form} {dname} k={sub}", "K3", dname, sub,
+                          STEPS, STEPS // sub)
+            else:
+                run_row(f"K3 {form} {dname} k={sub}", model, space, ex,
+                        STEPS, lambda: cs.launches(form), STEPS // sub)
             inner16 = rect_cells(fs, (N, N), blk, sub)
             nvpu = sub * 4 + 2 * sub + 1
             # the function's bound: its cheapest form's operations (vpu,
@@ -2331,11 +2597,8 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         vals = {n: (0.5 + 1.5 * torch.rand((N4, N4), generator=gen,
                                            device=dev)).to(tdt)
                 for n in ("a", "b")}
-        space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0},
-                                        dtype=dname).with_values(vals)
-        run_row(f"K4 config4 {dname} ns={sub}", model4, space,
-                mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
-                STEPS, k4.launches, STEPS // sub, k4=True)
+        fresh_row(f"K4 config4 {dname} ns={sub}", "K4", dname, sub, STEPS,
+                  STEPS // sub)
         step = k4.PallasFieldStep((N4, N4), model4.flows, dtype=tdt,
                                   nsteps=sub, names=("a", "b"),
                                   compute_dtype=BF)
@@ -2364,17 +2627,15 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                             sub, nbytes))
         out["calls"][f"K4 config4 {dname} ns={sub}"].update(
             rows=step.rows, rows16=step.planned.rows16, bf16_cells=inner16)
-        del vals, bufs, space, step
+        del vals, bufs, step
         torch.cuda.empty_cache()
 
     # the 2x2 sharded K2, 16384², depth 8, f32
     x = 1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev)
     space = mt.CellularSpace.create(N, N, 1.0).with_values({"value": x})
     mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
-    res, row = run_row("K2 2x2 float32 depth=8", model, space,
-                       ShardMapExecutor(mesh, "pallas", halo_depth=8,
-                                        compute_dtype=BF),
-                       STEPS, fs.halo_launches, STEPS // 8 * 4)
+    fresh_row("K2 2x2 float32 depth=8", "K2", "float32", 8, STEPS,
+              STEPS // 8 * 4)
     g, (h, w) = shards(x, (2, 2))
     ring = exchange_ring(g, 1, 1, 8)
     y = torch.empty_like(g[1][1])
@@ -2392,9 +2653,12 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                      MOORE_OFFSETS, 8, BF),
           bf16_form_bound_ms(h * w, inner16, 56, ops32, h * w * 4,
                              h * w * 4),
-          "K2 float32 ns=8")
-    out["calls"]["K2 float32 ns=8 shard (8192, 8192)"]["bf16_cells"] = \
-        inner16
+          "K2 float32 ns=8",
+          form_bound=k1_paired_bound_ms(fs, (h, w), torch.float32, 8,
+                                        (h, w), (N, N)))
+    out["calls"]["K2 float32 ns=8 shard (8192, 8192)"].update(
+        bf16_cells=inner16, rows=fs.window_rows(8, MOORE_OFFSETS),
+        rows16=fs.paired_rows(8, MOORE_OFFSETS))
     # K3-halo on 2x2 in each form, depth 8, and its shard (1, 1) a call
     # the function's bound: its cheapest form's operations (vpu)
     bound = bf16_form_bound_ms(
@@ -2403,23 +2667,29 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         h * w * 4, h * w * 4)
     for form in cs.FORMS:
         what = f"K3-halo {form} 2x2 float32 depth=8"
-        res, row = run_row(what, model, space,
-                           ShardMapExecutor(mesh, "composed", halo_depth=8,
-                                            composed_variant=form,
-                                            compute_dtype=BF),
-                           STEPS, lambda: cs.halo_launches(form),
-                           STEPS // 8 * 4, k3=form == "mxu")
-        # chunk for chunk (64 steps at depth 8) the serial composed run
-        serial, _ = model.execute(
-            space, mt.SerialExecutor("composed", substeps=8,
-                                     composed_variant=form,
-                                     compute_dtype=BF),
-            steps=STEPS, check_conservation=False)
-        same = torch.equal(res.values["value"], serial.values["value"])
-        row["bitwise_serial"] = same
+        if form == "mxu":
+            # its run and the serial composed run compared in its process
+            same = fresh_row(what, "K3-halo", "float32", 8, STEPS,
+                             STEPS // 8 * 4)["bitwise_serial"]
+        else:
+            res, row = run_row(what, model, space,
+                               ShardMapExecutor(mesh, "composed",
+                                                halo_depth=8,
+                                                composed_variant=form,
+                                                compute_dtype=BF),
+                               STEPS, lambda: cs.halo_launches(form),
+                               STEPS // 8 * 4)
+            # chunk for chunk (64 steps at depth 8) the serial composed run
+            serial, _ = model.execute(
+                space, mt.SerialExecutor("composed", substeps=8,
+                                         composed_variant=form,
+                                         compute_dtype=BF),
+                steps=STEPS, check_conservation=False)
+            same = torch.equal(res.values["value"], serial.values["value"])
+            row["bitwise_serial"] = same
+            del serial, res
         record(f"{what}: bit for bit the serial composed run: {same}", same)
         check(same, f"{what} is not its serial run bit for bit")
-        del serial
         form_bound = None
         if form == "mxu":
             form_bound = larger(2 * h * w * 4 / HBM_BYTES_PER_S * 1e3,
@@ -2439,17 +2709,14 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                   compute_dtype=BF),
               bound, f"K3-halo {form} float32", form=form, k=8,
               form_bound=form_bound)
-    del x, space, g, ring, y, res
+    del x, space, g, ring, y
     torch.cuda.empty_cache()
 
     # K4-halo: config 4 at 8192² on 2x2, depth 8, and its shard (1, 1)
     vals = {n: 0.5 + 1.5 * torch.rand((N4, N4), generator=gen, device=dev)
             for n in ("a", "b")}
-    space = mt.CellularSpace.create(N4, N4, {"a": 1.0, "b": 1.0}
-                                    ).with_values(vals)
-    run_row("K4-halo config4 2x2 float32 depth=8", model4, space,
-            ShardMapExecutor(mesh, "pallas", halo_depth=8, compute_dtype=BF),
-            STEPS, k4.halo_launches, STEPS // 8 * 4, k4=True)
+    fresh_row("K4-halo config4 2x2 float32 depth=8", "K4-halo", "float32", 8,
+              STEPS, STEPS // 8 * 4)
     gs, (h4, _) = {}, (N4 // 2, N4 // 2)
     for n in vals:
         gs[n], _ = shards(vals[n], (2, 2))
@@ -2476,7 +2743,7 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                         nbytes))
     out["calls"]["K4-halo config4 float32 ns=8 shard (4096, 4096)"].update(
         bf16_cells=inner16, rows=st.rows, rows16=st.planned.rows16)
-    del vals, space, gs, sv, rings, so, st
+    del vals, gs, sv, rings, so, st
     torch.cuda.empty_cache()
 
     # the ensemble: 8 x 4096² (no closed tile: bit for bit the f32 dispatch)
@@ -4174,16 +4441,25 @@ def main() -> int:
             **{key: c[key] for key in ("form_bound_ms", "form_bound_by",
                                        "rows", "rows16") if key in c},
             # K4's bf16 interior math: the walks and kernels a launch the
-            # main path's traced run showed (the f32 walk off the rectangle,
-            # the paired walk in it: two kernels, counted as one launch)
+            # main path's counted run showed in its trace (the f32 walk off
+            # the rectangle, the paired walk in it: two kernels, counted as
+            # one launch)
             **({key: bf16["rows"][run]["k4_walk"][key]
                 for key in ("walk", "kernels_per_launch")}
                | {"generated_by": "mpi_model_tpu_torch/ops/field_codegen.py"}
                if name.startswith("K4") else {}),
             # K3 mxu's bf16 interior math: the persistent walk's instance
-            # from the traced main-path run
+            # from the main path's counted run, traced
             **({"instance": bf16["rows"][run]["k3_walk"]["instance"]}
                if "k3_walk" in bf16["rows"][run] else {}),
+            # K1/K2's bf16 interior math: the near launch and the paired
+            # launch, two kernels counted as one launch, from the main
+            # path's counted run, traced, with their instances
+            **({key: bf16["rows"][run]["k1_walk"][key]
+                for key in ("walk", "kernels_per_launch")}
+               | {"instances": sorted(bf16["rows"][run]["k1_walk"][
+                   "k1_kernels"])}
+               if "k1_walk" in bf16["rows"][run] else {}),
             "main_path": bf16["rows"][run]})
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -72,21 +72,36 @@
 // call. Storage is float or __nv_bfloat16; the math is f32, converted with
 // the intrinsics only, and bf16 is rounded once per call.
 //
-// bf16 interior math (compute_dtype=bfloat16 at n > 1; the _bf16c entry
-// points): the TPU kernel computes its tiles that are not near the edge
-// (JAX's tiles, pallas_stencil.py:391-392) in bf16 and its near tiles in
-// f32 over the window rounded to bf16 (:441). The host passes the cells of
-// the former as one rectangle of global rows and columns (mm::Rect). A
-// block whose outputs lie in it runs the closed form in bf16 and writes
-// them: Moore on paired bf16 (mm::walk_step_bf2: two rows a register,
-// add.rn.bf16x2 and mul.rn.bf16x2 with the constants rounded to bf16 on
-// the host), other neighbourhoods on the f32 walk with every operation
-// rounded to bf16. A block whose outputs lie outside it runs the f32 forms
-// above on its window rounded to bf16 (the exact strips through
-// mm::RoundedSource). A block across its edge runs both, each writing its
-// own cells. Every bf16 operation rounds once and none is contracted, so
-// the result is the plain version's (ops/fused_stencil.py::
-// dense_step_plain(..., compute_dtype)) bit for bit.
+// bf16 interior math (compute_dtype=bfloat16 at n > 1): the TPU kernel
+// computes its tiles that are not near the edge (JAX's tiles,
+// pallas_stencil.py:391-392) in bf16 and its near tiles in f32 over the
+// window rounded to bf16 (:441). The host passes the cells of the former as
+// one rectangle of global rows and columns (mm::Rect). A call is two
+// launches, each on its own tiling and each writing only its own cells:
+//
+//   - the near launch (fused_stencil_near_kernel) tiles the four bands of
+//     the array around the rectangle, each from its own origin, and runs
+//     the f32 forms above on its window rounded to bf16 (the exact strips
+//     through mm::RoundedSource), at rows_for's rows;
+//   - the paired launch (fused_stencil_bf16_kernel) tiles the rectangle
+//     from its origin, and runs the closed form in bf16 and nothing else:
+//     every cell of the rectangle has d > n. Moore on paired bf16
+//     (paired_step: window rows 2m and 2m + 1 a register, add.rn.bf16x2
+//     and mul.rn.bf16x2, the constants rounded to bf16 on the host; the
+//     bands of a step's first pass kept for its second) over its window
+//     staged raw by cp.async and read into pairs, at its own rows
+//     (`rows16`, ops/fused_stencil.py::paired_rows: 96 above two steps,
+//     with no f32 copy of the window beside the pairs); other
+//     neighbourhoods on the f32 walk with every operation rounded.
+//
+// One kernel with both walks (every block testing the rectangle, the
+// blocks across its edge running both) held the paired walk to the f32
+// walk's window and registers. Measured on the H100 (k1_variants.py,
+// PERF.md): the two launches, the kept bands, 96 rows and the staged
+// window each came out faster than the alternative.
+// Every bf16 operation rounds once and none is contracted, so the result is
+// the plain version's (ops/fused_stencil.py::dense_step_plain(...,
+// compute_dtype)) bit for bit.
 //
 // K2, the halo mode, is the same body on one shard of a sharded grid: it
 // replaces _stencil_call in halo mode (reached through _pallas_halo_step and
@@ -95,12 +110,15 @@
 // exchanged ghost ring (eight pieces, depth d >= nsteps) in place of the
 // dense kernel's zero border (mm::HaloSource). Windows inside the shard
 // take the cp.async path; windows at the shard's edge read through
-// src.at. Forms and counts use the shard's global origin against the global
-// grid, so every cell computes exactly what K1 computes for it on the whole
-// grid.
+// src.at. Forms and counts use
+// the shard's global origin against the global grid, so every cell
+// computes exactly what K1 computes for it on the whole grid.
 //
 // C interface (loaded with ctypes): each entry point returns the
-// cudaError_t of its launch, 0 on success.
+// cudaError_t of its launches, 0 on success.
+
+#include <algorithm>
+#include <type_traits>
 
 #include "stencil_common.cuh"
 
@@ -108,7 +126,8 @@ namespace {
 
 // A block is (32, NWARPS) threads, warp = threadIdx.y, as the shared-memory
 // helpers of stencil_common.cuh stride; its window is WIN_W columns (one a
-// thread) by ROWS rows (in registers): 48 or 64, by rows_for. The register
+// thread) by ROWS rows (in registers): 48 or 64, by rows_for (the paired
+// launch: 64 or 96, by `rows16`). The register
 // column walk, the window staging and the exact strips are
 // stencil_common.cuh's (K3's vpu form shares them).
 constexpr int NWARPS = mm::kThreadsY;
@@ -128,17 +147,20 @@ int smem_of(int n) {
   return mm::kExchFloats<ROWS> * static_cast<int>(sizeof(float)) + work;
 }
 
+// The end of the rows and columns a tiling writes: the array's, or (a
+// RegionTiling, below) its region's.
+__device__ __forceinline__ int row_end(const Tiling& tl) { return tl.h; }
+__device__ __forceinline__ int col_end(const Tiling& tl) { return tl.w; }
+
 // The closed form's n steps on the window held in registers (v[i] = window
 // row i of this thread's column), then the tile's output written: every
-// cell of it when `whole`, else only its cells inside the array with
-// d > n; with SKIP, none of the cells in `q` (the bf16 pass writes them).
-// `ex` is the warp-edge exchange of the walk.
-template <int ROWS, bool MOORE, bool SKIP = false, typename T>
+// cell of it when `whole`, else only its cells inside the tiling's rows and
+// columns with d > n. `ex` is the warp-edge exchange of the walk.
+template <int ROWS, bool MOORE, typename T, typename TL>
 __device__ __forceinline__ void closed_tile(float (&v)[ROWS], float* ex,
-                                            const Params& p,
-                                            const Tiling& tl, int t,
-                                            bool whole, T* __restrict__ out,
-                                            const mm::Rect& q = {}) {
+                                            const Params& p, const TL& tl,
+                                            int t, bool whole,
+                                            T* __restrict__ out) {
   const int n = p.nsteps;
   int drow[8], dcol[8];
   mm::offset_rows_cols(p.offcodes, drow, dcol);
@@ -155,14 +177,13 @@ __device__ __forceinline__ void closed_tile(float (&v)[ROWS], float* ex,
   const int j = threadIdx.y * 32 + threadIdx.x;
   const int r = tl.row_of(t) - n;  // the window's first row and column
   const int c = tl.col_of(t) + j - n;
-  if (j < n || j >= WIN_W - n || c >= tl.w) return;
+  if (j < n || j >= WIN_W - n || c >= col_end(tl)) return;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     if (i >= n && i < ROWS - n) {
-      if ((whole ||
-           (r + i < tl.h && mm::edge_distance(tl.R0 + r + i, tl.C0 + c, tl.H,
-                                              tl.W) > n)) &&
-          !(SKIP && mm::in_rect(q, tl.R0 + r + i, tl.C0 + c))) {
+      if (whole ||
+          (r + i < row_end(tl) &&
+           mm::edge_distance(tl.R0 + r + i, tl.C0 + c, tl.H, tl.W) > n)) {
         mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
       }
     }
@@ -181,43 +202,13 @@ __device__ __forceinline__ void exact_cells(const Src& src,
                   min(tl.col_of(t) + tl.tw, tl.w), a, b);
 }
 
-// The bf16 closed form's n steps on tile t's staged window (`col`: this
-// thread's column of it; mm::closed_walk_bf16), then its outputs in `q`
-// written.
-template <int ROWS, bool MOORE, typename T>
-__device__ __forceinline__ void bf16_tile(const T* col, float* ex,
-                                          const Params& p, const Tiling& tl,
-                                          int t, const mm::Rect& q,
-                                          T* __restrict__ out) {
-  const int n = p.nsteps;
-  const int j = threadIdx.y * 32 + threadIdx.x;
-  const int r = tl.row_of(t) - n;  // the window's first row and column
-  const int c = tl.col_of(t) + j - n;
-  const bool col_out = j >= n && j < WIN_W - n && c < tl.w &&
-                       tl.C0 + c >= q.c0 && tl.C0 + c < q.c1;
-  float v[ROWS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) v[i] = mm::to_f32(col[i * mm::kStagePitch<T>]);
-  mm::closed_walk_bf16<ROWS, MOORE>(v, ex, n, p.ca16, p.cb16, p.offcodes,
-                                    p.noff);
-  if (!col_out) return;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    if (i >= n && i < ROWS - n && r + i < tl.h && tl.R0 + r + i >= q.r0 &&
-        tl.R0 + r + i < q.r1) {
-      mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
-    }
-  }
-}
-
-// The body of K1 and K2: block t steps tile t of `tl`. BF: the bf16
-// interior math, its cells `q` (the header).
-template <int ROWS, bool MOORE, bool BF, typename T, typename Src>
+// The body of K1 and K2 with f32 interior math: block t steps tile t of
+// `tl`.
+template <int ROWS, bool MOORE, typename T, typename Src>
 __device__ __forceinline__ void fused_body(const Src& src,
                                            T* __restrict__ out,
                                            const Params& p,
-                                           const Tiling& tl,
-                                           const mm::Rect& q) {
+                                           const Tiling& tl) {
   extern __shared__ __align__(16) float smem[];
   float* ex = smem;                             // warp-edge exchange
   float* work = smem + mm::kExchFloats<ROWS>;   // staging, or exact buffers
@@ -230,38 +221,6 @@ __device__ __forceinline__ void fused_body(const Src& src,
   mm::cp_async_wait_all();
   __syncthreads();
   const T* col = stage + skew + j;
-  if constexpr (BF) {
-    // the tile's outputs in global coordinates, against the rectangle
-    const int gr = tl.R0 + tl.row_of(t);
-    const int gc = tl.C0 + tl.col_of(t);
-    const int cover =
-        mm::rect_cover(q, gr, min(gr + tl.th, tl.R0 + tl.h), gc,
-                       min(gc + tl.tw, tl.C0 + tl.w));
-    if (cover != mm::kNone) {
-      bf16_tile<ROWS, MOORE>(col, ex, p, tl, t, q, out);
-      if (cover == mm::kAll) return;
-      // the f32 walk reads the exchange slots of warps -1 and 8 as zero
-      __syncthreads();
-      for (int k = j; k < mm::kExchFloats<ROWS>; k += 32 * NWARPS) {
-        ex[k] = 0.f;
-      }
-      __syncthreads();
-    }
-    float v[ROWS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      v[i] = mm::rb(mm::to_f32(col[i * mm::kStagePitch<T>]));
-    }
-    closed_tile<ROWS, MOORE, true>(v, ex, p, tl, t, whole, out, q);
-    if (!whole) {
-      __syncthreads();
-      mm::exact_cells_of<true>(src, out, p, tl, tl.row_of(t),
-                               min(tl.row_of(t) + tl.th, tl.h), tl.col_of(t),
-                               min(tl.col_of(t) + tl.tw, tl.w), work,
-                               work + piece_floats(p.nsteps));
-    }
-    return;
-  }
   float v[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
@@ -276,21 +235,303 @@ __device__ __forceinline__ void fused_body(const Src& src,
 }
 
 // K1: a whole [H, W] grid.
-template <int ROWS, bool MOORE, bool BF, typename T>
+template <int ROWS, bool MOORE, typename T>
 __global__ void __launch_bounds__(32 * NWARPS, 2)
     fused_stencil_kernel(const T* __restrict__ in, T* __restrict__ out,
-                         Params p, Tiling tl, mm::Rect q) {
-  fused_body<ROWS, MOORE, BF>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p,
-                              tl, q);
+                         Params p, Tiling tl) {
+  fused_body<ROWS, MOORE>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p, tl);
 }
 
 // K2: one shard and its ghost ring; `out` is the shard's [h, w].
-template <int ROWS, bool MOORE, bool BF, typename T>
+template <int ROWS, bool MOORE, typename T>
 __global__ void __launch_bounds__(32 * NWARPS, 2)
     fused_stencil_halo_kernel(const mm::HaloSource<T> src,
-                              T* __restrict__ out, Params p, Tiling tl,
-                              mm::Rect q) {
-  fused_body<ROWS, MOORE, BF>(src, out, p, tl, q);
+                              T* __restrict__ out, Params p, Tiling tl) {
+  fused_body<ROWS, MOORE>(src, out, p, tl);
+}
+
+// -- the bf16 interior math: two launches -----------------------------------
+//
+// A tiling of one region of the array a kernel writes (local rows [r0, r1),
+// columns [c0, c1)): Tiling's tiles (th x tw output cells, windows of `rows`
+// x kWinW) aligned to the region's origin, `tiles_c` and `tiles` counting
+// the region's. Nothing of a tile outside its region is written, so the
+// tilings of disjoint regions write disjoint cells
+// (ops/fused_stencil.py::region_tiles is the same tiling).
+struct RegionTiling : Tiling {
+  int r0, r1, c0, c1;
+
+  __device__ __forceinline__ int row_of(int t) const {
+    return r0 + (t / tiles_c) * th;
+  }
+  __device__ __forceinline__ int col_of(int t) const {
+    return c0 + (t % tiles_c) * tw;
+  }
+  // tile t lies whole in the region and every output cell of it has d > n
+  // (uniform over the block)
+  __device__ __forceinline__ bool interior(int t) const {
+    const int r = row_of(t), c = col_of(t);
+    return r + th <= r1 && c + tw <= c1 && R0 + r >= n + 1 &&
+           R0 + r + th <= H - 1 - n && C0 + c >= n + 1 &&
+           C0 + c + tw <= W - 1 - n;
+  }
+  // tile t's window lies inside the array
+  __device__ __forceinline__ bool inside(int t) const {
+    const int wr = row_of(t) - rh, wc = col_of(t) - n;
+    return wr >= 0 && wc >= 0 && wr + rows <= h && wc + WIN_W <= w;
+  }
+};
+
+__device__ __forceinline__ int row_end(const RegionTiling& tl) {
+  return tl.r1;
+}
+__device__ __forceinline__ int col_end(const RegionTiling& tl) {
+  return tl.c1;
+}
+
+// The near launch's regions: the four bands of the array around the
+// rectangle (top, bottom, left, right), each tiled from its origin. Block b
+// steps tile b - first[k] of the last band k with first[k] <= b (an empty
+// band has no tile: the band after it starts at the same block). The
+// kernels take it as a __grid_constant__ parameter, so a block reads its
+// band's tiling from the parameter space instead of a copy in registers.
+struct Bands {
+  RegionTiling band[4];
+  int first[4];
+};
+
+__device__ __forceinline__ int band_of(const Bands& bs) {
+  int k = 0;
+#pragma unroll
+  for (int b = 1; b < 4; ++b) {
+    if (static_cast<int>(blockIdx.x) >= bs.first[b]) k = b;
+  }
+  return k;
+}
+
+// The near launch on one tile of a band: the f32 forms over the window
+// rounded to bf16 (the TPU kernel's near tiles, pallas_stencil.py:441), the
+// closed form for its cells with d > n, the exact strips (through
+// mm::RoundedSource) for the rest.
+template <int ROWS, bool MOORE, typename T, typename Src>
+__device__ __forceinline__ void near_body(const Src& src,
+                                          T* __restrict__ out,
+                                          const Params& p,
+                                          const Bands& bs) {
+  extern __shared__ __align__(16) float smem[];
+  float* ex = smem;
+  float* work = smem + mm::kExchFloats<ROWS>;
+  T* stage = reinterpret_cast<T*>(work);
+  const int band = band_of(bs);
+  const RegionTiling& tl = bs.band[band];
+  const int t = blockIdx.x - bs.first[band];
+  const bool whole = tl.interior(t);
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int skew = mm::stage_window<ROWS>(src, p, tl, t, whole, stage);
+  for (int k = j; k < mm::kExchFloats<ROWS>; k += 32 * NWARPS) ex[k] = 0.f;
+  mm::cp_async_wait_all();
+  __syncthreads();
+  const T* col = stage + skew + j;
+  float v[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    v[i] = mm::rb(mm::to_f32(col[i * mm::kStagePitch<T>]));
+  }
+  closed_tile<ROWS, MOORE>(v, ex, p, tl, t, whole, out);
+  if (!whole) {
+    __syncthreads();
+    mm::exact_cells_of<true>(src, out, p, tl, tl.row_of(t),
+                             min(tl.row_of(t) + tl.th, tl.r1), tl.col_of(t),
+                             min(tl.col_of(t) + tl.tw, tl.c1), work,
+                             work + piece_floats(p.nsteps));
+  }
+}
+
+// Rows r and r + 1 of one column as a bf16 pair (row r in the low half): an
+// f32 pair rounded by one cvt.rn.bf16x2.f32, a bf16 pair moved.
+__device__ __forceinline__ unsigned pair_of(const float* a, const float* b) {
+  return mm::pack_bf2(*a, *b);
+}
+__device__ __forceinline__ unsigned pair_of(const __nv_bfloat16* a,
+                                            const __nv_bfloat16* b) {
+  const unsigned lo = *reinterpret_cast<const unsigned short*>(a);
+  const unsigned hi = *reinterpret_cast<const unsigned short*>(b);
+  return lo | (hi << 16);
+}
+
+// One Moore step of K1/K2's paired walk: the twin of mm::walk_step_bf2
+// (K3 vpu's), its operations in the same order, so a change to one is made
+// to both (window rows 2m and 2m + 1 in v[m]; band = (row above + row) +
+// row below, the rows above and below straddling two pairs; nine =
+// (band[c-1] + band[c]) + band[c+1], the neighbouring columns' bands from
+// the neighbouring lanes and, at a warp's edges, from the exchange), with
+// the bands of pass 1 kept in registers for pass 2 instead of formed again
+// there: ROWS / 2 more words a thread, four fewer instructions a pair. Pair
+// m's new value is finish(its old value, its box sums). Ends past one
+// __syncthreads().
+template <int ROWS, typename Finish>
+__device__ __forceinline__ void paired_step(unsigned (&v)[ROWS / 2],
+                                            unsigned* eb, Finish finish) {
+  constexpr int P = ROWS / 2;
+  static_assert(P % 4 == 0, "edge pairs move four at a time");
+  const int lane = threadIdx.x;
+  const int wp = threadIdx.y;
+  const int own = 2 * (wp + 1) + (lane == 31 ? 1 : 0);
+  const int nbr = lane == 0 ? 2 * wp + 1 : 2 * (wp + 2);
+  const bool edge_lane = lane == 0 || lane == 31;
+  // pass 1: every column's bands; the edge lanes publish theirs
+  unsigned b[P];
+  uint4 x4;
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    const unsigned up = m > 0 ? mm::straddle(v[m - 1], v[m]) : v[m] << 16;
+    const unsigned dn = m + 1 < P ? mm::straddle(v[m], v[m + 1]) : v[m] >> 16;
+    b[m] = mm::add_bf2(mm::add_bf2(up, v[m]), dn);
+    if (m % 4 == 0) x4.x = b[m];
+    if (m % 4 == 1) x4.y = b[m];
+    if (m % 4 == 2) x4.z = b[m];
+    if (m % 4 == 3) {
+      x4.w = b[m];
+      if (edge_lane) *reinterpret_cast<uint4*>(eb + own * P + m - 3) = x4;
+    }
+  }
+  __syncthreads();
+  // pass 2: the box sums across the columns, then the new pairs
+  const unsigned* nb = eb + nbr * P;
+  uint4 e4 = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    if (m % 4 == 0 && edge_lane) {
+      e4 = *reinterpret_cast<const uint4*>(nb + m);
+    }
+    unsigned bl = __shfl_up_sync(mm::kFull, b[m], 1);
+    unsigned br = __shfl_down_sync(mm::kFull, b[m], 1);
+    if (lane == 0) bl = mm::part_u(e4, m % 4);
+    if (lane == 31) br = mm::part_u(e4, m % 4);
+    v[m] = finish(v[m], mm::add_bf2(mm::add_bf2(bl, b[m]), br));
+  }
+}
+
+// Whether window row i of a tile whose window starts at row r is one of the
+// tile's output rows inside its region (every cell of the rectangle has
+// d > n: no distance test).
+template <int ROWS>
+__device__ __forceinline__ bool writes_row(const RegionTiling& tl, int r,
+                                           int i) {
+  return i >= tl.n && i < ROWS - tl.n && r + i < tl.r1;
+}
+
+// The paired launch on one tile of the rectangle: the closed form in bf16.
+// Moore on paired bf16 (paired_step) over the window loaded into its
+// pairs; other neighbourhoods on the f32 walk with every operation rounded
+// (mm::closed_walk_bf16) over a staged window.
+template <int ROWS, bool MOORE, typename T, typename Src>
+__device__ __forceinline__ void bf16_body(const Src& src,
+                                          T* __restrict__ out,
+                                          const Params& p,
+                                          const RegionTiling& tl) {
+  const int t = blockIdx.x;
+  const int n = p.nsteps;
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int r = tl.row_of(t) - n;  // the window's first row and column
+  const int c = tl.col_of(t) + j - n;
+  const bool col_out = j >= n && j < WIN_W - n && c < tl.c1;
+  if constexpr (MOORE) {
+    constexpr int P = ROWS / 2;
+    constexpr int kExch = mm::kEdgeSlots * P;  // one parity's words
+    extern __shared__ __align__(16) float smem[];
+    unsigned* ex16 = reinterpret_cast<unsigned*>(smem);
+    T* stage = reinterpret_cast<T*>(smem + 2 * kExch);
+    const int skew =
+        mm::stage_window<ROWS>(src, p, tl, t, tl.interior(t), stage);
+    for (int k = j; k < 2 * kExch; k += 32 * NWARPS) ex16[k] = 0u;
+    mm::cp_async_wait_all();
+    __syncthreads();
+    // the staged window into pairs of rows, rounded to bf16
+    const T* col = stage + skew + j;
+    unsigned w[P];
+#pragma unroll
+    for (int m = 0; m < P; ++m) {
+      w[m] = pair_of(col + 2 * m * mm::kStagePitch<T>,
+                     col + (2 * m + 1) * mm::kStagePitch<T>);
+    }
+    const unsigned ca = p.ca16 | (p.ca16 << 16);
+    const unsigned cb = p.cb16 | (p.cb16 << 16);
+    for (int s = 0; s < n; ++s) {
+      paired_step<ROWS>(w, ex16 + (s & 1) * kExch,
+                        [&](unsigned old, unsigned g) {
+                          return mm::add_bf2(mm::mul_bf2(old, ca),
+                                             mm::mul_bf2(g, cb));
+                        });
+    }
+    if (!col_out) return;
+#pragma unroll
+    for (int m = 0; m < P; ++m) {
+      if (writes_row<ROWS>(tl, r, 2 * m)) {
+        mm::from_f32(out + static_cast<size_t>(r + 2 * m) * tl.w + c,
+                     mm::lo_f32(w[m]));
+      }
+      if (writes_row<ROWS>(tl, r, 2 * m + 1)) {
+        mm::from_f32(out + static_cast<size_t>(r + 2 * m + 1) * tl.w + c,
+                     mm::hi_f32(w[m]));
+      }
+    }
+  } else {
+    extern __shared__ __align__(16) float smem[];
+    float* ex = smem;
+    T* stage = reinterpret_cast<T*>(smem + mm::kExchFloats<ROWS>);
+    const int skew =
+        mm::stage_window<ROWS>(src, p, tl, t, tl.interior(t), stage);
+    for (int k = j; k < mm::kExchFloats<ROWS>; k += 32 * NWARPS) ex[k] = 0.f;
+    mm::cp_async_wait_all();
+    __syncthreads();
+    const T* col = stage + skew + j;
+    float v[ROWS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      v[i] = mm::to_f32(col[i * mm::kStagePitch<T>]);
+    }
+    mm::closed_walk_bf16<ROWS, false>(v, ex, n, p.ca16, p.cb16, p.offcodes,
+                                      p.noff);
+    if (!col_out) return;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      if (writes_row<ROWS>(tl, r, i)) {
+        mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
+      }
+    }
+  }
+}
+
+template <int ROWS, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, 2)
+    fused_stencil_near_kernel(const T* __restrict__ in, T* __restrict__ out,
+                              Params p, const __grid_constant__ Bands bs) {
+  near_body<ROWS, MOORE>(
+      mm::DenseSource<T>{in, bs.band[0].H, bs.band[0].W}, out, p, bs);
+}
+
+template <int ROWS, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, 2)
+    fused_stencil_halo_near_kernel(const mm::HaloSource<T> src,
+                                   T* __restrict__ out, Params p,
+                                   const __grid_constant__ Bands bs) {
+  near_body<ROWS, MOORE>(src, out, p, bs);
+}
+
+template <int ROWS, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, 2)
+    fused_stencil_bf16_kernel(const T* __restrict__ in, T* __restrict__ out,
+                              Params p, RegionTiling tl) {
+  bf16_body<ROWS, MOORE>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p, tl);
+}
+
+template <int ROWS, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, 2)
+    fused_stencil_halo_bf16_kernel(const mm::HaloSource<T> src,
+                                   T* __restrict__ out, Params p,
+                                   RegionTiling tl) {
+  bf16_body<ROWS, MOORE>(src, out, p, tl);
 }
 
 bool valid_steps(const Params& p) {
@@ -299,31 +540,207 @@ bool valid_steps(const Params& p) {
          p.noff == __builtin_popcount(p.mask9);
 }
 
-template <int ROWS, bool MOORE, bool BF, typename T>
-int launch(const void* in, void* out, int H, int W, Params p,
-           const mm::Rect& q, void* stream) {
-  p.vec = mm::rows_aligned<T>(in, W);
-  const Tiling tl =
-      mm::make_tiling(ROWS, p.nsteps, p.nsteps, H, W, 0, 0, H, W);
-  static int limit = DEFAULT_SMEM_LIMIT;  // per template instance
-  return static_cast<int>(mm::launch_blocks(
-      fused_stencil_kernel<ROWS, MOORE, BF, T>, smem_of<T, ROWS>(p.nsteps),
-      tl.tiles, &limit, stream, static_cast<const T*>(in),
-      static_cast<T*>(out), p, tl, q));
+// The array a call writes: [h, w] at global (R0, C0) of an [H, W] grid;
+// `vec`: its rows 16-byte aligned (cp.async windows).
+struct Array {
+  int h, w, R0, C0, H, W, vec;
+};
+
+// The tiling of the region [r0, r1) x [c0, c1) of `a` by windows of `rows`
+// rows (an empty region: no tile).
+RegionTiling region_tiling(int rows, int n, const Array& a, int r0, int r1,
+                           int c0, int c1) {
+  RegionTiling tl;
+  static_cast<Tiling&>(tl) =
+      mm::make_tiling(rows, n, n, a.h, a.w, a.R0, a.C0, a.H, a.W);
+  tl.r0 = r0;
+  tl.r1 = r1;
+  tl.c0 = c0;
+  tl.c1 = c1;
+  const bool empty = r0 >= r1 || c0 >= c1;
+  tl.tiles_c = empty ? 1 : (c1 - c0 + tl.tw - 1) / tl.tw;
+  tl.tiles = empty ? 0 : ((r1 - r0 + tl.th - 1) / tl.th) * tl.tiles_c;
+  return tl;
 }
 
-template <int ROWS, bool MOORE, bool BF, typename T>
-int launch_halo(const mm::HaloArgs* args, void* out, Params p,
-                const mm::Rect& q, void* stream) {
-  const mm::HaloSource<T> src(*args);
-  p.vec = mm::rows_aligned<T>(args->shard, args->w);
-  const Tiling tl = mm::make_tiling(ROWS, p.nsteps, p.nsteps, src.h, src.w,
-                                    src.R0, src.C0, src.H, src.W);
+// The rectangle q (global) in the array's local rows [a0, a1) and columns
+// [b0, b1); an empty one as a0 == a1 == h, which makes the top band the
+// whole array (ops/fused_stencil.py::bf16_regions is the same split).
+struct Split {
+  int a0, a1, b0, b1;
+  bool empty() const { return a0 >= a1; }
+};
+
+Split split_of(const mm::Rect& q, const Array& a) {
+  Split s{std::min(std::max(q.r0 - a.R0, 0), a.h),
+          std::min(std::max(q.r1 - a.R0, 0), a.h),
+          std::min(std::max(q.c0 - a.C0, 0), a.w),
+          std::min(std::max(q.c1 - a.C0, 0), a.w)};
+  if (s.a0 >= s.a1 || s.b0 >= s.b1) s = Split{a.h, a.h, 0, 0};
+  return s;
+}
+
+// The near launch's bands around the split's rectangle; returns their tiles.
+int bands_of(int rows, int n, const Array& a, const Split& s, Bands& bs) {
+  bs.band[0] = region_tiling(rows, n, a, 0, s.a0, 0, a.w);
+  bs.band[1] = region_tiling(rows, n, a, s.a1, a.h, 0, a.w);
+  bs.band[2] = region_tiling(rows, n, a, s.a0, s.a1, 0, s.b0);
+  bs.band[3] = region_tiling(rows, n, a, s.a0, s.a1, s.b1, a.w);
+  int tiles = 0;
+  for (int k = 0; k < 4; ++k) {
+    bs.first[k] = tiles;
+    tiles += bs.band[k].tiles;
+  }
+  return tiles;
+}
+
+// Shared memory of a paired-launch block: the exchange (Moore in pair words,
+// [2][kEdgeSlots][ROWS / 2]; other neighbourhoods the f32 walk's) and the
+// staged window.
+template <typename T, int ROWS, bool MOORE>
+int smem16_of() {
+  return (MOORE ? 2 * mm::kEdgeSlots * (ROWS / 2)
+                : mm::kExchFloats<ROWS>) * static_cast<int>(sizeof(float)) +
+         mm::stage_bytes<T, ROWS>();
+}
+
+// Each kernel's launch, on K1's input (In: const T*) or K2's source (In:
+// mm::HaloSource<T>).
+template <int ROWS, bool MOORE, typename T, typename In>
+cudaError_t launch_f32(In in, void* out, const Params& p, const Tiling& tl,
+                       void* stream) {
   static int limit = DEFAULT_SMEM_LIMIT;  // per template instance
-  return static_cast<int>(mm::launch_blocks(
-      fused_stencil_halo_kernel<ROWS, MOORE, BF, T>,
-      smem_of<T, ROWS>(p.nsteps), tl.tiles, &limit, stream, src,
-      static_cast<T*>(out), p, tl, q));
+  if constexpr (std::is_pointer<In>::value) {
+    return mm::launch_blocks(fused_stencil_kernel<ROWS, MOORE, T>,
+                             smem_of<T, ROWS>(p.nsteps), tl.tiles, &limit,
+                             stream, in, static_cast<T*>(out), p, tl);
+  } else {
+    return mm::launch_blocks(fused_stencil_halo_kernel<ROWS, MOORE, T>,
+                             smem_of<T, ROWS>(p.nsteps), tl.tiles, &limit,
+                             stream, in, static_cast<T*>(out), p, tl);
+  }
+}
+
+template <int ROWS, bool MOORE, typename T, typename In>
+cudaError_t launch_near(In in, void* out, const Params& p, const Bands& bs,
+                        int tiles, void* stream) {
+  static int limit = DEFAULT_SMEM_LIMIT;
+  if constexpr (std::is_pointer<In>::value) {
+    return mm::launch_blocks(fused_stencil_near_kernel<ROWS, MOORE, T>,
+                             smem_of<T, ROWS>(p.nsteps), tiles, &limit,
+                             stream, in, static_cast<T*>(out), p, bs);
+  } else {
+    return mm::launch_blocks(fused_stencil_halo_near_kernel<ROWS, MOORE, T>,
+                             smem_of<T, ROWS>(p.nsteps), tiles, &limit,
+                             stream, in, static_cast<T*>(out), p, bs);
+  }
+}
+
+template <int ROWS, bool MOORE, typename T, typename In>
+cudaError_t launch_bf16(In in, void* out, const Params& p,
+                        const RegionTiling& tl, void* stream) {
+  static int limit = DEFAULT_SMEM_LIMIT;
+  if constexpr (std::is_pointer<In>::value) {
+    return mm::launch_blocks(fused_stencil_bf16_kernel<ROWS, MOORE, T>,
+                             smem16_of<T, ROWS, MOORE>(), tl.tiles, &limit,
+                             stream, in, static_cast<T*>(out), p, tl);
+  } else {
+    return mm::launch_blocks(fused_stencil_halo_bf16_kernel<ROWS, MOORE, T>,
+                             smem16_of<T, ROWS, MOORE>(), tl.tiles, &limit,
+                             stream, in, static_cast<T*>(out), p, tl);
+  }
+}
+
+// The window rows of the f32 walk (the f32 interior math, and the bf16
+// interior math's near launch), chosen by measurement on the H100
+// (k1_variants.py, PERF.md): the fewest rows keep the halo rows' share of
+// the loads low at small n; more rows cut the halo's share of the steps at
+// larger n, at two blocks an SM (128 registers). Neighbourhoods other than
+// Moore keep 48 (their kernel holds more).
+int rows_for(const Params& p) {
+  return !p.moore || p.nsteps <= 2 ? 48 : 64;
+}
+
+// The paired launch's window rows the source is built for
+// (ops/fused_stencil.py::paired_rows picks one and passes it): Moore on row
+// pairs 64 or 96; other neighbourhoods 48.
+bool valid_rows16(const Params& p, int rows16) {
+  return p.moore ? rows16 == 64 || rows16 == 96 : rows16 == 48;
+}
+
+// One call of K1 or K2 on the array `a`. f32 interior math: one launch.
+// bf16 interior math (`bf16`): the near launch over the bands around the
+// rectangle q (rows_for's rows), then the paired launch over the rectangle
+// (`rows16`), each on its own tiling, each writing only its own cells. A
+// launch with no cell to write is not made (CUDA refuses 0 blocks): a call
+// whose rectangle is empty, or holds the whole array, makes one launch.
+// That is the call's geometry, not a fallback.
+template <typename T, typename In>
+int step(In in, void* out, const Array& a, Params p, int bf16,
+         const mm::Rect& q, int rows16, void* stream) {
+  p.vec = a.vec;
+  const int n = p.nsteps;
+  const int rows = rows_for(p);
+  cudaError_t err = cudaSuccess;
+  if (!bf16) {
+    const Tiling tl =
+        mm::make_tiling(rows, n, n, a.h, a.w, a.R0, a.C0, a.H, a.W);
+    if (rows == 64) {
+      err = launch_f32<64, true, T>(in, out, p, tl, stream);
+    } else {
+      err = p.moore ? launch_f32<48, true, T>(in, out, p, tl, stream)
+                    : launch_f32<48, false, T>(in, out, p, tl, stream);
+    }
+    return static_cast<int>(err);
+  }
+  const Split s = split_of(q, a);
+  Bands bs;
+  const int near = bands_of(rows, n, a, s, bs);
+  if (near > 0) {
+    if (rows == 64) {
+      err = launch_near<64, true, T>(in, out, p, bs, near, stream);
+    } else {
+      err = p.moore ? launch_near<48, true, T>(in, out, p, bs, near, stream)
+                    : launch_near<48, false, T>(in, out, p, bs, near, stream);
+    }
+  }
+  if (err != cudaSuccess || s.empty()) return static_cast<int>(err);
+  const RegionTiling tl = region_tiling(rows16, n, a, s.a0, s.a1, s.b0, s.b1);
+  switch (rows16) {
+    case 96: err = launch_bf16<96, true, T>(in, out, p, tl, stream); break;
+    case 64: err = launch_bf16<64, true, T>(in, out, p, tl, stream); break;
+    default: err = launch_bf16<48, false, T>(in, out, p, tl, stream);
+  }
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int dense(const void* in, void* out, int H, int W, const Params& p,
+          int bf16, const mm::Rect& q, int rows16, void* stream) {
+  if (!valid_steps(p) || H < 0 || W < 0 ||
+      (bf16 && (p.nsteps < 2 || !valid_rows16(p, rows16)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (H == 0 || W == 0) return 0;
+  const Array a{H, W, 0, 0, H, W, mm::rows_aligned<T>(in, W)};
+  return step<T>(static_cast<const T*>(in), out, a, p, bf16, q, rows16,
+                 stream);
+}
+
+template <typename T>
+int halo(const void* args, void* out, const Params& p, int bf16,
+         const mm::Rect& q, int rows16, void* stream) {
+  const auto* h = static_cast<const mm::HaloArgs*>(args);
+  if (h == nullptr || !valid_steps(p) ||
+      !mm::valid_halo(*h, p.nsteps, MAX_STEPS) ||
+      (bf16 && (p.nsteps < 2 || !valid_rows16(p, rows16)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (h->h == 0 || h->w == 0) return 0;
+  const mm::HaloSource<T> src(*h);
+  const Array a{src.h, src.w, src.R0, src.C0, src.H, src.W,
+                mm::rows_aligned<T>(h->shard, h->w)};
+  return step<T>(src, out, a, p, bf16, q, rows16, stream);
 }
 
 Params make_params(float rate, float keep, float ca, float cb, int nsteps,
@@ -345,64 +762,6 @@ Params make_params(float rate, float keep, float ca, float cb, int nsteps,
   return p;
 }
 
-// The window rows of a call, chosen by measurement on the H100
-// (k1_variants.py, PERF.md): the fewest rows keep the halo rows' share of
-// the loads low at small n; more rows cut the halo's share of the steps at
-// larger n, at two blocks an SM (128 registers). Neighbourhoods other than
-// Moore keep 48 (their kernel holds more).
-int rows_for(const Params& p) {
-  return !p.moore || p.nsteps <= 2 ? 48 : 64;
-}
-
-template <bool BF, typename T>
-int dense(const void* in, void* out, int H, int W, const Params& p,
-          const mm::Rect& q, void* stream) {
-  if (!valid_steps(p) || H < 0 || W < 0 || (BF && p.nsteps < 2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (H == 0 || W == 0) return 0;
-  switch (rows_for(p)) {
-    case 64: return launch<64, true, BF, T>(in, out, H, W, p, q, stream);
-    default:
-      return p.moore
-                 ? launch<48, true, BF, T>(in, out, H, W, p, q, stream)
-                 : launch<48, false, BF, T>(in, out, H, W, p, q, stream);
-  }
-}
-
-template <bool BF, typename T>
-int halo(const void* args, void* out, const Params& p, const mm::Rect& q,
-         void* stream) {
-  const auto* a = static_cast<const mm::HaloArgs*>(args);
-  if (a == nullptr || !valid_steps(p) ||
-      !mm::valid_halo(*a, p.nsteps, MAX_STEPS) || (BF && p.nsteps < 2)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (a->h == 0 || a->w == 0) return 0;
-  switch (rows_for(p)) {
-    case 64: return launch_halo<64, true, BF, T>(a, out, p, q, stream);
-    default:
-      return p.moore ? launch_halo<48, true, BF, T>(a, out, p, q, stream)
-                     : launch_halo<48, false, BF, T>(a, out, p, q, stream);
-  }
-}
-
-// The entry points' dispatch: f32 interior math, or bf16 (`bf16`, with
-// its rectangle and its constants).
-template <typename T>
-int dense_entry(const void* in, void* out, int H, int W, const Params& p,
-                int bf16, const mm::Rect& q, void* stream) {
-  return bf16 ? dense<true, T>(in, out, H, W, p, q, stream)
-              : dense<false, T>(in, out, H, W, p, q, stream);
-}
-
-template <typename T>
-int halo_entry(const void* args, void* out, const Params& p, int bf16,
-               const mm::Rect& q, void* stream) {
-  return bf16 ? halo<true, T>(args, out, p, q, stream)
-              : halo<false, T>(args, out, p, q, stream);
-}
-
 }  // namespace
 
 extern "C" {
@@ -410,37 +769,75 @@ extern "C" {
 // The step arguments (ops/fused_stencil.py::_step_args): the exact path's
 // rate and 1 - rate, the closed form's f32 constants, the steps and the
 // neighbourhood; then the bf16 interior math: on or off, its rectangle
-// (global rows [r0, r1), columns [c0, c1)) and its bf16 constants.
+// (global rows [r0, r1), columns [c0, c1)), its bf16 constants and the
+// paired launch's window rows.
 #define MM_STEP_ARGS                                                        \
   float rate, float keep, float ca, float cb, int nsteps, int mask9,       \
       int noff, int offcodes, int moore, int bf16, int r0, int r1, int c0, \
-      int c1, float ca16, float cb16
+      int c1, float ca16, float cb16, int rows16
 #define MM_PARAMS                                                         \
   make_params(rate, keep, ca, cb, nsteps, mask9, noff, offcodes, moore,  \
               ca16, cb16)
 
 int mm_fused_stencil_f32(const void* in, void* out, int H, int W,
                          MM_STEP_ARGS, void* stream) {
-  return dense_entry<float>(in, out, H, W, MM_PARAMS, bf16,
-                            mm::Rect{r0, r1, c0, c1}, stream);
+  return dense<float>(in, out, H, W, MM_PARAMS, bf16,
+                      mm::Rect{r0, r1, c0, c1}, rows16, stream);
 }
 
 int mm_fused_stencil_bf16(const void* in, void* out, int H, int W,
                           MM_STEP_ARGS, void* stream) {
-  return dense_entry<__nv_bfloat16>(in, out, H, W, MM_PARAMS, bf16,
-                                    mm::Rect{r0, r1, c0, c1}, stream);
+  return dense<__nv_bfloat16>(in, out, H, W, MM_PARAMS, bf16,
+                              mm::Rect{r0, r1, c0, c1}, rows16, stream);
 }
 
 int mm_fused_stencil_halo_f32(const void* args, void* out, MM_STEP_ARGS,
                               void* stream) {
-  return halo_entry<float>(args, out, MM_PARAMS, bf16,
-                           mm::Rect{r0, r1, c0, c1}, stream);
+  return halo<float>(args, out, MM_PARAMS, bf16, mm::Rect{r0, r1, c0, c1},
+                     rows16, stream);
 }
 
 int mm_fused_stencil_halo_bf16(const void* args, void* out, MM_STEP_ARGS,
                                void* stream) {
-  return halo_entry<__nv_bfloat16>(args, out, MM_PARAMS, bf16,
-                                   mm::Rect{r0, r1, c0, c1}, stream);
+  return halo<__nv_bfloat16>(args, out, MM_PARAMS, bf16,
+                             mm::Rect{r0, r1, c0, c1}, rows16, stream);
+}
+
+// The geometry step() gives a bf16-interior call on an [h, w] array at
+// global (R0, C0) of an [H, W] grid: out[0] the near launch's rows
+// (rows_for), then the paired region and the four bands (top, bottom,
+// left, right), five ints each: local rows [r0, r1), columns [c0, c1), and
+// the tiles launched over it (26 ints). It launches nothing: the card
+// tests and chip_smoke.py hold ops/fused_stencil.py's window_rows,
+// bf16_regions and region_tiles to it.
+int mm_fused_bf16_plan(int h, int w, int R0, int C0, int H, int W,
+                       MM_STEP_ARGS, int* out) {
+  const Params p = MM_PARAMS;
+  if (!valid_steps(p) || h < 0 || w < 0 || nsteps < 2 ||
+      !valid_rows16(p, rows16) || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  (void)bf16;
+  const Array a{h, w, R0, C0, H, W, 0};
+  const int rows = rows_for(p);
+  const Split s = split_of(mm::Rect{r0, r1, c0, c1}, a);
+  Bands bs;
+  bands_of(rows, nsteps, a, s, bs);
+  const RegionTiling paired =
+      region_tiling(rows16, nsteps, a, s.a0, s.a1, s.b0, s.b1);
+  const RegionTiling* regions[5] = {&paired, &bs.band[0], &bs.band[1],
+                                    &bs.band[2], &bs.band[3]};
+  out[0] = rows;
+  for (int k = 0; k < 5; ++k) {
+    const RegionTiling& tl = *regions[k];
+    int* o = out + 1 + 5 * k;
+    o[0] = tl.r0;
+    o[1] = tl.r1;
+    o[2] = tl.c0;
+    o[3] = tl.c1;
+    o[4] = tl.tiles;
+  }
+  return 0;
 }
 
 int mm_halo_args_size() { return static_cast<int>(sizeof(mm::HaloArgs)); }

@@ -468,9 +468,11 @@ inline Tiling make_tiling(int rows, int rh, int n, int h, int w, int R0,
 // Start the cp.async copies of tile t's window (an aligned superset of its
 // columns) into `stage`; `base` is the array's [0, 0], `pitch` its row
 // pitch in elements, a multiple of kVec<T>, and the array 16-byte aligned.
-template <int ROWS, typename T>
+// TL: Tiling, or a tiling of one region of the array with the same members
+// (K1/K2's bf16 interior math).
+template <int ROWS, typename T, typename TL>
 __device__ __forceinline__ void fetch_window(const T* __restrict__ base,
-                                             int pitch, const Tiling& tl,
+                                             int pitch, const TL& tl,
                                              int t, T* stage) {
   constexpr int V = kVec<T>;
   const int r0 = tl.row_of(t) - tl.rh;
@@ -504,10 +506,10 @@ __device__ __forceinline__ const T* array_of(const HaloSource<T>& s) {
 // for; any other window is staged element by element through the source
 // (zero off the grid): this thread's column, eight rows' loads in flight
 // at a time.
-template <int ROWS, typename T, typename Src>
+template <int ROWS, typename T, typename Src, typename TL>
 __device__ __forceinline__ int stage_window(const Src& src,
                                             const StepParams& p,
-                                            const Tiling& tl, int t,
+                                            const TL& tl, int t,
                                             bool whole, T* stage) {
   const int j = threadIdx.y * 32 + threadIdx.x;
   const int c0 = tl.col_of(t) - tl.n;
@@ -702,7 +704,10 @@ __device__ __forceinline__ unsigned part_u(const uint4& e, int q) {
 }
 
 // One Moore step of the paired walk: pair m's new value is finish(m, its
-// old value, its pair of box sums). Ends past one __syncthreads().
+// old value, its pair of box sums). Ends past one __syncthreads(). K1/K2
+// run a twin of it, fused_stencil.cu::paired_step (the same straddles,
+// exchange and sum order; pass 1's bands kept for pass 2): the card tests
+// pin both to one bit order, so a change to one is made to both.
 template <int ROWS, typename Finish>
 __device__ __forceinline__ void walk_step_bf2(unsigned (&v)[ROWS / 2],
                                               unsigned* eb, Finish finish) {

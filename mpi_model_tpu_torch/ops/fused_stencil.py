@@ -23,7 +23,10 @@ source's header for what the design does about that).
   take the closed form in bf16, every operation rounded to bf16 and the
   constants rounded to bf16 from f64 (``closed_steps_bf16``); every other
   cell takes the f32 forms above over the grid rounded to bf16 once. At
-  ``nsteps == 1`` the knob changes nothing, as in the TPU kernel.
+  ``nsteps == 1`` the knob changes nothing, as in the TPU kernel. On the
+  card such a call is two kernel launches, counted as one: the f32 walk
+  over the bands around the rectangle, and the paired bf16 walk over the
+  rectangle at its own window rows (``bf16_regions``, ``paired_rows``).
 - A CPU tensor takes ``dense_step_plain``, the plain torch version.
 - A CUDA tensor launches the kernel or raises; nothing falls back.
 - Block and ``nsteps`` checks are the JAX package's, so both packages
@@ -589,15 +592,111 @@ def _step_args(rate: float, offsets: tuple, nsteps: int,
     the neighbourhood's bitmask, size and ordered codes, and whether it is
     Moore (each float rounded to f32 once by ctypes); then the bf16
     interior math: whether it is on, the global rows and columns of its
-    cells (``rect``, ``[r0, r1) x [c0, c1)``) and ``a`` and ``b`` rounded to
-    bf16 (``round_bf16``)."""
+    cells (``rect``, ``[r0, r1) x [c0, c1)``), ``a`` and ``b`` rounded to
+    bf16 (``round_bf16``) and the paired launch's window rows
+    (``paired_rows``)."""
     moore, a, b = closed_constants(rate, offsets)
     bf = rect is not None
     r0, r1, c0, c1 = rect if bf else (0, 0, 0, 0)
     return (float(rate), float(1.0 - rate), float(a), float(b), int(nsteps),
             _offset_mask(offsets), len(offsets), _offset_codes(offsets),
             int(moore), int(bf), r0, r1, c0, c1, round_bf16(a),
-            round_bf16(b))
+            round_bf16(b), paired_rows(nsteps, offsets) if bf else 0)
+
+
+# -- the bf16 interior math's two launches ------------------------------------
+#
+# A call with ``compute_dtype=bfloat16`` at ``nsteps > 1`` is two kernel
+# launches, counted as one: the near launch tiles the four bands of the
+# array around the rectangle (``bf16_regions``) with the f32 walk's windows
+# (``window_rows``), the paired launch tiles the rectangle with its own
+# (``paired_rows``); each from its region's origin, each writing only its
+# region's cells (``region_tiles``). The CUDA source computes the same split
+# and tilings (``csrc/fused_stencil.cu``: ``split_of``, ``bands_of``,
+# ``region_tiling``); a region with no cell is not launched. These mirrors
+# serve the tests and the bounds; ``kernel_plan`` reads the source's own
+# geometry, and the card tests and ``chip_smoke.py`` hold them to it.
+
+#: the paired walk's window rows the kernel is built for (Moore, row pairs)
+PAIRED_ROWS = (64, 96)
+#: the window's columns (a column a thread, 8 warps a block)
+WINDOW_COLS = 256
+
+
+def window_rows(nsteps: int, offsets: Sequence[tuple[int, int]]) -> int:
+    """The f32 walk's window rows (``csrc/fused_stencil.cu::rows_for``):
+    48 for Moore up to 2 steps and for other neighbourhoods, else 64."""
+    moore = closed_constants(0.0, tuple(offsets))[0]
+    return 64 if moore and int(nsteps) > 2 else 48
+
+
+def paired_rows(nsteps: int, offsets: Sequence[tuple[int, int]]) -> int:
+    """The paired launch's window rows, one of ``PAIRED_ROWS`` for Moore,
+    chosen by measurement on the H100 (``k1_variants.py``, ``PERF.md``):
+    the walk holds the window's pairs and its bands, rows words a thread,
+    two blocks an SM up to 96 rows (80 and 128 measured slower); 64 rows
+    at 2 steps, 96 above. 48 for other neighbourhoods (their bf16 walk is
+    the f32 walk with every operation rounded, at its rows)."""
+    if not closed_constants(0.0, tuple(offsets))[0]:
+        return 48
+    return 64 if int(nsteps) <= 2 else 96
+
+
+def bf16_regions(shape: tuple[int, int], rect: tuple
+                 ) -> tuple[tuple, list[tuple]]:
+    """The split of a ``[h, w]`` array by the bf16 rectangle ``rect``
+    (local rows ``[r0, r1)``, columns ``[c0, c1)``, as ``bf16_rect``
+    gives it): the paired launch's region and the near launch's four bands
+    (top, bottom, left, right), each ``(r0, r1, c0, c1)``. An empty
+    rectangle leaves the whole array to the top band."""
+    h, w = shape
+    r0, r1, c0, c1 = (min(max(int(x), 0), e)
+                      for x, e in zip(rect, (h, h, w, w)))
+    if r0 >= r1 or c0 >= c1:
+        r0, r1, c0, c1 = h, h, 0, 0
+    return ((r0, r1, c0, c1),
+            [(0, r0, 0, w), (r1, h, 0, w), (r0, r1, 0, c0), (r0, r1, c1, w)])
+
+
+def region_tiles(region: tuple, rows: int, nsteps: int) -> list[tuple]:
+    """The tiles of one region's launch, in block order: ``(rows - 2n) x
+    (256 - 2n)`` output cells each, from the region's origin, each clipped
+    to the region: ``(r0, r1, c0, c1)`` of the cells it writes; each tile
+    reads the window ``n`` cells around it. The source's ``region_tiling``
+    is the same tiling (held to it on the card through ``kernel_plan``)."""
+    r0, r1, c0, c1 = region
+    n = int(nsteps)
+    th, tw = int(rows) - 2 * n, WINDOW_COLS - 2 * n
+    if r0 >= r1 or c0 >= c1:
+        return []
+    return [(r, min(r + th, r1), c, min(c + tw, c1))
+            for r in range(r0, r1, th) for c in range(c0, c1, tw)]
+
+
+def kernel_plan(shape: tuple[int, int], rect: tuple, nsteps: int,
+                offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                origin: tuple[int, int] = (0, 0),
+                global_shape: Optional[tuple[int, int]] = None
+                ) -> tuple[int, list[tuple]]:
+    """The two launches' geometry as the CUDA source computes it for a
+    bf16-interior call on a ``shape`` array at ``origin`` of
+    ``global_shape`` (``rect``: global, as ``kernel_rect`` gives it): the
+    near launch's rows, and for the paired region and the four bands
+    ``(r0, r1, c0, c1, tiles)``. It launches nothing but needs the built
+    library (the card): tests and ``chip_smoke.py`` hold ``window_rows``,
+    ``bf16_regions`` and ``region_tiles`` to it."""
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 26)()
+    h, w = shape
+    H, W = global_shape or shape
+    err = lib.mm_fused_bf16_plan(h, w, origin[0], origin[1], H, W,
+                                 *_step_args(0.1, tuple(offsets), nsteps,
+                                             rect), out)
+    if err != 0:
+        raise ValueError(f"mm_fused_bf16_plan refused {shape} at {origin}, "
+                         f"nsteps={nsteps}: "
+                         f"{lib.mm_cuda_error_string(err).decode()}")
+    return out[0], [tuple(out[1 + 5 * k:6 + 5 * k]) for k in range(5)]
 
 
 def kernel_rect(shape: tuple[int, int], dtype, block, nsteps: int,
@@ -622,7 +721,7 @@ def _kernel_lib():
     lib = load("fused_stencil")
     if not getattr(lib, "_mm_typed", False):
         step_args = ([ctypes.c_float] * 4 + [ctypes.c_int] * 10
-                     + [ctypes.c_float] * 2)
+                     + [ctypes.c_float] * 2 + [ctypes.c_int])
         for fn in (lib.mm_fused_stencil_f32, lib.mm_fused_stencil_bf16):
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                             ctypes.c_int] + step_args + [ctypes.c_void_p])
@@ -632,6 +731,9 @@ def _kernel_lib():
             fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p] + step_args
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        lib.mm_fused_bf16_plan.argtypes = ([ctypes.c_int] * 6 + step_args
+                                           + [ctypes.POINTER(ctypes.c_int)])
+        lib.mm_fused_bf16_plan.restype = ctypes.c_int
         lib.mm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
         lib.mm_halo_args_size.restype = ctypes.c_int
@@ -641,6 +743,24 @@ def _kernel_lib():
                 f"bytes, the wrapper's {ctypes.sizeof(_HaloArgs)}")
         lib._mm_typed = True
     return lib
+
+
+def _what(kname: str, values: torch.Tensor, offsets: tuple, nsteps: int,
+          rect: Optional[tuple]) -> str:
+    """A call of K1 or K2 in words, for its launch error: the kernel, the
+    storage dtype, the steps and the window rows of each launch (with the
+    bf16 interior math: the near launch's f32 walk and the paired launch's
+    layout)."""
+    dt = str(values.dtype).removeprefix("torch.")
+    rows = window_rows(nsteps, offsets)
+    if rect is None:
+        return f"{kname} fused_stencil ({dt}, nsteps={nsteps}, {rows} rows)"
+    rows16 = paired_rows(nsteps, offsets)
+    layout = ("row pairs" if closed_constants(0.0, offsets)[0]
+              else "the rounded f32 walk")
+    return (f"{kname} fused_stencil bf16 interior ({dt}, nsteps={nsteps}: "
+            f"near launch {rows} rows, paired launch {layout}, "
+            f"{rows16} rows)")
 
 
 def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
@@ -663,7 +783,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
                  *_step_args(rate, offsets, nsteps, rect), stream)
     if err != 0:
         raise RuntimeError(
-            f"fused_stencil kernel launch failed: "
+            f"{_what('K1', values, offsets, nsteps, rect)} launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
     _launch_count += 1
     if stepper is not None:
@@ -756,7 +876,7 @@ def _launch_halo(values: torch.Tensor, ring, origin, global_shape,
                  *_step_args(rate, offsets, nsteps, rect), stream)
     if err != 0:
         raise RuntimeError(
-            f"fused_stencil halo kernel launch failed: "
+            f"{_what('K2', values, offsets, nsteps, rect)} launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
     _halo_launch_count += 1
 

@@ -942,6 +942,196 @@ def test_bf16_interior_k2_on_the_card(dtype, ns, offs, mesh_shape, shape):
             assert torch.equal(got, want), (i, j)
 
 
+# K1/K2 bf16-interior as two launches: the near launch (the f32 walk over
+# the bands around the rectangle) and the paired launch (the row-paired bf16
+# walk over the rectangle, at fs.paired_rows's rows; other neighbourhoods
+# the rounded f32 walk), each output filled with NaN first. Geometries: the
+# rectangle across the tiles, block columns of 200, and an odd rectangle
+# (rows [45, 180) and columns [333, 666) at block (45, 333)).
+
+_K1_BF16_GEOMETRIES = {"cut": ((512, 1024), (64, 128)),
+                       "odd_block": ((336, 1000), (48, 200)),
+                       "odd_rect": ((225, 999), (45, 333))}
+
+
+def _held_nan_by_position(got, want):
+    """Bit for bit, NaN compared by position."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[~nan].view(bits), want[~nan].view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 2), (torch.float32, 3),
+                                      (torch.float32, 5), (torch.float32, 8),
+                                      (torch.bfloat16, 2),
+                                      (torch.bfloat16, 7),
+                                      (torch.bfloat16, 12),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("geometry", sorted(_K1_BF16_GEOMETRIES))
+def test_bf16_interior_k1_two_launches_on_the_card(dtype, ns, offs,
+                                                   geometry):
+    """Every cell written once (NaN-filled output), bit for bit
+    ``dense_step_plain(..., compute_dtype=bfloat16)``, counted as one
+    launch."""
+    dev = _card()
+    shape, block = _K1_BF16_GEOMETRIES[geometry]
+    ns = min(ns, fs.ghost_depth(shape, dtype, block))
+    x = torch.from_numpy(np.random.default_rng(ns).uniform(
+        0.5, 2.0, shape)).to(dev, dtype)
+    out = torch.full_like(x, float("nan"))
+    before = fs.launches()
+    fs.pallas_dense_step(x, 0.13, offs, block=block, nsteps=ns,
+                         compute_dtype=_BF, out=out)
+    assert fs.launches() == before + 1
+    assert torch.equal(out, fs.dense_step_plain(x, 0.13, offs, ns, _BF,
+                                                block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 8), (torch.bfloat16, 4),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("values", ["zeros_subnormals", "inf"])
+@pytest.mark.parametrize("geometry", ["cut", "odd_rect"])
+def test_bf16_interior_k1_special_values_on_the_card(dtype, ns, offs, values,
+                                                     geometry):
+    """Windows holding +-0 and bf16 subnormals, and +-inf: bit for bit the
+    plain version, NaN by position (add.rn.bf16x2 meets them as the plain
+    version's f32 operation rounded once does)."""
+    dev = _card()
+    shape, block = _K1_BF16_GEOMETRIES[geometry]
+    ns = min(ns, fs.ghost_depth(shape, dtype, block))
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 2.0, shape)).to(dev, dtype)
+    x = _with_specials({"v": x}, 13)["v"]
+    if values == "zeros_subnormals":
+        x = torch.where(torch.isinf(x), torch.ones_like(x), x)
+    got = fs.pallas_dense_step(x, 0.13, offs, block=block, nsteps=ns,
+                               compute_dtype=_BF)
+    _held_nan_by_position(got, fs.dense_step_plain(x, 0.13, offs, ns, _BF,
+                                                   block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,ns", [(torch.float32, 4), (torch.float32, 8),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (4, 4)])
+def test_bf16_interior_k2_mosaic_is_k1_on_the_card(dtype, ns, offs,
+                                                   mesh_shape):
+    """K2 bf16-interior on the 2x2 and 4-stripe meshes of (1024, 2048), at
+    one block for the grid and its shards (so both take the same bf16
+    cells; on 4x4 the inner shards lie wholly in the rectangle: no near
+    launch): every shard's NaN-filled output bit for bit its plain version,
+    and the shards put together bit for bit K1's whole grid."""
+    from mpi_model_tpu_torch.parallel import assemble, exchange_ring
+
+    dev = _card()
+    shape, block = (1024, 2048), (64, 128)
+    mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 53)
+    g = g["value"]
+    lines, columns = mesh_shape
+    out = [[None] * columns for _ in range(lines)]
+    before = fs.halo_launches()
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, ns)
+            o = torch.full_like(g[i][j], float("nan"))
+            fs.pallas_halo_step(g[i][j], ring, (i * h, j * w), shape, 0.13,
+                                offs, block=block, nsteps=ns,
+                                compute_dtype=_BF, out=o)
+            assert torch.equal(o, fs.halo_step_plain(
+                g[i][j], ring, (i * h, j * w), shape, 0.13, offs, ns, _BF,
+                block)), (i, j)
+            out[i][j] = o
+    assert fs.halo_launches() == before + lines * columns
+    assert torch.equal(assemble(out, dev), fs.pallas_dense_step(
+        full["value"], 0.13, offs, block=block, nsteps=ns,
+        compute_dtype=_BF))
+
+
+#: (grid, block, mesh) of the geometry checks: K1 grids (mesh (1, 1)) and
+#: K2's meshes (an empty rectangle on the stripes of (96, 768), no near band
+#: on the inner shards of 4x4); only index arithmetic runs, no grid is built
+_K1_PLAN_GEOMETRIES = {"cut": ((512, 1024), (64, 128), (1, 1)),
+                       "odd_block": ((336, 1000), (48, 200), (1, 1)),
+                       "odd_rect": ((225, 999), (45, 333), (1, 1)),
+                       "main": ((16384, 16384), None, (1, 1)),
+                       "main_2x2": ((16384, 16384), None, (2, 2)),
+                       "main_stripes": ((16384, 16384), None, (4, 1)),
+                       "near_stripes": ((96, 768), None, (4, 1)),
+                       "inner_4x4": ((4096, 4096), (512, 512), (4, 4))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("geometry", sorted(_K1_PLAN_GEOMETRIES))
+def test_bf16_interior_k1_plan_is_the_library_s(dtype, offs, geometry):
+    """``window_rows``, ``bf16_regions`` and ``region_tiles`` (the CPU
+    tests' and ``chip_smoke.py``'s bounds' view of the two launches) are
+    the source's own geometry, read through ``kernel_plan``: on every
+    shard at every nsteps, the near launch's rows, and the paired region's
+    and each band's cells and tiles."""
+    _card()
+    gshape, block, (lines, columns) = _K1_PLAN_GEOMETRIES[geometry]
+    h, w = gshape[0] // lines, gshape[1] // columns
+    for ns in range(2, fs.ghost_depth((h, w), dtype, block) + 1):
+        for i in range(lines):
+            for j in range(columns):
+                org = (i * h, j * w)
+                rect = fs.kernel_rect((h, w), dtype, block, ns, _BF, org,
+                                      gshape)
+                inner, bands = fs.bf16_regions((h, w), (
+                    rect[0] - org[0], rect[1] - org[0], rect[2] - org[1],
+                    rect[3] - org[1]))
+                rows, regions = fs.kernel_plan((h, w), rect, ns, offs, org,
+                                               gshape)
+                assert rows == fs.window_rows(ns, offs)
+                rows16 = fs.paired_rows(ns, offs)
+                assert regions == [
+                    (*inner, len(fs.region_tiles(inner, rows16, ns))),
+                    *((*b, len(fs.region_tiles(b, rows, ns)))
+                      for b in bands)], (ns, org)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [False, True])
+def test_bf16_interior_k1_launch_error_raises(monkeypatch, halo):
+    """No fallback: window rows the source has no paired instance of are
+    refused before either launch; the error names the kernel, the layout
+    and the rows; nothing is counted and nothing is written."""
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    monkeypatch.setattr(fs, "paired_rows", lambda nsteps, offsets: 72)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.5, 2.0, (512, 1024))).to(dev, torch.float32)
+    kname = "K2" if halo else "K1"
+    before = (fs.launches(), fs.halo_launches())
+    if halo:
+        g = [[x[i * 256:(i + 1) * 256, j * 512:(j + 1) * 512].contiguous()
+              for j in range(2)] for i in range(2)]
+        out = torch.full_like(g[1][0], float("nan"))
+        with pytest.raises(RuntimeError,
+                           match=f"{kname} .*row pairs, 72 rows"):
+            fs.pallas_halo_step(g[1][0], exchange_ring(g, 1, 0, 8), (256, 0),
+                                (512, 1024), 0.13, block=(64, 128), nsteps=8,
+                                compute_dtype=_BF, out=out)
+    else:
+        out = torch.full_like(x, float("nan"))
+        with pytest.raises(RuntimeError,
+                           match=f"{kname} .*row pairs, 72 rows"):
+            fs.pallas_dense_step(x, 0.13, block=(64, 128), nsteps=8,
+                                 compute_dtype=_BF, out=out)
+    torch.cuda.synchronize()
+    assert (fs.launches(), fs.halo_launches()) == before
+    assert bool(torch.isnan(out).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["vpu", "mxu"])
 @pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 8),
