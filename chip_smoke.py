@@ -235,14 +235,16 @@ Phases (any failure exits non-zero, and no result line is printed):
    step K1/K2 are their f32 results. Then the main paths at full width,
    each run with the counts set to 0 just before and read just after:
    K1 16384² f32 substeps 8 and bf16 16, the composed path at k 8 and 16
-   in both forms, config 4 at 8192² (f32 substeps 1 and 8, bf16 1 and
+   in both forms and at substeps 2 ``"auto"`` (k = 2: the vpu form,
+   checked), config 4 at 8192² (f32 substeps 1 and 8, bf16 1 and
    16), the 2×2
    sharded K2, K3-halo (each form, bit for bit its serial composed run)
-   and K4-halo (config 4 at 8192²) at depth 8 (K1's, K2's, K3 mxu's,
-   K3-halo mxu's, K4's and K4-halo's rows made whole in a process of
-   their own, ``fresh_row`` / ``traced_row``: their counted run is traced,
-   and every K1/K2 launch must have run the near launch's f32 walk and the
-   paired launch's walk once each, ``k1_walk``; every K3 mxu launch the
+   and K4-halo (config 4 at 8192²) at depth 8 (every one of these rows
+   made whole in a process of
+   its own, ``fresh_row`` / ``traced_row``: its counted run is traced,
+   and every K1/K2 and K3 vpu launch must have run the near launch's f32
+   walk and the paired launch's walk once each and no other kernel of its
+   family, ``two_launch_walk``; every K3 mxu launch the
    persistent walk once and no other K3 kernel, ``k3_mxu16``; every K4
    launch the f32 walk and the paired walk once each, ``k4_walk``; a
    counted run whose trace dropped one of its kernels is made again, at
@@ -251,7 +253,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ensemble 8 × 4096² (bit for bit the
    f32-compute dispatch) and 4 × 8192² (blocks (512, 2048): closed tiles
    in every lane; bit for bit its plain version); each run's mass change
-   held below ``MASS_BF16`` of the total. Each variant's kernel held
+   held below ``MASS_BF16`` of the total (the composed substeps 2 row
+   instead bit for bit its plain version's calls: JAX's bf16 coefficients
+   at k = 2 move more mass in 32 calls than that, 3.4% at 16384²). Each
+   variant's kernel held
    against its plain version on the same inputs at the main path's shape
    (bit for bit, K3 mxu to its tolerance), its ms beside the f32-compute
    kernel's of this run, its plain version's, and the function's bound
@@ -260,8 +265,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    banded MMAs on the layout that runs are its form's bound,
    ``form_bound_ms``, ``mxu16_tensor_ms``; K4's paired form
    counts its instructions on the f32 halves at the f32 rate; K1/K2's
-   paired form its walk's instructions over the windows of the tiling that
-   runs, ``k1_paired_bound_ms``).
+   and K3 vpu's paired form its walk's instructions over the windows of
+   the tiling that runs, ``k1_paired_bound_ms``, ``k3_paired_bound_ms``).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -312,7 +317,8 @@ BF16_FLOPS = 989e12
 BF16X2_OPS = 2 * F32_FLOPS
 CUSTOM_OFFSETS = ((-1, 0), (1, 1), (0, -1))
 #: how many times phase 6g makes again a counted main-path run whose trace
-#: dropped one of its kernels (``k1_short``, ``k3_short``, ``k4_short``)
+#: dropped one of its kernels (``two_launch_short``, ``k3_short``,
+#: ``k4_short``)
 TRACE_RETRIES = 3
 #: the share of the total mass a main-path run with bf16 interior math may
 #: move (JAX's semantics: constants rounded to bf16, every operation
@@ -326,6 +332,13 @@ MASS_BF16 = 2.0 ** -6
 MXU16_BEFORE_MS = {"K3 mxu float32 k=8": 3.427,
                    "K3 mxu bfloat16 k=16": 4.507,
                    "K3-halo mxu float32 k=8 shard (8192, 8192)": 1.072}
+#: the vpu bf16-interior kernel before its two launches (one kernel with
+#: both walks), ms a call on an H100 80GB HBM3 at 700.00 W, as PERF.md §6
+#: records them (PR 14's run 13 of this script): printed beside this run's
+#: figures, and in no JSON
+VPU16_BEFORE_MS = {"K3 vpu float32 k=8": 1.9519,
+                   "K3 vpu bfloat16 k=16": 4.5371,
+                   "K3-halo vpu float32 k=8 shard (8192, 8192)": 0.7098}
 
 
 def fail(msg: str) -> None:
@@ -493,48 +506,63 @@ def k3_mxu16(names: dict, launched: int, what: str) -> dict:
                          else "composed_mxu16_kernel"), "k3_kernels": k3}
 
 
-def k1_walk(names: dict, launched: int, what: str) -> dict:
-    """Which K1/K2 kernels a counted main-path run of the bf16 interior
-    math ran, from its trace (``traced_kernels``): every launch the near
-    launch's f32 walk over the bands (``fused_stencil_near_kernel`` /
+#: the kernels of each two-launch bf16-interior walk, by their names in a
+#: trace: the family's, the near launch's, the paired launch's
+TWO_LAUNCHES = {"K1/K2": ("fused_stencil", "_near_kernel", "_bf16_kernel"),
+                "K3": ("composed_", "_near_kernel", "composed_vpu16_")}
+
+
+def _two_launches(names: dict, family: str) -> tuple:
+    """A trace's kernels of ``family`` (``TWO_LAUNCHES``) by name, and its
+    near and paired launches."""
+    fam, near_key, paired_key = TWO_LAUNCHES[family]
+    ks = {n: c for n, c in names.items() if fam in n}
+    return (ks, sum(c for n, c in ks.items() if near_key in n),
+            sum(c for n, c in ks.items() if paired_key in n))
+
+
+def two_launch_walk(names: dict, launched: int, what: str,
+                    family: str) -> dict:
+    """Which kernels a counted main-path run of a two-launch bf16-interior
+    walk ran, from its trace (``traced_kernels``): every launch the near
+    launch's f32 walk over the bands (K1/K2: ``fused_stencil_near_kernel``
+    / ``_halo_near_kernel``; K3 vpu: ``composed_vpu_near_kernel`` /
     ``_halo_near_kernel``) and the paired launch's walk over the rectangle
-    (``fused_stencil_bf16_kernel`` / ``_halo_bf16_kernel``) once each, and
-    no other K1/K2 kernel. Fails otherwise. Returns the walk, the kernels a
+    (``fused_stencil_bf16_kernel`` / ``_halo_bf16_kernel``;
+    ``composed_vpu16_kernel`` / ``_halo_kernel``) once each, and no other
+    kernel of the family. Fails otherwise. Returns the walk, the kernels a
     launch and the counts."""
-    k1 = {n: c for n, c in names.items() if "fused_stencil" in n}
-    paired = sum(c for n, c in k1.items() if "_bf16_kernel" in n)
-    near = sum(c for n, c in k1.items() if "_near_kernel" in n)
+    ks, near, paired = _two_launches(names, family)
     check(launched > 0 and paired == launched and near == launched
-          and sum(k1.values()) == paired + near,
-          f"{what}: {launched} launches ran the K1/K2 kernels {k1}, not the "
-          "near walk and the paired walk once each")
-    return {"walk": "row pairs", "kernels_per_launch": sum(k1.values())
-            / launched, "k1_kernels": k1}
+          and sum(ks.values()) == paired + near,
+          f"{what}: {launched} launches ran the {family} kernels {ks}, not "
+          "the near walk and the paired walk once each")
+    return {"walk": "row pairs", "kernels_per_launch": sum(ks.values())
+            / launched, "kernels": ks}
 
 
-def k1_short(names: dict, launched: int) -> bool:
-    """A K1/K2 bf16-interior trace that shows fewer paired or near kernels
-    than the launches counted, and no other K1/K2 kernel (a kernel the
+def two_launch_short(names: dict, launched: int, family: str) -> bool:
+    """A two-launch trace that shows fewer paired or near kernels than the
+    launches counted, and no other kernel of the family (a kernel the
     profiler dropped)."""
-    k1 = {n: c for n, c in names.items() if "fused_stencil" in n}
-    paired = sum(c for n, c in k1.items() if "_bf16_kernel" in n)
-    near = sum(c for n, c in k1.items() if "_near_kernel" in n)
-    return (min(paired, near) < launched
-            and sum(k1.values()) == paired + near)
+    ks, near, paired = _two_launches(names, family)
+    return min(paired, near) < launched and sum(ks.values()) == paired + near
 
 
 def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
     """One bf16-interior main-path row of phase 6g, whole, in a process of
     its own (``fresh_row`` starts it): the entry point of ``kind`` (K1, K2
-    on the 2x2 mesh, K3 mxu, K3-halo mxu on 2x2, K4 and K4-halo on 2x2 with
-    config 4) on a grid made from ``SEED``; one uncounted run; then the
-    counted run, traced (every count to 0 just before, read just after; a
-    trace that dropped one of its kernels, ``k1_short`` / ``k3_short`` /
-    ``k4_short``, and its counted run are made again, at most
-    ``TRACE_RETRIES`` times); that run's result checked (finite, its mass
-    change; K3-halo: bit for bit the serial composed run); then the run's
-    ms (CUDA events, median of 3). Prints the row and the attempts' counts
-    and kernel names as one JSON line."""
+    on the 2x2 mesh, K3 ``"auto"`` (mxu at k 8 and 16, vpu at k 2), K3
+    vpu, K3-halo mxu and vpu on 2x2, K4 and K4-halo on 2x2 with config 4)
+    on a grid made from ``SEED``; one uncounted run; then the counted run,
+    traced (every count to 0 just before, read just after; a trace that
+    dropped one of its kernels, ``two_launch_short`` / ``k3_short`` /
+    ``k4_short``, and its counted run are made again, at
+    most ``TRACE_RETRIES`` times); that run's result checked (finite, its
+    mass change, the form the composed executor resolved; K3-halo: bit for
+    bit the serial composed run); then the run's ms (CUDA events, median of
+    3). Prints the row and the attempts' counts and kernel names as one
+    JSON line."""
     import torch
 
     import mpi_model_tpu_torch as mt
@@ -566,17 +594,33 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
     mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
     ex, counter, short = {
         "K1": (mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
-               fs.launches, k1_short),
+               fs.launches, lambda n, c: two_launch_short(n, c, "K1/K2")),
         "K2": (ShardMapExecutor(mesh, "pallas", halo_depth=sub,
                                 compute_dtype=BF),
-               fs.halo_launches, k1_short),
+               fs.halo_launches,
+               lambda n, c: two_launch_short(n, c, "K1/K2")),
         "K3": (mt.SerialExecutor("composed", substeps=sub,
                                  composed_variant="auto", compute_dtype=BF),
                lambda: cs.launches("mxu"), k3_short),
+        "K3 auto": (mt.SerialExecutor("composed", substeps=sub,
+                                      composed_variant="auto",
+                                      compute_dtype=BF),
+                    lambda: cs.launches("vpu"),
+                    lambda n, c: two_launch_short(n, c, "K3")),
+        "K3 vpu": (mt.SerialExecutor("composed", substeps=sub,
+                                     composed_variant="vpu",
+                                     compute_dtype=BF),
+                   lambda: cs.launches("vpu"),
+                    lambda n, c: two_launch_short(n, c, "K3")),
         "K3-halo": (ShardMapExecutor(mesh, "composed", halo_depth=sub,
                                      composed_variant="mxu",
                                      compute_dtype=BF),
                     lambda: cs.halo_launches("mxu"), k3_short),
+        "K3-halo vpu": (ShardMapExecutor(mesh, "composed", halo_depth=sub,
+                                         composed_variant="vpu",
+                                         compute_dtype=BF),
+                        lambda: cs.halo_launches("vpu"),
+                        lambda n, c: two_launch_short(n, c, "K3")),
         "K4": (mt.SerialExecutor("pallas", substeps=sub, compute_dtype=BF),
                k4.launches, k4_short),
         "K4-halo": (ShardMapExecutor(mesh, "pallas", halo_depth=sub,
@@ -604,11 +648,29 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
            "mass_allowed": MASS_BF16 * total,
            "finite": all(bool(torch.isfinite(v).all())
                          for v in res.values.values())}
-    if kind == "K3-halo":
+    if kind.startswith("K3"):
+        row["form"] = (rep.backend_report or {}).get("form")
+    if kind == "K3 auto":
+        # the run bit for bit the plain version's calls (JAX's semantics at
+        # k = 2, 32 calls of the bf16 coefficients, move the mass by more
+        # than MASS_BF16: this run is held to the reference, the mass the
+        # reference moves recorded beside its own)
+        v = space.values["value"]
+        for _ in range(steps // sub):
+            v = cs.composed_dense_step_plain(v, 0.1, sub, variant="vpu",
+                                             compute_dtype=BF)
+        row["bitwise_plain"] = torch.equal(res.values["value"], v)
+        row["plain_conservation_error"] = abs(
+            float(v.double().sum())
+            - float(space.values["value"].double().sum()))
+        del v
+    if kind.startswith("K3-halo"):
         # chunk for chunk (depth ``sub``) the serial composed run
         serial, _ = model.execute(
             space, mt.SerialExecutor("composed", substeps=sub,
-                                     composed_variant="mxu",
+                                     composed_variant=(
+                                         "vpu" if kind.endswith("vpu")
+                                         else "mxu"),
                                      compute_dtype=BF),
             steps=steps, check_conservation=False)
         row["bitwise_serial"] = torch.equal(res.values["value"],
@@ -678,6 +740,52 @@ def k1_paired_bound_ms(fs, shape, dtype, nsteps: int, origin=(0, 0),
     itemsize = 2 if dtype == torch.bfloat16 else 4
     return larger(2 * cells * itemsize / HBM_BYTES_PER_S * 1e3,
                   (paired_s + near_flops / F32_FLOPS) * 1e3)
+
+
+#: K3 vpu's paired walk a pair and step (mm::paired_step with the
+#: accumulator in its finish): K1's walk less its finish's two multiplies
+#: and add; on the accumulator's pairs a multiply and an add
+VPU16_ALU = PAIRED_ALU - 3
+VPU16_ACC = 2
+
+
+def k3_paired_bound_ms(cs, fs, shape, dtype, k: int, origin=(0, 0),
+                       global_shape=None) -> tuple[float, str]:
+    """Least time of one K3 (K3-halo) vpu bf16-interior call in the form
+    that runs: the paired launch's windows (the rectangle's tiles at
+    ``cs.paired_rows``, every window pair a step) at the paired walk's
+    instructions (``VPU16_ALU`` a pair, ``VPU16_ACC`` on the accumulator's
+    pairs, at the issue rate; ``PAIRED_SHFL`` at the shuffle rate;
+    whichever is larger), plus the near launch's f32 operations (the vpu
+    form's, ``cs.vpu_ops``, off the rectangle) at the f32 rate; against the
+    bytes (each cell read and written once); whichever is larger. The split
+    and the tilings counted are held to the source's own
+    (``cs.kernel_plan``): the bound counts the layout that runs."""
+    import torch
+
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+
+    h, w = shape
+    rect = fs.kernel_rect(shape, dtype, None, k, torch.bfloat16, origin,
+                          global_shape)
+    mine = cs.plan_of(shape, rect, k, MOORE_OFFSETS, origin)
+    source = cs.kernel_plan(shape, rect, k, dtype, MOORE_OFFSETS, origin,
+                            global_shape)
+    check(source == mine, f"K3 vpu bf16 interior {shape} at {origin}, k={k}: "
+                          f"the source launches {source}, "
+                          f"composed_stencil.py's mirrors say {mine}")
+    _, (rows16, off16), regions = source
+    p = rows16 // 2
+    per_pair = max((VPU16_ALU + VPU16_ACC * (p - off16) / p) / ISSUE_PER_S,
+                   PAIRED_SHFL / SHFL_PER_S)
+    paired_s = regions[0][4] * p * 256 * k * per_pair
+    inner = regions[0]
+    inner16 = (inner[1] - inner[0]) * (inner[3] - inner[2])
+    near_ops = (cs.vpu_ops(shape, k, origin=origin, global_shape=global_shape)
+                - inner16 * (4 * k + 2 * k + 1))
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return larger(2 * h * w * itemsize / HBM_BYTES_PER_S * 1e3,
+                  (paired_s + near_ops / F32_FLOPS) * 1e3)
 
 
 def print_profile(what: str, prof: dict) -> None:
@@ -2381,44 +2489,6 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     torch.cuda.empty_cache()
 
     # -- the main paths at full width ---------------------------------------------
-    def run_row(what, model, space, ex, steps, counter, want_launches):
-        """One counted run (counts to 0 just before, read just after), its
-        checks and its run ms (CUDA events, median of 3). bf16 interior
-        math does not conserve mass as f32 does, by JAX's semantics (its
-        constants rounded to bf16, every operation rounded): the run may
-        move ``MASS_BF16`` of the total. The kernels' results themselves
-        are held against their plain versions by ``timed``."""
-        def run():
-            return model.execute(space, ex, steps=steps,
-                                 check_conservation=False)
-
-        reset_counts()
-        res, rep = run()
-        launched = counter()
-        check(launched == want_launches,
-              f"{what}: {launched} launches, expected {want_launches}")
-        for v in res.values.values():
-            check(bool(torch.isfinite(v).all()), f"{what}: not finite")
-        err = rep.conservation_error()
-        total = sum(abs(t) for t in rep.initial_total.values())
-        allowed = MASS_BF16 * total
-        check(err <= allowed, f"{what}: mass moved by {err} (allowed "
-                              f"{allowed})")
-        run_ms = statistics.median(timed_ms(
-            torch, lambda: ex.run_model(model, space, steps), reps=3))
-        cells = sum(t.numel() for t in space.values.values()
-                    if t.is_floating_point())
-        row = {"what": what, "impl": rep.impl, "steps": steps,
-               "launches": launched, "conservation_error": err,
-               "mass_allowed": allowed,
-               "run_ms_median": run_ms,
-               "cell_updates_per_s": cells * steps / (run_ms / 1e3)}
-        out["rows"][what] = row
-        print(f"bf16-interior {what}: impl={rep.impl}, launches {launched}, "
-              f"|d|={err:.3e}, run {run_ms:.3f} ms, "
-              f"{row['cell_updates_per_s']:.4e} cell-updates/s", flush=True)
-        return res, row
-
     def fresh_row(what, kind, dname, sub, steps, want_launches):
         """One main-path row whose counted run is traced: the whole row
         (the counted run, traced, its checks and its run ms) in a process
@@ -2427,9 +2497,10 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         near kernel of 8 K1 launches in four traces in a row; two or three
         K3 mxu walks of 8; three K4 launches of 64) while a fresh process
         traced them whole. The launches, the checks and the kernels the
-        trace shows (K1/K2's two launches, ``k1_walk``; the K3 mxu
-        bf16-interior walk, ``k3_mxu16``; K4's two walks, ``k4_walk``) all
-        come from that one counted run."""
+        trace shows (K1/K2's and K3 vpu's two launches,
+        ``two_launch_walk``; the K3 mxu bf16-interior walk, ``k3_mxu16``;
+        K4's two walks, ``k4_walk``) all come from that
+        one counted run."""
         here = Path(__file__).resolve().parent
         proc = subprocess.run(
             [sys.executable, "-c", "import sys; sys.path.insert(0, "
@@ -2449,12 +2520,26 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         check(launched == want_launches,
               f"{what}: {launched} launches, expected {want_launches}")
         check(row.pop("finite"), f"{what}: not finite")
-        check(row["conservation_error"] <= row["mass_allowed"],
-              f"{what}: mass moved by {row['conservation_error']} (allowed "
-              f"{row['mass_allowed']})")
-        key, walk = {"K1": ("k1_walk", k1_walk), "K2": ("k1_walk", k1_walk),
-                     "K3": ("k3_walk", k3_mxu16),
-                     "K4": ("k4_walk", k4_walk)}[kind[:2]]
+        if "bitwise_plain" in row:
+            check(row["bitwise_plain"],
+                  f"{what}: the run is not its plain version's bit for bit")
+        else:
+            check(row["conservation_error"] <= row["mass_allowed"],
+                  f"{what}: mass moved by {row['conservation_error']} "
+                  f"(allowed {row['mass_allowed']})")
+        if kind in ("K3 vpu", "K3 auto", "K3-halo vpu"):
+            check(row.get("form") == "vpu",
+                  f"{what}: the composed executor resolved "
+                  f"{row.get('form')!r}, not the vpu form")
+            key, walk = "k3_vpu_walk", lambda n, c, w: two_launch_walk(
+                n, c, w, "K3")
+        else:
+            key, walk = {"K1": ("k1_walk", lambda n, c, w: two_launch_walk(
+                             n, c, w, "K1/K2")),
+                         "K2": ("k1_walk", lambda n, c, w: two_launch_walk(
+                             n, c, w, "K1/K2")),
+                         "K3": ("k3_walk", k3_mxu16),
+                         "K4": ("k4_walk", k4_walk)}[kind[:2]]
         row[key] = walk(attempts[-1]["kernels"], launched, what)
         row[key]["trace_attempts"] = len(attempts)
         row = {"what": what, **row, "run_in": "a process of its own"}
@@ -2513,7 +2598,10 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                  if form_bound else "") + f", max_abs_err {err:.3e}"
               + (f" [before the persistent walk: {MXU16_BEFORE_MS[what]} "
                  "ms, PERF.md]"
-                 if what in MXU16_BEFORE_MS else ""), flush=True)
+                 if what in MXU16_BEFORE_MS else "")
+              + (f" [before the two launches: {VPU16_BEFORE_MS[what]} "
+                 "ms, PERF.md]"
+                 if what in VPU16_BEFORE_MS else ""), flush=True)
 
     model = mt.Model(mt.Diffusion(0.1))
     for dname, sub in (("float32", 8), ("bfloat16", 16)):
@@ -2556,12 +2644,9 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                                    composed_variant=variant,
                                    compute_dtype=BF)
             form = "mxu" if variant == "auto" else "vpu"
-            if form == "mxu":
-                fresh_row(f"K3 {form} {dname} k={sub}", "K3", dname, sub,
-                          STEPS, STEPS // sub)
-            else:
-                run_row(f"K3 {form} {dname} k={sub}", model, space, ex,
-                        STEPS, lambda: cs.launches(form), STEPS // sub)
+            fresh_row(f"K3 {form} {dname} k={sub}",
+                      "K3" if form == "mxu" else "K3 vpu", dname, sub,
+                      STEPS, STEPS // sub)
             inner16 = rect_cells(fs, (N, N), blk, sub)
             nvpu = sub * 4 + 2 * sub + 1
             # the function's bound: its cheapest form's operations (vpu,
@@ -2569,13 +2654,15 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
             bound = bf16_form_bound_ms(
                 cells, inner16, nvpu, cs.vpu_ops((N, N), sub) / cells,
                 cells * x.element_size(), cells * x.element_size())
-            form_bound = None
             if form == "mxu":
                 # the banded MMAs of the layout that runs
                 form_bound = larger(2 * cells * x.element_size()
                                     / HBM_BYTES_PER_S * 1e3,
                                     mxu16_tensor_ms(cs, fs, (N, N), sub, tdt,
                                                     blk))
+            else:
+                # the paired walk's instructions over the tiling that runs
+                form_bound = k3_paired_bound_ms(cs, fs, (N, N), tdt, sub)
             timed(f"K3 {form} {dname} k={sub}",
                   lambda: cs.composed_dense_step(x, 0.1, sub, out=y,
                                                  variant=form,
@@ -2586,8 +2673,43 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                       x, 0.1, sub, variant=form, compute_dtype=BF),
                   bound, f"K3 {form} {dname} k={sub}", form=form, k=sub,
                   form_bound=form_bound)
+            if form == "vpu":
+                out["calls"][f"K3 vpu {dname} k={sub}"].update(
+                    bf16_cells=inner16, rows=cs.window_rows(sub,
+                                                            MOORE_OFFSETS),
+                    rows16=cs.paired_rows(sub, MOORE_OFFSETS))
         del x, y, bufs, space
         torch.cuda.empty_cache()
+
+    # the composed path at substeps 2, "auto": k = 2, where JAX's rule
+    # resolves to the vpu form (5 taps)
+    x = (1.0 + 0.1 * torch.rand((N, N), generator=gen, device=dev))
+    y = torch.empty_like(x)
+    fresh_row("K3 auto float32 k=2", "K3 auto", "float32", 2, STEPS,
+              STEPS // 2)
+    blk = fs.resolve_block((N, N), torch.float32)
+    check(cs.resolve_form("auto", 2, blk[1]) == "vpu",
+          "composed substeps=2 \"auto\" does not resolve to vpu")
+    inner16 = rect_cells(fs, (N, N), blk, 2)
+    timed("K3 auto float32 k=2",
+          lambda: cs.composed_dense_step(x, 0.1, 2, out=y, compute_dtype=BF),
+          lambda: cs.composed_dense_step(x, 0.1, 2, compute_dtype=BF),
+          lambda: cs.composed_dense_step_plain(x, 0.1, 2, variant="vpu",
+                                               compute_dtype=BF),
+          bf16_form_bound_ms(N * N, inner16, 2 * 4 + 2 * 2 + 1,
+                             cs.vpu_ops((N, N), 2) / (N * N), N * N * 4,
+                             N * N * 4),
+          "K3 auto float32 k=2", form="vpu", k=2,
+          f32_kernel=lambda: cs.composed_dense_step(x, 0.1, 2, out=y),
+          library=lambda: torch.nn.functional.conv2d(
+              x.view(1, 1, N, N), torch.ones((1, 1, 5, 5), device=dev),
+              padding=2),
+          form_bound=k3_paired_bound_ms(cs, fs, (N, N), torch.float32, 2))
+    out["calls"]["K3 auto float32 k=2"].update(
+        bf16_cells=inner16, rows=cs.window_rows(2, MOORE_OFFSETS),
+        rows16=cs.paired_rows(2, MOORE_OFFSETS))
+    del x, y
+    torch.cuda.empty_cache()
 
     # config 4 at 8192² through the field plan
     model4 = mt.Model(config4_flows(mt))
@@ -2667,36 +2789,22 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         h * w * 4, h * w * 4)
     for form in cs.FORMS:
         what = f"K3-halo {form} 2x2 float32 depth=8"
-        if form == "mxu":
-            # its run and the serial composed run compared in its process
-            same = fresh_row(what, "K3-halo", "float32", 8, STEPS,
-                             STEPS // 8 * 4)["bitwise_serial"]
-        else:
-            res, row = run_row(what, model, space,
-                               ShardMapExecutor(mesh, "composed",
-                                                halo_depth=8,
-                                                composed_variant=form,
-                                                compute_dtype=BF),
-                               STEPS, lambda: cs.halo_launches(form),
-                               STEPS // 8 * 4)
-            # chunk for chunk (64 steps at depth 8) the serial composed run
-            serial, _ = model.execute(
-                space, mt.SerialExecutor("composed", substeps=8,
-                                         composed_variant=form,
-                                         compute_dtype=BF),
-                steps=STEPS, check_conservation=False)
-            same = torch.equal(res.values["value"], serial.values["value"])
-            row["bitwise_serial"] = same
-            del serial, res
+        # its run and the serial composed run (chunk for chunk, 64 steps at
+        # depth 8) compared in its process
+        same = fresh_row(what, "K3-halo" if form == "mxu" else
+                         "K3-halo vpu", "float32", 8, STEPS,
+                         STEPS // 8 * 4)["bitwise_serial"]
         record(f"{what}: bit for bit the serial composed run: {same}", same)
         check(same, f"{what} is not its serial run bit for bit")
-        form_bound = None
         if form == "mxu":
             form_bound = larger(2 * h * w * 4 / HBM_BYTES_PER_S * 1e3,
                                 mxu16_tensor_ms(
                                     cs, fs, (h, w), 8, torch.float32,
                                     fs.resolve_block((h, w), torch.float32),
                                     (h, w), (N, N)))
+        else:
+            form_bound = k3_paired_bound_ms(cs, fs, (h, w), torch.float32, 8,
+                                            (h, w), (N, N))
         timed(f"K3-halo {form} float32 k=8 shard (8192, 8192)",
               lambda: cs.composed_halo_step(g[1][1], ring, (h, w), (N, N),
                                             0.1, 8, out=y, variant=form,
@@ -2709,6 +2817,10 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                   compute_dtype=BF),
               bound, f"K3-halo {form} float32", form=form, k=8,
               form_bound=form_bound)
+        if form == "vpu":
+            out["calls"][f"K3-halo vpu float32 k=8 shard (8192, 8192)"].update(
+                bf16_cells=inner16, rows=cs.window_rows(8, MOORE_OFFSETS),
+                rows16=cs.paired_rows(8, MOORE_OFFSETS))
     del x, space, g, ring, y
     torch.cuda.empty_cache()
 
@@ -4396,6 +4508,10 @@ def main() -> int:
             ("K3 composed_stencil mxu bfloat16 k=16", "composed_stencil.cu",
              "mpi_model_tpu/ops/composed_stencil.py:197",
              "K3 mxu bfloat16 k=16", "K3 mxu bfloat16 k=16"),
+            ("K3 composed_stencil vpu float32 k=2 (auto)",
+             "composed_stencil.cu",
+             "mpi_model_tpu/ops/composed_stencil.py:157",
+             "K3 auto float32 k=2", "K3 auto float32 k=2"),
             *((f"K4 field_stencil {d} ns={ns}", "field_stencil.cuh",
                "mpi_model_tpu/ops/pallas_stencil.py:1380",
                f"K4 config4 {d} ns={ns}", f"K4 config4 {d} ns={ns}")
@@ -4455,11 +4571,12 @@ def main() -> int:
             # K1/K2's bf16 interior math: the near launch and the paired
             # launch, two kernels counted as one launch, from the main
             # path's counted run, traced, with their instances
-            **({key: bf16["rows"][run]["k1_walk"][key]
-                for key in ("walk", "kernels_per_launch")}
-               | {"instances": sorted(bf16["rows"][run]["k1_walk"][
-                   "k1_kernels"])}
-               if "k1_walk" in bf16["rows"][run] else {}),
+            # (and K3 vpu's: the same)
+            **next(({key: bf16["rows"][run][w][key]
+                     for key in ("walk", "kernels_per_launch")}
+                    | {"instances": sorted(bf16["rows"][run][w]["kernels"])}
+                    for w in ("k1_walk", "k3_vpu_walk")
+                    if w in bf16["rows"][run]), {}),
             "main_path": bf16["rows"][run]})
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"

@@ -25,8 +25,8 @@ choice changed:
   (``near_only``, ``paired_only``: what each costs). With ``--parent``,
   the older checkout's ``fused_stencil.cu`` is built beside them against
   its own headers and timed in the same turns through its own C entry
-  points (for PR 13's parent: the two walks in one launch, the structure
-  before the paired launch).
+  points (a checkout from PR 14 on: the same C interface, the rows of
+  ``fs.PAIRED_ROWS``).
 
 Every patch is checked against the source before anything is built: a
 variant whose text is no longer in the source stops the tool and is named.
@@ -85,8 +85,8 @@ STAGED = """    const int skew =
     unsigned w[P];
 #pragma unroll
     for (int m = 0; m < P; ++m) {
-      w[m] = pair_of(col + 2 * m * mm::kStagePitch<T>,
-                     col + (2 * m + 1) * mm::kStagePitch<T>);
+      w[m] = mm::pair_of(col + 2 * m * mm::kStagePitch<T>,
+                         col + (2 * m + 1) * mm::kStagePitch<T>);
     }
 """
 # the window read from device memory straight into pairs (a warp's load:
@@ -103,8 +103,8 @@ DIRECT = """    (void)stage;
             mm::array_of(src) + static_cast<size_t>(r0) * tl.w + cc;
 #pragma unroll
         for (int m = 0; m < P; ++m) {
-          w[m] = pair_of(col + static_cast<size_t>(2 * m) * tl.w,
-                         col + static_cast<size_t>(2 * m + 1) * tl.w);
+          w[m] = mm::pair_of(col + static_cast<size_t>(2 * m) * tl.w,
+                             col + static_cast<size_t>(2 * m + 1) * tl.w);
         }
       } else {
 #pragma unroll
@@ -116,8 +116,9 @@ DIRECT = """    (void)stage;
     }
     __syncthreads();
 """
-PAIRED_CALL = ("      paired_step<ROWS>(w, ex16 + (s & 1) * kExch,\n"
-               "                        [&](unsigned old, unsigned g) {")
+PAIRED_CALL = ("      mm::paired_step<ROWS>(w, ex16 + (s & 1) * kExch,\n"
+               "                            [&](int, unsigned old, "
+               "unsigned g) {")
 # the other pair layout: a register holds columns c and c + 1 of one window
 # row, a block's window 512 columns (two a thread); the rows above and
 # below are whole words, the columns beside straddle a word and its
@@ -203,8 +204,8 @@ __device__ __forceinline__ void cols_body(const Src& src, T* __restrict__ out,
     const T* base = mm::array_of(src) + static_cast<size_t>(r0) * tl.w + c;
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      v[i] = pair_of(base + static_cast<size_t>(i) * tl.w,
-                     base + static_cast<size_t>(i) * tl.w + 1);
+      v[i] = mm::pair_of(base + static_cast<size_t>(i) * tl.w,
+                         base + static_cast<size_t>(i) * tl.w + 1);
     }
   } else {
 #pragma unroll
@@ -274,7 +275,8 @@ cudaError_t launch_cols(In in, void* out, const Params& p, RegionTiling tl,
 COLS_LAUNCH_OLD = """  switch (rows16) {
     case 96: err = launch_bf16<96, true, T>(in, out, p, tl, stream); break;
     case 64: err = launch_bf16<64, true, T>(in, out, p, tl, stream); break;"""
-COLS_LAUNCH_NEW = """  const RegionTiling t48 = region_tiling(48, n, a, s.a0, s.a1, s.b0, s.b1);
+COLS_LAUNCH_NEW = """  const RegionTiling t48 =
+      mm::region_tiling(48, n, n, a, s.a0, s.a1, s.b0, s.b1);
   switch (rows16) {
     case 96: err = launch_cols<96, false, T>(in, out, p, tl, stream); break;
     case 64: err = launch_cols<48, true, T>(in, out, p, t48, stream); break;"""
@@ -292,7 +294,7 @@ VARIANTS = {
                         ("f32",)),
     "recompute_bands": ([(PAIRED_CALL,
                           "      mm::walk_step_bf2<ROWS>(w, ex16 + (s & 1) "
-                          "* kExch,\n                        [&](int, "
+                          "* kExch,\n                            [&](int, "
                           "unsigned old, unsigned g) {")], ("knob",)),
     "direct_loads": ([(STAGED, DIRECT)], ("knob",)),
     "column_pairs": ([("bool valid_steps(const Params& p) {",
@@ -438,9 +440,8 @@ def load_variants(built: dict) -> dict:
     # interior math's flag and rectangle, its two constants, its rows
     libs = {}
     for name, info in built.items():
-        # the parent's step arguments end at the constants
         step = ([ctypes.c_float] * 4 + [ctypes.c_int] * 10
-                + [ctypes.c_float] * 2 + [ctypes.c_int] * (name != PARENT))
+                + [ctypes.c_float] * 2 + [ctypes.c_int])
         lib = ctypes.CDLL(info["library"])
         for fn in (lib.mm_fused_stencil_f32, lib.mm_fused_stencil_bf16):
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + step
@@ -492,25 +493,22 @@ def time_variants(torch, libs: dict) -> list[dict]:
                 dense = getattr(lib, f"mm_fused_stencil_{suffix}")
                 halo = getattr(lib, f"mm_fused_stencil_halo_{suffix}")
                 # the paired walk's rows: each the source is built for, or
-                # the one a variant adds; f32 math and the parent: none
-                rows16s = ([0] if not knob or name == PARENT
+                # the one a variant adds; f32 math: none
+                rows16s = ([0] if not knob
                            else [EXTRA_ROWS[name]] if name in EXTRA_ROWS
                            else list(fs.PAIRED_ROWS))
-                # the step arguments of this tree, or the parent's (without
-                # the rows)
-                cut = -1 if name == PARENT else None
                 for rows16 in rows16s:
                     if knob:
                         rect = fs.kernel_rect((N, N), dtype, None, ns, cd)
                         sa = fs._step_args(0.1, MOORE_OFFSETS, ns, rect)
-                        sa = (sa[:-1] + (rows16,))[:cut]
+                        sa = sa[:-1] + (rows16,)
                         sah = {(i, j): (fs._step_args(
                             0.1, MOORE_OFFSETS, ns, fs.kernel_rect(
                                 (h, h), dtype, None, ns, cd, (i * h, j * h),
-                                (N, N)))[:-1] + (rows16,))[:cut]
+                                (N, N)))[:-1] + (rows16,))
                             for (i, j) in args}
                     else:
-                        sa = fs._step_args(0.1, MOORE_OFFSETS, ns)[:cut]
+                        sa = fs._step_args(0.1, MOORE_OFFSETS, ns)
                         sah = {ij: sa for ij in args}
                     row = {"variant": name, "round": rnd, "dtype": dname,
                            "nsteps": ns, "compute_dtype":

@@ -83,9 +83,11 @@
 // edge): the JAX hooks then run on the window cast to bf16. vpu: the
 // binomial sum with every operation rounded to bf16 and the coefficients
 // rounded to bf16 on the host (ops/composed_stencil.py::vpu_coefs_bf16),
-// Moore on the paired bf16 walk (mm::walk_step_bf2, the accumulator in
-// pairs too), other neighbourhoods on the f32 walk with every result
-// rounded (mm::walk_step<..., true>): bit for bit its plain version. mxu:
+// bit for bit its plain version, as two launches (the section "the vpu
+// form's bf16 interior math" below): a near launch over the bands around
+// the rectangle and a paired launch over the rectangle (Moore on row pairs,
+// mm::paired_step, the accumulator in pairs too; other neighbourhoods the
+// f32 walk with every result rounded, mm::walk_step<..., true>). mxu:
 // A the window rounded to bf16 and B the taps rounded to bf16 (the first
 // term of the bf16 table), m16n8k16 with f32 accumulation; bf16 products
 // are exact in f32, so it differs from its plain version (the products
@@ -127,9 +129,9 @@ bool valid_k(int k, int kmax, int mask9, int noff) {
 
 // -- the vpu form -------------------------------------------------------------
 
-// Blocks an SM the vpu kernels are built for (128 registers a thread at 2),
-// and where the accumulator lives (registers; shared memory, one f32 a
-// cell, when true). Measured on the H100: k3_variants.py, PERF.md.
+// Blocks an SM the f32 walk's kernels are built for (128 registers a thread
+// at 2), and where its accumulator lives (registers; shared memory, one f32
+// a cell, when true). Measured on the H100: k3_variants.py, PERF.md.
 constexpr int kVpuMinBlocks = 2;
 constexpr bool kAccShared = false;
 
@@ -145,117 +147,76 @@ int vpu_smem(int k) {
          acc;
 }
 
-// The binomial sum of tile t over its window in registers (PASS 0: f32;
-// 1: f32 over the window rounded to bf16; 2: bf16, every operation
-// rounded, `cf` the bf16 coefficients), written where a cell has d > k
-// (PASS 1: and lies outside `q`; PASS 2: where it lies in `q`). `col` is
-// this thread's column of the staged window, `ex` the walk's exchange
-// (its slots of warps -1 and kThreadsY zero), `accs` the accumulator when
-// it is shared.
-template <int ROWS, int OFF, bool MOORE, int PASS, typename T>
+// The binomial sum of tile t of `tl` (a Tiling, or one region's
+// mm::RegionTiling) over its window in registers. PASS 0: f32; 1: f32 over
+// the window rounded to bf16 (the bf16 interior math's near launch); 2:
+// bf16, every operation rounded, `cf` the bf16 coefficients (the paired
+// launch of the neighbourhoods other than Moore). Written where a cell lies
+// in the tiling's rows and columns and (PASS 0 and 1) has d > k; every cell
+// of the paired launch's rectangle has d > k. `col` is this thread's column
+// of the staged window, `ex` the walk's exchange (its slots of warps -1 and
+// kThreadsY zero), `accs` the accumulator when it is shared.
+template <int ROWS, int OFF, bool MOORE, int PASS, typename T, typename TL>
 __device__ __forceinline__ void vpu_pass(const T* col, float* ex,
                                          float* accs, T* __restrict__ out,
                                          const StepParams& p,
-                                         const Coefs& cf, const Tiling& tl,
-                                         int t, bool whole,
-                                         const mm::Rect& q) {
+                                         const Coefs& cf, const TL& tl,
+                                         int t, bool whole) {
   constexpr int TH = ROWS - 2 * OFF;  // the tile's rows
   constexpr bool RB = PASS == 2;      // bf16 operations
   const int k = p.nsteps;
   const int j = threadIdx.y * 32 + threadIdx.x;
   float acc[kAccShared ? 1 : TH];
   accs += j;
-  if constexpr (PASS == 2 && MOORE && !kAccShared) {
-    // Moore in bf16: the paired walk (two rows a register), the
-    // accumulator in pairs too, every operation rounded once
-    static_assert(OFF % 2 == 0 && TH % 2 == 0, "rows pair up");
-    constexpr int H0 = OFF / 2, HT = TH / 2;
-    unsigned w[ROWS / 2];
+  float v[ROWS];
 #pragma unroll
-    for (int m = 0; m < ROWS / 2; ++m) {
-      w[m] = mm::pack_bf2(mm::to_f32(col[2 * m * mm::kStagePitch<T>]),
-                          mm::to_f32(col[(2 * m + 1) * mm::kStagePitch<T>]));
-    }
-    const auto pair = [](float c) {
-      const unsigned b = __float_as_uint(c) >> 16;  // c is a bf16 value
-      return b | (b << 16);
-    };
-    unsigned a2[HT];
-    const unsigned c0 = pair(cf.c[0]);
+  for (int i = 0; i < ROWS; ++i) {
+    const float x = mm::to_f32(col[i * mm::kStagePitch<T>]);
+    v[i] = PASS == 0 ? x : mm::rb(x);
+  }
+  // acc = coef_0 * v over the tile's rows
+  if constexpr (kAccShared) {
 #pragma unroll
-    for (int r = 0; r < HT; ++r) a2[r] = mm::mul_bf2(c0, w[H0 + r]);
-    unsigned* eu = reinterpret_cast<unsigned*>(ex);
-    for (int s = 0; s < k; ++s) {
-      const unsigned cj = pair(cf.c[s + 1]);
-      mm::walk_step_bf2<ROWS>(
-          w, eu + (s & 1) * mm::kEdgeSlots * (ROWS / 2),
-          [&](int m, unsigned, unsigned g) {
-            if (m >= H0 && m < H0 + HT) {
-              a2[m - H0] = mm::add_bf2(a2[m - H0], mm::mul_bf2(cj, g));
-            }
-            return g;
-          });
-    }
-#pragma unroll
-    for (int r = 0; r < HT; ++r) {
-      acc[2 * r] = mm::lo_f32(a2[r]);
-      acc[2 * r + 1] = mm::hi_f32(a2[r]);
+    for (int r = 0; r < TH; ++r) {
+      accs[r * mm::kWinW] = mm::rnd<RB>(__fmul_rn(cf.c[0], v[OFF + r]));
     }
   } else {
-    float v[ROWS];
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const float x = mm::to_f32(col[i * mm::kStagePitch<T>]);
-      v[i] = PASS == 0 ? x : mm::rb(x);
+    for (int r = 0; r < TH; ++r) {
+      acc[r] = mm::rnd<RB>(__fmul_rn(cf.c[0], v[OFF + r]));
     }
-    // acc = coef_0 * v over the tile's rows
-    if constexpr (kAccShared) {
-#pragma unroll
-      for (int r = 0; r < TH; ++r) {
-        accs[r * mm::kWinW] = mm::rnd<RB>(__fmul_rn(cf.c[0], v[OFF + r]));
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < TH; ++r) {
-        acc[r] = mm::rnd<RB>(__fmul_rn(cf.c[0], v[OFF + r]));
-      }
-    }
-    int drow[8], dcol[8];
-    mm::offset_rows_cols(p.offcodes, drow, dcol);
-    for (int s = 0; s < k; ++s) {
-      const float cj = cf.c[s + 1];
-      mm::walk_step<ROWS, MOORE, RB>(
-          v, ex + (s & 1) * mm::kEdgeSlots * ROWS, drow, dcol, p.noff,
-          [&](int i, float, float g) {
-            if (i >= OFF && i < ROWS - OFF) {
-              if constexpr (kAccShared) {
-                float* a = accs + (i - OFF) * mm::kWinW;
-                *a = mm::rnd<RB>(
-                    __fadd_rn(*a, mm::rnd<RB>(__fmul_rn(cj, g))));
-              } else {
-                acc[i - OFF] = mm::rnd<RB>(
-                    __fadd_rn(acc[i - OFF], mm::rnd<RB>(__fmul_rn(cj, g))));
-              }
+  }
+  int drow[8], dcol[8];
+  mm::offset_rows_cols(p.offcodes, drow, dcol);
+  for (int s = 0; s < k; ++s) {
+    const float cj = cf.c[s + 1];
+    mm::walk_step<ROWS, MOORE, RB>(
+        v, ex + (s & 1) * mm::kEdgeSlots * ROWS, drow, dcol, p.noff,
+        [&](int i, float, float g) {
+          if (i >= OFF && i < ROWS - OFF) {
+            if constexpr (kAccShared) {
+              float* a = accs + (i - OFF) * mm::kWinW;
+              *a = mm::rnd<RB>(__fadd_rn(*a, mm::rnd<RB>(__fmul_rn(cj, g))));
+            } else {
+              acc[i - OFF] = mm::rnd<RB>(
+                  __fadd_rn(acc[i - OFF], mm::rnd<RB>(__fmul_rn(cj, g))));
             }
-            return g;
-          });
-    }
+          }
+          return g;
+        });
   }
 
   // columns [k, kWinW - k) of the tile's rows
   const int r = tl.row_of(t);
   const int c = tl.col_of(t) + j - k;
-  if (j >= k && j < mm::kWinW - k && c < tl.w) {
+  if (j >= k && j < mm::kWinW - k && c < mm::col_end(tl)) {
 #pragma unroll
     for (int qr = 0; qr < TH; ++qr) {
-      const bool inq = mm::in_rect(q, tl.R0 + r + qr, tl.C0 + c);
       const bool ok =
-          PASS == 2 ? (r + qr < tl.h && inq)
-                    : ((whole || (r + qr < tl.h &&
-                                  mm::edge_distance(tl.R0 + r + qr,
-                                                    tl.C0 + c, tl.H,
-                                                    tl.W) > k)) &&
-                       !(PASS == 1 && inq));
+          PASS == 2 ? r + qr < mm::row_end(tl)
+                    : whole || (r + qr < mm::row_end(tl) &&
+                                mm::edge_distance(tl.R0 + r + qr, tl.C0 + c,
+                                                  tl.H, tl.W) > k);
       if (ok) {
         float a;
         if constexpr (kAccShared) {
@@ -269,16 +230,13 @@ __device__ __forceinline__ void vpu_pass(const T* col, float* ex,
   }
 }
 
-// Block t of `tl`: the binomial sum of tile t in registers, written where a
-// cell has d > k, then the exact strips of an edge tile. BF: the bf16
-// interior math on the cells in `q` (coefficients `cf16`), the rest over
-// the window rounded to bf16 (the header).
-template <int ROWS, int OFF, bool MOORE, bool BF, typename T, typename Src>
+// Block t of `tl` with f32 interior math: the binomial sum of tile t in
+// registers, written where a cell has d > k, then the exact strips of an
+// edge tile.
+template <int ROWS, int OFF, bool MOORE, typename T, typename Src>
 __device__ __forceinline__ void vpu_body(const Src& src, T* __restrict__ out,
                                          const StepParams& p,
-                                         const Coefs& cf, const Coefs& cf16,
-                                         const Tiling& tl,
-                                         const mm::Rect& q) {
+                                         const Coefs& cf, const Tiling& tl) {
   constexpr int TH = ROWS - 2 * OFF;  // the tile's rows
   extern __shared__ __align__(16) float smem[];
   float* ex = smem;                            // warp-edge exchange
@@ -293,58 +251,251 @@ __device__ __forceinline__ void vpu_body(const Src& src, T* __restrict__ out,
   for (int q = j; q < mm::kExchFloats<ROWS>; q += mm::kWinW) ex[q] = 0.f;
   mm::cp_async_wait_all();
   __syncthreads();
-  const T* col = stage + skew + j;
-  if constexpr (BF) {
-    const int gr = tl.R0 + tl.row_of(t);
-    const int gc = tl.C0 + tl.col_of(t);
-    const int cover =
-        mm::rect_cover(q, gr, min(gr + tl.th, tl.R0 + tl.h), gc,
-                       min(gc + tl.tw, tl.C0 + tl.w));
-    if (cover != mm::kNone) {
-      vpu_pass<ROWS, OFF, MOORE, 2>(col, ex, accs, out, p, cf16, tl, t,
-                                    whole, q);
-      if (cover == mm::kAll) return;
-      // the f32 pass reads the exchange slots of warps -1 and 8 as zero
-      __syncthreads();
-      for (int e = j; e < mm::kExchFloats<ROWS>; e += mm::kWinW) ex[e] = 0.f;
-      __syncthreads();
-    }
-    vpu_pass<ROWS, OFF, MOORE, 1>(col, ex, accs, out, p, cf, tl, t, whole,
-                                  q);
-  } else {
-    vpu_pass<ROWS, OFF, MOORE, 0>(col, ex, accs, out, p, cf, tl, t, whole,
-                                  q);
-  }
+  vpu_pass<ROWS, OFF, MOORE, 0>(stage + skew + j, ex, accs, out, p, cf, tl,
+                                t, whole);
   if (!whole) {
     // the cells with d <= k, in the staging buffer's space
     __syncthreads();
-    mm::exact_cells_of<BF>(src, out, p, tl, tl.row_of(t),
-                       min(tl.row_of(t) + tl.th, tl.h), tl.col_of(t),
-                       min(tl.col_of(t) + tl.tw, tl.w), work,
-                       work + piece_floats(k));
+    mm::exact_cells(src, out, p, tl, tl.row_of(t),
+                    min(tl.row_of(t) + tl.th, tl.h), tl.col_of(t),
+                    min(tl.col_of(t) + tl.tw, tl.w), work,
+                    work + piece_floats(k));
   }
 }
 
-// K3 vpu: a whole [H, W] grid.
-template <int ROWS, int OFF, bool MOORE, bool BF, typename T>
+// K3 vpu: a whole [H, W] grid. The kernels of the f32 interior math keep
+// the parameter layout they were measured with, the bf16 interior math's
+// coefficients and rectangle included though they read neither: without
+// them ptxas gives the non-Moore instances 127 registers in place of 128
+// (k3_variants.py, PERF.md).
+template <int ROWS, int OFF, bool MOORE, typename T>
 __global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
     composed_vpu_kernel(const T* __restrict__ in, T* __restrict__ out,
                         StepParams p, const __grid_constant__ Coefs cf,
-                        const __grid_constant__ Coefs cf16, Tiling tl,
-                        mm::Rect q) {
-  vpu_body<ROWS, OFF, MOORE, BF>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p,
-                                 cf, cf16, tl, q);
+                        const __grid_constant__ Coefs, Tiling tl, mm::Rect) {
+  vpu_body<ROWS, OFF, MOORE>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p, cf,
+                             tl);
 }
 
 // K3-halo vpu: one shard and its ghost ring; `out` is the shard's [h, w].
-template <int ROWS, int OFF, bool MOORE, bool BF, typename T>
+template <int ROWS, int OFF, bool MOORE, typename T>
 __global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
     composed_vpu_halo_kernel(const mm::HaloSource<T> src,
                              T* __restrict__ out, StepParams p,
                              const __grid_constant__ Coefs cf,
-                             const __grid_constant__ Coefs cf16, Tiling tl,
-                             mm::Rect q) {
-  vpu_body<ROWS, OFF, MOORE, BF>(src, out, p, cf, cf16, tl, q);
+                             const __grid_constant__ Coefs, Tiling tl,
+                             mm::Rect) {
+  vpu_body<ROWS, OFF, MOORE>(src, out, p, cf, tl);
+}
+
+// -- the vpu form's bf16 interior math: two launches ---------------------------
+//
+// A call is two launches, each on its own tiling (stencil_common.cuh's
+// regions) and each writing only its own cells:
+//
+//   - the near launch (composed_vpu_near_kernel / _halo_near_kernel) tiles
+//     the four bands of the array around the rectangle, each from its own
+//     origin, at the f32 walk's window (vpu_window), and runs the f32 sum
+//     over the window rounded to bf16 (PASS 1) on its cells with d > k and
+//     the exact strips over the rounded source on the rest;
+//   - the paired launch (composed_vpu16_kernel / _halo_kernel) tiles the
+//     rectangle from its origin at its own window (paired_window) and runs
+//     the bf16 sum and nothing else: every cell of the rectangle has d > k,
+//     so it needs no distance test and no exact strip. Moore: the window
+//     staged raw by cp.async and read into row pairs (rows 2m and 2m + 1 a
+//     register, no f32 copy beside them), mm::paired_step (the bands of a
+//     step's first pass kept for its second) with the accumulator's pairs
+//     taking mul.rn.bf16x2 and add.rn.bf16x2 in the step's finish; other
+//     neighbourhoods the f32 walk with every operation rounded (PASS 2).
+//
+// One kernel with both walks (every block testing the rectangle, the blocks
+// across its edge running both) held the paired walk to the f32 walk's
+// window and registers and formed its bands twice a step. Every bf16
+// operation rounds once and none is contracted, so the result is the plain
+// version's bit for bit.
+
+// Blocks an SM the paired kernels are built for. Measured on the H100:
+// k3_variants.py, PERF.md.
+constexpr int kPairedMinBlocks = 2;
+// The paired launch's window rows for Moore (a multiple of 8: pairs move
+// four at a time), at OFF 8 (k <= 8) and OFF 16 (k <= 16), and at OFF 2
+// (k <= 2; 0: no such instance, those k take OFF 8). Measured on the H100:
+// k3_variants.py, PERF.md.
+constexpr int kPairedRows8 = 96;
+constexpr int kPairedRows16 = 96;
+constexpr int kPairedRows2 = 64;
+
+// A walk's window: its rows and the rows above a tile (OFF >= k).
+struct Window {
+  int rows, off;
+};
+
+// The f32 walk's window (f32 interior math, and the near launch): Moore 48
+// rows (OFF 8) up to k = 8 and 64 (OFF 16) above; other neighbourhoods 48
+// rows (OFF 16), their walk holds more.
+Window vpu_window(int k, bool moore) {
+  if (!moore) return {48, 16};
+  return k <= 8 ? Window{48, 8} : Window{64, 16};
+}
+
+// The paired launch's window (ops/composed_stencil.py::paired_rows):
+// Moore at the kPairedRows* above; other neighbourhoods the f32 walk's 48
+// rows (OFF 16).
+Window paired_window(int k, bool moore) {
+  if (!moore) return {48, 16};
+  if (kPairedRows2 > 0 && k <= 2) return {kPairedRows2, 2};
+  return k <= 8 ? Window{kPairedRows8, 8} : Window{kPairedRows16, 16};
+}
+
+// The near launch on one tile of a band: the f32 sum over the window
+// rounded to bf16 (the TPU kernel's near tiles) for its cells with d > k,
+// the exact strips through mm::RoundedSource for the rest.
+template <int ROWS, int OFF, bool MOORE, typename T, typename Src>
+__device__ __forceinline__ void vpu_near_body(const Src& src,
+                                              T* __restrict__ out,
+                                              const StepParams& p,
+                                              const Coefs& cf,
+                                              const mm::Bands& bs) {
+  constexpr int TH = ROWS - 2 * OFF;
+  extern __shared__ __align__(16) float smem[];
+  float* ex = smem;
+  float* accs = smem + mm::kExchFloats<ROWS>;
+  float* work = accs + (kAccShared ? TH * mm::kWinW : 0);
+  T* stage = reinterpret_cast<T*>(work);
+  const int band = mm::band_of(bs);
+  const mm::RegionTiling& tl = bs.band[band];
+  const int t = blockIdx.x - bs.first[band];
+  const int k = p.nsteps;
+  const bool whole = tl.interior(t);
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int skew = mm::stage_window<ROWS>(src, p, tl, t, whole, stage);
+  for (int q = j; q < mm::kExchFloats<ROWS>; q += mm::kWinW) ex[q] = 0.f;
+  mm::cp_async_wait_all();
+  __syncthreads();
+  vpu_pass<ROWS, OFF, MOORE, 1>(stage + skew + j, ex, accs, out, p, cf, tl,
+                                t, whole);
+  if (!whole) {
+    __syncthreads();
+    mm::exact_cells_of<true>(src, out, p, tl, tl.row_of(t),
+                             min(tl.row_of(t) + tl.th, tl.r1), tl.col_of(t),
+                             min(tl.col_of(t) + tl.tw, tl.c1), work,
+                             work + piece_floats(k));
+  }
+}
+
+// The paired launch on one tile of the rectangle: the bf16 sum (the header
+// of this section), the coefficients `cf16` exact in bf16.
+template <int ROWS, int OFF, bool MOORE, typename T, typename Src>
+__device__ __forceinline__ void vpu16_body(const Src& src,
+                                           T* __restrict__ out,
+                                           const StepParams& p,
+                                           const Coefs& cf16,
+                                           const mm::RegionTiling& tl) {
+  constexpr int TH = ROWS - 2 * OFF;  // the tile's rows
+  extern __shared__ __align__(16) float smem[];
+  const int t = blockIdx.x;
+  const int k = p.nsteps;
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  if constexpr (MOORE) {
+    static_assert(OFF % 2 == 0 && TH % 2 == 0, "rows pair up");
+    constexpr int P = ROWS / 2, H0 = OFF / 2, HT = TH / 2;
+    constexpr int kExch = mm::kEdgeSlots * P;  // one parity's words
+    unsigned* ex16 = reinterpret_cast<unsigned*>(smem);
+    T* stage = reinterpret_cast<T*>(smem + 2 * kExch);
+    // every cell has d > k: a window inside the array is copied as it is
+    const int skew = mm::stage_window<ROWS>(src, p, tl, t, true, stage);
+    for (int e = j; e < 2 * kExch; e += mm::kWinW) ex16[e] = 0u;
+    mm::cp_async_wait_all();
+    __syncthreads();
+    const T* col = stage + skew + j;
+    unsigned w[P];
+#pragma unroll
+    for (int m = 0; m < P; ++m) {
+      w[m] = mm::pair_of(col + 2 * m * mm::kStagePitch<T>,
+                         col + (2 * m + 1) * mm::kStagePitch<T>);
+    }
+    const auto pair = [](float c) {
+      const unsigned b = __float_as_uint(c) >> 16;  // c is a bf16 value
+      return b | (b << 16);
+    };
+    // acc = coef_0 * v over the tile's rows, in pairs
+    unsigned a2[HT];
+    const unsigned c0 = pair(cf16.c[0]);
+#pragma unroll
+    for (int r = 0; r < HT; ++r) a2[r] = mm::mul_bf2(c0, w[H0 + r]);
+    for (int s = 0; s < k; ++s) {
+      const unsigned cj = pair(cf16.c[s + 1]);
+      mm::paired_step<ROWS>(
+          w, ex16 + (s & 1) * kExch, [&](int m, unsigned, unsigned g) {
+            if (m >= H0 && m < H0 + HT) {
+              a2[m - H0] = mm::add_bf2(a2[m - H0], mm::mul_bf2(cj, g));
+            }
+            return g;
+          });
+    }
+    // columns [k, kWinW - k) of the tile's rows inside the rectangle
+    const int r = tl.row_of(t);
+    const int c = tl.col_of(t) + j - k;
+    if (j < k || j >= mm::kWinW - k || c >= tl.c1) return;
+#pragma unroll
+    for (int q = 0; q < HT; ++q) {
+      const unsigned a = a2[q];
+      if (r + 2 * q < tl.r1) {
+        mm::from_f32(out + static_cast<size_t>(r + 2 * q) * tl.w + c,
+                     mm::lo_f32(a));
+      }
+      if (r + 2 * q + 1 < tl.r1) {
+        mm::from_f32(out + static_cast<size_t>(r + 2 * q + 1) * tl.w + c,
+                     mm::hi_f32(a));
+      }
+    }
+  } else {
+    float* ex = smem;
+    float* accs = smem + mm::kExchFloats<ROWS>;
+    T* stage = reinterpret_cast<T*>(accs + (kAccShared ? TH * mm::kWinW : 0));
+    const int skew = mm::stage_window<ROWS>(src, p, tl, t, true, stage);
+    for (int q = j; q < mm::kExchFloats<ROWS>; q += mm::kWinW) ex[q] = 0.f;
+    mm::cp_async_wait_all();
+    __syncthreads();
+    vpu_pass<ROWS, OFF, false, 2>(stage + skew + j, ex, accs, out, p, cf16,
+                                  tl, t, true);
+  }
+}
+
+template <int ROWS, int OFF, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
+    composed_vpu_near_kernel(const T* __restrict__ in, T* __restrict__ out,
+                             StepParams p, const __grid_constant__ Coefs cf,
+                             const __grid_constant__ mm::Bands bs) {
+  vpu_near_body<ROWS, OFF, MOORE>(
+      mm::DenseSource<T>{in, bs.band[0].H, bs.band[0].W}, out, p, cf, bs);
+}
+
+template <int ROWS, int OFF, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
+    composed_vpu_halo_near_kernel(const mm::HaloSource<T> src,
+                                  T* __restrict__ out, StepParams p,
+                                  const __grid_constant__ Coefs cf,
+                                  const __grid_constant__ mm::Bands bs) {
+  vpu_near_body<ROWS, OFF, MOORE>(src, out, p, cf, bs);
+}
+
+template <int ROWS, int OFF, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kPairedMinBlocks)
+    composed_vpu16_kernel(const T* __restrict__ in, T* __restrict__ out,
+                          StepParams p, const __grid_constant__ Coefs cf16,
+                          mm::RegionTiling tl) {
+  vpu16_body<ROWS, OFF, MOORE>(mm::DenseSource<T>{in, tl.H, tl.W}, out, p,
+                               cf16, tl);
+}
+
+template <int ROWS, int OFF, bool MOORE, typename T>
+__global__ void __launch_bounds__(32 * NWARPS, kPairedMinBlocks)
+    composed_vpu16_halo_kernel(const mm::HaloSource<T> src,
+                               T* __restrict__ out, StepParams p,
+                               const __grid_constant__ Coefs cf16,
+                               mm::RegionTiling tl) {
+  vpu16_body<ROWS, OFF, MOORE>(src, out, p, cf16, tl);
 }
 
 // The largest k each dtype composes (ops/composed_stencil.py::max_k: the
@@ -352,52 +503,130 @@ __global__ void __launch_bounds__(32 * NWARPS, kVpuMinBlocks)
 template <typename T>
 constexpr int kMaxK = sizeof(T) == 4 ? 8 : 16;
 
-template <int ROWS, int OFF, bool MOORE, bool BF, typename T>
-int vpu_launch(const T* in, const mm::HaloArgs* halo, void* out, int H,
-               int W, StepParams p, const Coefs& cf, const Coefs& cf16,
-               const mm::Rect& q, void* stream) {
+// Shared memory of a paired-launch block: the exchange (Moore in pair
+// words, [2][kEdgeSlots][ROWS / 2]; other neighbourhoods the f32 walk's and
+// its accumulator) and the staged window.
+template <typename T, int ROWS, int OFF, bool MOORE>
+int vpu16_smem() {
+  return (MOORE ? 2 * mm::kEdgeSlots * (ROWS / 2)
+                : mm::kExchFloats<ROWS> +
+                      (kAccShared ? (ROWS - 2 * OFF) * mm::kWinW : 0)) *
+             static_cast<int>(sizeof(float)) +
+         mm::stage_bytes<T, ROWS>();
+}
+
+// Each kernel's launch, on K3's input (In: const T*) or K3-halo's source
+// (In: mm::HaloSource<T>).
+template <int ROWS, int OFF, bool MOORE, typename T, typename In>
+cudaError_t launch_f32(In in, void* out, const StepParams& p,
+                       const Coefs& cf, const Tiling& tl, void* stream) {
   static int limit = DEFAULT_SMEM_LIMIT;  // per kernel instance
-  static int limit_halo = DEFAULT_SMEM_LIMIT;
   const int smem = vpu_smem<T, ROWS, OFF>(p.nsteps);
-  if (halo == nullptr) {
-    p.vec = mm::rows_aligned<T>(in, W);
+  if constexpr (std::is_pointer<In>::value) {
+    return mm::launch_blocks(composed_vpu_kernel<ROWS, OFF, MOORE, T>, smem,
+                             tl.tiles, &limit, stream, in,
+                             static_cast<T*>(out), p, cf, Coefs{}, tl,
+                             mm::Rect{});
+  } else {
+    return mm::launch_blocks(composed_vpu_halo_kernel<ROWS, OFF, MOORE, T>,
+                             smem, tl.tiles, &limit, stream, in,
+                             static_cast<T*>(out), p, cf, Coefs{}, tl,
+                             mm::Rect{});
+  }
+}
+
+template <int ROWS, int OFF, bool MOORE, typename T, typename In>
+cudaError_t launch_near(In in, void* out, const StepParams& p,
+                        const Coefs& cf, const mm::Bands& bs, int tiles,
+                        void* stream) {
+  static int limit = DEFAULT_SMEM_LIMIT;
+  const int smem = vpu_smem<T, ROWS, OFF>(p.nsteps);
+  if constexpr (std::is_pointer<In>::value) {
+    return mm::launch_blocks(composed_vpu_near_kernel<ROWS, OFF, MOORE, T>,
+                             smem, tiles, &limit, stream, in,
+                             static_cast<T*>(out), p, cf, bs);
+  } else {
+    return mm::launch_blocks(
+        composed_vpu_halo_near_kernel<ROWS, OFF, MOORE, T>, smem, tiles,
+        &limit, stream, in, static_cast<T*>(out), p, cf, bs);
+  }
+}
+
+template <int ROWS, int OFF, bool MOORE, typename T, typename In>
+cudaError_t launch16(In in, void* out, const StepParams& p,
+                     const Coefs& cf16, const mm::RegionTiling& tl,
+                     void* stream) {
+  static int limit = DEFAULT_SMEM_LIMIT;
+  const int smem = vpu16_smem<T, ROWS, OFF, MOORE>();
+  if constexpr (std::is_pointer<In>::value) {
+    return mm::launch_blocks(composed_vpu16_kernel<ROWS, OFF, MOORE, T>,
+                             smem, tl.tiles, &limit, stream, in,
+                             static_cast<T*>(out), p, cf16, tl);
+  } else {
+    return mm::launch_blocks(composed_vpu16_halo_kernel<ROWS, OFF, MOORE, T>,
+                             smem, tl.tiles, &limit, stream, in,
+                             static_cast<T*>(out), p, cf16, tl);
+  }
+}
+
+// One vpu call on the array `a`. f32 interior math: one launch at the f32
+// walk's window. bf16 interior math (`bf16`): the near launch over the
+// bands around the rectangle q, then the paired launch over the rectangle,
+// each on its own tiling, each writing only its own cells. A launch with
+// no cell to write is not made (CUDA refuses 0 blocks): a call whose
+// rectangle is empty, or holds the whole array, makes one launch. That is
+// the call's geometry, not a fallback.
+template <typename T, typename In>
+int vpu_step(In in, void* out, const mm::Array& a, StepParams p,
+             const Coefs& cf, int bf16, const Coefs& cf16, const mm::Rect& q,
+             void* stream) {
+  p.vec = a.vec;
+  const int k = p.nsteps;
+  const Window g = vpu_window(k, p.moore);
+  cudaError_t err = cudaSuccess;
+  if (!bf16) {
     const Tiling tl =
-        mm::make_tiling(ROWS, OFF, p.nsteps, H, W, 0, 0, H, W);
-    return static_cast<int>(mm::launch_blocks(
-        composed_vpu_kernel<ROWS, OFF, MOORE, BF, T>, smem, tl.tiles,
-        &limit, stream, in, static_cast<T*>(out), p, cf, cf16, tl, q));
+        mm::make_tiling(g.rows, g.off, k, a.h, a.w, a.R0, a.C0, a.H, a.W);
+    if (!p.moore) {
+      err = launch_f32<48, 16, false, T>(in, out, p, cf, tl, stream);
+    } else if (g.off == 8) {
+      err = launch_f32<48, 8, true, T>(in, out, p, cf, tl, stream);
+    } else if constexpr (kMaxK<T> > 8) {
+      err = launch_f32<64, 16, true, T>(in, out, p, cf, tl, stream);
+    }
+    return static_cast<int>(err);
   }
-  const mm::HaloSource<T> src(*halo);
-  p.vec = mm::rows_aligned<T>(halo->shard, halo->w);
-  const Tiling tl = mm::make_tiling(ROWS, OFF, p.nsteps, src.h, src.w,
-                                    src.R0, src.C0, src.H, src.W);
-  return static_cast<int>(mm::launch_blocks(
-      composed_vpu_halo_kernel<ROWS, OFF, MOORE, BF, T>, smem, tl.tiles,
-      &limit_halo, stream, src, static_cast<T*>(out), p, cf, cf16, tl, q));
-}
-
-template <bool BF, typename T>
-int vpu_rows(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
-             const StepParams& p, const Coefs& cf, const Coefs& cf16,
-             const mm::Rect& q, void* stream) {
+  const mm::Split s = mm::split_of(q, a);
+  mm::Bands bs;
+  const int near = mm::bands_of(g.rows, g.off, k, a, s, bs);
+  if (near > 0) {
+    if (!p.moore) {
+      err = launch_near<48, 16, false, T>(in, out, p, cf, bs, near, stream);
+    } else if (g.off == 8) {
+      err = launch_near<48, 8, true, T>(in, out, p, cf, bs, near, stream);
+    } else if constexpr (kMaxK<T> > 8) {
+      err = launch_near<64, 16, true, T>(in, out, p, cf, bs, near, stream);
+    }
+  }
+  if (err != cudaSuccess || s.empty()) return static_cast<int>(err);
+  const Window g16 = paired_window(k, p.moore);
+  const mm::RegionTiling tl =
+      mm::region_tiling(g16.rows, g16.off, k, a, s.a0, s.a1, s.b0, s.b1);
   if (!p.moore) {
-    return vpu_launch<48, 16, false, BF, T>(in, halo, out, H, W, p, cf,
-                                            cf16, q, stream);
+    err = launch16<48, 16, false, T>(in, out, p, cf16, tl, stream);
+  } else if (g16.off == 2) {
+    if constexpr (kPairedRows2 > 0) {
+      err = launch16<kPairedRows2, 2, true, T>(in, out, p, cf16, tl,
+                                               stream);
+    }
+  } else if (g16.off == 8) {
+    err = launch16<kPairedRows8, 8, true, T>(in, out, p, cf16, tl, stream);
+  } else if constexpr (kMaxK<T> > 8) {
+    err = launch16<kPairedRows16, 16, true, T>(in, out, p, cf16, tl, stream);
   }
-  if (p.nsteps <= 8) {
-    return vpu_launch<48, 8, true, BF, T>(in, halo, out, H, W, p, cf, cf16,
-                                          q, stream);
-  }
-  if constexpr (kMaxK<T> > 8) {
-    return vpu_launch<64, 16, true, BF, T>(in, halo, out, H, W, p, cf, cf16,
-                                           q, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }
 
-// The window of a call: Moore 48 rows (OFF 8) up to k = 8 and 64 (OFF 16)
-// above; other neighbourhoods 48 rows (OFF 16), their walk holds more.
-// `coefs16` (the bf16 interior math's) when `bf16`.
 template <typename T>
 int vpu(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
         const StepParams& p, const float* coefs, int bf16,
@@ -411,8 +640,14 @@ int vpu(const T* in, const mm::HaloArgs* halo, void* out, int H, int W,
     cf.c[j] = coefs[j];
     cf16.c[j] = bf16 ? coefs16[j] : 0.f;
   }
-  return bf16 ? vpu_rows<true>(in, halo, out, H, W, p, cf, cf16, q, stream)
-              : vpu_rows<false>(in, halo, out, H, W, p, cf, cf16, q, stream);
+  if (halo == nullptr) {
+    const mm::Array a{H, W, 0, 0, H, W, mm::rows_aligned<T>(in, W)};
+    return vpu_step<T>(in, out, a, p, cf, bf16, cf16, q, stream);
+  }
+  const mm::HaloSource<T> src(*halo);
+  const mm::Array a{src.h, src.w, src.R0, src.C0, src.H, src.W,
+                    mm::rows_aligned<T>(halo->shard, halo->w)};
+  return vpu_step<T>(src, out, a, p, cf, bf16, cf16, q, stream);
 }
 
 // -- the mxu form -------------------------------------------------------------
@@ -1711,6 +1946,39 @@ int mm_composed_halo_mxu_bf16(const void* args, void* out, float rate,
   return halo<__nv_bfloat16>(
       1, args, out, make_params(rate, keep, k, mask9, noff, offcodes, 0),
       frags, bf16, MM_RECT, frags16, stream);
+}
+
+// The geometry vpu_step gives a vpu bf16-interior call on an [h, w] array
+// at global (R0, C0) of an [H, W] grid (storage 0: f32, 1: bf16; the steps,
+// the neighbourhood and the rectangle as the call's): out[0..3] the near
+// launch's window rows and OFF and the paired launch's, then the paired
+// region and the four bands (top, bottom, left, right), five ints each:
+// local rows [r0, r1), columns [c0, c1), and the tiles launched over it (29
+// ints). It launches nothing: the card tests and chip_smoke.py hold
+// ops/composed_stencil.py's window_rows, paired_rows and the region tiles to
+// it.
+int mm_composed_vpu_bf16_plan(int h, int w, int R0, int C0, int H, int W,
+                              int storage, int k, int mask9, int noff,
+                              int moore, int r0, int r1, int c0, int c1,
+                              int* out) {
+  if (!valid_k(k, storage ? kMaxK<__nv_bfloat16> : kMaxK<float>, mask9,
+               noff) ||
+      h < 0 || w < 0 || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const mm::Array a{h, w, R0, C0, H, W, 0};
+  const Window g = vpu_window(k, moore), g16 = paired_window(k, moore);
+  const mm::Split s = mm::split_of(mm::Rect{r0, r1, c0, c1}, a);
+  mm::Bands bs;
+  mm::bands_of(g.rows, g.off, k, a, s, bs);
+  out[0] = g.rows;
+  out[1] = g.off;
+  out[2] = g16.rows;
+  out[3] = g16.off;
+  mm::write_plan(mm::region_tiling(g16.rows, g16.off, k, a, s.a0, s.a1, s.b0,
+                                   s.b1),
+                 bs, out + 4);
+  return 0;
 }
 
 // The mxu form's layout, {KB, KMAX, REL_MIN, NB, MX_N, BH, BW}: `which` 0

@@ -136,6 +136,10 @@ constexpr int MAX_STEPS = 16;
 constexpr int DEFAULT_SMEM_LIMIT = 48 * 1024;
 
 using Params = mm::StepParams;
+using mm::Array;
+using mm::Bands;
+using mm::RegionTiling;
+using mm::Split;
 using mm::Tiling;
 using mm::piece_floats;
 
@@ -146,11 +150,6 @@ int smem_of(int n) {
   const int work = stage > exact ? stage : exact;
   return mm::kExchFloats<ROWS> * static_cast<int>(sizeof(float)) + work;
 }
-
-// The end of the rows and columns a tiling writes: the array's, or (a
-// RegionTiling, below) its region's.
-__device__ __forceinline__ int row_end(const Tiling& tl) { return tl.h; }
-__device__ __forceinline__ int col_end(const Tiling& tl) { return tl.w; }
 
 // The closed form's n steps on the window held in registers (v[i] = window
 // row i of this thread's column), then the tile's output written: every
@@ -177,12 +176,12 @@ __device__ __forceinline__ void closed_tile(float (&v)[ROWS], float* ex,
   const int j = threadIdx.y * 32 + threadIdx.x;
   const int r = tl.row_of(t) - n;  // the window's first row and column
   const int c = tl.col_of(t) + j - n;
-  if (j < n || j >= WIN_W - n || c >= col_end(tl)) return;
+  if (j < n || j >= WIN_W - n || c >= mm::col_end(tl)) return;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     if (i >= n && i < ROWS - n) {
       if (whole ||
-          (r + i < row_end(tl) &&
+          (r + i < mm::row_end(tl) &&
            mm::edge_distance(tl.R0 + r + i, tl.C0 + c, tl.H, tl.W) > n)) {
         mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
       }
@@ -252,62 +251,8 @@ __global__ void __launch_bounds__(32 * NWARPS, 2)
 
 // -- the bf16 interior math: two launches -----------------------------------
 //
-// A tiling of one region of the array a kernel writes (local rows [r0, r1),
-// columns [c0, c1)): Tiling's tiles (th x tw output cells, windows of `rows`
-// x kWinW) aligned to the region's origin, `tiles_c` and `tiles` counting
-// the region's. Nothing of a tile outside its region is written, so the
-// tilings of disjoint regions write disjoint cells
-// (ops/fused_stencil.py::region_tiles is the same tiling).
-struct RegionTiling : Tiling {
-  int r0, r1, c0, c1;
-
-  __device__ __forceinline__ int row_of(int t) const {
-    return r0 + (t / tiles_c) * th;
-  }
-  __device__ __forceinline__ int col_of(int t) const {
-    return c0 + (t % tiles_c) * tw;
-  }
-  // tile t lies whole in the region and every output cell of it has d > n
-  // (uniform over the block)
-  __device__ __forceinline__ bool interior(int t) const {
-    const int r = row_of(t), c = col_of(t);
-    return r + th <= r1 && c + tw <= c1 && R0 + r >= n + 1 &&
-           R0 + r + th <= H - 1 - n && C0 + c >= n + 1 &&
-           C0 + c + tw <= W - 1 - n;
-  }
-  // tile t's window lies inside the array
-  __device__ __forceinline__ bool inside(int t) const {
-    const int wr = row_of(t) - rh, wc = col_of(t) - n;
-    return wr >= 0 && wc >= 0 && wr + rows <= h && wc + WIN_W <= w;
-  }
-};
-
-__device__ __forceinline__ int row_end(const RegionTiling& tl) {
-  return tl.r1;
-}
-__device__ __forceinline__ int col_end(const RegionTiling& tl) {
-  return tl.c1;
-}
-
-// The near launch's regions: the four bands of the array around the
-// rectangle (top, bottom, left, right), each tiled from its origin. Block b
-// steps tile b - first[k] of the last band k with first[k] <= b (an empty
-// band has no tile: the band after it starts at the same block). The
-// kernels take it as a __grid_constant__ parameter, so a block reads its
-// band's tiling from the parameter space instead of a copy in registers.
-struct Bands {
-  RegionTiling band[4];
-  int first[4];
-};
-
-__device__ __forceinline__ int band_of(const Bands& bs) {
-  int k = 0;
-#pragma unroll
-  for (int b = 1; b < 4; ++b) {
-    if (static_cast<int>(blockIdx.x) >= bs.first[b]) k = b;
-  }
-  return k;
-}
+// The regions and their tilings are stencil_common.cuh's (mm::RegionTiling,
+// mm::Bands, mm::split_of, mm::bands_of), shared with K3 vpu's launches.
 
 // The near launch on one tile of a band: the f32 forms over the window
 // rounded to bf16 (the TPU kernel's near tiles, pallas_stencil.py:441), the
@@ -322,7 +267,7 @@ __device__ __forceinline__ void near_body(const Src& src,
   float* ex = smem;
   float* work = smem + mm::kExchFloats<ROWS>;
   T* stage = reinterpret_cast<T*>(work);
-  const int band = band_of(bs);
+  const int band = mm::band_of(bs);
   const RegionTiling& tl = bs.band[band];
   const int t = blockIdx.x - bs.first[band];
   const bool whole = tl.interior(t);
@@ -344,71 +289,6 @@ __device__ __forceinline__ void near_body(const Src& src,
                              min(tl.row_of(t) + tl.th, tl.r1), tl.col_of(t),
                              min(tl.col_of(t) + tl.tw, tl.c1), work,
                              work + piece_floats(p.nsteps));
-  }
-}
-
-// Rows r and r + 1 of one column as a bf16 pair (row r in the low half): an
-// f32 pair rounded by one cvt.rn.bf16x2.f32, a bf16 pair moved.
-__device__ __forceinline__ unsigned pair_of(const float* a, const float* b) {
-  return mm::pack_bf2(*a, *b);
-}
-__device__ __forceinline__ unsigned pair_of(const __nv_bfloat16* a,
-                                            const __nv_bfloat16* b) {
-  const unsigned lo = *reinterpret_cast<const unsigned short*>(a);
-  const unsigned hi = *reinterpret_cast<const unsigned short*>(b);
-  return lo | (hi << 16);
-}
-
-// One Moore step of K1/K2's paired walk: the twin of mm::walk_step_bf2
-// (K3 vpu's), its operations in the same order, so a change to one is made
-// to both (window rows 2m and 2m + 1 in v[m]; band = (row above + row) +
-// row below, the rows above and below straddling two pairs; nine =
-// (band[c-1] + band[c]) + band[c+1], the neighbouring columns' bands from
-// the neighbouring lanes and, at a warp's edges, from the exchange), with
-// the bands of pass 1 kept in registers for pass 2 instead of formed again
-// there: ROWS / 2 more words a thread, four fewer instructions a pair. Pair
-// m's new value is finish(its old value, its box sums). Ends past one
-// __syncthreads().
-template <int ROWS, typename Finish>
-__device__ __forceinline__ void paired_step(unsigned (&v)[ROWS / 2],
-                                            unsigned* eb, Finish finish) {
-  constexpr int P = ROWS / 2;
-  static_assert(P % 4 == 0, "edge pairs move four at a time");
-  const int lane = threadIdx.x;
-  const int wp = threadIdx.y;
-  const int own = 2 * (wp + 1) + (lane == 31 ? 1 : 0);
-  const int nbr = lane == 0 ? 2 * wp + 1 : 2 * (wp + 2);
-  const bool edge_lane = lane == 0 || lane == 31;
-  // pass 1: every column's bands; the edge lanes publish theirs
-  unsigned b[P];
-  uint4 x4;
-#pragma unroll
-  for (int m = 0; m < P; ++m) {
-    const unsigned up = m > 0 ? mm::straddle(v[m - 1], v[m]) : v[m] << 16;
-    const unsigned dn = m + 1 < P ? mm::straddle(v[m], v[m + 1]) : v[m] >> 16;
-    b[m] = mm::add_bf2(mm::add_bf2(up, v[m]), dn);
-    if (m % 4 == 0) x4.x = b[m];
-    if (m % 4 == 1) x4.y = b[m];
-    if (m % 4 == 2) x4.z = b[m];
-    if (m % 4 == 3) {
-      x4.w = b[m];
-      if (edge_lane) *reinterpret_cast<uint4*>(eb + own * P + m - 3) = x4;
-    }
-  }
-  __syncthreads();
-  // pass 2: the box sums across the columns, then the new pairs
-  const unsigned* nb = eb + nbr * P;
-  uint4 e4 = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-  for (int m = 0; m < P; ++m) {
-    if (m % 4 == 0 && edge_lane) {
-      e4 = *reinterpret_cast<const uint4*>(nb + m);
-    }
-    unsigned bl = __shfl_up_sync(mm::kFull, b[m], 1);
-    unsigned br = __shfl_down_sync(mm::kFull, b[m], 1);
-    if (lane == 0) bl = mm::part_u(e4, m % 4);
-    if (lane == 31) br = mm::part_u(e4, m % 4);
-    v[m] = finish(v[m], mm::add_bf2(mm::add_bf2(bl, b[m]), br));
   }
 }
 
@@ -452,17 +332,17 @@ __device__ __forceinline__ void bf16_body(const Src& src,
     unsigned w[P];
 #pragma unroll
     for (int m = 0; m < P; ++m) {
-      w[m] = pair_of(col + 2 * m * mm::kStagePitch<T>,
-                     col + (2 * m + 1) * mm::kStagePitch<T>);
+      w[m] = mm::pair_of(col + 2 * m * mm::kStagePitch<T>,
+                         col + (2 * m + 1) * mm::kStagePitch<T>);
     }
     const unsigned ca = p.ca16 | (p.ca16 << 16);
     const unsigned cb = p.cb16 | (p.cb16 << 16);
     for (int s = 0; s < n; ++s) {
-      paired_step<ROWS>(w, ex16 + (s & 1) * kExch,
-                        [&](unsigned old, unsigned g) {
-                          return mm::add_bf2(mm::mul_bf2(old, ca),
-                                             mm::mul_bf2(g, cb));
-                        });
+      mm::paired_step<ROWS>(w, ex16 + (s & 1) * kExch,
+                            [&](int, unsigned old, unsigned g) {
+                              return mm::add_bf2(mm::mul_bf2(old, ca),
+                                                 mm::mul_bf2(g, cb));
+                            });
     }
     if (!col_out) return;
 #pragma unroll
@@ -538,60 +418,6 @@ bool valid_steps(const Params& p) {
   return p.nsteps >= 1 && p.nsteps <= MAX_STEPS &&
          (p.mask9 & ~0x1EF) == 0 && p.mask9 != 0 &&
          p.noff == __builtin_popcount(p.mask9);
-}
-
-// The array a call writes: [h, w] at global (R0, C0) of an [H, W] grid;
-// `vec`: its rows 16-byte aligned (cp.async windows).
-struct Array {
-  int h, w, R0, C0, H, W, vec;
-};
-
-// The tiling of the region [r0, r1) x [c0, c1) of `a` by windows of `rows`
-// rows (an empty region: no tile).
-RegionTiling region_tiling(int rows, int n, const Array& a, int r0, int r1,
-                           int c0, int c1) {
-  RegionTiling tl;
-  static_cast<Tiling&>(tl) =
-      mm::make_tiling(rows, n, n, a.h, a.w, a.R0, a.C0, a.H, a.W);
-  tl.r0 = r0;
-  tl.r1 = r1;
-  tl.c0 = c0;
-  tl.c1 = c1;
-  const bool empty = r0 >= r1 || c0 >= c1;
-  tl.tiles_c = empty ? 1 : (c1 - c0 + tl.tw - 1) / tl.tw;
-  tl.tiles = empty ? 0 : ((r1 - r0 + tl.th - 1) / tl.th) * tl.tiles_c;
-  return tl;
-}
-
-// The rectangle q (global) in the array's local rows [a0, a1) and columns
-// [b0, b1); an empty one as a0 == a1 == h, which makes the top band the
-// whole array (ops/fused_stencil.py::bf16_regions is the same split).
-struct Split {
-  int a0, a1, b0, b1;
-  bool empty() const { return a0 >= a1; }
-};
-
-Split split_of(const mm::Rect& q, const Array& a) {
-  Split s{std::min(std::max(q.r0 - a.R0, 0), a.h),
-          std::min(std::max(q.r1 - a.R0, 0), a.h),
-          std::min(std::max(q.c0 - a.C0, 0), a.w),
-          std::min(std::max(q.c1 - a.C0, 0), a.w)};
-  if (s.a0 >= s.a1 || s.b0 >= s.b1) s = Split{a.h, a.h, 0, 0};
-  return s;
-}
-
-// The near launch's bands around the split's rectangle; returns their tiles.
-int bands_of(int rows, int n, const Array& a, const Split& s, Bands& bs) {
-  bs.band[0] = region_tiling(rows, n, a, 0, s.a0, 0, a.w);
-  bs.band[1] = region_tiling(rows, n, a, s.a1, a.h, 0, a.w);
-  bs.band[2] = region_tiling(rows, n, a, s.a0, s.a1, 0, s.b0);
-  bs.band[3] = region_tiling(rows, n, a, s.a0, s.a1, s.b1, a.w);
-  int tiles = 0;
-  for (int k = 0; k < 4; ++k) {
-    bs.first[k] = tiles;
-    tiles += bs.band[k].tiles;
-  }
-  return tiles;
 }
 
 // Shared memory of a paired-launch block: the exchange (Moore in pair words,
@@ -693,9 +519,9 @@ int step(In in, void* out, const Array& a, Params p, int bf16,
     }
     return static_cast<int>(err);
   }
-  const Split s = split_of(q, a);
+  const Split s = mm::split_of(q, a);
   Bands bs;
-  const int near = bands_of(rows, n, a, s, bs);
+  const int near = mm::bands_of(rows, n, n, a, s, bs);
   if (near > 0) {
     if (rows == 64) {
       err = launch_near<64, true, T>(in, out, p, bs, near, stream);
@@ -705,7 +531,8 @@ int step(In in, void* out, const Array& a, Params p, int bf16,
     }
   }
   if (err != cudaSuccess || s.empty()) return static_cast<int>(err);
-  const RegionTiling tl = region_tiling(rows16, n, a, s.a0, s.a1, s.b0, s.b1);
+  const RegionTiling tl =
+      mm::region_tiling(rows16, n, n, a, s.a0, s.a1, s.b0, s.b1);
   switch (rows16) {
     case 96: err = launch_bf16<96, true, T>(in, out, p, tl, stream); break;
     case 64: err = launch_bf16<64, true, T>(in, out, p, tl, stream); break;
@@ -820,23 +647,13 @@ int mm_fused_bf16_plan(int h, int w, int R0, int C0, int H, int W,
   (void)bf16;
   const Array a{h, w, R0, C0, H, W, 0};
   const int rows = rows_for(p);
-  const Split s = split_of(mm::Rect{r0, r1, c0, c1}, a);
+  const Split s = mm::split_of(mm::Rect{r0, r1, c0, c1}, a);
   Bands bs;
-  bands_of(rows, nsteps, a, s, bs);
-  const RegionTiling paired =
-      region_tiling(rows16, nsteps, a, s.a0, s.a1, s.b0, s.b1);
-  const RegionTiling* regions[5] = {&paired, &bs.band[0], &bs.band[1],
-                                    &bs.band[2], &bs.band[3]};
+  mm::bands_of(rows, nsteps, nsteps, a, s, bs);
   out[0] = rows;
-  for (int k = 0; k < 5; ++k) {
-    const RegionTiling& tl = *regions[k];
-    int* o = out + 1 + 5 * k;
-    o[0] = tl.r0;
-    o[1] = tl.r1;
-    o[2] = tl.c0;
-    o[3] = tl.c1;
-    o[4] = tl.tiles;
-  }
+  mm::write_plan(mm::region_tiling(rows16, nsteps, nsteps, a, s.a0, s.a1,
+                                   s.b0, s.b1),
+                 bs, out + 1);
   return 0;
 }
 

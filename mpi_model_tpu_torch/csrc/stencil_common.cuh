@@ -19,15 +19,19 @@
 // knob): the rectangle of cells it covers, rb() (an f32 value rounded to
 // bf16: an f32 operation on bf16 values rounded once is the bf16
 // operation, f32 carrying more than 2 * 8 + 2 bits), a rounded window
-// source, the walk step with every add rounded (walk_step<..., true>), and
-// the Moore walk step on paired bf16 (walk_step_bf2: two rows a register,
-// add.rn.bf16x2 / mul.rn.bf16x2, each rounded once and never contracted).
+// source, the walk step with every add rounded (walk_step<..., true>), the
+// Moore walk step on paired bf16 (walk_step_bf2: two rows a register,
+// add.rn.bf16x2 / mul.rn.bf16x2, each rounded once and never contracted;
+// its twin paired_step keeps pass 1's bands), and the geometry of the two
+// launches K1/K2 and K3 vpu split such a call into (RegionTiling, Bands,
+// split_of, bands_of).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
@@ -704,10 +708,10 @@ __device__ __forceinline__ unsigned part_u(const uint4& e, int q) {
 }
 
 // One Moore step of the paired walk: pair m's new value is finish(m, its
-// old value, its pair of box sums). Ends past one __syncthreads(). K1/K2
-// run a twin of it, fused_stencil.cu::paired_step (the same straddles,
-// exchange and sum order; pass 1's bands kept for pass 2): the card tests
-// pin both to one bit order, so a change to one is made to both.
+// old value, its pair of box sums). Ends past one __syncthreads(). Its twin
+// paired_step (below: the same straddles, exchange and sum order; pass 1's
+// bands kept for pass 2) runs K1/K2's and K3 vpu's paired launches: the
+// card tests pin both to one bit order, so a change to one is made to both.
 template <int ROWS, typename Finish>
 __device__ __forceinline__ void walk_step_bf2(unsigned (&v)[ROWS / 2],
                                               unsigned* eb, Finish finish) {
@@ -755,6 +759,70 @@ __device__ __forceinline__ void walk_step_bf2(unsigned (&v)[ROWS / 2],
     prev = v[m];
     v[m] = finish(m, prev, nine);
   }
+}
+
+// One Moore step of the paired launches of K1/K2 and K3 vpu: the twin of
+// walk_step_bf2, its operations in the same order (window rows 2m and
+// 2m + 1 in v[m]; band = (row above + row) + row below, the rows above and
+// below straddling two pairs; nine = (band[c-1] + band[c]) + band[c+1], the
+// neighbouring columns' bands from the neighbouring lanes and, at a warp's
+// edges, from the exchange), with the bands of pass 1 kept in registers for
+// pass 2 instead of formed again there: ROWS / 2 more words a thread, four
+// fewer instructions a pair. Pair m's new value is finish(m, its old value,
+// its box sums). Ends past one __syncthreads().
+template <int ROWS, typename Finish>
+__device__ __forceinline__ void paired_step(unsigned (&v)[ROWS / 2],
+                                            unsigned* eb, Finish finish) {
+  constexpr int P = ROWS / 2;
+  static_assert(P % 4 == 0, "edge pairs move four at a time");
+  const int lane = threadIdx.x;
+  const int wp = threadIdx.y;
+  const int own = 2 * (wp + 1) + (lane == 31 ? 1 : 0);
+  const int nbr = lane == 0 ? 2 * wp + 1 : 2 * (wp + 2);
+  const bool edge_lane = lane == 0 || lane == 31;
+  // pass 1: every column's bands; the edge lanes publish theirs
+  unsigned b[P];
+  uint4 x4;
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    const unsigned up = m > 0 ? straddle(v[m - 1], v[m]) : v[m] << 16;
+    const unsigned dn = m + 1 < P ? straddle(v[m], v[m + 1]) : v[m] >> 16;
+    b[m] = add_bf2(add_bf2(up, v[m]), dn);
+    if (m % 4 == 0) x4.x = b[m];
+    if (m % 4 == 1) x4.y = b[m];
+    if (m % 4 == 2) x4.z = b[m];
+    if (m % 4 == 3) {
+      x4.w = b[m];
+      if (edge_lane) *reinterpret_cast<uint4*>(eb + own * P + m - 3) = x4;
+    }
+  }
+  __syncthreads();
+  // pass 2: the box sums across the columns, then the new pairs
+  const unsigned* nb = eb + nbr * P;
+  uint4 e4 = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    if (m % 4 == 0 && edge_lane) {
+      e4 = *reinterpret_cast<const uint4*>(nb + m);
+    }
+    unsigned bl = __shfl_up_sync(kFull, b[m], 1);
+    unsigned br = __shfl_down_sync(kFull, b[m], 1);
+    if (lane == 0) bl = part_u(e4, m % 4);
+    if (lane == 31) br = part_u(e4, m % 4);
+    v[m] = finish(m, v[m], add_bf2(add_bf2(bl, b[m]), br));
+  }
+}
+
+// Rows r and r + 1 of one staged column as a bf16 pair (row r in the low
+// half): an f32 pair rounded by one cvt.rn.bf16x2.f32, a bf16 pair moved.
+__device__ __forceinline__ unsigned pair_of(const float* a, const float* b) {
+  return pack_bf2(*a, *b);
+}
+__device__ __forceinline__ unsigned pair_of(const __nv_bfloat16* a,
+                                            const __nv_bfloat16* b) {
+  const unsigned lo = *reinterpret_cast<const unsigned short*>(a);
+  const unsigned hi = *reinterpret_cast<const unsigned short*>(b);
+  return lo | (hi << 16);
 }
 
 // Each offset's row and column in the 3 x 3, from the ordered codes.
@@ -814,6 +882,150 @@ __device__ __forceinline__ void offset_rows_cols(int offcodes, int (&drow)[8],
     const int b = (offcodes >> (4 * o)) & 0xF;  // (dx + 1) * 3 + (dy + 1)
     drow[o] = b / 3;
     dcol[o] = b % 3;
+  }
+}
+
+// -- the bf16 interior math's two launches: regions and their tilings -------
+//
+// K1/K2 and K3 vpu run a bf16-interior call as two launches, each on its
+// own tiling and each writing only its own cells: the near launch over the
+// four bands of the array around the bf16 rectangle, the paired launch over
+// the rectangle (ops/fused_stencil.py::bf16_regions and region_tiles are the
+// same split and tilings).
+
+// A tiling of one region of the array a kernel writes (local rows [r0, r1),
+// columns [c0, c1)): Tiling's tiles (th x tw output cells, windows of `rows`
+// x kWinW starting rh rows above and n columns left of a tile) aligned to
+// the region's origin, `tiles_c` and `tiles` counting the region's. Nothing
+// of a tile outside its region is written, so the tilings of disjoint
+// regions write disjoint cells.
+struct RegionTiling : Tiling {
+  int r0, r1, c0, c1;
+
+  __device__ __forceinline__ int row_of(int t) const {
+    return r0 + (t / tiles_c) * th;
+  }
+  __device__ __forceinline__ int col_of(int t) const {
+    return c0 + (t % tiles_c) * tw;
+  }
+  // tile t lies whole in the region and every output cell of it has d > n
+  // (uniform over the block)
+  __device__ __forceinline__ bool interior(int t) const {
+    const int r = row_of(t), c = col_of(t);
+    return r + th <= r1 && c + tw <= c1 && R0 + r >= n + 1 &&
+           R0 + r + th <= H - 1 - n && C0 + c >= n + 1 &&
+           C0 + c + tw <= W - 1 - n;
+  }
+  // tile t's window lies inside the array
+  __device__ __forceinline__ bool inside(int t) const {
+    const int wr = row_of(t) - rh, wc = col_of(t) - n;
+    return wr >= 0 && wc >= 0 && wr + rows <= h && wc + kWinW <= w;
+  }
+};
+
+// The end of the rows and columns a tiling writes: the array's, or a
+// RegionTiling's region's.
+__device__ __forceinline__ int row_end(const Tiling& tl) { return tl.h; }
+__device__ __forceinline__ int col_end(const Tiling& tl) { return tl.w; }
+__device__ __forceinline__ int row_end(const RegionTiling& tl) {
+  return tl.r1;
+}
+__device__ __forceinline__ int col_end(const RegionTiling& tl) {
+  return tl.c1;
+}
+
+// The near launch's regions: the four bands of the array around the
+// rectangle (top, bottom, left, right), each tiled from its origin. Block b
+// steps tile b - first[k] of the last band k with first[k] <= b (an empty
+// band has no tile: the band after it starts at the same block). The
+// kernels take it as a __grid_constant__ parameter, so a block reads its
+// band's tiling from the parameter space instead of a copy in registers.
+struct Bands {
+  RegionTiling band[4];
+  int first[4];
+};
+
+__device__ __forceinline__ int band_of(const Bands& bs) {
+  int k = 0;
+#pragma unroll
+  for (int b = 1; b < 4; ++b) {
+    if (static_cast<int>(blockIdx.x) >= bs.first[b]) k = b;
+  }
+  return k;
+}
+
+// Host side. The array a call writes: [h, w] at global (R0, C0) of an
+// [H, W] grid; `vec`: its rows 16-byte aligned (cp.async windows).
+struct Array {
+  int h, w, R0, C0, H, W, vec;
+};
+
+// The tiling of the region [r0, r1) x [c0, c1) of `a` by windows of `rows`
+// rows starting rh rows above a tile, n steps (an empty region: no tile).
+inline RegionTiling region_tiling(int rows, int rh, int n, const Array& a,
+                                  int r0, int r1, int c0, int c1) {
+  RegionTiling tl;
+  static_cast<Tiling&>(tl) =
+      make_tiling(rows, rh, n, a.h, a.w, a.R0, a.C0, a.H, a.W);
+  tl.r0 = r0;
+  tl.r1 = r1;
+  tl.c0 = c0;
+  tl.c1 = c1;
+  const bool empty = r0 >= r1 || c0 >= c1;
+  tl.tiles_c = empty ? 1 : (c1 - c0 + tl.tw - 1) / tl.tw;
+  tl.tiles = empty ? 0 : ((r1 - r0 + tl.th - 1) / tl.th) * tl.tiles_c;
+  return tl;
+}
+
+// The rectangle q (global) in the array's local rows [a0, a1) and columns
+// [b0, b1); an empty one as a0 == a1 == h, which makes the top band the
+// whole array.
+struct Split {
+  int a0, a1, b0, b1;
+  bool empty() const { return a0 >= a1; }
+};
+
+inline Split split_of(const Rect& q, const Array& a) {
+  Split s{std::min(std::max(q.r0 - a.R0, 0), a.h),
+          std::min(std::max(q.r1 - a.R0, 0), a.h),
+          std::min(std::max(q.c0 - a.C0, 0), a.w),
+          std::min(std::max(q.c1 - a.C0, 0), a.w)};
+  if (s.a0 >= s.a1 || s.b0 >= s.b1) s = Split{a.h, a.h, 0, 0};
+  return s;
+}
+
+// The near launch's bands around the split's rectangle, by windows of
+// `rows` rows starting rh above a tile; returns their tiles.
+inline int bands_of(int rows, int rh, int n, const Array& a, const Split& s,
+                    Bands& bs) {
+  bs.band[0] = region_tiling(rows, rh, n, a, 0, s.a0, 0, a.w);
+  bs.band[1] = region_tiling(rows, rh, n, a, s.a1, a.h, 0, a.w);
+  bs.band[2] = region_tiling(rows, rh, n, a, s.a0, s.a1, 0, s.b0);
+  bs.band[3] = region_tiling(rows, rh, n, a, s.a0, s.a1, s.b1, a.w);
+  int tiles = 0;
+  for (int k = 0; k < 4; ++k) {
+    bs.first[k] = tiles;
+    tiles += bs.band[k].tiles;
+  }
+  return tiles;
+}
+
+// Host side: a bf16-interior call's plan, as the plan entry points report
+// it (ops/fused_stencil.py::kernel_plan, ops/composed_stencil.py::
+// kernel_plan): for the paired region and the four bands, five ints each,
+// local rows [r0, r1), columns [c0, c1), and the tiles launched over it.
+inline void write_plan(const RegionTiling& paired, const Bands& bs,
+                       int* out) {
+  const RegionTiling* regions[5] = {&paired, &bs.band[0], &bs.band[1],
+                                    &bs.band[2], &bs.band[3]};
+  for (int k = 0; k < 5; ++k) {
+    const RegionTiling& tl = *regions[k];
+    int* o = out + 5 * k;
+    o[0] = tl.r0;
+    o[1] = tl.r1;
+    o[2] = tl.c0;
+    o[3] = tl.c1;
+    o[4] = tl.tiles;
   }
 }
 

@@ -34,6 +34,13 @@ hook's arithmetic:
   rounded to bf16 from f64, ``vpu_coefs_bf16``; mxu: the window and the
   taps rounded to bf16, their products summed in f32), every other cell
   the f32 forms over the grid rounded to bf16 once.
+- With ``compute_dtype=torch.bfloat16`` a vpu call on the card is two
+  launches, counted as one: the near launch over the four bands around the
+  bf16 rectangle (``fused_stencil.bf16_regions``) at the f32 walk's window
+  (``window_rows``), and the paired launch over the rectangle at its own
+  (``paired_rows``), each tiled from its region's origin
+  (``fused_stencil.region_tiles``); ``kernel_plan`` reads the source's own
+  geometry.
 - ``composed_dense_step``: a CPU tensor takes ``composed_dense_step_plain``
   with the resolved form; a CUDA tensor launches that form's kernel
   (``csrc/composed_stencil.cu``) or raises.
@@ -66,6 +73,7 @@ from .fused_stencil import (
     _pick_block,
     _sublane,
     _validate_block,
+    bf16_regions,
     check_nsteps,
     check_offsets,
     check_out,
@@ -78,6 +86,7 @@ from .fused_stencil import (
     pad_from_ring,
     padded_region,
     rb,
+    region_tiles,
     resolve_block,
     resolve_compute_dtype,
     round_bf16,
@@ -597,6 +606,9 @@ def _kernel_lib():
                     getattr(lib, f"mm_composed_{mode}{form}_{dt}").restype = i
         lib.mm_cuda_error_string.argtypes = [i]
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
+        lib.mm_composed_vpu_bf16_plan.argtypes = [i] * 15 + [
+            ctypes.POINTER(i)]
+        lib.mm_composed_vpu_bf16_plan.restype = i
         lib.mm_composed_mxu_layout.argtypes = [i, ctypes.POINTER(i)]
         lib.mm_composed_mxu_layout.restype = None
         for which, (what, layout) in enumerate(
@@ -653,11 +665,104 @@ def _form_args(form: str, rate: float, offsets: tuple, k: int, dtype,
 
 
 def _what(form: str, dt: str, k: int, rect: Optional[tuple],
-          mode: str = "") -> str:
+          mode: str = "", offsets: tuple = MOORE_OFFSETS) -> str:
     """A launch's name in its errors: form, storage dtype, k and, with
-    bf16 interior math, that."""
-    return (f"composed_stencil {form} {mode}kernel ({dt}, k={k}"
-            + (", bf16 interior math)" if rect is not None else ")"))
+    bf16 interior math, that (vpu: each launch's kernel and window rows)."""
+    if rect is None:
+        return f"composed_stencil {form} {mode}kernel ({dt}, k={k})"
+    if form != "vpu":
+        return (f"composed_stencil {form} {mode}kernel ({dt}, k={k}, bf16 "
+                "interior math)")
+    (rows, off), (rows16, off16) = (window_rows(k, offsets),
+                                    paired_rows(k, offsets))
+    halo = "halo_" if mode else ""
+    return (f"composed_stencil vpu {mode}kernel ({dt}, k={k}, bf16 interior "
+            f"math: near launch composed_vpu_{halo}near_kernel {rows} rows "
+            f"OFF {off}, paired launch composed_vpu16_{halo}kernel "
+            f"{rows16} rows OFF {off16})")
+
+
+# -- the vpu form's bf16 interior math: two launches ----------------------------
+#
+# Mirrors of the source's geometry (``csrc/composed_stencil.cu``:
+# ``vpu_window``, ``paired_window``; the split and the tilings are
+# ``fused_stencil.bf16_regions`` and ``region_tiles`` with the row halo OFF),
+# for the tests and the bounds; ``kernel_plan`` reads the source's own.
+
+#: the paired launch's window rows for Moore, by the row halo OFF (the
+#: source's ``kPairedRows2``, ``kPairedRows8``, ``kPairedRows16``), chosen
+#: by measurement on the H100 (``k3_variants.py``, ``PERF.md``)
+PAIRED_ROWS = {2: 64, 8: 96, 16: 96}
+
+
+def window_rows(k: int, offsets: Sequence[tuple[int, int]]
+                ) -> tuple[int, int]:
+    """The f32 walk's window ``(rows, OFF)`` (f32 interior math, and the
+    bf16 interior math's near launch): Moore ``(48, 8)`` up to k = 8 and
+    ``(64, 16)`` above; other neighbourhoods ``(48, 16)``."""
+    if set(check_offsets(offsets)) != set(MOORE_OFFSETS):
+        return 48, 16
+    return (48, 8) if int(k) <= 8 else (64, 16)
+
+
+def paired_rows(k: int, offsets: Sequence[tuple[int, int]]
+                ) -> tuple[int, int]:
+    """The paired launch's window ``(rows, OFF)``: Moore on row pairs at
+    ``PAIRED_ROWS[OFF]`` with OFF the least of 2, 8 and 16 at least k (the
+    pairs, their kept bands and the accumulator's pairs within the 128
+    registers of two blocks an SM); other neighbourhoods the f32 walk's
+    ``(48, 16)`` with every operation rounded."""
+    if set(check_offsets(offsets)) != set(MOORE_OFFSETS):
+        return 48, 16
+    off = min(o for o in PAIRED_ROWS if o >= int(k))
+    return PAIRED_ROWS[off], off
+
+
+def kernel_plan(shape: tuple[int, int], rect: tuple, k: int, dtype,
+                offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                origin: tuple[int, int] = (0, 0),
+                global_shape: Optional[tuple[int, int]] = None
+                ) -> tuple[tuple[int, int], tuple[int, int], list[tuple]]:
+    """The two launches' geometry as the CUDA source computes it for a vpu
+    bf16-interior call on a ``shape`` array at ``origin`` of
+    ``global_shape`` (``rect``: global, as ``kernel_rect`` gives it): the
+    near launch's ``(rows, OFF)``, the paired launch's, and for the paired
+    region and the four bands ``(r0, r1, c0, c1, tiles)``. It launches
+    nothing but needs the built library (the card): tests and
+    ``chip_smoke.py`` hold ``window_rows``, ``paired_rows`` and the region
+    tiles to it."""
+    offsets = check_offsets(offsets)
+    lib = _kernel_lib()
+    out = (ctypes.c_int * 29)()
+    h, w = shape
+    H, W = global_shape or shape
+    moore = int(set(offsets) == set(MOORE_OFFSETS))
+    err = lib.mm_composed_vpu_bf16_plan(
+        h, w, origin[0], origin[1], H, W, int(dtype == torch.bfloat16),
+        int(k), _offset_mask(offsets), len(offsets), moore, *rect, out)
+    if err != 0:
+        raise ValueError(f"mm_composed_vpu_bf16_plan refused {shape} at "
+                         f"{origin}, k={k}: "
+                         f"{lib.mm_cuda_error_string(err).decode()}")
+    return ((out[0], out[1]), (out[2], out[3]),
+            [tuple(out[4 + 5 * i:9 + 5 * i]) for i in range(5)])
+
+
+def plan_of(shape: tuple[int, int], rect: tuple, k: int,
+            offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+            origin: tuple[int, int] = (0, 0)
+            ) -> tuple[tuple[int, int], tuple[int, int], list[tuple]]:
+    """``kernel_plan`` from the mirrors (``window_rows``, ``paired_rows``,
+    ``bf16_regions``, ``region_tiles``), without the library: the same
+    tuple the source gives when the mirrors hold."""
+    local = (rect[0] - origin[0], rect[1] - origin[0], rect[2] - origin[1],
+             rect[3] - origin[1])
+    inner, bands = bf16_regions(shape, local)
+    (rows, off), (rows16, off16) = window_rows(k, offsets), paired_rows(
+        k, offsets)
+    return ((rows, off), (rows16, off16),
+            [(*inner, len(region_tiles(inner, rows16, k, off16))),
+             *((*b, len(region_tiles(b, rows, k, off))) for b in bands)])
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -685,7 +790,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(values.data_ptr(), out.data_ptr(), h, w, *args, stream)
-    _raise_on(lib, err, _what(form, dt, k, rect))
+    _raise_on(lib, err, _what(form, dt, k, rect, offsets=offsets))
     _launch_count[form] += 1
     if stepper is not None:
         stepper.launches += 1
@@ -804,7 +909,7 @@ def composed_halo_step(
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(ctypes.addressof(args), out.data_ptr(), *fargs, stream)
-    _raise_on(lib, err, _what(form, dt, k, rect, "halo "))
+    _raise_on(lib, err, _what(form, dt, k, rect, "halo ", offsets))
     _halo_launch_count[form] += 1
     return out
 

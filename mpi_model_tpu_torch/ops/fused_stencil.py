@@ -612,8 +612,9 @@ def _step_args(rate: float, offsets: tuple, nsteps: int,
 # (``window_rows``), the paired launch tiles the rectangle with its own
 # (``paired_rows``); each from its region's origin, each writing only its
 # region's cells (``region_tiles``). The CUDA source computes the same split
-# and tilings (``csrc/fused_stencil.cu``: ``split_of``, ``bands_of``,
-# ``region_tiling``); a region with no cell is not launched. These mirrors
+# and tilings (``csrc/stencil_common.cuh``: ``split_of``, ``bands_of``,
+# ``region_tiling``; K3 vpu's two launches share them); a region with no cell
+# is not launched. These mirrors
 # serve the tests and the bounds; ``kernel_plan`` reads the source's own
 # geometry, and the card tests and ``chip_smoke.py`` hold them to it.
 
@@ -658,15 +659,19 @@ def bf16_regions(shape: tuple[int, int], rect: tuple
             [(0, r0, 0, w), (r1, h, 0, w), (r0, r1, 0, c0), (r0, r1, c1, w)])
 
 
-def region_tiles(region: tuple, rows: int, nsteps: int) -> list[tuple]:
-    """The tiles of one region's launch, in block order: ``(rows - 2n) x
-    (256 - 2n)`` output cells each, from the region's origin, each clipped
-    to the region: ``(r0, r1, c0, c1)`` of the cells it writes; each tile
-    reads the window ``n`` cells around it. The source's ``region_tiling``
-    is the same tiling (held to it on the card through ``kernel_plan``)."""
+def region_tiles(region: tuple, rows: int, nsteps: int,
+                 rh: Optional[int] = None) -> list[tuple]:
+    """The tiles of one region's launch, in block order: ``(rows - 2 rh) x
+    (256 - 2n)`` output cells each (``rh``, the window's rows above a tile:
+    ``n`` for K1/K2, the instance's OFF for K3 vpu), from the region's
+    origin, each clipped to the region: ``(r0, r1, c0, c1)`` of the cells
+    it writes; each tile reads the window ``rh`` rows and ``n`` columns
+    around it. The source's ``mm::region_tiling`` is the same tiling (held
+    to it on the card through ``kernel_plan``)."""
     r0, r1, c0, c1 = region
     n = int(nsteps)
-    th, tw = int(rows) - 2 * n, WINDOW_COLS - 2 * n
+    th = int(rows) - 2 * (n if rh is None else int(rh))
+    tw = WINDOW_COLS - 2 * n
     if r0 >= r1 or c0 >= c1:
         return []
     return [(r, min(r + th, r1), c, min(c + tw, c1))

@@ -1178,6 +1178,162 @@ def test_bf16_interior_k3_halo_on_the_card(form, dtype, k, mesh_shape,
             _held_to_plain(got, want, form, k)
 
 
+# K3/K3-halo vpu bf16-interior as two launches: the near launch (the f32
+# walk over the bands around the rectangle, at cs.window_rows) and the
+# paired launch (row pairs over the rectangle at cs.paired_rows, the bands
+# kept between a step's passes; other neighbourhoods the rounded f32 walk),
+# each output filled with NaN first. Geometries as K1's: the rectangle
+# across the tiles, block columns of 200, an odd rectangle.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 1), (torch.float32, 2),
+                                     (torch.float32, 3), (torch.float32, 8),
+                                     (torch.bfloat16, 2),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, VON_NEUMANN_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("geometry", sorted(_K1_BF16_GEOMETRIES))
+def test_bf16_interior_k3_vpu_two_launches_on_the_card(dtype, k, offs,
+                                                       geometry):
+    """Every cell written once (NaN-filled output), bit for bit
+    ``composed_dense_step_plain(..., "vpu", compute_dtype=bfloat16)``,
+    counted as one launch."""
+    dev = _card()
+    shape, block = _K1_BF16_GEOMETRIES[geometry]
+    if k > cs.max_k(shape, dtype, block):
+        pytest.skip("k past the window's ghost depth")
+    x = torch.from_numpy(np.random.default_rng(k).uniform(
+        0.5, 2.0, shape)).to(dev, dtype)
+    out = torch.full_like(x, float("nan"))
+    before = cs.launches("vpu")
+    cs.composed_dense_step(x, 0.13, k, offs, block=block, variant="vpu",
+                           compute_dtype=_BF, out=out)
+    assert cs.launches("vpu") == before + 1
+    assert torch.equal(out, cs.composed_dense_step_plain(
+        x, 0.13, k, offs, "vpu", _BF, block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 2), (torch.float32, 8),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("values", ["zeros_subnormals", "inf"])
+@pytest.mark.parametrize("geometry", ["cut", "odd_rect"])
+def test_bf16_interior_k3_vpu_special_values_on_the_card(dtype, k, offs,
+                                                         values, geometry):
+    """Windows holding +-0 and bf16 subnormals, and +-inf: bit for bit the
+    plain version, NaN by position."""
+    dev = _card()
+    shape, block = _K1_BF16_GEOMETRIES[geometry]
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.5, 2.0, shape)).to(dev, dtype)
+    x = _with_specials({"v": x}, 13)["v"]
+    if values == "zeros_subnormals":
+        x = torch.where(torch.isinf(x), torch.ones_like(x), x)
+    out = torch.full_like(x, float("nan"))
+    cs.composed_dense_step(x, 0.13, k, offs, block=block, variant="vpu",
+                           compute_dtype=_BF, out=out)
+    _held_nan_by_position(out, cs.composed_dense_step_plain(
+        x, 0.13, k, offs, "vpu", _BF, block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k", [(torch.float32, 2), (torch.float32, 8),
+                                     (torch.bfloat16, 16)])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1), (4, 4)])
+def test_bf16_interior_k3_vpu_halo_mosaic_on_the_card(dtype, k, offs,
+                                                      mesh_shape):
+    """K3-halo vpu bf16-interior on the 2x2, 4-stripe and 4x4 meshes of
+    (1024, 2048), at one block for the grid and its shards (on 4x4 the
+    inner shards lie wholly in the rectangle: no near launch): every
+    shard's NaN-filled output bit for bit its plain version, and the shards
+    put together bit for bit K3 on the whole grid."""
+    from mpi_model_tpu_torch.parallel import assemble, exchange_ring
+
+    dev = _card()
+    shape, block = (1024, 2048), (64, 128)
+    mesh, full, g, (h, w) = _shards(dev, dtype, shape, mesh_shape, 59)
+    g = g["value"]
+    lines, columns = mesh_shape
+    out = [[None] * columns for _ in range(lines)]
+    before = cs.halo_launches("vpu")
+    for i in range(lines):
+        for j in range(columns):
+            ring = exchange_ring(g, i, j, k)
+            o = torch.full_like(g[i][j], float("nan"))
+            cs.composed_halo_step(g[i][j], ring, (i * h, j * w), shape, 0.13,
+                                  k, offs, block, "vpu", _BF, out=o)
+            assert torch.equal(o, cs.composed_halo_step_plain(
+                g[i][j], ring, (i * h, j * w), shape, 0.13, k, offs, "vpu",
+                _BF, block)), (i, j)
+            out[i][j] = o
+    assert cs.halo_launches("vpu") == before + lines * columns
+    assert torch.equal(assemble(out, dev), cs.composed_dense_step(
+        full["value"], 0.13, k, offs, block, "vpu", _BF))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offs", [MOORE_OFFSETS, CUSTOM])
+@pytest.mark.parametrize("geometry", sorted(_K1_PLAN_GEOMETRIES))
+def test_bf16_interior_k3_vpu_plan_is_the_library_s(dtype, offs, geometry):
+    """``window_rows``, ``paired_rows``, ``bf16_regions`` and
+    ``region_tiles`` (``cs.plan_of``: the CPU tests' and ``chip_smoke.py``'s
+    view of the two launches) are the source's own geometry, read through
+    ``cs.kernel_plan``: on every shard at every k."""
+    _card()
+    gshape, block, (lines, columns) = _K1_PLAN_GEOMETRIES[geometry]
+    h, w = gshape[0] // lines, gshape[1] // columns
+    for k in range(1, cs.max_k((h, w), dtype, block) + 1):
+        for i in range(lines):
+            for j in range(columns):
+                org = (i * h, j * w)
+                rect = fs.kernel_rect((h, w), dtype, block, k, _BF, org,
+                                      gshape)
+                assert cs.kernel_plan((h, w), rect, k, dtype, offs, org,
+                                      gshape) == cs.plan_of(
+                    (h, w), rect, k, offs, org), (k, org)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", [False, True])
+def test_bf16_interior_k3_vpu_launch_error_raises(monkeypatch, halo):
+    """No fallback: with no coefficients in the bf16 slot the call is
+    refused before either launch; the error names the kernels, their rows
+    and k; nothing is counted and nothing is written."""
+    from mpi_model_tpu_torch.parallel import exchange_ring
+
+    dev = _card()
+    form_args = cs._form_args
+
+    def no_coefs16(*args, **kwargs):
+        return form_args(*args, **kwargs)[:-1] + (None,)
+
+    monkeypatch.setattr(cs, "_form_args", no_coefs16)
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.5, 2.0, (512, 1024))).to(dev, torch.float32)
+    out = torch.full((256, 512) if halo else (512, 1024), float("nan"),
+                     device=dev)
+    before = (cs.launches(), cs.halo_launches())
+    what = (r"vpu .*kernel \(f32, k=8, bf16 interior math: near launch "
+            r"composed_vpu_.*near_kernel 48 rows OFF 8, paired launch "
+            r"composed_vpu16_.*kernel \d+ rows OFF 8\)")
+    with pytest.raises(RuntimeError, match=what):
+        if halo:
+            g = [[x[i * 256:(i + 1) * 256, j * 512:(j + 1) * 512].contiguous()
+                  for j in range(2)] for i in range(2)]
+            cs.composed_halo_step(g[1][0], exchange_ring(g, 1, 0, 8),
+                                  (256, 0), (512, 1024), 0.13, 8,
+                                  block=(64, 256), variant="vpu",
+                                  compute_dtype=_BF, out=out)
+        else:
+            cs.composed_dense_step(x, 0.13, 8, block=(64, 256),
+                                   variant="vpu", compute_dtype=_BF, out=out)
+    torch.cuda.synchronize()
+    assert (cs.launches(), cs.halo_launches()) == before
+    assert bool(torch.isnan(out).all())
+
+
 # K3/K3-halo mxu bf16-interior: the persistent tile walk. Cases: k 1, 3,
 # 8 (and 16 at bf16 storage); Moore and a non-Moore neighbourhood; a grid
 # of many tiles (19 x 17 f32 tiles, 10 x 17 bf16: no multiple of a
