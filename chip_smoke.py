@@ -31,7 +31,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    - K6 (``fused_compute_plain``) and K7 (``fused_scatter_plain``): bit for
      bit at every k (K6 computes in the storage dtype with every operation
      rounded, in the plain version's order: the exact path's steps, and the
-     tap table's products summed in row-major order from 0).
+     tap table's products summed in row-major order from 0). K7 also alone
+     (its persistent lane walk): counts 0, 1, some and K, rings 1 and 8,
+     2-, 4- and 8-byte elements, 128- and 13-column tiles, on a state of
+     NaN, by its bits.
    - K4 (``field_step_plain``; one generated unit per flow set and
      neighbourhood): bit for bit, f32 and bf16, nsteps 1, 4, 8 (and 16 at
      bf16), over config 4's flows, ``Coupled`` alone (the modulator must
@@ -78,7 +81,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    conservation, K6 and K7 launches == ``flags_fused``, K1 launches ==
    ``fallback_steps``; per row the cell-updates/s (host clock, median of
    three runs), mean active fraction, fallback steps, the time of one pass
-   against K6 + K7 kernel time, and the peak device memory. Then the gates: one step at 0.01, ``active`` ==
+   against K6 + K7 kernel time, and the peak device memory; K7 alone at
+   each activity against its bound (its live tiles read and written once)
+   and against ``index_copy_`` of the live tiles' cells (its library call;
+   the port never calls it). Then the gates: one step at 0.01, ``active`` ==
    ``active_fused`` k=1 == the plain dense step, bitwise; a dense nonzero
    16384² state falls back every step and equals
    ``SerialExecutor("pallas", substeps=1)`` bitwise (K1 serves the
@@ -198,7 +204,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    fallback steps, host reads a step, and K6 + K7 ms of one pass on shard
    (1, 1) of 2×2 (stripe 1) at the run's starting state against their
    plain versions (bit for bit) and their bound (each live tile's ring-1
-   window read and its tile written, K7 each tile read and written), the
+   window read and its tile written, K7 each tile read and written; K7
+   alone also against ``index_copy_``), the
    runner's host split (``backend_report["host_s"]``: ring refresh, flags,
    the count read, the passes); a ``torch.profiler`` idle share of the 2×2
    ``"active_fused"`` run at 0.01. Then the spread: the 2×2 rows at 0.01
@@ -250,9 +257,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    counted run whose trace dropped one of its kernels is made again, at
    most ``TRACE_RETRIES`` times; the kernels line's ``launches``, ``walk``
    and ``kernels_per_launch`` come from that one counted run), the
-   ensemble 8 × 4096² (bit for bit the
-   f32-compute dispatch) and 4 × 8192² (blocks (512, 2048): closed tiles
-   in every lane; bit for bit its plain version); each run's mass change
+   ensemble 8 × 4096² (no closed tile: the near launch alone) and 4 × 8192²
+   (blocks (512, 2048): closed tiles in every lane: the near launch and the
+   paired launch), each dispatch whole in a process of its own
+   (``traced_k5_row``: every lane bit for bit its plain version, the
+   counted dispatch traced, ``k5_walk``, and the near and paired launches'
+   device ms from that trace; the source's plan held to the wrapper's
+   mirrors, ``plan_of``); each run's mass change
    held below ``MASS_BF16`` of the total (the composed substeps 2 row
    instead bit for bit its plain version's calls: JAX's bf16 coefficients
    at k = 2 move more mass in 32 calls than that, 3.4% at 16384²). Each
@@ -275,7 +286,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``Exponencial`` reference run at f64 against the port's own
    ``oracle.reference_run_np``, through the point subsystem
    (``impl == "point"``).
-8. the kernels line, the card line, and the last line
+8. the kernels line (K5's near and paired launches each a row of their
+   own at the ensemble's shapes; K7 with ``index_copy_`` as its library
+   call), the card line, and the last line
    ``{"ok": true, "device": {...}}``. ``chip_smoke.json`` in the output
    directory keeps every row, every kernel case and the build record.
 """
@@ -332,6 +345,12 @@ MASS_BF16 = 2.0 ** -6
 MXU16_BEFORE_MS = {"K3 mxu float32 k=8": 3.427,
                    "K3 mxu bfloat16 k=16": 4.507,
                    "K3-halo mxu float32 k=8 shard (8192, 8192)": 1.072}
+#: K5's bf16-interior call before its two launches (one kernel with both
+#: branches), ms a call on an H100 80GB HBM3 at 700.00 W through this
+#: script's phase 6g, as PERF.md §6 records them: printed beside this run's
+#: figures, and in no JSON
+K5_BF16_BEFORE_MS = {"K5 float32 ns=8 8x4096^2": 2.1482,
+                     "K5 float32 ns=8 4x8192^2": 3.0266}
 #: the vpu bf16-interior kernel before its two launches (one kernel with
 #: both walks), ms a call on an H100 80GB HBM3 at 700.00 W, as PERF.md §6
 #: records them (PR 14's run 13 of this script): printed beside this run's
@@ -400,7 +419,7 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
     kinds: dict[str, list] = {}
     for s, e, name in spans:
         low = name.lower()
-        kind = ("K5" if "pipeline_stencil" in low else
+        kind = ("K5" if "pipeline_" in low else
                 "K6" if "fused_compute" in low else
                 "K7" if "fused_scatter" in low else
                 "K2" if "fused_stencil_halo" in low else
@@ -421,15 +440,16 @@ def profile_dispatch(torch, fn, wall_ms: float) -> dict:
                                for k, (n, ms) in kinds.items()}}
 
 
-def traced_kernels(torch, fn) -> tuple:
+def traced_kernels(torch, fn, with_ms: bool = False) -> tuple:
     """What ``fn()`` returns, and the device kernels it launched, by name
-    with their counts, from a ``torch.profiler`` trace. The work is queued
+    with their counts, from a ``torch.profiler`` trace (``with_ms``: and
+    each name's device ms, summed). The work is queued
     behind a spin of the device (``torch.cuda._sleep``), and the trace is
     held open past its end, behind a second spin: the profiler keeps only
     the kernels whose device times fall in its host window, and its device
     and host clocks do not line up, so a short window's first or last
-    kernels can go missing otherwise. Only counts and names are taken from
-    it."""
+    kernels can go missing otherwise. Only counts, names and device
+    durations are taken from it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -442,10 +462,13 @@ def traced_kernels(torch, fn) -> tuple:
         torch.cuda.synchronize()
         time.sleep(0.05)
     names: dict[str, int] = {}
+    ms: dict[str, float] = {}
     for e in prof.events():
         if e.device_type.name == "CUDA":
             names[e.name] = names.get(e.name, 0) + 1
-    return got, names
+            ms[e.name] = ms.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    return (got, names, ms) if with_ms else (got, names)
 
 
 def k4_walk(names: dict, launched: int, what: str) -> dict:
@@ -562,7 +585,11 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
     mass change, the form the composed executor resolved; K3-halo: bit for
     bit the serial composed run); then the run's ms (CUDA events, median of
     3). Prints the row and the attempts' counts and kernel names as one
-    JSON line."""
+    JSON line. Kinds ``"K5 BxS"`` (the ensemble's bf16-interior dispatch)
+    run ``traced_k5_row``."""
+    if kind.startswith("K5"):
+        traced_k5_row(kind, dname, sub, steps)
+        return
     import torch
 
     import mpi_model_tpu_torch as mt
@@ -686,6 +713,103 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
     print(json.dumps({"row": row, "attempts": attempts}), flush=True)
 
 
+def k5_kernels(names: dict) -> tuple:
+    """A trace's K5 kernels by name, and its near launches
+    (``pipeline_near_kernel``) and paired launches
+    (``pipeline_bf16_kernel``)."""
+    ks = {n: c for n, c in names.items() if "pipeline_" in n}
+    return (ks, sum(c for n, c in ks.items() if "pipeline_near_kernel" in n),
+            sum(c for n, c in ks.items() if "pipeline_bf16_kernel" in n))
+
+
+def k5_walk(names: dict, launched: int, closed: bool, what: str) -> dict:
+    """Which K5 kernels a counted bf16-interior dispatch ran, from its
+    trace: every launch the near launch once and, where the lanes have
+    closed tiles, the paired launch once; no other K5 kernel (none with
+    both branches, ``pipeline_stencil_kernel``). Fails otherwise."""
+    ks, near, paired = k5_kernels(names)
+    check(launched > 0 and near == launched
+          and paired == (launched if closed else 0)
+          and sum(ks.values()) == near + paired,
+          f"{what}: {launched} launches ran the K5 kernels {ks}, not the "
+          "near launch" + (" and the paired launch" if closed else "")
+          + " once each")
+    return {"kernels_per_launch": sum(ks.values()) / launched,
+            "kernels": ks}
+
+
+def traced_k5_row(kind: str, dname: str, sub: str, steps: str) -> None:
+    """Phase 6g's K5 row (``kind`` ``"K5 BxS"``: B lanes of S²), whole, in
+    a process of its own: ``EnsembleService(impl="pipeline", substeps,
+    compute_dtype=bfloat16)`` over lanes ``np.roll``-ed from one
+    ``U(0.5, 2.0)`` base made from ``SEED`` (storage ``dname``); one
+    uncounted dispatch; then the counted dispatch, traced (the count to 0
+    just before, read just after; a trace that dropped one of its kernels
+    and its dispatch made again, at most ``TRACE_RETRIES`` times), each
+    lane held bit for bit to ``pipeline_step_plain(..., compute_dtype)``
+    chained call by call; the near and paired launches' device ms from
+    that trace; then the dispatch ms (CUDA events, median of 5). Prints the
+    row and the attempts as one JSON line."""
+    import torch
+
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+
+    B, side = (int(x) for x in kind.split()[1].split("x"))
+    sub, steps = int(sub), int(steps)
+    BF = torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    base = 0.5 + 1.5 * torch.rand((side, side), generator=gen, device=dev)
+    tdt = getattr(torch, dname)
+    spaces = [mt.CellularSpace.create(side, side, 1.0, dtype=dname)
+              .with_values({"value": torch.roll(base, 7 * i, 0).to(tdt)})
+              for i in range(B)]
+    del base
+    svc = mt.EnsembleService(mt.Model(mt.Diffusion(0.1)), steps=steps,
+                             impl="pipeline", substeps=sub,
+                             buckets=mt.buckets_for(B), compute_dtype=BF,
+                             check_conservation=False)
+
+    def dispatch():
+        ts = [svc.submit(s) for s in spaces]
+        svc.flush()
+        return [svc.result(t)[0].values["value"] for t in ts]
+
+    dispatch()
+    blk = k5.pipeline_block((side, side), sub)
+    closed = bool(k5.interior_mask((side, side), blk, sub).any())
+    attempts = []
+    for _ in range(1 + TRACE_RETRIES):
+        k5.reset_launches()
+        outs, names, ms = traced_kernels(torch, dispatch, with_ms=True)
+        launched = k5.launches()
+        attempts.append({"launches": launched, "kernels": names})
+        _, near, paired = k5_kernels(names)
+        if min(near, paired if closed else near) >= launched:
+            break
+    want = torch.stack([s.values["value"] for s in spaces])
+    for _ in range(steps // sub):
+        want = k5.pipeline_step_plain(want, 0.1, nsteps=sub,
+                                      compute_dtype=BF)
+    same = all(torch.equal(o, w) for o, w in zip(outs, want))
+    del want, outs
+
+    def mean_ms(key):
+        got = [(ms[n], c) for n, c in names.items() if key in n]
+        return (sum(m for m, _ in got) / sum(c for _, c in got)
+                if got else None)
+
+    disp = statistics.median(timed_ms(torch, dispatch, reps=5))
+    row = {"launches": launched, "bit_for_bit": same, "closed": closed,
+           "closed_cells_per_lane": int(k5.interior_mask(
+               (side, side), blk, sub).sum()),
+           "near_ms": mean_ms("pipeline_near_kernel"),
+           "paired_ms": mean_ms("pipeline_bf16_kernel"),
+           "dispatch_ms_median": disp, "scenarios_per_s": B / (disp / 1e3)}
+    print(json.dumps({"row": row, "attempts": attempts}), flush=True)
+
+
 #: the paired walk's instructions a pair and step, as the kernel runs them
 #: (fused_stencil.cu::paired_step): pass 1 two prmt and two adds (the band),
 #: a quarter of a 16-byte store; pass 2 two selects, two adds, two
@@ -786,6 +910,18 @@ def k3_paired_bound_ms(cs, fs, shape, dtype, k: int, origin=(0, 0),
     itemsize = 2 if dtype == torch.bfloat16 else 4
     return larger(2 * h * w * itemsize / HBM_BYTES_PER_S * 1e3,
                   (paired_s + near_ops / F32_FLOPS) * 1e3)
+
+
+def k7_library(torch, act, padded, upd, ids, n: int, plan, ring: int):
+    """K7's function as one PyTorch call, for its ``library_ms``: the live
+    lanes' tiles copied into the padded state by ``index_copy_`` over its
+    flat cells, their flat indices built beforehand (not timed). The port
+    never calls it. Returns the call."""
+    rows, cols = act.window_index(ids, plan, n, 0, ring)
+    idx = (rows[:, :, None] * padded.shape[1] + cols[:, None, :]).reshape(-1)
+    src = upd[:n].reshape(-1)
+    flat = padded.view(-1)
+    return lambda: flat.index_copy_(0, idx, src)
 
 
 def print_profile(what: str, prof: dict) -> None:
@@ -1888,10 +2024,17 @@ def sharded_active_path(np, torch, mt, dev, reset_counts,
         b6 = (int(count) * ((th + 2) * (tw + 2) + th * tw) * 4
               / HBM_BYTES_PER_S * 1e3)
         b7 = 2 * int(count) * th * tw * 4 / HBM_BYTES_PER_S * 1e3
+        lib7 = per_call_ms(torch, k7_library(torch, act, p, upd, ids, n,
+                                             plan, 1))
+        print(f"K7 alone on the {mesh_name} shard {org} frac={frac}: "
+              f"{k7:.4f} ms (back to back), bound {b7:.4f} ms (bytes: "
+              f"{int(count)} live tiles read and written), index_copy_ "
+              f"{lib7:.4f} ms", flush=True)
         return {"shard": [h, w], "origin": list(org), "tile": [th, tw],
                 "active_tiles": int(count), "k6_ms": k6, "k7_ms": k7,
                 "k6_plain_ms": p6, "k7_plain_ms": p7, "k6_bound_ms": b6,
-                "k7_bound_ms": b7, "k6_max_abs_err": err6,
+                "k7_bound_ms": b7, "k7_library_ms": lib7,
+                "k6_max_abs_err": err6,
                 "k6_bitwise": bit6, "k7_bitwise": bit7}
 
     for frac in FRACS:
@@ -2489,6 +2632,26 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     torch.cuda.empty_cache()
 
     # -- the main paths at full width ---------------------------------------------
+    def run_fresh(what, kind, dname, sub, steps):
+        """``traced_row(kind, dname, sub, steps)`` in a process of its own:
+        its row and its trace attempts (each attempt before the last, one
+        whose trace dropped kernels, printed)."""
+        here = Path(__file__).resolve().parent
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke; "
+             "chip_smoke.traced_row(*sys.argv[2:])", str(here), kind, dname,
+             str(sub), str(steps)], cwd=here, capture_output=True,
+            text=True, timeout=600)
+        check(proc.returncode == 0, f"{what}: its traced run failed:\n"
+                                    f"{proc.stderr[-3000:]}")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        for i, a in enumerate(got["attempts"][:-1]):
+            print(f"bf16-interior {what}: trace {i + 1} dropped kernels "
+                  f"({a['launches']} launches, {a['kernels']}); its run "
+                  "made and traced again", flush=True)
+        return got["row"], got["attempts"]
+
     def fresh_row(what, kind, dname, sub, steps, want_launches):
         """One main-path row whose counted run is traced: the whole row
         (the counted run, traced, its checks and its run ms) in a process
@@ -2501,21 +2664,7 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         ``two_launch_walk``; the K3 mxu bf16-interior walk, ``k3_mxu16``;
         K4's two walks, ``k4_walk``) all come from that
         one counted run."""
-        here = Path(__file__).resolve().parent
-        proc = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, "
-             "sys.argv[1]); import chip_smoke; "
-             "chip_smoke.traced_row(*sys.argv[2:])", str(here), kind, dname,
-             str(sub), str(steps)], cwd=here, capture_output=True,
-            text=True, timeout=600)
-        check(proc.returncode == 0, f"{what}: its traced run failed:\n"
-                                    f"{proc.stderr[-3000:]}")
-        got = json.loads(proc.stdout.strip().splitlines()[-1])
-        row, attempts = got["row"], got["attempts"]
-        for i, a in enumerate(attempts[:-1]):
-            print(f"bf16-interior {what}: trace {i + 1} dropped kernels "
-                  f"({a['launches']} launches, {a['kernels']}); its run "
-                  "made and traced again", flush=True)
+        row, attempts = run_fresh(what, kind, dname, sub, steps)
         launched = row["launches"]
         check(launched == want_launches,
               f"{what}: {launched} launches, expected {want_launches}")
@@ -2858,60 +3007,37 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     del vals, gs, sv, rings, so, st
     torch.cuda.empty_cache()
 
-    # the ensemble: 8 x 4096² (no closed tile: bit for bit the f32 dispatch)
-    # and 4 x 8192² (blocks (512, 2048): closed tiles in every lane)
+    # the ensemble: 8 x 4096² (no closed tile: the near launch alone) and
+    # 4 x 8192² (blocks (512, 2048): closed tiles in every lane, the near
+    # and the paired launch), each dispatch whole in a process of its own
+    # (traced_k5_row: the counted dispatch traced, bit for bit its plain
+    # version, the near and paired launches' device ms from its trace)
     for B, side in ((B5, N5), (4, N4)):
+        what = f"K5 ensemble {B}x{side}^2 float32 substeps=8"
+        row, attempts = run_fresh(what, f"K5 {B}x{side}", "float32", 8,
+                                  STEPS5)
+        launched = row["launches"]
+        check(launched == STEPS5 // 8, f"{what}: {launched} K5 launches")
+        check(row["bit_for_bit"],
+              f"{what} is not its plain version bit for bit")
+        row["k5_walk"] = k5_walk(attempts[-1]["kernels"], launched,
+                                 row["closed"], what)
+        row["k5_walk"]["trace_attempts"] = len(attempts)
+        row = {"what": what, **row, "run_in": "a process of its own"}
+        out["rows"][what] = row
+        inner = row["closed_cells_per_lane"]
+        print(f"bf16-interior {what}: K5 launches {launched}, its plain "
+              f"version bit for bit, {inner} closed cells a lane, "
+              f"dispatch {row['dispatch_ms_median']:.3f} ms "
+              f"({row['scenarios_per_s']:.2f} scenarios/s); traced, "
+              f"{len(attempts)} attempt(s): {row['k5_walk']}; near launch "
+              f"{row['near_ms']:.4f} ms, paired launch "
+              + (f"{row['paired_ms']:.4f} ms" if row["paired_ms"]
+                 else "none (no closed tile)"), flush=True)
         base = 0.5 + 1.5 * torch.rand((side, side), generator=gen,
                                       device=dev)
-        spaces = [mt.CellularSpace.create(side, side, 1.0).with_values(
-            {"value": torch.roll(base, 7 * i, 0)}) for i in range(B)]
-        what = f"K5 ensemble {B}x{side}^2 float32 substeps=8"
-        svc = mt.EnsembleService(model, steps=STEPS5, impl="pipeline",
-                                 substeps=8, buckets=mt.buckets_for(B),
-                                 compute_dtype=BF, check_conservation=False)
-        t0 = [svc.submit(s) for s in spaces]
-        svc.flush()
-        reset_counts()
-        tickets = [svc.submit(s) for s in spaces]
-        svc.flush()
-        outs = [svc.result(t)[0].values["value"] for t in tickets]
-        launched = k5.launches()
-        check(launched == STEPS5 // 8, f"{what}: {launched} K5 launches")
-        for t in t0:
-            svc.result(t)
-        blk = k5.pipeline_block((side, side), 8)
-        inner = int(k5.interior_mask((side, side), blk, 8).sum())
-        if inner == 0:
-            ref = mt.EnsembleService(model, steps=STEPS5, impl="pipeline",
-                                     substeps=8, buckets=mt.buckets_for(B),
-                                     check_conservation=False)
-            tk = [ref.submit(s) for s in spaces]
-            ref.flush()
-            same = all(torch.equal(o, ref.result(t)[0].values["value"])
-                       for o, t in zip(outs, tk))
-            check(same, f"{what} is not the f32 dispatch bit for bit")
-        else:
-            same = all(torch.equal(o, k5.pipeline_step_plain(
-                s.values["value"], 0.1, nsteps=8, compute_dtype=BF))
-                for o, s in zip(outs, spaces))
-            check(same, f"{what} is not its plain version bit for bit")
-        def dispatch():
-            ts = [svc.submit(s) for s in spaces]
-            svc.flush()
-            for t in ts:
-                svc.result(t)
-
-        disp = statistics.median(timed_ms(torch, dispatch, reps=5))
-        out["rows"][what] = {"launches": launched, "bit_for_bit": same,
-                             "closed_cells_per_lane": inner,
-                             "dispatch_ms_median": disp,
-                             "scenarios_per_s": B / (disp / 1e3)}
-        print(f"bf16-interior {what}: K5 launches {launched}, "
-              f"{'the f32 dispatch' if inner == 0 else 'its plain version'}"
-              f" bit for bit, {inner} closed cells a lane, dispatch "
-              f"{disp:.3f} ms ({B / (disp / 1e3):.2f} scenarios/s)",
-              flush=True)
-        xb = torch.stack([s.values["value"] for s in spaces])
+        xb = torch.stack([torch.roll(base, 7 * i, 0) for i in range(B)])
+        del base
         yb = torch.empty_like(xb)
         cells = xb.numel()
         w3 = torch.ones((1, 1, 3, 3), device=dev)
@@ -2923,7 +3049,8 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                 t = torch.nn.functional.conv2d(t, w3, padding=1)
             return t
 
-        timed(f"K5 float32 ns=8 {B}x{side}^2",
+        call = f"K5 float32 ns=8 {B}x{side}^2"
+        timed(call,
               lambda: k5.pipeline_dense_step(xb, 0.1, nsteps=8, out=yb,
                                              compute_dtype=BF),
               lambda: k5.pipeline_dense_step(xb, 0.1, nsteps=8,
@@ -2935,9 +3062,35 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
               f"K5 float32 {B}x{side}",
               lambda: k5.pipeline_dense_step(xb, 0.1, nsteps=8, out=yb),
               conv_steps)
-        out["calls"][f"K5 float32 ns=8 {B}x{side}^2"]["bf16_cells"] = \
-            B * inner
-        del base, spaces, svc, outs, xb, yb, x4
+        # each launch's own bound: the near tiles' cells on the exact path
+        # (11 f32 operations a cell-step), the rectangle's on the paired
+        # form (7 a cell-step at the paired bf16 rate); each its cells read
+        # and written once
+        near_cells = cells - B * inner
+        c = out["calls"][call]
+        c.update(bf16_cells=B * inner, near_ms=row["near_ms"],
+                 paired_ms=row["paired_ms"],
+                 near_bound=larger(2 * near_cells * 4 / HBM_BYTES_PER_S
+                                   * 1e3, 88 * near_cells / F32_FLOPS
+                                   * 1e3),
+                 paired_bound=larger(2 * B * inner * 4 / HBM_BYTES_PER_S
+                                     * 1e3, 56 * B * inner / BF16X2_OPS
+                                     * 1e3),
+                 plan=k5.kernel_plan((side, side),
+                                     k5.pipeline_block((side, side), 8), 8,
+                                     compute_dtype=BF))
+        check(c["plan"] == k5.plan_of((side, side), k5.pipeline_block(
+            (side, side), 8), 8, compute_dtype=BF),
+              f"{call}: the source's plan {c['plan']} is not the mirrors'")
+        print(f"bf16-interior {call}: near launch {row['near_ms']:.4f} ms "
+              f"(bound {c['near_bound'][0]:.4f}, {c['near_bound'][1]}), "
+              "paired launch "
+              + (f"{row['paired_ms']:.4f} ms (bound "
+                 f"{c['paired_bound'][0]:.4f}, {c['paired_bound'][1]})"
+                 if row["paired_ms"] else "none")
+              + f", the call {c['ms']:.4f} ms [one kernel with both "
+              f"branches: {K5_BF16_BEFORE_MS[call]} ms, PERF.md]", flush=True)
+        del xb, yb, x4
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
@@ -3218,6 +3371,44 @@ def main() -> int:
         del case
         torch.cuda.empty_cache()
     del v_main
+    # K7 alone: counts 0 (one lane: clip(count, 1, K)), 1, some and K,
+    # rings 1 and 8 (destination columns off every 16-byte boundary), 2-,
+    # 4- and 8-byte elements, tiles whose rows are whole 16-byte chunks
+    # (128 columns) and tiles whose rows are not (13), on a state of NaN:
+    # bit for bit, by the bits (the untouched cells keep theirs)
+    n_k7 = 0
+    for dtype, bits in ((torch.bfloat16, torch.int16),
+                        (torch.float32, torch.int32),
+                        (torch.float64, torch.int64)):
+        dname = str(dtype).removeprefix("torch.")
+        for tile, grid in (((128, 128), (8, 16)), ((16, 13), (6, 5))):
+            (th, tw), (gi, gj) = tile, grid
+            plan = act.plan_for((gi * th, gj * tw), tile=tile,
+                                max_active_frac=1.0)
+            K = plan.capacity
+            rng = np.random.default_rng(SEED + K)
+            upd = torch.from_numpy(rng.uniform(-2.0, 2.0, (K, th, tw))).to(
+                dev, dtype)
+            ids = torch.from_numpy(rng.permutation(K).astype(np.int32)).to(
+                dev)
+            for ring in (1, 8):
+                state = torch.full((gi * th + 2 * ring, gj * tw + 2 * ring),
+                                   float("nan"), dtype=dtype, device=dev)
+                for n in (0, 1, K // 3, K):
+                    cnt1 = torch.tensor([n], dtype=torch.int32, device=dev)
+                    got = fa.fused_scatter(state.clone(), upd, ids, cnt1,
+                                           plan=plan, ring=ring)
+                    want = fa.fused_scatter_plain(state.clone(), upd, ids, n,
+                                                  plan, ring)
+                    ok = bool(torch.equal(got.view(bits), want.view(bits)))
+                    n_k7 += 1
+                    record(f"K7 {dname} tile={tile} ring={ring} count={n}: "
+                           f"bit for bit {ok}", ok)
+                    check(ok, f"K7 disagrees with its plain version: "
+                              f"{dname} tile={tile} ring={ring} count={n}")
+    print(f"K7: {n_k7} cases (counts 0, 1, some, K; rings 1, 8; 2-, 4-, "
+          "8-byte elements; 128- and 13-column tiles; a NaN state) bit for "
+          "bit", flush=True)
     n_big = sum(c["case"].startswith("K6/K7") and " k=1 " not in c["case"]
                 for c in cases)
     print(f"K6/K7: {ncases + 2} cases bit for bit the plain versions "
@@ -3586,12 +3777,22 @@ def main() -> int:
                     plain7 = statistics.median(timed_ms(
                         torch, lambda: fa.fused_scatter_plain(
                             case_p, upd, ids, count, plan, k), reps=3))
+                live = min(max(n, 1), plan.capacity)
+                k7_bound = 2 * live * th * tw * 4 / HBM_BYTES_PER_S * 1e3
+                k7_lib = statistics.median(timed_ms(torch, k7_library(
+                    torch, act, case_p, upd, ids, live, plan, k), reps=10))
                 k67_time[(frac, k)] = {"k6_ms": k6, "k7_ms": k7, "count": n,
                                        "k6_ms_back_to_back": k6_b2b,
                                        "k7_ms_back_to_back": k7_b2b,
+                                       "k7_bound_ms": k7_bound,
+                                       "k7_library_ms": k7_lib,
                                        "tap_lanes": n_taps,
                                        "k6_plain_ms": plain6,
                                        "k7_plain_ms": plain7}
+                print(f"K7 alone serial frac={frac} ring {k}: {k7:.4f} ms "
+                      f"(back to back {k7_b2b:.4f}), bound {k7_bound:.4f} "
+                      f"ms (bytes: {live} live tiles read and written), "
+                      f"index_copy_ {k7_lib:.4f} ms", flush=True)
                 # the run's kernel time: each pass charged with K6 + K7 at
                 # its own depth (n // k passes at depth k, then n % k at
                 # depth 1), both timed on the run's starting state
@@ -4388,10 +4589,16 @@ def main() -> int:
         "launches": row["launches"]["fused_scatter"],
         "max_abs_err": 0.0,
         "ms": kt["k7_ms"], "plain_ms": kt["k7_plain_ms"],
-        "bound_ms": 2 * kt["count"] * 128 * 128 * 4 / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes", "library_ms": None,
+        "ms_back_to_back": kt["k7_ms_back_to_back"],
+        "bound_ms": kt["k7_bound_ms"], "bound_by": "bytes",
+        "library_ms": kt["k7_library_ms"],
+        "library": "index_copy_ of the live tiles' flat cells",
+        "grid": "persistent, 3 blocks an SM, 4 rows a warp",
         "shape": [N, N], "dtype": "float32", "frac": 0.05,
         "active_tiles": kt["count"],
+        "by_frac": {f"{f}": {key: k67_time[(f, 1)][key] for key in (
+            "k7_ms", "k7_ms_back_to_back", "k7_bound_ms", "k7_library_ms",
+            "count")} for f in FRACS},
     })
     for dname, ns in (("float32", 8), ("bfloat16", 16), ("float32", 1),
                       ("bfloat16", 1)):
@@ -4482,7 +4689,7 @@ def main() -> int:
             "max_abs_err": kt["k6_max_abs_err"] if key == "k6" else 0.0,
             "ms": kt[f"{key}_ms"], "plain_ms": kt[f"{key}_plain_ms"],
             "bound_ms": kt[f"{key}_bound_ms"], "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": kt.get(f"{key}_library_ms"),
             "shape": kt["shard"], "dtype": "float32", "k": 1, "frac": 0.05,
             "origin": kt["origin"], "active_tiles": kt["active_tiles"],
             "main_path": main_row,
@@ -4577,7 +4784,40 @@ def main() -> int:
                     | {"instances": sorted(bf16["rows"][run][w]["kernels"])}
                     for w in ("k1_walk", "k3_vpu_walk")
                     if w in bf16["rows"][run]), {}),
+            # K5's bf16 interior math: the near launch and (with closed
+            # tiles) the paired launch, counted as one launch, from the
+            # dispatch's trace, and each one's device ms there
+            **({"kernels_per_launch": bf16["rows"][run]["k5_walk"][
+                    "kernels_per_launch"],
+                "instances": sorted(bf16["rows"][run]["k5_walk"]["kernels"]),
+                "near_ms": c["near_ms"], "paired_ms": c["paired_ms"]}
+               if "k5_walk" in bf16["rows"][run] else {}),
             "main_path": bf16["rows"][run]})
+    # K5's two bf16-interior kernels, each its own row: its launches and its
+    # device ms from the traced dispatch, its cells' bound
+    for B, side in ((B5, N5), (4, N4)):
+        call = f"K5 float32 ns=8 {B}x{side}^2"
+        run = f"K5 ensemble {B}x{side}^2 float32 substeps=8"
+        c, row = bf16["calls"][call], bf16["rows"][run]
+        for kname, key in (("pipeline_near_kernel", "near"),
+                           ("pipeline_bf16_kernel", "paired")):
+            if c[f"{key}_ms"] is None:
+                continue  # no closed tile: no paired launch
+            entries.append({
+                "name": f"K5 {kname} float32 {B}x{side}^2 bf16-interior",
+                "route": "cuda",
+                "source": "mpi_model_tpu_torch/csrc/pipeline_stencil.cu",
+                "replaces": "mpi_model_tpu/ops/pallas_stencil.py:728",
+                "compute_dtype": "bfloat16",
+                "launches": sum(n for k, n in row["k5_walk"][
+                    "kernels"].items() if kname in k),
+                "max_abs_err": c["max_abs_err"],
+                "ms": c[f"{key}_ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c[f"{key}_bound"][0],
+                "bound_by": c[f"{key}_bound"][1], "library_ms": None,
+                "ms_from": "the traced dispatch's device time",
+                "plain_of": "the whole call", "shape": [B, side, side],
+                "nsteps": 8, "main_path": row})
     kernels = {"kernels": entries}
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -29,19 +29,22 @@
 //   rounded bf16 result (f32 carries more than 2*8+2 bits).
 // K7, per live lane: copies upd[l] into the padded state at the tile's
 //   place (offset by the ring). It is its own launch so that every K6
-//   window reads the values from before the pass.
+//   window reads the values from before the pass. A persistent grid of a
+//   few blocks an SM walks the live lanes' rows (fused_scatter_kernel
+//   below), each warp kScatterRows rows at a time in 16-byte chunks.
 //
-// What bounds them: bytes for K7 and for K6 at k = 1 (each live tile's
-// window read once, its tile written once); at k > 1 the tap flops on
+// What bounds them: bytes for K7 (each live tile read once and written
+// once) and for K6 at k = 1 (each live tile's window read once, its tile
+// written once); at k > 1 the tap flops on
 // interior tiles (2 (2k+1)^2 a cell, each multiply and add an instruction
 // of its own under --fmad=false). The design (k56_variants.py measures its
 // choices on the H100; PERF.md):
 //
-//   - A block a lane, the whole tile: the grid is K blocks and those past
-//     the device count exit at once. Persistent blocks striding over the
-//     live lanes (the kernel's lane loop; a grid of a few blocks an SM)
-//     measured no faster. The host never reads the count. A block is nw = ceil((tw + 2k) / 32) warps, up to 8 (5 for
-//     128-wide tiles).
+//   - K6: a block a lane, the whole tile: the grid is K blocks and those
+//     past the device count exit at once. Persistent blocks striding over
+//     the live lanes (the kernel's lane loop; a grid of a few blocks an SM)
+//     measured no faster. The host never reads the count. A block is
+//     nw = ceil((tw + 2k) / 32) warps, up to 8 (5 for 128-wide tiles).
 //   - The exact path is a register column walk (exact_walk.cuh): each
 //     thread holds one window column of a band of kRows rows, loaded
 //     straight from device memory (coalesced along the row; the padded
@@ -338,26 +341,233 @@ __global__ void __launch_bounds__(256, kMinBlocks<T>)
   }
 }
 
-// K7: land each live lane's tile in the padded state. E is an unsigned
-// integer of the element's size: the copy moves bits.
+// K7: land each live lane's tile in the padded state, a persistent walk
+// over the live lanes' rows: the rows of lanes l < clip(count, 1, K) (the
+// count read on the device, as K6's lane loop reads it) are one sequence
+// of cmax * th rows, upd's own order, and each warp of a grid of a few
+// blocks an SM takes kScatterRows consecutive rows of it at a time: the
+// rows' places in the state (their tiles' ids) read first, then all their
+// loads in flight before any store. E is an unsigned integer of the
+// element's size: the copy moves bits, so it is bit for bit by
+// construction, and the state's other bytes are not touched. With `wide`
+// (the host's check: the update rows, tw elements, are whole 16-byte
+// chunks, and the buffer is 16-byte aligned) a lane loads chunk q of an
+// update row with one 16-byte load and stores the destination row's
+// aligned chunks whole: the destination row starts `head` elements before
+// a 16-byte boundary (its column is t % gj * tw + ring, its pitch Wp: any
+// alignment), so destination chunk q takes the last V - head elements of
+// update chunk q and the first head of chunk q + 1, the next lane's (one
+// shuffle of four words; past 32 chunks the last lane loads it itself),
+// joined by a funnel shift of head * sizeof(E) bytes; the lanes holding
+// the row's first and last chunks store its head and tail element by
+// element from their registers. Otherwise every element moves alone. A TMA
+// copy would need 16-byte multiples for the state's row pitch, which ring
+// 1 at 16384 columns (16386 * 4 bytes) is not.
+// rows a warp has in flight, and persistent blocks an SM: of 2, 4, 8 and
+// 16 rows at 1 to 8 blocks an SM, 4 rows at 3 blocks measured fastest on
+// the H100 (k56_variants.py, PERF.md)
+constexpr int kScatterRows = 4;
+constexpr int kScatterBlocksPerSM = 3;
+
+// Word i of the 32 bytes a ++ b.
+__device__ __forceinline__ unsigned word_of(const uint4& a, const uint4& b,
+                                            int i) {
+  switch (i) {
+    case 0: return a.x;
+    case 1: return a.y;
+    case 2: return a.z;
+    case 3: return a.w;
+    case 4: return b.x;
+    case 5: return b.y;
+    case 6: return b.z;
+    default: return b.w;
+  }
+}
+
+// The 16 bytes of a ++ b from byte `off` (even, below 16).
+__device__ __forceinline__ uint4 bytes_from(const uint4& a, const uint4& b,
+                                            int off) {
+  const int k = off >> 2;
+  const unsigned sh = static_cast<unsigned>(off & 3) * 8u;
+  uint4 r;
+  r.x = __funnelshift_r(word_of(a, b, k), word_of(a, b, k + 1), sh);
+  r.y = __funnelshift_r(word_of(a, b, k + 1), word_of(a, b, k + 2), sh);
+  r.z = __funnelshift_r(word_of(a, b, k + 2), word_of(a, b, k + 3), sh);
+  r.w = __funnelshift_r(word_of(a, b, k + 3), word_of(a, b, k + 4), sh);
+  return r;
+}
+
+// Where row r of the live rows lands: row r % th of lane r / th's tile.
 template <typename E>
-__global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY)
+__device__ __forceinline__ E* dst_row(E* __restrict__ padded,
+                                      const int* __restrict__ ids, int r,
+                                      int Wp, int th, int tw, int gj,
+                                      int ring) {
+  const int l = r / th;
+  const int t = ids[l];
+  return padded +
+         (static_cast<size_t>(t / gj) * th + (r - l * th) + ring) * Wp +
+         static_cast<size_t>(t % gj) * tw + ring;
+}
+
+// Element k of the 16 bytes in a (E of 2, 4 or 8 bytes).
+template <typename E>
+__device__ __forceinline__ E elem_of(const uint4& a, int k) {
+  constexpr int S = static_cast<int>(sizeof(E));
+  const unsigned w = word_of(a, a, k * S / 4);
+  if constexpr (S == 2) {
+    return static_cast<E>((k & 1) ? w >> 16 : w & 0xFFFFu);
+  } else if constexpr (S == 4) {
+    return static_cast<E>(w);
+  } else {
+    return static_cast<E>(w) |
+           (static_cast<E>(word_of(a, a, 2 * k + 1)) << 32);
+  }
+}
+
+// One warp's rows r0 .. r0 + kScatterRows - 1 (those below `rows`) in
+// 16-byte chunks; upd's row r starts at upd + r * tw. The destination rows
+// (their tiles' ids) are read first, then every row's chunks are loaded
+// before any is stored. NEXT: rows of more than 32 chunks, whose last lane
+// loads its chunk q + 1 itself (a row of at most 32 chunks has none past
+// its last lane).
+template <typename E, bool NEXT>
+__device__ __forceinline__ void copy_rows_wide(E* __restrict__ padded,
+                                               const E* __restrict__ upd,
+                                               const int* __restrict__ ids,
+                                               int r0, int rows, int Wp,
+                                               int th, int tw, int gj,
+                                               int ring) {
+  constexpr int V = 16 / static_cast<int>(sizeof(E));
+  const int lane = threadIdx.x;
+  const int nch = tw / V;  // 16-byte chunks of an update row
+  E* drow[kScatterRows];
+#pragma unroll
+  for (int u = 0; u < kScatterRows; ++u) {
+    drow[u] = r0 + u < rows ? dst_row(padded, ids, r0 + u, Wp, th, tw, gj,
+                                      ring)
+                            : padded;
+  }
+  for (int p0 = 0; p0 < nch; p0 += 32) {
+    const int q = p0 + lane;
+    uint4 a[kScatterRows];
+    uint4 b[NEXT ? kScatterRows : 1];
+#pragma unroll
+    for (int u = 0; u < kScatterRows; ++u) {
+      const uint4* row = reinterpret_cast<const uint4*>(
+          upd + static_cast<size_t>(r0 + u) * tw);
+      const bool in = r0 + u < rows;
+      a[u] = in && q < nch ? row[q] : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (NEXT) {
+        b[u] = lane == 31 && in && q + 1 < nch ? row[q + 1]
+                                               : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterRows; ++u) {
+      if (r0 + u >= rows) break;  // warp-uniform
+      // chunk q + 1: the next lane's
+      uint4 n = make_uint4(__shfl_down_sync(mm::kFull, a[u].x, 1),
+                           __shfl_down_sync(mm::kFull, a[u].y, 1),
+                           __shfl_down_sync(mm::kFull, a[u].z, 1),
+                           __shfl_down_sync(mm::kFull, a[u].w, 1));
+      if constexpr (NEXT) {
+        if (lane == 31) n = b[u];
+      }
+      E* d = drow[u];
+      // elements before the row's first 16-byte boundary (warp-uniform)
+      const int head =
+          static_cast<int>((16u - reinterpret_cast<uintptr_t>(d) % 16u) %
+                           16u) / static_cast<int>(sizeof(E));
+      if (head == 0) {
+        if (q < nch) *reinterpret_cast<uint4*>(d + q * V) = a[u];
+        continue;
+      }
+      // the aligned chunks (nch - 1 of them), then the head from chunk 0
+      // and the tail from the last chunk, each by the lane that holds it
+      if (q < nch - 1) {
+        *reinterpret_cast<uint4*>(d + head + q * V) =
+            bytes_from(a[u], n, head * static_cast<int>(sizeof(E)));
+      }
+      if (q == 0) {
+        for (int k = 0; k < head; ++k) d[k] = elem_of<E>(a[u], k);
+      }
+      if (q == nch - 1) {
+        for (int k = head; k < V; ++k) d[q * V + k] = elem_of<E>(a[u], k);
+      }
+    }
+  }
+}
+
+// The same rows element by element (any tw, any alignment).
+template <typename E>
+__device__ __forceinline__ void copy_rows_scalar(E* __restrict__ padded,
+                                                 const E* __restrict__ upd,
+                                                 const int* __restrict__ ids,
+                                                 int r0, int rows, int Wp,
+                                                 int th, int tw, int gj,
+                                                 int ring) {
+  const int lane = threadIdx.x;
+  E* drow[kScatterRows];
+#pragma unroll
+  for (int u = 0; u < kScatterRows; ++u) {
+    drow[u] = r0 + u < rows ? dst_row(padded, ids, r0 + u, Wp, th, tw, gj,
+                                      ring)
+                            : padded;
+  }
+  for (int j0 = 0; j0 < tw; j0 += 32) {
+    const int j = j0 + lane;
+    E x[kScatterRows];
+#pragma unroll
+    for (int u = 0; u < kScatterRows; ++u) {
+      x[u] = r0 + u < rows && j < tw
+                 ? upd[static_cast<size_t>(r0 + u) * tw + j]
+                 : E(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterRows; ++u) {
+      if (r0 + u >= rows) break;
+      if (j < tw) drow[u][j] = x[u];
+    }
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(mm::kThreadsX* mm::kThreadsY,
+                                  kScatterBlocksPerSM)
     fused_scatter_kernel(E* __restrict__ padded, const E* __restrict__ upd,
                          const int* __restrict__ ids,
                          const int* __restrict__ count, int Wp, int K, int th,
-                         int tw, int gj, int ring) {
-  const int l = static_cast<int>(blockIdx.x);
+                         int tw, int gj, int ring, int wide) {
   const int cmax = min(max(count[0], 1), K);
-  if (l >= cmax) return;
-  const int t = ids[l];
-  const size_t r0 = static_cast<size_t>(t / gj) * th + ring;
-  const size_t c0 = static_cast<size_t>(t % gj) * tw + ring;
-  const E* src = upd + static_cast<size_t>(l) * th * tw;
-  for (int i = threadIdx.y; i < th; i += mm::kThreadsY) {
-    for (int j = threadIdx.x; j < tw; j += mm::kThreadsX) {
-      padded[(r0 + i) * Wp + c0 + j] = src[i * tw + j];
+  const int rows = cmax * th;  // the live lanes' rows, in upd's order
+  const int warps = static_cast<int>(gridDim.x * blockDim.y);
+  const int warp = static_cast<int>(blockIdx.x * blockDim.y + threadIdx.y);
+  for (int r0 = warp * kScatterRows; r0 < rows;
+       r0 += warps * kScatterRows) {
+    if (wide && tw * static_cast<int>(sizeof(E)) > 32 * 16) {
+      copy_rows_wide<E, true>(padded, upd, ids, r0, rows, Wp, th, tw, gj,
+                              ring);
+    } else if (wide) {
+      copy_rows_wide<E, false>(padded, upd, ids, r0, rows, Wp, th, tw, gj,
+                               ring);
+    } else {
+      copy_rows_scalar(padded, upd, ids, r0, rows, Wp, th, tw, gj, ring);
     }
   }
+}
+
+// K7's grid: kScatterBlocksPerSM blocks an SM of the current device, at
+// most one a lane.
+cudaError_t scatter_blocks(int K, int* blocks) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int most = kScatterBlocksPerSM * sms;
+  *blocks = K < most ? K : most;
+  return e;
 }
 
 bool valid(const Geometry& g, int noff, int itemsize, bool taps) {
@@ -440,11 +650,17 @@ int launch_scatter(void* padded, const void* upd, const void* ids,
   if (K < 1 || th < 1 || tw < 1 || ring < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int blocks = 0;
+  const cudaError_t e = scatter_blocks(K, &blocks);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int wide = (tw * static_cast<int>(sizeof(E))) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(upd) % 16 == 0;
   const dim3 block(mm::kThreadsX, mm::kThreadsY);
-  fused_scatter_kernel<E><<<K, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  fused_scatter_kernel<E><<<blocks, block, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<E*>(padded), static_cast<const E*>(upd),
       static_cast<const int*>(ids), static_cast<const int*>(count), Wp, K, th,
-      tw, gj, ring);
+      tw, gj, ring, wide);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,6 +716,13 @@ int mm_fused_scatter(int itemsize, void* padded, const void* upd,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K7's blocks for a capacity of K lanes on the current device (-1 on an
+// error).
+int mm_fused_scatter_blocks(int K) {
+  int blocks = 0;
+  return scatter_blocks(K, &blocks) == cudaSuccess ? blocks : -1;
 }
 
 // K6's dynamic shared memory for a launch of this geometry.

@@ -292,18 +292,9 @@ __device__ __forceinline__ void near_body(const Src& src,
   }
 }
 
-// Whether window row i of a tile whose window starts at row r is one of the
-// tile's output rows inside its region (every cell of the rectangle has
-// d > n: no distance test).
-template <int ROWS>
-__device__ __forceinline__ bool writes_row(const RegionTiling& tl, int r,
-                                           int i) {
-  return i >= tl.n && i < ROWS - tl.n && r + i < tl.r1;
-}
-
 // The paired launch on one tile of the rectangle: the closed form in bf16.
-// Moore on paired bf16 (paired_step) over the window loaded into its
-// pairs; other neighbourhoods on the f32 walk with every operation rounded
+// Moore on paired bf16 (mm::paired_tile, shared with K5's paired launch);
+// other neighbourhoods on the f32 walk with every operation rounded
 // (mm::closed_walk_bf16) over a staged window.
 template <int ROWS, bool MOORE, typename T, typename Src>
 __device__ __forceinline__ void bf16_body(const Src& src,
@@ -311,52 +302,14 @@ __device__ __forceinline__ void bf16_body(const Src& src,
                                           const Params& p,
                                           const RegionTiling& tl) {
   const int t = blockIdx.x;
-  const int n = p.nsteps;
-  const int j = threadIdx.y * 32 + threadIdx.x;
-  const int r = tl.row_of(t) - n;  // the window's first row and column
-  const int c = tl.col_of(t) + j - n;
-  const bool col_out = j >= n && j < WIN_W - n && c < tl.c1;
   if constexpr (MOORE) {
-    constexpr int P = ROWS / 2;
-    constexpr int kExch = mm::kEdgeSlots * P;  // one parity's words
-    extern __shared__ __align__(16) float smem[];
-    unsigned* ex16 = reinterpret_cast<unsigned*>(smem);
-    T* stage = reinterpret_cast<T*>(smem + 2 * kExch);
-    const int skew =
-        mm::stage_window<ROWS>(src, p, tl, t, tl.interior(t), stage);
-    for (int k = j; k < 2 * kExch; k += 32 * NWARPS) ex16[k] = 0u;
-    mm::cp_async_wait_all();
-    __syncthreads();
-    // the staged window into pairs of rows, rounded to bf16
-    const T* col = stage + skew + j;
-    unsigned w[P];
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      w[m] = mm::pair_of(col + 2 * m * mm::kStagePitch<T>,
-                         col + (2 * m + 1) * mm::kStagePitch<T>);
-    }
-    const unsigned ca = p.ca16 | (p.ca16 << 16);
-    const unsigned cb = p.cb16 | (p.cb16 << 16);
-    for (int s = 0; s < n; ++s) {
-      mm::paired_step<ROWS>(w, ex16 + (s & 1) * kExch,
-                            [&](int, unsigned old, unsigned g) {
-                              return mm::add_bf2(mm::mul_bf2(old, ca),
-                                                 mm::mul_bf2(g, cb));
-                            });
-    }
-    if (!col_out) return;
-#pragma unroll
-    for (int m = 0; m < P; ++m) {
-      if (writes_row<ROWS>(tl, r, 2 * m)) {
-        mm::from_f32(out + static_cast<size_t>(r + 2 * m) * tl.w + c,
-                     mm::lo_f32(w[m]));
-      }
-      if (writes_row<ROWS>(tl, r, 2 * m + 1)) {
-        mm::from_f32(out + static_cast<size_t>(r + 2 * m + 1) * tl.w + c,
-                     mm::hi_f32(w[m]));
-      }
-    }
+    mm::paired_tile<ROWS>(src, out, p, tl, t);
   } else {
+    const int n = p.nsteps;
+    const int j = threadIdx.y * 32 + threadIdx.x;
+    const int r = tl.row_of(t) - n;  // the window's first row and column
+    const int c = tl.col_of(t) + j - n;
+    const bool col_out = j >= n && j < WIN_W - n && c < tl.c1;
     extern __shared__ __align__(16) float smem[];
     float* ex = smem;
     T* stage = reinterpret_cast<T*>(smem + mm::kExchFloats<ROWS>);
@@ -376,7 +329,7 @@ __device__ __forceinline__ void bf16_body(const Src& src,
     if (!col_out) return;
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) {
-      if (writes_row<ROWS>(tl, r, i)) {
+      if (mm::writes_row<ROWS>(tl, r, i)) {
         mm::from_f32(out + static_cast<size_t>(r + i) * tl.w + c, v[i]);
       }
     }

@@ -23,12 +23,37 @@
 //     kernel's weak-typed Python floats).
 //
 // bf16 interior math (compute_dtype=bfloat16, `bf16`): the closed tiles
-// compute in bf16, as the TPU kernel's do (pallas_stencil.py:656):
-// mm::closed_walk_bf16 (Moore on paired bf16, add.rn.bf16x2 / mul.rn.bf16x2;
-// other neighbourhoods the f32 walk with every operation rounded), the
-// window rounded to bf16 on the way in, the constants rounded to bf16 on
-// the host. Near tiles stay f32, as the TPU kernel's do. A runtime flag,
-// not a template: the near branch, the long one to compile, is shared.
+// compute in bf16, as the TPU kernel's do (pallas_stencil.py:656), the
+// constants rounded to bf16 on the host; near tiles stay f32, as the TPU
+// kernel's do. Moore in its row-major order (the main path's) is two
+// launches on the caller's stream, each writing only its own cells:
+//
+//   - the near launch (pipeline_near_kernel) steps the windows of the near
+//     TPU tiles only (the tiles off the rectangle of closed tiles, as four
+//     bands of tiles, NearTiles), with the near branch below and nothing of
+//     the closed one, at rows_for's rows;
+//   - the paired launch (pipeline_bf16_kernel) tiles each lane's rectangle
+//     of closed tiles from its origin (one rectangle of cells: the closed
+//     form does not depend on the position, so its windows need not restart
+//     at the TPU tiles) with K1's paired walk (stencil_common.cuh
+//     paired_tile: row pairs in bf16x2 registers, the bands of a step's
+//     first pass kept for its second, the window staged raw by cp.async),
+//     at paired_rows' rows.
+//
+//   A lane with no closed tile (every lane of 8 x 4096^2 at JAX's blocks)
+//   makes the near launch alone. Measured on the H100 against the one
+//   kernel with both branches (k56_variants.py, PERF.md): 1.09x faster at
+//   4 x 8192^2 ns=8 in f32 storage, 1.15x in bf16 (the paired walk, 0.55
+//   ms, in place of the bands re-formed every step); the near-only
+//   instance keeps no spill at 64 rows (the one kernel's spills 188-276 B)
+//   and runs no faster than the one kernel's near branch (8 x 4096^2);
+//   at ns=1 in f32 storage the two launches are 4% slower.
+//
+// Other neighbourhoods and offset orders keep one kernel with both branches:
+// mm::closed_walk_bf16 on the closed tiles (Moore on paired bf16, others the
+// f32 walk with every operation rounded), the window rounded to bf16 on the
+// way in. A runtime flag, not a template: the near branch, the long one to
+// compile, is shared.
 //
 // Storage is float or __nv_bfloat16, cast to f32 once on the way in and
 // once on the way out. Every operation is an explicitly rounded intrinsic
@@ -66,10 +91,12 @@
 //     instructions a row, 1.6x the kernel; it stays for neighbourhoods whose
 //     full count is not a power of two.
 //   - Window rows: 48, or 64 for Moore in its row-major order above 2
-//     steps (rows_for; k56_variants.py measures the choice).
+//     steps (rows_for; k56_variants.py measures the choice), the near
+//     launch's too (48 against 64 rows at 8 steps: 1.05x slower); the
+//     paired launch K1's (paired_rows: 64 up to 2 steps, 96 above).
 //
 // C interface (loaded with ctypes): each entry point returns the
-// cudaError_t of its launch, 0 on success.
+// cudaError_t of its launches, 0 on success.
 
 #include "exact_walk.cuh"
 
@@ -78,6 +105,7 @@ namespace {
 constexpr int kWarps = mm::kThreadsY;
 constexpr int kWinW = mm::kWinW;
 constexpr int MAX_STEPS = 8;
+constexpr int DEFAULT_SMEM_LIMIT = 48 * 1024;
 
 struct Params {
   int H, W;        // one lane's grid
@@ -103,6 +131,11 @@ struct Windows {
   int tiles;       // windows of a lane
 };
 
+bool row_major_moore(const Params& p) {
+  return p.moore &&
+         static_cast<unsigned>(p.offcodes) == mm_exact::kMooreCodes;
+}
+
 // The window rows of a call (a compile-time constant of each instance).
 int rows_for(const Params& p) {
   return p.moore && static_cast<unsigned>(p.offcodes) ==
@@ -111,9 +144,13 @@ int rows_for(const Params& p) {
              : 48;
 }
 
-Windows windows_of(const Params& p) {
+// The paired launch's window rows: K1's rule
+// (ops/fused_stencil.py::paired_rows), 64 up to 2 steps.
+int paired_rows(const Params& p) { return p.nsteps > 2 ? 96 : 64; }
+
+Windows windows_of(const Params& p, int rows) {
   Windows w;
-  w.rows = rows_for(p);
+  w.rows = rows;
   w.oh = w.rows - 2 * p.nsteps;
   w.ow = kWinW - 2 * p.nsteps;
   w.wr = (p.BR + w.oh - 1) / w.oh;
@@ -121,6 +158,65 @@ Windows windows_of(const Params& p) {
   w.tiles_c = p.W / p.BC * w.wc;
   w.tiles = p.H / p.BR * w.wr * w.tiles_c;
   return w;
+}
+
+// The closed TPU tiles of a lane: tile rows [tr0, tr1) and columns
+// [tc0, tc1), the tiles that are not near (the kernel's near test, JAX's
+// pallas_stencil.py:391-392); the near test holds along each axis alone, so
+// they form one rectangle. No closed tile: tr0 == tr1 == 0.
+struct Closed {
+  int tr0, tr1, tc0, tc1;
+  bool empty() const { return tr0 >= tr1; }
+};
+
+// The tiles of [0, extent) in blocks of b that are not near an edge.
+void closed_span(int extent, int b, int n, int& t0, int& t1) {
+  t0 = t1 = 0;
+  bool any = false;
+  for (int t = 0; t < extent / b; ++t) {
+    if (t * b > n && t * b + b < extent - n) {
+      if (!any) t0 = t;
+      t1 = t + 1;
+      any = true;
+    }
+  }
+}
+
+Closed closed_of(const Params& p) {
+  Closed q;
+  closed_span(p.H, p.BR, p.nsteps, q.tr0, q.tr1);
+  closed_span(p.W, p.BC, p.nsteps, q.tc0, q.tc1);
+  if (q.tr0 >= q.tr1 || q.tc0 >= q.tc1) q = Closed{0, 0, 0, 0};
+  return q;
+}
+
+// The near launch's TPU tiles: four bands of tiles around the closed ones
+// (top, bottom, left, right; with no closed tile the top band is every
+// tile). Block b of a lane steps window b % per of the band's tile
+// (b / per) - first[k], k the last band with first[k] <= b / per, taken row
+// by row across the band's `cols` tiles from tile (r0[k], c0[k]). A kernel
+// parameter in the parameter space (__grid_constant__), read by index.
+struct NearTiles {
+  int first[4];
+  int r0[4], c0[4], cols[4];
+};
+
+int near_tiles(const Params& p, const Closed& q, NearTiles& nt) {
+  const int nr = p.H / p.BR, nc = p.W / p.BC;
+  const int rows[4] = {q.empty() ? nr : q.tr0, q.empty() ? 0 : nr - q.tr1,
+                       q.tr1 - q.tr0, q.tr1 - q.tr0};
+  const int r0[4] = {0, q.tr1, q.tr0, q.tr0};
+  const int c0[4] = {0, 0, 0, q.tc1};
+  const int cols[4] = {nc, nc, q.tc0, nc - q.tc1};
+  int tiles = 0;
+  for (int k = 0; k < 4; ++k) {
+    nt.first[k] = tiles;
+    nt.r0[k] = r0[k];
+    nt.c0[k] = c0[k];
+    nt.cols[k] = cols[k] > 0 ? cols[k] : 1;
+    tiles += cols[k] > 0 ? rows[k] * cols[k] : 0;
+  }
+  return tiles;
 }
 
 template <int ROWS>
@@ -174,6 +270,70 @@ __device__ __forceinline__ void write_window(T* __restrict__ out,
       mm::from_f32(out + static_cast<size_t>(r) * p.W + c, v[i]);
     }
   }
+}
+
+// This thread's column of the window whose first row is r0 (zero off the
+// grid), from device memory.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_column(const T* __restrict__ in,
+                                            const Params& p, int r0, int c,
+                                            float (&v)[ROWS]) {
+  const bool col_in = c >= 0 && c < p.W;
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = r0 + i;
+    v[i] = col_in && r >= 0 && r < p.H
+               ? mm::to_f32(in[static_cast<size_t>(r) * p.W + c])
+               : 0.f;
+  }
+}
+
+// The near tiles' form on the window in registers (the exact path), for
+// the window's outputs [o_r0, o_r1) x [o_c0, o_c1). Returns true when it
+// has written them (an edge window: its cells more than n from the edge,
+// then K1's exact pieces on the border strips); else the caller writes the
+// window. pipeline_stencil_kernel's near branch is this code written out
+// in place: called from there, it cost three of that kernel's instances 4
+// to 8 more bytes of spill loads (ptxas on sm_90a).
+template <int ROWS, unsigned CODES, int NOFF, typename T>
+__device__ __forceinline__ bool near_steps(const T* __restrict__ in,
+                                           T* __restrict__ out,
+                                           float (&v)[ROWS], float* smem,
+                                           const Params& p, int r0, int c,
+                                           int o_r0, int o_r1, int o_c0,
+                                           int o_c1) {
+  const int n = p.nsteps;
+  const mm_exact::Cell<float> cell = mm_exact::make_cell<float>(
+      p.rate, p.mask9, p.noff, p.offcodes, p.H, p.W);
+  // every output more than n from the global edge
+  const bool inner = o_r0 >= n + 1 && o_r1 <= p.H - 1 - n &&
+                     o_c0 >= n + 1 && o_c1 <= p.W - 1 - n;
+  if (cell.inv == 0.f) {
+    // a full count that is not a power of two: per-cell counts throughout
+    exact_steps<ROWS, false, CODES, NOFF>(v, smem, p, cell, r0, c);
+  } else {
+    exact_steps<ROWS, true, CODES, NOFF>(v, smem, p, cell, r0, c);
+    if (!inner) {
+      // the walk's full count holds for the outputs more than n from the
+      // edge; the n + 1 deep border strips take K1's exact pieces
+      write_window<ROWS>(out, v, p, r0, c, o_r1, o_c1, true);
+      __syncthreads();  // the walk's exchange becomes the pieces' buffers
+      mm::StepParams sp{};
+      sp.nsteps = n;
+      sp.mask9 = p.mask9;
+      sp.noff = p.noff;
+      sp.offcodes = p.offcodes;
+      sp.rate = p.rate;
+      sp.keep = p.keep;
+      mm::Tiling tl{};  // the whole grid: what exact_cells reads of it
+      tl.h = tl.H = p.H;
+      tl.w = tl.W = p.W;
+      mm::exact_cells(mm::DenseSource<T>{in, p.H, p.W}, out, sp, tl, o_r0,
+                      o_r1, o_c0, o_c1, smem, smem + mm::piece_floats(n));
+      return true;
+    }
+  }
+  return false;
 }
 
 template <typename T, int ROWS, bool MOORE, unsigned CODES, int NOFF>
@@ -267,36 +427,176 @@ __global__ void __launch_bounds__(32 * kWarps, 2)
   write_window<ROWS>(out, v, p, r0, c, o_r1, o_c1, false);
 }
 
+// The bf16 interior math's near launch: the windows of the near TPU tiles
+// (NearTiles), the near branch alone. The grid is (near tiles x wr x wc
+// windows, lanes).
+template <typename T, int ROWS, unsigned CODES, int NOFF>
+__global__ void __launch_bounds__(32 * kWarps, 2)
+    pipeline_near_kernel(const T* __restrict__ in, T* __restrict__ out,
+                         Params p, Windows wn,
+                         const __grid_constant__ NearTiles nt) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = p.nsteps;
+  const size_t lane = static_cast<size_t>(blockIdx.y) * p.H * p.W;
+  in += lane;
+  out += lane;
+  const int per = wn.wr * wn.wc;  // windows a TPU tile
+  const int k = static_cast<int>(blockIdx.x) / per;
+  const int w = static_cast<int>(blockIdx.x) - k * per;
+  int band = 0;
+#pragma unroll
+  for (int q = 1; q < 4; ++q) {
+    if (k >= nt.first[q]) band = q;
+  }
+  const int kb = k - nt.first[band];
+  const int g_r0 = (nt.r0[band] + kb / nt.cols[band]) * p.BR;
+  const int g_c0 = (nt.c0[band] + kb % nt.cols[band]) * p.BC;
+  const int o_r0 = g_r0 + w / wn.wc * wn.oh;
+  const int o_c0 = g_c0 + w % wn.wc * wn.ow;
+  const int o_r1 = min(o_r0 + wn.oh, g_r0 + p.BR);
+  const int o_c1 = min(o_c0 + wn.ow, g_c0 + p.BC);
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int r0 = o_r0 - n;
+  const int c = o_c0 - n + j;
+  float v[ROWS];
+  load_column<ROWS>(in, p, r0, c, v);
+  if (near_steps<ROWS, CODES, NOFF>(in, out, v, smem, p, r0, c, o_r0, o_r1,
+                                    o_c0, o_c1)) {
+    return;
+  }
+  write_window<ROWS>(out, v, p, r0, c, o_r1, o_c1, false);
+}
+
+// The bf16 interior math's paired launch: tile blockIdx.x of the lane's
+// rectangle (blockIdx.y), K1's paired walk.
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(32 * kWarps, 2)
+    pipeline_bf16_kernel(const T* __restrict__ in, T* __restrict__ out,
+                         mm::StepParams sp, mm::RegionTiling tl) {
+  const size_t lane = static_cast<size_t>(blockIdx.y) * tl.H * tl.W;
+  mm::paired_tile<ROWS>(mm::DenseSource<T>{in + lane, tl.H, tl.W},
+                        out + lane, sp, tl, static_cast<int>(blockIdx.x));
+}
+
+// Shared memory of a window of the near branch: the walks' exchange, or
+// the border strips' two piece buffers (at most 28.8 KB at 8 steps: below
+// the default limit).
+template <int ROWS>
+int near_smem(int n) {
+  const int pieces = 2 * mm::piece_floats(n);
+  return (smem_floats<ROWS>() > pieces ? smem_floats<ROWS>() : pieces) *
+         static_cast<int>(sizeof(float));
+}
+
 template <typename T, int ROWS, bool MOORE, unsigned CODES, int NOFF>
 int launch_rows(const void* in, void* out, int B, const Params& p,
                 void* stream) {
-  const Windows wn = windows_of(p);
+  const Windows wn = windows_of(p, rows_for(p));
   if (wn.rows != ROWS) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = pipeline_stencil_kernel<T, ROWS, MOORE, CODES, NOFF>;
-  // the walks' exchange, or the border strips' two piece buffers (at most
-  // 28.8 KB at 8 steps: below the default limit)
-  const int pieces = 2 * mm::piece_floats(p.nsteps);
-  const int smem = (smem_floats<ROWS>() > pieces ? smem_floats<ROWS>()
-                                                 : pieces) *
-                   static_cast<int>(sizeof(float));
-  kernel<<<dim3(wn.tiles, B), dim3(32, kWarps), smem,
+  kernel<<<dim3(wn.tiles, B), dim3(32, kWarps), near_smem<ROWS>(p.nsteps),
            static_cast<cudaStream_t>(stream)>>>(static_cast<const T*>(in),
                                                 static_cast<T*>(out), p, wn);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int ROWS>
+cudaError_t launch_near(const void* in, void* out, int B, const Params& p,
+                        const NearTiles& nt, int tiles, void* stream) {
+  const Windows wn = windows_of(p, ROWS);
+  const auto kernel =
+      pipeline_near_kernel<T, ROWS, mm_exact::kMooreCodes, 8>;
+  kernel<<<dim3(tiles * wn.wr * wn.wc, B), dim3(32, kWarps),
+           near_smem<ROWS>(p.nsteps), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), p, wn, nt);
+  return cudaGetLastError();
+}
+
+template <typename T, int ROWS>
+cudaError_t launch_paired(const void* in, void* out, int B,
+                          const mm::StepParams& sp,
+                          const mm::RegionTiling& tl, void* stream) {
+  const auto kernel = pipeline_bf16_kernel<T, ROWS>;
+  static int limit = DEFAULT_SMEM_LIMIT;  // per template instance
+  // the exchange in pair words and the staged window
+  const int smem = 2 * mm::kEdgeSlots * (ROWS / 2) *
+                       static_cast<int>(sizeof(float)) +
+                   mm::stage_bytes<T, ROWS>();
+  if (smem > limit) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    limit = smem;
+  }
+  kernel<<<dim3(tl.tiles, B), dim3(32, kWarps), smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(in), static_cast<T*>(out), sp, tl);
+  return cudaGetLastError();
+}
+
+// The paired launch's tiling of a lane's rectangle and its step
+// parameters.
+mm::RegionTiling paired_tiling(const Params& p, const Closed& q, int rows16,
+                               int vec) {
+  const mm::Array a{p.H, p.W, 0, 0, p.H, p.W, vec};
+  return mm::region_tiling(rows16, p.nsteps, p.nsteps, a, q.tr0 * p.BR,
+                           q.tr1 * p.BR, q.tc0 * p.BC, q.tc1 * p.BC);
+}
+
+// A bf16-interior call of Moore in its row-major order: the near launch
+// over the near TPU tiles, then the paired launch over the rectangle of
+// closed tiles (none without a closed tile: CUDA refuses 0 blocks; that is
+// the call's geometry, not a fallback).
+template <typename T>
+int launch_two(const void* in, void* out, int B, const Params& p,
+               void* stream) {
+  const Closed q = closed_of(p);
+  NearTiles nt;
+  const int tiles = near_tiles(p, q, nt);
+  cudaError_t err = cudaSuccess;
+  if (tiles > 0) {
+    err = rows_for(p) == 64
+              ? launch_near<T, 64>(in, out, B, p, nt, tiles, stream)
+              : launch_near<T, 48>(in, out, B, p, nt, tiles, stream);
+  }
+  if (err != cudaSuccess || q.empty()) return static_cast<int>(err);
+  mm::StepParams sp{};
+  sp.nsteps = p.nsteps;
+  sp.mask9 = p.mask9;
+  sp.noff = p.noff;
+  sp.offcodes = p.offcodes;
+  sp.moore = p.moore;
+  sp.vec = mm::rows_aligned<T>(in, p.W);
+  sp.rate = p.rate;
+  sp.keep = p.keep;
+  sp.ca = p.ca;
+  sp.cb = p.cb;
+  sp.ca16 = p.ca16;
+  sp.cb16 = p.cb16;
+  const int rows16 = paired_rows(p);
+  const mm::RegionTiling tl = paired_tiling(p, q, rows16, sp.vec);
+  err = rows16 == 96 ? launch_paired<T, 96>(in, out, B, sp, tl, stream)
+                     : launch_paired<T, 64>(in, out, B, sp, tl, stream);
+  return static_cast<int>(err);
+}
+
+bool valid(const Params& p, int B) {
+  return !(p.nsteps < 1 || p.nsteps > MAX_STEPS ||
+           (p.mask9 & ~0x1EF) != 0 || p.mask9 == 0 ||
+           p.noff != __builtin_popcount(p.mask9) || B < 0 || p.H < 0 ||
+           p.W < 0 || p.BR < 1 || p.BC < 1 || p.BR % 16 != 0 ||
+           p.BC % 128 != 0 || p.H % p.BR != 0 || p.W % p.BC != 0 ||
+           B > 65535);
+}
+
 template <typename T>
 int launch(const void* in, void* out, int B, const Params& p, void* stream) {
-  if (p.nsteps < 1 || p.nsteps > MAX_STEPS || (p.mask9 & ~0x1EF) != 0 ||
-      p.mask9 == 0 || p.noff != __builtin_popcount(p.mask9) || B < 0 ||
-      p.H < 0 || p.W < 0 || p.BR < 1 || p.BC < 1 || p.BR % 16 != 0 ||
-      p.BC % 128 != 0 || p.H % p.BR != 0 || p.W % p.BC != 0 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!valid(p, B)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || p.H == 0 || p.W == 0) return 0;
-  const bool row_major =
-      static_cast<unsigned>(p.offcodes) == mm_exact::kMooreCodes;
-  if (p.moore && row_major) {
+  if (p.bf16 && row_major_moore(p)) {
+    return launch_two<T>(in, out, B, p, stream);
+  }
+  if (row_major_moore(p)) {
     return rows_for(p) == 64
                ? launch_rows<T, 64, true, mm_exact::kMooreCodes, 8>(
                      in, out, B, p, stream)
@@ -368,6 +668,47 @@ int mm_pipeline_rows(int nsteps, int offcodes, int moore) {
   p.offcodes = offcodes;
   p.moore = moore;
   return rows_for(p);
+}
+
+// The geometry launch() gives a call on one lane of [H, W] in (BR, BC) TPU
+// tiles (ops/pipeline_stencil.py::kernel_plan; 10 ints): out[0] whether it
+// takes the two launches; out[1] the near (or only) launch's window rows,
+// out[2] its blocks a lane; out[3] the paired launch's rows, out[4] its
+// tiles a lane (0: not launched), out[5..8] the rectangle (rows [r0, r1),
+// columns [c0, c1)); out[9] the near launch's TPU tiles a lane. It launches
+// nothing: the card tests and chip_smoke.py hold the wrapper's mirrors to
+// it.
+int mm_pipeline_plan(int H, int W, int BR, int BC, int nsteps, int mask9,
+                     int noff, int offcodes, int moore, int bf16, int* out) {
+  const Params p = make_params(H, W, BR, BC, 0.f, 0.f, 0.f, 0.f, nsteps,
+                               mask9, noff, offcodes, moore, bf16, 0.f, 0.f);
+  if (!valid(p, 1) || out == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int k = 0; k < 10; ++k) out[k] = 0;
+  if (!(bf16 && row_major_moore(p))) {
+    out[1] = rows_for(p);
+    out[2] = windows_of(p, out[1]).tiles;
+    return 0;
+  }
+  const Closed q = closed_of(p);
+  NearTiles nt;
+  const int tiles = near_tiles(p, q, nt);
+  const Windows wn = windows_of(p, rows_for(p));
+  out[0] = 1;
+  out[1] = wn.rows;
+  out[2] = tiles * wn.wr * wn.wc;
+  out[3] = paired_rows(p);
+  if (!q.empty()) {
+    const mm::RegionTiling tl = paired_tiling(p, q, out[3], 0);
+    out[4] = tl.tiles;
+    out[5] = tl.r0;
+    out[6] = tl.r1;
+    out[7] = tl.c0;
+    out[8] = tl.c1;
+  }
+  out[9] = tiles;
+  return 0;
 }
 
 const char* mm_cuda_error_string(int err) {

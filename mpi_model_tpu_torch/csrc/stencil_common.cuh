@@ -934,6 +934,73 @@ __device__ __forceinline__ int col_end(const RegionTiling& tl) {
   return tl.c1;
 }
 
+// Whether window row i of a tile whose window starts at row r is one of the
+// tile's output rows inside its region (every cell of a bf16 rectangle has
+// d > n: no distance test).
+template <int ROWS>
+__device__ __forceinline__ bool writes_row(const RegionTiling& tl, int r,
+                                           int i) {
+  return i >= tl.n && i < ROWS - tl.n && r + i < tl.r1;
+}
+
+// The paired launch's walk on tile t of a rectangle's tiling (K1/K2's
+// fused_stencil_bf16_kernel, K5's pipeline_bf16_kernel): the Moore closed
+// form in bf16 (paired_step: window rows 2m and 2m + 1 a register, the bands
+// of a step's first pass kept for its second) over the tile's window, staged
+// raw by cp.async where it lies inside the array (else through the source)
+// and read into its pairs (an f32 grid rounded to bf16 on the way in), then
+// the tile's cells of the region written. `out` is the array the tiling
+// describes (row pitch tl.w). Shared memory: the exchange in pair words,
+// [2][kEdgeSlots][ROWS / 2], then the staged window.
+template <int ROWS, typename T, typename Src>
+__device__ __forceinline__ void paired_tile(const Src& src,
+                                            T* __restrict__ out,
+                                            const StepParams& p,
+                                            const RegionTiling& tl, int t) {
+  const int n = p.nsteps;
+  const int j = threadIdx.y * 32 + threadIdx.x;
+  const int r = tl.row_of(t) - n;  // the window's first row and column
+  const int c = tl.col_of(t) + j - n;
+  const bool col_out = j >= n && j < kWinW - n && c < tl.c1;
+  constexpr int P = ROWS / 2;
+  constexpr int kExch = kEdgeSlots * P;  // one parity's words
+  extern __shared__ __align__(16) float smem[];
+  unsigned* ex16 = reinterpret_cast<unsigned*>(smem);
+  T* stage = reinterpret_cast<T*>(smem + 2 * kExch);
+  const int skew = stage_window<ROWS>(src, p, tl, t, tl.interior(t), stage);
+  for (int k = j; k < 2 * kExch; k += kWinW) ex16[k] = 0u;
+  cp_async_wait_all();
+  __syncthreads();
+  // the staged window into pairs of rows, rounded to bf16
+  const T* col = stage + skew + j;
+  unsigned w[P];
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    w[m] = pair_of(col + 2 * m * kStagePitch<T>,
+                   col + (2 * m + 1) * kStagePitch<T>);
+  }
+  const unsigned ca = p.ca16 | (p.ca16 << 16);
+  const unsigned cb = p.cb16 | (p.cb16 << 16);
+  for (int s = 0; s < n; ++s) {
+    paired_step<ROWS>(w, ex16 + (s & 1) * kExch,
+                      [&](int, unsigned old, unsigned g) {
+                        return add_bf2(mul_bf2(old, ca), mul_bf2(g, cb));
+                      });
+  }
+  if (!col_out) return;
+#pragma unroll
+  for (int m = 0; m < P; ++m) {
+    if (writes_row<ROWS>(tl, r, 2 * m)) {
+      from_f32(out + static_cast<size_t>(r + 2 * m) * tl.w + c,
+               lo_f32(w[m]));
+    }
+    if (writes_row<ROWS>(tl, r, 2 * m + 1)) {
+      from_f32(out + static_cast<size_t>(r + 2 * m + 1) * tl.w + c,
+               hi_f32(w[m]));
+    }
+  }
+}
+
 // The near launch's regions: the four bands of the array around the
 // rectangle (top, bottom, left, right), each tiled from its origin. Block b
 // steps tile b - first[k] of the last band k with first[k] <= b (an empty

@@ -15,7 +15,10 @@ into two hand-written kernels (``csrc/fused_active.cu``):
   bands of the tile, and the tap sum's staged chunks.
 - **K7** (``fused_scatter``) lands ``upd[l]`` in the padded state for the
   live lanes. It is a separate launch, so every K6 window reads the values
-  from before the pass.
+  from before the pass. Its grid is ``scatter_blocks``: a few persistent
+  blocks an SM walking the live lanes' rows (``scatter_rows``), a warp
+  ``SCATTER_ROWS`` of them at a time in 16-byte chunks where the update's
+  rows are whole chunks, element by element otherwise.
 
 A CPU tensor takes the plain versions (``fused_compute_plain``,
 ``fused_scatter_plain``); a CUDA tensor launches the kernels or raises.
@@ -74,6 +77,10 @@ TAP_ROWS = 2
 TAP_SMEM = 40 * 1024
 #: shared memory one block may use on the H100 (232,448 bytes)
 SMEM_LIMIT = 232448
+#: K7's persistent blocks an SM (``kScatterBlocksPerSM``) and the rows a
+#: warp has in flight (``kScatterRows``)
+SCATTER_BLOCKS_PER_SM = 3
+SCATTER_ROWS = 4
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _launches = {"fused_compute": 0, "fused_scatter": 0}
@@ -250,6 +257,28 @@ def fused_scatter_plain(padded, upd, ids, count, plan: ActivePlan,
     return padded
 
 
+def scatter_blocks(capacity: int, sms: int) -> int:
+    """K7's grid on a card of ``sms`` SMs: ``SCATTER_BLOCKS_PER_SM`` blocks
+    an SM, at most one a lane of the capacity (``csrc/fused_active.cu``
+    ``scatter_blocks``; the card test holds it to the library's)."""
+    return min(int(capacity), SCATTER_BLOCKS_PER_SM * int(sms))
+
+
+def scatter_rows(count: int, capacity: int, tile_h: int,
+                 warps: int) -> list[list[tuple[int, int]]]:
+    """The rows each of K7's ``warps`` warps (all blocks' warps, in order)
+    lands, as ``(lane, row of its tile)``: the live lanes ``l <
+    clip(count, 1, capacity)`` (JAX's ``jnp.clip``) give ``l * tile_h +
+    i``, one sequence in the update buffer's order, and warp ``w`` takes
+    ``SCATTER_ROWS`` consecutive rows from ``w * SCATTER_ROWS``, then every
+    ``warps * SCATTER_ROWS`` rows on."""
+    rows = min(max(int(count), 1), int(capacity)) * int(tile_h)
+    step = warps * SCATTER_ROWS
+    return [[divmod(r, tile_h) for r0 in range(w * SCATTER_ROWS, rows, step)
+             for r in range(r0, min(r0 + SCATTER_ROWS, rows))]
+            for w in range(warps)]
+
+
 # -- the kernels -------------------------------------------------------------
 
 def _kernel_lib():
@@ -378,8 +407,9 @@ def fused_compute(padded: torch.Tensor, ids: torch.Tensor,
 def fused_scatter(padded: torch.Tensor, upd: torch.Tensor, ids: torch.Tensor,
                   cnt1: torch.Tensor, *, plan: ActivePlan,
                   ring: int) -> torch.Tensor:
-    """K7: land the live lanes' updates in ``padded`` (in place). On a CUDA
-    tensor it launches the kernel, else the plain version."""
+    """K7: land the live lanes' updates in ``padded`` (in place; its other
+    cells untouched). On a CUDA tensor it launches the kernel, else the
+    plain version."""
     if padded.device.type == "cpu":
         return fused_scatter_plain(padded, upd, ids, cnt1.reshape(-1)[0],
                                    plan, ring)

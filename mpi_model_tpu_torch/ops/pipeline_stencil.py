@@ -19,10 +19,18 @@ ensemble engine (``EnsembleExecutor(impl="pipeline")``).
   (``fused_stencil.closed_steps_bf16``), at every ``nsteps``; the near
   tiles keep the plain f32 exact path, as the TPU kernel's do. Where
   ``_pipeline_blocks`` leaves no closed tile (8 × 4096²) the knob changes
-  nothing.
+  nothing. Moore in its row-major order (``two_launches``) is then two
+  kernels on the caller's stream, each writing only its own cells: the near
+  launch over the windows of the near TPU tiles (``near_launch_windows``)
+  and the paired launch over each lane's rectangle of closed tiles
+  (``fused_stencil.bf16_rect``, tiled from its origin at ``paired_rows``:
+  ``paired_tiles``); a lane with no closed tile makes the near launch alone.
+  ``plan_of`` is the geometry these mirrors give a call, ``kernel_plan``
+  the source's own.
 - A CPU tensor takes ``pipeline_step_plain``; a CUDA tensor launches the
   kernel or raises. Nothing falls back.
-- ``launches()`` counts kernel launches, one per call whatever ``B`` is.
+- ``launches()`` counts calls that launched, one per call whatever ``B`` is
+  (the two kernels of a bf16-interior call count once).
 """
 
 from __future__ import annotations
@@ -34,9 +42,9 @@ import torch
 
 from ..core.cell import MOORE_OFFSETS
 from .fused_stencil import KERNEL_DTYPES, _offset_codes, _offset_mask, \
-    _validate_block, check_offsets, closed_constants, closed_steps_bf16, \
-    closed_steps_plain, exact_dense_step_plain, rb, resolve_compute_dtype, \
-    round_bf16
+    _validate_block, bf16_rect, check_offsets, closed_constants, \
+    closed_steps_bf16, closed_steps_plain, exact_dense_step_plain, \
+    paired_rows, rb, region_tiles, resolve_compute_dtype, round_bf16
 
 #: row/col strip granularities of the pipelined window (the TPU's 16-row
 #: bf16 sublane tile and 128-lane tile); the CUDA tile divides both
@@ -146,6 +154,99 @@ def launch_windows(shape: tuple[int, int], block: tuple[int, int],
     return out
 
 
+def two_launches(offsets: Sequence[tuple[int, int]], compute_dtype) -> bool:
+    """Whether a call is the bf16 interior math's two launches: bf16
+    compute with Moore in its row-major order (``MOORE_OFFSETS``); other
+    calls are one launch of the kernel with both branches."""
+    return (resolve_compute_dtype(compute_dtype) is not None
+            and tuple(offsets) == MOORE_OFFSETS)
+
+
+def near_tiles(shape: tuple[int, int], block: tuple[int, int],
+               nsteps: int) -> list[tuple[int, int]]:
+    """The near launch's TPU tiles of one lane, ``(row, column)`` of each
+    tile's first cell, in the kernel's order (``NearTiles``): the tiles off
+    ``bf16_rect`` as four bands (top, bottom, left, right), each row by
+    row; with no closed tile, every tile."""
+    (h, w), (br, bc) = shape, block
+    r0, r1, c0, c1 = bf16_rect(shape, block, nsteps)
+    if r0 >= r1:
+        r0 = r1 = 0
+    bands = ([(0, h, 0, w)] if r0 == r1 else
+             [(0, r0, 0, w), (r1, h, 0, w), (r0, r1, 0, c0),
+              (r0, r1, c1, w)])
+    return [(a, b) for ra, rb_, ca, cb in bands
+            for a in range(ra, rb_, br) for b in range(ca, cb, bc)]
+
+
+def near_launch_windows(shape: tuple[int, int], block: tuple[int, int],
+                        nsteps: int) -> list[tuple]:
+    """The near launch's windows of one lane in block order: the windows
+    ``launch_windows`` lists for each near TPU tile (``near_tiles``), tile
+    by tile."""
+    br, bc = block
+    by_tile: dict[tuple[int, int], list] = {}
+    for w in launch_windows(shape, block, nsteps):
+        if w[4]:
+            by_tile.setdefault((w[0] // br * br, w[2] // bc * bc), []).append(
+                w)
+    return [w for t in near_tiles(shape, block, nsteps) for w in by_tile[t]]
+
+
+def paired_tiles(shape: tuple[int, int], block: tuple[int, int],
+                 nsteps: int) -> list[tuple]:
+    """The paired launch's tiles of one lane in block order: the rectangle
+    of closed tiles (``bf16_rect``) tiled from its origin at
+    ``paired_rows`` (K1's ``region_tiles``), each ``(r0, r1, c0, c1)``."""
+    rect = bf16_rect(shape, block, nsteps)
+    return region_tiles(rect, paired_rows(nsteps, MOORE_OFFSETS), nsteps)
+
+
+def plan_of(shape: tuple[int, int], block: tuple[int, int], nsteps: int,
+            offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+            compute_dtype=None) -> tuple:
+    """The geometry of a call on one lane as these mirrors give it, in
+    ``kernel_plan``'s layout: (two launches, the near or only launch's
+    rows and blocks, the paired launch's rows and tiles, the rectangle's
+    rows and columns, the near TPU tiles)."""
+    n = int(nsteps)
+    if not two_launches(offsets, compute_dtype):
+        return (0, window_rows(offsets, n),
+                len(launch_windows(shape, block, n, offsets)),
+                0, 0, 0, 0, 0, 0, 0)
+    tiles = paired_tiles(shape, block, n)
+    rect = bf16_rect(shape, block, n) if tiles else (0, 0, 0, 0)
+    return (1, window_rows(MOORE_OFFSETS, n),
+            len(near_launch_windows(shape, block, n)),
+            paired_rows(n, MOORE_OFFSETS), len(tiles), *rect,
+            len(near_tiles(shape, block, n)))
+
+
+def kernel_plan(shape: tuple[int, int], block: tuple[int, int], nsteps: int,
+                offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+                compute_dtype=None) -> tuple:
+    """The geometry the CUDA source gives a call (``mm_pipeline_plan``, in
+    ``plan_of``'s layout). It launches nothing but needs the built library
+    (the card): tests and ``chip_smoke.py`` hold ``plan_of`` to it."""
+    offsets = check_offsets(offsets)
+    lib = _kernel_lib()
+    fn = lib.mm_pipeline_plan
+    fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 10)()
+    moore, _, _ = closed_constants(0.1, offsets)
+    err = fn(
+        shape[0], shape[1], block[0], block[1], int(nsteps),
+        _offset_mask(offsets), len(offsets), _offset_codes(offsets),
+        int(moore), int(resolve_compute_dtype(compute_dtype) is not None),
+        out)
+    if err != 0:
+        raise ValueError(f"mm_pipeline_plan refused {shape} block {block} "
+                         f"nsteps={nsteps}: "
+                         f"{lib.mm_cuda_error_string(err).decode()}")
+    return tuple(out)
+
+
 def pipeline_step_plain(values: torch.Tensor, rate: float,
                         offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
                         nsteps: int = 1,
@@ -207,8 +308,9 @@ def _kernel_lib():
 def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
             offsets: tuple, nsteps: int, block: tuple[int, int],
             bf16: bool = False) -> None:
-    """Launch K5 on the current stream over every lane; raises on any launch
-    error; counts the launch once the kernel is queued. An empty batch has
+    """Launch K5 on the current stream over every lane (a bf16-interior
+    Moore call: its two kernels, ``two_launches``); raises on any launch
+    error; counts the call once its kernels are queued. An empty batch has
     nothing to compute: no launch, nothing counted."""
     global _launch_count
     if values.numel() == 0:

@@ -1653,3 +1653,169 @@ def test_bf16_interior_k5_on_the_card(dtype, ns, offs, B, shape, block):
                                  ns).any()):
         assert torch.equal(got, ps.pipeline_dense_step(x, 0.13, offs, block,
                                                        ns))
+
+
+# -- K5's bf16 interior math as two launches; K7's lane walk -------------------
+
+#: (lanes, grid, block) of K5's two-launch cases: the main path's two
+#: batches at JAX's blocks (4 x 8192²: closed tiles in every lane; 8 x
+#: 4096²: none), a cut grid with a caller's block, an odd one (1152-wide
+#: TPU tiles the windows do not divide, 48-row tiles), and one whose
+#: rectangle is a single TPU tile
+_K5_GEOMETRIES = {"main_8192": (4, (8192, 8192), None),
+                  "main_4096": (8, (4096, 4096), None),
+                  "cut": (2, (1024, 1024), (128, 256)),
+                  "odd": (3, (240, 3456), (48, 1152)),
+                  "one_tile": (1, (48, 384), (16, 128))}
+
+
+def _traced_kernels(fn):
+    """The device kernels ``fn()`` launched, by name with their counts,
+    from a ``torch.profiler`` trace (the work between two spins of the
+    device, the trace held open past it, as ``chip_smoke.traced_kernels``
+    does: without the host's pauses the profiler on the H100 dropped these
+    kernels from the trace)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # analysis: ignore[wall-clock-in-test] — the profiler's host window
+        torch.cuda._sleep(100_000_000)
+        fn()
+        torch.cuda._sleep(100_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)  # analysis: ignore[wall-clock-in-test] — the profiler's host window
+    names = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1, 2, 3, 8])
+@pytest.mark.parametrize("geometry", sorted(_K5_GEOMETRIES))
+def test_bf16_interior_k5_two_launches_on_the_card(dtype, ns, geometry):
+    """K5's bf16-interior Moore call: every output cell written (NaN-filled
+    output), bit for bit ``pipeline_step_plain(..., compute_dtype)``,
+    counted as one launch; the input untouched."""
+    dev = _card()
+    B, shape, block = _K5_GEOMETRIES[geometry]
+    x = torch.from_numpy(np.random.default_rng(ns).uniform(
+        0.5, 2.0, (B,) + shape).astype(np.float32)).to(dev, dtype)
+    keep = x.clone()
+    out = torch.full_like(x, float("nan"))
+    before = ps.launches()
+    ps.pipeline_dense_step(x, 0.13, MOORE_OFFSETS, block, ns, out=out,
+                           compute_dtype=_BF)
+    assert ps.launches() == before + 1
+    want = ps.pipeline_step_plain(x, 0.13, MOORE_OFFSETS, ns, block, _BF)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), want.view(bits))
+    assert torch.equal(x, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", sorted(_K5_GEOMETRIES))
+def test_bf16_interior_k5_plan_is_the_library_s(geometry):
+    """The wrapper's mirrors (``ps.plan_of``: the near launch's windows of
+    the near TPU tiles, the paired launch's tiles of the rectangle) are the
+    source's geometry (``mm_pipeline_plan``), for both computes, every
+    depth and three neighbourhoods."""
+    _card()
+    _, shape, block = _K5_GEOMETRIES[geometry]
+    for ns in range(1, ps.MAX_STEPS + 1):
+        blk = ps.pipeline_block(shape, ns, block)
+        for offs in (MOORE_OFFSETS, tuple(reversed(MOORE_OFFSETS)), CUSTOM):
+            for cd in (None, _BF):
+                assert ps.kernel_plan(shape, blk, ns, offs, cd) == \
+                    ps.plan_of(shape, blk, ns, offs, cd), (ns, offs, cd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["main_8192", "main_4096", "cut"])
+def test_bf16_interior_k5_launches_traced_on_the_card(geometry):
+    """The kernels a call runs, from a profiler trace: with closed tiles
+    the near launch and the paired launch once each, without them the near
+    launch alone; no kernel with both branches (``pipeline_stencil_kernel``)
+    runs. The f32-compute call runs that kernel alone."""
+    dev = _card()
+    B, shape, block = _K5_GEOMETRIES[geometry]
+    x = torch.ones((B,) + shape, device=dev)
+    names = _traced_kernels(lambda: ps.pipeline_dense_step(
+        x, 0.13, MOORE_OFFSETS, block, 8, compute_dtype=_BF))
+    k5 = {n: c for n, c in names.items() if "pipeline_" in n}
+    near = sum(c for n, c in k5.items() if "pipeline_near_kernel" in n)
+    paired = sum(c for n, c in k5.items() if "pipeline_bf16_kernel" in n)
+    closed = bool(ps.interior_mask(shape, ps.pipeline_block(shape, 8, block),
+                                   8).any())
+    assert near == 1 and paired == (1 if closed else 0), k5
+    assert sum(k5.values()) == near + paired, k5
+    names = _traced_kernels(lambda: ps.pipeline_dense_step(
+        x, 0.13, MOORE_OFFSETS, block, 8))
+    k5 = {n: c for n, c in names.items() if "pipeline_" in n}
+    assert sum(k5.values()) == 1 and all(
+        "pipeline_stencil_kernel" in n for n in k5), k5
+
+
+def _k7_case(dev, itemsize, count, ring, tile, grid_tiles, seed):
+    """A NaN-filled ring-``ring`` padded state (or, for 2-byte and 8-byte
+    elements, bf16 and f64 NaN), an update buffer of random values, and
+    ``count`` live lanes over distinct random tiles."""
+    dtype = {2: torch.bfloat16, 4: torch.float32, 8: torch.float64}[itemsize]
+    (th, tw), (gi, gj) = tile, grid_tiles
+    rng = np.random.default_rng(seed)
+    plan = act.plan_for((gi * th, gj * tw), tile=tile, max_active_frac=1.0)
+    K = plan.capacity
+    padded = torch.full((gi * th + 2 * ring, gj * tw + 2 * ring),
+                        float("nan"), dtype=dtype, device=dev)
+    upd = torch.from_numpy(rng.uniform(-2.0, 2.0, (K, th, tw))).to(dev,
+                                                                   dtype)
+    ids = torch.from_numpy(rng.permutation(gi * gj)[:K].astype(np.int32)).to(
+        dev)
+    cnt1 = torch.tensor([count], dtype=torch.int32, device=dev)
+    return padded, upd, ids, cnt1, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
+@pytest.mark.parametrize("ring", [1, 3, 8])
+@pytest.mark.parametrize("count", ["zero", "one", "some", "all"])
+@pytest.mark.parametrize("tile,grid_tiles", [((128, 128), (8, 16)),
+                                             ((40, 24), (5, 7)),
+                                             ((16, 13), (6, 5))])
+def test_k7_lane_walk_bitwise_on_the_card(itemsize, ring, count, tile,
+                                          grid_tiles):
+    """K7 bit for bit ``fused_scatter_plain`` at count 0 (one lane, as
+    ``clip(count, 1, K)`` gives it), 1, some and K, on a state whose
+    untouched cells hold NaN (and stay NaN: compared by their bits), at
+    rings whose columns start off every 16-byte boundary, on tiles whose
+    rows are whole 16-byte chunks (128, 24 at 2, 4 and 8 bytes) and one
+    whose rows are not (13 columns)."""
+    dev = _card()
+    gi, gj = grid_tiles
+    K = gi * gj
+    n = {"zero": 0, "one": 1, "some": K // 3, "all": K}[count]
+    padded, upd, ids, cnt1, plan = _k7_case(dev, itemsize, n, ring, tile,
+                                            grid_tiles, 7 * ring + n)
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[itemsize]
+    before = fa.launches("fused_scatter")
+    got = fa.fused_scatter(padded.clone(), upd, ids, cnt1, plan=plan,
+                           ring=ring)
+    assert fa.launches("fused_scatter") == before + 1
+    want = fa.fused_scatter_plain(padded.clone(), upd, ids, n, plan, ring)
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.cuda
+def test_k7_grid_is_the_library_s():
+    """K7's persistent grid (``fa.scatter_blocks``) is the source's."""
+    _card()
+    lib = fa._kernel_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for K in (1, 7, 2 * sms - 1, 2 * sms, 4096, 65536):
+        assert lib.mm_fused_scatter_blocks(K) == fa.scatter_blocks(K, sms)
