@@ -141,6 +141,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    one ``conv2d`` 3×3 box over ``[B, 1, H, W]`` times nsteps (TF32 off; the
    port never calls it). A B = 3 dispatch into the 4-bucket (occupancy
    0.75), and a padded batch whose pad lane stays zero.
+6c-serve. always-on serving at full width (``serving_phase``): (a) 16
+   scenarios of 4096² (6c's lanes ``np.roll(base, 7·i)``, rate 0.1, 8
+   steps) through ``AsyncEnsembleService(impl="pipeline", substeps=8,
+   buckets=buckets_for(8), retry="solo")`` and the synchronous service,
+   f32 and with ``compute_dtype=bfloat16``: bit for bit per ticket, the
+   counts set to 0 just before the async run and read just after (K5
+   launches == steps/substeps a dispatch, nothing else); (b) a pipeline
+   flight, then an 8 × 4096² xla flight behind it on the stream: finishing
+   the first returns while the second's event is pending; (c) ``run_soak``
+   of 64 × 4096² at 90% of the synchronous service's measured rate, sync
+   and async in turns on fresh services (``SOAK_ROUNDS`` rounds, medians),
+   then one profiled round each: sustained scenarios/s, p50/p99 queue
+   latency, occupancy, the device idle share (``soak_profile``); (d)
+   ``bench.py::bench_service``'s row uncut (512², B = 8, 8 steps, xla,
+   windows 2, donated, ``max_queue`` 256, 2000 scenarios, its chaos plan
+   armed on the serving seams): async == sync bit for bit first, then every
+   ticket served, quarantined, expired or shed, and ``donated_windows ==
+   windows`` on every batch dispatch; (e) the CLI's ``--serve
+   --serve-scenarios=16 --ensemble-impl=pipeline --substeps=8`` at 4096²
+   with a complete ledger.
 6d. the halo kernels K2, K3-halo and K4-halo against their plain versions
    (``halo_step_plain``, ``composed_halo_step_plain``,
    ``field_halo_step_plain``) on every shard of a 3×3 block mesh (corner,
@@ -313,6 +333,11 @@ N4 = 8192          # the field path's grid side (BASELINE config 4)
 N5 = 4096          # the ensemble path's grid side (bench.py's serving row)
 B5 = 8             # the ensemble path's lanes
 STEPS5 = 8
+SERVE_GATE = 16    # phase 6c-serve's gate: 16 scenarios of N5²
+SERVE_SOAK = 64    # and its open-loop soak
+SOAK_ROUNDS = 3    # the soak's unprofiled rounds a mode, in turns
+#: bench.py::bench_service's row uncut: grid side, lanes, scenarios
+SERVE_BENCH = (512, 8, 2000)
 STEPS = 64
 ACTIVE_STEPS = 20
 FRACS = (0.01, 0.05, 0.15)
@@ -2334,6 +2359,294 @@ def k4_paired_bound_ms(plan, k: int, cells: int, inner16: int, nsteps: int,
     ops_ms = nsteps * (inner16 * (pair / BF16X2_OPS + halves / F32_FLOPS)
                        + (cells - inner16) * per32 / F32_FLOPS) * 1e3
     return larger(nbytes / HBM_BYTES_PER_S * 1e3, ops_ms)
+
+
+def soak_profile(torch, fn) -> tuple:
+    """``fn()``'s result and its device busy time (the union of kernel,
+    copy and memset intervals) in ms, from a ``torch.profiler`` trace of
+    the device (the pump thread's work included: the trace is of the
+    device, not of one host thread); None when the profiler recorded no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type.name == "CUDA"
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return got, None
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return got, (busy + cur_e - cur_s) / 1e3
+
+
+def serving_phase(np, torch, mt, dev, reset_counts, kernel_launches) -> dict:
+    """Phase 6c-serve: the always-on serving path at full width (see the
+    module docstring): (a) the bit-for-bit gate of the async service against
+    the synchronous one with K5, counted; (b) a flight finishing while the
+    next runs; (c) an open-loop soak against the synchronous schedule, with
+    each one's device idle share; (d) ``bench.py::bench_service``'s row
+    uncut with its chaos plan armed; (e) the CLI's ``--serve``."""
+    import collections
+
+    from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
+                                              EnsembleService, buckets_for,
+                                              run_soak)
+    from mpi_model_tpu_torch.ensemble.batch import (complete_ensemble,
+                                                    launch_ensemble)
+    from mpi_model_tpu_torch.resilience.inject import (Fault, FaultPlan,
+                                                       armed)
+
+    t_phase = time.perf_counter()
+    out = {}
+    base = np.random.default_rng(SEED).uniform(0.5, 2.0, (N5, N5)).astype(
+        np.float32)
+    spaces = [mt.CellularSpace({"value": torch.from_numpy(
+        np.roll(base, 7 * i, axis=0)).to(dev)}, N5, N5)
+        for i in range(SERVE_GATE)]
+    del base
+    model01 = mt.Model(mt.Diffusion(0.1))
+    kw = dict(steps=STEPS5, impl="pipeline", substeps=8,
+              buckets=buckets_for(B5), retry="solo")
+
+    # (a) the gate: async == sync per ticket, f32 and the bf16 knob, counted
+    gates = []
+    for cdt in (None, torch.bfloat16):
+        sync = EnsembleService(model01, compute_dtype=cdt, **kw)
+        ts = [sync.submit(s) for s in spaces]
+        sync.flush()
+        want = [sync.result(t) for t in ts]
+        with AsyncEnsembleService(model01, compute_dtype=cdt, **kw) as svc:
+            # the first dispatch builds the runner; the next is counted
+            svc.result(svc.submit(spaces[0]), timeout=600)
+            torch.cuda.synchronize()
+            reset_counts()
+            ta = [svc.submit(s) for s in spaces]
+            got = [svc.result(t, timeout=600) for t in ta]
+            torch.cuda.synchronize()
+            ran = kernel_launches()
+            st = svc.stats()
+        dispatches = st["dispatches"] - 1
+        ok = all(torch.equal(g[0].values["value"], w[0].values["value"])
+                 and g[1].final_total == w[1].final_total
+                 for g, w in zip(got, want))
+        for sp, _ in got:
+            v = sp.values["value"]
+            check(tuple(v.shape) == (N5, N5) and bool(torch.isfinite(v).all()),
+                  "served output has the wrong shape or is not finite")
+        name = "float32" if cdt is None else "bfloat16 compute"
+        want_k5 = dispatches * (STEPS5 // 8)
+        gates.append({"compute": name, "scenarios": SERVE_GATE,
+                      "bitwise": ok, "dispatches": dispatches,
+                      "launches": ran, "k5_expected": want_k5})
+        print(f"serving gate {name}: {SERVE_GATE} x {N5}^2 async == sync "
+              f"bit for bit: {ok}; {dispatches} dispatches, K5 launches "
+              f"{ran['pipeline_stencil']} (expected {want_k5})", flush=True)
+        check(ok, f"async-served scenarios differ from sync ({name})")
+        check(ran["pipeline_stencil"] == want_k5
+              and sum(ran.values()) == want_k5,
+              f"serving gate {name}: launches {ran}, expected {want_k5} "
+              "of K5 and nothing else")
+        del want, got, sync, svc
+    out["gates"] = gates
+    torch.cuda.empty_cache()
+
+    # (b) the overlap: a pipeline flight finishes while an 8 x 4096^2 xla
+    # flight queued behind it on the same stream still runs
+    k5x = mt.EnsembleExecutor("pipeline", substeps=8)
+    xla = mt.EnsembleExecutor("xla")
+    lanes = spaces[:B5]
+    for ex in (k5x, xla):  # build both runners first
+        complete_ensemble(launch_ensemble(model01, lanes, executor=ex,
+                                          steps=STEPS5))
+    torch.cuda.synchronize()
+    f1 = launch_ensemble(model01, lanes, executor=k5x, steps=STEPS5)
+    f2 = launch_ensemble(model01, lanes, executor=xla, steps=STEPS5)
+    t0 = time.perf_counter()
+    complete_ensemble(f1)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pending = f2.done is not None and not f2.done.query()
+    t0 = time.perf_counter()
+    complete_ensemble(f2)
+    second_ms = (time.perf_counter() - t0) * 1e3
+    out["overlap"] = {"second_pending_after_first": pending,
+                      "first_complete_ms": first_ms,
+                      "second_complete_ms": second_ms}
+    print(f"serving overlap: the pipeline flight finished in {first_ms:.3f} "
+          f"ms while the xla flight behind it was still running: {pending} "
+          f"(it finished {second_ms:.3f} ms later)", flush=True)
+    check(pending, "finishing a flight waited for the flight behind it")
+    del f1, f2
+    torch.cuda.empty_cache()
+
+    # (c) the open-loop soak: 64 scenarios at 90% of the sync rate
+    scen = [(spaces[i % SERVE_GATE], None, None) for i in range(SERVE_SOAK)]
+    sync = EnsembleService(model01, **kw)
+    sync.result(sync.submit(spaces[0]))  # the runner's build
+    st0 = sync.stats()
+    for t in [sync.submit(s) for s in spaces[:B5]]:
+        sync.result(t)
+    st1 = sync.stats()
+    # the sync service's busy seconds a scenario, over one warm dispatch
+    per = (st1["busy_s"] - st0["busy_s"]) / (st1["scenarios"]
+                                             - st0["scenarios"])
+    rate = 0.9 / per
+
+    # in turns, each soak on a fresh service (its counters and latency
+    # reservoir its own): SOAK_ROUNDS unprofiled rounds, then one profiled
+    def soak(mode, profiled=False):
+        svc = (EnsembleService(model01, **kw) if mode == "sync"
+               else AsyncEnsembleService(model01, **kw))
+        try:
+            if profiled:
+                rep, busy = soak_profile(
+                    torch, lambda: run_soak(svc, scen, arrival_rate_hz=rate))
+                rep["device_busy_ms"] = busy
+                rep["idle_share"] = (None if busy is None
+                                     else 1.0 - busy / (rep["wall_s"] * 1e3))
+            else:
+                rep = run_soak(svc, scen, arrival_rate_hz=rate)
+        finally:
+            if mode == "async":
+                svc.stop()
+        check(rep["ledger_complete"] and rep["served"] == SERVE_SOAK,
+              f"{mode} soak ledger incomplete: {rep}")
+        return rep
+
+    soaks = {"sync": [], "async": []}
+    for _ in range(SOAK_ROUNDS):
+        for mode in ("sync", "async"):
+            soaks[mode].append(soak(mode))
+    for mode in ("sync", "async"):
+        reps = soaks[mode]
+        prof = soak(mode, profiled=True)
+        med = {k: statistics.median(r[k] for r in reps) for k in (
+            "sustained_scenarios_per_s", "latency_p50_s", "latency_p99_s",
+            "occupancy", "dispatches")}
+        soaks[mode] = {"rounds": reps, "median": med, "profiled": prof}
+        idle = ("not measured (no device activity in the trace)"
+                if prof["idle_share"] is None
+                else f"{prof['idle_share']:.3f}")
+        each = ", ".join(f"{r['sustained_scenarios_per_s']:.1f}"
+                         for r in reps)
+        print(f"serving soak {mode}: {SERVE_SOAK} x {N5}^2 at {rate:.2f} Hz "
+              f"offered, {SOAK_ROUNDS} rounds (median; all): "
+              f"{med['sustained_scenarios_per_s']:.2f} scenarios/s "
+              f"sustained ({each}), "
+              f"queue latency p50 {med['latency_p50_s'] * 1e3:.3f} ms, p99 "
+              f"{med['latency_p99_s'] * 1e3:.3f} ms, occupancy "
+              f"{med['occupancy']:.3f}, {med['dispatches']} dispatches; "
+              f"profiled round: {prof['sustained_scenarios_per_s']:.2f} "
+              f"scenarios/s, device idle share {idle} (wall "
+              f"{prof['wall_s'] * 1e3:.1f} ms)", flush=True)
+    out["soak"] = {"scenarios": SERVE_SOAK, "offered_hz": rate,
+                   "sync_s_per_scenario": per, **soaks}
+    del sync, scen
+    torch.cuda.empty_cache()
+
+    # (d) bench.py::bench_service's row, uncut: 512^2, B = 8, 8 steps,
+    # xla, windows 2, donated, max_queue 256, 2000 scenarios, chaos armed
+    g, B, n = SERVE_BENCH
+    base = np.random.default_rng(17).uniform(0.5, 2.0, (g, g)).astype(
+        np.float32)
+    pool = [mt.CellularSpace({"value": torch.from_numpy(
+        np.roll(base, 11 * i, axis=0)).to(dev)}, g, g) for i in range(B)]
+    models = [mt.Model(mt.Diffusion(0.1 * (1.0 + 0.05 * i / (B - 1))),
+                       1.0, 1.0) for i in range(B)]
+    bkw = dict(steps=STEPS5, impl="xla", buckets=buckets_for(B),
+               retry="solo")
+    sync = EnsembleService(models[0], **bkw)
+    ts = [sync.submit(pool[i], model=models[i]) for i in range(B)]
+    sync.flush()
+    want = [sync.result(t)[0] for t in ts]
+    with AsyncEnsembleService(models[0], windows=2, max_queue=256,
+                              **bkw) as gsvc:
+        ta = [gsvc.submit(pool[i], model=models[i]) for i in range(B)]
+        got = [gsvc.result(t, timeout=600)[0] for t in ta]
+    ok = all(torch.equal(a.values["value"], b.values["value"])
+             for a, b in zip(got, want))
+    print(f"bench_service gate: {B} async lanes (windows 2, donated) == "
+          f"sync at {g}^2 bit for bit: {ok}", flush=True)
+    check(ok, "bench_service gate: async lanes differ from sync")
+    gst = sync.stats()
+    rate = 0.9 / max(gst["busy_s"] / gst["scenarios"], 1e-6)
+    scen = [(pool[i % B], models[i % B], STEPS5) for i in range(n)]
+    sync_rep = run_soak(EnsembleService(models[0], **bkw), scen,
+                        arrival_rate_hz=rate)
+    plan = FaultPlan((
+        Fault("lane_nan", ticket=max(1, n // 3), once=True),
+        Fault("batch_exc", at=max(2, n // (2 * B))),
+        Fault("thread_exc", at=3),
+        Fault("slow_compile", at=5, seconds=0.01),
+        Fault("fetch_nan", at=max(3, n // (2 * B)) + 4, lane=0, once=True),
+        Fault("queue_full", at=max(4, n // 2)),
+    ), seed=23)
+    asvc = AsyncEnsembleService(models[0], windows=2, max_queue=256, **bkw)
+    # every dispatch of the soak kept, for the donation audit
+    asvc.scheduler.dispatch_log = collections.deque(maxlen=100_000)
+    with armed(plan) as st, asvc:
+        rep = run_soak(asvc, scen, arrival_rate_hz=rate)
+    fired = [f["kind"] for f in st.fired]
+    # every batch dispatch's entry (solo retries and failed dispatches log
+    # none, as in the JAX package)
+    logged = [d for d in asvc.scheduler.dispatch_log if "windows" in d]
+    donation_ok = bool(logged) and all(
+        d["donated_windows"] == d["windows"] == 2 for d in logged)
+    out["bench_service"] = {
+        "grid": g, "B": B, "steps": STEPS5, "windows": 2,
+        "max_queue": 256, "offered": n, "offered_hz": rate,
+        "chaos_fired": fired, "donation_ok": donation_ok,
+        "donated_dispatches": len(logged), "async": rep, "sync": sync_rep,
+        "sync_occupancy": sync_rep["occupancy"]}
+    print(f"bench_service {g}^2 B={B} xla windows=2 donated, {n} scenarios "
+          f"at {rate:.1f} Hz, chaos {sorted(set(fired))}: served "
+          f"{rep['served']} failed {rep['failed']} expired {rep['expired']} "
+          f"shed {rep['shed']} (ledger complete {rep['ledger_complete']}); "
+          f"{rep['sustained_scenarios_per_s']:.1f} scenarios/s sustained "
+          f"(sync {sync_rep['sustained_scenarios_per_s']:.1f}), p50 "
+          f"{rep['latency_p50_s'] * 1e3:.3f} ms p99 "
+          f"{rep['latency_p99_s'] * 1e3:.3f} ms (sync "
+          f"{sync_rep['latency_p99_s'] * 1e3:.3f}), occupancy "
+          f"{rep['occupancy']:.3f} (sync {sync_rep['occupancy']:.3f}); "
+          f"recovered {rep['recovered_failures']}, quarantined "
+          f"{rep['quarantined']}, loop faults {rep['loop_faults']}; "
+          f"donated_windows == windows on all {len(logged)} dispatches: "
+          f"{donation_ok}", flush=True)
+    check(rep["ledger_complete"] and sync_rep["ledger_complete"],
+          "bench_service soak dropped tickets")
+    check(donation_ok, "a dispatch of the soak did not donate its windows")
+    check({"thread_exc", "queue_full", "batch_exc"} <= set(fired),
+          f"the chaos plan did not fire: {fired}")
+    del pool, sync, asvc, gsvc, want, got
+    torch.cuda.empty_cache()
+
+    # (e) the CLI's --serve
+    from mpi_model_tpu_torch.cli import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--flow=diffusion", f"--dimx={N5}",
+                       f"--dimy={N5}", "--serve", "--serve-scenarios=16",
+                       "--ensemble-impl=pipeline", "--substeps=8",
+                       "--json"])
+    print(buf.getvalue(), end="", flush=True)
+    row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["cli"] = row
+    check(rc == 0 and row["ledger_complete"] and row["served"] == 16,
+          f"the --serve CLI run failed: {row}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"serving phase: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
@@ -4411,6 +4724,11 @@ def main() -> int:
                   f"{row['host_share']:.3f})", flush=True)
     del lanes5
 
+    # -- 6c-serve. always-on serving at full width ------------------------------
+    serving = serving_phase(np, torch, mt, dev, reset_counts,
+                            kernel_launches)
+    torch.cuda.empty_cache()
+
     # -- 6d. the halo kernels against their plain versions --------------------
     halo_err = halo_kernel_cases(np, torch, mt, dev, gen, record,
                                  neighborhoods)
@@ -4830,6 +5148,7 @@ def main() -> int:
                           for (d, n), v in field_timing.items()},
          "ensemble_gates": gates,
          "ensemble_rows": ens_rows,
+         "serving": serving,
          "k5_times": {f"{d}/ns={n}": v for (d, n), v in k5_time.items()},
          "count_read_us": sync_us,
          "sharded": sharded, "halo_main_shard_err": halo_err,

@@ -19,8 +19,10 @@ Layer map (as in the JAX package):
                          flow lowering, kernels K1, K3, K4, K6/K7
   L4 ``models``       — Model/SerialExecutor/Report/ModelRectangular
   L5 ``ensemble``     — batched scenarios (EnsembleExecutor, K5), the
-                         bucketed scheduler, the synchronous service
-  —  ``utils`` (serving counters), ``resilience`` (FailureEvent),
+                         bucketed scheduler, the synchronous service, the
+                         always-on async service and ``run_soak``
+  —  ``utils`` (serving counters), ``resilience`` (FailureEvent, the
+     fault plans of ``inject``),
      ``oracle``, ``interop``, ``cli``
 """
 
@@ -32,9 +34,10 @@ from .ops import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
 from .models import ConservationError, Model, ModelRectangular, Report, \
     SerialExecutor
 from .parallel import ShardMapExecutor, make_mesh, make_mesh_2d, shard_space
-from .ensemble import (EnsembleConservationError, EnsembleExecutor,
-                       EnsembleScheduler, EnsembleService, EnsembleSpace,
-                       buckets_for, run_ensemble)
+from .ensemble import (AsyncEnsembleService, EnsembleConservationError,
+                       EnsembleExecutor, EnsembleScheduler, EnsembleService,
+                       EnsembleSpace, ServiceOverloaded, TicketExpired,
+                       buckets_for, run_ensemble, run_soak)
 
 __version__ = "0.1.0"
 
@@ -57,13 +60,17 @@ __all__ = [
     "ModelRectangular",
     "Report",
     "SerialExecutor",
+    "AsyncEnsembleService",
     "EnsembleConservationError",
     "EnsembleExecutor",
     "EnsembleScheduler",
     "EnsembleService",
     "EnsembleSpace",
+    "ServiceOverloaded",
+    "TicketExpired",
     "buckets_for",
     "run_ensemble",
+    "run_soak",
     "ShardMapExecutor",
     "make_mesh",
     "make_mesh_2d",

@@ -17,6 +17,9 @@
         --dimy=16384 --mesh=2x2 --impl=active_fused --blob=0.05 --json
     python -m mpi_model_tpu_torch.cli run --flow=exponencial --source=19,3 \
         --value=2.2 --rate=0.1 --steps=-1 --dtype=float64 --output=DIR
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=4096 \
+        --dimy=4096 --serve --serve-scenarios=16 --ensemble-impl=pipeline \
+        --substeps=8 --steps=8 --json
 
 Runs on the card unless ``--device=cpu`` is given. The scenario flags are
 the JAX package's: ``--source=X,Y``, ``--value`` (the point source's frozen
@@ -52,11 +55,23 @@ number of distinct devices), ``impl``, ``backend_report`` and
 ``--mesh=LxC --impl=active|active_fused`` runs the shard-local active
 engines; their ``backend_report`` carries the fallback steps, the mean
 active fraction, ``flags_fused`` and the host reads.
+``--serve`` drives the always-on loop (``AsyncEnsembleService`` through
+``run_soak``): ``--serve-scenarios`` copies of the scenario arrive
+open-loop at ``--arrival-rate`` per second (unset or 0: as fast as
+admission allows) against a ``--max-queue``-bounded admission queue, with
+an optional per-ticket ``--deadline-s``; the row carries the served/
+failed/expired/shed ledger (exit status 1 if it is not complete),
+sustained scenarios/s, p50/p99 queue latency and occupancy. The fleet
+(``--serve-services`` above 1, ``--serve-transport`` other than
+``inproc``), scenario tiering (``--residency-budget``,
+``--hibernate-dir``), ``--ensemble-mesh`` and the status plane
+(``--status*``) are refused: their modules are not ported (ROADMAP.md).
 ``--compute-dtype=bfloat16`` is the kernels' bf16 interior math (the TPU
 kernels' ``compute_dtype``: K1/K2 above one step, K3, K4 and K5 on the
 tiles off the edge; refused with ``--impl=xla`` and ``--executor=gspmd``,
 as the JAX CLI refuses it).
-Exit status 1 when conservation fails.
+Exit status 1 when conservation fails (``--serve``: when the ledger is
+not complete).
 """
 
 from __future__ import annotations
@@ -99,9 +114,91 @@ def build_flows(args):
     return flows, {nm: args.init for nm in names}
 
 
+def _refuse_unported(flag: str, what: str) -> None:
+    raise SystemExit(
+        f"{flag} needs {what}, which is not ported to the PyTorch/CUDA "
+        "package yet; see ROADMAP.md")
+
+
+def check_serve_flags(args, sharded: bool) -> None:
+    """The JAX package's checks of the serving flags; the flags whose
+    modules the port lacks are refused naming ROADMAP.md."""
+    if args.serve:
+        if args.ensemble is not None:
+            raise SystemExit(
+                "--serve runs the always-on async loop over an arrival "
+                "process; --ensemble runs one synchronous batch — pick "
+                "one")
+        if sharded:
+            raise SystemExit(
+                "--serve batches whole scenarios through the ensemble "
+                "engine (the batch axis replaces the mesh axes); drop "
+                "--mesh/--rectangular")
+        if args.output is not None:
+            raise SystemExit(
+                "--serve does not compose with --output (dump runs are "
+                "single-scenario)")
+        if args.impl != "auto":
+            raise SystemExit(
+                "--impl selects the single-run kernel; serve mode uses "
+                "--ensemble-impl=xla|pipeline|active|active_fused")
+        if args.serve_scenarios < 1:
+            raise SystemExit(
+                f"--serve-scenarios={args.serve_scenarios} needs >= 1")
+        if args.serve_services < 1:
+            raise SystemExit(
+                f"--serve-services={args.serve_services} needs >= 1")
+        if args.max_queue < 1:
+            raise SystemExit(f"--max-queue={args.max_queue} needs >= 1")
+        if args.arrival_rate is not None and args.arrival_rate < 0:
+            raise SystemExit(
+                f"--arrival-rate={args.arrival_rate} must be >= 0 "
+                "(0 = open throttle)")
+        if args.deadline_s is not None and args.deadline_s <= 0:
+            raise SystemExit(
+                f"--deadline-s={args.deadline_s} must be positive")
+        if args.serve_services > 1 or args.serve_transport != "inproc":
+            _refuse_unported("--serve-services/--serve-transport",
+                             "the fleet (FleetSupervisor, member processes "
+                             "and the wire)")
+        if args.residency_budget is not None \
+                or args.hibernate_dir is not None:
+            _refuse_unported("--residency-budget/--hibernate-dir",
+                             "scenario tiering (ensemble/tiering.py)")
+        if (args.status is not None or args.status_port is not None
+                or args.status_interval_s != 5.0):
+            _refuse_unported("--status/--status-port/--status-interval-s",
+                             "the observability plane (obs/)")
+        return
+    for flag, val, default in (
+            ("--arrival-rate", args.arrival_rate, None),
+            ("--deadline-s", args.deadline_s, None),
+            ("--max-queue", args.max_queue, 64),
+            ("--serve-scenarios", args.serve_scenarios, 64),
+            ("--serve-services", args.serve_services, 1),
+            ("--serve-transport", args.serve_transport, "inproc"),
+            ("--residency-budget", args.residency_budget, None),
+            ("--hibernate-dir", args.hibernate_dir, None),
+            ("--status", args.status, None),
+            ("--status-interval-s", args.status_interval_s, 5.0),
+            ("--status-port", args.status_port, None)):
+        if val != default:
+            raise SystemExit(
+                f"{flag} configures the always-on serving loop; add "
+                "--serve")
+
+
 def check_ensemble_flags(args) -> None:
     """The JAX package's checks of the ensemble flags, for the flags the
     port has."""
+    if args.ensemble_mesh is not None:
+        if args.ensemble is None and not args.serve:
+            raise SystemExit(
+                "--ensemble-mesh shards the ensemble batch axis over "
+                "devices; add --ensemble=B or --serve (for the spatial "
+                "mesh of a single run use --mesh=LxC)")
+        _refuse_unported("--ensemble-mesh",
+                         "the mesh-sharded ensemble (ensemble/mesh.py)")
     if args.ensemble is not None:
         if args.ensemble < 1:
             raise SystemExit(f"--ensemble={args.ensemble} needs B >= 1")
@@ -113,9 +210,9 @@ def check_ensemble_flags(args) -> None:
             raise SystemExit(
                 "--impl selects the single-run kernel; ensemble runs "
                 "use --ensemble-impl=xla|pipeline|active|active_fused")
-    elif args.ensemble_impl != "xla":
-        raise SystemExit("--ensemble-impl applies to ensemble runs; add "
-                         "--ensemble=B")
+    elif args.ensemble_impl != "xla" and not args.serve:
+        raise SystemExit("--ensemble-impl applies to ensemble/serve runs; "
+                         "add --ensemble=B or --serve")
 
 
 def parse_grid2(text: str, flag: str) -> tuple[int, int]:
@@ -273,9 +370,69 @@ def run_ensemble_cli(args, space, model) -> int:
     return 0 if conserved else 1
 
 
+def run_serve_cli(args, space, model) -> int:
+    """``--serve``: the always-on loop under an open-loop arrival process
+    (``run_soak``), with the JAX package's report keys; exit status 1 when
+    the ledger is not complete."""
+    from .ensemble import AsyncEnsembleService, buckets_for, run_soak
+    from .models.model import kernel_launches
+
+    steps = args.steps if args.steps is not None else model.num_steps
+    n = args.serve_scenarios
+    before = kernel_launches()
+    try:
+        svc = AsyncEnsembleService(
+            model, steps=steps, impl=args.ensemble_impl,
+            substeps=args.substeps, buckets=buckets_for(8),
+            max_queue=args.max_queue, compute_dtype=args.compute_dtype,
+            deadline_s=args.deadline_s, retry="solo")
+    except (TypeError, ValueError) as e:
+        raise SystemExit(f"serve run failed: {e}")
+    rate = args.arrival_rate if args.arrival_rate else 1e9
+    with svc:
+        rep = run_soak(svc, [(space, None, None)] * n, arrival_rate_hz=rate)
+    launched = sum(v - before[k] for k, v in kernel_launches().items())
+    result = {
+        "backend": "serve",
+        "device": str(space.device),
+        "impl": args.ensemble_impl,
+        "steps": steps,
+        "max_queue": args.max_queue,
+        "deadline_s": args.deadline_s,
+        "services": args.serve_services,
+        "transport": args.serve_transport,
+        "telemetry_snapshot": None,
+        "trace": None,
+        "kernel_launches": launched,
+        **{k: rep[k] for k in (
+            "offered", "served", "failed", "expired", "shed",
+            "ledger_complete", "wall_s", "sustained_scenarios_per_s",
+            "occupancy", "latency_p50_s", "latency_p99_s",
+            "batch_occupancy", "dispatches", "solo_retries",
+            "recovered_failures", "quarantined", "loop_faults")},
+    }
+    if args.json:
+        print(json.dumps(result, allow_nan=False))
+    else:
+        sps = rep["sustained_scenarios_per_s"]
+        p99 = rep["latency_p99_s"]
+        p99_s = "n/a" if p99 is None else f"{p99:.4f}s"
+        occ = rep["occupancy"]
+        print(f"backend=serve impl={args.ensemble_impl} "
+              f"served={rep['served']}/{rep['offered']} "
+              f"shed={rep['shed']} expired={rep['expired']} "
+              f"failed={rep['failed']} "
+              f"({0.0 if sps is None else sps:.1f} scenarios/s sustained, "
+              f"p99={p99_s}, occupancy="
+              f"{0.0 if occ is None else occ:.2f}, {launched} kernel "
+              f"launches on {result['device']})")
+    return 0 if rep["ledger_complete"] else 1
+
+
 def cmd_run(args) -> int:
     check_ensemble_flags(args)
     sharded = check_sharded_flags(args)
+    check_serve_flags(args, sharded)
     if args.flow == "coupled" and args.channels < 2:
         raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
                          "has nothing to modulate — use --flow=diffusion)")
@@ -304,6 +461,8 @@ def cmd_run(args) -> int:
                                  compute_dtype=args.compute_dtype)
     else:
         model = Model(flow, args.time, args.time_step)
+    if args.serve:
+        return run_serve_cli(args, space, model)
     if args.ensemble is not None:
         return run_ensemble_cli(args, space, model)
     if sharded:
@@ -441,6 +600,50 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "step, per-lane rates), 'pipeline' (the pipelined-"
                      "window kernel K5, one launch for all lanes), 'active'/"
                      "'active_fused' (the active-tile engine per lane)")
+    run.add_argument("--serve", action="store_true",
+                     help="drive the always-on async serving loop: "
+                     "--serve-scenarios copies of the scenario arrive "
+                     "open-loop at --arrival-rate/s against a bounded "
+                     "admission queue; reports sustained scenarios/s, "
+                     "p50/p99 queue latency, occupancy and the "
+                     "served/shed/expired/failed ledger")
+    run.add_argument("--serve-scenarios", type=int, default=64,
+                     metavar="N",
+                     help="scenarios offered to the serving loop "
+                     "(default 64)")
+    run.add_argument("--serve-services", type=int, default=1, metavar="N",
+                     help="members of a serving fleet (the fleet is not "
+                     "ported: only 1)")
+    run.add_argument("--serve-transport", default="inproc",
+                     choices=("inproc", "process", "tcp"),
+                     help="fleet member transport (not ported: only "
+                     "'inproc')")
+    run.add_argument("--ensemble-mesh", default=None, metavar="B[xS]",
+                     help="shard the ensemble batch axis over a device mesh "
+                     "(not ported)")
+    run.add_argument("--arrival-rate", type=float, default=None,
+                     metavar="HZ",
+                     help="open-loop arrival rate in scenarios/s (unset/0 = "
+                     "open throttle: submit as fast as admission allows)")
+    run.add_argument("--deadline-s", type=float, default=None,
+                     help="per-ticket deadline: a scenario still queued "
+                     "past this expires with a complete FailureEvent")
+    run.add_argument("--max-queue", type=int, default=64,
+                     help="admission-queue bound: submissions beyond this "
+                     "shed with ServiceOverloaded (default 64)")
+    run.add_argument("--residency-budget", type=int, default=None,
+                     metavar="BYTES",
+                     help="scenario-tiering residency budget (not ported)")
+    run.add_argument("--hibernate-dir", default=None,
+                     help="scenario-tiering vault directory (not ported)")
+    run.add_argument("--status", default=None, metavar="PATH",
+                     help="telemetry snapshot of a --serve soak (not "
+                     "ported)")
+    run.add_argument("--status-interval-s", type=float, default=5.0,
+                     help="telemetry snapshot interval (not ported)")
+    run.add_argument("--status-port", type=int, default=None,
+                     help="live status endpoint of a --serve soak (not "
+                     "ported)")
     run.add_argument("--mesh", default=None, metavar="LxC",
                      help="run sharded (ShardMapExecutor) over an LxC mesh "
                      "(N or Nx1: N row stripes)")

@@ -10,10 +10,14 @@ bucketed scheduler (counterpart of ``mpi_model_tpu/ensemble/``).
                   flushes, runner-cache counters, solo retry and quarantine,
                   deadlines; a kernel's error reaches its tickets, with no
                   degradation ladder);
-- ``service``   — the synchronous ``EnsembleService``.
+- ``service``   — the synchronous ``EnsembleService``, the always-on
+                  ``AsyncEnsembleService`` (a pump thread launching batch i
+                  before finishing batch i-1, bounded admission with
+                  ``ServiceOverloaded``, windowed and donated dispatch) and
+                  ``run_soak``, open-loop arrivals against a service.
 
-The async service, ``run_soak``, the mesh-sharded ensemble, the fleet,
-journal, wire and tiering layers are not ported yet (ROADMAP.md).
+The mesh-sharded ensemble, the fleet, journal, wire and tiering layers are
+not ported yet (ROADMAP.md).
 """
 
 from .batch import (EnsembleConservationError, EnsembleExecutor,
@@ -21,9 +25,11 @@ from .batch import (EnsembleConservationError, EnsembleExecutor,
                     launch_ensemble, run_ensemble, structure_key)
 from .scheduler import (DEFAULT_BUCKETS, DispatchTimeout, EnsembleScheduler,
                         TicketExpired, buckets_for)
-from .service import EnsembleService
+from .service import (AsyncEnsembleService, EnsembleService,
+                      ServiceOverloaded, run_soak)
 
 __all__ = [
+    "AsyncEnsembleService",
     "DEFAULT_BUCKETS",
     "DispatchTimeout",
     "EnsembleConservationError",
@@ -32,10 +38,12 @@ __all__ = [
     "EnsembleScheduler",
     "EnsembleService",
     "EnsembleSpace",
+    "ServiceOverloaded",
     "TicketExpired",
     "buckets_for",
     "complete_ensemble",
     "launch_ensemble",
     "run_ensemble",
+    "run_soak",
     "structure_key",
 ]

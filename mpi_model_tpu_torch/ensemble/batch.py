@@ -25,8 +25,22 @@ of ``mpi_model_tpu/ensemble/batch.py``).
 - Conservation is checked per lane; a violation raises (or, for the
   scheduler, marks) ``EnsembleConservationError`` naming the lane.
 - ``launch_ensemble`` queues the work on the current CUDA stream and returns
-  without synchronizing; ``complete_ensemble`` synchronizes and builds the
-  results; ``run_ensemble`` is the two back to back.
+  without synchronizing: the runner, then right behind it the final totals
+  and the per-lane outflow sums, their copies into pinned host memory, and
+  a ``torch.cuda.Event`` after them. ``complete_ensemble`` waits on that
+  event alone (never on the whole device), so a flight finishes while a
+  later flight queued behind it still runs. ``run_ensemble`` is the two
+  back to back.
+- ``windows > 1`` (``impl="xla"``) advances a dispatch in that many runner
+  calls over the same step sequence (``_window_steps``), bit for bit the
+  one-call dispatch; ``donate=True`` (``impl="xla"``) steps in two buffers
+  per written channel that the dispatch owns (the stacked batch and one
+  more), so each window's ``[B, H, W]`` state moves to the next with no
+  copy and no fresh allocation. ``EnsembleInFlight.donated_windows`` counts
+  the windows whose results the storage check (``data_ptr``) finds in those
+  buffers.
+- The chaos seams ``lane_nan`` (captured and applied at launch, ahead of
+  the totals) and ``fetch_nan`` (at completion) of ``resilience.inject``.
 
 - ``compute_dtype=torch.bfloat16`` reaches K5 (``impl="pipeline"``): its
   closed TPU tiles compute in bf16; where ``_pipeline_blocks`` leaves none
@@ -34,8 +48,8 @@ of ``mpi_model_tpu/ensemble/batch.py``).
   impls take the knob as the JAX package does (the active engines' dense
   fallback is K1 at one step, where it changes nothing).
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): ``windows > 1``,
-``donate=True``, ``mesh=``, IR models.
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``, IR
+models.
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from ..models.model import (ConservationError, Model, Report,
 from ..ops.flow import Diffusion, PointFlow, build_outflow
 from ..ops.fused_stencil import resolve_compute_dtype
 from ..ops.stencil import neighbor_counts, transport
+from ..resilience import inject
 
 Values = dict[str, torch.Tensor]
 
@@ -353,25 +368,40 @@ class ScenarioStep:
         return _substituted([self.template[i] for i in idx],
                             [lanes["rates"][i] for i in idx], None)
 
-    def __call__(self, values: Values, lanes: dict) -> Values:
+    @property
+    def written(self) -> tuple[str, ...]:
+        """The channels a step writes (the flows' channels); the others ride
+        along as the same tensors."""
+        return tuple(dict.fromkeys(f.attr for f in self.template))
+
+    def __call__(self, values: Values, lanes: dict,
+                 into: Optional[Values] = None) -> Values:
+        """One step. ``into`` (per written channel, a buffer that aliases
+        none of ``values``) receives each written channel's result in place
+        of a fresh tensor, with the same operations."""
         field_flows = self.field_flows(lanes)
         new = dict(values)
         for attr, o in build_outflow(field_flows, values, (0, 0)).items():
+            # a channel with point flows ends in the scatter's buffer
+            dst = (None if into is None or attr in self.scatters
+                   else into[attr])
             new[attr] = transport(values[attr], o, self.counts(),
-                                  self.offsets)
+                                  self.offsets, out=dst)
         for attr, sc in self.scatters.items():
             # amounts read the PRE-step values (the serial discipline)
             amts = torch.stack([self.amount(p, values, lanes)
                                 for p in sc.points], dim=1)
-            new[attr] = self._scatter(new[attr], sc, amts)
+            new[attr] = self._scatter(new[attr], sc, amts,
+                                      None if into is None else into[attr])
         return new
 
-    def _scatter(self, v: torch.Tensor, sc: _Scatter, amts: torch.Tensor
-                 ) -> torch.Tensor:
+    def _scatter(self, v: torch.Tensor, sc: _Scatter, amts: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``ops.stencil.point_flow_step`` with a batch index: per source,
         ``-amount`` on the source and ``amount / counts[source]`` on each
         in-bounds neighbour, one accumulating ``index_put_`` per offset in
-        ``offsets`` order, lanes in order within each."""
+        ``offsets`` order, lanes in order within each. ``out`` receives the
+        result in place of a clone of ``v``."""
         B = v.shape[0]
         xs, ys = sc.xs, sc.ys
         share = amts / self.counts()[xs, ys]
@@ -383,7 +413,7 @@ class ScenarioStep:
             return (lane[:, None].expand(B, n).reshape(-1),
                     idx[None, :].expand(B, n).reshape(-1))
 
-        out = v.clone()
+        out = v.clone() if out is None else out.copy_(v)
         li, xi = lanes_by(xs)
         out.index_put_((li, xi, lanes_by(ys)[1]), (-amts).reshape(-1),
                        accumulate=True)
@@ -410,10 +440,9 @@ def _lane_sums(v: torch.Tensor, acc) -> torch.Tensor:
 
 
 def batched_totals(values_b: Values) -> dict:
-    """Per-scenario channel totals, ``[B]`` per channel: integer channels
-    summed on the host in int64 (exact), f64 in f64 on the device,
-    everything else (bool included) in f32 or wider. Float totals stay on
-    the device (no synchronization)."""
+    """Per-scenario channel totals, ``[B]`` tensors on the values' device
+    (no synchronization): integer channels in int64 (exact), f64 in f64,
+    everything else (bool included) in f32 or wider."""
     out = {}
     for k, v in values_b.items():
         if v.dtype.is_floating_point:
@@ -422,15 +451,21 @@ def batched_totals(values_b: Values) -> dict:
         elif v.dtype == torch.bool:
             out[k] = _lane_sums(v, torch.float32)
         else:
-            out[k] = v.cpu().numpy().reshape(v.shape[0], -1).sum(
-                axis=1, dtype=np.int64)
+            out[k] = v.reshape(v.shape[0], -1).sum(dim=1, dtype=torch.int64)
     return out
 
 
+def _fetch_async(t: torch.Tensor) -> torch.Tensor:
+    """A card tensor's copy into pinned host memory, queued on the current
+    stream (valid once the stream has passed it); a host tensor as is."""
+    if t.device.type != "cuda":
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+        t, non_blocking=True)
+
+
 def _host(totals: dict) -> dict[str, np.ndarray]:
-    return {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v)).astype(np.float64)
-            for k, v in totals.items()}
+    return {k: v.numpy().astype(np.float64) for k, v in totals.items()}
 
 
 # -- per-scenario conservation -----------------------------------------------
@@ -509,10 +544,10 @@ class EnsembleExecutor:
     ``substeps`` fuses that many model steps per step call (inside K5 on the
     pipeline path; the depth of the fused active passes); any remainder
     runs as single steps, so results do not depend on it. Runners are cached
-    by ``(batch, shape, impl, substeps, compute dtype, structure)`` plus the
-    pipeline's rate set (the JAX package's key; its donation and mesh
-    fields are fixed in the port); ``builds``/``cache_hits`` count misses
-    and hits for the serving counters.
+    by ``(batch, shape, impl, substeps, compute dtype, structure, donate)``
+    plus the pipeline's rate set (the JAX package's key; its mesh field is
+    fixed in the port); ``builds``/``cache_hits`` count misses and hits for
+    the serving counters.
     """
 
     comm_size = 1
@@ -541,14 +576,24 @@ class EnsembleExecutor:
         self.cache_hits = 0
 
     def runner_for(self, model, espace: EnsembleSpace,
-                   uniform_rates: Optional[dict] = None) -> Callable:
+                   uniform_rates: Optional[dict] = None,
+                   donate: bool = False) -> Callable:
         """The cached runner ``run(values, rates, frozens, q, r) -> (values,
         stats)`` for this batch (``q`` substeps-deep calls, then ``r``
-        single steps)."""
+        single steps). ``donate=True`` (xla impl only) builds the runner
+        that steps in buffers the caller owns: ``run(values, rates,
+        frozens, q, r, pairs)`` with ``pairs`` per written channel
+        (``run.written``) two buffers, one holding the state; donated and
+        undonated runners cache under distinct keys."""
+        if donate and self.impl != "xla":
+            raise ValueError(
+                f"donated dispatch supports impl='xla' only (the "
+                f"'{self.impl}' runner carries stat lanes alongside the "
+                "state, so the carry is not a pure [B,H,W] pytree)")
         cdt = resolve_compute_dtype(self.compute_dtype)
         key = (espace.batch, espace.shape, self.impl, self.substeps,
                str(cdt) if cdt is not None else None,
-               structure_key(model, espace))
+               structure_key(model, espace), bool(donate))
         if uniform_rates is not None:
             key = key + (tuple(sorted(uniform_rates.items())),)
         # build inside the lock: two racing submitters get one build, one hit
@@ -564,28 +609,44 @@ class EnsembleExecutor:
                 runner = self._build_active(
                     model, espace, fused=self.impl == "active_fused")
             else:
-                runner = self._build_xla(model, espace)
+                runner = self._build_xla(model, espace, donate=donate)
             self._cache[key] = runner
             return runner
 
-    def _build_xla(self, model, espace: EnsembleSpace) -> Callable:
+    def _build_xla(self, model, espace: EnsembleSpace,
+                   donate: bool = False) -> Callable:
         step = make_scenario_step(model, espace)
         substeps = self.substeps
 
-        def run(vb, rates, frozens, q, r):
+        if not donate:
+            def run(vb, rates, frozens, q, r):
+                lanes = step.lanes(rates, frozens)
+                for _ in range(q * substeps + r):
+                    vb = step(vb, lanes)
+                return vb, None
+
+            return run
+
+        def run_donated(vb, rates, frozens, q, r, pairs):
             lanes = step.lanes(rates, frozens)
             for _ in range(q * substeps + r):
-                vb = step(vb, lanes)
+                # each written channel's step lands in the pair's buffer
+                # that does not hold its state
+                into = {k: b if vb[k].data_ptr() == a.data_ptr() else a
+                        for k, (a, b) in pairs.items()}
+                vb = step(vb, lanes, into=into)
             return vb, None
 
-        return run
+        run_donated.written = step.written
+        return run_donated
 
     def last_execute_for(self, model, espace: EnsembleSpace) -> Callable:
         """Batched ``Flow.execute``: ``fn(values, rates, frozens)`` gives the
-        ``[B, F]`` per-lane outflow sums the reports carry, each summed as
-        the serial ``Flow.execute`` sums it. Cached beside the runners but
-        outside the ``builds``/``cache_hits`` counters, which count step
-        runners only."""
+        ``[B, F]`` f64 per-lane outflow sums the reports carry, on the
+        values' device (no synchronization), each summed as the serial
+        ``Flow.execute`` sums it. Cached beside the runners but outside the
+        ``builds``/``cache_hits`` counters, which count step runners
+        only."""
         key = ("last_execute", espace.batch, espace.shape,
                structure_key(model, espace))
         with self._cache_lock:
@@ -603,17 +664,19 @@ class EnsembleExecutor:
                         if isinstance(f, PointFlow):
                             # one nonzero cell: its sum is the amount
                             p = points.get(i)
-                            col = (torch.zeros(B, dtype=torch.float64)
+                            col = (torch.zeros(B, dtype=torch.float64,
+                                               device=step.device)
                                    if p is None
                                    else step.amount(p, values, lanes))
                         else:
                             o = next(field).outflow(values, (0, 0))
                             col = torch.stack([torch.sum(o[b])
                                                for b in range(B)])
-                        cols.append(col.to(torch.float64).cpu())
+                        cols.append(col.to(torch.float64))
                     if not cols:
-                        return np.zeros((B, 0), np.float64)
-                    return torch.stack(cols, dim=1).numpy()
+                        return torch.zeros((B, 0), dtype=torch.float64,
+                                           device=step.device)
+                    return torch.stack(cols, dim=1)
 
                 self._cache[key] = fn
             return fn
@@ -784,14 +847,57 @@ class EnsembleInFlight:
     frozens: np.ndarray
     count: int
     num_steps: int
-    #: per-channel ``[B]`` initial totals (device tensors / host ints)
-    initial_d: dict
+    #: the initial totals, final totals and ``[B, F]`` outflow sums
+    #: (``{"initial": {ch: [B]}, "final": {ch: [B]}, "last": [B, F]}``):
+    #: host tensors, which on the card are pinned copies that ``done``
+    #: covers
+    totals: dict
+    #: recorded after the totals' copies (on the card; None elsewhere):
+    #: the one thing completion waits on
+    done: Optional[object]
     #: perf_counter at dispatch, and when the launch returned: the wall
     #: bills launch + fetch, not any gap between them
     t0: float
     t_launched: float
     #: kernel launches the runner queued, by kernel source
     launches: dict
+    #: runner calls the dispatch made (the effective window count), and
+    #: how many of them the storage check found donated
+    windows: int = 1
+    donated_windows: int = 0
+
+
+def _window_steps(num_steps: int, windows: int) -> list[int]:
+    """Split ``num_steps`` across ``windows`` runner calls (earlier windows
+    take the remainder): the same step sequence, so windowed results are
+    bit for bit the one-call dispatch's."""
+    windows = max(1, min(int(windows), max(num_steps, 1)))
+    base, rem = divmod(num_steps, windows)
+    return [base + (1 if w < rem else 0) for w in range(windows)]
+
+
+def _run_windows(runner, executor, values: Values, rates, frozens,
+                 steps_list: list, donate: bool) -> tuple:
+    """The runner over each window in turn: ``(runner output, donated
+    windows)``. Donated: the dispatch owns two buffers per written channel
+    (the stacked batch and one more), and a window counts as donated when
+    every channel's result lies in its channel's buffers."""
+    pairs = owned = None
+    if donate:
+        pairs = {k: (values[k], torch.empty_like(values[k]))
+                 for k in runner.written}
+        owned = {k: ({p.data_ptr() for p in pairs[k]} if k in pairs
+                     else {v.data_ptr()}) for k, v in values.items()}
+    out, donated = (values, None), 0
+    for w_steps in steps_list:
+        q, r = divmod(w_steps, executor.substeps)
+        if donate:
+            out = runner(out[0], rates, frozens, q, r, pairs)
+            donated += all(v.data_ptr() in owned[k]
+                           for k, v in out[0].items())
+        else:
+            out = runner(out[0], rates, frozens, q, r)
+    return out, donated
 
 
 def launch_ensemble(model, spaces, *, models=None, executor=None,
@@ -800,15 +906,18 @@ def launch_ensemble(model, spaces, *, models=None, executor=None,
                     donate: bool = False) -> EnsembleInFlight:
     """Validate, stack, resolve (or build) the runner and queue one ensemble
     batch without waiting for it: the launch half of ``run_ensemble``. On
-    the card, the work is on the current CUDA stream when this returns."""
+    the card, the work, its totals and their copies to the host are on the
+    current CUDA stream when this returns, with the flight's event after
+    them.
+
+    ``windows > 1`` advances the batch in that many runner calls over the
+    same step sequence; ``donate=True`` carries the ``[B, H, W]`` state
+    between them in the dispatch's own buffers (both ``impl="xla"``
+    only)."""
     spaces = list(spaces)
     B = len(spaces)
     if B == 0:
         raise ValueError("run_ensemble needs at least one scenario")
-    if int(windows) > 1:
-        raise _not_ported("windowed dispatch (windows > 1)")
-    if donate:
-        raise _not_ported("donated dispatch (donate=True)")
     models = list(models) if models is not None else [model] * B
     if len(models) != B:
         raise ValueError(
@@ -826,23 +935,53 @@ def launch_ensemble(model, spaces, *, models=None, executor=None,
         executor = EnsembleExecutor()
     count = B if count is None else int(count)
     num_steps = model.num_steps if steps is None else int(steps)
+    windows = max(1, int(windows))
+    if windows > 1 and executor.impl != "xla":
+        raise ValueError(
+            f"windowed dispatch supports impl='xla' only, got "
+            f"{executor.impl!r} (the stat-lane carry of the active "
+            "impls does not window)")
     rates_np, frozens_np = flow_params(models)
     # the uniform-rate rule binds REAL lanes only: padding lanes are zero
     # values, which the shared rate keeps zero
     uniform = (None if executor.impl != "pipeline"
                else _uniform_rates(model, models, rates_np[:count]))
-    runner = executor.runner_for(model, espace, uniform)
+    runner = executor.runner_for(model, espace, uniform, donate=donate)
+    # queued before the (possibly donating) runner: the stream orders the
+    # runner's writes after these reads
     initial_d = batched_totals(espace.values)
+    st = inject.active()
+    poisons = (st.ensemble_poisons(st.bump("ensemble"))
+               if st is not None else [])
     t0 = _time.perf_counter()
     before = kernel_launches()
-    q, r = divmod(num_steps, executor.substeps)
-    out = runner(espace.values, rates_np, frozens_np, q, r)
+    steps_list = _window_steps(num_steps, windows)
+    out, donated = _run_windows(runner, executor, espace.values, rates_np,
+                                frozens_np, steps_list, donate)
     launched = {k: v - before[k] for k, v in kernel_launches().items()}
+    values = out[0]
+    for lane, fault in poisons:
+        inject.poison_lane_values(values, lane, fault)
+    # right behind the runner on the same stream: the totals the reports
+    # carry and their copies to the host, then the flight's event, so that
+    # completing this flight waits for nothing queued after it
+    totals = {
+        "initial": {k: _fetch_async(v) for k, v in initial_d.items()},
+        "final": {k: _fetch_async(v)
+                  for k, v in batched_totals(values).items()},
+        "last": _fetch_async(executor.last_execute_for(model, espace)(
+            values, rates_np, frozens_np)),
+    }
+    done = None
+    if espace.device.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(espace.device))
     return EnsembleInFlight(
         executor=executor, model=model, espace=espace, out=out,
         rates=rates_np, frozens=frozens_np, count=count,
-        num_steps=num_steps, initial_d=initial_d, t0=t0,
-        t_launched=_time.perf_counter(), launches=launched)
+        num_steps=num_steps, totals=totals, done=done, t0=t0,
+        t_launched=_time.perf_counter(), launches=launched,
+        windows=len(steps_list), donated_windows=donated)
 
 
 def _active_report(executor, model, espace, num_steps, count,
@@ -894,8 +1033,12 @@ def complete_ensemble(inflight: EnsembleInFlight, *,
                       tolerance: float = 1e-3,
                       rtol: Optional[float] = None,
                       on_violation: str = "raise") -> list:
-    """Wait for a launched dispatch and build the per-lane results: the
-    completion half of ``run_ensemble`` (its return contract)."""
+    """Wait for a launched dispatch (its own event: work queued after it
+    keeps running) and build the per-lane results: the completion half of
+    ``run_ensemble`` (its return contract). The ``fetch_nan`` chaos seam
+    fires here, downstream of the device work: a poisoned lane's totals are
+    taken again, and the per-lane conservation machinery must catch it like
+    a diverged lane."""
     if on_violation not in ("raise", "mark"):
         raise ValueError(f"unknown on_violation {on_violation!r}")
     executor = inflight.executor
@@ -904,13 +1047,25 @@ def complete_ensemble(inflight: EnsembleInFlight, *,
     count = inflight.count
     num_steps = inflight.num_steps
     fetch_t0 = _time.perf_counter()
-    if espace.device.type == "cuda":
-        torch.cuda.synchronize(espace.device)
+    if inflight.done is not None:
+        inflight.done.synchronize()
     # the batch wall bills the host-observed segments: launch (assembly and
     # enqueue) plus fetch (the wait)
     wall = ((inflight.t_launched - inflight.t0)
             + (_time.perf_counter() - fetch_t0))
     out, stats = inflight.out
+    totals = inflight.totals
+    st = inject.active()
+    if st is not None:
+        f = st.take("fetch", st.bump("fetch"), kinds=("fetch_nan",))
+        if f is not None:
+            inject.poison_lane_values(out, f.lane if f.lane is not None
+                                      else 0, f)
+            # the chaos path alone waits here, for the poisoned totals
+            totals = dict(totals, final={
+                k: v.cpu() for k, v in batched_totals(out).items()},
+                last=executor.last_execute_for(model, espace)(
+                    out, inflight.rates, inflight.frozens).cpu())
     lane_reports: list = [None] * count
     if executor.impl in ("active", "active_fused"):
         executor.last_backend_report, lane_reports = _active_report(
@@ -924,10 +1079,9 @@ def complete_ensemble(inflight: EnsembleInFlight, *,
                         for _ in range(count)]
     else:
         executor.last_backend_report = None
-    final = _host(batched_totals(out))
-    initial = _host(inflight.initial_d)
-    last_exec = executor.last_execute_for(model, espace)(
-        out, inflight.rates, inflight.frozens)
+    initial = _host(totals["initial"])
+    final = _host(totals["final"])
+    last_exec = totals["last"].numpy()
     bad: list[int] = []
     errs = thresholds = None
     if check_conservation:

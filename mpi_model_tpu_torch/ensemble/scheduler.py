@@ -29,16 +29,31 @@ overrun is a ``DispatchTimeout``), ``ticket_deadline_s`` a queued ticket
 retries.
 
 A dispatch is two halves: launch (assemble, pad, resolve the runner, queue
-the work: ``launch_due`` → ``batch.launch_ensemble``) and finish (wait,
-conservation, results: ``finish_flight`` → ``batch.complete_ensemble``); the
-synchronous path runs them back to back. Shared state is mutated only under
-the one ``_lock``; device work runs outside it.
+the work: ``launch_due`` → ``batch.launch_ensemble``) and finish (wait on
+the flight's own event, conservation, results: ``finish_flight`` →
+``batch.complete_ensemble``); the synchronous path runs them back to back,
+the async service's pump thread launches batch i before it finishes batch
+i-1. The dispatch deadline bills the launch and finish segments, never the
+gap between them. Shared state is mutated only under the one ``_lock``;
+device work runs outside it. ``inline_dispatch=False`` (the async service)
+makes ``submit`` enqueue only: a submission on the card records an event
+on the submitter's current stream, and the launch makes its own stream
+wait on it before the batch reads the space.
 
-Not ported (``NotImplementedError`` naming ROADMAP.md):
-``windows > 1``, ``donate=True``, ``mesh=``, migration between schedulers,
-the chaos seams, tracing spans and the flight recorder; the fleet's
-``counter`` and ``service_id`` arguments are left out with the fleet
-(``stats()`` keeps their keys).
+``windows``/``donate`` advance each ``impl="xla"`` dispatch in that many
+runner calls, the ``[B, H, W]`` state carried between them in the
+dispatch's own buffers (``batch.launch_ensemble``); ``windows > 1`` with
+another impl is refused, ``donate`` turns off without a word for the other
+impls, as in the JAX package. The dispatch log's ``windows`` and
+``donated_windows`` say what ran.
+
+Chaos seams (``resilience.inject``): ticket-bound ``lane_nan`` poisons are
+mapped to lanes for the launch, ``batch_exc`` fails a whole dispatch,
+``slow_compile`` and ``hang`` stretch its clock duration.
+
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``,
+migration between schedulers, tracing spans and the flight recorder; the
+fleet's ``counter`` argument is left out with the fleet.
 """
 
 from __future__ import annotations
@@ -50,9 +65,11 @@ import threading
 import time
 from typing import Callable, Optional, Sequence
 
+import torch
+
 from ..core.cellular_space import CellularSpace
 from ..models.model import _not_ported
-from ..resilience import FailureEvent
+from ..resilience import FailureEvent, inject
 from ..utils.metrics import ThroughputCounter
 from .batch import (EnsembleExecutor, complete_ensemble, launch_ensemble,
                     padding_scenarios, structure_key)
@@ -88,6 +105,9 @@ class _Pending:
     model: object
     steps: int
     submitted_at: float
+    #: recorded on the submitter's stream at submission (async path, on the
+    #: card): the launch's stream waits on it before reading the space
+    ready: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -102,6 +122,10 @@ class _Flight:
     #: injectable clock when the launch returned: the deadline bills the
     #: launch and fetch segments
     c_launched: float
+    #: the dispatch seam's firing index (the ``hang`` fault's), when armed
+    didx: Optional[int] = None
+    #: injectable-clock seconds a ``slow_compile`` fault added
+    extra_s: float = 0.0
 
 
 class EnsembleScheduler:
@@ -123,6 +147,8 @@ class EnsembleScheduler:
                  ticket_deadline_s: Optional[float] = None,
                  retry_budget: Optional[int] = None,
                  windows: int = 1, donate: bool = False,
+                 inline_dispatch: bool = True,
+                 service_id: Optional[str] = None,
                  mesh=None):
         if retry not in ("none", "solo"):
             raise ValueError(
@@ -131,10 +157,11 @@ class EnsembleScheduler:
         bl = tuple(sorted({int(b) for b in buckets}))
         if not bl or bl[0] < 1:
             raise ValueError(f"buckets must be positive ints, got {buckets}")
-        if int(windows) > 1:
-            raise _not_ported("windowed dispatch (windows > 1)")
-        if donate:
-            raise _not_ported("donated dispatch (donate=True)")
+        if windows > 1 and impl != "xla":
+            raise ValueError(
+                f"windows={windows} requires impl='xla' (the active/"
+                "pipeline runners carry stat lanes that do not window); "
+                f"got impl={impl!r}")
         if mesh is not None:
             raise _not_ported("the mesh-sharded ensemble (mesh=...)")
         self.buckets = bl
@@ -155,6 +182,16 @@ class EnsembleScheduler:
         self.dispatch_deadline_s = dispatch_deadline_s
         self.ticket_deadline_s = ticket_deadline_s
         self.retry_budget = retry_budget
+        #: runner calls per dispatch; with donate=True the [B, H, W] state
+        #: moves between them copy-free (xla impl only)
+        self.windows = max(1, int(windows))
+        self.donate = bool(donate)
+        #: False: the async pump thread owns all dispatching, and submit
+        #: never runs device work on the caller's thread
+        self.inline_dispatch = bool(inline_dispatch)
+        #: the serving member's identity, stamped into stats(), served
+        #: backend reports and FailureEvents (None: a standalone scheduler)
+        self.service_id = service_id
         #: one FailureEvent per quarantined scenario, in order
         self.quarantine_log: list = []
         #: one FailureEvent per expired ticket, in order
@@ -175,18 +212,63 @@ class EnsembleScheduler:
     def submit(self, space: CellularSpace, model, steps: Optional[int] = None
                ) -> int:
         """Queue one scenario; returns its ticket. The group dispatches
-        at once when it holds ``max_batch`` scenarios."""
+        at once when it holds ``max_batch`` scenarios (unless
+        ``inline_dispatch=False``: then the pump thread owns it)."""
         steps = model.num_steps if steps is None else int(steps)
         key = structure_key(model, space) + (steps,)
+        ready = None
+        if not self.inline_dispatch and space.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(space.device))
         with self._lock:
             ticket = next(self._ids)
             self._queues.setdefault(key, []).append(
-                _Pending(ticket, space, model, steps, self._clock()))
+                _Pending(ticket, space, model, steps, self._clock(), ready))
             self._pending_tickets.add(ticket)
             full = len(self._queues[key]) >= self.max_batch
-        if full:
+        if full and self.inline_dispatch:
             self._dispatch_group(key)
         return ticket
+
+    def allocate_ticket(self) -> int:
+        """Reserve one ticket id without queuing a scenario (the JAX
+        package's paging overlay hands these out; kept with its API)."""
+        with self._lock:
+            return next(self._ids)
+
+    def queued_since(self, ticket: int) -> Optional[float]:
+        """The injectable-clock time a queued ticket was submitted, or None
+        when it is not queued."""
+        with self._lock:
+            for q in self._queues.values():
+                for it in q:
+                    if it.ticket == ticket:
+                        return it.submitted_at
+            return None
+
+    def pending_count(self) -> int:
+        """Tickets submitted and not yet resolved (queued or in a
+        dispatch): the admission queue depth the async service bounds."""
+        with self._lock:
+            return len(self._pending_tickets)
+
+    def due_backlog(self) -> bool:
+        """True when some queued group is due (full, or its oldest
+        submission waited past ``max_wait_s``): work a healthy pump would
+        be making progress on now."""
+        with self._lock:
+            now = self._clock()
+            for q in self._queues.values():
+                if q and (len(q) >= self.max_batch
+                          or (now - q[0].submitted_at) >= self.max_wait_s):
+                    return True
+            return False
+
+    def queued_tickets(self) -> list[int]:
+        """Tickets still in a queue (submitted, not yet claimed into a
+        dispatch)."""
+        with self._lock:
+            return [it.ticket for q in self._queues.values() for it in q]
 
     def poll(self, ticket: int, pump: bool = True):
         """Result for ``ticket`` if served (due groups are pumped first):
@@ -241,7 +323,8 @@ class EnsembleScheduler:
                 ev = FailureEvent(
                     step=it.steps, kind="expired", detail=str(err),
                     rolled_back_to=0, attempt=1, wall_time_s=0.0,
-                    classification="deterministic", ticket=it.ticket)
+                    classification="deterministic", ticket=it.ticket,
+                    service_id=self.service_id)
                 err.ticket = it.ticket
                 err.failure_event = ev
                 self.expired_log.append(ev)
@@ -359,25 +442,63 @@ class EnsembleScheduler:
         template = items[0].model
         spaces = [it.space for it in items]
         models = [it.model for it in items]
+        # chaos seams: ticket-bound lane poisons are mapped to lanes and
+        # pushed for the launch; "batch_exc" fails this whole dispatch;
+        # "slow_compile" stretches its clock duration like a hung build
+        st = inject.active()
+        didx = st.bump("dispatch") if st is not None else None
+        extra_s = 0.0
+        pushed = False
+        if st is not None:
+            poisons = []
+            for i, it in enumerate(items):
+                f = st.ticket_fault(it.ticket)
+                if f is not None:
+                    poisons.append((i, f))
+            if poisons:
+                st.push_lane_poisons(poisons)
+                pushed = True
         builds0 = self.executor.builds
         c0 = self._clock()
         try:
+            if st is not None:
+                bf = st.take("dispatch", didx, kinds=("batch_exc",))
+                if bf is not None:
+                    raise inject.InjectedFault(
+                        f"injected batch fault on dispatch {didx}")
+                sf = st.take("assemble", st.bump("assemble"),
+                             kinds=("slow_compile",))
+                if sf is not None:
+                    extra_s = sf.seconds
+            for it in items:
+                # a space a client thread made on another stream is ready
+                # before the batch reads it
+                if it.ready is not None:
+                    torch.cuda.current_stream(it.space.device).wait_event(
+                        it.ready)
             if bucket > k:
                 pspaces, pmodels = padding_scenarios(template, spaces[0],
                                                      bucket - k)
                 spaces += pspaces
                 models += pmodels
+            xla = self.executor.impl == "xla"
             inflight = launch_ensemble(
                 template, spaces, models=models, executor=self.executor,
-                steps=items[0].steps, count=k)
+                steps=items[0].steps, count=k,
+                windows=self.windows if xla else 1,
+                donate=self.donate and xla)
         # the dispatch boundary: any whole-batch failure (an ineligible
         # engine, a kernel error) fans out to the affected tickets instead of
         # stranding them or reaching an unrelated caller
         except Exception as e:
             return None, e
+        finally:
+            if pushed:
+                st.clear_lane_poisons()
         return _Flight(items=items, bucket=bucket, inflight=inflight,
                        cache_hit=self.executor.builds == builds0, c0=c0,
-                       c_launched=self._clock()), None
+                       c_launched=self._clock(), didx=didx,
+                       extra_s=extra_s), None
 
     def _complete_batch(self, flight: _Flight):
         """Wait for a launched batch and enforce the dispatch deadline:
@@ -400,7 +521,16 @@ class EnsembleScheduler:
                 wall = res[1].wall_time_s
                 break
             wall = getattr(res, "wall_time_s", 0.0) or wall
-        duration = (flight.c_launched - flight.c0) + (self._clock() - c_f0)
+        # the launch and fetch segments (+ injected build-hang seconds); the
+        # async gap between them, this batch running while its successor
+        # was assembled, is not billed. A real hang sits in the fetch.
+        duration = ((flight.c_launched - flight.c0)
+                    + (self._clock() - c_f0) + flight.extra_s)
+        st = inject.active()
+        if st is not None:
+            hf = st.take("dispatch", flight.didx, kinds=("hang",))
+            if hf is not None:
+                duration += hf.seconds
         if (self.dispatch_deadline_s is not None
                 and duration > self.dispatch_deadline_s):
             # an overrun dispatch's results are not trusted, nor billed
@@ -412,6 +542,13 @@ class EnsembleScheduler:
             scenarios=k, bucket=flight.bucket, wall_s=wall,
             cache_hit=flight.cache_hit,
             inflight_s=time.perf_counter() - flight.inflight.t0)
+        if self.service_id is not None:
+            # every served report names the member that produced it
+            for res in results:
+                if not isinstance(res, Exception):
+                    res[1].backend_report = {
+                        **(res[1].backend_report or {}),
+                        "service_id": self.service_id}
         return results, None, flight.cache_hit, wall
 
     def _execute_batch(self, items: list, bucket: int):
@@ -462,6 +599,11 @@ class EnsembleScheduler:
             "tickets": [it.ticket for it in items],
             "cache_hit": cache_hit, "wall_s": wall,
         }
+        if flight.inflight.windows > 1 or self.donate:
+            # the donation observable: how many of this dispatch's windows
+            # the storage check found carried copy-free
+            entry["windows"] = flight.inflight.windows
+            entry["donated_windows"] = flight.inflight.donated_windows
         if retried:
             entry["retried_solo"] = list(retried)
         if budget_starved:
@@ -481,6 +623,16 @@ class EnsembleScheduler:
                              note=f"retry budget ({self.retry_budget}) "
                                   "exhausted — quarantined without a "
                                   "solo retry")
+
+    def fail_flight(self, flight: _Flight, err: Exception) -> None:
+        """Last-resort resolution when ``finish_flight`` itself raised:
+        ``err`` goes to every still-pending ticket of the flight, so no
+        ticket stays pending forever."""
+        for it in flight.items:
+            with self._lock:
+                still = it.ticket in self._pending_tickets
+            if still:
+                self._publish(it, err)
 
     def _publish(self, it: _Pending, res) -> None:
         """Resolve one ticket; served results record their queue latency
@@ -580,7 +732,8 @@ class EnsembleScheduler:
         ev = FailureEvent(
             step=it.steps, kind=kind, detail=detail, rolled_back_to=0,
             attempt=attempts, wall_time_s=0.0,
-            classification="deterministic", ticket=it.ticket)
+            classification="deterministic", ticket=it.ticket,
+            service_id=self.service_id)
         with self._lock:
             self.quarantine_log.append(ev)
         self.counter.bump("quarantined")
@@ -611,6 +764,6 @@ class EnsembleScheduler:
                 "intake_gated": False,
                 "migrated_out": 0,
                 "migrated_in": 0,
-                "service_id": None,
+                "service_id": self.service_id,
             })
             return out

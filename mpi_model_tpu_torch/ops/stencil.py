@@ -14,7 +14,7 @@ match the JAX package bit for bit.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -66,11 +66,15 @@ def neighbor_counts(
 
 def transport(values: torch.Tensor, outflow: torch.Tensor,
               counts: torch.Tensor,
-              offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS
-              ) -> torch.Tensor:
-    """One mass-conserving redistribution step over the whole grid."""
+              offsets: Sequence[tuple[int, int]] = MOORE_OFFSETS,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One mass-conserving redistribution step over the whole grid.
+    ``out`` (a tensor of the result's shape and dtype that aliases no
+    input) receives the result in place of a fresh tensor, with the same
+    operations."""
     share = outflow / counts
-    return values - outflow + gather_neighbors(share, offsets)
+    return torch.add(values - outflow, gather_neighbors(share, offsets),
+                     out=out)
 
 
 def flow_step(values: torch.Tensor, rate_field: torch.Tensor,

@@ -124,6 +124,13 @@ class ThroughputCounter:
         with self._lock:
             setattr(self, name, getattr(self, name) + int(n))
 
+    def busy_per_scenario(self) -> Optional[float]:
+        """Busy seconds per served scenario (None before any serve): an O(1)
+        read for admission's retry-after estimate, which must not pay
+        ``snapshot()``'s reservoir sort."""
+        with self._lock:
+            return self.busy_s / self.scenarios if self.scenarios else None
+
     def record_latency(self, seconds: float) -> None:
         """One served scenario's submit-to-served latency (scheduler
         clock)."""

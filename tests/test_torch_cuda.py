@@ -535,7 +535,7 @@ def test_xla_ensemble_lanes_bitwise_serial_on_the_card():
 def test_launch_queues_without_a_synchronization(impl):
     """``launch_ensemble`` queues a dispatch on the stream and waits for
     nothing (torch's sync debug mode raises on any synchronizing call);
-    ``complete_ensemble`` then synchronizes once."""
+    ``complete_ensemble`` then waits on the flight's event."""
     from mpi_model_tpu_torch.ensemble.batch import (complete_ensemble,
                                                     launch_ensemble)
 
@@ -562,6 +562,108 @@ def test_launch_queues_without_a_synchronization(impl):
     got = complete_ensemble(flight)
     for (a, _), (b, _) in zip(got, warm):
         assert torch.equal(a.values["value"], b.values["value"])
+
+
+# -- the always-on serving loop ----------------------------------------------
+
+def _lanes(dev, B, side, seed, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [mt.CellularSpace.create(side, side, 1.0, device=dev).with_values(
+        {"value": torch.from_numpy(rng.uniform(0.5, 2.0, (side, side))).to(
+            dev, dtype)}) for _ in range(B)]
+
+
+@pytest.mark.cuda
+def test_a_flight_finishes_while_a_later_flight_runs():
+    """``complete_ensemble`` waits on its own flight's event: a pipeline
+    flight finishes while an xla flight queued behind it on the same
+    stream is still running, and both then give their synchronous
+    results."""
+    from mpi_model_tpu_torch.ensemble.batch import (complete_ensemble,
+                                                    launch_ensemble)
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    first = _lanes(dev, 8, 1024, 41)
+    second = _lanes(dev, 32, 1024, 43)
+    k5 = mt.EnsembleExecutor("pipeline", substeps=8)
+    xla = mt.EnsembleExecutor("xla")
+    want1 = complete_ensemble(launch_ensemble(model, first, executor=k5,
+                                              steps=8))
+    want2 = complete_ensemble(launch_ensemble(model, second, executor=xla,
+                                              steps=64))
+    torch.cuda.synchronize()
+    f1 = launch_ensemble(model, first, executor=k5, steps=8)
+    f2 = launch_ensemble(model, second, executor=xla, steps=64)
+    got1 = complete_ensemble(f1)
+    pending = not f2.done.query()
+    got2 = complete_ensemble(f2)
+    assert pending, "finishing the first flight waited for the second"
+    for got, want in ((got1, want1), (got2, want2)):
+        for (a, ra), (b, rb) in zip(got, want):
+            assert torch.equal(a.values["value"], b.values["value"])
+            assert ra.final_total == rb.final_total
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_async_pipeline_bitwise_sync_on_the_card(compute_dtype):
+    """The loop's pump thread serves ``impl="pipeline"`` (K5) bit for bit as
+    the synchronous service does, steps/substeps K5 launches a dispatch."""
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    spaces = _lanes(dev, 8, 1024, 47)
+    kw = dict(steps=8, impl="pipeline", substeps=8,
+              buckets=mt.buckets_for(8), retry="solo",
+              compute_dtype=compute_dtype)
+    sync = mt.EnsembleService(model, **kw)
+    want = [sync.result(t) for t in [sync.submit(s) for s in spaces]]
+    with mt.AsyncEnsembleService(model, **kw) as svc:
+        before = ps.launches()
+        got = [svc.result(t, timeout=300)
+               for t in [svc.submit(s) for s in spaces]]
+        launched = ps.launches() - before
+    # the pump dispatches whatever is queued when it looks: one K5 launch
+    # a dispatch, however the 8 submissions were cut
+    assert launched == svc.stats()["dispatches"] >= 1
+    for (a, ra), (b, rb) in zip(got, want):
+        assert torch.equal(a.values["value"], b.values["value"])
+        assert ra.final_total == rb.final_total
+
+
+@pytest.mark.cuda
+def test_a_k5_launch_error_reaches_the_ticket_on_the_card(monkeypatch):
+    """A K5 launch error in the pump reaches each ticket as that error
+    (the solo retry, then quarantine), and the plain version never runs on
+    the card in its place."""
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    spaces = _lanes(dev, 2, 256, 53)
+    svc = mt.AsyncEnsembleService(model, steps=8, impl="pipeline",
+                                  substeps=8, start=False)
+
+    class FailingLib:
+        def mm_pipeline_stencil_f32(self, *args):
+            return 98
+
+        mm_pipeline_stencil_bf16 = mm_pipeline_stencil_f32
+
+        def mm_cuda_error_string(self, err):
+            return b"invalid device function"
+
+    plain = []
+    monkeypatch.setattr(ps, "_kernel_lib", FailingLib)
+    monkeypatch.setattr(ps, "pipeline_step_plain",
+                        lambda *a, **k: plain.append(a))
+    tickets = [svc.submit(s) for s in spaces]
+    svc.stop()
+    for t in tickets:
+        with pytest.raises(RuntimeError,
+                           match="invalid device function") as ei:
+            svc.poll(t)
+        assert ei.value.failure_event.attempt == 2
+    assert plain == []
+    assert svc.stats()["quarantined"] == 2
 
 
 # -- the halo kernels K2, K3-halo and K4-halo, and the sharded path ---------

@@ -590,14 +590,18 @@ def test_scheduler_stats_keys_are_jax_keys():
 def test_unported_options_name_the_roadmap():
     spaces, models, _ = make_scenarios(B=1)
     for make in (lambda: mt.EnsembleExecutor(mesh=2),
-                 lambda: mt.EnsembleService(models[0], donate=True),
-                 lambda: mt.EnsembleService(models[0], windows=2),
                  lambda: mt.EnsembleScheduler(mesh=(2, 1)),
-                 lambda: launch_ensemble(models[0], spaces, windows=2),
                  lambda: mt.EnsembleService(models[0]).migrate(
                      0, mt.EnsembleService(models[0]))):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make()
+    # windowed and donated dispatch are ported (impl="xla")
+    svc = mt.EnsembleService(models[0], windows=2, donate=True)
+    assert svc.scheduler.windows == 2 and svc.scheduler.donate
+    fl = launch_ensemble(models[0], spaces, windows=2, donate=True,
+                         steps=2)
+    assert fl.windows == fl.donated_windows == 2
+    complete_ensemble(fl)
     with pytest.raises(ValueError, match="compile_cache"):
         mt.EnsembleService(models[0], compile_cache="/some/dir")
     assert mt.EnsembleService(models[0], compile_cache=None) \

@@ -388,6 +388,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "__init__", "mesh", "collectives", "halo", "executors")} <= rel
     assert {"mpi_model_tpu_torch/io/__init__.py",
             "mpi_model_tpu_torch/io/output.py"} <= rel
+    assert {"mpi_model_tpu_torch/resilience/inject.py",
+            "mpi_model_tpu_torch/ensemble/service.py",
+            "mpi_model_tpu_torch/ensemble/scheduler.py"} <= rel
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
