@@ -298,6 +298,38 @@ Phases (any failure exits non-zero, and no result line is printed):
    counts its instructions on the f32 halves at the f32 rate; K1/K2's
    and K3 vpu's paired form its walk's instructions over the windows of
    the tiling that runs, ``k1_paired_bound_ms``, ``k3_paired_bound_ms``).
+6h. checkpoints, supervision and migration at full width
+   (``checkpoint_phase``; files under ``chiprun_out/ckpt_6h``, deleted at
+   the end; the peak bytes on disk printed), each run with the counts set
+   to 0 just before and read just after: (a) ``run_checkpointed`` of
+   phase 4's 16384² grid (rate 0.1, ``SerialExecutor("pallas",
+   substeps=8)``, 64 steps, every 16, the full layout) cut after step 32
+   and resumed from ``latest()`` by a fresh manager: bit for bit the
+   uninterrupted run, K1 × 8; per save the device-to-host copy, CRC and
+   write seconds and the file's bytes, the restore's seconds. (b)
+   ``supervised_run`` of the same with ``exc`` on chunk 1, ``nan`` on
+   chunk 2 and a ``torn`` step-48 checkpoint, run to 48, then restarted
+   to 64 by a fresh manager (which falls back past 48 to 32): bit for bit
+   the uninterrupted run, events ``exception, nonfinite``, one
+   ``check_health`` transfer per checked chunk (6), K1 × 12. (c) the delta
+   layout: ``bench.py::_active_workload``'s grid (16384² at 0.01, 128²
+   tiles) through ``"active_fused"`` k=8 (K6 + K7), 64 steps, every 8,
+   ``keyframe_every`` 8, beside the same run in the full layout; the chain
+   cut at 56 with that delta record torn and resumed (it falls back to
+   48): every committed step restores bit for bit the full layout's, every
+   delta record's tiles come from ``last_dirty_tiles``; the keyframe's and
+   each record's bytes and seconds. (d) ``ShardMapExecutor`` on 2×2 (one
+   card), ``"pallas"`` depth 8 (K2), a ``halo`` fault on chunk 1: detected
+   as conservation drift, rolled back, bit for bit the unperturbed sharded
+   run, K2 × 40. (e) ``migrate_scenario`` of (c)'s grid serial K1 ↔ the 2×2
+   K2 executor, 64 steps, handoff at 16, 8 in flight: bit for bit the
+   serial run, ``0 < delta_bytes < keyframe_bytes``. (f)
+   ``EnsembleService.migrate`` of a queued 4096² ticket between two
+   pipeline services: bit for bit the ticket served in place, K5 × 1. (g)
+   the CLI: ``--steps=64 --checkpoint-dir --checkpoint-every=16
+   --chaos=exc:1`` at 16384², and the same with
+   ``--checkpoint-layout=delta --impl=active_fused --substeps=8
+   --blob=0.01``: each recovers one failure, its event ledger printed.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -339,6 +371,9 @@ SOAK_ROUNDS = 3    # the soak's unprofiled rounds a mode, in turns
 #: bench.py::bench_service's row uncut: grid side, lanes, scenarios
 SERVE_BENCH = (512, 8, 2000)
 STEPS = 64
+CKPT_STEPS = 64    # phase 6h's runs
+CKPT_EVERY = 16    # its dense-layout cadence (a chunk, a save)
+DELTA_EVERY = 8    # its delta-layout cadence and keyframe_every
 ACTIVE_STEPS = 20
 FRACS = (0.01, 0.05, 0.15)
 SPREAD_ROUNDS = 3  # phase 6f's repeated 2x2 rows at 0.01 and 0.05
@@ -3409,6 +3444,412 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     return out
 
 
+def disk_bytes(root: Path) -> int:
+    """Bytes of every file under ``root``."""
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def checkpoint_phase(np, torch, mt, dev, root: Path, reset_counts,
+                     kernel_launches, side: int = N, side5: int = N5,
+                     cli_args=()) -> dict:
+    """Phase 6h: checkpoints, supervision and migration at full width (see
+    the module docstring). Writes under ``root`` and deletes it at the end;
+    ``side``/``side5``/``cli_args`` exist for a rehearsal on the CPU."""
+    import warnings
+
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.io import (CheckpointManager, migrate_scenario,
+                                        run_checkpointed)
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+    from mpi_model_tpu_torch.resilience import inject, supervised_run
+    from mpi_model_tpu_torch.resilience import supervisor as sup
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
+
+    t_phase = time.perf_counter()
+    out = {"side": side, "side5": side5, "steps": CKPT_STEPS,
+           "every": CKPT_EVERY, "delta_every": DELTA_EVERY}
+    saves, restores, peak = [], [], [0]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    class Recorded(CheckpointManager):
+        """A manager that logs each save's and restore's figures and the
+        phase's bytes on disk."""
+
+        def save(self, space, step, extra=None, *, dirty_tiles=None):
+            path = super().save(space, step, extra, dirty_tiles=dirty_tiles)
+            saves.append({"dir": Path(self.directory).name,
+                          **self.last_save})
+            peak[0] = max(peak[0], disk_bytes(root))
+            return path
+
+        def restore(self, step, *, device=None):
+            sync()
+            t0 = time.perf_counter()
+            ok = False
+            try:
+                ck = super().restore(step, device=device)
+                sync()
+                ok = True
+                return ck
+            finally:
+                restores.append({"dir": Path(self.directory).name,
+                                 "step": step, "ok": ok,
+                                 "s": time.perf_counter() - t0})
+
+    def counted(fn):
+        """``fn()`` with the counts set to 0 just before and read just
+        after: (its result, the nonzero counts)."""
+        reset_counts()
+        res = fn()
+        sync()
+        return res, {k: v for k, v in kernel_launches().items() if v}
+
+    def print_saves(first: int, what: str) -> None:
+        for s in saves[first:]:
+            kind = s.get("kind", "full")
+            crc = (f"crc {s['crc_s']:.3f} s, " if "crc_s" in s
+                   else "(CRC in the copy) ")
+            dirty = (f", {s['dirty_tiles']} dirty tiles from "
+                     f"{s['dirty_from']}" if s.get("dirty_tiles") is not None
+                     else "")
+            print(f"  {what} save step {s['step']} {kind}: copy "
+                  f"{s['copy_s']:.3f} s, {crc}write {s['write_s']:.3f} s, "
+                  f"{s['bytes']} bytes{dirty}", flush=True)
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        # -- (a) the checkpointed main path, cut after step 32 and resumed
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        space = mt.CellularSpace({"value": 1.0 + 0.1 * torch.rand(
+            (side, side), generator=gen, device=dev)}, side, side)
+        model = mt.Model(mt.Diffusion(0.1))
+
+        def serial():
+            return mt.SerialExecutor("pallas", substeps=8)
+
+        want = model.execute(space, serial(), steps=CKPT_STEPS)[0]
+        want = want.values["value"]
+        first = len(saves)
+
+        def cut_and_resume():
+            run_checkpointed(model, space, Recorded(str(root / "a"),
+                                                    device=dev),
+                             steps=32, every=CKPT_EVERY, executor=serial())
+            return run_checkpointed(model, space, Recorded(
+                str(root / "a"), device=dev), steps=CKPT_STEPS,
+                every=CKPT_EVERY, executor=serial())
+
+        (got, step, _), counts = counted(cut_and_resume)
+        ok = step == CKPT_STEPS and torch.equal(got.values["value"], want)
+        out["a"] = {"bit_for_bit": ok, "launches": counts,
+                    "saves": saves[first:],
+                    "restores": [r for r in restores if r["dir"] == "a"]}
+        print(f"6h (a) checkpointed main path {side}^2, every "
+              f"{CKPT_EVERY}, cut at 32 and resumed by a fresh manager: bit "
+              f"for bit the uninterrupted run {ok}; launches {counts}",
+              flush=True)
+        print_saves(first, "(a)")
+        for r in out["a"]["restores"]:
+            print(f"  (a) restore step {r['step']}: {r['s']:.3f} s",
+                  flush=True)
+        check(ok, "6h (a): the resumed checkpointed run is not the "
+                  "uninterrupted run bit for bit")
+        check(counts == {"fused_stencil": CKPT_STEPS // 8},
+              f"6h (a): launches {counts}, expected K1 x "
+              f"{CKPT_STEPS // 8}")
+        shutil.rmtree(root / "a")
+
+        # -- (b) the supervised main path: exc, nan, a torn checkpoint, a
+        # restart
+        plan = FaultPlan((Fault("exc", at=1), Fault("nan", at=2),
+                          Fault("torn", at=48, tear="truncate", offset=64)),
+                         seed=SEED)
+        events = []
+        first = len(saves)
+        syncs = sup.health_syncs()
+
+        def supervised():
+            with inject.armed(plan) as st:
+                r1 = supervised_run(model, space, Recorded(
+                    str(root / "b"), device=dev), steps=48,
+                    every=CKPT_EVERY, executor=serial(),
+                    on_event=events.append)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                r2 = supervised_run(model, space, Recorded(
+                    str(root / "b"), device=dev), steps=CKPT_STEPS,
+                    every=CKPT_EVERY, executor=serial(),
+                    on_event=events.append)
+            return r1, r2, [f["kind"] for f in st.fired], [
+                str(w.message) for w in caught
+                if issubclass(w.category, RuntimeWarning)]
+
+        (r1, r2, fired, fell), counts = counted(supervised)
+        syncs = sup.health_syncs() - syncs
+        # chunks health-checked: 0-16, 16-32 poisoned, 16-32, 32-48, then
+        # the restart's 32-48 and 48-64 (48 is torn: it falls back to 32)
+        ok = (r1.step == 48 and r2.step == CKPT_STEPS
+              and torch.equal(r2.space.values["value"], want))
+        kinds = [e.kind for e in events]
+        out["b"] = {"bit_for_bit": ok, "fired": fired, "events": [
+            {"kind": e.kind, "step": e.step,
+             "rolled_back_to": e.rolled_back_to,
+             "classification": e.classification,
+             "wall_time_s": e.wall_time_s} for e in events],
+            "fallback_warnings": fell, "health_syncs": syncs,
+            "chunks_checked": 6, "launches": counts,
+            "saves": saves[first:],
+            "restores": [r for r in restores if r["dir"] == "b"]}
+        print(f"6h (b) supervised main path: fired {fired}, events "
+              f"{kinds}, resume fell back past the torn step 48: "
+              f"{bool(fell)}, {syncs} health-check transfers for 6 checked "
+              f"chunks, launches {counts}; bit for bit the uninterrupted "
+              f"run {ok}", flush=True)
+        print_saves(first, "(b)")
+        for r in out["b"]["restores"]:
+            print(f"  (b) restore step {r['step']}: {r['s']:.3f} s "
+                  f"{'ok' if r['ok'] else 'failed verification'}",
+                  flush=True)
+        check(fired == ["exc", "nan", "torn"], f"6h (b): fired {fired}")
+        check(kinds == ["exception", "nonfinite"], f"6h (b): events {kinds}")
+        check(any("failed verification" in m for m in fell),
+              "6h (b): the restart did not fall back past the torn step")
+        check(syncs == 6, f"6h (b): {syncs} health-check transfers for 6 "
+                          "checked chunks")
+        check(counts == {"fused_stencil": 2 * 6},
+              f"6h (b): launches {counts}, expected K1 x 12")
+        check(ok, "6h (b): the supervised run is not the uninterrupted run "
+                  "bit for bit")
+        shutil.rmtree(root / "b")
+        del space, want, got, r1, r2
+
+        # -- (c) the delta layout: active_fused k=8 (K6 + K7), against the
+        # full layout step by step; the newest record torn, then resumed
+        sparse = mt.CellularSpace({"value": torch.from_numpy(workload(
+            np, side, side, 0.01, SEED)).to(dev)}, side, side)
+
+        def active():
+            return mt.SerialExecutor("active_fused", substeps=8)
+
+        full = Recorded(str(root / "c_full"), keep=100, device=dev)
+        first_full = len(saves)
+        _, counts_full = counted(lambda: run_checkpointed(
+            model, sparse, full, steps=CKPT_STEPS, every=DELTA_EVERY,
+            executor=active()))
+        delta_kw = dict(keep=100, layout="delta",
+                        keyframe_every=DELTA_EVERY, device=dev)
+        torn = FaultPlan((Fault("torn", at=56, channel="delta",
+                                tear="truncate", offset=64),), seed=SEED)
+        first = len(saves)
+
+        def delta_run():
+            with inject.armed(torn) as st:
+                run_checkpointed(model, sparse, Recorded(
+                    str(root / "c_delta"), **delta_kw), steps=56,
+                    every=DELTA_EVERY, executor=active())
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = run_checkpointed(model, sparse, Recorded(
+                    str(root / "c_delta"), **delta_kw), steps=CKPT_STEPS,
+                    every=DELTA_EVERY, executor=active())
+            return res, [f["kind"] for f in st.fired], [
+                str(w.message) for w in caught
+                if issubclass(w.category, RuntimeWarning)]
+
+        (res_c, fired, fell), counts = counted(delta_run)
+        chain_saves = saves[first:]
+        delta = Recorded(str(root / "c_delta"), **delta_kw)
+        steps_ok = delta.steps() == full.steps() == list(
+            range(0, CKPT_STEPS + 1, DELTA_EVERY))
+        same = {s: torch.equal(delta.restore(s).space.values["value"],
+                               full.restore(s).space.values["value"])
+                for s in full.steps()}
+        kinds = [s["kind"] for s in chain_saves]
+        sources = {s["dirty_from"] for s in chain_saves
+                   if s["kind"] == "delta"}
+        kf = [s for s in chain_saves if s["kind"] == "keyframe"]
+        dd = [s for s in chain_saves if s["kind"] == "delta"]
+        after_torn = [r["step"] for r in restores
+                      if r["dir"] == "c_delta"][:2]
+        out["c"] = {"steps_ok": steps_ok, "bit_for_bit": same,
+                    "kinds": kinds, "dirty_from": sorted(sources),
+                    "fired": fired, "fallback_warnings": fell,
+                    "resume_restores": after_torn,
+                    "launches_full_run": counts_full,
+                    "launches_delta_runs": counts,
+                    "full_saves": saves[first_full:first],
+                    "chain_saves": chain_saves,
+                    "restores": [r for r in restores
+                                 if r["dir"].startswith("c_")],
+                    "delta_over_keyframe": (
+                        max(s["bytes"] for s in dd) / kf[0]["bytes"]
+                        if dd and kf else None)}
+        print(f"6h (c) delta layout {side}^2 at 0.01, active_fused k=8, "
+              f"every {DELTA_EVERY}: records {kinds}; dirty tiles from "
+              f"{sorted(sources)}; torn delta at 56 fired {fired}, the "
+              f"resume tried {after_torn} (fell back: {bool(fell)}); every "
+              f"committed step bit for bit the full layout's: "
+              f"{all(same.values())}; launches full run {counts_full}, "
+              f"delta runs {counts}", flush=True)
+        print_saves(first, "(c) chain")
+        for r in out["c"]["restores"]:
+            print(f"  (c) restore {r['dir']} step {r['step']}: "
+                  f"{r['s']:.3f} s {'ok' if r['ok'] else 'failed'}",
+                  flush=True)
+        print(f"  (c) full layout: {len(saves[first_full:first])} saves of "
+              f"{saves[first_full]['bytes']} bytes, "
+              f"{statistics.median(s['copy_s'] + s['crc_s'] + s['write_s'] for s in saves[first_full:first]):.3f} s "
+              f"median each", flush=True)
+        check(steps_ok, f"6h (c): chain steps {delta.steps()}, full "
+                        f"{full.steps()}")
+        check(all(same.values()), f"6h (c): steps not bit for bit: {same}")
+        check(sources == {"executor"} and dd,
+              f"6h (c): delta tiles came from {sources}")
+        check(fired == ["torn"] and any("failed verification" in m
+                                        for m in fell)
+              and after_torn == [56, 48],
+              f"6h (c): torn-delta fired {fired}, resume {after_torn}")
+        check(torch.equal(res_c[0].values["value"],
+                          full.restore(CKPT_STEPS).space.values["value"]),
+              "6h (c): the resumed delta run's result differs")
+        shutil.rmtree(root / "c_full")
+        shutil.rmtree(root / "c_delta")
+
+        # -- (d) sharded supervision: K2 at depth 8 on 2x2, a halo fault
+        mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+
+        def sharded():
+            return ShardMapExecutor(mesh, "pallas", halo_depth=8)
+
+        want_d = model.execute(sparse, sharded(), steps=CKPT_STEPS)[0]
+        halo = FaultPlan((Fault("halo", at=1),), seed=SEED)
+
+        def halo_run():
+            with inject.armed(halo) as st:
+                res = supervised_run(model, sparse, steps=CKPT_STEPS,
+                                     every=CKPT_EVERY, executor=sharded())
+            return res, [f["kind"] for f in st.fired]
+
+        (res_d, fired), counts = counted(halo_run)
+        ok = torch.equal(res_d.space.values["value"],
+                         want_d.values["value"])
+        kinds = [e.kind for e in res_d.events]
+        chunks = CKPT_STEPS // CKPT_EVERY + 1
+        out["d"] = {"bit_for_bit": ok, "fired": fired, "events": [
+            {"kind": e.kind, "detail": e.detail, "step": e.step,
+             "rolled_back_to": e.rolled_back_to} for e in res_d.events],
+            "launches": counts}
+        print(f"6h (d) sharded supervision 2x2 K2 depth 8: fired {fired}, "
+              f"events {kinds} ({res_d.events[0].detail if kinds else ''}); "
+              f"bit for bit the unperturbed sharded run {ok}; launches "
+              f"{counts}", flush=True)
+        check(fired == ["halo"] and kinds == ["conservation"],
+              f"6h (d): fired {fired}, events {kinds}")
+        check(ok, "6h (d): the recovered sharded run differs")
+        check(counts == {"fused_stencil_halo": 4 * (CKPT_EVERY // 8)
+                         * chunks},
+              f"6h (d): launches {counts}")
+        del want_d, res_d
+
+        # -- (e) live migration serial <-> sharded
+        want_e = model.execute(sparse, serial(), steps=CKPT_STEPS)[0]
+        out["e"] = {}
+        for name, src, tgt, want_counts in (
+                ("serial->sharded", serial(), sharded(),
+                 {"fused_stencil": 3, "fused_stencil_halo": 4 * 5}),
+                ("sharded->serial", sharded(), serial(),
+                 {"fused_stencil_halo": 4 * 3, "fused_stencil": 5})):
+            t0 = time.perf_counter()
+            res, counts = counted(lambda: migrate_scenario(
+                model, sparse, source=src, target=tgt, steps=CKPT_STEPS,
+                handoff_at=16, transfer_steps=8))
+            wall = time.perf_counter() - t0
+            ok = torch.equal(res.space.values["value"],
+                             want_e.values["value"])
+            out["e"][name] = {"bit_for_bit": ok,
+                              "keyframe_bytes": res.keyframe_bytes,
+                              "delta_bytes": res.delta_bytes,
+                              "dirty_tiles": res.dirty_tiles,
+                              "ntiles": res.ntiles, "wall_s": wall,
+                              "launches": counts}
+            print(f"6h (e) migrate {name} at step 16 + 8 in flight: bit for "
+                  f"bit the serial run {ok}; keyframe {res.keyframe_bytes} "
+                  f"bytes, delta {res.delta_bytes} bytes ({res.dirty_tiles} "
+                  f"of {res.ntiles} tiles), {wall:.3f} s; launches {counts}",
+                  flush=True)
+            check(ok, f"6h (e): {name} differs from the serial run")
+            check(0 < res.delta_bytes < res.keyframe_bytes,
+                  f"6h (e): {name} delta {res.delta_bytes} keyframe "
+                  f"{res.keyframe_bytes}")
+            check(counts == want_counts, f"6h (e): {name} launches {counts}")
+            del res
+        del want_e, sparse
+
+        # -- (f) ensemble migration between two pipeline services (K5)
+        base = np.random.default_rng(SEED).uniform(
+            0.5, 2.0, (side5, side5)).astype(np.float32)
+        sp5 = mt.CellularSpace({"value": torch.from_numpy(base).to(dev)},
+                               side5, side5)
+        kw = dict(steps=STEPS5, impl="pipeline", substeps=8, max_batch=8)
+        svc_a, svc_b, here = (mt.EnsembleService(model, **kw)
+                              for _ in range(3))
+        ticket = svc_a.submit(sp5)
+        moved_to = svc_a.migrate(ticket, svc_b)
+        (moved, _), counts = counted(lambda: svc_b.result(moved_to))
+        in_place = here.result(here.submit(sp5))[0]
+        ok = torch.equal(moved.values["value"], in_place.values["value"])
+        out["f"] = {"bit_for_bit": ok, "launches": counts,
+                    "migrated_out": svc_a.stats()["migrated_out"],
+                    "migrated_in": svc_b.stats()["migrated_in"]}
+        print(f"6h (f) ensemble migration {side5}^2 pipeline: bit for bit "
+              f"the ticket served in place {ok}; launches {counts}",
+              flush=True)
+        check(ok and counts == {"pipeline_stencil": 1}
+              and out["f"]["migrated_out"] == out["f"]["migrated_in"] == 1,
+              f"6h (f): {out['f']}")
+        del sp5, moved, in_place
+
+        # -- (g) the CLI
+        def cli_row(argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(["run", *cli_args, *argv])
+            text = buf.getvalue().strip().splitlines()[-1]
+            print(text, flush=True)
+            return rc, json.loads(text)
+
+        common = ["--flow=diffusion", f"--dimx={side}", f"--dimy={side}",
+                  f"--steps={CKPT_STEPS}", f"--checkpoint-every={CKPT_EVERY}",
+                  "--chaos=exc:1", "--json"]
+        out["g"] = {}
+        for name, extra in (
+                ("full", [f"--checkpoint-dir={root / 'g_full'}"]),
+                ("delta", [f"--checkpoint-dir={root / 'g_delta'}",
+                           "--checkpoint-layout=delta",
+                           "--impl=active_fused", "--substeps=8",
+                           "--blob=0.01"])):
+            rc, row = cli_row(common + extra)
+            peak[0] = max(peak[0], disk_bytes(root))
+            out["g"][name] = row
+            check(rc == 0 and row["conserved"]
+                  and row["recovered_failures"] == 1
+                  and row["injected_faults"] == 1
+                  and [e["kind"] for e in row["events"]] == ["exception"]
+                  and row["checkpoint_steps"][-1] == CKPT_STEPS,
+                  f"6h (g): the {name} CLI run did not recover: {row}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["peak_disk_bytes"] = peak[0]
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6h: {out['seconds']:.1f} s, peak {peak[0]} bytes on disk "
+          f"(cuts: none; {CKPT_STEPS} steps as phase 4)", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4761,6 +5202,13 @@ def main() -> int:
                                neighborhoods, f32_ms)
     torch.cuda.empty_cache()
 
+    # -- 6h. checkpoints, supervision and migration at full width -------------
+    ckpt = checkpoint_phase(
+        np, torch, mt, dev,
+        Path(__file__).resolve().parent / "chiprun_out" / "ckpt_6h",
+        reset_counts, kernel_launches)
+    torch.cuda.empty_cache()
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -5153,6 +5601,7 @@ def main() -> int:
          "count_read_us": sync_us,
          "sharded": sharded, "halo_main_shard_err": halo_err,
          "sharded_active": sharded_active, "bf16_interior": bf16,
+         "checkpoint": ckpt,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -20,6 +20,9 @@
     python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=4096 \
         --dimy=4096 --serve --serve-scenarios=16 --ensemble-impl=pipeline \
         --substeps=8 --steps=8 --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \
+        --dimy=16384 --steps=64 --checkpoint-dir=DIR --checkpoint-every=16 \
+        --chaos=exc:1 --json
 
 Runs on the card unless ``--device=cpu`` is given. The scenario flags are
 the JAX package's: ``--source=X,Y``, ``--value`` (the point source's frozen
@@ -66,12 +69,22 @@ sustained scenarios/s, p50/p99 queue latency and occupancy. The fleet
 ``inproc``), scenario tiering (``--residency-budget``,
 ``--hibernate-dir``), ``--ensemble-mesh`` and the status plane
 (``--status*``) are refused: their modules are not ported (ROADMAP.md).
+``--checkpoint-dir=DIR`` runs the scenario under the supervisor
+(``supervised_run``), checkpointing every ``--checkpoint-every`` steps in
+``--checkpoint-layout=full|delta`` (``--keyframe-every`` for the chain) and
+resuming from the newest checkpoint that verifies; ``--chaos=KIND[:N]``
+(``exc|nan|halo|torn|torn-keyframe|torn-delta|torn-chain``, seeded by
+``--chaos-seed``) arms a fault plan against it, with or without a
+checkpoint directory, and ``--max-failures`` bounds the consecutive
+recoveries. The row adds ``recovered_failures``, ``injected_faults`` and
+the event ledger. ``--checkpoint-layout=sharded`` and
+``--async-checkpoints`` are refused (``io/sharded.py`` is not ported).
 ``--compute-dtype=bfloat16`` is the kernels' bf16 interior math (the TPU
 kernels' ``compute_dtype``: K1/K2 above one step, K3, K4 and K5 on the
 tiles off the edge; refused with ``--impl=xla`` and ``--executor=gspmd``,
 as the JAX CLI refuses it).
 Exit status 1 when conservation fails (``--serve``: when the ledger is
-not complete).
+not complete; a supervised run: also when it fails).
 """
 
 from __future__ import annotations
@@ -134,10 +147,15 @@ def check_serve_flags(args, sharded: bool) -> None:
                 "--serve batches whole scenarios through the ensemble "
                 "engine (the batch axis replaces the mesh axes); drop "
                 "--mesh/--rectangular")
-        if args.output is not None:
+        if args.chaos is not None:
             raise SystemExit(
-                "--serve does not compose with --output (dump runs are "
-                "single-scenario)")
+                "--chaos drives the single-run supervised path; serve-"
+                "mode chaos is driven from the API (resilience.inject "
+                "armed around run_soak)")
+        if args.checkpoint_dir is not None or args.output is not None:
+            raise SystemExit(
+                "--serve does not compose with --checkpoint-dir/"
+                "--output (supervised/dump runs are single-scenario)")
         if args.impl != "auto":
             raise SystemExit(
                 "--impl selects the single-run kernel; serve mode uses "
@@ -202,6 +220,16 @@ def check_ensemble_flags(args) -> None:
     if args.ensemble is not None:
         if args.ensemble < 1:
             raise SystemExit(f"--ensemble={args.ensemble} needs B >= 1")
+        if args.chaos is not None:
+            raise SystemExit(
+                "--chaos drives the single-run supervised path; it does "
+                "not compose with --ensemble (drive ensemble chaos from "
+                "the API: resilience.inject + EnsembleScheduler("
+                "retry='solo'))")
+        if args.checkpoint_dir is not None:
+            raise SystemExit(
+                "--ensemble does not compose with --checkpoint-dir "
+                "(supervised/checkpointed runs are single-scenario)")
         if args.output is not None:
             raise SystemExit(
                 "--output writes one scenario's dump; it does not "
@@ -213,6 +241,92 @@ def check_ensemble_flags(args) -> None:
     elif args.ensemble_impl != "xla" and not args.serve:
         raise SystemExit("--ensemble-impl applies to ensemble/serve runs; "
                          "add --ensemble=B or --serve")
+
+
+def parse_chaos(args):
+    """``--chaos=KIND[:N]`` → a seeded ``FaultPlan``, or None, as the JAX
+    package's CLI builds it. Kinds: ``exc`` (an executor exception on chunk
+    N), ``nan`` (NaN written into the state after chunk N), ``halo`` (the
+    ghost rings perturbed during chunk N; sharded runs only), ``torn`` (the
+    checkpoint written at step N torn on disk; needs --checkpoint-dir; with
+    the delta layout it tears whichever record step N wrote), and the delta
+    chain's ``torn-keyframe``/``torn-delta``/``torn-chain`` (that record
+    kind, or the chain manifest; need --checkpoint-layout=delta)."""
+    if args.chaos is None:
+        return None
+    from .resilience.inject import Fault, FaultPlan
+
+    spec = args.chaos
+    kind, _, at_s = spec.partition(":")
+    known = ("exc", "nan", "halo", "torn", "torn-keyframe", "torn-delta",
+             "torn-chain")
+    if kind not in known:
+        raise SystemExit(
+            f"--chaos={spec!r}: unknown kind {kind!r} (expected "
+            "exc|nan|halo|torn|torn-keyframe|torn-delta|torn-chain, "
+            "optionally ':N' for the chunk/step to fire at)")
+    try:
+        at = int(at_s) if at_s else None
+    except ValueError:
+        raise SystemExit(f"--chaos={spec!r}: {at_s!r} is not an integer")
+    sharded = args.mesh is not None or args.rectangular is not None
+    if kind == "halo" and not sharded:
+        raise SystemExit(
+            "--chaos=halo perturbs the ghost-ring exchange; add "
+            "--mesh=LxC (serial runs have no halos)")
+    if kind.startswith("torn"):
+        if args.checkpoint_dir is None:
+            raise SystemExit(
+                f"--chaos={kind} tears a written checkpoint; add "
+                "--checkpoint-dir=DIR")
+        part = kind.partition("-")[2] or None
+        if part is not None and args.checkpoint_layout != "delta":
+            raise SystemExit(
+                f"--chaos={kind} targets a delta-chain "
+                f"{'manifest' if part == 'chain' else part + ' record'}, "
+                f"which --checkpoint-layout={args.checkpoint_layout} "
+                "never writes; use --checkpoint-layout=delta (or plain "
+                "--chaos=torn for this layout's files)")
+        # the manifest is json: corrupt it (truncation at a byte offset is
+        # the data records' tear)
+        tear = (Fault("torn", at=at, channel="chain", tear="corrupt",
+                      offset=2)
+                if part == "chain"
+                else Fault("torn", at=at, channel=part, tear="truncate",
+                           offset=64))
+        return FaultPlan((tear,), seed=args.chaos_seed)
+    return FaultPlan((Fault(kind, at=at),), seed=args.chaos_seed)
+
+
+def check_checkpoint_flags(args) -> None:
+    """The JAX package's checks of the checkpoint flags; the sharded
+    layout and asynchronous writes are refused naming ROADMAP.md."""
+    if args.async_checkpoints and args.checkpoint_layout != "sharded":
+        raise SystemExit(
+            "--async-checkpoints requires --checkpoint-layout=sharded")
+    if args.checkpoint_dir is None and (args.async_checkpoints
+                                        or args.checkpoint_layout != "full"):
+        raise SystemExit(
+            "--checkpoint-layout/--async-checkpoints configure "
+            "checkpointing; add --checkpoint-dir=DIR")
+    if args.keyframe_every is not None:
+        if args.checkpoint_layout != "delta":
+            raise SystemExit(
+                "--keyframe-every sets the delta chain's keyframe "
+                "cadence; it does nothing for "
+                f"--checkpoint-layout={args.checkpoint_layout} (use "
+                "--checkpoint-layout=delta)")
+        if args.keyframe_every < 1:
+            raise SystemExit(
+                f"--keyframe-every={args.keyframe_every} must be >= 1 "
+                "(1 = every save is a keyframe)")
+    if args.checkpoint_every < 1:
+        raise SystemExit(
+            f"--checkpoint-every={args.checkpoint_every} must be >= 1")
+    if args.checkpoint_layout == "sharded":
+        _refuse_unported("--checkpoint-layout=sharded/--async-checkpoints",
+                         "the per-process sharded checkpoint layout "
+                         "(io/sharded.py)")
 
 
 def parse_grid2(text: str, flag: str) -> tuple[int, int]:
@@ -433,6 +547,8 @@ def cmd_run(args) -> int:
     check_ensemble_flags(args)
     sharded = check_sharded_flags(args)
     check_serve_flags(args, sharded)
+    check_checkpoint_flags(args)
+    chaos_plan = parse_chaos(args)
     if args.flow == "coupled" and args.channels < 2:
         raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
                          "has nothing to modulate — use --flow=diffusion)")
@@ -473,6 +589,9 @@ def cmd_run(args) -> int:
                                   compute_dtype=args.compute_dtype)
     from .models.model import _launches_since, kernel_launches
 
+    if args.checkpoint_dir is not None or chaos_plan is not None:
+        return run_supervised_cli(args, space, model, executor, sharded,
+                                  chaos_plan)
     before = kernel_launches()
     t0 = time.perf_counter()
     out, report = model.execute(space, executor, steps=args.steps,
@@ -482,16 +601,7 @@ def cmd_run(args) -> int:
     err = report.conservation_error()
     thresh = model.conservation_threshold(
         space, initial_totals=report.initial_total)
-    if args.output:
-        if args.rectangular is not None:
-            # per-block dumps and the merge, following the executed mesh
-            merged = model.write_output(args.output, out)
-        else:
-            from .io import write_output
-
-            merged = write_output(args.output, out,
-                                  comm_size=max(report.comm_size, 1))
-        print(f"output written to {merged}", file=sys.stderr)
+    write_dumps(args, model, out, report.comm_size)
     row = {
         "backend": "sharded" if sharded else "serial",
         "device": str(space.device),
@@ -513,14 +623,7 @@ def cmd_run(args) -> int:
         row["mesh"] = {"lines": lines, "columns": columns,
                        "devices": len(executor.mesh.distinct_devices())}
         row["rectangular"] = args.rectangular
-    if args.owner_of is not None:
-        try:
-            x, y = (int(v) for v in args.owner_of.split(","))
-        except ValueError:
-            raise SystemExit(f"--owner-of={args.owner_of!r} is not X,Y")
-        row["owner_of"] = {
-            "cell": [x, y], "owner": model.owner_of(x, y, out),
-            "partitions": [p.describe() for p in model.partitions(out)]}
+    add_owner_of(args, model, out, row)
     if args.json:
         print(json.dumps(row, allow_nan=False))
     else:
@@ -530,6 +633,123 @@ def cmd_run(args) -> int:
               f"steps={row['steps']} initial={row['initial']} "
               f"final={row['final']} |delta|={err:.3e} {status} "
               f"({wall:.3f}s on {row['device']})")
+    return 0 if row["conserved"] else 1
+
+
+def write_dumps(args, model, out, comm_size: int) -> None:
+    """``--output=DIR``: the per-rank dumps and the merged file (per block
+    of the executed mesh under ``--rectangular``)."""
+    if not args.output:
+        return
+    if args.rectangular is not None:
+        merged = model.write_output(args.output, out)
+    else:
+        from .io import write_output
+
+        merged = write_output(args.output, out, comm_size=max(comm_size, 1))
+    print(f"output written to {merged}", file=sys.stderr)
+
+
+def add_owner_of(args, model, out, row: dict) -> None:
+    """``--owner-of=X,Y``: the block owner of a cell and the partitions."""
+    if args.owner_of is None:
+        return
+    try:
+        x, y = (int(v) for v in args.owner_of.split(","))
+    except ValueError:
+        raise SystemExit(f"--owner-of={args.owner_of!r} is not X,Y")
+    row["owner_of"] = {
+        "cell": [x, y], "owner": model.owner_of(x, y, out),
+        "partitions": [p.describe() for p in model.partitions(out)]}
+
+
+def run_supervised_cli(args, space, model, executor, sharded: bool,
+                       chaos_plan) -> int:
+    """``--checkpoint-dir`` or ``--chaos``: the run under
+    ``supervised_run`` (a manager adds durability and resume; without one
+    the rollback is in memory), the fault plan armed around it. The row
+    carries the JAX package's keys (``recovered_failures``,
+    ``injected_faults``; ``error`` when the run failed) and the event
+    ledger; conservation is judged against the run-global totals."""
+    import contextlib
+
+    from .io import CheckpointManager
+    from .models.model import _launches_since, kernel_launches
+    from .resilience import SimulationFailure, inject, supervised_run
+
+    steps = args.steps if args.steps is not None else model.num_steps
+    initial = {k: float(space.total(k)) for k in space.values}
+    manager = (CheckpointManager(args.checkpoint_dir,
+                                 layout=args.checkpoint_layout,
+                                 keyframe_every=args.keyframe_every or 8,
+                                 device=space.device)
+               if args.checkpoint_dir else None)
+    arm = (inject.armed(chaos_plan) if chaos_plan is not None
+           else contextlib.nullcontext())
+    events: list = []
+    failure = out = None
+    armed = None
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        with arm as armed:
+            res = supervised_run(model, space, manager, steps=steps,
+                                 every=args.checkpoint_every,
+                                 max_failures=args.max_failures,
+                                 executor=executor, on_event=events.append)
+    except SimulationFailure as e:
+        failure = str(e)
+        events = e.events
+    else:
+        out = res.space
+        # the run-global baseline survives a resume inside the checkpoint
+        initial = res.initial_totals or initial
+    wall = time.perf_counter() - t0
+    launched = sum(_launches_since(before).values())
+    # the fired faults are reported even when the run failed
+    injected = len(armed.fired) if armed is not None else 0
+    row = {
+        "backend": "sharded" if sharded else "serial",
+        "device": str(space.device),
+        "impl": getattr(executor, "last_impl", None),
+        "comm_size": getattr(executor, "comm_size", 1),
+        "substeps": args.substeps if not sharded else None,
+        "halo_depth": args.halo_depth if sharded else None,
+        "steps": steps,
+        "kernel_launches": launched,
+        "checkpoint_dir": args.checkpoint_dir,
+        "checkpoint_layout": (args.checkpoint_layout
+                              if args.checkpoint_dir else None),
+        "checkpoint_steps": manager.steps() if manager else None,
+        "recovered_failures": len(events),
+        "injected_faults": injected,
+        "events": [{"kind": e.kind, "step": e.step,
+                    "rolled_back_to": e.rolled_back_to,
+                    "attempt": e.attempt,
+                    "classification": e.classification} for e in events],
+        "wall_s": wall,
+    }
+    if failure is not None:
+        row.update(conserved=False, error=failure)
+        print(json.dumps(row) if args.json
+              else f"FAILED after {len(events)} failure(s): {failure}")
+        return 1
+    final = {k: float(out.total(k)) for k in out.values}
+    err = max(abs(final[k] - initial[k]) for k in initial)
+    thresh = model.conservation_threshold(space, initial_totals=initial)
+    row.update(initial=initial, final=final, conservation_error=err,
+               conserved=bool(err <= thresh))
+    write_dumps(args, model, out, row["comm_size"])
+    add_owner_of(args, model, out, row)
+    if args.json:
+        print(json.dumps(row, allow_nan=False))
+    else:
+        status = "CONSERVED" if row["conserved"] else "VIOLATED"
+        print(f"backend={row['backend']} impl={row['impl']} "
+              f"ranks={row['comm_size']} steps={steps} "
+              f"initial={initial} final={final} |delta|={err:.3e} {status} "
+              f"({wall:.2f}s, {len(events)} recovered failures, "
+              f"{launched} kernel launches on {row['device']})")
     return 0 if row["conserved"] else 1
 
 
@@ -660,6 +880,40 @@ def main(argv: Optional[list[str]] = None) -> int:
     run.add_argument("--halo-depth", type=int, default=1,
                      help="sharded runs: ghost-ring depth d, one exchange "
                      "per d steps")
+    run.add_argument("--checkpoint-dir", default=None,
+                     help="checkpoint the run into this directory and "
+                     "resume from its newest verified checkpoint (the run "
+                     "goes through the supervisor)")
+    run.add_argument("--checkpoint-every", type=int, default=1,
+                     help="steps per supervised chunk and checkpoint")
+    run.add_argument("--checkpoint-layout", default="full",
+                     choices=("full", "sharded", "delta"),
+                     help="'full' = one .npz a checkpoint; 'delta' = "
+                     "periodic keyframes + dirty-tile delta records, "
+                     "restore replays the chain (io/delta.py); 'sharded' "
+                     "is not ported")
+    run.add_argument("--keyframe-every", type=int, default=None,
+                     help="delta layout: records per chain segment (1 "
+                     "keyframe + N-1 deltas; default 8; 1 = every save is "
+                     "a keyframe)")
+    run.add_argument("--async-checkpoints", action="store_true",
+                     help="overlap checkpoint writes with compute (needs "
+                     "--checkpoint-layout=sharded, which is not ported)")
+    run.add_argument("--max-failures", type=int, default=3,
+                     help="consecutive failures the supervisor recovers "
+                     "from before the run fails")
+    run.add_argument("--chaos", default=None, metavar="KIND[:N]",
+                     help="arm a deterministic fault plan against the "
+                     "supervised run and prove it heals: exc|nan inject "
+                     "an executor exception / NaN state at chunk N, halo "
+                     "perturbs one chunk's ghost exchanges (sharded runs), "
+                     "torn tears the checkpoint written at step N (with "
+                     "--checkpoint-dir), torn-keyframe|torn-delta|"
+                     "torn-chain one delta-chain part; the row reports "
+                     "injected_faults, recovered_failures and the events")
+    run.add_argument("--chaos-seed", type=int, default=0,
+                     help="seed for the fault plan's derived perturbation "
+                     "values (reproducible chaos)")
     run.add_argument("--device", default="cuda",
                      help="torch device (default: the card)")
     run.add_argument("--output", default=None,

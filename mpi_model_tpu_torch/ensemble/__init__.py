@@ -8,7 +8,8 @@ bucketed scheduler (counterpart of ``mpi_model_tpu/ensemble/``).
                   launch/complete halves;
 - ``scheduler`` — the scenario queue (pad to bucket, max-wait/max-batch
                   flushes, runner-cache counters, solo retry and quarantine,
-                  deadlines; a kernel's error reaches its tickets, with no
+                  deadlines, migration of a queued ticket to another
+                  scheduler; a kernel's error reaches its tickets, with no
                   degradation ladder);
 - ``service``   — the synchronous ``EnsembleService``, the always-on
                   ``AsyncEnsembleService`` (a pump thread launching batch i
@@ -24,7 +25,7 @@ from .batch import (EnsembleConservationError, EnsembleExecutor,
                     EnsembleInFlight, EnsembleSpace, complete_ensemble,
                     launch_ensemble, run_ensemble, structure_key)
 from .scheduler import (DEFAULT_BUCKETS, DispatchTimeout, EnsembleScheduler,
-                        TicketExpired, buckets_for)
+                        TicketExpired, TicketNotMigratable, buckets_for)
 from .service import (AsyncEnsembleService, EnsembleService,
                       ServiceOverloaded, run_soak)
 
@@ -40,6 +41,7 @@ __all__ = [
     "EnsembleSpace",
     "ServiceOverloaded",
     "TicketExpired",
+    "TicketNotMigratable",
     "buckets_for",
     "complete_ensemble",
     "launch_ensemble",

@@ -51,9 +51,13 @@ Chaos seams (``resilience.inject``): ticket-bound ``lane_nan`` poisons are
 mapped to lanes for the launch, ``batch_exc`` fails a whole dispatch,
 ``slow_compile`` and ``hang`` stretch its clock duration.
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``,
-migration between schedulers, tracing spans and the flight recorder; the
-fleet's ``counter`` argument is left out with the fleet.
+Migration (``migrate_ticket``/``extract_ticket``) drains a queued scenario
+onto another scheduler through the delta stream's CRC-checked transfer
+(``io.delta.transfer_space``); ``migrated_out``/``migrated_in`` count it.
+
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``, tracing
+spans and the flight recorder; the fleet's ``counter`` argument is left out
+with the fleet.
 """
 
 from __future__ import annotations
@@ -82,6 +86,13 @@ class DispatchTimeout(RuntimeError):
     """A dispatch overran ``dispatch_deadline_s`` by the scheduler's
     (injectable) clock. Its results are discarded; the affected tickets are
     retried solo or failed, per the retry policy."""
+
+
+class TicketNotMigratable(RuntimeError):
+    """``migrate_ticket`` found the ticket pending but not queued: it is
+    inside a claimed or launched dispatch (a normal state with the async
+    pump running). Migrating it would risk a double dispatch, so the caller
+    waits for its result instead."""
 
 
 class TicketExpired(RuntimeError):
@@ -204,8 +215,12 @@ class EnsembleScheduler:
         self._pending_tickets: set[int] = set()
         self._ids = itertools.count()
         #: one record per dispatch ({bucket, count, occupancy, steps,
-        #: tickets, cache_hit, wall_s}), the most recent 256
+        #: tickets, cache_hit, wall_s}) and per migrated ticket
+        #: ({migrated_ticket, to_ticket, steps}), the most recent 256
         self.dispatch_log: collections.deque = collections.deque(maxlen=256)
+        #: queued tickets drained to another scheduler, and taken from one
+        self.migrated_out = 0
+        self.migrated_in = 0
 
     # -- submission / results ------------------------------------------------
 
@@ -229,6 +244,74 @@ class EnsembleScheduler:
         if full and self.inline_dispatch:
             self._dispatch_group(key)
         return ticket
+
+    def migrate_ticket(self, ticket: int,
+                       target: "EnsembleScheduler") -> int:
+        """Drain one QUEUED scenario off this scheduler and resubmit it on
+        ``target``: its state crosses through the delta stream's wire
+        format (``io.delta.transfer_space``, a keyframe whose every piece is
+        CRC-checked), so the handoff is bit for bit and a corrupted
+        transfer fails loudly. Other tickets keep batching on both sides,
+        and the target may run another bucket ladder, impl or retry policy.
+        Returns the ticket on ``target``; the old one is forgotten here.
+        A ticket already dispatched or served cannot migrate."""
+        if target is self:
+            raise ValueError(
+                "migrate_ticket needs a DIFFERENT target scheduler "
+                "(migrating onto oneself is a no-op with extra steps)")
+        space, model, steps = self.extract_ticket(ticket)
+        new_ticket = target.submit(space, model, steps)
+        with target._lock:
+            target.migrated_in += 1
+        with self._lock:
+            self.dispatch_log.append({"migrated_ticket": ticket,
+                                      "to_ticket": new_ticket,
+                                      "steps": steps})
+        return new_ticket
+
+    def extract_ticket(self, ticket: int
+                       ) -> tuple[CellularSpace, object, int]:
+        """Verify, then drain one QUEUED scenario out of this scheduler:
+        ``(space, model, steps)`` with the state already through the
+        CRC-checked transfer (the first half of ``migrate_ticket``). Raises
+        ``KeyError`` for unknown or served tickets and
+        ``TicketNotMigratable`` for claimed or launched ones; on any failure
+        the ticket stays queued here."""
+        from ..io.delta import transfer_space
+
+        with self._lock:
+            if ticket in self._results:
+                raise KeyError(
+                    f"ticket {ticket} is already served — collect it with "
+                    "poll() instead of migrating it")
+            if ticket not in self._pending_tickets:
+                raise KeyError(
+                    f"unknown or already-collected ticket {ticket}")
+            found = None
+            for key, q in self._queues.items():
+                for i, it in enumerate(q):
+                    if it.ticket == ticket:
+                        found = (key, q, i, it)
+                        break
+                if found:
+                    break
+            if found is None:
+                raise TicketNotMigratable(
+                    f"ticket {ticket} is inside a claimed/launched "
+                    "dispatch — not migratable without risking a double "
+                    "dispatch; collect its result")
+            key, q, i, it = found
+            if it.ready is not None:
+                it.ready.synchronize()  # the submitter's stream wrote it
+            # the transfer completes while the ticket is still queued, so a
+            # failed one leaves the scenario here
+            space = transfer_space(it.space)
+            q.pop(i)
+            if not q:
+                del self._queues[key]
+            self._pending_tickets.discard(ticket)
+            self.migrated_out += 1
+        return space, it.model, it.steps
 
     def allocate_ticket(self) -> int:
         """Reserve one ticket id without queuing a scenario (the JAX
@@ -762,8 +845,8 @@ class EnsembleScheduler:
                 "ticket_deadline_s": self.ticket_deadline_s,
                 "degraded_from": None,
                 "intake_gated": False,
-                "migrated_out": 0,
-                "migrated_in": 0,
+                "migrated_out": self.migrated_out,
+                "migrated_in": self.migrated_in,
                 "service_id": self.service_id,
             })
             return out

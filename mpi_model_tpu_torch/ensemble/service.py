@@ -148,9 +148,11 @@ class EnsembleService:
         return res
 
     def migrate(self, ticket: int, target: "EnsembleService") -> int:
-        """Moving a queued scenario to another service needs the delta
-        stream (``io/delta.py``), which is not ported yet."""
-        raise _not_ported("EnsembleService.migrate (it needs io/delta.py)")
+        """Move one queued scenario to ``target`` through the CRC-checked
+        delta-stream handoff (``EnsembleScheduler.migrate_ticket``) and
+        return its new ticket there: rebalancing between services without
+        stopping either."""
+        return self.scheduler.migrate_ticket(ticket, target.scheduler)
 
     def flush(self) -> int:
         """Dispatch everything queued; returns the dispatch count."""

@@ -53,6 +53,7 @@ from ..ops.fused_stencil import KERNEL_DTYPES, PallasDiffusionStep, \
     check_nsteps, ghost_depth, resolve_block, resolve_compute_dtype
 from ..ops.point_kernel import build_point_plans, serial_point_runner
 from ..ops.stencil import neighbor_counts, point_flow_step, transport
+from ..resilience import inject
 
 Values = dict[str, torch.Tensor]
 
@@ -156,6 +157,28 @@ class SerialExecutor:
 
     def run_model(self, model: "Model", space: CellularSpace,
                   num_steps: int) -> Values:
+        # chaos seam (resilience.inject): one module-global read when no
+        # plan is armed, and the run below is untouched
+        st = inject.active()
+        if st is None:
+            return self._run_inner(model, space, num_steps)
+        idx = st.bump("executor")
+        fault = st.take("executor", idx, kinds=("exc", "nan"))
+        if fault is not None and fault.kind == "exc":
+            # the call index in the message: two injected faults never
+            # share a signature (that would read as one deterministic fault)
+            raise inject.InjectedFault(
+                f"injected executor fault on call {idx} "
+                f"({num_steps}-step chunk)")
+        out = self._run_inner(model, space, num_steps)
+        if fault is not None:  # "nan": poison the chunk's output
+            out = inject.poison_values(out, fault, st.plan)
+            # the poison wrote outside the engine's tracked tiles
+            self.last_dirty_tiles = None
+        return out
+
+    def _run_inner(self, model: "Model", space: CellularSpace,
+                   num_steps: int) -> Values:
         self.last_backend_report = None
         self.last_dirty_tiles = None
         values = dict(space.values)

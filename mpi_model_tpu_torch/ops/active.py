@@ -158,8 +158,15 @@ def ghost_flags(padded: torch.Tensor, plan: ActivePlan,
 def changed_tile_map(prev, new, plan: ActivePlan) -> np.ndarray:
     """Per-tile any-CHANGED map between two states of one channel: a bool
     ``[gi, gj]`` host array, True where any byte of the tile differs (a
-    ``-0.0``/``+0.0`` flip or a NaN reads as changed)."""
+    ``-0.0``/``+0.0`` flip or a NaN reads as changed). Two tensors on one
+    device are compared there, and only the map comes to the host."""
     (th, tw), (gi, gj) = plan.tile, plan.grid
+    if (isinstance(prev, torch.Tensor) and isinstance(new, torch.Tensor)
+            and prev.device == new.device):
+        a = prev.detach().contiguous().view(torch.uint8)
+        b = new.detach().contiguous().view(torch.uint8)
+        return ((a != b).reshape(gi, th, gj, -1).any(dim=3).any(dim=1)
+                .cpu().numpy())
 
     def as_bytes(x):
         if isinstance(x, torch.Tensor):

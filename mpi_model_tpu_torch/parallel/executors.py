@@ -56,8 +56,11 @@ All-frozen-point models at ``halo_depth == 1`` under ``xla``, ``auto``,
 ``run_model`` takes the global space and returns global tensors, assembled
 once per call on the mesh's first device (one grid copy per run).
 
-Not ported yet (ROADMAP.md): Flow IR models, bf16 interior math, the chaos
-seam.
+Chaos seam (``resilience.inject``): ``run_model`` fires the executor
+faults: ``exc`` raises, ``nan`` poisons the chunk's output, ``halo``
+perturbs every ghost ring the chunk exchanges (``parallel.halo``).
+
+Not ported yet (ROADMAP.md): Flow IR models.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ from ..ops.fused_stencil import check_ring_depth, pallas_halo_step, \
     resolve_compute_dtype
 from ..ops.point_kernel import build_point_plans, shard_point_runner
 from ..ops.stencil import neighbor_counts
+from ..resilience import inject
 from .halo import (exchange_ring, gather_from_padded, pad_with_halo_1d,
                    pad_with_halo_2d, refresh_rings, zero_ring)
 from .mesh import Mesh, ShardGrid, assemble, shard_bounds, shard_space
@@ -215,6 +219,27 @@ class ShardMapExecutor:
         """``num_steps`` steps of ``model`` on the global ``space``, sharded
         over the mesh; returns the global tensors on the mesh's first
         device."""
+        # chaos seam (resilience.inject): one module-global read when no
+        # plan is armed; "halo" perturbs every ring this chunk exchanges
+        st = inject.active()
+        if st is None:
+            return self._run_inner(model, space, num_steps)
+        idx = st.bump("executor")
+        fault = st.take("executor", idx, kinds=("exc", "nan", "halo"))
+        if fault is None:
+            return self._run_inner(model, space, num_steps)
+        if fault.kind == "exc":
+            raise inject.InjectedFault(
+                f"injected executor fault on call {idx} (sharded "
+                f"{num_steps}-step chunk)")
+        if fault.kind == "halo":
+            with st.halo_window(fault):
+                return self._run_inner(model, space, num_steps)
+        out = self._run_inner(model, space, num_steps)
+        return inject.poison_values(out, fault, st.plan)
+
+    def _run_inner(self, model, space: CellularSpace,
+                   num_steps: int) -> Values:
         shard_bounds(space, self.mesh)  # the divisibility rule, first
         self.last_backend_report = None
         if getattr(model, "ir_terms", None) is not None:

@@ -24,6 +24,12 @@ A runner that keeps each shard in a ring-1 padded buffer for a whole run
 refreshes the rings in place with ``refresh_rings``: the same values as
 ``pad_with_halo_1d/2d``, with no new copy a step.
 
+Chaos seam (``resilience.inject``): while a halo fault is armed for a
+chunk, ``exchange_ring``, ``pad_with_halo_1d`` and ``refresh_rings`` add
+``inject.halo_perturbation()`` to the received top ghost rows, the
+stand-in for a corrupted payload (the JAX package's ``_chaos_ring``).
+Unarmed, each costs one module-global read.
+
 Shards are addressed as ``grid[i][j]`` (``parallel.mesh.ShardGrid``); a
 1-D mesh has one column.
 """
@@ -35,6 +41,7 @@ from typing import Sequence
 import torch
 
 from ..ops.fused_stencil import pad_from_ring
+from ..resilience import inject
 from .mesh import ShardGrid
 
 
@@ -105,7 +112,7 @@ def exchange_ring(grid: ShardGrid, i: int, j: int, depth: int = 1) -> dict:
 
     whole = slice(None)
     first, last = slice(0, d), slice(-d, None)
-    return {
+    ring = {
         "n": cut(-1, 0, last, whole, (d, w)),
         "s": cut(1, 0, first, whole, (d, w)),
         "w": cut(0, -1, whole, last, (h, d)),
@@ -115,6 +122,15 @@ def exchange_ring(grid: ShardGrid, i: int, j: int, depth: int = 1) -> dict:
         "sw": cut(1, -1, first, last, (d, d)),
         "se": cut(1, 1, first, first, (d, d)),
     }
+    # chaos seam (resilience.inject): one module-global read when no plan
+    # is armed. Armed with a halo fault, the received top rows (the padded
+    # shard's first d rows: nw, n, ne) carry the perturbation, out of place
+    # (a piece may be a view of the neighbour's shard)
+    eps = inject.halo_perturbation()
+    if eps is not None:
+        for k in ("nw", "n", "ne"):
+            ring[k] = ring[k] + eps
+    return ring
 
 
 def zero_ring(local: torch.Tensor, depth: int = 1) -> dict:
@@ -138,7 +154,11 @@ def pad_with_halo_1d(grid: ShardGrid, i: int, depth: int = 1
     from the mesh neighbours, columns zero-padded (unsharded dimension)."""
     before, after = exchange_halo_1d(grid, i, 0, axis=0, depth=depth)
     rows = torch.cat([before, grid[i][0], after], dim=0)
-    return torch.nn.functional.pad(rows, (depth, depth))
+    padded = torch.nn.functional.pad(rows, (depth, depth))
+    eps = inject.halo_perturbation()  # the chaos seam, as in exchange_ring
+    if eps is not None:
+        padded[:depth] += eps
+    return padded
 
 
 def pad_with_halo_2d(grid: ShardGrid, i: int, j: int, depth: int = 1
@@ -175,6 +195,13 @@ def refresh_rings(grid: ShardGrid) -> None:
                 p[0].copy_(grid[i - 1][j][-2], non_blocking=True)
             if i < lines - 1:
                 p[-1].copy_(grid[i + 1][j][1], non_blocking=True)
+    # the chaos seam, as in exchange_ring, on the rows received this step
+    # (a true edge's ring is never rewritten, so it is left alone)
+    eps = inject.halo_perturbation()
+    if eps is not None:
+        for row in grid[1:]:
+            for p in row:
+                p[0] += eps
 
 
 def gather_from_padded(padded: torch.Tensor,

@@ -9,11 +9,25 @@ the same faults at the same places. The records have the JAX package's
 fields, kinds and sites, and ``armed`` takes a plan of either package
 (``FaultPlan.of``), so one plan arms the same firings in both.
 
-Seams wired in the port (the serving path):
+Seams wired in the port:
 
 =============  ==============================================================
 site           where the seam lives / what the fault does
 =============  ==============================================================
+``executor``   ``SerialExecutor.run_model`` / ``ShardMapExecutor.run_model``
+               — ``kind="exc"`` raises :class:`InjectedFault` (the call
+               index in its message); ``kind="nan"`` poisons the chunk's
+               output (and clears the serial executor's
+               ``last_dirty_tiles``); ``kind="halo"`` (sharded) perturbs
+               every ghost ring the chunk exchanges
+               (``parallel.halo.exchange_ring``, ``pad_with_halo_1d``,
+               ``refresh_rings``: ``halo_perturbation()`` added to the
+               received top rows)
+``checkpoint`` ``io.checkpoint.save_checkpoint`` and the delta chain's
+               record and manifest writes — ``kind="torn"`` tears the
+               file just written at step ``at`` (``channel`` pins the part:
+               ``"keyframe"``, ``"delta"``, ``"chain"``; unpinned it
+               matches the dense file and either record)
 ``ensemble``   ``batch.launch_ensemble`` — ``kind="lane_nan"`` poisons one
                scenario lane's output (by lane index, or by ticket through
                the scheduler's mapping; ``once=False`` makes it a sticky
@@ -35,12 +49,10 @@ site           where the seam lives / what the fault does
                makes one submission shed as if the queue were full
 =============  ==============================================================
 
-The other kinds (``exc``/``nan``/``halo`` at the executor's chunk
-boundaries, ``torn`` checkpoints, the fleet's ``member_kill``/
-``member_wedge``/``journal_torn``, the wire, tiering, handshake and lease
-seams) are accepted in a plan, so a plan of the JAX package parses here,
-but no port module fires them yet: their modules are not ported
-(ROADMAP.md). The file-tearing helpers are kept with the data model.
+The other kinds (the fleet's ``member_kill``/``member_wedge``/
+``journal_torn``, the wire, tiering, handshake and lease seams) are
+accepted in a plan, so a plan of the JAX package parses here, but no port
+module fires them yet: their modules are not ported (ROADMAP.md).
 
 Disarmed, every seam costs one module-global read (``active() is None``).
 """
@@ -403,8 +415,7 @@ def poison_lane_values(values_b: dict, lane: int, fault: Fault) -> dict:
 
 def checkpoint_torn(path: str, step: int, part: str = "data") -> None:
     """Checkpoint-writer seam: tear the just-written file when a ``torn``
-    fault is armed for this step and part (unwired: the checkpoint writers
-    are not ported)."""
+    fault is armed for this step and part."""
     st = _ACTIVE
     if st is None:
         return

@@ -1921,3 +1921,189 @@ def test_k7_grid_is_the_library_s():
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for K in (1, 7, 2 * sms - 1, 2 * sms, 4096, 65536):
         assert lib.mm_fused_scatter_blocks(K) == fa.scatter_blocks(K, sms)
+
+
+# -- checkpoints, supervision and migration on the card -----------------------------
+
+def _blob(dev, side, frac, dtype=torch.float32, seed=0):
+    v = np.zeros((side, side), np.float32)
+    s = max(1, int(round(side * frac ** 0.5)))
+    r0 = (side - s) // 2
+    v[r0:r0 + s, r0:r0 + s] = np.random.default_rng(seed).uniform(
+        0.5, 2.0, (s, s))
+    return mt.CellularSpace({"value": torch.from_numpy(v).to(dev, dtype)},
+                            side, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["full", "delta"])
+def test_checkpoint_round_trip_of_a_card_bf16_channel(tmp_path, layout):
+    """A card-resident bf16 channel (beside an f32 one) through a save and a
+    restore onto the card, and onto the CPU: the same bits."""
+    from mpi_model_tpu_torch.io import CheckpointManager
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    sp = mt.CellularSpace({
+        "value": torch.from_numpy(rng.uniform(0.5, 2.0, (256, 384))).to(
+            dev, torch.bfloat16),
+        "aux": torch.from_numpy(rng.uniform(-1, 1, (256, 384))).to(
+            dev, torch.float32)}, 256, 384)
+    mgr = CheckpointManager(str(tmp_path), layout=layout, delta_tile=(64, 64))
+    mgr.save(sp, 4)
+    later = sp.with_values({**sp.values,
+                            "value": sp.values["value"].clone()})
+    later.values["value"][100, 200] += 1.0
+    mgr.save(later, 8)
+    if layout == "delta":
+        assert mgr.last_save["kind"] == "delta"
+        assert mgr.last_save["dirty_tiles"] == 1
+    for step, want in ((4, sp), (8, later)):
+        got = mgr.restore(step)
+        for k, t in want.values.items():
+            g = got.space.values[k]
+            assert g.device.type == "cuda" and g.dtype == t.dtype
+            assert torch.equal(g.view(torch.uint8), t.view(torch.uint8))
+        host = mgr.restore(step, device="cpu").space.values["value"]
+        assert torch.equal(host, want.values["value"].cpu())
+
+
+@pytest.mark.cuda
+def test_supervised_k1_recovers_exc_and_nan_bit_for_bit(tmp_path):
+    """K1 (substeps 4) under the supervisor with an executor exception and a
+    NaN chunk armed, checkpointed: bit for bit the uninterrupted run, K1
+    launches only for the chunks that ran, one health-check transfer per
+    checked chunk."""
+    from mpi_model_tpu_torch.io import CheckpointManager
+    from mpi_model_tpu_torch.resilience import inject, supervised_run
+    from mpi_model_tpu_torch.resilience import supervisor as sup
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
+
+    dev = _card()
+    sp = mt.CellularSpace({"value": torch.from_numpy(
+        np.random.default_rng(5).uniform(0.5, 2.0, (512, 768))).to(
+        dev, torch.float32)}, 512, 768)
+    model = mt.Model(mt.Diffusion(0.1), 32.0, 1.0)
+    want, _ = model.execute(sp, mt.SerialExecutor("pallas", substeps=4),
+                            steps=32)
+    plan = FaultPlan((Fault("exc", at=1), Fault("nan", at=2, cell=(7, 9))))
+    before, syncs = fs.launches(), sup.health_syncs()
+    with inject.armed(plan) as st:
+        res = supervised_run(model, sp, CheckpointManager(str(tmp_path)),
+                             steps=32, every=8,
+                             executor=mt.SerialExecutor("pallas",
+                                                        substeps=4))
+    assert [f["kind"] for f in st.fired] == ["exc", "nan"]
+    assert [e.kind for e in res.events] == ["exception", "nonfinite"]
+    assert torch.equal(res.space.values["value"], want.values["value"])
+    # 4 good chunks + the poisoned one ran, 2 launches each; the exc chunk
+    # raised before any launch
+    assert fs.launches() - before == 5 * 2
+    assert sup.health_syncs() - syncs == 5
+
+
+@pytest.mark.cuda
+def test_sharded_k2_halo_fault_detected_and_rolled_back():
+    """K2 at depth 4 on a 2×2 mesh of the one card, a halo fault armed on
+    chunk 1: detected as conservation drift, and the result is the
+    unperturbed sharded run bit for bit."""
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+    from mpi_model_tpu_torch.resilience import inject, supervised_run
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
+
+    dev = _card()
+    sp = _blob(dev, 512, 0.05)
+    model = mt.Model(mt.Diffusion(0.1), 16.0, 1.0)
+
+    def ex():
+        return ShardMapExecutor(make_mesh_2d(2, 2, devices=[dev] * 4),
+                                "pallas", halo_depth=4)
+
+    want, _ = model.execute(sp, ex(), steps=16)
+    with inject.armed(FaultPlan((Fault("halo", at=1),), seed=3)) as st:
+        res = supervised_run(model, sp, steps=16, every=4, executor=ex())
+    assert [f["kind"] for f in st.fired] == ["halo"]
+    assert [e.kind for e in res.events] == ["conservation"]
+    assert torch.equal(res.space.values["value"], want.values["value"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["pallas", "active_fused", "sharded"])
+def test_unarmed_seams_leave_launch_counts_unchanged(impl):
+    """A plan armed for other seams (and none) changes neither the result
+    nor any kernel's launch count."""
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+    from mpi_model_tpu_torch.resilience import inject
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
+
+    dev = _card()
+    sp = _blob(dev, 512, 0.05)
+    model = mt.Model(mt.Diffusion(0.1), 8.0, 1.0)
+
+    def ex():
+        if impl == "sharded":
+            return ShardMapExecutor(make_mesh_2d(2, 2, devices=[dev] * 4),
+                                    "pallas", halo_depth=4)
+        return mt.SerialExecutor(impl, substeps=4)
+
+    def run():
+        before = kernel_launches()
+        out, _ = model.execute(sp, ex(), steps=8)
+        return out.values["value"], {k: v - before[k]
+                                     for k, v in kernel_launches().items()}
+
+    want, clean = run()
+    assert sum(clean.values()) > 0
+    plan = FaultPlan((Fault("torn", at=0), Fault("lane_nan", lane=2),
+                      Fault("exc", at=99), Fault("halo", at=99)))
+    with inject.armed(plan) as st:
+        got, armed = run()
+    assert st.fired == [] and armed == clean
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_delta_chain_takes_k6_k7_dirty_tiles(tmp_path):
+    """``active_fused`` k=4 (K6 + K7) under ``run_checkpointed`` with the
+    delta layout: every delta record's tiles come from the executor's
+    export, and every step restores bit for bit the full layout's."""
+    from mpi_model_tpu_torch.io import CheckpointManager, run_checkpointed
+
+    dev = _card()
+    sp = _blob(dev, 1024, 0.01)
+    model = mt.Model(mt.Diffusion(0.1), 16.0, 1.0)
+    full = CheckpointManager(str(tmp_path / "full"), keep=100)
+    delta = CheckpointManager(str(tmp_path / "delta"), keep=100,
+                              layout="delta", keyframe_every=8)
+    sources = []
+    for mgr in (full, delta):
+        ex = mt.SerialExecutor("active_fused", substeps=4)
+        run_checkpointed(model, sp, mgr, steps=16, every=4, executor=ex)
+        if mgr is delta:
+            sources.append(mgr.last_save["dirty_from"])
+    assert sources == ["executor"]
+    assert delta.steps() == full.steps() == [0, 4, 8, 12, 16]
+    for s in full.steps():
+        a = delta.restore(s).space.values["value"]
+        b = full.restore(s).space.values["value"]
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_migrate_k1_to_k2_and_back_on_the_card():
+    from mpi_model_tpu_torch.io import migrate_scenario
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    dev = _card()
+    sp = _blob(dev, 1024, 0.01)
+    model = mt.Model(mt.Diffusion(0.1), 24.0, 1.0)
+    serial = mt.SerialExecutor("pallas", substeps=4)
+    sharded = ShardMapExecutor(make_mesh_2d(2, 2, devices=[dev] * 4),
+                               "pallas", halo_depth=4)
+    want, _ = model.execute(sp, serial, steps=24)
+    for src, tgt in ((serial, sharded), (sharded, serial)):
+        res = migrate_scenario(model, sp, source=src, target=tgt, steps=24,
+                               handoff_at=8, transfer_steps=4)
+        assert torch.equal(res.space.values["value"], want.values["value"])
+        assert 0 < res.delta_bytes < res.keyframe_bytes

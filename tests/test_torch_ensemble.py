@@ -590,11 +590,16 @@ def test_scheduler_stats_keys_are_jax_keys():
 def test_unported_options_name_the_roadmap():
     spaces, models, _ = make_scenarios(B=1)
     for make in (lambda: mt.EnsembleExecutor(mesh=2),
-                 lambda: mt.EnsembleScheduler(mesh=(2, 1)),
-                 lambda: mt.EnsembleService(models[0]).migrate(
-                     0, mt.EnsembleService(models[0]))):
+                 lambda: mt.EnsembleScheduler(mesh=(2, 1))):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make()
+    # migration is ported: a queued ticket moves to another service
+    src = mt.EnsembleService(models[0], max_batch=8)
+    dst = mt.EnsembleService(models[0], max_batch=8)
+    moved = src.migrate(src.submit(spaces[0]), dst)
+    assert dst.stats()["migrated_in"] == 1
+    assert dst.result(moved)[0].values["value"].shape == \
+        spaces[0].values["value"].shape
     # windowed and donated dispatch are ported (impl="xla")
     svc = mt.EnsembleService(models[0], windows=2, donate=True)
     assert svc.scheduler.windows == 2 and svc.scheduler.donate

@@ -391,6 +391,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"mpi_model_tpu_torch/resilience/inject.py",
             "mpi_model_tpu_torch/ensemble/service.py",
             "mpi_model_tpu_torch/ensemble/scheduler.py"} <= rel
+    assert {"mpi_model_tpu_torch/io/checkpoint.py",
+            "mpi_model_tpu_torch/io/delta.py",
+            "mpi_model_tpu_torch/resilience/supervisor.py",
+            "mpi_model_tpu_torch/resilience/__init__.py"} <= rel
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"
