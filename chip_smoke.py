@@ -267,8 +267,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    16), the 2×2
    sharded K2, K3-halo (each form, bit for bit its serial composed run)
    and K4-halo (config 4 at 8192²) at depth 8 (every one of these rows
-   made whole in a process of
-   its own, ``fresh_row`` / ``traced_row``: its counted run is traced,
+   made whole in a process apart from this one, the rows of a kernel
+   family in one process, ``TRACED_GROUPS``, ``fresh_row`` /
+   ``traced_rows``: its counted run is traced,
    and every K1/K2 and K3 vpu launch must have run the near launch's f32
    walk and the paired launch's walk once each and no other kernel of its
    family, ``two_launch_walk``; every K3 mxu launch the
@@ -279,8 +280,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    and ``kernels_per_launch`` come from that one counted run), the
    ensemble 8 × 4096² (no closed tile: the near launch alone) and 4 × 8192²
    (blocks (512, 2048): closed tiles in every lane: the near launch and the
-   paired launch), each dispatch whole in a process of its own
-   (``traced_k5_row``: every lane bit for bit its plain version, the
+   paired launch), each dispatch whole in a process apart, both in one
+   (``_traced_k5_row``: every lane bit for bit its plain version, the
    counted dispatch traced, ``k5_walk``, and the near and paired launches'
    device ms from that trace; the source's plan held to the wrapper's
    mirrors, ``plan_of``); each run's mass change
@@ -330,6 +331,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    --chaos=exc:1`` at 16384², and the same with
    ``--checkpoint-layout=delta --impl=active_fused --substeps=8
    --blob=0.01``: each recovers one failure, its event ledger printed.
+6i. the Flow IR at full width (``ir_phase``), each run with the counts
+   set to 0 just before and read just after: (a) ``ir.library.diffusion``
+   (rate 0.1, f32, 64 steps) on phase 4's 16384² grid through
+   ``SerialExecutor("pallas", substeps=8)`` (K1), ``("composed",
+   substeps=8)`` (K3, ``"auto"``: the mxu form),
+   ``("active_fused", substeps=8)`` (K6/K7) and ``ShardMapExecutor`` on 2×2
+   ``"pallas"`` depth 8 (K2), and 8 × 4096² through the ensemble's
+   ``"pipeline"`` (K5, 8 steps, lane i rolled 7·i rows): each bit for bit
+   ``Model([Diffusion(0.1)])`` on the same spaces, with the same launch
+   counts, the run ms of each beside the flow model's (in turns); (b)
+   ``gray_scott``, ``sir`` and ``predator_prey`` at 8192², f32,
+   64 steps, through ``xla``, ``composed`` (substeps 4: k = 1 with the
+   warning) and ``active``: bit for bit with each other, the budget
+   reconciliation checked (``check_conservation=True``), no kernel
+   launched, ``sir``'s active run skipping tiles and ``gray_scott``'s
+   falling back every step; ms a step, cell-updates/s, the bound from
+   bytes (``ir_bytes_bound_ms``) and the ``xla`` and ``active`` steps'
+   device idle share and time by kind (``profile_dispatch`` of 4 steps, in
+   a process apart, ``ir_profiles``); (c) ``gray_scott`` as 8 × 4096²
+   through the ensemble's ``xla`` with per-lane F and k (``with_rates``),
+   16 steps, each lane bit for bit its serial run; (d) ``gray_scott`` at
+   8192² on 2×2 ``ShardMapExecutor("xla")``, 16 steps, bit for bit the
+   serial run; (e) the CLI's ``--model=gray_scott`` at 8192², 16 steps,
+   ``conserved``. ``ir_phase_main`` runs this phase alone.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -389,6 +414,24 @@ BF16_FLOPS = 989e12
 #: data-sheet 67 TFLOP/s: twice the f32 operation rate
 BF16X2_OPS = 2 * F32_FLOPS
 CUSTOM_OFFSETS = ((-1, 0), (1, 1), (0, -1))
+#: phase 6g's traced main-path rows, ``(kind, dtype, substeps, steps)``, in
+#: the groups that share a process (``traced_rows``): one process a kernel
+#: family. A process took 8.7-9.7 s to set up and 10-13 s for its first
+#: trace, the runs themselves ~0.1 s (one H100 80GB HBM3 at 700 W, PERF.md
+#: §4), so the rows share processes rather than cut their steps
+TRACED_GROUPS = (
+    (("K1", "float32", 8, STEPS), ("K1", "bfloat16", 16, STEPS),
+     ("K2", "float32", 8, STEPS)),
+    (("K3", "float32", 8, STEPS), ("K3 vpu", "float32", 8, STEPS),
+     ("K3", "bfloat16", 16, STEPS), ("K3 vpu", "bfloat16", 16, STEPS),
+     ("K3 auto", "float32", 2, STEPS)),
+    (("K3-halo vpu", "float32", 8, STEPS), ("K3-halo", "float32", 8, STEPS)),
+    (("K4", "float32", 1, STEPS), ("K4", "float32", 8, STEPS),
+     ("K4", "bfloat16", 1, STEPS), ("K4", "bfloat16", 16, STEPS),
+     ("K4-halo", "float32", 8, STEPS)),
+    ((f"K5 {B5}x{N5}", "float32", 8, STEPS5),
+     (f"K5 4x{N4}", "float32", 8, STEPS5)),
+)
 #: how many times phase 6g makes again a counted main-path run whose trace
 #: dropped one of its kernels (``two_launch_short``, ``k3_short``,
 #: ``k4_short``)
@@ -632,9 +675,25 @@ def two_launch_short(names: dict, launched: int, family: str) -> bool:
     return min(paired, near) < launched and sum(ks.values()) == paired + near
 
 
-def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
-    """One bf16-interior main-path row of phase 6g, whole, in a process of
-    its own (``fresh_row`` starts it): the entry point of ``kind`` (K1, K2
+def traced_rows(spec: str) -> None:
+    """Phase 6g's traced main-path rows of one group (``TRACED_GROUPS``),
+    whole, one after the other in a process of its own (``fresh_row``
+    starts it): ``spec`` is the group as JSON, a list of ``[kind, dtype,
+    substeps, steps]``. Prints one JSON line a row (``"spec"``, ``"row"``,
+    ``"attempts"``)."""
+    import torch
+
+    for kind, dname, sub, steps in json.loads(spec):
+        fn = _traced_k5_row if kind.startswith("K5") else _traced_row
+        got = fn(kind, dname, str(sub), str(steps))
+        print(json.dumps({"spec": [kind, dname, sub, steps], **got}),
+              flush=True)
+        torch.cuda.empty_cache()
+
+
+def _traced_row(kind: str, dname: str, sub: str, steps: str) -> dict:
+    """One bf16-interior main-path row of phase 6g, whole (``traced_rows``
+    runs it): the entry point of ``kind`` (K1, K2
     on the 2x2 mesh, K3 ``"auto"`` (mxu at k 8 and 16, vpu at k 2), K3
     vpu, K3-halo mxu and vpu on 2x2, K4 and K4-halo on 2x2 with config 4)
     on a grid made from ``SEED``; one uncounted run; then the counted run,
@@ -644,12 +703,11 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
     most ``TRACE_RETRIES`` times); that run's result checked (finite, its
     mass change, the form the composed executor resolved; K3-halo: bit for
     bit the serial composed run); then the run's ms (CUDA events, median of
-    3). Prints the row and the attempts' counts and kernel names as one
-    JSON line. Kinds ``"K5 BxS"`` (the ensemble's bf16-interior dispatch)
-    run ``traced_k5_row``."""
-    if kind.startswith("K5"):
-        traced_k5_row(kind, dname, sub, steps)
-        return
+    3). Returns the row (with ``process_marks``: seconds from its start to
+    the end of its set-up, first run, traced runs, checks and timing) and
+    the attempts' counts and kernel names."""
+    t0 = time.perf_counter()
+    marks = {}
     import torch
 
     import mpi_model_tpu_torch as mt
@@ -718,7 +776,9 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
     def run():
         return model.execute(space, ex, steps=steps, check_conservation=False)
 
+    marks["setup_s"] = time.perf_counter() - t0
     run()
+    marks["first_run_s"] = time.perf_counter() - t0
     attempts = []
     for _ in range(1 + TRACE_RETRIES):
         fs.reset_launches()
@@ -728,6 +788,7 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
         attempts.append({"launches": counter(), "kernels": names})
         if not short(names, attempts[-1]["launches"]):
             break
+    marks["traced_s"] = time.perf_counter() - t0
     total = sum(abs(float(t)) for t in rep.initial_total.values())
     row = {"impl": rep.impl, "steps": steps,
            "launches": attempts[-1]["launches"],
@@ -764,13 +825,16 @@ def traced_row(kind: str, dname: str, sub: str, steps: str) -> None:
                                             serial.values["value"])
         del serial
     del res
+    marks["checks_s"] = time.perf_counter() - t0
     run_ms = statistics.median(timed_ms(
         torch, lambda: ex.run_model(model, space, steps), reps=3))
+    marks["timed_s"] = time.perf_counter() - t0
     cells = sum(t.numel() for t in space.values.values()
                 if t.is_floating_point())
     row.update(run_ms_median=run_ms,
-               cell_updates_per_s=cells * steps / (run_ms / 1e3))
-    print(json.dumps({"row": row, "attempts": attempts}), flush=True)
+               cell_updates_per_s=cells * steps / (run_ms / 1e3),
+               process_marks=marks)
+    return {"row": row, "attempts": attempts}
 
 
 def k5_kernels(names: dict) -> tuple:
@@ -798,9 +862,9 @@ def k5_walk(names: dict, launched: int, closed: bool, what: str) -> dict:
             "kernels": ks}
 
 
-def traced_k5_row(kind: str, dname: str, sub: str, steps: str) -> None:
-    """Phase 6g's K5 row (``kind`` ``"K5 BxS"``: B lanes of S²), whole, in
-    a process of its own: ``EnsembleService(impl="pipeline", substeps,
+def _traced_k5_row(kind: str, dname: str, sub: str, steps: str) -> dict:
+    """Phase 6g's K5 row (``kind`` ``"K5 BxS"``: B lanes of S²), whole
+    (``traced_rows`` runs it): ``EnsembleService(impl="pipeline", substeps,
     compute_dtype=bfloat16)`` over lanes ``np.roll``-ed from one
     ``U(0.5, 2.0)`` base made from ``SEED`` (storage ``dname``); one
     uncounted dispatch; then the counted dispatch, traced (the count to 0
@@ -808,8 +872,8 @@ def traced_k5_row(kind: str, dname: str, sub: str, steps: str) -> None:
     and its dispatch made again, at most ``TRACE_RETRIES`` times), each
     lane held bit for bit to ``pipeline_step_plain(..., compute_dtype)``
     chained call by call; the near and paired launches' device ms from
-    that trace; then the dispatch ms (CUDA events, median of 5). Prints the
-    row and the attempts as one JSON line."""
+    that trace; then the dispatch ms (CUDA events, median of 5). Returns
+    the row and the attempts."""
     import torch
 
     import mpi_model_tpu_torch as mt
@@ -867,7 +931,7 @@ def traced_k5_row(kind: str, dname: str, sub: str, steps: str) -> None:
            "near_ms": mean_ms("pipeline_near_kernel"),
            "paired_ms": mean_ms("pipeline_bf16_kernel"),
            "dispatch_ms_median": disp, "scenarios_per_s": B / (disp / 1e3)}
-    print(json.dumps({"row": row, "attempts": attempts}), flush=True)
+    return {"row": row, "attempts": attempts}
 
 
 #: the paired walk's instructions a pair and step, as the kernel runs them
@@ -2980,20 +3044,36 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     torch.cuda.empty_cache()
 
     # -- the main paths at full width ---------------------------------------------
+    traced: dict = {}
+
     def run_fresh(what, kind, dname, sub, steps):
-        """``traced_row(kind, dname, sub, steps)`` in a process of its own:
-        its row and its trace attempts (each attempt before the last, one
-        whose trace dropped kernels, printed)."""
-        here = Path(__file__).resolve().parent
-        proc = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, "
-             "sys.argv[1]); import chip_smoke; "
-             "chip_smoke.traced_row(*sys.argv[2:])", str(here), kind, dname,
-             str(sub), str(steps)], cwd=here, capture_output=True,
-            text=True, timeout=600)
-        check(proc.returncode == 0, f"{what}: its traced run failed:\n"
-                                    f"{proc.stderr[-3000:]}")
-        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        """The row ``(kind, dname, sub, steps)`` of ``TRACED_GROUPS``: at the
+        first row of a group, every row of the group in a process of its
+        own (``traced_rows``); its row and its trace attempts (each attempt
+        before the last, one whose trace dropped kernels, printed)."""
+        key = (kind, dname, int(sub), int(steps))
+        if key not in traced:
+            group = next(g for g in TRACED_GROUPS if key in g)
+            here = Path(__file__).resolve().parent
+            t_proc = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-c", "import sys; sys.path.insert(0, "
+                 "sys.argv[1]); import chip_smoke; "
+                 "chip_smoke.traced_rows(sys.argv[2])", str(here),
+                 json.dumps(group)], cwd=here, capture_output=True,
+                text=True, timeout=1200)
+            check(proc.returncode == 0, f"{what}: its group's traced runs "
+                                        f"failed:\n{proc.stderr[-3000:]}")
+            wall = time.perf_counter() - t_proc
+            for line in proc.stdout.strip().splitlines():
+                if line.startswith('{"spec"'):
+                    got = json.loads(line)
+                    got["row"].update(group_process_s=wall,
+                                      group_rows=len(group))
+                    traced[tuple(got["spec"])] = got
+            print(f"bf16-interior traced rows {[g[0] for g in group]}: one "
+                  f"process, {wall:.1f} s", flush=True)
+        got = traced.pop(key)
         for i, a in enumerate(got["attempts"][:-1]):
             print(f"bf16-interior {what}: trace {i + 1} dropped kernels "
                   f"({a['launches']} launches, {a['kernels']}); its run "
@@ -3003,11 +3083,13 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
     def fresh_row(what, kind, dname, sub, steps, want_launches):
         """One main-path row whose counted run is traced: the whole row
         (the counted run, traced, its checks and its run ms) in a process
-        of its own (``traced_row``), since in this process, after its
-        earlier profiles, the profiler dropped kernels of these runs (one
-        near kernel of 8 K1 launches in four traces in a row; two or three
-        K3 mxu walks of 8; three K4 launches of 64) while a fresh process
-        traced them whole. The launches, the checks and the kernels the
+        apart from this one, shared with its kernel family's other rows
+        (``run_fresh``, ``TRACED_GROUPS``), since in this process, after
+        its earlier profiles, the profiler dropped kernels of these runs
+        (one near kernel of 8 K1 launches in four traces in a row; two or
+        three K3 mxu walks of 8; three K4 launches of 64) while a fresh
+        process traced them whole (a row whose trace still drops a kernel
+        is made again, ``TRACE_RETRIES``). The launches, the checks and the kernels the
         trace shows (K1/K2's and K3 vpu's two launches,
         ``two_launch_walk``; the K3 mxu bf16-interior walk, ``k3_mxu16``;
         K4's two walks, ``k4_walk``) all come from that
@@ -3039,7 +3121,7 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
                          "K4": ("k4_walk", k4_walk)}[kind[:2]]
         row[key] = walk(attempts[-1]["kernels"], launched, what)
         row[key]["trace_attempts"] = len(attempts)
-        row = {"what": what, **row, "run_in": "a process of its own"}
+        row = {"what": what, **row, "run_in": "its family's process"}
         out["rows"][what] = row
         print(f"bf16-interior {what}: impl={row['impl']}, launches "
               f"{launched}, |d|={row['conservation_error']:.3e}, run "
@@ -3357,8 +3439,8 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
 
     # the ensemble: 8 x 4096² (no closed tile: the near launch alone) and
     # 4 x 8192² (blocks (512, 2048): closed tiles in every lane, the near
-    # and the paired launch), each dispatch whole in a process of its own
-    # (traced_k5_row: the counted dispatch traced, bit for bit its plain
+    # and the paired launch), each dispatch whole in one process apart
+    # (_traced_k5_row: the counted dispatch traced, bit for bit its plain
     # version, the near and paired launches' device ms from its trace)
     for B, side in ((B5, N5), (4, N4)):
         what = f"K5 ensemble {B}x{side}^2 float32 substeps=8"
@@ -3371,7 +3453,7 @@ def bf16_interior_phase(np, torch, mt, dev, gen, record, reset_counts,
         row["k5_walk"] = k5_walk(attempts[-1]["kernels"], launched,
                                  row["closed"], what)
         row["k5_walk"]["trace_attempts"] = len(attempts)
-        row = {"what": what, **row, "run_in": "a process of its own"}
+        row = {"what": what, **row, "run_in": "its family's process"}
         out["rows"][what] = row
         inner = row["closed_cells_per_lane"]
         print(f"bf16-interior {what}: K5 launches {launched}, its plain "
@@ -3848,6 +3930,360 @@ def checkpoint_phase(np, torch, mt, dev, root: Path, reset_counts,
     print(f"6h: {out['seconds']:.1f} s, peak {peak[0]} bytes on disk "
           f"(cuts: none; {CKPT_STEPS} steps as phase 4)", flush=True)
     return out
+
+
+IR_MODELS = ("gray_scott", "sir", "predator_prey")
+IR_SHARDED_STEPS = 16  # phase 6i (d)'s and (e)'s runs
+IR_ENSEMBLE_STEPS = 16  # phase 6i (c)'s dispatch
+
+
+def ir_bytes_bound_ms(model, space) -> float:
+    """The least time of one step of a nonlinear IR model from bytes: every
+    channel a term reads or writes (budgets included) read once and every
+    written channel written once, over the card's memory rate."""
+    from mpi_model_tpu_torch.ir import lower
+
+    terms = model.ir_terms
+    n = (len(lower.involved_channels(terms))
+         + len(lower.written_channels(terms)))
+    item = space.values[lower.written_channels(terms)[0]].element_size()
+    return n * space.dim_x * space.dim_y * item / HBM_BYTES_PER_S * 1e3
+
+
+def ir_profiles(side: str) -> None:
+    """Phase 6i's profiles, in a process apart from the script's (in the
+    script's long process the profiler dropped kernels of these steps, 245
+    of 276 on one H100 80GB HBM3 at 700 W, as PERF.md §7 records):
+    per nonlinear library model at ``side``², the device activity of 4
+    ``xla`` steps and of 4 ``active`` steps (``profile_dispatch`` against
+    their CUDA-event time, median of 3). Prints one JSON line."""
+    import torch
+
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.ir import library
+
+    out = {}
+    for name in IR_MODELS:
+        model, space = library.MODELS[name](int(side), dtype="float32",
+                                            device=torch.device("cuda"))
+        for impl in ("xla", "active"):
+            ex = mt.SerialExecutor(impl)
+            wall = statistics.median(timed_ms(
+                torch, lambda: ex.run_model(model, space, 4), reps=3))
+            out[f"{name} {impl}"] = profile_dispatch(
+                torch, lambda: ex.run_model(model, space, 4), wall)
+        del space
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def ir_phase(np, torch, mt, dev, reset_counts, kernel_launches, side=N,
+             side_nl=N4, side5=N5, lanes=B5, steps=STEPS,
+             cli_args=()) -> dict:
+    """Phase 6i: the Flow IR on the card (see the module docstring). (a)
+    ``ir.library.diffusion`` at ``side``² through K1, K3, K6/K7 and K2, and
+    the ensemble's K5 over ``lanes`` × ``side5``², each bit for bit and
+    launch for launch the flow-built ``Model([Diffusion(0.1)])``; (b) the
+    three nonlinear library models at ``side_nl``² through ``xla``,
+    ``composed`` (substeps 4: k = 1, warned) and ``active``, bit for bit
+    with each other, conservation checked; (c) ``gray_scott`` as an
+    ensemble with per-lane F and k, each lane bit for bit its serial run;
+    (d) ``gray_scott`` on 2×2 against serial; (e) the CLI's ``--model``.
+    ``check`` fails the run on any disagreement."""
+    import warnings
+
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.ensemble import EnsembleExecutor
+    from mpi_model_tpu_torch.ir import library
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    out = {"linear": {}, "nonlinear": {}}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def same(a, b) -> bool:
+        return all(torch.equal(a.values[k], b.values[k]) for k in b.values)
+
+    def counted(fn):
+        """``fn()`` with every count set to 0 just before and read just
+        after: (its result, the nonzero counts)."""
+        reset_counts()
+        res = fn()
+        sync()
+        return res, {k: v for k, v in kernel_launches().items() if v}
+
+    def run_ms(fn, reps=3) -> float:
+        if on_card:
+            return statistics.median(timed_ms(torch, fn, reps=reps))
+        t = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(t)
+
+    # -- (a) the linear model through the kernels, against the flow model ----
+    ir_m, space = library.diffusion(side, rate=0.1, dtype="float32",
+                                    device=dev)
+    flow_m = mt.Model(mt.Diffusion(0.1), ir_m.time, ir_m.time_step)
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    for what, make, kernels in (
+            ("K1 pallas substeps=8",
+             lambda: mt.SerialExecutor("pallas", substeps=8),
+             ("fused_stencil",)),
+            ("K3 composed substeps=8",
+             lambda: mt.SerialExecutor("composed", substeps=8),
+             ("composed_stencil",)),
+            ("K6/K7 active_fused k=8",
+             lambda: mt.SerialExecutor("active_fused", substeps=8),
+             ("fused_compute", "fused_scatter")),
+            ("K2 2x2 pallas depth=8",
+             lambda: ShardMapExecutor(mesh, "pallas", halo_depth=8),
+             ("fused_stencil_halo",))):
+        runs = {}
+        for label, m in (("ir", ir_m), ("flow", flow_m)):
+            ex = make()
+            (res, rep), launched = counted(
+                lambda: m.execute(space, ex, steps=steps))
+            runs[label] = (res, rep, launched, ex)
+        (a, ra, la, ex_ir), (b, rb, lb, ex_flow) = runs["ir"], runs["flow"]
+        bitwise = same(a, b)
+        # the IR model and the flow model in turns: ir, flow, flow, ir
+        t = [run_ms(lambda: ex.run_model(m, space, steps))
+             for m, ex in ((ir_m, ex_ir), (flow_m, ex_flow),
+                           (flow_m, ex_flow), (ir_m, ex_ir))]
+        ms, flow_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        row = {"impl": ra.impl, "launches": la, "flow_launches": lb,
+               "bit_for_bit_flow_model": bitwise, "run_ms": ms,
+               "flow_run_ms": flow_ms, "turns_ms": t,
+               "cell_updates_per_s": side * side * steps / (ms / 1e3),
+               "backend_report": ra.backend_report}
+        out["linear"][what] = row
+        print(f"6i (a) diffusion IR {side}^2 {what}: impl={ra.impl}, "
+              f"launches {la} (flow model {lb}), bit for bit the flow model "
+              f"{bitwise}, run {ms:.3f} ms (flow model {flow_ms:.3f}; "
+              f"{row['cell_updates_per_s']:.4e} cell-updates/s)",
+              flush=True)
+        check(bitwise, f"6i (a) {what}: the IR run is not the flow model's "
+                       "bit for bit")
+        check(la == lb, f"6i (a) {what}: launches {la} != the flow model's "
+                        f"{lb}")
+        check(all(la.get(k, 0) > 0 for k in kernels),
+              f"6i (a) {what}: {kernels} not launched ({la})")
+        del a, b, runs
+    del space
+
+    ir5, s5 = library.diffusion(side5, rate=0.1, dtype="float32", device=dev)
+    flow5 = mt.Model(mt.Diffusion(0.1), ir5.time, ir5.time_step)
+    spaces = [s5.with_values({"value": torch.roll(s5.values["value"], 7 * i,
+                                                  0).contiguous()})
+              for i in range(lanes)]
+    got = {}
+    for label, m in (("ir", ir5), ("flow", flow5)):
+        res, launched = counted(lambda: m.execute_many(
+            spaces, executor=EnsembleExecutor("pipeline", substeps=8),
+            steps=8))
+        got[label] = (res, launched)
+    lanes_ok = all(same(a, b) for (a, _), (b, _) in zip(got["ir"][0],
+                                                        got["flow"][0]))
+    out["linear"]["K5 pipeline"] = {"lanes": lanes, "side": side5,
+                                    "launches": got["ir"][1],
+                                    "flow_launches": got["flow"][1],
+                                    "bit_for_bit_flow_dispatch": lanes_ok}
+    print(f"6i (a) diffusion IR ensemble {lanes}x{side5}^2 pipeline "
+          f"substeps=8: launches {got['ir'][1]} (flow dispatch "
+          f"{got['flow'][1]}), every lane bit for bit the flow dispatch "
+          f"{lanes_ok}", flush=True)
+    check(lanes_ok, "6i (a) the IR ensemble is not the flow dispatch's bit "
+                    "for bit")
+    check(got["ir"][1] == got["flow"][1]
+          and got["ir"][1].get("pipeline_stencil", 0) > 0,
+          f"6i (a) K5 launches {got['ir'][1]} against {got['flow'][1]}")
+    del spaces, got
+
+    # -- (b) the nonlinear models through xla, composed and active -----------
+    profiles = {}
+    if on_card:
+        here = Path(__file__).resolve().parent
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke; "
+             "chip_smoke.ir_profiles(sys.argv[2])", str(here),
+             str(side_nl)], cwd=here, capture_output=True, text=True,
+            timeout=600)
+        check(proc.returncode == 0, "6i (b) the profiles' process failed:"
+                                    f"\n{proc.stderr[-3000:]}")
+        profiles = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in IR_MODELS:
+        model, space = library.MODELS[name](side_nl, dtype="float32",
+                                            device=dev)
+        runs, row = {}, {"steps": steps, "side": side_nl}
+        for impl, kw in (("xla", {}), ("composed", {"substeps": 4}),
+                         ("active", {})):
+            ex = mt.SerialExecutor(impl, **kw)
+            with warnings.catch_warnings(record=True) as warned:
+                warnings.simplefilter("always")
+                (res, rep), launched = counted(
+                    lambda: model.execute(space, ex, steps=steps,
+                                          check_conservation=True))
+            ms = run_ms(lambda: ex.run_model(model, space, steps), reps=2)
+            runs[impl] = res
+            r = {"impl": rep.impl, "launches": launched,
+                 "run_ms": ms, "ms_per_step": ms / steps,
+                 "cell_updates_per_s": side_nl * side_nl * steps
+                 / (ms / 1e3),
+                 "budget_error": model.report_conservation_error(rep),
+                 "budget_threshold": model.conservation_threshold(space)}
+            if impl == "composed":
+                r["k1_warning"] = any("forces k=1" in str(w.message)
+                                      for w in warned)
+                check(r["k1_warning"], f"6i (b) {name} composed: no k=1 "
+                                       "warning")
+            if impl == "active":
+                br = rep.backend_report or {}
+                r.update(fallback_steps=br.get("fallback_steps"),
+                         mean_active_fraction=br.get("mean_active_fraction"),
+                         host_syncs=br.get("host_syncs"))
+            check(not launched, f"6i (b) {name} {impl}: a kernel was "
+                                f"launched ({launched}); the nonlinear "
+                                "terms run plain torch ops")
+            row[impl] = r
+        bitwise = {impl: same(runs[impl], runs["xla"])
+                   for impl in ("composed", "active")}
+        row["bit_for_bit_xla"] = bitwise
+        row["bytes_bound_ms_per_step"] = ir_bytes_bound_ms(model, space)
+        act_row = row["active"]
+        if name == "sir":
+            check(act_row["fallback_steps"] is not None
+                  and act_row["fallback_steps"] < steps
+                  and act_row["mean_active_fraction"] < 1.0,
+                  f"6i (b) sir active skipped no tile: {act_row}")
+        if name == "gray_scott":
+            check(act_row["fallback_steps"] == steps,
+                  f"6i (b) gray_scott active did not fall back to dense "
+                  f"every step: {act_row}")
+        for impl in ("xla", "active"):
+            if f"{name} {impl}" in profiles:
+                row[f"{impl}_profile_4_steps"] = profiles[f"{name} {impl}"]
+        out["nonlinear"][name] = row
+        prof = row.get("xla_profile_4_steps", {})
+        print(f"6i (b) {name} {side_nl}^2 f32 {steps} steps: "
+              + ", ".join(f"{impl} {row[impl]['ms_per_step']:.3f} ms/step "
+                          f"({row[impl]['cell_updates_per_s']:.4e} "
+                          "cell-updates/s)"
+                          for impl in ("xla", "composed", "active"))
+              + f"; bytes bound {row['bytes_bound_ms_per_step']:.4f} "
+              f"ms/step; xla idle share {prof.get('idle_share')}, active "
+              f"{row.get('active_profile_4_steps', {}).get('idle_share')}; "
+              "composed "
+              f"and active bit for bit xla {bitwise}; budgets reconciled "
+              f"(|d| {row['xla']['budget_error']:.3e} <= "
+              f"{row['xla']['budget_threshold']:.3e}); active: fallback "
+              f"steps {act_row['fallback_steps']}, mean active fraction "
+              f"{act_row['mean_active_fraction']}", flush=True)
+        check(all(bitwise.values()), f"6i (b) {name}: impls disagree "
+                                     f"{bitwise}")
+        del runs, space
+
+    # -- (c) gray_scott as an ensemble, per-lane F and k ----------------------
+    gs, g5 = library.gray_scott(side5, dtype="float32", device=dev)
+    Du, Dv, react, F0, kill0 = gs.term_rates()
+    k0 = kill0 - F0
+    models, spaces = [], []
+    for i in range(lanes):
+        Fi = F0 * (1 + 0.05 * i / max(lanes - 1, 1))
+        ki = k0 * (1 - 0.05 * i / max(lanes - 1, 1))
+        models.append(gs.with_rates([Du, Dv, react, Fi, Fi + ki]))
+        spaces.append(g5.with_values({
+            **g5.values,
+            **{c: torch.roll(g5.values[c], 7 * i, 0).contiguous()
+               for c in ("u", "v")}}))
+    res, launched = counted(lambda: gs.execute_many(
+        spaces, models=models, executor=EnsembleExecutor("xla"),
+        steps=IR_ENSEMBLE_STEPS))
+    lane_ok = []
+    for m, sp, (got_sp, _) in zip(models, spaces, res):
+        want, _ = m.execute(sp, mt.SerialExecutor("xla"),
+                            steps=IR_ENSEMBLE_STEPS)
+        lane_ok.append(same(got_sp, want))
+    out["ensemble"] = {"lanes": lanes, "side": side5,
+                       "steps": IR_ENSEMBLE_STEPS,
+                       "bit_for_bit_serial": lane_ok, "launches": launched}
+    print(f"6i (c) gray_scott ensemble {lanes}x{side5}^2 xla, per-lane F/k, "
+          f"{IR_ENSEMBLE_STEPS} steps: each lane bit for bit its serial run "
+          f"{lane_ok}", flush=True)
+    check(all(lane_ok), f"6i (c) ensemble lanes disagree: {lane_ok}")
+    del res, spaces
+
+    # -- (d) gray_scott on 2x2 against serial ---------------------------------
+    model, space = library.gray_scott(side_nl, dtype="float32", device=dev)
+    want, _ = model.execute(space, mt.SerialExecutor("xla"),
+                            steps=IR_SHARDED_STEPS)
+    ex = ShardMapExecutor(mesh, "xla")
+    (got_sp, rep), launched = counted(
+        lambda: model.execute(space, ex, steps=IR_SHARDED_STEPS))
+    ok = same(got_sp, want)
+    ms = run_ms(lambda: ex.run_model(model, space, IR_SHARDED_STEPS),
+                reps=2)
+    out["sharded"] = {"mesh": "2x2", "steps": IR_SHARDED_STEPS,
+                      "bit_for_bit_serial": ok, "comm_size": rep.comm_size,
+                      "run_ms": ms}
+    print(f"6i (d) gray_scott {side_nl}^2 on 2x2 ShardMapExecutor(xla), "
+          f"{IR_SHARDED_STEPS} steps: bit for bit serial {ok}, run "
+          f"{ms:.3f} ms", flush=True)
+    check(ok and rep.comm_size == 4, "6i (d) the sharded run is not the "
+                                     "serial run bit for bit")
+    del want, got_sp, space
+
+    # -- (e) the CLI ----------------------------------------------------------
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--model=gray_scott", f"--dimx={side_nl}",
+                       f"--dimy={side_nl}", f"--steps={IR_SHARDED_STEPS}",
+                       "--json", *cli_args])
+    print(buf.getvalue(), end="", flush=True)
+    row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["cli"] = row
+    check(rc == 0 and row["conserved"] is True,
+          f"6i (e) the --model CLI run is not conserved: {row}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6i: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def ir_phase_main() -> None:
+    """Phase 6i alone on the card (``python3 -c "import chip_smoke;
+    chip_smoke.ir_phase_main()"``): builds the sources and runs
+    ``ir_phase``; the rows go to ``chiprun_out/chip_smoke_6i.json``."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import _build
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_active as fa
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+
+    def reset_counts():
+        for mod in (fs, cs, k4, k5, fa):
+            mod.reset_launches()
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    out = ir_phase(np, torch, mt, dev, reset_counts, kernel_launches)
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6i.json").write_text(json.dumps(out, indent=1))
 
 
 def main() -> int:
@@ -5209,6 +5645,10 @@ def main() -> int:
         reset_counts, kernel_launches)
     torch.cuda.empty_cache()
 
+    # -- 6i. the Flow IR on the card -------------------------------------------
+    ir = ir_phase(np, torch, mt, dev, reset_counts, kernel_launches)
+    torch.cuda.empty_cache()
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -5601,7 +6041,7 @@ def main() -> int:
          "count_read_us": sync_us,
          "sharded": sharded, "halo_main_shard_err": halo_err,
          "sharded_active": sharded_active, "bf16_interior": bf16,
-         "checkpoint": ckpt,
+         "checkpoint": ckpt, "ir": ir,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

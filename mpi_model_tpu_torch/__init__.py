@@ -21,6 +21,8 @@ Layer map (as in the JAX package):
   L5 ``ensemble``     — batched scenarios (EnsembleExecutor, K5), the
                          bucketed scheduler, the synchronous service, the
                          always-on async service and ``run_soak``
+  —  ``ir``           — the Flow IR: terms, the one registered lowering,
+                         FlowIRModel and its library (``--model``)
   —  ``utils`` (serving counters), ``resilience`` (FailureEvent, the
      fault plans of ``inject``),
      ``oracle``, ``interop``, ``cli``
@@ -38,6 +40,8 @@ from .ensemble import (AsyncEnsembleService, EnsembleConservationError,
                        EnsembleExecutor, EnsembleScheduler, EnsembleService,
                        EnsembleSpace, ServiceOverloaded, TicketExpired,
                        buckets_for, run_ensemble, run_soak)
+from .ir import (Chan, Clock, FlowIRModel, Sink, Source, Transfer, Transport,
+                 build_model)
 
 __version__ = "0.1.0"
 
@@ -75,4 +79,12 @@ __all__ = [
     "make_mesh",
     "make_mesh_2d",
     "shard_space",
+    "Chan",
+    "Clock",
+    "FlowIRModel",
+    "Sink",
+    "Source",
+    "Transfer",
+    "Transport",
+    "build_model",
 ]

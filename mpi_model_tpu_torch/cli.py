@@ -23,6 +23,8 @@
     python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \
         --dimy=16384 --steps=64 --checkpoint-dir=DIR --checkpoint-every=16 \
         --chaos=exc:1 --json
+    python -m mpi_model_tpu_torch.cli run --model=gray_scott --dimx=8192 \
+        --dimy=8192 --steps=16 --json
 
 Runs on the card unless ``--device=cpu`` is given. The scenario flags are
 the JAX package's: ``--source=X,Y``, ``--value`` (the point source's frozen
@@ -83,6 +85,18 @@ the event ledger. ``--checkpoint-layout=sharded`` and
 kernels' ``compute_dtype``: K1/K2 above one step, K3, K4 and K5 on the
 tiles off the edge; refused with ``--impl=xla`` and ``--executor=gspmd``,
 as the JAX CLI refuses it).
+``--model={diffusion,gray_scott,sir,predator_prey}`` runs a registered
+Flow IR model (``ir.library``: its seeded space, its term rates; ``--time``
+and ``--time-step`` set its horizon) in place of ``--flow``, through
+``--impl``, ``--substeps``, ``--ensemble``, ``--serve``, ``--mesh`` and
+``--checkpoint-*``; the ``conserved`` verdict is judged on the model's
+conservation view (declared sources and sinks reconciled against their
+budget channels). As in the JAX package's CLI, it refuses ``--flow``,
+``--rectangular``, ``--rate``/``--source``/``--value``, and for the
+nonlinear models ``--impl=pallas|active_fused`` and
+``--ensemble-impl=pipeline|active|active_fused``; ``--impl=composed`` with
+``--substeps`` above 1 runs k = 1 (a note says so). ``--blob`` fills the
+flow scenarios' channel and is refused with ``--model``.
 Exit status 1 when conservation fails (``--serve``: when the ledger is
 not complete; a supervised run: also when it fails).
 """
@@ -125,6 +139,57 @@ def build_flows(args):
                       modulator=names[i + 1])
               for i in range(len(names) - 1)]
     return flows, {nm: args.init for nm in names}
+
+
+def check_model_flags(args, sharded: bool) -> None:
+    """The JAX package's checks of ``--model`` against the other flags;
+    then the flow scenario's default (``--flow=exponencial``)."""
+    if args.model is not None:
+        if args.flow is not None:
+            raise SystemExit(
+                "--model runs a registered Flow IR model; --flow builds "
+                "a hand-wired scenario — pick one")
+        if args.rectangular is not None:
+            raise SystemExit(
+                "--model runs the standard Model orchestration; "
+                "--rectangular drives the flow-based ModelRectangular "
+                "demo — use --mesh=LxC for sharded IR runs")
+        if (args.rate != 0.1 or args.source != "19,3"
+                or args.value != 2.2):
+            raise SystemExit(
+                "--rate/--source/--value configure hand-built flows; a "
+                "registry model's coefficients are its term rates "
+                "(registry defaults) — drop them or use --flow")
+        if args.blob is not None:
+            raise SystemExit(
+                "--blob fills the flow scenarios' channel; a registry "
+                "model starts from its own seeded space")
+        nonlinear = args.model != "diffusion"
+        if nonlinear and args.impl in ("pallas", "active_fused"):
+            raise SystemExit(
+                f"--impl={args.impl} is a linear-stencil kernel; "
+                f"--model={args.model} has nonlinear/coupled terms. "
+                "Eligible: --impl=xla/auto (dense lowering), composed "
+                "(k forced to 1, warns), active (term-derived activity "
+                "predicate)")
+        if nonlinear and args.ensemble_impl in ("pipeline", "active",
+                                                "active_fused"):
+            raise SystemExit(
+                f"--ensemble-impl={args.ensemble_impl} batches "
+                "all-Diffusion lanes; nonlinear IR models run the "
+                "batched general lowering — use --ensemble-impl=xla")
+        if nonlinear and sharded and args.impl not in ("xla", "auto"):
+            raise SystemExit(
+                f"--impl={args.impl} is a linear-stencil engine on a "
+                f"mesh; --model={args.model}'s nonlinear terms run the "
+                "sharded general lowering — use --impl=xla/auto")
+        if args.impl == "composed" and args.substeps > 1 and nonlinear:
+            # allowed (the warning is the contract), but said up front
+            print("note: nonlinear terms do not compose; "
+                  "--impl=composed will run k=1 iterated passes",
+                  file=sys.stderr)
+    elif args.flow is None:
+        args.flow = "exponencial"
 
 
 def _refuse_unported(flag: str, what: str) -> None:
@@ -441,7 +506,8 @@ def run_ensemble_cli(args, space, model) -> int:
     launched = sum(v - before[k] for k, v in kernel_launches().items())
     st = svc.stats()
     thresh = model.conservation_threshold(space)
-    err = max(rep.conservation_error() for _, rep in outs)
+    # IR models are judged on their budget-reconciled view
+    err = max(model.report_conservation_error(rep) for _, rep in outs)
     conserved = bool(err <= thresh)
     initial = {k: sum(rep.initial_total[k] for _, rep in outs)
                for k in outs[0][1].initial_total}
@@ -543,24 +609,16 @@ def run_serve_cli(args, space, model) -> int:
     return 0 if rep["ledger_complete"] else 1
 
 
-def cmd_run(args) -> int:
-    check_ensemble_flags(args)
-    sharded = check_sharded_flags(args)
-    check_serve_flags(args, sharded)
-    check_checkpoint_flags(args)
-    chaos_plan = parse_chaos(args)
-    if args.flow == "coupled" and args.channels < 2:
-        raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
-                         "has nothing to modulate — use --flow=diffusion)")
-    if args.channels != 2 and args.flow != "coupled":
-        raise SystemExit("--channels applies to --flow=coupled")
-    if args.blob is not None and args.flow == "coupled":
-        raise SystemExit("--blob fills the single channel of "
-                         "--flow=diffusion|exponencial")
-    if args.compute_dtype is not None and args.impl == "xla":
-        raise SystemExit(
-            "--compute-dtype tunes the Pallas kernels' interior math; "
-            "--impl=xla never runs them (use --impl=pallas or auto)")
+def build_scenario(args):
+    """The run's space and model: a registered IR model with its seeded
+    space (``--model``), or the flow scenario's (``--flow``)."""
+    if args.model is not None:
+        from .ir import build_model
+
+        model, space = build_model(
+            args.model, args.dimx, args.dimy, dtype=args.dtype,
+            device=args.device, time=args.time, time_step=args.time_step)
+        return space, model
     flow, init = build_flows(args)
     space = CellularSpace.create(args.dimx, args.dimy, init,
                                  dtype=args.dtype, device=args.device)
@@ -577,6 +635,29 @@ def cmd_run(args) -> int:
                                  compute_dtype=args.compute_dtype)
     else:
         model = Model(flow, args.time, args.time_step)
+    return space, model
+
+
+def cmd_run(args) -> int:
+    check_ensemble_flags(args)
+    sharded = check_sharded_flags(args)
+    check_serve_flags(args, sharded)
+    check_checkpoint_flags(args)
+    check_model_flags(args, sharded)
+    chaos_plan = parse_chaos(args)
+    if args.flow == "coupled" and args.channels < 2:
+        raise SystemExit("--flow=coupled needs --channels >= 2 (one channel "
+                         "has nothing to modulate — use --flow=diffusion)")
+    if args.channels != 2 and args.flow != "coupled":
+        raise SystemExit("--channels applies to --flow=coupled")
+    if args.blob is not None and args.flow == "coupled":
+        raise SystemExit("--blob fills the single channel of "
+                         "--flow=diffusion|exponencial")
+    if args.compute_dtype is not None and args.impl == "xla":
+        raise SystemExit(
+            "--compute-dtype tunes the Pallas kernels' interior math; "
+            "--impl=xla never runs them (use --impl=pallas or auto)")
+    space, model = build_scenario(args)
     if args.serve:
         return run_serve_cli(args, space, model)
     if args.ensemble is not None:
@@ -598,7 +679,7 @@ def cmd_run(args) -> int:
                                 check_conservation=False)
     wall = time.perf_counter() - t0
     launched = sum(_launches_since(before).values())
-    err = report.conservation_error()
+    err = model.report_conservation_error(report)
     thresh = model.conservation_threshold(
         space, initial_totals=report.initial_total)
     write_dumps(args, model, out, report.comm_size)
@@ -735,7 +816,7 @@ def run_supervised_cli(args, space, model, executor, sharded: bool,
               else f"FAILED after {len(events)} failure(s): {failure}")
         return 1
     final = {k: float(out.total(k)) for k in out.values}
-    err = max(abs(final[k] - initial[k]) for k in initial)
+    err = model.conservation_error(initial, final)
     thresh = model.conservation_threshold(space, initial_totals=initial)
     row.update(initial=initial, final=final, conservation_error=err,
                conserved=bool(err <= thresh))
@@ -771,8 +852,20 @@ def main(argv: Optional[list[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     run = sub.add_parser("run", help="run a simulation (reference scenario "
                          "by default)")
-    run.add_argument("--flow", default="exponencial",
-                     choices=("exponencial", "diffusion", "coupled"))
+    run.add_argument("--flow", default=None,
+                     choices=("exponencial", "diffusion", "coupled"),
+                     help="hand-built flow scenario (default: the "
+                     "reference's exponencial run); mutually exclusive "
+                     "with --model")
+    run.add_argument("--model", default=None,
+                     choices=("diffusion", "gray_scott", "sir",
+                              "predator_prey"),
+                     help="run a registered Flow IR model: declarative "
+                     "terms lowered once for every engine ('gray_scott' "
+                     "reaction-diffusion, 'sir' contagion, "
+                     "'predator_prey' Lotka-Volterra, or the linear "
+                     "'diffusion', bit for bit --flow=diffusion's "
+                     "physics)")
     run.add_argument("--channels", type=int, default=2,
                      help="channel count for --flow=coupled (a chain of N "
                      "diffusing channels, each but the last shedding "

@@ -48,8 +48,17 @@ of ``mpi_model_tpu/ensemble/batch.py``).
   impls take the knob as the JAX package does (the active engines' dense
   fallback is K1 at one step, where it changes nothing).
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``, IR
-models.
+- Flow IR models (``ir.FlowIRModel``): a linear model rides every path
+  above through its ``Diffusion`` flows view (it even batches with the
+  equivalent flow-built model). A nonlinear one batches on its term
+  structure; its term rates travel as ``[B, T]`` lanes (``[B, 1, 1]``
+  tensors) into the same registered lowering the serial dense step runs
+  (``ir.lower.dense_apply``), so each lane is bit for bit its serial run;
+  zero-rate padding lanes are no-ops. Its lanes are checked through
+  ``conservation_view``, a violation naming the term. ``"pipeline"``,
+  ``"active"`` and ``"active_fused"`` refuse it, as the JAX package's do.
+
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``.
 """
 
 from __future__ import annotations
@@ -161,13 +170,27 @@ class EnsembleSpace:
 
 # -- structure vs parameters -------------------------------------------------
 
+def _ir_nonlinear(model) -> bool:
+    """True for a FlowIRModel whose terms need the general IR lowering
+    (nonlinear, coupled or source/sink physics). Linear IR models present
+    an exact ``Diffusion`` flows view and take every flow-based path."""
+    return (getattr(model, "ir_terms", None) is not None
+            and not model.ir_linear)
+
+
 def structure_key(model, space) -> tuple:
     """Hashable batch-compatibility key: everything two (model, space) pairs
     must share to ride one runner: flow structure (types, attrs, sources,
     modulators, frozen-ness), offsets, grid geometry, per-channel dtypes and
     the device. Numeric parameters (``flow_rate``, the frozen snapshot's
     value) are excluded. ``space`` is a ``CellularSpace`` or an
-    ``EnsembleSpace``."""
+    ``EnsembleSpace``. Nonlinear IR models key on their term structure
+    (rates excluded: each term's rate is its parameter lane)."""
+    if _ir_nonlinear(model):
+        chans = tuple(sorted((k, str(v.dtype))
+                             for k, v in space.values.items()))
+        return (("__ir__",) + model.term_structure(),
+                (space.dim_x, space.dim_y), chans, str(space.device))
     flows = []
     for f in model.flows:
         name, items = f.fingerprint()
@@ -187,8 +210,16 @@ def structure_key(model, space) -> tuple:
 
 def flow_params(models: Sequence) -> tuple[np.ndarray, np.ndarray]:
     """Per-scenario flow parameters as ``[B, F]`` float64 host arrays:
-    rates, and frozen snapshot values (0.0 filler for flows without one)."""
+    rates, and frozen snapshot values (0.0 filler for flows without one).
+    For nonlinear IR models the rate lanes are the per-term rates (frozens
+    stay zero filler)."""
     B = len(models)
+    if B and _ir_nonlinear(models[0]):
+        T = len(models[0].ir_terms)
+        rates = np.zeros((B, T), np.float64)
+        for b, m in enumerate(models):
+            rates[b] = m.term_rates()
+        return rates, np.zeros((B, T), np.float64)
     F = len(models[0].flows) if B else 0
     rates = np.zeros((B, F), np.float64)
     frozens = np.zeros((B, F), np.float64)
@@ -226,7 +257,14 @@ def padding_scenarios(model, space: CellularSpace,
                       n: int) -> tuple[list[CellularSpace], list[Model]]:
     """``n`` zero scenarios structure-compatible with ``(model, space)``:
     all-zero channels and zero-rate flows. Padded lanes move nothing, total
-    nothing and are never checked or reported."""
+    nothing and are never checked or reported. A nonlinear IR model pads
+    with every term's rate at zero: each term contributes ``rate *
+    amount``, so that is a no-op for any term set."""
+    if _ir_nonlinear(model):
+        zvals = {k: torch.zeros_like(v) for k, v in space.values.items()}
+        zspace = CellularSpace(zvals, space.dim_x, space.dim_y)
+        zmodel = model.with_rates([0.0] * len(model.ir_terms))
+        return [zspace] * n, [zmodel] * n
     F = len(model.flows)
     zvals = {k: torch.zeros_like(v) for k, v in space.values.items()}
     zspace = CellularSpace(zvals, space.dim_x, space.dim_y)
@@ -263,7 +301,8 @@ class ScenarioStep:
     """The batched counterpart of ``Model.make_step``'s plain-op path for
     one ensemble geometry: ``step(values, lanes)`` advances every lane of
     ``[B, H, W]`` values one model step, term for term the serial step
-    (``build_outflow`` → ``transport`` on the summed outflows; point amounts
+    (plain Diffusions through ``ir.lower.dense_apply``, other field flows
+    ``build_outflow`` → ``transport`` on the summed outflows; point amounts
     read the pre-step values, then the point scatter). ``lanes(rates,
     frozens)`` turns the ``[B, F]`` host parameters into the per-lane
     tensors once per dispatch. Non-float flow channels are refused like
@@ -308,6 +347,18 @@ class ScenarioStep:
         self.scatters = {a: self._scatter_plan(pts)
                          for a, pts in by_attr.items()}
         self._counts: Optional[torch.Tensor] = None
+        # plain-Diffusion field flows run the Flow IR's registered
+        # lowering, as Model.make_step's plain path does
+        from ..ir.lower import StepMeta, diffusion_terms
+
+        self._field_idx = [i for i, f in enumerate(self.template)
+                           if not isinstance(f, PointFlow)]
+        self._ir_terms = diffusion_terms(
+            [self.template[i] for i in self._field_idx])
+        self._ir_meta = StepMeta(shape=self.shape, origin=(0, 0),
+                                 global_shape=self.shape, dtype=self.dtype,
+                                 offsets=self.offsets)
+        self._ir_cache: dict = {}
 
     def _scatter_plan(self, pts: list) -> _Scatter:
         h, w = self.shape
@@ -363,8 +414,7 @@ class ScenarioStep:
     def field_flows(self, lanes: dict) -> list:
         """The field flows with their rates replaced by the rate lanes (the
         point flows' parameters enter through ``amount``)."""
-        idx = [i for i, f in enumerate(self.template)
-               if not isinstance(f, PointFlow)]
+        idx = self._field_idx
         return _substituted([self.template[i] for i in idx],
                             [lanes["rates"][i] for i in idx], None)
 
@@ -379,14 +429,23 @@ class ScenarioStep:
         """One step. ``into`` (per written channel, a buffer that aliases
         none of ``values``) receives each written channel's result in place
         of a fresh tensor, with the same operations."""
-        field_flows = self.field_flows(lanes)
         new = dict(values)
-        for attr, o in build_outflow(field_flows, values, (0, 0)).items():
-            # a channel with point flows ends in the scatter's buffer
-            dst = (None if into is None or attr in self.scatters
-                   else into[attr])
-            new[attr] = transport(values[attr], o, self.counts(),
-                                  self.offsets, out=dst)
+        # a channel with point flows ends in the scatter's buffer
+        dsts = ({} if into is None else
+                {a: into[a] for a in self.written if a not in self.scatters})
+        if self._ir_terms is not None:
+            from ..ir.lower import dense_apply
+
+            new.update(dense_apply(
+                self._ir_terms, values,
+                [lanes["rates"][i] for i in self._field_idx], self._ir_meta,
+                self.counts(), self._ir_cache, out=dsts))
+        else:
+            field_flows = self.field_flows(lanes)
+            for attr, o in build_outflow(field_flows, values,
+                                         (0, 0)).items():
+                new[attr] = transport(values[attr], o, self.counts(),
+                                      self.offsets, out=dsts.get(attr))
         for attr, sc in self.scatters.items():
             # amounts read the PRE-step values (the serial discipline)
             amts = torch.stack([self.amount(p, values, lanes)
@@ -426,9 +485,65 @@ class ScenarioStep:
         return out
 
 
-def make_scenario_step(model, space) -> ScenarioStep:
+class IRScenarioStep:
+    """The batched step of a nonlinear IR model: the same registered
+    lowering the serial dense step runs (``ir.lower.dense_apply``) over
+    ``[B, H, W]`` channels, each term's rate a ``[B, 1, 1]`` lane in the
+    space dtype (rounded once on the host from f64, as the serial step
+    rounds its Python float), so one lane is bit for bit that scenario's
+    ``SerialExecutor("xla")`` run. ``ScenarioStep``'s interface."""
+
+    def __init__(self, model, space):
+        from ..ir import lower
+
+        model._validate_space(space)
+        self.terms = model.ir_terms
+        self.shape = (space.dim_x, space.dim_y)
+        self.device = space.device
+        self.dtype = space.dtype
+        self.meta = lower.StepMeta(shape=self.shape, origin=(0, 0),
+                                   global_shape=self.shape, dtype=self.dtype,
+                                   offsets=tuple(model.offsets))
+        self.written = tuple(lower.written_channels(self.terms))
+        self._cache: dict = {}
+        self._counts: Optional[torch.Tensor] = None
+
+    def lanes(self, rates: np.ndarray, frozens: np.ndarray) -> dict:
+        """``"rates"``: per term a ``[B, 1, 1]`` tensor in the space
+        dtype, copied to the device without a synchronization."""
+        B = rates.shape[0]
+        out = []
+        for i in range(len(self.terms)):
+            t = torch.from_numpy(np.ascontiguousarray(rates[:, i])).to(
+                self.dtype)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out.append(t.reshape(B, 1, 1))
+        return {"rates": out}
+
+    def __call__(self, values: Values, lanes: dict,
+                 into: Optional[Values] = None) -> Values:
+        """One step; ``into`` (per written channel, a buffer that aliases
+        none of ``values``) receives each written channel's result."""
+        from ..ir.lower import dense_apply
+
+        if self._counts is None:
+            self._counts = neighbor_counts(self.shape, self.meta.offsets,
+                                           (0, 0), self.shape, self.dtype,
+                                           self.device)
+        new = dense_apply(self.terms, values, lanes["rates"], self.meta,
+                          self._counts, self._cache)
+        if into is not None:
+            for k in self.written:
+                new[k] = into[k].copy_(new[k])
+        return new
+
+
+def make_scenario_step(model, space):
     """The batched plain-op step for ``space``'s geometry (see
-    ``ScenarioStep``)."""
+    ``ScenarioStep``; ``IRScenarioStep`` for a nonlinear IR model)."""
+    if _ir_nonlinear(model):
+        return IRScenarioStep(model, space)
     return ScenarioStep(model, space)
 
 
@@ -498,14 +613,34 @@ def conservation_violations(initial: dict[str, np.ndarray],
     return errs, [int(i) for i in bad]
 
 
+def _worst_violation_keys(initial: dict, final: dict) -> list[str]:
+    """Per lane, the key with the largest |Δ| (a non-finite one first):
+    what names the violating term in an IR model's message."""
+    ks = list(initial)
+    stack = np.abs(np.stack(
+        [np.asarray(final[k], np.float64)
+         - np.asarray(initial[k], np.float64) for k in ks], axis=0))
+    stack = np.where(np.isfinite(stack), stack, np.inf)
+    idx = np.argmax(stack, axis=0)
+    return [ks[int(j)] for j in np.atleast_1d(idx)]
+
+
 def _violation_error(errs: np.ndarray, thresholds: np.ndarray, i: int,
                      nbad: Optional[int] = None,
-                     count: Optional[int] = None
-                     ) -> EnsembleConservationError:
-    """The one place the per-lane violation message is built."""
+                     count: Optional[int] = None,
+                     key: Optional[str] = None,
+                     model=None) -> EnsembleConservationError:
+    """The one place the per-lane violation message is built. ``key``
+    (the lane's worst view key) and an IR model word it through
+    ``FlowIRModel.violation_message``, so a violated source or sink names
+    its term as the serial check does."""
     if not np.isfinite(errs[i]):
         msg = (f"non-finite state in scenario {i}: its channel totals "
                "are NaN/Inf (divergence or a poisoned lane)")
+    elif key is not None and hasattr(model, "violation_message"):
+        msg = (f"scenario {i}: "
+               + model.violation_message(key, float(errs[i]),
+                                         float(thresholds[i])))
     else:
         msg = (f"mass conservation violated in scenario {i}: |Δ| = "
                f"{errs[i]:.3e} > {thresholds[i]:.3e}")
@@ -651,6 +786,14 @@ class EnsembleExecutor:
                structure_key(model, espace))
         with self._cache_lock:
             fn = self._cache.get(key)
+            if fn is None and not model.flows:
+                # a nonlinear IR model has no flows: no outflow sums
+                def fn(values, rates, frozens):
+                    return torch.zeros((rates.shape[0], 0),
+                                       dtype=torch.float64,
+                                       device=espace.device)
+
+                self._cache[key] = fn
             if fn is None:
                 step = make_scenario_step(model, espace)
                 points = {p.index: p for p in step.points}
@@ -1082,22 +1225,38 @@ def complete_ensemble(inflight: EnsembleInFlight, *,
     initial = _host(totals["initial"])
     final = _host(totals["final"])
     last_exec = totals["last"].numpy()
+    # IR models are checked on their conservation view (summed mass minus
+    # the integrated budgets, and the per-term contract keys), flow models
+    # on the per-channel totals
+    viewfn = getattr(model, "conservation_view", None)
+    vinitial = viewfn(initial) if viewfn is not None else initial
+    vfinal = viewfn(final) if viewfn is not None else final
     bad: list[int] = []
     errs = thresholds = None
+    wkeys: Optional[list[str]] = None
     if check_conservation:
         thresholds = conservation_thresholds(
-            initial, espace.shape, espace.dtype, tolerance, rtol)
-        errs, bad = conservation_violations(initial, final, thresholds,
+            vinitial, espace.shape, espace.dtype, tolerance, rtol)
+        if viewfn is not None and "mass" in vinitial:
+            # the reconciliation sums every channel and budget reduction:
+            # each gets its own rounding share (the serial check's rule)
+            thresholds = thresholds * max(len(initial), 1)
+        errs, bad = conservation_violations(vinitial, vfinal, thresholds,
                                             count)
-        if bad and on_violation == "raise":
-            raise _violation_error(errs, thresholds, bad[0], len(bad), count)
+        if bad:
+            wkeys = _worst_violation_keys(vinitial, vfinal)
+            if on_violation == "raise":
+                raise _violation_error(errs, thresholds, bad[0], len(bad),
+                                       count, key=wkeys[bad[0]], model=model)
 
     out_es = dataclasses.replace(espace, values=dict(out))
     results: list = []
     badset = set(bad)
     for i in range(count):
         if i in badset:
-            e = _violation_error(errs, thresholds, i)
+            e = _violation_error(errs, thresholds, i,
+                                 key=wkeys[i] if wkeys else None,
+                                 model=model)
             # the batch's wall rides the error too, so serving counters stay
             # honest even when every lane violated
             e.wall_time_s = wall

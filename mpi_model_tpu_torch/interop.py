@@ -16,6 +16,10 @@ State crosses as numpy arrays and plain dicts:
   ``exchange_ring`` output or ``oracle.ring_from_global_np``'s, as numpy
   arrays) as the dict of tensors the halo kernels take, so both packages
   step the same ring.
+- ``ir_model_from_structure``: a Flow IR model from the JAX package's
+  ``FlowIRModel.term_structure()`` and ``term_rates()`` (plain tuples, the
+  expressions as ``fingerprint`` trees); its ``term_structure()`` equals
+  the one it was built from.
 """
 
 from __future__ import annotations
@@ -124,3 +128,43 @@ def ensemble_from_numpy(values_per_lane: Sequence[dict[str, np.ndarray]],
     spaces = [space_from_numpy(v, device=device) for v in values_per_lane]
     models = [Model(flows_from_specs(specs)) for specs in flow_specs_per_lane]
     return EnsembleSpace.stack(spaces), models
+
+
+def ir_model_from_structure(term_structure, rates: Sequence[float],
+                            offsets=None, time: float = 1.0,
+                            time_step: float = 1.0,
+                            active_opts: Optional[dict] = None):
+    """The port's ``FlowIRModel`` from a ``term_structure()`` pair (the
+    terms' ``structure()`` tuples, then the offsets) and the per-term
+    ``rates``. ``offsets`` overrides the pair's. Each structure is
+    ``("Transport", name, channel, weights)``, ``("Transfer", name, src,
+    dst, expr)``, ``("Source", name, channel, expr)`` or ``("Sink", name,
+    channel, expr)``, an expression as ``ir.expr.fingerprint`` gives it."""
+    from .ir import FlowIRModel, Sink, Source, Transfer, Transport
+    from .ir.expr import from_fingerprint
+
+    structures, pair_offsets = term_structure
+    structures = tuple(structures)
+    if len(rates) != len(structures):
+        raise ValueError(f"{len(rates)} rates for {len(structures)} terms")
+    terms = []
+    for st, rate in zip(structures, rates):
+        kind, name = st[0], st[1]
+        if kind == "Transport":
+            terms.append(Transport(st[2], rate=rate, weights=st[3],
+                                   name=name))
+        elif kind == "Transfer":
+            terms.append(Transfer(st[2], st[3], from_fingerprint(st[4]),
+                                  rate=rate, name=name))
+        elif kind in ("Source", "Sink"):
+            cls = Source if kind == "Source" else Sink
+            terms.append(cls(st[2], from_fingerprint(st[3]), rate=rate,
+                             name=name))
+        else:
+            raise ValueError(f"unknown term kind {kind!r}; expected "
+                             "Transport, Transfer, Source or Sink")
+    offsets = pair_offsets if offsets is None else offsets
+    return FlowIRModel(terms, time, time_step,
+                       offsets=tuple(tuple(int(v) for v in o)
+                                     for o in offsets),
+                       active_opts=active_opts)

@@ -21,7 +21,13 @@
   call) when the space is on the card, f32/bf16 and not a partition, else
   the plain transport. (The JAX package probes its kernel and catches a
   failure.)
-- ``Model.execute`` checks mass conservation and returns a ``Report``;
+- The plain path's dense transport of ``Diffusion`` flows (one per
+  channel), on every impl and in the ensemble's ``ScenarioStep``, is the
+  Flow IR's registered lowering (``ir.lower.dense_apply``), as in the JAX
+  package.
+- ``Model.execute`` checks mass conservation (``_raise_if_violated``, which
+  ``ir.FlowIRModel`` overrides with its budget reconciliation) and returns
+  a ``Report``;
   ``Model.execute_many`` runs a batch of scenarios through the ensemble
   engine (``ensemble.batch``).
 """
@@ -222,6 +228,13 @@ class SerialExecutor:
         steps = [s for s in (stepk, step1) if s is not None]
         step_any = steps[0] if steps else None
         self.last_impl = step_any.impl if step_any is not None else None
+        # a nonlinear IR model's active steps count their calls, dense
+        # steps and active tiles (one dict per distinct step)
+        stats = list({id(d): d for d in (getattr(s, "stats", None)
+                                         for s in steps) if d}.values())
+        before_stats = {k: sum(d[k] for d in stats)
+                        for k in ("calls", "fallback_steps",
+                                  "active_tiles")}
         before = kernel_launches()
         on_card = space.device.type == "cuda"
         # K1 and K4 paths: two preallocated buffers per channel the kernel
@@ -232,6 +245,12 @@ class SerialExecutor:
         bufs = ({a: (torch.empty_like(values[a]), torch.empty_like(values[a]))
                  for a in kernel_attrs} if on_card else {})
         for step, count in ((stepk, q), (step1, r)):
+            # a step with a whole-run form (a nonlinear IR model's active
+            # step) owns its buffers across the run
+            run = getattr(step, "run", None)
+            if run is not None:
+                values = run(values, count)
+                continue
             for _ in range(count if step is not None else 0):
                 out = {a: (b[0] if values[a] is not b[0] else b[1])
                        for a, b in bufs.items()}
@@ -255,10 +274,12 @@ class SerialExecutor:
             }
         elif step_any.impl == "composed":
             # the chosen k and the remainder chunk's depth, so a composed
-            # run that degenerated to k=1 is observable
+            # run that degenerated to k=1 is observable (a nonlinear IR
+            # model's composed step runs no kernel: form None)
             self.last_backend_report = {
                 "impl": "composed",
-                "kernel": "K3 composed_stencil",
+                "kernel": ("K3 composed_stencil"
+                           if step_any.form is not None else None),
                 "substeps": self.substeps,
                 "composed_k": step_any.composed_k,
                 "composed_passes_per_call": step_any.composed_passes,
@@ -270,6 +291,27 @@ class SerialExecutor:
                 "variant": step_any.variant,
                 "form": step_any.form,
                 "launches": ran["composed_stencil"],
+            }
+        elif step_any.impl == "active" and stats:
+            # a nonlinear IR model's active step: its counters over this run
+            ran_stats = {k: sum(d[k] for d in stats) - before_stats[k]
+                         for k in before_stats}
+            plan = step_any.plan
+            self.last_backend_report = {
+                "impl": "active",
+                "steps": int(num_steps),
+                "fallback_steps": ran_stats["fallback_steps"],
+                "tile": list(plan.tile),
+                "tiles": plan.ntiles,
+                "capacity": plan.capacity,
+                "fallback_tiles": plan.fallback_tiles,
+                "mean_active_fraction": (
+                    ran_stats["active_tiles"] / (ran_stats["calls"]
+                                                 * plan.ntiles)
+                    if ran_stats["calls"] else None),
+                "host_syncs": ran_stats["calls"],
+                "kernel_launches": ran,
+                "launches": sum(ran.values()),
             }
         elif step_any.impl == "active_fused":
             # the stateless fused form (point-flow compositions land here)
@@ -714,6 +756,22 @@ class Model:
                     shape, offsets, origin, gshape, space.dtype, device))
             return counts_cache[0]
 
+        # the dense transport of plain-Diffusion field flows, on every impl
+        # that takes the plain path, is the Flow IR's one registered
+        # lowering: they become IR Transport terms and the step runs
+        # ir.lower.dense_apply (the JAX package's models/model.py:867-930).
+        # Flows the IR cannot represent exactly (user flows, several
+        # Diffusions on one channel) keep the summed-outflow path.
+        dense_ir = None
+        ir_cache: dict = {}
+        if field_flows:
+            from ..ir.lower import StepMeta, diffusion_terms
+
+            dense_ir = diffusion_terms(field_flows)
+            dense_ir_meta = StepMeta(shape=shape, origin=origin,
+                                     global_shape=gshape, dtype=space.dtype,
+                                     offsets=offsets)
+
         def single(values: Values, out: Optional[Values] = None) -> Values:
             new = dict(values)
             if field_stepper is not None:
@@ -734,6 +792,12 @@ class Model:
                 for attr, stepper in steppers.items():
                     new[attr] = stepper(values[attr],
                                         out=(out or {}).get(attr))
+            elif dense_ir is not None:
+                from ..ir.lower import dense_apply
+
+                new.update(dense_apply(dense_ir, values,
+                                       [t.rate for t in dense_ir],
+                                       dense_ir_meta, counts(), ir_cache))
             elif field_flows:
                 for attr, o in build_outflow(field_flows, values,
                                              origin).items():
@@ -783,6 +847,20 @@ class Model:
         scale = max(abs(t) for t in initial_totals.values())
         return tolerance + rtol * scale
 
+    def conservation_error(self, initial: dict, final: dict) -> float:
+        """Largest |Δ| between two sets of channel totals over what the
+        model's conservation contract holds constant: the per-channel
+        totals here (``ir.FlowIRModel`` judges its budget-reconciled
+        view)."""
+        return max(abs(float(final[k]) - float(initial[k]))
+                   for k in initial)
+
+    def report_conservation_error(self, report: Report) -> float:
+        """``conservation_error`` of a run's report (what the CLI
+        judges)."""
+        return self.conservation_error(report.initial_total,
+                                       report.final_total)
+
     def execute(
         self,
         space: CellularSpace,
@@ -823,15 +901,23 @@ class Model:
             impl=getattr(executor, "last_impl", None),
         )
         if check_conservation and not space.is_partition:
-            thresh = self.conservation_threshold(space, tolerance, rtol,
-                                                 initial_totals=initial)
-            err = max(abs(final[k] - initial[k]) for k in initial)
-            if err > thresh:
-                raise ConservationError(
-                    f"mass conservation violated: |Δ| = "
-                    f"{err:.3e} > {thresh:.3e} "
-                    f"(initial={initial}, final={final})")
+            self._raise_if_violated(space, initial, final, tolerance, rtol)
         return out_space, report
+
+    def _raise_if_violated(self, space: CellularSpace, initial: dict,
+                           final: dict, tolerance: float,
+                           rtol: Optional[float]) -> None:
+        """The conservation check, as a method a subclass overrides: the
+        per-channel |Δtotal| contract here; ``ir.FlowIRModel`` replaces it
+        with per-term budget reconciliation (violations name the term)."""
+        thresh = self.conservation_threshold(space, tolerance, rtol,
+                                             initial_totals=initial)
+        err = max(abs(final[k] - initial[k]) for k in initial)
+        if err > thresh:
+            raise ConservationError(
+                f"mass conservation violated: |Δ| = "
+                f"{err:.3e} > {thresh:.3e} "
+                f"(initial={initial}, final={final})")
 
     def execute_many(
         self,

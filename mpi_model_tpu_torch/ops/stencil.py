@@ -3,6 +3,9 @@
 
 - ``transport``: every cell sheds ``outflow[c]`` and splits it equally among
   its in-bounds neighbors; zero-padded shifts are the non-periodic boundary.
+- ``neighbor_counts`` / ``weighted_counts``: the divisors, computed on the
+  device from ``arange`` (the weighted one for the IR's weighted
+  ``Transport``).
 - ``point_flow_step``: the sparse path for point sources, one
   ``index_put_(..., accumulate=True)`` per offset in ``MOORE_OFFSETS``
   order. Out-of-bounds neighbors are dropped outright with a boolean mask.
@@ -60,6 +63,40 @@ def neighbor_counts(
         ok = ((rows + dx >= 0) & (rows + dx < gx)
               & (cols + dy >= 0) & (cols + dy < gy))
         c = ok.to(dtype)
+        cnt = c if cnt is None else cnt + c
+    return cnt
+
+
+def weighted_counts(
+    shape: tuple[int, int],
+    offsets: Sequence[tuple[int, int]],
+    weights: Sequence[float],
+    origin: tuple[int, int] = (0, 0),
+    global_shape: tuple[int, int] = None,
+    dtype=torch.float32,
+    device=None,
+    *,
+    rows: Optional[torch.Tensor] = None,
+    cols: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Per-cell sum of the in-bounds taps' weights (counterpart of
+    ``weighted_counts_traced``): the divisor of the weighted ``Transport``
+    term (``ir.terms.Transport(weights=...)``). With unit weights it equals
+    ``neighbor_counts``. The cells are the ``shape`` block at ``origin``,
+    or, where ``rows`` (``[..., h, 1]``) and ``cols`` (``[..., 1, w]``)
+    give their global coordinates, the cells those index (the active
+    engine's windows)."""
+    h, w = shape
+    gx, gy = global_shape if global_shape is not None else (h, w)
+    if rows is None:
+        x0, y0 = origin
+        rows = x0 + torch.arange(h, device=device)[:, None]
+        cols = y0 + torch.arange(w, device=device)[None, :]
+    cnt = None
+    for wt, (dx, dy) in zip(weights, offsets):
+        ok = ((rows + dx >= 0) & (rows + dx < gx)
+              & (cols + dy >= 0) & (cols + dy < gy))
+        c = ok.to(dtype) * torch.tensor(wt, dtype=dtype, device=ok.device)
         cnt = c if cnt is None else cnt + c
     return cnt
 

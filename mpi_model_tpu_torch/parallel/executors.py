@@ -56,11 +56,18 @@ All-frozen-point models at ``halo_depth == 1`` under ``xla``, ``auto``,
 ``run_model`` takes the global space and returns global tensors, assembled
 once per call on the mesh's first device (one grid copy per run).
 
+Nonlinear Flow IR models (``ir.FlowIRModel``; linear ones take the paths
+above through their ``Diffusion`` flows view) run ``_build_ir_runner`` under
+``"xla"`` or ``"auto"`` at ``halo_depth == max(1, max_footprint)``: one
+ring-1 value exchange a step of the channels some ring-1 term reads
+(``pad_with_halo_1d/2d``), then the registered lowering in its padded
+context (``ir.lower.padded_apply``) with the partition mask and the global
+counts, so every shard computes its serial run's values bit for bit.
+
 Chaos seam (``resilience.inject``): ``run_model`` fires the executor
 faults: ``exc`` raises, ``nan`` poisons the chunk's output, ``halo``
-perturbs every ghost ring the chunk exchanges (``parallel.halo``).
-
-Not ported yet (ROADMAP.md): Flow IR models.
+perturbs every ghost ring the chunk exchanges (``parallel.halo``; the IR
+runner's exchange too).
 """
 
 from __future__ import annotations
@@ -72,7 +79,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cellular_space import CellularSpace
-from ..models.model import _launches_since, _not_ported, kernel_launches
+from ..models.model import _launches_since, kernel_launches
 from ..ops.composed_stencil import composed_halo_step, resolve_form
 from ..ops.field_stencil import FieldPlanError, PallasFieldStep
 from ..ops import active as act
@@ -242,23 +249,29 @@ class ShardMapExecutor:
                    num_steps: int) -> Values:
         shard_bounds(space, self.mesh)  # the divisibility rule, first
         self.last_backend_report = None
-        if getattr(model, "ir_terms", None) is not None:
-            raise _not_ported("sharded Flow IR models")
-        # the step count is not part of the key: a runner serves any count
+        ir = (getattr(model, "ir_terms", None) is not None
+              and not model.ir_linear)
+        if ir:
+            self._check_ir(model, space)
+        # the step count is not part of the key: a runner serves any count;
+        # a nonlinear IR model has no flows, and its runner holds its term
+        # rates, so the terms' fingerprints are part of the key
         key = (space.shape, space.global_shape,
                (space.x_init, space.y_init), str(space.dtype),
                tuple((k, str(v.dtype)) for k, v in space.values.items()),
-               model.offsets, tuple(f.fingerprint() for f in model.flows))
+               model.offsets, tuple(f.fingerprint() for f in model.flows),
+               model._term_fingerprints() if ir else None)
         entry = self._cache.get(key)
         if entry is None:
-            entry = self._build(model, space)
+            entry = (("ir", self._build_ir_runner(model, space)) if ir
+                     else self._build(model, space))
             self._cache[key] = entry
         plan_kind, runner = entry
         shards = shard_space(space, self.mesh)
         before = kernel_launches()
         out = runner(shards, int(num_steps))
         ran = _launches_since(before)
-        self.last_impl = ("xla" if plan_kind is None else
+        self.last_impl = ("xla" if plan_kind in (None, "ir") else
                           "pallas" if plan_kind in ("diffusion", "field")
                           else plan_kind)
         if plan_kind in ("active", "active_fused"):
@@ -328,8 +341,9 @@ class ShardMapExecutor:
                                form: Optional[str] = None) -> None:
         """The kernel paths' record: the kernel, the depth, the chunks and
         the launches of this run; ``"composed"`` also carries the JAX
-        package's composed keys. The xla and point steps record nothing."""
-        if plan_kind in (None, "point"):
+        package's composed keys. The xla, point and IR steps record
+        nothing."""
+        if plan_kind in (None, "point", "ir"):
             return
         d = self.halo_depth
         name, counter = {
@@ -801,6 +815,91 @@ class ShardMapExecutor:
             for ns in [D] * q + ([r] if r else []):
                 out = chunk(out, ns)
             return out
+
+        return run
+
+    def _check_ir(self, model, space: CellularSpace) -> None:
+        """The JAX package's refusals for a nonlinear IR model: the
+        general lowering runs under ``"xla"``/``"auto"`` only, at the halo
+        depth its largest term footprint needs."""
+        from ..ir.lower import max_footprint
+
+        if self.step_impl not in ("xla", "auto"):
+            raise ValueError(
+                f"step_impl={self.step_impl!r} is a linear-stencil "
+                "engine; this model's nonlinear IR terms "
+                f"({[t.name for t in model.ir_terms]}) run the "
+                "general lowering — use step_impl='xla'/'auto'.")
+        need = max(1, max_footprint(model.ir_terms))
+        if self.halo_depth != need:
+            raise ValueError(
+                f"this model's terms read a footprint-"
+                f"{max_footprint(model.ir_terms)} stencil: the "
+                f"required halo depth is {need}, got halo_depth="
+                f"{self.halo_depth} (nonlinear terms do not compose "
+                "into deep-halo chunks — the tap table is a linear "
+                "object)")
+        model._validate_space(space)
+
+    def _build_ir_runner(self, model, space: CellularSpace):
+        """Per-shard runner of a nonlinear IR model: one ring-1 value
+        exchange a step for the channels some ring-1 term reads (budget and
+        pointwise channels never move), then the registered lowering in
+        its padded context (``ir.lower.padded_apply``). A ghost cell's
+        outflow and share are recomputed here from the same operands by the
+        same expression its owning shard uses, and ghost cells beyond the
+        partition are masked to zero, so the result is the serial step's
+        bit for bit."""
+        from ..ir.lower import StepMeta, padded_apply
+
+        lines, columns, lh, lw, one_d = self._geometry(space)
+        terms = model.ir_terms
+        rates = model.term_rates()
+        offsets = tuple(model.offsets)
+        gshape = space.global_shape
+        dtype = space.dtype
+        x0, y0 = space.x_init, space.y_init
+        origins = self._origins(space, lh, lw)
+        cells = [(i, j) for i in range(lines) for j in range(columns)]
+        ring_chs = sorted(set().union(
+            *(t.reads() for t in terms if t.footprint >= 1)))
+        metas, masks, counts, caches = {}, {}, {}, {}
+        for i, j in cells:
+            dev = self.mesh.device(i, j)
+            r0, c0 = origins[i][j]
+            metas[i, j] = StepMeta(shape=(lh, lw), origin=(r0, c0),
+                                   global_shape=gshape, dtype=dtype,
+                                   offsets=offsets)
+            # the partition's bounds over the padded shard (ghost cells
+            # beyond it shed nothing: the serial zero padding), and the
+            # padded shard's global neighbour counts, clamped
+            rowg = (r0 - 1) + torch.arange(lh + 2, device=dev)
+            colg = (c0 - 1) + torch.arange(lw + 2, device=dev)
+            masks[i, j] = (((rowg >= x0) & (rowg < x0 + space.dim_x))[:, None]
+                           & ((colg >= y0) & (colg < y0 + space.dim_y))[None])
+            counts[i, j] = torch.clamp(neighbor_counts(
+                (lh + 2, lw + 2), offsets, (r0 - 1, c0 - 1), gshape, dtype,
+                dev), min=1)
+            caches[i, j] = {}
+
+        def step(c: Shards) -> Shards:
+            # every ring from the pre-step values, before any shard steps
+            padded = {k: {(i, j): self._pad(c[k], i, j, 1, one_d)
+                          for i, j in cells} for k in ring_chs}
+            new = {k: [[None] * columns for _ in range(lines)] for k in c}
+            for i, j in cells:
+                out = padded_apply(
+                    terms, {k: g[i][j] for k, g in c.items()},
+                    {k: p[i, j] for k, p in padded.items()}, rates,
+                    metas[i, j], counts[i, j], masks[i, j], caches[i, j])
+                for k in c:
+                    new[k][i][j] = out[k]
+            return new
+
+        def run(shards: Shards, n: int) -> Shards:
+            for _ in range(n):
+                shards = step(shards)
+            return shards
 
         return run
 

@@ -18,7 +18,10 @@ once per call; -0.0 cells included), except flows using exp: CUDA's expf
 and torch's exp may differ by an ulp, so those are held to
 ``8·eps·nsteps·max|v|``.
 K5 is held bit for bit (f32 math in the plain version's order, no FMA
-contraction, rounded once per call). K6's and K5's launch geometry
+contraction, rounded once per call). The Flow IR's nonlinear terms run
+plain torch ops on the card, one kernel an operation: its active, composed
+and ensemble runs are held bit for bit to its ``xla`` run there, and a
+linear IR model to ``Model([Diffusion])`` on K1. K6's and K5's launch geometry
 (``launch_geometry``, ``window_rows``) is held to the library's."""
 
 import dataclasses
@@ -2107,3 +2110,69 @@ def test_migrate_k1_to_k2_and_back_on_the_card():
                                handoff_at=8, transfer_steps=4)
         assert torch.equal(res.space.values["value"], want.values["value"])
         assert 0 < res.delta_bytes < res.keyframe_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gray_scott", "sir", "predator_prey"])
+def test_ir_nonlinear_active_and_composed_match_xla_on_the_card(name):
+    """A nonlinear IR model's ``active`` (the gathered windows) and
+    ``composed`` (k = 1) runs on the card are its ``xla`` run on the card
+    bit for bit; SIR's active run skips tiles."""
+    import warnings
+
+    from mpi_model_tpu_torch.ir import library
+
+    dev = _card()
+    base, space = library.MODELS[name](512, dtype="float32", device=dev)
+    model = mt.FlowIRModel(base.ir_terms, base.time, base.time_step,
+                           active_opts={"tile": (32, 32),
+                                        "max_active_frac": 0.5})
+    want, _ = model.execute(space, mt.SerialExecutor("xla"), steps=16)
+    for impl, kw in (("active", {}), ("composed", {"substeps": 4})):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            got, rep = model.execute(space, mt.SerialExecutor(impl, **kw),
+                                     steps=16)
+        for k in want.values:
+            assert torch.equal(got.values[k], want.values[k]), (impl, k)
+        if impl == "active" and name == "sir":
+            assert rep.backend_report["fallback_steps"] < 16
+            assert rep.backend_report["mean_active_fraction"] < 0.5
+
+
+@pytest.mark.cuda
+def test_ir_linear_pallas_is_the_flow_model_on_the_card():
+    """The linear IR diffusion through ``"pallas"`` is K1 on its flows
+    view: bit for bit ``Model([Diffusion])``, with the same K1 launches."""
+    from mpi_model_tpu_torch.models.model import kernel_launches
+
+    dev = _card()
+    ir_m, space = mt.build_model("diffusion", 512, dtype="float32",
+                                 device=dev)
+    flow_m = mt.Model(mt.Diffusion(0.1), ir_m.time, ir_m.time_step)
+    runs = []
+    for m in (ir_m, flow_m):
+        before = kernel_launches()["fused_stencil"]
+        out, rep = m.execute(space, mt.SerialExecutor("pallas", substeps=8),
+                             steps=32)
+        runs.append((out.values["value"],
+                     kernel_launches()["fused_stencil"] - before, rep.impl))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1] == 4
+    assert runs[0][2] == runs[1][2] == "pallas"
+
+
+@pytest.mark.cuda
+def test_ir_ensemble_lane_is_its_serial_card_run():
+    """A nonlinear IR ensemble's lanes (per-lane rates) are each their
+    serial ``xla`` run on the card bit for bit."""
+    dev = _card()
+    model, space = mt.build_model("gray_scott", 256, dtype="float32",
+                                  device=dev)
+    models = [model,
+              model.with_rates([r * 1.05 for r in model.term_rates()])]
+    res = model.execute_many([space, space], models=models, steps=8)
+    for m, (sp, _) in zip(models, res):
+        want, _ = m.execute(space, mt.SerialExecutor("xla"), steps=8)
+        for k in want.values:
+            assert torch.equal(sp.values[k], want.values[k]), k

@@ -395,6 +395,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_model_tpu_torch/io/delta.py",
             "mpi_model_tpu_torch/resilience/supervisor.py",
             "mpi_model_tpu_torch/resilience/__init__.py"} <= rel
+    assert {f"mpi_model_tpu_torch/ir/{m}.py" for m in (
+        "__init__", "expr", "terms", "lower", "model", "library")} <= rel
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

@@ -560,12 +560,18 @@ def test_unported_parts_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="compute_dtype"):
         ShardMapExecutor(M(), "pallas", compute_dtype="float16")
 
-    class IRModel(mt.Model):
-        ir_terms = ()
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        IRModel(mt.Diffusion(0.1)).execute(tspace(_np((16, 32), 16)),
-                                           ShardMapExecutor(M()), steps=1)
+    # sharded Flow IR models are ported: a nonlinear one runs the general
+    # lowering, bit for bit its serial run; the linear-stencil impls
+    # refuse it, as the JAX package's do
+    ir_model, ir_space = mt.build_model("sir", 16, 32, dtype="float64",
+                                        device="cpu")
+    want, _ = ir_model.execute(ir_space, steps=2)
+    got, _ = ir_model.execute(ir_space, ShardMapExecutor(M()), steps=2)
+    assert all(torch.equal(got.values[k], want.values[k])
+               for k in want.values)
+    with pytest.raises(ValueError, match="linear-stencil"):
+        ir_model.execute(ir_space, ShardMapExecutor(M(), "composed"),
+                         steps=1)
     with pytest.raises(ValueError, match="unknown step impl"):
         ShardMapExecutor(M(), "gspmd")
     with pytest.raises(ValueError, match="halo_depth must be >= 1"):
