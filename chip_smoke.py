@@ -355,6 +355,42 @@ Phases (any failure exits non-zero, and no result line is printed):
    8192² on 2×2 ``ShardMapExecutor("xla")``, 16 steps, bit for bit the
    serial run; (e) the CLI's ``--model=gray_scott`` at 8192², 16 steps,
    ``conserved``. ``ir_phase_main`` runs this phase alone.
+6j. observability (``observability_phase``, in a process of its own,
+   ``observability_main``; it prints its seconds): (a) phase 4's K1 run
+   (16384², f32, substeps 8, 64 steps) under a ``Tracer``: bit for bit the
+   run under ``Tracer(enabled=False)``, with as many implicit host syncs
+   (``torch.cuda.set_sync_debug_mode("warn")``), spans ``model.execute`` ⊃
+   ``executor.run``, ``model.report`` as JAX nests them, and
+   ``tracing_overhead_frac`` (JAX's bench's: traced wall over untraced wall
+   less one, the median of three rounds in turns, four runs an arm a
+   round, after a round not kept) at most 0.02; ``chip_peaks()`` read
+   from the card within 2% of 3.35 TB/s and 67 TFLOP/s, and
+   ``stencil_roofline`` of K1's call, its bytes a call the bound's; (b) the same run under ``device_trace`` in a
+   process apart (``device_trace_count``): the K1 kernels in the written
+   Chrome trace equal the launches counted; (c) K2 on 2×2, depth 8: one
+   ``shardmap.build`` span for the one build, bit for bit the serial K1
+   run; (d) 16 × 4096² through ``AsyncEnsembleService`` (``pipeline``,
+   K5) under ``run_soak(snapshot_path=, status_port=0)``, each submit in a
+   span: every dispatch span parents under its submit context, every
+   snapshot written validates, a ``GET /metrics`` scrape after the last
+   result parses and its ``dispatches`` equals ``stats()``'s, the ledger is
+   complete; (e) a supervised K1 run (every 16) with an ``exc`` fault at
+   chunk 1: one ``supervise.failure`` instant, five ``supervise.chunk``
+   spans, bit for bit the uninterrupted run; (g) the CLI: ``run --trace``
+   at 16384² (the trace holds ``model.execute``), ``info --json``
+   (``chip_peaks``, ``native_library``), ``--serve --status`` (its snapshot
+   validates); (h) the native engine (``native.NativeExecutor``): the
+   reference scenario (50 steps, f64) against the port's plain path on the
+   card within 1e-10 and the oracle within 1e-12, and 1024²
+   ``Diffusion(0.1)`` f32, 64 steps, against K1 within
+   ``2·eps32·steps·max|v|``. Outside that process: (f) the build cache, a
+   fresh process (``compile_cache_probe``, started before phase 2, so its
+   nvcc runs beside the build) runs the CLI's K1 run with
+   ``--compile-cache`` on an empty directory and builds ``fused_stencil``
+   alone, and a second fresh process on that directory builds nothing
+   (``build_info[...]["cached"]``), each printing its build seconds; and a
+   finding, not a gate: (a)'s run profiled in this long process with and
+   without ``acc_events=True``, its K1 kernels against the launches.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -372,6 +408,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -4286,6 +4323,576 @@ def ir_phase_main() -> None:
     (out_dir / "chip_smoke_6i.json").write_text(json.dumps(out, indent=1))
 
 
+#: phase 6j's ensemble soak: 16 scenarios of N5² through the always-on
+#: service, a snapshot every OBS_SNAPSHOT_S seconds of it
+OBS_SCENARIOS = 16
+OBS_SNAPSHOT_S = 0.02
+#: phase 6j (h)'s native run: 1024² f32, 64 steps (the native engine runs
+#: on the host, so the grid is cut; the reference scenario is 100²)
+NATIVE_SIDE = 1024
+#: phase 6j (f)'s probe runs: the CLI's K1 run at this side
+CACHE_PROBE_SIDE = 1024
+
+
+def compile_cache_probe(cache_dir: str, *cli_args: str) -> None:
+    """Phase 6j (f)'s fresh process: the CLI's K1 run with
+    ``--compile-cache=<cache_dir>`` (``--impl=pallas --substeps=8``, 64 steps
+    of ``CACHE_PROBE_SIDE``², ``cli_args`` added), then one JSON line: its
+    row, every library the process built or loaded (``_build.build_info``:
+    seconds, cached) and its seconds."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.ops import _build
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--flow=diffusion",
+                       f"--dimx={CACHE_PROBE_SIDE}",
+                       f"--dimy={CACHE_PROBE_SIDE}", "--impl=pallas",
+                       "--substeps=8", f"--steps={STEPS}",
+                       f"--compile-cache={cache_dir}", "--json", *cli_args])
+    print(json.dumps({
+        "rc": rc, "row": json.loads(buf.getvalue().strip().splitlines()[-1]),
+        "build_dir": str(_build.BUILD_DIR),
+        "build": {k: {"seconds": v["seconds"], "cached": v["cached"],
+                      "library": v["library"]}
+                  for k, v in _build.build_info.items()},
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def k1_space(torch, mt, dev, side: int):
+    """Phase 4's grid: ``U(0.5, 2.0)`` f32 from ``SEED``, made on the
+    device."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return mt.CellularSpace({"value": 0.5 + 1.5 * torch.rand(
+        (side, side), generator=gen, device=dev)}, side, side)
+
+
+def device_trace_count(logdir: str, side: str) -> None:
+    """Phase 6j (b), in a process apart from the script's: (a)'s K1 run
+    (64 steps of ``side``², substeps 8) under ``Tracer.device_trace``, the
+    work between two spins of the device so the window holds all of it;
+    prints one JSON line: the K1 launches counted and the K1 kernels in the
+    Chrome trace written to ``logdir``."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.utils import Tracer, set_tracer
+
+    dev = torch.device("cuda")
+    space = k1_space(torch, mt, dev, int(side))
+    model = mt.Model(mt.Diffusion(0.1))
+    ex = mt.SerialExecutor("pallas", substeps=8)
+    model.execute(space, ex, steps=STEPS)  # build and warm
+    torch.cuda.synchronize()
+    tr = Tracer()
+    set_tracer(tr)
+    t0 = time.perf_counter()
+    before = fs.launches()
+    with tr.device_trace(logdir):
+        time.sleep(0.05)
+        torch.cuda._sleep(100_000_000)
+        model.execute(space, ex, steps=STEPS)
+        torch.cuda._sleep(100_000_000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    launched = fs.launches() - before
+    with open(Path(logdir) / "device_trace.pt.trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    k1 = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "fused_stencil" in e.get("name", ""):
+            k1[e["name"]] = k1.get(e["name"], 0) + 1
+    print(json.dumps({"launches": launched, "trace_kernels": k1,
+                      "spans": [s.name for s in tr.spans],
+                      "trace_s": time.perf_counter() - t0}), flush=True)
+
+
+def long_process_trace_counts(torch, mt, fs, dev) -> dict:
+    """A finding, not a gate: (a)'s K1 run profiled in the script's own
+    long process, with and without ``acc_events=True``; the K1 kernels
+    each trace holds against the launches counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    space = k1_space(torch, mt, dev, N)
+    model = mt.Model(mt.Diffusion(0.1))
+    ex = mt.SerialExecutor("pallas", substeps=8)
+    model.execute(space, ex, steps=STEPS)
+    out = {}
+    for acc in (False, True):
+        kw = {"acc_events": True} if acc else {}
+        torch.cuda.synchronize()
+        before = fs.launches()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA], **kw) as prof:
+                model.execute(space, ex, steps=STEPS)
+                torch.cuda.synchronize()
+        except TypeError as e:  # a torch without the argument
+            out[f"acc_events={acc}"] = {"error": str(e)}
+            continue
+        n = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+                and "fused_stencil" in e.name)
+        out[f"acc_events={acc}"] = {"launches": fs.launches() - before,
+                                    "trace_kernels": n}
+    del space
+    torch.cuda.empty_cache()
+    return out
+
+
+def observability_phase(np, torch, mt, dev, side=N, side5=N5,
+                        scenarios=OBS_SCENARIOS, steps=STEPS,
+                        native_side=NATIVE_SIDE, cli_args=()) -> dict:
+    """Phase 6j (a)-(e), (g), (h): the tracer, the roofline, the status
+    plane and the native engine on the card (see the module docstring).
+    ``check`` fails the run on any disagreement."""
+    import statistics as stats_
+    import urllib.request
+    import warnings
+
+    from mpi_model_tpu_torch import native, obs, oracle
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
+                                              buckets_for, run_soak)
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh_2d
+    from mpi_model_tpu_torch.resilience import inject, supervised_run
+    from mpi_model_tpu_torch.utils import (Tracer, chip_peaks, set_tracer,
+                                           stencil_roofline)
+
+    on_card = dev.type == "cuda"
+    here = Path(__file__).resolve().parent
+    out_dir = here / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def traced(tracer, fn):
+        """``fn()`` with ``tracer`` as the process tracer, and the implicit
+        host syncs it made (torch's sync debug mode; on the card)."""
+        prev = set_tracer(tracer)
+        sync()
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                res = fn()
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+            set_tracer(prev)
+        return res, sum("synchroniz" in str(x.message) for x in w)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(a.values[k], b.values[k]) for k in b.values)
+
+    # -- (a) K1 traced against untraced ----------------------------------------
+    space = k1_space(torch, mt, dev, side)
+    model = mt.Model(mt.Diffusion(0.1))
+    ex = mt.SerialExecutor("pallas", substeps=8)
+    model.execute(space, ex, steps=steps)  # build and warm
+    tr = Tracer()
+    before = fs.launches()
+    (got, rep), syncs_on = traced(tr, lambda: model.execute(
+        space, ex, steps=steps))
+    launched = fs.launches() - before
+    (want, _), syncs_off = traced(Tracer(enabled=False),
+                                  lambda: model.execute(space, ex,
+                                                        steps=steps))
+    bitwise = same(got, want)
+    names = [s.name for s in tr.spans]
+    exs = tr.spans[-1]
+    nested = (names == ["executor.run", "model.report", "model.execute"]
+              and all(s.parent_id == exs.span_id and s.depth == 1
+                      for s in tr.spans[:2])
+              and exs.meta == {"steps": steps, "executor": "SerialExecutor"})
+    # the overhead as JAX's bench defines it: traced wall over untraced
+    # wall, less one, the median of rounds in turns (4 runs an arm a round;
+    # a first round, not kept, settles the card's clocks)
+    ratios = []
+    for r in range(-1, 3):
+        walls = {}
+        for mode in (("on", "off") if r % 2 == 0 else ("off", "on")):
+            prev = set_tracer(Tracer(enabled=mode == "on"))
+            try:
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(4):
+                    model.execute(space, ex, steps=steps)
+                walls[mode] = time.perf_counter() - t0
+            finally:
+                set_tracer(prev)
+        if r >= 0:
+            ratios.append(walls["on"] / walls["off"] - 1.0)
+    overhead = stats_.median(ratios)
+    peaks = chip_peaks(dev)
+    if on_card:
+        call_ms = stats_.median(timed_ms(torch, lambda: fs.pallas_dense_step(
+            space.values["value"], 0.1, model.offsets, nsteps=8), reps=5))
+    else:
+        t0 = time.perf_counter()
+        fs.pallas_dense_step(space.values["value"], 0.1, model.offsets,
+                             nsteps=8)
+        call_ms = (time.perf_counter() - t0) * 1e3
+    roof = stencil_roofline(side, 4, call_ms / 8 / 1e3, substeps=8,
+                            device=dev)
+    bytes_call = 2.0 * side * side * 4  # bound_ms's bytes for K1 at ns=8
+    out["a"] = {
+        "impl": rep.impl, "launches": launched, "bit_for_bit": bitwise,
+        "host_syncs_traced": syncs_on, "host_syncs_untraced": syncs_off,
+        "spans": names, "nested": nested, "overhead_rounds": ratios,
+        "tracing_overhead_frac": overhead, "chip_peaks": peaks,
+        "k1_call_ms": call_ms, "roofline": roof,
+        "bound_ms_from_peaks": (bytes_call / (peaks["hbm_gbps"] * 1e9) * 1e3
+                                if peaks else None),
+        "bound_ms_data_sheet": bytes_call / HBM_BYTES_PER_S * 1e3}
+    print(f"6j (a) K1 {side}^2 f32 substeps=8, {steps} steps traced: "
+          f"impl={rep.impl}, {launched} launches, bit for bit the untraced "
+          f"run {bitwise}, implicit host syncs {syncs_on} traced / "
+          f"{syncs_off} untraced, spans {names} nested as JAX's {nested}; "
+          f"tracing_overhead_frac {overhead:.5f} (rounds {ratios})",
+          flush=True)
+    print(f"6j (a) chip_peaks: {peaks}", flush=True)
+    print(f"6j (a) roofline of K1's call ({call_ms:.4f} ms at ns=8): "
+          f"{roof}; bytes a call {roof['bytes_per_step'] * 8:.0f} (the "
+          f"bound's {bytes_call:.0f}), bound {out['a']['bound_ms_from_peaks']}"
+          f" ms from the card's peaks, {out['a']['bound_ms_data_sheet']:.4f}"
+          " ms from the data sheet's", flush=True)
+    check(rep.impl == "pallas" and launched == steps // 8,
+          f"6j (a) the run took {rep.impl} with {launched} launches")
+    check(bitwise, "6j (a) the traced run is not the untraced run")
+    check(syncs_on == syncs_off, f"6j (a) the traced run synced the host "
+                                 f"{syncs_on} times, untraced {syncs_off}")
+    check(nested, f"6j (a) spans {names} do not nest as JAX's")
+    check(roof["bytes_per_step"] * 8 == bytes_call,
+          "6j (a) the roofline's bytes a call are not the bound's")
+    if on_card:
+        check(peaks is not None, "6j (a) chip_peaks is None on the card")
+        check(abs(peaks["hbm_gbps"] / 3350 - 1) < 0.02
+              and abs(peaks["vpu_gops"] / 67_000 - 1) < 0.02,
+              f"6j (a) chip_peaks {peaks} are not within 2% of 3.35 TB/s "
+              "and 67 TFLOP/s")
+        check(overhead <= 0.02, f"6j (a) tracing overhead {overhead:.4f} "
+                                "exceeds 2% of the untraced wall")
+    del got, want
+
+    # -- (b) device_trace, in a process apart ----------------------------------
+    if on_card:
+        logdir = out_dir / "device_trace_6j"
+        shutil.rmtree(logdir, ignore_errors=True)
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke; "
+             "chip_smoke.device_trace_count(sys.argv[2], sys.argv[3])",
+             str(here), str(logdir), str(side)], cwd=here,
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, "6j (b) the device_trace process "
+                                    f"failed:\n{proc.stderr[-3000:]}")
+        b = json.loads(proc.stdout.strip().splitlines()[-1])
+        shutil.rmtree(logdir, ignore_errors=True)
+        out["b"] = b
+        n = sum(b["trace_kernels"].values())
+        print(f"6j (b) device_trace of (a)'s run in its own process: "
+              f"{b['launches']} K1 launches, {n} K1 kernels in the written "
+              f"trace {b['trace_kernels']}, spans {b['spans']} "
+              f"({b['trace_s']:.1f} s)", flush=True)
+        check(b["launches"] == steps // 8 and n == b["launches"]
+              and b["spans"] == ["executor.run", "model.report",
+                                 "model.execute", "device_trace"],
+              f"6j (b) the trace's K1 kernels {b} are not the launches")
+
+    # -- (c) K2 on 2x2, depth 8 --------------------------------------------------
+    mesh = make_mesh_2d(2, 2, devices=None if on_card else [dev] * 4)
+    tr = Tracer()
+    k2 = ShardMapExecutor(mesh, "pallas", halo_depth=8)
+    before = fs.halo_launches()
+    (got, rep), _ = traced(tr, lambda: model.execute(space, k2,
+                                                     steps=steps))
+    (again, _), _ = traced(tr, lambda: model.execute(space, k2,
+                                                     steps=steps))
+    halo = fs.halo_launches() - before
+    (serial, _), _ = traced(Tracer(enabled=False), lambda: model.execute(
+        space, mt.SerialExecutor("pallas", substeps=8), steps=steps))
+    builds = [s for s in tr.spans if s.name == "shardmap.build"]
+    firsts = [s for s in tr.spans if s.name == "shardmap.compile+first_run"]
+    ok = same(got, serial) and same(again, serial)
+    out["c"] = {"bit_for_bit_serial": ok, "halo_launches": halo,
+                "builds": [s.meta for s in builds],
+                "compile_first_runs": [s.meta for s in firsts],
+                "build_ms": [s.duration_s * 1e3 for s in builds]}
+    print(f"6j (c) K2 {side}^2 on 2x2 depth 8, two runs: bit for bit the "
+          f"serial K1 run {ok}; {halo} K2 launches; shardmap.build spans "
+          f"{out['c']['builds']} ({out['c']['build_ms']} ms), "
+          f"compile+first_run {out['c']['compile_first_runs']}", flush=True)
+    check(ok, "6j (c) the K2 run is not the serial run bit for bit")
+    check(len(builds) == 1 and builds[0].meta == {"impl": "pallas-deep",
+                                                   "depth": 8}
+          and len(firsts) == 1, "6j (c) not one shardmap.build span a build")
+    if on_card:
+        check(halo == 2 * 4 * steps // 8, f"6j (c) K2 launches {halo}")
+    del got, again, serial, space
+    torch.cuda.empty_cache() if on_card else None
+
+    # -- (d) the serving stack under the status plane --------------------------
+    base = np.random.default_rng(SEED).uniform(0.5, 2.0, (side5, side5))
+    spaces = [mt.CellularSpace({"value": torch.from_numpy(
+        np.roll(base, 7 * i, axis=0).astype(np.float32)).to(dev)},
+        side5, side5) for i in range(scenarios)]
+    del base
+    tr = Tracer()
+    rec = obs.FlightRecorder(dump_dir=str(out_dir / "flight_6j"))
+    prev_tr, prev_rec = set_tracer(tr), obs.set_recorder(rec)
+    snap = out_dir / "snapshot_6j.json"
+    servers, scrapes, snapshots = [], [], []
+    real_serve, real_write = obs.serve_status, obs.write_snapshot
+
+    def capture(port, fn, host="127.0.0.1"):
+        servers.append(real_serve(port, fn, host=host))
+        return servers[-1]
+
+    def write(path, service=None, **kw):
+        doc = real_write(path, service, **kw)
+        obs.validate_snapshot(doc)
+        snapshots.append(doc["stats"]["dispatches"])
+        return doc
+
+    # the loopback only: no proxy from the environment is consulted
+    loopback = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    obs.serve_status, obs.write_snapshot = capture, write
+    try:
+        with AsyncEnsembleService(mt.Model(mt.Diffusion(0.1)), steps=8,
+                                  impl="pipeline", substeps=8,
+                                  buckets=buckets_for(B5),
+                                  max_queue=64) as svc:
+            svc.result(svc.submit(spaces[0]), timeout=600)  # the build
+            base_stats = svc.stats()
+            tr.clear()
+            submits = []
+
+            class Client:
+                """The service, a span around each submit and a scrape of
+                the live endpoint after each result."""
+
+                def submit(self, space, **kw):
+                    with tr.span("client.submit") as m:
+                        t = svc.submit(space, **kw)
+                        m["ticket"] = t
+                        submits.append(tr.current())
+                    return t
+
+                def result(self, t, **kw):
+                    res = svc.result(t, **kw)
+                    port = servers[0].server_address[1]
+                    with loopback.open(f"http://127.0.0.1:{port}/metrics",
+                                       timeout=30) as r:
+                        scrapes.append(r.read().decode())
+                    return res
+
+                def stats(self):
+                    return svc.stats()
+
+            ran0 = kernel_launches()
+            soak = run_soak(Client(), [(s, None, None) for s in spaces],
+                            arrival_rate_hz=1e9, snapshot_path=str(snap),
+                            snapshot_interval_s=OBS_SNAPSHOT_S,
+                            status_port=0)
+            sync()
+            k5 = kernel_launches()["pipeline_stencil"] - \
+                ran0["pipeline_stencil"]
+            final = svc.stats()
+    finally:
+        obs.serve_status, obs.write_snapshot = real_serve, real_write
+        set_tracer(prev_tr)
+        obs.set_recorder(prev_rec)
+    ctx = {c.span_id: c for c in submits}
+    disp = [s for s in tr.spans if s.name in ("ensemble.assemble",
+                                              "ensemble.launch",
+                                              "ensemble.fetch")]
+    parented = bool(disp) and all(
+        s.parent_id in ctx and ctx[s.parent_id].trace_id == s.trace_id
+        for s in disp)
+    last = {}
+    for line in scrapes[-1].splitlines():
+        if line and not line.startswith("#"):
+            k, v = line.rsplit(" ", 1)
+            last[k] = float(v)
+    with open(snap) as fh:
+        doc = json.load(fh)
+    obs.validate_snapshot(doc)
+    snap.unlink()
+    out["d"] = {"soak": soak, "dispatch_spans": len(disp),
+                "parented_under_submit": parented,
+                "snapshots_written": len(snapshots),
+                "snapshot_dispatches": snapshots,
+                "scrapes": len(scrapes),
+                "scrape_dispatches": last.get("mpi_model_tpu_dispatches"),
+                "final_dispatches": final["dispatches"],
+                "soak_dispatches": final["dispatches"]
+                - base_stats["dispatches"], "k5_launches": k5,
+                "stages": doc["tracer"]["stages"]}
+    print(f"6j (d) {scenarios} x {side5}^2 pipeline substeps=8 through "
+          f"AsyncEnsembleService under run_soak(snapshot_path=, "
+          f"status_port=0): served {soak['served']}/{soak['offered']}, "
+          f"ledger complete {soak['ledger_complete']}, "
+          f"{out['d']['soak_dispatches']} dispatches, K5 launches {k5}; "
+          f"{len(disp)} dispatch spans, each under its submit context "
+          f"{parented}; {len(snapshots)} snapshots written, each valid; "
+          f"/metrics scraped {len(scrapes)} times, the last dispatches "
+          f"{out['d']['scrape_dispatches']} (final stats "
+          f"{final['dispatches']})", flush=True)
+    check(soak["ledger_complete"] and soak["served"] == scenarios,
+          f"6j (d) the soak's ledger is not complete: {soak}")
+    check(parented, "6j (d) a dispatch span is not under a submit context")
+    check(len(snapshots) >= 1 and doc["stats"]["dispatches"]
+          == final["dispatches"], "6j (d) the snapshots do not hold")
+    check(last.get("mpi_model_tpu_dispatches") == final["dispatches"],
+          f"6j (d) /metrics said {last.get('mpi_model_tpu_dispatches')} "
+          f"dispatches, stats() {final['dispatches']}")
+    if on_card:
+        check(k5 > 0, "6j (d) K5 was not launched")
+    del spaces
+
+    # -- (e) a supervised K1 run with exc:1 -------------------------------------
+    space = k1_space(torch, mt, dev, side)
+    tr = Tracer()
+    prev = set_tracer(tr)
+    try:
+        with inject.armed(inject.FaultPlan((inject.Fault("exc", at=1),))):
+            hurt = supervised_run(model, space, steps=steps, every=16,
+                                  executor=mt.SerialExecutor(
+                                      "pallas", substeps=8))
+    finally:
+        set_tracer(prev)
+    clean = supervised_run(model, space, steps=steps, every=16,
+                           executor=mt.SerialExecutor("pallas", substeps=8))
+    whole, _ = model.execute(space, ex, steps=steps)
+    fails = [s for s in tr.spans if s.name == "supervise.failure"]
+    chunks = [s for s in tr.spans if s.name == "supervise.chunk"]
+    ok = same(hurt.space, clean.space) and same(hurt.space, whole)
+    out["e"] = {"recovered_failures": hurt.recovered_failures,
+                "failure_instants": [s.meta for s in fails],
+                "chunk_spans": len(chunks), "bit_for_bit": ok}
+    print(f"6j (e) supervised K1 {side}^2 every 16 with exc:1: "
+          f"{hurt.recovered_failures} recovered, supervise.failure "
+          f"{[s.meta['kind'] for s in fails]}, {len(chunks)} "
+          f"supervise.chunk spans, bit for bit the uninterrupted run {ok}",
+          flush=True)
+    check(hurt.recovered_failures == 1 and len(fails) == 1
+          and len(chunks) == steps // 16 + 1,
+          f"6j (e) spans {len(chunks)} chunks, {len(fails)} failures")
+    check(ok, "6j (e) the recovered run is not the uninterrupted run")
+    del hurt, clean, whole, space
+
+    # -- (g) the CLI: --trace, info, --serve --status -------------------------
+    trace = out_dir / "trace_6j.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--flow=diffusion", f"--dimx={side}",
+                       f"--dimy={side}", "--impl=pallas", "--substeps=8",
+                       f"--steps={steps}", f"--trace={trace}", "--json",
+                       *cli_args])
+        rc_info = cli_main(["info", "--json"])
+    lines = buf.getvalue().strip().splitlines()
+    row, info = json.loads(lines[-2]), json.loads(lines[-1])
+    with open(trace) as fh:
+        tnames = {e["name"] for e in json.load(fh)["traceEvents"]}
+    trace.unlink()
+    status = out_dir / "status_6j.json"
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_serve = cli_main(["run", "--flow=diffusion", f"--dimx={side5}",
+                             f"--dimy={side5}", "--serve",
+                             f"--serve-scenarios={scenarios}",
+                             "--ensemble-impl=pipeline", "--substeps=8",
+                             "--steps=8", f"--status={status}",
+                             "--status-interval-s=0.5", "--json",
+                             *cli_args])
+    serve_row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(status) as fh:
+        obs.validate_snapshot(json.load(fh))
+    out["g"] = {"run": row, "info": info, "serve": serve_row,
+                "trace_names": sorted(tnames)}
+    print(f"6j (g) CLI run --trace at {side}^2: rc {rc}, trace holds "
+          f"model.execute {'model.execute' in tnames}; info: device_kind "
+          f"{info['device_kind']!r}, chip_peaks {info['chip_peaks']}, "
+          f"native_library {info['native_library']}; --serve --status: rc "
+          f"{rc_serve}, ledger complete {serve_row['ledger_complete']}, "
+          "the snapshot validates", flush=True)
+    check(rc == 0 and rc_info == 0 and rc_serve == 0
+          and "model.execute" in tnames and row["trace"] == str(trace),
+          "6j (g) the CLI's --trace run failed")
+    check((info["chip_peaks"] is not None) == on_card
+          and Path(info["native_library"]).is_file(),
+          f"6j (g) info: {info}")
+    check(serve_row["ledger_complete"]
+          and serve_row["telemetry_snapshot"] == str(status),
+          f"6j (g) the --serve --status run: {serve_row}")
+    status.unlink()
+
+    # -- (h) the native engine ----------------------------------------------------
+    ref = mt.CellularSpace.create(100, 100, 1.0, dtype="float64", device=dev)
+    ref_model = mt.Model(mt.Exponencial(mt.Cell(19, 3, mt.Attribute(99, 2.2)),
+                                        0.1), 10.0, 0.2)
+    nat, nrep = ref_model.execute(ref, native.NativeExecutor(), steps=50)
+    plain, _ = ref_model.execute(ref, mt.SerialExecutor("xla"), steps=50)
+    ref_err = float((nat.values["value"] - plain.values["value"]).abs().max())
+    oracle_err = float(abs(nat.values["value"].cpu().numpy()
+                           - oracle.reference_run_np(steps=50)).max())
+    v = np.random.default_rng(SEED).uniform(0.5, 2.0, (native_side,
+                                                       native_side))
+    sp = mt.CellularSpace({"value": torch.from_numpy(v.astype(
+        np.float32)).to(dev)}, native_side, native_side)
+    t0 = time.perf_counter()
+    nat32, _ = model.execute(sp, native.NativeExecutor(), steps=steps)
+    native_s = time.perf_counter() - t0
+    k1, _ = model.execute(sp, mt.SerialExecutor("pallas", substeps=8),
+                          steps=steps)
+    err32 = float((nat32.values["value"] - k1.values["value"]).abs().max())
+    tol32 = 2 * float(np.finfo(np.float32).eps) * steps * float(v.max())
+    out["h"] = {"reference_max_abs_err": ref_err,
+                "reference_oracle_err": oracle_err,
+                "native_report": nrep.backend_report,
+                "f32_max_abs_err": err32, "f32_tolerance": tol32,
+                "native_f32_s": native_s, "library": native.build_native()}
+    print(f"6j (h) native: the reference scenario (50 steps, f64) against "
+          f"the port's plain path on the card max|d| {ref_err:.3e} (oracle "
+          f"{oracle_err:.3e}); {native_side}^2 Diffusion(0.1) f32 {steps} "
+          f"steps against K1 max|d| {err32:.3e} <= {tol32:.3e} (native "
+          f"{native_s:.2f} s on the host)", flush=True)
+    check(ref_err <= 1e-10 and oracle_err <= 1e-12,
+          f"6j (h) the native reference run is off by {ref_err}")
+    check(err32 <= tol32, f"6j (h) native f32 against K1: {err32} > {tol32}")
+    return out
+
+
+def observability_main() -> None:
+    """Phase 6j in a process of its own (``main`` starts it): loads the
+    libraries the script built, runs ``observability_phase`` on the card
+    and prints one JSON line, the rows and the phase's seconds."""
+    import numpy as np
+    import torch
+
+    t0 = time.perf_counter()
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.ops import _build
+
+    _build.build_all()
+    out = observability_phase(np, torch, mt, torch.device("cuda"))
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out, default=repr), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4324,6 +4931,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     neighborhoods = {"moore": MOORE_OFFSETS, "von_neumann": VON_NEUMANN_OFFSETS,
                      "custom": CUSTOM_OFFSETS}
+    # phase 6j (f)'s cold process starts now, so its nvcc runs beside the
+    # build below; it is read in phase 6j
+    here = Path(__file__).resolve().parent
+    cache_dir = here / "chiprun_out" / "compile_cache_6j"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    (here / "chiprun_out").mkdir(exist_ok=True)
+    cold_log = here / "chiprun_out" / "compile_cache_cold.out"
+    with open(cold_log, "w") as fh:
+        cold = subprocess.Popen(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, "
+             "sys.argv[1]); import chip_smoke; "
+             "chip_smoke.compile_cache_probe(sys.argv[2])", str(here),
+             str(cache_dir)], cwd=here, stdout=fh, stderr=subprocess.STDOUT)
+    atexit.register(lambda: cold.poll() is None and cold.kill())
 
     def reset_counts():
         fs.reset_launches()
@@ -5649,6 +6270,63 @@ def main() -> int:
     ir = ir_phase(np, torch, mt, dev, reset_counts, kernel_launches)
     torch.cuda.empty_cache()
 
+    # -- 6j. observability: tracing, the roofline, the status plane -------------
+    t_obs = time.perf_counter()
+    long_counts = long_process_trace_counts(torch, mt, fs, dev)
+    print(f"6j finding: (a)'s K1 run profiled in this long process: "
+          f"{long_counts}", flush=True)
+    # (f) the build cache: the cold process (started before phase 2) built
+    # into an empty directory, a warm one loads from it
+    cold.wait(timeout=900)
+    probes = {"cold": cold_log.read_text()}
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         "sys.argv[1]); import chip_smoke; "
+         "chip_smoke.compile_cache_probe(sys.argv[2])", str(here),
+         str(cache_dir)], cwd=here, capture_output=True, text=True,
+        timeout=600)
+    probes["warm"] = proc.stdout + proc.stderr
+    check(cold.returncode == 0 and proc.returncode == 0,
+          f"6j (f) a build-cache probe failed:\n{probes['cold'][-2000:]}\n"
+          f"{probes['warm'][-2000:]}")
+    cache = {k: json.loads(v.strip().splitlines()[-1])
+             for k, v in probes.items()}
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cold_log.unlink()
+    for k in ("cold", "warm"):
+        b = cache[k]["build"]
+        print(f"6j (f) {k} process on --compile-cache={cache_dir.name}: "
+              f"built or loaded {sorted(b)}, "
+              + ", ".join(f"{n} {v['seconds']:.2f} s cached={v['cached']}"
+                          for n, v in b.items())
+              + f"; {cache[k]['seconds']:.1f} s the process; row impl "
+              f"{cache[k]['row']['impl']}, {cache[k]['row']['kernel_launches']}"
+              " launches", flush=True)
+    check(list(cache["cold"]["build"]) == ["fused_stencil"]
+          and not cache["cold"]["build"]["fused_stencil"]["cached"]
+          and cache["cold"]["build_dir"] == str(cache_dir),
+          f"6j (f) the cold process did not build fused_stencil alone: "
+          f"{cache['cold']['build']}")
+    check(list(cache["warm"]["build"]) == ["fused_stencil"]
+          and all(v["cached"] for v in cache["warm"]["build"].values()),
+          f"6j (f) the warm process ran nvcc: {cache['warm']['build']}")
+    check(all(cache[k]["row"]["conserved"] and cache[k]["row"]["impl"]
+              == "pallas" for k in cache), "6j (f) a probe's run failed")
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         "sys.argv[1]); import chip_smoke; chip_smoke.observability_main()",
+         str(here)], cwd=here, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0, "6j: the observability process failed:\n"
+                                f"{proc.stderr[-4000:]}")
+    observability = json.loads(lines[-1])
+    observability.update(long_process=long_counts, f=cache,
+                         seconds_total=time.perf_counter() - t_obs)
+    print(f"6j: {observability['seconds_total']:.1f} s (its process "
+          f"{observability['seconds']:.1f} s)", flush=True)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -6041,7 +6719,7 @@ def main() -> int:
          "count_read_us": sync_us,
          "sharded": sharded, "halo_main_shard_err": halo_err,
          "sharded_active": sharded_active, "bf16_interior": bf16,
-         "checkpoint": ckpt, "ir": ir,
+         "checkpoint": ckpt, "ir": ir, "observability": observability,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

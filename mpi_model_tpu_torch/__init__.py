@@ -23,9 +23,12 @@ Layer map (as in the JAX package):
                          always-on async service and ``run_soak``
   —  ``ir``           — the Flow IR: terms, the one registered lowering,
                          FlowIRModel and its library (``--model``)
-  —  ``utils`` (serving counters), ``resilience`` (FailureEvent, the
-     fault plans of ``inject``),
-     ``oracle``, ``interop``, ``cli``
+  —  ``utils`` (serving counters, tracing, the roofline read from the
+     card, the kernel build cache), ``obs`` (the flight recorder, the
+     telemetry snapshot, the status endpoint), ``resilience``
+     (FailureEvent, the fault plans of ``inject``, the supervisor),
+     ``native`` (the C++ engine of ``native/``), ``oracle``, ``interop``,
+     ``cli``
 """
 
 from .abstraction import DataType, UnsupportedDataTypeError, \

@@ -25,6 +25,13 @@
         --chaos=exc:1 --json
     python -m mpi_model_tpu_torch.cli run --model=gray_scott --dimx=8192 \
         --dimy=8192 --steps=16 --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=16384 \
+        --dimy=16384 --impl=pallas --substeps=8 --steps=64 \
+        --trace=trace.json --compile-cache=DIR --json
+    python -m mpi_model_tpu_torch.cli run --flow=diffusion --dimx=4096 \
+        --dimy=4096 --serve --ensemble-impl=pipeline --substeps=8 \
+        --steps=8 --status=snap.json --status-interval-s=1 --json
+    python -m mpi_model_tpu_torch.cli info --json
 
 Runs on the card unless ``--device=cpu`` is given. The scenario flags are
 the JAX package's: ``--source=X,Y``, ``--value`` (the point source's frozen
@@ -69,8 +76,21 @@ failed/expired/shed ledger (exit status 1 if it is not complete),
 sustained scenarios/s, p50/p99 queue latency and occupancy. The fleet
 (``--serve-services`` above 1, ``--serve-transport`` other than
 ``inproc``), scenario tiering (``--residency-budget``,
-``--hibernate-dir``), ``--ensemble-mesh`` and the status plane
-(``--status*``) are refused: their modules are not ported (ROADMAP.md).
+``--hibernate-dir``) and ``--ensemble-mesh`` are refused: their modules
+are not ported (ROADMAP.md). ``--status=PATH`` writes the telemetry
+snapshot (``obs``) of a ``--serve`` soak to PATH every
+``--status-interval-s`` seconds and at its end, and installs a flight
+recorder dumping under ``PATH.flight.d/``; ``--status-port=PORT`` serves
+``GET /metrics`` and ``GET /`` on ``127.0.0.1:PORT`` for the soak (0: an
+ephemeral port).
+``--trace=FILE`` writes the process tracer's spans (``utils.tracing``) as a
+Chrome trace after the run, on every path; the row names it.
+``--compile-cache=DIR`` points the kernel build directory at DIR (a
+library built there by an earlier process is loaded, not built again),
+``--compile-cache=off`` at a private directory removed at exit; unset, the
+package's ``_build/``. ``info`` prints the version, torch and CUDA, the
+devices, the card's kind and ``chip_peaks()`` (read from the card) and the
+native engine's library.
 ``--checkpoint-dir=DIR`` runs the scenario under the supervisor
 (``supervised_run``), checkpointing every ``--checkpoint-every`` steps in
 ``--checkpoint-layout=full|delta`` (``--keyframe-every`` for the chain) and
@@ -106,6 +126,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import subprocess
 import sys
 import time
 from typing import Optional
@@ -192,6 +213,32 @@ def check_model_flags(args, sharded: bool) -> None:
         args.flow = "exponencial"
 
 
+def _cache_spec(args, default):
+    """``--compile-cache`` → the ``compile_cache`` knob, by the JAX
+    package's rules: unset → ``default``, ``off``/``none`` → None
+    (disabled), a directory → that directory; an empty value is an
+    error."""
+    v = args.compile_cache
+    if v is None:
+        return default
+    if v.strip().lower() in ("off", "none"):
+        return None
+    if not v.strip():
+        raise SystemExit(
+            "--compile-cache needs a directory (or 'off' to disable the "
+            "build cache explicitly)")
+    return v
+
+
+def export_trace(args) -> None:
+    """``--trace=FILE``: the process tracer's spans as a Chrome trace."""
+    if args.trace:
+        from .utils.tracing import get_tracer
+
+        get_tracer().export_chrome(args.trace)
+        print(f"trace written to {args.trace}", file=sys.stderr)
+
+
 def _refuse_unported(flag: str, what: str) -> None:
     raise SystemExit(
         f"{flag} needs {what}, which is not ported to the PyTorch/CUDA "
@@ -248,10 +295,10 @@ def check_serve_flags(args, sharded: bool) -> None:
                 or args.hibernate_dir is not None:
             _refuse_unported("--residency-budget/--hibernate-dir",
                              "scenario tiering (ensemble/tiering.py)")
-        if (args.status is not None or args.status_port is not None
-                or args.status_interval_s != 5.0):
-            _refuse_unported("--status/--status-port/--status-interval-s",
-                             "the observability plane (obs/)")
+        if args.status_interval_s <= 0:
+            raise SystemExit(
+                f"--status-interval-s={args.status_interval_s} must be "
+                "positive")
         return
     for flag, val, default in (
             ("--arrival-rate", args.arrival_rate, None),
@@ -491,7 +538,8 @@ def run_ensemble_cli(args, space, model) -> int:
     svc = EnsembleService(
         model, steps=steps, impl=args.ensemble_impl,
         substeps=args.substeps, buckets=buckets_for(B),
-        compute_dtype=args.compute_dtype, check_conservation=False)
+        compute_dtype=args.compute_dtype, check_conservation=False,
+        compile_cache=_cache_spec(args, "auto"))
     before = kernel_launches()
     t0 = time.perf_counter()
     try:
@@ -504,6 +552,7 @@ def run_ensemble_cli(args, space, model) -> int:
         raise SystemExit(f"ensemble run failed: {e}")
     wall = time.perf_counter() - t0
     launched = sum(v - before[k] for k, v in kernel_launches().items())
+    export_trace(args)
     st = svc.stats()
     thresh = model.conservation_threshold(space)
     # IR models are judged on their budget-reconciled view
@@ -535,6 +584,7 @@ def run_ensemble_cli(args, space, model) -> int:
         "recovered_failures": st["recovered_failures"],
         "quarantined": st["quarantined"],
         "solo_retries": st["solo_retries"],
+        "trace": args.trace,
     }
     if args.json:
         print(json.dumps(row, allow_nan=False))
@@ -560,18 +610,29 @@ def run_serve_cli(args, space, model) -> int:
     steps = args.steps if args.steps is not None else model.num_steps
     n = args.serve_scenarios
     before = kernel_launches()
+    if args.status:
+        # flight dumps land beside the snapshot, so a post-mortem finds
+        # them even if this process died with its in-memory dumps
+        from .obs.flight import FlightRecorder, set_recorder
+
+        set_recorder(FlightRecorder(dump_dir=args.status + ".flight.d"))
     try:
         svc = AsyncEnsembleService(
             model, steps=steps, impl=args.ensemble_impl,
             substeps=args.substeps, buckets=buckets_for(8),
             max_queue=args.max_queue, compute_dtype=args.compute_dtype,
-            deadline_s=args.deadline_s, retry="solo")
+            deadline_s=args.deadline_s, retry="solo",
+            compile_cache=_cache_spec(args, "auto"))
     except (TypeError, ValueError) as e:
         raise SystemExit(f"serve run failed: {e}")
     rate = args.arrival_rate if args.arrival_rate else 1e9
     with svc:
-        rep = run_soak(svc, [(space, None, None)] * n, arrival_rate_hz=rate)
+        rep = run_soak(svc, [(space, None, None)] * n, arrival_rate_hz=rate,
+                       snapshot_path=args.status,
+                       snapshot_interval_s=args.status_interval_s,
+                       status_port=args.status_port)
     launched = sum(v - before[k] for k, v in kernel_launches().items())
+    export_trace(args)
     result = {
         "backend": "serve",
         "device": str(space.device),
@@ -581,8 +642,8 @@ def run_serve_cli(args, space, model) -> int:
         "deadline_s": args.deadline_s,
         "services": args.serve_services,
         "transport": args.serve_transport,
-        "telemetry_snapshot": None,
-        "trace": None,
+        "telemetry_snapshot": args.status,
+        "trace": args.trace,
         "kernel_launches": launched,
         **{k: rep[k] for k in (
             "offered", "served", "failed", "expired", "shed",
@@ -639,6 +700,16 @@ def build_scenario(args):
 
 
 def cmd_run(args) -> int:
+    from .utils.compile_cache import (configure_compile_cache,
+                                      resolve_compile_cache)
+
+    # the build directory is set before anything builds; unset, it stays
+    # the package's _build/
+    spec = _cache_spec(args, "auto")
+    try:
+        configure_compile_cache(resolve_compile_cache(spec))
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"--compile-cache={args.compile_cache}: {e}")
     check_ensemble_flags(args)
     sharded = check_sharded_flags(args)
     check_serve_flags(args, sharded)
@@ -679,6 +750,7 @@ def cmd_run(args) -> int:
                                 check_conservation=False)
     wall = time.perf_counter() - t0
     launched = sum(_launches_since(before).values())
+    export_trace(args)
     err = model.report_conservation_error(report)
     thresh = model.conservation_threshold(
         space, initial_totals=report.initial_total)
@@ -698,6 +770,7 @@ def cmd_run(args) -> int:
         "conservation_error": err,
         "conserved": bool(err <= thresh),
         "wall_s": wall,
+        "trace": args.trace,
     }
     if sharded:
         lines, columns = executor.mesh.grid_shape
@@ -787,6 +860,7 @@ def run_supervised_cli(args, space, model, executor, sharded: bool,
         initial = res.initial_totals or initial
     wall = time.perf_counter() - t0
     launched = sum(_launches_since(before).values())
+    export_trace(args)
     # the fired faults are reported even when the run failed
     injected = len(armed.fired) if armed is not None else 0
     row = {
@@ -809,6 +883,7 @@ def run_supervised_cli(args, space, model, executor, sharded: bool,
                     "attempt": e.attempt,
                     "classification": e.classification} for e in events],
         "wall_s": wall,
+        "trace": args.trace,
     }
     if failure is not None:
         row.update(conserved=False, error=failure)
@@ -844,6 +919,35 @@ def blob_grid(h: int, w: int, frac: float, seed: int = 0) -> np.ndarray:
     v[r0:r0 + side, c0:c0 + side] = np.random.default_rng(seed).uniform(
         0.5, 2.0, (side, side)).astype(np.float32)
     return v
+
+
+def cmd_info(args) -> int:
+    """``info``: the version, torch and CUDA, the devices, the card's kind,
+    ``chip_peaks()`` read from it (None without a card) and the native
+    engine's library (built if needed)."""
+    from . import __version__
+    from .utils import chip_peaks
+
+    cuda = torch.cuda.is_available()
+    n = torch.cuda.device_count() if cuda else 0
+    info = {
+        "version": __version__,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "devices": [f"cuda:{i}" for i in range(n)] or ["cpu"],
+        "device_kind": torch.cuda.get_device_name(0) if cuda else None,
+        "chip_peaks": chip_peaks(),
+        "cpu_threads": torch.get_num_threads(),
+    }
+    try:
+        from .native import build_native
+
+        info["native_library"] = build_native()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+        # no compiler, or a failed build: no native library here
+        info["native_library"] = f"unavailable: {e}"
+    print(json.dumps(info, indent=None if args.json else 2))
+    return 0
 
 
 def main(argv: Optional[list[str]] = None) -> int:
@@ -950,13 +1054,31 @@ def main(argv: Optional[list[str]] = None) -> int:
     run.add_argument("--hibernate-dir", default=None,
                      help="scenario-tiering vault directory (not ported)")
     run.add_argument("--status", default=None, metavar="PATH",
-                     help="telemetry snapshot of a --serve soak (not "
-                     "ported)")
+                     help="with --serve: write the telemetry snapshot "
+                     "(obs.fleet_snapshot: serving stats, tracer rollups, "
+                     "flight-recorder ledger; one versioned JSON document) "
+                     "to PATH every --status-interval-s and at the soak's "
+                     "end; validate or scrape it with python -m "
+                     "mpi_model_tpu_torch.obs. Also dumps the flight "
+                     "recorder under PATH.flight.d/")
     run.add_argument("--status-interval-s", type=float, default=5.0,
-                     help="telemetry snapshot interval (not ported)")
+                     metavar="S",
+                     help="seconds between --status snapshots (default 5)")
     run.add_argument("--status-port", type=int, default=None,
-                     help="live status endpoint of a --serve soak (not "
-                     "ported)")
+                     metavar="PORT",
+                     help="with --serve: serve GET /metrics (Prometheus "
+                     "text) and GET / (the snapshot) on 127.0.0.1:PORT "
+                     "for the soak (0 = an ephemeral port)")
+    run.add_argument("--trace", default=None, metavar="FILE",
+                     help="write a Chrome trace of the run's spans "
+                     "(model.execute, executor.run, the dispatch spans, "
+                     "supervise.chunk) to FILE")
+    run.add_argument("--compile-cache", default=None, metavar="DIR|off",
+                     help="build the CUDA kernels (and the native engine) "
+                     "into DIR, created if missing, loading what an "
+                     "earlier process built there; 'off' builds into a "
+                     "private directory removed at exit. Default: the "
+                     "package's _build/")
     run.add_argument("--mesh", default=None, metavar="LxC",
                      help="run sharded (ShardMapExecutor) over an LxC mesh "
                      "(N or Nx1: N row stripes)")
@@ -1013,7 +1135,12 @@ def main(argv: Optional[list[str]] = None) -> int:
                      help="write the reference-parity per-rank dump + "
                      "merged output file to this directory")
     run.add_argument("--json", action="store_true")
+    info = sub.add_parser("info", help="print version, device and peak "
+                          "information")
+    info.add_argument("--json", action="store_true")
     args = ap.parse_args(argv)
+    if args.cmd == "info":
+        return cmd_info(args)
     if args.steps == -1:
         args.steps = None  # -1 = the time/time_step schedule
     elif args.steps < -1:

@@ -55,9 +55,16 @@ Migration (``migrate_ticket``/``extract_ticket``) drains a queued scenario
 onto another scheduler through the delta stream's CRC-checked transfer
 (``io.delta.transfer_space``); ``migrated_out``/``migrated_in`` count it.
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``, tracing
-spans and the flight recorder; the fleet's ``counter`` argument is left out
-with the fleet.
+Observability: ``submit`` keeps the submitter's current ``TraceContext``
+on the ticket, and a dispatch opens ``ensemble.assemble``,
+``ensemble.launch`` and ``ensemble.fetch`` with ``parent=`` the first
+ticket's context (every ticket's trace id in the span's ``trace_ids``), so
+the spans chain to the submit whichever thread launches them. The flight
+recorder (``obs.flight``) gets ``submit``, ``expired``, ``served``,
+``failed`` and ``quarantined``, and a quarantine dumps it.
+
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``; the
+fleet's ``counter`` argument is left out with the fleet.
 """
 
 from __future__ import annotations
@@ -73,8 +80,10 @@ import torch
 
 from ..core.cellular_space import CellularSpace
 from ..models.model import _not_ported
+from ..obs.flight import get_recorder
 from ..resilience import FailureEvent, inject
 from ..utils.metrics import ThroughputCounter
+from ..utils.tracing import get_tracer
 from .batch import (EnsembleExecutor, complete_ensemble, launch_ensemble,
                     padding_scenarios, structure_key)
 
@@ -119,6 +128,8 @@ class _Pending:
     #: recorded on the submitter's stream at submission (async path, on the
     #: card): the launch's stream waits on it before reading the space
     ready: Optional[object] = None
+    #: the submitter's TraceContext: the dispatch spans parent under it
+    trace: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -235,12 +246,16 @@ class EnsembleScheduler:
         if not self.inline_dispatch and space.device.type == "cuda":
             ready = torch.cuda.Event()
             ready.record(torch.cuda.current_stream(space.device))
+        trace = get_tracer().current()
         with self._lock:
             ticket = next(self._ids)
             self._queues.setdefault(key, []).append(
-                _Pending(ticket, space, model, steps, self._clock(), ready))
+                _Pending(ticket, space, model, steps, self._clock(), ready,
+                         trace))
             self._pending_tickets.add(ticket)
             full = len(self._queues[key]) >= self.max_batch
+        get_recorder().record("submit", service_id=self.service_id,
+                              ticket=ticket, steps=steps)
         if full and self.inline_dispatch:
             self._dispatch_group(key)
         return ticket
@@ -417,6 +432,10 @@ class EnsembleScheduler:
                 self._results[it.ticket] = err
                 self._pending_tickets.discard(it.ticket)
                 self.counter.bump("expired")
+                # recorded only: a dump may touch the filesystem, and this
+                # runs under the lock
+                get_recorder().record("expired", service_id=self.service_id,
+                                      ticket=it.ticket, queued_s=age)
         return len(expired)
 
     # -- flush policy --------------------------------------------------------
@@ -517,6 +536,18 @@ class EnsembleScheduler:
             return
         self.finish_flight(flight)
 
+    def _span_meta(self, items: list, bucket: int) -> dict:
+        """A dispatch span's meta: its tickets and every ticket's trace id
+        (the span parents under the first ticket's context; the others
+        correlate through ``trace_ids``)."""
+        return {
+            "tickets": [it.ticket for it in items],
+            "trace_ids": [it.trace.trace_id for it in items
+                          if it.trace is not None],
+            "bucket": bucket,
+            "service_id": self.service_id,
+        }
+
     def _launch_batch(self, items: list, bucket: int):
         """Assemble, pad, resolve the runner and queue ``items`` as one
         batch: ``(_Flight, None)``, or ``(None, err)`` when that failed.
@@ -525,6 +556,7 @@ class EnsembleScheduler:
         template = items[0].model
         spaces = [it.space for it in items]
         models = [it.model for it in items]
+        tracer = get_tracer()
         # chaos seams: ticket-bound lane poisons are mapped to lanes and
         # pushed for the launch; "batch_exc" fails this whole dispatch;
         # "slow_compile" stretches its clock duration like a hung build
@@ -553,23 +585,30 @@ class EnsembleScheduler:
                              kinds=("slow_compile",))
                 if sf is not None:
                     extra_s = sf.seconds
-            for it in items:
-                # a space a client thread made on another stream is ready
-                # before the batch reads it
-                if it.ready is not None:
-                    torch.cuda.current_stream(it.space.device).wait_event(
-                        it.ready)
-            if bucket > k:
-                pspaces, pmodels = padding_scenarios(template, spaces[0],
-                                                     bucket - k)
-                spaces += pspaces
-                models += pmodels
+            with tracer.span("ensemble.assemble", parent=items[0].trace,
+                             **self._span_meta(items, bucket)):
+                for it in items:
+                    # a space a client thread made on another stream is
+                    # ready before the batch reads it
+                    if it.ready is not None:
+                        torch.cuda.current_stream(
+                            it.space.device).wait_event(it.ready)
+                if bucket > k:
+                    pspaces, pmodels = padding_scenarios(
+                        template, spaces[0], bucket - k)
+                    spaces += pspaces
+                    models += pmodels
             xla = self.executor.impl == "xla"
-            inflight = launch_ensemble(
-                template, spaces, models=models, executor=self.executor,
-                steps=items[0].steps, count=k,
-                windows=self.windows if xla else 1,
-                donate=self.donate and xla)
+            # "launch" covers the runner's resolution too: on a cache miss
+            # the build happens inside (cache_hit says which)
+            with tracer.span("ensemble.launch", parent=items[0].trace,
+                             **self._span_meta(items, bucket)) as sm:
+                inflight = launch_ensemble(
+                    template, spaces, models=models, executor=self.executor,
+                    steps=items[0].steps, count=k,
+                    windows=self.windows if xla else 1,
+                    donate=self.donate and xla)
+                sm["cache_hit"] = self.executor.builds == builds0
         # the dispatch boundary: any whole-batch failure (an ineligible
         # engine, a kernel error) fans out to the affected tickets instead of
         # stranding them or reaching an unrelated caller
@@ -590,10 +629,14 @@ class EnsembleScheduler:
         k = len(flight.items)
         c_f0 = self._clock()
         try:
-            results = complete_ensemble(
-                flight.inflight, check_conservation=self.check_conservation,
-                tolerance=self.tolerance, rtol=self.rtol,
-                on_violation="mark")
+            with get_tracer().span(
+                    "ensemble.fetch", parent=flight.items[0].trace,
+                    **self._span_meta(flight.items, flight.bucket)):
+                results = complete_ensemble(
+                    flight.inflight,
+                    check_conservation=self.check_conservation,
+                    tolerance=self.tolerance, rtol=self.rtol,
+                    on_violation="mark")
         except Exception as e:  # fanned out like a launch failure
             return None, e, flight.cache_hit, 0.0
         # the batch wall: from any served lane's Report, else from a marked
@@ -725,6 +768,12 @@ class EnsembleScheduler:
             self._pending_tickets.discard(it.ticket)
         if not isinstance(res, Exception):
             self.counter.record_latency(self._clock() - it.submitted_at)
+            get_recorder().record("served", service_id=self.service_id,
+                                  ticket=it.ticket)
+        else:
+            get_recorder().record("failed", service_id=self.service_id,
+                                  ticket=it.ticket,
+                                  error=type(res).__name__)
 
     def _fanout_whole_error(self, items: list, bucket: int,
                             whole_err: Exception, cache_hit: bool,
@@ -822,6 +871,12 @@ class EnsembleScheduler:
         self.counter.bump("quarantined")
         err.ticket = it.ticket
         err.failure_event = ev
+        # the flight recorder dumps beside every quarantine's FailureEvent:
+        # what this service did in the run-up
+        get_recorder().record("quarantined", service_id=self.service_id,
+                              ticket=it.ticket, fault_kind=kind)
+        get_recorder().dump("quarantine", service_id=self.service_id,
+                            ticket=it.ticket)
         self._publish(it, err)
 
     # -- observability -------------------------------------------------------

@@ -17,7 +17,15 @@
 - ``run_soak``: the open-loop arrivals behind the CLI's ``--serve``:
   submissions arrive on a fixed-rate schedule whatever the completions, and
   the report carries sustained scenarios/s, p50/p99 queue latency,
-  occupancy and the served/failed/expired/shed ledger.
+  occupancy and the served/failed/expired/shed ledger. With
+  ``snapshot_path`` it writes the telemetry snapshot (``obs``) on an
+  interval and at the end; with ``status_port`` it serves the live scrape
+  endpoint for the soak's length.
+
+``compile_cache`` is the kernel build directory
+(``utils.compile_cache``): ``"auto"`` (the default) the package's
+``_build/``, a directory that one, ``None`` a private directory nothing is
+reused from. A shed submission is recorded in the flight recorder.
 
 The pump thread launches on its current stream, the device's default
 stream; a space a client made on another stream is waited for before a
@@ -29,23 +37,26 @@ runs in the kernel's place.
 
 Not ported (``NotImplementedError`` naming ROADMAP.md): the JAX package's
 scenario tiering (``residency_budget``, ``hibernate_dir``,
-``hibernate_budget``), ``mesh=``, ``run_soak``'s telemetry snapshot and
-status endpoint (``snapshot_path``, ``status_port``), and the fleet's
-member faults in the pump. The degradation ladder's ``degrade_after`` has
-no counterpart (``scheduler``'s docstring).
+``hibernate_budget``), ``mesh=``, and the fleet's member faults in the
+pump. The degradation ladder's ``degrade_after`` has no counterpart
+(``scheduler``'s docstring).
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..core.cellular_space import CellularSpace
 from ..models.model import _not_ported
+from ..obs.flight import get_recorder
 from ..resilience import inject
+from ..utils.compile_cache import (configure_compile_cache,
+                                   resolve_compile_cache)
 from .scheduler import DEFAULT_BUCKETS, EnsembleScheduler, TicketExpired
 
 
@@ -62,14 +73,6 @@ class ServiceOverloaded(RuntimeError):
         self.retry_after_s = float(retry_after_s)
 
 
-def _check_compile_cache(compile_cache) -> None:
-    if compile_cache not in ("auto", None):
-        raise ValueError(
-            f"compile_cache={compile_cache!r}: the port accepts 'auto' "
-            "or None and arms nothing (it compiles no programs; its "
-            "kernels' build cache is mpi_model_tpu_torch/_build/)")
-
-
 class EnsembleService:
     """submit/poll API over ``EnsembleScheduler``.
 
@@ -78,13 +81,13 @@ class EnsembleService:
     configure the scheduler (impl, substeps, buckets, max_wait_s, max_batch,
     the conservation policy, clock, ``retry="solo"``,
     ``dispatch_deadline_s``, ``ticket_deadline_s``, ``retry_budget``,
-    ``windows``, ``donate``, ``service_id``). ``compile_cache`` is accepted
-    so that a caller of the JAX package's service runs unchanged: ``"auto"``
-    (the default) or ``None``, and it arms nothing (``compile_cache`` stays
-    None), since the port compiles no programs and its kernels' build cache
-    (``mpi_model_tpu_torch/_build/``) is always on. The JAX package's
-    ``degrade_after`` has no counterpart: the port has no degradation
-    ladder (``scheduler``'s docstring).
+    ``windows``, ``donate``, ``service_id``). ``compile_cache`` points the
+    kernel build directory (``utils.compile_cache``) before the first
+    dispatch builds: ``"auto"`` (the default) the package's ``_build/``, a
+    directory that one, ``None`` a private directory (``compile_cache``
+    then stays None). The JAX package's ``degrade_after`` has no
+    counterpart: the port has no degradation ladder (``scheduler``'s
+    docstring).
     """
 
     def __init__(self, model, *, steps: Optional[int] = None,
@@ -102,9 +105,10 @@ class EnsembleService:
                  compile_cache: Optional[str] = "auto",
                  service_id: Optional[str] = None,
                  mesh=None):
-        _check_compile_cache(compile_cache)
-        #: what the JAX package arms here; the port arms nothing
-        self.compile_cache = None
+        #: the build directory armed (None: a private one, reused by no
+        #: other process)
+        self.compile_cache = configure_compile_cache(
+            resolve_compile_cache(compile_cache))
         self.model = model
         self.default_steps = (model.num_steps if steps is None
                               else int(steps))
@@ -206,8 +210,8 @@ class AsyncEnsembleService:
             raise _not_ported(
                 "scenario tiering (residency_budget/hibernate_dir/"
                 "hibernate_budget: ensemble/tiering.py)")
-        _check_compile_cache(compile_cache)
-        self.compile_cache = None
+        self.compile_cache = configure_compile_cache(
+            resolve_compile_cache(compile_cache))
         self.model = model
         self.default_steps = (model.num_steps if steps is None
                               else int(steps))
@@ -338,6 +342,8 @@ class AsyncEnsembleService:
             depth = sched.pending_count()
             if forced or depth >= self.max_queue:
                 sched.counter.bump("shed")
+                get_recorder().record("shed", service_id=self.service_id,
+                                      depth=depth)
                 reason = ("injected queue-full fault" if forced
                           else f"admission queue full ({depth}/"
                                f"{self.max_queue})")
@@ -487,17 +493,57 @@ def run_soak(service, scenarios, *, arrival_rate_hz: float,
     offered: ``ledger_complete``), with the JAX package's keys.
 
     ``clock``/``sleep`` are injectable, so tests drive the arrivals without
-    wall-clock sleeps. The telemetry snapshot (``snapshot_path``) and the
-    live status endpoint (``status_port``) need the observability plane,
-    which is not ported yet."""
+    wall-clock sleeps.
+
+    ``snapshot_path``: the telemetry snapshot (``obs.write_snapshot``,
+    atomic) is written there every ``snapshot_interval_s`` of clock time
+    during the soak (in the arrival waits and between results) and once at
+    the end; the report's ``telemetry_snapshot`` names it.
+    ``status_port``: the live scrape endpoint (``obs.serve_status``: ``GET
+    /metrics``, ``GET /``, fresh per request) serves the live service for
+    the soak's length and is torn down before the report returns (port 0:
+    an ephemeral port; one that cannot be bound raises)."""
     if arrival_rate_hz <= 0:
         raise ValueError(
             f"arrival_rate_hz={arrival_rate_hz} must be positive")
-    if snapshot_path is not None or status_port is not None:
-        raise _not_ported("run_soak's telemetry snapshot and status "
-                          "endpoint (snapshot_path/status_port: obs/)")
+    if status_port is not None:
+        from .. import obs
+
+        server = obs.serve_status(
+            status_port, lambda: obs.fleet_snapshot(service))
+        try:
+            return run_soak(service, scenarios,
+                            arrival_rate_hz=arrival_rate_hz, clock=clock,
+                            sleep=sleep, snapshot_path=snapshot_path,
+                            snapshot_interval_s=snapshot_interval_s)
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    def dump_snapshot() -> None:
+        from .. import obs
+
+        try:
+            obs.write_snapshot(snapshot_path, service)
+        except OSError as e:  # the soak goes on; the loss is loud
+            warnings.warn(f"telemetry snapshot write failed: {e}",
+                          RuntimeWarning)
+
     scenarios = list(scenarios)
     t0 = clock()
+    next_snap = t0 + float(snapshot_interval_s)
+
+    def maybe_dump(now: Optional[float] = None) -> None:
+        """The one owner of the interval: a due snapshot is written and
+        the next one scheduled."""
+        nonlocal next_snap
+        if snapshot_path is None:
+            return
+        if (clock() if now is None else now) < next_snap:
+            return
+        dump_snapshot()
+        next_snap = clock() + float(snapshot_interval_s)
+
     tickets: list = []
     shed = 0
     for i, (space, model, steps) in enumerate(scenarios):
@@ -506,7 +552,9 @@ def run_soak(service, scenarios, *, arrival_rate_hz: float,
             now = clock()
             if now >= due:
                 break
+            maybe_dump(now)
             sleep(min(due - now, 0.01))
+        maybe_dump()
         try:
             tickets.append(service.submit(space, model=model, steps=steps))
         except ServiceOverloaded:
@@ -514,10 +562,21 @@ def run_soak(service, scenarios, *, arrival_rate_hz: float,
             tickets.append(None)
     served = failed = expired = 0
     for t in tickets:
+        maybe_dump()
         if t is None:
             continue
         try:
-            service.result(t)
+            if snapshot_path is None:
+                service.result(t)
+            else:
+                # a long wait must not freeze the snapshot: wait in
+                # interval-sized slices, keeping the cadence between them
+                while True:
+                    try:
+                        service.result(t, timeout=float(snapshot_interval_s))
+                        break
+                    except TimeoutError:
+                        maybe_dump()
             served += 1
         except TicketExpired:
             expired += 1
@@ -526,10 +585,12 @@ def run_soak(service, scenarios, *, arrival_rate_hz: float,
         except Exception:
             failed += 1
     wall = clock() - t0
+    if snapshot_path is not None:
+        dump_snapshot()  # the plane at the soak's end
     st = service.stats()
     offered = len(scenarios)
     return {
-        "telemetry_snapshot": None,
+        "telemetry_snapshot": snapshot_path,
         "offered": offered,
         "arrival_rate_hz": arrival_rate_hz,
         "served": served,

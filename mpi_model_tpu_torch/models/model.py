@@ -879,16 +879,26 @@ class Model:
                 self._default_executor = SerialExecutor()
             executor = self._default_executor
         num_steps = self.num_steps if steps is None else steps
-        initial = {k: float(space.total(k)) for k in space.values}
-        t0 = _time.perf_counter()
-        out_values = executor.run_model(self, space, num_steps)
-        for dev in {t.device for t in out_values.values()}:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        wall = _time.perf_counter() - t0
-        out_space = space.with_values(out_values)
-        final = {k: float(out_space.total(k)) for k in out_space.values}
-        last_exec = [float(f.execute(out_space)) for f in self.flows]
+        from ..utils.tracing import trace_span
+
+        # the spans add no host wait: the run's one synchronize and the
+        # totals' reads are the waits the untraced run has
+        with trace_span("model.execute", steps=num_steps,
+                        executor=type(executor).__name__):
+            initial = {k: float(space.total(k)) for k in space.values}
+            t0 = _time.perf_counter()
+            with trace_span("executor.run"):
+                out_values = executor.run_model(self, space, num_steps)
+                for dev in {t.device for t in out_values.values()}:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            wall = _time.perf_counter() - t0
+            with trace_span("model.report"):
+                out_space = space.with_values(out_values)
+                final = {k: float(out_space.total(k))
+                         for k in out_space.values}
+                last_exec = [float(f.execute(out_space))
+                             for f in self.flows]
         report = Report(
             comm_size=getattr(executor, "comm_size", 1),
             rank_id=0,

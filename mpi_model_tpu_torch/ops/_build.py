@@ -4,9 +4,12 @@ Each source under ``mpi_model_tpu_torch/csrc/`` compiles with ``nvcc`` into
 a shared library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, never at import, and reads only the sources in the
 checkout. Libraries go to ``mpi_model_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source, every ``csrc/*.cuh`` header
-it includes (directly or through another header) and its flags, so an edited
-source or shared header rebuilds and an unchanged one is reused.
+``.gitignore``; ``utils.compile_cache.configure_compile_cache`` points
+``BUILD_DIR`` elsewhere), named by a hash of the source, every
+``csrc/*.cuh`` header it includes (directly or through another header), its
+flags, the ``nvcc --version`` text and the target architecture, so an edited
+source or shared header, or another toolchain, rebuilds and an unchanged
+one is reused.
 
 ``SOURCE_FLAGS`` adds flags per source: every source builds with FMA
 contraction off (``fused_stencil.cu``, K1/K2; ``composed_stencil.cu``,
@@ -34,13 +37,22 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Optional
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-BUILD_DIR = PKG / "_build"
+#: where libraries are built by default; ``BUILD_DIR`` is where they are
+#: built now (``utils.compile_cache.configure_compile_cache`` re-points it)
+DEFAULT_BUILD_DIR = PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: the architecture every library is built for (Hopper, with its
+#: architecture-specific features)
+TARGET_ARCH = "sm_90a"
+NVCC_FLAGS = ("-gencode",
+              f"arch=compute_{TARGET_ARCH[3:]},code={TARGET_ARCH}",
+              "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 #: extra nvcc flags per source (by file stem)
 SOURCE_FLAGS: dict[str, tuple[str, ...]] = {
     "fused_stencil": ("--fmad=false",),
@@ -113,11 +125,34 @@ def digest_of(name: str) -> str:
     return _digest(src.read_bytes(), local_headers(src), flags_for(name))
 
 
+_toolchain: Optional[str] = None
+
+
+def toolchain() -> str:
+    """What ``nvcc --version`` prints (read once a process), or a marker
+    when there is no nvcc: part of every library's name, so a build
+    directory shared or kept across a toolchain change never loads a
+    library another compiler built."""
+    global _toolchain
+    if _toolchain is None:
+        try:
+            proc = subprocess.run([find_nvcc(), "--version"],
+                                  capture_output=True, text=True,
+                                  timeout=120)
+            _toolchain = proc.stdout.strip() or proc.stderr.strip()
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            _toolchain = "no nvcc"
+    return _toolchain
+
+
 def _digest(text: bytes, headers: list[Path], flags: tuple[str, ...]) -> str:
+    """Hash of a source's text, its headers, its flags, the toolchain and
+    the target architecture."""
     h = hashlib.sha256(text)
     for hdr in headers:
         h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update(" ".join(flags).encode())
+    h.update(b"\0" + toolchain().encode() + b"\0" + TARGET_ARCH.encode())
     return h.hexdigest()[:16]
 
 

@@ -90,6 +90,7 @@ from ..ops.fused_stencil import check_ring_depth, pallas_halo_step, \
 from ..ops.point_kernel import build_point_plans, shard_point_runner
 from ..ops.stencil import neighbor_counts
 from ..resilience import inject
+from ..utils.tracing import get_tracer
 from .halo import (exchange_ring, gather_from_padded, pad_with_halo_1d,
                    pad_with_halo_2d, refresh_rings, zero_ring)
 from .mesh import Mesh, ShardGrid, assemble, shard_bounds, shard_space
@@ -261,15 +262,26 @@ class ShardMapExecutor:
                tuple((k, str(v.dtype)) for k, v in space.values.items()),
                model.offsets, tuple(f.fingerprint() for f in model.flows),
                model._term_fingerprints() if ir else None)
+        tracer = get_tracer()
         entry = self._cache.get(key)
-        if entry is None:
-            entry = (("ir", self._build_ir_runner(model, space)) if ir
-                     else self._build(model, space))
+        fresh = entry is None
+        if fresh:
+            with tracer.span("shardmap.build") as sm:
+                entry = (("ir", self._build_ir_runner(model, space)) if ir
+                         else self._build(model, space))
+                sm.update(impl=self._build_label(entry[0]),
+                          depth=self.halo_depth)
             self._cache[key] = entry
         plan_kind, runner = entry
         shards = shard_space(space, self.mesh)
         before = kernel_launches()
-        out = runner(shards, int(num_steps))
+        if fresh and plan_kind in ("diffusion", "field", "composed"):
+            # a kernel's library is built or loaded at its first launch
+            with tracer.span("shardmap.compile+first_run",
+                             impl=self._build_label(plan_kind)):
+                out = runner(shards, int(num_steps))
+        else:
+            out = runner(shards, int(num_steps))
         ran = _launches_since(before)
         self.last_impl = ("xla" if plan_kind in (None, "ir") else
                           "pallas" if plan_kind in ("diffusion", "field")
@@ -286,6 +298,22 @@ class ShardMapExecutor:
         self._synchronize()
         self.last_assembly_s = time.perf_counter() - t0
         return values
+
+    def _build_label(self, plan_kind: Optional[str]) -> str:
+        """The ``impl`` a ``shardmap.build`` span names, as the JAX
+        package's sharded executor names its builds."""
+        deep = self.halo_depth > 1
+        if plan_kind == "ir":
+            return "ir"
+        if plan_kind == "point":
+            return "point-subsystem"
+        if plan_kind in ("active", "active_fused"):
+            return plan_kind
+        if plan_kind == "composed":
+            return f"composed-depth{self.halo_depth}"
+        if plan_kind is not None:
+            return "pallas-deep" if deep else "pallas"
+        return "deep-halo" if deep else "xla"
 
     def _synchronize(self) -> None:
         for d in self.mesh.distinct_devices():

@@ -23,8 +23,10 @@ job. Here:
 The last good state is kept in memory: the executors never write their
 input space's tensors (``SerialExecutor`` and ``ShardMapExecutor`` write
 buffers of their own, made per run), so a retried chunk reads exactly the
-state it read the first time. The JAX package's tracer spans and instants
-around each chunk and failure wait for ``utils/tracing.py`` (ROADMAP.md).
+state it read the first time. Each chunk runs under a ``supervise.chunk``
+span (``start``, ``steps``), each failure records a ``supervise.failure``
+instant with its event's fields, and a manager's ``flush`` that fails while
+the run is raising records ``supervise.flush_failed`` (``utils.tracing``).
 """
 
 from __future__ import annotations
@@ -248,11 +250,34 @@ def supervised_run(
     if manager is not None and not manager.steps():
         manager.save(good_space, good_step,
                      extra={"initial_totals": initial})
-    return _supervise_loop(
-        model, manager, total, every, max_failures, executor, health_checks,
-        threshold, initial, good_space, good_step, [], on_event,
-        _RetryPolicy(retry_backoff_s, backoff_jitter, backoff_seed,
-                     fail_fast_deterministic))
+    from ..utils.tracing import get_tracer
+
+    tracer = get_tracer()
+    # an explicit flag, not sys.exc_info(): that also reports an exception
+    # a caller is handling, and a successful run would swallow its own
+    # flush failure
+    run_raising = False
+    try:
+        return _supervise_loop(
+            model, manager, total, every, max_failures, executor,
+            health_checks, threshold, initial, good_space, good_step,
+            tracer, [], on_event,
+            _RetryPolicy(retry_backoff_s, backoff_jitter, backoff_seed,
+                         fail_fast_deterministic))
+    except BaseException:
+        run_raising = True
+        raise
+    finally:
+        if manager is not None:
+            # a manager with buffered writes commits them even when the run
+            # raises; a flush failure never masks the run's own exception,
+            # and propagates when the run succeeded
+            try:
+                getattr(manager, "flush", lambda: None)()
+            except BaseException:
+                if not run_raising:
+                    raise
+                tracer.instant("supervise.flush_failed")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,7 +300,7 @@ class _RetryPolicy:
 
 def _supervise_loop(model, manager, total, every, max_failures, executor,
                     health_checks, threshold, initial, good_space, good_step,
-                    events, on_event,
+                    tracer, events, on_event,
                     retry: _RetryPolicy) -> SupervisedResult:
     consecutive = 0
     report: Optional[Report] = None
@@ -292,15 +317,17 @@ def _supervise_loop(model, manager, total, every, max_failures, executor,
         n = min(every, total - good_step)
         t0 = _time.perf_counter()
         try:
-            # conservation is judged here against the run-global baseline;
-            # execute()'s own check would re-baseline every chunk
-            out_space, report = model.execute(
-                good_space, executor, steps=n, check_conservation=False)
-            if health_checks:
-                problems = check_health(out_space, initial, threshold,
-                                        view=view)
-                if problems:
-                    raise HealthError(problems)
+            with tracer.span("supervise.chunk", start=good_step, steps=n):
+                # conservation is judged here against the run-global
+                # baseline; execute()'s own check would re-baseline every
+                # chunk
+                out_space, report = model.execute(
+                    good_space, executor, steps=n, check_conservation=False)
+                if health_checks:
+                    problems = check_health(out_space, initial, threshold,
+                                            view=view)
+                    if problems:
+                        raise HealthError(problems)
         # the supervisor boundary: any step or health failure becomes a
         # FailureEvent and a rollback; only exhaustion re-raises
         except Exception as exc:  # noqa: BLE001
@@ -324,6 +351,11 @@ def _supervise_loop(model, manager, total, every, max_failures, executor,
                 backoff_s=backoff,
             )
             events.append(ev)
+            tracer.instant("supervise.failure", kind=ev.kind,
+                           step=ev.step, attempt=ev.attempt,
+                           detail=ev.detail,
+                           rolled_back_to=ev.rolled_back_to,
+                           classification=ev.classification)
             if on_event is not None:
                 on_event(ev)
             if deterministic:

@@ -2176,3 +2176,92 @@ def test_ir_ensemble_lane_is_its_serial_card_run():
         want, _ = m.execute(space, mt.SerialExecutor("xla"), steps=8)
         for k in want.values:
             assert torch.equal(sp.values[k], want.values[k]), k
+
+
+def _k1_run(dev, tracer):
+    """64 steps of ``Model(Diffusion(0.1))`` through K1 (substeps 8) on a
+    512² f32 grid made from a numpy seed, under ``tracer``; the result, the
+    report and the implicit host syncs counted by torch's sync debug
+    mode."""
+    import warnings
+
+    from mpi_model_tpu_torch.utils import set_tracer
+
+    v = np.random.default_rng(9).uniform(0.5, 2.0, (512, 512))
+    space = mt.CellularSpace.create(512, 512, 1.0, dtype="float32",
+                                    device=dev).with_values(
+        {"value": torch.from_numpy(v).to(dev, torch.float32)})
+    model = mt.Model(mt.Diffusion(0.1), 64.0, 1.0)
+    ex = mt.SerialExecutor("pallas", substeps=8)
+    model.execute(space, ex, steps=8)  # build and warm
+    prev = set_tracer(tracer)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            out, rep = model.execute(space, ex, steps=64)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        set_tracer(prev)
+    syncs = sum("synchroniz" in str(x.message) for x in w)
+    return out, rep, syncs
+
+
+@pytest.mark.cuda
+def test_traced_k1_run_is_its_untraced_run_with_equal_syncs():
+    """Spans add no host wait: the traced run is the untraced run bit for
+    bit, with as many implicit syncs, and the spans nest as JAX's do."""
+    from mpi_model_tpu_torch.utils import Tracer
+
+    dev = _card()
+    tr = Tracer()
+    got, rep, syncs = _k1_run(dev, tr)
+    want, _, syncs_off = _k1_run(dev, Tracer(enabled=False))
+    assert torch.equal(got.values["value"], want.values["value"])
+    assert syncs == syncs_off
+    assert [s.name for s in tr.spans] == ["executor.run", "model.report",
+                                          "model.execute"]
+    assert rep.impl == "pallas"
+
+
+@pytest.mark.cuda
+def test_device_trace_captures_k1_launches(tmp_path):
+    import json
+
+    from mpi_model_tpu_torch.utils import Tracer
+
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0.5, 2.0, (1024, 1024))).to(dev, torch.float32)
+    fs.pallas_dense_step(x, 0.1, MOORE_OFFSETS, nsteps=8)  # build
+    torch.cuda.synchronize()
+    tr = Tracer()
+    before = fs.launches()
+    with tr.device_trace(str(tmp_path)):
+        torch.cuda._sleep(50_000_000)
+        for _ in range(4):
+            x = fs.pallas_dense_step(x, 0.1, MOORE_OFFSETS, nsteps=8)
+        torch.cuda._sleep(50_000_000)
+        torch.cuda.synchronize()
+    launched = fs.launches() - before
+    with open(tmp_path / "device_trace.pt.trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "fused_stencil" in e.get("name", "")]
+    assert launched == 4 and len(k1) == launched
+    assert [s.name for s in tr.spans] == ["device_trace"]
+
+
+@pytest.mark.cuda
+def test_chip_peaks_are_read_from_the_card():
+    from mpi_model_tpu_torch.utils import chip_peaks
+
+    dev = _card()
+    p = chip_peaks(dev)
+    assert p is not None and p["device_kind"] == torch.cuda.get_device_name(0)
+    assert p["hbm_gbps"] > 0 and p["vpu_gops"] > 0
+    if p["compute_capability"] == [9, 0] and "H100" in p["device_kind"] \
+            and p["sm_count"] == 132:
+        assert abs(p["hbm_gbps"] / 3350 - 1) < 0.02
+        assert abs(p["vpu_gops"] / 67_000 - 1) < 0.02

@@ -587,7 +587,7 @@ def test_scheduler_stats_keys_are_jax_keys():
         ThroughputCounter().bump("nope")
 
 
-def test_unported_options_name_the_roadmap():
+def test_unported_options_name_the_roadmap(tmp_path):
     spaces, models, _ = make_scenarios(B=1)
     for make in (lambda: mt.EnsembleExecutor(mesh=2),
                  lambda: mt.EnsembleScheduler(mesh=(2, 1))):
@@ -607,10 +607,22 @@ def test_unported_options_name_the_roadmap():
                          steps=2)
     assert fl.windows == fl.donated_windows == 2
     complete_ensemble(fl)
-    with pytest.raises(ValueError, match="compile_cache"):
-        mt.EnsembleService(models[0], compile_cache="/some/dir")
-    assert mt.EnsembleService(models[0], compile_cache=None) \
-        .compile_cache is None
+    # the kernel build cache is ported: a directory re-points the build
+    # directory, None builds into a private one, "auto" is the package's
+    from mpi_model_tpu_torch.ops import _build
+
+    cache = str(tmp_path / "kernels")
+    try:
+        assert mt.EnsembleService(models[0], compile_cache=cache) \
+            .compile_cache == cache
+        assert str(_build.BUILD_DIR) == cache
+        assert mt.EnsembleService(models[0], compile_cache=None) \
+            .compile_cache is None
+        assert _build.BUILD_DIR not in (_build.DEFAULT_BUILD_DIR,
+                                        _build.Path(cache))
+    finally:
+        mt.EnsembleService(models[0])
+    assert _build.BUILD_DIR == _build.DEFAULT_BUILD_DIR
     with pytest.raises(ValueError, match="unknown ensemble impl"):
         mt.EnsembleExecutor(impl="nope")
     # bf16 interior math is ported: accepted, and a bad dtype refused

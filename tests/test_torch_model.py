@@ -397,6 +397,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "mpi_model_tpu_torch/resilience/__init__.py"} <= rel
     assert {f"mpi_model_tpu_torch/ir/{m}.py" for m in (
         "__init__", "expr", "terms", "lower", "model", "library")} <= rel
+    assert ({f"mpi_model_tpu_torch/utils/{m}.py" for m in (
+        "__init__", "metrics", "tracing", "roofline", "compile_cache")}
+        | {f"mpi_model_tpu_torch/obs/{m}.py" for m in (
+            "__init__", "flight", "__main__")}
+        | {"mpi_model_tpu_torch/native.py"}) <= rel
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

@@ -532,12 +532,7 @@ def test_unported_serving_options_name_the_roadmap(tmp_path):
                                          start=False),
             lambda: AsyncEnsembleService(model, hibernate_budget=1,
                                          start=False),
-            lambda: AsyncEnsembleService(model, mesh=2, start=False),
-            lambda: run_soak(AsyncEnsembleService(model, start=False), [],
-                             arrival_rate_hz=1.0,
-                             snapshot_path=str(tmp_path / "s.json")),
-            lambda: run_soak(AsyncEnsembleService(model, start=False), [],
-                             arrival_rate_hz=1.0, status_port=0)):
+            lambda: AsyncEnsembleService(model, mesh=2, start=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make()
     with pytest.raises(TypeError, match="degrade_after"):
@@ -717,8 +712,8 @@ def test_cli_serve_flag_validation(argv):
 @pytest.mark.parametrize("argv", [
     ["--serve-services=2"], ["--serve-transport=process"],
     ["--residency-budget=1", "--hibernate-dir=/nonexistent"],
-    ["--hibernate-dir=/nonexistent"], ["--status=/nonexistent/s.json"],
-    ["--status-port=0"], ["--status-interval-s=1"],
+    ["--hibernate-dir=/nonexistent"], ["--serve-services=3"],
+    ["--serve-transport=tcp"], ["--ensemble-mesh=2x1"],
     ["--ensemble-mesh=2"],
 ])
 def test_cli_refuses_unported_serving_flags(argv):
