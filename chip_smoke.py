@@ -388,9 +388,40 @@ Phases (any failure exits non-zero, and no result line is printed):
    nvcc runs beside the build) runs the CLI's K1 run with
    ``--compile-cache`` on an empty directory and builds ``fused_stencil``
    alone, and a second fresh process on that directory builds nothing
-   (``build_info[...]["cached"]``), each printing its build seconds; and a
-   finding, not a gate: (a)'s run profiled in this long process with and
-   without ``acc_events=True``, its K1 kernels against the launches.
+   (``build_info[...]["cached"]``), each printing its build seconds. 6k
+   (g) runs in this long process just before (f)'s probes are read.
+   6k. the degradation ladder and the fleet's formats
+   (``ladder_formats_phase``; alone: ``ladder_phase_main``): (a)
+   ``EnsembleScheduler(impl="pipeline", substeps=8, degrade_after=1,
+   retry="solo")`` on 6c's 8 lanes of 4096² f32: a clean dispatch (K5
+   launched, ``degraded_from`` None), then ``batch_exc``: one "degraded to
+   'xla'" warning, every lane recovered on ``xla``, stamped ``impl: "xla"``,
+   ``degraded_from: "pipeline"``, bit for bit a fresh ``xla`` scheduler, K5
+   not launched after the rung; the async service's mid-fall gate on the
+   card (shed while gated, reopened by the first clean completion); (b)
+   ``impl="active_fused"`` at 4096², 0.05 activity: a clean dispatch
+   launches K6 and K7, then ``active`` and ``xla`` after a fault each, each
+   rung bit for bit that engine's own dispatch; (c) the TJ1 journal of 2
+   K5-served lanes (submit and served records, the submit under a traced
+   span) under ``protocolcheck.armed()`` (no violation), replayed and
+   rebuilt on the card bit for bit K5's result, then torn at its last
+   record (the verified prefix survives) and fenced (an epoch-0 handle
+   refused after epoch 1 is declared); the write and replay seconds and the
+   file bytes printed; (d) a served lane in one TW1 frame across a
+   ``socketpair`` and a ``127.0.0.1`` TCP pair after the HMAC handshake,
+   bit for bit, its bytes and seconds printed; (e) ``lockdep.armed()``
+   around an ``AsyncEnsembleService(impl="pipeline")`` built inside the
+   block, under ``run_soak`` of 16 × 4096²: no violation, K5 launched, the
+   edges printed; (f) ``obs.timeline`` of (c)'s first ticket over the
+   journal and the traced spans: complete, gap-free; (g) in this long
+   process, after the earlier phases' profiles, ``Tracer.device_trace`` of
+   phase 4's K1 run: every K1 launch's kernel in the written Chrome file
+   (and, a finding, a profile without ``acc_events`` counted in its own
+   file and in ``prof.events()``). Every phase that runs a
+   scheduler or service on ``pipeline``, ``active`` or ``active_fused``
+   without injecting a fault ends with ``ladder_guard``: ``degraded_from``
+   None, ``impl_faults`` 0 and its kernel's counter advanced (the
+   ``--serve`` CLI rows through ``cli_row_guard``).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -961,6 +992,7 @@ def _traced_k5_row(kind: str, dname: str, sub: str, steps: str) -> dict:
         return (sum(m for m, _ in got) / sum(c for _, c in got)
                 if got else None)
 
+    ladder_guard(svc.stats(), launched, f"6g the traced {kind} row")
     disp = statistics.median(timed_ms(torch, dispatch, reps=5))
     row = {"launches": launched, "bit_for_bit": same, "closed": closed,
            "closed_cells_per_lane": int(k5.interior_mask(
@@ -2593,6 +2625,9 @@ def serving_phase(np, torch, mt, dev, reset_counts, kernel_launches) -> dict:
               and sum(ran.values()) == want_k5,
               f"serving gate {name}: launches {ran}, expected {want_k5} "
               "of K5 and nothing else")
+        ladder_guard(st, ran["pipeline_stencil"],
+                     f"6c-serve gate {name}, the async service")
+        ladder_guard(sync.stats(), None, f"6c-serve gate {name}, sync")
         del want, got, sync, svc
     out["gates"] = gates
     torch.cuda.empty_cache()
@@ -2643,6 +2678,7 @@ def serving_phase(np, torch, mt, dev, reset_counts, kernel_launches) -> dict:
     def soak(mode, profiled=False):
         svc = (EnsembleService(model01, **kw) if mode == "sync"
                else AsyncEnsembleService(model01, **kw))
+        k5_0 = kernel_launches()["pipeline_stencil"]
         try:
             if profiled:
                 rep, busy = soak_profile(
@@ -2657,6 +2693,8 @@ def serving_phase(np, torch, mt, dev, reset_counts, kernel_launches) -> dict:
                 svc.stop()
         check(rep["ledger_complete"] and rep["served"] == SERVE_SOAK,
               f"{mode} soak ledger incomplete: {rep}")
+        ladder_guard(svc.stats(), kernel_launches()["pipeline_stencil"]
+                     - k5_0, f"6c-serve the {mode} soak")
         return rep
 
     soaks = {"sync": [], "async": []}
@@ -2780,6 +2818,7 @@ def serving_phase(np, torch, mt, dev, reset_counts, kernel_launches) -> dict:
     out["cli"] = row
     check(rc == 0 and row["ledger_complete"] and row["served"] == 16,
           f"the --serve CLI run failed: {row}")
+    cli_row_guard(row, "6c-serve (e) the --serve CLI row")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"serving phase: {out['seconds']:.1f} s", flush=True)
     return out
@@ -3930,6 +3969,12 @@ def checkpoint_phase(np, torch, mt, dev, root: Path, reset_counts,
         check(ok and counts == {"pipeline_stencil": 1}
               and out["f"]["migrated_out"] == out["f"]["migrated_in"] == 1,
               f"6h (f): {out['f']}")
+        for name_, svc_, k5_ in (("source", svc_a, None),
+                                 ("target", svc_b,
+                                  counts.get("pipeline_stencil", 0)),
+                                 ("in place", here, None)):
+            ladder_guard(svc_.stats(), k5_,
+                         f"6h (f) the {name_} pipeline service")
         del sp5, moved, in_place
 
         # -- (g) the CLI
@@ -4411,38 +4456,6 @@ def device_trace_count(logdir: str, side: str) -> None:
                       "trace_s": time.perf_counter() - t0}), flush=True)
 
 
-def long_process_trace_counts(torch, mt, fs, dev) -> dict:
-    """A finding, not a gate: (a)'s K1 run profiled in the script's own
-    long process, with and without ``acc_events=True``; the K1 kernels
-    each trace holds against the launches counted."""
-    from torch.profiler import ProfilerActivity, profile
-
-    space = k1_space(torch, mt, dev, N)
-    model = mt.Model(mt.Diffusion(0.1))
-    ex = mt.SerialExecutor("pallas", substeps=8)
-    model.execute(space, ex, steps=STEPS)
-    out = {}
-    for acc in (False, True):
-        kw = {"acc_events": True} if acc else {}
-        torch.cuda.synchronize()
-        before = fs.launches()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA], **kw) as prof:
-                model.execute(space, ex, steps=STEPS)
-                torch.cuda.synchronize()
-        except TypeError as e:  # a torch without the argument
-            out[f"acc_events={acc}"] = {"error": str(e)}
-            continue
-        n = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
-                and "fused_stencil" in e.name)
-        out[f"acc_events={acc}"] = {"launches": fs.launches() - before,
-                                    "trace_kernels": n}
-    del space
-    torch.cuda.empty_cache()
-    return out
-
-
 def observability_phase(np, torch, mt, dev, side=N, side5=N5,
                         scenarios=OBS_SCENARIOS, steps=STEPS,
                         native_side=NATIVE_SIDE, cli_args=()) -> dict:
@@ -4758,6 +4771,7 @@ def observability_phase(np, torch, mt, dev, side=N, side5=N5,
           f"dispatches, stats() {final['dispatches']}")
     if on_card:
         check(k5 > 0, "6j (d) K5 was not launched")
+    ladder_guard(final, k5, "6j (d) the soak's pipeline service")
     del spaces
 
     # -- (e) a supervised K1 run with exc:1 -------------------------------------
@@ -4835,6 +4849,7 @@ def observability_phase(np, torch, mt, dev, side=N, side5=N5,
     check(serve_row["ledger_complete"]
           and serve_row["telemetry_snapshot"] == str(status),
           f"6j (g) the --serve --status run: {serve_row}")
+    cli_row_guard(serve_row, "6j (g) the --serve --status row")
     status.unlink()
 
     # -- (h) the native engine ----------------------------------------------------
@@ -4891,6 +4906,585 @@ def observability_main() -> None:
     out = observability_phase(np, torch, mt, torch.device("cuda"))
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out, default=repr), flush=True)
+
+
+#: phase 6k's activity for the K6/K7 rung (bench.py's middle fraction)
+LADDER_FRAC = 0.05
+#: phase 6k (d)'s wire secret (a loopback pair in one process)
+WIRE_SECRET = "chip-smoke-6k"
+
+
+def ladder_guard(stats: dict, launched, what: str) -> None:
+    """The degradation ladder never stands in for a kernel unnoticed: a
+    scheduler or service on ``pipeline``, ``active`` or ``active_fused``
+    that injected no fault ends with ``degraded_from`` None, ``impl_faults``
+    0 and (``launched``, when given) its kernel's counter advanced."""
+    check(stats["degraded_from"] is None and stats["impl_faults"] == 0
+          and (launched is None or launched > 0),
+          f"{what}: the ladder engaged or the kernel did not run "
+          f"(degraded_from={stats['degraded_from']!r}, impl_faults="
+          f"{stats['impl_faults']}, kernel launches {launched})")
+
+
+def cli_row_guard(row: dict, what: str) -> None:
+    """``ladder_guard`` for a ``--serve`` or ``--ensemble`` CLI row, which
+    carries no ladder keys (the JAX package's rows): under ``retry="solo"``
+    every impl-level fault makes a solo retry (under ``retry="none"`` the
+    run fails), so no solo retry and no quarantine means ``impl_faults`` 0
+    and no rung; and the row's kernel launches advanced."""
+    check(row["solo_retries"] == 0 and row["quarantined"] == 0
+          and row["kernel_launches"] > 0,
+          f"{what}: a solo retry, a quarantine or no kernel launch: {row}")
+
+
+def _k1_file_kernels(path) -> int:
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "fused_stencil" in e.get("name", ""))
+
+
+def device_trace_in_long_process(torch, mt, fs, dev, logdir: Path,
+                                 side=N, steps=STEPS) -> dict:
+    """Phase 6k (g), in the script's long process: phase 4's K1 run (64
+    steps of ``side``², substeps 8) under ``Tracer.device_trace``, its K1
+    kernels counted in the written Chrome file (the gate: every launch);
+    and, a finding beside it, the same run under a ``torch.profiler``
+    profile without ``acc_events`` exported to a file and counted there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_model_tpu_torch.utils import Tracer
+
+    logdir.mkdir(parents=True, exist_ok=True)
+    space = k1_space(torch, mt, dev, side)
+    model = mt.Model(mt.Diffusion(0.1))
+    ex = mt.SerialExecutor("pallas", substeps=8)
+    model.execute(space, ex, steps=steps)
+    out = {}
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    before = fs.launches()
+    with profile(activities=acts) as prof:
+        model.execute(space, ex, steps=steps)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    raw = logdir / "raw_profile.pt.trace.json"
+    prof.export_chrome_trace(str(raw))
+    out["profile_without_acc_events"] = {
+        "launches": fs.launches() - before,
+        "file_kernels": _k1_file_kernels(raw),
+        "events_kernels": sum(1 for e in prof.events()
+                              if e.device_type.name == "CUDA"
+                              and "fused_stencil" in e.name)}
+    tr = Tracer()
+    before = fs.launches()
+    t0 = time.perf_counter()
+    with tr.device_trace(str(logdir)):
+        model.execute(space, ex, steps=steps)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    out["device_trace"] = {
+        "launches": fs.launches() - before,
+        "file_kernels": _k1_file_kernels(logdir / "device_trace.pt.trace.json"),
+        "seconds": time.perf_counter() - t0}
+    shutil.rmtree(logdir, ignore_errors=True)
+    del space
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    d, r = out["device_trace"], out["profile_without_acc_events"]
+    print(f"6k (g) Tracer.device_trace in this long process: "
+          f"{d['file_kernels']} K1 kernels in the written file for "
+          f"{d['launches']} launches; a profile without acc_events: "
+          f"{r['file_kernels']} in its file, {r['events_kernels']} in "
+          f"prof.events(), for {r['launches']} launches", flush=True)
+    check(d["launches"] == steps // 8 and d["file_kernels"] == d["launches"],
+          f"6k (g) device_trace lost K1 kernels: {out}")
+    return out
+
+
+def ladder_formats_phase(np, torch, mt, dev, reset_counts, kernel_launches,
+                         side5=N5, lanes=B5, steps=STEPS5,
+                         scenarios=SERVE_GATE, out_dir=None) -> dict:
+    """Phase 6k: the degradation ladder and the fleet's formats on the card
+    (see the module docstring): (a) the ladder from K5 and the async
+    service's health gate; (b) the ladder from K6/K7; (c) the TJ1 journal
+    of K5-served lanes under the protocol witness, replayed onto the card,
+    torn and fenced; (d) a served lane over the TW1 wire, on a socketpair
+    and on TCP after the handshake; (e) lockdep over a K5 soak; (f) a
+    ticket's timeline. ``check`` fails the run on any disagreement."""
+    import socket
+    import threading
+    import warnings
+
+    from mpi_model_tpu_torch import obs
+    from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
+                                              EnsembleScheduler,
+                                              ServiceOverloaded, buckets_for,
+                                              run_soak)
+    from mpi_model_tpu_torch.ensemble import journal as jn
+    from mpi_model_tpu_torch.ensemble import lifecycle, wire
+    from mpi_model_tpu_torch.resilience import (inject, lockdep,
+                                                protocolcheck)
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
+    from mpi_model_tpu_torch.utils import Tracer, set_tracer
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    out_dir = (Path(__file__).resolve().parent / "chiprun_out"
+               if out_dir is None else Path(out_dir))
+    out = {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def k5n():
+        return kernel_launches()["pipeline_stencil"]
+
+    base = np.random.default_rng(SEED).uniform(
+        0.5, 2.0, (side5, side5)).astype(np.float32)
+    spaces = [mt.CellularSpace({"value": torch.from_numpy(
+        np.roll(base, 7 * i, axis=0)).to(dev)}, side5, side5)
+        for i in range(lanes)]
+    del base
+    model01 = mt.Model(mt.Diffusion(0.1))
+    k5_calls = steps // 8 + steps % 8  # K5 launches a dispatch at substeps 8
+
+    def serve(sched, spaces_, steps_=steps):
+        ts = [sched.submit(s, model01, steps_) for s in spaces_]
+        sched.pump(force=True)
+        return [sched.poll(t) for t in ts]
+
+    def rung_warnings(w) -> list:
+        return [str(x.message) for x in w
+                if issubclass(x.category, RuntimeWarning)
+                and "degraded to" in str(x.message)]
+
+    def equal_lanes(got, want) -> bool:
+        return all(torch.equal(g[0].values["value"], v[0].values["value"])
+                   for g, v in zip(got, want))
+
+    # -- (a) the ladder from K5 ------------------------------------------------
+    sched = EnsembleScheduler(impl="pipeline", substeps=8, degrade_after=1,
+                              retry="solo", buckets=buckets_for(lanes))
+    reset_counts()
+    t0 = time.perf_counter()
+    clean = serve(sched, spaces)
+    sync()
+    clean_s = time.perf_counter() - t0
+    ran = kernel_launches()
+    ladder_guard(sched.stats(), ran["pipeline_stencil"],
+                 "6k (a) the clean K5 dispatch")
+    check(ran["pipeline_stencil"] == k5_calls and all(
+        r[1].backend_report.get("kernel") == "K5 pipeline_stencil"
+        for r in clean), f"6k (a) the clean dispatch: launches {ran}")
+    del clean
+    k5_0 = k5n()
+    with inject.armed(FaultPlan((Fault("batch_exc", at=0),))) as fst:
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            fell = serve(sched, spaces)
+            sync()
+            rung_s = time.perf_counter() - t0
+    rungs = rung_warnings(w)
+    st = sched.stats()
+    k5_after = k5n() - k5_0
+    want = serve(EnsembleScheduler(impl="xla", buckets=buckets_for(lanes)),
+                 spaces)
+    bitwise = equal_lanes(fell, want)
+    stamped = all((r[1].backend_report or {}).get("impl") == "xla"
+                  and r[1].backend_report.get("degraded_from") == "pipeline"
+                  for r in fell)
+    finite = all(tuple(r[0].values["value"].shape) == (side5, side5)
+                 and bool(torch.isfinite(r[0].values["value"]).all())
+                 for r in fell)
+    out["a"] = {"lanes": lanes, "side": side5, "clean_dispatch_s": clean_s,
+                "rung_dispatch_s": rung_s, "warnings": rungs,
+                "fired": [f["kind"] for f in fst.fired],
+                "k5_launches_after_rung": k5_after,
+                "bitwise_fresh_xla": bitwise, "stamped": stamped,
+                "stats": {k: st[k] for k in (
+                    "impl", "degraded_from", "intake_gated", "impl_faults",
+                    "recovered_failures", "solo_retries", "quarantined")}}
+    print(f"6k (a) {lanes} x {side5}^2 pipeline (K5, substeps 8): clean "
+          f"dispatch {clean_s:.3f} s, K5 launched {ran['pipeline_stencil']}; "
+          f"batch_exc with degrade_after=1: {rungs}; the {lanes} solo "
+          f"retries on xla in {rung_s:.3f} s, every report stamped impl xla "
+          f"degraded_from pipeline {stamped}, bit for bit a fresh xla "
+          f"scheduler {bitwise}, K5 launches after the rung {k5_after}; "
+          f"stats {out['a']['stats']}", flush=True)
+    check(len(rungs) == 1 and "'pipeline' degraded to 'xla'" in rungs[0]
+          and out["a"]["fired"] == ["batch_exc"],
+          f"6k (a) the rung was not announced once: {rungs}")
+    check(stamped and bitwise and finite and k5_after == 0,
+          "6k (a) the degraded lanes are not the xla dispatch's, or K5 "
+          "ran after the rung")
+    check(st["impl"] == "xla" and st["degraded_from"] == "pipeline"
+          and st["impl_faults"] == 1 and st["recovered_failures"] == lanes
+          and not st["intake_gated"], f"6k (a) stats: {out['a']['stats']}")
+    del fell, want, sched
+
+    # the async service's mid-fall gate: shed while gated, reopened by the
+    # first clean completion
+    svc = AsyncEnsembleService(model01, steps=steps, impl="pipeline",
+                               substeps=8, retry="none", degrade_after=1,
+                               max_wait_s=1e9, max_batch=2, start=False)
+    gate = []
+
+    def shed(space) -> bool:
+        try:
+            svc.submit(space)
+        except ServiceOverloaded as e:
+            return "health-gated" in str(e)
+        return False
+
+    with inject.armed(FaultPlan((Fault("batch_exc", at=0),))):
+        a = svc.submit(spaces[0])
+        b = svc.submit(spaces[1])
+        c = svc.submit(spaces[2], steps=3)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            svc.pump_once()
+        gate.append(("rung", rung_warnings(w)))
+        gate.append(("gated", svc.scheduler.intake_gated))
+        gate.append(("shed while gated", shed(spaces[3])))
+        svc.pump_once(force=True)
+        gate.append(("shed with C in flight", shed(spaces[3])))
+        svc.pump_once()
+        gate.append(("gated after C", svc.scheduler.intake_gated))
+        t = svc.submit(spaces[3])
+    svc.stop()
+    failed = []
+    for bad in (a, b):
+        try:
+            svc.poll(bad)
+            failed.append(None)
+        except inject.InjectedFault:
+            failed.append("InjectedFault")
+    got_c, got_t = svc.poll(c), svc.poll(t)
+    fresh = EnsembleScheduler(impl="xla")
+    gate_ok = (gate[1][1] and gate[2][1] and gate[3][1] and not gate[4][1]
+               and failed == ["InjectedFault"] * 2
+               and equal_lanes([got_c], serve(fresh, [spaces[2]], 3))
+               and equal_lanes([got_t], serve(fresh, [spaces[3]]))
+               and got_c[1].backend_report.get("degraded_from")
+               == "pipeline")
+    out["a"]["gate"] = {"sequence": gate, "failed": failed,
+                        "shed": svc.stats()["shed"], "ok": gate_ok}
+    print(f"6k (a) async service mid-fall on the card: {gate}; A/B "
+          f"{failed}; C and the reopened ticket bit for bit fresh xla, "
+          f"stamped: {gate_ok}; shed {svc.stats()['shed']}", flush=True)
+    check(gate_ok and svc.stats()["shed"] == 2,
+          f"6k (a) the health gate: {out['a']['gate']}")
+    del svc, got_c, got_t, fresh
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (b) the ladder from K6/K7 ---------------------------------------------
+    act = [mt.CellularSpace({"value": torch.from_numpy(
+        workload(np, side5, side5, LADDER_FRAC, SEED + i)).to(dev)},
+        side5, side5) for i in range(2)]
+    sched = EnsembleScheduler(impl="active_fused", degrade_after=1,
+                              retry="solo", max_batch=2)
+    reset_counts()
+    serve(sched, act)
+    ran = kernel_launches()
+    k67 = (ran["fused_compute"], ran["fused_scatter"])
+    ladder_guard(sched.stats(), min(k67), "6k (b) the clean K6/K7 dispatch")
+    rows = []
+    for rung in ("active", "xla"):
+        before = kernel_launches()
+        with inject.armed(FaultPlan((Fault("batch_exc", at=0),))):
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                got = serve(sched, act)
+                sync()
+                secs = time.perf_counter() - t0
+        after = kernel_launches()
+        want = serve(EnsembleScheduler(impl=rung, max_batch=2), act)
+        row = {"rung": rung, "warnings": rung_warnings(w), "seconds": secs,
+               "bitwise_own_dispatch": equal_lanes(got, want),
+               "stamped": all(
+                   (r[1].backend_report.get("impl"),
+                    r[1].backend_report.get("degraded_from"))
+                   == (rung, "active_fused") for r in got),
+               "k6_k7_after_rung": (
+                   after["fused_compute"] - before["fused_compute"],
+                   after["fused_scatter"] - before["fused_scatter"]),
+               "impl": sched.stats()["impl"]}
+        rows.append(row)
+        check(len(row["warnings"]) == 1
+              and f"degraded to '{rung}'" in row["warnings"][0]
+              and row["bitwise_own_dispatch"] and row["stamped"]
+              and row["k6_k7_after_rung"] == (0, 0) and row["impl"] == rung,
+              f"6k (b) the rung to {rung}: {row}")
+        del got, want
+    st = sched.stats()
+    out["b"] = {"side": side5, "frac": LADDER_FRAC, "lanes": 2,
+                "k6_k7_clean": k67, "rungs": rows,
+                "impl_faults": st["impl_faults"],
+                "degraded_from": st["degraded_from"]}
+    print(f"6k (b) 2 x {side5}^2 at {LADDER_FRAC} active_fused: the clean "
+          f"dispatch launched K6/K7 {k67}; " + "; ".join(
+              f"rung to {r['rung']} in {r['seconds']:.3f} s, bit for bit "
+              f"its own dispatch {r['bitwise_own_dispatch']}, stamped "
+              f"{r['stamped']}, K6/K7 after it {r['k6_k7_after_rung']}"
+              for r in rows), flush=True)
+    check(st["impl_faults"] == 2 and st["degraded_from"] == "active_fused",
+          f"6k (b) stats: {out['b']}")
+    del act, sched
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (c) the journal of K5-served lanes, (f) a ticket's timeline ----------
+    jdir = out_dir / "journal_6k"
+    shutil.rmtree(jdir, ignore_errors=True)
+    path = jn.journal_path(str(jdir))
+    tracer = Tracer()
+    prev = set_tracer(tracer)
+    sched = EnsembleScheduler(impl="pipeline", substeps=8,
+                              buckets=buckets_for(lanes))
+    write_s = 0.0
+    try:
+        with protocolcheck.armed() as pw:
+            j = jn.TicketJournal(path)
+            tickets, ctxs = [], []
+            for s in spaces[:2]:
+                with tracer.span("client.submit"):
+                    ctx = tracer.current()
+                    ctxs.append(ctx)
+                    t = sched.submit(s, model01, steps)
+                    meta, arrays = jn.space_payload(s)
+                    t0 = time.perf_counter()
+                    j.append(lifecycle.SUBMIT, dict(
+                        meta, ticket=t, steps=steps,
+                        model=jn.model_meta(model01),
+                        trace=ctx.to_meta()), arrays)
+                    write_s += time.perf_counter() - t0
+                tickets.append(t)
+            k5_0 = k5n()
+            sched.pump(force=True)
+            served = [sched.poll(t) for t in tickets]
+            k5_c = k5n() - k5_0
+            for t, (sp, rep) in zip(tickets, served):
+                meta, arrays = jn.space_payload(sp)
+                t0 = time.perf_counter()
+                j.append(lifecycle.SERVED, dict(
+                    meta, ticket=t, steps=steps,
+                    initial_total=rep.initial_total,
+                    final_total=rep.final_total,
+                    wall_time_s=rep.wall_time_s), arrays)
+                write_s += time.perf_counter() - t0
+    finally:
+        set_tracer(prev)
+    ladder_guard(sched.stats(), k5_c, "6k (c) the journaled K5 dispatch")
+    nbytes = Path(path).stat().st_size
+    t0 = time.perf_counter()
+    state = jn.replay(path)
+    rebuilt = [jn.space_from_record(state.terminal[t], device=dev)
+               for t in tickets]
+    sync()
+    replay_s = time.perf_counter() - t0
+    rebuilt_ok = all(
+        r.values["value"].device.type == dev.type
+        and torch.equal(r.values["value"], sp.values["value"])
+        for r, (sp, _) in zip(rebuilt, served))
+    out["c"] = {"lanes": 2, "side": side5, "records": j.count,
+                "file_bytes": nbytes, "write_s": write_s,
+                "replay_s": replay_s, "protocol_records": pw.records,
+                "violations": pw.violations, "rebuilt_bitwise": rebuilt_ok,
+                "k5_launches": k5_c}
+    print(f"6k (c) the journal of 2 K5-served {side5}^2 lanes under the "
+          f"protocol witness: {j.count} records, {nbytes} bytes, written in "
+          f"{write_s:.3f} s; {pw.records} appends witnessed, violations "
+          f"{pw.violations}; replayed and rebuilt on {dev.type} in "
+          f"{replay_s:.3f} s, bit for bit K5's result {rebuilt_ok}",
+          flush=True)
+    check(pw.records == 4 and not pw.violations and rebuilt_ok
+          and state.unresolved() == [] and not state.duplicate_terminals
+          and not state.torn, f"6k (c) the journal: {out['c']}")
+    del rebuilt, state
+
+    tl = obs.timeline(tickets[0], journal_dir=str(jdir),
+                      spans=tracer.spans)
+    kinds = [e.kind for e in tl.events]
+    out["f"] = {"ticket": tickets[0], "complete": tl.complete,
+                "gaps": len(tl.gaps), "events": kinds,
+                "trace_id": tl.trace_id}
+    print(f"6k (f) obs.timeline of ticket {tickets[0]}: complete "
+          f"{tl.complete}, {len(tl.gaps)} gaps, events {kinds}", flush=True)
+    check(tl.complete and not tl.gaps and tl.trace_id == ctxs[0].trace_id
+          and lifecycle.SUBMIT in kinds
+          and lifecycle.SERVED in kinds and "ensemble.launch" in kinds
+          and "ensemble.fetch" in kinds, f"6k (f) the timeline: {out['f']}")
+
+    # the torn tail and the fence
+    n_before = j.count
+    with inject.armed(FaultPlan((Fault("journal_torn", at=n_before,
+                                       offset=30, tear="truncate"),))) as tst:
+        j.append(lifecycle.SUBMIT, {"ticket": 99, "steps": steps})
+    j.close()
+    recs, torn = jn.read_records(path)
+    j2 = jn.TicketJournal(path)  # reopening truncates the torn tail
+    count2 = j2.count
+    jn.declare_epoch(j2, supervisor="chip-smoke")
+    zombie = jn.TicketJournal(path, epoch=0)
+    size = Path(path).stat().st_size
+    try:
+        zombie.append(lifecycle.SUBMIT, {"ticket": 100})
+        fenced = False
+    except jn.StaleEpochError:
+        fenced = True
+    zombie.close()
+    j2.close()
+    audit = jn.audit_journal(path)
+    out["c"].update(torn={"fired": [f["kind"] for f in tst.fired],
+                          "torn": torn, "verified": len(recs),
+                          "count_after_reopen": count2},
+                    fence={"refused": fenced,
+                           "unchanged": Path(path).stat().st_size == size,
+                           "audit_ok": audit["ok"],
+                           "epochs": [e["epoch"] for e in audit["epochs"]]})
+    print(f"6k (c) journal_torn at record {n_before}: torn {torn}, the "
+          f"verified prefix {len(recs)} records, {count2} after reopening; "
+          f"an epoch-0 handle after epoch 1 was declared refused {fenced}, "
+          f"the file unchanged {out['c']['fence']['unchanged']}, audit ok "
+          f"{audit['ok']}", flush=True)
+    check(out["c"]["torn"]["fired"] == ["journal_torn"] and torn
+          and len(recs) == n_before == count2 and fenced
+          and out["c"]["fence"]["unchanged"] and audit["ok"],
+          f"6k (c) the torn tail or the fence: {out['c']}")
+    shutil.rmtree(jdir, ignore_errors=True)
+
+    # -- (d) a served lane over the wire ---------------------------------------
+    lane = served[0][0].values["value"]
+    got = {}
+
+    def receive(conn, key):
+        got[key] = conn.recv(deadline_s=300)
+
+    a_sock, b_sock = socket.socketpair()
+    tx, rx = wire.FrameConn(a_sock), wire.FrameConn(b_sock)
+    th = threading.Thread(target=receive, args=(rx, "pair"))
+    th.start()
+    t0 = time.perf_counter()
+    tx.send("ok", {"ticket": tickets[0]}, {"value": lane})
+    th.join(timeout=300)
+    back = got["pair"][2]["value"].to(dev)
+    sync()
+    pair_s = time.perf_counter() - t0
+    pair_ok = torch.equal(back, lane)
+    pair_bytes = tx.bytes_out
+    tx.close(), rx.close()
+    srv = wire.tcp_listener()
+    host, port = srv.getsockname()[:2]
+    acc = {}
+
+    def accept():
+        sock, _ = srv.accept()
+        wire.serve_handshake(sock, WIRE_SECRET)
+        acc["conn"] = wire.FrameConn(sock)
+        receive(acc["conn"], "tcp")
+
+    th = threading.Thread(target=accept)
+    th.start()
+    t0 = time.perf_counter()
+    cs_ = wire.tcp_dial(f"{host}:{port}")
+    wire.client_handshake(cs_, WIRE_SECRET)
+    hs_s = time.perf_counter() - t0
+    cconn = wire.FrameConn(cs_)
+    t0 = time.perf_counter()
+    cconn.send("ok", {"ticket": tickets[0]}, {"value": lane})
+    th.join(timeout=300)
+    back = got["tcp"][2]["value"].to(dev)
+    sync()
+    tcp_s = time.perf_counter() - t0
+    tcp_ok = torch.equal(back, lane)
+    out["d"] = {"frame_bytes": pair_bytes,
+                "socketpair": {"seconds": pair_s, "bitwise": pair_ok},
+                "tcp": {"host": host, "handshake_s": hs_s,
+                        "seconds": tcp_s, "bitwise": tcp_ok,
+                        "bytes_in": acc["conn"].bytes_in}}
+    cconn.close(), acc["conn"].close(), srv.close()
+    print(f"6k (d) a served {side5}^2 f32 lane in one TW1 frame of "
+          f"{pair_bytes} bytes: socketpair {pair_s:.3f} s bit for bit "
+          f"{pair_ok}; TCP {host} after a {hs_s * 1e3:.2f} ms handshake "
+          f"{tcp_s:.3f} s bit for bit {tcp_ok} (card to host to card)",
+          flush=True)
+    check(pair_ok and tcp_ok and out["d"]["tcp"]["bytes_in"] == pair_bytes,
+          f"6k (d) the wire: {out['d']}")
+    del lane, back, served, sched
+
+    # -- (e) lockdep over a K5 soak --------------------------------------------
+    soak = [(spaces[i % lanes], None, None) for i in range(scenarios)]
+    k5_0 = k5n()
+    t0 = time.perf_counter()
+    with lockdep.armed() as lw:
+        with AsyncEnsembleService(model01, steps=steps, impl="pipeline",
+                                  substeps=8, buckets=buckets_for(lanes),
+                                  max_queue=64) as svc:
+            rep = run_soak(svc, soak, arrival_rate_hz=1e9)
+            st = svc.stats()
+    soak_s = time.perf_counter() - t0
+    k5_e = k5n() - k5_0
+    edges = sorted(lw.edges)
+    out["e"] = {"scenarios": scenarios, "side": side5, "edges": edges,
+                "violations": lw.violations, "k5_launches": k5_e,
+                "served": rep["served"], "seconds": soak_s}
+    print(f"6k (e) lockdep armed over run_soak of {scenarios} x {side5}^2 "
+          f"through AsyncEnsembleService(pipeline): served {rep['served']}, "
+          f"K5 launches {k5_e}, edges {edges}, violations {lw.violations} "
+          f"({soak_s:.2f} s)", flush=True)
+    ladder_guard(st, k5_e, "6k (e) the witnessed K5 soak")
+    check(rep["ledger_complete"] and rep["served"] == scenarios and edges
+          and not lw.violations, f"6k (e) lockdep: {out['e']}")
+    del spaces, soak, svc
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6k: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def ladder_phase_main() -> None:
+    """Phase 6k alone on the card (``python3 -c "import chip_smoke;
+    chip_smoke.ladder_phase_main()"``): builds the sources, runs
+    ``ladder_formats_phase``, then (g), whose own profile without
+    ``acc_events`` comes before its ``device_trace``; the rows go to
+    ``chiprun_out/chip_smoke_6k.json``."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import _build
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_active as fa
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+
+    def reset_counts():
+        for mod in (fs, cs, k4, k5, fa):
+            mod.reset_launches()
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out = ladder_formats_phase(np, torch, mt, dev, reset_counts,
+                               kernel_launches)
+    out["g"] = device_trace_in_long_process(torch, mt, fs, dev,
+                                            out_dir / "device_trace_6k")
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6k.json").write_text(
+        json.dumps(out, indent=1, default=repr))
 
 
 def main() -> int:
@@ -6053,6 +6647,9 @@ def main() -> int:
               and sum(ran.values()) == want_k5,
               f"ensemble {impl} {dname} substeps={sub}: launches {ran}, "
               f"expected {want_k5} of K5 and nothing else")
+        if impl == "pipeline":
+            ladder_guard(svc.stats(), ran["pipeline_stencil"],
+                         f"6c ensemble {impl} {dname} substeps={sub}")
         for sp, rep in res:
             v = sp.values["value"]
             check(tuple(v.shape) == (N5, N5) and v.dtype == getattr(
@@ -6141,10 +6738,12 @@ def main() -> int:
     sp3 = lane_spaces("float32")[:3]
     svc = mt.EnsembleService(model01, steps=STEPS5, impl="pipeline",
                              substeps=8, buckets=mt.buckets_for(B5))
+    k5_0 = k5.launches()
     ts = [svc.submit(s) for s in sp3]
     svc.flush()
     res3 = [svc.result(t) for t in ts]
     st = svc.stats()
+    ladder_guard(st, k5.launches() - k5_0, "6c the padded pipeline batch")
     check(st["batch_occupancy"] == 0.75
           and svc.scheduler.dispatch_log[-1]["bucket"] == 4
           and len(res3) == 3, f"B=3 did not pad to the 4-bucket: {st}")
@@ -6272,9 +6871,9 @@ def main() -> int:
 
     # -- 6j. observability: tracing, the roofline, the status plane -------------
     t_obs = time.perf_counter()
-    long_counts = long_process_trace_counts(torch, mt, fs, dev)
-    print(f"6j finding: (a)'s K1 run profiled in this long process: "
-          f"{long_counts}", flush=True)
+    # 6k (g) runs here, in the long process the earlier phases profiled
+    trace_g = device_trace_in_long_process(
+        torch, mt, fs, dev, here / "chiprun_out" / "device_trace_6k")
     # (f) the build cache: the cold process (started before phase 2) built
     # into an empty directory, a warm one loads from it
     cold.wait(timeout=900)
@@ -6322,10 +6921,15 @@ def main() -> int:
     check(proc.returncode == 0, "6j: the observability process failed:\n"
                                 f"{proc.stderr[-4000:]}")
     observability = json.loads(lines[-1])
-    observability.update(long_process=long_counts, f=cache,
+    observability.update(f=cache,
                          seconds_total=time.perf_counter() - t_obs)
     print(f"6j: {observability['seconds_total']:.1f} s (its process "
           f"{observability['seconds']:.1f} s)", flush=True)
+
+    # -- 6k. the degradation ladder and the fleet's formats ----------------------
+    ladder = ladder_formats_phase(np, torch, mt, dev, reset_counts,
+                                  kernel_launches)
+    ladder["g"] = trace_g
 
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
@@ -6340,10 +6944,16 @@ def main() -> int:
                    f"--dimx={N4}", f"--dimy={N4}", "--substeps=8",
                    "--steps=8", "--json"])
     check(rc == 0, "the coupled (K4) CLI run failed")
-    rc = cli_main(["run", "--flow=diffusion", f"--dimx={N5}", f"--dimy={N5}",
-                   f"--ensemble={B5}", "--ensemble-impl=pipeline",
-                   "--substeps=8", f"--steps={STEPS5}", "--json"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--flow=diffusion", f"--dimx={N5}",
+                       f"--dimy={N5}", f"--ensemble={B5}",
+                       "--ensemble-impl=pipeline", "--substeps=8",
+                       f"--steps={STEPS5}", "--json"])
+    print(buf.getvalue(), end="", flush=True)
     check(rc == 0, "the ensemble (K5) CLI run failed")
+    cli_row_guard(json.loads(buf.getvalue().strip().splitlines()[-1]),
+                  "7 the ensemble (K5) CLI row")
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
                    "--mesh=2x2", "--impl=pallas", "--halo-depth=8",
                    "--steps=8", "--json"])
@@ -6720,7 +7330,7 @@ def main() -> int:
          "sharded": sharded, "halo_main_shard_err": halo_err,
          "sharded_active": sharded_active, "bf16_interior": bf16,
          "checkpoint": ckpt, "ir": ir, "observability": observability,
-         "build": _build.build_info, "cases": cases,
+         "ladder_formats": ladder, "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)

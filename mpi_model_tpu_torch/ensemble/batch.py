@@ -65,7 +65,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import threading
 import time as _time
 from typing import Callable, Optional, Sequence
 
@@ -79,7 +78,7 @@ from ..models.model import (ConservationError, Model, Report,
 from ..ops.flow import Diffusion, PointFlow, build_outflow
 from ..ops.fused_stencil import resolve_compute_dtype
 from ..ops.stencil import neighbor_counts, transport
-from ..resilience import inject
+from ..resilience import inject, lockdep
 
 Values = dict[str, torch.Tensor]
 
@@ -704,8 +703,9 @@ class EnsembleExecutor:
         #: counters); None before any run
         self.last_backend_report: Optional[dict] = None
         #: guards the runner cache and its counters: the synchronous service
-        #: dispatches on whichever client thread filled the bucket
-        self._cache_lock = threading.Lock()
+        #: dispatches on whichever client thread filled the bucket (made
+        #: through the lock-order witness: a plain Lock disarmed)
+        self._cache_lock = lockdep.lock("EnsembleExecutor._cache_lock")
         self._cache: dict = {}
         self.builds = 0
         self.cache_hits = 0

@@ -16,17 +16,26 @@ policies with a fake clock); wall times for the counters come from
 
 Self-healing: with ``retry="solo"`` a failed scenario is re-dispatched alone
 once: a solo success means the batch was at fault and the scenario is
-recovered; a solo failure quarantines it with a ``FailureEvent``. An
-impl-level fault (a kernel's build or launch error, an ineligible engine)
-reaches every affected ticket as that error: the JAX package's degradation
-ladder (``pipeline`` → ``xla``, ``active_fused`` → ``active`` → ``xla``) is
-not carried over, because every lower rung in the port is plain torch, and
-a kernel's failure must not turn into the plain version running on the card.
-``impl_faults`` counts them; ``degraded_from`` and ``intake_gated`` keep the
-JAX package's ``stats()`` keys and never change. ``dispatch_deadline_s`` bounds a dispatch by the injectable clock (an
+recovered; a solo failure quarantines it with a ``FailureEvent``.
+``dispatch_deadline_s`` bounds a dispatch by the injectable clock (an
 overrun is a ``DispatchTimeout``), ``ticket_deadline_s`` a queued ticket
 (``TicketExpired`` with a ``FailureEvent``), ``retry_budget`` the total solo
 retries.
+
+The degradation ladder (the JAX package's): an impl-level fault (a whole
+dispatch failing, a lane failure that a solo run clears, a solo whole-batch
+failure) counts in ``impl_faults``, and every ``degrade_after`` of them the
+executor steps one rung down ``DEGRADE_TO``: ``active_fused`` (K6/K7) →
+``active`` → ``xla``, ``pipeline`` (K5) → ``xla``. A rung is announced (a
+``RuntimeWarning`` "degraded to ..."), raises ``intake_gated`` until the
+next dispatch completes clean (the async service sheds while it holds and
+backlog is unproven), and every report a degraded engine serves carries
+``impl`` and ``degraded_from`` in its ``backend_report``; ``stats()`` reads
+both. A hand kernel's own build, load or launch failure
+(``ops._build.KernelError``, the error or one in its cause chain) counts in
+``impl_faults`` but steps no rung, unlike the JAX package's ladder, which
+steps on any impl-level fault: it reaches its tickets as that error, and
+the plain engine never runs in a failing kernel's place.
 
 A dispatch is two halves: launch (assemble, pad, resolve the runner, queue
 the work: ``launch_due`` → ``batch.launch_ensemble``) and finish (wait on
@@ -72,8 +81,8 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-import threading
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -81,7 +90,8 @@ import torch
 from ..core.cellular_space import CellularSpace
 from ..models.model import _not_ported
 from ..obs.flight import get_recorder
-from ..resilience import FailureEvent, inject
+from ..ops._build import KernelError
+from ..resilience import FailureEvent, inject, lockdep
 from ..utils.metrics import ThroughputCounter
 from ..utils.tracing import get_tracer
 from .batch import (EnsembleExecutor, complete_ensemble, launch_ensemble,
@@ -108,6 +118,18 @@ class TicketExpired(RuntimeError):
     """A queued ticket's ``ticket_deadline_s`` passed before it was
     dispatched: ``poll`` raises this with a complete ``FailureEvent``
     (kind="expired") attached, never a silent drop."""
+
+
+def _kernel_failed(err: BaseException) -> bool:
+    """Whether ``err``, or an error in its cause chain, is a hand kernel's
+    build, load or launch failure."""
+    seen = set()
+    while err is not None and id(err) not in seen:
+        if isinstance(err, KernelError):
+            return True
+        seen.add(id(err))
+        err = err.__cause__ or err.__context__
+    return False
 
 
 def buckets_for(n: int) -> tuple[int, ...]:
@@ -166,6 +188,7 @@ class EnsembleScheduler:
                  clock: Callable[[], float] = time.monotonic,
                  retry: str = "none",
                  dispatch_deadline_s: Optional[float] = None,
+                 degrade_after: int = 2,
                  ticket_deadline_s: Optional[float] = None,
                  retry_budget: Optional[int] = None,
                  windows: int = 1, donate: bool = False,
@@ -214,12 +237,22 @@ class EnsembleScheduler:
         #: the serving member's identity, stamped into stats(), served
         #: backend reports and FailureEvents (None: a standalone scheduler)
         self.service_id = service_id
+        #: impl-level faults tolerated a ladder rung (DEGRADE_TO)
+        self.degrade_after = int(degrade_after)
+        #: the impl the ladder first degraded away from (None: never)
+        self.degraded_from: Optional[str] = None
+        #: True from a rung until the next clean completion: the async
+        #: service sheds new load while it holds and backlog is unproven
+        self.intake_gated = False
+        self._impl_fault_count = 0
         #: one FailureEvent per quarantined scenario, in order
         self.quarantine_log: list = []
         #: one FailureEvent per expired ticket, in order
         self.expired_log: list = []
-        #: THE lock over the queues, results, pending set and logs; re-entrant for the synchronous submit → dispatch chain
-        self._lock = threading.RLock()
+        #: THE lock over the queues, results, pending set, logs and ladder
+        #: state; re-entrant for the synchronous submit → dispatch chain.
+        #: Made through the lock-order witness (a plain RLock disarmed)
+        self._lock = lockdep.rlock("EnsembleScheduler._lock")
         self._queues: collections.OrderedDict[tuple, list[_Pending]] = \
             collections.OrderedDict()
         self._results: dict[int, object] = {}
@@ -668,13 +701,25 @@ class EnsembleScheduler:
             scenarios=k, bucket=flight.bucket, wall_s=wall,
             cache_hit=flight.cache_hit,
             inflight_s=time.perf_counter() - flight.inflight.t0)
-        if self.service_id is not None:
-            # every served report names the member that produced it
+        with self._lock:
+            # a clean completion closes the health gate: the (possibly
+            # degraded) engine is serving again
+            self.intake_gated = False
+            degraded = self.degraded_from
+        if degraded is not None or self.service_id is not None:
+            # a report served after a rung says so, naming the engine that
+            # ran its batch, and every served report names the member that
+            # produced it
+            extra = {}
+            if degraded is not None:
+                extra = {"impl": flight.inflight.executor.impl,
+                         "degraded_from": degraded}
+            if self.service_id is not None:
+                extra["service_id"] = self.service_id
             for res in results:
                 if not isinstance(res, Exception):
                     res[1].backend_report = {
-                        **(res[1].backend_report or {}),
-                        "service_id": self.service_id}
+                        **(res[1].backend_report or {}), **extra}
         return results, None, flight.cache_hit, wall
 
     def _execute_batch(self, items: list, bucket: int):
@@ -742,7 +787,7 @@ class EnsembleScheduler:
                      for it, res in zip(items, results)}
         for t in retried:
             it, res = by_ticket[t]
-            self._serve_solo(it, batch_level=False)
+            self._serve_solo(it, res, batch_level=False)
         for t in budget_starved:
             it, res = by_ticket[t]
             self._quarantine(it, res, attempts=1,
@@ -779,11 +824,12 @@ class EnsembleScheduler:
                             whole_err: Exception, cache_hit: bool,
                             wall: float) -> None:
         """An impl- or dispatch-level fault (an ineligible engine, a kernel
-        error, a deadline overrun): it is counted, then the solo-retry
-        machinery serves each lane or, under policy "none", every affected
-        ticket raises this error when polled."""
+        error, a deadline overrun): it is counted toward the degradation
+        ladder (a kernel error steps no rung), then the solo-retry machinery
+        serves each lane or, under policy "none", every affected ticket
+        raises this error when polled."""
         k = len(items)
-        self.counter.bump("impl_faults")
+        self._note_impl_fault(whole_err)
         with self._lock:
             self.dispatch_log.append({
                 "bucket": bucket, "count": k, "occupancy": k / bucket,
@@ -795,7 +841,7 @@ class EnsembleScheduler:
         if self.retry == "solo":
             for it in items:
                 if self._retry_budget_left():
-                    self._serve_solo(it, batch_level=True)
+                    self._serve_solo(it, whole_err, batch_level=True)
                 else:
                     self._quarantine(
                         it, whole_err, attempts=1,
@@ -810,7 +856,8 @@ class EnsembleScheduler:
         return (self.retry_budget is None
                 or self.counter.solo_retries < self.retry_budget)
 
-    def _serve_solo(self, it: _Pending, batch_level: bool) -> None:
+    def _serve_solo(self, it: _Pending, cause: Exception,
+                    batch_level: bool) -> None:
         """Re-dispatch one failed scenario alone, once: success means the
         failure was the batch's and the scenario recovers; failure means the
         scenario is at fault and is quarantined. Solo dispatches get their
@@ -837,12 +884,12 @@ class EnsembleScheduler:
             self.counter.bump("recovered_failures")
             if not batch_level:
                 # a lane failure that vanishes when the scenario runs alone
-                # is evidence of a batch-level fault
-                self.counter.bump("impl_faults")
+                # is evidence of a batch-level fault: it feeds the ladder
+                self._note_impl_fault(cause)
             self._publish(it, results[0])
             return
         if whole_err is not None:
-            self.counter.bump("impl_faults")
+            self._note_impl_fault(whole_err)
         self._quarantine(it, err, attempts=2)
 
     def _quarantine(self, it: _Pending, err: Exception,
@@ -879,6 +926,43 @@ class EnsembleScheduler:
                             ticket=it.ticket)
         self._publish(it, err)
 
+    #: the degradation ladder: each impl's next-simpler engine. The fused
+    #: active kernels step down to the plain active engine first (the same
+    #: skip rule without K6/K7), then to the dense batched step.
+    DEGRADE_TO = {"active_fused": "active", "active": "xla",
+                  "pipeline": "xla"}
+
+    def _note_impl_fault(self, err: Exception) -> None:
+        """Count an impl-level fault toward the ladder; every
+        ``degrade_after`` of them the executor steps one rung down
+        ``DEGRADE_TO`` (its substeps and compute dtype kept), with the
+        warning, the intake gate raised and ``degraded_from`` set to the
+        impl first left (the current one is ``stats()["impl"]``). A hand
+        kernel's own failure is counted and steps no rung."""
+        self.counter.bump("impl_faults")
+        if _kernel_failed(err):
+            return
+        with self._lock:
+            self._impl_fault_count += 1
+            nxt = self.DEGRADE_TO.get(self.executor.impl)
+            if (nxt is None
+                    or self._impl_fault_count < self.degrade_after):
+                return
+            old = self.executor.impl
+            if self.degraded_from is None:
+                self.degraded_from = old
+            # each further rung needs degrade_after new faults
+            self._impl_fault_count = 0
+            self.executor = EnsembleExecutor(
+                impl=nxt, substeps=self.executor.substeps,
+                compute_dtype=self.executor.compute_dtype)
+            # mid-fall: intake pauses until a dispatch completes clean
+            self.intake_gated = True
+        warnings.warn(
+            f"ensemble impl {old!r} degraded to {nxt!r} after "
+            f"{self.degrade_after} impl-level dispatch fault(s) "
+            f"(last: {type(err).__name__}: {err})", RuntimeWarning)
+
     # -- observability -------------------------------------------------------
 
     def stats(self) -> dict:
@@ -898,8 +982,8 @@ class EnsembleScheduler:
                 "retry": self.retry,
                 "retry_budget": self.retry_budget,
                 "ticket_deadline_s": self.ticket_deadline_s,
-                "degraded_from": None,
-                "intake_gated": False,
+                "degraded_from": self.degraded_from,
+                "intake_gated": self.intake_gated,
                 "migrated_out": self.migrated_out,
                 "migrated_in": self.migrated_in,
                 "service_id": self.service_id,

@@ -31,15 +31,26 @@ The pump thread launches on its current stream, the device's default
 stream; a space a client made on another stream is waited for before a
 batch reads it (``EnsembleScheduler.submit``). ``impl="pipeline"`` builds
 K5 on the constructing thread, so no build runs inside a dispatch
-deadline. A kernel's build or launch error in the pump reaches each ticket
-as that error, through the solo retry and then quarantine; no plain version
-runs in the kernel's place.
+deadline, and a K5 build error is fatal at the service's start. A kernel's
+launch error in the pump reaches each ticket as that error (the solo retry,
+then quarantine) and never steps the scheduler's degradation ladder; every
+``degrade_after`` other impl-level faults (an injected batch fault, a
+dispatch deadline overrun, an ineligible engine) step the engine one rung
+down, announced and stamped on every report it serves (``scheduler``'s
+docstring). While a rung's
+``intake_gated`` holds, ``AsyncEnsembleService.submit`` sheds
+(``ServiceOverloaded`` "health-gated") unless the queue is empty: an idle
+degraded service admits the next scenario as its probe. The synchronous
+service bounds no queue and sheds nothing, as in the JAX package.
+
+The serving locks are made through ``resilience.lockdep`` with the JAX
+package's keys (``"AsyncEnsembleService._lock_cv"`` here), so an armed
+witness watches the loop's acquisition orders.
 
 Not ported (``NotImplementedError`` naming ROADMAP.md): the JAX package's
 scenario tiering (``residency_budget``, ``hibernate_dir``,
 ``hibernate_budget``), ``mesh=``, and the fleet's member faults in the
-pump. The degradation ladder's ``degrade_after`` has no counterpart
-(``scheduler``'s docstring).
+pump.
 """
 
 from __future__ import annotations
@@ -54,7 +65,7 @@ import torch
 from ..core.cellular_space import CellularSpace
 from ..models.model import _not_ported
 from ..obs.flight import get_recorder
-from ..resilience import inject
+from ..resilience import inject, lockdep
 from ..utils.compile_cache import (configure_compile_cache,
                                    resolve_compile_cache)
 from .scheduler import DEFAULT_BUCKETS, EnsembleScheduler, TicketExpired
@@ -80,14 +91,12 @@ class EnsembleService:
     the template's ``time/time_step``); the other keyword arguments
     configure the scheduler (impl, substeps, buckets, max_wait_s, max_batch,
     the conservation policy, clock, ``retry="solo"``,
-    ``dispatch_deadline_s``, ``ticket_deadline_s``, ``retry_budget``,
-    ``windows``, ``donate``, ``service_id``). ``compile_cache`` points the
-    kernel build directory (``utils.compile_cache``) before the first
-    dispatch builds: ``"auto"`` (the default) the package's ``_build/``, a
-    directory that one, ``None`` a private directory (``compile_cache``
-    then stays None). The JAX package's ``degrade_after`` has no
-    counterpart: the port has no degradation ladder (``scheduler``'s
-    docstring).
+    ``dispatch_deadline_s``, ``degrade_after`` for the degradation
+    ladder, ``ticket_deadline_s``, ``retry_budget``, ``windows``,
+    ``donate``, ``service_id``). ``compile_cache`` points the kernel build
+    directory (``utils.compile_cache``) before the first dispatch builds:
+    ``"auto"`` (the default) the package's ``_build/``, a directory that
+    one, ``None`` a private directory (``compile_cache`` then stays None).
     """
 
     def __init__(self, model, *, steps: Optional[int] = None,
@@ -99,6 +108,7 @@ class EnsembleService:
                  clock: Callable[[], float] = time.monotonic,
                  retry: str = "none",
                  dispatch_deadline_s: Optional[float] = None,
+                 degrade_after: int = 2,
                  ticket_deadline_s: Optional[float] = None,
                  retry_budget: Optional[int] = None,
                  windows: int = 1, donate: bool = False,
@@ -120,6 +130,7 @@ class EnsembleService:
             check_conservation=check_conservation, tolerance=tolerance,
             rtol=rtol, clock=clock, retry=retry,
             dispatch_deadline_s=dispatch_deadline_s,
+            degrade_after=degrade_after,
             ticket_deadline_s=ticket_deadline_s,
             retry_budget=retry_budget,
             windows=windows, donate=donate, service_id=service_id,
@@ -181,7 +192,7 @@ class AsyncEnsembleService:
     ``donate=True`` (the default; xla impl only, off without a word for the
     other impls) carries each dispatch's ``[B, H, W]`` state between its
     windows in the dispatch's own buffers. The JAX package's signature is
-    accepted; ``degrade_after`` is not (there is no degradation ladder)."""
+    accepted, ``degrade_after`` (the degradation ladder) included."""
 
     def __init__(self, model, *, steps: Optional[int] = None,
                  max_queue: int = 64,
@@ -194,6 +205,7 @@ class AsyncEnsembleService:
                  clock: Callable[[], float] = time.monotonic,
                  retry: str = "solo",
                  dispatch_deadline_s: Optional[float] = None,
+                 degrade_after: int = 2,
                  retry_budget: Optional[int] = None,
                  windows: int = 1, donate: bool = True,
                  compile_cache: Optional[str] = "auto",
@@ -224,6 +236,7 @@ class AsyncEnsembleService:
             check_conservation=check_conservation, tolerance=tolerance,
             rtol=rtol, clock=clock, retry=retry,
             dispatch_deadline_s=dispatch_deadline_s,
+            degrade_after=degrade_after,
             ticket_deadline_s=deadline_s,
             retry_budget=retry_budget,
             windows=windows, donate=donate,
@@ -231,8 +244,8 @@ class AsyncEnsembleService:
         if impl == "pipeline":
             _warm_pipeline_kernel()
         self._poll_interval = float(poll_interval_s)
-        #: guards the loop state below
-        self._lock_cv = threading.Condition(threading.Lock())
+        #: guards the loop state below (witnessed when lockdep is armed)
+        self._lock_cv = lockdep.condition("AsyncEnsembleService._lock_cv")
         self._inflight = None
         self._stop = False
         #: abandon(): exit now, no drain (``_stop`` alone means drain, then
@@ -324,10 +337,10 @@ class AsyncEnsembleService:
     def submit(self, space: CellularSpace, *, model=None,
                steps: Optional[int] = None) -> int:
         """Admit one scenario, or raise :class:`ServiceOverloaded` (bounded
-        queue full, or an injected ``queue_full`` fault). The depth check
-        and the enqueue are atomic under the scheduler's lock, so the bound
-        holds under concurrent submitters; no device work runs on the
-        caller's thread."""
+        queue full, the health gate up, or an injected ``queue_full``
+        fault). The depth check and the enqueue are atomic under the
+        scheduler's lock, so the bound holds under concurrent submitters; no
+        device work runs on the caller's thread."""
         m = self.model if model is None else model
         n = self.default_steps if steps is None else int(steps)
         st = inject.active()
@@ -336,17 +349,21 @@ class AsyncEnsembleService:
             forced = st.take("admission", st.bump("admission"),
                              kinds=("queue_full",)) is not None
         sched = self.scheduler
-        # no health gate: the JAX package raises it while its degradation
-        # ladder is mid-fall, and the port has no ladder
         with sched._lock:
             depth = sched.pending_count()
-            if forced or depth >= self.max_queue:
+            # the gate sheds new load only while the degraded engine still
+            # has backlog to prove itself on: an idle degraded service
+            # accepts the next scenario as its health probe
+            gated = sched.intake_gated and depth > 0
+            if forced or gated or depth >= self.max_queue:
                 sched.counter.bump("shed")
                 get_recorder().record("shed", service_id=self.service_id,
                                       depth=depth)
-                reason = ("injected queue-full fault" if forced
-                          else f"admission queue full ({depth}/"
-                               f"{self.max_queue})")
+                reason = (
+                    "injected queue-full fault" if forced
+                    else "intake health-gated (degradation ladder "
+                         "mid-fall)" if gated
+                    else f"admission queue full ({depth}/{self.max_queue})")
                 raise ServiceOverloaded(
                     f"submission shed — {reason}; retry after the "
                     "estimated drain time",

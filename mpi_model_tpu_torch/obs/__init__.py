@@ -15,10 +15,11 @@ documents).
 - :func:`serve_status`: a live scrape endpoint on ``127.0.0.1`` (stdlib
   HTTP on a daemon thread): ``GET /metrics`` the Prometheus text, ``GET /``
   the snapshot, each computed per request;
+- :func:`timeline`: the post-mortem timeline of one ticket, joining the
+  fleet journal, the tiering journal and span files, with explicit
+  uncertainty records (``obs/postmortem.py``);
 - :mod:`obs.flight`: the flight recorder.
 
-``timeline`` (the post-mortem join of the fleet journal, the tiering
-journal and span files) needs the fleet's journals and is not ported.
 ``python -m mpi_model_tpu_torch.obs`` is the operator command line.
 """
 
@@ -255,10 +256,9 @@ def jsonable(x):
 
 
 def timeline(ticket: int, **kw):
-    """Post-mortem per-ticket timeline: it joins the fleet journal and the
-    tiering journal (``obs/postmortem.py``, ``ensemble/journal.py``), which
-    are not ported."""
-    from ..models.model import _not_ported
+    """The post-mortem timeline of ``ticket``
+    (``postmortem.reconstruct(ticket, journal_dir=, vault_dir=, spans=)``;
+    ``obs/postmortem.py`` has the join's rules)."""
+    from .postmortem import reconstruct
 
-    raise _not_ported("obs.timeline (the fleet journal join of "
-                      "obs/postmortem.py and ensemble/journal.py)")
+    return reconstruct(ticket, **kw)

@@ -3,12 +3,14 @@ telemetry plane (counterpart of ``mpi_model_tpu/obs/__main__.py``).
 
 - ``validate <snapshot.json>``: the schema gate (exit 1 naming the field);
 - ``prom <snapshot.json>``: the snapshot's stats as Prometheus text;
+- ``timeline <ticket> --journal DIR [--vault DIR] [--trace FILE]``: one
+  ticket's lifecycle from the journals and a span file (a Chrome trace or a
+  JSONL stream); ``--json`` prints the timeline document, otherwise an
+  ordered listing. Exit 1 when the timeline is incomplete (no submit, or no
+  or a duplicate terminal);
 - ``--serve PORT --snapshot FILE``: the live scrape endpoint over a
   snapshot file that a soak keeps rewriting (``run_soak(snapshot_path=)``),
   re-read per request; blocks until interrupted.
-
-``timeline`` is refused: it joins the fleet's journals, which are not
-ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,13 +22,15 @@ import threading
 from typing import Optional
 
 from . import prometheus_text, serve_status, validate_snapshot
+from .postmortem import reconstruct
 
 
 def main(argv: Optional[list] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m mpi_model_tpu_torch.obs",
         description="Telemetry-plane CLI: snapshot validation, Prometheus "
-                    "exposition, live scrape serving.")
+                    "exposition, per-ticket timeline reconstruction, live "
+                    "scrape serving.")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    help="serve the live scrape endpoint on PORT (requires "
                         "--snapshot; no subcommand)")
@@ -40,12 +44,17 @@ def main(argv: Optional[list] = None) -> int:
     pr = sub.add_parser("prom", help="Prometheus text exposition of a "
                                      "snapshot's stats")
     pr.add_argument("snapshot")
-    t = sub.add_parser("timeline", help="one ticket's lifecycle (not "
-                                        "ported)")
+    t = sub.add_parser("timeline", help="reconstruct one ticket's "
+                                        "lifecycle")
     t.add_argument("ticket", type=int)
-    t.add_argument("--journal", default=None)
-    t.add_argument("--vault", default=None)
-    t.add_argument("--trace", default=None)
+    t.add_argument("--journal", required=True,
+                   help="fleet journal directory")
+    t.add_argument("--vault", default=None,
+                   help="tiering vault directory (hibernation journal)")
+    t.add_argument("--trace", default=None,
+                   help="exported span file: a Chrome trace "
+                        "(export_chrome) or a streaming .jsonl sink "
+                        "(export_stream)")
     t.add_argument("--json", action="store_true")
 
     args = p.parse_args(argv)
@@ -75,11 +84,10 @@ def main(argv: Optional[list] = None) -> int:
             server.server_close()
         return 0
     if args.cmd is None:
-        p.error("a subcommand (validate/prom) or --serve is required")
+        p.error("a subcommand (validate/prom/timeline) or --serve is "
+                "required")
     if args.cmd == "timeline":
-        p.error("timeline joins the fleet journal (obs/postmortem.py, "
-                "ensemble/journal.py), which is not ported to the "
-                "PyTorch/CUDA package yet; see ROADMAP.md")
+        return _timeline(args)
     with open(args.snapshot) as fh:
         doc = json.load(fh)
     if args.cmd == "validate":
@@ -92,6 +100,23 @@ def main(argv: Optional[list] = None) -> int:
         return 0
     sys.stdout.write(prometheus_text(doc.get("stats", {})))
     return 0
+
+
+def _timeline(args) -> int:
+    tl = reconstruct(args.ticket, journal_dir=args.journal,
+                     vault_dir=args.vault, spans=args.trace)
+    if args.json:
+        print(json.dumps(tl.to_dict(), sort_keys=True))
+    else:
+        for e in tl.events:
+            ts = " " * 14 if e.t_wall is None else f"{e.t_wall:14.3f}"
+            sid = "" if e.service_id is None else f" [{e.service_id}]"
+            print(f"{ts} {e.source:<14} {e.kind:<18}{sid} {e.detail}")
+        print(f"-- ticket {tl.ticket}: "
+              + ("COMPLETE" if tl.complete else "INCOMPLETE")
+              + (f", {len(tl.gaps)} explicit gap/uncertainty record(s)"
+                 if tl.gaps else ", gap-free"))
+    return 0 if tl.complete else 1
 
 
 if __name__ == "__main__":

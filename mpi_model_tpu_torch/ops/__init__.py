@@ -6,6 +6,7 @@ ring)."""
 
 from .flow import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
     build_outflow, cell_coords
+from ._build import KernelError
 from .active import ActiveDiffusionStep, build_active_runner, plan_for
 from .composed_stencil import ComposedDiffusionStep, composed_dense_step, \
     composed_halo_step, composed_halo_step_plain, composed_taps
@@ -32,5 +33,5 @@ __all__ = [
     "field_step_plain", "pallas_field_step", "pipeline_dense_step",
     "pipeline_step_plain", "pallas_halo_step", "halo_step_plain",
     "composed_halo_step", "composed_halo_step_plain",
-    "pallas_field_halo_step", "field_halo_step_plain",
+    "pallas_field_halo_step", "field_halo_step_plain", "KernelError",
 ]

@@ -74,6 +74,12 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_info: dict[str, dict] = {}
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, load or launch (or its
+    library disagrees with its wrapper). The ensemble's degradation ladder
+    never steps on one: it reaches the caller as itself."""
+
+
 def find_nvcc() -> str:
     """Path of nvcc: ``$CUDA_HOME/bin``, then ``PATH``, then
     ``/usr/local/cuda/bin``."""
@@ -87,7 +93,7 @@ def find_nvcc() -> str:
     for c in cands:
         if c.is_file():
             return str(c)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
         "/usr/local/cuda/bin); the CUDA kernels are built at first use")
 
@@ -111,7 +117,7 @@ def _headers_of(text: str, what: str) -> list[Path]:
         for inc in _INCLUDE.findall(todo.pop()):
             path = CSRC / inc
             if not path.is_file():
-                raise RuntimeError(f"{what} includes {inc!r}, which is "
+                raise KernelError(f"{what} includes {inc!r}, which is "
                                    f"not a file under {CSRC}")
             if path not in seen:
                 seen.append(path)
@@ -180,7 +186,7 @@ def _compile(src: Path, flags: tuple[str, ...], out: Path,
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed on {what} (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, out)
@@ -258,9 +264,16 @@ def load(name: str) -> ctypes.CDLL:
     if name not in build_info or not Path(
             build_info[name]["library"]).is_file():
         _build(name)
-    lib = ctypes.CDLL(build_info[name]["library"])
+    lib = _open(build_info[name]["library"])
     _libs[name] = lib
     return lib
+
+
+def _open(path: str) -> ctypes.CDLL:
+    try:
+        return ctypes.CDLL(path)
+    except OSError as e:
+        raise KernelError(f"{path} failed to load: {e}") from e
 
 
 def load_unit(name: str) -> ctypes.CDLL:
@@ -268,6 +281,6 @@ def load_unit(name: str) -> ctypes.CDLL:
     (by the name it returned)."""
     lib = _libs.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build_info[name]["library"])
+        lib = _open(build_info[name]["library"])
         _libs[name] = lib
     return lib

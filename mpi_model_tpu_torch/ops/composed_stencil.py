@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
+from ._build import KernelError
 from .fused_stencil import (
     KERNEL_DTYPES,
     LANE,
@@ -621,7 +622,7 @@ def _kernel_lib():
             want = (kb, kmax, rel_min, (2 * kmax + 7 - rel_min) // 8 + 1,
                     MXU_WARP_COLS, bh, bw)
             if tuple(got) != want:
-                raise RuntimeError(f"composed_stencil's mxu layout for "
+                raise KernelError(f"composed_stencil's mxu layout for "
                                    f"{what} is {tuple(got)}, the wrapper's "
                                    f"{want}")
         lib._mm_typed = True
@@ -767,7 +768,7 @@ def plan_of(shape: tuple[int, int], rect: tuple, k: int,
 
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"{what} launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
 

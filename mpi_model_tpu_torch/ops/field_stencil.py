@@ -59,6 +59,7 @@ from typing import Mapping, Optional, Sequence
 import torch
 
 from ..core.cell import MOORE_OFFSETS
+from ._build import KernelError
 from .field_codegen import (TWO_BLOCK_WORDS, FieldUnit, modulators,
                             unit_source)
 from .field_lower import (MAX_CHANNELS, FieldProgram, check_program,
@@ -516,7 +517,7 @@ def unit_library(plan: FieldPlan) -> ctypes.CDLL:
     lib.mm_field_error_string.argtypes = [ctypes.c_int]
     lib.mm_field_error_string.restype = ctypes.c_char_p
     if lib.mm_field_call_size() != ctypes.sizeof(_FieldCall):
-        raise RuntimeError(
+        raise KernelError(
             f"the field kernel's FieldCall is {lib.mm_field_call_size()} "
             f"bytes, the wrapper's {ctypes.sizeof(_FieldCall)}")
     prog = plan.program
@@ -532,7 +533,7 @@ def unit_library(plan: FieldPlan) -> ctypes.CDLL:
             got = fn(rows)
             want = reckon(n_out, n_mod, rows, _ITEMSIZE[key])
             if got != want:
-                raise RuntimeError(
+                raise KernelError(
                     f"the field kernel's {key} instance{which} of {rows} "
                     f"rows takes {got} bytes of shared memory, the wrapper "
                     f"reckons {want}")
@@ -557,7 +558,7 @@ def _launch(plan: FieldPlan, call: _FieldCall, dtype, device,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.addressof(call), stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"field_stencil {'halo ' if halo else ''}kernel launch failed "
             f"for {plan.label}: {lib.mm_field_error_string(err).decode()} "
             f"(cudaError {err})")

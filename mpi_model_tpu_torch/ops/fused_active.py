@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
+from ._build import KernelError
 from .active import (
     ActivePlan,
     compact_tile_ids,
@@ -303,7 +304,7 @@ def _kernel_lib():
 
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"{what} kernel launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
 

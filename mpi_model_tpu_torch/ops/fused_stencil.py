@@ -48,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
+from ._build import KernelError
 
 LANE = 128  # the JAX kernel's lane tile; kept for the same block checks
 
@@ -743,7 +744,7 @@ def _kernel_lib():
         lib.mm_cuda_error_string.restype = ctypes.c_char_p
         lib.mm_halo_args_size.restype = ctypes.c_int
         if lib.mm_halo_args_size() != ctypes.sizeof(_HaloArgs):
-            raise RuntimeError(
+            raise KernelError(
                 f"fused_stencil's HaloArgs is {lib.mm_halo_args_size()} "
                 f"bytes, the wrapper's {ctypes.sizeof(_HaloArgs)}")
         lib._mm_typed = True
@@ -787,7 +788,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
         err = fn(values.data_ptr(), out.data_ptr(), h, w,
                  *_step_args(rate, offsets, nsteps, rect), stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"{_what('K1', values, offsets, nsteps, rect)} launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
     _launch_count += 1
@@ -880,7 +881,7 @@ def _launch_halo(values: torch.Tensor, ring, origin, global_shape,
         err = fn(ctypes.addressof(args), out.data_ptr(),
                  *_step_args(rate, offsets, nsteps, rect), stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"{_what('K2', values, offsets, nsteps, rect)} launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
     _halo_launch_count += 1

@@ -41,6 +41,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..core.cell import MOORE_OFFSETS
+from ._build import KernelError
 from .fused_stencil import KERNEL_DTYPES, _offset_codes, _offset_mask, \
     _validate_block, bf16_rect, check_offsets, closed_constants, \
     closed_steps_bf16, closed_steps_plain, exact_dense_step_plain, \
@@ -330,7 +331,7 @@ def _launch(values: torch.Tensor, out: torch.Tensor, rate: float,
                  len(offsets), _offset_codes(offsets), int(moore), int(bf16),
                  round_bf16(a), round_bf16(cb), stream)
     if err != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"pipeline_stencil kernel launch failed: "
             f"{lib.mm_cuda_error_string(err).decode()} (cudaError {err})")
     _launch_count += 1

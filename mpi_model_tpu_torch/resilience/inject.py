@@ -47,10 +47,22 @@ site           where the seam lives / what the fault does
                and keeps serving
 ``admission``  ``AsyncEnsembleService.submit`` — ``kind="queue_full"``
                makes one submission shed as if the queue were full
+``journal``    ``ensemble.journal.TicketJournal.append`` —
+               ``kind="journal_torn"`` tears the file right after record
+               ``at`` (``offset`` from the record's start);
+               ``kind="stale_epoch_append"`` (``channel`` = the journal
+               path) makes one append behave as a one-epoch-older handle's
+``wire``       ``ensemble.wire.FrameConn`` — ``kind="wire_torn"`` tears one
+               outgoing frame (``tear="corrupt"`` or ``"truncate"``);
+               ``kind="tcp_partition"`` closes the connection and raises
+               ``WireTimeout`` on a send or receive (``channel`` pins the
+               member, the connection's ``chaos_id``)
+``handshake``  ``ensemble.wire.serve_handshake``/``client_handshake`` —
+               ``kind="handshake_fail"`` garbles one side's proof
 =============  ==============================================================
 
-The other kinds (the fleet's ``member_kill``/``member_wedge``/
-``journal_torn``, the wire, tiering, handshake and lease seams) are
+The other kinds (the fleet's ``member_kill``/``member_wedge``,
+``proc_kill``, ``heartbeat_loss``, the tiering and lease seams) are
 accepted in a plan, so a plan of the JAX package parses here, but no port
 module fires them yet: their modules are not ported (ROADMAP.md).
 
@@ -435,8 +447,7 @@ def checkpoint_torn(path: str, step: int, part: str = "data") -> None:
 
 def journal_torn(path: str, index: int, record_start: int) -> None:
     """Ticket-journal seam: tear the journal right after record ``index``
-    (``offset`` relative to the record's start; unwired: the journal is not
-    ported)."""
+    (``offset`` relative to the record's start)."""
     st = _ACTIVE
     if st is None:
         return
@@ -485,7 +496,7 @@ def wake_corrupt(ticket) -> Optional[Fault]:
 
 def stale_epoch_append(path: str) -> bool:
     """Journal epoch-fence seam: True when a live ``stale_epoch_append``
-    fault says this append behaves as a zombie supervisor's (unwired)."""
+    fault says this append behaves as a zombie supervisor's."""
     st = _ACTIVE
     if st is None:
         return False

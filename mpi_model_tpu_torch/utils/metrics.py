@@ -9,9 +9,10 @@ imports nothing of the JAX package).
   ``batch_occupancy``, ``compile_cache_hit_rate``, latency percentiles),
   with the JAX package's key names.
 
-Locks are plain ``threading.Lock``s: the JAX package builds them through its
-lock-order witness factory, which hands out plain locks when the witness is
-disarmed, and the port has no witness.
+``ThroughputCounter``'s lock is made through ``resilience.lockdep`` under
+the JAX package's key (``"ThroughputCounter._lock"``): a plain
+``threading.Lock`` while the witness is disarmed. The reservoir's leaf lock
+is a plain lock, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 import collections
 import threading
 from typing import Optional
+
+from ..resilience import lockdep
 
 #: latency samples kept for the percentile fields: bounded, so a long-lived
 #: service reports the p50/p99 of its recent traffic
@@ -90,7 +93,7 @@ class ThroughputCounter:
                 "stale_epoch_rejections")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = lockdep.lock("ThroughputCounter._lock")
         for name in self.COUNTERS:
             setattr(self, name, 0)
         self.busy_s = 0.0

@@ -423,7 +423,11 @@ class Tracer:
         """A ``torch.profiler`` trace over the block (CPU activity, and CUDA
         activity when a card is present), under a host span of the same
         name; the trace is written into ``logdir`` as
-        ``<name>.pt.trace.json`` (Chrome format) when the block ends."""
+        ``<name>.pt.trace.json`` (Chrome format) when the block ends. The
+        profile keeps its events across the profiler's cycles
+        (``acc_events=True``): without it, a process that profiled before
+        lost the block's kernels (0 of 8 K1 kernels, ``chip_smoke.py``'s
+        long process on an H100)."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -431,7 +435,7 @@ class Tracer:
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
         with self.span(name, logdir=logdir):
-            with profile(activities=acts) as prof:
+            with profile(activities=acts, acc_events=True) as prof:
                 yield
             os.makedirs(logdir, exist_ok=True)
             prof.export_chrome_trace(

@@ -510,6 +510,7 @@ def test_pipeline_ensemble_on_the_card(dtype):
         assert rep.backend_report["launches"] == 3
     second = [svc.result(t) for t in [svc.submit(s) for s in spaces]]
     assert svc.stats()["runner_cache_hits"] == 1
+    _no_rung(svc.stats())
     ptrs = {sp.values["value"].untyped_storage().data_ptr()
             for sp, _ in second}
     for (sp, _), k in zip(first, kept):
@@ -568,6 +569,13 @@ def test_launch_queues_without_a_synchronization(impl):
 
 
 # -- the always-on serving loop ----------------------------------------------
+
+def _no_rung(stats):
+    """The degradation ladder did not stand in for the kernel: no rung and
+    no impl-level fault (the kernel's counter is the caller's check)."""
+    assert stats["degraded_from"] is None and stats["impl_faults"] == 0
+    assert not stats["intake_gated"]
+
 
 def _lanes(dev, B, side, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
@@ -629,6 +637,8 @@ def test_async_pipeline_bitwise_sync_on_the_card(compute_dtype):
     # the pump dispatches whatever is queued when it looks: one K5 launch
     # a dispatch, however the 8 submissions were cut
     assert launched == svc.stats()["dispatches"] >= 1
+    _no_rung(svc.stats())
+    _no_rung(sync.stats())
     for (a, ra), (b, rb) in zip(got, want):
         assert torch.equal(a.values["value"], b.values["value"])
         assert ra.final_total == rb.final_total
@@ -637,8 +647,11 @@ def test_async_pipeline_bitwise_sync_on_the_card(compute_dtype):
 @pytest.mark.cuda
 def test_a_k5_launch_error_reaches_the_ticket_on_the_card(monkeypatch):
     """A K5 launch error in the pump reaches each ticket as that error
-    (the solo retry, then quarantine), and the plain version never runs on
-    the card in its place."""
+    (the solo retry, then quarantine) at the default ``degrade_after``: it
+    steps no rung of the degradation ladder, and the plain version never
+    runs on the card in its place."""
+    from mpi_model_tpu_torch.ops import KernelError
+
     dev = _card()
     model = mt.Model(mt.Diffusion(0.1))
     spaces = _lanes(dev, 2, 256, 53)
@@ -661,12 +674,14 @@ def test_a_k5_launch_error_reaches_the_ticket_on_the_card(monkeypatch):
     tickets = [svc.submit(s) for s in spaces]
     svc.stop()
     for t in tickets:
-        with pytest.raises(RuntimeError,
+        with pytest.raises(KernelError,
                            match="invalid device function") as ei:
             svc.poll(t)
         assert ei.value.failure_event.attempt == 2
     assert plain == []
-    assert svc.stats()["quarantined"] == 2
+    st = svc.stats()
+    assert (st["quarantined"], st["impl_faults"], st["degraded_from"],
+            st["impl"]) == (2, 3, None, "pipeline")
 
 
 # -- the halo kernels K2, K3-halo and K4-halo, and the sharded path ---------
@@ -2251,6 +2266,108 @@ def test_device_trace_captures_k1_launches(tmp_path):
           and "fused_stencil" in e.get("name", "")]
     assert launched == 4 and len(k1) == launched
     assert [s.name for s in tr.spans] == ["device_trace"]
+
+
+def _k1_kernels_in(path) -> int:
+    import json
+
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel"
+               and "fused_stencil" in e.get("name", ""))
+
+
+@pytest.mark.cuda
+def test_device_trace_after_earlier_profiled_work_keeps_every_kernel(
+        tmp_path):
+    """``device_trace`` in a process that has profiled before (the drop
+    seen in a long process): a 64-step K1 run, 8 launches, leaves all 8
+    K1 kernels in the written Chrome file, counted in the file."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mpi_model_tpu_torch.utils import Tracer
+
+    dev = _card()
+    space = mt.CellularSpace.create(1024, 1024, 1.0, device=dev).with_values(
+        {"value": torch.from_numpy(np.random.default_rng(5).uniform(
+            0.5, 2.0, (1024, 1024))).to(dev, torch.float32)})
+    model = mt.Model(mt.Diffusion(0.1))
+    ex = mt.SerialExecutor("pallas", substeps=8)
+    model.execute(space, ex, steps=64)  # build and warm
+    for _ in range(3):  # earlier profiled work in this process
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.execute(space, ex, steps=64)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(tmp_path / "earlier.json"))
+    torch.cuda.synchronize()
+    tr = Tracer()
+    before = fs.launches()
+    with tr.device_trace(str(tmp_path)):
+        model.execute(space, ex, steps=64)
+        torch.cuda.synchronize()
+    launched = fs.launches() - before
+    assert launched == 8
+    assert _k1_kernels_in(tmp_path / "device_trace.pt.trace.json") == 8
+
+
+@pytest.mark.cuda
+def test_the_ladder_leaves_k5_and_k6_k7_on_the_card():
+    """The ladder's guard on the card: clean ``pipeline`` and
+    ``active_fused`` dispatches end with ``degraded_from`` None,
+    ``impl_faults`` 0 and their kernels' counters advanced; with
+    ``degrade_after=1`` a ``batch_exc`` takes ``pipeline`` to ``xla``
+    (each lane bit for bit a fresh ``xla`` dispatch, K5 not launched) and
+    ``active_fused`` to ``active`` then ``xla``."""
+    import warnings
+
+    from mpi_model_tpu_torch.resilience import inject
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+
+    def sparse(seed):
+        # one active tile of 16: a blob in the corner tile
+        v = np.zeros((512, 512), np.float32)
+        v[40:100, 40:100] = np.random.default_rng(seed).uniform(
+            0.5, 2.0, (60, 60))
+        return mt.CellularSpace.create(512, 512, 1.0, device=dev) \
+            .with_values({"value": torch.from_numpy(v).to(dev)})
+
+    def serve(sched, spaces):
+        ts = [sched.submit(s, model, 8) for s in spaces]
+        sched.pump(force=True)
+        return [sched.poll(t) for t in ts]
+
+    for impl, spaces, counter in (
+            ("pipeline", _lanes(dev, 2, 256, 61), lambda: ps.launches()),
+            ("active_fused", [sparse(62), sparse(63)],
+             lambda: fa.launches("fused_compute"))):
+        sch = mt.EnsembleScheduler(impl=impl, substeps=8 if impl ==
+                                   "pipeline" else 1, retry="solo",
+                                   degrade_after=1, max_batch=2)
+        c0 = counter()
+        serve(sch, spaces)
+        st = sch.stats()
+        assert st["degraded_from"] is None and st["impl_faults"] == 0
+        assert counter() > c0
+        rungs = ["xla"] if impl == "pipeline" else ["active", "xla"]
+        for rung in rungs:
+            c1 = counter()
+            with inject.armed(FaultPlan((Fault("batch_exc", at=0),))):
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    got = serve(sch, spaces)
+            assert any(f"degraded to '{rung}'" in str(x.message) for x in w)
+            assert counter() == c1
+            want = serve(mt.EnsembleScheduler(impl=rung, max_batch=2,
+                                              substeps=sch.executor.substeps),
+                         spaces)
+            for (g, grep_), (wv, _) in zip(got, want):
+                assert torch.equal(g.values["value"], wv.values["value"])
+                assert (grep_.backend_report["impl"],
+                        grep_.backend_report["degraded_from"]) == (rung, impl)
 
 
 @pytest.mark.cuda

@@ -11,9 +11,10 @@ the oracle and the JAX package's ensemble entry points, at the sizes of
 - ``impl="pipeline"`` (K5's plain version on the CPU) is held to the ``xla``
   impl at f32 within ``1e-5``, as the JAX package's tests hold it.
 - The scheduler, service and CLI are held to the JAX package's contracts
-  (padding, cache hits, flush order on a fake clock, marked lanes; a
-  kernel's error reaches its tickets, with no degradation ladder), with no
-  wall clock read.
+  (padding, cache hits, flush order on a fake clock, marked lanes; every
+  ``degrade_after`` injected faults take the degradation ladder's rung,
+  ``pipeline`` → ``xla``, while a kernel's own error reaches its tickets
+  and steps no rung), with no wall clock read.
 """
 
 import dataclasses
@@ -39,7 +40,9 @@ from mpi_model_tpu_torch.cli import main as cli_main
 from mpi_model_tpu_torch.ensemble.batch import (
     check_batch_conserved, complete_ensemble, conservation_violations,
     launch_ensemble, padding_scenarios, structure_key)
-from mpi_model_tpu_torch.resilience import FailureEvent
+from mpi_model_tpu_torch.ops import KernelError
+from mpi_model_tpu_torch.resilience import FailureEvent, inject
+from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan
 from mpi_model_tpu_torch.utils.metrics import ThroughputCounter
 
 EPS64 = 2.0 ** -52
@@ -758,23 +761,137 @@ def test_pipeline_impl_works_with_bucket_padding():
 
 
 def _failing_k5(monkeypatch):
-    """Make every K5 call fail as a build or launch failure does."""
+    """Make every K5 call fail as a build or launch failure does (the
+    wrapper's ``KernelError``); returns the list the calls are appended
+    to."""
     from mpi_model_tpu_torch.ops import pipeline_stencil
 
+    calls = []
+
     def fail(*args, **kwargs):
-        raise RuntimeError("pipeline_stencil kernel launch failed: "
-                           "no kernel image is available (cudaError 209)")
+        calls.append(1)
+        raise KernelError("pipeline_stencil kernel launch failed: "
+                          "no kernel image is available (cudaError 209)")
 
     monkeypatch.setattr(pipeline_stencil, "pipeline_dense_step", fail)
+    return calls
+
+
+def _counted_k5(monkeypatch):
+    """Count K5's calls (its plain version on the CPU); returns the list
+    the calls are appended to."""
+    from mpi_model_tpu_torch.ops import pipeline_stencil
+
+    calls = []
+    real = pipeline_stencil.pipeline_dense_step
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline_stencil, "pipeline_dense_step", counted)
+    return calls
+
+
+def _batch_fault():
+    return inject.armed(FaultPlan((Fault("batch_exc", at=0),)))
 
 
 def test_ladder_degrades_pipeline_to_xla(monkeypatch):
-    """The port has no degradation ladder (the JAX package's
-    ``pipeline`` → ``xla``): a K5 error reaches every affected ticket as
-    that error, however often it repeats, and no later dispatch runs the
-    plain engine in its place."""
-    _failing_k5(monkeypatch)
+    """The JAX package's ladder: after a clean K5 dispatch, an injected
+    whole-batch fault reaches its tickets with no warning, until the
+    ``degrade_after``-th (2) steps the engine ``pipeline`` → ``xla`` with a
+    ``RuntimeWarning`` and the intake gate raised; the next dispatch runs
+    on ``xla`` (K5 is not called again), bit for bit a fresh ``xla``
+    scheduler's, stamped ``impl: "xla"``, ``degraded_from: "pipeline"``,
+    and closes the gate."""
+    calls = _counted_k5(monkeypatch)
     sch = mt.EnsembleScheduler(impl="pipeline")
+    spaces = _strips(B=2, seed=13)
+    model = mt.Model(mt.Diffusion(0.1), 1.0, 1.0)
+
+    def serve():
+        tickets = [sch.submit(s, model, steps=1) for s in spaces]
+        sch.pump(force=True)
+        return tickets
+
+    [sch.poll(t) for t in serve()]
+    assert len(calls) == 1 and sch.stats()["degraded_from"] is None
+    for round_ in range(2):
+        with _batch_fault(), warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            tickets = serve()
+        for t in tickets:
+            with pytest.raises(inject.InjectedFault):
+                sch.poll(t)
+        rungs = [str(x.message) for x in w
+                 if issubclass(x.category, RuntimeWarning)]
+        st = sch.stats()
+        if round_ == 0:
+            assert rungs == []
+            assert (st["impl"], st["degraded_from"], st["intake_gated"]) \
+                == ("pipeline", None, False)
+        else:
+            assert len(rungs) == 1 and "degraded to 'xla'" in rungs[0]
+            assert (st["impl"], st["degraded_from"], st["intake_gated"]) \
+                == ("xla", "pipeline", True)
+    served = [sch.poll(t) for t in serve()]
+    assert len(calls) == 1  # K5 is not called after the rung
+    fresh = mt.EnsembleScheduler(impl="xla")
+    ft = [fresh.submit(s, model, steps=1) for s in spaces]
+    fresh.pump(force=True)
+    for (sp, rep), t in zip(served, ft):
+        assert torch.equal(sp.values["value"],
+                           fresh.poll(t)[0].values["value"])
+        assert (rep.backend_report["impl"],
+                rep.backend_report["degraded_from"]) == ("xla", "pipeline")
+    st = sch.stats()
+    assert st["impl_faults"] == 2 and st["dispatches"] == 2
+    assert not st["intake_gated"]
+
+
+def test_ladder_with_solo_retry_recovers_on_xla(monkeypatch):
+    """Under ``retry="solo"`` and ``degrade_after=1`` an injected fault of
+    a ``pipeline`` batch takes the rung at once: both solo retries run on
+    ``xla`` and recover, each lane bit for bit a fresh ``xla`` dispatch and
+    stamped ``degraded_from: "pipeline"``; K5 never runs."""
+    calls = _counted_k5(monkeypatch)
+    sch = mt.EnsembleScheduler(impl="pipeline", retry="solo",
+                               degrade_after=1)
+    model = mt.Model(mt.Diffusion(0.1), 1.0, 1.0)
+    spaces = _strips(B=2, seed=14)
+    with _batch_fault():
+        tickets = [sch.submit(s, model, steps=2) for s in spaces]
+        with pytest.warns(RuntimeWarning, match="degraded to 'xla'"):
+            sch.pump(force=True)
+    fresh = mt.EnsembleScheduler(impl="xla")
+    ft = [fresh.submit(s, model, steps=2) for s in spaces]
+    fresh.pump(force=True)
+    for t, f in zip(tickets, ft):
+        sp, rep = sch.poll(t)
+        assert torch.equal(sp.values["value"],
+                           fresh.poll(f)[0].values["value"])
+        assert (rep.backend_report["impl"],
+                rep.backend_report["degraded_from"]) == ("xla", "pipeline")
+    assert calls == []
+    st = sch.stats()
+    assert (st["solo_retries"], st["recovered_failures"],
+            st["quarantined"], st["impl_faults"]) == (2, 2, 0, 1)
+    assert st["impl"] == "xla" and st["degraded_from"] == "pipeline"
+    assert [e.get("outcome") for e in sch.dispatch_log] == [
+        None, "recovered", "recovered"]
+
+
+@pytest.mark.parametrize("retry", ["none", "solo"])
+def test_a_kernel_error_never_steps_the_ladder(monkeypatch, retry):
+    """A K5 build or launch error is counted as an impl-level fault but
+    steps no rung, even at ``degrade_after=1`` and however often it
+    repeats: every affected ticket gets that error (under ``"solo"`` after
+    its solo retry on K5), no warning comes, and no dispatch runs the plain
+    engine in the kernel's place."""
+    calls = _failing_k5(monkeypatch)
+    sch = mt.EnsembleScheduler(impl="pipeline", retry=retry,
+                               degrade_after=1)
     spaces = _strips(B=2, seed=13)
     model = mt.Model(mt.Diffusion(0.1), 1.0, 1.0)
     with warnings.catch_warnings():
@@ -783,36 +900,15 @@ def test_ladder_degrades_pipeline_to_xla(monkeypatch):
             tickets = [sch.submit(s, model, steps=1) for s in spaces]
             sch.pump(force=True)
             for t in tickets:
-                with pytest.raises(RuntimeError, match="pipeline_stencil"):
+                with pytest.raises(KernelError, match="pipeline_stencil"):
                     sch.poll(t)
+    per_round = 3 if retry == "solo" else 1
+    assert len(calls) == 3 * per_round
     st = sch.stats()
     assert (st["impl"], st["degraded_from"], st["intake_gated"]) == (
         "pipeline", None, False)
-    assert st["impl_faults"] == 3 and st["dispatches"] == 0
+    assert st["impl_faults"] == 3 * per_round and st["dispatches"] == 0
     assert sch.executor.impl == "pipeline"
-
-
-def test_ladder_with_solo_retry_recovers_on_xla(monkeypatch):
-    """Under ``retry="solo"`` a failing K5 is retried alone on K5 and then
-    quarantined with its error: nothing recovers on the plain engine."""
-    _failing_k5(monkeypatch)
-    sch = mt.EnsembleScheduler(impl="pipeline", retry="solo")
-    model = mt.Model(mt.Diffusion(0.1), 1.0, 1.0)
-    tickets = [sch.submit(s, model, steps=2) for s in _strips(B=2, seed=14)]
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        sch.pump(force=True)
-    for t in tickets:
-        with pytest.raises(RuntimeError, match="pipeline_stencil") as ei:
-            sch.poll(t)
-        assert ei.value.failure_event.kind == "exception"
-        assert ei.value.failure_event.attempt == 2
-    st = sch.stats()
-    assert (st["solo_retries"], st["recovered_failures"],
-            st["quarantined"]) == (2, 0, 2)
-    assert st["impl"] == "pipeline" and st["degraded_from"] is None
-    assert [e.get("outcome") for e in sch.dispatch_log] == [
-        None, "quarantined", "quarantined"]
 
 
 def test_k5_error_reaches_execute_many_and_service_result(monkeypatch):
@@ -825,9 +921,15 @@ def test_k5_error_reaches_execute_many_and_service_result(monkeypatch):
                            steps=1)
     svc = mt.EnsembleService(model, steps=1, impl="pipeline", retry="solo")
     t = svc.submit(spaces[0])
-    with pytest.raises(RuntimeError, match="pipeline_stencil"):
-        svc.result(t)
-    assert svc.stats()["impl"] == "pipeline"
+    # the batch and its solo retry fail on K5: two impl-level faults at the
+    # default degrade_after, and still no rung
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(KernelError, match="pipeline_stencil"):
+            svc.result(t)
+    st = svc.stats()
+    assert (st["impl"], st["degraded_from"], st["quarantined"],
+            st["impl_faults"]) == ("pipeline", None, 1, 2)
 
 
 def test_results_never_alias_a_later_dispatch():

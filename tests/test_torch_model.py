@@ -402,6 +402,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         | {f"mpi_model_tpu_torch/obs/{m}.py" for m in (
             "__init__", "flight", "__main__")}
         | {"mpi_model_tpu_torch/native.py"}) <= rel
+    assert ({f"mpi_model_tpu_torch/ensemble/{m}.py" for m in (
+        "lifecycle", "journal", "wire")}
+        | {f"mpi_model_tpu_torch/resilience/{m}.py" for m in (
+            "lockdep", "protocolcheck")}
+        | {"mpi_model_tpu_torch/obs/postmortem.py"}) <= rel
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

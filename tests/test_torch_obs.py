@@ -441,7 +441,7 @@ def test_obs_cli_validate_and_prom(fresh_obs, tmp_path, capsys):
     bad.write_text(json.dumps({"schema": obs.SCHEMA}))
     assert obs_main(["validate", str(bad)]) == 1
     assert "INVALID" in capsys.readouterr().err
-    for argv, msg in ((["timeline", "3"], "ROADMAP.md"),
+    for argv, msg in ((["timeline", "3"], "--journal"),
                       (["--serve", "0"], "--snapshot"),
                       (["--serve", "0", "--snapshot", path, "prom", path],
                        "no subcommand"),
@@ -449,8 +449,13 @@ def test_obs_cli_validate_and_prom(fresh_obs, tmp_path, capsys):
         with pytest.raises(SystemExit):
             obs_main(argv)
         assert msg in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        obs.timeline(3, journal_dir=str(tmp_path))
+    # the timeline of a ticket the journal never saw is incomplete, with
+    # its explicit uncertainty record, as JAX's is
+    tl = obs.timeline(3, journal_dir=str(tmp_path))
+    assert not tl.complete
+    assert [e.kind for e in tl.gaps] == ["uncertainty"]
+    assert obs_main(["timeline", "3", "--journal", str(tmp_path)]) == 1
+    assert "INCOMPLETE" in capsys.readouterr().out
     # the JAX package's command line reads the port's document
     from mpi_model_tpu.obs.__main__ import main as jobs_main
 

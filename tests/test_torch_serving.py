@@ -535,8 +535,11 @@ def test_unported_serving_options_name_the_roadmap(tmp_path):
             lambda: AsyncEnsembleService(model, mesh=2, start=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make()
-    with pytest.raises(TypeError, match="degrade_after"):
-        AsyncEnsembleService(model, degrade_after=2, start=False)
+    # the degradation ladder's knob is accepted, as in the JAX package
+    svc = AsyncEnsembleService(model, degrade_after=3, start=False)
+    assert svc.scheduler.degrade_after == 3
+    assert JAsync(jscen_model(), degrade_after=3, start=False,
+                  compile_cache=None).scheduler.degrade_after == 3
     with pytest.raises(ValueError, match="max_queue"):
         AsyncEnsembleService(model, max_queue=0, start=False)
     assert AsyncEnsembleService(model, service_id="m0g0", start=False) \
@@ -545,12 +548,13 @@ def test_unported_serving_options_name_the_roadmap(tmp_path):
 
 def test_a_kernel_error_reaches_each_ticket_through_the_pump(monkeypatch):
     """A K5 error in the pump reaches each ticket as that error, through
-    the solo retry and then quarantine; the plain version is never run in
-    the kernel's place."""
-    from mpi_model_tpu_torch.ops import pipeline_stencil
+    the solo retry and then quarantine, at the default ``degrade_after``:
+    a kernel's own error steps no rung of the degradation ladder, and no
+    plain version runs in the kernel's place."""
+    from mpi_model_tpu_torch.ops import KernelError, pipeline_stencil
 
     def fail(*args, **kwargs):
-        raise RuntimeError("pipeline_stencil kernel launch failed")
+        raise KernelError("pipeline_stencil kernel launch failed")
 
     plain_calls = []
     monkeypatch.setattr(pipeline_stencil, "pipeline_dense_step", fail)
@@ -562,13 +566,15 @@ def test_a_kernel_error_reaches_each_ticket_through_the_pump(monkeypatch):
     tickets = [svc.submit(s) for s in _strips(2, 14)]
     svc.stop()
     for t in tickets:
-        with pytest.raises(RuntimeError, match="pipeline_stencil") as ei:
+        with pytest.raises(KernelError, match="pipeline_stencil") as ei:
             svc.poll(t)
         assert ei.value.failure_event.kind == "exception"
         assert ei.value.failure_event.attempt == 2
     st = svc.stats()
     assert (st["solo_retries"], st["quarantined"], st["impl"]) == (
         2, 2, "pipeline")
+    assert (st["impl_faults"], st["degraded_from"],
+            st["intake_gated"]) == (3, None, False)
     assert plain_calls == []
 
 
