@@ -422,6 +422,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    without injecting a fault ends with ``ladder_guard``: ``degraded_from``
    None, ``impl_faults`` 0 and its kernel's counter advanced (the
    ``--serve`` CLI rows through ``cli_row_guard``).
+6l. the fleet (``fleet_phase``, in a process of its own,
+   ``fleet_phase_main``; it prints its seconds), on 6c's 4096² lanes
+   (``np.roll(base, 7·i)``, rate 0.1, 8 steps, ``pipeline`` substeps 8,
+   K5): (a) an in-process ``FleetSupervisor`` of 2 serves 16 scenarios, each
+   bit for bit the synchronous ``EnsembleService``'s, every report ``impl``
+   ``"pipeline"`` and not degraded, K5 launched (and held bit for bit
+   against its plain version on the 8 lanes), ``ladder_guard``; (b) a
+   ``member_kill`` pinned to the member the stream routes to, at pump 10,
+   mid-``run_soak`` (16 at 100/s): it is fenced and respawned as gen 1,
+   the ledger is complete, every served state bit for bit; (c) 2 child
+   members over unix sockets (``spawn_process_member``, ``member_env``
+   ``CUDA_VISIBLE_DEVICES=0``: both on the one card) serve 8 scenarios bit
+   for bit, each child's heartbeat naming the card, its kernel libraries
+   loaded from the build directory (none built) and its own K5 launches;
+   each child's spawn-to-first-heartbeat seconds and the card's free memory
+   before and after the spawn printed; (d) a ``kill -9`` of the child
+   holding the stream after 4 of 8 submissions: fenced, respawned, every
+   ticket served bit for bit; (e) a journaled in-process fleet abandoned
+   with 4 served and 4 launched: ``FleetSupervisor.recover`` on the card
+   resolves 4 from the journal, re-runs 4 on K5, all bit for bit, the
+   audit clean; (f) an in-process fleet of 2 on ``active_fused`` at 0.05
+   activity (6k's lanes), 4 scenarios bit for bit the synchronous
+   service's, K6 and K7 launched; (g) one reading each of the sustained
+   scenarios/s of the in-process fleet, the process fleet and the
+   synchronous service, the wire's bytes and the card's free memory, beside
+   the card's name and power limit (no claim).
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -5487,6 +5513,517 @@ def ladder_phase_main() -> None:
         json.dumps(out, indent=1, default=repr))
 
 
+#: phase 6l's process-fleet scenarios: a 4096² f32 lane crosses the wire as
+#: one 64 MiB frame each way (0.646-0.919 s a frame on an H100 80GB HBM3 at
+#: 700.00 W, PERF.md §7), so the process rows take 8, not 64
+FLEET_PROC_SCEN = 8
+#: phase 6l (b)'s open-loop arrival rate (16 arrivals over 0.16 s) and the
+#: pump count at which its unpinned member_kill fires, mid-soak
+FLEET_RATE_HZ = 100.0
+FLEET_KILL_AT = 10
+
+
+class _Keep:
+    """A service proxy that keeps what ``run_soak`` collects, in submission
+    order, so the soak's served states can be held bit for bit."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.tickets: list = []
+        self.got: dict = {}
+
+    def submit(self, space, *, model=None, steps=None):
+        t = self.svc.submit(space, model=model, steps=steps)
+        self.tickets.append(t)
+        return t
+
+    def result(self, ticket, timeout=None):
+        res = self.svc.result(ticket, timeout=timeout)
+        self.got[ticket] = res
+        return res
+
+    def stats(self) -> dict:
+        return self.svc.stats()
+
+
+def _wait_for(pred, timeout_s: float) -> bool:
+    """Poll ``pred`` until it holds or ``timeout_s`` passes."""
+    import threading
+
+    ev = threading.Event()
+    t_end = time.monotonic() + timeout_s
+    while time.monotonic() < t_end:
+        if pred():
+            return True
+        ev.wait(0.05)
+    return bool(pred())
+
+
+def smi_card_line(kind: str) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"{kind}, power limit not readable")
+
+
+def fleet_phase(np, torch, mt, dev, reset_counts, kernel_launches,
+                side5=N5, lanes=B5, steps=STEPS5, scenarios=SERVE_GATE,
+                proc_scenarios=FLEET_PROC_SCEN, frac=LADDER_FRAC,
+                out_dir=None) -> dict:
+    """Phase 6l: the fleet on the card (the module docstring): (a) an
+    in-process 2-member fleet on K5; (b) ``member_kill`` mid-``run_soak``;
+    (c) two child members over unix sockets, pinned to the card; (d) a
+    ``kill -9`` of one child mid-stream; (e) journal recovery of an
+    abandoned fleet; (f) ``active_fused`` (K6/K7) members; (g) one reading
+    of the rates, the wire's bytes and the card's free memory. Each served
+    state is held bit for bit the synchronous service's on the same lanes;
+    ``check`` fails the run on any disagreement."""
+    import os
+    import signal
+    import warnings
+
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+    from mpi_model_tpu_torch.ensemble import (EnsembleService,
+                                              FleetSupervisor, buckets_for,
+                                              run_soak)
+    from mpi_model_tpu_torch.ensemble import journal as jn
+    from mpi_model_tpu_torch.ensemble.member_proc import spawn_process_member
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan, armed
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+    out_dir = (Path(__file__).resolve().parent / "chiprun_out"
+               if out_dir is None else Path(out_dir))
+    out = {"card": smi_card_line(kind) if on_card else "cpu"}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def launched(name: str):
+        """A kernel's launches since the last ``reset_counts`` (None on the
+        CPU, where the wrappers run their plain versions)."""
+        return kernel_launches()[name] if on_card else None
+
+    def mem() -> dict:
+        if not on_card:
+            return {}
+        free, total = torch.cuda.mem_get_info()
+        return {"free_bytes": free, "total_bytes": total}
+
+    base = np.random.default_rng(SEED).uniform(
+        0.5, 2.0, (side5, side5)).astype(np.float32)
+    spaces = [mt.CellularSpace({"value": torch.from_numpy(
+        np.roll(base, 7 * i, axis=0)).to(dev)}, side5, side5)
+        for i in range(lanes)]
+    del base
+    model01 = mt.Model(mt.Diffusion(0.1))
+    kw = dict(steps=steps, impl="pipeline", substeps=8,
+              buckets=buckets_for(lanes))
+
+    def same(got, i) -> bool:
+        return bool(torch.equal(got[0].values["value"], want[i % lanes]))
+
+    def reports_ok(got) -> bool:
+        return all(r[1].impl == "pipeline"
+                   and r[1].backend_report.get("degraded_from") is None
+                   for r in got)
+
+    # the synchronous service: the reference lanes, then its rate on the
+    # same workload (the scenarios submitted at once, flushed, collected),
+    # warm as the fleets' members are when they are read
+    ref = EnsembleService(model01, **kw)
+    ts = [ref.submit(s) for s in spaces]
+    ref.flush()
+    want = [ref.result(t)[0].values["value"] for t in ts]
+    t0 = time.perf_counter()
+    ts = [ref.submit(spaces[i % lanes]) for i in range(scenarios)]
+    ref.flush()
+    res = [ref.result(t) for t in ts]
+    sync()
+    sync_s = time.perf_counter() - t0
+    check(all(torch.equal(r[0].values["value"], want[i % lanes])
+              for i, r in enumerate(res)),
+          "6l: the synchronous service is not bit for bit itself")
+    del res, ref
+    out["sync"] = {"scenarios": scenarios, "seconds": sync_s,
+                   "scenarios_per_s": scenarios / sync_s}
+
+    # -- (a) the in-process fleet on K5 ---------------------------------------
+    x = torch.stack([s.values["value"] for s in spaces])
+    got_k5 = k5.pipeline_dense_step(x, 0.1, MOORE_OFFSETS, nsteps=steps)
+    plain = k5.pipeline_step_plain(x, 0.1, MOORE_OFFSETS, steps)
+    sync()
+    k5_plain = {"bitwise": bool(torch.equal(got_k5, plain)),
+                "max_abs_err": float((got_k5 - plain).abs().max())}
+    del x, got_k5, plain
+    reset_counts()
+    fleet = FleetSupervisor(model01, services=2, device=dev, max_queue=lanes,
+                            **kw)
+    t0 = time.perf_counter()
+    tickets = [fleet.submit(spaces[i % lanes]) for i in range(scenarios)]
+    got = [fleet.result(t, timeout=600) for t in tickets]
+    sync()
+    wall = time.perf_counter() - t0
+    k5_a = launched("pipeline_stencil")
+    fleet.stop()
+    st = fleet.stats()
+    out["a"] = {"scenarios": scenarios, "side": side5, "seconds": wall,
+                "scenarios_per_s": scenarios / wall,
+                "bitwise": all(same(g, i) for i, g in enumerate(got)),
+                "reports_ok": reports_ok(got), "k5_launches": k5_a,
+                "k5_vs_plain": k5_plain,
+                "per_member": {s["service_id"]: s["scenarios"]
+                               for s in st["services"]},
+                "member_faults": st["member_faults"]}
+    print(f"6l (a) in-process fleet of 2 on K5 (pipeline, substeps 8): "
+          f"{scenarios} x {side5}^2 bit for bit the sync service "
+          f"{out['a']['bitwise']}, reports impl pipeline, not degraded "
+          f"{out['a']['reports_ok']}; K5 launches {k5_a}; per member "
+          f"{out['a']['per_member']}; K5 on the {lanes} lanes against its "
+          f"plain version: bitwise {k5_plain['bitwise']}, max_abs_err "
+          f"{k5_plain['max_abs_err']:.3e}", flush=True)
+    ladder_guard(st, k5_a, "6l (a) the in-process fleet")
+    check(out["a"]["bitwise"] and out["a"]["reports_ok"]
+          and k5_plain["bitwise"] and st["scenarios"] == scenarios
+          and st["member_faults"] == 0 and st["pending"] == 0,
+          f"6l (a) the in-process fleet: {out['a']}")
+    del got, fleet
+
+    # -- (b) member_kill mid-run_soak -----------------------------------------
+    reset_counts()
+    fleet = FleetSupervisor(model01, services=2, device=dev,
+                            tick_interval_s=0.01, max_queue=64, **kw)
+    # the member the stream's structure routes to (one scenario before the
+    # soak) is the one the kill is pinned to
+    fleet.result(fleet.submit(spaces[0]), timeout=600)
+    target = next(s["service_id"] for s in fleet.stats()["services"]
+                  if s["scenarios"])
+    keep = _Keep(fleet)
+    soak = [(spaces[i % lanes], None, None) for i in range(scenarios)]
+    with armed(FaultPlan((Fault("member_kill", channel=target,
+                                at=FLEET_KILL_AT),))) as arm, \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        rep = run_soak(keep, soak, arrival_rate_hz=FLEET_RATE_HZ)
+        fenced = _wait_for(lambda: fleet.stats()["respawns"] >= 1, 60.0)
+    k5_b = launched("pipeline_stencil")
+    fleet.stop()
+    st = fleet.stats()
+    got = [keep.got.get(t) for t in keep.tickets]
+    out["b"] = {"target": target, "fired": [f["kind"] for f in arm.fired],
+                "ledger_complete": rep["ledger_complete"],
+                "served": rep["served"],
+                "bitwise": all(g is not None and same(g, i)
+                               for i, g in enumerate(got)),
+                "member_faults": st["member_faults"],
+                "respawns": st["respawns"], "readmitted": st["readmitted"],
+                "members": [s["service_id"] for s in st["services"]],
+                "fenced": [e.service_id for e in fleet.member_log],
+                "k5_launches": k5_b, "wall_s": rep["wall_s"]}
+    print(f"6l (b) member_kill of {target} at pump {FLEET_KILL_AT} "
+          f"mid-run_soak of "
+          f"{scenarios} at {FLEET_RATE_HZ:g}/s: fired {out['b']['fired']}, "
+          f"fenced {out['b']['fenced']}, members now {out['b']['members']}, "
+          f"readmitted {st['readmitted']}, ledger complete "
+          f"{rep['ledger_complete']} ({rep['served']} served), bit for bit "
+          f"{out['b']['bitwise']}, K5 launches {k5_b}", flush=True)
+    check(fenced and out["b"]["fired"] == ["member_kill"]
+          and rep["ledger_complete"] and rep["served"] == scenarios
+          and out["b"]["bitwise"] and st["member_faults"] == 1
+          and out["b"]["fenced"] == [target]
+          and any(m.endswith("g1") for m in out["b"]["members"])
+          and st["degraded_from"] is None and st["impl_faults"] == 0
+          and (k5_b is None or k5_b > 0), f"6l (b) member_kill: {out['b']}")
+    del got, keep, fleet
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (c) two child members over unix sockets, pinned to the card ----------
+    spawn_s = {}
+
+    def timed_spawner(model, **k):
+        t0 = time.perf_counter()
+        client = spawn_process_member(model, **k)
+        spawn_s[k["service_id"]] = time.perf_counter() - t0
+        return client
+
+    mem_before = mem()
+    t0 = time.perf_counter()
+    pf = FleetSupervisor(model01, services=2, device=dev, max_queue=64,
+                         member_transport="process",
+                         member_spawner=timed_spawner,
+                         member_env={"CUDA_VISIBLE_DEVICES": "0"}, **kw)
+    spawn_wall = time.perf_counter() - t0
+    mem_after = mem()
+    t0 = time.perf_counter()
+    tickets = [pf.submit(spaces[i % lanes]) for i in range(proc_scenarios)]
+    got = [pf.result(t, timeout=600) for t in tickets]
+    sync()
+    wall_c = time.perf_counter() - t0
+    _wait_for(lambda: sum(s["scenarios"] for s in pf.stats()["services"])
+              == proc_scenarios, 30.0)
+    mem_served = mem()
+    st = pf.stats()
+    children = {s["service_id"]: {
+        "pid": s["member_pid"], "backend": s["backend"],
+        "k5_launches": (s["kernel_launches"] or {}).get("pipeline_stencil"),
+        "kernel_builds": s["kernel_builds"], "scenarios": s["scenarios"],
+        "spawn_to_first_heartbeat_s": spawn_s.get(s["service_id"])}
+        for s in st["services"]}
+    out["c"] = {"scenarios": proc_scenarios, "seconds": wall_c,
+                "scenarios_per_s": proc_scenarios / wall_c,
+                "bitwise": all(same(g, i) for i, g in enumerate(got)),
+                "reports_ok": reports_ok(got), "children": children,
+                "spawn_wall_s": spawn_wall, "mem_before_spawn": mem_before,
+                "mem_after_spawn": mem_after, "mem_after_serving": mem_served,
+                "member_faults": st["member_faults"]}
+    for sid, c in children.items():
+        print(f"6l (c) child {sid} (pid {c['pid']}): spawn to first "
+              f"heartbeat {c['spawn_to_first_heartbeat_s']:.2f} s, devices "
+              f"{c['backend']['devices']} (CUDA_VISIBLE_DEVICES="
+              f"{c['backend']['cuda_visible_devices']}), kernels "
+              + ", ".join(f"{n} {b['seconds']:.2f} s cached={b['cached']}"
+                          for n, b in c["kernel_builds"].items())
+              + f"; served {c['scenarios']}, K5 launches "
+              f"{c['k5_launches']}", flush=True)
+    print(f"6l (c) process fleet of 2 children: {proc_scenarios} x "
+          f"{side5}^2 in {wall_c:.2f} s, bit for bit {out['c']['bitwise']}, "
+          f"reports impl pipeline, not degraded {out['c']['reports_ok']}; "
+          f"the card's free memory {mem_before.get('free_bytes')} bytes "
+          f"before the spawn, {mem_after.get('free_bytes')} after, "
+          f"{mem_served.get('free_bytes')} after serving", flush=True)
+    child_ok = all(
+        c["k5_launches"] and c["k5_launches"] > 0 if c["scenarios"] else True
+        for c in children.values()) if on_card else True
+    builds_ok = all(
+        "pipeline_stencil" in c["kernel_builds"]
+        and all(b["cached"] for b in c["kernel_builds"].values())
+        for c in children.values()) if on_card else True
+    card_ok = all(c["backend"]["platform"] == "gpu"
+                  and c["backend"]["devices"] == [kind]
+                  for c in children.values()) if on_card else True
+    check(out["c"]["bitwise"] and out["c"]["reports_ok"] and child_ok
+          and builds_ok and card_ok and st["member_faults"] == 0
+          and st["degraded_from"] is None and st["impl_faults"] == 0
+          and sum(c["scenarios"] for c in children.values())
+          == proc_scenarios, f"6l (c) the process fleet: {out['c']}")
+    del got
+
+    # -- (d) kill -9 of one child mid-stream ----------------------------------
+    t0 = time.perf_counter()
+    tickets = []
+    victim = None
+    for i in range(proc_scenarios):
+        if i != proc_scenarios // 2 - 1:
+            tickets.append(pf.submit(spaces[i % lanes]))
+            continue
+        # the fleet lock held from this admission to the kill: no harvest
+        # between them, so the killed child takes an unharvested ticket
+        with pf._cv:
+            tickets.append(pf.submit(spaces[i % lanes]))
+            holder = pf._route[tickets[-1]].member
+            victim = {"service_id": holder.service_id,
+                      "pid": holder.service._proc.pid}
+            os.kill(victim["pid"], signal.SIGKILL)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = [pf.result(t, timeout=600) for t in tickets]
+    sync()
+    wall_d = time.perf_counter() - t0
+    pf.stop()
+    st = pf.stats()
+    out["d"] = {"victim": victim, "seconds": wall_d,
+                "bitwise": all(same(g, i) for i, g in enumerate(got)),
+                "member_faults": st["member_faults"],
+                "respawns": st["respawns"], "readmitted": st["readmitted"],
+                "wire_errors": st["wire_errors"],
+                "members": [s["service_id"] for s in st["services"]],
+                "respawn_to_first_heartbeat_s": {
+                    k: v for k, v in spawn_s.items() if not k.endswith("g0")},
+                "wire_bytes_in": st["wire_bytes_in"],
+                "wire_bytes_out": st["wire_bytes_out"],
+                "heartbeats": st["heartbeats"],
+                "heartbeat_misses": st["heartbeat_misses"],
+                "mem_after_stop": mem()}
+    print(f"6l (d) kill -9 of {victim['service_id']} (pid {victim['pid']}) "
+          f"after {proc_scenarios // 2} of {proc_scenarios} submissions: "
+          f"fenced, members now {out['d']['members']} (respawn "
+          f"{out['d']['respawn_to_first_heartbeat_s']} s to first "
+          f"heartbeat), readmitted {st['readmitted']}, wire errors "
+          f"{st['wire_errors']}; every ticket served bit for bit "
+          f"{out['d']['bitwise']} in {wall_d:.2f} s", flush=True)
+    check(out["d"]["bitwise"] and len(got) == proc_scenarios
+          and st["member_faults"] >= 1 and st["respawns"] >= 1
+          and st["readmitted"] >= 1
+          and victim["service_id"] not in out["d"]["members"]
+          and st["pending"] == 0, f"6l (d) kill -9: {out['d']}")
+    del got, pf
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (e) journal recovery on the card --------------------------------------
+    jdir = out_dir / "journal_6l"
+    shutil.rmtree(jdir, ignore_errors=True)
+    half = proc_scenarios // 2
+    t0 = time.perf_counter()
+    fleet = FleetSupervisor(model01, services=2, start=False, device=dev,
+                            journal_dir=str(jdir), max_queue=64, **kw)
+    tickets = [fleet.submit(spaces[i % lanes]) for i in range(half)]
+    for t in tickets:
+        fleet.result(t)
+    tickets += [fleet.submit(spaces[i % lanes])
+                for i in range(half, proc_scenarios)]
+    fleet.pump_once(force=True)     # a batch launches, none is harvested
+    fleet.abandon()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_counts()
+    f2 = FleetSupervisor.recover(str(jdir), model01, services=2,
+                                 start=False, device=dev, max_queue=64, **kw)
+    got = [f2.result(t) for t in tickets]
+    sync()
+    recover_s = time.perf_counter() - t0
+    k5_e = launched("pipeline_stencil")
+    rst = f2.stats()
+    f2.stop()
+    audit = jn.audit_journal(jn.journal_path(str(jdir)))
+    out["e"] = {"tickets": len(tickets), "write_s": write_s,
+                "recover_s": recover_s,
+                "bitwise": all(same(g, i) for i, g in enumerate(got)),
+                "from_journal": sum(1 for g in got if (
+                    g[1].backend_report or {}).get("recovered_from_journal")),
+                "readmitted": rst["readmitted"], "k5_launches": k5_e,
+                "journal_bytes": sum(p.stat().st_size
+                                     for p in jdir.iterdir()),
+                "audit_ok": audit["ok"],
+                "unresolved": audit["unresolved"],
+                "duplicate_terminals": audit["duplicate_terminals"],
+                "on_device": all(g[0].values["value"].device.type == dev.type
+                                 for g in got)}
+    print(f"6l (e) a journaled fleet abandoned after {half} served and "
+          f"{proc_scenarios - half} queued ({write_s:.2f} s, "
+          f"{out['e']['journal_bytes']} journal bytes): recover resolved "
+          f"{out['e']['from_journal']} from the journal and re-ran "
+          f"{rst['readmitted']} on K5 ({k5_e} launches) in "
+          f"{recover_s:.2f} s, bit for bit {out['e']['bitwise']}, on "
+          f"{dev.type} {out['e']['on_device']}, audit ok {audit['ok']}",
+          flush=True)
+    check(out["e"]["bitwise"] and out["e"]["on_device"] and audit["ok"]
+          and not audit["unresolved"] and not audit["duplicate_terminals"]
+          and out["e"]["from_journal"] == half
+          and rst["readmitted"] == proc_scenarios - half
+          and (k5_e is None or k5_e > 0), f"6l (e) recovery: {out['e']}")
+    shutil.rmtree(jdir, ignore_errors=True)
+    del got, fleet, f2, spaces, want
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- (f) active_fused members (K6/K7) --------------------------------------
+    act = [mt.CellularSpace({"value": torch.from_numpy(
+        workload(np, side5, side5, frac, SEED + i)).to(dev)}, side5, side5)
+        for i in range(2)]
+    akw = dict(steps=steps, impl="active_fused", max_batch=2)
+    ref = EnsembleService(model01, **akw)
+    ts = [ref.submit(s) for s in act]
+    ref.flush()
+    want_f = [ref.result(t)[0].values["value"] for t in ts]
+    reset_counts()
+    fleet = FleetSupervisor(model01, services=2, device=dev, max_queue=2,
+                            **akw)
+    tickets = [fleet.submit(act[i % 2]) for i in range(4)]
+    got = [fleet.result(t, timeout=600) for t in tickets]
+    sync()
+    k67 = (launched("fused_compute"), launched("fused_scatter"))
+    fleet.stop()
+    st = fleet.stats()
+    out["f"] = {"side": side5, "frac": frac, "scenarios": 4,
+                "bitwise": all(torch.equal(g[0].values["value"],
+                                           want_f[i % 2])
+                               for i, g in enumerate(got)),
+                "k6_k7_launches": k67,
+                "per_member": {s["service_id"]: s["scenarios"]
+                               for s in st["services"]}}
+    print(f"6l (f) in-process fleet of 2 on active_fused at {frac} activity, "
+          f"4 x {side5}^2: bit for bit the sync service "
+          f"{out['f']['bitwise']}, K6/K7 launches {k67}, per member "
+          f"{out['f']['per_member']}", flush=True)
+    ladder_guard(st, None if k67[0] is None else min(k67),
+                 "6l (f) the active_fused fleet")
+    check(out["f"]["bitwise"] and st["scenarios"] == 4
+          and st["member_faults"] == 0, f"6l (f) active_fused: {out['f']}")
+    del act, got, fleet, want_f
+
+    # -- (g) one reading of the rates, the wire and the card's memory ----------
+    out["g"] = {"card": out["card"],
+                "inproc_fleet_scenarios_per_s": out["a"]["scenarios_per_s"],
+                "process_fleet_scenarios_per_s": out["c"]["scenarios_per_s"],
+                "sync_scenarios_per_s": out["sync"]["scenarios_per_s"],
+                "wire_bytes_in": out["d"]["wire_bytes_in"],
+                "wire_bytes_out": out["d"]["wire_bytes_out"],
+                "mem_before_spawn": out["c"]["mem_before_spawn"],
+                "mem_after_spawn": out["c"]["mem_after_spawn"],
+                "mem_after_serving": out["c"]["mem_after_serving"]}
+    g = out["g"]
+    print(f"6l (g) {g['card']}: sustained scenarios/s at {side5}^2 f32, K5 "
+          f"substeps 8: in-process fleet {g['inproc_fleet_scenarios_per_s']:.1f}"
+          f" ({scenarios}), process fleet "
+          f"{g['process_fleet_scenarios_per_s']:.2f} ({proc_scenarios}), "
+          f"sync service {g['sync_scenarios_per_s']:.1f} ({scenarios}); the "
+          f"process fleet's wire {g['wire_bytes_out']} bytes out, "
+          f"{g['wire_bytes_in']} in; free card memory "
+          f"{g['mem_before_spawn'].get('free_bytes')} before the children, "
+          f"{g['mem_after_spawn'].get('free_bytes')} with them, "
+          f"{g['mem_after_serving'].get('free_bytes')} after they served "
+          "(one reading each, no claim)", flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6l: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def fleet_phase_main() -> None:
+    """Phase 6l in a process of its own (``python3 -c "import chip_smoke;
+    chip_smoke.fleet_phase_main()"``): loads the kernels from the build
+    directory (building any missing), runs ``fleet_phase`` on the card,
+    writes ``chiprun_out/chip_smoke_6l.json`` and prints the rows as its
+    last line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import _build
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_active as fa
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+
+    def reset_counts():
+        for mod in (fs, cs, k4, k5, fa):
+            mod.reset_launches()
+
+    _build.build_all()
+    out = fleet_phase(np, torch, mt, torch.device("cuda"), reset_counts,
+                      kernel_launches)
+    out["process_seconds"] = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6l.json").write_text(
+        json.dumps(out, indent=1, default=repr))
+    print(json.dumps(out, default=repr), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5513,12 +6050,7 @@ def main() -> int:
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    card_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
-        else f"{kind}, power limit not readable"
+    card_line = smi_card_line(kind)
     print(f"device: {kind} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}); nvidia-smi: {card_line}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -6931,6 +7463,23 @@ def main() -> int:
                                   kernel_launches)
     ladder["g"] = trace_g
 
+    # -- 6l. the fleet, in a process of its own ----------------------------------
+    torch.cuda.empty_cache()
+    t_fleet = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         "sys.argv[1]); import chip_smoke; chip_smoke.fleet_phase_main()",
+         str(here)], cwd=here, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0, "6l: the fleet process failed:\n"
+                                f"{proc.stdout[-2000:]}\n"
+                                f"{proc.stderr[-4000:]}")
+    fleet = json.loads(lines[-1])
+    fleet["seconds_total"] = time.perf_counter() - t_fleet
+    print(f"6l: {fleet['seconds_total']:.1f} s (its process "
+          f"{fleet['process_seconds']:.1f} s)", flush=True)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -7330,6 +7879,7 @@ def main() -> int:
          "sharded": sharded, "halo_main_shard_err": halo_err,
          "sharded_active": sharded_active, "bf16_interior": bf16,
          "checkpoint": ckpt, "ir": ir, "observability": observability,
+         "fleet": fleet,
          "ladder_formats": ladder, "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

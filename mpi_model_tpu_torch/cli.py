@@ -73,12 +73,17 @@ open-loop at ``--arrival-rate`` per second (unset or 0: as fast as
 admission allows) against a ``--max-queue``-bounded admission queue, with
 an optional per-ticket ``--deadline-s``; the row carries the served/
 failed/expired/shed ledger (exit status 1 if it is not complete),
-sustained scenarios/s, p50/p99 queue latency and occupancy. The fleet
-(``--serve-services`` above 1, ``--serve-transport`` other than
-``inproc``), scenario tiering (``--residency-budget``,
-``--hibernate-dir``) and ``--ensemble-mesh`` are refused: their modules
-are not ported (ROADMAP.md). ``--status=PATH`` writes the telemetry
-snapshot (``obs``) of a ``--serve`` soak to PATH every
+sustained scenarios/s, p50/p99 queue latency and occupancy.
+``--serve-services=N`` above 1, or ``--serve-transport=process``, serves
+the same stream through an N-member ``FleetSupervisor`` (in-process
+members, or children over unix sockets, each environment overlaid with
+the repeatable ``--serve-member-env=KEY=VAL``, e.g. a
+``CUDA_VISIBLE_DEVICES`` pin); the row adds ``member_faults``,
+``readmitted``, the per-member ``members`` attribution and, for process
+members, the wire's ledger. ``--serve-transport=tcp``, scenario tiering
+(``--residency-budget``, ``--hibernate-dir``) and ``--ensemble-mesh`` are
+refused: their modules are not ported (ROADMAP.md). ``--status=PATH``
+writes the telemetry snapshot (``obs``) of a ``--serve`` soak to PATH every
 ``--status-interval-s`` seconds and at its end, and installs a flight
 recorder dumping under ``PATH.flight.d/``; ``--status-port=PORT`` serves
 ``GET /metrics`` and ``GET /`` on ``127.0.0.1:PORT`` for the soak (0: an
@@ -287,10 +292,15 @@ def check_serve_flags(args, sharded: bool) -> None:
         if args.deadline_s is not None and args.deadline_s <= 0:
             raise SystemExit(
                 f"--deadline-s={args.deadline_s} must be positive")
-        if args.serve_services > 1 or args.serve_transport != "inproc":
-            _refuse_unported("--serve-services/--serve-transport",
-                             "the fleet (FleetSupervisor, member processes "
-                             "and the wire)")
+        if args.serve_member_env and args.serve_transport not in (
+                "process", "tcp"):
+            raise SystemExit(
+                "--serve-member-env pins a spawned CHILD's environment "
+                "(device visibility); it needs "
+                "--serve-transport=process or =tcp")
+        if args.serve_transport == "tcp":
+            _refuse_unported("--serve-transport=tcp",
+                             "the TCP fleet members")
         if args.residency_budget is not None \
                 or args.hibernate_dir is not None:
             _refuse_unported("--residency-budget/--hibernate-dir",
@@ -307,6 +317,7 @@ def check_serve_flags(args, sharded: bool) -> None:
             ("--serve-scenarios", args.serve_scenarios, 64),
             ("--serve-services", args.serve_services, 1),
             ("--serve-transport", args.serve_transport, "inproc"),
+            ("--serve-member-env", args.serve_member_env or None, None),
             ("--residency-budget", args.residency_budget, None),
             ("--hibernate-dir", args.hibernate_dir, None),
             ("--status", args.status, None),
@@ -600,11 +611,33 @@ def run_ensemble_cli(args, space, model) -> int:
     return 0 if conserved else 1
 
 
+def _parse_member_env(pairs):
+    """The repeatable ``--serve-member-env KEY=VAL`` as the environment laid
+    over every spawned member (per-slot pins are the API's:
+    ``FleetSupervisor(member_env=[{...}, {...}])``)."""
+    if not pairs:
+        return None
+    env = {}
+    for p in pairs:
+        if "=" not in p:
+            raise SystemExit(
+                f"--serve-member-env expects KEY=VAL, got {p!r}")
+        k, v = p.split("=", 1)
+        if not k:
+            raise SystemExit(
+                f"--serve-member-env expects a non-empty KEY, got {p!r}")
+        env[k] = v
+    return env
+
+
 def run_serve_cli(args, space, model) -> int:
-    """``--serve``: the always-on loop under an open-loop arrival process
-    (``run_soak``), with the JAX package's report keys; exit status 1 when
-    the ledger is not complete."""
-    from .ensemble import AsyncEnsembleService, buckets_for, run_soak
+    """``--serve``: the always-on loop, or with ``--serve-services`` above 1
+    or ``--serve-transport=process`` a ``FleetSupervisor`` over it, under
+    an open-loop arrival process (``run_soak``), with the JAX package's
+    report keys (a fleet's row adds the per-member attribution); exit
+    status 1 when the ledger is not complete."""
+    from .ensemble import (AsyncEnsembleService, FleetSupervisor,
+                           buckets_for, run_soak)
     from .models.model import kernel_launches
 
     steps = args.steps if args.steps is not None else model.num_steps
@@ -616,13 +649,24 @@ def run_serve_cli(args, space, model) -> int:
         from .obs.flight import FlightRecorder, set_recorder
 
         set_recorder(FlightRecorder(dump_dir=args.status + ".flight.d"))
+    svc_kw = dict(
+        steps=steps, impl=args.ensemble_impl, substeps=args.substeps,
+        buckets=buckets_for(8), max_queue=args.max_queue,
+        compute_dtype=args.compute_dtype, deadline_s=args.deadline_s,
+        retry="solo", compile_cache=_cache_spec(args, "auto"))
+    # process members always run under the supervisor: something must
+    # heartbeat, fence and respawn the children
+    fleet_mode = (args.serve_services > 1
+                  or args.serve_transport != "inproc")
     try:
-        svc = AsyncEnsembleService(
-            model, steps=steps, impl=args.ensemble_impl,
-            substeps=args.substeps, buckets=buckets_for(8),
-            max_queue=args.max_queue, compute_dtype=args.compute_dtype,
-            deadline_s=args.deadline_s, retry="solo",
-            compile_cache=_cache_spec(args, "auto"))
+        if fleet_mode:
+            svc = FleetSupervisor(
+                model, services=args.serve_services,
+                member_transport=args.serve_transport,
+                member_env=_parse_member_env(args.serve_member_env),
+                device=space.device, **svc_kw)
+        else:
+            svc = AsyncEnsembleService(model, **svc_kw)
     except (TypeError, ValueError) as e:
         raise SystemExit(f"serve run failed: {e}")
     rate = args.arrival_rate if args.arrival_rate else 1e9
@@ -652,6 +696,21 @@ def run_serve_cli(args, space, model) -> int:
             "batch_occupancy", "dispatches", "solo_retries",
             "recovered_failures", "quarantined", "loop_faults")},
     }
+    if fleet_mode:
+        # the stopped fleet's cut: its final tick heartbeat every process
+        # member, so the per-member counts are the members' last
+        st = svc.stats()
+        result["member_faults"] = rep["member_faults"]
+        result["readmitted"] = rep["readmitted"]
+        # per-member attribution: which member served what
+        result["members"] = [
+            {k: s[k] for k in ("service_id", "scenarios", "dispatches",
+                               "pending", "gen")}
+            for s in st["services"]]
+        if args.serve_transport == "process":
+            for k in ("respawns", "heartbeats", "heartbeat_misses",
+                      "wire_errors", "wire_bytes_in", "wire_bytes_out"):
+                result[k] = st[k]
     if args.json:
         print(json.dumps(result, allow_nan=False))
     else:
@@ -659,7 +718,9 @@ def run_serve_cli(args, space, model) -> int:
         p99 = rep["latency_p99_s"]
         p99_s = "n/a" if p99 is None else f"{p99:.4f}s"
         occ = rep["occupancy"]
-        print(f"backend=serve impl={args.ensemble_impl} "
+        fleet_note = (f" services={args.serve_services}"
+                      if args.serve_services > 1 else "")
+        print(f"backend=serve impl={args.ensemble_impl}{fleet_note} "
               f"served={rep['served']}/{rep['offered']} "
               f"shed={rep['shed']} expired={rep['expired']} "
               f"failed={rep['failed']} "
@@ -1029,12 +1090,20 @@ def main(argv: Optional[list[str]] = None) -> int:
                      help="scenarios offered to the serving loop "
                      "(default 64)")
     run.add_argument("--serve-services", type=int, default=1, metavar="N",
-                     help="members of a serving fleet (the fleet is not "
-                     "ported: only 1)")
+                     help="with --serve: shard the arrival stream over an "
+                     "N-member FleetSupervisor (structure-affine routing, "
+                     "member fencing and respawn, per-member attribution "
+                     "in the row)")
     run.add_argument("--serve-transport", default="inproc",
                      choices=("inproc", "process", "tcp"),
-                     help="fleet member transport (not ported: only "
-                     "'inproc')")
+                     help="fleet member transport: 'inproc' (in-process "
+                     "services) or 'process' (a child each over a unix "
+                     "socket, heartbeat-fenced); 'tcp' is not ported")
+    run.add_argument("--serve-member-env", action="append", default=None,
+                     metavar="KEY=VAL",
+                     help="with --serve-transport=process: an environment "
+                     "variable laid over every member child (repeatable; "
+                     "e.g. CUDA_VISIBLE_DEVICES=0 pins the card)")
     run.add_argument("--ensemble-mesh", default=None, metavar="B[xS]",
                      help="shard the ensemble batch axis over a device mesh "
                      "(not ported)")

@@ -22,15 +22,25 @@ bucketed scheduler (counterpart of ``mpi_model_tpu/ensemble/``).
                   audit (``python -m mpi_model_tpu_torch.ensemble.journal
                   <dir>``);
 - ``wire``      — the TW1 frame codec, ``FrameConn`` and the HMAC handshake
-                  over TCP.
+                  over TCP;
+- ``member_proc`` — a member behind the wire: ``MemberServer``,
+                  ``ProcessMemberClient``, ``spawn_process_member`` (a child
+                  over a unix socket), ``spawn_loopback_member`` and the
+                  child's ``main``;
+- ``fleet``     — ``FleetSupervisor`` (N members behind one service surface:
+                  structure-affine routing, autoscaling, fencing and respawn,
+                  crash-restart recovery from the journal, the supervisor
+                  lease and epoch), ``StandbySupervisor``.
 
-The mesh-sharded ensemble, the fleet's runtime (members, the supervisor)
-and tiering are not ported yet (ROADMAP.md).
+The mesh-sharded ensemble, tiering and the TCP members are not ported yet
+(ROADMAP.md).
 """
 
 from .batch import (EnsembleConservationError, EnsembleExecutor,
                     EnsembleInFlight, EnsembleSpace, complete_ensemble,
                     launch_ensemble, run_ensemble, structure_key)
+from .fleet import (AutoscalePolicy, FleetSupervisor, MemberFailure,
+                    StandbySupervisor, lease_path, read_lease)
 from .journal import TicketJournal
 from .scheduler import (DEFAULT_BUCKETS, DispatchTimeout, EnsembleScheduler,
                         TicketExpired, TicketNotMigratable, buckets_for)
@@ -40,6 +50,7 @@ from .wire import FrameConn, RemoteError, WireClosed, WireError, WireTimeout
 
 __all__ = [
     "AsyncEnsembleService",
+    "AutoscalePolicy",
     "DEFAULT_BUCKETS",
     "DispatchTimeout",
     "EnsembleConservationError",
@@ -48,9 +59,12 @@ __all__ = [
     "EnsembleScheduler",
     "EnsembleService",
     "EnsembleSpace",
+    "FleetSupervisor",
     "FrameConn",
+    "MemberFailure",
     "RemoteError",
     "ServiceOverloaded",
+    "StandbySupervisor",
     "TicketExpired",
     "TicketJournal",
     "TicketNotMigratable",
@@ -60,6 +74,8 @@ __all__ = [
     "buckets_for",
     "complete_ensemble",
     "launch_ensemble",
+    "lease_path",
+    "read_lease",
     "run_ensemble",
     "run_soak",
     "structure_key",

@@ -47,10 +47,16 @@ The serving locks are made through ``resilience.lockdep`` with the JAX
 package's keys (``"AsyncEnsembleService._lock_cv"`` here), so an armed
 witness watches the loop's acquisition orders.
 
+The fleet's member faults fire at the top of ``pump_once``, targeted by
+``service_id`` (``inject.ArmedPlan.member_fault``): ``member_wedge`` makes
+the iteration do nothing (a live thread making no progress) and
+``member_kill`` raises ``inject.MemberKilled``, a ``BaseException`` the
+loop's supervisor does not survive: the pump thread dies, and the fleet's
+health check is what notices.
+
 Not ported (``NotImplementedError`` naming ROADMAP.md): the JAX package's
 scenario tiering (``residency_budget``, ``hibernate_dir``,
-``hibernate_budget``), ``mesh=``, and the fleet's member faults in the
-pump.
+``hibernate_budget``) and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -439,6 +445,15 @@ class AsyncEnsembleService:
         (``fail_flight``) before it propagates."""
         st = inject.active()
         if st is not None:
+            # the member faults fire before the pump counter moves, so a
+            # wedged member's thread_exc indices stay deterministic
+            if st.member_fault(self.service_id,
+                               ("member_wedge",)) is not None:
+                return False
+            if st.member_fault(self.service_id,
+                               ("member_kill",)) is not None:
+                raise inject.MemberKilled(
+                    f"injected member kill ({self.service_id})")
             if st.take("pump", st.bump("pump"),
                        kinds=("thread_exc",)) is not None:
                 raise inject.InjectedFault(
@@ -465,6 +480,10 @@ class AsyncEnsembleService:
                         return
                     draining = self._stop
                 did = self.pump_once(force=draining)
+            except inject.MemberKilled:
+                # the member_kill fault: this thread dies, with no drain
+                # (returning spares the default excepthook's traceback)
+                return
             # the pump-loop supervisor: an exception on this thread (the
             # thread_exc fault included) is counted and survived; a dead
             # loop is a dead service, and per-dispatch failures already
@@ -606,7 +625,14 @@ def run_soak(service, scenarios, *, arrival_rate_hz: float,
         dump_snapshot()  # the plane at the soak's end
     st = service.stats()
     offered = len(scenarios)
+    # a fleet's per-member attribution and supervision ledger ride along,
+    # so the report reconciles across members
+    fleet_fields = (
+        {k: st[k] for k in ("services", "member_faults", "readmitted",
+                            "scale_ups", "scale_downs")}
+        if "services" in st else {})
     return {
+        **fleet_fields,
         "telemetry_snapshot": snapshot_path,
         "offered": offered,
         "arrival_rate_hz": arrival_rate_hz,

@@ -44,7 +44,11 @@ site           where the seam lives / what the fault does
 ``pump``       ``AsyncEnsembleService.pump_once`` —
                ``kind="thread_exc"`` raises :class:`InjectedFault` at the
                top of one loop iteration; the loop's supervisor counts it
-               and keeps serving
+               and keeps serving. The fleet's member faults, targeted by
+               ``channel=service_id`` (``at``: a threshold on the pump
+               count): ``kind="member_kill"`` raises :class:`MemberKilled`
+               (the pump thread dies), ``kind="member_wedge"`` makes the
+               iteration do nothing (a live thread making no progress)
 ``admission``  ``AsyncEnsembleService.submit`` — ``kind="queue_full"``
                makes one submission shed as if the queue were full
 ``journal``    ``ensemble.journal.TicketJournal.append`` —
@@ -56,15 +60,24 @@ site           where the seam lives / what the fault does
                outgoing frame (``tear="corrupt"`` or ``"truncate"``);
                ``kind="tcp_partition"`` closes the connection and raises
                ``WireTimeout`` on a send or receive (``channel`` pins the
-               member, the connection's ``chaos_id``)
+               member, the connection's ``chaos_id``).
+               ``ensemble.member_proc.ProcessMemberClient`` (every RPC and
+               heartbeat counts the site) — ``kind="proc_kill"`` kills the
+               member (a real ``SIGKILL`` of a child; the loopback
+               hard-stops its serve thread); ``kind="heartbeat_loss"``
+               makes a beat a miss
 ``handshake``  ``ensemble.wire.serve_handshake``/``client_handshake`` —
                ``kind="handshake_fail"`` garbles one side's proof
+``lease``      ``ensemble.fleet.FleetSupervisor.tick`` of a named
+               supervisor (``channel`` = its ``supervisor_id``; ``at``: a
+               threshold on its tick count) — ``kind="supervisor_kill"``
+               stops supervision dead, the journal handle left open
 =============  ==============================================================
 
-The other kinds (the fleet's ``member_kill``/``member_wedge``,
-``proc_kill``, ``heartbeat_loss``, the tiering and lease seams) are
-accepted in a plan, so a plan of the JAX package parses here, but no port
-module fires them yet: their modules are not ported (ROADMAP.md).
+The tiering kinds (``hibernate_torn``, ``wake_corrupt``,
+``residency_pressure``) are accepted in a plan, so a plan of the JAX
+package parses here, but no port module fires them yet: scenario tiering
+is not ported (ROADMAP.md).
 
 Disarmed, every seam costs one module-global read (``active() is None``).
 """
@@ -106,8 +119,8 @@ class InjectedFault(RuntimeError):
 
 class MemberKilled(BaseException):
     """The fleet's ``member_kill`` fault: a ``BaseException``, so a pump
-    loop's ``except Exception`` supervisor does not survive it. Kept with
-    the data model; the fleet is not ported, so nothing raises it yet."""
+    loop's ``except Exception`` supervisor does not survive it (the pump
+    thread dies, and the fleet's health check fences the member)."""
 
 
 #: fault kind → seam site (one table, so a misspelt kind fails when the

@@ -2382,3 +2382,74 @@ def test_chip_peaks_are_read_from_the_card():
             and p["sm_count"] == 132:
         assert abs(p["hbm_gbps"] / 3350 - 1) < 0.02
         assert abs(p["vpu_gops"] / 67_000 - 1) < 0.02
+
+
+@pytest.mark.cuda
+def test_loopback_fleet_serves_k5_bit_for_bit_the_sync_service():
+    """A 2-member fleet whose members sit behind the loopback wire, on K5
+    (``pipeline``, substeps 8) at 1024²: every served lane bit for bit the
+    synchronous service's on the same lanes, K5 launched by the members, no
+    rung stepped, and the results back on the card."""
+    from mpi_model_tpu_torch.ensemble import FleetSupervisor
+    from mpi_model_tpu_torch.ensemble.member_proc import (
+        spawn_loopback_member)
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    lanes = _lanes(dev, 4, 1024, 71)
+    kw = dict(steps=8, impl="pipeline", substeps=8, max_batch=4)
+    sync = mt.EnsembleService(model, **kw)
+    ts = [sync.submit(s) for s in lanes]
+    sync.flush()
+    want = [sync.result(t)[0] for t in ts]
+    c0 = ps.launches()
+    fleet = FleetSupervisor(model, services=2, start=False,
+                            member_transport="process",
+                            member_spawner=spawn_loopback_member, **kw)
+    got = [fleet.result(fleet.submit(s)) for s in lanes]
+    st = fleet.stats()
+    fleet.stop()
+    assert ps.launches() > c0
+    for (g, rep), w in zip(got, want):
+        assert g.values["value"].device.type == "cuda"
+        assert torch.equal(g.values["value"], w.values["value"])
+        assert rep.impl == "pipeline"
+        assert rep.backend_report.get("degraded_from") is None
+    assert st["degraded_from"] is None and st["impl_faults"] == 0
+    assert st["scenarios"] == 4 and st["pending"] == 0
+
+
+@pytest.mark.cuda
+def test_a_pinned_child_member_reports_the_card_and_serves_k5():
+    """A real child (``spawn_process_member``) pinned by ``member_env`` to
+    ``CUDA_VISIBLE_DEVICES=0``: its heartbeat names the card in
+    ``_backend_devices``, it serves one K5 scenario bit for bit the
+    parent's synchronous service, and its own kernel counts show the K5
+    launch."""
+    import os
+
+    from mpi_model_tpu_torch.ensemble import FleetSupervisor
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    lane = _lanes(dev, 1, 512, 72)[0]
+    kw = dict(steps=8, impl="pipeline", substeps=8)
+    sync = mt.EnsembleService(model, **kw)
+    want = sync.result(sync.submit(lane))[0]
+    fleet = FleetSupervisor(model, services=1, start=True,
+                            member_transport="process",
+                            member_env={"CUDA_VISIBLE_DEVICES": "0"},
+                            heartbeat_deadline_s=30.0, rpc_deadline_s=120.0,
+                            **kw)
+    try:
+        got, rep = fleet.result(fleet.submit(lane), timeout=300)
+    finally:
+        fleet.stop()
+    st = fleet.stats()["services"][0]
+    assert st["backend"]["platform"] == "gpu"
+    assert st["backend"]["devices"] == [torch.cuda.get_device_name(0)]
+    assert st["backend"]["cuda_visible_devices"] == "0"
+    assert st["member_pid"] != os.getpid()
+    assert st["kernel_launches"]["pipeline_stencil"] >= 1
+    assert torch.equal(got.values["value"], want.values["value"])
+    assert rep.impl == "pipeline"

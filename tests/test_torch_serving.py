@@ -716,9 +716,12 @@ def test_cli_serve_flag_validation(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--serve-services=2"], ["--serve-transport=process"],
+    ["--serve-transport=tcp", "--serve-services=2"],
+    ["--serve-services=2", "--residency-budget=1",
+     "--hibernate-dir=/nonexistent"],
     ["--residency-budget=1", "--hibernate-dir=/nonexistent"],
-    ["--hibernate-dir=/nonexistent"], ["--serve-services=3"],
+    ["--hibernate-dir=/nonexistent"],
+    ["--serve-transport=process", "--hibernate-dir=/nonexistent"],
     ["--serve-transport=tcp"], ["--ensemble-mesh=2x1"],
     ["--ensemble-mesh=2"],
 ])
