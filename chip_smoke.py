@@ -448,6 +448,34 @@ Phases (any failure exits non-zero, and no result line is printed):
    scenarios/s of the in-process fleet, the process fleet and the
    synchronous service, the wire's bytes and the card's free memory, beside
    the card's name and power limit (no claim).
+6m. scenario tiering and the TCP members (``tiering_phase``, in a process
+   of its own, ``tiering_phase_main``; it prints its seconds), on 6c's
+   4096² lanes rolled on the card, each scenario its own rate (so every
+   dispatch is one lane), ``pipeline`` substeps 8: (a) an
+   ``AsyncEnsembleService`` with a residency budget of two scenarios takes
+   20 (the caller builds each space on the card, submits it and drops it;
+   the pump starts after the submissions) under ``lockdep.armed()``: zero
+   sheds, at least 16 hibernations and 16 wakes, every result bit for bit
+   its never-hibernated twin from the synchronous service, K5 launched, no
+   inversion; ``torch.cuda.memory_allocated()`` above the baseline after the
+   submissions held to the budget and one in-flight dispatch, and its peak
+   while serving to the budget and two idle wakes in flight; no vault chain
+   holding a card tensor; the wake latency p50/p99 and the hibernate and
+   restore seconds per 64 MiB printed; then one scenario hibernated, woken
+   and hibernated again (a delta with no dirty piece, its bytes a share of
+   the keyframe's); (b) a journaled fleet of 2 in-process members with the
+   same budget takes 12, one ``wake_corrupt`` readmits a ticket from the
+   fleet journal, the fleet is abandoned with tickets hibernated,
+   ``FleetSupervisor.recover`` re-enters them from their chains and every
+   ticket resolves bit for bit, the replay with no unresolved ticket and no
+   duplicate terminal; (c) two children over authenticated TCP on
+   127.0.0.1 (``spawn_process_member(transport="tcp")``, both on the one
+   card) serve 4 bit for bit, each child's spawn-to-first-heartbeat
+   seconds, handshake ms and wire bytes printed, and a dial with a wrong
+   secret refused by both ends before any frame; (d) ``active_fused`` at
+   0.05 with a budget of one scenario, 4 bit for bit, K6 and K7 launched;
+   (e) ``run --serve --serve-scenarios=6 --residency-budget=<2 scenarios>``
+   at 4096²: ledger complete, 6 served, no shed, at least one hibernation.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -6024,6 +6052,536 @@ def fleet_phase_main() -> None:
     print(json.dumps(out, default=repr), flush=True)
 
 
+#: phase 6m's working sets: (a) 20 scenarios against a budget of 2 (10×,
+#: JAX's acceptance soak's shape), (b) 12 through the tiered fleet, (c) 4
+#: over TCP (each two 64 MiB frames: the leg is wire-bound), (d) 4 at 0.05
+TIER_SCEN = 20
+TIER_FLEET_SCEN = 12
+TIER_TCP_SCEN = 4
+TIER_ACTIVE_SCEN = 4
+#: the slack the memory bounds allow past whole scenarios (totals, flags,
+#: the allocator's rounding)
+TIER_SLACK_BYTES = 16 << 20
+
+
+def _vault_on_host(tiering) -> bool:
+    """No chain of a tiering vault holds a tensor on the card."""
+    return all(v.device.type == "cpu"
+               for chain in tiering._chains.values()
+               for v in (chain._last_values or {}).values())
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def tiering_phase(np, torch, mt, dev, reset_counts, kernel_launches,
+                  side5=N5, steps=STEPS5, scenarios=TIER_SCEN,
+                  fleet_scenarios=TIER_FLEET_SCEN,
+                  tcp_scenarios=TIER_TCP_SCEN,
+                  active_scenarios=TIER_ACTIVE_SCEN, frac=LADDER_FRAC,
+                  out_dir=None) -> dict:
+    """Phase 6m: scenario tiering and the TCP members on the card (the
+    module docstring): (a) the paged async service on K5, 10× its budget,
+    under the lockdep witness, with the card's memory read after the
+    submissions and at its peak while serving, and the delta-paging
+    micro-leg; (b) a journaled, tiered fleet of 2 with a ``wake_corrupt``,
+    abandoned mid-soak and recovered; (c) two children over authenticated
+    TCP, and a wrong secret refused; (d) ``active_fused`` paged; (e) the
+    ``--serve`` CLI with ``--residency-budget``. Every served state is held
+    bit for bit its never-hibernated twin from the synchronous service;
+    ``check`` fails the run on any disagreement."""
+    import threading
+    import warnings
+
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
+                                              EnsembleService,
+                                              FleetSupervisor,
+                                              ScenarioTiering,
+                                              scenario_nbytes)
+    from mpi_model_tpu_torch.ensemble import journal as jn
+    from mpi_model_tpu_torch.ensemble import wire
+    from mpi_model_tpu_torch.ensemble.member_proc import spawn_process_member
+    from mpi_model_tpu_torch.resilience import lockdep
+    from mpi_model_tpu_torch.resilience.inject import Fault, FaultPlan, armed
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    kind = torch.cuda.get_device_name(0) if on_card else "cpu"
+    out_dir = (Path(__file__).resolve().parent / "chiprun_out"
+               if out_dir is None else Path(out_dir))
+    out_dir.mkdir(exist_ok=True)
+    out = {"card": smi_card_line(kind) if on_card else "cpu"}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def launched(name: str):
+        return kernel_launches()[name] if on_card else None
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    def fresh(name: str) -> Path:
+        d = out_dir / name
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+
+    # 6c's lanes, rolled on the card; each scenario its own rate (bench.py's
+    # bench_tiering), so every dispatch is one lane (K5's rate is one a
+    # batch)
+    base = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0.5, 2.0, (side5, side5)).astype(np.float32)).to(dev)
+
+    def lane(i: int):
+        return mt.CellularSpace({"value": torch.roll(base, 7 * i, dims=0)},
+                                side5, side5)
+
+    n_all = max(scenarios, fleet_scenarios, tcp_scenarios)
+    models = [mt.Model(mt.Diffusion(0.1 * (1.0 + 0.05 * i / (n_all - 1))))
+              for i in range(n_all)]
+    kw = dict(steps=steps, impl="pipeline", substeps=8, buckets=(1,),
+              max_batch=1)
+    one = side5 * side5 * 4
+    budget = 2 * one + 1
+
+    ref = EnsembleService(models[0], **kw)
+    ts = [ref.submit(lane(i), model=models[i]) for i in range(n_all)]
+    ref.flush()
+    want = [ref.result(t)[0].values["value"] for t in ts]
+    del ref, ts
+    sync()
+
+    def same(res, i) -> bool:
+        g, rep = res
+        return (bool(torch.equal(g.values["value"], want[i]))
+                and g.values["value"].device.type == dev.type
+                and rep.impl == "pipeline"
+                and rep.backend_report.get("degraded_from") is None)
+
+    # -- (a) the paged async service on K5 -------------------------------------
+    vdir = fresh("vault_6m_a")
+    sync()
+    mem0 = allocated()
+    reset_counts()
+    with lockdep.armed() as lw:
+        svc = AsyncEnsembleService(models[0], start=False,
+                                   residency_budget=budget,
+                                   hibernate_dir=str(vdir), max_queue=64,
+                                   **kw)
+        hib_s = []
+        t0 = time.perf_counter()
+        tickets = []
+        for i in range(scenarios):
+            # the caller builds each space on the card, submits it and
+            # drops its own reference
+            sp = lane(i)
+            h0 = svc.scheduler.counter.hibernations
+            ts0 = time.perf_counter()
+            tickets.append(svc.submit(sp, model=models[i]))
+            if svc.scheduler.counter.hibernations > h0:
+                hib_s.append(time.perf_counter() - ts0)
+            del sp
+        submit_s = time.perf_counter() - t0
+        sync()
+        mem_sub = allocated() - mem0
+        st_sub = svc.stats()
+        host_after_hib = _vault_on_host(svc.tiering)
+        vault_bytes = _dir_bytes(vdir)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc.start()
+        ok = []
+        for i, t in enumerate(tickets):
+            res = svc.result(t, timeout=600)
+            ok.append(same(res, i))
+            del res
+        sync()
+        serve_s = time.perf_counter() - t0
+        peak = ((torch.cuda.max_memory_allocated() - mem0) if on_card
+                else 0)
+        host_after_wake = _vault_on_host(svc.tiering)
+        svc.stop()
+        st = svc.stats()
+    k5_a = launched("pipeline_stencil")
+    edges = sorted(lw.edges)
+    mib64 = 64 << 20
+    # the bounds, from the code: after the submissions (the pump not yet
+    # started) the budget's residents and at most one in-flight one-lane
+    # dispatch (its stacked input and K5's two buffers); while serving, the
+    # residents' uncollected results (the budget), and per idle wake that
+    # runs ahead of the caller's poll a woken scenario in flight (its
+    # input, stack and two buffers), at most two of them
+    bound_sub = budget + 3 * one + TIER_SLACK_BYTES
+    bound_peak = budget + 2 * 4 * one + TIER_SLACK_BYTES
+    out["a"] = {
+        "scenarios": scenarios, "side": side5, "budget": budget,
+        "bitwise": all(ok), "shed": st["shed"],
+        "hibernations": st["hibernations"], "wakes": st["wakes"],
+        "k5_launches": k5_a, "edges": edges, "violations": lw.violations,
+        "wake_latency_p50_s": st["wake_latency_p50_s"],
+        "wake_latency_p99_s": st["wake_latency_p99_s"],
+        "hibernate_s_per_64mib": (statistics.median(hib_s) * mib64 / one
+                                  if hib_s else None),
+        "restore_s_per_64mib": (st["wake_latency_p50_s"] * mib64 / one
+                                if st["wake_latency_p50_s"] else None),
+        "vault_bytes": vault_bytes,
+        "hibernated_after_submit": st_sub["hibernated_scenarios"],
+        "mem_after_submit_bytes": mem_sub, "mem_bound_after_submit":
+        bound_sub, "mem_peak_serving_bytes": peak,
+        "mem_bound_peak": bound_peak, "mem_unpaged_bytes": scenarios * one,
+        "vault_on_host": host_after_hib and host_after_wake,
+        "submit_s": submit_s, "serve_s": serve_s,
+        "scenarios_per_s": scenarios / serve_s}
+    a = out["a"]
+    print(f"6m (a) paged AsyncEnsembleService on K5 (pipeline, substeps 8), "
+          f"{scenarios} x {side5}^2 f32 each its own rate, budget {budget} "
+          f"bytes (2 scenarios): bit for bit the sync twin {a['bitwise']}, "
+          f"shed {a['shed']}, hibernations {a['hibernations']}, wakes "
+          f"{a['wakes']}, K5 launches {k5_a}; wake latency p50/p99 "
+          f"{a['wake_latency_p50_s']} / {a['wake_latency_p99_s']} s (wall); "
+          f"hibernate {a['hibernate_s_per_64mib']} s and restore "
+          f"{a['restore_s_per_64mib']} s per 64 MiB; vault {vault_bytes} "
+          f"bytes after the submissions; lockdep edges {edges}, violations "
+          f"{lw.violations}", flush=True)
+    print(f"6m (a) memory_allocated above the baseline: {mem_sub} bytes "
+          f"after the {scenarios} submissions (bound {bound_sub}: the "
+          f"budget and one in-flight one-lane dispatch; unpaged "
+          f"{scenarios * one}), peak {peak} while serving (bound "
+          f"{bound_peak}: the budget and two idle wakes in flight); no "
+          f"vault chain on the card {a['vault_on_host']}; "
+          f"{submit_s:.2f} s to submit, {serve_s:.2f} s to serve",
+          flush=True)
+    ladder_guard(st, k5_a, "6m (a) the paged service")
+    check(a["bitwise"] and a["shed"] == 0 and a["hibernations"] >= 16
+          and a["wakes"] >= 16 and (k5_a is None or k5_a > 0)
+          and edges and not lw.violations and a["vault_on_host"]
+          and (not on_card or (mem_sub <= bound_sub
+                               and peak <= bound_peak)),
+          f"6m (a) the paged service: {a}")
+    shutil.rmtree(vdir, ignore_errors=True)
+
+    # the delta-paging micro-leg: hibernate, wake, re-hibernate one scenario
+    vdir = fresh("vault_6m_delta")
+    vault = ScenarioTiering(str(vdir), residency_budget=1, device=dev)
+    sp = lane(0)
+    t0 = time.perf_counter()
+    vault.hibernate(1, sp, models[0], steps)
+    kf_s = time.perf_counter() - t0
+    kf = vault.stats()["hibernated_bytes"]
+    t0 = time.perf_counter()
+    back, _ = vault.wake(1)
+    wake_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vault.hibernate(1, back, models[0], steps)
+    d_s = time.perf_counter() - t0
+    delta = vault.stats()["hibernated_bytes"] - kf
+    chain = vault._chains[1]
+    with np.load(chain.record_path(1, "delta")) as z:
+        pieces = json.loads(bytes(z["meta"]).decode())["pieces"]
+    again, _ = vault.wake(1)
+    out["delta"] = {"keyframe_bytes": kf, "delta_bytes": delta,
+                    "delta_fraction_of_keyframe": delta / kf,
+                    "dirty_pieces": len(pieces), "keyframe_s": kf_s,
+                    "wake_s": wake_s, "delta_s": d_s,
+                    "bitwise": bool(torch.equal(again.values["value"],
+                                                sp.values["value"])),
+                    "vault_on_host": _vault_on_host(vault)}
+    dl = out["delta"]
+    print(f"6m (a) delta paging of one {side5}^2 scenario: keyframe {kf} "
+          f"bytes in {kf_s:.3f} s, wake {wake_s:.3f} s, re-hibernation "
+          f"{delta} bytes ({dl['delta_fraction_of_keyframe']:.2e} of the "
+          f"keyframe, {len(pieces)} dirty pieces) in {d_s:.3f} s, bit for "
+          f"bit {dl['bitwise']}", flush=True)
+    check(dl["bitwise"] and dl["dirty_pieces"] == 0 and 0 < delta < kf / 100
+          and dl["vault_on_host"], f"6m (a) delta paging: {dl}")
+    vault.close()
+    del vault, sp, back, again, chain
+    shutil.rmtree(vdir, ignore_errors=True)
+
+    # -- (b) a journaled, tiered fleet: wake_corrupt, abandon, recover --------
+    jdir, vdir = fresh("journal_6m"), fresh("vault_6m_b")
+    fkw = dict(services=2, device=dev, max_queue=64, journal_dir=str(jdir),
+               journal_results=False, residency_budget=budget,
+               hibernate_dir=str(vdir), **kw)
+    half = fleet_scenarios // 2
+    reset_counts()
+    t0 = time.perf_counter()
+    fleet = FleetSupervisor(models[0], start=False, **fkw)
+    with armed(FaultPlan((Fault("wake_corrupt", ticket=3, nbytes=65536),
+                          ))) as arm, warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        tickets = [fleet.submit(lane(i), model=models[i])
+                   for i in range(fleet_scenarios)]
+        hib_b = fleet.stats()["hibernated_scenarios"]
+        ok = []
+        for i in range(half):
+            res = fleet.result(tickets[i])
+            ok.append(same(res, i))
+            del res
+    st_b = fleet.stats()
+    hib_left = st_b["hibernated_scenarios"]
+    fleet.abandon()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f2 = FleetSupervisor.recover(str(jdir), models[0], start=False, **{
+        k: v for k, v in fkw.items() if k != "journal_dir"})
+    rec_hib = f2.stats()["hibernated_scenarios"]
+    for i in range(half, fleet_scenarios):
+        res = f2.result(tickets[i])
+        ok.append(same(res, i))
+        del res
+    sync()
+    recover_s = time.perf_counter() - t0
+    k5_b = launched("pipeline_stencil")
+    st2 = f2.stats()
+    f2.stop()
+    audit = jn.replay(jn.journal_path(str(jdir)))
+    out["b"] = {"scenarios": fleet_scenarios, "bitwise": all(ok),
+                "fired": [f["kind"] for f in arm.fired],
+                "hibernated_at_submit": hib_b,
+                "wake_faults": st_b["wake_faults"],
+                "hibernated_at_abandon": hib_left,
+                "recovered_hibernated": rec_hib,
+                "wakes_by_member": st_b["wakes_by_member"],
+                "readmitted_after_recover": st2["readmitted"],
+                "shed": st_b["shed"] + st2["shed"], "k5_launches": k5_b,
+                "unresolved": audit.unresolved(),
+                "duplicate_terminals": audit.duplicate_terminals,
+                "journal_bytes": _dir_bytes(jdir),
+                "first_s": first_s, "recover_s": recover_s}
+    b = out["b"]
+    print(f"6m (b) journaled tiered fleet of 2 on K5: {fleet_scenarios} x "
+          f"{side5}^2, {hib_b} hibernated at submission, wake_corrupt fired "
+          f"{b['fired']} (wake faults {b['wake_faults']}: readmitted from the "
+          f"fleet journal), wakes by member {b['wakes_by_member']}; "
+          f"abandoned after {half} served with {hib_left} hibernated, "
+          f"recover re-entered {rec_hib} from their chains and re-admitted "
+          f"{st2['readmitted']}; every ticket bit for bit {b['bitwise']}, "
+          f"K5 launches {k5_b}, unresolved {b['unresolved']}, duplicate "
+          f"terminals {b['duplicate_terminals']}; {first_s:.2f} s then "
+          f"{recover_s:.2f} s", flush=True)
+    check(b["bitwise"] and b["fired"] == ["wake_corrupt"]
+          and b["wake_faults"] == 1 and hib_left > 0 and rec_hib == hib_left
+          and b["shed"] == 0 and not b["unresolved"]
+          and not b["duplicate_terminals"] and (k5_b is None or k5_b > 0),
+          f"6m (b) the tiered fleet: {b}")
+    ladder_guard(st2, k5_b, "6m (b) the recovered fleet")
+    del fleet, f2
+    shutil.rmtree(jdir, ignore_errors=True)
+    shutil.rmtree(vdir, ignore_errors=True)
+
+    # -- (c) two children over authenticated TCP -------------------------------
+    spawn_s = {}
+
+    def tcp_spawner(model, **k):
+        t0 = time.perf_counter()
+        client = spawn_process_member(model, transport="tcp",
+                                      host="127.0.0.1", **k)
+        spawn_s[k["service_id"]] = time.perf_counter() - t0
+        return client
+
+    t0 = time.perf_counter()
+    pf = FleetSupervisor(models[0], services=2, device=dev, max_queue=64,
+                         member_transport="tcp", member_spawner=tcp_spawner,
+                         member_env=({"CUDA_VISIBLE_DEVICES": "0"}
+                                     if on_card else None), **kw)
+    spawn_wall = time.perf_counter() - t0
+    handshake = {m.service_id: m.service.handshake_s
+                 for m in pf._members.values()}
+    t0 = time.perf_counter()
+    tickets = [pf.submit(lane(i), model=models[i])
+               for i in range(tcp_scenarios)]
+    ok = []
+    for i, t in enumerate(tickets):
+        res = pf.result(t, timeout=600)
+        ok.append(same(res, i))
+        del res
+    wall_c = time.perf_counter() - t0
+    _wait_for(lambda: sum(s["scenarios"] for s in pf.stats()["services"])
+              == tcp_scenarios, 30.0)
+    pf.stop()
+    st = pf.stats()
+    children = {s["service_id"]: {
+        "pid": s["member_pid"], "backend": s["backend"],
+        "k5_launches": (s["kernel_launches"] or {}).get("pipeline_stencil"),
+        "scenarios": s["scenarios"],
+        "spawn_to_first_heartbeat_s": spawn_s.get(s["service_id"]),
+        "handshake_ms": (None if handshake.get(s["service_id"]) is None
+                         else 1e3 * handshake[s["service_id"]]),
+        "wire_bytes_in": s["wire_bytes_in"],
+        "wire_bytes_out": s["wire_bytes_out"]} for s in st["services"]}
+
+    # a dial with a wrong secret: the listener's handshake fails and closes
+    # the socket before any frame is read
+    listener = wire.tcp_listener("127.0.0.1", 0)
+    addr = "%s:%d" % listener.getsockname()[:2]
+    refused = {}
+
+    def serve_right():
+        sock, _ = listener.accept()
+        try:
+            wire.serve_handshake(sock, "the-spawner's-secret")
+            refused["server"] = None
+        except wire.HandshakeError as e:
+            refused["server"] = f"{type(e).__name__}: {e}"
+            refused["closed"] = sock.fileno() == -1
+
+    th = threading.Thread(target=serve_right, daemon=True)
+    th.start()
+    sock = wire.tcp_dial(addr)
+    try:
+        wire.client_handshake(sock, "a wrong secret")
+        refused["client"] = None
+    except wire.HandshakeError as e:
+        refused["client"] = f"{type(e).__name__}: {e}"
+    th.join(timeout=30.0)
+    sock.close()
+    listener.close()
+    out["c"] = {"scenarios": tcp_scenarios, "seconds": wall_c,
+                "scenarios_per_s": tcp_scenarios / wall_c,
+                "bitwise": all(ok), "children": children,
+                "spawn_wall_s": spawn_wall,
+                "member_transport": st["member_transport"],
+                "wire_bytes_in": st["wire_bytes_in"],
+                "wire_bytes_out": st["wire_bytes_out"],
+                "member_faults": st["member_faults"],
+                "wrong_secret": refused}
+    c = out["c"]
+    for sid, ch in children.items():
+        print(f"6m (c) TCP child {sid} (pid {ch['pid']}): spawn to first "
+              f"heartbeat {ch['spawn_to_first_heartbeat_s']:.2f} s, handshake "
+              f"{ch['handshake_ms']:.3f} ms, devices "
+              f"{ch['backend']['devices']}, served {ch['scenarios']}, K5 "
+              f"launches {ch['k5_launches']}, wire {ch['wire_bytes_out']} "
+              f"bytes out / {ch['wire_bytes_in']} in", flush=True)
+    print(f"6m (c) TCP fleet of 2 children on 127.0.0.1: {tcp_scenarios} x "
+          f"{side5}^2 in {wall_c:.2f} s ({c['scenarios_per_s']:.3f} "
+          f"scenarios/s), bit for bit {c['bitwise']}; a wrong secret: "
+          f"listener {refused.get('server')!r} (socket closed "
+          f"{refused.get('closed')}), dialer {refused.get('client')!r}",
+          flush=True)
+    k5_c = sum(ch["k5_launches"] or 0 for ch in children.values())
+    check(c["bitwise"] and c["member_transport"] == "tcp"
+          and c["member_faults"] == 0 and st["degraded_from"] is None
+          and all(h is not None and h > 0 for h in handshake.values())
+          and (not on_card or k5_c > 0)
+          and refused.get("server") and refused.get("closed")
+          and refused.get("client"), f"6m (c) the TCP children: {c}")
+    del pf
+
+    # -- (d) active_fused paged (K6/K7) -----------------------------------------
+    act = [mt.CellularSpace({"value": torch.from_numpy(
+        workload(np, side5, side5, frac, SEED + i)).to(dev)}, side5, side5)
+        for i in range(active_scenarios)]
+    model01 = mt.Model(mt.Diffusion(0.1))
+    akw = dict(steps=steps, impl="active_fused", max_batch=2)
+    ref = EnsembleService(model01, **akw)
+    ts = [ref.submit(s) for s in act]
+    ref.flush()
+    want_f = [ref.result(t)[0].values["value"] for t in ts]
+    vdir = fresh("vault_6m_d")
+    reset_counts()
+    with AsyncEnsembleService(model01, residency_budget=one + 1,
+                              hibernate_dir=str(vdir), max_queue=64,
+                              **akw) as asvc:
+        tickets = [asvc.submit(s) for s in act]
+        got = [asvc.result(t, timeout=600) for t in tickets]
+    sync()
+    k67 = (launched("fused_compute"), launched("fused_scatter"))
+    st = asvc.stats()
+    out["d"] = {"scenarios": active_scenarios, "frac": frac,
+                "bitwise": all(torch.equal(g[0].values["value"], want_f[i])
+                               for i, g in enumerate(got)),
+                "hibernations": st["hibernations"], "wakes": st["wakes"],
+                "shed": st["shed"], "k6_k7_launches": k67}
+    d = out["d"]
+    print(f"6m (d) paged active_fused service at {frac} activity, "
+          f"{active_scenarios} x {side5}^2, budget one scenario: bit for bit "
+          f"{d['bitwise']}, hibernations {d['hibernations']}, wakes "
+          f"{d['wakes']}, shed {d['shed']}, K6/K7 launches {k67}",
+          flush=True)
+    ladder_guard(st, None if k67[0] is None else min(k67),
+                 "6m (d) the paged active_fused service")
+    check(d["bitwise"] and d["shed"] == 0 and d["hibernations"] >= 1,
+          f"6m (d) active_fused paged: {d}")
+    del act, got, want_f, asvc, ref
+    shutil.rmtree(vdir, ignore_errors=True)
+
+    # -- (e) the --serve CLI with --residency-budget ----------------------------
+    vdir = fresh("vault_6m_e")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["run", "--flow=diffusion", f"--dimx={side5}",
+                       f"--dimy={side5}", f"--steps={steps}",
+                       "--ensemble-impl=pipeline", "--substeps=8", "--serve",
+                       "--serve-scenarios=6", f"--residency-budget={2 * one}",
+                       f"--hibernate-dir={vdir}", "--json",
+                       *([] if on_card else ["--device=cpu"])])
+    cli_s = time.perf_counter() - t0
+    row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out["e"] = {k: row.get(k) for k in (
+        "served", "shed", "ledger_complete", "hibernations", "wakes",
+        "wake_latency_p99_s", "residency_budget", "resident_scenarios",
+        "resident_bytes", "hibernated_scenarios", "kernel_launches")}
+    out["e"]["seconds"] = cli_s
+    print(f"6m (e) CLI --serve --serve-scenarios=6 --residency-budget="
+          f"{2 * one} at {side5}^2: {json.dumps(out['e'])}", flush=True)
+    check(rc == 0 and row["ledger_complete"] and row["served"] == 6
+          and row["shed"] == 0 and row["hibernations"] >= 1
+          and row["residency_budget"] == 2 * one, f"6m (e) the CLI: {row}")
+    if on_card:
+        cli_row_guard(row, "6m (e) the tiered --serve CLI row")
+    shutil.rmtree(vdir, ignore_errors=True)
+    del base, want
+    if on_card:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6m: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def tiering_phase_main() -> None:
+    """Phase 6m in a process of its own (``python3 -c "import chip_smoke;
+    chip_smoke.tiering_phase_main()"``): loads the kernels from the build
+    directory (building any missing), runs ``tiering_phase`` on the card,
+    writes ``chiprun_out/chip_smoke_6m.json`` and prints the rows as its
+    last line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import _build
+    from mpi_model_tpu_torch.ops import composed_stencil as cs
+    from mpi_model_tpu_torch.ops import field_stencil as k4
+    from mpi_model_tpu_torch.ops import fused_active as fa
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.ops import pipeline_stencil as k5
+
+    def reset_counts():
+        for mod in (fs, cs, k4, k5, fa):
+            mod.reset_launches()
+
+    _build.build_all()
+    out = tiering_phase(np, torch, mt, torch.device("cuda"), reset_counts,
+                        kernel_launches)
+    out["process_seconds"] = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6m.json").write_text(
+        json.dumps(out, indent=1, default=repr))
+    print(json.dumps(out, default=repr), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -7480,6 +8038,23 @@ def main() -> int:
     print(f"6l: {fleet['seconds_total']:.1f} s (its process "
           f"{fleet['process_seconds']:.1f} s)", flush=True)
 
+    # -- 6m. tiering and the TCP members, in a process of its own ---------------
+    torch.cuda.empty_cache()
+    t_tier = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         "sys.argv[1]); import chip_smoke; chip_smoke.tiering_phase_main()",
+         str(here)], cwd=here, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0, "6m: the tiering process failed:\n"
+                                f"{proc.stdout[-2000:]}\n"
+                                f"{proc.stderr[-4000:]}")
+    tiering = json.loads(lines[-1])
+    tiering["seconds_total"] = time.perf_counter() - t_tier
+    print(f"6m: {tiering['seconds_total']:.1f} s (its process "
+          f"{tiering['process_seconds']:.1f} s)", flush=True)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -7879,7 +8454,7 @@ def main() -> int:
          "sharded": sharded, "halo_main_shard_err": halo_err,
          "sharded_active": sharded_active, "bf16_interior": bf16,
          "checkpoint": ckpt, "ir": ir, "observability": observability,
-         "fleet": fleet,
+         "fleet": fleet, "tiering": tiering,
          "ladder_formats": ladder, "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

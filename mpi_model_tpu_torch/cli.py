@@ -74,15 +74,19 @@ admission allows) against a ``--max-queue``-bounded admission queue, with
 an optional per-ticket ``--deadline-s``; the row carries the served/
 failed/expired/shed ledger (exit status 1 if it is not complete),
 sustained scenarios/s, p50/p99 queue latency and occupancy.
-``--serve-services=N`` above 1, or ``--serve-transport=process``, serves
-the same stream through an N-member ``FleetSupervisor`` (in-process
-members, or children over unix sockets, each environment overlaid with
-the repeatable ``--serve-member-env=KEY=VAL``, e.g. a
-``CUDA_VISIBLE_DEVICES`` pin); the row adds ``member_faults``,
-``readmitted``, the per-member ``members`` attribution and, for process
-members, the wire's ledger. ``--serve-transport=tcp``, scenario tiering
-(``--residency-budget``, ``--hibernate-dir``) and ``--ensemble-mesh`` are
-refused: their modules are not ported (ROADMAP.md). ``--status=PATH``
+``--serve-services=N`` above 1, or ``--serve-transport=process|tcp``,
+serves the same stream through an N-member ``FleetSupervisor`` (in-process
+members, or children over unix sockets or authenticated TCP on
+127.0.0.1, each environment overlaid with the repeatable
+``--serve-member-env=KEY=VAL``, e.g. a ``CUDA_VISIBLE_DEVICES`` pin); the
+row adds ``member_faults``, ``readmitted``, the per-member ``members``
+attribution and, for process members, the wire's ledger.
+``--residency-budget=BYTES`` with ``--hibernate-dir=DIR`` (both or
+neither) turns on scenario tiering: scenarios beyond the budget hibernate
+to the vault and wake as capacity frees, and the row adds the paging
+ledger (hibernations, wakes, wake-latency p50/p99, the residency cut).
+``--ensemble-mesh`` is refused: its module is not ported (ROADMAP.md).
+``--status=PATH``
 writes the telemetry snapshot (``obs``) of a ``--serve`` soak to PATH every
 ``--status-interval-s`` seconds and at its end, and installs a flight
 recorder dumping under ``PATH.flight.d/``; ``--status-port=PORT`` serves
@@ -292,19 +296,21 @@ def check_serve_flags(args, sharded: bool) -> None:
         if args.deadline_s is not None and args.deadline_s <= 0:
             raise SystemExit(
                 f"--deadline-s={args.deadline_s} must be positive")
+        if (args.residency_budget is None) != (args.hibernate_dir is None):
+            raise SystemExit(
+                "scenario tiering needs BOTH --residency-budget and "
+                "--hibernate-dir (or neither)")
         if args.serve_member_env and args.serve_transport not in (
                 "process", "tcp"):
             raise SystemExit(
                 "--serve-member-env pins a spawned CHILD's environment "
                 "(device visibility); it needs "
                 "--serve-transport=process or =tcp")
-        if args.serve_transport == "tcp":
-            _refuse_unported("--serve-transport=tcp",
-                             "the TCP fleet members")
         if args.residency_budget is not None \
-                or args.hibernate_dir is not None:
-            _refuse_unported("--residency-budget/--hibernate-dir",
-                             "scenario tiering (ensemble/tiering.py)")
+                and args.residency_budget < 1:
+            raise SystemExit(
+                f"--residency-budget={args.residency_budget} needs >= 1 "
+                "byte")
         if args.status_interval_s <= 0:
             raise SystemExit(
                 f"--status-interval-s={args.status_interval_s} must be "
@@ -632,10 +638,11 @@ def _parse_member_env(pairs):
 
 def run_serve_cli(args, space, model) -> int:
     """``--serve``: the always-on loop, or with ``--serve-services`` above 1
-    or ``--serve-transport=process`` a ``FleetSupervisor`` over it, under
-    an open-loop arrival process (``run_soak``), with the JAX package's
-    report keys (a fleet's row adds the per-member attribution); exit
-    status 1 when the ledger is not complete."""
+    or ``--serve-transport=process|tcp`` a ``FleetSupervisor`` over it,
+    under an open-loop arrival process (``run_soak``), with the JAX
+    package's report keys (a fleet's row adds the per-member attribution,
+    a tiered one the paging ledger); exit status 1 when the ledger is not
+    complete."""
     from .ensemble import (AsyncEnsembleService, FleetSupervisor,
                            buckets_for, run_soak)
     from .models.model import kernel_launches
@@ -653,7 +660,10 @@ def run_serve_cli(args, space, model) -> int:
         steps=steps, impl=args.ensemble_impl, substeps=args.substeps,
         buckets=buckets_for(8), max_queue=args.max_queue,
         compute_dtype=args.compute_dtype, deadline_s=args.deadline_s,
-        retry="solo", compile_cache=_cache_spec(args, "auto"))
+        retry="solo", compile_cache=_cache_spec(args, "auto"),
+        # scenario tiering: overload hibernates instead of shedding
+        residency_budget=args.residency_budget,
+        hibernate_dir=args.hibernate_dir)
     # process members always run under the supervisor: something must
     # heartbeat, fence and respawn the children
     fleet_mode = (args.serve_services > 1
@@ -696,10 +706,20 @@ def run_serve_cli(args, space, model) -> int:
             "batch_occupancy", "dispatches", "solo_retries",
             "recovered_failures", "quarantined", "loop_faults")},
     }
+    # the stopped service's cut: a fleet's final tick heartbeat every
+    # process member, so the per-member counts are the members' last
+    st = svc.stats()
+    if args.residency_budget is not None:
+        # the paging ledger and the residency cut
+        for k in ("hibernations", "rehibernations", "wakes",
+                  "wake_faults", "wake_latency_p50_s",
+                  "wake_latency_p99_s", "resident_scenarios",
+                  "resident_bytes", "residency_budget",
+                  "hibernated_scenarios", "hibernated_bytes"):
+            result[k] = st.get(k)
+        if fleet_mode:
+            result["wakes_by_member"] = st.get("wakes_by_member")
     if fleet_mode:
-        # the stopped fleet's cut: its final tick heartbeat every process
-        # member, so the per-member counts are the members' last
-        st = svc.stats()
         result["member_faults"] = rep["member_faults"]
         result["readmitted"] = rep["readmitted"]
         # per-member attribution: which member served what
@@ -707,7 +727,7 @@ def run_serve_cli(args, space, model) -> int:
             {k: s[k] for k in ("service_id", "scenarios", "dispatches",
                                "pending", "gen")}
             for s in st["services"]]
-        if args.serve_transport == "process":
+        if args.serve_transport in ("process", "tcp"):
             for k in ("respawns", "heartbeats", "heartbeat_misses",
                       "wire_errors", "wire_bytes_in", "wire_bytes_out"):
                 result[k] = st[k]
@@ -1097,13 +1117,17 @@ def main(argv: Optional[list[str]] = None) -> int:
     run.add_argument("--serve-transport", default="inproc",
                      choices=("inproc", "process", "tcp"),
                      help="fleet member transport: 'inproc' (in-process "
-                     "services) or 'process' (a child each over a unix "
-                     "socket, heartbeat-fenced); 'tcp' is not ported")
+                     "services), 'process' (a child each over a unix "
+                     "socket, heartbeat-fenced) or 'tcp' (a child each over "
+                     "an authenticated TCP socket on 127.0.0.1: a fresh "
+                     "secret in its environment, the HMAC handshake before "
+                     "the first frame)")
     run.add_argument("--serve-member-env", action="append", default=None,
                      metavar="KEY=VAL",
-                     help="with --serve-transport=process: an environment "
-                     "variable laid over every member child (repeatable; "
-                     "e.g. CUDA_VISIBLE_DEVICES=0 pins the card)")
+                     help="with --serve-transport=process or tcp: an "
+                     "environment variable laid over every member child "
+                     "(repeatable; e.g. CUDA_VISIBLE_DEVICES=0 pins the "
+                     "card)")
     run.add_argument("--ensemble-mesh", default=None, metavar="B[xS]",
                      help="shard the ensemble batch axis over a device mesh "
                      "(not ported)")
@@ -1119,9 +1143,14 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "shed with ServiceOverloaded (default 64)")
     run.add_argument("--residency-budget", type=int, default=None,
                      metavar="BYTES",
-                     help="scenario-tiering residency budget (not ported)")
-    run.add_argument("--hibernate-dir", default=None,
-                     help="scenario-tiering vault directory (not ported)")
+                     help="scenario-tiering residency budget: scenario "
+                     "state bytes allowed resident; beyond it scenarios "
+                     "hibernate to --hibernate-dir (keyframe and delta "
+                     "chains, a TJ1 lifecycle journal) and wake as capacity "
+                     "frees, so only an exhausted vault sheds")
+    run.add_argument("--hibernate-dir", default=None, metavar="DIR",
+                     help="vault directory of the hibernation tier "
+                     "(required with --residency-budget)")
     run.add_argument("--status", default=None, metavar="PATH",
                      help="with --serve: write the telemetry snapshot "
                      "(obs.fleet_snapshot: serving stats, tracer rollups, "

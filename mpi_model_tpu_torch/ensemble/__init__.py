@@ -23,17 +23,19 @@ bucketed scheduler (counterpart of ``mpi_model_tpu/ensemble/``).
                   <dir>``);
 - ``wire``      — the TW1 frame codec, ``FrameConn`` and the HMAC handshake
                   over TCP;
+- ``tiering``   — scenario hibernate/wake paging through the delta stream:
+                  ``ScenarioTiering``, ``HibernationError``,
+                  ``scenario_nbytes``;
 - ``member_proc`` — a member behind the wire: ``MemberServer``,
                   ``ProcessMemberClient``, ``spawn_process_member`` (a child
-                  over a unix socket), ``spawn_loopback_member`` and the
-                  child's ``main``;
+                  over a unix socket or authenticated TCP),
+                  ``spawn_loopback_member`` and the child's ``main``;
 - ``fleet``     — ``FleetSupervisor`` (N members behind one service surface:
                   structure-affine routing, autoscaling, fencing and respawn,
                   crash-restart recovery from the journal, the supervisor
-                  lease and epoch), ``StandbySupervisor``.
+                  lease and epoch, scenario tiering), ``StandbySupervisor``.
 
-The mesh-sharded ensemble, tiering and the TCP members are not ported yet
-(ROADMAP.md).
+The mesh-sharded ensemble is not ported yet (ROADMAP.md).
 """
 
 from .batch import (EnsembleConservationError, EnsembleExecutor,
@@ -46,6 +48,7 @@ from .scheduler import (DEFAULT_BUCKETS, DispatchTimeout, EnsembleScheduler,
                         TicketExpired, TicketNotMigratable, buckets_for)
 from .service import (AsyncEnsembleService, EnsembleService,
                       ServiceOverloaded, run_soak)
+from .tiering import HibernationError, ScenarioTiering, scenario_nbytes
 from .wire import FrameConn, RemoteError, WireClosed, WireError, WireTimeout
 
 __all__ = [
@@ -61,8 +64,10 @@ __all__ = [
     "EnsembleSpace",
     "FleetSupervisor",
     "FrameConn",
+    "HibernationError",
     "MemberFailure",
     "RemoteError",
+    "ScenarioTiering",
     "ServiceOverloaded",
     "StandbySupervisor",
     "TicketExpired",
@@ -78,5 +83,6 @@ __all__ = [
     "read_lease",
     "run_ensemble",
     "run_soak",
+    "scenario_nbytes",
     "structure_key",
 ]

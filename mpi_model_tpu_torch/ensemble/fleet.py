@@ -42,9 +42,25 @@ surface and its journal records).
   and on its members' wires (their epoch ratchet). The
   ``supervisor_kill`` seam stops supervision dead.
 
+- **Scenario tiering.** With ``residency_budget`` and ``hibernate_dir``
+  (both or neither) a submission the budget cannot take, or that every
+  member refuses, hibernates to the vault (``ensemble.tiering``) instead of
+  shedding; each tick wakes hibernated tickets FIFO onto the affinity
+  member as capacity frees (the chain restore outside the fleet lock, the
+  placement atomic with the route table), attributed per member
+  (``wakes_by_member``). A wake whose chain does not verify re-admits from
+  the fleet journal's submit record; with neither it resolves as
+  ``HibernationError``. ``stop`` wakes every hibernated ticket before the
+  members drain; ``recover`` re-enters the tickets hibernated at a crash
+  from their chains. A hibernated ticket belongs to no member and holds no
+  state in the fleet: ``_hib_meta`` keeps its model, steps, structure key,
+  submit time and trace.
+
 Members are in-process ``AsyncEnsembleService``s (``member_transport=
 "inproc"``) or members behind the wire (``"process"``: a child over a unix
-socket from ``member_proc.spawn_process_member``, or any
+socket from ``member_proc.spawn_process_member``; ``"tcp"``: the same child
+over an authenticated TCP socket on ``member_host``, a fresh secret in its
+environment and the HMAC handshake before the first frame; or any
 ``member_spawner``, such as ``spawn_loopback_member``). ``member_env`` is
 laid over each child's environment: a dict for every member, a sequence
 pinned per slot (``member_env[slot % len]``), or a callable of the slot.
@@ -58,15 +74,13 @@ runs one supervision ``tick``. The fleet has the service surface
 (``submit``, ``poll``, ``result``, ``stats``, ``stop``, a context manager),
 so ``run_soak`` drives it unchanged.
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): scenario tiering
-(``residency_budget``, ``hibernate_dir``, ``hibernate_budget``),
-``member_transport="tcp"`` (``member_host``, its listen address, is
-accepted and unused) and ``mesh``.
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -86,10 +100,11 @@ from .journal import (StaleEpochError, TicketJournal, declare_epoch,
                       journal_path, model_from_meta, model_meta, replay,
                       space_from_record, space_payload)
 from .lifecycle import (EXPIRED, MIGRATE, QUARANTINED, READMIT, SERVED,
-                        SHED, SUBMIT)
+                        SHED, SUBMIT, WAKE)
 from .member_proc import resolve_deadlines, spawn_process_member
 from .scheduler import TicketExpired, TicketNotMigratable
 from .service import AsyncEnsembleService, ServiceOverloaded
+from .tiering import HibernationError, ScenarioTiering, scenario_nbytes
 from .wire import WireError
 
 __all__ = ["AutoscalePolicy", "FleetSupervisor", "MemberFailure",
@@ -235,21 +250,19 @@ class FleetSupervisor:
             raise ValueError(
                 f"unknown member_transport {member_transport!r} "
                 "(expected 'inproc', 'process' or 'tcp')")
-        if member_transport == "tcp":
-            raise _not_ported("member_transport='tcp' (authenticated TCP "
-                              "members)")
-        if (residency_budget is not None or hibernate_dir is not None
-                or hibernate_budget is not None):
-            raise _not_ported(
-                "fleet scenario tiering (residency_budget/hibernate_dir/"
-                "hibernate_budget: ensemble/tiering.py)")
         if member_kwargs.get("mesh") is not None:
             raise _not_ported("the ensemble mesh (ensemble/mesh.py)")
-        #: where wire members serve and journaled or wired states land
+        if (residency_budget is None) != (hibernate_dir is None):
+            raise ValueError(
+                "scenario tiering needs BOTH residency_budget and "
+                "hibernate_dir (or neither)")
+        #: where wire members serve, journaled, wired and woken states land
         self.device = resolve_device(device)
         self._transport = member_transport
+        # TCP members get the jitter-tolerant deadlines (wire.TCP_*)
         self._heartbeat_deadline, self._rpc_deadline = resolve_deadlines(
-            "unix", heartbeat_deadline_s, rpc_deadline_s)
+            "tcp" if member_transport == "tcp" else "unix",
+            heartbeat_deadline_s, rpc_deadline_s)
         if (member_env is not None and not isinstance(member_env, dict)
                 and not callable(member_env)):
             member_env = [dict(e) if e else {} for e in member_env]
@@ -259,9 +272,12 @@ class FleetSupervisor:
                     "for no pinning)")
         self._member_env = member_env
         self._spawner = member_spawner
-        if member_transport == "process":
+        if member_transport in ("process", "tcp"):
             if self._spawner is None:
-                self._spawner = spawn_process_member
+                self._spawner = (
+                    functools.partial(spawn_process_member,
+                                      transport="tcp", host=member_host)
+                    if member_transport == "tcp" else spawn_process_member)
             if model_meta(model) is None:
                 raise ValueError(
                     f"member_transport={member_transport!r} needs a "
@@ -322,6 +338,23 @@ class FleetSupervisor:
                 self._renew_lease()
             else:
                 self.journal = TicketJournal(journal_path(journal_dir))
+        #: the paging tier (module docstring), None without a budget
+        self.tiering: Optional[ScenarioTiering] = (
+            ScenarioTiering(hibernate_dir,
+                            residency_budget=residency_budget,
+                            hibernate_budget=hibernate_budget,
+                            clock=clock, counter=self.counter,
+                            device=self.device)
+            if residency_budget is not None else None)
+        #: hibernated fleet tickets, under ``_cv``: ticket → (model, steps,
+        #: skey, submitted_at, trace); the state lives only in the vault
+        #: chain and the fleet journal's submit record
+        self._hib_meta: dict = {}
+        #: wake placements per member id (m<slot>g<gen>)
+        self._wakes_by_member: dict = {}
+        #: (stat signature, JournalState): the journal-fallback wake's
+        #: replay cache (``_journal_state_fallback``)
+        self._journal_fallback_cache: Optional[tuple] = None
         #: counters of fenced or retired members, folded into stats() so
         #: the work a dead member did still counts
         self._absorbed: dict = {}
@@ -415,6 +448,9 @@ class FleetSupervisor:
             self._cv.notify_all()
         if t is not None:
             t.join()
+        # hibernated tickets wake first, onto members still pumping, so the
+        # members' drains below resolve them with the rest
+        self._drain_hibernated()
         with self._cv:
             members = [m for m in self._members.values()
                        if not m.dead and not m.fenced]
@@ -425,6 +461,8 @@ class FleetSupervisor:
             self._stopped = True
             if self.journal is not None:
                 self.journal.close()
+            if self.tiering is not None:
+                self.tiering.close()
             remaining = list(self._members.values())
         if self._transport != "inproc":
             # the wire teardown comes after the final harvest: stop()'s
@@ -455,6 +493,9 @@ class FleetSupervisor:
         with self._cv:
             if self.journal is not None:
                 self.journal.close()
+            if self.tiering is not None:
+                # the vault survives, as the journal does
+                self.tiering.close()
 
     def __enter__(self) -> "FleetSupervisor":
         return self
@@ -515,9 +556,14 @@ class FleetSupervisor:
         trace = get_tracer().current()
         n = self.default_steps if steps is None else int(steps)
         skey = structure_key(m_model, space) + (n,)
+        nbytes = scenario_nbytes(space)
+        pressure = (self.tiering is not None
+                    and self.tiering.pressure(nbytes))
         with self._cv:
             order = self._candidates_locked(skey)
             last: Optional[ServiceOverloaded] = None
+            if pressure:
+                order = []  # the residency budget pages before routing
             for mem in order:
                 try:
                     # members run inline_dispatch=False: their submit is a
@@ -539,19 +585,58 @@ class FleetSupervisor:
                                submitted_at=self._clock(), trace=trace)
                 self._route[ticket] = route
                 self._journal_submit_locked(ticket, route)
+                if self.tiering is not None:
+                    self.tiering.admit(ticket, nbytes)
                 return ticket
-            self.counter.bump("shed")
-            get_recorder().record("shed", service_id=None)
-            depth = sum(m.service.scheduler.pending_count() for m in order)
-            self._journal_append_locked(SHED, {
-                "depth": depth,
-                "members": [m.service_id for m in order]})
-        raise ServiceOverloaded(
-            "fleet admission shed — every member refused"
-            + (f" (last: {last})" if last is not None else ""),
-            queue_depth=depth,
-            retry_after_s=(last.retry_after_s if last is not None
-                           else self._tick_interval))
+            if self.tiering is not None and self.tiering.room_for(nbytes):
+                # every member refused, or the budget is exhausted: the
+                # arrival hibernates; the journal's submit record is the
+                # wake's last-resort source
+                ticket = next(self._ids)
+                self._journal_submit_hibernated_locked(
+                    ticket, space, m_model, n, trace)
+                self._hib_meta[ticket] = (m_model, n, skey, self._clock(),
+                                          trace)
+            else:
+                ticket = None
+                self.counter.bump("shed")
+                get_recorder().record("shed", service_id=None)
+                depth = sum(m.service.scheduler.pending_count()
+                            for m in order)
+                self._journal_append_locked(SHED, {
+                    "depth": depth,
+                    "members": [m.service_id for m in order]})
+        if ticket is None:
+            reason = ("hibernation tier exhausted"
+                      if self.tiering is not None
+                      else "every member refused")
+            raise ServiceOverloaded(
+                f"fleet admission shed — {reason}"
+                + (f" (last: {last})" if last is not None else ""),
+                queue_depth=depth,
+                retry_after_s=(last.retry_after_s if last is not None
+                               else self._tick_interval))
+        # the chain write runs outside the fleet lock: paging I/O must not
+        # stall every submit and poll
+        try:
+            self.tiering.hibernate(ticket, space, m_model, n,
+                                   submitted_at=self._clock(), skey=skey)
+        except (OSError, ValueError) as e:
+            # the journaled submit must not become a ghost that never
+            # resolves: journal its terminal, unregister, shed observably
+            # (the caller still holds its state)
+            with self._cv:
+                self._hib_meta.pop(ticket, None)
+                self._journal_append_locked(QUARANTINED, {
+                    "ticket": ticket, "service_id": "hibernated",
+                    "steps": n, "error": type(e).__name__,
+                    "detail": f"hibernation write failed: {e}"})
+                self.counter.bump("shed")
+                get_recorder().record("shed", service_id=None)
+            raise ServiceOverloaded(
+                f"fleet admission shed — hibernation write failed: {e}",
+                queue_depth=0, retry_after_s=self._tick_interval) from e
+        return ticket
 
     def _candidates_locked(self, skey) -> list[_Member]:
         """Routable members, preferred first: the structure hash picks the
@@ -575,6 +660,8 @@ class FleetSupervisor:
         with self._cv:
             if ticket in self._resolved:
                 res = self._resolved.pop(ticket)
+            elif ticket in self._hib_meta:
+                return None  # paged out; tick() wakes it
             else:
                 route = self._route.get(ticket)
                 if route is None:
@@ -657,8 +744,13 @@ class FleetSupervisor:
             except Exception:
                 m.service.scheduler.counter.bump("loop_faults")
                 did = True
+        # the tick's wakes and hibernated resolutions are pump work too:
+        # result()'s manual-mode progress check must see them
+        c = self.counter
+        before = c.wakes + c.expired + c.quarantined
         self.tick()
-        return did
+        return did or (self.tiering is not None
+                       and c.wakes + c.expired + c.quarantined > before)
 
     # -- supervision ---------------------------------------------------------
 
@@ -668,8 +760,9 @@ class FleetSupervisor:
         failed members and collect spawn requests; (2) without the lock
         build the replacements; (3) under the lock install them and drain
         the fenced members (harvest what resolved, migrate what is queued,
-        re-admit the rest from the fleet's copy). Retired members stop
-        after the lock is released."""
+        re-admit the rest from the fleet's copy); then wake hibernated
+        tickets into the freed capacity. Retired members stop after the lock
+        is released."""
         if self._supervisor_id is not None:
             st = inject.active()
             if st is not None and st.member_fault(
@@ -738,6 +831,7 @@ class FleetSupervisor:
         # lock (the dump may write a file)
         for m in completed_fences:
             get_recorder().dump("fence", service_id=m.service_id)
+        self._wake_due()
         for m in retired:
             try:
                 m.service.stop()
@@ -844,6 +938,10 @@ class FleetSupervisor:
             # the in-memory ledger resolves even if journaling failed
             self._route.pop(ticket, None)
             self._resolved[ticket] = outcome
+            if self.tiering is not None:
+                # atomic with the resolution, or a racing wake could bring
+                # a served scenario back; the vault lock is a leaf
+                self.tiering.release(ticket)
             if not isinstance(outcome, Exception):
                 self.counter.record_latency(
                     self._clock() - route.submitted_at)
@@ -1119,6 +1217,220 @@ class FleetSupervisor:
                 "ticket": ticket, "from": m.service_id,
                 "to": order[0].service_id, "reason": reason})
 
+    # -- scenario tiering ----------------------------------------------------
+
+    def _wake_due(self) -> int:
+        """Wake hibernated fleet tickets FIFO into freed capacity: the chain
+        restore outside the fleet lock, the placement (affinity routing and
+        the member's submit) atomic with the route table. A wake every
+        member refuses goes back to the head of the queue, its chain
+        untouched. A hibernated ticket past the members' deadline resolves
+        as ``TicketExpired``. Returns the wakes and resolutions made."""
+        if self.tiering is None:
+            return 0
+        did = 0
+        while True:
+            nxt = self.tiering.peek_next()
+            if nxt is None:
+                return did
+            ticket, nbytes = nxt
+            with self._cv:
+                meta = self._hib_meta.get(ticket)
+                if meta is None:
+                    # a vault entry nothing routes to (recovery found a
+                    # chain whose fleet ticket already resolved): reclaim
+                    # it, atomic with the check
+                    self.tiering.drop(ticket)
+                    continue
+                model, steps, skey, submitted_at, trace = meta
+                live = [m for m in self._members.values()
+                        if not m.fenced and not m.dead and not m.retiring]
+                room = (any(m.service.scheduler.pending_count()
+                            < self._max_queue for m in live)
+                        and self.tiering.fits(nbytes))
+                idle = not self._route and bool(live)
+                if not (room or idle):
+                    return did
+                ddl = self._member_kwargs.get("deadline_s")
+                if ddl is not None and self._clock() - submitted_at > ddl:
+                    age = self._clock() - submitted_at
+                    self._resolve_hibernated_locked(ticket, TicketExpired(
+                        f"fleet ticket {ticket} expired after {age:.3f}s "
+                        f"in the hibernation tier (deadline {ddl}s) — "
+                        "never dispatched"), steps)
+                    did += 1
+                    continue
+            try:
+                # the wake span parents under the ticket's submit span
+                with get_tracer().attach(trace):
+                    space, entry = self.tiering.wake(
+                        ticket, fallback=self._journal_state_fallback)
+            except HibernationError as e:
+                with self._cv:
+                    self._resolve_hibernated_locked(ticket, e, steps)
+                get_recorder().dump("hibernation", ticket=ticket)
+                did += 1
+                continue
+            placed = self._place_woken(ticket, space, model, steps, skey,
+                                       submitted_at, nbytes, bypass=False,
+                                       trace=trace)
+            del space
+            if not placed:
+                # every member refused mid-wake: back to the head; a later
+                # tick retries once capacity really freed
+                self.tiering.requeue(ticket, entry)
+                return did
+            did += 1
+
+    def _place_woken(self, ticket: int, space, model, steps: int, skey,
+                     submitted_at, nbytes: int, bypass: bool,
+                     trace=None) -> bool:
+        """Route one woken scenario onto a live member and install its
+        route, atomic with the route table. ``bypass=True`` submits at the
+        scheduler (the stop drain: an admitted ticket is never shed by its
+        own drain)."""
+        with self._cv:
+            if skey is None:
+                skey = structure_key(model, space) + (steps,)
+            for mem in self._candidates_locked(skey):
+                try:
+                    with get_tracer().attach(trace):
+                        if bypass:
+                            mt = mem.service.scheduler.submit(
+                                space, model, steps)
+                        else:
+                            mt = mem.service.submit(space, model=model,
+                                                    steps=steps)
+                except ServiceOverloaded:
+                    continue
+                except WireError:
+                    self.counter.bump("wire_errors")
+                    mem.dead = True
+                    continue
+                self._route[ticket] = _Route(
+                    member=mem, member_ticket=mt, space=space, model=model,
+                    steps=steps, submitted_at=submitted_at, trace=trace)
+                self._hib_meta.pop(ticket, None)
+                self.tiering.admit(ticket, nbytes)
+                sid = mem.service_id
+                self._wakes_by_member[sid] = \
+                    self._wakes_by_member.get(sid, 0) + 1
+                self._journal_append_locked(WAKE, {"ticket": ticket,
+                                                   "to": sid})
+                self._cv.notify_all()
+                return True
+            return False
+
+    def _resolve_hibernated_locked(self, ticket: int, err: Exception,
+                                   steps: int) -> None:
+        """The terminal outcome of a ticket still in the hibernation tier
+        (an expiry, an unwakeable chain, no member left at the drain):
+        journaled, counted and published like any other."""
+        from ..resilience import FailureEvent
+
+        expired = isinstance(err, TicketExpired)
+        err.ticket = ticket
+        err.failure_event = FailureEvent(
+            step=steps, kind="expired" if expired else "hibernation",
+            detail=str(err), rolled_back_to=0, attempt=1, wall_time_s=0.0,
+            classification="deterministic", ticket=ticket,
+            service_id="hibernated")
+        self._journal_append_locked(EXPIRED if expired else QUARANTINED, {
+            "ticket": ticket, "service_id": "hibernated", "steps": steps,
+            "error": type(err).__name__, "detail": str(err)})
+        self._hib_meta.pop(ticket, None)
+        self._resolved[ticket] = err
+        self.counter.bump("expired" if expired else "quarantined")
+        # the chain's reclaim is atomic with the resolution (a racing wake
+        # could bring it back); the vault lock is a leaf
+        self.tiering.drop(ticket)
+        self._cv.notify_all()
+
+    def _journal_state_fallback(self, ticket: int):
+        """The wake's last resort (the ``wake_corrupt`` ladder's middle
+        rung): the ticket's state from the fleet journal's CRC-checked
+        submit record, on the fleet's device; None without a journal (the
+        wake then raises ``HibernationError``). The replay is cached on the
+        file's stat signature, so a burst of fallbacks reads the journal
+        once."""
+        if self.journal is None:
+            return None
+        try:
+            st = os.stat(self.journal.path)
+            sig = (st.st_mtime_ns, st.st_size)
+        except OSError:  # pragma: no cover - defensive
+            return None
+        cached = self._journal_fallback_cache
+        if cached is not None and cached[0] == sig:
+            state = cached[1]
+        else:
+            try:
+                state = replay(self.journal.path)
+            except (OSError, ValueError):  # pragma: no cover - defensive
+                return None
+            # one writer: fallbacks run only inside tiering.wake, under the
+            # vault lock (taking the fleet lock here would invert the
+            # _cv → vault order)
+            self._journal_fallback_cache = (sig, state)
+        rec = state.submits.get(ticket)
+        if rec is None or rec.arrays is None:
+            return None
+        warnings.warn(
+            f"waking ticket {ticket} from the fleet journal's submit record "
+            "(its hibernation chain did not verify)", RuntimeWarning)
+        return space_from_record(rec, device=self.device)
+
+    def _drain_hibernated(self) -> None:
+        """``stop``'s paging drain: every hibernated ticket wakes onto a
+        live member (a scheduler-level submit) before the members drain;
+        with no live member left it resolves as a counted
+        ``MemberFailure``."""
+        if self.tiering is None:
+            return
+        while True:
+            nxt = self.tiering.peek_next()
+            if nxt is None:
+                return
+            ticket, nbytes = nxt
+            with self._cv:
+                meta = self._hib_meta.get(ticket)
+                if meta is None:
+                    self.tiering.drop(ticket)
+                    continue
+            model, steps, skey, submitted_at, trace = meta
+            try:
+                with get_tracer().attach(trace):
+                    space, _entry = self.tiering.wake(
+                        ticket, fallback=self._journal_state_fallback)
+            except HibernationError as e:
+                with self._cv:
+                    self._resolve_hibernated_locked(ticket, e, steps)
+                get_recorder().dump("hibernation", ticket=ticket)
+                continue
+            if not self._place_woken(ticket, space, model, steps, skey,
+                                     submitted_at, nbytes, bypass=True,
+                                     trace=trace):
+                with self._cv:
+                    self._resolve_hibernated_locked(
+                        ticket, MemberFailure(
+                            "no healthy member remains to wake hibernated "
+                            f"ticket {ticket} at stop", "hibernated"), steps)
+
+    def _journal_submit_hibernated_locked(self, ticket: int, space, model,
+                                          steps: int, trace=None) -> None:
+        """The submit record of a ticket that hibernates on arrival (it
+        precedes any terminal of the ticket, and is the wake's last-resort
+        state source)."""
+        if self.journal is None:
+            return
+        meta, arrays = space_payload(space)
+        meta.update({
+            "ticket": ticket, "service_id": "hibernated", "steps": steps,
+            "model": model_meta(model)})
+        if trace is not None:
+            meta["trace"] = trace.to_meta()
+        self._journal_append_locked(SUBMIT, meta, arrays)
+
     # -- autoscaling ---------------------------------------------------------
 
     def _autoscale_locked(self) -> Optional[tuple]:
@@ -1196,14 +1508,20 @@ class FleetSupervisor:
         Terminal tickets resolve from the journal (a served one with its
         state, not run again; quarantines and expiries as their errors);
         unresolved ones are re-admitted under their original ids from the
-        journaled state, placed on the fleet's ``device``. A journal whose
-        recovery ran to completion re-admits nothing."""
+        journaled state, placed on the fleet's ``device``; with tiering, the
+        tickets hibernated at the crash re-enter the hibernation tier from
+        their chains instead (an in-flight hibernation resolves at its wake:
+        the verified prefix, the journal's submit record, or a loud
+        ``HibernationError``). A journal whose recovery ran to completion
+        re-admits nothing."""
         from ..models.model import Report
 
         state = replay(journal_path(journal_dir))
         fleet = cls(model, journal_dir=journal_dir, **kwargs)
         with fleet._cv:
             fleet._ids = itertools.count(state.max_ticket() + 1)
+            hib = (fleet.tiering.recover(model)
+                   if fleet.tiering is not None else {})
             for t, rec in state.terminal.items():
                 if rec.kind == SERVED:
                     if rec.arrays is None:
@@ -1238,11 +1556,23 @@ class FleetSupervisor:
                         f"{rec.meta.get('detail', '')}")
                     err.ticket = t
                     fleet._resolved[t] = err
+            for t in [t for t in hib if t in state.terminal]:
+                # terminal wins: the vault entry of a ticket the journal
+                # resolved is a leftover
+                fleet.tiering.drop(t)
+                hib.pop(t)
             for t in state.unresolved():
                 rec = state.submits[t]
                 # the journaled trace context survives the crash: the
                 # post-restart spans keep the ticket's trace id
                 trace = TraceContext.from_meta(rec.meta.get("trace"))
+                if t in hib:
+                    e = hib[t]
+                    fleet._hib_meta[t] = (
+                        e.model, e.steps or rec.meta.get(
+                            "steps", fleet.default_steps),
+                        None, fleet._clock(), trace)
+                    continue
                 sp = space_from_record(rec, device=fleet.device)
                 mm = rec.meta.get("model")
                 if mm is None:
@@ -1350,13 +1680,26 @@ class FleetSupervisor:
                 "wire_errors": snap["wire_errors"],
                 "wire_bytes_in": wire_in,
                 "wire_bytes_out": wire_out,
-                "pending": len(self._route),
+                # a hibernated ticket is outstanding work too
+                "pending": len(self._route) + len(self._hib_meta),
                 "degraded_from": degraded_from,
                 "intake_gated": gated,
                 "fleet": True,
                 "members": len(members),
                 "journal": (self.journal.path
                             if self.journal is not None else None),
+                # the paging tier's gauges and counters, and the wakes per
+                # member id
+                **({"hibernations": snap["hibernations"],
+                    "rehibernations": snap["rehibernations"],
+                    "wakes": snap["wakes"],
+                    "wake_faults": snap["wake_faults"],
+                    "wake_latency_n": snap["wake_latency_n"],
+                    "wake_latency_p50_s": snap["wake_latency_p50_s"],
+                    "wake_latency_p99_s": snap["wake_latency_p99_s"],
+                    "wakes_by_member": dict(self._wakes_by_member),
+                    **self.tiering.stats()}
+                   if self.tiering is not None else {}),
                 "services": per,
             }
 

@@ -35,7 +35,12 @@
   ladder state, the member process's kernel launch counts and kernel
   builds, its device set, its completed spans), and a member whose last good beat is older than
   ``heartbeat_deadline_s`` is fenced.
-- :func:`spawn_process_member` (a real child over a unix socket) and
+- :func:`spawn_process_member` (a real child over a unix socket, or with
+  ``transport="tcp"`` over an authenticated TCP socket: the spawner listens
+  on ``host:<ephemeral>``, a fresh ``secrets.token_hex(32)`` reaches the
+  child in its environment only, under ``wire.SECRET_ENV``, and the
+  accepted connection must pass the TWA1 HMAC handshake before the first
+  frame; a failed handshake kills the child and raises) and
   :func:`spawn_loopback_member` (a real ``MemberServer`` on a thread over a
   ``socketpair``: the same codec, framing, chaos seams and client path
   with no subprocess).
@@ -51,8 +56,7 @@ A received state lands on the member's ``device`` (the server's, or the
 client's for results), as ``resolve_device`` names it: the card unless the
 caller asks for the CPU.
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): ``transport="tcp"``
-(the authenticated TCP members) and ``mesh``.
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh``.
 """
 
 from __future__ import annotations
@@ -79,7 +83,9 @@ from .journal import model_from_meta, model_meta, space_payload
 from .scheduler import (EnsembleScheduler, TicketExpired,
                         TicketNotMigratable)
 from .service import AsyncEnsembleService, ServiceOverloaded
-from .wire import (TRACE_META_KEY, FrameConn, RemoteError, WireError)
+from .wire import (SECRET_ENV, TRACE_META_KEY, FrameConn, HandshakeError,
+                   RemoteError, WireError, client_handshake, serve_handshake,
+                   tcp_dial, tcp_listener)
 
 __all__ = [
     "MemberServer",
@@ -669,6 +675,9 @@ class ProcessMemberClient:
         #: the supervisor epoch stamped into every request frame when set
         #: (the fleet arms it from its journal epoch)
         self.epoch: Optional[int] = None
+        #: wall seconds of the TCP spawn's handshake (None on the other
+        #: transports)
+        self.handshake_s: Optional[float] = None
         self.scheduler = _RemoteScheduler(self)
         # the first beat fills the telemetry before the first tick
         self.heartbeat()
@@ -997,11 +1006,14 @@ def spawn_process_member(model, *, service_id: str, member_kwargs: dict,
     ``member_kwargs["compile_cache"]`` (``"auto"`` by default: the
     package's ``_build/``, so it loads what this process built).
 
-    ``transport="tcp"`` is not ported (ROADMAP.md)."""
-    if transport == "tcp":
-        raise _not_ported("member_transport='tcp' (authenticated TCP "
-                          "members)")
-    if transport != "unix":
+    ``transport="tcp"``: the spawner listens on ``host:<ephemeral>``, a
+    fresh per-member secret crosses in the child's environment
+    (``wire.SECRET_ENV``, never on the command line), and the accepted
+    connection must pass the HMAC handshake before the first frame is
+    parsed; a child that fails it is killed and the spawn raises
+    ``HandshakeError``. The deadlines default per transport
+    (:func:`resolve_deadlines`)."""
+    if transport not in ("unix", "tcp"):
         raise ValueError(f"unknown member transport {transport!r} "
                          "(expected 'unix' or 'tcp')")
     dev = resolve_device(device)
@@ -1024,13 +1036,24 @@ def spawn_process_member(model, *, service_id: str, member_kwargs: dict,
     cfg_path = os.path.join(spawn_dir, "config.json")
     with open(cfg_path, "w") as fh:
         json.dump(cfg, fh)
-    addr = os.path.join(spawn_dir, "sock")
-    listener = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
-    listener.bind(addr)
-    listener.listen(1)
+    secret = None
+    if transport == "tcp":
+        import secrets
+
+        secret = secrets.token_hex(32)
+        listener = tcp_listener(host, 0)
+        addr = "%s:%d" % listener.getsockname()[:2]
+    else:
+        addr = os.path.join(spawn_dir, "sock")
+        listener = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+        listener.bind(addr)
+        listener.listen(1)
+    handshake_s = None
     try:
         env = dict(os.environ)
         env.update(member_env or {})
+        if secret is not None:
+            env[SECRET_ENV] = secret
         # the child imports this checkout's package, wherever it was
         # started from
         root = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -1048,6 +1071,17 @@ def spawn_process_member(model, *, service_id: str, member_kwargs: dict,
         try:
             sock = _accept_child(listener, proc, service_id,
                                  SPAWN_CONNECT_TIMEOUT_S)
+            if secret is not None:
+                # authenticate before any frame: a wrong-secret or wedged
+                # peer is closed here and the spawn fails loudly
+                t0 = time.perf_counter()
+                try:
+                    serve_handshake(sock, secret, chaos_id=service_id)
+                except HandshakeError:
+                    proc.kill()
+                    proc.wait(timeout=10.0)
+                    raise
+                handshake_s = time.perf_counter() - t0
         except WireError:
             import shutil
 
@@ -1055,11 +1089,13 @@ def spawn_process_member(model, *, service_id: str, member_kwargs: dict,
             raise
     finally:
         listener.close()
-    return ProcessMemberClient(
+    client = ProcessMemberClient(
         FrameConn(sock, chaos_id=service_id), service_id, clock=clock,
         heartbeat_deadline_s=heartbeat_deadline_s,
         rpc_deadline_s=rpc_deadline_s, proc=proc, spawn_dir=spawn_dir,
         device=dev)
+    client.handshake_s = handshake_s
+    return client
 
 
 def spawn_loopback_member(model, *, service_id: str, member_kwargs: dict,
@@ -1105,11 +1141,21 @@ def spawn_loopback_member(model, *, service_id: str, member_kwargs: dict,
 # -- the spawned process's entry point ----------------------------------------
 
 def _dial_supervisor(addr: str) -> _socket.socket:
-    """Connect back to the spawner's unix socket (``host:port`` TCP
-    addresses are the unported TCP members')."""
+    """Connect back to the spawner: a ``host:port`` address (a numeric port
+    after the last colon) dials TCP and runs the client half of the HMAC
+    handshake with the secret the spawner put in this process's environment
+    (``wire.SECRET_ENV``); anything else is a unix socket path."""
     host, sep, port = addr.rpartition(":")
     if sep and host and port.isdigit():
-        raise _not_ported("TCP members (--connect host:port)")
+        secret = os.environ.get(SECRET_ENV)
+        if not secret:
+            raise HandshakeError(
+                f"tcp connect to {addr} needs the shared secret in "
+                f"${SECRET_ENV} (the spawner sets it; it never rides the "
+                "command line)")
+        sock = tcp_dial(addr)
+        client_handshake(sock, secret)
+        return sock
     sock = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
     sock.connect(addr)
     return sock
@@ -1132,15 +1178,18 @@ def _warm_device(impl: Optional[str], device: torch.device) -> None:
 def main(argv: Optional[list] = None) -> int:
     """``python -m mpi_model_tpu_torch.ensemble.member_proc --connect
     <sock> --config <json>``: build the member service from its config and
-    serve the supervisor until shutdown. Exit codes: 0 a clean shutdown, 2
-    a bad config (or no card where the config asks for one), 1 the wire
-    lost before shutdown."""
+    serve the supervisor until shutdown. ``--connect`` is a unix socket
+    path or a ``host:port`` TCP address (then the secret must be in
+    ``$MMTPU_WIRE_SECRET``). Exit codes: 0 a clean shutdown, 2 a bad config
+    (or no card where the config asks for one), 1 the wire lost before
+    shutdown or refused at the handshake."""
     import argparse
 
     p = argparse.ArgumentParser(
         prog="python -m mpi_model_tpu_torch.ensemble.member_proc")
     p.add_argument("--connect", required=True,
-                   help="unix socket path the supervisor listens on")
+                   help="unix socket path or host:port TCP address the "
+                        "supervisor listens on")
     p.add_argument("--config", required=True,
                    help="member config JSON path (service_id, model "
                         "recipe, member_kwargs, pump mode, device)")

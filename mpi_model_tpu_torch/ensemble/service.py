@@ -54,9 +54,20 @@ the iteration do nothing (a live thread making no progress) and
 loop's supervisor does not survive: the pump thread dies, and the fleet's
 health check is what notices.
 
-Not ported (``NotImplementedError`` naming ROADMAP.md): the JAX package's
-scenario tiering (``residency_budget``, ``hibernate_dir``,
-``hibernate_budget``) and ``mesh=``.
+Scenario tiering (``residency_budget`` with ``hibernate_dir``, both or
+neither; ``hibernate_budget`` bounds the vault): a submission the budget or
+the queue cannot take pages the least recently touched queued resident out
+to the vault (``ensemble.tiering``), or hibernates itself when no victim can
+be extracted; the pump wakes hibernated tickets FIFO into freed capacity (an
+idle service always wakes one; only a stopping drain overrides the budget).
+A hibernated ticket polls None, keeps its client ticket id across the wake
+(the scheduler's ticket is an alias), expires at its original deadline, and
+resolves with ``HibernationError`` when no chain record verifies. The only
+shed left is an exhausted hibernation tier, or a vault write that failed.
+Once a ticket is paged out, the service holds no reference to its state:
+``_hib_meta`` keeps the model and the step count, the vault the rest.
+
+Not ported (``NotImplementedError`` naming ROADMAP.md): ``mesh=``.
 """
 
 from __future__ import annotations
@@ -69,12 +80,13 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..core.cellular_space import CellularSpace
-from ..models.model import _not_ported
 from ..obs.flight import get_recorder
 from ..resilience import inject, lockdep
 from ..utils.compile_cache import (configure_compile_cache,
                                    resolve_compile_cache)
-from .scheduler import DEFAULT_BUCKETS, EnsembleScheduler, TicketExpired
+from .scheduler import (DEFAULT_BUCKETS, EnsembleScheduler, TicketExpired,
+                        TicketNotMigratable)
+from .tiering import HibernationError, ScenarioTiering, scenario_nbytes
 
 
 class ServiceOverloaded(RuntimeError):
@@ -223,11 +235,10 @@ class AsyncEnsembleService:
                  mesh=None):
         if max_queue < 1:
             raise ValueError(f"max_queue={max_queue} must be >= 1")
-        if (residency_budget is not None or hibernate_dir is not None
-                or hibernate_budget is not None):
-            raise _not_ported(
-                "scenario tiering (residency_budget/hibernate_dir/"
-                "hibernate_budget: ensemble/tiering.py)")
+        if (residency_budget is None) != (hibernate_dir is None):
+            raise ValueError(
+                "scenario tiering needs BOTH residency_budget and "
+                "hibernate_dir (or neither)")
         self.compile_cache = configure_compile_cache(
             resolve_compile_cache(compile_cache))
         self.model = model
@@ -249,6 +260,21 @@ class AsyncEnsembleService:
             inline_dispatch=False, service_id=service_id, mesh=mesh)
         if impl == "pipeline":
             _warm_pipeline_kernel()
+        self._clock = clock
+        #: the paging tier (module docstring), None without a budget
+        self.tiering: Optional[ScenarioTiering] = (
+            ScenarioTiering(hibernate_dir,
+                            residency_budget=residency_budget,
+                            hibernate_budget=hibernate_budget,
+                            clock=clock, counter=self.scheduler.counter)
+            if residency_budget is not None else None)
+        #: hibernated-ticket bookkeeping, under ``_lock_cv``: client ticket
+        #: → (model, steps) while paged out; client ticket → the scheduler
+        #: ticket a wake made; client ticket → the terminal error resolved
+        #: while hibernated (an expiry, an unwakeable chain)
+        self._hib_meta: dict = {}
+        self._woken: dict = {}
+        self._hib_resolved: dict = {}
         self._poll_interval = float(poll_interval_s)
         #: guards the loop state below (witnessed when lockdep is armed)
         self._lock_cv = lockdep.condition("AsyncEnsembleService._lock_cv")
@@ -299,7 +325,8 @@ class AsyncEnsembleService:
             if not self.pump_once(force=True):
                 with self._lock_cv:
                     idle = (self._inflight is None
-                            and self.scheduler.pending_count() == 0)
+                            and self.scheduler.pending_count() == 0
+                            and not self._tiering_pending())
                 if idle:
                     break
         with self._lock_cv:
@@ -354,6 +381,8 @@ class AsyncEnsembleService:
         if st is not None:
             forced = st.take("admission", st.bump("admission"),
                              kinds=("queue_full",)) is not None
+        if self.tiering is not None:
+            return self._submit_paged(space, m, n, forced)
         sched = self.scheduler
         with sched._lock:
             depth = sched.pending_count()
@@ -380,6 +409,213 @@ class AsyncEnsembleService:
             self._lock_cv.notify_all()
         return ticket
 
+    def _submit_paged(self, space: CellularSpace, model, steps: int,
+                      forced: bool) -> int:
+        """The paging admission: a submission that fits the budget and the
+        queue is admitted; under pressure the LRU queued resident pages out
+        to make room, and with no victim to extract the arrival hibernates.
+        The refusals left: an exhausted hibernation tier and a vault write
+        that failed (the caller still holds its state)."""
+        sched = self.scheduler
+        nbytes = scenario_nbytes(space)
+        why = self.tiering.pressure(nbytes)
+        # an injected pressure (residency_pressure, queue_full) must take
+        # the hibernation path itself: the page-out shortcut would see the
+        # budget fit and admit, skipping the seam under test
+        injected = forced or why == "injected"
+        ticket = None
+        if not injected and why is None:
+            with sched._lock:
+                depth = sched.pending_count()
+                gated = sched.intake_gated and depth > 0
+                if not gated and depth < self.max_queue:
+                    ticket = sched.submit(space, model, steps)
+        if ticket is None and not injected and self._page_out(nbytes):
+            # room was made (a concurrent submitter racing into the freed
+            # slot is a bounded overshoot)
+            ticket = sched.submit(space, model, steps)
+        if ticket is not None:
+            self.tiering.admit(ticket, nbytes)
+            with self._lock_cv:
+                self._lock_cv.notify_all()
+            return ticket
+        if not self.tiering.room_for(nbytes):
+            sched.counter.bump("shed")
+            depth = sched.pending_count()
+            get_recorder().record("shed", service_id=self.service_id,
+                                  depth=depth)
+            raise ServiceOverloaded(
+                "submission shed — hibernation tier exhausted "
+                f"(hibernate_budget={self.tiering.hibernate_budget} bytes); "
+                "paging absorbed the overflow until now",
+                queue_depth=depth, retry_after_s=self._retry_after(depth))
+        ticket = sched.allocate_ticket()
+        with self._lock_cv:
+            self._hib_meta[ticket] = (model, steps)
+        try:
+            self.tiering.hibernate(ticket, space, model, steps,
+                                   submitted_at=self._clock())
+        except (OSError, ValueError) as e:
+            # the ticket was never handed out and the caller still holds
+            # its state: unregister it and refuse observably
+            with self._lock_cv:
+                self._hib_meta.pop(ticket, None)
+            sched.counter.bump("shed")
+            depth = sched.pending_count()
+            get_recorder().record("shed", service_id=self.service_id,
+                                  depth=depth)
+            raise ServiceOverloaded(
+                f"submission shed — hibernation write failed: {e}",
+                queue_depth=depth,
+                retry_after_s=self._retry_after(depth)) from e
+        with self._lock_cv:
+            self._lock_cv.notify_all()
+        return ticket
+
+    def _page_out(self, needed: int) -> bool:
+        """Hibernate LRU queued residents until ``needed`` bytes fit the
+        budget and a queue slot is free; False when no victim can be
+        extracted (every resident is claimed, launched or served)."""
+        sched = self.scheduler
+
+        def room() -> bool:
+            return (self.tiering.fits(needed)
+                    and sched.pending_count() < self.max_queue)
+
+        for t in self.tiering.lru_candidates():
+            if room():
+                return True
+            # the victim reads as hibernated before it is extracted: a poll
+            # between the extract and the vault's commit sees it pending
+            with self._lock_cv:
+                target = self._woken.pop(t, t)
+                placeholder = t not in self._hib_meta
+                if placeholder:
+                    self._hib_meta[t] = (None, None)
+            since = sched.queued_since(target)
+            try:
+                vspace, vmodel, vsteps = sched.extract_ticket(target)
+            except (TicketNotMigratable, KeyError):
+                with self._lock_cv:
+                    if target != t:
+                        self._woken[t] = target
+                    if placeholder:
+                        self._hib_meta.pop(t, None)
+                continue
+            with self._lock_cv:
+                self._hib_meta[t] = (vmodel, vsteps)
+            try:
+                # the victim's deadline ages from its original queueing
+                self.tiering.hibernate(
+                    t, vspace, vmodel, vsteps,
+                    submitted_at=self._clock() if since is None else since)
+            except (OSError, ValueError) as e:
+                # the extracted state is the victim's only copy: back into
+                # the scheduler (a new ticket, aliased), and paging stops
+                t2 = sched.submit(vspace, vmodel, vsteps)
+                with self._lock_cv:
+                    self._woken[t] = t2
+                sched.counter.bump("loop_faults")
+                warnings.warn(
+                    f"page-out of ticket {t} failed ({e}); the victim was "
+                    "re-queued and paging is off for this admission",
+                    RuntimeWarning)
+                return False
+            del vspace
+        return room()
+
+    def _wake_due(self, draining: bool = False) -> int:
+        """Wake hibernated tickets FIFO while there is room (a queue slot
+        and the budget), the service is idle (a scenario must run even when
+        the budget is smaller than its state), or a stopping drain forces
+        it. A hibernated ticket past its deadline resolves here as
+        ``TicketExpired``. Returns the wakes and resolutions made."""
+        from ..resilience import FailureEvent
+
+        sched = self.scheduler
+        did = 0
+        while True:
+            nxt = self.tiering.peek_next()
+            if nxt is None:
+                return did
+            ticket, nbytes = nxt
+            depth = sched.pending_count()
+            with self._lock_cv:
+                idle = self._inflight is None and depth == 0
+            room = depth < self.max_queue and self.tiering.fits(nbytes)
+            # the health gate holds for wakes as for admission (an idle
+            # gated service still wakes one: its probe)
+            gated = sched.intake_gated and depth > 0
+            if not draining and (gated or not (room or idle)):
+                return did
+            entry = self.tiering.entry(ticket)
+            if entry is None:  # pragma: no cover - racing drop
+                continue
+            ddl = sched.ticket_deadline_s
+            if ddl is not None \
+                    and self._clock() - entry.submitted_at > ddl:
+                age = self._clock() - entry.submitted_at
+                err: Exception = TicketExpired(
+                    f"ticket {ticket} expired after {age:.3f}s in the "
+                    f"hibernation tier (deadline {ddl}s) — never "
+                    "dispatched")
+                ev = FailureEvent(
+                    step=entry.steps, kind="expired", detail=str(err),
+                    rolled_back_to=0, attempt=1, wall_time_s=0.0,
+                    classification="deterministic", ticket=ticket,
+                    service_id=self.service_id)
+                err.ticket = ticket
+                err.failure_event = ev
+                sched.expired_log.append(ev)
+                sched.counter.bump("expired")
+                self._resolve_hibernated(ticket, err)
+                did += 1
+                continue
+            try:
+                space, entry = self.tiering.wake(ticket)
+            except HibernationError as e:
+                e.ticket = ticket
+                ev = FailureEvent(
+                    step=entry.steps, kind="hibernation", detail=str(e),
+                    rolled_back_to=0, attempt=1, wall_time_s=0.0,
+                    classification="deterministic", ticket=ticket,
+                    service_id=self.service_id)
+                e.failure_event = ev
+                sched.quarantine_log.append(ev)
+                sched.counter.bump("quarantined")
+                get_recorder().dump("hibernation",
+                                    service_id=self.service_id,
+                                    ticket=ticket)
+                self._resolve_hibernated(ticket, e)
+                did += 1
+                continue
+            t2 = sched.submit(space, entry.model, entry.steps)
+            del space
+            self.tiering.admit(ticket, entry.nbytes)
+            with self._lock_cv:
+                self._woken[ticket] = t2
+                self._lock_cv.notify_all()
+            did += 1
+
+    def _resolve_hibernated(self, ticket: int, err: Exception) -> None:
+        self.tiering.drop(ticket)
+        with self._lock_cv:
+            self._hib_resolved[ticket] = err
+            self._hib_meta.pop(ticket, None)
+            self._lock_cv.notify_all()
+
+    def _resolve_tiering(self, ticket: int) -> None:
+        """A tiered ticket resolved through the scheduler: free its
+        residency, reclaim its chain, drop the wake alias."""
+        self.tiering.release(ticket)
+        with self._lock_cv:
+            self._woken.pop(ticket, None)
+            self._hib_meta.pop(ticket, None)
+
+    def _tiering_pending(self) -> bool:
+        return (self.tiering is not None
+                and self.tiering.hibernated_count() > 0)
+
     def _retry_after(self, depth: int) -> float:
         """Drain-time estimate: queue depth × the per-scenario busy time,
         floored at the pump interval (O(1): it runs under the scheduler's
@@ -390,10 +626,33 @@ class AsyncEnsembleService:
         return max(depth * per, self._poll_interval)
 
     def poll(self, ticket: int):
-        """(space, Report) when served, None while in flight; raises the
-        ticket's quarantine or expiry error. Never dispatches on the
-        caller's thread: the loop owns the device."""
-        return self.scheduler.poll(ticket, pump=False)
+        """(space, Report) when served, None while in flight or
+        hibernated; raises the ticket's quarantine, expiry or hibernation
+        error. Never dispatches on the caller's thread: the loop owns the
+        device."""
+        if self.tiering is None:
+            return self.scheduler.poll(ticket, pump=False)
+        with self._lock_cv:
+            if ticket in self._hib_resolved:
+                raise self._hib_resolved.pop(ticket)
+            mapped = self._woken.get(ticket, ticket)
+            hibernated = (ticket in self._hib_meta
+                          and ticket not in self._woken)
+        if hibernated:
+            return None
+        try:
+            res = self.scheduler.poll(mapped, pump=False)
+        except Exception as e:
+            if mapped != ticket:
+                # the client holds its own ticket id, not the wake alias
+                e.ticket = ticket
+            self._resolve_tiering(ticket)
+            raise
+        if res is None:
+            self.tiering.touch(ticket)
+            return None
+        self._resolve_tiering(ticket)
+        return res
 
     def result(self, ticket: int, timeout: Optional[float] = None):
         """Block until ``ticket`` resolves; ``TimeoutError`` after
@@ -432,6 +691,8 @@ class AsyncEnsembleService:
                 "running": self._thread is not None,
                 "loop_errors": len(self.loop_errors),
             })
+        if self.tiering is not None:
+            out.update(self.tiering.stats())
         return out
 
     # -- the pump ------------------------------------------------------------
@@ -458,6 +719,14 @@ class AsyncEnsembleService:
                        kinds=("thread_exc",)) is not None:
                 raise inject.InjectedFault(
                     "injected dispatch-thread exception")
+        woke = 0
+        if self.tiering is not None:
+            # wakes go first, so a woken ticket rides this very pump; only a
+            # stop's drain overrides the budget (a manual-mode result() also
+            # pumps with force=True, and pages in one at a time)
+            with self._lock_cv:
+                stopping = self._stop
+            woke = self._wake_due(draining=force and stopping)
         flight = self.scheduler.launch_due(force=force)
         with self._lock_cv:
             prev, self._inflight = self._inflight, flight
@@ -470,7 +739,7 @@ class AsyncEnsembleService:
             finally:
                 with self._lock_cv:
                     self._lock_cv.notify_all()
-        return flight is not None or prev is not None
+        return flight is not None or prev is not None or woke > 0
 
     def _loop(self) -> None:
         while True:
@@ -496,7 +765,8 @@ class AsyncEnsembleService:
                 did = True
             with self._lock_cv:
                 if (self._stop and self._inflight is None
-                        and self.scheduler.pending_count() == 0):
+                        and self.scheduler.pending_count() == 0
+                        and not self._tiering_pending()):
                     return
                 if not did and not self._stop:
                     self._lock_cv.wait(self._poll_interval)

@@ -31,7 +31,10 @@ On the card the writer keeps a device copy of the last saved state (the
 diff runs there) and gathers a delta's dirty tiles on the device, so a
 delta costs one device-to-host copy of those tiles; a keyframe copies each
 channel once. Replay assembles host tensors and moves each channel to the
-device once.
+device once. A chain made with ``host_last=True`` (the tiering vault's)
+keeps that last state on the host instead, as the JAX package's chain
+does: a paged-out scenario then holds nothing on the card, and a delta's
+diff uploads the host copy for the compare and frees it.
 
 The same record format is the **live-migration stream**:
 ``migrate_scenario`` hands a running scenario between executors (serial ↔
@@ -233,18 +236,22 @@ class DeltaChain:
     the tile diff local; after a restart it is empty, so the first save is
     a keyframe. ``keyframe_every`` bounds a segment to that many records (1
     keyframe + keyframe_every-1 deltas); 1 makes every save a keyframe.
-    ``device`` is where restores land (the card by default)."""
+    ``device`` is where restores land (the card by default). ``host_last``
+    keeps the writer's copy on the host (the module docstring)."""
 
     def __init__(self, directory: str, prefix: str = "ckpt",
                  keyframe_every: int = 8,
-                 tile: Optional[tuple[int, int]] = None, device=None):
+                 tile: Optional[tuple[int, int]] = None, device=None,
+                 host_last: bool = False):
         self.directory = directory
         self.prefix = prefix
         self.keyframe_every = max(1, int(keyframe_every))
         #: delta tile dims (None: ``ops.active.plan_for``'s default)
         self.tile = tile
         self.device = device
-        #: device copies of the last saved (or restored) state
+        self.host_last = bool(host_last)
+        #: copies of the last saved (or restored) state: on the state's
+        #: device, or on the host with ``host_last``
         self._last_values: Optional[dict] = None
         self._last_step: Optional[int] = None
         #: (manifest stat signature, steps): see steps()
@@ -378,7 +385,7 @@ class DeltaChain:
             if os.path.exists(p) and os.path.abspath(p) != \
                     os.path.abspath(path):
                 os.unlink(p)
-        self._last_values = {k: v.clone() for k, v in values.items()}
+        self._last_values = {k: self._keep(v) for k, v in values.items()}
         self._last_step = step
         if timings is not None:
             timings.update(
@@ -389,6 +396,11 @@ class DeltaChain:
                              int(sum(int(m.sum()) for m in dirty.values()))),
                 dirty_from=source)
         return path
+
+    def _keep(self, v: torch.Tensor) -> torch.Tensor:
+        """The writer's own copy of one channel, never an alias of the
+        caller's tensor."""
+        return v.to("cpu", copy=True) if self.host_last else v.clone()
 
     def _dirty_maps(self, values: dict, plan: ActivePlan,
                     dirty_tiles: Optional[dict]) -> tuple[dict, str]:
@@ -545,7 +557,7 @@ class DeltaChain:
             meta["y_init"], meta["global_dim_x"], meta["global_dim_y"])
         # seed the writer: a save right after this restore may continue the
         # chain with a delta (save() retracts records past this step first)
-        self._last_values = {k: v.clone() for k, v in values.items()}
+        self._last_values = {k: self._keep(v) for k, v in values.items()}
         self._last_step = int(meta["step"])
         return Checkpoint(space=space, step=int(meta["step"]),
                           extra=meta.get("extra", {}))

@@ -72,12 +72,13 @@ site           where the seam lives / what the fault does
                supervisor (``channel`` = its ``supervisor_id``; ``at``: a
                threshold on its tick count) — ``kind="supervisor_kill"``
                stops supervision dead, the journal handle left open
+``tiering``    ``ensemble.tiering.ScenarioTiering``: ``hibernate`` tears the
+               chain record it just wrote (``hibernate_torn``, ``at`` = the
+               chain seq), ``wake`` damages the newest record before its
+               restore (``wake_corrupt``, ``ticket``: None for any),
+               ``pressure`` forces one admission down the paging path
+               (``residency_pressure``)
 =============  ==============================================================
-
-The tiering kinds (``hibernate_torn``, ``wake_corrupt``,
-``residency_pressure``) are accepted in a plan, so a plan of the JAX
-package parses here, but no port module fires them yet: scenario tiering
-is not ported (ROADMAP.md).
 
 Disarmed, every seam costs one module-global read (``active() is None``).
 """
@@ -476,7 +477,7 @@ def journal_torn(path: str, index: int, record_start: int) -> None:
 
 def hibernate_torn(path: str, seq: int) -> None:
     """Tiering seam: tear the chain record a hibernation just wrote
-    (unwired: tiering is not ported)."""
+    (``ScenarioTiering.hibernate``)."""
     st = _ACTIVE
     if st is None:
         return
@@ -492,7 +493,8 @@ def hibernate_torn(path: str, seq: int) -> None:
 
 def wake_corrupt(ticket) -> Optional[Fault]:
     """Tiering seam: a live ``wake_corrupt`` fault aimed at ``ticket``
-    (None matches any wake), consumed per ``once`` (unwired)."""
+    (None matches any wake), consumed per ``once``
+    (``ScenarioTiering.wake``)."""
     st = _ACTIVE
     if st is None:
         return None

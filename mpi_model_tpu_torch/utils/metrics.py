@@ -77,9 +77,8 @@ class ThroughputCounter:
     the dispatch wall only, so queueing time is not billed as compute),
     ``batch_occupancy`` (real lanes / dispatched lanes),
     ``compile_cache_hit_rate`` (dispatches that reused a built runner) and
-    the queue-latency percentiles. Counters the port's serving path never
-    moves (the fleet's, tiering's) stay at 0, so the snapshot has the JAX
-    package's keys.
+    the queue-latency and wake-latency percentiles, with the JAX package's
+    keys.
     """
 
     #: the integer counters ``bump`` accepts: a misspelt name fails loudly
@@ -101,8 +100,8 @@ class ThroughputCounter:
         #: was outstanding); equal to busy_s on the synchronous path
         self.inflight_s = 0.0
         self._latencies = LatencyReservoir()
-        #: stays empty (scenario tiering is not ported); it gives the
-        #: snapshot the JAX package's wake-latency keys
+        #: each wake's wall seconds materializing its scenario (the tiering
+        #: vault's chain restore, or its journal fallback)
         self._wake_latencies = LatencyReservoir()
 
     def record_dispatch(self, scenarios: int, bucket: int, wall_s: float,
@@ -138,6 +137,11 @@ class ThroughputCounter:
         """One served scenario's submit-to-served latency (scheduler
         clock)."""
         self._latencies.record(seconds)
+
+    def record_wake_latency(self, seconds: float) -> None:
+        """One wake's wall seconds (wall even under a fake scheduler
+        clock), feeding ``wake_latency_p50_s``/``wake_latency_p99_s``."""
+        self._wake_latencies.record(seconds)
 
     def snapshot(self) -> dict:
         # the reservoirs hold their own leaf locks: read them first

@@ -2453,3 +2453,152 @@ def test_a_pinned_child_member_reports_the_card_and_serves_k5():
     assert st["kernel_launches"]["pipeline_stencil"] >= 1
     assert torch.equal(got.values["value"], want.values["value"])
     assert rep.impl == "pipeline"
+
+
+# -- scenario tiering on the card -------------------------------------------------
+
+def _vault_on_host(tiering) -> bool:
+    """No chain of the vault holds a tensor on the card."""
+    return all(v.device.type == "cpu"
+               for chain in tiering._chains.values()
+               for v in (chain._last_values or {}).values())
+
+
+@pytest.mark.cuda
+def test_paged_async_service_serves_k5_bit_for_bit_the_sync_twin(tmp_path):
+    """The paged async service on K5 (``pipeline``, substeps 8) at 1024²,
+    a budget of two scenarios for eight: every paged scenario wakes on the
+    card and is served bit for bit its never-hibernated twin, K5 launched,
+    no rung stepped, and no vault chain holds a card tensor after a
+    hibernation or a wake."""
+    from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
+                                              scenario_nbytes)
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    lanes = _lanes(dev, 8, 1024, 81)
+    kw = dict(steps=8, impl="pipeline", substeps=8, max_batch=2)
+    sync = mt.EnsembleService(model, **kw)
+    ts = [sync.submit(s) for s in lanes]
+    sync.flush()
+    want = [sync.result(t)[0].values["value"] for t in ts]
+    c0 = ps.launches()
+    svc = AsyncEnsembleService(
+        model, start=False, residency_budget=2 * scenario_nbytes(lanes[0])
+        + 1, hibernate_dir=str(tmp_path / "v"), **kw)
+    tickets = [svc.submit(s) for s in lanes]
+    assert svc.stats()["hibernated_scenarios"] == 6
+    assert _vault_on_host(svc.tiering)
+    got = [svc.result(t) for t in tickets]
+    assert _vault_on_host(svc.tiering)
+    st = svc.stats()
+    svc.stop()
+    assert ps.launches() > c0
+    for (g, rep), w in zip(got, want):
+        assert g.values["value"].device.type == "cuda"
+        assert torch.equal(g.values["value"], w)
+        assert rep.impl == "pipeline"
+    assert st["hibernations"] == 6 and st["wakes"] == 6 and st["shed"] == 0
+    assert st["degraded_from"] is None and st["impl_faults"] == 0
+
+
+@pytest.mark.cuda
+def test_vault_chains_hold_no_card_tensor_and_rehibernate_as_a_delta(
+        tmp_path):
+    """Straight on the vault: after a hibernation, a wake (on the card) and
+    a re-hibernation of the unchanged scenario, no chain holds a card
+    tensor, and the re-hibernation's record has zero dirty tiles. A
+    checkpoint chain keeps its copy on the card (its diff runs there)."""
+    from mpi_model_tpu_torch.ensemble import ScenarioTiering
+    from mpi_model_tpu_torch.io.delta import DeltaChain
+
+    dev = _card()
+    space = _lanes(dev, 1, 1024, 82)[0]
+    vault = ScenarioTiering(str(tmp_path / "v"), residency_budget=1)
+    vault.hibernate(1, space, mt.Model(mt.Diffusion(0.1)), 8)
+    assert _vault_on_host(vault)
+    kf = vault.stats()["hibernated_bytes"]
+    out, _ = vault.wake(1)
+    assert out.values["value"].device.type == "cuda"
+    assert torch.equal(out.values["value"], space.values["value"])
+    assert _vault_on_host(vault)
+    vault.hibernate(1, out, mt.Model(mt.Diffusion(0.1)), 8)
+    assert _vault_on_host(vault)
+    assert 0 < vault.stats()["hibernated_bytes"] - kf < kf / 100
+    ckpt = DeltaChain(str(tmp_path / "c"), device=dev)
+    ckpt.save(space, 0)
+    assert ckpt._last_values["value"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_paging_a_resident_ticket_out_frees_its_card_memory(tmp_path):
+    """A queued resident paged out by a new arrival frees the card: the
+    memory the caching allocator counts as live falls by at least one
+    scenario's bytes across the arrival's submit (the caller dropped the
+    victim's space at its own submit, and keeps the arrival's)."""
+    from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
+                                              scenario_nbytes)
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    one = 1024 * 1024 * 4
+    svc = AsyncEnsembleService(
+        model, steps=8, impl="pipeline", substeps=8, start=False,
+        max_wait_s=1e9, max_batch=8, residency_budget=one + 1,
+        hibernate_dir=str(tmp_path / "v"))
+    gen = torch.Generator(device=dev).manual_seed(83)
+
+    def lane():
+        return mt.CellularSpace.create(1024, 1024, 1.0, device=dev) \
+            .with_values({"value": torch.rand(
+                (1024, 1024), generator=gen, device=dev) + 0.5})
+
+    t_a = svc.submit(lane())          # resident; the caller keeps nothing
+    b = lane()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    t_b = svc.submit(b)               # pages t_a out, then admits t_b
+    torch.cuda.synchronize()
+    freed = before - torch.cuda.memory_allocated(dev)
+    assert svc.tiering.is_hibernated(t_a)
+    assert not svc.tiering.is_hibernated(t_b)
+    assert scenario_nbytes(b) == one
+    assert freed >= one, (freed, one)
+    assert _vault_on_host(svc.tiering)
+    del b
+    svc.stop()
+
+
+@pytest.mark.cuda
+def test_a_tcp_child_serves_k5_on_the_card():
+    """A real child behind authenticated TCP on 127.0.0.1 (``member_env``
+    pins the card): its handshake passes at the spawn, its heartbeat names
+    the card, and it serves one K5 scenario bit for bit the parent's
+    synchronous service, with its own K5 launch."""
+    from mpi_model_tpu_torch.ensemble import FleetSupervisor
+
+    dev = _card()
+    model = mt.Model(mt.Diffusion(0.1))
+    lane = _lanes(dev, 1, 512, 84)[0]
+    kw = dict(steps=8, impl="pipeline", substeps=8)
+    sync = mt.EnsembleService(model, **kw)
+    want = sync.result(sync.submit(lane))[0]
+    fleet = FleetSupervisor(model, services=1, start=True,
+                            member_transport="tcp",
+                            member_env={"CUDA_VISIBLE_DEVICES": "0"},
+                            rpc_deadline_s=120.0, **kw)
+    try:
+        got, rep = fleet.result(fleet.submit(lane), timeout=300)
+        handshake_s = fleet._members[0].service.handshake_s
+    finally:
+        fleet.stop()
+    st = fleet.stats()
+    assert st["member_transport"] == "tcp"
+    s0 = st["services"][0]
+    assert s0["backend"]["platform"] == "gpu"
+    assert s0["backend"]["devices"] == [torch.cuda.get_device_name(0)]
+    assert s0["kernel_launches"]["pipeline_stencil"] >= 1
+    assert handshake_s is not None and handshake_s > 0
+    assert got.values["value"].device.type == "cuda"
+    assert torch.equal(got.values["value"], want.values["value"])
+    assert rep.impl == "pipeline"

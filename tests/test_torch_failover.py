@@ -6,8 +6,12 @@ in-process or loopback members (no subprocess, no sleep), and a takeover
 across the packages: a standby of either package takes over the other's
 dead supervisor and serves its pending ticket exactly once.
 
-Waiting for the next slice (ROADMAP.md): the TCP failover row
-(``test_failover.py:314``).
+The TCP members: a ``MemberServer`` behind ``wire.tcp_listener`` on
+127.0.0.1 serves a fleet after the HMAC handshake, bit for bit; a wrong
+secret is refused before any frame; ``_dial_supervisor`` of a
+``host:port`` without ``$MMTPU_WIRE_SECRET`` raises as JAX's does; and the
+row with real spawned TCP children (``test_failover.py:314``) is marked
+``slow``, as JAX marks it.
 """
 
 import functools
@@ -375,3 +379,169 @@ def test_stale_epoch_records_fail_the_audit(tmp_path):
     aud = audit_journal(jpath)
     assert not aud["ok"]
     assert aud["stale_epoch_records"], aud
+
+
+# -- the TCP members ------------------------------------------------------------
+
+def _tcp_thread_member(monkeypatch, secrets_seen):
+    """A spawner whose member is a ``MemberServer`` on a thread behind a
+    real TCP listener on 127.0.0.1: the listener serves the handshake with a
+    fresh secret, and the client dials through ``_dial_supervisor`` with
+    that secret in its environment, as a spawned child would."""
+    import secrets
+    import threading
+
+    from mpi_model_tpu_torch.ensemble import AsyncEnsembleService, member_proc
+    from mpi_model_tpu_torch.ensemble.journal import (model_from_meta,
+                                                      model_meta)
+    from mpi_model_tpu_torch.ensemble.wire import (SECRET_ENV, FrameConn,
+                                                   serve_handshake,
+                                                   tcp_listener)
+
+    def spawn(model, *, service_id, member_kwargs, clock,
+              heartbeat_deadline_s, rpc_deadline_s, member_env=None,
+              pump_mode="rpc", device=None):
+        secret = secrets.token_hex(32)
+        secrets_seen.append((heartbeat_deadline_s, rpc_deadline_s))
+        listener = tcp_listener("127.0.0.1", 0)
+        addr = "%s:%d" % listener.getsockname()[:2]
+        kwargs = dict(member_kwargs)
+        kwargs.setdefault("clock", clock)
+        service = AsyncEnsembleService(
+            model_from_meta(model_meta(model)), start=False,
+            service_id=service_id, **kwargs)
+
+        def serve():
+            sock, _ = listener.accept()
+            listener.close()
+            serve_handshake(sock, secret)
+            member_proc.MemberServer(service, FrameConn(sock),
+                                     pump=pump_mode, ship_spans=False,
+                                     device="cpu").serve_forever()
+
+        t = threading.Thread(target=serve, daemon=True,
+                             name=f"tcp-member-{service_id}")
+        t.start()
+        monkeypatch.setenv(SECRET_ENV, secret)
+        sock = member_proc._dial_supervisor(addr)
+        return member_proc.ProcessMemberClient(
+            FrameConn(sock, chaos_id=service_id), service_id, clock=clock,
+            heartbeat_deadline_s=heartbeat_deadline_s,
+            rpc_deadline_s=rpc_deadline_s, server_thread=t, device="cpu")
+
+    return spawn
+
+
+def test_tcp_member_serves_after_the_handshake_bit_for_bit(monkeypatch,
+                                                           tmp_path):
+    """A fleet over ``member_transport="tcp"`` whose members sit behind a
+    real TCP listener on 127.0.0.1: the TCP deadlines (5 s and 60 s) reach
+    the spawner, every scenario crosses the authenticated wire and is served
+    bit for bit the synchronous service's, and the wire counts its bytes."""
+    seen: list = []
+    spaces = [scen_space(i) for i in range(4)]
+    sync = mt.EnsembleService(scen_model(), steps=4)
+    ts = [sync.submit(sp) for sp in spaces]
+    sync.flush()
+    want = [sync.result(t)[0].values["value"] for t in ts]
+    fleet = FleetSupervisor(scen_model(), services=2, steps=4, start=False,
+                            member_transport="tcp", device="cpu",
+                            member_spawner=_tcp_thread_member(monkeypatch,
+                                                              seen))
+    got = [fleet.result(fleet.submit(sp)) for sp in spaces]
+    st = fleet.stats()
+    fleet.stop()
+    assert seen == [(5.0, 60.0), (5.0, 60.0)]
+    for (out, rep), w in zip(got, want):
+        assert torch.equal(out.values["value"], w)
+        assert rep.steps == 4
+    assert st["member_transport"] == "tcp"
+    assert st["scenarios"] == 4 and st["pending"] == 0
+    assert st["wire_bytes_in"] > 0 and st["wire_bytes_out"] > 0
+
+
+def test_tcp_wrong_secret_is_refused_before_any_frame():
+    """A dial with the wrong secret fails the handshake on both sides: the
+    listener raises ``HandshakeError`` and closes the socket without reading
+    a frame, and the dialer's handshake fails too."""
+    import threading
+
+    from mpi_model_tpu_torch.ensemble.wire import (HandshakeError,
+                                                   client_handshake,
+                                                   serve_handshake, tcp_dial,
+                                                   tcp_listener)
+
+    listener = tcp_listener("127.0.0.1", 0)
+    addr = "%s:%d" % listener.getsockname()[:2]
+    seen = {}
+
+    def serve():
+        sock, _ = listener.accept()
+        try:
+            serve_handshake(sock, "the-right-secret")
+        except HandshakeError as e:
+            seen["server"] = e
+            seen["closed"] = sock.fileno() == -1
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    sock = tcp_dial(addr)
+    with pytest.raises(HandshakeError):
+        client_handshake(sock, "a-wrong-secret")
+    t.join(timeout=30.0)
+    listener.close()
+    sock.close()
+    assert isinstance(seen.get("server"), HandshakeError)
+    assert seen["closed"]
+
+
+def test_dial_without_the_secret_raises_like_jax(monkeypatch):
+    """``_dial_supervisor`` of a ``host:port`` needs the secret in the
+    environment; without it both packages raise the handshake error naming
+    the variable, before dialing anything."""
+    from mpi_model_tpu.ensemble import member_proc as jmember_proc
+    from mpi_model_tpu.ensemble.wire import HandshakeError as JHandshake
+
+    from mpi_model_tpu_torch.ensemble import member_proc
+    from mpi_model_tpu_torch.ensemble.wire import SECRET_ENV, HandshakeError
+
+    monkeypatch.delenv(SECRET_ENV, raising=False)
+    assert SECRET_ENV == "MMTPU_WIRE_SECRET"
+    msgs = []
+    for mod, err in ((member_proc, HandshakeError),
+                     (jmember_proc, JHandshake)):
+        with pytest.raises(err, match=SECRET_ENV) as ei:
+            mod._dial_supervisor("127.0.0.1:9")
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.slow
+def test_tcp_fleet_serves_through_authenticated_members(tmp_path):
+    """Real spawned children behind authenticated TCP (CPU children): the
+    fleet leg of the wire handshake, end to end, under a named supervisor
+    whose journal audit holds one epoch."""
+    fleet = FleetSupervisor(scen_model(), services=2, steps=4,
+                            member_transport="tcp",
+                            journal_dir=str(tmp_path),
+                            supervisor_id="sup-tcp", start=True,
+                            device="cpu")
+    try:
+        assert fleet._heartbeat_deadline == 5.0
+        assert fleet._rpc_deadline == 60.0
+        tickets = [fleet.submit(scen_space(i)) for i in range(4)]
+        for t in tickets:
+            space, _ = fleet.result(t, timeout=60)
+            assert space.values["value"].shape == (16, 16)
+    finally:
+        fleet.stop()
+    aud = audit_journal(journal_path(str(tmp_path)))
+    assert aud["ok"]
+    assert [e["epoch"] for e in aud["epochs"]] == [1]
+    st = fleet.stats()
+    assert st["member_transport"] == "tcp"
+    assert st["wire_bytes_in"] > 0 and st["wire_bytes_out"] > 0
+    # each child passed the handshake at its spawn
+    assert all(m.service.handshake_s is not None
+               and m.service.handshake_s > 0
+               for m in fleet._members.values())

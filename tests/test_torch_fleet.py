@@ -18,13 +18,15 @@ package's fleet on the same numpy-seeded scenarios.
   every ticket resolves, the results are bit for bit, and both packages'
   audits are clean.
 
-Waiting for the next slice (ROADMAP.md): the tiering test
-(``test_fleet.py:866``), the bench and ladder rows (``:617``, ``:634``)
-and the analysis one (``:673``).
+The tiering test (``test_fleet.py:866``) has its counterpart here; the
+rest of the fleet's paging is ``tests/test_torch_tiering.py``'s. Waiting
+for later slices (ROADMAP.md): the bench and ladder rows (``:617``,
+``:634``) and the analysis one (``:673``).
 """
 
 import functools
 import json
+import os
 import threading
 import warnings
 
@@ -712,14 +714,19 @@ def test_fleet_constructor_validation():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(member_transport="tcp"),
-    dict(residency_budget=1, hibernate_dir="/nonexistent"),
-    dict(hibernate_budget=4),
+    dict(member_transport="tcp", mesh=2),
+    dict(residency_budget=1, hibernate_dir="/nonexistent", mesh=2),
+    dict(hibernate_budget=4, mesh=2),
     dict(mesh=2),
 ], ids=["tcp", "tiering", "hibernate_budget", "mesh"])
 def test_unported_fleet_options_name_the_roadmap(kw):
+    """The mesh is the fleet's one option left unported: it is refused
+    naming ROADMAP.md before anything is built (no member spawned, no vault
+    directory made), beside the TCP transport and the tiering options that
+    are ported."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FleetSupervisor(scen_model(), start=False, device="cpu", **kw)
+    assert not os.path.exists("/nonexistent")
 
 
 def test_fleet_defaults_to_the_card():
@@ -746,6 +753,41 @@ def test_cli_serve_services_json(capsys):
     assert len(out["members"]) == 2
     assert {m["service_id"] for m in out["members"]} == {"m0g0", "m1g0"}
     assert sum(m["scenarios"] for m in out["members"]) == 6
+
+
+def test_cli_serve_transport_tcp_json(monkeypatch, capsys, tmp_path):
+    """``--serve-transport=tcp`` builds the fleet's TCP spawner
+    (``spawn_process_member(transport="tcp", host="127.0.0.1")``); here it
+    stands in a loopback member that records what it was asked for, so the
+    row's wire ledger and the paging ledger of a tiered fleet come back on
+    the CPU without a child."""
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.ensemble import fleet as fleet_mod
+
+    asked = []
+
+    def fake_spawn(model, *, transport="unix", host="127.0.0.1", **kw):
+        asked.append((transport, host, kw["heartbeat_deadline_s"],
+                      kw["rpc_deadline_s"]))
+        kw.pop("device", None)
+        kw.pop("python", None)
+        return spawn_loopback_member(model, device="cpu", **kw)
+
+    monkeypatch.setattr(fleet_mod, "spawn_process_member", fake_spawn)
+    rc = cli_main(["run", "--dimx=16", "--dimy=16", "--flow=diffusion",
+                   "--steps=2", "--serve", "--serve-scenarios=6",
+                   "--serve-transport=tcp", "--serve-services=2",
+                   "--residency-budget=1",
+                   f"--hibernate-dir={tmp_path / 'v'}",
+                   "--json", "--device=cpu"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0
+    assert asked == [("tcp", "127.0.0.1", 5.0, 60.0)] * 2
+    assert out["transport"] == "tcp" and out["services"] == 2
+    assert out["served"] == 6 and out["ledger_complete"] is True
+    assert out["wire_bytes_in"] > 0 and out["wire_bytes_out"] > 0
+    assert out["hibernations"] >= 1 and out["residency_budget"] == 1
+    assert sum(out["wakes_by_member"].values()) == out["wakes"]
 
 
 @pytest.mark.parametrize("argv,match", [
@@ -999,3 +1041,39 @@ def test_timeline_reads_a_fleet_journal_like_jax(tmp_path):
     assert kinds[-1] == "served" and ours.complete
     assert ours.to_dict() == jpostmortem.reconstruct(
         t, journal_dir=jdir).to_dict()
+
+
+def test_fleet_hibernation_write_failure_sheds_observably(tmp_path):
+    """An unwritable vault leaves no ticket that never resolves: the
+    admission sheds with ServiceOverloaded, the journaled submit gets its
+    terminal record and the replay audit stays complete, in both
+    packages."""
+    from mpi_model_tpu.ensemble import ServiceOverloaded as JOverloaded
+    from mpi_model_tpu.ensemble.journal import replay as jreplay
+
+    def broken_hibernate(*a, **kw):
+        raise OSError("vault full")
+
+    cuts = []
+    for pkg in ("jax", "torch"):
+        jd = str(tmp_path / pkg / "j")
+        kw = dict(services=1, steps=2, start=False, max_queue=1,
+                  journal_dir=jd, residency_budget=1,
+                  hibernate_dir=str(tmp_path / pkg / "v"))
+        if pkg == "jax":
+            fleet = JFleet(mm.Model(mm.Diffusion(0.05), 4.0, 1.0), **kw)
+            space, overloaded, rep = jscen_space(0), JOverloaded, jreplay
+        else:
+            fleet = FleetSupervisor(scen_model(), device="cpu", **kw)
+            space, overloaded, rep = scen_space(0), ServiceOverloaded, replay
+        fleet.tiering.hibernate = broken_hibernate
+        with pytest.raises(overloaded, match="hibernation write failed"):
+            fleet.submit(space)
+        st = fleet.stats()
+        assert st["shed"] == 1 and st["pending"] == 0
+        fleet.stop()
+        audit = rep(journal_path(jd))
+        assert audit.unresolved() == [] and not audit.duplicate_terminals
+        cuts.append({k: st[k] for k in ("shed", "pending",
+                                         "hibernated_scenarios")})
+    assert cuts[0] == cuts[1]

@@ -16,8 +16,9 @@ observability. The rows with real spawned children (CPU children: a
 ``kill -9``, the bit-for-bit gate, the ``member_env`` pin) are marked
 ``slow``.
 
-Waiting for the next slice (ROADMAP.md): the mesh row
-(``test_fleet_proc.py:667``) and the tiering rows (``:732``, ``:767``).
+The tiering rows (``test_fleet_proc.py:732``, ``:767``) page and wake
+across the loopback wire. Waiting for a later slice (ROADMAP.md): the mesh
+row (``:667``).
 """
 
 import functools
@@ -617,10 +618,76 @@ def test_member_kwargs_that_cannot_cross_are_refused():
          "clock": time.monotonic})
     assert enc == {"compute_dtype": "bfloat16", "buckets": [1, 2]}
     assert member_proc._decode_member_kwargs(enc)["buckets"] == (1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # tcp is a transport now (tests/test_torch_failover.py); an unknown one
+    # is refused before anything is spawned
+    with pytest.raises(ValueError, match="unknown member transport"):
         member_proc.spawn_process_member(
             scen_model(), service_id="x", member_kwargs={},
-            transport="tcp", device="cpu")
+            transport="udp", device="cpu")
+
+
+# -- scenario tiering across the wire -----------------------------------------
+
+def test_tiering_pages_and_wakes_across_the_wire_bitwise(tmp_path):
+    """The paging tier with process members (loopback): admissions beyond
+    the residency budget hibernate at the fleet, wake FIFO, and their
+    placements cross the wire like any submission; every served state bit
+    for bit the synchronous service's, zero sheds, wakes attributed per
+    member."""
+    from mpi_model_tpu_torch.ensemble import scenario_nbytes
+
+    model = scen_model()
+    spaces = [scen_space(i) for i in range(6)]
+    models = [scen_model(i) for i in range(6)]
+    sync = EnsembleService(model, steps=4)
+    ts = [sync.submit(spaces[i], model=models[i]) for i in range(6)]
+    sync.flush()
+    want = [sync.result(t)[0].values["value"] for t in ts]
+
+    one = scenario_nbytes(spaces[0])
+    fleet = proc_fleet(model, services=2, residency_budget=2 * one + 1,
+                       hibernate_dir=str(tmp_path / "wire-tier"))
+    tp = [fleet.submit(spaces[i], model=models[i]) for i in range(6)]
+    st = fleet.stats()
+    assert st["hibernated_scenarios"] == 4 and st["shed"] == 0
+    for i, t in enumerate(tp):
+        out, _rep = fleet.result(t)
+        assert torch.equal(out.values["value"], want[i])
+    st = fleet.stats()
+    assert st["wakes"] == 4 and st["shed"] == 0
+    assert sum(st["wakes_by_member"].values()) == 4
+    fleet.stop()
+
+
+def test_tiering_wake_survives_proc_kill_fence(tmp_path):
+    """A hibernated ticket belongs to no member: the loopback
+    ``proc_kill`` fencing one member while scenarios sleep changes nothing;
+    wakes land on the survivor or the replacement and everything serves
+    with zero sheds."""
+    from mpi_model_tpu_torch.ensemble import scenario_nbytes
+
+    clock = {"t": 0.0}
+    one = scenario_nbytes(scen_space(0))
+    fleet = proc_fleet(services=2, clock=lambda: clock["t"],
+                       heartbeat_deadline_s=1.0, residency_budget=one + 1,
+                       hibernate_dir=str(tmp_path / "wire-tk"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        tickets = [fleet.submit(scen_space(i)) for i in range(4)]
+        assert fleet.stats()["hibernated_scenarios"] >= 2
+        victim = _victim_with_work(fleet)
+        with inject.armed(FaultPlan(
+                (Fault("proc_kill", channel=victim),))):
+            fleet.pump_once()   # the kill lands on a wire RPC
+            clock["t"] = 2.0    # past the heartbeat deadline
+            fleet.pump_once()
+            outs = [fleet.result(t) for t in tickets]
+    stats = fleet.stats()
+    fleet.stop()
+    assert len(outs) == 4
+    assert stats["respawns"] >= 1
+    assert stats["shed"] == 0
+    assert stats["wakes"] >= 2
 
 
 # -- real spawned children (slow) ---------------------------------------------

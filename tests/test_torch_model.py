@@ -403,7 +403,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "__init__", "flight", "__main__")}
         | {"mpi_model_tpu_torch/native.py"}) <= rel
     assert ({f"mpi_model_tpu_torch/ensemble/{m}.py" for m in (
-        "lifecycle", "journal", "wire", "member_proc", "fleet")}
+        "lifecycle", "journal", "wire", "member_proc", "fleet", "tiering")}
         | {f"mpi_model_tpu_torch/resilience/{m}.py" for m in (
             "lockdep", "protocolcheck")}
         | {"mpi_model_tpu_torch/obs/postmortem.py"}) <= rel

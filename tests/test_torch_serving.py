@@ -20,6 +20,7 @@ scenarios.
 
 import dataclasses
 import json
+import os
 import sys
 import threading
 
@@ -525,16 +526,30 @@ def test_run_soak_rejects_bad_rate():
 
 
 def test_unported_serving_options_name_the_roadmap(tmp_path):
+    """The mesh is the one serving option left unported: refused naming
+    ROADMAP.md, beside the tiering options too. Scenario tiering is ported
+    with JAX's both-or-neither rule (``tests/test_torch_tiering.py``), and a
+    ``hibernate_budget`` without a residency budget changes nothing, as in
+    the JAX package."""
     model = scen_model()
     for make in (
             lambda: AsyncEnsembleService(model, residency_budget=1,
-                                         hibernate_dir=str(tmp_path),
-                                         start=False),
-            lambda: AsyncEnsembleService(model, hibernate_budget=1,
+                                         hibernate_dir=str(tmp_path / "m"),
+                                         mesh=2, start=False),
+            lambda: AsyncEnsembleService(model, hibernate_budget=1, mesh=2,
                                          start=False),
             lambda: AsyncEnsembleService(model, mesh=2, start=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make()
+    assert not (tmp_path / "m").exists()
+    tiered = AsyncEnsembleService(model, residency_budget=1,
+                                  hibernate_dir=str(tmp_path / "v"),
+                                  start=False)
+    assert tiered.tiering is not None and (tmp_path / "v").is_dir()
+    assert AsyncEnsembleService(model, hibernate_budget=1,
+                                start=False).tiering is None
+    assert JAsync(jscen_model(), hibernate_budget=1, start=False,
+                  compile_cache=None).tiering is None
     # the degradation ladder's knob is accepted, as in the JAX package
     svc = AsyncEnsembleService(model, degrade_after=3, start=False)
     assert svc.scheduler.degrade_after == 3
@@ -716,18 +731,26 @@ def test_cli_serve_flag_validation(argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--serve-transport=tcp", "--serve-services=2"],
+    ["--serve-transport=tcp", "--serve-services=2", "--ensemble-mesh=2"],
     ["--serve-services=2", "--residency-budget=1",
-     "--hibernate-dir=/nonexistent"],
-    ["--residency-budget=1", "--hibernate-dir=/nonexistent"],
-    ["--hibernate-dir=/nonexistent"],
-    ["--serve-transport=process", "--hibernate-dir=/nonexistent"],
-    ["--serve-transport=tcp"], ["--ensemble-mesh=2x1"],
+     "--hibernate-dir=/nonexistent", "--ensemble-mesh=2"],
+    ["--residency-budget=1", "--hibernate-dir=/nonexistent",
+     "--ensemble-mesh=2x1"],
+    ["--hibernate-dir=/nonexistent", "--ensemble-mesh=2"],
+    ["--serve-transport=process", "--hibernate-dir=/nonexistent",
+     "--residency-budget=1", "--ensemble-mesh=2"],
+    ["--serve-transport=tcp", "--ensemble-mesh=2x1"], ["--ensemble-mesh=2x1"],
     ["--ensemble-mesh=2"],
 ])
 def test_cli_refuses_unported_serving_flags(argv):
+    """``--ensemble-mesh`` is the one serving flag left unported: refused
+    naming ROADMAP.md, alone and beside the flags this slice ported
+    (``--serve-transport=tcp``, ``--residency-budget``/``--hibernate-dir``,
+    whose own checks are ``tests/test_torch_tiering.py``'s), before any
+    serving starts."""
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         cli_main(["run", "--serve", "--device=cpu", *argv])
+    assert not os.path.exists("/nonexistent")
 
 
 def test_dataclass_fields_of_the_plan_are_jax_fields():
