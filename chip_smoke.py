@@ -495,6 +495,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    --ensemble=4 --ensemble-mesh=2`` and ``run --mesh=2x2 --checkpoint-dir
    --checkpoint-layout=sharded --async-checkpoints`` exit 0 with their
    JSON rows.
+6o. the port's analysis gate on the card (``analysis_phase``, in a process
+   of its own, ``analysis_phase_main``; it prints its seconds): the strict
+   gate's AST lint, concurrency and protocol audits
+   over ``mpi_model_tpu_torch`` and this script (zero unsuppressed
+   findings, every pragma with a reason), then the step audit
+   (``analysis.step_audit``) on the card: every contract run once under
+   the dispatch recorder and the sync debug mode, one line each with its
+   launches a call, its traced kernel names, its host reads a step or pass
+   and its output dtypes; every kernel route (K1, K2, K3 vpu and mxu,
+   K3-halo, K4, K4-halo, K5, K6/K7) launches its declared kernels the
+   declared number of times, and no contract reads the host more than it
+   declares; a step with an injected ``.tolist()`` must be caught by
+   ``step-sync``. Any finding fails the run.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -6925,6 +6938,119 @@ def mesh_phase_main() -> None:
     print(json.dumps(out, default=repr), flush=True)
 
 
+def analysis_phase(torch, dev) -> dict:
+    """Phase 6o: the port's strict analysis gate with the step audit on
+    ``dev`` (the module docstring). Returns the contracts' reports and the
+    gate's seconds."""
+    from mpi_model_tpu_torch.analysis import (run_astlint,
+                                              run_concurrency_audit,
+                                              run_protocol_audit)
+    from mpi_model_tpu_torch.analysis import step_audit as sa
+    from mpi_model_tpu_torch.analysis.__main__ import DEFAULT_ROOTS
+
+    here = Path(__file__).resolve().parent
+    out: dict = {}
+    t0 = time.perf_counter()
+    roots = [here / r for r in DEFAULT_ROOTS]
+    static = (run_astlint(roots, rel_to=here)
+              + run_concurrency_audit(rel_to=here)
+              + run_protocol_audit(rel_to=here))
+    out["static_s"] = time.perf_counter() - t0
+    open_ = [f.format() for f in static if not f.suppressed]
+    bare = [f.format() for f in static if f.suppressed
+            and not f.suppress_reason]
+    rules: dict = {}
+    for f in static:
+        if f.suppressed:
+            rules[f.rule] = rules.get(f.rule, 0) + 1
+    out["suppressed_by_rule"] = rules
+    print(f"6o (a) static layers: {len(static)} findings, {len(open_)} "
+          f"open, {sum(rules.values())} suppressed {rules}, "
+          f"{out['static_s']:.2f} s", flush=True)
+    check(not open_ and not bare,
+          f"6o (a): unsuppressed or reasonless findings: {open_ + bare}")
+
+    t1 = time.perf_counter()
+    findings, reports = sa.audit_contracts(device=dev)
+    out["step_s"] = time.perf_counter() - t1
+    out["gate_s"] = time.perf_counter() - t0
+    for r in reports:
+        if "error" in r:
+            print(f"6o (b) {r['contract']}: {r['error']}", flush=True)
+            continue
+        print(f"6o (b) {r['contract']}: launches {r['launches']}"
+              + (f" (declared {r['launches_declared']})"
+                 if "launches_declared" in r else "")
+              + (f", kernels {r['kernels']}" if "kernels" in r else "")
+              + f", host reads {r['host_reads']} in {r['units']} "
+              f"{r['sync_unit']}(s) (dispatch {r['host_reads_dispatch']}, "
+              f"sync debug {r['host_reads_warned']}"
+              + (" at " + ", ".join(r["host_reads_at"])
+                 if r["host_reads_at"] else "")
+              + f", allowed "
+              f"{r['host_reads_allowed']}), out {r['out_dtypes']}",
+              flush=True)
+    out["reports"] = reports
+    out["findings"] = [f.format() for f in findings]
+    check(not findings, "6o (b): step audit findings:\n"
+                        + "\n".join(out["findings"]))
+    routes = {r["contract"]: r for r in reports if "launches_declared" in r}
+    check(set(routes) == {"k1_dense", "k2_sharded", "k3_vpu", "k3_mxu",
+                          "k3_halo", "k4_coupled", "k4_halo", "k5_pipeline",
+                          "k67_active_fused"}
+          and all(r["launch_check"] == "checked" for r in routes.values()),
+          "6o (b): the kernel routes were not all checked: "
+          f"{ {n: r['launch_check'] for n, r in routes.items()} }")
+
+    # (c) a step that reads the card with .tolist(), which dispatch cannot
+    # see: the sync debug mode must count it against a declared 0
+    x = torch.arange(64, dtype=torch.float32, device=dev)
+
+    def leaky(v):
+        return v * float(len((v * 2).tolist()))
+
+    bad = sa.BuiltStep("injected_tolist", leaky, (x,), torch.float32,
+                       x.element_size() * x.numel(), ((0, 1),), 1,
+                       consts_check=False)
+    caught, rep = sa.audit_built(bad, dev)
+    out["injected"] = {"findings": [f.format() for f in caught],
+                       "host_reads": rep["host_reads"]}
+    print(f"6o (c) injected .tolist(): host reads {rep['host_reads']} "
+          f"(dispatch {rep['host_reads_dispatch']}, sync debug "
+          f"{rep['host_reads_warned']}), findings "
+          f"{[f.rule for f in caught]}", flush=True)
+    check([f.rule for f in caught] == ["step-sync"],
+          f"6o (c): the injected .tolist() was not caught: {caught}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"6o: {out['seconds']:.1f} s (static {out['static_s']:.1f} s, "
+          f"step audit {out['step_s']:.1f} s)", flush=True)
+    return out
+
+
+def analysis_phase_main() -> None:
+    """Phase 6o alone (``python3 -c "import chip_smoke;
+    chip_smoke.analysis_phase_main()"``): builds the sources (or loads
+    them from the build directory), runs ``analysis_phase`` on the card,
+    writes ``chiprun_out/chip_smoke_6o.json`` and prints it as its last
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mpi_model_tpu_torch.ops import _build
+
+    _build.build_all()
+    out = analysis_phase(torch, torch.device("cuda"))
+    out["process_seconds"] = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6o.json").write_text(
+        json.dumps(out, indent=1, default=repr))
+    print(json.dumps(out, default=repr), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8403,6 +8529,24 @@ def main() -> int:
     meshes = mesh_phase(np, torch, mt, dev, here / "chiprun_out" / "mesh_6n",
                         reset_counts, kernel_launches)
 
+    # -- 6o. the port's analysis gate and the step audit, in a process of its
+    # own (its profiler traces in a fresh process, as 6g's rows) ------------
+    torch.cuda.empty_cache()
+    t_an = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, "
+         "sys.argv[1]); import chip_smoke; chip_smoke.analysis_phase_main()",
+         str(here)], cwd=here, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    check(proc.returncode == 0, "6o: the analysis process failed:\n"
+                                f"{proc.stdout[-2000:]}\n"
+                                f"{proc.stderr[-4000:]}")
+    analysis = json.loads(lines[-1])
+    analysis["seconds_total"] = time.perf_counter() - t_an
+    print(f"6o: {analysis['seconds_total']:.1f} s (its process "
+          f"{analysis['process_seconds']:.1f} s)", flush=True)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -8806,7 +8950,8 @@ def main() -> int:
          "sharded_active": sharded_active, "bf16_interior": bf16,
          "checkpoint": ckpt, "ir": ir, "observability": observability,
          "fleet": fleet, "tiering": tiering, "meshes": meshes,
-         "ladder_formats": ladder, "build": _build.build_info, "cases": cases,
+         "ladder_formats": ladder, "analysis": analysis,
+         "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -441,6 +441,10 @@ class FleetSupervisor:
     def _spawn_locked(self, slot: int, gen: int) -> _Member:
         """Spawn and install in one step: the constructor's and recovery's
         path, before any traffic contends for the lock."""
+        # analysis: ignore[blocking-under-lock] — constructor/recovery only:
+        # no client traffic exists yet, so nothing contends for the fleet lock
+        # during these spawns; every live spawn runs through tick()'s unlocked
+        # phase
         return self._install_locked(self._make_member(slot, gen))
 
     def stop(self) -> None:
@@ -513,6 +517,9 @@ class FleetSupervisor:
         while True:
             try:
                 self.tick()
+            # analysis: ignore[broad-except] — the supervision loop's own
+            # supervisor: a tick failure (a journal write on a full disk) is
+            # counted and survived; a dead supervisor is a dead fleet
             # the supervision loop's supervisor: a failing tick (a journal
             # write on a full disk) is counted and survived
             except Exception:
@@ -677,6 +684,10 @@ class FleetSupervisor:
                 if route.member.dead or route.member.fenced:
                     return None  # the fencing path owns this ticket
                 try:
+                    # analysis: ignore[blocking-under-lock] — member poll
+                    # runs pump=False: it only checks the results table (the
+                    # pump thread owns dispatching), so the statically visible
+                    # dispatch chain never runs here
                     # pump=False on the member: a results-table check
                     r = route.member.service.poll(route.member_ticket)
                 except WireError:
@@ -685,6 +696,10 @@ class FleetSupervisor:
                     self.counter.bump("wire_errors")
                     route.member.dead = True
                     return None
+                # analysis: ignore[broad-except] — harvest seam: any per-
+                # ticket resolution error (quarantine, expiry, conservation,
+                # dispatch fault) is journaled and returned to this ticket's
+                # caller, never lost
                 # the harvest seam: any per-ticket resolution error is
                 # journaled and returned to this ticket's caller
                 except Exception as e:
@@ -704,6 +719,9 @@ class FleetSupervisor:
         ``timeout`` wall seconds (a client's bound). Manual mode pumps on
         the caller's thread."""
         deadline = (None if timeout is None
+                    # analysis: ignore[naked-timer] — result()'s timeout= is
+                    # a client-facing wall bound, not a measurement: nothing is
+                    # recorded, so a span would be noise
                     else time.monotonic() + float(timeout))
         while True:
             res = self.poll(ticket)
@@ -720,6 +738,8 @@ class FleetSupervisor:
                         "found work — fleet state is inconsistent")
                 continue
             with self._cv:
+                # analysis: ignore[naked-timer] — the same client wall
+                # bound's expiry check (no measurement recorded)
                 if deadline is not None and time.monotonic() >= deadline:
                     raise TimeoutError(
                         f"fleet ticket {ticket} still pending after "
@@ -746,6 +766,9 @@ class FleetSupervisor:
                 with self._cv:
                     m.dead = True
                 did = True
+            # analysis: ignore[broad-except] — the manual-mode pump
+            # supervisor mirrors AsyncEnsembleService._loop: a pump fault is
+            # counted and survived, never fatal to the fleet
             # the manual-mode pump supervisor, as AsyncEnsembleService._loop
             except Exception:
                 m.service.scheduler.counter.bump("loop_faults")
@@ -808,6 +831,10 @@ class FleetSupervisor:
         for slot, gen in spawn_reqs:
             try:
                 spawned.append(self._make_member(slot, gen))
+            # analysis: ignore[broad-except] — spawn isolation: one
+            # replacement failing to come up (a dead spawner, a full tmpdir)
+            # must not unwind the tick past the fence drain; counted and re-
+            # queued
             # spawn isolation: a replacement that fails to come up must not
             # unwind the tick past the fence drain; counted and re-queued
             except Exception:
@@ -841,6 +868,9 @@ class FleetSupervisor:
         for m in retired:
             try:
                 m.service.stop()
+            # analysis: ignore[broad-except] — retiree-stop isolation: every
+            # retiree is already out of the membership, so a failing drain on
+            # one must not unwind past the next or out of tick()
             # retiree-stop isolation: a failing drain on one retiree must
             # not unwind past the next one or out of tick()
             except Exception:
@@ -873,12 +903,16 @@ class FleetSupervisor:
             if m.fenced or m.dead:
                 continue  # the fencing path owns these
             try:
+                # analysis: ignore[blocking-under-lock] — member poll runs
+                # pump=False: results-table check only, the dispatch chain the
+                # auditor sees is the pump's
                 r = m.service.poll(route.member_ticket)
             except WireError:
                 # a member fault: this tick's health check fences it
                 self.counter.bump("wire_errors")
                 m.dead = True
                 continue
+            # analysis: ignore[broad-except] — harvest seam (see poll)
             # the harvest seam (see poll)
             except Exception as e:
                 self._finalize_locked(ticket, e)
@@ -898,6 +932,9 @@ class FleetSupervisor:
         if self.journal is None:
             return
         try:
+            # analysis: ignore[blocking-under-lock] — the documented journal-
+            # append-under-the-fleet-lock cost: per-ticket record ordering
+            # (submit before terminal) is exactly what this lock provides
             self.journal.append(kind, meta, arrays)
         except StaleEpochError as e:
             self.counter.bump("stale_epoch_rejections")
@@ -945,6 +982,10 @@ class FleetSupervisor:
             self._route.pop(ticket, None)
             self._resolved[ticket] = outcome
             if self.tiering is not None:
+                # analysis: ignore[blocking-under-lock] — reclaiming a
+                # resolved ticket's chain (a few small files) must be atomic
+                # with its resolution, or a racing wake could resurrect a
+                # served scenario; the vault lock is a leaf
                 # atomic with the resolution, or a racing wake could bring
                 # a served scenario back; the vault lock is a leaf
                 self.tiering.release(ticket)
@@ -1091,6 +1132,8 @@ class FleetSupervisor:
             if route.member is not m:
                 continue
             try:
+                # analysis: ignore[blocking-under-lock] — member poll runs
+                # pump=False (results-table check only)
                 r = m.service.poll(route.member_ticket)
             except WireError:
                 # the fenced member's wire is gone: re-admit from the
@@ -1098,6 +1141,7 @@ class FleetSupervisor:
                 self.counter.bump("wire_errors")
                 self._readmit_locked(ticket, route, reason)
                 continue
+            # analysis: ignore[broad-except] — harvest seam (see poll)
             # the harvest seam (see poll)
             except Exception as e:
                 self._finalize_locked(ticket, e)
@@ -1111,12 +1155,20 @@ class FleetSupervisor:
             if order:
                 target = order[0]
                 try:
+                    # analysis: ignore[blocking-under-lock] — fencing drain
+                    # must stay atomic with the route table (a concurrent
+                    # submit must not route onto the fenced member mid-move);
+                    # migration is rare (fence only)
                     new_mt = m.service.scheduler.migrate_ticket(
                         route.member_ticket, target.service.scheduler)
                 except (TicketNotMigratable, KeyError):
                     pass  # claimed or launched: re-admit from the copy
                 except WireError:
                     self.counter.bump("wire_errors")
+                # analysis: ignore[broad-except] — fence-drain isolation: a
+                # wire-crossed migrate can surface any member-side error;
+                # unwinding would strand the fenced member's other tickets, and
+                # the fleet's copy re-admits this one
                 # fence-drain isolation: a wire-crossed migrate can raise
                 # any member-side error; the fleet's copy re-admits
                 except Exception:
@@ -1141,6 +1193,10 @@ class FleetSupervisor:
         for target in self._candidates_locked(skey):
             try:
                 with get_tracer().attach(route.trace):
+                    # analysis: ignore[blocking-under-lock] — re-admission
+                    # must be atomic with the route table, and members run
+                    # inline_dispatch=False: the scheduler's inline-dispatch
+                    # tail the auditor sees is unreachable
                     new_mt = target.service.scheduler.submit(
                         route.space, route.model, route.steps)
             except WireError:
@@ -1202,6 +1258,9 @@ class FleetSupervisor:
             if not order:
                 return  # nowhere to drain to; the next tick tries again
             try:
+                # analysis: ignore[blocking-under-lock] — the drain-before-
+                # retire move must stay atomic with the route table; retirement
+                # is rare and the CRC-verified handoff is the point
                 new_mt = m.service.scheduler.migrate_ticket(
                     mt, order[0].service.scheduler)
             except (TicketNotMigratable, KeyError):
@@ -1212,6 +1271,10 @@ class FleetSupervisor:
                 self.counter.bump("wire_errors")
                 self._readmit_locked(ticket, route, reason)
                 continue
+            # analysis: ignore[broad-except] — same mid-move shape for any
+            # other wire-crossed member error: the extract may have landed, so
+            # the route must not keep pointing at the source; re-admit from the
+            # stored copy
             # any other member-side error mid-move: the extract may have
             # landed, so re-admit from the copy
             except Exception:
@@ -1243,6 +1306,10 @@ class FleetSupervisor:
             with self._cv:
                 meta = self._hib_meta.get(ticket)
                 if meta is None:
+                    # analysis: ignore[blocking-under-lock] — the reclaim (a
+                    # few small files and one journal line) must be atomic with
+                    # the bookkeeping check, or a racing wake could resurrect
+                    # the orphan; the vault lock is a leaf
                     # a vault entry nothing routes to (recovery found a
                     # chain whose fleet ticket already resolved): reclaim
                     # it, atomic with the check
@@ -1302,9 +1369,15 @@ class FleetSupervisor:
                 try:
                     with get_tracer().attach(trace):
                         if bypass:
+                            # analysis: ignore[blocking-under-lock] — the re-
+                            # admission contract of _readmit_locked: placement
+                            # must be atomic with the route table; members run
+                            # inline_dispatch=False
                             mt = mem.service.scheduler.submit(
                                 space, model, steps)
                         else:
+                            # analysis: ignore[blocking-under-lock] — same co
+                            # ntract as submit()'s admission routing
                             mt = mem.service.submit(space, model=model,
                                                     steps=steps)
                 except ServiceOverloaded:
@@ -1347,6 +1420,10 @@ class FleetSupervisor:
         self._hib_meta.pop(ticket, None)
         self._resolved[ticket] = err
         self.counter.bump("expired" if expired else "quarantined")
+        # analysis: ignore[blocking-under-lock] — reclaiming the resolved
+        # ticket's chain must be atomic with its resolution (a racing wake
+        # could resurrect it); the vault lock is a leaf and the reclaim is a
+        # few small files and one journal line
         # the chain's reclaim is atomic with the resolution (a racing wake
         # could bring it back); the vault lock is a leaf
         self.tiering.drop(ticket)
@@ -1374,6 +1451,10 @@ class FleetSupervisor:
                 state = replay(self.journal.path)
             except (OSError, ValueError):  # pragma: no cover - defensive
                 return None
+            # analysis: ignore[unguarded-shared-mutation] — single writer by
+            # construction: fallbacks only run inside tiering.wake, which
+            # serializes under the vault lock (taking the fleet lock here would
+            # invert the documented _cv -> vault order)
             # one writer: fallbacks run only inside tiering.wake, under the
             # vault lock (taking the fleet lock here would invert the
             # _cv → vault order)
@@ -1401,6 +1482,9 @@ class FleetSupervisor:
             with self._cv:
                 meta = self._hib_meta.get(ticket)
                 if meta is None:
+                    # analysis: ignore[blocking-under-lock] — orphan reclaim
+                    # atomic with the bookkeeping check (see _wake_due); the
+                    # vault lock is a leaf
                     self.tiering.drop(ticket)
                     continue
             model, steps, skey, submitted_at, trace = meta

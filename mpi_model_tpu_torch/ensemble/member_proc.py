@@ -346,6 +346,9 @@ class MemberServer:
             self._reply("err", {"error": "ValueError",
                                 "detail": f"unknown RPC {kind!r}"})
             return False
+        # analysis: ignore[broad-except] — the RPC supervisor: any handler
+        # failure must become a typed err reply the supervisor reconstructs,
+        # never a dead serve loop
         # the RPC supervisor: a handler's failure becomes a typed "err"
         # reply, never a dead serve loop (a broken reply connection raises
         # out of the send itself and ends serving)
@@ -395,6 +398,9 @@ class MemberServer:
         except KeyError as e:
             self._reply("err", {"error": "KeyError", "detail": str(e)})
             return False
+        # analysis: ignore[broad-except] — the harvest seam crosses the wire
+        # here: every per-ticket resolution error must become a typed reply the
+        # supervisor journals, never a dead serve loop
         # the harvest seam crosses the wire here: every per-ticket
         # resolution error becomes a typed reply the supervisor journals
         except Exception as e:
@@ -456,6 +462,9 @@ class MemberServer:
                 self._pump_dead = True
             self._reply("ok", {"did": True, "killed": True})
             return False
+        # analysis: ignore[broad-except] — the manual-mode pump supervisor
+        # (mirrors AsyncEnsembleService._loop across the wire): a pump fault is
+        # counted member-side and survived
         # the manual-mode pump supervisor (AsyncEnsembleService._loop's,
         # across the wire): a pump fault is counted and survived
         except Exception:
@@ -601,6 +610,10 @@ class _RemoteScheduler:
         if kind == "err":
             _raise_remote(meta)
         return target.submit_payload(
+            # analysis: ignore[rpc-asymmetry] — the migrate reply meta IS a
+            # space payload: dim_x/dim_y are stamped by the payload codec
+            # (journal.space_payload), a vocabulary the server-side literal
+            # scan cannot see
             {"dim_x": meta["dim_x"], "dim_y": meta["dim_y"],
              "steps": meta["steps"], "model": meta["model"],
              "migrated": True},
@@ -975,6 +988,8 @@ def _accept_child(listener, proc: subprocess.Popen, service_id: str,
     """Wait for the child to connect back, up to ``timeout_s``; a child that
     exits first (a failed config, no card) fails the spawn at once, naming
     its exit code."""
+    # analysis: ignore[naked-timer] — spawn deadline arithmetic (the connect-
+    # back wall bound), not a measurement
     t_end = time.monotonic() + timeout_s
     while True:
         listener.settimeout(0.25)
@@ -988,6 +1003,8 @@ def _accept_child(listener, proc: subprocess.Popen, service_id: str,
             raise WireError(
                 f"member {service_id} exited with code {rc} before it "
                 "connected (its stderr names the cause)")
+        # analysis: ignore[naked-timer] — the same spawn deadline's expiry
+        # check
         if time.monotonic() >= t_end:
             proc.kill()
             proc.wait(timeout=10.0)
@@ -1083,6 +1100,9 @@ def spawn_process_member(model, *, service_id: str, member_kwargs: dict,
             sock = _accept_child(listener, proc, service_id,
                                  SPAWN_CONNECT_TIMEOUT_S)
             if secret is not None:
+                # analysis: ignore[naked-timer] — the handshake's wall
+                # seconds are reported on the client (handshake_s) as one
+                # number per spawn, not a serving-path timing
                 # authenticate before any frame: a wrong-secret or wedged
                 # peer is closed here and the spawn fails loudly
                 t0 = time.perf_counter()
@@ -1092,6 +1112,8 @@ def spawn_process_member(model, *, service_id: str, member_kwargs: dict,
                     proc.kill()
                     proc.wait(timeout=10.0)
                     raise
+                # analysis: ignore[naked-timer] — closes the handshake_s
+                # measurement above
                 handshake_s = time.perf_counter() - t0
         except WireError:
             import shutil

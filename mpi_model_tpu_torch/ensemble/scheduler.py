@@ -357,7 +357,15 @@ class EnsembleScheduler:
                     "dispatch; collect its result")
             key, q, i, it = found
             if it.ready is not None:
+                # analysis: ignore[blocking-under-lock] — the submitter's
+                # stream wrote this scenario: the CRC-verified transfer below
+                # must read its finished bytes while the ticket is still queued
+                # under this lock
                 it.ready.synchronize()  # the submitter's stream wrote it
+            # analysis: ignore[blocking-under-lock] — the CRC-verified
+            # materialization must complete while the ticket is still queued
+            # under this lock, or a failed transfer could both lose the local
+            # copy and never deliver the remote one
             # the transfer completes while the ticket is still queued, so a
             # failed one leaves the scenario here
             space = transfer_space(it.space)
@@ -655,6 +663,9 @@ class EnsembleScheduler:
                     windows=self.windows if xla else 1,
                     donate=self.donate and xla)
                 sm["cache_hit"] = self.executor.builds == builds0
+        # analysis: ignore[broad-except] — dispatch supervisor: any whole-
+        # batch failure must fan out to the affected tickets instead of
+        # stranding them or leaking into an unrelated caller
         # the dispatch boundary: any whole-batch failure (an ineligible
         # engine, a kernel error) fans out to the affected tickets instead of
         # stranding them or reaching an unrelated caller
@@ -683,6 +694,8 @@ class EnsembleScheduler:
                     check_conservation=self.check_conservation,
                     tolerance=self.tolerance, rtol=self.rtol,
                     on_violation="mark")
+        # analysis: ignore[broad-except] — dispatch supervisor: a
+        # fetch/conservation-machinery failure fans out like a launch failure
         except Exception as e:  # fanned out like a launch failure
             return None, e, flight.cache_hit, 0.0
         # the batch wall: from any served lane's Report, else from a marked
@@ -713,6 +726,10 @@ class EnsembleScheduler:
         self.counter.record_dispatch(
             scenarios=k, bucket=flight.bucket, wall_s=wall,
             cache_hit=flight.cache_hit,
+            # analysis: ignore[naked-timer] — the occupancy span (launch
+            # start -> fetched) closes against the launch anchor batch.py
+            # recorded; it feeds the inflight_s counter the spans are
+            # reconciled against
             inflight_s=time.perf_counter() - flight.inflight.t0)
         with self._lock:
             # a clean completion closes the health gate: the (possibly

@@ -406,6 +406,10 @@ class AsyncEnsembleService:
                     "estimated drain time",
                     queue_depth=depth,
                     retry_after_s=self._retry_after(depth))
+            # analysis: ignore[blocking-under-lock] — this scheduler runs
+            # inline_dispatch=False: submit is enqueue-only (the statically
+            # visible inline-dispatch tail is unreachable), and depth-check +
+            # enqueue must be atomic under the lock
             ticket = sched.submit(space, m, n)
         with self._lock_cv:
             self._lock_cv.notify_all()
@@ -431,6 +435,10 @@ class AsyncEnsembleService:
                 depth = sched.pending_count()
                 gated = sched.intake_gated and depth > 0
                 if not gated and depth < self.max_queue:
+                    # analysis: ignore[blocking-under-lock] — same contract
+                    # as the unpaged admission: this scheduler runs
+                    # inline_dispatch=False (enqueue-only), and depth-check +
+                    # enqueue must be atomic
                     ticket = sched.submit(space, model, steps)
         if ticket is None and not injected and self._page_out(nbytes):
             # room was made (a concurrent submitter racing into the freed
@@ -660,6 +668,9 @@ class AsyncEnsembleService:
         """Block until ``ticket`` resolves; ``TimeoutError`` after
         ``timeout`` seconds (a client's wall bound). In manual mode
         (``start=False``) this pumps on the caller's thread instead."""
+        # analysis: ignore[naked-timer] — result()'s timeout= is a client-
+        # facing wall bound, not a measurement (see the fleet twin); nothing is
+        # recorded
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             res = self.poll(ticket)
@@ -679,6 +690,8 @@ class AsyncEnsembleService:
                         "work: the queue state is inconsistent")
                 continue
             with self._lock_cv:
+                # analysis: ignore[naked-timer] — the same client wall
+                # bound's expiry check
                 if deadline is not None and time.monotonic() >= deadline:
                     raise TimeoutError(
                         f"ticket {ticket} still pending after {timeout}s")
@@ -755,6 +768,9 @@ class AsyncEnsembleService:
                 # the member_kill fault: this thread dies, with no drain
                 # (returning spares the default excepthook's traceback)
                 return
+            # analysis: ignore[broad-except] — the pump-loop supervisor: a
+            # dispatch-thread exception (chaos thread_exc included) must be
+            # counted and survived; a dead loop is a dead service
             # the pump-loop supervisor: an exception on this thread (the
             # thread_exc fault included) is counted and survived; a dead
             # loop is a dead service, and per-dispatch failures already
@@ -888,6 +904,9 @@ def run_soak(service, scenarios, *, arrival_rate_hz: float,
             served += 1
         except TicketExpired:
             expired += 1
+        # analysis: ignore[broad-except] — the soak ledger: every non-served
+        # ticket must be counted (quarantine, conservation, dispatch error),
+        # not crash the audit
         # the soak's ledger: every ticket not served is counted
         # (quarantine, conservation, a dispatch error), never raised
         except Exception:

@@ -256,6 +256,10 @@ class ScenarioTiering:
 
     def _append_locked(self, kind: str, meta: dict) -> None:
         try:
+            # analysis: ignore[blocking-under-lock] — the tiering journal's
+            # per-ticket record ordering (intent before commit before wake) is
+            # exactly what this lock provides; same documented trade as the
+            # fleet journal's appends
             self.journal.append(kind, meta)
         except (OSError, ValueError) as e:
             self.counter.bump("loop_faults")
@@ -284,6 +288,10 @@ class ScenarioTiering:
                 "ticket": int(ticket), "seq": seq, "steps": int(steps),
                 "nbytes": nbytes, "model": model_meta(model)})
             chain = self._chain_for_locked(ticket)
+            # analysis: ignore[blocking-under-lock] — the chain write must
+            # land between this ticket's intent and commit journal records (the
+            # crash contract recover() replays); paging I/O serializes against
+            # other paging I/O only
             # the chain write lands between this ticket's intent and commit
             # records (the crash contract); it serializes against other
             # paging I/O only
@@ -351,6 +359,9 @@ class ScenarioTiering:
         the caller to ``drop`` after publishing the error. The wall seconds
         feed the wake-latency reservoir (wall, whatever the facade's
         clock)."""
+        # analysis: ignore[naked-timer] — the wake-latency reservoir's
+        # anchor: wake p50/p99 must stay real wall seconds even under a fake
+        # scheduler clock, and the reservoir is what stats() publishes
         t0 = time.perf_counter()
         with self._lock, get_tracer().span(
                 "tiering.wake", ticket=int(ticket)) as sm:
@@ -365,8 +376,15 @@ class ScenarioTiering:
             space = None
             source = None
             last_err: Optional[Exception] = None
+            # analysis: ignore[blocking-under-lock] — the wake's chain walk
+            # (manifest read + restore) IS the paging tier's I/O; it serializes
+            # only against other paging operations, and the caller's admission
+            # lock is never held across wake
             for s in sorted(chain.steps(), reverse=True):
                 try:
+                    # analysis: ignore[blocking-under-lock] — the wake
+                    # restore is the paging tier's I/O; it serializes only
+                    # against other paging I/O
                     ck = chain.restore(s, device=dev)
                 except (CheckpointCorruptionError, FileNotFoundError) as ex:
                     last_err = ex
@@ -396,6 +414,7 @@ class ScenarioTiering:
             self._hibernated_bytes -= e.disk_bytes
             sm["source"] = source
         self.counter.bump("wakes")
+        # analysis: ignore[naked-timer] — closes the reservoir anchor
         self.counter.record_wake_latency(time.perf_counter() - t0)
         get_recorder().record("wake", ticket=int(ticket), source=source)
         return space, e
@@ -412,6 +431,9 @@ class ScenarioTiering:
             self._hibernated_bytes += entry.disk_bytes
 
     def _corrupt_newest_locked(self, chain: DeltaChain, fault) -> None:
+        # analysis: ignore[blocking-under-lock] — chaos-only path (an armed
+        # wake_corrupt fault): damages the chain under the same vault lock the
+        # wake it targets holds, by design
         steps = chain.steps()
         if not steps:
             return

@@ -275,6 +275,8 @@ def _hs_read(sock, n: int, t_end: float, *, what: str) -> bytes:
     chunks: list = []
     total = 0
     while total < n:
+        # analysis: ignore[naked-timer] — socket-deadline arithmetic
+        # (remaining budget for settimeout), not timing
         remaining = t_end - time.monotonic()
         if remaining <= 0:
             raise HandshakeError(
@@ -331,6 +333,7 @@ def serve_handshake(sock, secret: str,
     challenge the peer, verify its proof, then prove ourselves against its
     counter-challenge. Any failure raises :class:`HandshakeError` and
     closes the socket."""
+    # analysis: ignore[naked-timer] — handshake deadline arithmetic
     t_end = time.monotonic() + float(deadline_s)
     try:
         nonce = _secrets.token_hex(16).encode()
@@ -361,6 +364,7 @@ def client_handshake(sock, secret: str,
     """The dialing side of :func:`serve_handshake`: answer the listener's
     challenge, counter-challenge it, verify its proof. Same failure
     contract."""
+    # analysis: ignore[naked-timer] — handshake deadline arithmetic
     t_end = time.monotonic() + float(deadline_s)
     try:
         challenge = _hs_read(sock, _HS_CHALLENGE_LEN, t_end,
@@ -511,6 +515,9 @@ class FrameConn:
     def _recv(self, deadline_s: Optional[float]
               ) -> tuple[str, dict, Optional[dict]]:
         t_end = (None if deadline_s is None
+                 # analysis: ignore[naked-timer] — socket-deadline arithmetic
+                 # (settimeout needs remaining wall seconds), not timing: the
+                 # RPC latency a span would measure lives in the client layer
                  else time.monotonic() + float(deadline_s))
         header = self._read_exact(_HEADER_LEN, t_end)
         if header[:4] != _MAGIC or header[12:13] != b" " \
@@ -547,6 +554,8 @@ class FrameConn:
                 if self._closed:
                     raise WireClosed("connection already closed")
                 if t_end is not None:
+                    # analysis: ignore[naked-timer] — same deadline
+                    # arithmetic (remaining budget for settimeout)
                     remaining = t_end - time.monotonic()
                     if remaining <= 0:
                         raise WireTimeout(

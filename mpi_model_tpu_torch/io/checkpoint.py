@@ -413,6 +413,9 @@ class CheckpointManager:
             def _write():
                 try:
                     staged.write()
+                # analysis: ignore[broad-except] — async-writer boundary: the
+                # thread must never die silently; every failure is boxed and
+                # re-raised at the next flush
                 # the writer thread's boundary: a failure is boxed and
                 # raised at the next flush, never lost with the thread
                 except BaseException as e:  # noqa: BLE001

@@ -199,6 +199,9 @@ class _RecordReader:
                 f"{type(e).__name__}: {e}") from e
         try:
             self.meta = json.loads(bytes(self._z["meta"]).decode("utf-8"))
+            # analysis: ignore[journal-meta-drift] — this is the delta CHAIN
+            # record's meta (the checkpoint codec's vocabulary), not a ticket-
+            # journal record; the lifecycle machines do not govern it
             fmt = self.meta.get("format")
             if fmt != DELTA_FORMAT_VERSION:
                 raise CheckpointCorruptionError(

@@ -278,6 +278,8 @@ def save_checkpoint_sharded(path: str, space: CellularSpace, step: int = 0,
     err: Optional[BaseException] = None
     try:
         staged.write()
+    # analysis: ignore[broad-except] — vote boundary: the failure becomes
+    # this process's vote and every process raises together
     # the vote boundary: the failure becomes this process's vote, and
     # every process raises together
     except BaseException as e:  # noqa: BLE001

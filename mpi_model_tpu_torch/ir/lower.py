@@ -306,10 +306,22 @@ def _amount(term, ctx: _Ctx, rate):
     the multiply, as the JAX package's lowering does (``x * 1`` is exact,
     so an ensemble lane, which multiplies, gets the same values)."""
     amt = evaluate(term.expr, ctx.env(), ctx.dtype, ctx.cache, ctx.device)
-    if not isinstance(rate, torch.Tensor) and float(
-            torch.tensor(float(rate), dtype=ctx.dtype)) == 1.0:
+    if not isinstance(rate, torch.Tensor) and _is_one(rate, ctx.dtype,
+                                                      ctx.cache):
         return amt
     return ctx.rate_c(rate) * amt
+
+
+def _is_one(rate, dtype, cache: dict) -> bool:
+    """Whether ``rate`` rounds to 1 in ``dtype``, decided once and cached
+    with the context's constants (the rounding goes through a host tensor,
+    which a step should not make each call)."""
+    key = ("is_one", float(rate), dtype)
+    hit = cache.get(key)
+    if hit is None:
+        hit = cache[key] = float(
+            torch.tensor(float(rate), dtype=dtype)) == 1.0
+    return hit
 
 
 @register_lowering(Transfer)

@@ -749,11 +749,26 @@ class Model:
                                 for a in field_stepper.program.outputs}
 
         counts_cache: list = []
+        # the step closes over the space's dtype, never the space: a cached
+        # step must not keep the state it was built for alive
+        dtype = space.dtype
+        # the point sources' cells and frozen amounts are static: made on
+        # the device once, here (a tensor made from host values each step
+        # is a host-to-device copy the card waits for)
+        pt_static = {}
+        for attr, pflows in pt_by_attr.items():
+            locs = [f.local_source(space.values, origin) for f in pflows]
+            pt_static[attr] = (
+                torch.tensor([lx for lx, _, _ in locs], device=device),
+                torch.tensor([ly for _, ly, _ in locs], device=device),
+                [f.amount(space.values, origin)
+                 if f.frozen_source_value is not None else None
+                 for f in pflows])
 
         def counts() -> torch.Tensor:
             if not counts_cache:
                 counts_cache.append(neighbor_counts(
-                    shape, offsets, origin, gshape, space.dtype, device))
+                    shape, offsets, origin, gshape, dtype, device))
             return counts_cache[0]
 
         # the dense transport of plain-Diffusion field flows, on every impl
@@ -801,14 +816,19 @@ class Model:
             elif field_flows:
                 for attr, o in build_outflow(field_flows, values,
                                              origin).items():
+                    # analysis: ignore[hardcoded-physics] — legacy FLOW
+                    # fallback for what the IR cannot represent exactly (user
+                    # flows, summed same-attr outflows); the convertible dense
+                    # path above runs the IR lowering
                     new[attr] = transport(values[attr], o, counts(), offsets)
             # point amounts read the PRE-step values
             for attr, pflows in pt_by_attr.items():
-                locs = [f.local_source(values, origin) for f in pflows]
-                xs = torch.tensor([lx for lx, _, _ in locs], device=device)
-                ys = torch.tensor([ly for _, ly, _ in locs], device=device)
-                amts = torch.stack([f.amount(values, origin)
-                                    for f in pflows])
+                xs, ys, fixed = pt_static[attr]
+                amts = torch.stack([f.amount(values, origin) if a is None
+                                    else a for f, a in zip(pflows, fixed)])
+                # analysis: ignore[hardcoded-physics] — the point-source
+                # scatter (the reference's live workload) is outside the IR
+                # field-term grammar by design
                 new[attr] = point_flow_step(new[attr], xs, ys, amts,
                                             counts(), offsets)
             return new

@@ -215,6 +215,9 @@ def serve_status(port: int, snapshot_fn, host: str = "127.0.0.1"):
                 else:
                     body = json.dumps(doc).encode()
                     ctype = "application/json"
+            # analysis: ignore[broad-except] — scrape isolation: a failing
+            # snapshot_fn (a stopped fleet, a torn file) must answer 500, not
+            # kill the serving thread
             # the scrape boundary: a failing snapshot answers 500 and the
             # serving thread lives on
             except Exception as e:

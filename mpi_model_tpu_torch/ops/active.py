@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
-from .stencil import neighbor_counts, transport
+from .stencil import neighbor_counts, scalar_const, transport
 
 
 def _pick_tile_dim(dim: int, preferred: int) -> int:
@@ -252,7 +252,7 @@ def active_pass(padded: torch.Tensor, upd: torch.Tensor, ids: torch.Tensor,
     cnt = window_counts(rows + (int(origin[0]) - 1),
                         cols + (int(origin[1]) - 1), global_shape, offsets,
                         dtype)
-    rate_c = torch.tensor(rate, dtype=dtype, device=padded.device)
+    rate_c = scalar_const(rate, dtype, padded.device)
     outflow = rate_c * win
     share = outflow / cnt
     inflow = torch.zeros((n, th, tw), dtype=dtype, device=padded.device)
@@ -289,7 +289,7 @@ def dense_from_padded(padded: torch.Tensor, rate, counts: torch.Tensor,
     """Full-grid dense step on the ring-1 padded state: ``transport``'s
     exact expression, returned re-padded with a zero ring."""
     v = padded[1:-1, 1:-1]
-    rate_c = torch.tensor(rate, dtype=dtype, device=padded.device)
+    rate_c = scalar_const(rate, dtype, padded.device)
     return F.pad(transport(v, rate_c * v, counts, offsets), (1, 1, 1, 1))
 
 
@@ -306,7 +306,7 @@ def dense_from_ghost_padded(padded: torch.Tensor, rate,
     global coordinates, clamped to >= 1. Returns the bare ``[h, w]``
     interior."""
     h, w = padded.shape[0] - 2, padded.shape[1] - 2
-    outflow_p = torch.tensor(rate, dtype=dtype, device=padded.device) * padded
+    outflow_p = scalar_const(rate, dtype, padded.device) * padded
     share_p = outflow_p / counts_pad
     inflow = torch.zeros((h, w), dtype=dtype, device=padded.device)
     for dx, dy in offsets:
@@ -320,7 +320,7 @@ def dense_transport_step(shape, rate, offsets, origin, global_shape, dtype):
     def step(v: torch.Tensor) -> torch.Tensor:
         counts = neighbor_counts(shape, offsets, origin, global_shape,
                                  dtype, v.device)
-        rate_c = torch.tensor(rate, dtype=dtype, device=v.device)
+        rate_c = scalar_const(rate, dtype, v.device)
         return transport(v, rate_c * v, counts, offsets)
     return step
 

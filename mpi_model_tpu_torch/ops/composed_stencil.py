@@ -66,6 +66,7 @@ import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
 from ._build import KernelError
+from .seam import plain_version
 from .fused_stencil import (
     KERNEL_DTYPES,
     LANE,
@@ -841,8 +842,8 @@ def _composed_step(values, rate, k, offsets, block, variant, compute_dtype,
     form = resolve_form(variant, k, blk[1])
     check_nsteps(k, blk, values.dtype)
     if values.device.type == "cpu":
-        res = composed_dense_step_plain(values, rate, k, offsets, form,
-                                        compute_dtype, blk)
+        res = plain_version("K3", composed_dense_step_plain, values, rate,
+                            k, offsets, form, compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out
@@ -887,9 +888,9 @@ def composed_halo_step(
             f"(exchange_ring(..., depth={k}))")
     form = resolve_form(variant, k, blk[1])
     if values.device.type == "cpu":
-        res = composed_halo_step_plain(values, ring, origin, global_shape,
-                                       rate, k, offsets, form, compute_dtype,
-                                       blk)
+        res = plain_version("K3-halo", composed_halo_step_plain, values,
+                            ring, origin, global_shape, rate, k, offsets,
+                            form, compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out

@@ -632,6 +632,10 @@ def lower_flows(flows: Sequence, names: Sequence[str],
             out = f.outflow(sym, origin)
         except LoweringError:
             raise
+        # analysis: ignore[broad-except] — a user flow's outflow may raise
+        # anything under symbolic evaluation; every such failure becomes the
+        # static LoweringError refusal (FieldPlanError's cause), never an
+        # escape
         except Exception as e:  # any failure of user code under tracing
             raise LoweringError(
                 f"flow {label} cannot be lowered to the field kernel: its "

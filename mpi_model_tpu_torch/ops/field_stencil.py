@@ -70,6 +70,7 @@ from .fused_stencil import (KERNEL_DTYPES, RING_PIECES, check_nsteps,
                             kernel_rect, pad_from_ring, padded_region, rb,
                             resolve_block, resolve_compute_dtype,
                             with_bf16_rect)
+from .seam import plain_version
 from .stencil import neighbor_counts, transport
 
 #: a window's columns (one a thread of a block of 8 warps) and the block's
@@ -727,9 +728,10 @@ class PallasFieldStep:
                  ) -> dict[str, torch.Tensor]:
         plan, dtype, chans, dev = self._checked(values)
         if dev.type == "cpu":
-            return self._copy_out(field_step_plain(
-                values, self.flows, self.offsets, self.nsteps,
-                compute_dtype=self.compute_dtype, block=self.block), out)
+            return self._copy_out(plain_version(
+                "K4", field_step_plain, values, self.flows, self.offsets,
+                self.nsteps, compute_dtype=self.compute_dtype,
+                block=self.block), out)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         if any(t.device != dev or not t.is_contiguous() for t in chans):
@@ -774,10 +776,10 @@ class PallasFieldStep:
                 f"deep; got depth {d} (exchange_ring(..., "
                 f"depth={self.nsteps}))")
         if dev.type == "cpu":
-            return self._copy_out(field_halo_step_plain(
-                values, rings, origin, global_shape, self.flows,
-                self.offsets, self.nsteps, self.compute_dtype, self.block),
-                out)
+            return self._copy_out(plain_version(
+                "K4-halo", field_halo_step_plain, values, rings, origin,
+                global_shape, self.flows, self.offsets, self.nsteps,
+                self.compute_dtype, self.block), out)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
         order = kernel_channels(plan.program)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..core.cell import Cell
 from ..core.cellular_space import DEFAULT_ATTR, CellularSpace
+from .stencil import scalar_const
 
 
 def _rate_tensor(rate, like: torch.Tensor) -> torch.Tensor:
@@ -29,7 +30,7 @@ def _rate_tensor(rate, like: torch.Tensor) -> torch.Tensor:
     in the channel's dtype) is taken as it is."""
     if isinstance(rate, torch.Tensor):
         return rate
-    return torch.tensor(rate, dtype=like.dtype, device=like.device)
+    return scalar_const(rate, like.dtype, like.device)
 
 
 def _source_xy(source) -> tuple[int, int]:

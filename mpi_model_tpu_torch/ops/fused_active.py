@@ -58,7 +58,8 @@ from .active import (
 )
 from .composed_stencil import composed_taps
 from .fused_stencil import _offset_codes, _offset_mask
-from .stencil import neighbor_counts, transport
+from .seam import plain_version
+from .stencil import neighbor_counts, scalar_const, transport
 
 #: hard cap on the composed pass depth (the window is (th+2k, tw+2k); also
 #: bounds the tap table at 33² taps)
@@ -344,9 +345,10 @@ def fused_compute(padded: torch.Tensor, ids: torch.Tensor,
     version. ``cnt1`` is the live count as an int32 ``[1]`` tensor."""
     offsets = tuple(offsets)
     if padded.device.type == "cpu":
-        return fused_compute_plain(padded, ids, cnt1.reshape(-1)[0], selfnz,
-                                   rate, plan, origin, global_shape, offsets,
-                                   dtype, k, ring, taps)
+        return plain_version("K6", fused_compute_plain, padded, ids,
+                             cnt1.reshape(-1)[0], selfnz, rate, plan,
+                             origin, global_shape, offsets, dtype, k, ring,
+                             taps)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device {padded.device}")
     if padded.dtype not in KERNEL_DTYPES or padded.dtype != dtype:
@@ -412,8 +414,8 @@ def fused_scatter(padded: torch.Tensor, upd: torch.Tensor, ids: torch.Tensor,
     cells untouched). On a CUDA tensor it launches the kernel, else the
     plain version."""
     if padded.device.type == "cpu":
-        return fused_scatter_plain(padded, upd, ids, cnt1.reshape(-1)[0],
-                                   plan, ring)
+        return plain_version("K7", fused_scatter_plain, padded, upd, ids,
+                             cnt1.reshape(-1)[0], plan, ring)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device {padded.device}")
     (th, tw), (_, gj) = plan.tile, plan.grid
@@ -477,7 +479,7 @@ def dense_chunk_from_padded(padded, rate, counts, offsets, dtype, k: int,
     state, returned re-padded with a zero ring (bitwise the plain dense
     path)."""
     v = padded[ring:-ring, ring:-ring]
-    rate_c = torch.tensor(rate, dtype=dtype, device=padded.device)
+    rate_c = scalar_const(rate, dtype, padded.device)
     for _ in range(k):
         v = transport(v, rate_c * v, counts, offsets)
     return F.pad(v, (ring, ring, ring, ring))

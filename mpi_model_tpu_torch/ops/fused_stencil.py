@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
 from ._build import KernelError
+from .seam import plain_version
 
 LANE = 128  # the JAX kernel's lane tile; kept for the same block checks
 
@@ -846,8 +847,8 @@ def _dense_step(values, rate, offsets, block, nsteps, compute_dtype, out,
     blk = resolve_block((h, w), values.dtype, block)
     check_nsteps(int(nsteps), blk, values.dtype)
     if values.device.type == "cpu":
-        res = dense_step_plain(values, rate, offsets, int(nsteps),
-                               compute_dtype, blk)
+        res = plain_version("K1", dense_step_plain, values, rate, offsets,
+                            int(nsteps), compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out
@@ -930,8 +931,9 @@ def pallas_halo_step(
             f"nsteps={nsteps} needs a ghost ring at least that deep; got "
             f"depth {d} (exchange_ring(..., depth={nsteps}))")
     if values.device.type == "cpu":
-        res = halo_step_plain(values, ring, origin, global_shape, rate,
-                              offsets, nsteps, compute_dtype, blk)
+        res = plain_version("K2", halo_step_plain, values, ring, origin,
+                            global_shape, rate, offsets, nsteps,
+                            compute_dtype, blk)
         if out is not None:
             out.copy_(res)
             return out

@@ -42,6 +42,7 @@ import torch
 
 from ..core.cell import MOORE_OFFSETS
 from ._build import KernelError
+from .seam import plain_version
 from .fused_stencil import KERNEL_DTYPES, _offset_codes, _offset_mask, \
     _validate_block, bf16_rect, check_offsets, closed_constants, \
     closed_steps_bf16, closed_steps_plain, exact_dense_step_plain, \
@@ -363,8 +364,8 @@ def pipeline_dense_step(values: torch.Tensor, rate: float,
             f"the pipelined stencil takes float32 or bfloat16 grids, got "
             f"{values.dtype}; float64 stays on the plain path (impl='xla')")
     if values.device.type == "cpu":
-        res = pipeline_step_plain(values, rate, offsets, int(nsteps), blk,
-                                  compute_dtype)
+        res = plain_version("K5", pipeline_step_plain, values, rate,
+                            offsets, int(nsteps), blk, compute_dtype)
         if out is not None:
             out.copy_(res)
             return out

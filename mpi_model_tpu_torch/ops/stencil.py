@@ -8,7 +8,10 @@
   ``Transport``).
 - ``point_flow_step``: the sparse path for point sources, one
   ``index_put_(..., accumulate=True)`` per offset in ``MOORE_OFFSETS``
-  order. Out-of-bounds neighbors are dropped outright with a boolean mask.
+  order. Out-of-bounds neighbors are dropped outright: their shares land
+  in a discarded slot past the grid (a boolean mask would read the
+  device on the host for its count).
+- ``scalar_const``: a 0-d constant on a device, made once and cached.
 
 The operation order is the reference's (``share = outflow / counts``, then
 ``values - outflow + Σ shifts`` in offset order), so at f64 the results
@@ -23,6 +26,22 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cell import MOORE_OFFSETS
+
+
+_SCALARS: dict = {}
+
+
+def scalar_const(value, dtype, device) -> torch.Tensor:
+    """``torch.tensor(value, dtype=dtype, device=device)``, made once per
+    (value, dtype, device) and reused: a tensor made from a host number is
+    a host-to-device copy the card waits for, so a step must not make one
+    each call. Callers must not write into it."""
+    key = (float(value), dtype, torch.device(device))
+    t = _SCALARS.get(key)
+    if t is None:
+        t = _SCALARS[key] = torch.tensor(float(value), dtype=dtype,
+                                         device=device)
+    return t
 
 
 def shift2d(x: torch.Tensor, dx: int, dy: int) -> torch.Tensor:
@@ -135,10 +154,15 @@ def point_flow_step(
     neighbor gains ``amount[i] / counts[src]``. Returns a new tensor."""
     h, w = values.shape
     share = amount / counts[src_x, src_y]
-    out = values.clone()
-    out.index_put_((src_x, src_y), -amount, accumulate=True)
+    # the grid flattened, with one discarded slot past it: an off-grid
+    # neighbour's share lands there, so no in-grid cell sees an extra add
+    # and nothing reads the device on the host
+    trash = h * w
+    flat = torch.cat([values.reshape(-1), values.new_zeros(1)])
+    flat.index_put_((src_x * w + src_y,), -amount, accumulate=True)
     for dx, dy in offsets:
         nx, ny = src_x + dx, src_y + dy
         valid = (nx >= 0) & (nx < h) & (ny >= 0) & (ny < w)
-        out.index_put_((nx[valid], ny[valid]), share[valid], accumulate=True)
-    return out
+        flat.index_put_((torch.where(valid, nx * w + ny, trash),), share,
+                        accumulate=True)
+    return flat[:trash].reshape(h, w)

@@ -627,6 +627,9 @@ class ShardMapExecutor:
                 flags = {ac: act.ghost_flags(padded[ac], plan, tmaps[ac])
                          for ac in order}
                 t2 = time.perf_counter()
+                # analysis: ignore[host-sync] — the sharded active runner's
+                # one declared host read a step: every (channel, shard) count
+                # in one copy; the step_audit contract counts it
                 # the one host read a step: every (channel, shard) count
                 counts = torch.cat([
                     flags[ac].sum(dtype=torch.int32).reshape(1).to(host)
@@ -1009,6 +1012,11 @@ class ShardMapExecutor:
                 if self.halo_mode == "exchange":
                     refresh_rings(grid)
                 new[attr] = [[c[attr][i][j] - per[i, j]
+                              # analysis: ignore[hardcoded-physics] — the
+                              # legacy share-exchanging flow shard step
+                              # (general flows + point scatters); nonlinear IR
+                              # models run _build_ir_runner's registered
+                              # lowering instead
                               + gather_from_padded(grid[i][j], offsets)
                               for j in range(columns)] for i in range(lines)]
             return new

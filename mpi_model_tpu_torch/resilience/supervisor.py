@@ -286,6 +286,9 @@ def supervised_run(
             # and propagates when the run succeeded
             try:
                 getattr(manager, "flush", lambda: None)()
+            # analysis: ignore[broad-except] — unwind boundary: a flush
+            # failure must not mask the run's own in-flight exception (it re-
+            # raises only when the run succeeded)
             except BaseException:
                 if not run_raising:
                     raise
@@ -349,6 +352,9 @@ def _supervise_loop(model, manager, total, every, max_failures, executor,
                                             view=view)
                     if problems:
                         raise HealthError(problems)
+        # analysis: ignore[broad-except] — THE supervisor boundary: any
+        # step/health failure becomes a FailureEvent + rollback; only
+        # max_failures exhaustion re-raises
         # the supervisor boundary: any step or health failure becomes a
         # FailureEvent and a rollback; only exhaustion re-raises
         except Exception as exc:  # noqa: BLE001

@@ -89,6 +89,8 @@ def _runtime_attrs(index: int) -> dict:
 def _smi_clocks(index: int) -> dict:
     """Maximum SM and memory clocks (kHz) from ``nvidia-smi``, or {}."""
     try:
+        # analysis: ignore[raw-transport] — a one-shot nvidia-smi clock query
+        # (the fallback where the runtime does not answer), not wire traffic
         proc = subprocess.run(
             ["nvidia-smi", f"--id={index}",
              "--query-gpu=clocks.max.sm,clocks.max.memory",

@@ -179,6 +179,8 @@ class Tracer:
         try:
             return self._local.state
         except AttributeError:
+            # analysis: ignore[unguarded-shared-mutation] — threading.local
+            # storage: each thread mutates only its own state slot
             st = self._local.state = _ThreadState()
             return st
 
@@ -236,11 +238,18 @@ class Tracer:
 
     def _stream_write_locked(self, s: Span) -> None:
         try:
+            # analysis: ignore[blocking-under-lock] — a buffered ~200-byte
+            # write into the FILE buffer (no syscall except at the bounded
+            # flush below); serializing it under the tracer lock keeps the
+            # JSONL lines whole
             # default=repr: recording a span never raises at the call site;
             # the write under the lock keeps concurrent lines whole
             self._stream.write(json.dumps(s.to_dict(), default=repr) + "\n")
             self._stream_pending += 1
             if self._stream_pending >= self._STREAM_FLUSH_EVERY:
+                # analysis: ignore[blocking-under-lock] — the bounded flush
+                # cadence: one syscall per _STREAM_FLUSH_EVERY spans, the
+                # documented data-at-risk/latency trade
                 self._stream.flush()
                 self._stream_pending = 0
         except (OSError, ValueError) as e:

@@ -2716,3 +2716,54 @@ def test_async_snapshot_is_not_reached_by_a_later_k2_step(tmp_path):
     mgr.flush()
     got = mgr.latest().space.values["value"]
     assert torch.equal(got, want)
+
+
+# -- the step audit on the card (analysis.step_audit) -------------------------
+
+@pytest.mark.cuda
+def test_step_audit_is_clean_on_the_card():
+    """Every contract on the card: no finding, and every kernel route
+    checked (its launches a call and its traced kernel names)."""
+    dev = _card()
+    from mpi_model_tpu_torch.analysis import step_audit as sa
+
+    findings, reports = sa.audit_contracts(device=dev)
+    assert findings == []
+    routes = [r for r in reports if "launches_declared" in r]
+    # K1, K2, K3 vpu and mxu, K3-halo, K4, K4-halo, K5, K6/K7
+    assert len(routes) == 9
+    for r in routes:
+        assert r["launch_check"] == "checked"
+        assert r["launches"] == r["launches_declared"], r
+
+
+@pytest.mark.cuda
+def test_step_audit_catches_an_injected_tolist_on_the_card():
+    """A ``.tolist()`` in a step is no aten operation a dispatch mode sees;
+    the sync debug mode counts it against the contract's declared 0."""
+    dev = _card()
+    from mpi_model_tpu_torch.analysis import step_audit as sa
+
+    x = torch.arange(64, dtype=torch.float32, device=dev)
+
+    def leaky(v):
+        return v * float(len((v * 2).tolist()))
+
+    bad = sa.BuiltStep("injected", leaky, (x,), torch.float32,
+                       x.element_size() * x.numel(), ((0, 1),), 1,
+                       consts_check=False)
+    found, rep = sa.audit_built(bad, dev)
+    assert [f.rule for f in found] == ["step-sync"]
+    assert rep["host_reads_dispatch"] == 0 and rep["host_reads_warned"] >= 1
+    # the same step declared with its one read is clean
+    ok = dataclasses.replace(bad, host_reads=1)
+    assert sa.audit_built(ok, dev)[0] == []
+
+
+@pytest.mark.cuda
+def test_step_audit_without_device_runs_on_the_card():
+    """``device=None`` is the card (the CPU only when asked for)."""
+    _card()
+    from mpi_model_tpu_torch.analysis import run_step_audit
+
+    assert run_step_audit(impls=("dense", "k1_dense")) == []

@@ -657,9 +657,9 @@ def test_each_package_recovers_the_others_fleet_journal(tmp_path, writer):
 
 def test_run_soak_fleet_ledger_complete_on_fake_clock():
     """The open-loop soak through a fleet with the witness armed against
-    JAX's static lock graph: no violation, and every edge the port's fleet
-    shows lies in that graph."""
-    from mpi_model_tpu.analysis.concurrency import static_lock_graph
+    the port's static lock graph: no violation, and every edge the port's
+    fleet shows lies in that graph."""
+    from mpi_model_tpu_torch.analysis.concurrency import static_lock_graph
 
     clock = {"t": 0.0}
 

@@ -7,8 +7,8 @@ transport (a real ``MemberServer`` on a thread over a real socketpair: the
 codec, the framing, the chaos seams and the client path of a child, with
 no subprocess), device ``"cpu"``: the bit-for-bit gate against the
 in-process fleet and the synchronous service, the whole chaos matrix of
-the fleet (8 kinds) under a lockdep witness armed with JAX's static lock
-graph (every edge the port's fleet shows lies in it), the kill-then-wedge
+the fleet (8 kinds) under a lockdep witness armed with the port's static
+lock graph (every edge the port's fleet shows lies in it), the kill-then-wedge
 and torn-journal rows, the wire's own seams (``proc_kill``,
 ``heartbeat_loss``, ``wire_torn``: fence, respawn as generation + 1,
 recovery of every ticket) and the heartbeat, RSS and wire-bytes
@@ -85,17 +85,18 @@ _ALLOWED_GRAPH = None
 
 
 def _allowed_graph():
-    """JAX's static acquisition graph (its concurrency auditor over the JAX
-    package's sources), read once."""
+    """The port's static acquisition graph (its concurrency auditor over
+    the port's sources), read once."""
     global _ALLOWED_GRAPH
     if _ALLOWED_GRAPH is None:
-        from mpi_model_tpu.analysis.concurrency import static_lock_graph
+        from mpi_model_tpu_torch.analysis.concurrency import \
+            static_lock_graph
 
         _ALLOWED_GRAPH = static_lock_graph()
     return _ALLOWED_GRAPH
 
 
-def _assert_edges_in_jax_graph(witness) -> None:
+def _assert_edges_in_static_graph(witness) -> None:
     witness.assert_clean()
     assert witness.edges, "the witness saw no acquisitions"
     assert set(witness.edges) <= _allowed_graph()
@@ -205,7 +206,7 @@ def test_process_fleet_matrix_every_ticket_resolves(kind):
     """Each kind of the fleet's chaos matrix with every member behind the
     wire and the witness armed: every ticket resolves to a counted outcome
     through the codec, with no lock-order violation and every edge in
-    JAX's static graph."""
+    the port's static graph."""
     faults, extra, expect = FLEET_MATRIX[kind]
     extra = dict(extra)
     if "clock" in extra:
@@ -229,7 +230,7 @@ def test_process_fleet_matrix_every_ticket_resolves(kind):
                     failed += 1
         stats = fleet.stats()
         fleet.stop()
-    _assert_edges_in_jax_graph(witness)
+    _assert_edges_in_static_graph(witness)
     assert st.fired, f"{kind}: fault never fired"
     assert served + failed == 4
     assert stats["pending"] == 0
@@ -277,7 +278,7 @@ def test_process_fleet_member_kill_then_wedge():
                 outs2 = [fleet.result(t) for t in wave2]
         stats = fleet.stats()
         fleet.stop()
-    _assert_edges_in_jax_graph(witness)
+    _assert_edges_in_static_graph(witness)
     assert {f["kind"] for f in st1.fired} == {"member_kill"}
     assert "member_wedge" in {f["kind"] for f in st2.fired}
     assert len(outs) == 3 and len(outs2) == 3
@@ -412,7 +413,7 @@ def test_process_fleet_soak_ledger_complete_lockdep_armed():
         rep = run_soak(fleet, scen, arrival_rate_hz=50.0,
                        clock=lambda: clock["t"], sleep=fake_sleep)
         fleet.stop()
-    _assert_edges_in_jax_graph(witness)
+    _assert_edges_in_static_graph(witness)
     assert rep["ledger_complete"] and rep["served"] == 8
     assert rep["member_faults"] == 0
 

@@ -2,12 +2,13 @@
 counterparts of the JAX package's ``tests/test_lockdep.py`` (plain
 primitives when disarmed; edges, inversions, cross-instance same-key
 nesting, unknown edges and ``Condition.wait`` when armed; the deliberate
-Ping/Pong inversion caught by JAX's static layer and by the port's
+Ping/Pong inversion caught by the port's static layer and by its
 witness), then the port's serving locks under the armed witness: the async
 service, manual and threaded under ``run_soak``, serves with zero
-violations, and every edge it shows lies in JAX's
-``mpi_model_tpu.analysis.concurrency.static_lock_graph()`` (imported here
-only), which the witness is armed with.
+violations, and every edge it shows lies in the port's own
+``mpi_model_tpu_torch.analysis.concurrency.static_lock_graph()``, which
+the witness is armed with. That graph equals JAX's edge for edge (the one
+test that imports JAX's).
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from mpi_model_tpu.analysis.concurrency import (lint_concurrency_source,
-                                                static_lock_graph)
-from mpi_model_tpu.analysis.registry import Severity
+from mpi_model_tpu.analysis.concurrency import \
+    static_lock_graph as jax_static_lock_graph
 
 import mpi_model_tpu_torch as mt
+from mpi_model_tpu_torch.analysis.concurrency import (
+    lint_concurrency_source, static_lock_graph)
+from mpi_model_tpu_torch.analysis.registry import Severity
 from mpi_model_tpu_torch.ensemble import (AsyncEnsembleService,
                                           EnsembleService, run_soak)
 from mpi_model_tpu_torch.resilience import lockdep
@@ -35,6 +38,13 @@ SERVING_KEYS = {"EnsembleScheduler._lock", "AsyncEnsembleService._lock_cv",
 @pytest.fixture(scope="module")
 def static_graph():
     return static_lock_graph()
+
+
+def test_the_port_s_static_graph_is_jax_s_edge_for_edge(static_graph):
+    """The port's concurrency audit over its own sources finds the same
+    acquisition edges, over the same lock keys, as JAX's over JAX's."""
+    assert static_graph == jax_static_lock_graph()
+    assert len(static_graph) >= 10
 
 
 @pytest.fixture(autouse=True)
@@ -238,7 +248,7 @@ def test_inversion_fixture_trips_the_runtime_witness():
 
 def test_async_service_serves_clean_against_the_static_graph(static_graph):
     """A witnessed service (built inside the armed block) serves by manual
-    pump with every observed order inside JAX's static graph."""
+    pump with every observed order inside the port's static graph."""
     with lockdep.armed(allowed=static_graph) as w:
         svc = AsyncEnsembleService(model(), steps=4, start=False)
         assert isinstance(svc._lock_cv, lockdep._WitnessLock)

@@ -416,6 +416,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"mpi_model_tpu_torch/ensemble/mesh.py",
             "mpi_model_tpu_torch/io/sharded.py",
             "mpi_model_tpu_torch/parallel/multihost.py"} <= rel
+    assert {f"mpi_model_tpu_torch/analysis/{m}.py" for m in (
+        "__init__", "__main__", "registry", "astlint", "concurrency",
+        "protocol", "step_audit")} <= rel
     for f in files:
         bad = _imports(f) & {"jax", "jaxlib", "mpi_model_tpu", "ml_dtypes"}
         assert not bad, f"{f.relative_to(REPO)} imports {sorted(bad)}"

@@ -622,8 +622,8 @@ def test_acceptance_soak_10x_working_set_lockdep_armed(tmp_path):
     """A working set 10× the residency budget completes with zero sheds,
     bounded measured wake latency, every woken scenario bit for bit its
     never-hibernated twin (the port's and JAX's), under the port's lockdep
-    witness held to JAX's static acquisition graph."""
-    from mpi_model_tpu.analysis.concurrency import static_lock_graph
+    witness held to the port's static acquisition graph."""
+    from mpi_model_tpu_torch.analysis.concurrency import static_lock_graph
 
     p, jp = BOTH[1], BOTH[0]
     n = 20
