@@ -317,9 +317,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    tiles) through ``"active_fused"`` k=8 (K6 + K7), 64 steps, every 8,
    ``keyframe_every`` 8, beside the same run in the full layout; the chain
    cut at 56 with that delta record torn and resumed (it falls back to
-   48): every committed step restores bit for bit the full layout's, every
-   delta record's tiles come from ``last_dirty_tiles``; the keyframe's and
-   each record's bytes and seconds. (d) ``ShardMapExecutor`` on 2×2 (one
+   48): the committed steps ``CKPT_COMPARE`` (one, four and seven deltas
+   deep, and the closing keyframe) restore bit for bit the full layout's,
+   every delta record's tiles come from ``last_dirty_tiles``; the
+   keyframe's and each record's bytes and seconds. (d) ``ShardMapExecutor`` on 2×2 (one
    card), ``"pallas"`` depth 8 (K2), a ``halo`` fault on chunk 1: detected
    as conservation drift, rolled back, bit for bit the unperturbed sharded
    run, K2 × 40. (e) ``migrate_scenario`` of (c)'s grid serial K1 ↔ the 2×2
@@ -508,6 +509,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    declared number of times, and no contract reads the host more than it
    declares; a step with an injected ``.tolist()`` must be caught by
    ``step-sync``. Any finding fails the run.
+6p. the multi-process layer on the one card (``multiprocess_phase``;
+   alone: ``multiprocess_phase_main``; it prints its seconds): (a) two
+   processes share ``cuda:0`` over a gloo group
+   (``multihost.initialize(backend="gloo")``), each owning one row of a
+   2×2 mesh: K2 (``"pallas"``, ``halo_depth=8``) on 16384² f32
+   ``Diffusion(0.1)``, 64 steps, each rank two 8192² shards. Each rank
+   launches K2 16 times (2 shards × 8 chunks; its counter and its
+   profiler trace), conserves, and its gathered grid equals this
+   process's one-process 2×2 run bit for bit (the SHA-256 of its bytes
+   and its total); ms a step (a run's wall less its final gather) against
+   the one-process run's, the exchange's share of the steps and the
+   gather's seconds are printed beside the card's name and power limit;
+   (b) ``multihost.dryrun_two_process`` on the card (JAX's dry-run
+   program: a 2×4 mesh at 16×32, a point share across the process
+   boundary, the three checkpoint layouts, K2 at depth 2 against xla,
+   ``write_output``) and (c) ``multihost.dryrun_supervised_kill(nprocs=2,
+   kill_rank=1)`` at f64 (the victim's rc 17, a bitwise resume from step
+   4), (b) and (c)
+   at once; their master lines are printed. A failed or hung rank fails
+   the phase.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -551,6 +572,9 @@ SOAK_ROUNDS = 3    # the soak's unprofiled rounds a mode, in turns
 SERVE_BENCH = (512, 8, 2000)
 STEPS = 64
 CKPT_STEPS = 64    # phase 6h's runs
+#: the committed steps phase 6h (c) restores from both layouts: one, four
+#: and seven deltas deep, and the closing keyframe
+CKPT_COMPARE = (8, 32, 56, 64)
 CKPT_EVERY = 16    # its dense-layout cadence (a chunk, a save)
 DELTA_EVERY = 8    # its delta-layout cadence and keyframe_every
 ACTIVE_STEPS = 20
@@ -3911,7 +3935,7 @@ def checkpoint_phase(np, torch, mt, dev, root: Path, reset_counts,
             range(0, CKPT_STEPS + 1, DELTA_EVERY))
         same = {s: torch.equal(delta.restore(s).space.values["value"],
                                full.restore(s).space.values["value"])
-                for s in full.steps()}
+                for s in CKPT_COMPARE}
         kinds = [s["kind"] for s in chain_saves]
         sources = {s["dirty_from"] for s in chain_saves
                    if s["kind"] == "delta"}
@@ -3935,9 +3959,10 @@ def checkpoint_phase(np, torch, mt, dev, root: Path, reset_counts,
         print(f"6h (c) delta layout {side}^2 at 0.01, active_fused k=8, "
               f"every {DELTA_EVERY}: records {kinds}; dirty tiles from "
               f"{sorted(sources)}; torn delta at 56 fired {fired}, the "
-              f"resume tried {after_torn} (fell back: {bool(fell)}); every "
-              f"committed step bit for bit the full layout's: "
-              f"{all(same.values())}; launches full run {counts_full}, "
+              f"resume tried {after_torn} (fell back: {bool(fell)}); "
+              f"committed steps {list(CKPT_COMPARE)} bit for bit the full "
+              f"layout's: {all(same.values())}; launches full run "
+              f"{counts_full}, "
               f"delta runs {counts}", flush=True)
         print_saves(first, "(c) chain")
         for r in out["c"]["restores"]:
@@ -4096,7 +4121,8 @@ def checkpoint_phase(np, torch, mt, dev, root: Path, reset_counts,
     out["peak_disk_bytes"] = peak[0]
     out["seconds"] = time.perf_counter() - t_phase
     print(f"6h: {out['seconds']:.1f} s, peak {peak[0]} bytes on disk "
-          f"(cuts: none; {CKPT_STEPS} steps as phase 4)", flush=True)
+          f"(cuts: (c) compares steps {list(CKPT_COMPARE)}; {CKPT_STEPS} "
+          f"steps as phase 4)", flush=True)
     return out
 
 
@@ -7051,6 +7077,268 @@ def analysis_phase_main() -> None:
     print(json.dumps(out, default=repr), flush=True)
 
 
+MP_DEPTH = 8       # phase 6p (a)'s halo depth (8 chunks of 64 steps)
+MP_TIMEOUT_S = 600  # a 6p world's processes, each
+
+
+def _mp_grid(torch, dev, side: int = N):
+    """Phase 6p (a)'s grid: phase 6e's values at ``side``² (16384²), made
+    on the card from ``SEED`` (the same bits in every process)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return 1.0 + 0.1 * torch.rand((side, side), generator=gen, device=dev)
+
+
+def _mp_timed(torch, ex, model, space, reps: int = 3,
+              barrier=None) -> list:
+    """``reps`` runs of ``ex.run_model``, each after ``barrier()`` (the
+    world's, so that the ranks start together): each one's wall seconds,
+    its final gather's (``last_assembly_s``), its exchanges' across
+    processes (``last_exchange_s``) and its steps' (the wall less the
+    gather)."""
+    rows = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        ex.run_model(model, space, STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows.append({"wall_s": wall, "gather_s": ex.last_assembly_s,
+                     "exchange_s": ex.last_exchange_s,
+                     "steps_s": wall - ex.last_assembly_s})
+    return rows
+
+
+def multiprocess_rank(pid: int, port: int, side: int = N) -> None:
+    """One rank of phase 6p (a), in a process of its own on ``cuda:0``
+    (``python3 -c "import chip_smoke; chip_smoke.multiprocess_rank(PID,
+    PORT)"``): joins the gloo world, runs K2 on its row of the 2×2 mesh of
+    ``side``² (16384²), and prints its row as its last line."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mpi_model_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=2,
+                         process_id=pid, backend="gloo")
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor, exchange_rings,
+                                              make_mesh_2d, shard_space)
+
+    dev = torch.device("cuda")
+    space = mt.CellularSpace({"value": _mp_grid(torch, dev, side)}, side,
+                             side)
+    model = mt.Model(mt.Diffusion(0.1))
+    mesh = make_mesh_2d(2, 2)  # this process's card at its two positions
+    check(mesh.local_cells() == [(pid, 0), (pid, 1)],
+          f"6p (a) rank {pid}: positions {mesh.local_cells()}")
+    ex = ShardMapExecutor(mesh, "pallas", halo_depth=MP_DEPTH)
+    model.execute(space, ex, steps=MP_DEPTH)  # loads K2's library
+    setup_s = time.perf_counter() - t0
+    fs.reset_launches()
+    (res, rep), names, ms = traced_kernels(
+        torch, lambda: model.execute(space, ex, steps=STEPS), with_ms=True)
+    launched = kernel_launches()["fused_stencil_halo"]
+    traced = sum(n for k, n in names.items() if "fused_stencil_halo" in k)
+    k2_ms = sum(t for k, t in ms.items() if "fused_stencil_halo" in k)
+    grid = res.values["value"]
+    ok = bool(torch.isfinite(grid).all())
+    row = {"rank": pid, "positions": mesh.local_cells(),
+           "launches": launched, "traced_launches": traced,
+           "kernels": {k: n for k, n in names.items() if "fused" in k},
+           "k2_device_ms_per_launch": k2_ms / max(traced, 1),
+           "impl": rep.impl, "rank_id": rep.rank_id, "finite": ok,
+           "conservation_error": rep.conservation_error(),
+           "total": float(res.total("value")),
+           "sha256": hashlib.sha256(
+               grid.cpu().numpy().tobytes()).hexdigest(),
+           "setup_s": setup_s}
+    del res, grid
+    row["runs"] = _mp_timed(torch, ex, model, space,
+                            barrier=lambda: multihost.sync("6p-timed"))
+    # the same steps with no traffic (every ring zeros, wrong at the seams):
+    # what sharing the card costs without the exchange
+    zero = ShardMapExecutor(mesh, "pallas", halo_mode="zero",
+                            halo_depth=MP_DEPTH)
+    row["zero_halo_runs"] = _mp_timed(
+        torch, zero, model, space, reps=2,
+        barrier=lambda: multihost.sync("6p-zero"))
+    # one chunk's exchange alone (no kernel queued on either rank): the
+    # staging and gloo's transfer, without waiting on the peer's compute
+    shards = shard_space(space, mesh)["value"]
+    alone = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        multihost.sync("6p-exchange")
+        t1 = time.perf_counter()
+        exchange_rings(shards, MP_DEPTH)
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - t1)
+    row["exchange_alone_ms"] = statistics.median(alone) * 1e3
+    row["process_s"] = time.perf_counter() - t0
+    print(json.dumps(row), flush=True)
+
+
+def multiprocess_phase(np, torch, mt, dev, card_line: str) -> dict:
+    """Phase 6p: the multi-process layer on the one card (the module
+    docstring). Returns its rows."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor, make_mesh_2d,
+                                              multihost)
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card_line}
+    here = Path(__file__).resolve().parent
+
+    # -- (a) K2 at full width, two processes against one --------------------
+    space = mt.CellularSpace({"value": _mp_grid(torch, dev)}, N, N)
+    model = mt.Model(mt.Diffusion(0.1))
+    one = ShardMapExecutor(make_mesh_2d(2, 2, devices=[dev] * 4), "pallas",
+                           halo_depth=MP_DEPTH)
+    res, rep = model.execute(space, one, steps=STEPS)
+    want = {"sha256": hashlib.sha256(
+        res.values["value"].cpu().numpy().tobytes()).hexdigest(),
+        "total": float(res.total("value")),
+        "conservation_error": rep.conservation_error()}
+    del res
+    want["runs"] = _mp_timed(torch, one, model, space)
+    del space, one
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter()
+    port = multihost.probe_free_port()
+    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.multiprocess_rank({pid}, {port})")
+    outs = multihost._launch_workers(
+        [code.format(root=str(here), pid=pid, port=port) for pid in (0, 1)],
+        MP_TIMEOUT_S)
+    for pid, (rc, o, e) in enumerate(outs):
+        check(rc == 0, f"6p (a): rank {pid} failed (rc={rc}):\n"
+                       f"{o[-2000:]}\n{e[-4000:]}")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for _, o, _ in outs]
+    out["a"] = {"one_process": want, "ranks": ranks,
+                "seconds": time.perf_counter() - t_a}
+    one_step_ms = statistics.median(
+        r["steps_s"] for r in want["runs"]) / STEPS * 1e3
+    for r in ranks:
+        step_ms = statistics.median(
+            x["steps_s"] for x in r["runs"]) / STEPS * 1e3
+        share = statistics.median(x["exchange_s"] / x["steps_s"]
+                                  for x in r["runs"])
+        gather = statistics.median(x["gather_s"] for x in r["runs"])
+        zero_ms = statistics.median(
+            x["steps_s"] for x in r["zero_halo_runs"]) / STEPS * 1e3
+        r.update(step_ms=step_ms, vs_one_process=step_ms / one_step_ms,
+                 zero_halo_step_ms=zero_ms,
+                 exchange_share=share, gather_s_median=gather,
+                 exchange_ms_per_chunk=statistics.median(
+                     x["exchange_s"] for x in r["runs"])
+                 / (STEPS // MP_DEPTH) * 1e3)
+        print(f"6p (a) rank {r['rank']} of 2 on {card_line}: K2 "
+              f"{N}x{N} 2x2 depth {MP_DEPTH}, positions {r['positions']}: "
+              f"launches {r['launches']} (traced {r['traced_launches']}), "
+              f"|d|={r['conservation_error']:.3e}, sha256 "
+              f"{r['sha256'][:16]}.. (one process "
+              f"{want['sha256'][:16]}..), {step_ms:.3f} ms a step "
+              f"({r['vs_one_process']:.3f}x the one-process "
+              f"{one_step_ms:.3f} ms; with zero rings {zero_ms:.3f} ms), "
+              f"exchange {share:.4f} of the steps "
+              f"({r['exchange_ms_per_chunk']:.3f} ms a chunk; alone, with "
+              f"no kernel queued, {r['exchange_alone_ms']:.3f} ms), final "
+              f"gather {gather:.3f} s, K2 {r['k2_device_ms_per_launch']:.3f} "
+              f"ms a launch (traced), set-up {r['setup_s']:.1f} s, "
+              f"process {r['process_s']:.1f} s", flush=True)
+        check(r["launches"] == 2 * (STEPS // MP_DEPTH)
+              and r["traced_launches"] == r["launches"],
+              f"6p (a) rank {r['rank']}: K2 launched {r['launches']} "
+              f"(traced {r['traced_launches']}), expected "
+              f"{2 * (STEPS // MP_DEPTH)}")
+        check(r["impl"] == "pallas" and r["finite"]
+              and r["rank_id"] == r["rank"],
+              f"6p (a) rank {r['rank']}: {r}")
+        check(r["sha256"] == want["sha256"] and r["total"] == want["total"],
+              f"6p (a) rank {r['rank']}: the grid is not the one-process "
+              f"run's: {r['sha256']} {r['total']!r} against "
+              f"{want['sha256']} {want['total']!r}")
+    one_gather = statistics.median(x["gather_s"] for x in want["runs"])
+    print(f"6p (a) one process, 2x2 on {card_line}: {one_step_ms:.3f} ms a "
+          f"step, assembly {one_gather:.3f} s; two ranks' phase "
+          f"{out['a']['seconds']:.1f} s", flush=True)
+
+    # -- (b) JAX's dry-run program and (c) the rank-death rig, at once -------
+    t_b = time.perf_counter()
+
+    def timed(fn, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(**kw), time.perf_counter() - t0, None
+        except (RuntimeError, ValueError, subprocess.TimeoutExpired) as e:
+            # a failed rank, a refused argument or a hung world: the
+            # phase's result, reported with its own text, then failed
+            return None, time.perf_counter() - t0, f"{type(e).__name__}: {e}"
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        fb = pool.submit(timed, multihost.dryrun_two_process, device="cuda",
+                         timeout=MP_TIMEOUT_S)
+        fc = pool.submit(timed, multihost.dryrun_supervised_kill, nprocs=2,
+                         kill_rank=1, device="cuda", timeout=MP_TIMEOUT_S)
+        (line_b, s_b, err_b), (line_c, s_c, err_c) = fb.result(), fc.result()
+    out["b"] = {"line": line_b, "seconds": s_b, "error": err_b}
+    out["c"] = {"line": line_c, "seconds": s_c, "error": err_c}
+    print(f"6p (b) dryrun_two_process on {card_line}: {line_b or err_b} "
+          f"({s_b:.1f} s)", flush=True)
+    print(f"6p (c) dryrun_supervised_kill(nprocs=2, kill_rank=1) on "
+          f"{card_line}: "
+          f"{line_c or err_c} ({s_c:.1f} s)", flush=True)
+    check(line_b is not None and all(f in line_b for f in (
+        "MASTER ok: procs=2", "ckpt=saved", "sharded_ckpt=ok",
+        "async_ckpt=ok", "pallas_deep_halo=ok")), f"6p (b) failed: {err_b}")
+    check(line_c is not None and all(f in line_c for f in (
+        "MASTER ok: procs=2", "resumed_from=4", "final_step=10",
+        "conservation_err=0.000e+00", "bitwise_resume=ok")),
+        f"6p (c) failed: {err_c}")
+    out["bc_seconds"] = time.perf_counter() - t_b
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6p: {out['seconds']:.1f} s ((a) {out['a']['seconds']:.1f} s "
+          f"for the two ranks, (b)+(c) {out['bc_seconds']:.1f} s)",
+          flush=True)
+    return out
+
+
+def multiprocess_phase_main() -> None:
+    """Phase 6p alone (``python3 -c "import chip_smoke;
+    chip_smoke.multiprocess_phase_main()"``): builds K2's source, the one
+    kernel the phase runs (or loads it from the build directory, where its
+    processes find it), runs ``multiprocess_phase`` on the card, writes
+    ``chiprun_out/chip_smoke_6p.json`` and prints it as its last line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.ops import _build
+
+    _build.load("fused_stencil")
+    out = multiprocess_phase(np, torch, mt, torch.device("cuda"),
+                             smi_card_line(torch.cuda.get_device_name(0)))
+    out["process_seconds"] = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6p.json").write_text(
+        json.dumps(out, indent=1, default=repr))
+    print(json.dumps(out, default=repr), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8547,6 +8835,10 @@ def main() -> int:
     print(f"6o: {analysis['seconds_total']:.1f} s (its process "
           f"{analysis['process_seconds']:.1f} s)", flush=True)
 
+    # -- 6p. the multi-process layer: two processes sharing the card ---------
+    torch.cuda.empty_cache()
+    multiproc = multiprocess_phase(np, torch, mt, dev, card_line)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -8783,6 +9075,9 @@ def main() -> int:
         if kname == "K2":
             # phase 6n (b)'s path: the cut and resumed per-shard run
             entry["launches_6n_b"] = meshes["b"]["k2_launches"]
+            # phase 6p (a)'s path: each of two processes' counted run
+            entry["launches_6p"] = [r["launches"]
+                                    for r in multiproc["a"]["ranks"]]
         entries.append(entry)
     k67_row = next(r for r in sharded_active["runs"] if r["frac"] == 0.05
                    and r["mesh"] == "2x2" and r["impl"] == "active_fused")
@@ -8951,6 +9246,7 @@ def main() -> int:
          "checkpoint": ckpt, "ir": ir, "observability": observability,
          "fleet": fleet, "tiering": tiering, "meshes": meshes,
          "ladder_formats": ladder, "analysis": analysis,
+         "multiprocess": multiproc,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -477,7 +477,7 @@ def _sharded_route(name, device, model, space, impl, kernels, launches,
         name, fn, (space,), space.dtype, _grid_nbytes(space),
         model.offsets, ROUTE_SUBSTEPS, substeps=ROUTE_SUBSTEPS,
         host_reads=2, sync_unit="call", units=1,
-        reads_at="mpi_model_tpu_torch/parallel/executors.py:295",
+        reads_at="mpi_model_tpu_torch/parallel/executors.py:316",
         consts_check=False, launches=launches, kernels=kernels, route=route)
 
 

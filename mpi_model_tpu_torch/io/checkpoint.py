@@ -22,9 +22,12 @@ per-rank state dump and the master's merge
 - ``run_checkpointed``, the chunked loop whose restart yields the state of
   an uninterrupted run bit for bit.
 
-One process drives every device, so it is the master: a channel reaches the
-host with one device-to-host copy and the process writes the file (the JAX
-package's ``gather_global``/``master_only`` have no work here). Restore
+A channel reaches the host with one device-to-host copy. In a world of
+several processes (``parallel.multihost``) every process holds the whole
+state (the sharded executor returns global tensors on every process, so
+the JAX package's ``gather_global`` of a channel is its host copy): the
+master copies and writes under ``master_only``, and every process reaches
+the barrier, as the JAX package's ``save_checkpoint`` does. Restore
 places each channel on the device the caller names (the card by default).
 The per-shard layout (``layout="sharded"``, ``io.sharded``) writes one
 piece per mesh block and can write on a thread of its own
@@ -164,10 +167,24 @@ def _geom_meta(space: CellularSpace) -> dict:
 def save_checkpoint(path: str, space: CellularSpace, step: int = 0,
                     extra: Optional[dict] = None, *,
                     timings: Optional[dict] = None) -> str:
-    """Write ``space`` (and its step counter) to ``path`` atomically.
-    ``timings``, when given, receives the seconds of the device-to-host
-    copies (``copy_s``), the CRCs (``crc_s``) and the write (``write_s``),
-    and the file's ``bytes``."""
+    """Write ``space`` (and its step counter) to ``path`` atomically: the
+    master writes, and every process reaches the barrier even when the
+    master's write fails (``multihost.master_only``). ``timings``, when
+    given, receives the master's seconds of the device-to-host copies
+    (``copy_s``), the CRCs (``crc_s``) and the write (``write_s``), and the
+    file's ``bytes``."""
+    from ..parallel.multihost import master_only
+
+    with master_only("checkpoint-save") as master:
+        if master:
+            _write_checkpoint(path, space, step, extra, timings)
+    return path
+
+
+def _write_checkpoint(path: str, space: CellularSpace, step: int,
+                      extra: Optional[dict],
+                      timings: Optional[dict]) -> None:
+    """The master's part of ``save_checkpoint``."""
     meta: dict[str, Any] = {
         "format": FORMAT_VERSION,
         "step": int(step),
@@ -201,7 +218,6 @@ def save_checkpoint(path: str, space: CellularSpace, step: int = 0,
     if timings is not None:
         timings.update(copy_s=copy_s, crc_s=crc_s, write_s=write_s,
                        bytes=os.path.getsize(path))
-    return path
 
 
 def load_checkpoint(path: str, device=None) -> Checkpoint:

@@ -371,23 +371,31 @@ class DeltaChain:
         path = self.record_path(step, kind)
         entry = {"step": step, "kind": kind, "file": os.path.basename(path),
                  "base": meta["base"]}
-        os.makedirs(self.directory, exist_ok=True)
-        t0 = time.perf_counter()
-        write_chain_record(path, meta, payload)
-        self._write_manifest(keep + [entry])
-        write_s = time.perf_counter() - t0
-        # chaos seam: a "torn" fault pinned to part "chain" damages the
-        # commit record itself
-        inject.checkpoint_torn(self.manifest_path, step, part="chain")
-        # retracted records and a stale other-kind file at this step are no
-        # longer referenced
-        other = self.record_path(
-            step, "delta" if kind == "keyframe" else "keyframe")
-        for p in [os.path.join(self.directory, r["file"])
-                  for r in dropped] + [other]:
-            if os.path.exists(p) and os.path.abspath(p) != \
-                    os.path.abspath(path):
-                os.unlink(p)
+        from ..parallel.multihost import master_only
+
+        write_s = 0.0
+        # every process holds the whole state and keeps the writer's copy;
+        # the master writes, and every process reaches the barrier
+        with master_only("delta-ckpt-save") as master:
+            if master:
+                os.makedirs(self.directory, exist_ok=True)
+                t0 = time.perf_counter()
+                write_chain_record(path, meta, payload)
+                self._write_manifest(keep + [entry])
+                write_s = time.perf_counter() - t0
+                # chaos seam: a "torn" fault pinned to part "chain"
+                # damages the commit record itself
+                inject.checkpoint_torn(self.manifest_path, step,
+                                       part="chain")
+                # retracted records and a stale other-kind file at this
+                # step are no longer referenced
+                other = self.record_path(
+                    step, "delta" if kind == "keyframe" else "keyframe")
+                for p in [os.path.join(self.directory, r["file"])
+                          for r in dropped] + [other]:
+                    if os.path.exists(p) and os.path.abspath(p) != \
+                            os.path.abspath(path):
+                        os.unlink(p)
         self._last_values = {k: self._keep(v) for k, v in values.items()}
         self._last_step = step
         if timings is not None:

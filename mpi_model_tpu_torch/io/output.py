@@ -71,12 +71,21 @@ def write_output(directory: str, space: CellularSpace,
                  fmt: str = "{:.6g}",
                  timestamp: Optional[str] = None) -> str:
     """Per-partition dumps and the merged master file; returns the merged
-    file's path. ``partitions`` defaults to the reference's 1-D row
-    striping over ``comm_size`` ranks (``Model.hpp:62-76``)."""
+    file's path (the master's name, on every process). ``partitions``
+    defaults to the reference's 1-D row striping over ``comm_size`` ranks
+    (``Model.hpp:62-76``)."""
+    from ..parallel.multihost import broadcast_str, master_only
+
     if partitions is None:
         partitions = row_partitions(space.dim_x, space.dim_y, comm_size)
-    host = space.with_values({k: v.cpu() for k, v in space.values.items()})
-    dumps = [write_partition_dump(directory, host.slice_partition(p),
-                                  p.rank, attr, fmt) for p in partitions]
-    return merge_dumps(os.path.join(directory, output_filename(timestamp)),
-                       dumps)
+    out_path = os.path.join(directory,
+                            broadcast_str(output_filename(timestamp)))
+    with master_only("output-write") as master:
+        if master:
+            host = space.with_values({k: v.cpu()
+                                      for k, v in space.values.items()})
+            dumps = [write_partition_dump(directory, host.slice_partition(p),
+                                          p.rank, attr, fmt)
+                     for p in partitions]
+            merge_dumps(out_path, dumps)
+    return out_path

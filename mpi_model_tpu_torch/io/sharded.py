@@ -18,18 +18,24 @@ them: given the run's mesh (``parallel.mesh.Mesh``) the pieces are the mesh
 positions' blocks (``shard_bounds``), one per distinct block (a ``spec``
 that replicates an axis writes each block once, as the JAX package's
 ``replica_id`` dedup does); without a mesh each channel is one piece, as
-the JAX package writes an unsharded array. The port is one process
-(``parallel.multihost``), so it writes ``shards_p00000.npz`` and is the
-master that commits.
+the JAX package writes an unsharded array. Each process writes its own
+``shards_p{rank:05d}.npz`` with the pieces of its own mesh positions (in a
+one-process run, ``shards_p00000.npz`` with every piece; without a mesh the
+master writes the whole channels and the others empty files); the
+manifest's ``process_count`` is the world's size, and the master commits
+after the world's vote (``all_agree``) and barrier
+(``parallel.multihost``).
 
 Restore is assembly: without a mesh, whole channels on ``device`` (the card
 by default); with a mesh (and an optional ``spec``), each position reads
 only the pieces overlapping its block, onto its own device, and the blocks
 are assembled into the same global tensor on ``device`` (the mesh's first
-device by default). A ``spec`` is one tuple of the mesh's axis names
-(``None`` for a dimension that is not cut), or a mapping from channel to
-such a tuple: the port's ``PartitionSpec``. Every piece read is checked
-against its CRC32.
+device by default). Across processes each process reads the blocks of its
+own positions and receives the others' from their owners (one broadcast a
+block), so every process restores the whole state. A ``spec`` is one
+tuple of the mesh's axis names (``None`` for a dimension that is not cut),
+or a mapping from channel to such a tuple: the port's ``PartitionSpec``.
+Every piece read is checked against its CRC32.
 
 A save is staged (the pieces copied to the host and checksummed, the stale
 manifest retracted), written (``StagedShardSave.write``, any thread) and
@@ -86,10 +92,10 @@ def _channel_spec(spec: Spec, name: str, mesh, ndim: int) -> tuple:
 
 
 def _regions(shape: tuple, mesh, spec: tuple) -> list:
-    """``[(device, start, sub_shape)]``: each distinct block the mesh
-    positions hold of a ``shape`` array under ``spec``, once, at the first
-    position (row-major) that holds it. Raises the JAX package's error for
-    a dimension that an axis extent does not divide."""
+    """``[((i, j), device, start, sub_shape)]``: each distinct block the
+    mesh positions hold of a ``shape`` array under ``spec``, once, at the
+    first position (row-major) that holds it. Raises the JAX package's
+    error for a dimension that an axis extent does not divide."""
     lines, columns = mesh.grid_shape
     extent = dict(zip(mesh.axis_names, (lines, columns)))
     for d, a in enumerate(spec):
@@ -115,7 +121,8 @@ def _regions(shape: tuple, mesh, spec: tuple) -> list:
             if key in seen:
                 continue
             seen.add(key)
-            out.append((mesh.device(i, j), tuple(start), tuple(sub)))
+            out.append(((i, j), mesh.device(i, j), tuple(start),
+                        tuple(sub)))
     return out
 
 
@@ -189,11 +196,15 @@ def stage_checkpoint_sharded(path: str, space: CellularSpace, step: int = 0,
     for name, t in space.values.items():
         shape = tuple(t.shape)
         channels[name] = {"dtype": dtype_name(t.dtype), "shape": list(shape)}
-        regions = ([(t.device, (0,) * len(shape), shape)] if mesh is None
-                   else _regions(shape, mesh,
-                                 _channel_spec(spec, name, mesh,
-                                               len(shape))))
-        for _, start, sub in regions:
+        # this process's pieces: its own positions' blocks, or without a
+        # mesh the whole channel on the master
+        if mesh is None:
+            regions = [((0,) * len(shape), shape)] if proc == 0 else []
+        else:
+            regions = [(start, sub) for pos, _, start, sub in _regions(
+                shape, mesh, _channel_spec(spec, name, mesh, len(shape)))
+                if mesh.owner(*pos) == proc]
+        for start, sub in regions:
             raw = _host_piece(t, start, sub)
             key = f"d:{len(pieces)}"
             pieces.append({"channel": name, "start": list(start),
@@ -401,12 +412,15 @@ def load_checkpoint_sharded(path: str, *, mesh=None, spec: Spec = None,
     assembled into the global tensor on ``device`` (the mesh's first device
     by default). Raises ``CheckpointCorruptionError`` for a torn manifest
     or shard file, a piece that fails its CRC32, or a coverage gap."""
+    from ..parallel import multihost
+
     manifest = _read_manifest(path)
+    proc = multihost.process_index()
     if mesh is None:
         dev = resolve_device(device)
     else:
         dev = (torch.device(device) if device is not None
-               else mesh.device(0, 0))
+               else mesh.home_device())
     readers = []
     try:
         for fn in manifest["files"]:
@@ -422,13 +436,22 @@ def load_checkpoint_sharded(path: str, *, mesh=None, spec: Spec = None,
                                           dev)
                 continue
             out = torch.empty(shape, dtype=torch_dtype(dt), device=dev)
-            for pos_dev, start, sub in _regions(
+            for pos, pos_dev, start, sub in _regions(
                     shape, mesh, _channel_spec(spec, name, mesh,
                                                len(shape))):
-                block = _assemble(readers, name, dt, start, sub)
-                piece = from_bytes(block.view(np.uint8), dt, sub, pos_dev)
-                out[tuple(slice(s, s + n)
-                          for s, n in zip(start, sub))].copy_(piece)
+                dst = out[tuple(slice(s, s + n) for s, n in zip(start, sub))]
+                if mesh.owner(*pos) == proc:
+                    block = _assemble(readers, name, dt, start, sub)
+                    piece = from_bytes(block.view(np.uint8), dt, sub,
+                                       pos_dev)
+                else:
+                    piece = torch.empty(sub, dtype=out.dtype)
+                if multihost.process_count() > 1:
+                    # the owner's block reaches every process
+                    raw = multihost.broadcast_bytes(
+                        multihost.as_bytes(piece), mesh.owner(*pos))
+                    piece = multihost.from_bytes(raw, out.dtype, sub)
+                dst.copy_(piece)
             values[name] = out
     finally:
         for rd in readers:

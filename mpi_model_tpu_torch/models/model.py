@@ -82,12 +82,6 @@ def _launches_since(before: dict[str, int]) -> dict[str, int]:
     return {k: v - before[k] for k, v in kernel_launches().items()}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch/CUDA package yet; see "
-        "ROADMAP.md for the queue of work")
-
-
 class ConservationError(AssertionError):
     """Mass-conservation contract violated."""
 
@@ -919,9 +913,12 @@ class Model:
                          for k in out_space.values}
                 last_exec = [float(f.execute(out_space))
                              for f in self.flows]
+        from ..parallel.multihost import process_index
+
         report = Report(
             comm_size=getattr(executor, "comm_size", 1),
-            rank_id=0,
+            # this process's rank: the reference's comm_rank (Main.cpp:23)
+            rank_id=process_index(),
             steps=num_steps,
             initial_total=initial,
             final_total=final,

@@ -24,11 +24,14 @@ includes, with ``UNIT_FLAGS`` (FMA contraction off: K4 equals its plain
 version bit for bit). The library's name hashes the text, those headers and
 the flags, so identical programs share one library across processes and
 runs. ``build_all`` takes units too, and builds them beside the sources.
+A build holds a file lock beside its library, so processes that need one
+library at once compile it once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -211,7 +214,14 @@ def _record(name: str, out: Path, compile_to) -> None:
     ptxas = ""
     if not cached:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        ptxas = compile_to(out)
+        # processes that build one library at once (the ranks of a
+        # multi-process run): the first compiles under the file lock, the
+        # others wait for it and load its library
+        with open(out.with_suffix(".lock"), "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            cached = out.is_file()
+            if not cached:
+                ptxas = compile_to(out)
     build_info[name] = {"seconds": time.perf_counter() - t0,
                         "cached": cached, "ptxas": ptxas.strip(),
                         "library": str(out)}

@@ -56,6 +56,22 @@ All-frozen-point models at ``halo_depth == 1`` under ``xla``, ``auto``,
 ``run_model`` takes the global space and returns global tensors, assembled
 once per call on the mesh's first device (one grid copy per run).
 
+Across processes (a ``torch.distributed`` world, ``parallel.multihost``;
+the mesh's positions laid over the ranks, ``parallel.mesh``) every process
+runs ``run_model`` on the same global space and steps only its own
+positions. Every runner above crosses processes: each exchange is one
+collective (``halo.exchange_rings`` / ``pad_rings`` / ``refresh_rings``,
+whose remote pieces ride one ``batch_isend_irecv``), so the rings are the
+only traffic a step; the sharded active runners gather every shard's count
+over the world before any shard chooses its pass; and ``run_model``
+returns the global tensors on every process, with one all-gather a channel
+a run (``last_assembly_s`` covers it). So ``Model.execute``, its ``Report``
+and the conservation check run unchanged on every process, and each
+process's grid is the one-process run's bit for bit. ``last_exchange_s`` is
+the host seconds the last run spent in exchanges that crossed processes
+(after a synchronize of this process's devices, so a chunk's compute is
+not counted in them).
+
 Nonlinear Flow IR models (``ir.FlowIRModel``; linear ones take the paths
 above through their ``Diffusion`` flows view) run ``_build_ir_runner`` under
 ``"xla"`` or ``"auto"`` at ``halo_depth == max(1, max_footprint)``: one
@@ -91,8 +107,9 @@ from ..ops.point_kernel import build_point_plans, shard_point_runner
 from ..ops.stencil import neighbor_counts
 from ..resilience import inject
 from ..utils.tracing import get_tracer
-from .halo import (exchange_ring, gather_from_padded, pad_with_halo_1d,
-                   pad_with_halo_2d, refresh_rings, zero_ring)
+from . import multihost
+from .halo import (exchange_rings, gather_from_padded, pad_rings,
+                   refresh_rings, zero_ring)
 from .mesh import Mesh, ShardGrid, assemble, shard_bounds, shard_space
 
 Values = dict[str, torch.Tensor]
@@ -146,6 +163,9 @@ class ShardMapExecutor:
         #: seconds the last run spent assembling its global tensors (host
         #: clock, after a synchronize of the mesh's devices)
         self.last_assembly_s: Optional[float] = None
+        #: host seconds the last run spent in exchanges across processes
+        #: (0.0 in one process)
+        self.last_exchange_s: float = 0.0
         self._cache: dict = {}
         self._zero_rings: dict = {}
 
@@ -274,6 +294,7 @@ class ShardMapExecutor:
             self._cache[key] = entry
         plan_kind, runner = entry
         shards = shard_space(space, self.mesh)
+        self.last_exchange_s = 0.0
         before = kernel_launches()
         if fresh and plan_kind in ("diffusion", "field", "composed"):
             # a kernel's library is built or loaded at its first launch
@@ -291,7 +312,7 @@ class ShardMapExecutor:
         else:
             self._record_backend_report(plan_kind, int(num_steps), ran,
                                         getattr(runner, "form", None))
-        first = self.mesh.device(0, 0)
+        first = self.mesh.home_device()
         self._synchronize()
         t0 = time.perf_counter()
         values = {k: assemble(g, first) for k, g in out.items()}
@@ -391,28 +412,47 @@ class ShardMapExecutor:
 
     # -- rings ---------------------------------------------------------------
 
-    def _ring(self, grid: ShardGrid, i: int, j: int, depth: int) -> dict:
-        """Shard (i, j)'s depth-``depth`` ring: exchanged, or under
-        ``halo_mode="zero"`` one cached all-zero ring per shape (the
-        kernels never write a ring)."""
-        if self.halo_mode == "exchange":
-            return exchange_ring(grid, i, j, depth)
-        t = grid[i][j]
-        key = (tuple(t.shape), t.dtype, t.device, depth)
-        ring = self._zero_rings.get(key)
-        if ring is None:
-            ring = zero_ring(t, depth)
-            self._zero_rings[key] = ring
-        return ring
+    def _exchanged(self, fn, *args):
+        """``fn(*args)``, an exchange; across processes its host seconds
+        (after a synchronize, so queued compute is not counted) add to
+        ``last_exchange_s``."""
+        if not self.mesh.multiprocess:
+            return fn(*args)
+        self._synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.last_exchange_s += time.perf_counter() - t0
+        return out
 
-    def _pad(self, grid: ShardGrid, i: int, j: int, depth: int = 1,
-             one_d: bool = False) -> torch.Tensor:
-        """Shard (i, j) padded with its depth-``depth`` halo."""
+    def _rings(self, grid: ShardGrid, depth: int) -> dict:
+        """Every held shard's depth-``depth`` ring, ``{(i, j): ring}``:
+        exchanged, or under ``halo_mode="zero"`` one cached all-zero ring
+        per shape (the kernels never write a ring)."""
+        if self.halo_mode == "exchange":
+            return self._exchanged(exchange_rings, grid, depth)
+        rings = {}
+        for i, j in self.mesh.local_cells():
+            t = grid[i][j]
+            key = (tuple(t.shape), t.dtype, t.device, depth)
+            ring = self._zero_rings.get(key)
+            if ring is None:
+                ring = zero_ring(t, depth)
+                self._zero_rings[key] = ring
+            rings[i, j] = ring
+        return rings
+
+    def _pads(self, grid: ShardGrid, depth: int = 1,
+              one_d: bool = False) -> dict:
+        """Every held shard padded with its depth-``depth`` halo,
+        ``{(i, j): padded}``."""
         if self.halo_mode == "zero":
-            return F.pad(grid[i][j], (depth,) * 4)
-        if one_d:
-            return pad_with_halo_1d(grid, i, depth)
-        return pad_with_halo_2d(grid, i, j, depth)
+            return {(i, j): F.pad(grid[i][j], (depth,) * 4)
+                    for i, j in self.mesh.local_cells()}
+        return self._exchanged(pad_rings, grid, depth, one_d)
+
+    def _refresh(self, grid: ShardGrid) -> None:
+        """``refresh_rings`` of ring-1 padded buffers (an exchange)."""
+        self._exchanged(refresh_rings, grid)
 
     # -- the kernel runner ---------------------------------------------------
 
@@ -453,7 +493,7 @@ class ShardMapExecutor:
         gshape = (space.dim_x, space.dim_y)
         origins = self._origins(space, lh, lw)
         offsets = model.offsets
-        cells = [(i, j) for i in range(lines) for j in range(columns)]
+        cells = self.mesh.local_cells()
         if kind == "field":
             stepper = self._field_steppers(model, space, (lh, lw))
             written = tuple(stepper(depth).program.outputs)
@@ -466,17 +506,18 @@ class ShardMapExecutor:
             buffers, then the two swap."""
             if kind == "field":
                 st = stepper(ns)
+                rings = {k: self._rings(g, ns) for k, g in cur.items()}
                 for i, j in cells:
-                    rings = {k: self._ring(g, i, j, ns)
-                             for k, g in cur.items()}
-                    st.halo({k: g[i][j] for k, g in cur.items()}, rings,
+                    st.halo({k: g[i][j] for k, g in cur.items()},
+                            {k: r[i, j] for k, r in rings.items()},
                             origins[i][j], gshape,
                             out={a: spare[a][i][j] for a in written})
             else:
                 for attr, rate in live.items():
                     g = cur[attr]
+                    rings = self._rings(g, ns)
                     for i, j in cells:
-                        ring = self._ring(g, i, j, ns)
+                        ring = rings[i, j]
                         if kind == "composed":
                             composed_halo_step(
                                 g[i][j], ring, origins[i][j], gshape, rate,
@@ -494,8 +535,8 @@ class ShardMapExecutor:
 
         def run(shards: Shards, n: int) -> Shards:
             cur = dict(shards)
-            spare = {a: [[torch.empty_like(t) for t in row]
-                         for row in cur[a]] for a in written}
+            spare = {a: [[None if t is None else torch.empty_like(t)
+                          for t in row] for row in cur[a]] for a in written}
             q, r = divmod(n, depth)
             for ns in [depth] * q + ([r] if r else []):
                 chunk(cur, spare, ns)
@@ -512,15 +553,16 @@ class ShardMapExecutor:
         lines, columns, lh, lw, _ = self._geometry(space)
         run = shard_point_runner(plans, space.dtype, lh, lw)
 
+        cells = self.mesh.local_cells()
+
         def runner(shards: Shards, n: int) -> Shards:
             out = {k: [[None] * columns for _ in range(lines)]
                    for k in shards}
-            for i in range(lines):
-                for j in range(columns):
-                    vals = run({k: g[i][j] for k, g in shards.items()},
-                               i * lh, j * lw, n)
-                    for k, t in vals.items():
-                        out[k][i][j] = t
+            for i, j in cells:
+                vals = run({k: g[i][j] for k, g in shards.items()},
+                           i * lh, j * lw, n)
+                for k, t in vals.items():
+                    out[k][i][j] = t
             return out
 
         return runner
@@ -578,15 +620,19 @@ class ShardMapExecutor:
         gshape = space.global_shape
         dtype = space.dtype
         origins = self._origins(space, lh, lw)
-        cells = [(i, j) for i in range(lines) for j in range(columns)]
-        nshards = len(cells)
+        cells = self.mesh.local_cells()
+        nshards = self.mesh.size
         counts_pad = {}
         for i, j in cells:
             row0, col0 = origins[i][j]
             counts_pad[i, j] = torch.clamp(neighbor_counts(
                 (lh + 2, lw + 2), offsets, (row0 - 1, col0 - 1), gshape,
                 dtype, self.mesh.device(i, j)), min=1)
-        host = self.mesh.device(0, 0)
+        host = self.mesh.home_device()
+        # each process's (channel, shard)s, in the order its counts come
+        by_rank = ([[(a, c) for a in live for c in self.mesh.cells_of(r)]
+                    for r in range(multihost.process_count())]
+                   if self.mesh.multiprocess else None)
         stats = {"fb": 0, "at": 0, "ff": 0, "syncs": 0}
         #: host seconds of the run's sections (the device work they enqueue
         #: runs behind them; the count read waits for it)
@@ -620,8 +666,8 @@ class ShardMapExecutor:
                 t0 = time.perf_counter()
                 if self.halo_mode == "exchange":
                     for a in live:
-                        refresh_rings(
-                            [[padded[a, (i, j)] for j in range(columns)]
+                        self._refresh(
+                            [[padded.get((a, (i, j))) for j in range(columns)]
                              for i in range(lines)])
                 t1 = time.perf_counter()
                 flags = {ac: act.ghost_flags(padded[ac], plan, tmaps[ac])
@@ -634,17 +680,30 @@ class ShardMapExecutor:
                 counts = torch.cat([
                     flags[ac].sum(dtype=torch.int32).reshape(1).to(host)
                     for ac in order]).tolist()
+                # across processes every shard's count reaches every
+                # process (one all-gather of the host list) before any
+                # shard chooses its pass, so the world's record is one
+                # process's, whatever each shard chooses; every process
+                # posts the next step's exchange either way
+                world = (dict(zip(order, counts)) if by_rank is None else
+                         {ac: cnt for acs, cnts in zip(
+                             by_rank, multihost.all_gather_ints(counts))
+                          for ac, cnt in zip(acs, cnts)})
                 t3 = time.perf_counter()
                 stats["syncs"] += 1
+                for cnt in world.values():
+                    stats["at"] += cnt
+                    if cnt > plan.fallback_tiles:
+                        stats["fb"] += 1
+                    elif fused:
+                        stats["ff"] += 1
                 for (a, c), cnt in zip(order, counts):
                     rate, p, f = live[a], padded[a, c], flags[a, c]
-                    stats["at"] += cnt
                     if cnt > plan.fallback_tiles:
                         new = act.dense_from_ghost_padded(
                             p, rate, counts_pad[c], offsets, dtype)
                         p[1:-1, 1:-1] = new
                         tmaps[a, c] = act.tile_nonzero_map(new, plan)
-                        stats["fb"] += 1
                         continue
                     ids, cnt_t = act.compact_tile_ids(f, plan)
                     origin = origins[c[0]][c[1]]
@@ -658,7 +717,6 @@ class ShardMapExecutor:
                             upd=upd, anyf=anyf)
                         fused_scatter(p, u, ids, cnt1, plan=plan, ring=1)
                         anyf_b = af != 0
-                        stats["ff"] += 1
                     else:
                         _, _, anyf_b = act.active_pass(
                             p, bufs[c], ids, cnt, rate, plan, origin,
@@ -672,6 +730,7 @@ class ShardMapExecutor:
             out = dict(shards)
             for a in live:
                 out[a] = [[padded[a, (i, j)][1:-1, 1:-1]
+                           if (a, (i, j)) in padded else None
                            for j in range(columns)] for i in range(lines)]
             return out
 
@@ -742,7 +801,7 @@ class ShardMapExecutor:
         D = depth
         PH, PW = lh + 2 * D, lw + 2 * D
         origins = self._origins(space, lh, lw)
-        cells = [(i, j) for i in range(lines) for j in range(columns)]
+        cells = self.mesh.local_cells()
         # per shard: the partition-bounds mask (a standalone partition
         # drops shares at its edges every step) and the global-true counts
         # over the depth-padded region
@@ -786,36 +845,34 @@ class ShardMapExecutor:
             for attr, rate in uniform_rates.items():
                 if rate == 0.0:
                     continue
-                grid = []
-                for i in range(lines):
-                    row = []
-                    for j in range(columns):
-                        _, mf, cntD = geo[i, j]
-                        m = mf[off:PH - off, off:PW - off]
-                        cnt = cntD[off:PH - off, off:PW - off]
-                        cur = self._pad(c[attr], i, j, d, one_d) * m
-                        r_t = rate_of(attr, rate, cur)
-                        for s in range(d):
-                            hs, ws = cur.shape
-                            cur = transport_step(cur, r_t * cur,
-                                                 cnt[s:s + hs, s:s + ws],
-                                                 m, s, hs, ws)
-                        row.append(cur)
-                    grid.append(row)
+                grid = [[None] * columns for _ in range(lines)]
+                pads = self._pads(c[attr], d, one_d)
+                for i, j in cells:
+                    _, mf, cntD = geo[i, j]
+                    m = mf[off:PH - off, off:PW - off]
+                    cnt = cntD[off:PH - off, off:PW - off]
+                    cur = pads[i, j] * m
+                    r_t = rate_of(attr, rate, cur)
+                    for s in range(d):
+                        hs, ws = cur.shape
+                        cur = transport_step(cur, r_t * cur,
+                                             cnt[s:s + hs, s:s + ws],
+                                             m, s, hs, ws)
+                    grid[i][j] = cur
                 new[attr] = grid
             return new
 
         def chunk_general(c: Shards, d: int) -> Shards:
             off = D - d
             new = {k: [[None] * columns for _ in range(lines)] for k in c}
+            pads = {k: self._pads(g, d, one_d) for k, g in c.items()}
             for i, j in cells:
                 mb_full, mf, cntD = geo[i, j]
                 m = mf[off:PH - off, off:PW - off]
                 mb = mb_full[off:PH - off, off:PW - off]
                 cnt = cntD[off:PH - off, off:PW - off]
                 row0, col0 = origins[i][j]
-                cur = {k: self._pad(g, i, j, d, one_d) * m
-                       for k, g in c.items()}
+                cur = {k: p[i, j] * m for k, p in pads.items()}
                 for s in range(d):
                     hs, ws = next(iter(cur.values())).shape
                     cnt_s = cnt[s:s + hs, s:s + ws]
@@ -891,7 +948,7 @@ class ShardMapExecutor:
         dtype = space.dtype
         x0, y0 = space.x_init, space.y_init
         origins = self._origins(space, lh, lw)
-        cells = [(i, j) for i in range(lines) for j in range(columns)]
+        cells = self.mesh.local_cells()
         ring_chs = sorted(set().union(
             *(t.reads() for t in terms if t.footprint >= 1)))
         metas, masks, counts, caches = {}, {}, {}, {}
@@ -915,8 +972,7 @@ class ShardMapExecutor:
 
         def step(c: Shards) -> Shards:
             # every ring from the pre-step values, before any shard steps
-            padded = {k: {(i, j): self._pad(c[k], i, j, 1, one_d)
-                          for i, j in cells} for k in ring_chs}
+            padded = {k: self._pads(c[k], 1, one_d) for k in ring_chs}
             new = {k: [[None] * columns for _ in range(lines)] for k in c}
             for i, j in cells:
                 out = padded_apply(
@@ -958,15 +1014,14 @@ class ShardMapExecutor:
         gshape = space.global_shape
         dtype = space.dtype
         origins = self._origins(space, lh, lw)
-        cells = [(i, j) for i in range(lines) for j in range(columns)]
+        cells = self.mesh.local_cells()
         counts = {(i, j): neighbor_counts((lh, lw), offsets, origins[i][j],
                                           gshape, dtype,
                                           self.mesh.device(i, j))
                   for i, j in cells}
 
         def step(c: Shards, sbuf: dict) -> Shards:
-            padded = ({k: {(i, j): self._pad(g, i, j, 1, one_d)
-                           for i, j in cells} for k, g in c.items()}
+            padded = ({k: self._pads(g, 1, one_d) for k, g in c.items()}
                       if any_ring1 else None)
             outflows: dict[str, dict] = {}
             for i, j in cells:
@@ -1000,25 +1055,27 @@ class ShardMapExecutor:
                 # buffer, then the rings, then the gathers
                 grid = sbuf.get(attr)
                 if grid is None:
-                    grid = [[torch.zeros(
-                        (lh + 2, lw + 2), device=per[i, j].device,
-                        dtype=torch.promote_types(per[i, j].dtype,
-                                                  counts[i, j].dtype))
-                        for j in range(columns)] for i in range(lines)]
+                    grid = [[None] * columns for _ in range(lines)]
+                    for i, j in cells:
+                        grid[i][j] = torch.zeros(
+                            (lh + 2, lw + 2), device=per[i, j].device,
+                            dtype=torch.promote_types(per[i, j].dtype,
+                                                      counts[i, j].dtype))
                     sbuf[attr] = grid
                 for i, j in cells:
                     torch.div(per[i, j], counts[i, j],
                               out=grid[i][j][1:-1, 1:-1])
                 if self.halo_mode == "exchange":
-                    refresh_rings(grid)
-                new[attr] = [[c[attr][i][j] - per[i, j]
-                              # analysis: ignore[hardcoded-physics] — the
-                              # legacy share-exchanging flow shard step
-                              # (general flows + point scatters); nonlinear IR
-                              # models run _build_ir_runner's registered
-                              # lowering instead
-                              + gather_from_padded(grid[i][j], offsets)
-                              for j in range(columns)] for i in range(lines)]
+                    self._refresh(grid)
+                new[attr] = [[None] * columns for _ in range(lines)]
+                for i, j in cells:
+                    new[attr][i][j] = (
+                        c[attr][i][j] - per[i, j]
+                        # analysis: ignore[hardcoded-physics] — the legacy
+                        # share-exchanging flow shard step (general flows +
+                        # point scatters); nonlinear IR models run
+                        # _build_ir_runner's registered lowering instead
+                        + gather_from_padded(grid[i][j], offsets))
             return new
 
         def run(shards: Shards, n: int) -> Shards:

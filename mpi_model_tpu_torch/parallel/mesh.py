@@ -3,21 +3,28 @@
 
 The reference decomposes its grid into 1-D row stripes
 (``/root/reference/src/Model.hpp:62-76``) or a ``LINES_REC × COLUMNS_REC``
-block grid (``ModelRectangular.hpp:69-80``). Here a ``Mesh`` is one
-process's view of that decomposition: axis names, an ``[L, C]`` shape and
-the ``torch.device`` of every position. One Python process drives every
-position (the JAX package's ``shard_map`` is single-controller too); the
+block grid (``ModelRectangular.hpp:69-80``). Here a ``Mesh`` is that
+decomposition: axis names, an ``[L, C]`` shape, the ``torch.device`` of
+every position and the process that owns it. In one process every position
+is its own (the JAX package's ``shard_map`` is single-controller too); the
 device list may name one device several times, so a 2×2 or 1×4
 decomposition runs on one card (or on the CPU, as the tests run it) with
-every shard a tensor of its own.
+every shard a tensor of its own. In a ``torch.distributed`` world of P
+processes (``parallel.multihost``) the positions go row-major by rank, P
+equal runs of them, as the JAX package's ``np.array(jax.devices())
+.reshape(...)`` lays out the global devices; each process drives its own
+positions, on its own devices.
 
 - ``make_mesh`` / ``make_mesh_2d`` build a mesh from an explicit
   ``devices=`` list, by default every visible CUDA card placed round-robin
-  over the positions; with no card they raise (nothing moves to the CPU by
+  over the positions (in a world above one, this process's card at each of
+  its positions); with no card they raise (nothing moves to the CPU by
   itself).
 - ``factor2d`` and ``resolve_grid2d`` are the JAX package's, unchanged.
 - ``shard_space`` cuts each channel into per-shard contiguous tensors on
-  the shards' devices; ``assemble`` puts them back together.
+  the shards' devices, this process's positions only (``None`` at the
+  others); ``assemble`` puts them back together, gathering the positions
+  other processes own.
 """
 
 from __future__ import annotations
@@ -29,9 +36,28 @@ from typing import Optional, Sequence
 import torch
 
 from ..core.cellular_space import CellularSpace
+from . import multihost
 
-#: shards of one channel: ``grid[i][j]`` is the tensor at mesh position (i, j)
-ShardGrid = list[list[torch.Tensor]]
+#: shards of one channel: ``grid[i][j]`` is the tensor at mesh position (i, j),
+#: None where another process owns the position
+ShardGrid = list[list[Optional[torch.Tensor]]]
+
+
+def layout_owners(lines: int, columns: int, nprocs: int
+                  ) -> Optional[tuple[tuple[int, ...], ...]]:
+    """The owner of each position of an ``[L, C]`` mesh over ``nprocs``
+    processes: row-major, ``L·C / nprocs`` positions each; None for one
+    process. Raises when the positions do not divide over the processes."""
+    if nprocs == 1:
+        return None
+    n = lines * columns
+    if n % nprocs:
+        raise ValueError(
+            f"a {lines}x{columns} mesh ({n} positions) does not divide over "
+            f"{nprocs} processes: each process must own as many positions")
+    per = n // nprocs
+    return tuple(tuple((i * columns + j) // per for j in range(columns))
+                 for i in range(lines))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +67,9 @@ class Mesh:
 
     axis_names: tuple[str, ...]
     devices: tuple[tuple[torch.device, ...], ...]
+    #: the process that owns each position (``layout_owners``); None: one
+    #: process owns every position
+    owners: Optional[tuple[tuple[int, ...], ...]] = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -61,20 +90,53 @@ class Mesh:
     def device(self, i: int, j: int) -> torch.device:
         return self.devices[i][j]
 
+    def owner(self, i: int, j: int) -> int:
+        """The process that owns position (i, j)."""
+        return 0 if self.owners is None else self.owners[i][j]
+
+    def cells_of(self, rank: int) -> list[tuple[int, int]]:
+        """Process ``rank``'s positions, row-major."""
+        lines, columns = self.grid_shape
+        return [(i, j) for i in range(lines) for j in range(columns)
+                if self.owner(i, j) == rank]
+
+    def local_cells(self) -> list[tuple[int, int]]:
+        """This process's positions, row-major (every position in one
+        process)."""
+        if self.owners is None:
+            lines, columns = self.grid_shape
+            return [(i, j) for i in range(lines) for j in range(columns)]
+        return self.cells_of(multihost.process_index())
+
+    @property
+    def multiprocess(self) -> bool:
+        """Whether positions belong to more than one process."""
+        return self.owners is not None and len(
+            {r for row in self.owners for r in row}) > 1
+
+    def home_device(self) -> torch.device:
+        """The device of this process's first position: where its run's
+        global tensors are assembled."""
+        i, j = self.local_cells()[0]
+        return self.device(i, j)
+
     def distinct_devices(self) -> list[torch.device]:
-        """The devices the mesh names, each once, in first-seen order."""
+        """The devices of this process's positions, each once, in
+        first-seen order."""
         seen: list[torch.device] = []
-        for row in self.devices:
-            for d in row:
-                if d not in seen:
-                    seen.append(d)
+        for i, j in self.local_cells():
+            d = self.device(i, j)
+            if d not in seen:
+                seen.append(d)
         return seen
 
 
 def _devices(devices=None, n: Optional[int] = None) -> list[torch.device]:
     """``devices`` as a list of ``torch.device``, or by default every
     visible CUDA card placed round-robin over ``n`` positions (one per card
-    when ``n`` is None). Raises without a card: the default is the card."""
+    when ``n`` is None); in a world above one process, this process's card
+    (``torch.cuda.current_device()``) at each of the ``n`` positions.
+    Raises without a card: the default is the card."""
     if devices is not None:
         return [torch.device(d) for d in devices]
     if not torch.cuda.is_available():
@@ -82,10 +144,20 @@ def _devices(devices=None, n: Optional[int] = None) -> list[torch.device]:
             "no CUDA device is available; a mesh runs on the card by "
             "default. Pass devices=[torch.device('cpu')] * n to run on the "
             "CPU.")
+    if multihost.process_count() > 1 and n is not None:
+        return [torch.device("cuda", torch.cuda.current_device())] * n
     cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if n is None:
         return cards
     return [cards[i % len(cards)] for i in range(n)]
+
+
+def _mesh(axes: tuple[str, ...], rows: list[list[torch.device]]) -> Mesh:
+    """The mesh of ``rows``, its positions laid over the world's
+    processes."""
+    return Mesh(tuple(axes), tuple(tuple(r) for r in rows),
+                layout_owners(len(rows), len(rows[0]),
+                              multihost.process_count()))
 
 
 def make_mesh(n: Optional[int] = None, axis: str = "x",
@@ -97,7 +169,7 @@ def make_mesh(n: Optional[int] = None, axis: str = "x",
     n = len(devs) if n is None else int(n)
     if n < 1 or n > len(devs):
         raise ValueError(f"mesh of {n} needs {n} devices, have {len(devs)}")
-    return Mesh((axis,), tuple((d,) for d in devs[:n]))
+    return _mesh((axis,), [[d] for d in devs[:n]])
 
 
 def factor2d(n: int) -> tuple[int, int]:
@@ -140,8 +212,8 @@ def make_mesh_2d(lines: Optional[int] = None, columns: Optional[int] = None,
     if n == 0 or n > len(devs):
         raise ValueError(
             f"mesh {lines}x{columns} needs {n} devices, have {len(devs)}")
-    return Mesh(tuple(axes), tuple(tuple(devs[i * columns:(i + 1) * columns])
-                                   for i in range(lines)))
+    return _mesh(tuple(axes), [devs[i * columns:(i + 1) * columns]
+                               for i in range(lines)])
 
 
 def shard_bounds(space: CellularSpace, mesh: Mesh) -> tuple[int, int]:
@@ -161,23 +233,32 @@ def shard_bounds(space: CellularSpace, mesh: Mesh) -> tuple[int, int]:
 
 def shard_tensor(t: torch.Tensor, mesh: Mesh, h: int, w: int) -> ShardGrid:
     """``t`` cut into the mesh's ``[h, w]`` blocks, each a contiguous copy on
-    its position's device."""
+    its position's device; None at the positions another process owns."""
     lines, columns = mesh.grid_shape
-    return [[t[i * h:(i + 1) * h, j * w:(j + 1) * w].to(
-        mesh.device(i, j), copy=True).contiguous()
-        for j in range(columns)] for i in range(lines)]
+    grid: ShardGrid = [[None] * columns for _ in range(lines)]
+    for i, j in mesh.local_cells():
+        grid[i][j] = t[i * h:(i + 1) * h, j * w:(j + 1) * w].to(
+            mesh.device(i, j), copy=True).contiguous()
+    return grid
 
 
 def shard_space(space: CellularSpace, mesh: Mesh) -> dict[str, ShardGrid]:
     """Place the space's channels onto the mesh (the live ``Scatter``): per
-    channel, a grid of per-shard contiguous tensors on the shards' devices.
-    Requires dims divisible by the mesh extent along each sharded axis."""
+    channel, a grid of per-shard contiguous tensors on the shards' devices,
+    this process's positions only. Requires dims divisible by the mesh
+    extent along each sharded axis."""
     h, w = shard_bounds(space, mesh)
     return {k: shard_tensor(v, mesh, h, w) for k, v in space.values.items()}
 
 
 def assemble(grid: ShardGrid, device: torch.device) -> torch.Tensor:
-    """The global tensor of one channel's shards, on ``device``."""
+    """The global tensor of one channel's shards, on ``device``; positions
+    another process owns (None) are gathered from it
+    (``collectives.gather_grid``: one all-gather)."""
+    if any(t is None for row in grid for t in row):
+        from .collectives import gather_grid
+
+        return gather_grid(grid, device, collective=True)
     h, w = grid[0][0].shape
     lines, columns = len(grid), len(grid[0])
     out = torch.empty((lines * h, columns * w), dtype=grid[0][0].dtype,

@@ -283,10 +283,11 @@ def test_manager_prefers_configured_layout_when_both_exist(tmp_path):
 ])
 def test_manager_refusals(tmp_path, monkeypatch, kw, err):
     """Bad arguments are refused as the JAX package refuses them. The
-    sharded layout and its asynchronous writes are ported
-    (``tests/test_torch_sharded_checkpoint.py``); what stays refused there
-    is a ``torch.distributed`` world above one process, at the save that
-    would have to write one shard file of several (ROADMAP.md)."""
+    sharded layout and its asynchronous writes (the ``NotImplementedError``
+    rows, which a world above one process once refused) run in a
+    ``torch.distributed`` world of two: on rank 1 (the group's collectives
+    recorded, every peer agreeing) a save writes this process's own shard
+    file and leaves the commit, the manifest, to the master."""
     if err is not NotImplementedError:
         with pytest.raises(err, match="layout|keyframe"):
             CheckpointManager(str(tmp_path), **kw)
@@ -295,12 +296,19 @@ def test_manager_refusals(tmp_path, monkeypatch, kw, err):
 
     mgr = CheckpointManager(str(tmp_path), device="cpu", **kw)
     sp = mt.CellularSpace.create(8, 8, 1.0, dtype="float64", device="cpu")
+    reduced = []
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(err, match="ROADMAP"):
-        mgr.save(sp, 0)
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda *a, **k: "gloo")
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda t, op=None, **k: reduced.append(op))
+    path = mgr.save(sp, 0)
+    mgr.flush()
     assert mgr.steps() == []
+    assert sorted(os.listdir(path)) == ["shards_p00001.npz"]
+    assert dist.ReduceOp.MIN in reduced and None in reduced
 
 
 def test_prune_keeps_the_newest(tmp_path):

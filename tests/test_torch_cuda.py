@@ -2767,3 +2767,45 @@ def test_step_audit_without_device_runs_on_the_card():
     from mpi_model_tpu_torch.analysis import run_step_audit
 
     assert run_step_audit(impls=("dense", "k1_dense")) == []
+
+
+@pytest.mark.slow
+@pytest.mark.cuda
+def test_two_processes_share_the_card_through_k2():
+    """Phase 6p (a) at 4096²: two gloo processes on the one card, a row of
+    the 2×2 mesh each, K2 at depth 8 for 64 steps: 16 launches on each
+    rank, and each rank's gathered grid this process's one-process 2×2
+    run, bit for bit."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    import chip_smoke
+    from mpi_model_tpu_torch.parallel import (ShardMapExecutor,
+                                              make_mesh_2d, multihost)
+
+    dev = _card()
+    mp_side = 4096
+    space = mt.CellularSpace({"value": chip_smoke._mp_grid(torch, dev,
+                                                           mp_side)},
+                             mp_side, mp_side)
+    res, _ = mt.Model(mt.Diffusion(0.1)).execute(space, ShardMapExecutor(
+        make_mesh_2d(2, 2, devices=[dev] * 4), "pallas", halo_depth=8),
+        steps=64)
+    want = hashlib.sha256(res.values["value"].cpu().numpy().tobytes())
+    root = str(Path(chip_smoke.__file__).resolve().parent)
+    port = multihost.probe_free_port()
+    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.multiprocess_rank({pid}, {port}, {side})")
+    outs = multihost._launch_workers(
+        [code.format(root=root, pid=p, port=port, side=mp_side)
+         for p in (0, 1)], 600)
+    for rc, out, err in outs:
+        assert rc == 0, err[-4000:]
+    for pid, (_, out, _) in enumerate(outs):
+        row = json.loads(out.strip().splitlines()[-1])
+        assert row["rank"] == pid and row["positions"] == [[pid, 0],
+                                                           [pid, 1]]
+        assert row["launches"] == row["traced_launches"] == 16
+        assert row["sha256"] == want.hexdigest()
+        assert row["total"] == float(res.total("value"))

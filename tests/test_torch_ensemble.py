@@ -603,8 +603,8 @@ def test_unported_options_name_the_roadmap(tmp_path):
                      lambda: mt.EnsembleScheduler(mesh=(2, 1))):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
-    # what stays unported is the multi-process layer: a torch.distributed
-    # world above one process is refused naming ROADMAP.md
+    # the multi-process layer is ported: in a torch.distributed world above
+    # one process the process count is the world's
     import torch.distributed as dist
 
     from mpi_model_tpu_torch.parallel import multihost
@@ -613,8 +613,7 @@ def test_unported_options_name_the_roadmap(tmp_path):
         mp.setattr(dist, "is_available", lambda: True)
         mp.setattr(dist, "is_initialized", lambda: True)
         mp.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            multihost.process_count()
+        assert multihost.process_count() == 2
     # migration is ported: a queued ticket moves to another service
     src = mt.EnsembleService(models[0], max_batch=8)
     dst = mt.EnsembleService(models[0], max_batch=8)

@@ -724,9 +724,9 @@ def test_unported_fleet_options_name_the_roadmap(kw, tmp_path):
     it as a member kwarg, beside the TCP transport and the tiering options:
     an in-process member's mesh resolves over the fleet's device and
     ``stats()`` names it per member; a wire member's crosses as its extents
-    (here through the loopback, which resolves them as a child does). What
-    the fleet still cannot do is serve inside a ``torch.distributed`` world
-    above one process: the multi-process layer (ROADMAP.md)."""
+    (here through the loopback, which resolves them as a child does).
+    Inside a ``torch.distributed`` world above one process (the
+    multi-process layer) the fleet's rank is the world's."""
     import torch.distributed as dist
 
     from mpi_model_tpu_torch.parallel import multihost
@@ -752,8 +752,9 @@ def test_unported_fleet_options_name_the_roadmap(kw, tmp_path):
         mp.setattr(dist, "is_available", lambda: True)
         mp.setattr(dist, "is_initialized", lambda: True)
         mp.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            multihost.process_index()
+        mp.setattr(dist, "get_rank", lambda *a, **k: 1)
+        assert multihost.process_index() == 1
+        assert not multihost.is_master()
 
 
 def test_fleet_defaults_to_the_card():

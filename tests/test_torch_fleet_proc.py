@@ -623,18 +623,23 @@ def test_member_kwargs_that_cannot_cross_are_refused():
             "mesh": [2, 1]}
     assert member_proc._decode_member_kwargs({"mesh": [2, 1]}) == {
         "mesh": (2, 1)}
-    # a member inside a torch.distributed world above one process is the
-    # multi-process layer, which stays refused naming ROADMAP.md
+    # a member inside a torch.distributed world above one process votes
+    # with the world (the multi-process layer): its answer is the group's
     import torch.distributed as dist
 
     from mpi_model_tpu_torch.parallel import multihost
 
+    reduced = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(dist, "is_available", lambda: True)
         mp.setattr(dist, "is_initialized", lambda: True)
         mp.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            multihost.all_agree(True)
+        mp.setattr(dist, "get_backend", lambda *a, **k: "gloo")
+        mp.setattr(dist, "all_reduce",
+                   lambda t, op=None, **k: (reduced.append(op),
+                                            t.zero_()))
+        assert multihost.all_agree(True) is False
+    assert reduced == [dist.ReduceOp.MIN]
     enc = member_proc._encode_member_kwargs(
         {"compute_dtype": torch.bfloat16, "buckets": (1, 2),
          "clock": time.monotonic})

@@ -530,9 +530,9 @@ def test_unported_serving_options_name_the_roadmap(tmp_path):
     rides beside the tiering options, and ``stats()`` names it. Scenario
     tiering is ported with JAX's both-or-neither rule
     (``tests/test_torch_tiering.py``), and a ``hibernate_budget`` without a
-    residency budget changes nothing, as in the JAX package. What stays
-    refused naming ROADMAP.md is a ``torch.distributed`` world above one
-    process (the multi-process layer)."""
+    residency budget changes nothing, as in the JAX package. In a
+    ``torch.distributed`` world above one process (the multi-process
+    layer) the service's barrier is the world's."""
     import torch.distributed as dist
 
     from mpi_model_tpu_torch.ensemble import make_ensemble_mesh
@@ -550,12 +550,16 @@ def test_unported_serving_options_name_the_roadmap(tmp_path):
         assert make().stats()["mesh"] == {"batch": 2, "space": 1,
                                           "devices": 2}
     assert (tmp_path / "m").is_dir()
+    reduced = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(dist, "is_available", lambda: True)
         mp.setattr(dist, "is_initialized", lambda: True)
         mp.setattr(dist, "get_world_size", lambda *a, **k: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            multihost.sync("serve")
+        mp.setattr(dist, "get_backend", lambda *a, **k: "gloo")
+        mp.setattr(dist, "all_reduce",
+                   lambda t, op=None, **k: reduced.append(op))
+        multihost.sync("serve")
+    assert reduced == [None]
     tiered = AsyncEnsembleService(model, residency_budget=1,
                                   hibernate_dir=str(tmp_path / "v"),
                                   start=False)

@@ -695,23 +695,40 @@ def test_multihost_one_process_values():
                                    "is_master", "all_agree", "sync",
                                    "master_only"])
 def test_multihost_refuses_a_world_above_one(monkeypatch, query):
-    """Under a ``torch.distributed`` world of two processes every query
-    names ROADMAP.md: the multi-process layer is not ported, and a query
-    never answers for one process while others wait."""
+    """Under a ``torch.distributed`` world of two processes no query
+    answers for one process while others wait: the rank and size come from
+    the group, and the vote, the barrier and ``master_only``'s barrier are
+    collectives of the group (here recorded, on rank 1 of 2)."""
     import torch.distributed as dist
+
+    calls = []
+
+    def all_reduce(t, op=None, **kw):
+        calls.append(("all_reduce", op))
+        if op == dist.ReduceOp.MIN:
+            t.zero_()  # the peer voted no
 
     monkeypatch.setattr(dist, "is_available", lambda: True)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda *a, **k: 1)
+    monkeypatch.setattr(dist, "get_backend", lambda *a, **k: "gloo")
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
     fn = getattr(multihost, query)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if query == "master_only":
-            with fn("b"):
-                pass
-        elif query == "all_agree":
-            fn(True)
-        else:
-            fn()
+    if query == "master_only":
+        with fn("b") as master:
+            assert master is False
+        assert calls == [("all_reduce", None)]
+    elif query == "all_agree":
+        assert fn(True) is False
+        assert calls == [("all_reduce", dist.ReduceOp.MIN)]
+    elif query == "sync":
+        assert fn() is None
+        assert calls == [("all_reduce", None)]
+    else:
+        assert fn() == {"process_index": 1, "process_count": 2,
+                        "is_master": False}[query]
+        assert calls == []
     # a world of one is one process
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 1)
     assert multihost.process_count() == 1
