@@ -506,7 +506,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    launches a call, its traced kernel names, its host reads a step or pass
    and its output dtypes; every kernel route (K1, K2, K3 vpu and mxu,
    K3-halo, K4, K4-halo, K5, K6/K7) launches its declared kernels the
-   declared number of times, and no contract reads the host more than it
+   declared number of times (the GSPMD routes, per position, whole grid
+   and point, none), and no contract reads the host more than it
    declares; a step with an injected ``.tolist()`` must be caught by
    ``step-sync``. Any finding fails the run.
 6p. the multi-process layer on the one card (``multiprocess_phase``;
@@ -527,8 +528,29 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``write_output``) and (c) ``multihost.dryrun_supervised_kill(nprocs=2,
    kill_rank=1)`` at f64 (the victim's rc 17, a bitwise resume from step
    4), (b) and (c)
-   at once; their master lines are printed. A failed or hung rank fails
-   the phase.
+   at once; their master lines are printed; (e) in (a)'s two processes,
+   ``AutoShardedExecutor`` on a 2×4 mesh (a row of 4 positions a rank) of
+   (a)'s grid, 8 steps: each rank's gathered grid is this process's
+   one-process 2×4 gspmd run bit for bit (SHA-256), route ``positions``,
+   impl ``xla``, no kernel launched. A failed or hung rank fails the
+   phase.
+6q. the GSPMD path on the card (``gspmd_phase``; alone:
+   ``gspmd_phase_main``; it prints its seconds): ``AutoShardedExecutor``
+   on a 2×2 mesh of the card in this process, at 16384² f32 (8192² when
+   fewer than 16 such grids are free, said on a printed line): (a)
+   ``Diffusion(0.1)``, 8 steps, bit for bit ``SerialExecutor("xla")``,
+   route ``positions``, impl ``xla``, no kernel launched (counters set to
+   0 just before, read just after), its peak memory; its seconds a step
+   and ``ShardMapExecutor(mesh, "xla")``'s as ``median_spread`` of three
+   ``marginal_runner_trials`` (2 and 6 steps), and their ratio (JAX
+   ladder config 3's ``gspmd_vs_shardmap``); (b) a flow with an
+   undeclared footprint, 8 steps on the whole grid, bit for bit serial
+   ``xla``, and ``ShardMapExecutor`` refusing it; (c) the reference's
+   point source (19, 3) and one dynamic source, 64 steps, impl ``point``,
+   bit for bit the serial point path; (d) the rows of ``run --mesh=2x2
+   --executor=gspmd --json`` (the reference's scenario: ``point``) and of
+   the same with ``--flow=diffusion`` at the phase's side (``xla``). Every
+   number is printed beside the card's name and power limit.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -7023,7 +7045,8 @@ def analysis_phase(torch, dev) -> dict:
     routes = {r["contract"]: r for r in reports if "launches_declared" in r}
     check(set(routes) == {"k1_dense", "k2_sharded", "k3_vpu", "k3_mxu",
                           "k3_halo", "k4_coupled", "k4_halo", "k5_pipeline",
-                          "k67_active_fused"}
+                          "k67_active_fused", "gspmd_positions",
+                          "gspmd_whole", "gspmd_point"}
           and all(r["launch_check"] == "checked" for r in routes.values()),
           "6o (b): the kernel routes were not all checked: "
           f"{ {n: r['launch_check'] for n, r in routes.items()} }")
@@ -7181,6 +7204,27 @@ def multiprocess_rank(pid: int, port: int, side: int = N) -> None:
         torch.cuda.synchronize()
         alone.append(time.perf_counter() - t1)
     row["exchange_alone_ms"] = statistics.median(alone) * 1e3
+    del shards
+    # (e) the GSPMD path on the 2×4 mesh laid over the two ranks (this
+    # process's card at its row of 4): per position, the share rings of
+    # the rank seam over gloo each step
+    from mpi_model_tpu_torch.parallel import AutoShardedExecutor
+
+    g = AutoShardedExecutor(make_mesh_2d(2, 4))
+    check(g.mesh.local_cells() == [(pid, j) for j in range(4)],
+          f"6p (e) rank {pid}: positions {g.mesh.local_cells()}")
+    fs.reset_launches()
+    torch.cuda.synchronize()
+    multihost.sync("6p-gspmd")
+    t1 = time.perf_counter()
+    grid = g.run_model(model, space, GSPMD_STEPS)["value"]
+    torch.cuda.synchronize()
+    row["gspmd"] = {
+        "impl": g.last_impl, "route": g.last_route,
+        "positions": g.mesh.local_cells(), "wall_s": time.perf_counter() - t1,
+        "launches": sum(kernel_launches().values()),
+        "sha256": hashlib.sha256(grid.cpu().numpy().tobytes()).hexdigest()}
+    del grid
     row["process_s"] = time.perf_counter() - t0
     print(json.dumps(row), flush=True)
 
@@ -7210,7 +7254,19 @@ def multiprocess_phase(np, torch, mt, dev, card_line: str) -> dict:
         "conservation_error": rep.conservation_error()}
     del res
     want["runs"] = _mp_timed(torch, one, model, space)
-    del space, one
+    # (e)'s one-process run: the GSPMD path on a 2×4 mesh of the card
+    from mpi_model_tpu_torch.parallel import AutoShardedExecutor
+
+    g = AutoShardedExecutor(make_mesh_2d(2, 4, devices=[dev] * 8))
+    torch.cuda.synchronize()
+    t_e = time.perf_counter()
+    grid = g.run_model(model, space, GSPMD_STEPS)["value"]
+    torch.cuda.synchronize()
+    want["gspmd"] = {"impl": g.last_impl, "route": g.last_route,
+                     "wall_s": time.perf_counter() - t_e,
+                     "sha256": hashlib.sha256(
+                         grid.cpu().numpy().tobytes()).hexdigest()}
+    del space, one, g, grid
     torch.cuda.empty_cache()
     t_a = time.perf_counter()
     port = multihost.probe_free_port()
@@ -7271,6 +7327,21 @@ def multiprocess_phase(np, torch, mt, dev, card_line: str) -> dict:
     print(f"6p (a) one process, 2x2 on {card_line}: {one_step_ms:.3f} ms a "
           f"step, assembly {one_gather:.3f} s; two ranks' phase "
           f"{out['a']['seconds']:.1f} s", flush=True)
+    one_g = want["gspmd"]
+    for r in ranks:
+        e = r["gspmd"]
+        print(f"6p (e) rank {r['rank']} of 2 on {card_line}: gspmd "
+              f"Diffusion(0.1) {N}x{N} 2x4, {GSPMD_STEPS} steps, positions "
+              f"{e['positions']}: route {e['route']}, impl {e['impl']}, "
+              f"launches {e['launches']}, sha256 {e['sha256'][:16]}.. (one "
+              f"process {one_g['sha256'][:16]}..), {e['wall_s']:.3f} s the "
+              f"run and its gather (one process {one_g['wall_s']:.3f} s)",
+              flush=True)
+        check(e["impl"] == one_g["impl"] == "xla"
+              and e["route"] == one_g["route"] == "positions"
+              and e["launches"] == 0 and e["sha256"] == one_g["sha256"],
+              f"6p (e) rank {r['rank']}: the gspmd grid is not the "
+              f"one-process run's: {e} against {one_g}")
 
     # -- (b) JAX's dry-run program and (c) the rank-death rig, at once -------
     t_b = time.perf_counter()
@@ -7335,6 +7406,213 @@ def multiprocess_phase_main() -> None:
     out_dir = Path(__file__).resolve().parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_6p.json").write_text(
+        json.dumps(out, indent=1, default=repr))
+    print(json.dumps(out, default=repr), flush=True)
+
+
+GSPMD_STEPS = 8         # phase 6q's runs and 6p (e)'s
+GSPMD_POINT_STEPS = 64  # phase 6q (c)'s point runs
+GSPMD_TRIALS = (2, 6, 3)  # 6q (a)'s marginal trials: s1, s2, trials
+#: grids of the main side that must be free for 6q at 16384²: the space,
+#: the serial run's result and temporaries, the shards, the padded shares
+#: and the assembled result
+GSPMD_GRIDS_FREE = 16
+
+
+def gspmd_phase(np, torch, mt, dev, card_line: str, reset_counts,
+                kernel_launches) -> dict:
+    """Phase 6q: the GSPMD path (``AutoShardedExecutor``) on the card, a
+    2×2 mesh of ``dev`` in this process (the module docstring). Returns its
+    rows."""
+    from mpi_model_tpu_torch.cli import main as cli_main
+    from mpi_model_tpu_torch.ops.flow import Flow
+    from mpi_model_tpu_torch.parallel import (AutoShardedExecutor,
+                                              ShardMapExecutor, make_mesh_2d)
+    from mpi_model_tpu_torch.utils import (marginal_runner_trials,
+                                           median_spread)
+
+    class Undeclared(Flow):
+        """A user flow whose footprint is left undeclared."""
+
+        flow_rate = 0.1
+        attr = "value"
+
+        def outflow(self, values, origin=(0, 0)):
+            return values[self.attr] * self.flow_rate
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card_line}
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    side = N if free >= GSPMD_GRIDS_FREE * N * N * 4 else N4
+    out["side"] = side
+    if side != N:
+        print(f"6q: {free / 2**30:.1f} GiB free holds fewer than "
+              f"{GSPMD_GRIDS_FREE} grids of {N}x{N} f32 beside the plain "
+              f"step's temporaries: (a)-(c) run at {side}x{side}",
+              flush=True)
+    mesh = make_mesh_2d(2, 2, devices=[dev] * 4)
+    space = mt.CellularSpace({"value": _mp_grid(torch, dev, side)}, side,
+                             side)
+    ex = AutoShardedExecutor(mesh)
+    serial = mt.SerialExecutor("xla")
+
+    def counted(model, steps):
+        """``ex``'s run, its counts set to 0 just before and read just
+        after, with its wall seconds and its peak memory above the
+        space's."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = ex.run_model(model, space, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: n for k, n in kernel_launches().items() if n}
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        return got, {"impl": ex.last_impl, "route": ex.last_route,
+                     "launches": launched, "wall_s": wall,
+                     "peak_gib": peak / 2**30}
+
+    # -- (a) Diffusion, per mesh position, against serial xla and timed ----
+    model = mt.Model(mt.Diffusion(0.1))
+    want = serial.run_model(model, space, GSPMD_STEPS)["value"]
+    got, row = counted(model, GSPMD_STEPS)
+    row["bitwise"] = bool(torch.equal(got["value"], want))
+    del got, want
+    s1, s2, trials = GSPMD_TRIALS
+    for name, e in (("gspmd", ex),
+                    ("shardmap", ShardMapExecutor(mesh, "xla"))):
+        def run(steps, e=e):
+            e.run_model(model, space, steps)
+            torch.cuda.synchronize()
+
+        run(s1)  # warm: the shard runner built, outside the trials
+        row[name] = median_spread(marginal_runner_trials(
+            run, s1=s1, s2=s2, trials=trials))
+    row["gspmd_vs_shardmap"] = (row["shardmap"]["value"]
+                                / row["gspmd"]["value"])
+    out["a"] = row
+    print(f"6q (a) {card_line}: Diffusion(0.1) f32 {side}x{side} on a 2x2 "
+          f"mesh of the card, {GSPMD_STEPS} steps: route {row['route']}, "
+          f"impl {row['impl']}, bit for bit SerialExecutor('xla'): "
+          f"{row['bitwise']}, launches {row['launches']}, peak "
+          f"{row['peak_gib']:.3f} GiB above the space; s a step (median of "
+          f"{trials} marginal trials {s1}..{s2}): gspmd "
+          f"{row['gspmd']['value']:.6f} [{row['gspmd']['spread_lo']:.6f}, "
+          f"{row['gspmd']['spread_hi']:.6f}], ShardMapExecutor('xla') "
+          f"{row['shardmap']['value']:.6f} "
+          f"[{row['shardmap']['spread_lo']:.6f}, "
+          f"{row['shardmap']['spread_hi']:.6f}], gspmd_vs_shardmap "
+          f"{row['gspmd_vs_shardmap']:.4f}", flush=True)
+    check(row["impl"] == "xla" and row["route"] == "positions"
+          and row["bitwise"] and not row["launches"],
+          f"6q (a): the gspmd Diffusion run is not serial xla's: {row}")
+
+    # -- (b) an undeclared footprint: the whole grid -----------------------
+    um = mt.Model(Undeclared())
+    want = serial.run_model(um, space, GSPMD_STEPS)["value"]
+    got, row = counted(um, GSPMD_STEPS)
+    row["bitwise"] = bool(torch.equal(got["value"], want))
+    del got, want
+    try:
+        ShardMapExecutor(mesh, "xla").run_model(um, space, 1)
+        row["shardmap_refused"] = None
+    except ValueError as e:
+        row["shardmap_refused"] = str(e)
+    out["b"] = row
+    print(f"6q (b) {card_line}: an undeclared-footprint flow, {side}x{side}"
+          f", {GSPMD_STEPS} steps: route {row['route']}, impl {row['impl']}"
+          f", bit for bit SerialExecutor('xla'): {row['bitwise']}, "
+          f"launches {row['launches']}, {row['wall_s']:.3f} s the run, peak "
+          f"{row['peak_gib']:.3f} GiB; ShardMapExecutor refuses it: "
+          f"{row['shardmap_refused']!r}", flush=True)
+    check(row["impl"] == "xla" and row["route"] == "whole"
+          and row["bitwise"] and not row["launches"]
+          and "cannot prove flows ['Undeclared'] are shardable" in (
+              row["shardmap_refused"] or ""),
+          f"6q (b): {row}")
+
+    # -- (c) the reference's point source and a dynamic one ----------------
+    pm = mt.Model([mt.Exponencial(mt.Cell(19, 3, mt.Attribute(99, 2.2)),
+                                  0.1),
+                   mt.PointFlow((side // 2, side // 2 + 7), 0.05)])
+    want = serial.run_model(pm, space, GSPMD_POINT_STEPS)["value"]
+    serial_impl = serial.last_impl
+    got, row = counted(pm, GSPMD_POINT_STEPS)
+    row["bitwise"] = bool(torch.equal(got["value"], want))
+    row["serial_impl"] = serial_impl
+    del got, want
+    out["c"] = row
+    print(f"6q (c) {card_line}: the reference's source (19, 3) and a "
+          f"dynamic one, {side}x{side}, {GSPMD_POINT_STEPS} steps: route "
+          f"{row['route']}, impl {row['impl']}, bit for bit the serial "
+          f"point path ({serial_impl}): {row['bitwise']}, launches "
+          f"{row['launches']}, {row['wall_s']:.3f} s the run", flush=True)
+    check(row["impl"] == "point" and serial_impl == "point"
+          and row["bitwise"] and not row["launches"], f"6q (c): {row}")
+    del space, ex
+    torch.cuda.empty_cache()
+
+    # -- (d) the CLI -------------------------------------------------------
+    rows = []
+    for argv in (["run", "--mesh=2x2", "--executor=gspmd", "--json"],
+                 ["run", "--mesh=2x2", "--executor=gspmd",
+                  "--flow=diffusion", f"--dimx={side}", f"--dimy={side}",
+                  f"--steps={GSPMD_STEPS}", "--json"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        row = json.loads(buf.getvalue().strip().splitlines()[-1])
+        row["argv"] = argv
+        rows.append(row)
+        print(f"6q (d) {' '.join(argv)}: rc {rc}, impl {row['impl']}, "
+              f"comm_size {row['comm_size']}, mesh {row['mesh']}, launches "
+              f"{row['kernel_launches']}, |d| {row['conservation_error']:.3e}"
+              f", conserved {row['conserved']}, {row['wall_s']:.3f} s",
+              flush=True)
+        check(rc == 0 and row["conserved"] and row["comm_size"] == 4
+              and row["kernel_launches"] == 0
+              and row["device"].startswith("cuda"), f"6q (d): {row}")
+    check(rows[0]["impl"] == "point" and rows[1]["impl"] == "xla",
+          f"6q (d): the rows' impls {[r['impl'] for r in rows]}")
+    out["d"] = rows
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6q: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def gspmd_phase_main() -> None:
+    """Phase 6q alone (``python3 -c "import chip_smoke;
+    chip_smoke.gspmd_phase_main()"``): no kernel to build (the GSPMD path
+    runs none), ``gspmd_phase`` on the card, ``chiprun_out/chip_smoke_6q.json``
+    written and printed as the last line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import mpi_model_tpu_torch as mt
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import (composed_stencil, field_stencil,
+                                         fused_active, fused_stencil,
+                                         pipeline_stencil)
+
+    def reset_counts():
+        for m in (fused_stencil, composed_stencil, field_stencil,
+                  pipeline_stencil, fused_active):
+            m.reset_launches()
+
+    out = gspmd_phase(np, torch, mt, torch.device("cuda"),
+                      smi_card_line(torch.cuda.get_device_name(0)),
+                      reset_counts, kernel_launches)
+    out["process_seconds"] = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6q.json").write_text(
         json.dumps(out, indent=1, default=repr))
     print(json.dumps(out, default=repr), flush=True)
 
@@ -8839,6 +9117,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     multiproc = multiprocess_phase(np, torch, mt, dev, card_line)
 
+    # -- 6q. the GSPMD path on the card ------------------------------------------
+    torch.cuda.empty_cache()
+    gspmd = gspmd_phase(np, torch, mt, dev, card_line, reset_counts,
+                        kernel_launches)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -9246,7 +9529,7 @@ def main() -> int:
          "checkpoint": ckpt, "ir": ir, "observability": observability,
          "fleet": fleet, "tiering": tiering, "meshes": meshes,
          "ladder_formats": ladder, "analysis": analysis,
-         "multiprocess": multiproc,
+         "multiprocess": multiproc, "gspmd": gspmd,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -13,7 +13,8 @@ unless the caller asks for the CPU (``device="cpu"``).
 Layer map (as in the JAX package):
   L0 ``abstraction``  — dtype seam (DataType → torch dtypes)
   L1 ``io``           — the output dumps; ``parallel`` — mesh, ghost-ring
-                         exchange, collectives, ShardMapExecutor
+                         exchange, collectives, ShardMapExecutor,
+                         AutoShardedExecutor
   L2 ``core``         — Attribute/Cell/CellularSpace
   L3 ``ops``          — flows, plain-torch stencil, active-tile engine,
                          flow lowering, kernels K1, K3, K4, K6/K7
@@ -23,9 +24,9 @@ Layer map (as in the JAX package):
                          always-on async service and ``run_soak``
   —  ``ir``           — the Flow IR: terms, the one registered lowering,
                          FlowIRModel and its library (``--model``)
-  —  ``utils`` (serving counters, tracing, the roofline read from the
-     card, the kernel build cache), ``obs`` (the flight recorder, the
-     telemetry snapshot, the status endpoint), ``resilience``
+  —  ``utils`` (timing helpers, serving counters, tracing, the roofline
+     read from the card, the kernel build cache), ``obs`` (the flight
+     recorder, the telemetry snapshot, the status endpoint), ``resilience``
      (FailureEvent, the fault plans of ``inject``, the supervisor),
      ``native`` (the C++ engine of ``native/``), ``oracle``, ``interop``,
      ``cli``
@@ -38,7 +39,8 @@ from .ops import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
     cell_coords
 from .models import ConservationError, Model, ModelRectangular, Report, \
     SerialExecutor
-from .parallel import ShardMapExecutor, make_mesh, make_mesh_2d, shard_space
+from .parallel import (AutoShardedExecutor, ShardMapExecutor, make_mesh,
+                       make_mesh_2d, shard_space)
 from .ensemble import (AsyncEnsembleService, EnsembleConservationError,
                        EnsembleExecutor, EnsembleScheduler, EnsembleService,
                        EnsembleSpace, ServiceOverloaded, TicketExpired,
@@ -78,6 +80,7 @@ __all__ = [
     "buckets_for",
     "run_ensemble",
     "run_soak",
+    "AutoShardedExecutor",
     "ShardMapExecutor",
     "make_mesh",
     "make_mesh_2d",

@@ -53,9 +53,10 @@ the CPU tests pass ``device="cpu"``.
 ``step-launches``
     on the card: every kernel route's launches a call
     (``kernel_launches()``'s delta) and its kernels' names (a profiler
-    trace) equal the contract's declared ones. On the CPU every wrapper
-    runs its plain version and counts 0: the rule checks nothing there
-    and the report says so.
+    trace) equal the contract's declared ones; the GSPMD routes
+    (``AutoShardedExecutor``: per position, whole grid, point) declare
+    none. On the CPU every wrapper runs its plain version and counts 0:
+    the rule checks nothing there and the report says so.
 """
 
 from __future__ import annotations
@@ -477,7 +478,7 @@ def _sharded_route(name, device, model, space, impl, kernels, launches,
         name, fn, (space,), space.dtype, _grid_nbytes(space),
         model.offsets, ROUTE_SUBSTEPS, substeps=ROUTE_SUBSTEPS,
         host_reads=2, sync_unit="call", units=1,
-        reads_at="mpi_model_tpu_torch/parallel/executors.py:316",
+        reads_at="mpi_model_tpu_torch/parallel/executors.py:320",
         consts_check=False, launches=launches, kernels=kernels, route=route)
 
 
@@ -619,6 +620,72 @@ def _build_k67(device) -> BuiltStep:
         launches={"fused_compute": 1, "fused_scatter": 1},
         kernels=("fused_compute_kernel", "fused_scatter_kernel"),
         route="mpi_model_tpu/ops/pallas_active.py:293 and :343")
+
+
+# -- the GSPMD routes (no kernel: 0 launches on the card) ----------------------
+
+def _gspmd_route(name, device, model, space, host_reads=0,
+                 sync_unit="step", units=ROUTE_SUBSTEPS, reads_at=""):
+    """``AutoShardedExecutor`` on a 2×2 mesh of ``device``, one call of
+    ``ROUTE_SUBSTEPS`` steps. The JAX package's GSPMD path runs no Pallas
+    kernel (its ``--impl=pallas`` is refused), so every route declares no
+    launch and its trace must show no kernel of the port."""
+    from ..parallel.executors import AutoShardedExecutor
+    ex = AutoShardedExecutor(_mesh_2x2(device))
+
+    def fn(space):
+        return ex.run_model(model, space, ROUTE_SUBSTEPS)
+
+    return BuiltStep(
+        name, fn, (space,), space.dtype, _grid_nbytes(space),
+        model.offsets, 1, host_reads=host_reads, sync_unit=sync_unit,
+        units=units, reads_at=reads_at, consts_check=False, launches={},
+        kernels=(), route="mpi_model_tpu/parallel/executors.py:82 (no "
+        "kernel)")
+
+
+@contract("gspmd_positions")
+def _build_gspmd_positions(device) -> BuiltStep:
+    # a pointwise flow: ShardMapExecutor("xla")'s per-shard runner and
+    # ring exchange; the two reads are its run's synchronizes around the
+    # assembly
+    from ..models.model import Model
+    from ..ops.flow import Diffusion
+    return _gspmd_route(
+        "gspmd_positions", device, Model([Diffusion(0.1)], 10.0, 0.2),
+        _route_space(device), host_reads=2, sync_unit="call", units=1,
+        reads_at="mpi_model_tpu_torch/parallel/executors.py:320")
+
+
+@contract("gspmd_whole")
+def _build_gspmd_whole(device) -> BuiltStep:
+    # an undeclared footprint: the global step on the whole grid
+    from ..models.model import Model
+    from ..ops.flow import Flow
+
+    class Undeclared(Flow):
+        attr = "value"
+        flow_rate = 0.1
+
+        def outflow(self, values, origin=(0, 0)):
+            return values[self.attr] * self.flow_rate
+
+    return _gspmd_route("gspmd_whole", device,
+                        Model([Undeclared()], 10.0, 0.2),
+                        _route_space(device))
+
+
+@contract("gspmd_point")
+def _build_gspmd_point(device) -> BuiltStep:
+    # the reference's frozen source and one dynamic source: the point
+    # subsystem on the global view
+    from ..core.attribute import Attribute
+    from ..core.cell import Cell
+    from ..models.model import Model
+    from ..ops.flow import Exponencial, PointFlow
+    model = Model([Exponencial(Cell(19, 3, Attribute(99, 2.2)), 0.1),
+                   PointFlow((100, 150), 0.05)], 10.0, 0.2)
+    return _gspmd_route("gspmd_point", device, model, _route_space(device))
 
 
 # -- the term registry ---------------------------------------------------------

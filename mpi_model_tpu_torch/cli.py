@@ -67,6 +67,12 @@ number of distinct devices), ``impl``, ``backend_report`` and
 ``--mesh=LxC --impl=active|active_fused`` runs the shard-local active
 engines; their ``backend_report`` carries the fallback steps, the mean
 active fraction, ``flags_fused`` and the host reads.
+``--mesh=LxC --executor=gspmd`` runs ``AutoShardedExecutor``: the global
+step's values for any flow (a user flow with an undeclared footprint too),
+its row's ``impl`` ``"point"`` for an all-point-flow model, else ``"xla"``;
+it refuses ``--rectangular``, ``--impl=pallas|composed``, ``--halo-depth``
+and ``--compute-dtype`` with the JAX CLI's words, and composes with the
+checkpoint flags, ``--chaos`` and ``--output``.
 ``--serve`` drives the always-on loop (``AsyncEnsembleService`` through
 ``run_soak``): ``--serve-scenarios`` copies of the scenario arrive
 open-loop at ``--arrival-rate`` per second (unset or 0: as fast as
@@ -280,8 +286,7 @@ def parse_ensemble_mesh(spec):
 
 
 def check_serve_flags(args, sharded: bool) -> None:
-    """The JAX package's checks of the serving flags; the flags whose
-    modules the port lacks are refused naming ROADMAP.md."""
+    """The JAX package's checks of the serving flags."""
     if args.serve:
         if args.ensemble is not None:
             raise SystemExit(
@@ -502,16 +507,6 @@ def check_sharded_flags(args) -> bool:
     """The JAX package's checks of the sharded flags; True for a sharded
     run."""
     sharded = args.mesh is not None or args.rectangular is not None
-    if args.executor == "gspmd" and (args.halo_depth != 1
-                                     or args.compute_dtype is not None):
-        raise SystemExit(
-            "--halo-depth/--compute-dtype tune the explicit "
-            "ShardMapExecutor; --executor=gspmd delegates both to XLA")
-    if args.executor == "gspmd":
-        raise SystemExit(
-            "--executor=gspmd (the AutoShardedExecutor) is not ported to "
-            "the PyTorch/CUDA package yet; see ROADMAP.md. Use "
-            "--executor=shardmap with --mesh=LxC")
     if not sharded and args.halo_depth != 1:
         raise SystemExit(
             "--halo-depth applies to sharded execution; add --mesh=LxC "
@@ -524,6 +519,24 @@ def check_sharded_flags(args) -> bool:
         raise SystemExit(
             "--rectangular IS the mesh (a lines x columns block "
             "decomposition); drop --mesh")
+    if args.executor == "gspmd":
+        if args.rectangular is not None:
+            raise SystemExit(
+                "--rectangular always runs the explicit block-halo "
+                "ShardMapExecutor (its owner map IS that mesh); for the "
+                "GSPMD path use --mesh=LxC --executor=gspmd")
+        if args.mesh is None:
+            raise SystemExit("--executor=gspmd is a sharded path; add "
+                             "--mesh=LxC")
+        if args.impl in ("pallas", "composed"):
+            raise SystemExit(
+                "--executor=gspmd runs the global XLA step (XLA inserts "
+                "the collectives); the Pallas/composed kernels need "
+                "--executor=shardmap")
+        if args.halo_depth != 1 or args.compute_dtype is not None:
+            raise SystemExit(
+                "--halo-depth/--compute-dtype tune the explicit "
+                "ShardMapExecutor; --executor=gspmd delegates both to XLA")
     if args.executor == "shardmap" and not sharded:
         raise SystemExit("--executor=shardmap needs --mesh=LxC")
     if args.executor == "serial" and sharded:
@@ -550,7 +563,8 @@ def mesh_devices(args, n: int):
 
 
 def build_sharded_executor(args, model):
-    from .parallel import ShardMapExecutor, make_mesh, make_mesh_2d
+    from .parallel import (AutoShardedExecutor, ShardMapExecutor, make_mesh,
+                           make_mesh_2d)
 
     if args.rectangular is not None:
         lines, columns = parse_grid2(args.rectangular, "--rectangular")
@@ -562,6 +576,10 @@ def build_sharded_executor(args, model):
         mesh = make_mesh(n, devices=mesh_devices(args, n))
     else:
         mesh = make_mesh_2d(lines, columns, devices=mesh_devices(args, n))
+    if args.executor == "gspmd":
+        # the GSPMD path's contract: the global step's values for any flow
+        # (an undeclared footprint too), on the routes the executor picks
+        return AutoShardedExecutor(mesh)
     return ShardMapExecutor(mesh, step_impl=args.impl,
                             halo_depth=args.halo_depth,
                             compute_dtype=args.compute_dtype)
@@ -1212,12 +1230,16 @@ def main(argv: Optional[list[str]] = None) -> int:
                      "private directory removed at exit. Default: the "
                      "package's _build/")
     run.add_argument("--mesh", default=None, metavar="LxC",
-                     help="run sharded (ShardMapExecutor) over an LxC mesh "
-                     "(N or Nx1: N row stripes)")
+                     help="run sharded (ShardMapExecutor, or with "
+                     "--executor=gspmd AutoShardedExecutor) over an LxC "
+                     "mesh (N or Nx1: N row stripes)")
     run.add_argument("--executor", default="auto",
                      choices=("auto", "serial", "shardmap", "gspmd"),
                      help="'auto' = serial without --mesh, shardmap with "
-                     "it; 'gspmd' is not ported")
+                     "it; 'gspmd' = AutoShardedExecutor (the global step's "
+                     "values on the mesh: runs ANY flow, including "
+                     "footprint='unknown' user flows the explicit shardmap "
+                     "path refuses)")
     run.add_argument("--rectangular", default=None, metavar="LxC",
                      help="run ModelRectangular over an LxC block mesh (the "
                      "reference's rectangular decomposition)")

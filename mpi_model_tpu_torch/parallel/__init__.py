@@ -1,22 +1,22 @@
 """L5 sharded execution: the mesh (``mesh``), the ghost-ring exchange
-(``halo``), the reductions (``collectives``) and ``ShardMapExecutor``
-(``executors``), one process driving every shard, or a
-``torch.distributed`` world of processes each driving its own
+(``halo``), the reductions (``collectives``), ``ShardMapExecutor`` and
+``AutoShardedExecutor`` (``executors``), one process driving every shard,
+or a ``torch.distributed`` world of processes each driving its own
 (``multihost``)."""
 
 from .collectives import gather_to_host, global_sum
-from .executors import ShardMapExecutor
+from .executors import AutoShardedExecutor, ShardMapExecutor
 from .halo import (exchange_halo_1d, exchange_ring, exchange_rings,
                    gather_from_padded, pad_rings, pad_with_halo_1d,
                    pad_with_halo_2d, refresh_rings, ring_plan, zero_ring)
-from .mesh import (Mesh, assemble, factor2d, make_mesh, make_mesh_2d,
-                   resolve_grid2d, shard_space)
+from .mesh import (Mesh, assemble, factor2d, grid_spec, make_mesh,
+                   make_mesh_2d, resolve_grid2d, shard_space)
 
 __all__ = [
     "Mesh", "make_mesh", "make_mesh_2d", "factor2d", "resolve_grid2d",
-    "shard_space", "assemble", "exchange_halo_1d", "exchange_ring",
+    "grid_spec", "shard_space", "assemble", "exchange_halo_1d", "exchange_ring",
     "exchange_rings", "ring_plan", "zero_ring", "pad_with_halo_1d",
     "pad_with_halo_2d", "pad_rings", "refresh_rings",
     "gather_from_padded", "global_sum", "gather_to_host",
-    "ShardMapExecutor",
+    "AutoShardedExecutor", "ShardMapExecutor",
 ]

@@ -1,5 +1,7 @@
-"""The sharded executor: the distributed runtime of the port (counterpart of
-``mpi_model_tpu/parallel/executors.py::ShardMapExecutor``).
+"""The sharded executors: the distributed runtime of the port (counterparts
+of ``mpi_model_tpu/parallel/executors.py``'s ``ShardMapExecutor`` and
+``AutoShardedExecutor``; the second, at the end of this module, keeps the
+GSPMD path's contract over the first's xla runner).
 
 The reference's ``Model::execute`` splits the grid across MPI ranks and
 sends the Moore shares that cross a rank edge as a ghost update
@@ -95,7 +97,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.cellular_space import CellularSpace
-from ..models.model import _launches_since, kernel_launches
+from ..models.model import SerialExecutor, _launches_since, \
+    kernel_launches
 from ..ops.composed_stencil import composed_halo_step, resolve_form
 from ..ops.field_stencil import FieldPlanError, PallasFieldStep
 from ..ops import active as act
@@ -110,7 +113,8 @@ from ..utils.tracing import get_tracer
 from . import multihost
 from .halo import (exchange_rings, gather_from_padded, pad_rings,
                    refresh_rings, zero_ring)
-from .mesh import Mesh, ShardGrid, assemble, shard_bounds, shard_space
+from .mesh import (Mesh, ShardGrid, assemble, grid_spec, shard_bounds,
+                   shard_space)
 
 Values = dict[str, torch.Tensor]
 Shards = dict[str, ShardGrid]
@@ -1089,3 +1093,91 @@ class ShardMapExecutor:
 
         return run
 
+
+
+def _check_spec(spec, mesh: Mesh) -> tuple:
+    """``spec`` as a tuple of at most two entries, each a mesh axis name or
+    None, no name twice; raises otherwise."""
+    s = tuple(spec)
+    named = [a for a in s if a is not None]
+    if (len(s) > 2 or any(a not in mesh.axis_names for a in named)
+            or len(set(named)) != len(named)):
+        raise ValueError(
+            f"spec {s} must give each grid dimension (at most 2) a distinct "
+            f"mesh axis name of {mesh.axis_names}, or None")
+    return s
+
+
+def _positions_admit(model) -> bool:
+    """Whether ``ShardMapExecutor(mesh, "xla")`` runs ``model`` at ring
+    depth 1: every field flow declares a ``pointwise`` or ``ring1``
+    footprint, or a nonlinear Flow IR model's terms read at most one
+    ring."""
+    if getattr(model, "ir_terms", None) is not None and not model.ir_linear:
+        from ..ir.lower import max_footprint
+
+        return max(1, max_footprint(model.ir_terms)) == 1
+    return all(getattr(f, "footprint", "unknown") in ("pointwise", "ring1")
+               for f in model.flows if not isinstance(f, PointFlow))
+
+
+class AutoShardedExecutor:
+    """The GSPMD path's contract on a ``Mesh`` (counterpart of the JAX
+    package's ``AutoShardedExecutor``): the result is the global step's,
+    any flow runs, and the values never depend on the mesh or the spec.
+    JAX jits the global step with sharding annotations and XLA inserts the
+    halos; the port has no partitioner, so it runs one of three routes,
+    chosen as the JAX package chooses them:
+
+    - ``"point"``: an all-point-flow model, ``num_steps > 0``, plans that
+      build: the serial point subsystem on the global view
+      (``ops.point_kernel.serial_point_runner``: only the involved cells
+      step; dynamic amounts allowed); ``last_impl == "point"``.
+    - ``"positions"``: where every flow (or IR term) has a footprint
+      ``ShardMapExecutor(mesh, "xla")`` accepts, that executor's per-shard
+      plain-op runner and ghost-ring exchange (the halo GSPMD would
+      insert), through its inner run, so without its chaos seam: the JAX
+      package's GSPMD path has none.
+    - ``"whole"``: any other model (an undeclared footprint) runs
+      ``SerialExecutor("xla")``'s step loop on the whole grid on the mesh's
+      home device. In a ``torch.distributed`` world each process steps the
+      identical global space it holds.
+
+    Every route is bit for bit ``SerialExecutor("xla")``'s run and returns
+    global tensors on ``mesh.home_device()``; ``last_impl`` is ``"point"``
+    or ``"xla"``, ``last_route`` the route. ``spec`` (default
+    ``grid_spec(mesh)``) is the layout annotation JAX's sharding takes: it
+    is checked and kept, and changes no value."""
+
+    def __init__(self, mesh: Mesh, spec=None):
+        self.mesh = mesh
+        self.spec = grid_spec(mesh) if spec is None else _check_spec(spec,
+                                                                     mesh)
+        #: "xla" (the global step) or "point" (the point-subsystem fast
+        #: path of all-point-flow models), as the CLI reports it
+        self.last_impl: Optional[str] = "xla"
+        self.last_route: Optional[str] = None
+        self._positions = ShardMapExecutor(mesh, "xla")
+        self._global = SerialExecutor("xla")
+
+    @property
+    def comm_size(self) -> int:
+        return self.mesh.size
+
+    def run_model(self, model, space: CellularSpace, num_steps: int) -> Values:
+        shard_bounds(space, self.mesh)  # the divisibility rule, first
+        point = (num_steps > 0 and bool(model.flows)
+                 and all(isinstance(f, PointFlow) for f in model.flows))
+        if not point and _positions_admit(model):
+            self.last_impl, self.last_route = "xla", "positions"
+            return self._positions._run_inner(model, space, num_steps)
+        home = self.mesh.home_device()
+        if space.device != home:
+            space = space.with_values({k: v.to(home)
+                                       for k, v in space.values.items()})
+        out = self._global._run_inner(model, space, num_steps)
+        # an all-point model whose plans do not build runs the global step
+        point = self._global.last_impl == "point"
+        self.last_impl = "point" if point else "xla"
+        self.last_route = "point" if point else "whole"
+        return out

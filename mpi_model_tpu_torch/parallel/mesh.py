@@ -20,7 +20,9 @@ positions, on its own devices.
   over the positions (in a world above one, this process's card at each of
   its positions); with no card they raise (nothing moves to the CPU by
   itself).
-- ``factor2d`` and ``resolve_grid2d`` are the JAX package's, unchanged.
+- ``factor2d``, ``resolve_grid2d`` and ``grid_spec`` are the JAX
+  package's, unchanged (a spec is a tuple where JAX has a
+  ``PartitionSpec``).
 - ``shard_space`` cuts each channel into per-shard contiguous tensors on
   the shards' devices, this process's positions only (``None`` at the
   others); ``assemble`` puts them back together, gathering the positions
@@ -214,6 +216,14 @@ def make_mesh_2d(lines: Optional[int] = None, columns: Optional[int] = None,
             f"mesh {lines}x{columns} needs {n} devices, have {len(devs)}")
     return _mesh(tuple(axes), [devs[i * columns:(i + 1) * columns]
                                for i in range(lines)])
+
+
+def grid_spec(mesh: Mesh) -> tuple[Optional[str], Optional[str]]:
+    """The spec that shards grid rows over the first mesh axis and (for a
+    2-D mesh) columns over the second: one entry a grid dimension, a mesh
+    axis name or None (the JAX package's ``PartitionSpec``)."""
+    names = mesh.axis_names
+    return (names[0], names[1] if len(names) > 1 else None)
 
 
 def shard_bounds(space: CellularSpace, mesh: Mesh) -> tuple[int, int]:

@@ -1,10 +1,10 @@
 """Resilience: failure detection and recovery (``supervisor``:
 ``check_health``, ``supervised_run``), ``FailureEvent``, and ``inject``, the
 deterministic fault plans whose seams the executors, the halo exchange, the
-checkpoint writers, the serving path, the journal and the wire fire;
-``lockdep``, the lock-order witness the serving locks are made through; and
-``protocolcheck``, the witness of live journal streams. The fleet's member
-and tiering seams are not wired yet (ROADMAP.md, Queue 1).
+checkpoint writers, the serving path, the journal, the wire, the fleet's
+members and the tiering vault fire; ``lockdep``, the lock-order witness the
+serving locks are made through; and ``protocolcheck``, the witness of live
+journal streams.
 
 The supervisor's names are exported lazily (PEP 562): ``supervisor``
 imports ``models.model``, which imports ``inject`` from this package, so an

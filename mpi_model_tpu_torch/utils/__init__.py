@@ -1,11 +1,12 @@
-"""Utilities: the serving counters (``metrics``), tracing (``tracing``),
-the roofline read from the card (``roofline``) and the kernel build cache
-(``compile_cache``). The JAX package's measurement helpers in its
-``utils/metrics.py`` (``marginal_step_time``, ``interleaved_ab``, ...) come
-with the port's benchmark."""
+"""Utilities: the timing helpers and serving counters (``metrics``),
+tracing (``tracing``), the roofline read from the card (``roofline``) and
+the kernel build cache (``compile_cache``)."""
 
 from .compile_cache import configure_compile_cache, configured_dir
-from .metrics import LatencyReservoir, ThroughputCounter
+from .metrics import (LatencyReservoir, ThroughputCounter, interleaved_ab,
+                      marginal_runner_time, marginal_runner_trials,
+                      marginal_step_time, marginal_step_trials,
+                      median_spread, positive_spread)
 from .roofline import chip_peaks, stencil_roofline
 from .tracing import Span, Tracer, get_tracer, set_tracer, trace_span
 
@@ -14,6 +15,13 @@ __all__ = [
     "ThroughputCounter",
     "configure_compile_cache",
     "configured_dir",
+    "marginal_step_time",
+    "marginal_step_trials",
+    "median_spread",
+    "positive_spread",
+    "marginal_runner_time",
+    "marginal_runner_trials",
+    "interleaved_ab",
     "chip_peaks",
     "stencil_roofline",
     "Span",

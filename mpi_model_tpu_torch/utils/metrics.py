@@ -1,7 +1,19 @@
-"""Serving counters of the ensemble scheduler (counterpart of
-``mpi_model_tpu/utils/metrics.py:199-460``; the port keeps its own copy and
+"""Timing helpers and serving counters (counterpart of
+``mpi_model_tpu/utils/metrics.py``; the port keeps its own copy and
 imports nothing of the JAX package).
 
+- The marginal timing helpers, under the JAX package's names and
+  signatures: a step's cost is ``(t(s2) - t(s1)) / (s2 - s1)`` between two
+  run lengths, so a call's fixed cost cancels. The JAX package's scan of
+  ``s`` steps is here a loop of ``s`` calls of ``step`` on a fresh clone of
+  the values made outside the timed region (the clone is what ``donate``
+  means here: the loop may consume it); completion is forced by
+  synchronizing the devices of the values the loop returns, so no
+  asynchronous launch is ever timed. ``marginal_step_time``,
+  ``marginal_step_trials``, ``interleaved_ab`` (steps), and
+  ``marginal_runner_time``, ``marginal_runner_trials`` (a runner that
+  blocks until its work is done); ``median_spread`` and
+  ``positive_spread`` give the JAX package's dicts.
 - ``LatencyReservoir``: a bounded, self-locked reservoir of latency samples
   with nearest-rank p50/p99.
 - ``ThroughputCounter``: monotonic serving counters and the derived
@@ -18,10 +30,183 @@ is a plain lock, as in the JAX package.
 from __future__ import annotations
 
 import collections
+import statistics
 import threading
-from typing import Optional
+import time
+from typing import Callable, Optional
+
+import torch
 
 from ..resilience import lockdep
+
+Values = dict
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a dict/list/tuple tree."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def _block(tree) -> None:
+    """Wait until the work behind every card tensor of ``tree`` is done
+    (one synchronize a device)."""
+    devices = set()
+    _tree_map(lambda t: devices.add(t.device), tree)
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _fresh(values: Values, donate: bool):
+    """The run's input: a clone of ``values`` when the loop may consume
+    it (``donate``), else ``values`` itself."""
+    return _tree_map(torch.clone, values) if donate else values
+
+
+def _loop_runner(step: Callable, steps: int) -> Callable:
+    """``run(values)``: ``steps`` calls of ``step``, then a wait for the
+    result (the JAX package's scan and its fetched reduction)."""
+    def run(values):
+        for _ in range(steps):
+            values = step(values)
+        _block(values)
+        return values
+    return run
+
+
+def _timed(run: Callable, values: Values, donate: bool) -> float:
+    """Wall seconds of one ``run`` on a fresh input, the input's copy made
+    and finished before the clock starts."""
+    fresh = _fresh(values, donate)
+    _block(fresh)
+    t0 = time.perf_counter()
+    run(fresh)
+    return time.perf_counter() - t0
+
+
+def _scan_runners(step: Callable, values: Values, lengths: tuple,
+                  donate: bool = True) -> dict:
+    """One warmed runner a run length (builds and lazy caches fill here,
+    never inside a timed region): length → ``run(values)``."""
+    runners = {}
+    for steps in lengths:
+        run = _loop_runner(step, steps)
+        run(_fresh(values, donate))
+        runners[steps] = run
+    return runners
+
+
+def marginal_step_time(step: Callable, values: Values, s1: int = 50,
+                       s2: int = 250, reps: int = 2,
+                       donate: bool = True) -> float:
+    """Seconds per step of ``step`` (a Values→Values function), measured
+    marginally between run lengths ``s1`` and ``s2`` on fresh clones of
+    ``values`` (``donate``), best of ``reps``, each length warmed once."""
+    runners = _scan_runners(step, values, (s1, s2), donate)
+    times = {steps: min(_timed(runners[steps], values, donate)
+                        for _ in range(reps)) for steps in (s1, s2)}
+    return (times[s2] - times[s1]) / (s2 - s1)
+
+
+def _marginal_sample(runners: dict, values: Values, s1: int, s2: int,
+                     donate: bool = True) -> float:
+    """One marginal per-step estimate from warmed runners, both lengths
+    timed back to back so drift of the card's state hits both arms."""
+    ts = {steps: _timed(runners[steps], values, donate)
+          for steps in (s1, s2)}
+    return (ts[s2] - ts[s1]) / (s2 - s1)
+
+
+def marginal_step_trials(step: Callable, values: Values, s1: int = 10,
+                         s2: int = 60, trials: int = 5,
+                         donate: bool = True) -> list[float]:
+    """``trials`` independent marginal per-step estimates (seconds), the
+    two run lengths timed back to back within each trial after one
+    warm-up each; callers take the median and report the spread."""
+    runners = _scan_runners(step, values, (s1, s2), donate)
+    return [_marginal_sample(runners, values, s1, s2, donate)
+            for _ in range(trials)]
+
+
+def marginal_runner_trials(make_output: Callable[[int], object],
+                           s1: int = 10, s2: int = 40,
+                           trials: int = 3) -> list[float]:
+    """``trials`` marginal per-step estimates for an arbitrary runner
+    (``make_output(num_steps)`` must block until the work is done), the two
+    lengths back to back within a trial. Call ``make_output(s1)`` once
+    first if warm-up must not reach trial 1: every call made here is
+    timed."""
+    out: list[float] = []
+    for _ in range(trials):
+        ts = {}
+        for steps in (s1, s2):
+            t0 = time.perf_counter()
+            make_output(steps)
+            ts[steps] = time.perf_counter() - t0
+        out.append((ts[s2] - ts[s1]) / (s2 - s1))
+    return out
+
+
+def marginal_runner_time(make_output: Callable[[int], object],
+                         s1: int = 10, s2: int = 50,
+                         reps: int = 2) -> float:
+    """Marginal per-step seconds for an arbitrary runner: calls
+    ``make_output(num_steps)`` (which must block until the work is done;
+    it may be a subprocess run) at two step counts, each warmed once, best
+    of ``reps``."""
+    times = {}
+    for steps in (s1, s2):
+        make_output(steps)  # warm-up: builds, caches, page-in
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            make_output(steps)
+            best = min(best, time.perf_counter() - t0)
+        times[steps] = best
+    return (times[s2] - times[s1]) / (s2 - s1)
+
+
+def interleaved_ab(steps: dict, values: Values, *, s1: int = 5,
+                   s2: int = 25, reps: int = 4,
+                   spread: bool = False) -> dict:
+    """Interleaved A/B medians: every arm's two runners are built and
+    warmed first, then each round takes one marginal sample per arm, the
+    arms in turn, so drift hits every arm of a round together. ``steps``
+    maps arm name → step function; returns arm name → median seconds per
+    step, or with ``spread=True`` arm name → ``median_spread`` of its
+    samples."""
+    runners = {name: _scan_runners(step, values, (s1, s2))
+               for name, step in steps.items()}
+    times: dict = {name: [] for name in steps}
+    for _ in range(reps):
+        for name in steps:
+            times[name].append(
+                _marginal_sample(runners[name], values, s1, s2))
+    if spread:
+        return {name: median_spread(ts) for name, ts in times.items()}
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def positive_spread(samples: list[float], scale: float) -> dict:
+    """``{lo, hi}`` of ``scale / t`` over the positive samples (a noisy
+    marginal estimate can be zero or negative, and carries no spread); None
+    fields when none is positive."""
+    pos = [s for s in samples if s > 0]
+    return {"lo": scale / max(pos) if pos else None,
+            "hi": scale / min(pos) if pos else None}
+
+
+def median_spread(samples: list[float]) -> dict:
+    """``{value: median, spread_lo: min, spread_hi: max}`` of the
+    samples."""
+    return {"value": statistics.median(samples),
+            "spread_lo": min(samples), "spread_hi": max(samples)}
 
 #: latency samples kept for the percentile fields: bounded, so a long-lived
 #: service reports the p50/p99 of its recent traffic

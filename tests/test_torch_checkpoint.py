@@ -419,16 +419,23 @@ def _cli(argv):
      "--keyframe-every sets the delta chain"),
     (["--checkpoint-dir=X", "--checkpoint-layout=delta",
       "--keyframe-every=0"], "must be >= 1"),
-    # the sharded layout runs (tests/test_torch_sharded_checkpoint.py); the
-    # AutoShardedExecutor it could be combined with stays refused
+    # the sharded layout runs (tests/test_torch_sharded_checkpoint.py), and
+    # with the AutoShardedExecutor too, as the JAX CLI runs it (msg None:
+    # the run exits 0, X a fresh directory)
     (["--checkpoint-dir=X", "--checkpoint-layout=sharded", "--mesh=2x1",
-      "--executor=gspmd"], "ROADMAP"),
+      "--executor=gspmd", "--flow=diffusion", "--steps=4",
+      "--checkpoint-every=2"], None),
     (["--checkpoint-dir=X", "--checkpoint-layout=sharded",
-      "--async-checkpoints", "--mesh=2x1", "--executor=gspmd"], "ROADMAP"),
+      "--async-checkpoints", "--mesh=2x1", "--executor=gspmd",
+      "--flow=diffusion", "--steps=4", "--checkpoint-every=2"], None),
     (["--ensemble=2", "--checkpoint-dir=X"], "ensemble"),
     (["--serve", "--checkpoint-dir=X"], "--serve does not compose"),
 ])
-def test_cli_checkpoint_flag_checks(argv, msg):
+def test_cli_checkpoint_flag_checks(argv, msg, tmp_path):
+    if msg is None:
+        assert _cli([a.replace("=X", f"={tmp_path / 'ckpt'}")
+                     for a in argv]) == 0
+        return
     with pytest.raises(SystemExit, match=msg):
         _cli(argv)
 

@@ -15,8 +15,8 @@ JAX package's ``multihost`` and the port's own one-process runs.
   ``refresh_rings``'s buffers bit for bit.
 - Slow (they start processes): the port's ``dryrun_two_process`` and
   ``dryrun_supervised_kill`` on CPU processes over gloo, and every runner
-  of ``ShardMapExecutor`` across two processes, each held bit for bit to
-  its one-process run.
+  of ``ShardMapExecutor`` and every route of ``AutoShardedExecutor``
+  across two processes, each held bit for bit to its one-process run.
 """
 
 import ast
@@ -421,8 +421,9 @@ if {pid} >= 0:
     multihost.initialize("127.0.0.1:{port}", num_processes=2,
                          process_id={pid}, backend="gloo")
 import mpi_model_tpu_torch as mt
-from mpi_model_tpu_torch.parallel import ShardMapExecutor, make_mesh, \
-    make_mesh_2d
+from mpi_model_tpu_torch.ops.flow import Flow
+from mpi_model_tpu_torch.parallel import AutoShardedExecutor, \
+    ShardMapExecutor, make_mesh, make_mesh_2d
 
 cpu = torch.device("cpu")
 rng = np.random.default_rng(17)
@@ -495,6 +496,36 @@ out, rep = gs.execute(gspace, ShardMapExecutor(
 rows["ir gray_scott"] = {{"impl": rep.impl, "sha": {{
     k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
     for k, v in out.values.items()}}}}
+
+
+class Undeclared(Flow):
+    flow_rate = 0.1
+    attr = "value"
+
+    def outflow(self, values, origin=(0, 0)):
+        return values[self.attr] * self.flow_rate
+
+
+dynamic = mt.Model([mt.PointFlow((15, 31), 0.3, frozen_source_value=2.2),
+                    mt.PointFlow((3, 3), 0.1)])
+gspmd = {{
+    "gspmd positions 2x4": (point, {{"value": dense}}, torch.float64,
+                            lambda: make_mesh_2d(2, 4, devices=[cpu] * 8)),
+    "gspmd positions stripes": (field, two, torch.float32,
+                                lambda: make_mesh(4, devices=[cpu] * 4)),
+    "gspmd whole 2x4": (mt.Model(Undeclared()), {{"value": dense}},
+                        torch.float64,
+                        lambda: make_mesh_2d(2, 4, devices=[cpu] * 8)),
+    "gspmd point 2x4": (dynamic, {{"value": dense}}, torch.float64,
+                        lambda: make_mesh_2d(2, 4, devices=[cpu] * 8)),
+}}
+for name, (model, vals, dtype, mk) in gspmd.items():
+    ex = AutoShardedExecutor(mk())
+    out, rep = model.execute(space(vals, dtype), ex, steps=5,
+                             check_conservation=False)
+    rows[name] = {{"impl": rep.impl, "route": ex.last_route,
+                  "sha": {{k: hashlib.sha256(v.numpy().tobytes()).hexdigest()
+                          for k, v in out.values.items()}}}}
 if {pid} <= 0:
     print(json.dumps(rows), flush=True)
 """
@@ -504,9 +535,10 @@ if {pid} <= 0:
 def test_every_runner_across_two_processes_is_its_one_process_run():
     """Each runner of ShardMapExecutor (the xla ring-1 and deep-halo
     steps, K2, K3-halo and K4-halo through their plain versions, the
-    sharded active runners, the point subsystem, the IR runner) on meshes
-    laid over two gloo processes: the gathered grids, totals and kernel
-    records are the one-process run's, bit for bit."""
+    sharded active runners, the point subsystem, the IR runner) and each
+    route of AutoShardedExecutor (per position, whole grid, point) on
+    meshes laid over two gloo processes: the gathered grids, totals and
+    kernel records are the one-process run's, bit for bit."""
     args = dict(root=multihost._root(), port=multihost.probe_free_port())
     outs = multihost._launch_workers(
         [RUNNERS_WORKER.format(pid=p, **args) for p in (0, 1)], 300)
@@ -522,3 +554,6 @@ def test_every_runner_across_two_processes_is_its_one_process_run():
     assert want["active"]["report"]["shards"] == 8
     assert want["pallas K2"]["impl"] == "pallas"
     assert want["point subsystem"]["impl"] == "point"
+    assert [want[f"gspmd {r} 2x4"]["route"] for r in (
+        "positions", "whole", "point")] == ["positions", "whole", "point"]
+    assert want["gspmd point 2x4"]["impl"] == "point"

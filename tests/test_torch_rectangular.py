@@ -220,7 +220,8 @@ def test_cli_rectangular_row_with_the_owner(capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mesh=2x2", "--executor=gspmd"], "ROADMAP.md"),
+    # runs, as the JAX CLI runs it (what None: the run exits 0)
+    (["--mesh=2x2", "--executor=gspmd"], None),
     (["--halo-depth=2"], "--halo-depth applies to sharded execution"),
     (["--mesh=2x2", "--substeps=2"], "--substeps applies to the serial"),
     (["--mesh=2x2", "--rectangular=2x2"], "--rectangular IS the mesh"),
@@ -231,6 +232,9 @@ def test_cli_rectangular_row_with_the_owner(capsys):
     (["--mesh=2x2", "--ensemble=2"], "drop --mesh/--rectangular"),
 ])
 def test_cli_error_rows(argv, what):
+    if what is None:
+        assert cli_main(["run", "--device=cpu", "--json", *argv]) == 0
+        return
     with pytest.raises(SystemExit) as e:
         cli_main(["run", "--device=cpu", "--json", *argv])
     assert what in str(e.value)

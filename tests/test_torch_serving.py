@@ -761,17 +761,17 @@ def test_cli_serve_flag_validation(argv):
     ["--ensemble-mesh=2"],
 ])
 def test_cli_refuses_unported_serving_flags(argv, tmp_path):
-    """``--ensemble-mesh`` is ported now, alone and beside the serving flags
-    ported before it (``--serve-transport=tcp``, ``--residency-budget``/
-    ``--hibernate-dir``, whose own checks are
-    ``tests/test_torch_tiering.py``'s); a meshed serve runs in
-    ``tests/test_torch_ensemble_mesh.py``. The flag the CLI still refuses is
-    ``--executor=gspmd`` (the AutoShardedExecutor): it exits naming
-    ROADMAP.md, whatever serving flags ride along, before any serving
-    starts (no vault directory is made)."""
+    """``--ensemble-mesh`` runs alone and beside the serving flags
+    (``--serve-transport=tcp``, ``--residency-budget``/``--hibernate-dir``,
+    whose own checks are ``tests/test_torch_tiering.py``'s); a meshed serve
+    runs in ``tests/test_torch_ensemble_mesh.py``. ``--serve`` with
+    ``--executor=gspmd`` is refused as the JAX CLI refuses it (GSPMD is a
+    sharded path and wants ``--mesh``), whatever serving flags ride along,
+    before any serving starts (no vault directory is made)."""
     vault = str(tmp_path / "vault")
     argv = [a.replace("{vault}", vault) for a in argv]
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    with pytest.raises(SystemExit, match="is a sharded path; add "
+                                         "--mesh=LxC"):
         cli_main(["run", "--serve", "--device=cpu", "--executor=gspmd",
                   *argv])
     assert not os.path.exists(vault)
