@@ -551,6 +551,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    --executor=gspmd --json`` (the reference's scenario: ``point``) and of
    the same with ``--flow=diffusion`` at the phase's side (``xla``). Every
    number is printed beside the card's name and power limit.
+6r. the examples on the card (``examples_phase``; alone:
+   ``examples_phase_main``; it prints its seconds): each of
+   ``mpi_model_tpu_torch/examples``' four ``main(device=dev)`` in this
+   process, the counts set to 0 just before and read just after, each
+   example's own checks raising: (a) ``reference_run``, its serial f64 grid
+   bit for bit ``oracle.reference_run_np()``, its 5 stripes bit for bit
+   serial, owner 3, no launch; (b) ``masked_lake`` and (c)
+   ``reaction_diffusion``, no launch (the plain path: K4 takes no bool
+   modulator, Gray-Scott is nonlinear); (d) ``scaling`` at its card branch
+   (2048² bf16) and at full width (16384² f32): section 1 launches K1 16
+   times and nothing else runs a kernel, its grid bit for bit 16 chained
+   ``dense_step_plain(nsteps=4)`` on the card, section 3 bit for bit its
+   uninterrupted run; section 4 runs the example's 50,000 point steps
+   unless a 1,000-step probe says they take more than 8 s (then fewer, and
+   the phase says how many). An ``examples`` line before the kernels line
+   gives each example's seconds and section 4's microseconds a step beside
+   the card's name and power limit.
 7. the CLI (K1, active_fused, K4, ensemble pipeline, ``--mesh=2x2`` with
    K2 and with ``--impl=active_fused --blob=0.05``, whose row must show
    K6 + K7 launches == 2 · ``flags_fused``), the reference scenario through
@@ -7617,6 +7634,175 @@ def gspmd_phase_main() -> None:
     print(json.dumps(out, default=repr), flush=True)
 
 
+#: phase 6r's probe of the point path (steps), and the seconds each of its
+#: two point runs may take: above that, the phase runs fewer steps than the
+#: example's 50,000 (the example itself keeps them) and says how many
+EXAMPLES_POINT_PROBE = 1000
+EXAMPLES_POINT_S = 8.0
+
+
+def examples_phase(np, torch, dev, card_line: str, reset_counts,
+                   kernel_launches) -> dict:
+    """Phase 6r: the four examples (``mpi_model_tpu_torch/examples``) on
+    the card, each ``main(device=dev)`` in this process with the counts set
+    to 0 just before and read just after (the module docstring). Returns
+    its rows."""
+    from mpi_model_tpu_torch import oracle
+    from mpi_model_tpu_torch.core.cell import MOORE_OFFSETS
+    from mpi_model_tpu_torch.examples import (masked_lake,
+                                              reaction_diffusion,
+                                              reference_run, scaling)
+    from mpi_model_tpu_torch.ops import fused_stencil as fs
+
+    t_phase = time.perf_counter()
+    out: dict = {"card": card_line}
+
+    def counted(name: str, fn):
+        """``fn()``'s result and its row: seconds and launches."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": {k: n for k, n in kernel_launches().items()
+                                  if n}}
+        return res, out[name]
+
+    # -- (a) reference_run: the golden bit for bit --------------------------
+    res, row = counted("reference_run", lambda: reference_run.main(dev))
+    row["oracle_bitwise"] = bool(np.array_equal(
+        res["serial"].cpu().numpy(), oracle.reference_run_np()))
+    row["sharded_bitwise"] = bool(torch.equal(res["sharded"],
+                                              res["serial"]))
+    row["owner"] = res["owner"]
+    print(f"6r (a) {card_line}: reference_run {row['seconds']:.3f} s, "
+          f"serial f64 bit for bit oracle.reference_run_np: "
+          f"{row['oracle_bitwise']}, 5 stripes bit for bit serial: "
+          f"{row['sharded_bitwise']}, owner of (18,19) {row['owner']}, "
+          f"launches {row['launches']}", flush=True)
+    check(row["oracle_bitwise"] and row["sharded_bitwise"]
+          and row["owner"] == 3 and not row["launches"], f"6r (a): {row}")
+
+    # -- (b) masked_lake, (c) reaction_diffusion: no kernel ----------------
+    res, row = counted("masked_lake", lambda: masked_lake.main(dev))
+    row["impl"] = res["impl"]
+    row["sharded_err"] = res["sharded_err"]
+    print(f"6r (b) {card_line}: masked_lake {row['seconds']:.3f} s, serial "
+          f"impl {row['impl']}, stripes max|err| {row['sharded_err']:.3e}, "
+          f"launches {row['launches']}", flush=True)
+    check(row["impl"] == "xla" and row["sharded_err"] == 0.0
+          and not row["launches"], f"6r (b): {row}")
+    res, row = counted("reaction_diffusion",
+                       lambda: reaction_diffusion.main(dev))
+    row["residual"] = res["residual"]
+    row["ledger"] = res["ledger"]
+    print(f"6r (c) {card_line}: reaction_diffusion {row['seconds']:.3f} s, "
+          f"ledger {row['ledger']}, residual {row['residual']:.3e}, "
+          f"launches {row['launches']}", flush=True)
+    check(not row["launches"], f"6r (c): {row}")
+
+    # -- (d) scaling: K1 in section 1, at the card branch and full width ----
+    probe = scaling.point_run(2048, EXAMPLES_POINT_PROBE, dev)
+    us = probe["seconds"] / EXAMPLES_POINT_PROBE * 1e6
+    steps = scaling.POINT_STEPS
+    if steps * us * 1e-6 > EXAMPLES_POINT_S:
+        steps = max(EXAMPLES_POINT_PROBE,
+                    int(EXAMPLES_POINT_S / (us * 1e-6)) // 1000 * 1000)
+    out["point_probe"] = {"steps": EXAMPLES_POINT_PROBE, "us_per_step": us,
+                          "impl": probe["impl"], "phase_steps": steps}
+    print(f"6r (d) {card_line}: point path probe, {EXAMPLES_POINT_PROBE} "
+          f"steps at 2048^2: {us:.2f} us a step ({probe['impl']}); the "
+          f"phase runs section 4 at {steps} steps (the example's default "
+          f"{scaling.POINT_STEPS})", flush=True)
+    del probe
+    for name, kw in (("scaling", {}),
+                     ("scaling_full", {"side": N, "dtype": "float32"})):
+        res, row = counted(name, lambda kw=kw: scaling.main(
+            dev, point_steps=steps, **kw))
+        g, dname = res["side"], res["dtype"]
+        x = torch.ones((g, g), dtype=getattr(torch, dname), device=dev)
+        for _ in range(16):
+            x = fs.dense_step_plain(x, 0.1, MOORE_OFFSETS, 4)
+        got = res["s1"]["values"]
+        row.update({
+            "side": g, "dtype": dname, "s1_seconds": res["s1"]["seconds"],
+            "s1_impl": res["s1"]["impl"], "s1_launches": res["s1"]["launches"],
+            "s1_plain_bitwise": bool(torch.equal(got, x)),
+            "s1_plain_err": float((got.float() - x.float()).abs().max()),
+            "s3_bitwise": res["s3"]["bitwise"],
+            "s4_steps": res["s4"]["steps"],
+            "s4_us_per_step": res["s4"]["us_per_step"],
+            "s4_impl": res["s4"]["impl"]})
+        del x, got, res
+        print(f"6r (d) {card_line}: scaling {g}x{g} {dname}, "
+              f"{row['seconds']:.3f} s: section 1 {row['s1_seconds']:.3f} s "
+              f"impl {row['s1_impl']}, K1 launches {row['s1_launches']} "
+              f"(counted {row['launches']}), bit for bit 16 chained "
+              f"dense_step_plain(nsteps=4): {row['s1_plain_bitwise']} "
+              f"(max|err| {row['s1_plain_err']:.3e}); section 3 bit for "
+              f"bit uninterrupted: {row['s3_bitwise']}; section 4 "
+              f"{row['s4_steps']} steps, {row['s4_us_per_step']:.2f} us a "
+              f"step ({row['s4_impl']})", flush=True)
+        check(row["s1_impl"] == "pallas" and row["s1_launches"] == 16
+              and row["launches"] == {"fused_stencil": 16}
+              and row["s1_plain_bitwise"] and row["s3_bitwise"]
+              and row["s4_impl"] == "point", f"6r (d) {name}: {row}")
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"6r: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def examples_line(ex: dict) -> str:
+    """The ``examples`` line: each example's seconds and section 4's
+    microseconds a step, beside the card's name and power limit."""
+    return json.dumps({"examples": {
+        "seconds": {k: ex[k]["seconds"] for k in (
+            "reference_run", "masked_lake", "reaction_diffusion", "scaling",
+            "scaling_full")},
+        "point_us_per_step": {k: ex[k]["s4_us_per_step"]
+                              for k in ("scaling", "scaling_full")},
+        "point_steps": ex["scaling"]["s4_steps"],
+        "phase_seconds": ex["seconds"], "card": ex["card"]}})
+
+
+def examples_phase_main() -> None:
+    """Phase 6r alone (``python3 -c "import chip_smoke;
+    chip_smoke.examples_phase_main()"``): builds K1's source, the one
+    kernel the examples launch, runs ``examples_phase`` on the card, writes
+    ``chiprun_out/chip_smoke_6r.json`` and prints the ``examples`` line and
+    then the phase's rows as its last line."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from mpi_model_tpu_torch.models.model import kernel_launches
+    from mpi_model_tpu_torch.ops import (_build, composed_stencil,
+                                         field_stencil, fused_active,
+                                         fused_stencil, pipeline_stencil)
+
+    def reset_counts():
+        for m in (fused_stencil, composed_stencil, field_stencil,
+                  pipeline_stencil, fused_active):
+            m.reset_launches()
+
+    _build.load("fused_stencil")
+    out = examples_phase(np, torch, torch.device("cuda"),
+                         smi_card_line(torch.cuda.get_device_name(0)),
+                         reset_counts, kernel_launches)
+    out["process_seconds"] = time.perf_counter() - t0
+    out_dir = Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_6r.json").write_text(
+        json.dumps(out, indent=1, default=repr))
+    print(examples_line(out), flush=True)
+    print(json.dumps(out, default=repr), flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9122,6 +9308,11 @@ def main() -> int:
     gspmd = gspmd_phase(np, torch, mt, dev, card_line, reset_counts,
                         kernel_launches)
 
+    # -- 6r. the examples on the card ---------------------------------------------
+    torch.cuda.empty_cache()
+    examples = examples_phase(np, torch, dev, card_line, reset_counts,
+                              kernel_launches)
+
     # -- 7. CLI and the reference run ------------------------------------------
     from mpi_model_tpu_torch.cli import main as cli_main
     rc = cli_main(["run", "--flow=diffusion", f"--dimx={N}", f"--dimy={N}",
@@ -9529,10 +9720,11 @@ def main() -> int:
          "checkpoint": ckpt, "ir": ir, "observability": observability,
          "fleet": fleet, "tiering": tiering, "meshes": meshes,
          "ladder_formats": ladder, "analysis": analysis,
-         "multiprocess": multiproc, "gspmd": gspmd,
+         "multiprocess": multiproc, "gspmd": gspmd, "examples": examples,
          "build": _build.build_info, "cases": cases,
          "seconds": time.perf_counter() - t_start}, indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(examples_line(examples), flush=True)
     print(json.dumps(kernels), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,8 @@ Layer map (as in the JAX package):
                          always-on async service and ``run_soak``
   —  ``ir``           — the Flow IR: terms, the one registered lowering,
                          FlowIRModel and its library (``--model``)
+  —  ``examples``     — the four front-door scripts (``python -m
+                         mpi_model_tpu_torch.examples.<name>``)
   —  ``utils`` (timing helpers, serving counters, tracing, the roofline
      read from the card, the kernel build cache), ``obs`` (the flight
      recorder, the telemetry snapshot, the status endpoint), ``resilience``
@@ -39,6 +41,8 @@ from .ops import Coupled, Diffusion, Exponencial, Flow, PointFlow, \
     cell_coords
 from .models import ConservationError, Model, ModelRectangular, Report, \
     SerialExecutor
+from .resilience import (FailureEvent, SimulationFailure, check_health,
+                         supervised_run)
 from .parallel import (AutoShardedExecutor, ShardMapExecutor, make_mesh,
                        make_mesh_2d, shard_space)
 from .ensemble import (AsyncEnsembleService, EnsembleConservationError,
@@ -69,6 +73,10 @@ __all__ = [
     "ModelRectangular",
     "Report",
     "SerialExecutor",
+    "FailureEvent",
+    "SimulationFailure",
+    "check_health",
+    "supervised_run",
     "AsyncEnsembleService",
     "EnsembleConservationError",
     "EnsembleExecutor",
@@ -93,4 +101,5 @@ __all__ = [
     "Transfer",
     "Transport",
     "build_model",
+    "__version__",
 ]

@@ -3,7 +3,10 @@
 Counterpart of ``mpi_model_tpu/abstraction.py``: the same ``DataType`` enum
 (its integer values are the native C ABI tags, so they never change) and the
 same ``get_abstraction_data_type`` front door, with ``to_torch`` in place of
-``to_jax``. Unsupported types raise ``UnsupportedDataTypeError``.
+``to_jax``, and the JAX package's ``to_numpy`` (the oracle's dtype),
+``to_native`` (the C engine's tag, ``native.py``) and ``itemsize``; each of
+these takes a ``DataType`` or anything ``get_abstraction_data_type`` maps.
+Unsupported types raise ``UnsupportedDataTypeError``.
 """
 
 from __future__ import annotations
@@ -93,3 +96,27 @@ def to_torch(dt: DataType) -> torch.dtype:
     """DataType → torch dtype (bf16 maps to ``torch.bfloat16``)."""
     return _TORCH[DataType(dt)]
 
+
+
+def to_numpy(dt: Any) -> np.dtype:
+    """DataType → numpy dtype (the oracle's). numpy has no bfloat16 (the
+    JAX package takes ``ml_dtypes``'s, which the port does not load), so a
+    bf16 request raises; the port's host copies of a bf16 channel are
+    float32 (``CellularSpace.to_numpy``)."""
+    dt = get_abstraction_data_type(dt)
+    if dt == DataType.BFLOAT16:
+        raise UnsupportedDataTypeError(
+            "numpy has no bfloat16; the port's host copies of bf16 "
+            "channels are float32")
+    return np.dtype(dt.name.lower())
+
+
+def to_native(dt: Any) -> int:
+    """DataType → the native engine's dtype tag (``mmtpu_dtype_t``, the
+    enum's value)."""
+    return int(get_abstraction_data_type(dt))
+
+
+def itemsize(dt: Any) -> int:
+    """Size in bytes of one scalar of this type."""
+    return to_torch(get_abstraction_data_type(dt)).itemsize

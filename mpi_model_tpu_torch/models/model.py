@@ -38,7 +38,8 @@ import dataclasses
 import math
 import time as _time
 import warnings
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Protocol, Sequence, Union, \
+    runtime_checkable
 
 import torch
 
@@ -115,6 +116,19 @@ class Report:
             abs(self.final_total[k] - self.initial_total[k])
             for k in self.initial_total
         )
+
+
+@runtime_checkable
+class Executor(Protocol):
+    """Execution strategy: how the step loop runs over devices
+    (``SerialExecutor``, ``parallel.ShardMapExecutor``,
+    ``parallel.AutoShardedExecutor``, or a user's own)."""
+
+    def run_model(self, model: "Model", space: CellularSpace,
+                  num_steps: int) -> Values: ...
+
+    @property
+    def comm_size(self) -> int: ...
 
 
 class SerialExecutor:
@@ -878,7 +892,7 @@ class Model:
     def execute(
         self,
         space: CellularSpace,
-        executor: Optional[SerialExecutor] = None,
+        executor: Optional[Executor] = None,
         *,
         steps: Optional[int] = None,
         check_conservation: bool = True,

@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .abstraction import DataType
+from .abstraction import DataType, to_native
 from .core.cellular_space import CellularSpace
 from .ops.flow import Coupled, Diffusion, PointFlow
 
@@ -155,7 +155,7 @@ def load_library():
     # the engine's dtype tags are abstraction.DataType's values
     for tag, want in ((lib.mmtpu_dtype_tag_float64(), DataType.FLOAT64),
                       (lib.mmtpu_dtype_tag_float32(), DataType.FLOAT32)):
-        if tag != int(want):
+        if tag != to_native(want):
             raise RuntimeError(f"native dtype tag {tag} != {want!r}")
     _lib = lib
     return lib
@@ -229,10 +229,10 @@ class NativeSpace:
         self.dtype = str(dtype)
         arr = (ctypes.c_char_p * len(attrs))(*[a.encode() for a in attrs])
         self._ptr = self._lib.mmtpu_space_create_typed(
-            dim_x, dim_y, float(init), arr, len(attrs), int(tag))
+            dim_x, dim_y, float(init), arr, len(attrs), to_native(tag))
         if not self._ptr:
             raise RuntimeError(self._lib.mmtpu_last_error().decode())
-        if self._lib.mmtpu_space_dtype(self._ptr) != int(tag):
+        if self._lib.mmtpu_space_dtype(self._ptr) != to_native(tag):
             raise RuntimeError("the native space's dtype is not the one "
                                "asked for")
         self.shape = (dim_x, dim_y)

@@ -55,6 +55,37 @@ def point_flow_step_np(values: np.ndarray, x: int, y: int, amount: float,
     return out
 
 
+def cut_np(G: np.ndarray, rs: int, re: int, cs: int, ce: int) -> np.ndarray:
+    """``G[rs:re, cs:ce]`` with zero-fill outside the grid: what a ghost-ring
+    exchange delivers to a shard at a true grid edge."""
+    H, W = G.shape
+    out = np.zeros((re - rs, ce - cs), G.dtype)
+    rs_c, re_c = max(rs, 0), min(re, H)
+    cs_c, ce_c = max(cs, 0), min(ce, W)
+    if rs_c < re_c and cs_c < ce_c:
+        out[rs_c - rs:re_c - rs, cs_c - cs:ce_c - cs] = G[rs_c:re_c,
+                                                          cs_c:ce_c]
+    return out
+
+
+def ring_from_global_np(G: np.ndarray, r0: int, c0: int, h: int, w: int,
+                        d: int) -> dict:
+    """The depth-``d`` ghost ring of the shard at global offset (r0, c0),
+    cut directly from the global grid (``parallel.halo.exchange_ring``'s
+    layout: n/s [d, w], w/e [h, d], corners [d, d]; zeros at true grid
+    edges). Ground truth for the halo kernels' checks."""
+    return {
+        "n": cut_np(G, r0 - d, r0, c0, c0 + w),
+        "s": cut_np(G, r0 + h, r0 + h + d, c0, c0 + w),
+        "w": cut_np(G, r0, r0 + h, c0 - d, c0),
+        "e": cut_np(G, r0, r0 + h, c0 + w, c0 + w + d),
+        "nw": cut_np(G, r0 - d, r0, c0 - d, c0),
+        "ne": cut_np(G, r0 - d, r0, c0 + w, c0 + w + d),
+        "sw": cut_np(G, r0 + h, r0 + h + d, c0 - d, c0),
+        "se": cut_np(G, r0 + h, r0 + h + d, c0 + w, c0 + w + d),
+    }
+
+
 def reference_run_np(dim_x: int = 100, dim_y: int = 100,
                      src: tuple[int, int] = (19, 3),
                      snapshot_value: float = 2.2, rate: float = 0.1,

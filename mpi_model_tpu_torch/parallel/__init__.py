@@ -10,11 +10,13 @@ from .halo import (exchange_halo_1d, exchange_ring, exchange_rings,
                    gather_from_padded, pad_rings, pad_with_halo_1d,
                    pad_with_halo_2d, refresh_rings, ring_plan, zero_ring)
 from .mesh import (Mesh, assemble, factor2d, grid_spec, make_mesh,
-                   make_mesh_2d, resolve_grid2d, shard_space)
+                   make_mesh_2d, mesh_spans_processes, put_global,
+                   resolve_grid2d, shard_space)
 
 __all__ = [
     "Mesh", "make_mesh", "make_mesh_2d", "factor2d", "resolve_grid2d",
-    "grid_spec", "shard_space", "assemble", "exchange_halo_1d", "exchange_ring",
+    "grid_spec", "shard_space", "put_global", "mesh_spans_processes",
+    "assemble", "exchange_halo_1d", "exchange_ring",
     "exchange_rings", "ring_plan", "zero_ring", "pad_with_halo_1d",
     "pad_with_halo_2d", "pad_rings", "refresh_rings",
     "gather_from_padded", "global_sum", "gather_to_host",

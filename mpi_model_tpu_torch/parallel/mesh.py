@@ -23,10 +23,13 @@ positions, on its own devices.
 - ``factor2d``, ``resolve_grid2d`` and ``grid_spec`` are the JAX
   package's, unchanged (a spec is a tuple where JAX has a
   ``PartitionSpec``).
-- ``shard_space`` cuts each channel into per-shard contiguous tensors on
-  the shards' devices, this process's positions only (``None`` at the
-  others); ``assemble`` puts them back together, gathering the positions
-  other processes own.
+- ``put_global`` cuts one global tensor into per-shard contiguous tensors
+  on the shards' devices, this process's positions only (``None`` at the
+  others: each process supplies its own blocks from its identical copy, as
+  JAX's multi-host ``put_global`` does); ``shard_space`` does so for each
+  channel; ``assemble`` puts them back together, gathering the positions
+  other processes own. ``mesh_spans_processes`` says whether a mesh's
+  positions belong to more than one process.
 """
 
 from __future__ import annotations
@@ -226,11 +229,16 @@ def grid_spec(mesh: Mesh) -> tuple[Optional[str], Optional[str]]:
     return (names[0], names[1] if len(names) > 1 else None)
 
 
-def shard_bounds(space: CellularSpace, mesh: Mesh) -> tuple[int, int]:
-    """Per-shard (rows, columns) of ``space`` on ``mesh``; raises the JAX
-    package's error for a grid a mesh extent does not divide."""
+def mesh_spans_processes(mesh: Mesh) -> bool:
+    """True when the mesh's positions belong to more than one process of a
+    ``torch.distributed`` world (multi-host: a rank is a process)."""
+    return mesh.multiprocess
+
+
+def _block_shape(dims: tuple[int, int], mesh: Mesh) -> tuple[int, int]:
+    """Per-shard (rows, columns) of a grid of ``dims`` on ``mesh``; raises
+    the JAX package's error for a grid a mesh extent does not divide."""
     lines, columns = mesh.grid_shape
-    dims = (space.dim_x, space.dim_y)
     for axis_idx, (name, n) in enumerate(zip(mesh.axis_names,
                                              (lines, columns))):
         if dims[axis_idx] % n != 0:
@@ -238,7 +246,12 @@ def shard_bounds(space: CellularSpace, mesh: Mesh) -> tuple[int, int]:
                 f"grid dim {dims[axis_idx]} along '{name}' not divisible by "
                 f"mesh extent {n} (the reference's PROC_DIMX=DIMX/NWORKERS "
                 f"divisibility requirement, Defines.hpp:8)")
-    return space.dim_x // lines, space.dim_y // columns
+    return dims[0] // lines, dims[1] // columns
+
+
+def shard_bounds(space: CellularSpace, mesh: Mesh) -> tuple[int, int]:
+    """Per-shard (rows, columns) of ``space`` on ``mesh``."""
+    return _block_shape((space.dim_x, space.dim_y), mesh)
 
 
 def shard_tensor(t: torch.Tensor, mesh: Mesh, h: int, w: int) -> ShardGrid:
@@ -252,13 +265,19 @@ def shard_tensor(t: torch.Tensor, mesh: Mesh, h: int, w: int) -> ShardGrid:
     return grid
 
 
+def put_global(value: torch.Tensor, mesh: Mesh) -> ShardGrid:
+    """Place one global ``[H, W]`` tensor onto the mesh: its blocks, each a
+    contiguous copy on its position's device, this process's positions
+    only (None at the others). Requires dims divisible by the mesh extent
+    along each axis."""
+    h, w = _block_shape(tuple(value.shape), mesh)
+    return shard_tensor(value, mesh, h, w)
+
+
 def shard_space(space: CellularSpace, mesh: Mesh) -> dict[str, ShardGrid]:
-    """Place the space's channels onto the mesh (the live ``Scatter``): per
-    channel, a grid of per-shard contiguous tensors on the shards' devices,
-    this process's positions only. Requires dims divisible by the mesh
-    extent along each sharded axis."""
-    h, w = shard_bounds(space, mesh)
-    return {k: shard_tensor(v, mesh, h, w) for k, v in space.values.items()}
+    """Place the space's channels onto the mesh (the live ``Scatter``):
+    ``put_global`` of each channel."""
+    return {k: put_global(v, mesh) for k, v in space.values.items()}
 
 
 def assemble(grid: ShardGrid, device: torch.device) -> torch.Tensor:

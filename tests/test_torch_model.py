@@ -419,6 +419,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"mpi_model_tpu_torch/analysis/{m}.py" for m in (
         "__init__", "__main__", "registry", "astlint", "concurrency",
         "protocol", "step_audit")} <= rel
+    assert {f"mpi_model_tpu_torch/examples/{m}.py" for m in (
+        "__init__", "reference_run", "scaling", "masked_lake",
+        "reaction_diffusion")} <= rel
     # the GSPMD executor, its spec and the timing helpers sit in scanned
     # files
     text = {f.relative_to(REPO).as_posix(): f.read_text() for f in files}
